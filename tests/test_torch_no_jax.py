@@ -1,0 +1,80 @@
+"""The port runs without JAX and without Pillow.
+
+A subprocess refuses every import of ``jax``, ``jaxlib`` and ``PIL``
+through a ``sys.meta_path`` hook, imports every module of
+``oavif_tpu_torch`` and ``chip_smoke``'s module-level code, and runs the
+port's CLI (target-quality search and fixed q) on a 256x256 PAM on the
+CPU, with the planner armed. Nothing may import a refused module.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent.parent
+
+_SCRIPT = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+REFUSED = ("jax", "jaxlib", "PIL")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError(f"refused import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+
+import chip_smoke  # noqa: F401  (module-level code only)
+import oavif_tpu_torch
+from oavif_tpu_torch import cli
+from oavif_tpu_torch.av1 import frame
+
+for mod in pkgutil.walk_packages(oavif_tpu_torch.__path__,
+                                 "oavif_tpu_torch."):
+    importlib.import_module(mod.name)
+
+src, out = sys.argv[1], sys.argv[2]
+assert cli.run(["-t", "80", src, out]) == 0
+assert frame.planners(), "the planner did not arm"
+assert cli.run(["-q", "60", src, out]) == 0
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not loaded, loaded
+print("NO_JAX_OK")
+"""
+
+
+def test_port_cli_runs_without_jax_or_pillow(tmp_path):
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import write_pam
+
+    rng = np.random.default_rng(4)
+    yy, xx = np.mgrid[0:256, 0:256]
+    img = (96 + 60 * np.sin(xx / 11.0)[..., None] * np.cos(yy / 7.0)[..., None]
+           + rng.normal(0, 4, (256, 256, 3)))
+    src = tmp_path / "in.pam"
+    write_pam(src, np.clip(img, 0, 255).astype(np.uint8))
+    env = dict(os.environ, OAVIF_TORCH_DEVICE="cpu", PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT, str(src), str(tmp_path / "o.avif")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK" in proc.stdout
+    assert (tmp_path / "o.avif").read_bytes()[4:12] == b"ftypavif"
+
+
+def test_port_sources_do_not_import_jax():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib)\b", re.M)
+    files = sorted((REPO / "oavif_tpu_torch").rglob("*.py"))
+    assert files
+    for path in files + [REPO / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path
