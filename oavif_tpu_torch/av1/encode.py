@@ -28,7 +28,56 @@ from oavif_tpu.av1.obu import (FrameConfig, SequenceConfig,
 from oavif_tpu.av1.yuv import yuv444_to_rgb
 from oavif_tpu.backend import EncCtx
 
-from .frame import encode_frame_planes
+from .frame import encode_frame_planes, get_planner
+
+
+def _source_rgb(src, out_depth: int) -> np.ndarray:
+    """The source's colour planes at the output depth, gray replicated to
+    RGB, cached per source (a cache hit pays nothing)."""
+    d = src.data
+    if d.ndim == 2:
+        d = d[..., None]
+    return _cached_pre(
+        src.data, ("rgb", src.hbd, out_depth, src.channels),
+        lambda: _depth_convert(
+            np.repeat(d[..., :1], 3, axis=2) if src.channels in (1, 2)
+            else d[..., :3], src.hbd, out_depth))
+
+
+def _tile_log2s(o, w: int, h: int) -> Tuple[int, int]:
+    """The frame's (tile_cols_log2, tile_rows_log2) under options ``o``."""
+    if o.auto_tiling and o.tile_cols_log2 == 0 and o.tile_rows_log2 == 0:
+        tcl, trl = _auto_tile_log2s(w, h, o.max_threads)
+    else:
+        tcl, trl = o.tile_cols_log2, o.tile_rows_log2
+    return clamp_tile_log2s(w, h, tcl, trl)
+
+
+def prefetch_plan(ctx: EncCtx, quality: int) -> None:
+    """Warm the device planner cache for ctx's frame at ``quality``; the
+    counterpart of the reference's prefetch_plan.
+
+    The corpus pipeline (tq/pipeline.py) runs this on its device worker
+    thread while the host encodes other images, so that an image's first
+    probe finds its plan ready. It takes the encode path's planes and
+    planner cache, and the encode path's gates (frame._encode_one_tile):
+    speeds 6-9, frames of at least 256x256 pixels, duel level 1 at speed
+    6. It plans single-tile frames only (the default one-thread tiling):
+    a multi-tile frame's planners are per tile. A planner that fails
+    raises."""
+    o, src = ctx.o, ctx.src
+    qindex = quality_to_qindex(quality)
+    if (os.environ.get("OAVIF_TPU_PLANNER", "1") == "0" or qindex <= 0
+            or not 6 <= o.speed <= 9
+            or _tile_log2s(o, src.width, src.height) != (0, 0)):
+        return
+    out_depth = 10 if o.tenbit else (10 if src.hbd else 8)
+    planes, _ = _cached_planes(src.data, _source_rgb(src, out_depth),
+                               out_depth)
+    if np.asarray(planes[0]).size < 256 * 256:
+        return
+    duel_level = 1 if o.speed <= 6 else 0
+    get_planner(planes, out_depth, 13, duel_level).plan(qindex)
 
 
 def encode_avif(ctx: EncCtx) -> bytes:
@@ -48,22 +97,9 @@ def encode_avif_with_recon(ctx: EncCtx) -> Tuple[bytes, np.ndarray]:
     if d.ndim == 2:
         d = d[..., None]
     channels = src.channels
-
-    if channels in (1, 2):  # gray -> replicate to RGB
-        # replicated inside the cached lambda, so a cache hit pays nothing
-        def _make_rgb_src():
-            return np.repeat(d[..., 0][..., None], 3, axis=2)
-
-        alpha_src = d[..., 1] if channels == 2 else None
-    else:
-        def _make_rgb_src():
-            return d[..., :3]
-
-        alpha_src = d[..., 3] if channels == 4 else None
-
-    rgb = _cached_pre(
-        src.data, ("rgb", src.hbd, out_depth, channels),
-        lambda: _depth_convert(_make_rgb_src(), src.hbd, out_depth))
+    alpha_src = (d[..., 1] if channels == 2
+                 else d[..., 3] if channels == 4 else None)
+    rgb = _source_rgb(src, out_depth)
     alpha = (
         _cached_pre(src.data, ("alpha", src.hbd, out_depth),
                     lambda: _depth_convert(alpha_src, src.hbd, out_depth))
@@ -74,11 +110,7 @@ def encode_avif_with_recon(ctx: EncCtx) -> Tuple[bytes, np.ndarray]:
     qindex = quality_to_qindex(ctx.q)  # 0 => CodedLossless (WHT 4x4)
 
     h, w = rgb.shape[:2]
-    if o.auto_tiling and o.tile_cols_log2 == 0 and o.tile_rows_log2 == 0:
-        tcl, trl = _auto_tile_log2s(w, h, o.max_threads)
-    else:
-        tcl, trl = o.tile_cols_log2, o.tile_rows_log2
-    tcl, trl = clamp_tile_log2s(w, h, tcl, trl)
+    tcl, trl = _tile_log2s(o, w, h)
 
     planes, ch_stats = _cached_planes(src.data, rgb, out_depth)
     uv_dq = (

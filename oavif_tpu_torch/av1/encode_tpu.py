@@ -15,7 +15,6 @@ reference's float32 decisions.
 
 from __future__ import annotations
 
-import ctypes as C
 import functools
 import threading
 from typing import Callable, Dict, Optional
@@ -26,6 +25,7 @@ import torch
 from oavif_tpu.av1.tables import TABLES, ac_q
 
 from ..device import resolve_device
+from ..kernels import launch
 
 # spec mode ids in search order: DC, V, H, SMOOTH, PAETH, SMOOTH_V,
 # SMOOTH_H, then the 6 directional families (D45, D135, D113, D157, D203,
@@ -194,21 +194,12 @@ def mode_ssd(plane: torch.Tensor, nby: int, nbx: int, n_px: int,
         raise ValueError(
             f"mode_ssd: unsupported grid {nby}x{nbx}x{n_px}, nmodes "
             f"{nmodes} on a {tuple(plane.shape)} plane")
-    from ..kernels.build import load
-
-    lib = load()
     smw, tap_idx, tap_w = _device_tables(n_px, plane.device)
     out = torch.empty((nby * nbx, nmodes), dtype=torch.int64,
                       device=plane.device)
-    with torch.cuda.device(plane.device):
-        rc = lib.planner_mode_ssd(
-            plane.data_ptr(), plane.shape[1], nby, nbx, n_px, nmodes, base,
-            smw.data_ptr(), tap_idx.data_ptr(), tap_w.data_ptr(),
-            out.data_ptr(),
-            C.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"planner_mode_ssd launch failed: CUDA error {rc}")
-    mode_ssd.launches += 1
+    launch(mode_ssd, "planner_mode_ssd", plane, plane.data_ptr(),
+           plane.shape[1], nby, nbx, n_px, nmodes, base, smw.data_ptr(),
+           tap_idx.data_ptr(), tap_w.data_ptr(), out.data_ptr())
     return out
 
 

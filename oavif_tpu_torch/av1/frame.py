@@ -20,7 +20,7 @@ from typing import List
 import numpy as np
 
 from oavif_tpu.av1.entropy.fast import tile_encode_native
-from oavif_tpu.av1.frame import TileEncoder, _get_dec, _store_dec
+from oavif_tpu.av1.frame import _DEC_CACHE, TileEncoder, _get_dec, _store_dec
 from oavif_tpu.av1.obu import tile_grid
 
 from ..device import resolve_device
@@ -32,11 +32,15 @@ _DIGEST_CACHE: dict = {}
 
 
 def reset_planners() -> None:
-    """Drop every cached planner (and its device planes), so that the next
-    encode uploads and plans afresh."""
+    """Drop every cached planner (and its device planes) and the
+    cross-probe decision cache keyed by their plans, so that the next
+    encode uploads, plans and decides afresh. (The decision cache clears
+    itself whenever it passes 16 entries, dead plans' included, so what it
+    holds changes which later probes replay decisions.)"""
     with _PLANNER_CACHE_LOCK:
         _PLANNER_CACHE.clear()
         _DIGEST_CACHE.clear()
+        _DEC_CACHE.clear()
 
 
 def planners() -> List[FramePlanner]:

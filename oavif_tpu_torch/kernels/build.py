@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``oavif_tpu_torch/csrc/*.cu`` for sm_90a into one shared
-library with a plain C interface under ``build/oavif_tpu_torch/`` (listed
-in .gitignore), rebuilt when a source is newer than the library, and
+``nvcc`` compiles each ``oavif_tpu_torch/csrc/*.cu`` for sm_90a, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface under ``build/oavif_tpu_torch/``
+(listed in .gitignore), rebuilt when a source is newer than the library;
 ``ctypes`` loads it. Pointers go in as ``c_void_p`` from
 ``tensor.data_ptr()``, with ``torch.cuda.current_stream().cuda_stream``;
 each entry returns ``cudaGetLastError()``. A failed build raises: there is
@@ -26,7 +27,7 @@ BUILD_DIR = _PKG.parent / "build" / "oavif_tpu_torch"
 LIB_PATH = BUILD_DIR / "liboavif_kernels.so"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[C.CDLL] = None
 _lock = threading.Lock()
@@ -50,15 +51,31 @@ def _build() -> None:
     global build_log
     srcs = sorted(CSRC.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
+        objs = [Path(td) / f"{src.stem}.o" for src in srcs]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)]
+        logs = []
+        for src, proc in zip(srcs, procs):
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
         tmp = Path(td) / LIB_PATH.name
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        build_log = proc.stdout + proc.stderr
+                f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        build_log = "".join(logs)
         os.replace(tmp, LIB_PATH)
 
 
@@ -72,8 +89,17 @@ def load() -> C.CDLL:
         if not LIB_PATH.exists() or LIB_PATH.stat().st_mtime < newest:
             _build()
         lib = C.CDLL(str(LIB_PATH))
-        p, i = C.c_void_p, C.c_int
-        lib.planner_mode_ssd.restype = i
-        lib.planner_mode_ssd.argtypes = [p, i, i, i, i, i, i, p, p, p, p, p]
+        p, i, f = C.c_void_p, C.c_int, C.c_float
+        entries = {
+            "planner_mode_ssd": [p, i, i, i, i, i, i, p, p, p, p, p],
+            "ssim2_pyramid_rgb8": [p, i, i, i, p, p, p, p],
+            "ssim2_pyramid_down": [p, i, i, i, p, p, p, p],
+            "ssim2_blur": [p, i, p, i, i, i, p, i, p, p, p, p],
+            "ssim2_norms": [p, p, p, i, p, p, p, p, i, i, i, f, p, i, p, p],
+        }
+        for name, argtypes in entries.items():
+            fn = getattr(lib, name)
+            fn.restype = i
+            fn.argtypes = argtypes
         _lib = lib
         return lib

@@ -2,10 +2,11 @@
 reference-context cache; the counterpart of oavif_tpu/metric/native.py,
 whose package imports the JAX metric eagerly.
 
-The C scorer is the only implementation the port has: the device metric
-(``OAVIF_METRIC=jax`` in the reference) is not ported yet and raises
-rather than scoring somewhere else. A native library that fails to build
-raises too.
+``OAVIF_METRIC=c|jax|auto`` selects the scorer as in the reference: ``c``
+(and ``auto``) the C scorer, ``jax`` the device metric
+(``ssimulacra2.py``; the reference's spelling is kept so that one
+environment drives both packages). A native library that fails to build
+raises rather than scoring somewhere else.
 """
 
 from __future__ import annotations
@@ -85,13 +86,11 @@ def compute_ssimulacra2_native(ref_rgb8, dist_rgb8) -> float:
 
 
 def metric_impl() -> str:
-    """Selected implementation (OAVIF_METRIC=c|jax|auto): always 'c' here;
-    the device metric raises until it is ported."""
+    """Selected implementation: 'c' (OAVIF_METRIC=c or auto) or 'jax' (the
+    device metric, OAVIF_METRIC=jax)."""
     mode = os.environ.get("OAVIF_METRIC", "auto").lower()
     if mode == "jax":
-        raise NotImplementedError(
-            "the device SSIMULACRA2 (OAVIF_METRIC=jax) is not yet ported "
-            "to oavif_tpu_torch")
+        return "jax"
     if mode not in ("c", "auto"):
         raise ValueError(f"unknown OAVIF_METRIC {mode!r}")
     _lib()
@@ -100,7 +99,10 @@ def metric_impl() -> str:
 
 def score_batch_auto(ref_rgb8, dist_batch) -> np.ndarray:
     """Score a (N, H, W, 3) batch against one reference with the selected
-    implementation."""
-    metric_impl()
+    implementation (the C loop, or one pass of the device kernels)."""
+    if metric_impl() == "jax":
+        from .ssimulacra2 import compute_ssimulacra2_batch
+
+        return compute_ssimulacra2_batch(ref_rgb8, dist_batch)
     ctx = _get_ctx(ref_rgb8)
     return np.array([ctx.score(d) for d in dist_batch], dtype=np.float64)

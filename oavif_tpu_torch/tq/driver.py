@@ -27,6 +27,7 @@ from oavif_tpu.tq.search import (
 from ..backend import EncBuffer, EncCtx
 from ..metric.native import (compute_ssimulacra2_native, metric_impl,
                              score_batch_auto)
+from ..metric.ssimulacra2 import make_ref_scorer
 
 
 def make_probe(ctx: EncCtx, backend, metric):
@@ -91,10 +92,12 @@ def search_encode(
     AVIF bytes), reusing a cached bitstream when the selected quantizer was
     already probed.
 
-    Batching exists to amortize a device metric over candidate encodes;
-    with the host C metric (the only one ported) the sequential loop is
-    the default, as in the reference. OAVIF_TQ_BATCH=0/1 forces either,
-    OAVIF_TQ_BATCH_WIDTH sets candidates per round."""
+    Batching exists to amortize a device metric over candidate encodes:
+    it is the default with the device metric (OAVIF_METRIC=jax), and the
+    sequential loop with the host C metric, as in the reference.
+    OAVIF_TQ_BATCH=0/1 forces either, OAVIF_TQ_BATCH_WIDTH sets candidates
+    per round. The sequential loop with the device metric keeps the
+    reference pyramid on the device across probes (make_ref_scorer)."""
     o = ctx.o
     batch_env = os.environ.get("OAVIF_TQ_BATCH")
     if batch_env is not None:
@@ -111,8 +114,8 @@ def search_encode(
         )
     else:
         if metric is None:
-            metric_impl()  # raises for a metric that is not ported
-            metric = compute_ssimulacra2_native
+            metric = (compute_ssimulacra2_native if metric_impl() == "c"
+                      else make_ref_scorer(ctx.rgb))
         probe_obj = make_probe(ctx, backend, metric)
         result = find_target_quality(
             probe_obj, o.score_tgt, o.tolerance, o.max_pass,

@@ -1,5 +1,5 @@
-"""The planner kernel on an NVIDIA GPU: build, launch, and equality with
-its plain PyTorch version. Skipped without CUDA.
+"""The planner and metric kernels on an NVIDIA GPU: build, launch, and
+equality with their plain PyTorch versions. Skipped without CUDA.
 
 Imports no JAX, so it also runs where JAX is absent:
 
@@ -18,6 +18,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from oavif_tpu_torch.av1 import encode_tpu as ET  # noqa: E402
+from oavif_tpu_torch.metric import ssimulacra2 as M  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +82,110 @@ def test_kernel_rejects_bad_input(cuda):
         ET.mode_ssd(y, 5, 7, 8, 128, 7)
     with pytest.raises(ValueError):
         ET.mode_ssd(y, 50, 7, 64, 128, 7)
+
+
+# ---------------------------------------------------------------------------
+# The metric kernels (csrc/ssimulacra2.cu) against their plain versions.
+# Tolerances: linear RGB exact (a table built by the plain function; the
+# same roundings in the downsample); XYB 2e-6 (cbrtf is within 1 ulp of
+# the plain version's float64 cube root, and X' = 7 (l - m) + 0.42); blur
+# 1e-5 (float32 taps summed in another order than cuDNN's); norms rtol
+# 1e-10 (the same float32 maps, float64 sums in another order); scores
+# 0.01; identity exactly 100.
+# ---------------------------------------------------------------------------
+
+def _batch(cuda, n, h, w, seed=0):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    ref = np.clip(np.stack([128 + 90 * np.sin(xx / 9.0) * np.cos(yy / 7.0),
+                            120 + 60 * np.cos(xx / 13.0),
+                            100 + 80 * np.sin((xx + yy) / 11.0)], -1)
+                  + rng.normal(0, 6, (h, w, 3)), 0, 255).astype(np.uint8)
+    dist = [np.clip(ref + rng.normal(0, s, ref.shape), 0, 255)
+            .astype(np.uint8) for s in (0, 2, 6, 20)[:n]]
+    return (torch.from_numpy(ref).to(cuda),
+            torch.from_numpy(np.stack(dist)).to(cuda))
+
+
+@pytest.mark.parametrize("h,w", [(8, 8), (37, 53), (256, 320)])
+def test_pyramid_kernel_equals_plain(cuda, h, w):
+    _, src = _batch(cuda, 4, h, w)
+    for _ in range(M._num_scales(h, w)):
+        launches = M.ssim2_pyramid.launches
+        lin, xyb = M.ssim2_pyramid(src)
+        assert M.ssim2_pyramid.launches == launches + 1
+        plin, pxyb = M.ssim2_pyramid_plain(src)
+        torch.cuda.synchronize()
+        assert torch.equal(lin, plin)
+        assert float((xyb - pxyb).abs().max()) <= 2e-6
+        src = lin
+
+
+@pytest.mark.parametrize("radius", [0, 5, 8])
+@pytest.mark.parametrize("h,w", [(8, 8), (37, 53), (256, 320)])
+def test_blur_kernel_equals_plain(cuda, radius, h, w):
+    ref, dist = _batch(cuda, 4, h, w)
+    img1 = M.ssim2_pyramid(ref[None])[1]
+    img2 = M.ssim2_pyramid(dist)[1]
+    for got, want in ((M.ssim2_blur(img1, None, radius),
+                       M.ssim2_blur_plain(img1, None, radius)),
+                      (M.ssim2_blur(img1, img2, radius),
+                       M.ssim2_blur_plain(img1, img2, radius))):
+        torch.cuda.synchronize()
+        for g, p in zip(got, want):
+            assert float((g - p).abs().max()) <= 1e-5
+    # the identical candidate (index 0) gives the reference side's bits
+    mu1, s11 = M.ssim2_blur(img1, None, radius)
+    mu2, s22, s12 = M.ssim2_blur(img1, img2, radius)
+    assert torch.equal(mu2[0], mu1[0]) and torch.equal(s22[0], s11[0])
+    assert torch.equal(s12[0], s11[0])
+
+
+@pytest.mark.parametrize("h,w", [(8, 8), (37, 53), (256, 320)])
+def test_norms_kernel_equals_plain(cuda, h, w):
+    ref, dist = _batch(cuda, 4, h, w)
+    img1 = M.ssim2_pyramid(ref[None])[1]
+    img2 = M.ssim2_pyramid(dist)[1]
+    mu1, s11 = M.ssim2_blur(img1, None, 8)
+    planes = (img1, mu1, s11, img2, *M.ssim2_blur(img1, img2, 8))
+    got = M.ssim2_norms(*planes)
+    want = M.ssim2_norms_plain(*planes)
+    torch.cuda.synchronize()
+    assert got.shape == (4, 3, 6) and got.dtype == torch.float64
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=0)
+    assert torch.count_nonzero(got[0]) == 0  # identity: every map is 0
+
+
+@pytest.mark.parametrize("h,w", [(8, 8), (37, 53), (256, 320)])
+def test_score_kernels_equal_plain_identity_and_repeat(cuda, h, w):
+    ref, dist = _batch(cuda, 4, h, w)
+    pyr = M.ssimulacra2_precompute_ref(ref, cuda)
+    got = M.ssimulacra2_from_precomputed(pyr, dist)
+    again = M.ssimulacra2_from_precomputed(
+        M.ssimulacra2_precompute_ref(ref, cuda), dist)
+    plain = M.ssimulacra2_from_precomputed(
+        M.ssimulacra2_precompute_ref(ref, cuda, M.PLAIN), dist, M.PLAIN)
+    torch.cuda.synchronize()
+    assert float(got[0]) == 100.0
+    assert torch.equal(got, again)
+    assert float((got - plain).abs().max()) <= 0.01
+
+
+def test_metric_kernels_reject_bad_input(cuda):
+    ref, dist = _batch(cuda, 2, 37, 53)
+    xyb = M.ssim2_pyramid(dist)[1]
+    with pytest.raises(ValueError):
+        M.ssim2_pyramid(dist.to(torch.int16))
+    with pytest.raises(ValueError):
+        M.ssim2_pyramid(dist.permute(0, 2, 1, 3))
+    with pytest.raises(ValueError):
+        M.ssim2_blur(xyb, xyb.cpu(), 8)
+    with pytest.raises(ValueError):
+        M.ssim2_blur(xyb, None, 9)
+    with pytest.raises(ValueError):
+        M.ssim2_blur(xyb.transpose(2, 3), None, 8)
+    with pytest.raises(ValueError):
+        M.ssim2_blur(xyb.double(), None, 8)
+    with pytest.raises(ValueError):
+        M.ssim2_norms(xyb, xyb, xyb, xyb[:, :, :-1].contiguous(), xyb, xyb,
+                      xyb)

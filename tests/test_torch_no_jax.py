@@ -2,9 +2,12 @@
 
 A subprocess refuses every import of ``jax``, ``jaxlib`` and ``PIL``
 through a ``sys.meta_path`` hook, imports every module of
-``oavif_tpu_torch`` and ``chip_smoke``'s module-level code, and runs the
-port's CLI (target-quality search and fixed q) on a 256x256 PAM on the
-CPU, with the planner armed. Nothing may import a refused module.
+``oavif_tpu_torch`` and ``chip_smoke``'s module-level code, and runs on a
+256x256 PAM on the CPU, with the planner armed: the port's CLI
+(target-quality search and fixed q), the CLI's search with the device
+metric (``OAVIF_METRIC=jax``), and the corpus pipeline with every score on
+the device metric (``OAVIF_PIPELINE_METRIC=jax``). Nothing may import a
+refused module.
 """
 
 from __future__ import annotations
@@ -34,10 +37,17 @@ class Refuse(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, Refuse())
 
+import os
+
 import chip_smoke  # noqa: F401  (module-level code only)
 import oavif_tpu_torch
+from oavif_tpu.backend import EncCtx
+from oavif_tpu.io.image import load_image, to_rgb8
+from oavif_tpu.options import EncOptions
 from oavif_tpu_torch import cli
 from oavif_tpu_torch.av1 import frame
+from oavif_tpu_torch.backend.cuda import CudaBackend
+from oavif_tpu_torch.tq.pipeline import search_encode_corpus
 
 for mod in pkgutil.walk_packages(oavif_tpu_torch.__path__,
                                  "oavif_tpu_torch."):
@@ -47,6 +57,17 @@ src, out = sys.argv[1], sys.argv[2]
 assert cli.run(["-t", "80", src, out]) == 0
 assert frame.planners(), "the planner did not arm"
 assert cli.run(["-q", "60", src, out]) == 0
+os.environ["OAVIF_METRIC"] = "jax"
+assert cli.run(["-t", "80", src, out]) == 0
+del os.environ["OAVIF_METRIC"]
+os.environ["OAVIF_PIPELINE_METRIC"] = "jax"
+img = load_image(src)
+rgb = to_rgb8(img)
+(result, data), = search_encode_corpus(
+    [EncCtx(o=EncOptions(), src=img, rgb=rgb, w=img.width, h=img.height)],
+    CudaBackend())
+assert search_encode_corpus.last_mode == "jax" and len(data) > 100
+assert 0.0 < result.score <= 100.0, result
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not loaded, loaded
 print("NO_JAX_OK")
