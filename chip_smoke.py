@@ -37,13 +37,29 @@ Phases, each of which raises on failure (exit code != 0):
    planner kernel must launch, the bytes must repeat, every score must lie
    in (0, 100];
 8. main path, the batched CLI search: ``-t 80`` with ``OAVIF_METRIC=jax``
-   on the 3840x2160 frame must exit 0 and launch the metric kernels.
+   on the 3840x2160 frame must exit 0 and launch the metric kernels;
+9. encode-stage kernels against plain versions: ``dstage_coeffs16`` (K3a)
+   within 1e-6 * max|c| of the block + 1e-3 and ``dstage_quant16`` (K3b)
+   bit-identical, at qindex 30, 60 and 90 at once and singly, on the six
+   classes' and the 3840x2160 frame's 10-bit planes with their plan's
+   modes and with random modes; CUDA-event times at 3840x2160 of K3a, K3b
+   (1 and 3 quantizers) and their plain versions, and the host wall time
+   of the levels fetch;
+10. main path, the device encode stage: the CLI with ``OAVIF_PY_TILE=1
+   OAVIF_DEVICE_LEVELS=1``, ``-q 89`` on the six classes and ``-t 80`` on
+   fractal; the coder must consume device levels and K3a, K3b and the
+   planner must launch; every probe's levels are also computed with the
+   plain versions on the card, and none may differ by more than 1 or at
+   more than 4 positions of a block.
 
 Each main path runs with every kernel's launch count set to 0 just before
 and read just after. The line before the last is a JSON object with each
 kernel's launches on the main paths, its largest difference from its plain
-version and its times; the last line is ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX and no Pillow.
+version, its times at 3840x2160, its bound (bytes over the HBM rate or
+operations over the float32 rate, the larger) and one PyTorch call's time
+where one computes the same function; the last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX, nothing of the
+JAX package and no Pillow.
 """
 
 from __future__ import annotations
@@ -62,8 +78,11 @@ import numpy as np
 import torch
 
 from oavif_tpu_torch import cli
+from oavif_tpu_torch.av1 import device_stage as DS
 from oavif_tpu_torch.av1 import encode_tpu as ET
 from oavif_tpu_torch.av1 import frame as FR
+from oavif_tpu_torch.av1.encode import _depth_convert
+from oavif_tpu_torch.av1.yuv import rgb_to_yuv444
 from oavif_tpu_torch.device import resolve_device
 from oavif_tpu_torch.kernels import build
 from oavif_tpu_torch.metric import ssimulacra2 as M
@@ -79,8 +98,22 @@ KERNELS = {
                    "oavif_tpu/metric/ssimulacra2.py:332"),
     "ssim2_norms": (M.ssim2_norms, "oavif_tpu_torch/csrc/ssimulacra2.cu",
                     "oavif_tpu/metric/ssimulacra2.py:373"),
+    "dstage_coeffs16": (DS.coeffs16, "oavif_tpu_torch/csrc/device_stage.cu",
+                        "oavif_tpu/av1/device_stage.py:68"),
+    "dstage_quant16": (DS.quant16, "oavif_tpu_torch/csrc/device_stage.cu",
+                       "oavif_tpu/av1/device_stage.py:83"),
 }
 METRIC_KERNELS = ("ssim2_pyramid", "ssim2_blur", "ssim2_norms")
+# the kernels of the CLI, pipeline and batched-search paths
+SEARCH_KERNELS = ("planner_mode_ssd", *METRIC_KERNELS)
+LEVEL_KERNELS = ("dstage_coeffs16", "dstage_quant16")
+LEVEL_QS = (30, 60, 90)
+# the card the encode-stage phases run on (a CPU rehearsal may set it)
+DEVICE = torch.device("cuda")
+# NVIDIA H100 SXM data-sheet peaks: HBM bytes/s and float32 operations/s
+# outside the tensor cores (the 32-bit rate the int32 planner is held to)
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
 # kernel against plain version, with the reasons in tests/test_torch_cuda.py
 TOL = {"ssim2_pyramid": 2e-6, "ssim2_blur": 1e-5, "ssim2_norms": 1e-9,
        "score": 0.01}
@@ -95,6 +128,19 @@ def read_counts() -> dict:
     return {name: k[0].launches for name, k in KERNELS.items()}
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: float, ops: float) -> dict:
+    """The least time of a function on the card: the larger of its bytes
+    (each input read once, each output written once) over the HBM rate and
+    its operations over the float32 rate."""
+    t_bytes, t_ops = moved / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def write_pam(path: str, rgb: np.ndarray) -> None:
     """Write an (h, w, 3) uint8 image as a Netpbm PAM (P7) file."""
     h, w = rgb.shape[:2]
@@ -104,18 +150,113 @@ def write_pam(path: str, rgb: np.ndarray) -> None:
         f.write(np.ascontiguousarray(rgb, dtype=np.uint8).tobytes())
 
 
-def bench_images(size: int = 512) -> dict:
-    """The six bench classes at size x size (bench.py's generators)."""
-    import bench
+# The six bench classes: copies of bench.py's generators, with its seeds.
 
-    return {name: getattr(bench, f"_img_{name}")(size, size)
-            for name in CLASSES}
+
+def _img_sinusoid(h, w, seed=7):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.stack(
+        [
+            128 + 100 * np.sin(xx / 17.0) * np.cos(yy / 23.0),
+            120 + 80 * np.cos(xx / 29.0) + 20 * np.sin(yy / 7.0),
+            100 + 90 * np.sin((xx + yy) / 31.0),
+        ],
+        -1,
+    )
+    img += rng.normal(0, 6, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _img_fractal(h, w, seed=11):
+    """1/f ("pink") random field per channel — the spectral shape of
+    natural photographs."""
+    rng = np.random.default_rng(seed)
+    fy = np.fft.fftfreq(h)[:, None]
+    fx = np.fft.fftfreq(w)[None, :]
+    rad = np.sqrt(fy * fy + fx * fx)
+    rad[0, 0] = 1.0
+    chans = []
+    for c in range(3):
+        spec = (rng.normal(size=(h, w)) + 1j * rng.normal(size=(h, w))) / rad
+        f = np.real(np.fft.ifft2(spec))
+        f = (f - f.min()) / (f.max() - f.min())
+        chans.append(40 + 175 * f)
+    return np.clip(np.stack(chans, -1), 0, 255).astype(np.uint8)
+
+
+def _img_edges(h, w, seed=13):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    g = np.where((xx // 37 + yy // 23) % 2 == 0, 205.0, 70.0)
+    g += np.where((xx + 2 * yy) % 97 < 8, 40.0, 0.0)
+    img = np.stack([g, 0.85 * g + 20, 255 - 0.7 * g], -1)
+    img += rng.normal(0, 3, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _img_oriented(h, w, seed=17):
+    """Angled stripes with a slowly drifting orientation — the content
+    class directional intra and rect partitions exist for."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    ang = 0.55 + 0.25 * np.sin(yy / 140.0)
+    phase = xx * np.cos(ang) + yy * np.sin(ang)
+    g = 128 + 62 * np.sin(phase / 4.3) + 18 * np.sin(phase / 23.0)
+    img = np.stack([g, 0.88 * g + 14, 238 - 0.62 * g], -1)
+    img += rng.normal(0, 4, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _img_text(h, w, seed=19):
+    """Text-like glyph strokes on a smooth gradient — screen content
+    (the palette/IDTX class)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    g = 60 + 140 * (xx + yy) / (h + w)  # diagonal gradient background
+    glyph = np.zeros((h, w))
+    for row in range(8, h - 16, 22):
+        x = 10
+        while x < w - 20:
+            cw = int(rng.integers(4, 14))
+            if rng.random() < 0.75:
+                glyph[row : row + 12, x : x + 2] = 1  # vertical stroke
+                if rng.random() < 0.5:
+                    glyph[row : row + 2, x : x + cw] = 1  # top bar
+                if rng.random() < 0.5:
+                    glyph[row + 10 : row + 12, x : x + cw] = 1
+            x += cw + 4
+    g = np.where(glyph > 0, 16.0, g)
+    img = np.stack([g, g * 0.96 + 4, g * 1.02], -1)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _img_mixed(h, w, seed=23):
+    """Mixed-scale structure: large smooth areas with embedded
+    fine-detail patches — exercises partition adaptivity."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    g = 110 + 70 * np.sin(xx / 190.0) * np.cos(yy / 160.0)
+    for _ in range(10):
+        py, px = rng.integers(0, h - 72), rng.integers(0, w - 72)
+        ph, pw = rng.integers(28, 72), rng.integers(28, 72)
+        fy, fx = rng.uniform(2.5, 6.0), rng.uniform(2.5, 6.0)
+        sub = np.mgrid[0:ph, 0:pw]
+        g[py : py + ph, px : px + pw] = 128 + 58 * np.sin(
+            sub[1] / fx
+        ) * np.cos(sub[0] / fy)
+    img = np.stack([g, 0.9 * g + 12, 250 - 0.68 * g], -1)
+    img += rng.normal(0, 5, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def bench_images(size: int = 512) -> dict:
+    """The six bench classes at size x size."""
+    gens = globals()
+    return {name: gens[f"_img_{name}"](size, size) for name in CLASSES}
 
 
 def yuv_planes(rgb: np.ndarray, bitdepth: int):
-    from oavif_tpu.av1.encode import _depth_convert
-    from oavif_tpu.av1.yuv import rgb_to_yuv444
-
     return rgb_to_yuv444(_depth_convert(rgb, False, bitdepth),
                          bitdepth=bitdepth)
 
@@ -217,7 +358,11 @@ def phase_kernel(images: dict, frame4k: np.ndarray) -> dict:
         full_k = cuda_ms(lambda: ET.plan_device(*dev, 100, 10), reps=10)
         full_p = cuda_ms(lambda: ET.plan_device(
             *dev, 100, 10, ssd=ET.mode_ssd_plain), reps=10)
-        times[label] = (kms, pms)
+        # difference, square and sum per pixel and mode of the 5 launches
+        px = (dev[0].shape[0] - 1) * (dev[0].shape[1] - 1)
+        times[label] = {"ms": kms, "plain_ms": pms, "library_ms": None,
+                        **bound(nbytes(*dev, *got),
+                                3 * px * (7 + 7 + 13 + 1 + 1))}
         print(f"{label} 10-bit, nmodes 13: one plan's 5 SSD launches "
               f"kernel {kms:.4f} ms, plain {pms:.4f} ms; whole plan_device "
               f"kernel {full_k:.4f} ms, plain {full_p:.4f} ms", flush=True)
@@ -327,10 +472,8 @@ def phase_main_path(images: dict, acc: dict) -> tuple:
 def frame_4k() -> np.ndarray:
     """A 3840x2160 photo-like frame: 1/f texture over smooth gradients
     (not a multiple of 64 tall, so the planner crops)."""
-    import bench
-
-    fractal = bench._img_fractal(2160, 3840, seed=31).astype(np.float64)
-    smooth = bench._img_sinusoid(2160, 3840, seed=37).astype(np.float64)
+    fractal = _img_fractal(2160, 3840, seed=31).astype(np.float64)
+    smooth = _img_sinusoid(2160, 3840, seed=37).astype(np.float64)
     return np.clip(0.5 * fractal + 0.5 * smooth, 0, 255).astype(np.uint8)
 
 
@@ -413,7 +556,9 @@ def metric_case(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
 def metric_times(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
     """CUDA-event ms of one candidate batch's score (all scales, the
     reference pyramid precomputed) and of each kernel alone at scale 0,
-    kernel against plain version."""
+    kernel against plain version, with each kernel's bound and, for the
+    blur, one cuDNN convolution's time (``F.conv2d`` with the 17x17 Gaussian
+    over the three distorted-side maps, their products made beforehand)."""
     pyr_k = M.ssimulacra2_precompute_ref(ref, ref.device)
     pyr_p = M.ssimulacra2_precompute_ref(ref, ref.device, M.PLAIN)
     img1, mu1, s11 = (t[None] for t in pyr_k[0])
@@ -432,15 +577,37 @@ def metric_times(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
         "ssim2_norms": (lambda: M.ssim2_norms(*planes),
                         lambda: M.ssim2_norms_plain(*planes)),
     }
+    # operations per pixel and channel: the opsin mix, cube roots and XYB
+    # combination (27); 3 maps x 2 passes x 17 taps x 2 plus 2 products
+    # (206); the SSIM, artifact and detail maps and their norms (40)
+    npx = dist.shape[0] * 3 * dist.shape[1] * dist.shape[2]
+    pyr_out = M.ssim2_pyramid(dist)
+    bounds = {
+        "ssim2_pyramid": bound(nbytes(dist, *pyr_out), 27 * npx),
+        "ssim2_blur": bound(nbytes(img1, img2, *dist_stats), 206 * npx),
+        "ssim2_norms": bound(nbytes(*planes, M.ssim2_norms(*planes)),
+                             40 * npx),
+    }
+    h, w = img2.shape[-2:]
+    k1d = M._taps(8, img2.device)
+    k2d = (k1d[:, None] * k1d[None, :])[None, None]
+    stack = torch.stack([img2, img2 * img2, img1 * img2]).reshape(-1, 1, h, w)
+    conv = cuda_ms(lambda: torch.nn.functional.conv2d(stack, k2d, padding=8),
+                   reps)
     times = {}
     for key, (kernel, plain) in pairs.items():
         # plain, kernel, kernel, plain: the mean of each pair
         p0, k0 = cuda_ms(plain, reps), cuda_ms(kernel, reps)
         k1, p1 = cuda_ms(kernel, reps), cuda_ms(plain, reps)
-        times[key] = ((k0 + k1) / 2, (p0 + p1) / 2)
+        times[key] = {"ms": (k0 + k1) / 2, "plain_ms": (p0 + p1) / 2,
+                      "library_ms": conv if key == "ssim2_blur" else None,
+                      **bounds.get(key, {})}
+        extra = "".join(f", {k} {times[key][k]}" for k in
+                        ("library_ms", "bound_ms", "bound_by")
+                        if times[key].get(k) is not None)
         print(f"  {label}x{dist.shape[0]} {key}: kernel "
-              f"{times[key][0]:.4f} ms, plain {times[key][1]:.4f} ms",
-              flush=True)
+              f"{times[key]['ms']:.4f} ms, plain "
+              f"{times[key]['plain_ms']:.4f} ms{extra}", flush=True)
     return times
 
 
@@ -469,9 +636,9 @@ def phase_metric(images: dict, frame4k: np.ndarray) -> dict:
 
 
 def make_ctx(rgb: np.ndarray):
-    from oavif_tpu.backend import EncCtx
-    from oavif_tpu.io.image import Image
-    from oavif_tpu.options import EncOptions
+    from oavif_tpu_torch.backend import EncCtx
+    from oavif_tpu_torch.io.image import Image
+    from oavif_tpu_torch.options import EncOptions
 
     h, w = rgb.shape[:2]
     return EncCtx(o=EncOptions(),
@@ -549,7 +716,7 @@ def phase_corpus(images: dict) -> dict:
                   f"{r.num_pass} bytes {len(data)}", flush=True)
         passes = sum(r.num_pass for r, _ in out)
         for c in (counts, counts2):
-            if min(c.values()) <= 0:
+            if min(c[k] for k in SEARCH_KERNELS) <= 0:
                 raise AssertionError(f"pipeline {got_mode}: a kernel did not "
                                      f"launch: {c}")
             # jax mode: every probe's 6 scales, and each image's reference
@@ -585,8 +752,191 @@ def phase_batched_cli(frame4k: np.ndarray, acc: dict) -> dict:
           f"{r['score']} passes {r['passes']} rounds {r['rounds']} bytes "
           f"{len(r['bytes'])} wall {r['wall']:.3f} s, launches {counts}",
           flush=True)
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in SEARCH_KERNELS) <= 0:
         raise AssertionError(f"batched CLI: a kernel did not launch: {counts}")
+    return counts
+
+
+def coeff_excess(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over blocks of |got - want| less the K3a tolerance, 1e-6 * max|c|
+    of the block + 1e-3 (the float32 products sum in another order; the
+    predictions and residuals are exact): <= 0 passes."""
+    tol = 1e-6 * want.abs().amax((1, 2)) + 1e-3
+    return float(((got - want).abs().amax((1, 2)) - tol).max())
+
+
+def level_dq(qs, bitdepth: int = 10):
+    """(dq_dc, dq_ac) float32 tensors on the card for the qindexes qs."""
+    return (torch.tensor([float(DS.dc_q(q, bitdepth)) for q in qs],
+                         device=DEVICE),
+            torch.tensor([float(DS.ac_q(q, bitdepth)) for q in qs],
+                         device=DEVICE))
+
+
+def phase_levels_kernels(images: dict, frame4k: np.ndarray) -> dict:
+    """K3a and K3b against their plain versions on the card, on the six
+    classes' and the 3840x2160 frame's 10-bit planes, each with its plan's
+    modes at qindex 28 and with seeded random modes; times at 3840x2160."""
+    rng = np.random.default_rng(3)
+    worst = {"dstage_coeffs16": 0.0, "dstage_quant16": 0}
+    dqd, dqa = level_dq(LEVEL_QS)
+    for name, rgb in [*images.items(), ("photo4k", frame4k)]:
+        fp = ET.FramePlanner(yuv_planes(rgb, 10), 10, device=DEVICE)
+        y, nby, nbx = fp.dev[0], fp.sby * 4, fp.sbx * 4
+        plan_modes, mask = FR.device_level_modes(fp.plan(28))
+        for kind, modes in (("plan", plan_modes),
+                            ("random", rng.integers(0, 7, (nby, nbx)))):
+            m = torch.from_numpy(modes.astype(np.int32)).to(DEVICE)
+            cf = DS.coeffs16(y, nby, nbx, m, 10)
+            want = DS.coeffs16_plain(y, nby, nbx, m, 10)
+            lv, eob = DS.quant16(cf, dqd, dqa)
+            plv, peob = DS.quant16_plain(cf, dqd, dqa)
+            torch.cuda.synchronize()
+            excess = coeff_excess(cf, want)
+            err = max_abs(cf, want)
+            worst["dstage_coeffs16"] = max(worst["dstage_coeffs16"], err)
+            if excess > 0:
+                raise AssertionError(f"K3a {name} {kind}: |kernel - plain| "
+                                     f"{err} beyond tolerance by {excess}")
+            if not (torch.equal(lv, plv) and torch.equal(eob, peob)):
+                raise AssertionError(f"K3b {name} {kind}: kernel != plain "
+                                     f"at qindex {LEVEL_QS}")
+            for k in range(len(LEVEL_QS)):
+                one = DS.quant16(cf, dqd[k : k + 1], dqa[k : k + 1])
+                pone = DS.quant16_plain(cf, dqd[k : k + 1], dqa[k : k + 1])
+                if not (torch.equal(one[0][0], lv[k])
+                        and torch.equal(one[1][0], eob[k])
+                        and torch.equal(pone[0], one[0])):
+                    raise AssertionError(f"K3b {name} {kind}: single q "
+                                         f"{LEVEL_QS[k]} != its batch slice")
+            print(f"  {name} {rgb.shape[1]}x{rgb.shape[0]} {kind} modes: "
+                  f"{nby * nbx} blocks ({int(mask.sum())} consumable), "
+                  f"max |c| {float(want.abs().max()):.1f}, K3a max |kernel - "
+                  f"plain| {err:.3g}; K3b equal at qindex {LEVEL_QS} and "
+                  f"singly, nonzero levels {int((lv != 0).sum())}",
+                  flush=True)
+    # times at 3840x2160 (fp, y and plan_modes are the frame's last case)
+    modes = torch.from_numpy(plan_modes).to(DEVICE)
+    cf = DS.coeffs16(y, nby, nbx, modes, 10)
+    n = nby * nbx
+    reps = 20
+
+    def pair(kernel, plain):
+        p0, k0 = cuda_ms(plain, reps), cuda_ms(kernel, reps)
+        k1, p1 = cuda_ms(kernel, reps), cuda_ms(plain, reps)
+        return (k0 + k1) / 2, (p0 + p1) / 2
+
+    times = {}
+    kms, pms = pair(lambda: DS.coeffs16(y, nby, nbx, modes, 10),
+                    lambda: DS.coeffs16_plain(y, nby, nbx, modes, 10))
+    # two 16x16x16 products of 2 operations per multiply-add, per block
+    times["dstage_coeffs16"] = {
+        "ms": kms, "plain_ms": pms, "library_ms": None,
+        **bound(nbytes(y, modes, cf), n * 2 * 16 ** 3 * 2)}
+    for k in (3, 1):
+        d1, d2 = dqd[:k], dqa[:k]
+        kms, pms = pair(lambda: DS.quant16(cf, d1, d2),
+                        lambda: DS.quant16_plain(cf, d1, d2))
+        lv, eob = DS.quant16(cf, d1, d2)
+        # |c| * up, / dq, + 0.5, floor, sign, clip (2) per coefficient
+        times[f"dstage_quant16 k={k}"] = {
+            "ms": kms, "plain_ms": pms, "library_ms": None,
+            **bound(nbytes(cf, d1, d2, lv, eob) + DS.iscan16().nbytes,
+                    7 * n * 256 * k)}
+    times["dstage_quant16"] = times["dstage_quant16 k=1"]
+    dl = DS.DeviceLevels(fp, 10)
+    dl.levels(plan_modes, [28])
+    fetch = []
+    for _ in range(5):
+        dl.levels(plan_modes, [28])
+        fetch.append(dl.last_fetch_s * 1e3)
+    times["fetch_ms"] = sum(fetch) / len(fetch)
+    for key, t in times.items():
+        if key in ("fetch_ms", "dstage_quant16"):
+            continue
+        print(f"  3840x2160 {key}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})", flush=True)
+    print(f"  3840x2160 DeviceLevels.levels fetch of {n * (256 * 2 + 4)} "
+          f"bytes (k=1): {times['fetch_ms']:.4f} ms host wall, mean of 5 "
+          f"({', '.join(f'{x:.4f}' for x in fetch)})", flush=True)
+    return {"worst": worst, "times": times}
+
+
+def _checked_levels(stats: dict):
+    """DeviceLevels.levels that also computes each probe's plain levels on
+    the card and counts the positions where they differ; restored by
+    calling the returned function."""
+    orig = DS.DeviceLevels.levels
+
+    def levels(self, modes16, qindexes):
+        lv, eob = orig(self, modes16, qindexes)
+        pl = self.planner
+        m = torch.from_numpy(np.ascontiguousarray(modes16, np.int32)).to(DEVICE)
+        plv, _ = DS.quant16_plain(
+            DS.coeffs16_plain(pl.dev[0], pl.sby * 4, pl.sbx * 4, m,
+                              self.bitdepth), *level_dq(qindexes,
+                                                        self.bitdepth))
+        d = np.abs(lv.astype(np.int32) - plv.cpu().numpy().astype(np.int32))
+        per_block = int((d > 0).sum(-1).max())
+        stats["probes"] += 1
+        stats["positions"] += int((d > 0).sum())
+        stats["max_diff"] = max(stats["max_diff"], int(d.max()))
+        stats["max_per_block"] = max(stats["max_per_block"], per_block)
+        print(f"    probe qindex {list(qindexes)}: {lv.shape[1]} blocks, "
+              f"{int((d > 0).sum())} level positions differ from the plain "
+              f"version (max {int(d.max())}, at most {per_block} in a block)",
+              flush=True)
+        return lv, eob
+
+    DS.DeviceLevels.levels = levels
+    return lambda: setattr(DS.DeviceLevels, "levels", orig)
+
+
+def phase_levels_path(images: dict, acc: dict) -> dict:
+    """The main path of the encode stage: the port's CLI with
+    OAVIF_PY_TILE=1 OAVIF_DEVICE_LEVELS=1, -q 89 on the six classes and
+    -t 80 on fractal; returns the kernels' launches over these runs."""
+    stats = dict.fromkeys(("probes", "positions", "max_diff",
+                           "max_per_block"), 0)
+    os.environ.update(OAVIF_PY_TILE="1", OAVIF_DEVICE_LEVELS="1")
+    restore = _checked_levels(stats)
+    consumed0 = FR.lv16_consumed
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            runs = [(name, ["-q", "89"]) for name in images]
+            runs.append(("fractal", ["-t", "80"]))
+            reset_counts()
+            for name, args in runs:
+                src = os.path.join(td, f"{name}.pam")
+                write_pam(src, images[name])
+                before, c0 = read_counts(), FR.lv16_consumed
+                r = run_cli(args, src, os.path.join(td, "o.avif"), acc)
+                after = read_counts()
+                print(f"  {name} {' '.join(args)}: q{r['q']} passes "
+                      f"{r['passes']} bytes {len(r['bytes'])} wall "
+                      f"{r['wall']:.3f} s, 16-blocks with device levels "
+                      f"{FR.lv16_consumed - c0}, launches K3a "
+                      f"{after['dstage_coeffs16'] - before['dstage_coeffs16']}"
+                      f" K3b {after['dstage_quant16'] - before['dstage_quant16']}"
+                      f" K1 {r['launches']}", flush=True)
+            counts = read_counts()
+    finally:
+        restore()
+        for var in ("OAVIF_PY_TILE", "OAVIF_DEVICE_LEVELS"):
+            os.environ.pop(var, None)
+    consumed = FR.lv16_consumed - consumed0
+    print(f"  device levels: {consumed} 16-blocks consumed, {stats['probes']} "
+          f"probes, {stats['positions']} level positions differ from the "
+          f"plain version (max {stats['max_diff']}, at most "
+          f"{stats['max_per_block']} in a block)", flush=True)
+    if consumed <= 0 or min(counts[k] for k in LEVEL_KERNELS) <= 0:
+        raise AssertionError(f"device levels path: consumed {consumed}, "
+                             f"launches {counts}")
+    if counts["planner_mode_ssd"] <= 0:
+        raise AssertionError("device levels path: no planner launch")
+    if stats["max_diff"] > 1 or stats["max_per_block"] > 4:
+        raise AssertionError(f"device levels vs plain: {stats}")
     return counts
 
 
@@ -645,17 +995,30 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s, launches on the main paths "
           f"{launches}", flush=True)
 
-    kms, pms = kern["times"]["3840x2160"]
-    times = metric["times"]["photo 3840x2160"]
+    t0 = time.perf_counter()
+    levels = phase_levels_kernels(images, frame4k)
+    print(f"phase encode-stage kernels: {time.perf_counter() - t0:.1f} s, "
+          f"worst |kernel - plain| {levels['worst']}", flush=True)
+
+    t0 = time.perf_counter()
+    counts = phase_levels_path(images, acc)
+    launches = {k: launches[k] + counts[k] for k in launches}
+    print(f"phase main path (device levels): {time.perf_counter() - t0:.1f} "
+          f"s, launches {counts}", flush=True)
+
+    times = {"planner_mode_ssd": kern["times"]["3840x2160"],
+             **metric["times"]["photo 3840x2160"], **levels["times"]}
+    worst = {"planner_mode_ssd": kern["worst"], **metric["worst"],
+             **levels["worst"]}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
-        if name == "planner_mode_ssd":
-            err, ms, plain_ms = kern["worst"], kms, pms
-        else:
-            (ms, plain_ms), err = times[name], metric["worst"][name]
+        t = times[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": worst[name], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -22,10 +22,9 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from oavif_tpu.av1.tables import TABLES, ac_q
-
 from ..device import resolve_device
 from ..kernels import launch
+from .tables import TABLES, ac_q
 
 # spec mode ids in search order: DC, V, H, SMOOTH, PAETH, SMOOTH_V,
 # SMOOTH_H, then the 6 directional families (D45, D135, D113, D157, D203,

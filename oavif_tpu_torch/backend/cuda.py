@@ -4,8 +4,8 @@ Division of labour: the frame's partition and intra-mode search runs on
 the device, one planning step per probe over device-resident planes
 (``oavif_tpu_torch.av1.encode_tpu``); the entropy-serial work (exact
 prediction, transform and RDOQ under the plan, symbol coding,
-reconstruction, deblocking, CDEF, muxing) runs in the reference's C
-runtime on the host.
+reconstruction, deblocking, CDEF, muxing) runs in the port's copy of the
+reference's C runtime on the host.
 """
 
 from __future__ import annotations

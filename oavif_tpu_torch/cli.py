@@ -14,13 +14,12 @@ import os
 import sys
 from typing import List
 
-from oavif_tpu.io.image import load_image, to_rgb8
-from oavif_tpu.options import OptionError, parse_args, usage_text
-
 from . import __version__
 from .backend import EncBuffer, EncCtx
 from .backend.cuda import CudaBackend
 from .device import resolve_device
+from .io.image import load_image, to_rgb8
+from .options import OptionError, parse_args, usage_text
 
 
 def _perr(msg: str) -> None:

@@ -9,7 +9,8 @@
 //
 // One thread block per image block. The block builds its above/left/
 // corner edge vector with the decoder's unavailability fills in shared
-// memory straight from the (+1,+1)-padded int16 plane, then every thread
+// memory straight from the (+1,+1)-padded int16 plane (intra_edges.cuh,
+// shared with device_stage.cu), then every thread
 // predicts its pixels for every mode in integer arithmetic and
 // accumulates err^2 per mode in 64 bits; a warp-shuffle plus shared-memory
 // reduction gives one exact integer SSD per (block, mode). The
@@ -39,16 +40,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "intra_edges.cuh"
+
 namespace {
+
+using oavif::Log2;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kDirModes = 6;
-
-template <int P>
-struct Log2 {
-  static constexpr int value = P == 16 ? 4 : (P == 32 ? 5 : 6);
-};
 
 template <int P, int NM>
 __global__ void __launch_bounds__(kThreads)
@@ -71,45 +71,9 @@ mode_ssd_kernel(const int16_t* __restrict__ plane, int ld, int nbx,
   const int y0 = bi * P, x0 = bj * P;  // padded row above / column left
   const int tid = threadIdx.x;
 
-  // Unavailability fills, in the reference's order: above from the
-  // unfilled left, left from the filled above, then the corner.
-  for (int k = tid; k < P; k += kThreads) {
-    int a, l;
-    if (bi == 0)
-      a = bj > 0 ? plane[(1 + y0) * ld + x0] : base - 1;
-    else
-      a = plane[y0 * ld + 1 + x0 + k];
-    if (bj == 0)
-      l = bi > 0 ? plane[y0 * ld + 1 + x0] : base + 1;
-    else
-      l = plane[(1 + y0 + k) * ld + x0];
-    edge[1 + k] = a;
-    edge[L + 1 + k] = l;
-    w_s[k] = smw[k];
-  }
-  if (tid == 0) {
-    int c;
-    if (bi == 0 && bj == 0)
-      c = base;
-    else if (bi == 0)
-      c = plane[(1 + y0) * ld + x0];
-    else if (bj == 0)
-      c = plane[y0 * ld + 1 + x0];
-    else
-      c = plane[y0 * ld + x0];
-    edge[0] = c;
-    edge[L] = c;
-  }
-  __syncthreads();
-  for (int k = tid; k < P; k += kThreads) {
-    edge[1 + P + k] = edge[P];
-    edge[L + 1 + P + k] = edge[L + P];
-  }
-  if (tid == 0) {
-    int s = P;
-    for (int k = 0; k < P; ++k) s += edge[1 + k] + edge[L + 1 + k];
-    dc_s = s >> (Log2<P>::value + 1);
-  }
+  for (int k = tid; k < P; k += kThreads) w_s[k] = smw[k];
+  oavif::load_edges<P, kThreads>(plane, ld, bi, bj, base, edge);
+  if (tid == 0) dc_s = oavif::dc_pred<P>(edge);
   __syncthreads();
 
   unsigned long long acc[NM];

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles each ``oavif_tpu_torch/csrc/*.cu`` for sm_90a, one
-process per source, all started together, and links the objects into one
+``nvcc`` compiles each ``oavif_tpu_torch/csrc/*.cu`` for sm_90a (with
+the shared ``*.cuh`` headers beside them), one process per source, all
+started together, and links the objects into one
 shared library with a plain C interface under ``build/oavif_tpu_torch/``
 (listed in .gitignore), rebuilt when a source is newer than the library;
 ``ctypes`` loads it. Pointers go in as ``c_void_p`` from
@@ -85,7 +86,7 @@ def load() -> C.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        newest = max(s.stat().st_mtime for s in CSRC.glob("*.cu"))
+        newest = max(s.stat().st_mtime for s in CSRC.glob("*.cu*"))
         if not LIB_PATH.exists() or LIB_PATH.stat().st_mtime < newest:
             _build()
         lib = C.CDLL(str(LIB_PATH))
@@ -96,6 +97,8 @@ def load() -> C.CDLL:
             "ssim2_pyramid_down": [p, i, i, i, p, p, p, p],
             "ssim2_blur": [p, i, p, i, i, i, p, i, p, p, p, p],
             "ssim2_norms": [p, p, p, i, p, p, p, p, i, i, i, f, p, i, p, p],
+            "dstage_coeffs16": [p, i, i, i, i, p, p, p, p, p, p],
+            "dstage_quant16": [p, i, i, p, p, f, p, p, p, p],
         }
         for name, argtypes in entries.items():
             fn = getattr(lib, name)

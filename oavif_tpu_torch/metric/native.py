@@ -1,4 +1,4 @@
-"""Host-native SSIMULACRA2 (the reference's ssimu2.c) with a
+"""Host-native SSIMULACRA2 (``ssimu2.c``, a copy of the reference's) with a
 reference-context cache; the counterpart of oavif_tpu/metric/native.py,
 whose package imports the JAX metric eagerly.
 
@@ -17,7 +17,7 @@ import zlib
 
 import numpy as np
 
-from oavif_tpu.av1.entropy.fast import get_lib
+from ..av1.entropy.fast import get_lib
 
 
 def _lib() -> C.CDLL:
@@ -25,7 +25,8 @@ def _lib() -> C.CDLL:
     if lib is None:
         raise RuntimeError(
             "native library unavailable: the C runtime "
-            "(oavif_tpu/av1/entropy, metric/ssimu2.c) failed to build")
+            "(oavif_tpu_torch/av1/entropy, metric/ssimu2.c) failed to "
+            "build")
     return lib
 
 

@@ -1,2 +1,3 @@
-"""Target-quality search driver of the port (``driver.py``); the search
-algorithms are the reference's ``oavif_tpu.tq.search``."""
+"""Target-quality search of the port: the search algorithms
+(``search.py``, a copy of the reference's), the drivers (``driver.py``)
+and the corpus pipeline (``pipeline.py``)."""

@@ -1,6 +1,5 @@
-"""Search drivers: glue between the reference's TQ algorithms
-(``oavif_tpu.tq.search``) and the port's backend; the counterpart of
-oavif_tpu/tq/driver.py.
+"""Search drivers: glue between the TQ algorithms (``search.py``) and
+the port's backend; the counterpart of oavif_tpu/tq/driver.py.
 
 The sequential driver replicates the reference loop (one encode + score
 per pass). The batched driver encodes a small vector of candidate
@@ -17,17 +16,16 @@ from typing import Tuple
 
 import numpy as np
 
-from oavif_tpu.tq.search import (
+from ..backend import EncBuffer, EncCtx
+from ..metric.native import (compute_ssimulacra2_native, metric_impl,
+                             score_batch_auto)
+from ..metric.ssimulacra2 import make_ref_scorer
+from .search import (
     SearchResult,
     find_target_quality,
     find_target_quality_batched,
     predict_q_native,
 )
-
-from ..backend import EncBuffer, EncCtx
-from ..metric.native import (compute_ssimulacra2_native, metric_impl,
-                             score_batch_auto)
-from ..metric.ssimulacra2 import make_ref_scorer
 
 
 def make_probe(ctx: EncCtx, backend, metric):

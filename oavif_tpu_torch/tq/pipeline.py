@@ -3,7 +3,7 @@ core, with the device metric and plan prefetch on a worker thread; the
 counterpart of oavif_tpu/tq/pipeline.py, with the same scheduling.
 
   - every image's search is the reference's unchanged loop
-    (``oavif_tpu.tq.search.search_quality_gen``, the generator behind
+    (``search.search_quality_gen``, the generator behind
     ``find_target_quality``);
   - one device worker thread takes the device work of the search: the
     per-image reference pyramids and per-probe scores of the device metric
@@ -36,11 +36,9 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-from oavif_tpu.tq.search import (SearchResult, predict_q_native,
-                                 search_quality_gen)
-
 from ..backend import EncBuffer, EncCtx
 from ..device import resolve_device
+from .search import SearchResult, predict_q_native, search_quality_gen
 
 
 def _pick_scorer_mode() -> str:

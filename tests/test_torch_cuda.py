@@ -1,5 +1,6 @@
-"""The planner and metric kernels on an NVIDIA GPU: build, launch, and
-equality with their plain PyTorch versions. Skipped without CUDA.
+"""The planner, metric and encode-stage kernels on an NVIDIA GPU: build,
+launch, and equality with their plain PyTorch versions. Skipped without
+CUDA.
 
 Imports no JAX, so it also runs where JAX is absent:
 
@@ -17,6 +18,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from oavif_tpu_torch.av1 import device_stage as DS  # noqa: E402
 from oavif_tpu_torch.av1 import encode_tpu as ET  # noqa: E402
 from oavif_tpu_torch.metric import ssimulacra2 as M  # noqa: E402
 
@@ -189,3 +191,94 @@ def test_metric_kernels_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         M.ssim2_norms(xyb, xyb, xyb, xyb[:, :, :-1].contiguous(), xyb, xyb,
                       xyb)
+
+
+# ---------------------------------------------------------------------------
+# The encode-stage kernels (csrc/device_stage.cu) against their plain
+# versions. K3a: |diff| <= 1e-6 * max|c| of the block + 1e-3, because the
+# two float32 products sum in another order (the kernel's FMAs against
+# cuBLAS) while predictions and residuals are exact. K3b: bit-identical
+# (the same float32 operations, rounded alike, on the same coefficients).
+# ---------------------------------------------------------------------------
+
+def _coeff_excess(got, want):
+    """max over blocks of |got - want| - the K3a bound (<= 0 passes)."""
+    bound = 1e-6 * want.abs().amax((1, 2)) + 1e-3
+    return float(((got - want).abs().amax((1, 2)) - bound).max())
+
+
+@pytest.mark.parametrize("bitdepth", [8, 10])
+def test_coeffs16_kernel_equals_plain(cuda, bitdepth):
+    y = _planes(cuda, bitdepth, seed=bitdepth)[0]
+    nby, nbx = 320 // 16, 448 // 16
+    rng = np.random.default_rng(bitdepth)
+    for modes in (torch.zeros((nby, nbx), dtype=torch.int32),
+                  torch.from_numpy(rng.integers(0, 7, (nby, nbx))
+                                   .astype(np.int32))):
+        modes = modes.to(cuda)
+        launches = DS.coeffs16.launches
+        got = DS.coeffs16(y, nby, nbx, modes, bitdepth)
+        assert DS.coeffs16.launches == launches + 1
+        want = DS.coeffs16_plain(y, nby, nbx, modes, bitdepth)
+        torch.cuda.synchronize()
+        assert got.shape == (nby * nbx, 16, 16) and got.dtype == torch.float32
+        assert _coeff_excess(got, want) <= 0
+
+
+def test_quant16_kernel_equals_plain(cuda):
+    y = _planes(cuda, 10, seed=3)[0]
+    modes = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 7, (20, 28)).astype(np.int32)).to(cuda)
+    cf = DS.coeffs16(y, 20, 28, modes, 10)
+    qs = [30, 60, 90]
+    dqd = torch.tensor([float(DS.dc_q(q, 10)) for q in qs], device=cuda)
+    dqa = torch.tensor([float(DS.ac_q(q, 10)) for q in qs], device=cuda)
+    launches = DS.quant16.launches
+    lv, eob = DS.quant16(cf, dqd, dqa)
+    assert DS.quant16.launches == launches + 1
+    plv, peob = DS.quant16_plain(cf, dqd, dqa)
+    torch.cuda.synchronize()
+    assert torch.equal(lv, plv) and torch.equal(eob, peob)
+    assert int((lv != 0).sum()) > 0
+    for k in range(3):
+        one = DS.quant16(cf, dqd[k : k + 1], dqa[k : k + 1])
+        assert torch.equal(one[0][0], lv[k]) and torch.equal(one[1][0],
+                                                             eob[k])
+
+
+def test_device_levels_launch_the_kernels(cuda):
+    rng = np.random.default_rng(5)
+    planes = [rng.integers(0, 1024, (256, 320)) for _ in range(3)]
+    fp = ET.FramePlanner(planes, 10, device=cuda)
+    dl = DS.DeviceLevels(fp, 10)
+    modes = rng.integers(0, 7, (16, 20)).astype(np.int32)
+    c0, q0 = DS.coeffs16.launches, DS.quant16.launches
+    lv, eob = dl.levels(modes, [40, 80])
+    dl.levels(modes, [60])
+    assert (DS.coeffs16.launches, DS.quant16.launches) == (c0 + 1, q0 + 2)
+    assert lv.shape == (2, 320, 256) and eob.shape == (2, 320)
+    plv, peob = DS.quant16_plain(
+        DS.coeffs16(fp.dev[0], 16, 20, torch.from_numpy(modes).to(cuda), 10),
+        torch.tensor([float(DS.dc_q(q, 10)) for q in (40, 80)], device=cuda),
+        torch.tensor([float(DS.ac_q(q, 10)) for q in (40, 80)], device=cuda))
+    assert np.array_equal(lv, plv.cpu().numpy())
+    assert np.array_equal(eob, peob.cpu().numpy())
+
+
+def test_encode_stage_kernels_reject_bad_input(cuda):
+    y = _planes(cuda, 8)[0]
+    modes = torch.zeros((20, 28), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        DS.coeffs16(y.to(torch.int32), 20, 28, modes, 8)
+    with pytest.raises(ValueError):
+        DS.coeffs16(y, 21, 28, modes, 8)
+    with pytest.raises(ValueError):
+        DS.coeffs16(y, 20, 27, modes, 8)
+    cf = DS.coeffs16(y, 20, 28, modes, 8)
+    dq = torch.ones(2, device=cuda)
+    with pytest.raises(ValueError):
+        DS.quant16(cf.double(), dq, dq)
+    with pytest.raises(ValueError):
+        DS.quant16(cf, dq[:1], dq)
+    with pytest.raises(ValueError):
+        DS.quant16(cf.transpose(1, 2), dq, dq)

@@ -1,13 +1,15 @@
-"""The port runs without JAX and without Pillow.
+"""The port runs without JAX, without Pillow and without the JAX package.
 
-A subprocess refuses every import of ``jax``, ``jaxlib`` and ``PIL``
-through a ``sys.meta_path`` hook, imports every module of
-``oavif_tpu_torch`` and ``chip_smoke``'s module-level code, and runs on a
-256x256 PAM on the CPU, with the planner armed: the port's CLI
-(target-quality search and fixed q), the CLI's search with the device
-metric (``OAVIF_METRIC=jax``), and the corpus pipeline with every score on
-the device metric (``OAVIF_PIPELINE_METRIC=jax``). Nothing may import a
-refused module.
+A subprocess refuses every import of ``jax``, ``jaxlib``, ``PIL``, the
+JAX package ``oavif_tpu`` and its ``bench`` through a ``sys.meta_path``
+hook, imports every module of ``oavif_tpu_torch`` and ``chip_smoke``'s
+module-level code, and runs on a 256x256 PAM on the CPU, with the planner
+armed: the port's CLI (target-quality search and fixed q), the CLI's
+search with the device metric (``OAVIF_METRIC=jax``), the corpus pipeline
+with every score on the device metric (``OAVIF_PIPELINE_METRIC=jax``),
+and the device encode stage through the Python tile coder (``-q 89`` with
+``OAVIF_PY_TILE=1 OAVIF_DEVICE_LEVELS=1``). Nothing may import a refused
+module. A static check refuses the same imports in the sources.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ REPO = Path(__file__).resolve().parent.parent
 _SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-REFUSED = ("jax", "jaxlib", "PIL")
+REFUSED = ("jax", "jaxlib", "PIL", "oavif_tpu", "bench")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -41,12 +43,12 @@ import os
 
 import chip_smoke  # noqa: F401  (module-level code only)
 import oavif_tpu_torch
-from oavif_tpu.backend import EncCtx
-from oavif_tpu.io.image import load_image, to_rgb8
-from oavif_tpu.options import EncOptions
 from oavif_tpu_torch import cli
 from oavif_tpu_torch.av1 import frame
+from oavif_tpu_torch.backend import EncCtx
 from oavif_tpu_torch.backend.cuda import CudaBackend
+from oavif_tpu_torch.io.image import load_image, to_rgb8
+from oavif_tpu_torch.options import EncOptions
 from oavif_tpu_torch.tq.pipeline import search_encode_corpus
 
 for mod in pkgutil.walk_packages(oavif_tpu_torch.__path__,
@@ -68,6 +70,12 @@ rgb = to_rgb8(img)
     CudaBackend())
 assert search_encode_corpus.last_mode == "jax" and len(data) > 100
 assert 0.0 < result.score <= 100.0, result
+del os.environ["OAVIF_PIPELINE_METRIC"]
+os.environ.update(OAVIF_PY_TILE="1", OAVIF_DEVICE_LEVELS="1")
+frame.reset_planners()  # no decisions recorded by the earlier runs
+consumed = frame.lv16_consumed
+assert cli.run(["-q", "89", src, out]) == 0
+assert frame.lv16_consumed > consumed, "no device levels consumed"
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not loaded, loaded
 print("NO_JAX_OK")
@@ -94,7 +102,8 @@ def test_port_cli_runs_without_jax_or_pillow(tmp_path):
 
 
 def test_port_sources_do_not_import_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib)\b", re.M)
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|oavif_tpu|bench)\b", re.M)
     files = sorted((REPO / "oavif_tpu_torch").rglob("*.py"))
     assert files
     for path in files + [REPO / "chip_smoke.py"]:

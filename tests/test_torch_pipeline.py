@@ -33,11 +33,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from chip_smoke import write_pam  # noqa: E402
 from oavif_tpu import cli as ref_cli  # noqa: E402
 from oavif_tpu.av1 import frame as ref_frame  # noqa: E402
-from oavif_tpu.backend import EncCtx  # noqa: E402
+from oavif_tpu import backend as ref_backend  # noqa: E402
+from oavif_tpu import options as ref_options  # noqa: E402
 from oavif_tpu.backend.tpu import TpuBackend  # noqa: E402
-from oavif_tpu.io.image import Image  # noqa: E402
-from oavif_tpu.options import EncOptions  # noqa: E402
+from oavif_tpu.io import image as ref_image  # noqa: E402
 from oavif_tpu.tq import pipeline as ref_pipeline  # noqa: E402
+from oavif_tpu_torch import backend as port_backend  # noqa: E402
+from oavif_tpu_torch import options as port_options  # noqa: E402
+from oavif_tpu_torch.io import image as port_image  # noqa: E402
 from oavif_tpu_torch import cli as port_cli  # noqa: E402
 from oavif_tpu_torch.av1 import encode as port_encode  # noqa: E402
 from oavif_tpu_torch.av1 import encode_tpu as ET  # noqa: E402
@@ -48,12 +51,16 @@ from oavif_tpu_torch.tq import pipeline  # noqa: E402
 from oavif_tpu_torch.tq.driver import search_encode  # noqa: E402
 
 
-def _mk_ctx(img, **opt):
+def _mk_ctx(img, pkg="port", **opt):
+    """An encoder context of the port's own types, or of the reference's
+    (pkg="ref") from the same arguments."""
+    be, im, op = ((port_backend, port_image, port_options) if pkg == "port"
+                  else (ref_backend, ref_image, ref_options))
     h, w = img.shape[:2]
-    return EncCtx(o=EncOptions(**{"speed": 9, **opt}),
-                  src=Image(width=w, height=h, channels=3, hbd=False,
-                            data=img),
-                  rgb=img, w=w, h=h)
+    return be.EncCtx(o=op.EncOptions(**{"speed": 9, **opt}),
+                     src=im.Image(width=w, height=h, channels=3, hbd=False,
+                                  data=img),
+                     rgb=img, w=w, h=h)
 
 
 def _imgs():
@@ -93,8 +100,8 @@ def test_c_mode_matches_sequential_driver_and_reference(monkeypatch):
     imgs = _imgs()
     seq = [search_encode(_mk_ctx(img), CudaBackend()) for img in imgs]
     piped = _corpus("c", monkeypatch, imgs)
-    ref = ref_pipeline.search_encode_corpus([_mk_ctx(i) for i in imgs],
-                                            TpuBackend())
+    ref = ref_pipeline.search_encode_corpus(
+        [_mk_ctx(i, "ref") for i in imgs], TpuBackend())
     assert pipeline.search_encode_corpus.last_mode == "c"
     for (sr, sdata), (pr, pdata), (rr, _) in zip(seq, piped, ref):
         assert (pr.q, pr.num_pass) == (sr.q, sr.num_pass) == (rr.q,
@@ -107,8 +114,8 @@ def test_jax_mode_matches_reference_pipeline(monkeypatch):
     imgs = _imgs()
     got = _corpus("jax", monkeypatch, imgs)
     assert pipeline.search_encode_corpus.last_mode == "jax"
-    want = ref_pipeline.search_encode_corpus([_mk_ctx(i) for i in imgs],
-                                             TpuBackend())
+    want = ref_pipeline.search_encode_corpus(
+        [_mk_ctx(i, "ref") for i in imgs], TpuBackend())
     for (g, gdata), (w, _) in zip(got, want):
         assert (g.q, g.num_pass) == (w.q, w.num_pass)
         assert [h.q for h in g.history] == [h.q for h in w.history]
