@@ -50,10 +50,32 @@ Phases, each of which raises on failure (exit code != 0):
    fractal; the coder must consume device levels and K3a, K3b and the
    planner must launch; every probe's levels are also computed with the
    plain versions on the card, and none may differ by more than 1 or at
-   more than 4 positions of a block.
+   more than 4 positions of a block;
+11. recursive blur: ``ssim2_blur_iir`` (K2e) against its plain version, bit
+   for bit, on the six classes' and the 3840x2160 frame's scale-0 XYB
+   planes at N=1 and N=4, with CUDA-event times at 3840x2160x4; then the
+   main path, the CLI with ``OAVIF_METRIC=jax OAVIF_METRIC_BLUR=iir`` and
+   ``-t 80`` on the six classes, which must launch it;
+12. multi-device (ranks spawned by ``oavif_tpu_torch.parallel``, joined by
+   gloo over CUDA tensors, sharing the one card): the width-sharded metric
+   (K4) on the 3840x2160 frame over 4 ranks and over 2, each slice's blur
+   planes bit for bit the single-device kernel's columns and within the
+   blur's tolerance of the plain halo blur, the score within 1e-3 of the
+   single-device score, with ms per sharded score and, from a run that
+   times every all_reduce alone, that run's ms and its all_reduce share;
+   the width-sharded Wiener filter (K5, kernel
+   ``wiener_bands``) on three 3840x2160 10-bit planes over 4 ranks, equal
+   to the host filter and to its plain version, with kernel and plain
+   times and the host filter's wall time; the dry run (K6)
+   ``dryrun_multichip`` at 2 and 4 ranks with the reference's shapes, and
+   on the 3840x2160 frame as 4 tile columns (one rank each), whose
+   seeded-plan encode must give the unsharded bytes with seeded plans
+   consumed; and the sharded metric at 1 rank under NCCL.
 
 Each main path runs with every kernel's launch count set to 0 just before
-and read just after. The line before the last is a JSON object with each
+and read just after; spawned ranks report the launches of their sharded
+runs apart from their checks' and timings' (``kernels.counting``), which
+are added. The line before the last is a JSON object with each
 kernel's launches on the main paths, its largest difference from its plain
 version, its times at 3840x2160, its bound (bytes over the HBM rate or
 operations over the float32 rate, the larger) and one PyTorch call's time
@@ -77,14 +99,19 @@ import time
 import numpy as np
 import torch
 
-from oavif_tpu_torch import cli
+from oavif_tpu_torch import cli, graft_entry, parallel, shard_checks
 from oavif_tpu_torch.av1 import device_stage as DS
+from oavif_tpu_torch.av1 import restoration_sharded as WS
 from oavif_tpu_torch.av1 import encode_tpu as ET
 from oavif_tpu_torch.av1 import frame as FR
 from oavif_tpu_torch.av1.encode import _depth_convert
 from oavif_tpu_torch.av1.yuv import rgb_to_yuv444
 from oavif_tpu_torch.device import resolve_device
-from oavif_tpu_torch.kernels import build
+from oavif_tpu_torch.av1.restoration import (_band_rows, _coeffs7,
+                                             apply_wiener, count_units,
+                                             unit_size)
+from oavif_tpu_torch.kernels import build, kernel_key
+from oavif_tpu_torch.metric import sharded as MS
 from oavif_tpu_torch.metric import ssimulacra2 as M
 
 CLASSES = ("sinusoid", "fractal", "edges", "oriented", "text", "mixed")
@@ -102,6 +129,11 @@ KERNELS = {
                         "oavif_tpu/av1/device_stage.py:68"),
     "dstage_quant16": (DS.quant16, "oavif_tpu_torch/csrc/device_stage.cu",
                        "oavif_tpu/av1/device_stage.py:83"),
+    "ssim2_blur_iir": (M.ssim2_blur_iir,
+                       "oavif_tpu_torch/csrc/ssimulacra2.cu",
+                       "oavif_tpu/metric/ssimulacra2.py:309"),
+    "wiener_bands": (WS.wiener_bands, "oavif_tpu_torch/csrc/wiener.cu",
+                     "oavif_tpu/av1/restoration_sharded.py:57"),
 }
 METRIC_KERNELS = ("ssim2_pyramid", "ssim2_blur", "ssim2_norms")
 # the kernels of the CLI, pipeline and batched-search paths
@@ -126,6 +158,18 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: k[0].launches for name, k in KERNELS.items()}
+
+
+def rank_counts(counts) -> dict:
+    """The launches that spawned ranks report (``parallel.spawn``), added up
+    per kernel of KERNELS."""
+    total = parallel.sum_counts(counts)
+    return {name: total.get(kernel_key(k[0]), 0)
+            for name, k in KERNELS.items()}
+
+
+def add(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
 
 
 def nbytes(*tensors) -> int:
@@ -940,6 +984,248 @@ def phase_levels_path(images: dict, acc: dict) -> dict:
     return counts
 
 
+def phase_iir(images: dict, frame4k: np.ndarray) -> dict:
+    """K2e against its plain version on the card, bit for bit (the same
+    float32 operations in the same order), on each image's scale-0 XYB
+    planes against four noisy candidates; times at 3840x2160x4."""
+    cases = {f"{name} 512x512": rgb for name, rgb in images.items()}
+    cases["photo 3840x2160"] = frame4k
+    worst = 0.0
+    for i, (label, rgb) in enumerate(cases.items()):
+        ref = torch.from_numpy(rgb).cuda()
+        img1 = M.ssim2_pyramid(ref[None])[1]
+        img2 = M.ssim2_pyramid(noisy_batch(ref, (1.5, 3.0, 6.0, 12.0),
+                                           seed=100 + i))[1]
+        for n in (1, 4):
+            got = (M.ssim2_blur_iir(img1, None)
+                   + M.ssim2_blur_iir(img1, img2[:n]))
+            want = (M.ssim2_blur_iir_plain(img1, None)
+                    + M.ssim2_blur_iir_plain(img1, img2[:n]))
+            torch.cuda.synchronize()
+            err = max(max_abs(a, b) for a, b in zip(got, want))
+            worst = max(worst, err)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"ssim2_blur_iir {label} N={n}: kernel "
+                                     f"!= plain, max |diff| {err}")
+        print(f"  {label}: ssim2_blur_iir == plain bit for bit at N=1 and "
+              "N=4", flush=True)
+    outs = M.ssim2_blur_iir(img1, img2)
+    p0 = cuda_ms(lambda: M.ssim2_blur_iir_plain(img1, img2), 1)
+    k0 = cuda_ms(lambda: M.ssim2_blur_iir(img1, img2), 5)
+    k1 = cuda_ms(lambda: M.ssim2_blur_iir(img1, img2), 5)
+    p1 = cuda_ms(lambda: M.ssim2_blur_iir_plain(img1, img2), 1)
+    # per output element: its product, then a forward and a backward step
+    # of 7 operations along each axis
+    times = {"ms": (k0 + k1) / 2, "plain_ms": (p0 + p1) / 2,
+             "library_ms": None,
+             **bound(nbytes(img1, img2, *outs),
+                     29 * sum(t.numel() for t in outs))}
+    print(f"  3840x2160x4 ssim2_blur_iir (distorted side): kernel "
+          f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, bound "
+          f"{times['bound_ms']:.4f} ms ({times['bound_by']})", flush=True)
+    return {"worst": worst, "times": times}
+
+
+def phase_iir_path(images: dict, acc: dict) -> dict:
+    """The CLI's batched search on the recursive blur: OAVIF_METRIC=jax
+    OAVIF_METRIC_BLUR=iir, -t 80 on the six classes; returns the
+    launches."""
+    os.environ.update(OAVIF_METRIC="jax", OAVIF_METRIC_BLUR="iir")
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            reset_counts()
+            for name, rgb in images.items():
+                src = os.path.join(td, f"{name}.pam")
+                write_pam(src, rgb)
+                r = run_cli(["-t", "80"], src, os.path.join(td, "o.avif"),
+                            acc)
+                print(f"  {name} -t 80 (iir): q{r['q']} score {r['score']} "
+                      f"passes {r['passes']} bytes {len(r['bytes'])} wall "
+                      f"{r['wall']:.3f} s", flush=True)
+            counts = read_counts()
+    finally:
+        for var in ("OAVIF_METRIC", "OAVIF_METRIC_BLUR"):
+            os.environ.pop(var, None)
+    if counts["ssim2_blur_iir"] <= 0 or counts["ssim2_blur"] != 0:
+        raise AssertionError(f"iir CLI path: launches {counts}")
+    return counts
+
+
+def wiener_planes(h: int, w: int, bitdepth: int, seed: int):
+    """Synthetic CDEF and deblocked planes as tests/test_multidevice.py
+    makes them at 8 bits, scaled to ``bitdepth``."""
+    rng = np.random.default_rng(seed)
+    s = 1 << (bitdepth - 8)
+    cdef = [np.asarray(128 * s + rng.integers(-80 * s, 80 * s, (h, w)),
+                       np.int32) for _ in range(3)]
+    deblk = [np.asarray(c + rng.integers(-4 * s, 4 * s + 1, (h, w)), np.int32)
+             for c in cdef]
+    return cdef, deblk
+
+
+def wiener_deblk_rows(h: int) -> int:
+    """How many rows of the deblocked plane the Wiener filter reads: per
+    stripe band, those above and below the stripe, at most 2 past its edge
+    (the selection of ``restoration._band_rows`` and of the kernel)."""
+    rows = set()
+    for r0, r1, ss, se in _band_rows(0, h):
+        for y in range(r0 - 3, r1 + 3):
+            y = min(max(y, 0), h - 1)
+            if y < ss:
+                rows.add(max(ss - 2, y))
+            elif y > se:
+                rows.add(min(se + 2, y))
+    return len(rows)
+
+
+def multi_device_rank(rk: parallel.Rank, ref: np.ndarray, dist: np.ndarray,
+                      seed: int) -> dict:
+    """One rank of the multi-device phase: the sharded metric over all
+    ranks and over the first two, each checked and timed, then the sharded
+    Wiener filter over all ranks on planes made here from ``seed``. Each
+    part reports the launches of its own run apart from its checks'."""
+    k4 = {size: shard_checks.metric_rank(rk, ref, dist, size, reps=3)
+          for size in (rk.world, 2)}
+    h, w = ref.shape[:2]
+    cdef, deblk = wiener_planes(h, w, 10, seed)
+    k5 = shard_checks.wiener_rank(rk, cdef, deblk, h, w, graft_entry.LR_TAPS,
+                                  10)
+    return {"k4": k4, "k5": k5}
+
+
+def phase_multi_device(frame4k: np.ndarray) -> dict:
+    """K4, K5 and K6 on ranks sharing the card (gloo over CUDA tensors),
+    and K4 at one rank under NCCL; returns the launches and the Wiener
+    kernel's worst difference and times."""
+    h, w = frame4k.shape[:2]
+    rng = np.random.default_rng(41)
+    dist = np.clip(frame4k + rng.normal(0, 3, frame4k.shape), 0,
+                   255).astype(np.uint8)
+    ref_t = torch.from_numpy(frame4k).cuda()
+    dist_t = torch.from_numpy(dist).cuda()
+    single = M.compute_ssimulacra2(frame4k, dist)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        M.ssimulacra2_from_precomputed(M.ssimulacra2_precompute_ref(ref_t),
+                                       dist_t)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) / 3 * 1e3
+
+    reset_counts()
+    t0 = time.perf_counter()
+    results, counts = parallel.spawn(multi_device_rank, 4,
+                                     args=(frame4k, dist, 5), device="cuda",
+                                     timeout_s=300)
+    launches = add(read_counts(), rank_counts(
+        [r["k5"]["launches"] for r in results]
+        + [k4["launches"] for r in results for k4 in r["k4"].values() if k4]))
+    print(f"  4 ranks (K4 over 4 and 2, K5 over 4): {time.perf_counter() - t0:.1f}"
+          f" s wall, launches of the sharded runs {launches}", flush=True)
+    halo_err = 0.0
+    for size in (4, 2):
+        rs = [r["k4"][size] for r in results[:size]]
+        scores = {r["score"] for r in rs}
+        if len(scores) != 1 or abs(rs[0]["score"] - single) >= 1e-3:
+            raise AssertionError(f"K4 over {size}: scores {scores}, single "
+                                 f"{single}")
+        if any(r["differ"] for r in rs):
+            raise AssertionError(f"K4 over {size}: blur planes differ from "
+                                 f"the single-device kernel's columns: "
+                                 f"{[r['differ'] for r in rs]}")
+        err = max(r["plain_err"] for r in rs)
+        if err > TOL["ssim2_blur"]:
+            raise AssertionError(f"K4 over {size}: halo blur kernel != plain "
+                                 f"by {err}")
+        halo_err = max(halo_err, err)
+        ms, clocked, ar = (sum(r[k] for r in rs) / size
+                           for k in ("ms", "clocked_ms", "allreduce_ms"))
+        print(f"  K4 {w}x{h} over {size} ranks: score {rs[0]['score']} "
+              f"(single-device {single}), slices' scale-0 blur planes == the "
+              f"single-device kernel's columns bit for bit, halo blur "
+              f"kernel vs plain at (1, 3, {h}, {w // size + 16}) max |diff| "
+              f"{err}; {ms:.3f} ms per sharded score (single-device "
+              f"{single_ms:.3f} ms); with each all_reduce timed alone "
+              f"{clocked:.3f} ms per score, {ar:.3f} ms of it in all_reduce "
+              f"({100 * ar / clocked:.1f}%)", flush=True)
+
+    cdef, deblk = wiener_planes(h, w, 10, 5)
+    usz = unit_size(2)
+    grids = {p: [[list(t)] * count_units(w, usz)
+                 for _ in range(count_units(h, usz))]
+             for p, t in graft_entry.LR_TAPS.items()}
+    t0 = time.perf_counter()
+    host = apply_wiener(cdef, deblk, h, w, (2, 2, 2), 2, grids, 10)
+    host_s = time.perf_counter() - t0
+    k5 = [r["k5"] for r in results]
+    if not all(np.array_equal(a, b) for a, b in zip(k5[0]["planes"], host)):
+        raise AssertionError("K5: sharded Wiener != host apply_wiener")
+    if len({tuple(r["crc"]) for r in k5}) != 1 or not all(
+            r["plain_equal"] for r in k5):
+        raise AssertionError(f"K5: ranks disagree or kernel != plain: "
+                             f"{[(r['crc'], r['plain_equal']) for r in k5]}")
+    # one rank's launch: slice 0 of plane 0 with its halos
+    ws = w // 4
+    ext = [torch.from_numpy(np.pad(p[0][:, : ws + 3], ((0, 0), (3, 0)),
+                                   mode="edge")).cuda()
+           for p in (cdef, deblk)]
+    taps = graft_entry.LR_TAPS[0]
+    vf, hf = _coeffs7(*taps[:3]), _coeffs7(*taps[3:])
+    out = WS.wiener_bands(ext[0], ext[1], vf, hf, 10)
+    worst = max_abs(out, WS.wiener_bands_plain(ext[0], ext[1], vf, hf, 10))
+    if worst:
+        raise AssertionError(f"K5: kernel != plain by {worst}")
+    p0 = cuda_ms(lambda: WS.wiener_bands_plain(ext[0], ext[1], vf, hf, 10))
+    k0 = cuda_ms(lambda: WS.wiener_bands(ext[0], ext[1], vf, hf, 10), 20)
+    k1 = cuda_ms(lambda: WS.wiener_bands(ext[0], ext[1], vf, hf, 10), 20)
+    p1 = cuda_ms(lambda: WS.wiener_bands_plain(ext[0], ext[1], vf, hf, 10))
+    # bytes: the CDEF plane with its halos, the deblocked rows read outside
+    # the stripes, the taps and the output; per output pixel: 7
+    # multiply-adds per pass on the band's rows (6 more rows per band in the
+    # horizontal pass), rounding and clamps
+    deblk_bytes = wiener_deblk_rows(h) * ext[1].shape[1] * 4
+    times = {"ms": (k0 + k1) / 2, "plain_ms": (p0 + p1) / 2,
+             "library_ms": None,
+             **bound(nbytes(ext[0], out) + deblk_bytes + 14 * 4,
+                     36 * out.numel())}
+    print(f"  K5 3x {w}x{h} 10-bit over 4 ranks: == host apply_wiener "
+          f"({host_s:.3f} s wall) and == plain on every rank; one rank's "
+          f"launch at {tuple(out.shape)}: kernel {times['ms']:.4f} ms, plain "
+          f"{times['plain_ms']:.4f} ms, bound {times['bound_ms']:.4f} ms "
+          f"({times['bound_by']})", flush=True)
+
+    for n, image, q_dim in ((2, None, None), (4, None, None),
+                            (4, frame4k, 1)):
+        label = (f"{n} ranks, reference shapes" if image is None
+                 else f"{n} ranks, {w}x{h} as {n} tile columns")
+        t0 = time.perf_counter()
+        r = graft_entry.dryrun_multichip(n, device="cuda", image=image,
+                                         q_dim=q_dim, timeout_s=300)
+        launches = add(launches, rank_counts([r["launches"]]))
+        if image is not None and r["seeded_used"] <= 0:
+            raise AssertionError(f"K6 {label}: no seeded plan consumed")
+        extra = ("" if image is not None else
+                 f", sharded score {r['score_sharded']:.4f} vs single "
+                 f"{r['score_single']:.4f}, Wiener == host, device-levels "
+                 f"score {r['score_device_levels']:.4f}")
+        print(f"  K6 dryrun_multichip {label}: {time.perf_counter() - t0:.1f}"
+              f" s wall, plans == single-device planner, {len(r['avif_sharded'])}"
+              f" bytes == unsharded encode, seeded plans consumed "
+              f"{r['seeded_used']}, checksums {r['totals']}{extra}",
+              flush=True)
+
+    t0 = time.perf_counter()
+    res, counts = parallel.spawn(MS.score_shard, 1, args=(frame4k, dist),
+                                 backend="nccl", device="cuda", timeout_s=120)
+    launches = add(launches, rank_counts(counts))
+    if abs(res[0] - single) >= 1e-3:
+        raise AssertionError(f"K4 under NCCL: {res[0]} vs {single}")
+    print(f"  K4 {w}x{h} at 1 rank under NCCL: score {res[0]} "
+          f"({time.perf_counter() - t0:.1f} s wall)", flush=True)
+    return {"launches": launches, "worst": worst, "halo_err": halo_err,
+            "times": {"wiener_bands": times}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1006,10 +1292,29 @@ def main() -> int:
     print(f"phase main path (device levels): {time.perf_counter() - t0:.1f} "
           f"s, launches {counts}", flush=True)
 
+    t0 = time.perf_counter()
+    iir = phase_iir(images, frame4k)
+    print(f"phase recursive blur kernel: {time.perf_counter() - t0:.1f} s, "
+          f"worst |kernel - plain| {iir['worst']}", flush=True)
+    t0 = time.perf_counter()
+    counts = phase_iir_path(images, acc)
+    launches = add(launches, counts)
+    print(f"phase main path (recursive blur CLI): "
+          f"{time.perf_counter() - t0:.1f} s, launches {counts}", flush=True)
+
+    t0 = time.perf_counter()
+    md = phase_multi_device(frame4k)
+    launches = add(launches, md["launches"])
+    print(f"phase multi-device: {time.perf_counter() - t0:.1f} s, launches "
+          f"{md['launches']}", flush=True)
+
     times = {"planner_mode_ssd": kern["times"]["3840x2160"],
-             **metric["times"]["photo 3840x2160"], **levels["times"]}
+             **metric["times"]["photo 3840x2160"], **levels["times"],
+             "ssim2_blur_iir": iir["times"], **md["times"]}
     worst = {"planner_mode_ssd": kern["worst"], **metric["worst"],
-             **levels["worst"]}
+             **levels["worst"], "ssim2_blur_iir": iir["worst"],
+             "wiener_bands": md["worst"]}
+    worst["ssim2_blur"] = max(worst["ssim2_blur"], md["halo_err"])
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
         t = times[name]

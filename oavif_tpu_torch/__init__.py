@@ -12,8 +12,12 @@ which builds into ``build/oavif_tpu_torch/``.
 
 Device work runs in hand-written CUDA kernels (``csrc/``): the frame
 planner's per-block intra-mode SSD (``planner.cu``), the SSIMULACRA2
-pyramid, blur and norms (``ssimulacra2.cu``), and the encode stage's
-16x16 coefficients and quantization (``device_stage.cu``).
+pyramid, blurs (FIR, with a halo for a width shard, and recursive) and
+norms (``ssimulacra2.cu``), the encode stage's 16x16 coefficients and
+quantization (``device_stage.cu``), and the Wiener loop-restoration
+filter (``wiener.cu``). The multi-device leg runs on ``torch.distributed``
+(``parallel.py``, ``metric/sharded.py``, ``av1/restoration_sharded.py``,
+``graft_entry.py``).
 """
 
 __version__ = "0.1.0"

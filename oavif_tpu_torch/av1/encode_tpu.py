@@ -349,6 +349,9 @@ class FramePlanner:
         self.sby, self.sbx = self.h // 64, self.w // 64
         self.nby, self.nbx = self.sby * 2, self.sbx * 2
         self._plan_cache: Dict[int, Plan] = {}
+        # plans made elsewhere (seed_plan), and how often plan() served one
+        self._seeded: list = []
+        self.seeded_hits = 0
         if self.sby == 0 or self.sbx == 0:
             self.dev = None
             return
@@ -368,12 +371,22 @@ class FramePlanner:
         with self._plan_lock:
             return self._plan_locked(qindex, exact)
 
+    def seed_plan(self, qindex: int, plan: Plan) -> None:
+        """Put a plan made elsewhere for these planes (one rank's tile in
+        the multi-device dry run) in the plan cache at ``qindex``; each
+        time ``plan`` serves it adds one to ``seeded_hits``."""
+        with self._plan_lock:
+            self._plan_cache[qindex] = plan
+            self._seeded.append(plan)
+
     def _plan_locked(self, qindex: int, exact: bool) -> Plan:
         # plans vary with q only through dq-scaled gates: probes at nearby
         # quantizers reuse the cached plan, never across the qindex-90 gate
         window = 0 if exact else 16
         for qk, cached in self._plan_cache.items():
             if abs(qk - qindex) <= window and (qk <= 90) == (qindex <= 90):
+                if any(cached is p for p in self._seeded):
+                    self.seeded_hits += 1
                 return cached
         packed = plan_device(*self.dev, qindex, self.bitdepth, self.nmodes,
                              self.duel_level)

@@ -6,7 +6,10 @@
 // Replaces, in oavif_tpu/metric/ssimulacra2.py:
 //   ssim2_pyramid  rgb8_to_linear (:236), linear_rgb_to_xyb_positive (:222)
 //                  and downsample2 (:358);
-//   ssim2_blur     _blur_fir (:332, through blur :319), five blurs per scale;
+//   ssim2_blur     _blur_fir (:332, through blur :319), five blurs per scale,
+//                  and with a halo _blur_sharded (metric/sharded.py:67);
+//   ssim2_blur_iir blur_iir (:309, _iir_pass_1d :287), the recursive
+//                  Gaussian under OAVIF_METRIC_BLUR=iir;
 //   ssim2_norms    _ssim_map_norms (:373) and _edge_diff_norms (:390).
 // The feature assembly and the final nonlinearity stay in torch
 // (oavif_tpu_torch/metric/ssimulacra2.py), as does every plain version.
@@ -27,7 +30,13 @@
 //   - the norms read the seven planes once and keep the three maps in
 //     registers: only 6 float64 partial sums per block reach memory.
 // Fusing blur and norms so that mu2, s22 and s12 never reach memory is
-// left for later.
+// left for later. The recursive blur is bound otherwise: each output
+// depends on the one before it along the axis, so one thread walks one
+// row (W pass) or one column (H pass) through a chain of dependent float32
+// operations, and the row walk's loads do not coalesce. It keeps the
+// reference's order of operations exactly (so it equals its plain
+// version bit for bit) and is left simple: a tiled transpose before the W
+// pass is the first thing to try for speed.
 //
 // Rounding: every float32 expression that the identical-image score of
 // exactly 100 or the equality with the plain version depends on is written
@@ -164,11 +173,17 @@ constexpr int kBlurThreads = 256;
 // side: a = img1 (batch stride ref_stride, 0 for a shared reference),
 // b = img2 -> out0 = blur(b), out1 = blur(b*b), out2 = blur(a*b). Pixels
 // outside the plane are zero (the reference's zero-padded convolutions);
-// taps are summed from -radius to radius with one FMA each.
+// taps are summed from -radius to radius with one FMA each. With halo > 0
+// the inputs are w + 2*halo wide (a width shard and its neighbours'
+// columns, oavif_tpu/metric/sharded.py:67 _blur_sharded) and output column
+// x is input column x + halo: for halo >= radius the horizontal pass
+// reads no padding, and each output sums the taps of the single-device
+// blur in the same order, so a shard's planes are that blur's columns
+// bit for bit.
 template <bool kDist>
 __global__ void __launch_bounds__(kBlurThreads)
 blur_kernel(const float* __restrict__ img1, long long ref_stride,
-            const float* __restrict__ img2, int h, int w,
+            const float* __restrict__ img2, int h, int w, int halo,
             const float* __restrict__ taps, int radius,
             float* __restrict__ out0, float* __restrict__ out1,
             float* __restrict__ out2) {
@@ -180,18 +195,21 @@ blur_kernel(const float* __restrict__ img1, long long ref_stride,
 
   const int plane = blockIdx.z;  // n * 3 + channel
   const int n = plane / 3, c = plane - 3 * (plane / 3);
+  const int win = w + 2 * halo;  // input columns
   const long long hw = static_cast<long long>(h) * w;
-  const float* a = img1 + n * ref_stride + c * hw;
-  const float* b = kDist ? img2 + plane * hw : nullptr;
+  const long long hw_in = static_cast<long long>(h) * win;
+  const float* a = img1 + n * ref_stride + c * hw_in;
+  const float* b = kDist ? img2 + plane * hw_in : nullptr;
   const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
   const int tid = threadIdx.x;
 
   for (int i = tid; i <= 2 * radius; i += kBlurThreads) k[i] = taps[i];
   for (int i = tid; i < kSpan * kSpan; i += kBlurThreads) {
     const int r = i / kSpan, col = i - (i / kSpan) * kSpan;
-    const int gy = y0 - kHalo + r, gx = x0 - kHalo + col;
-    const bool inside = gy >= 0 && gy < h && gx >= 0 && gx < w;
-    const long long off = static_cast<long long>(gy) * w + gx;
+    // output column gx reads input column gx + halo
+    const int gy = y0 - kHalo + r, gx = x0 - kHalo + col + halo;
+    const bool inside = gy >= 0 && gy < h && gx >= 0 && gx < win;
+    const long long off = static_cast<long long>(gy) * win + gx;
     in[0][r][col] = inside ? a[off] : 0.0f;
     if constexpr (kDist) in[1][r][col] = inside ? b[off] : 0.0f;
   }
@@ -332,6 +350,114 @@ norms_fold_kernel(const double* __restrict__ partial, int nblk,
   if (threadIdx.x < kSums) out[blockIdx.x * kSums + threadIdx.x] = v[threadIdx.x];
 }
 
+constexpr int kIirThreads = 128;
+
+// One step of the recursion, in the reference's operation order
+// ((B*x + a1*y1) + a2*y2) + a3*y3, every product and sum rounded (no FMA).
+__device__ __forceinline__ float yvv_step(const float* c, float x, float y1,
+                                          float y2, float y3) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(c[0], x), __fmul_rn(c[1], y1)),
+                             __fmul_rn(c[2], y2)),
+                   __fmul_rn(c[3], y3));
+}
+
+// W pass: one thread per (output o, candidate, channel, row). The input of
+// output o is formed here: reference side a, a*a; distorted side b, b*b,
+// a*b. Forward along the row into scratch, backward from the row's end
+// into tmp; both (k, n, 3, h, w). Neighbouring threads walk neighbouring
+// rows, so each access is a separate memory transaction (uncoalesced).
+template <bool kDist>
+__global__ void __launch_bounds__(kIirThreads)
+iir_rows_kernel(const float* __restrict__ img1, long long ref_stride,
+                const float* __restrict__ img2, int n, int h, int w,
+                const float* __restrict__ coef, float* __restrict__ scratch,
+                float* __restrict__ tmp) {
+  constexpr int kOut = kDist ? 3 : 2;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+  const long long per_out = 3LL * n * h;
+  if (idx >= kOut * per_out) return;
+  const int o = static_cast<int>(idx / per_out);
+  const long long rem = idx - o * per_out;
+  const int plane = static_cast<int>(rem / h), row = static_cast<int>(rem % h);
+  const int nn = plane / 3, ch = plane - 3 * (plane / 3);
+  const long long hw = static_cast<long long>(h) * w;
+  const float* a = img1 + nn * ref_stride + ch * hw + static_cast<long long>(row) * w;
+  const float* b = kDist ? img2 + plane * hw + static_cast<long long>(row) * w
+                         : nullptr;
+  const long long base = (static_cast<long long>(o) * 3 * n + plane) * hw +
+                         static_cast<long long>(row) * w;
+  float* s = scratch + base;
+  float* t = tmp + base;
+  const float c[4] = {coef[0], coef[1], coef[2], coef[3]};
+  float y1 = 0.0f, y2 = 0.0f, y3 = 0.0f;
+  for (int x = 0; x < w; ++x) {
+    float v;
+    if constexpr (kDist) {
+      const float vb = b[x];
+      v = o == 0 ? vb : (o == 1 ? __fmul_rn(vb, vb) : __fmul_rn(a[x], vb));
+    } else {
+      const float va = a[x];
+      v = o == 0 ? va : __fmul_rn(va, va);
+    }
+    const float y = yvv_step(c, v, y1, y2, y3);
+    y3 = y2;
+    y2 = y1;
+    y1 = y;
+    s[x] = y;
+  }
+  y1 = y2 = y3 = 0.0f;
+  for (int x = w - 1; x >= 0; --x) {
+    const float y = yvv_step(c, s[x], y1, y2, y3);
+    y3 = y2;
+    y2 = y1;
+    y1 = y;
+    t[x] = y;
+  }
+}
+
+// H pass: one thread per (output o, candidate, channel, column), walking
+// down then up the column of tmp (neighbouring threads read neighbouring
+// columns: coalesced), the forward pass into scratch, the backward pass
+// into output o.
+__global__ void __launch_bounds__(kIirThreads)
+iir_cols_kernel(const float* __restrict__ tmp, int k, int n, int h, int w,
+                const float* __restrict__ coef, float* __restrict__ scratch,
+                float* __restrict__ out0, float* __restrict__ out1,
+                float* __restrict__ out2) {
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+  const long long per_out = 3LL * n * w;
+  if (idx >= k * per_out) return;
+  const int o = static_cast<int>(idx / per_out);
+  const long long rem = idx - o * per_out;
+  const int plane = static_cast<int>(rem / w), col = static_cast<int>(rem % w);
+  const long long hw = static_cast<long long>(h) * w;
+  const long long base = (static_cast<long long>(o) * 3 * n + plane) * hw + col;
+  const float* src = tmp + base;
+  float* s = scratch + base;
+  float* dst = (o == 0 ? out0 : (o == 1 ? out1 : out2)) + plane * hw + col;
+  const float c[4] = {coef[0], coef[1], coef[2], coef[3]};
+  float y1 = 0.0f, y2 = 0.0f, y3 = 0.0f;
+  for (int y = 0; y < h; ++y) {
+    const long long off = static_cast<long long>(y) * w;
+    const float v = yvv_step(c, src[off], y1, y2, y3);
+    y3 = y2;
+    y2 = y1;
+    y1 = v;
+    s[off] = v;
+  }
+  y1 = y2 = y3 = 0.0f;
+  for (int y = h - 1; y >= 0; --y) {
+    const long long off = static_cast<long long>(y) * w;
+    const float v = yvv_step(c, s[off], y1, y2, y3);
+    y3 = y2;
+    y2 = y1;
+    y1 = v;
+    dst[off] = v;
+  }
+}
+
 int pyr_blocks(long long total) {
   const long long b = (total + kPyrThreads - 1) / kPyrThreads;
   return static_cast<int>(b < kPyrMaxBlocks ? b : kPyrMaxBlocks);
@@ -363,27 +489,64 @@ extern "C" int ssim2_pyramid_down(const float* lin, int n, int h, int w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Reference side (img2 == NULL): img1 (n, 3, h, w) -> out0 = mu1, out1 =
-// s11. Distorted side: img1 (n or 1, 3, h, w; ref_batched says which),
-// img2 (n, 3, h, w) -> out0 = mu2, out1 = s22, out2 = s12. taps: 2*radius+1
-// floats, radius 0..8.
+// Reference side (img2 == NULL): img1 (n, 3, h, w + 2*halo) -> out0 = mu1,
+// out1 = s11, each (n, 3, h, w). Distorted side: img1 (n or 1, 3, h,
+// w + 2*halo; ref_batched says which), img2 (n, 3, h, w + 2*halo) -> out0 =
+// mu2, out1 = s22, out2 = s12. taps: 2*radius+1 floats, radius 0..8;
+// halo 0..8.
 extern "C" int ssim2_blur(const float* img1, int ref_batched,
-                          const float* img2, int n, int h, int w,
+                          const float* img2, int n, int h, int w, int halo,
                           const float* taps, int radius, float* out0,
                           float* out1, float* out2, cudaStream_t stream) {
   if (n <= 0 || h <= 0 || w <= 0 || 3LL * n > 65535 || radius < 0 ||
-      radius > kHalo)
+      radius > kHalo || halo < 0 || halo > kHalo)
     return cudaErrorInvalidValue;
-  const long long hw = static_cast<long long>(h) * w;
+  const long long hw_in = static_cast<long long>(h) * (w + 2 * halo);
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, 3 * n);
   if (img2 == nullptr) {
     blur_kernel<false><<<grid, kBlurThreads, 0, stream>>>(
-        img1, 3 * hw, nullptr, h, w, taps, radius, out0, out1, nullptr);
+        img1, 3 * hw_in, nullptr, h, w, halo, taps, radius, out0, out1,
+        nullptr);
   } else {
     blur_kernel<true><<<grid, kBlurThreads, 0, stream>>>(
-        img1, ref_batched ? 3 * hw : 0, img2, h, w, taps, radius, out0, out1,
-        out2);
+        img1, ref_batched ? 3 * hw_in : 0, img2, h, w, halo, taps, radius,
+        out0, out1, out2);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Recursive Gaussian (oavif_tpu/metric/ssimulacra2.py:309 blur_iir):
+// along W, then along H, each a forward then a backward pass of the
+// Young-van Vliet recursion y_t = B x_t + a1 y_(t-1) + a2 y_(t-2) +
+// a3 y_(t-3) from a zero state. Reference side: src (n, 3, h, w) -> out0 =
+// blur(a), out1 = blur(a*a); distorted side as ssim2_blur. scratch and
+// tmp: k * n * 3 * h * w floats each (k = 2 or 3 outputs). coef: B, a1,
+// a2, a3.
+extern "C" int ssim2_blur_iir(const float* img1, int ref_batched,
+                              const float* img2, int n, int h, int w,
+                              const float* coef, float* scratch, float* tmp,
+                              float* out0, float* out1, float* out2,
+                              cudaStream_t stream) {
+  if (n <= 0 || h <= 0 || w <= 0) return cudaErrorInvalidValue;
+  const long long hw = static_cast<long long>(h) * w;
+  const int k = img2 == nullptr ? 2 : 3;
+  const long long rows = static_cast<long long>(k) * 3 * n * h;
+  const long long cols = static_cast<long long>(k) * 3 * n * w;
+  if (rows > (1LL << 31) - 1 || cols > (1LL << 31) - 1)
+    return cudaErrorInvalidValue;
+  const int rb = static_cast<int>((rows + kIirThreads - 1) / kIirThreads);
+  const int cb = static_cast<int>((cols + kIirThreads - 1) / kIirThreads);
+  if (img2 == nullptr) {
+    iir_rows_kernel<false><<<rb, kIirThreads, 0, stream>>>(
+        img1, 3 * hw, nullptr, n, h, w, coef, scratch, tmp);
+  } else {
+    iir_rows_kernel<true><<<rb, kIirThreads, 0, stream>>>(
+        img1, ref_batched ? 3 * hw : 0, img2, n, h, w, coef, scratch, tmp);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  iir_cols_kernel<<<cb, kIirThreads, 0, stream>>>(tmp, k, n, h, w, coef,
+                                                  scratch, out0, out1, out2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -95,10 +95,12 @@ def load() -> C.CDLL:
             "planner_mode_ssd": [p, i, i, i, i, i, i, p, p, p, p, p],
             "ssim2_pyramid_rgb8": [p, i, i, i, p, p, p, p],
             "ssim2_pyramid_down": [p, i, i, i, p, p, p, p],
-            "ssim2_blur": [p, i, p, i, i, i, p, i, p, p, p, p],
+            "ssim2_blur": [p, i, p, i, i, i, i, p, i, p, p, p, p],
+            "ssim2_blur_iir": [p, i, p, i, i, i, p, p, p, p, p, p, p],
             "ssim2_norms": [p, p, p, i, p, p, p, p, i, i, i, f, p, i, p, p],
             "dstage_coeffs16": [p, i, i, i, i, p, p, p, p, p, p],
             "dstage_quant16": [p, i, i, p, p, f, p, p, p, p],
+            "wiener_bands": [p, p, i, i, i, p, p, p],
         }
         for name, argtypes in entries.items():
             fn = getattr(lib, name)

@@ -6,7 +6,7 @@ reference's layouts at the public functions: uint8 ``(H, W, 3)`` images
 in, planar ``(3, H, W)`` float32 inside, a candidate batch as a leading
 ``N``.
 
-Three hand-written CUDA kernels (``csrc/ssimulacra2.cu``) do the device
+Four hand-written CUDA kernels (``csrc/ssimulacra2.cu``) do the device
 work, each with its candidate batch ``N`` as a grid dimension (the
 reference's vmapped ``_score_batch``):
 
@@ -14,7 +14,11 @@ reference's vmapped ``_score_batch``):
   or a 2x2 box downsample of linear RGB and its XYB at each further scale;
 - ``ssim2_blur``: the separable zero-padded Gaussian, sigma 1.5, as
   ``(mu1, s11)`` on the reference side or ``(mu2, s22, s12)`` on the
-  distorted side, the products formed in shared memory;
+  distorted side, the products formed in shared memory; with ``halo``
+  extra columns on each side, the blur of a width shard
+  (``metric/sharded.py``);
+- ``ssim2_blur_iir``: the same five blurs through the reference's
+  recursive (Young-van Vliet) Gaussian, under ``OAVIF_METRIC_BLUR=iir``;
 - ``ssim2_norms``: the SSIM error, artifact and detail-lost maps reduced
   to their sums and sums of 4th powers per channel, in float64, in a fixed
   order (no atomics), so a repeated score is bit-identical.
@@ -24,8 +28,7 @@ tensor takes; a CUDA tensor takes the kernel or raises. The feature
 assembly and the final nonlinearity are float32 torch ops on ``(N, 108)``.
 
 ``OAVIF_METRIC_BLUR=fir_rN`` truncates the Gaussian to radius N (at most 8
-in the kernel); ``OAVIF_METRIC_BLUR=iir`` (the reference's recursive
-Gaussian) is not ported and raises ``NotImplementedError``.
+in the kernel); ``OAVIF_METRIC_BLUR=iir`` takes the recursive Gaussian.
 """
 
 from __future__ import annotations
@@ -209,14 +212,57 @@ def kernel_l1_error(radius: int) -> float:
     return float(np.abs(full - pad).sum())
 
 
-def blur_radius() -> int:
-    """The Gaussian's radius under OAVIF_METRIC_BLUR: 8 by default, N for
-    ``fir_rN``. ``iir`` is not ported and raises NotImplementedError."""
+@functools.lru_cache(maxsize=None)
+def _yvv_coeffs():
+    """Young-van Vliet 3rd-order recursive Gaussian coefficients, sigma 1.5
+    (the q-polynomial fit): (B, b1/b0, b2/b0, b3/b0) as float32, copied
+    from the reference."""
+    sigma = _SIGMA
+    q = 3.97156 - 4.14554 * np.sqrt(1.0 - 0.26891 * sigma)
+    b0 = 1.57825 + 2.44413 * q + 1.4281 * q * q + 0.422205 * q ** 3
+    b1 = 2.44413 * q + 2.85619 * q * q + 1.26661 * q ** 3
+    b2 = -(1.4281 * q * q + 1.26661 * q ** 3)
+    b3 = 0.422205 * q ** 3
+    B = 1.0 - (b1 + b2 + b3) / b0
+    return (np.float32(B), np.float32(b1 / b0), np.float32(b2 / b0),
+            np.float32(b3 / b0))
+
+
+@functools.lru_cache(maxsize=None)
+def _yvv_tensor(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_yvv_coeffs(), dtype=torch.float32, device=device)
+
+
+def _iir_pass_1d(x: torch.Tensor) -> torch.Tensor:
+    """Forward then backward YvV recursion along the last axis from a zero
+    state, y = ((B*x + a1*y1) + a2*y2) + a3*y3 in float32, each operation
+    rounded (the reference's order; torch never fuses them)."""
+    B, a1, a2, a3 = _yvv_tensor(x.device).unbind()
+    xt = x.movedim(-1, 0)
+    out = torch.empty_like(xt)
+    for order in (range(xt.shape[0]), range(xt.shape[0] - 1, -1, -1)):
+        y1 = y2 = y3 = torch.zeros_like(xt[0])
+        for t in order:
+            y = B * xt[t] + a1 * y1 + a2 * y2 + a3 * y3
+            y1, y2, y3 = y, y1, y2
+            out[t] = y
+        xt, out = out, torch.empty_like(out)
+    return xt.movedim(0, -1)
+
+
+def blur_iir(img: torch.Tensor) -> torch.Tensor:
+    """Recursive Gaussian sigma 1.5 over (..., H, W): the reference's
+    blur_iir, along W then along H."""
+    return (_iir_pass_1d(_iir_pass_1d(img).transpose(-1, -2))
+            .transpose(-1, -2).contiguous())
+
+
+def blur_radius() -> Optional[int]:
+    """The Gaussian under OAVIF_METRIC_BLUR: radius 8 by default, N for
+    ``fir_rN``, None for ``iir`` (the recursive Gaussian)."""
     sel = os.environ.get("OAVIF_METRIC_BLUR", "")
     if sel == "iir":
-        raise NotImplementedError(
-            "OAVIF_METRIC_BLUR=iir (the recursive Gaussian, blur_iir) is not "
-            "ported to oavif_tpu_torch")
+        return None
     if sel.startswith("fir_r"):
         return int(sel[5:])
     if sel:
@@ -229,23 +275,36 @@ def _taps(radius: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_gauss_kernel(radius)).to(device)
 
 
-def blur(img: torch.Tensor, radius: Optional[int] = None) -> torch.Tensor:
+def blur(img: torch.Tensor, radius: Optional[int] = None,
+         halo: int = 0) -> torch.Tensor:
     """Separable Gaussian σ=1.5 over (..., H, W), zero-padded borders,
-    horizontal then vertical. ``radius`` defaults to ``blur_radius()``.
+    horizontal then vertical; ``radius`` defaults to ``blur_radius()``,
+    and without a radius there (``iir``) this is ``blur_iir``. With
+    ``halo`` > 0 the input is (..., H, W + 2*halo), a width shard between
+    its neighbours' columns, and the output (..., H, W): the horizontal
+    pass takes those columns in place of padding (zero beyond them).
 
     On a CUDA tensor cuDNN must not round to TF32 (``resolve_device``
     turns it off): TF32 would break the identical-image score of 100."""
     if radius is None:
         radius = blur_radius()
+        if radius is None:
+            if halo:
+                raise ValueError("blur: the recursive Gaussian takes no halo")
+            return blur_iir(img)
     if img.is_cuda and torch.backends.cudnn.allow_tf32:
         raise RuntimeError("blur: cuDNN TF32 is on; the metric needs float32 "
                            "convolutions (device.resolve_device turns it off)")
     k = _taps(radius, img.device)
-    h, w = img.shape[-2:]
-    x = img.reshape(-1, 1, h, w)
-    x = F.conv2d(x, k.view(1, 1, 1, -1), padding=(0, radius))
+    h, win = img.shape[-2:]
+    x = img.reshape(-1, 1, h, win)
+    if halo >= radius:  # VALID over the halo's innermost radius columns
+        x = x[..., halo - radius : win - (halo - radius)]
+    else:
+        x = F.pad(x, (radius - halo, radius - halo))
+    x = F.conv2d(x, k.view(1, 1, 1, -1))
     x = F.conv2d(x, k.view(1, 1, -1, 1), padding=(radius, 0))
-    return x.reshape(img.shape)
+    return x.reshape(*img.shape[:-1], win - 2 * halo)
 
 
 def _num_scales(h: int, w: int) -> int:
@@ -328,14 +387,16 @@ ssim2_pyramid.launches = 0
 
 
 def ssim2_blur_plain(img1: torch.Tensor, img2: Optional[torch.Tensor] = None,
-                     radius: int = _KERNEL_RADIUS):
+                     radius: int = _KERNEL_RADIUS, halo: int = 0):
     """Reference side (img2 None): (mu1, s11) = blur(img1), blur(img1²).
     Distorted side: (mu2, s22, s12) = blur(img2), blur(img2²),
-    blur(img1·img2), with img1 (1 or N, 3, h, w) against img2 (N, 3, h, w)."""
+    blur(img1·img2), with img1 (1 or N, 3, h, w) against img2 (N, 3, h, w).
+    With ``halo``, the inputs are w + 2*halo wide and the outputs w
+    (``blur``)."""
     if img2 is None:
-        return blur(img1, radius), blur(img1 * img1, radius)
-    return (blur(img2, radius), blur(img2 * img2, radius),
-            blur(img1 * img2, radius))
+        return blur(img1, radius, halo), blur(img1 * img1, radius, halo)
+    return (blur(img2, radius, halo), blur(img2 * img2, radius, halo),
+            blur(img1 * img2, radius, halo))
 
 
 def _ref_batched(name: str, ref: torch.Tensor, dist: torch.Tensor) -> int:
@@ -360,12 +421,12 @@ def _check_planes(name: str, *planes: torch.Tensor) -> None:
 
 
 def ssim2_blur(img1: torch.Tensor, img2: Optional[torch.Tensor] = None,
-               radius: int = _KERNEL_RADIUS):
+               radius: int = _KERNEL_RADIUS, halo: int = 0):
     """ssim2_blur_plain's result; on CUDA tensors from the blur kernel
     (counted in ``ssim2_blur.launches``), on CPU tensors from the plain
     version."""
     if img1.device.type == "cpu":
-        return ssim2_blur_plain(img1, img2, radius)
+        return ssim2_blur_plain(img1, img2, radius, halo)
     planes = (img1,) if img2 is None else (img1, img2)
     _check_cuda("ssim2_blur", *planes)
     _check_planes("ssim2_blur", *planes)
@@ -373,18 +434,65 @@ def ssim2_blur(img1: torch.Tensor, img2: Optional[torch.Tensor] = None,
         raise ValueError(f"ssim2_blur: radius {radius} outside "
                          f"0..{_MAX_KERNEL_RADIUS}")
     dist = img1 if img2 is None else img2
+    if not 0 <= halo <= _MAX_KERNEL_RADIUS or dist.shape[3] <= 2 * halo:
+        raise ValueError(f"ssim2_blur: halo {halo} outside "
+                         f"0..{_MAX_KERNEL_RADIUS} or wider than the input")
     batched = 1 if img2 is None else _ref_batched("ssim2_blur", img1, img2)
-    n, _, h, w = dist.shape
-    outs = [torch.empty_like(dist) for _ in range(2 if img2 is None else 3)]
+    n, _, h, win = dist.shape
+    w = win - 2 * halo
+    outs = [dist.new_empty((n, 3, h, w))
+            for _ in range(2 if img2 is None else 3)]
     taps = _taps(radius, dist.device)
     launch(ssim2_blur, "ssim2_blur", dist, img1.data_ptr(), batched,
-           None if img2 is None else img2.data_ptr(), n, h, w,
+           None if img2 is None else img2.data_ptr(), n, h, w, halo,
            taps.data_ptr(), radius, outs[0].data_ptr(), outs[1].data_ptr(),
            outs[2].data_ptr() if len(outs) == 3 else None)
     return tuple(outs)
 
 
 ssim2_blur.launches = 0
+
+
+def ssim2_blur_iir_plain(img1: torch.Tensor,
+                         img2: Optional[torch.Tensor] = None):
+    """ssim2_blur_plain's five blurs through the recursive Gaussian:
+    (mu1, s11) on the reference side, (mu2, s22, s12) on the distorted
+    side. The inputs go through one recursion together (each element's
+    arithmetic is its own)."""
+    if img2 is None:
+        return tuple(blur_iir(torch.stack([img1, img1 * img1])).unbind(0))
+    return tuple(blur_iir(torch.stack([img2, img2 * img2, img1 * img2]))
+                 .unbind(0))
+
+
+def ssim2_blur_iir(img1: torch.Tensor, img2: Optional[torch.Tensor] = None):
+    """ssim2_blur_iir_plain's result; on CUDA tensors from the recursive
+    blur kernel (two launches, the W pass then the H pass, counted once in
+    ``ssim2_blur_iir.launches``), on CPU tensors from the plain version."""
+    if img1.device.type == "cpu":
+        return ssim2_blur_iir_plain(img1, img2)
+    planes = (img1,) if img2 is None else (img1, img2)
+    _check_cuda("ssim2_blur_iir", *planes)
+    _check_planes("ssim2_blur_iir", *planes)
+    dist = img1 if img2 is None else img2
+    batched = 1 if img2 is None else _ref_batched("ssim2_blur_iir", img1,
+                                                  img2)
+    n, _, h, w = dist.shape
+    k = 2 if img2 is None else 3
+    outs = [torch.empty_like(dist) for _ in range(k)]
+    # the forward pass's scratch and the W pass's output, per output
+    scratch = dist.new_empty((k, n, 3, h, w))
+    tmp = torch.empty_like(scratch)
+    coef = _yvv_tensor(dist.device)
+    launch(ssim2_blur_iir, "ssim2_blur_iir", dist, img1.data_ptr(), batched,
+           None if img2 is None else img2.data_ptr(), n, h, w,
+           coef.data_ptr(), scratch.data_ptr(), tmp.data_ptr(),
+           outs[0].data_ptr(), outs[1].data_ptr(),
+           outs[2].data_ptr() if k == 3 else None)
+    return tuple(outs)
+
+
+ssim2_blur_iir.launches = 0
 
 
 def ssim2_norms_plain(img1, mu1, s11, img2, mu2, s22, s12) -> torch.Tensor:
@@ -439,16 +547,27 @@ ssim2_norms.launches = 0
 
 
 class MetricOps(NamedTuple):
-    """The three device steps the metric runs: the kernels, or their plain
-    versions (to hold one against the other on the card)."""
+    """The device steps the metric runs: the kernels, or their plain
+    versions (to hold one against the other on the card). ``blur_iir``
+    takes the place of ``blur`` under OAVIF_METRIC_BLUR=iir."""
 
     pyramid: Callable
     blur: Callable
     norms: Callable
+    blur_iir: Callable
+
+    def blurs(self, img1, img2=None):
+        """The scale's blurs under OAVIF_METRIC_BLUR: (mu1, s11), or
+        (mu2, s22, s12) against the candidates img2."""
+        radius = blur_radius()
+        if radius is None:
+            return self.blur_iir(img1, img2)
+        return self.blur(img1, img2, radius)
 
 
-KERNELS = MetricOps(ssim2_pyramid, ssim2_blur, ssim2_norms)
-PLAIN = MetricOps(ssim2_pyramid_plain, ssim2_blur_plain, ssim2_norms_plain)
+KERNELS = MetricOps(ssim2_pyramid, ssim2_blur, ssim2_norms, ssim2_blur_iir)
+PLAIN = MetricOps(ssim2_pyramid_plain, ssim2_blur_plain, ssim2_norms_plain,
+                  ssim2_blur_iir_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -489,12 +608,11 @@ def ssimulacra2_precompute_ref(ref_rgb8, device=None,
     (3, h, w) float32 on ``device`` (``resolve_device()`` by default)."""
     ref = _as_rgb8(ref_rgb8, resolve_device(device))
     h, w = ref.shape[:2]
-    radius = blur_radius()
     out = []
     src = ref[None]
     for _ in range(_num_scales(h, w)):
         src, img1 = ops.pyramid(src)
-        mu1, s11 = ops.blur(img1, None, radius)
+        mu1, s11 = ops.blurs(img1)
         out.append((img1[0], mu1[0], s11[0]))
     return out
 
@@ -513,12 +631,11 @@ def scale_features(ref_pyr: Pyramid, dist: torch.Tensor,
                    ops: MetricOps = KERNELS) -> torch.Tensor:
     """(N, scales, 3, 6) float32 features of uint8 candidates (N, H, W, 3)
     against a reference pyramid."""
-    radius = blur_radius()
     feats = []
     src = dist
     for img1, mu1, s11 in ref_pyr:
         src, img2 = ops.pyramid(src)
-        mu2, s22, s12 = ops.blur(img1[None], img2, radius)
+        mu2, s22, s12 = ops.blurs(img1[None], img2)
         sums = ops.norms(img1[None], mu1[None], s11[None], img2, mu2, s22,
                          s12)
         feats.append(features_from_sums(sums, img2.shape[2] * img2.shape[3]))

@@ -1,6 +1,7 @@
-"""The planner, metric and encode-stage kernels on an NVIDIA GPU: build,
-launch, and equality with their plain PyTorch versions. Skipped without
-CUDA.
+"""The planner, metric, encode-stage, recursive-blur and Wiener kernels on
+an NVIDIA GPU: build, launch, and equality with their plain PyTorch
+versions; the halo blur against the single-device blur's columns, and the
+width-sharded metric on two ranks sharing the card. Skipped without CUDA.
 
 Imports no JAX, so it also runs where JAX is absent:
 
@@ -282,3 +283,119 @@ def test_encode_stage_kernels_reject_bad_input(cuda):
         DS.quant16(cf, dq[:1], dq)
     with pytest.raises(ValueError):
         DS.quant16(cf.transpose(1, 2), dq, dq)
+
+
+# ---------------------------------------------------------------------------
+# The multi-device leg's kernels and the recursive blur. The halo blur of a
+# width slice must be the single-device blur's columns bit for bit (the
+# same taps summed in the same order); the recursive blur and the Wiener
+# filter must equal their plain versions bit for bit (the same float32
+# operations in the same order; int32 arithmetic).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_halo_blur_kernel_equals_single_device_columns(cuda, n):
+    ref, dist = _batch(cuda, 4, 64, 128)
+    img1 = M.ssim2_pyramid(ref[None])[1]
+    img2 = M.ssim2_pyramid(dist)[1]
+    full = M.ssim2_blur(img1, None, 8) + M.ssim2_blur(img1, img2, 8)
+    pad1 = torch.nn.functional.pad(img1, (8, 8))
+    pad2 = torch.nn.functional.pad(img2, (8, 8))
+    ws = 128 // n
+    for i in range(n):
+        e1 = pad1[..., i * ws : i * ws + ws + 16].contiguous()
+        e2 = pad2[..., i * ws : i * ws + ws + 16].contiguous()
+        got = M.ssim2_blur(e1, None, 8, 8) + M.ssim2_blur(e1, e2, 8, 8)
+        plain = (M.ssim2_blur_plain(e1, None, 8, 8)
+                 + M.ssim2_blur_plain(e1, e2, 8, 8))
+        torch.cuda.synchronize()
+        for g, f, p in zip(got, full, plain):
+            cols = f[..., i * ws : (i + 1) * ws].contiguous()
+            assert torch.equal(g.view(torch.int32), cols.view(torch.int32))
+            assert float((g - p).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("h,w", [(8, 8), (37, 53), (256, 320)])
+def test_iir_kernel_equals_plain(cuda, h, w):
+    ref, dist = _batch(cuda, 4, h, w)
+    img1 = M.ssim2_pyramid(ref[None])[1]
+    img2 = M.ssim2_pyramid(dist)[1]
+    launches = M.ssim2_blur_iir.launches
+    got = M.ssim2_blur_iir(img1, None) + M.ssim2_blur_iir(img1, img2)
+    assert M.ssim2_blur_iir.launches == launches + 2
+    want = M.ssim2_blur_iir_plain(img1, None) + M.ssim2_blur_iir_plain(img1,
+                                                                       img2)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, p) for g, p in zip(got, want))
+    # the identical candidate gives the reference side's bits
+    assert torch.equal(got[2][0], got[0][0])
+
+
+def _wiener_ext(cuda, bitdepth, h=130, w=197, seed=0):
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, 1 << bitdepth, (h, w)).astype(np.int32)
+    d = np.clip(c + rng.integers(-4, 5, (h, w)), 0, (1 << bitdepth) - 1)
+    return (torch.from_numpy(c).to(cuda),
+            torch.from_numpy(d.astype(np.int32)).to(cuda))
+
+
+@pytest.mark.parametrize("bitdepth", [8, 10])
+def test_wiener_kernel_equals_plain(cuda, bitdepth):
+    from oavif_tpu_torch.av1 import restoration_sharded as WS
+
+    cdef, deblk = _wiener_ext(cuda, bitdepth, seed=bitdepth)
+    vf, hf = (3, -7, 15, 106, 15, -7, 3), (-2, 4, 28, 68, 28, 4, -2)
+    launches = WS.wiener_bands.launches
+    got = WS.wiener_bands(cdef, deblk, vf, hf, bitdepth)
+    assert WS.wiener_bands.launches == launches + 1
+    want = WS.wiener_bands_plain(cdef, deblk, vf, hf, bitdepth)
+    torch.cuda.synchronize()
+    assert got.shape == (130, 191) and torch.equal(got, want)
+
+
+def test_wiener_kernel_rejects_bad_input(cuda):
+    from oavif_tpu_torch.av1 import restoration_sharded as WS
+
+    cdef, deblk = _wiener_ext(cuda, 8)
+    taps = (0, 0, 0, 128, 0, 0, 0)
+    with pytest.raises(ValueError):
+        WS.wiener_bands(cdef.float(), deblk, taps, taps, 8)
+    with pytest.raises(ValueError):
+        WS.wiener_bands(cdef, deblk[:, 1:].contiguous(), taps, taps, 8)
+    with pytest.raises(ValueError):
+        WS.wiener_bands(cdef, deblk, taps, taps, 12)
+
+
+def test_sharded_metric_on_the_card(cuda):
+    from oavif_tpu_torch.metric.sharded import compute_ssimulacra2_sharded
+
+    ref, dist = _batch(cuda, 2, 128, 256)
+    ref, dist = ref.cpu().numpy(), dist[1].cpu().numpy()
+    single = M.compute_ssimulacra2(ref, dist, cuda)
+    got = compute_ssimulacra2_sharded(ref, dist, 2, device="cuda",
+                                      timeout_s=120)
+    assert abs(got - single) < 1e-3, (got, single)
+
+
+def test_sharded_checks_on_the_card(cuda):
+    """The multi-device check body on two ranks sharing the card: the
+    sharded score launches the metric kernels, counted apart from the
+    checks', and its halo blur is the single-device kernel's columns bit
+    for bit and within the blur's plain bound."""
+    from oavif_tpu_torch import parallel, shard_checks
+    from oavif_tpu_torch.kernels import kernel_key
+
+    ref, dist = _batch(cuda, 2, 128, 256)
+    ref, dist = ref.cpu().numpy(), dist[1].cpu().numpy()
+    results, counts = parallel.spawn(shard_checks.metric_rank, 2,
+                                     args=(ref, dist), device="cuda",
+                                     timeout_s=120)
+    for r, c in zip(results, counts):
+        assert r["differ"] == 0 and r["plain_err"] <= 1e-5
+        for wrapper in (M.ssim2_pyramid, M.ssim2_blur, M.ssim2_norms):
+            key = kernel_key(wrapper)
+            assert 0 < r["launches"][key] <= c[key]
+        # the checks launch the pyramid and the blur again, not the norms
+        for wrapper in (M.ssim2_pyramid, M.ssim2_blur):
+            key = kernel_key(wrapper)
+            assert r["launches"][key] < c[key]

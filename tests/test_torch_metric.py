@@ -20,11 +20,16 @@ Tolerances, with their reasons:
   self-goldens (tests/test_metric.py);
 - identity: 100 within 1e-6; batch against single: 1e-3;
 - against the C scorer: 0.05 (the bound tests/test_metric.py holds the JAX
-  metric to).
+  metric to);
+- the recursive blur (``OAVIF_METRIC_BLUR=iir``): atol 1e-5 against the
+  JAX ``blur_iir`` (observed at most 2.98e-7 on these planes: XLA rounds
+  the recursion's products and sums otherwise than the port's separately
+  rounded float32 operations), and scores within 0.01.
 """
 
 from __future__ import annotations
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -231,12 +236,63 @@ def test_fir_r5_within_half_point(test_rgb8, monkeypatch):
     assert r5 != base and abs(r5 - base) < 0.5, (base, r5)
 
 
-@pytest.mark.parametrize("value,error", [("iir", NotImplementedError),
-                                         ("gauss", ValueError)])
+@pytest.mark.parametrize("value,error", [("gauss", ValueError)])
 def test_blur_selection_refuses(value, error, test_rgb8, monkeypatch):
     monkeypatch.setenv("OAVIF_METRIC_BLUR", value)
     with pytest.raises(error):
         P.compute_ssimulacra2(test_rgb8, test_rgb8, CPU)
+
+
+def test_yvv_coefficients_equal():
+    got, want = P._yvv_coeffs(), R._yvv_coeffs()
+    assert [type(c) for c in got] == [np.float32] * 4
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 53), (3, 96, 128)])
+def test_blur_iir_matches_reference(shape):
+    x = np.random.default_rng(shape[1]).random(shape).astype(np.float32)
+    got = P.blur_iir(_t(x)).numpy()
+    want = np.asarray(R.blur_iir(x))
+    err = float(np.abs(got - want).max())
+    print(f"blur_iir {shape}: max |port - JAX| {err:.3g}")
+    assert got.dtype == np.float32 and err <= 1e-5
+
+
+def test_iir_selection(test_rgb8, monkeypatch):
+    monkeypatch.setenv("OAVIF_METRIC_BLUR", "iir")
+    assert P.blur_radius() is None
+    x = _t(np.random.default_rng(5).random((3, 20, 30)).astype(np.float32))
+    assert torch.equal(P.blur(x), P.blur_iir(x))
+    # the CPU wrapper takes the plain version and counts nothing
+    launches = P.ssim2_blur_iir.launches
+    img1, img2 = x[None], x[None] * 0.5
+    for got, want in ((P.ssim2_blur_iir(img1),
+                       (P.blur_iir(img1), P.blur_iir(img1 * img1))),
+                      (P.ssim2_blur_iir(img1, img2),
+                       (P.blur_iir(img2), P.blur_iir(img2 * img2),
+                        P.blur_iir(img1 * img2)))):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert P.ssim2_blur_iir.launches == launches
+    assert P.compute_ssimulacra2(test_rgb8, test_rgb8, CPU) == 100.0
+
+
+@pytest.mark.parametrize("sigma", [3, 12])
+def test_iir_scores_match_reference(sigma, test_rgb8, monkeypatch):
+    """Under OAVIF_METRIC_BLUR=iir both metrics take the recursive blur.
+    The reference reads the setting when it traces, so its compiled
+    functions are dropped before and after."""
+    dist = _noisy(test_rgb8, sigma, seed=sigma)
+    fir = P.compute_ssimulacra2(test_rgb8, dist, CPU)
+    monkeypatch.setenv("OAVIF_METRIC_BLUR", "iir")
+    got = P.compute_ssimulacra2(test_rgb8, dist, CPU)
+    jax.clear_caches()
+    try:
+        want = R.compute_ssimulacra2(test_rgb8, dist)
+    finally:
+        jax.clear_caches()
+    assert got != fir
+    assert abs(got - want) < 0.01, (got, want)
 
 
 @pytest.mark.parametrize("sigma", [2, 8, 30])
