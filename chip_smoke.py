@@ -18,9 +18,12 @@ Phases, each of which raises on failure (exit code != 0):
 4. metric kernels against plain versions: ``ssim2_pyramid``,
    ``ssim2_blur`` and ``ssim2_norms`` scale by scale, and the whole score,
    on the six classes, a random image, 37x53, 8x8 and 3840x2160, at N=1 and
-   N=4 candidates; identity must score exactly 100.0 through the kernels
-   and a second run must repeat bit for bit; times of one candidate
-   batch's score and of each kernel alone at 512x512x4 and 3840x2160x4;
+   N=4 candidates; ``ssim2_blur`` must also equal ``ssim2_blur_simple``
+   (the first blur kernel, kept as the exact yardstick) bit for bit;
+   identity must score exactly 100.0 through the kernels and a second run
+   must repeat bit for bit; times of one candidate batch's score and of
+   each kernel alone at 512x512x4 and 3840x2160x4, the blur beside the
+   simple kernel in the same call, and both at radius 0, 5 and 8;
 5. main path, the CLI: ``oavif_tpu_torch.cli.run`` with ``-t 80`` and
    ``-q 60`` on the six 512x512 bench classes and one 3840x2160 frame
    written as PAM; each run must exit 0, write an AVIF, launch the planner
@@ -53,9 +56,15 @@ Phases, each of which raises on failure (exit code != 0):
    more than 4 positions of a block;
 11. recursive blur: ``ssim2_blur_iir`` (K2e) against its plain version, bit
    for bit, on the six classes' and the 3840x2160 frame's scale-0 XYB
-   planes at N=1 and N=4, with CUDA-event times at 3840x2160x4; then the
-   main path, the CLI with ``OAVIF_METRIC=jax OAVIF_METRIC_BLUR=iir`` and
-   ``-t 80`` on the six classes, which must launch it;
+   planes at N=1 and N=4, with CUDA-event times at 512x512x4 and
+   3840x2160x4 beside the bytes bound, the time of the design's eight
+   accesses per element at the memory rate, and each pass's time from a
+   ``torch.profiler`` trace; then the main path, the CLI with
+   ``OAVIF_METRIC=jax OAVIF_METRIC_BLUR=iir`` and ``-t 80`` on the six
+   classes, which must launch it. Thread timing moves that search's bytes
+   and sometimes its q, so each class runs again with the rounds'
+   candidates encoded in turn, and that run is held to its q, passes and
+   bytes;
 12. multi-device (ranks spawned by ``oavif_tpu_torch.parallel``, joined by
    gloo over CUDA tensors, sharing the one card): the width-sharded metric
    (K4) on the 3840x2160 frame over 4 ranks and over 2, each slice's blur
@@ -73,7 +82,8 @@ Phases, each of which raises on failure (exit code != 0):
    consumed; and the sharded metric at 1 rank under NCCL.
 
 Each main path runs with every kernel's launch count set to 0 just before
-and read just after; spawned ranks report the launches of their sharded
+and read just after (``ssim2_blur_simple``'s must still be 0 then: no path
+launches it); spawned ranks report the launches of their sharded
 runs apart from their checks' and timings' (``kernels.counting``), which
 are added. The line before the last is a JSON object with each
 kernel's launches on the main paths, its largest difference from its plain
@@ -86,6 +96,7 @@ JAX package and no Pillow.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -95,6 +106,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -154,9 +166,15 @@ TOL = {"ssim2_pyramid": 2e-6, "ssim2_blur": 1e-5, "ssim2_norms": 1e-9,
 def reset_counts() -> None:
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
+    M.ssim2_blur_simple.launches = 0
 
 
 def read_counts() -> dict:
+    """Every kernel's launches since ``reset_counts``; the yardstick blur
+    kernel is on no path, so its count must still be 0."""
+    if M.ssim2_blur_simple.launches:
+        raise AssertionError("a path launched ssim2_blur_simple "
+                             f"{M.ssim2_blur_simple.launches} times")
     return {name: k[0].launches for name, k in KERNELS.items()}
 
 
@@ -164,6 +182,8 @@ def rank_counts(counts) -> dict:
     """The launches that spawned ranks report (``parallel.spawn``), added up
     per kernel of KERNELS."""
     total = parallel.sum_counts(counts)
+    if total.get(kernel_key(M.ssim2_blur_simple), 0):
+        raise AssertionError("a rank launched ssim2_blur_simple")
     return {name: total.get(kernel_key(k[0]), 0)
             for name, k in KERNELS.items()}
 
@@ -413,10 +433,43 @@ def phase_kernel(images: dict, frame4k: np.ndarray) -> dict:
     return {"worst": worst, "times": times}
 
 
+def device_ms_by_kernel(fn, reps: int, match: str) -> dict:
+    """{kernel name: mean device ms per launch} of the kernels whose name
+    holds ``match``, over ``reps`` calls of fn(), from a ``torch.profiler``
+    trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.device_time_total / 1e3 / ev.count
+            for ev in prof.key_averages()
+            if ev.device_time_total > 0 and match in ev.key}
+
+
 def _timed_planner():
-    """Accumulate the host wall time of planner creation and planning."""
-    acc = {"s": 0.0}
+    """Accumulate the host wall time of planner creation and planning,
+    and list, in order, the quantizer indices that a plan was computed for
+    (the others were served from the planner's cache) and those whose
+    encode made its own block decisions (the others replayed the decisions
+    that an earlier encode stored with their plan)."""
+    acc = {"s": 0.0, "planned": [], "decided": []}
     get_planner, plan = FR.get_planner, ET.FramePlanner.plan
+    plan_device, get_dec = ET.plan_device, FR._get_dec
+
+    def listed_get_dec(plan, tile_planes, qindex, *a, **k):
+        dec, record = get_dec(plan, tile_planes, qindex, *a, **k)
+        if record:
+            acc["decided"].append(int(qindex))
+        return dec, record
+
+    def listed_plan_device(y, u, v, qindex, *a, **k):
+        acc["planned"].append(int(qindex))
+        return plan_device(y, u, v, qindex, *a, **k)
 
     def timed_get(*a, **k):
         t0 = time.perf_counter()
@@ -434,6 +487,8 @@ def _timed_planner():
 
     FR.get_planner = timed_get
     ET.FramePlanner.plan = timed_plan
+    ET.plan_device = listed_plan_device
+    FR._get_dec = listed_get_dec
     return acc
 
 
@@ -441,6 +496,7 @@ def run_cli(args, src: str, out: str, acc: dict) -> dict:
     FR.reset_planners()
     launches0 = ET.mode_ssd.launches
     acc["s"] = 0.0
+    acc["planned"], acc["decided"] = [], []
     err = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
@@ -456,6 +512,8 @@ def run_cli(args, src: str, out: str, acc: dict) -> dict:
     found = re.search(r"Found q(\d+) \(score ([-\d.]+), (\d+) passes"
                       r"(?: in (\d+) rounds)?", log)
     res = {"bytes": data, "wall": wall, "planner": acc["s"],
+           "planned": list(acc["planned"]),
+           "decided": list(acc["decided"]),
            "launches": ET.mode_ssd.launches - launches0,
            "devices": {str(t.device) for p in FR.planners() for t in p.dev},
            "q": int(found.group(1)) if found else int(args[1]),
@@ -537,9 +595,10 @@ def noisy_batch(ref: torch.Tensor, sigmas, seed: int) -> torch.Tensor:
 
 def metric_case(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
     """Each metric kernel against its plain version on the same inputs,
-    scale by scale, then the whole score; identity through the kernels
-    must give exactly 100.0 and a second run the same bits. Returns the
-    largest differences."""
+    scale by scale, and the blur against the simple blur kernel bit for
+    bit, then the whole score; identity through the kernels must give
+    exactly 100.0 and a second run the same bits. Returns the largest
+    differences."""
     h, w = ref.shape[:2]
     n = dist.shape[0]
     worst = dict.fromkeys(TOL, 0.0)
@@ -559,6 +618,12 @@ def metric_case(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
               + M.ssim2_blur_plain(img1, img2, 8))
         worst["ssim2_blur"] = max(worst["ssim2_blur"],
                                   *(max_abs(a, b) for a, b in zip(kb, pb)))
+        sb = (M.ssim2_blur_simple(img1, None, 8)
+              + M.ssim2_blur_simple(img1, img2, 8))
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(kb, sb)):
+            raise AssertionError(f"{label} N={n} scale {s}: ssim2_blur != "
+                                 "ssim2_blur_simple")
         planes = (img1, kb[0], kb[1], img2, *kb[2:])
         sums = M.ssim2_norms(*planes)
         if not torch.equal(sums, M.ssim2_norms(*planes)):
@@ -588,7 +653,8 @@ def metric_case(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
     print(f"  {label} N={n}: scores {[round(x, 4) for x in got.tolist()]}; "
           f"max |kernel - plain| pyramid {worst['ssim2_pyramid']:.3g}, "
           f"blur {worst['ssim2_blur']:.3g}, norms {worst['ssim2_norms']:.3g},"
-          f" score {worst['score']:.3g}; identity 100.0, repeat identical",
+          f" score {worst['score']:.3g}; blur == simple kernel bit for bit; "
+          "identity 100.0, repeat identical",
           flush=True)
     for key, tol in TOL.items():
         if worst[key] > tol:
@@ -601,8 +667,9 @@ def metric_times(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
     """CUDA-event ms of one candidate batch's score (all scales, the
     reference pyramid precomputed) and of each kernel alone at scale 0,
     kernel against plain version, with each kernel's bound and, for the
-    blur, one cuDNN convolution's time (``F.conv2d`` with the 17x17 Gaussian
-    over the three distorted-side maps, their products made beforehand)."""
+    blur, the simple blur kernel's time in the same call and one cuDNN
+    convolution's (``F.conv2d`` with the 17x17 Gaussian over the three
+    distorted-side maps, their products made beforehand)."""
     pyr_k = M.ssimulacra2_precompute_ref(ref, ref.device)
     pyr_p = M.ssimulacra2_precompute_ref(ref, ref.device, M.PLAIN)
     img1, mu1, s11 = (t[None] for t in pyr_k[0])
@@ -642,16 +709,28 @@ def metric_times(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
     for key, (kernel, plain) in pairs.items():
         # plain, kernel, kernel, plain: the mean of each pair
         p0, k0 = cuda_ms(plain, reps), cuda_ms(kernel, reps)
+        if key == "ssim2_blur":  # the simple kernel between the two
+            simple = [cuda_ms(lambda: M.ssim2_blur_simple(img1, img2, 8),
+                              reps) for _ in range(2)]
         k1, p1 = cuda_ms(kernel, reps), cuda_ms(plain, reps)
         times[key] = {"ms": (k0 + k1) / 2, "plain_ms": (p0 + p1) / 2,
                       "library_ms": conv if key == "ssim2_blur" else None,
                       **bounds.get(key, {})}
+        if key == "ssim2_blur":
+            times[key]["simple_ms"] = sum(simple) / 2
         extra = "".join(f", {k} {times[key][k]}" for k in
-                        ("library_ms", "bound_ms", "bound_by")
+                        ("simple_ms", "library_ms", "bound_ms", "bound_by")
                         if times[key].get(k) is not None)
         print(f"  {label}x{dist.shape[0]} {key}: kernel "
               f"{times[key]['ms']:.4f} ms, plain "
               f"{times[key]['plain_ms']:.4f} ms{extra}", flush=True)
+    # at radius 0 each tap loop runs one tap: what staging and stores cost
+    for radius in (0, 5, 8):
+        by = [cuda_ms(lambda: fn(img1, img2, radius), reps)
+              for fn in (M.ssim2_blur, M.ssim2_blur_simple)]
+        print(f"  {label}x{dist.shape[0]} ssim2_blur at radius {radius}: "
+              f"kernel {by[0]:.4f} ms, simple kernel {by[1]:.4f} ms",
+              flush=True)
     return times
 
 
@@ -987,10 +1066,14 @@ def phase_levels_path(images: dict, acc: dict) -> dict:
 def phase_iir(images: dict, frame4k: np.ndarray) -> dict:
     """K2e against its plain version on the card, bit for bit (the same
     float32 operations in the same order), on each image's scale-0 XYB
-    planes against four noisy candidates; times at 3840x2160x4."""
+    planes against four noisy candidates; times at 512x512x4 and at
+    3840x2160x4, beside the bytes bound and the time of the design's
+    eight accesses per element at the memory rate, and each pass's time
+    from a ``torch.profiler`` trace."""
     cases = {f"{name} 512x512": rgb for name, rgb in images.items()}
     cases["photo 3840x2160"] = frame4k
     worst = 0.0
+    timed = {}
     for i, (label, rgb) in enumerate(cases.items()):
         ref = torch.from_numpy(rgb).cuda()
         img1 = M.ssim2_pyramid(ref[None])[1]
@@ -1009,42 +1092,130 @@ def phase_iir(images: dict, frame4k: np.ndarray) -> dict:
                                      f"!= plain, max |diff| {err}")
         print(f"  {label}: ssim2_blur_iir == plain bit for bit at N=1 and "
               "N=4", flush=True)
-    outs = M.ssim2_blur_iir(img1, img2)
-    p0 = cuda_ms(lambda: M.ssim2_blur_iir_plain(img1, img2), 1)
-    k0 = cuda_ms(lambda: M.ssim2_blur_iir(img1, img2), 5)
-    k1 = cuda_ms(lambda: M.ssim2_blur_iir(img1, img2), 5)
-    p1 = cuda_ms(lambda: M.ssim2_blur_iir_plain(img1, img2), 1)
-    # per output element: its product, then a forward and a backward step
-    # of 7 operations along each axis
-    times = {"ms": (k0 + k1) / 2, "plain_ms": (p0 + p1) / 2,
-             "library_ms": None,
-             **bound(nbytes(img1, img2, *outs),
-                     29 * sum(t.numel() for t in outs))}
-    print(f"  3840x2160x4 ssim2_blur_iir (distorted side): kernel "
-          f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, bound "
-          f"{times['bound_ms']:.4f} ms ({times['bound_by']})", flush=True)
+        if label in ("sinusoid 512x512", "photo 3840x2160"):
+            timed[label] = (img1, img2)
+    for label, (img1, img2) in timed.items():
+        outs = M.ssim2_blur_iir(img1, img2)
+        reps = 5 if img2.numel() > 1 << 24 else 20
+        p0 = cuda_ms(lambda: M.ssim2_blur_iir_plain(img1, img2), 1)
+        k0 = cuda_ms(lambda: M.ssim2_blur_iir(img1, img2), reps)
+        k1 = cuda_ms(lambda: M.ssim2_blur_iir(img1, img2), reps)
+        p1 = cuda_ms(lambda: M.ssim2_blur_iir_plain(img1, img2), 1)
+        # per output element: its product, then a forward and a backward
+        # step of 7 operations along each axis
+        times = {"ms": (k0 + k1) / 2, "plain_ms": (p0 + p1) / 2,
+                 "library_ms": None,
+                 **bound(nbytes(img1, img2, *outs),
+                         29 * sum(t.numel() for t in outs))}
+        # a reckoning, not a bound: the backward pass of an axis starts
+        # where the forward pass ends, so this kernel's design reads and
+        # writes every element once per direction and axis, eight accesses
+        # to device memory
+        eight_ms = 8 * nbytes(*outs) / HBM_BYTES_S * 1e3
+        print(f"  {label}x4 ssim2_blur_iir (distorted side): kernel "
+              f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, bound "
+              f"{times['bound_ms']:.4f} ms ({times['bound_by']}); eight "
+              f"accesses per element at the memory rate {eight_ms:.4f} ms",
+              flush=True)
+        passes = device_ms_by_kernel(lambda: M.ssim2_blur_iir(img1, img2),
+                                     reps, "iir")
+        if len(passes) != 2:
+            raise AssertionError(f"ssim2_blur_iir is two launches, the "
+                                 f"trace holds {sorted(passes)}")
+        for key, ms in passes.items():
+            print(f"  {label}x4 ssim2_blur_iir, {key[:60]}: {ms:.4f} ms",
+                  flush=True)
+    # the last case timed is the 3840x2160 frame
     return {"worst": worst, "times": times}
+
+
+# the batched -t 80 search on the recursive blur, per class, its rounds taken
+# in turn with candidate 0 first: q, passes, bytes and their CRC-32
+IIR_PATH = {"sinusoid": (93, 4, 137287, 0x50B5FBE1),
+            "fractal": (89, 8, 121990, 0xA5B72733),
+            "edges": (76, 8, 27350, 0x2E144F47),
+            "oriented": (75, 8, 11552, 0x56CC0DF4),
+            "text": (54, 15, 28634, 0x0F44E7DF),
+            "mixed": (90, 8, 119424, 0x76FD943C)}
+
+
+@contextlib.contextmanager
+def serial_rounds(first: int):
+    """Take the threads out of the batched search's rounds: the candidates
+    of a round encode one after another, candidate ``first`` before the
+    others, so that its plan is the one ``FramePlanner`` caches for the
+    quantizers near it."""
+    class InTurn:
+        def __init__(self, max_workers=None):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def map(self, fn, items):
+            items = list(items)
+            k = first % len(items)
+            outs = {i: fn(items[i])
+                    for i in [*range(k, len(items)), *range(k)]}
+            return [outs[i] for i in range(len(items))]
+
+    pool = concurrent.futures.ThreadPoolExecutor
+    concurrent.futures.ThreadPoolExecutor = InTurn
+    try:
+        yield
+    finally:
+        concurrent.futures.ThreadPoolExecutor = pool
 
 
 def phase_iir_path(images: dict, acc: dict) -> dict:
     """The CLI's batched search on the recursive blur: OAVIF_METRIC=jax
-    OAVIF_METRIC_BLUR=iir, -t 80 on the six classes; returns the
-    launches."""
-    os.environ.update(OAVIF_METRIC="jax", OAVIF_METRIC_BLUR="iir")
+    OAVIF_METRIC_BLUR=iir, -t 80 on the six classes; returns the launches
+    of the runs as a user makes them. Those runs are held to no q or
+    bytes: the candidates of a round encode on threads, the first to plan
+    leaves its plan in ``FramePlanner``'s cache for the quantizers near it,
+    and an encode replays the block decisions stored with its plan unless
+    it started before another had stored them, so thread timing moves the
+    bytes and, on some images, the q. Each class therefore runs again with
+    its rounds in turn: candidate 0 first, twice, held to ``IIR_PATH``,
+    and each other candidate first, printed."""
+    os.environ.update(OAVIF_METRIC="jax", OAVIF_METRIC_BLUR="iir",
+                      OAVIF_TQ_BATCH_WIDTH="4")
+
+    def show(r):
+        return (f"q{r['q']} score {r['score']} passes {r['passes']} bytes "
+                f"{len(r['bytes'])}, planned at qindex {r['planned']}, own "
+                f"decisions at {r['decided']}")
+
     try:
         with tempfile.TemporaryDirectory() as td:
+            out = os.path.join(td, "o.avif")
             reset_counts()
             for name, rgb in images.items():
-                src = os.path.join(td, f"{name}.pam")
-                write_pam(src, rgb)
-                r = run_cli(["-t", "80"], src, os.path.join(td, "o.avif"),
-                            acc)
-                print(f"  {name} -t 80 (iir): q{r['q']} score {r['score']} "
-                      f"passes {r['passes']} bytes {len(r['bytes'])} wall "
+                write_pam(os.path.join(td, f"{name}.pam"), rgb)
+                r = run_cli(["-t", "80"], os.path.join(td, f"{name}.pam"),
+                            out, acc)
+                print(f"  {name} -t 80 (iir): {show(r)}, wall "
                       f"{r['wall']:.3f} s", flush=True)
             counts = read_counts()
+            for name in images:
+                src = os.path.join(td, f"{name}.pam")
+                for first in (0, 0, 1, 2, 3):
+                    with serial_rounds(first):
+                        r = run_cli(["-t", "80"], src, out, acc)
+                    got = (r["q"], r["passes"], len(r["bytes"]),
+                           zlib.crc32(r["bytes"]))
+                    if first == 0 and got != IIR_PATH[name]:
+                        raise AssertionError(
+                            f"iir CLI path, {name}, rounds in turn: {got}, "
+                            f"not {IIR_PATH[name]}")
+                    print(f"  {name} (iir), rounds in turn, candidate "
+                          f"{first} first: {show(r)}", flush=True)
     finally:
-        for var in ("OAVIF_METRIC", "OAVIF_METRIC_BLUR"):
+        for var in ("OAVIF_METRIC", "OAVIF_METRIC_BLUR",
+                    "OAVIF_TQ_BATCH_WIDTH"):
             os.environ.pop(var, None)
     if counts["ssim2_blur_iir"] <= 0 or counts["ssim2_blur"] != 0:
         raise AssertionError(f"iir CLI path: launches {counts}")
@@ -1323,7 +1494,8 @@ def main() -> int:
                      "max_abs_err": worst[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"]})
+                     "library_ms": t["library_ms"],
+                     **{k: t[k] for k in ("simple_ms",) if k in t}})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -30,6 +30,24 @@ LIB_PATH = BUILD_DIR / "liboavif_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_P, _I, _F = C.c_void_p, C.c_int, C.c_float
+# every C entry of csrc/*.cu with its argument types: pointers and the
+# stream as c_void_p (ctypes would cut them to 32 bits otherwise); each
+# returns an int, cudaGetLastError()
+entries = {
+    "planner_mode_ssd": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "ssim2_pyramid_rgb8": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "ssim2_pyramid_down": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "ssim2_blur": [_P, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+    "ssim2_blur_simple": [_P, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+    "ssim2_blur_iir": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "ssim2_norms": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I,
+                    _P, _P],
+    "dstage_coeffs16": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "dstage_quant16": [_P, _I, _I, _P, _P, _F, _P, _P, _P, _P],
+    "wiener_bands": [_P, _P, _I, _I, _I, _P, _P, _P],
+}
+
 _lib: Optional[C.CDLL] = None
 _lock = threading.Lock()
 # nvcc's output of the last build in this process (ptxas register and
@@ -90,21 +108,9 @@ def load() -> C.CDLL:
         if not LIB_PATH.exists() or LIB_PATH.stat().st_mtime < newest:
             _build()
         lib = C.CDLL(str(LIB_PATH))
-        p, i, f = C.c_void_p, C.c_int, C.c_float
-        entries = {
-            "planner_mode_ssd": [p, i, i, i, i, i, i, p, p, p, p, p],
-            "ssim2_pyramid_rgb8": [p, i, i, i, p, p, p, p],
-            "ssim2_pyramid_down": [p, i, i, i, p, p, p, p],
-            "ssim2_blur": [p, i, p, i, i, i, i, p, i, p, p, p, p],
-            "ssim2_blur_iir": [p, i, p, i, i, i, p, p, p, p, p, p, p],
-            "ssim2_norms": [p, p, p, i, p, p, p, p, i, i, i, f, p, i, p, p],
-            "dstage_coeffs16": [p, i, i, i, i, p, p, p, p, p, p],
-            "dstage_quant16": [p, i, i, p, p, f, p, p, p, p],
-            "wiener_bands": [p, p, i, i, i, p, p, p],
-        }
         for name, argtypes in entries.items():
             fn = getattr(lib, name)
-            fn.restype = i
+            fn.restype = _I
             fn.argtypes = argtypes
         _lib = lib
         return lib

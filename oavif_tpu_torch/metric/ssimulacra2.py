@@ -14,11 +14,23 @@ reference's vmapped ``_score_batch``):
   or a 2x2 box downsample of linear RGB and its XYB at each further scale;
 - ``ssim2_blur``: the separable zero-padded Gaussian, sigma 1.5, as
   ``(mu1, s11)`` on the reference side or ``(mu2, s22, s12)`` on the
-  distorted side, the products formed in shared memory; with ``halo``
-  extra columns on each side, the blur of a width shard
-  (``metric/sharded.py``);
+  distorted side; with ``halo`` extra columns on each side, the blur of a
+  width shard (``metric/sharded.py``). By its bytes it is bound by device
+  memory, but a naive stencil is bound by shared-memory loads long before
+  that, so the kernel tiles in registers (a thread slides the unrolled
+  taps over a window it reads once), marches a block down a strip of
+  columns with the last filtered rows in a ring of shared memory (a row is
+  filtered across once, not once per tile) and keeps the next rows in
+  flight by ``cp.async`` while it filters. ``ssim2_blur_simple`` is the
+  first kernel, one output per thread and pass with the same arithmetic:
+  the exact yardstick (``torch.equal``) and the time to beat, on no path;
 - ``ssim2_blur_iir``: the same five blurs through the reference's
-  recursive (Young-van Vliet) Gaussian, under ``OAVIF_METRIC_BLUR=iir``;
+  recursive (Young-van Vliet) Gaussian, under ``OAVIF_METRIC_BLUR=iir``. A
+  chain of dependent operations per row and column, bound by device
+  memory: keeping the reference's order of operations costs eight trips
+  per output element, so the kernel makes every trip a coalesced one (the
+  W pass moves 32 rows at a time through a padded tile of shared memory;
+  its intermediates are stored as 32x32 tiles);
 - ``ssim2_norms``: the SSIM error, artifact and detail-lost maps reduced
   to their sums and sums of 4th powers per channel, in float64, in a fixed
   order (no atomics), so a repeated score is bit-identical.
@@ -48,7 +60,7 @@ NUM_SCALES = 6
 _C2 = 0.0009
 _SIGMA = 1.5
 _KERNEL_RADIUS = 8  # exp(-r²/2σ²) < 3e-7 beyond r=8 at σ=1.5
-_MAX_KERNEL_RADIUS = 8  # the blur kernel's shared-memory halo
+_MAX_KERNEL_RADIUS = 8  # the largest radius the blur kernels are built for
 _NORM_CHUNK = 4096  # pixels per block of the norms kernel's first pass
 
 # SSIMULACRA 2.1 fitted weights, channel-major (X, Y, B), then scale 0..5,
@@ -321,7 +333,7 @@ def _num_scales(h: int, w: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# The three kernels, each beside its plain version
+# The kernels, each beside its plain version
 # ---------------------------------------------------------------------------
 
 
@@ -420,6 +432,34 @@ def _check_planes(name: str, *planes: torch.Tensor) -> None:
             raise ValueError(f"{name}: batch {t.shape[0]} too large")
 
 
+def _launch_blur(wrapper, img1: torch.Tensor, img2: Optional[torch.Tensor],
+                 radius: int, halo: int):
+    """Check the planes and launch ``wrapper``'s C entry (named like the
+    wrapper; the blur's entries share their arguments)."""
+    name = wrapper.__name__
+    planes = (img1,) if img2 is None else (img1, img2)
+    _check_cuda(name, *planes)
+    _check_planes(name, *planes)
+    if not 0 <= radius <= _MAX_KERNEL_RADIUS:
+        raise ValueError(f"{name}: radius {radius} outside "
+                         f"0..{_MAX_KERNEL_RADIUS}")
+    dist = img1 if img2 is None else img2
+    if not 0 <= halo <= _MAX_KERNEL_RADIUS or dist.shape[3] <= 2 * halo:
+        raise ValueError(f"{name}: halo {halo} outside "
+                         f"0..{_MAX_KERNEL_RADIUS} or wider than the input")
+    batched = 1 if img2 is None else _ref_batched(name, img1, img2)
+    n, _, h, win = dist.shape
+    w = win - 2 * halo
+    outs = [dist.new_empty((n, 3, h, w))
+            for _ in range(2 if img2 is None else 3)]
+    taps = _taps(radius, dist.device)
+    launch(wrapper, name, dist, img1.data_ptr(), batched,
+           None if img2 is None else img2.data_ptr(), n, h, w, halo,
+           taps.data_ptr(), radius, outs[0].data_ptr(), outs[1].data_ptr(),
+           outs[2].data_ptr() if len(outs) == 3 else None)
+    return tuple(outs)
+
+
 def ssim2_blur(img1: torch.Tensor, img2: Optional[torch.Tensor] = None,
                radius: int = _KERNEL_RADIUS, halo: int = 0):
     """ssim2_blur_plain's result; on CUDA tensors from the blur kernel
@@ -427,30 +467,26 @@ def ssim2_blur(img1: torch.Tensor, img2: Optional[torch.Tensor] = None,
     version."""
     if img1.device.type == "cpu":
         return ssim2_blur_plain(img1, img2, radius, halo)
-    planes = (img1,) if img2 is None else (img1, img2)
-    _check_cuda("ssim2_blur", *planes)
-    _check_planes("ssim2_blur", *planes)
-    if not 0 <= radius <= _MAX_KERNEL_RADIUS:
-        raise ValueError(f"ssim2_blur: radius {radius} outside "
-                         f"0..{_MAX_KERNEL_RADIUS}")
-    dist = img1 if img2 is None else img2
-    if not 0 <= halo <= _MAX_KERNEL_RADIUS or dist.shape[3] <= 2 * halo:
-        raise ValueError(f"ssim2_blur: halo {halo} outside "
-                         f"0..{_MAX_KERNEL_RADIUS} or wider than the input")
-    batched = 1 if img2 is None else _ref_batched("ssim2_blur", img1, img2)
-    n, _, h, win = dist.shape
-    w = win - 2 * halo
-    outs = [dist.new_empty((n, 3, h, w))
-            for _ in range(2 if img2 is None else 3)]
-    taps = _taps(radius, dist.device)
-    launch(ssim2_blur, "ssim2_blur", dist, img1.data_ptr(), batched,
-           None if img2 is None else img2.data_ptr(), n, h, w, halo,
-           taps.data_ptr(), radius, outs[0].data_ptr(), outs[1].data_ptr(),
-           outs[2].data_ptr() if len(outs) == 3 else None)
-    return tuple(outs)
+    return _launch_blur(ssim2_blur, img1, img2, radius, halo)
 
 
 ssim2_blur.launches = 0
+
+
+def ssim2_blur_simple(img1: torch.Tensor, img2: Optional[torch.Tensor] = None,
+                      radius: int = _KERNEL_RADIUS, halo: int = 0):
+    """``ssim2_blur`` through the first blur kernel, which the source
+    keeps as the exact yardstick: one output per thread and pass, the same
+    arithmetic per output, so the two give the same bits. No path calls
+    it; the card tests and ``chip_smoke.py`` hold ``ssim2_blur`` to it with
+    ``torch.equal`` and time the two in one call. Counted in
+    ``ssim2_blur_simple.launches``."""
+    if img1.device.type == "cpu":
+        return ssim2_blur_plain(img1, img2, radius, halo)
+    return _launch_blur(ssim2_blur_simple, img1, img2, radius, halo)
+
+
+ssim2_blur_simple.launches = 0
 
 
 def ssim2_blur_iir_plain(img1: torch.Tensor,
@@ -480,8 +516,9 @@ def ssim2_blur_iir(img1: torch.Tensor, img2: Optional[torch.Tensor] = None):
     n, _, h, w = dist.shape
     k = 2 if img2 is None else 3
     outs = [torch.empty_like(dist) for _ in range(k)]
-    # the forward pass's scratch and the W pass's output, per output
-    scratch = dist.new_empty((k, n, 3, h, w))
+    # the forward pass's scratch and the W pass's output, per output and
+    # plane as 32x32 tiles (the kernel's own layout)
+    scratch = dist.new_empty((k, n, 3, -(-h // 32), -(-w // 32), 32, 32))
     tmp = torch.empty_like(scratch)
     coef = _yvv_tensor(dist.device)
     launch(ssim2_blur_iir, "ssim2_blur_iir", dist, img1.data_ptr(), batched,

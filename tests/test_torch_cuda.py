@@ -1,7 +1,8 @@
 """The planner, metric, encode-stage, recursive-blur and Wiener kernels on
 an NVIDIA GPU: build, launch, and equality with their plain PyTorch
-versions; the halo blur against the single-device blur's columns, and the
-width-sharded metric on two ranks sharing the card. Skipped without CUDA.
+versions; the blur against the simple blur kernel, bit for bit; the halo
+blur against the single-device blur's columns, and the width-sharded
+metric on two ranks sharing the card. Skipped without CUDA.
 
 Imports no JAX, so it also runs where JAX is absent:
 
@@ -21,6 +22,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from oavif_tpu_torch.av1 import device_stage as DS  # noqa: E402
 from oavif_tpu_torch.av1 import encode_tpu as ET  # noqa: E402
+from oavif_tpu_torch.device import resolve_device  # noqa: E402
 from oavif_tpu_torch.metric import ssimulacra2 as M  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -30,7 +32,9 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+    # as every entry point does: this also turns cuDNN's TF32 off, which
+    # the plain blur refuses to run with
+    return resolve_device("cuda")
 
 
 def _planes(cuda, bitdepth, h=320, w=448, seed=0):
@@ -142,6 +146,76 @@ def test_blur_kernel_equals_plain(cuda, radius, h, w):
     mu2, s22, s12 = M.ssim2_blur(img1, img2, radius)
     assert torch.equal(mu2[0], mu1[0]) and torch.equal(s22[0], s11[0])
     assert torch.equal(s12[0], s11[0])
+
+
+def _assert_blur_equals_simple(img1, img2, radius, halo=0):
+    """ssim2_blur == ssim2_blur_simple bit for bit, reference side and
+    distorted side, each counted on its own wrapper."""
+    for second in (None, img2):
+        c0, s0 = M.ssim2_blur.launches, M.ssim2_blur_simple.launches
+        got = M.ssim2_blur(img1, second, radius, halo)
+        want = M.ssim2_blur_simple(img1, second, radius, halo)
+        torch.cuda.synchronize()
+        assert (M.ssim2_blur.launches, M.ssim2_blur_simple.launches) == (
+            c0 + 1, s0 + 1)
+        assert len(got) == len(want) == (2 if second is None else 3)
+        for g, s in zip(got, want):
+            assert g.shape == s.shape
+            assert torch.equal(g.view(torch.int32), s.view(torch.int32))
+
+
+# 150x270 is wider and taller than any tile, with a width that is no
+# multiple of 4 (4-byte staging loads) and ragged tiles on both edges
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("radius", [0, 3, 5, 8])
+@pytest.mark.parametrize("h,w", [(8, 8), (37, 53), (256, 320), (150, 270)])
+def test_blur_kernel_equals_simple_kernel(cuda, h, w, radius, n):
+    ref, dist = _batch(cuda, n, h, w)
+    img1 = M.ssim2_pyramid(ref[None])[1]
+    img2 = M.ssim2_pyramid(dist)[1]
+    _assert_blur_equals_simple(img1, img2, radius)
+    if n > 1:  # a reference per candidate
+        _assert_blur_equals_simple(img2.flip(0).contiguous(), img2, radius)
+
+
+@pytest.mark.parametrize("h,win", [(64, 80), (135, 256), (70, 149)])
+def test_halo_blur_kernel_equals_simple_kernel(cuda, h, win):
+    """Halo 8 at shard shapes (16-byte staging loads) and at an odd width
+    (4-byte loads)."""
+    ref, dist = _batch(cuda, 4, h, win)
+    img1 = M.ssim2_pyramid(ref[None])[1]
+    img2 = M.ssim2_pyramid(dist)[1]
+    _assert_blur_equals_simple(img1, img2, 8, halo=8)
+    _assert_blur_equals_simple(img1, img2, 5, halo=8)
+    _assert_blur_equals_simple(img1, img2, 8, halo=3)
+
+
+def test_blur_kernel_equals_simple_kernel_on_many_segments(cuda):
+    """A plane of 60 strips and 9 segments of rows, the last one ragged."""
+    ref, dist = _batch(cuda, 4, 1030, 3840)
+    img1 = M.ssim2_pyramid(ref[None])[1]
+    img2 = M.ssim2_pyramid(dist)[1]
+    _assert_blur_equals_simple(img1, img2, 8)
+
+
+def test_blur_kernel_takes_planes_off_16_byte_alignment(cuda):
+    """A contiguous view that starts 4 bytes into its storage takes the
+    4-byte staging loads and gives the same bits."""
+    ref, dist = _batch(cuda, 2, 40, 72)
+    img1 = M.ssim2_pyramid(ref[None])[1]
+    img2 = M.ssim2_pyramid(dist)[1]
+    want = M.ssim2_blur(img1, img2, 8)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+        return view
+
+    got = M.ssim2_blur(shifted(img1), shifted(img2), 8)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, s) for g, s in zip(got, want))
 
 
 @pytest.mark.parametrize("h,w", [(8, 8), (37, 53), (256, 320)])
@@ -315,7 +389,8 @@ def test_halo_blur_kernel_equals_single_device_columns(cuda, n):
             assert float((g - p).abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("h,w", [(8, 8), (37, 53), (256, 320)])
+@pytest.mark.parametrize("h,w", [(8, 8), (37, 53), (256, 320), (9, 31),
+                                 (31, 9), (33, 65), (70, 100)])
 def test_iir_kernel_equals_plain(cuda, h, w):
     ref, dist = _batch(cuda, 4, h, w)
     img1 = M.ssim2_pyramid(ref[None])[1]
