@@ -10,11 +10,15 @@ Phases, each of which raises on failure (exit code != 0):
 1. card: the ``nvidia-smi`` name and power limit; CUDA must be available;
 2. build: the planner and metric kernels with nvcc from
    oavif_tpu_torch/csrc/, one process per source, with the ptxas lines;
-3. planner kernel against plain version: the SSD matrix of every grid
-   (64, 32, 16), mode set (5, 7, 13) and bit depth (8, 10) on random planes
-   and on the six bench classes, and the packed plans built on it, must
-   equal the plain PyTorch version on the card exactly; times from CUDA
-   events, at 512x512 and at 3840x2160;
+3. planner kernels against plain version: the fused plan
+   (``planner_plan``, K1) must equal ``plan_device_plain`` exactly, both
+   with the plain SSD and with the first planner kernel's five SSD launches
+   (``planner_mode_ssd``, kept as the yardstick; no path may launch it),
+   for every mode set (5, 7, 13), duel level and q of 40, 88, 90, 91 and
+   120, at both bit depths, on random planes and on the six bench classes,
+   and on the 3840x2160 frame; the yardstick's SSD matrix of every grid
+   must equal the plain SSD; CUDA-event times of one plan, fused, old path
+   and plain in turns, at 512x512 and at 3840x2160;
 4. metric kernels against plain versions: ``ssim2_pyramid``,
    ``ssim2_blur`` and ``ssim2_norms`` scale by scale, and the whole score,
    on the six classes, a random image, 37x53, 8x8 and 3840x2160, at N=1 and
@@ -79,17 +83,21 @@ Phases, each of which raises on failure (exit code != 0):
    ``dryrun_multichip`` at 2 and 4 ranks with the reference's shapes, and
    on the 3840x2160 frame as 4 tile columns (one rank each), whose
    seeded-plan encode must give the unsharded bytes with seeded plans
-   consumed; and the sharded metric at 1 rank under NCCL.
+   consumed; and the sharded metric at 1 rank under NCCL;
+13. planner trace: device kernels per plan of the old path and of the
+   fused kernel, and the fused kernel's own device time, from one
+   ``torch.profiler`` trace per size (512x512 and 3840x2160), last.
 
 Each main path runs with every kernel's launch count set to 0 just before
-and read just after (``ssim2_blur_simple``'s must still be 0 then: no path
-launches it); spawned ranks report the launches of their sharded
-runs apart from their checks' and timings' (``kernels.counting``), which
-are added. The line before the last is a JSON object with each
-kernel's launches on the main paths, its largest difference from its plain
-version, its times at 3840x2160, its bound (bytes over the HBM rate or
-operations over the float32 rate, the larger) and one PyTorch call's time
-where one computes the same function; the last line is
+and read just after (``ssim2_blur_simple``'s and ``planner_mode_ssd``'s
+must still be 0 then: no path launches them); spawned ranks report the
+launches of their sharded runs apart from their checks' and timings'
+(``kernels.counting``), which are added. The line before the last is a
+JSON object with each kernel's launches on the main paths, its largest
+difference from its plain version, its times at 3840x2160, its bound
+(bytes over the HBM rate or operations over the float32 rate, the larger;
+the planner's integer operations over the rates of the integer pipes) and one PyTorch
+call's time where one computes the same function; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX, nothing of the
 JAX package and no Pillow.
 """
@@ -129,8 +137,8 @@ from oavif_tpu_torch.metric import ssimulacra2 as M
 CLASSES = ("sinusoid", "fractal", "edges", "oriented", "text", "mixed")
 # name -> (wrapper, source, the reference function it replaces)
 KERNELS = {
-    "planner_mode_ssd": (ET.mode_ssd, "oavif_tpu_torch/csrc/planner.cu",
-                         "oavif_tpu/av1/encode_tpu.py:259"),
+    "planner_plan": (ET.plan_device, "oavif_tpu_torch/csrc/planner.cu",
+                     "oavif_tpu/av1/encode_tpu.py:259"),
     "ssim2_pyramid": (M.ssim2_pyramid, "oavif_tpu_torch/csrc/ssimulacra2.cu",
                       "oavif_tpu/metric/ssimulacra2.py:236"),
     "ssim2_blur": (M.ssim2_blur, "oavif_tpu_torch/csrc/ssimulacra2.cu",
@@ -149,15 +157,44 @@ KERNELS = {
 }
 METRIC_KERNELS = ("ssim2_pyramid", "ssim2_blur", "ssim2_norms")
 # the kernels of the CLI, pipeline and batched-search paths
-SEARCH_KERNELS = ("planner_mode_ssd", *METRIC_KERNELS)
+SEARCH_KERNELS = ("planner_plan", *METRIC_KERNELS)
+# the wrappers of the yardstick kernels, which no path may launch
+YARDSTICKS = (M.ssim2_blur_simple, ET.mode_ssd)
 LEVEL_KERNELS = ("dstage_coeffs16", "dstage_quant16")
 LEVEL_QS = (30, 60, 90)
 # the card the encode-stage phases run on (a CPU rehearsal may set it)
 DEVICE = torch.device("cuda")
 # NVIDIA H100 SXM data-sheet peaks: HBM bytes/s and float32 operations/s
-# outside the tensor cores (the 32-bit rate the int32 planner is held to)
+# outside the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
+# 32-bit integer rates of the H100 SXM at its 1.98 GHz boost clock: the
+# CUDA C++ Programming Guide's throughput table gives compute capability 9.0
+# 64 results a clock per SM for integer add, shift, compare, logic and
+# multiply-add alike. IMAD issues to the FMA pipe and the rest (IADD3,
+# LEA, SHF, IABS, ISETP, SEL) to the ALU pipe, which run side by side
+# (Jia et al., "Dissecting the NVIDIA Volta / Turing GPU architecture via
+# microbenchmarking", 2018-2019; not measured on Hopper here), and each of
+# the four schedulers of an SM issues one warp instruction a clock. So a
+# mix takes at least the largest of its ALU operations over the ALU rate,
+# its IMADs over the FMA-pipe rate and all of them over the issue rate.
+INT_ALU_OPS_S = 132 * 64 * 1.98e9
+INT_IMAD_OPS_S = 132 * 64 * 1.98e9
+ISSUE_OPS_S = 132 * 128 * 1.98e9
+# (ALU, IMAD) operations that each planner mode needs at one pixel, counted
+# in its formula (oavif_tpu_torch/av1/encode_tpu.py _predictions,
+# csrc/planner.cu base_preds) with every term that is constant along a row
+# or a column of the block hoisted out and merged instructions counted
+# once, the SSD's difference (IADD) and square-and-add (IMAD) included:
+# DC, V, H (1, 1); SMOOTH beside SMOOTH_V and SMOOTH_H adds their two
+# numerators and shifts (3, 1), alone it is 2 IMADs and a shift (2, 3);
+# PAETH |a + (l - 2 cr)|, 3 comparisons, 2 selects, |a - cr| a column's
+# constant (8, 1); SMOOTH_V wr*a + row constant, SMOOTH_H wc*(l - right)
+# + row constant, each an IMAD and a shift (2, 2); a directional mode
+# w0*e0 + 16 and + w1*e1 in 2 IMADs and a shift (2, 3).
+PLAN_MODE_OPS = ((1, 1), (1, 1), (1, 1), (3, 1), (8, 1), (2, 2), (2, 2)) \
+    + ((2, 3),) * 6
+PLAN_SMOOTH_ALONE = (2, 3)
 # kernel against plain version, with the reasons in tests/test_torch_cuda.py
 TOL = {"ssim2_pyramid": 2e-6, "ssim2_blur": 1e-5, "ssim2_norms": 1e-9,
        "score": 0.01}
@@ -166,15 +203,17 @@ TOL = {"ssim2_pyramid": 2e-6, "ssim2_blur": 1e-5, "ssim2_norms": 1e-9,
 def reset_counts() -> None:
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
-    M.ssim2_blur_simple.launches = 0
+    for wrapper in YARDSTICKS:
+        wrapper.launches = 0
 
 
 def read_counts() -> dict:
-    """Every kernel's launches since ``reset_counts``; the yardstick blur
-    kernel is on no path, so its count must still be 0."""
-    if M.ssim2_blur_simple.launches:
-        raise AssertionError("a path launched ssim2_blur_simple "
-                             f"{M.ssim2_blur_simple.launches} times")
+    """Every kernel's launches since ``reset_counts``; the yardstick
+    kernels are on no path, so their counts must still be 0."""
+    for wrapper in YARDSTICKS:
+        if wrapper.launches:
+            raise AssertionError(f"a path launched {wrapper.__name__} "
+                                 f"{wrapper.launches} times")
     return {name: k[0].launches for name, k in KERNELS.items()}
 
 
@@ -182,8 +221,9 @@ def rank_counts(counts) -> dict:
     """The launches that spawned ranks report (``parallel.spawn``), added up
     per kernel of KERNELS."""
     total = parallel.sum_counts(counts)
-    if total.get(kernel_key(M.ssim2_blur_simple), 0):
-        raise AssertionError("a rank launched ssim2_blur_simple")
+    for wrapper in YARDSTICKS:
+        if total.get(kernel_key(wrapper), 0):
+            raise AssertionError(f"a rank launched {wrapper.__name__}")
     return {name: total.get(kernel_key(k[0]), 0)
             for name, k in KERNELS.items()}
 
@@ -196,13 +236,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(moved: float, ops: float) -> dict:
+def bound(moved: float, ops: float, ops_s: float = F32_OPS_S,
+          ops_by: str = "operations") -> dict:
     """The least time of a function on the card: the larger of its bytes
     (each input read once, each output written once) over the HBM rate and
-    its operations over the float32 rate."""
-    t_bytes, t_ops = moved / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+    its operations over their rate (float32 unless ``ops_s`` says
+    otherwise; ``ops_by`` names it when it bounds)."""
+    t_bytes, t_ops = moved / HBM_BYTES_S * 1e3, ops / ops_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else ops_by}
 
 
 def write_pam(path: str, rgb: np.ndarray) -> None:
@@ -340,7 +382,7 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 
 def plan_ssd(dev, bitdepth: int, nmodes: int, ssd):
-    """The five SSD calls of one plan_device step."""
+    """The five SSD calls of one plan_device_plain step."""
     y, u, v = dev
     sby, sbx = (y.shape[0] - 1) // 64, (y.shape[1] - 1) // 64
     base = 1 << (bitdepth - 1)
@@ -356,13 +398,68 @@ def device_planes(planes, bitdepth: int):
             .cuda() for p in planes]
 
 
+def plan_ops(dev, nmodes: int) -> tuple:
+    """The (ALU, IMAD) integer operations one plan's formulas need: every
+    luma pixel of the full SBs under 7 modes at 64 and 32 and ``nmodes`` at
+    16, and every chroma pixel under DC (PLAN_MODE_OPS)."""
+    px = (dev[0].shape[0] - 1) * (dev[0].shape[1] - 1)
+    alu = imad = 0
+    for n in (ET.N_MODES, ET.N_MODES, nmodes, 1, 1):
+        ops = list(PLAN_MODE_OPS[:n])
+        if 3 < n < ET.N_MODES:  # SMOOTH without SMOOTH_V and SMOOTH_H
+            ops[3] = PLAN_SMOOTH_ALONE
+        alu += sum(a for a, _ in ops)
+        imad += sum(m for _, m in ops)
+    return px * alu, px * imad
+
+
+def plan_bound(dev, out) -> dict:
+    """K1's bound: the larger of its bytes over the HBM rate and its
+    integer operations over the rates of the pipes they issue to."""
+    alu, imad = plan_ops(dev, ET.N_MODES_DIR)
+    t_ops = max(alu / INT_ALU_OPS_S, imad / INT_IMAD_OPS_S,
+                (alu + imad) / ISSUE_OPS_S)
+    return bound(nbytes(*dev, out), t_ops, 1.0, "int32")  # t_ops in s
+
+
+def ptxas_of(kernel: str) -> list:
+    """The ptxas lines (registers, shared memory, spills) of every
+    instantiation of ``kernel`` in this process's build (none when the
+    library was up to date)."""
+    out, on = [], False
+    for ln in build.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            on = kernel in ln
+        if on and any(k in ln for k in ("entry function", "registers",
+                                         "spill")):
+            out.append(ln.strip())
+    return out
+
+
 def phase_kernel(images: dict, frame4k: np.ndarray) -> dict:
-    """Kernel against plain version on the card; returns the worst
-    difference and the per-plan times at 512^2 and 4K."""
+    """The planner kernels against the plain version on the card; returns
+    the fused plan's worst difference from the plain plan and one plan's
+    times at 512^2 and 4K."""
+    plan = KERNELS["planner_plan"][0]
     rng = np.random.default_rng(2024)
     worst = 0
-    cases = 0
+    cases = plans = 0
     t_kernel = t_plain = 0.0
+
+    def hold(dev, bitdepth, nmodes, duel, q, label):
+        nonlocal worst
+        got = plan(*dev, q, bitdepth, nmodes, duel)
+        for ssd in (ET.mode_ssd_plain, ET.mode_ssd):
+            want = ET.plan_device_plain(*dev, q, bitdepth, nmodes, duel,
+                                        ssd=ssd)
+            diff = int((got - want).abs().max())
+            worst = max(worst, diff)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"packed plan planner_plan != plan_device_plain(ssd="
+                    f"{ssd.__name__}): {label} {bitdepth}-bit nmodes "
+                    f"{nmodes} duel {duel} q {q}, max |diff| {diff}")
+
     for bitdepth in (8, 10):
         base = 1 << (bitdepth - 1)
         sources = {"random": [rng.integers(0, 1 << bitdepth, (512, 512))
@@ -379,7 +476,6 @@ def phase_kernel(images: dict, frame4k: np.ndarray) -> dict:
                     want = ET.mode_ssd_plain(y, nb, nb, P, base, nmodes)
                     torch.cuda.synchronize()
                     diff = int((got - want).abs().max())
-                    worst = max(worst, diff)
                     if diff:
                         raise AssertionError(
                             f"kernel != plain: {name} {bitdepth}-bit P{P} "
@@ -393,61 +489,106 @@ def phase_kernel(images: dict, frame4k: np.ndarray) -> dict:
                     cases += 1
             for nmodes in (5, 7, 13):
                 for duel in (0, 1, 2):
-                    for q in (40, 88, 120):
-                        a = ET.plan_device(*dev, q, bitdepth, nmodes, duel)
-                        b = ET.plan_device(*dev, q, bitdepth, nmodes, duel,
-                                           ssd=ET.mode_ssd_plain)
-                        if not torch.equal(a, b):
-                            raise AssertionError(
-                                f"packed plan kernel != plain: {name} "
-                                f"{bitdepth}-bit nmodes {nmodes} duel {duel} "
-                                f"q {q}")
-    print(f"kernel == plain on {cases} SSD cases and {cases // 9 * 27} "
-          f"packed plans; sum of per-case times: kernel "
-          f"{t_kernel:.3f} ms, plain {t_plain:.3f} ms", flush=True)
+                    for q in (40, 88, 90, 91, 120):
+                        hold(dev, bitdepth, nmodes, duel, q, name)
+                        plans += 1
+    print(f"planner_mode_ssd == plain on {cases} SSD cases (sum of "
+          f"per-case times: kernel {t_kernel:.3f} ms, plain {t_plain:.3f} "
+          f"ms); planner_plan == plan_device_plain with the plain SSD and "
+          f"with planner_mode_ssd on {plans} packed plans", flush=True)
+    for ln in ptxas_of("plan_kernel"):
+        print(f"  planner_plan ptxas: {ln}", flush=True)
 
     times = {}
     for label, rgb in (("512x512 sinusoid", images["sinusoid"]),
                        ("3840x2160", frame4k)):
         dev = device_planes(yuv_planes(rgb, 10), 10)
-        got = plan_ssd(dev, 10, 13, ET.mode_ssd)
-        want = plan_ssd(dev, 10, 13, ET.mode_ssd_plain)
-        for g, w in zip(got, want):
-            worst = max(worst, int((g - w).abs().max()))
-        if worst:
-            raise AssertionError(f"kernel != plain at {label}")
-        kms = cuda_ms(lambda: plan_ssd(dev, 10, 13, ET.mode_ssd), reps=10)
-        pms = cuda_ms(lambda: plan_ssd(dev, 10, 13, ET.mode_ssd_plain),
-                      reps=10)
-        full_k = cuda_ms(lambda: ET.plan_device(*dev, 100, 10), reps=10)
-        full_p = cuda_ms(lambda: ET.plan_device(
-            *dev, 100, 10, ssd=ET.mode_ssd_plain), reps=10)
-        # difference, square and sum per pixel and mode of the 5 launches
-        px = (dev[0].shape[0] - 1) * (dev[0].shape[1] - 1)
-        times[label] = {"ms": kms, "plain_ms": pms, "library_ms": None,
-                        **bound(nbytes(*dev, *got),
-                                3 * px * (7 + 7 + 13 + 1 + 1))}
-        print(f"{label} 10-bit, nmodes 13: one plan's 5 SSD launches "
-              f"kernel {kms:.4f} ms, plain {pms:.4f} ms; whole plan_device "
-              f"kernel {full_k:.4f} ms, plain {full_p:.4f} ms", flush=True)
+        for nmodes in (5, 7, 13):
+            for duel in (0, 1, 2):
+                for q in (40, 88, 90, 91, 120):
+                    hold(dev, 10, nmodes, duel, q, label)
+        ssd_k = cuda_ms(lambda: plan_ssd(dev, 10, 13, ET.mode_ssd), reps=10)
+        runs = {
+            "plain": lambda: ET.plan_device_plain(*dev, 100, 10),
+            "old": lambda: ET.plan_device_plain(*dev, 100, 10,
+                                                ssd=ET.mode_ssd),
+            "fused": lambda: plan(*dev, 100, 10)}
+        # plain, old, fused, fused, old, plain: the mean of each pair
+        order = ("plain", "old", "fused", "fused", "old", "plain")
+        got = dict.fromkeys(runs, 0.0)
+        for key in order:
+            got[key] += cuda_ms(runs[key], reps=10) / 2
+        out = plan(*dev, 100, 10)
+        times[label] = {"ms": got["fused"], "plain_ms": got["plain"],
+                        "simple_ms": got["old"], "library_ms": None,
+                        **plan_bound(dev, out)}
+        t = times[label]
+        alu, imad = plan_ops(dev, 13)
+        print(f"{label} 10-bit, nmodes 13, q 100: one plan, planner_plan "
+              f"{t['ms']:.4f} ms, old path (5 planner_mode_ssd launches "
+              f"{ssd_k:.4f} ms + torch epilogue) {t['simple_ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}: {nbytes(*dev, out)} bytes, {alu} ALU and "
+              f"{imad} IMAD integer operations)", flush=True)
     return {"worst": worst, "times": times}
+
+
+def phase_plan_trace(images: dict, frame4k: np.ndarray) -> None:
+    """Device kernels per plan of the old path and of the fused kernel, and
+    the fused kernel's own device time, from one ``torch.profiler`` trace
+    per size. Runs last, so that it adds no trace before those that other
+    phases check."""
+    from torch.autograd import DeviceType
+
+    plan, reps = KERNELS["planner_plan"][0], 10
+    for label, rgb in (("512x512 sinusoid", images["sinusoid"]),
+                       ("3840x2160", frame4k)):
+        dev = device_planes(yuv_planes(rgb, 10), 10)
+
+        def both():
+            plan(*dev, 100, 10)
+            ET.plan_device_plain(*dev, 100, 10, ssd=ET.mode_ssd)
+
+        prof = trace(both, reps)
+        on_card = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        n_fused = sum("plan_kernel" in e.name for e in on_card)
+        fused_us = [e.device_time_total for e in prof.key_averages()
+                    if e.device_time_total > 0 and "plan_kernel" in e.key]
+        ms = sum(fused_us) / 1e3 / max(n_fused, 1)
+        print(f"{label}: device kernels per plan from a torch.profiler "
+              f"trace, planner_plan {n_fused / reps:g}, old path "
+              f"{(len(on_card) - n_fused) / reps:g}; planner_plan's kernel "
+              f"alone {ms:.4f} ms"
+              + ("" if n_fused == reps else
+                 f" (the trace holds {n_fused} of its {reps} launches)"),
+              flush=True)
+
+
+def trace(fn, reps: int):
+    """A ``torch.profiler`` trace of ``reps`` calls of fn(), taken after a
+    warm-up step of as many calls that the profiler traces and discards:
+    on the card a trace without one has lost the records of its first
+    milliseconds, once all of them."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof
 
 
 def device_ms_by_kernel(fn, reps: int, match: str) -> dict:
     """{kernel name: mean device ms per launch} of the kernels whose name
     holds ``match``, over ``reps`` calls of fn(), from a ``torch.profiler``
     trace."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     return {ev.key: ev.device_time_total / 1e3 / ev.count
-            for ev in prof.key_averages()
+            for ev in trace(fn, reps).key_averages()
             if ev.device_time_total > 0 and match in ev.key}
 
 
@@ -459,7 +600,7 @@ def _timed_planner():
     that an earlier encode stored with their plan)."""
     acc = {"s": 0.0, "planned": [], "decided": []}
     get_planner, plan = FR.get_planner, ET.FramePlanner.plan
-    plan_device, get_dec = ET.plan_device, FR._get_dec
+    plan_locked, get_dec = ET.FramePlanner._plan_locked, FR._get_dec
 
     def listed_get_dec(plan, tile_planes, qindex, *a, **k):
         dec, record = get_dec(plan, tile_planes, qindex, *a, **k)
@@ -467,9 +608,12 @@ def _timed_planner():
             acc["decided"].append(int(qindex))
         return dec, record
 
-    def listed_plan_device(y, u, v, qindex, *a, **k):
-        acc["planned"].append(int(qindex))
-        return plan_device(y, u, v, qindex, *a, **k)
+    def listed_plan_locked(self, qindex, exact):
+        cached = list(self._plan_cache.values())
+        got = plan_locked(self, qindex, exact)
+        if not any(got is p for p in cached):
+            acc["planned"].append(int(qindex))
+        return got
 
     def timed_get(*a, **k):
         t0 = time.perf_counter()
@@ -487,14 +631,14 @@ def _timed_planner():
 
     FR.get_planner = timed_get
     ET.FramePlanner.plan = timed_plan
-    ET.plan_device = listed_plan_device
+    ET.FramePlanner._plan_locked = listed_plan_locked
     FR._get_dec = listed_get_dec
     return acc
 
 
 def run_cli(args, src: str, out: str, acc: dict) -> dict:
     FR.reset_planners()
-    launches0 = ET.mode_ssd.launches
+    launches0 = KERNELS["planner_plan"][0].launches
     acc["s"] = 0.0
     acc["planned"], acc["decided"] = [], []
     err = io.StringIO()
@@ -514,7 +658,7 @@ def run_cli(args, src: str, out: str, acc: dict) -> dict:
     res = {"bytes": data, "wall": wall, "planner": acc["s"],
            "planned": list(acc["planned"]),
            "decided": list(acc["decided"]),
-           "launches": ET.mode_ssd.launches - launches0,
+           "launches": KERNELS["planner_plan"][0].launches - launches0,
            "devices": {str(t.device) for p in FR.planners() for t in p.dev},
            "q": int(found.group(1)) if found else int(args[1]),
            "score": float(found.group(2)) if found else None,
@@ -571,11 +715,12 @@ def phase_main_path(images: dict, acc: dict) -> tuple:
     return read_counts(), tq
 
 
-def frame_4k() -> np.ndarray:
-    """A 3840x2160 photo-like frame: 1/f texture over smooth gradients
-    (not a multiple of 64 tall, so the planner crops)."""
-    fractal = _img_fractal(2160, 3840, seed=31).astype(np.float64)
-    smooth = _img_sinusoid(2160, 3840, seed=37).astype(np.float64)
+def frame_4k(h: int = 2160, w: int = 3840) -> np.ndarray:
+    """A photo-like frame, 3840x2160 unless told otherwise: 1/f texture
+    over smooth gradients (2160 is not a multiple of 64, so the planner
+    crops)."""
+    fractal = _img_fractal(h, w, seed=31).astype(np.float64)
+    smooth = _img_sinusoid(h, w, seed=37).astype(np.float64)
     return np.clip(0.5 * fractal + 0.5 * smooth, 0, 255).astype(np.uint8)
 
 
@@ -1056,7 +1201,7 @@ def phase_levels_path(images: dict, acc: dict) -> dict:
     if consumed <= 0 or min(counts[k] for k in LEVEL_KERNELS) <= 0:
         raise AssertionError(f"device levels path: consumed {consumed}, "
                              f"launches {counts}")
-    if counts["planner_mode_ssd"] <= 0:
+    if counts["planner_plan"] <= 0:
         raise AssertionError("device levels path: no planner launch")
     if stats["max_diff"] > 1 or stats["max_per_block"] > 4:
         raise AssertionError(f"device levels vs plain: {stats}")
@@ -1437,7 +1582,7 @@ def main() -> int:
     launches, tq = phase_main_path({**images, "photo4k": frame4k}, acc)
     print(f"phase main path (CLI): {time.perf_counter() - t0:.1f} s, "
           f"launches {launches}", flush=True)
-    if launches["planner_mode_ssd"] <= 0:
+    if launches["planner_plan"] <= 0:
         raise AssertionError("the CLI path launched no planner kernel")
 
     t0 = time.perf_counter()
@@ -1479,10 +1624,15 @@ def main() -> int:
     print(f"phase multi-device: {time.perf_counter() - t0:.1f} s, launches "
           f"{md['launches']}", flush=True)
 
-    times = {"planner_mode_ssd": kern["times"]["3840x2160"],
+    t0 = time.perf_counter()
+    phase_plan_trace(images, frame4k)
+    print(f"phase planner trace: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    times = {"planner_plan": kern["times"]["3840x2160"],
              **metric["times"]["photo 3840x2160"], **levels["times"],
              "ssim2_blur_iir": iir["times"], **md["times"]}
-    worst = {"planner_mode_ssd": kern["worst"], **metric["worst"],
+    worst = {"planner_plan": kern["worst"], **metric["worst"],
              **levels["worst"], "ssim2_blur_iir": iir["worst"],
              "wiener_bands": md["worst"]}
     worst["ssim2_blur"] = max(worst["ssim2_blur"], md["halo_err"])

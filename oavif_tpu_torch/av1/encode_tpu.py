@@ -6,11 +6,13 @@ SSD, and turns the scores into the packed plan the C tile coder executes
 (64-NONE with the luma and chroma flat gates, the 32-split with the q<=90
 gate, argmin modes with runner-up or directional nominees).
 
-The SSD is ``mode_ssd``: the hand-written CUDA kernel
-(``csrc/planner.cu``) on a CUDA tensor, its plain PyTorch version
-``mode_ssd_plain`` on a CPU tensor. Both give the exact integer SSD; the
-epilogue (``plan_device``) converts it once to float32 and mirrors the
-reference's float32 decisions.
+``plan_device`` is the whole step: on a CUDA tensor one launch of the
+hand-written kernel ``planner_plan`` (``csrc/planner.cu``), on a CPU tensor
+its plain PyTorch version ``plan_device_plain``. Both compute the exact
+integer SSD, convert it once to float32 and mirror the reference's float32
+decisions, bit for bit with each other. ``mode_ssd`` (the first planner
+kernel, one launch per grid and plane) stays for ``plan_device_plain(...,
+ssd=mode_ssd)``, the yardstick that no path takes.
 """
 
 from __future__ import annotations
@@ -165,7 +167,7 @@ def mode_ssd_plain(plane: torch.Tensor, nby: int, nbx: int, n_px: int,
                    base: int, nmodes: int) -> torch.Tensor:
     """Exact integer SSD (n, nmodes) int64 of every n_px block against each
     mode's prediction from source edges; the plain PyTorch version of the
-    planner kernel."""
+    first planner kernel (``mode_ssd``)."""
     p = plane.to(torch.int32)
     blocks, above, left, corner = _grid_edges(p, nby, nbx, n_px, base)
     cols = []
@@ -219,16 +221,19 @@ def _runner_up(ssd: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
     return torch.argmin(masked, 1)
 
 
-def plan_device(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                qindex: int, bitdepth: int, nmodes: int = N_MODES_DIR,
-                duel_level: int = 0,
-                ssd: Callable[..., torch.Tensor] = mode_ssd) -> torch.Tensor:
-    """Device planning step; the counterpart of _plan_device_body.
+def plan_device_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                      qindex: int, bitdepth: int, nmodes: int = N_MODES_DIR,
+                      duel_level: int = 0,
+                      ssd: Callable[..., torch.Tensor] = mode_ssd_plain
+                      ) -> torch.Tensor:
+    """Device planning step, the plain version of ``plan_device`` on any
+    device; the counterpart of _plan_device_body.
 
     y/u/v: (64*sby+1, 64*sbx+1) padded int16 planes on one device. Returns
     the packed int32 plan (sby*sbx + 6*nby*nbx,) on that device: plan64,
     mode32, split32, mode16, the C runtime's plan layout. ``ssd`` computes
-    the exact SSD (mode_ssd, or mode_ssd_plain to compare on the card)."""
+    the exact SSD: mode_ssd_plain, or mode_ssd for the first planner
+    kernel's five launches and this epilogue in torch."""
     f32 = torch.float32
     dev = y.device
     sby, sbx = (y.shape[0] - 1) // 64, (y.shape[1] - 1) // 64
@@ -280,6 +285,77 @@ def plan_device(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     k16 = _sum2x2(best16_base, nby, nbx)
     split32 = ((k16 + dq * dq) < best32_base) & (qindex <= 90)
     return torch.cat([plan64, mode32, split32.long(), mode16]).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_gates(qindex: int, bitdepth: int):
+    """The float32 gate constants of ``plan_device_plain``, as its torch
+    expressions round them: (dq*dq, 4*dq*dq, 4096*dq*dq/64) with dq the AC
+    quantizer step, each operation in float32 from the left. Cached: it
+    runs on the host once per plan, and numpy's scalar arithmetic is slow."""
+    dq = np.float32(ac_q(qindex, bitdepth))
+    return (dq * dq, np.float32(4.0) * dq * dq,
+            np.float32(4096.0) * dq * dq / np.float32(64.0))
+
+
+def plan_taps() -> np.ndarray:
+    """The P = 16 directional taps of ``dir_taps`` packed for
+    ``planner_plan``: uint32 (6, 8, 32), entry [m, k, 2r + h] for pixel
+    (r, 8h + k) of a 16-block (the lane that scores it), holding
+    idx0 | idx1 << 8 | w1 << 16 (w0 = 32 - w1)."""
+    idx, w = dir_taps(16)
+    packed = (idx[..., 0] | idx[..., 1] << 8 | w[..., 1] << 16)
+    # (m, r, h, k) -> (m, k, r, h)
+    return np.ascontiguousarray(packed.reshape(6, 16, 2, 8)
+                                .transpose(0, 3, 1, 2).reshape(6, 8, 32),
+                                dtype=np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_tables(device: torch.device):
+    """(smooth weights at P = 64, 32, 16, packed taps) on device."""
+    return (*(_device_tables(P, device)[0] for P in (64, 32, 16)),
+            torch.from_numpy(plan_taps().view(np.int32)).to(device))
+
+
+def plan_device(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                qindex: int, bitdepth: int, nmodes: int = N_MODES_DIR,
+                duel_level: int = 0) -> torch.Tensor:
+    """``plan_device_plain``'s packed plan; on a CUDA tensor from one launch
+    of the fused planner kernel ``planner_plan`` (counted in
+    ``plan_device.launches``), on a CPU tensor from the plain version. Any
+    other device, and on the card any plane or setting the kernel does not
+    take, raises."""
+    if y.device.type == "cpu":
+        return plan_device_plain(y, u, v, qindex, bitdepth, nmodes,
+                                 duel_level)
+    if y.device.type != "cuda":
+        raise ValueError(f"plan_device: unsupported device {y.device}")
+    planes = (y, u, v)
+    if any(p.device != y.device or p.dtype != torch.int16 or p.dim() != 2
+           or not p.is_contiguous() or p.shape != y.shape for p in planes):
+        raise ValueError("plan_device: y, u and v must be contiguous 2-D "
+                         "int16 planes of one shape on one device")
+    sby, sbx = (y.shape[0] - 1) // 64, (y.shape[1] - 1) // 64
+    if sby < 1 or sbx < 1:
+        raise ValueError(f"plan_device: a {tuple(y.shape)} plane holds no "
+                         "padded 64x64 superblock")
+    if (bitdepth not in (8, 10) or nmodes not in (5, N_MODES, N_MODES_DIR)
+            or duel_level not in (0, 1, 2)):
+        raise ValueError(f"plan_device: unsupported bit depth {bitdepth}, "
+                         f"nmodes {nmodes} or duel level {duel_level}")
+    pen32, pen64, flat_gate = plan_gates(qindex, bitdepth)
+    smw64, smw32, smw16, taps = _plan_tables(y.device)
+    out = torch.empty(25 * sby * sbx, dtype=torch.int32, device=y.device)
+    launch(plan_device, "planner_plan", y, y.data_ptr(), u.data_ptr(),
+           v.data_ptr(), y.shape[1], sby, sbx, 1 << (bitdepth - 1), nmodes,
+           duel_level, int(qindex <= 90), float(pen32), float(pen64),
+           float(flat_gate), smw64.data_ptr(), smw32.data_ptr(),
+           smw16.data_ptr(), taps.data_ptr(), out.data_ptr())
+    return out
+
+
+plan_device.launches = 0
 
 
 class Plan(dict):

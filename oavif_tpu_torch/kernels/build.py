@@ -36,6 +36,8 @@ _P, _I, _F = C.c_void_p, C.c_int, C.c_float
 # returns an int, cudaGetLastError()
 entries = {
     "planner_mode_ssd": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "planner_plan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+                     _P, _P, _P, _P, _P],
     "ssim2_pyramid_rgb8": [_P, _I, _I, _I, _P, _P, _P, _P],
     "ssim2_pyramid_down": [_P, _I, _I, _I, _P, _P, _P, _P],
     "ssim2_blur": [_P, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],

@@ -1,8 +1,9 @@
-"""The planner, metric, encode-stage, recursive-blur and Wiener kernels on
-an NVIDIA GPU: build, launch, and equality with their plain PyTorch
-versions; the blur against the simple blur kernel, bit for bit; the halo
-blur against the single-device blur's columns, and the width-sharded
-metric on two ranks sharing the card. Skipped without CUDA.
+"""The planner (the fused plan and the first SSD kernel), metric,
+encode-stage, recursive-blur and Wiener kernels on an NVIDIA GPU: build,
+launch, and equality with their plain PyTorch versions; the blur against
+the simple blur kernel, bit for bit; the halo blur against the
+single-device blur's columns, and the width-sharded metric on two ranks
+sharing the card. Skipped without CUDA.
 
 Imports no JAX, so it also runs where JAX is absent:
 
@@ -62,12 +63,56 @@ def test_kernel_equals_plain(cuda, bitdepth, n_px):
 
 @pytest.mark.parametrize("duel_level", [0, 1, 2])
 def test_packed_plan_equals_plain(cuda, duel_level):
+    """The fused kernel against the plain plan and against the first
+    planner kernel's five SSD launches with the torch epilogue."""
     dev = _planes(cuda, 10, seed=duel_level)
     for q in (40, 120):
         got = ET.plan_device(*dev, q, 10, 13, duel_level)
-        want = ET.plan_device(*dev, q, 10, 13, duel_level,
-                              ssd=ET.mode_ssd_plain)
+        want = ET.plan_device_plain(*dev, q, 10, 13, duel_level)
         assert torch.equal(got, want)
+        assert torch.equal(got, ET.plan_device_plain(
+            *dev, q, 10, 13, duel_level, ssd=ET.mode_ssd))
+
+
+def _crafted(kind, bitdepth, h, w):
+    """A flat plane (every mode ties: DC must win), one bright pixel, a
+    horizontal or a vertical ramp, or random pixels."""
+    hi = 1 << bitdepth
+    yy, xx = np.mgrid[0:h, 0:w]
+    if kind == "flat":
+        return np.full((h, w), hi // 3)
+    if kind == "bright":
+        return np.where((yy == h // 2 + 5) & (xx == w // 3), hi - 1, 7)
+    if kind == "hramp":
+        return xx * (hi - 1) // (w - 1)
+    if kind == "vramp":
+        return yy * (hi - 1) // (h - 1)
+    return np.random.default_rng(bitdepth).integers(0, hi, (h, w))
+
+
+@pytest.mark.parametrize("bitdepth", [8, 10])
+@pytest.mark.parametrize("kind,h,w", [
+    ("flat", 320, 448), ("bright", 320, 448), ("hramp", 320, 448),
+    ("vramp", 320, 448), ("random", 320, 448), ("random", 2160, 3840)])
+def test_fused_plan_equals_plain(cuda, kind, bitdepth, h, w):
+    """planner_plan == plan_device_plain bit for bit for every nmodes and
+    duel level at q around the qindex-90 gate, on a 5x7 SB grid and on
+    3840x2160 (33x60 SBs, its last 48 rows outside the full SBs)."""
+    rng = np.random.default_rng(bitdepth)
+    arrs = [_crafted(kind, bitdepth, h, w)]
+    arrs += [rng.integers(0, 1 << bitdepth, (h, w)) for _ in range(2)]
+    dev = [torch.from_numpy(ET.pad_plane(a, h // 64, w // 64, bitdepth))
+           .to(cuda) for a in arrs]
+    for nmodes in (5, 7, 13):
+        for duel_level in (0, 1, 2):
+            for q in (40, 88, 90, 91, 120, 255):
+                launches = ET.plan_device.launches
+                got = ET.plan_device(*dev, q, bitdepth, nmodes, duel_level)
+                assert ET.plan_device.launches == launches + 1
+                want = ET.plan_device_plain(*dev, q, bitdepth, nmodes,
+                                            duel_level)
+                assert got.dtype == torch.int32 and got.device == dev[0].device
+                assert torch.equal(got, want), (nmodes, duel_level, q)
 
 
 def test_planner_planes_live_on_the_card(cuda):
@@ -76,9 +121,25 @@ def test_planner_planes_live_on_the_card(cuda):
     fp = ET.FramePlanner(planes, 10, device=cuda)
     assert all(t.device.type == "cuda" and t.dtype == torch.int16
                for t in fp.dev)
-    launches = ET.mode_ssd.launches
+    launches, old = ET.plan_device.launches, ET.mode_ssd.launches
     assert fp.plan(60) is fp.plan(70)
-    assert ET.mode_ssd.launches == launches + 5
+    assert ET.plan_device.launches == launches + 1
+    assert ET.mode_ssd.launches == old
+
+
+def test_plan_device_rejects_bad_input(cuda):
+    y, u, v = _planes(cuda, 10)
+    with pytest.raises(ValueError):
+        ET.plan_device(y.to(torch.int32), u, v, 60, 10)
+    with pytest.raises(ValueError):
+        ET.plan_device(y, u, v, 60, 12)
+    with pytest.raises(ValueError):  # no full superblock
+        ET.plan_device(y[:60].contiguous(), u[:60].contiguous(),
+                       v[:60].contiguous(), 60, 10)
+    with pytest.raises(ValueError):  # chroma smaller than luma
+        ET.plan_device(y, u[:65].contiguous(), v, 60, 10)
+    with pytest.raises(ValueError):
+        ET.plan_device(y, u, v, 60, 10, nmodes=1)
 
 
 def test_kernel_rejects_bad_input(cuda):

@@ -21,7 +21,7 @@ import pytest
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import bench  # noqa: E402
-from chip_smoke import write_pam  # noqa: E402
+from chip_smoke import frame_4k, write_pam  # noqa: E402
 from oavif_tpu import cli as ref_cli  # noqa: E402
 from oavif_tpu.av1 import encode_tpu as RT  # noqa: E402
 from oavif_tpu.av1.consts import quality_to_qindex  # noqa: E402
@@ -88,3 +88,21 @@ def test_search_matches_reference(name, tmp_path, capsys):
     qindexes = sorted({quality_to_qindex(x) for x in range(100)})
     assert assert_plans_match(fp, pp, qindexes) > 0, \
         "bytes differ but the plans are identical"
+
+
+def test_photo_search_ends_where_the_reference_does(tmp_path, capsys):
+    """chip_smoke's photo-like frame at 1920x1088: both packages'
+    sequential ``-t 80`` search end at the same q after the same passes
+    with scores within 0.02, and both end outside 80 +- 2: when no probe
+    lands inside the tolerance, the search keeps the lowest q that meets
+    the target (oavif's tq.zig policy). This is the reference's behaviour,
+    as the port's on the 3840x2160 frame (score 83.14 at q92)."""
+    src = tmp_path / "photo.pam"
+    write_pam(src, frame_4k(1088, 1920))
+    _, (rq, rscore, rpasses) = _run(ref_cli, ["-t", "80"], src,
+                                    tmp_path / "ref.avif", capsys)
+    _, (q, score, passes) = _run(port_cli, ["-t", "80"], src,
+                                 tmp_path / "port.avif", capsys)
+    assert (q, passes) == (rq, rpasses)
+    assert abs(float(score) - float(rscore)) <= 0.02
+    assert abs(float(rscore) - 80.0) > 2.0

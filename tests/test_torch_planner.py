@@ -29,6 +29,7 @@ import torch
 from oavif_tpu.av1 import encode_tpu as RT
 from oavif_tpu.av1.tables import ac_q
 from oavif_tpu_torch.av1 import encode_tpu as PT
+from oavif_tpu_torch.av1.tables import ac_q as port_ac_q
 from oavif_tpu_torch.device import resolve_device
 
 MAX_ULPS = 4
@@ -356,3 +357,57 @@ def test_mode_ssd_rejects_other_devices():
     p = torch.zeros((65, 65), dtype=torch.int16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         PT.mode_ssd(p, 1, 1, 64, 128, 7)
+
+
+# --- the fused planner's host side (the kernel itself runs on the card:
+# tests/test_torch_cuda.py) --------------------------------------------------
+
+
+@pytest.mark.parametrize("nmodes,duel_level", [(5, 0), (7, 2), (13, 0),
+                                               (13, 1)])
+def test_plan_device_on_cpu_is_the_plain_version(nmodes, duel_level):
+    """On a CPU tensor plan_device is plan_device_plain and launches no
+    kernel."""
+    dev = [torch.from_numpy(PT.pad_plane(p, 4, 5, 10))
+           for p in _random_planes(256, 320, 10, 21)]
+    launches, old = PT.plan_device.launches, PT.mode_ssd.launches
+    for q in (40, 90, 91):
+        got = PT.plan_device(*dev, q, 10, nmodes, duel_level)
+        assert got.dtype == torch.int32 and got.shape == (25 * 4 * 5,)
+        assert torch.equal(got, PT.plan_device_plain(*dev, q, 10, nmodes,
+                                                     duel_level))
+    assert PT.plan_device.launches == launches
+    assert PT.mode_ssd.launches == old
+
+
+@pytest.mark.parametrize("bitdepth", [8, 10])
+def test_plan_gates_equal_the_torch_expressions(bitdepth):
+    """The float32 gate constants the host hands the fused kernel are
+    plan_device_plain's torch expressions, bit for bit, at every qindex."""
+    for q in range(256):
+        dq = torch.tensor(float(port_ac_q(q, bitdepth)), dtype=torch.float32)
+        want = (dq * dq, 4.0 * dq * dq, 4096.0 * dq * dq / 64.0)
+        for got, w in zip(PT.plan_gates(q, bitdepth), want):
+            assert isinstance(got, np.float32)
+            assert got.tobytes() == w.numpy().tobytes(), q
+
+
+def test_plan_taps_pack_dir_taps():
+    """The packed taps hold dir_taps(16) at the lane that scores each
+    pixel: entry [m, k, 2r + h] is pixel (r, 8h + k)."""
+    idx, w = PT.dir_taps(16)
+    t = PT.plan_taps().astype(np.int64)
+    assert t.shape == (6, 8, 32)
+    lane = np.arange(32)
+    for k in range(8):
+        pix = 16 * (lane // 2) + 8 * (lane % 2) + k
+        np.testing.assert_array_equal(t[:, k] & 0xFF, idx[:, pix, 0])
+        np.testing.assert_array_equal((t[:, k] >> 8) & 0xFF, idx[:, pix, 1])
+        np.testing.assert_array_equal(t[:, k] >> 16, w[:, pix, 1])
+        np.testing.assert_array_equal(32 - (t[:, k] >> 16), w[:, pix, 0])
+
+
+def test_plan_device_rejects_other_devices():
+    p = torch.zeros((65, 65), dtype=torch.int16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        PT.plan_device(p, p, p, 60, 10)
