@@ -8,8 +8,9 @@ Run from the root of the repository, with no arguments:
 Phases, each of which raises on failure (exit code != 0):
 
 1. card: the ``nvidia-smi`` name and power limit; CUDA must be available;
-2. build: the planner and metric kernels with nvcc from
-   oavif_tpu_torch/csrc/, one process per source, with the ptxas lines;
+2. build: every kernel with nvcc from oavif_tpu_torch/csrc/, one process
+   per source, with the ptxas lines; then the host µs of each piece of the
+   kernels' launch path (``launch_pieces``);
 3. planner kernels against plain version: the fused plan
    (``planner_plan``, K1) must equal ``plan_device_plain`` exactly, both
    with the plain SSD and with the first planner kernel's five SSD launches
@@ -46,12 +47,15 @@ Phases, each of which raises on failure (exit code != 0):
 8. main path, the batched CLI search: ``-t 80`` with ``OAVIF_METRIC=jax``
    on the 3840x2160 frame must exit 0 and launch the metric kernels;
 9. encode-stage kernels against plain versions: ``dstage_coeffs16`` (K3a)
-   within 1e-6 * max|c| of the block + 1e-3 and ``dstage_quant16`` (K3b)
-   bit-identical, at qindex 30, 60 and 90 at once and singly, on the six
-   classes' and the 3840x2160 frame's 10-bit planes with their plan's
-   modes and with random modes; CUDA-event times at 3840x2160 of K3a, K3b
-   (1 and 3 quantizers) and their plain versions, and the host wall time
-   of the levels fetch;
+   within 1e-6 * max|c| of the block + 1e-3 and bit for bit the first K3a
+   kernel (``dstage_coeffs16_simple``, kept as the yardstick; no path may
+   launch it), and ``dstage_quant16`` (K3b) bit-identical, at qindex 30,
+   60 and 90 at once and singly, on the six classes' and the 3840x2160
+   frame's 10-bit planes with their plan's modes and with random modes;
+   CUDA-event times at 3840x2160 of K3a, its yardstick, K3b (1 and 3
+   quantizers) and their plain versions, each kernel's device ms from a
+   ``torch.profiler`` trace and host µs a call (``split_times``), and the
+   host wall time of the levels fetch;
 10. main path, the device encode stage: the CLI with ``OAVIF_PY_TILE=1
    OAVIF_DEVICE_LEVELS=1``, ``-q 89`` on the six classes and ``-t 80`` on
    fractal; the coder must consume device levels and K3a, K3b and the
@@ -78,8 +82,11 @@ Phases, each of which raises on failure (exit code != 0):
    times every all_reduce alone, that run's ms and its all_reduce share;
    the width-sharded Wiener filter (K5, kernel
    ``wiener_bands``) on three 3840x2160 10-bit planes over 4 ranks, equal
-   to the host filter and to its plain version, with kernel and plain
-   times and the host filter's wall time; the dry run (K6)
+   to the host filter and to its plain version, and on one rank's launch
+   bit for bit the first Wiener kernel (``wiener_bands_simple``, kept as
+   the yardstick; no path may launch it), with kernel, yardstick and plain
+   times, the kernel's device ms and host µs a call, and the host filter's
+   wall time; the dry run (K6)
    ``dryrun_multichip`` at 2 and 4 ranks with the reference's shapes, and
    on the 3840x2160 frame as 4 tile columns (one rank each), whose
    seeded-plan encode must give the unsharded bytes with seeded plans
@@ -88,13 +95,22 @@ Phases, each of which raises on failure (exit code != 0):
    fused kernel, and the fused kernel's own device time, from one
    ``torch.profiler`` trace per size (512x512 and 3840x2160), last.
 
+Every kernel row's time is split into its device ms (the kernel alone,
+from a ``torch.profiler`` trace) and its host µs a call (the median of 200
+calls, each timed alone after a synchronise), the latter through
+``kernels.launch``, through ``launch_before`` (a copy of the launch path
+as it was before it kept its resolved entries) and with nothing launched
+(the wrapper's checks and allocations), in turns; phase 2 also times each
+piece of the launch path alone.
+
 Each main path runs with every kernel's launch count set to 0 just before
-and read just after (``ssim2_blur_simple``'s and ``planner_mode_ssd``'s
-must still be 0 then: no path launches them); spawned ranks report the
+and read just after (the yardsticks' counts, ``YARDSTICKS``, must still be
+0 then: no path launches them); spawned ranks report the
 launches of their sharded runs apart from their checks' and timings'
 (``kernels.counting``), which are added. The line before the last is a
 JSON object with each kernel's launches on the main paths, its largest
-difference from its plain version, its times at 3840x2160, its bound
+difference from its plain version, its times at 3840x2160 (CUDA-event ms,
+device ms and host µs a call), its bound
 (bytes over the HBM rate or operations over the float32 rate, the larger;
 the planner's integer operations over the rates of the integer pipes) and one PyTorch
 call's time where one computes the same function; the last line is
@@ -106,6 +122,8 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import ctypes
+import functools
 import io
 import json
 import os
@@ -130,7 +148,7 @@ from oavif_tpu_torch.device import resolve_device
 from oavif_tpu_torch.av1.restoration import (_band_rows, _coeffs7,
                                              apply_wiener, count_units,
                                              unit_size)
-from oavif_tpu_torch.kernels import build, kernel_key
+from oavif_tpu_torch.kernels import build, count_launch, kernel_key, launch
 from oavif_tpu_torch.metric import sharded as MS
 from oavif_tpu_torch.metric import ssimulacra2 as M
 
@@ -155,11 +173,18 @@ KERNELS = {
     "wiener_bands": (WS.wiener_bands, "oavif_tpu_torch/csrc/wiener.cu",
                      "oavif_tpu/av1/restoration_sharded.py:57"),
 }
+# what the names of each kernel's CUDA functions hold, and no other's
+KERNEL_MATCH = {"planner_plan": "plan_kernel", "ssim2_pyramid": "pyramid_",
+                "ssim2_blur": "blur_kernel", "ssim2_norms": "norms_",
+                "dstage_coeffs16": "coeffs16_kernel",
+                "dstage_quant16": "quant16_kernel",
+                "ssim2_blur_iir": "iir_", "wiener_bands": "wiener_kernel"}
 METRIC_KERNELS = ("ssim2_pyramid", "ssim2_blur", "ssim2_norms")
 # the kernels of the CLI, pipeline and batched-search paths
 SEARCH_KERNELS = ("planner_plan", *METRIC_KERNELS)
 # the wrappers of the yardstick kernels, which no path may launch
-YARDSTICKS = (M.ssim2_blur_simple, ET.mode_ssd)
+YARDSTICKS = (M.ssim2_blur_simple, ET.mode_ssd, DS.coeffs16_simple,
+              WS.wiener_bands_simple)
 LEVEL_KERNELS = ("dstage_coeffs16", "dstage_quant16")
 LEVEL_QS = (30, 60, 90)
 # the card the encode-stage phases run on (a CPU rehearsal may set it)
@@ -521,7 +546,9 @@ def phase_kernel(images: dict, frame4k: np.ndarray) -> dict:
         out = plan(*dev, 100, 10)
         times[label] = {"ms": got["fused"], "plain_ms": got["plain"],
                         "simple_ms": got["old"], "library_ms": None,
-                        **plan_bound(dev, out)}
+                        **plan_bound(dev, out),
+                        **split_times(runs["fused"],
+                                      KERNEL_MATCH["planner_plan"])}
         t = times[label]
         alu, imad = plan_ops(dev, 13)
         print(f"{label} 10-bit, nmodes 13, q 100: one plan, planner_plan "
@@ -529,7 +556,8 @@ def phase_kernel(images: dict, frame4k: np.ndarray) -> dict:
               f"{ssd_k:.4f} ms + torch epilogue) {t['simple_ms']:.4f} ms, "
               f"plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}: {nbytes(*dev, out)} bytes, {alu} ALU and "
-              f"{imad} IMAD integer operations)", flush=True)
+              f"{imad} IMAD integer operations); {split_line(t)}",
+              flush=True)
     return {"worst": worst, "times": times}
 
 
@@ -586,10 +614,147 @@ def trace(fn, reps: int):
 def device_ms_by_kernel(fn, reps: int, match: str) -> dict:
     """{kernel name: mean device ms per launch} of the kernels whose name
     holds ``match``, over ``reps`` calls of fn(), from a ``torch.profiler``
-    trace."""
-    return {ev.key: ev.device_time_total / 1e3 / ev.count
-            for ev in trace(fn, reps).key_averages()
-            if ev.device_time_total > 0 and match in ev.key}
+    trace; a trace that lost every such record, as one on the card
+    sometimes does, is taken again, up to three in all."""
+    for _ in range(3):
+        got = {ev.key: ev.device_time_total / 1e3 / ev.count
+               for ev in trace(fn, reps).key_averages()
+               if ev.device_time_total > 0 and match in ev.key}
+        if got:
+            return got
+    return got
+
+
+def launch_before(wrapper, entry: str, tensor, *args) -> None:
+    """``kernels.launch`` as it was before it kept its resolved entries:
+    ``build.load()``'s lock and a ``getattr`` on the library at every call,
+    the device context entered at every call, the current device's stream.
+    Kept here only to time the launch path before and after in one call."""
+    fn = getattr(build.load(), entry)
+    with torch.cuda.device(tensor.device):
+        rc = fn(*args,
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    count_launch(wrapper)
+
+
+def no_launch(wrapper, entry: str, tensor, *args) -> None:
+    """A launch path that launches nothing: a wrapper called through it
+    costs its checks and allocations alone."""
+
+
+# the modules whose kernel wrappers call ``launch``
+WRAPPER_MODULES = (DS, WS, M, ET)
+
+
+@contextlib.contextmanager
+def launched_by(path):
+    """Every kernel wrapper launches through ``path`` inside the block."""
+    saved = [mod.launch for mod in WRAPPER_MODULES]
+    for mod in WRAPPER_MODULES:
+        mod.launch = path
+    try:
+        yield
+    finally:
+        for mod, fn in zip(WRAPPER_MODULES, saved):
+            mod.launch = fn
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Median host microseconds of one call of fn(), each call timed alone
+    after a synchronise: a call returns once its kernels are enqueued, so
+    this is the host's cost whatever the kernel's."""
+    ts = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(ts)) * 1e6
+
+
+def split_times(fn, match: str, reps: int = 20) -> dict:
+    """One wrapper call fn() split into device and host: ``device_ms``, the
+    device time of its kernels (those whose names hold ``match``, each
+    kernel's mean per launch, added up) from a ``torch.profiler`` trace of
+    ``reps`` calls; ``host_us``, the median host µs of a call through
+    ``kernels.launch``; ``host_us_before``, the same through
+    ``launch_before``; ``checks_us``, the same with nothing launched (the
+    wrapper's checks and allocations). The three host paths run in turns,
+    new, old, none, none, old, new, and each gives the mean of its pair."""
+    paths = {"host_us": launch, "host_us_before": launch_before,
+             "checks_us": no_launch}
+    got = dict.fromkeys(paths, 0.0)
+    for key in ("host_us", "host_us_before", "checks_us", "checks_us",
+                "host_us_before", "host_us"):
+        with launched_by(paths[key]):
+            got[key] += host_us(fn) / 2
+    # the trace last, so that no profiler state is left over the host times
+    per = device_ms_by_kernel(fn, reps, match)
+    if not per:
+        raise AssertionError(f"no kernel holding {match!r} in the trace")
+    return {"device_ms": sum(per.values()), **got}
+
+
+def simple_text(t: dict) -> str:
+    """The yardstick kernel's times in a time row, for the log."""
+    if "simple_device_ms" not in t:
+        return ""
+    return (f", yardstick kernel {t['simple_ms']:.4f} ms (device "
+            f"{t['simple_device_ms']:.4f} ms)")
+
+
+def launch_pieces() -> None:
+    """Host µs of each piece of ``kernels.launch`` alone, the mean of 20000
+    calls: the raw stream lookup (and the Stream object's, which
+    ``launch_before`` takes), the current device, the resolved entry, a
+    ctypes call that returns before launching (``dstage_quant16`` with n =
+    0: its 10 arguments converted), the count, and ``launch_before``'s
+    device context."""
+    from oavif_tpu_torch import kernels
+
+    def per_call(fn, n=20000):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    entry = kernels._entry("dstage_quant16")
+    x = torch.zeros(1, device=DEVICE)
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+
+    def device_context():
+        with torch.cuda.device(x.device):
+            pass
+
+    pieces = {
+        "raw current stream": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "current_stream(i).cuda_stream": lambda: torch.cuda.current_stream(
+            0).cuda_stream,
+        "current_device()": torch.cuda.current_device,
+        "tensor.get_device()": x.get_device,
+        "resolved entry": lambda: kernels._entry("dstage_quant16"),
+        "ctypes call, 10 arguments, no launch": lambda: entry(
+            0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0),
+        "count_launch": lambda: kernels.count_launch(wrapper),
+        "launch_before's device context": device_context,
+    }
+    print("  launch path, host us a piece: " + ", ".join(
+        f"{k} {per_call(fn):.3f}" for k, fn in pieces.items()), flush=True)
+
+
+def split_line(t: dict) -> str:
+    """The device and host split of a time row, for the log."""
+    return (f"device {t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a "
+            f"call (launch path before {t['host_us_before']:.1f} us, "
+            f"checks and allocation alone {t['checks_us']:.1f} us)")
 
 
 def _timed_planner():
@@ -861,11 +1026,15 @@ def metric_times(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
         times[key] = {"ms": (k0 + k1) / 2, "plain_ms": (p0 + p1) / 2,
                       "library_ms": conv if key == "ssim2_blur" else None,
                       **bounds.get(key, {})}
+        if key in KERNEL_MATCH:
+            times[key].update(split_times(kernel, KERNEL_MATCH[key], reps))
         if key == "ssim2_blur":
             times[key]["simple_ms"] = sum(simple) / 2
         extra = "".join(f", {k} {times[key][k]}" for k in
                         ("simple_ms", "library_ms", "bound_ms", "bound_by")
                         if times[key].get(k) is not None)
+        if key in KERNEL_MATCH:
+            extra += f"; {split_line(times[key])}"
         print(f"  {label}x{dist.shape[0]} {key}: kernel "
               f"{times[key]['ms']:.4f} ms, plain "
               f"{times[key]['plain_ms']:.4f} ms{extra}", flush=True)
@@ -1056,6 +1225,7 @@ def phase_levels_kernels(images: dict, frame4k: np.ndarray) -> dict:
                             ("random", rng.integers(0, 7, (nby, nbx)))):
             m = torch.from_numpy(modes.astype(np.int32)).to(DEVICE)
             cf = DS.coeffs16(y, nby, nbx, m, 10)
+            simple = DS.coeffs16_simple(y, nby, nbx, m, 10)
             want = DS.coeffs16_plain(y, nby, nbx, m, 10)
             lv, eob = DS.quant16(cf, dqd, dqa)
             plv, peob = DS.quant16_plain(cf, dqd, dqa)
@@ -1066,6 +1236,9 @@ def phase_levels_kernels(images: dict, frame4k: np.ndarray) -> dict:
             if excess > 0:
                 raise AssertionError(f"K3a {name} {kind}: |kernel - plain| "
                                      f"{err} beyond tolerance by {excess}")
+            if not torch.equal(cf.view(torch.int32), simple.view(torch.int32)):
+                raise AssertionError(f"K3a {name} {kind}: dstage_coeffs16 != "
+                                     "dstage_coeffs16_simple")
             if not (torch.equal(lv, plv) and torch.equal(eob, peob)):
                 raise AssertionError(f"K3b {name} {kind}: kernel != plain "
                                      f"at qindex {LEVEL_QS}")
@@ -1079,8 +1252,9 @@ def phase_levels_kernels(images: dict, frame4k: np.ndarray) -> dict:
                                          f"{LEVEL_QS[k]} != its batch slice")
             print(f"  {name} {rgb.shape[1]}x{rgb.shape[0]} {kind} modes: "
                   f"{nby * nbx} blocks ({int(mask.sum())} consumable), "
-                  f"max |c| {float(want.abs().max()):.1f}, K3a max |kernel - "
-                  f"plain| {err:.3g}; K3b equal at qindex {LEVEL_QS} and "
+                  f"max |c| {float(want.abs().max()):.1f}, K3a == yardstick "
+                  f"bit for bit, max |kernel - plain| {err:.3g}; K3b equal at "
+                  f"qindex {LEVEL_QS} and "
                   f"singly, nonzero levels {int((lv != 0).sum())}",
                   flush=True)
     # times at 3840x2160 (fp, y and plan_modes are the frame's last case)
@@ -1095,12 +1269,24 @@ def phase_levels_kernels(images: dict, frame4k: np.ndarray) -> dict:
         return (k0 + k1) / 2, (p0 + p1) / 2
 
     times = {}
-    kms, pms = pair(lambda: DS.coeffs16(y, nby, nbx, modes, 10),
-                    lambda: DS.coeffs16_plain(y, nby, nbx, modes, 10))
+    # plain, kernel, yardstick, yardstick, kernel, plain
+    p0 = cuda_ms(lambda: DS.coeffs16_plain(y, nby, nbx, modes, 10), reps)
+    k0 = cuda_ms(lambda: DS.coeffs16(y, nby, nbx, modes, 10), reps)
+    sms = [cuda_ms(lambda: DS.coeffs16_simple(y, nby, nbx, modes, 10), reps)
+           for _ in range(2)]
+    k1 = cuda_ms(lambda: DS.coeffs16(y, nby, nbx, modes, 10), reps)
+    p1 = cuda_ms(lambda: DS.coeffs16_plain(y, nby, nbx, modes, 10), reps)
+    kms, pms = (k0 + k1) / 2, (p0 + p1) / 2
     # two 16x16x16 products of 2 operations per multiply-add, per block
     times["dstage_coeffs16"] = {
-        "ms": kms, "plain_ms": pms, "library_ms": None,
-        **bound(nbytes(y, modes, cf), n * 2 * 16 ** 3 * 2)}
+        "ms": kms, "plain_ms": pms, "simple_ms": sum(sms) / 2,
+        "simple_device_ms": sum(device_ms_by_kernel(
+            lambda: DS.coeffs16_simple(y, nby, nbx, modes, 10), reps,
+            "coeffs16_simple_kernel").values()),
+        "library_ms": None,
+        **bound(nbytes(y, modes, cf), n * 2 * 16 ** 3 * 2),
+        **split_times(lambda: DS.coeffs16(y, nby, nbx, modes, 10),
+                      KERNEL_MATCH["dstage_coeffs16"])}
     for k in (3, 1):
         d1, d2 = dqd[:k], dqa[:k]
         kms, pms = pair(lambda: DS.quant16(cf, d1, d2),
@@ -1110,7 +1296,9 @@ def phase_levels_kernels(images: dict, frame4k: np.ndarray) -> dict:
         times[f"dstage_quant16 k={k}"] = {
             "ms": kms, "plain_ms": pms, "library_ms": None,
             **bound(nbytes(cf, d1, d2, lv, eob) + DS.iscan16().nbytes,
-                    7 * n * 256 * k)}
+                    7 * n * 256 * k),
+            **split_times(lambda: DS.quant16(cf, d1, d2),
+                          KERNEL_MATCH["dstage_quant16"])}
     times["dstage_quant16"] = times["dstage_quant16 k=1"]
     dl = DS.DeviceLevels(fp, 10)
     dl.levels(plan_modes, [28])
@@ -1123,8 +1311,9 @@ def phase_levels_kernels(images: dict, frame4k: np.ndarray) -> dict:
         if key in ("fetch_ms", "dstage_quant16"):
             continue
         print(f"  3840x2160 {key}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']})", flush=True)
+              f"{t['plain_ms']:.4f} ms{simple_text(t)}, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}); {split_line(t)}",
+              flush=True)
     print(f"  3840x2160 DeviceLevels.levels fetch of {n * (256 * 2 + 4)} "
           f"bytes (k=1): {times['fetch_ms']:.4f} ms host wall, mean of 5 "
           f"({', '.join(f'{x:.4f}' for x in fetch)})", flush=True)
@@ -1251,7 +1440,9 @@ def phase_iir(images: dict, frame4k: np.ndarray) -> dict:
         times = {"ms": (k0 + k1) / 2, "plain_ms": (p0 + p1) / 2,
                  "library_ms": None,
                  **bound(nbytes(img1, img2, *outs),
-                         29 * sum(t.numel() for t in outs))}
+                         29 * sum(t.numel() for t in outs)),
+                 **split_times(lambda: M.ssim2_blur_iir(img1, img2),
+                               KERNEL_MATCH["ssim2_blur_iir"], reps)}
         # a reckoning, not a bound: the backward pass of an axis starts
         # where the forward pass ends, so this kernel's design reads and
         # writes every element once per direction and axis, eight accesses
@@ -1260,8 +1451,8 @@ def phase_iir(images: dict, frame4k: np.ndarray) -> dict:
         print(f"  {label}x4 ssim2_blur_iir (distorted side): kernel "
               f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, bound "
               f"{times['bound_ms']:.4f} ms ({times['bound_by']}); eight "
-              f"accesses per element at the memory rate {eight_ms:.4f} ms",
-              flush=True)
+              f"accesses per element at the memory rate {eight_ms:.4f} ms; "
+              f"{split_line(times)}", flush=True)
         passes = device_ms_by_kernel(lambda: M.ssim2_blur_iir(img1, img2),
                                      reps, "iir")
         if len(passes) != 2:
@@ -1409,6 +1600,54 @@ def multi_device_rank(rk: parallel.Rank, ref: np.ndarray, dist: np.ndarray,
     return {"k4": k4, "k5": k5}
 
 
+def wiener_times(cdef, deblk) -> dict:
+    """K5 on one rank's launch (slice 0 of 4 of plane 0, with its halos)
+    against its plain version, bit for bit, and its times: CUDA events of
+    20 calls back to back, and the device and host split."""
+    h, w = cdef[0].shape
+    ws = w // 4
+    ext = [torch.from_numpy(np.pad(p[0][:, : ws + 3], ((0, 0), (3, 0)),
+                                   mode="edge")).cuda()
+           for p in (cdef, deblk)]
+    taps = graft_entry.LR_TAPS[0]
+    vf, hf = _coeffs7(*taps[:3]), _coeffs7(*taps[3:])
+    out = WS.wiener_bands(ext[0], ext[1], vf, hf, 10)
+    worst = max_abs(out, WS.wiener_bands_plain(ext[0], ext[1], vf, hf, 10))
+    if worst:
+        raise AssertionError(f"K5: kernel != plain by {worst}")
+    if not torch.equal(out, WS.wiener_bands_simple(ext[0], ext[1], vf, hf,
+                                                   10)):
+        raise AssertionError("K5: wiener_bands != wiener_bands_simple")
+    kernel = functools.partial(WS.wiener_bands, ext[0], ext[1], vf, hf, 10)
+    simple = functools.partial(WS.wiener_bands_simple, ext[0], ext[1], vf, hf,
+                               10)
+    # plain, kernel, yardstick, yardstick, kernel, plain
+    p0 = cuda_ms(lambda: WS.wiener_bands_plain(ext[0], ext[1], vf, hf, 10))
+    k0 = cuda_ms(kernel, 20)
+    sms = [cuda_ms(simple, 20) for _ in range(2)]
+    k1 = cuda_ms(kernel, 20)
+    p1 = cuda_ms(lambda: WS.wiener_bands_plain(ext[0], ext[1], vf, hf, 10))
+    # bytes: the CDEF plane with its halos, the deblocked rows read outside
+    # the stripes, the taps and the output; per output pixel: 7
+    # multiply-adds per pass on the band's rows (6 more rows per band in the
+    # horizontal pass), rounding and clamps
+    deblk_bytes = wiener_deblk_rows(h) * ext[1].shape[1] * 4
+    times = {"ms": (k0 + k1) / 2, "plain_ms": (p0 + p1) / 2,
+             "simple_ms": sum(sms) / 2,
+             "simple_device_ms": sum(device_ms_by_kernel(
+                 simple, 20, "wiener_simple_kernel").values()),
+             "library_ms": None, "worst": worst,
+             **bound(nbytes(ext[0], out) + deblk_bytes + 14 * 4,
+                     36 * out.numel()),
+             **split_times(kernel, KERNEL_MATCH["wiener_bands"])}
+    print(f"  K5 one rank's launch at {tuple(out.shape)}: == plain and == "
+          f"yardstick bit for bit; kernel {times['ms']:.4f} ms, plain "
+          f"{times['plain_ms']:.4f} ms{simple_text(times)}, bound "
+          f"{times['bound_ms']:.4f} ms ({times['bound_by']}); "
+          f"{split_line(times)}", flush=True)
+    return times
+
+
 def phase_multi_device(frame4k: np.ndarray) -> dict:
     """K4, K5 and K6 on ranks sharing the card (gloo over CUDA tensors),
     and K4 at one rank under NCCL; returns the launches and the Wiener
@@ -1480,35 +1719,9 @@ def phase_multi_device(frame4k: np.ndarray) -> dict:
             r["plain_equal"] for r in k5):
         raise AssertionError(f"K5: ranks disagree or kernel != plain: "
                              f"{[(r['crc'], r['plain_equal']) for r in k5]}")
-    # one rank's launch: slice 0 of plane 0 with its halos
-    ws = w // 4
-    ext = [torch.from_numpy(np.pad(p[0][:, : ws + 3], ((0, 0), (3, 0)),
-                                   mode="edge")).cuda()
-           for p in (cdef, deblk)]
-    taps = graft_entry.LR_TAPS[0]
-    vf, hf = _coeffs7(*taps[:3]), _coeffs7(*taps[3:])
-    out = WS.wiener_bands(ext[0], ext[1], vf, hf, 10)
-    worst = max_abs(out, WS.wiener_bands_plain(ext[0], ext[1], vf, hf, 10))
-    if worst:
-        raise AssertionError(f"K5: kernel != plain by {worst}")
-    p0 = cuda_ms(lambda: WS.wiener_bands_plain(ext[0], ext[1], vf, hf, 10))
-    k0 = cuda_ms(lambda: WS.wiener_bands(ext[0], ext[1], vf, hf, 10), 20)
-    k1 = cuda_ms(lambda: WS.wiener_bands(ext[0], ext[1], vf, hf, 10), 20)
-    p1 = cuda_ms(lambda: WS.wiener_bands_plain(ext[0], ext[1], vf, hf, 10))
-    # bytes: the CDEF plane with its halos, the deblocked rows read outside
-    # the stripes, the taps and the output; per output pixel: 7
-    # multiply-adds per pass on the band's rows (6 more rows per band in the
-    # horizontal pass), rounding and clamps
-    deblk_bytes = wiener_deblk_rows(h) * ext[1].shape[1] * 4
-    times = {"ms": (k0 + k1) / 2, "plain_ms": (p0 + p1) / 2,
-             "library_ms": None,
-             **bound(nbytes(ext[0], out) + deblk_bytes + 14 * 4,
-                     36 * out.numel())}
+    times = wiener_times(cdef, deblk)
     print(f"  K5 3x {w}x{h} 10-bit over 4 ranks: == host apply_wiener "
-          f"({host_s:.3f} s wall) and == plain on every rank; one rank's "
-          f"launch at {tuple(out.shape)}: kernel {times['ms']:.4f} ms, plain "
-          f"{times['plain_ms']:.4f} ms, bound {times['bound_ms']:.4f} ms "
-          f"({times['bound_by']})", flush=True)
+          f"({host_s:.3f} s wall) and == plain on every rank", flush=True)
 
     for n, image, q_dim in ((2, None, None), (4, None, None),
                             (4, frame4k, 1)):
@@ -1538,8 +1751,8 @@ def phase_multi_device(frame4k: np.ndarray) -> dict:
         raise AssertionError(f"K4 under NCCL: {res[0]} vs {single}")
     print(f"  K4 {w}x{h} at 1 rank under NCCL: score {res[0]} "
           f"({time.perf_counter() - t0:.1f} s wall)", flush=True)
-    return {"launches": launches, "worst": worst, "halo_err": halo_err,
-            "times": {"wiener_bands": times}}
+    return {"launches": launches, "worst": times["worst"],
+            "halo_err": halo_err, "times": {"wiener_bands": times}}
 
 
 def main() -> int:
@@ -1565,6 +1778,7 @@ def main() -> int:
         if any(k in ln for k in ("entry function", "registers", "spill")):
             print(f"  ptxas: {ln.strip()}", flush=True)
 
+    launch_pieces()
     images = bench_images()
     frame4k = frame_4k()
     t0 = time.perf_counter()
@@ -1645,7 +1859,9 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"],
-                     **{k: t[k] for k in ("simple_ms",) if k in t}})
+                     "device_ms": t["device_ms"], "host_us": t["host_us"],
+                     **{k: t[k] for k in ("simple_ms", "host_us_before",
+                                          "checks_us") if k in t}})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

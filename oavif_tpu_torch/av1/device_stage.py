@@ -14,7 +14,9 @@ conformant whatever the levels.
 The kernels are hand-written CUDA (``csrc/device_stage.cu``):
 ``coeffs16`` (K3a) and ``quant16`` (K3b) launch them on a CUDA tensor and
 run their plain PyTorch versions ``coeffs16_plain`` and ``quant16_plain``
-on a CPU tensor; any other device raises.
+on a CPU tensor; any other device raises. ``coeffs16_simple`` launches
+the first K3a kernel, kept as the yardstick that ``coeffs16`` equals bit
+for bit; no path calls it.
 """
 
 from __future__ import annotations
@@ -85,6 +87,44 @@ def coeffs16_plain(plane: torch.Tensor, nby: int, nbx: int,
     return torch.matmul(torch.matmul(fh, resid), fw.t())
 
 
+@functools.lru_cache(maxsize=None)
+def _host_consts() -> tuple:
+    """((smooth weights int32 (16,), fh, fw) as contiguous host arrays,
+    their addresses): K3a takes them in its launch's parameter block; the
+    cache keeps the arrays alive."""
+    fh, fw = fwd_mats16()
+    arrays = (np.ascontiguousarray(TABLES["sm_weights_16"], np.int32),
+              np.ascontiguousarray(fh), np.ascontiguousarray(fw))
+    return arrays, tuple(a.ctypes.data for a in arrays)
+
+
+def _launch_coeffs(wrapper, entry: str, plane: torch.Tensor, nby: int,
+                   nbx: int, modes16: torch.Tensor, bitdepth: int,
+                   consts) -> torch.Tensor:
+    """Check a CUDA plane, grid and modes, and launch ``entry`` with the
+    (smooth weights, fh, fw) pointers ``consts``."""
+    name = wrapper.__name__
+    if plane.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {plane.device}")
+    if (plane.dtype != torch.int16 or plane.dim() != 2
+            or not plane.is_contiguous()):
+        raise ValueError(f"{name}: plane must be a contiguous 2-D int16 "
+                         "tensor")
+    if (nby <= 0 or nbx <= 0 or plane.shape[0] < 16 * nby + 1
+            or plane.shape[1] < 16 * nbx + 1):
+        raise ValueError(f"{name}: a {nby}x{nbx} grid does not fit a "
+                         f"{tuple(plane.shape)} plane")
+    modes = modes16.to(device=plane.device, dtype=torch.int32).contiguous()
+    if modes.numel() != nby * nbx:
+        raise ValueError(f"{name}: {modes.numel()} modes for a {nby}x{nbx} "
+                         "grid")
+    out = torch.empty((nby * nbx, 16, 16), dtype=torch.float32,
+                      device=plane.device)
+    launch(wrapper, entry, plane, plane.data_ptr(), plane.shape[1], nby, nbx,
+           1 << (bitdepth - 1), modes.data_ptr(), *consts, out.data_ptr())
+    return out
+
+
 def coeffs16(plane: torch.Tensor, nby: int, nbx: int,
              modes16: torch.Tensor, bitdepth: int) -> torch.Tensor:
     """coeffs16_plain's result; on a CUDA tensor from kernel K3a
@@ -92,31 +132,32 @@ def coeffs16(plane: torch.Tensor, nby: int, nbx: int,
     tensor from the plain version. Any other device raises."""
     if plane.device.type == "cpu":
         return coeffs16_plain(plane, nby, nbx, modes16, bitdepth)
-    if plane.device.type != "cuda":
-        raise ValueError(f"coeffs16: unsupported device {plane.device}")
-    if (plane.dtype != torch.int16 or plane.dim() != 2
-            or not plane.is_contiguous()):
-        raise ValueError("coeffs16: plane must be a contiguous 2-D int16 "
-                         "tensor")
-    if (nby <= 0 or nbx <= 0 or plane.shape[0] < 16 * nby + 1
-            or plane.shape[1] < 16 * nbx + 1):
-        raise ValueError(f"coeffs16: a {nby}x{nbx} grid does not fit a "
-                         f"{tuple(plane.shape)} plane")
-    modes = modes16.to(device=plane.device, dtype=torch.int32).contiguous()
-    if modes.numel() != nby * nbx:
-        raise ValueError(f"coeffs16: {modes.numel()} modes for a {nby}x{nbx} "
-                         "grid")
-    fh, fw, _ = _device_consts(plane.device)
-    smw = _device_tables(16, plane.device)[0]
-    out = torch.empty((nby * nbx, 16, 16), dtype=torch.float32,
-                      device=plane.device)
-    launch(coeffs16, "dstage_coeffs16", plane, plane.data_ptr(),
-           plane.shape[1], nby, nbx, 1 << (bitdepth - 1), modes.data_ptr(),
-           smw.data_ptr(), fh.data_ptr(), fw.data_ptr(), out.data_ptr())
-    return out
+    return _launch_coeffs(coeffs16, "dstage_coeffs16", plane, nby, nbx,
+                          modes16, bitdepth, _host_consts()[1])
 
 
 coeffs16.launches = 0
+
+
+def coeffs16_simple(plane: torch.Tensor, nby: int, nbx: int,
+                    modes16: torch.Tensor, bitdepth: int) -> torch.Tensor:
+    """``coeffs16`` through the first K3a kernel (``dstage_coeffs16_simple``,
+    one thread block per 16-block, both products out of shared memory),
+    which the source keeps as the yardstick: each output's two FMA chains
+    run in the same k order on the same operands, so the two kernels give
+    the same bits. No path calls it; the card tests and ``chip_smoke.py``
+    hold ``coeffs16`` to it and time the two in one call. Counted in
+    ``coeffs16_simple.launches``."""
+    if plane.device.type == "cpu":
+        return coeffs16_plain(plane, nby, nbx, modes16, bitdepth)
+    fh, fw, _ = _device_consts(plane.device)
+    smw = _device_tables(16, plane.device)[0]
+    return _launch_coeffs(coeffs16_simple, "dstage_coeffs16_simple", plane,
+                          nby, nbx, modes16, bitdepth,
+                          [t.data_ptr() for t in (smw, fh, fw)])
+
+
+coeffs16_simple.launches = 0
 
 
 def level_buffers(k: int, n: int, device) -> tuple:

@@ -10,7 +10,9 @@ deblocked planes together, with edge replication at the frame's two ends
 stripe sandwich (out-of-stripe rows read the pre-CDEF deblocked frame)
 stays local. The filter is the hand-written kernel ``wiener_bands``
 (``csrc/wiener.cu``), one block per stripe band and column tile; its plain
-version ``wiener_bands_plain`` repeats the reference's int32 operations.
+version ``wiener_bands_plain`` repeats the reference's int32 operations,
+and ``wiener_bands_simple`` launches the first Wiener kernel, kept as the
+yardstick (on no path).
 All arithmetic is int32, so the result equals the host filter
 (``restoration.apply_wiener``) bit for bit. As in the reference, one tap
 set filters the whole plane.
@@ -69,6 +71,34 @@ def _taps_tensor(vf: tuple, hf: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor([*vf, *hf], dtype=torch.int32, device=device)
 
 
+def _launch_wiener(wrapper, cdef: torch.Tensor, deblk: torch.Tensor,
+                   vf: Sequence[int], hf: Sequence[int],
+                   bitdepth: int) -> torch.Tensor:
+    """Check the CUDA planes and taps, and launch ``wrapper``'s C entry
+    (named like the wrapper; the two Wiener entries share their
+    arguments)."""
+    name = wrapper.__name__
+    for t in (cdef, deblk):
+        if (t.device != cdef.device or t.device.type != "cuda"
+                or t.dtype != torch.int32 or t.dim() != 2
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: cdef and deblk must be contiguous "
+                             "2-D int32 tensors on one CUDA device")
+    if cdef.shape != deblk.shape or cdef.shape[1] <= 2 * HALO:
+        raise ValueError(f"{name}: planes {tuple(cdef.shape)} and "
+                         f"{tuple(deblk.shape)}")
+    if bitdepth not in (8, 10) or len(vf) != 7 or len(hf) != 7:
+        raise ValueError(f"{name}: 8 or 10 bits and two 7-tap filters")
+    h, we = cdef.shape
+    out = torch.empty((h, we - 2 * HALO), dtype=torch.int32,
+                      device=cdef.device)
+    taps = _taps_tensor(tuple(int(v) for v in vf), tuple(int(v) for v in hf),
+                        cdef.device)
+    launch(wrapper, name, cdef, cdef.data_ptr(), deblk.data_ptr(), h,
+           we - 2 * HALO, bitdepth, taps.data_ptr(), out.data_ptr())
+    return out
+
+
 def wiener_bands(cdef: torch.Tensor, deblk: torch.Tensor,
                  vf: Sequence[int], hf: Sequence[int],
                  bitdepth: int) -> torch.Tensor:
@@ -77,29 +107,27 @@ def wiener_bands(cdef: torch.Tensor, deblk: torch.Tensor,
     version."""
     if cdef.device.type == "cpu":
         return wiener_bands_plain(cdef, deblk, vf, hf, bitdepth)
-    for t in (cdef, deblk):
-        if (t.device != cdef.device or t.device.type != "cuda"
-                or t.dtype != torch.int32 or t.dim() != 2
-                or not t.is_contiguous()):
-            raise ValueError("wiener_bands: cdef and deblk must be contiguous "
-                             "2-D int32 tensors on one CUDA device")
-    if cdef.shape != deblk.shape or cdef.shape[1] <= 2 * HALO:
-        raise ValueError(f"wiener_bands: planes {tuple(cdef.shape)} and "
-                         f"{tuple(deblk.shape)}")
-    if bitdepth not in (8, 10) or len(vf) != 7 or len(hf) != 7:
-        raise ValueError("wiener_bands: 8 or 10 bits and two 7-tap filters")
-    h, we = cdef.shape
-    out = torch.empty((h, we - 2 * HALO), dtype=torch.int32,
-                      device=cdef.device)
-    taps = _taps_tensor(tuple(int(v) for v in vf), tuple(int(v) for v in hf),
-                        cdef.device)
-    launch(wiener_bands, "wiener_bands", cdef, cdef.data_ptr(),
-           deblk.data_ptr(), h, we - 2 * HALO, bitdepth, taps.data_ptr(),
-           out.data_ptr())
-    return out
+    return _launch_wiener(wiener_bands, cdef, deblk, vf, hf, bitdepth)
 
 
 wiener_bands.launches = 0
+
+
+def wiener_bands_simple(cdef: torch.Tensor, deblk: torch.Tensor,
+                        vf: Sequence[int], hf: Sequence[int],
+                        bitdepth: int) -> torch.Tensor:
+    """``wiener_bands`` through the first Wiener kernel, which the source
+    keeps as the yardstick (both passes through shared memory, one thread
+    per element); all arithmetic is int32, so the two give the same bits.
+    No path calls it; the card tests and ``chip_smoke.py`` hold
+    ``wiener_bands`` to it and time the two in one call. Counted in
+    ``wiener_bands_simple.launches``."""
+    if cdef.device.type == "cpu":
+        return wiener_bands_plain(cdef, deblk, vf, hf, bitdepth)
+    return _launch_wiener(wiener_bands_simple, cdef, deblk, vf, hf, bitdepth)
+
+
+wiener_bands_simple.launches = 0
 
 
 def shard_planes(cdef: np.ndarray, deblk: np.ndarray, vis_h: int,

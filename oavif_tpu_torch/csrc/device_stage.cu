@@ -6,13 +6,27 @@
 // its PLANNED mode (one of DC, V, H, SMOOTH, PAETH, SMOOTH_V, SMOOTH_H)
 // from source edges, the residual block - prediction, and the forward
 // DCT16 fh @ R @ fw^T. The reference predicts all 7 modes into an
-// (n, 7, 16, 16) stack and selects with a one-hot einsum; here one thread
-// block per 16x16 block builds its edges in shared memory
-// (intra_edges.cuh, the planner's code), each of its 256 threads predicts
-// its pixel under the one planned mode in exact integers, and the two
-// 16x16 products run out of shared memory, each output summed in a fixed
-// k order with __fmaf_rn. Nothing but the coefficients reaches global
-// memory.
+// (n, 7, 16, 16) stack and selects with a one-hot einsum; here each block
+// is predicted under its one planned mode in exact integers, with its
+// edges and fills from intra_edges.cuh (the planner's code), and each
+// output of the two 16x16 products is summed in a fixed k order with
+// __fmaf_rn. Nothing but the coefficients reaches global memory.
+//
+// coeffs16_kernel takes one thread block per strip of 16 blocks of a
+// 16-row band. A thread first owns one column of one block: its 17
+// source pixels in registers (every load in flight before the first
+// store), its residual column under the block's mode (the mode a constant
+// in each case of one switch), and that column of fh @ R; fh and fw travel
+// in the launch's parameter block, so the matrix operand of every FMA
+// comes from the constant bank, uniform across the warp. One transpose
+// through shared memory (row stride 257, 1 mod 32: no bank conflicts
+// either way), then the thread owns one row of t and computes that row of
+// t @ fw^T, stored with four 16-byte writes. DC is a half-warp shuffle
+// sum of the edges. About 2 shared accesses per output, against about 40
+// in the first kernel, coeffs16_simple_kernel (one block per 16x16 block,
+// both products out of shared memory), which the source keeps as the
+// yardstick: every output keeps its two FMA chains, k order and operands,
+// so the two give the same bits.
 //
 // K3b, dstage_quant16, replaces device_stage.py _quant_body (vmapped over
 // the quantizers, jit :102): grid (blocks, quantizers), one thread per
@@ -26,14 +40,19 @@
 //
 // What bounds them on the H100: at 3840x2160 (31,680 blocks) K3a reads
 // 16.2 MB of int16 plane and writes 32.4 MB of float32 coefficients
-// against ~0.5 GFLOP, and K3b reads 32.4 MB and writes 16.2 MB of levels
-// per quantizer: both are bound by HBM bytes (~15 us each at 3.35 TB/s),
-// with one block per 16x16 tile and coalesced row reads and writes.
+// against 0.26 G FMAs, and K3b reads 32.4 MB and writes 16.2 MB of levels
+// per quantizer: both are bound by HBM bytes (~15 us each at 3.35 TB/s).
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, kernel alone by
+// torch.profiler): coeffs16_kernel 0.036 ms, coeffs16_simple_kernel 0.089
+// ms; quant16_kernel 0.038 ms at one quantizer, 0.109 at three (it reads
+// the coefficients again for each).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -Xcompiler -fPIC (oavif_tpu_torch/kernels/build.py).
 
 #include <cstdint>
+#include <cstring>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "intra_edges.cuh"
@@ -44,14 +63,51 @@ constexpr int kThreads = 256;  // one per pixel or coefficient of a block
 constexpr int kWarps = kThreads / 32;
 constexpr int kLevelMax = 16383;
 
+constexpr int P = 16;          // the block's side
+constexpr int L = 2 * P + 1;   // the edge vector's above or left half
+constexpr int kStrip = kThreads / P;   // 16-blocks in coeffs16_kernel's strip
+constexpr int kStageW = kStrip * P + 1;  // staged plane columns
+constexpr int kTld = kStrip * P + 1;   // t's row stride: 257 = 1 mod 32
+
+// The planned mode's prediction of pixel (r, c) from the block's filled
+// edges, as the reference's integer-valued formulas
+// (oavif_tpu_torch/av1/encode_tpu.py _predictions): a = above[c], l =
+// left[r], cr the corner, below = left[P-1], right = above[P-1], wr and
+// wc the smooth weights of r and c, dc the DC prediction.
+__device__ __forceinline__ int predict(int mode, int a, int l, int cr,
+                                       int below, int right, int wr, int wc,
+                                       int dc) {
+  switch (mode) {
+    case 1:  // V
+      return a;
+    case 2:  // H
+      return l;
+    case 3:  // SMOOTH
+      return (wr * a + (256 - wr) * below + wc * l + (256 - wc) * right +
+              256) >> 9;
+    case 4: {  // PAETH
+      const int pa = abs(l - cr), pl = abs(a - cr), pc = abs(a + l - 2 * cr);
+      return (pa <= pl && pa <= pc) ? a : (pl <= pc ? l : cr);
+    }
+    case 5:  // SMOOTH_V
+      return (wr * a + (256 - wr) * below + 128) >> 8;
+    case 6:  // SMOOTH_H
+      return (wc * l + (256 - wc) * right + 128) >> 8;
+    default:  // 0, DC (the host checks the range)
+      return dc;
+  }
+}
+
+// The first K3a kernel, kept as the yardstick that coeffs16_kernel must
+// equal bit for bit: one 256-thread block per 16x16 block, both products
+// out of shared memory.
 __global__ void __launch_bounds__(kThreads)
-coeffs16_kernel(const int16_t* __restrict__ plane, int ld, int nbx,
-                int base, const int32_t* __restrict__ modes,
-                const int32_t* __restrict__ smw,
-                const float* __restrict__ fh, const float* __restrict__ fw,
-                float* __restrict__ out) {
-  constexpr int P = 16;
-  constexpr int L = 2 * P + 1;
+coeffs16_simple_kernel(const int16_t* __restrict__ plane, int ld, int nbx,
+                       int base, const int32_t* __restrict__ modes,
+                       const int32_t* __restrict__ smw,
+                       const float* __restrict__ fh,
+                       const float* __restrict__ fw,
+                       float* __restrict__ out) {
   __shared__ int edge[2 * L];
   __shared__ float fh_s[P][P];
   __shared__ float fw_s[P][P + 1];   // read by column: padded
@@ -70,37 +126,8 @@ coeffs16_kernel(const int16_t* __restrict__ plane, int ld, int nbx,
   if (tid == 0) dc_s = oavif::dc_pred<P>(edge);
   __syncthreads();
 
-  // the planned mode's prediction, as the reference's integer-valued
-  // formulas (oavif_tpu_torch/av1/encode_tpu.py _predictions)
-  const int a = edge[1 + c], l = edge[L + 1 + r], cr = edge[0];
-  const int below = edge[L + P], right = edge[P];  // left[P-1], above[P-1]
-  const int wr = smw[r], wc = smw[c];
-  int pred;
-  switch (modes[blk]) {
-    case 1:  // V
-      pred = a;
-      break;
-    case 2:  // H
-      pred = l;
-      break;
-    case 3:  // SMOOTH
-      pred = (wr * a + (256 - wr) * below + wc * l + (256 - wc) * right +
-              256) >> 9;
-      break;
-    case 4: {  // PAETH
-      const int pa = abs(l - cr), pl = abs(a - cr), pc = abs(a + l - 2 * cr);
-      pred = (pa <= pl && pa <= pc) ? a : (pl <= pc ? l : cr);
-      break;
-    }
-    case 5:  // SMOOTH_V
-      pred = (wr * a + (256 - wr) * below + 128) >> 8;
-      break;
-    case 6:  // SMOOTH_H
-      pred = (wc * l + (256 - wc) * right + 128) >> 8;
-      break;
-    default:  // 0, DC (the host checks the range)
-      pred = dc_s;
-  }
+  const int pred = predict(modes[blk], edge[1 + c], edge[L + 1 + r], edge[0],
+                           edge[L + P], edge[P], smw[r], smw[c], dc_s);
   const int x = plane[(1 + bi * P + r) * ld + 1 + bj * P + c];
   res_s[r][c] = static_cast<float>(x - pred);  // exact
   __syncthreads();
@@ -115,6 +142,113 @@ coeffs16_kernel(const int16_t* __restrict__ plane, int ld, int nbx,
 #pragma unroll
   for (int k = 0; k < P; ++k) acc = __fmaf_rn(t_s[r][k], fw_s[c][k], acc);
   out[static_cast<long long>(blk) * (P * P) + tid] = acc;
+}
+
+// The forward matrices and smooth weights, passed by value: the launch's
+// parameter block lives in the constant bank, so every FMA below takes
+// its matrix operand from there, uniform across the warp.
+struct Coeffs16Consts {
+  float fh[P * P];
+  float fw[P * P];
+  int smw[P];
+};
+
+// One block per strip of kStrip 16-blocks of a 16-row band. Thread
+// (j, c) = (tid / 16, tid % 16): first block j's column c (prediction,
+// residual and that column of fh @ R in registers), then, after one
+// transpose through t_s, block j's row c (that row of t @ fw^T, stored
+// with four 16-byte writes).
+__global__ void __launch_bounds__(kThreads)
+coeffs16_kernel(const int16_t* __restrict__ plane, int ld, int nbx,
+                int base, const int32_t* __restrict__ modes,
+                const __grid_constant__ Coeffs16Consts m,
+                float* __restrict__ out) {
+  __shared__ int16_t stage[(P + 1) * kStageW];
+  __shared__ float t_s[P * kTld];
+
+  const int bi = blockIdx.y, j0 = blockIdx.x * kStrip;
+  const int tid = threadIdx.x;
+  const int j = tid >> 4, c = tid & (P - 1);
+  const int bj = j0 + j;
+  const bool live = bj < nbx;
+  // padded column 1 + tid of the band's rows bi*16 .. bi*16+16 in
+  // registers (zeros past the last block), every load issued before the
+  // first store; threads 0..16 also stage the strip's left column
+  const int16_t* src = plane + static_cast<long long>(bi * P) * ld + j0 * P;
+  int x[P + 1];
+#pragma unroll
+  for (int i = 0; i <= P; ++i)
+    x[i] = live ? src[static_cast<long long>(i) * ld + 1 + tid] : 0;
+  const int16_t left = tid <= P ? src[static_cast<long long>(tid) * ld] : 0;
+#pragma unroll
+  for (int i = 0; i <= P; ++i) stage[i * kStageW + 1 + tid] = x[i];
+  if (tid <= P) stage[tid * kStageW] = left;
+  __syncthreads();
+
+  const bool row0 = bi == 0, col0 = bj == 0;
+  const oavif::Pix pix{stage + j * P, kStageW};
+  const int a = oavif::edge_at<P>(pix, row0, col0, base, 1 + c);
+  const int cr = oavif::edge_at<P>(pix, row0, col0, base, 0);
+  const int right = oavif::edge_at<P>(pix, row0, col0, base, P);
+  const int below = oavif::edge_at<P>(pix, row0, col0, base, L + P);
+  // DC: the half-warp of block j sums above[c] + left[c]
+  int s = a + oavif::edge_at<P>(pix, row0, col0, base, L + 1 + c);
+#pragma unroll
+  for (int off = P / 2; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  const int dc = (s + P) >> (oavif::Log2<P>::value + 1);
+  const int wc = m.smw[c];
+
+  // the residual column under the planned mode, the mode a constant in
+  // each case so that predict() folds to its formula
+  float res[P];
+  auto residuals = [&](auto mode) {
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      const int l = oavif::edge_at<P>(pix, row0, col0, base, L + 1 + r);
+      res[r] = static_cast<float>(
+          x[1 + r] - predict(decltype(mode)::value, a, l, cr, below, right,
+                             m.smw[r], wc, dc));
+    }
+  };
+  switch (live ? modes[bi * nbx + bj] : 0) {
+    case 1: residuals(std::integral_constant<int, 1>()); break;
+    case 2: residuals(std::integral_constant<int, 2>()); break;
+    case 3: residuals(std::integral_constant<int, 3>()); break;
+    case 4: residuals(std::integral_constant<int, 4>()); break;
+    case 5: residuals(std::integral_constant<int, 5>()); break;
+    case 6: residuals(std::integral_constant<int, 6>()); break;
+    default: residuals(std::integral_constant<int, 0>());
+  }
+  // column c of t = fh @ res, each sum in k order
+#pragma unroll
+  for (int r = 0; r < P; ++r) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < P; ++k) acc = __fmaf_rn(m.fh[r * P + k], res[k], acc);
+    t_s[r * kTld + tid] = acc;
+  }
+  __syncthreads();
+
+  // row c of block j: out = t @ fw^T, each sum in k order
+  float t[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) t[k] = t_s[c * kTld + j * P + k];
+  float o[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < P; ++k) acc = __fmaf_rn(t[k], m.fw[q * P + k], acc);
+    o[q] = acc;
+  }
+  if (live) {
+    float4* dst = reinterpret_cast<float4*>(
+        out + (static_cast<long long>(bi * nbx + bj) * P + c) * P);
+#pragma unroll
+    for (int v = 0; v < P / 4; ++v)
+      dst[v] = make_float4(o[4 * v], o[4 * v + 1], o[4 * v + 2], o[4 * v + 3]);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -155,15 +289,36 @@ quant16_kernel(const float* __restrict__ coeffs, int n,
 
 // plane: (>= 16*nby+1, ld) int16, the (+1,+1)-padded plane, row stride ld.
 // modes: (nby*nbx,) int32 mode indices 0..6. smw: (16,) int32 smooth
-// weights. fh, fw: (16, 16) float32 forward matrices. out: (nby*nbx, 16,
-// 16) float32. Launches on `stream` and returns cudaGetLastError().
+// weights and fh, fw: (16, 16) float32 forward matrices, all three in HOST
+// memory (they travel in the launch's parameter block). out: (nby*nbx, 16,
+// 16) float32, 16-byte aligned. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int dstage_coeffs16(const int16_t* plane, int ld, int nby,
                                int nbx, int base, const int32_t* modes,
                                const int32_t* smw, const float* fh,
                                const float* fw, float* out,
                                cudaStream_t stream) {
+  if (nby <= 0 || nbx <= 0 || nby > 65535) return cudaErrorInvalidValue;
+  Coeffs16Consts m;
+  std::memcpy(m.fh, fh, sizeof m.fh);
+  std::memcpy(m.fw, fw, sizeof m.fw);
+  std::memcpy(m.smw, smw, sizeof m.smw);
+  const dim3 grid((nbx + kStrip - 1) / kStrip, nby);
+  coeffs16_kernel<<<grid, kThreads, 0, stream>>>(plane, ld, nbx, base, modes,
+                                                 m, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The yardstick kernel: the arguments of dstage_coeffs16, with smw, fh and
+// fw in DEVICE memory. On no path.
+extern "C" int dstage_coeffs16_simple(const int16_t* plane, int ld, int nby,
+                                      int nbx, int base,
+                                      const int32_t* modes,
+                                      const int32_t* smw, const float* fh,
+                                      const float* fw, float* out,
+                                      cudaStream_t stream) {
   if (nby <= 0 || nbx <= 0) return cudaErrorInvalidValue;
-  coeffs16_kernel<<<dim3(nby * nbx), kThreads, 0, stream>>>(
+  coeffs16_simple_kernel<<<dim3(nby * nbx), kThreads, 0, stream>>>(
       plane, ld, nbx, base, modes, smw, fh, fw, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,9 +6,10 @@ started together, and links the objects into one
 shared library with a plain C interface under ``build/oavif_tpu_torch/``
 (listed in .gitignore), rebuilt when a source is newer than the library;
 ``ctypes`` loads it. Pointers go in as ``c_void_p`` from
-``tensor.data_ptr()``, with ``torch.cuda.current_stream().cuda_stream``;
-each entry returns ``cudaGetLastError()``. A failed build raises: there is
-no fallback.
+``tensor.data_ptr()`` (or a host array's address, where an entry says its
+argument lives in host memory), with the raw handle of the current CUDA
+stream last (``kernels.launch``); each entry returns
+``cudaGetLastError()``. A failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -46,8 +47,10 @@ entries = {
     "ssim2_norms": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I,
                     _P, _P],
     "dstage_coeffs16": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "dstage_coeffs16_simple": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "dstage_quant16": [_P, _I, _I, _P, _P, _F, _P, _P, _P, _P],
     "wiener_bands": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "wiener_bands_simple": [_P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 _lib: Optional[C.CDLL] = None

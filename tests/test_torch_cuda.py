@@ -1,7 +1,8 @@
 """The planner (the fused plan and the first SSD kernel), metric,
 encode-stage, recursive-blur and Wiener kernels on an NVIDIA GPU: build,
-launch, and equality with their plain PyTorch versions; the blur against
-the simple blur kernel, bit for bit; the halo blur against the
+launch, and equality with their plain PyTorch versions; the blur, the
+encode-stage coefficients and the Wiener filter against the first kernel
+of each (kept as yardsticks), bit for bit; the halo blur against the
 single-device blur's columns, and the width-sharded metric on two ranks
 sharing the card. Skipped without CUDA.
 
@@ -361,6 +362,33 @@ def test_coeffs16_kernel_equals_plain(cuda, bitdepth):
         assert _coeff_excess(got, want) <= 0
 
 
+@pytest.mark.parametrize("bitdepth", [8, 10])
+@pytest.mark.parametrize("nby,nbx", [(21, 27), (1, 5), (3, 33), (24, 32)])
+def test_coeffs16_kernel_equals_simple_kernel(cuda, bitdepth, nby, nbx):
+    """The strip kernel against the first K3a kernel bit for bit, and
+    within K3a's bound of the plain version: odd block counts both ways,
+    strips short of 16 blocks (27 = 16 + 11, 5, 33 = 2 x 16 + 1), the first
+    block row and column (the fills), every mode alone and mixed, on random
+    pixels and on a flat plane (every residual 0)."""
+    rng = np.random.default_rng(nby * 100 + nbx + bitdepth)
+    hi = 1 << bitdepth
+    for arr in (rng.integers(0, hi, (384, 576)), np.full((384, 576), hi // 3)):
+        y = torch.from_numpy(ET.pad_plane(arr, 6, 9, bitdepth)).to(cuda)
+        mode_sets = [np.full((nby, nbx), m) for m in range(7)]
+        mode_sets.append(rng.integers(0, 7, (nby, nbx)))
+        for modes in mode_sets:
+            m = torch.from_numpy(modes.astype(np.int32)).to(cuda)
+            launches = (DS.coeffs16.launches, DS.coeffs16_simple.launches)
+            got = DS.coeffs16(y, nby, nbx, m, bitdepth)
+            want = DS.coeffs16_simple(y, nby, nbx, m, bitdepth)
+            assert (DS.coeffs16.launches, DS.coeffs16_simple.launches) == (
+                launches[0] + 1, launches[1] + 1)
+            plain = DS.coeffs16_plain(y, nby, nbx, m, bitdepth)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            assert _coeff_excess(got, plain) <= 0
+
+
 def test_quant16_kernel_equals_plain(cuda):
     y = _planes(cuda, 10, seed=3)[0]
     modes = torch.from_numpy(np.random.default_rng(3).integers(
@@ -487,6 +515,44 @@ def test_wiener_kernel_equals_plain(cuda, bitdepth):
     want = WS.wiener_bands_plain(cdef, deblk, vf, hf, bitdepth)
     torch.cuda.synchronize()
     assert got.shape == (130, 191) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bitdepth", [8, 10])
+@pytest.mark.parametrize("h,we", [(40, 64), (56, 130), (57, 96), (130, 197),
+                                  (130, 198), (200, 250), (183, 70)])
+def test_wiener_kernel_equals_simple_kernel(cuda, bitdepth, h, we):
+    """The register-window kernel against the first Wiener kernel and the
+    plain version, bit for bit: one band (h <= 56), partial last bands
+    (57, 130, 183, 200 rows), widths short of a 64-column tile (58, 64 + 60,
+    90, 191, 192, 244 columns), odd widths (scalar rows) and even ones
+    (int2 rows), and even ones 4 bytes off 8-byte alignment (scalar rows
+    again)."""
+    from oavif_tpu_torch.av1 import restoration_sharded as WS
+
+    cdef, deblk = _wiener_ext(cuda, bitdepth, h, we, seed=h + we)
+    cases = [(cdef, deblk)]
+    if we % 2 == 0:  # the same planes 4 bytes past an 8-byte boundary
+        off = []
+        for t in (cdef, deblk):
+            buf = torch.empty(t.numel() + 1, dtype=torch.int32, device=cuda)
+            buf[1:].copy_(t.reshape(-1))
+            off.append(buf[1:].view(h, we))
+        cases.append(tuple(off))
+    taps = [((3, -7, 15, 106, 15, -7, 3), (-2, 4, 28, 68, 28, 4, -2)),
+            ((-5, 10, -17, 152, -17, 10, -5), (3, -14, 34, 82, 34, -14, 3))]
+    for c, d in cases:
+        for vf, hf in taps:
+            launches = (WS.wiener_bands.launches,
+                        WS.wiener_bands_simple.launches)
+            got = WS.wiener_bands(c, d, vf, hf, bitdepth)
+            simple = WS.wiener_bands_simple(c, d, vf, hf, bitdepth)
+            assert (WS.wiener_bands.launches,
+                    WS.wiener_bands_simple.launches) == (launches[0] + 1,
+                                                         launches[1] + 1)
+            want = WS.wiener_bands_plain(c, d, vf, hf, bitdepth)
+            torch.cuda.synchronize()
+            assert got.shape == (h, we - 6)
+            assert torch.equal(got, simple) and torch.equal(got, want)
 
 
 def test_wiener_kernel_rejects_bad_input(cuda):
