@@ -28,7 +28,8 @@ Phases, each of which raises on failure (exit code != 0):
    identity must score exactly 100.0 through the kernels and a second run
    must repeat bit for bit; times of one candidate batch's score and of
    each kernel alone at 512x512x4 and 3840x2160x4, the blur beside the
-   simple kernel in the same call, and both at radius 0, 5 and 8;
+   simple kernel in the same call, and both at radius 0, 5 and 8; the
+   score's bound, the sum of its launches' bounds (``score_bound``);
 5. main path, the CLI: ``oavif_tpu_torch.cli.run`` with ``-t 80`` and
    ``-q 60`` on the six 512x512 bench classes and one 3840x2160 frame
    written as PAM; each run must exit 0, write an AVIF, launch the planner
@@ -49,13 +50,18 @@ Phases, each of which raises on failure (exit code != 0):
 9. encode-stage kernels against plain versions: ``dstage_coeffs16`` (K3a)
    within 1e-6 * max|c| of the block + 1e-3 and bit for bit the first K3a
    kernel (``dstage_coeffs16_simple``, kept as the yardstick; no path may
-   launch it), and ``dstage_quant16`` (K3b) bit-identical, at qindex 30,
-   60 and 90 at once and singly, on the six classes' and the 3840x2160
-   frame's 10-bit planes with their plan's modes and with random modes;
-   CUDA-event times at 3840x2160 of K3a, its yardstick, K3b (1 and 3
-   quantizers) and their plain versions, each kernel's device ms from a
-   ``torch.profiler`` trace and host µs a call (``split_times``), and the
-   host wall time of the levels fetch;
+   launch it), and ``dstage_quant16`` (K3b) bit for bit its plain version
+   and the first K3b kernel (``dstage_quant16_simple``, the yardstick),
+   levels and eob, at qindex 30, 60 and 90 at once and singly, on the six
+   classes' and the 3840x2160 frame's 10-bit planes with their plan's modes
+   and with random modes, on crafted edges (``quant_cases``), at k = 1, 2,
+   3 and 5 quantizers and at 1, 3 and 5 blocks; levels off 16-byte
+   alignment must raise, and ptxas must report no spills for K3b;
+   CUDA-event times at 3840x2160 of K3a, its yardstick, K3b (1, 2 and 3
+   quantizers), its yardstick and their plain versions, each kernel's
+   device ms from a ``torch.profiler`` trace and host µs a call
+   (``split_times``), and the host wall time of the levels fetch, with the
+   same bytes copied into pageable and into page-locked memory in turns;
 10. main path, the device encode stage: the CLI with ``OAVIF_PY_TILE=1
    OAVIF_DEVICE_LEVELS=1``, ``-q 89`` on the six classes and ``-t 80`` on
    fractal; the coder must consume device levels and K3a, K3b and the
@@ -184,7 +190,13 @@ METRIC_KERNELS = ("ssim2_pyramid", "ssim2_blur", "ssim2_norms")
 SEARCH_KERNELS = ("planner_plan", *METRIC_KERNELS)
 # the wrappers of the yardstick kernels, which no path may launch
 YARDSTICKS = (M.ssim2_blur_simple, ET.mode_ssd, DS.coeffs16_simple,
-              WS.wiener_bands_simple)
+              DS.quant16_simple, WS.wiener_bands_simple)
+# each kernel's yardstick, by its C entry, for the kernels line
+YARDSTICK_OF = {"planner_plan": "planner_mode_ssd",
+                "ssim2_blur": "ssim2_blur_simple",
+                "dstage_coeffs16": "dstage_coeffs16_simple",
+                "dstage_quant16": "dstage_quant16_simple",
+                "wiener_bands": "wiener_bands_simple"}
 LEVEL_KERNELS = ("dstage_coeffs16", "dstage_quant16")
 LEVEL_QS = (30, 60, 90)
 # the card the encode-stage phases run on (a CPU rehearsal may set it)
@@ -973,6 +985,42 @@ def metric_case(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
     return worst
 
 
+def score_bound(ref: torch.Tensor, dist: torch.Tensor,
+                with_ref: bool = False) -> float:
+    """The bound (ms) of one candidate batch's score: the sum over its
+    K2a-c launches, every scale, of each launch's bound, counted as in
+    ``metric_times`` (pyramid: 27 operations per output element; blur: 68
+    per map (2 passes x 17 taps x 2) and one per product, per element;
+    norms: 40). ``with_ref`` adds the reference side's pyramid and blurs,
+    which the width-sharded score computes on every call."""
+    total = []
+
+    def pyramid(src):
+        out = M.ssim2_pyramid(src)
+        total.append(bound(nbytes(src, *out), 27 * out[1].numel()))
+        return out
+
+    def blur(img1, img2, radius):
+        out = M.ssim2_blur(img1, img2, radius)
+        maps = len(out)
+        side = img1 if img2 is None else img2
+        total.append(bound(nbytes(*(t for t in (img1, img2, *out)
+                                    if t is not None)),
+                           (68 * maps + maps - 1) * side.numel()))
+        return out
+
+    def norms(*planes):
+        out = M.ssim2_norms(*planes)
+        total.append(bound(nbytes(*planes, out), 40 * planes[3].numel()))
+        return out
+
+    ops = M.MetricOps(pyramid, blur, norms, M.ssim2_blur_iir)
+    pyr = M.ssimulacra2_precompute_ref(ref, ref.device,
+                                       ops if with_ref else M.KERNELS)
+    M.ssimulacra2_from_precomputed(pyr, dist, ops)
+    return sum(b["bound_ms"] for b in total)
+
+
 def metric_times(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
     """CUDA-event ms of one candidate batch's score (all scales, the
     reference pyramid precomputed) and of each kernel alone at scale 0,
@@ -1008,6 +1056,9 @@ def metric_times(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
         "ssim2_blur": bound(nbytes(img1, img2, *dist_stats), 206 * npx),
         "ssim2_norms": bound(nbytes(*planes, M.ssim2_norms(*planes)),
                              40 * npx),
+        "score": {"bound_ms": score_bound(ref, dist),
+                  "bound_by": "its K2a-c launches' bounds",
+                  "one_with_ref_bound_ms": score_bound(ref, dist[:1], True)},
     }
     h, w = img2.shape[-2:]
     k1d = M._taps(8, img2.device)
@@ -1031,7 +1082,8 @@ def metric_times(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
         if key == "ssim2_blur":
             times[key]["simple_ms"] = sum(simple) / 2
         extra = "".join(f", {k} {times[key][k]}" for k in
-                        ("simple_ms", "library_ms", "bound_ms", "bound_by")
+                        ("simple_ms", "library_ms", "bound_ms", "bound_by",
+                         "one_with_ref_bound_ms")
                         if times[key].get(k) is not None)
         if key in KERNEL_MATCH:
             extra += f"; {split_line(times[key])}"
@@ -1210,10 +1262,140 @@ def level_dq(qs, bitdepth: int = 10):
                          device=DEVICE))
 
 
+# 16-blocks (warps) per quant16_kernel CTA: kQuantWarps in
+# csrc/device_stage.cu, for the grids' edge cases
+QUANT_WARPS = 4
+
+
+def quant_cases() -> dict:
+    """K3b's crafted edges: {name: (coefficients (n, 16, 16) float32,
+    dq_dc (k,) float32, dq_ac (k,) float32, shift)} as numpy. "half":
+    |c| / dq exactly j + 0.5 at dq 3 (and its neighbours one float32 step
+    either way), at three quantizers; "clip": +-16383 and beyond, up to the
+    float32 maximum, at shift 3 (so some products overflow to inf); "-0.0":
+    negative zeros and magnitudes that round to 0 (levels 0, eob 0);
+    "zero": an all-zero block (eob 0); "last scan": only the last scan
+    position nonzero (eob 256); "dc only": only the DC coefficient nonzero
+    (eob 1), one quantizer whose AC step would zero it."""
+    scan = np.asarray(DS.TABLES["scan_16x16"], np.int64)
+    sign = np.where(np.arange(256) % 2, -1.0, 1.0)
+    half = ((np.arange(256) % 128 + 0.5) * 3.0 * sign).astype(np.float32)
+    half = np.stack([half, np.nextafter(half, np.float32(0)),
+                     np.nextafter(half, np.float32(np.inf) * sign
+                                  .astype(np.float32))])
+    big = np.array([16383 * 4, 16383.5 * 4, 16384 * 4, 65535.9, 1e6, 1e30,
+                    3.4e38, 2047.9375], np.float32)
+    clip = np.resize(np.concatenate([big, -big]), 256).astype(np.float32)
+    neg0 = np.stack([np.full(256, -0.0, np.float32),
+                     np.resize(np.array([-0.0, 0.0, -1e-30, 1e-30, -0.49,
+                                         0.49], np.float32), 256)])
+    last = np.zeros(256, np.float32)
+    last[scan[255]] = -50.0
+    dc = np.zeros(256, np.float32)
+    dc[0] = 3.0
+
+    def f32(*x):
+        return np.asarray(x, np.float32)
+
+    cases = {"half": (half, f32(3, 4, 6), f32(3, 4, 6), 0),
+             "clip": (clip[None], f32(4, 1), f32(4, 1), 3),
+             "-0.0": (neg0, f32(4), f32(4), 0),
+             "zero": (np.zeros((1, 256), np.float32), f32(4, 8), f32(4, 8), 0),
+             "last scan": (last[None], f32(4, 8), f32(4, 8), 0),
+             "dc only": (dc[None], f32(2, 4), f32(100, 4), 0)}
+    return {name: (np.ascontiguousarray(c.reshape(-1, 16, 16)), d, a, sh)
+            for name, (c, d, a, sh) in cases.items()}
+
+
+def quant_agree(cf: torch.Tensor, dqd: torch.Tensor, dqa: torch.Tensor,
+                label: str, shift: int = 0) -> tuple:
+    """``quant16``, ``quant16_simple`` and ``quant16_plain`` on the same
+    inputs: levels and eob must be equal, bit for bit; returns the
+    kernel's (levels, eob)."""
+    lv, eob = DS.quant16(cf, dqd, dqa, shift)
+    slv, seob = DS.quant16_simple(cf, dqd, dqa, shift)
+    plv, peob = DS.quant16_plain(cf, dqd, dqa, shift)
+    if not (torch.equal(lv, plv) and torch.equal(eob, peob)):
+        raise AssertionError(f"K3b {label}: dstage_quant16 != plain")
+    if not (torch.equal(lv, slv) and torch.equal(eob, seob)):
+        raise AssertionError(f"K3b {label}: dstage_quant16 != "
+                             "dstage_quant16_simple")
+    return lv, eob
+
+
+def quant_edges() -> None:
+    """K3b on its crafted edges (``quant_cases``), at k = 1, 2, 3 and 5
+    quantizers, and at n = 1, QUANT_WARPS - 1 and QUANT_WARPS + 1 blocks
+    (a CTA's last warps masked); a levels view off 16-byte alignment must
+    raise."""
+    for name, (c, d, a, shift) in quant_cases().items():
+        lv, eob = quant_agree(torch.from_numpy(c).to(DEVICE),
+                              torch.from_numpy(d).to(DEVICE),
+                              torch.from_numpy(a).to(DEVICE), name, shift)
+        print(f"  K3b crafted {name!r}: {c.shape[0]} blocks x {d.size} "
+              f"quantizers equal; eob {eob.tolist()}", flush=True)
+    rng = np.random.default_rng(8)
+    cf = torch.from_numpy(rng.normal(0, 300, (QUANT_WARPS + 1, 16, 16))
+                          .astype(np.float32)).to(DEVICE)
+    for k in (1, 2, 3, 5):
+        dqd, dqa = level_dq((30, 60, 90, 120, 200)[:k])
+        for n in (1, QUANT_WARPS - 1, QUANT_WARPS + 1):
+            quant_agree(cf[:n].contiguous(), dqd, dqa, f"k={k} n={n}")
+    print(f"  K3b equal at k = 1, 2, 3, 5 and n = 1, {QUANT_WARPS - 1}, "
+          f"{QUANT_WARPS + 1}", flush=True)
+    dqd, dqa = level_dq((30,))
+    raw = torch.empty(cf.shape[0] * 256 + 1, dtype=torch.int16,
+                      device=DEVICE)
+    eob = torch.empty((1, cf.shape[0]), dtype=torch.int32, device=DEVICE)
+    off = raw[1:].view(1, cf.shape[0], 256)  # 2 bytes off
+    try:
+        DS.quant16(cf, dqd, dqa, out=(off, eob))
+    except ValueError:
+        print("  K3b refuses levels off 16-byte alignment", flush=True)
+    else:
+        raise AssertionError("K3b took levels off 16-byte alignment")
+
+
+def quant_spills() -> list:
+    """quant16_kernel's ptxas lines from this process's build; raises if
+    ptxas spilled."""
+    lines = ptxas_of("quant16_kernel")
+    for ln in lines:
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+        if found and (int(found.group(1)) or int(found.group(2))):
+            raise AssertionError(f"quant16_kernel spills: {ln}")
+    print("  quant16_kernel ptxas: " + ("; ".join(lines) if lines else
+                                        "not in this process's build (the "
+                                        "library was up to date)"),
+          flush=True)
+    return lines
+
+
+def fetch_times(buf: torch.Tensor, reps: int = 5) -> dict:
+    """Host wall ms of one device-to-host copy of ``buf``, pageable
+    (``.cpu()``) and page-locked (``DS.fetch``, the levels' route), each
+    timed alone after a synchronise, in turns (pageable, pinned, pinned,
+    pageable): the mean of each."""
+    routes = {"pageable": lambda: buf.cpu(), "pinned": lambda: DS.fetch(buf)}
+    got = {key: [] for key in routes}
+    for key in routes:  # warm up both allocators and copy paths
+        routes[key]()
+    for key in ("pageable", "pinned", "pinned", "pageable"):
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            routes[key]()
+            got[key].append((time.perf_counter() - t0) * 1e3)
+    return {f"{key}_ms": sum(v) / len(v) for key, v in got.items()}
+
+
 def phase_levels_kernels(images: dict, frame4k: np.ndarray) -> dict:
-    """K3a and K3b against their plain versions on the card, on the six
-    classes' and the 3840x2160 frame's 10-bit planes, each with its plan's
-    modes at qindex 28 and with seeded random modes; times at 3840x2160."""
+    """K3a and K3b against their plain versions and their yardsticks on the
+    card, on the six classes' and the 3840x2160 frame's 10-bit planes,
+    each with its plan's modes at qindex 28 and with seeded random modes,
+    and K3b on its crafted edges; times at 3840x2160, the levels' fetch
+    both ways."""
     rng = np.random.default_rng(3)
     worst = {"dstage_coeffs16": 0.0, "dstage_quant16": 0}
     dqd, dqa = level_dq(LEVEL_QS)
@@ -1227,8 +1409,6 @@ def phase_levels_kernels(images: dict, frame4k: np.ndarray) -> dict:
             cf = DS.coeffs16(y, nby, nbx, m, 10)
             simple = DS.coeffs16_simple(y, nby, nbx, m, 10)
             want = DS.coeffs16_plain(y, nby, nbx, m, 10)
-            lv, eob = DS.quant16(cf, dqd, dqa)
-            plv, peob = DS.quant16_plain(cf, dqd, dqa)
             torch.cuda.synchronize()
             excess = coeff_excess(cf, want)
             err = max_abs(cf, want)
@@ -1239,34 +1419,28 @@ def phase_levels_kernels(images: dict, frame4k: np.ndarray) -> dict:
             if not torch.equal(cf.view(torch.int32), simple.view(torch.int32)):
                 raise AssertionError(f"K3a {name} {kind}: dstage_coeffs16 != "
                                      "dstage_coeffs16_simple")
-            if not (torch.equal(lv, plv) and torch.equal(eob, peob)):
-                raise AssertionError(f"K3b {name} {kind}: kernel != plain "
-                                     f"at qindex {LEVEL_QS}")
+            lv, eob = quant_agree(cf, dqd, dqa, f"{name} {kind} at qindex "
+                                  f"{LEVEL_QS}")
             for k in range(len(LEVEL_QS)):
-                one = DS.quant16(cf, dqd[k : k + 1], dqa[k : k + 1])
-                pone = DS.quant16_plain(cf, dqd[k : k + 1], dqa[k : k + 1])
+                one = quant_agree(cf, dqd[k : k + 1], dqa[k : k + 1],
+                                  f"{name} {kind} at qindex {LEVEL_QS[k]}")
                 if not (torch.equal(one[0][0], lv[k])
-                        and torch.equal(one[1][0], eob[k])
-                        and torch.equal(pone[0], one[0])):
+                        and torch.equal(one[1][0], eob[k])):
                     raise AssertionError(f"K3b {name} {kind}: single q "
                                          f"{LEVEL_QS[k]} != its batch slice")
             print(f"  {name} {rgb.shape[1]}x{rgb.shape[0]} {kind} modes: "
                   f"{nby * nbx} blocks ({int(mask.sum())} consumable), "
                   f"max |c| {float(want.abs().max()):.1f}, K3a == yardstick "
-                  f"bit for bit, max |kernel - plain| {err:.3g}; K3b equal at "
-                  f"qindex {LEVEL_QS} and "
-                  f"singly, nonzero levels {int((lv != 0).sum())}",
-                  flush=True)
+                  f"bit for bit, max |kernel - plain| {err:.3g}; K3b == "
+                  f"yardstick == plain at qindex {LEVEL_QS} and singly, "
+                  f"nonzero levels {int((lv != 0).sum())}", flush=True)
+    quant_edges()
+    quant_spills()
     # times at 3840x2160 (fp, y and plan_modes are the frame's last case)
     modes = torch.from_numpy(plan_modes).to(DEVICE)
     cf = DS.coeffs16(y, nby, nbx, modes, 10)
     n = nby * nbx
     reps = 20
-
-    def pair(kernel, plain):
-        p0, k0 = cuda_ms(plain, reps), cuda_ms(kernel, reps)
-        k1, p1 = cuda_ms(kernel, reps), cuda_ms(plain, reps)
-        return (k0 + k1) / 2, (p0 + p1) / 2
 
     times = {}
     # plain, kernel, yardstick, yardstick, kernel, plain
@@ -1287,18 +1461,28 @@ def phase_levels_kernels(images: dict, frame4k: np.ndarray) -> dict:
         **bound(nbytes(y, modes, cf), n * 2 * 16 ** 3 * 2),
         **split_times(lambda: DS.coeffs16(y, nby, nbx, modes, 10),
                       KERNEL_MATCH["dstage_coeffs16"])}
-    for k in (3, 1):
+    for k in (1, 2, 3):
         d1, d2 = dqd[:k], dqa[:k]
-        kms, pms = pair(lambda: DS.quant16(cf, d1, d2),
-                        lambda: DS.quant16_plain(cf, d1, d2))
-        lv, eob = DS.quant16(cf, d1, d2)
+        kernel = functools.partial(DS.quant16, cf, d1, d2)
+        simple = functools.partial(DS.quant16_simple, cf, d1, d2)
+        plain = functools.partial(DS.quant16_plain, cf, d1, d2)
+        # plain, kernel, yardstick, yardstick, kernel, plain
+        p0, k0 = cuda_ms(plain, reps), cuda_ms(kernel, reps)
+        sms = [cuda_ms(simple, reps) for _ in range(2)]
+        k1, p1 = cuda_ms(kernel, reps), cuda_ms(plain, reps)
+        lv, eob = kernel()
         # |c| * up, / dq, + 0.5, floor, sign, clip (2) per coefficient
-        times[f"dstage_quant16 k={k}"] = {
-            "ms": kms, "plain_ms": pms, "library_ms": None,
-            **bound(nbytes(cf, d1, d2, lv, eob) + DS.iscan16().nbytes,
-                    7 * n * 256 * k),
-            **split_times(lambda: DS.quant16(cf, d1, d2),
-                          KERNEL_MATCH["dstage_quant16"])}
+        t = {"ms": (k0 + k1) / 2, "plain_ms": (p0 + p1) / 2,
+             "simple_ms": sum(sms) / 2,
+             "simple_device_ms": sum(device_ms_by_kernel(
+                 simple, reps, "quant16_simple_kernel").values()),
+             "library_ms": None,
+             **bound(nbytes(cf, d1, d2, lv, eob) + DS.iscan16().nbytes,
+                     7 * n * 256 * k),
+             **split_times(kernel, KERNEL_MATCH["dstage_quant16"])}
+        t["share"] = t["bound_ms"] / t["device_ms"]
+        t["simple_share"] = t["bound_ms"] / t["simple_device_ms"]
+        times[f"dstage_quant16 k={k}"] = t
     times["dstage_quant16"] = times["dstage_quant16 k=1"]
     dl = DS.DeviceLevels(fp, 10)
     dl.levels(plan_modes, [28])
@@ -1307,16 +1491,25 @@ def phase_levels_kernels(images: dict, frame4k: np.ndarray) -> dict:
         dl.levels(plan_modes, [28])
         fetch.append(dl.last_fetch_s * 1e3)
     times["fetch_ms"] = sum(fetch) / len(fetch)
+    buf = DS.level_buffers(1, n, DEVICE)[0]
+    buf.random_(0, 256)
+    routes = fetch_times(buf)
     for key, t in times.items():
         if key in ("fetch_ms", "dstage_quant16"):
             continue
+        share = (f", share of the bound {t['share']:.1%} (yardstick "
+                 f"{t['simple_share']:.1%})" if "share" in t else "")
         print(f"  3840x2160 {key}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms{simple_text(t)}, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}); {split_line(t)}",
-              flush=True)
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}){share}; "
+              f"{split_line(t)}", flush=True)
     print(f"  3840x2160 DeviceLevels.levels fetch of {n * (256 * 2 + 4)} "
           f"bytes (k=1): {times['fetch_ms']:.4f} ms host wall, mean of 5 "
-          f"({', '.join(f'{x:.4f}' for x in fetch)})", flush=True)
+          f"({', '.join(f'{x:.4f}' for x in fetch)}); the same bytes "
+          f"pageable {routes['pageable_ms']:.4f} ms, pinned "
+          f"{routes['pinned_ms']:.4f} ms (means of 10, in turns)",
+          flush=True)
+    times["fetch_routes"] = routes
     return {"worst": worst, "times": times}
 
 
@@ -1860,8 +2053,11 @@ def main() -> int:
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"],
                      "device_ms": t["device_ms"], "host_us": t["host_us"],
-                     **{k: t[k] for k in ("simple_ms", "host_us_before",
-                                          "checks_us") if k in t}})
+                     **{k: t[k] for k in ("simple_ms", "simple_device_ms",
+                                          "host_us_before", "checks_us")
+                        if k in t}})
+        if name in YARDSTICK_OF:
+            rows[-1]["yardstick"] = YARDSTICK_OF[name]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

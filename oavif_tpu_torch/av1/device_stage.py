@@ -14,9 +14,11 @@ conformant whatever the levels.
 The kernels are hand-written CUDA (``csrc/device_stage.cu``):
 ``coeffs16`` (K3a) and ``quant16`` (K3b) launch them on a CUDA tensor and
 run their plain PyTorch versions ``coeffs16_plain`` and ``quant16_plain``
-on a CPU tensor; any other device raises. ``coeffs16_simple`` launches
-the first K3a kernel, kept as the yardstick that ``coeffs16`` equals bit
-for bit; no path calls it.
+on a CPU tensor; any other device raises. ``coeffs16_simple`` and
+``quant16_simple`` launch the first K3a and K3b kernels, kept as the
+yardsticks that ``coeffs16`` and ``quant16`` equal bit for bit; no path
+calls them. The levels reach the host in one copy into page-locked
+memory (``fetch``).
 """
 
 from __future__ import annotations
@@ -199,25 +201,25 @@ def quant16_plain(coeffs: torch.Tensor, dq_dc: torch.Tensor,
     return out
 
 
-def quant16(coeffs: torch.Tensor, dq_dc: torch.Tensor, dq_ac: torch.Tensor,
-            shift: int = 0, out=None) -> tuple:
-    """quant16_plain's result; on a CUDA tensor from kernel K3b
-    (``dstage_quant16``, counted in ``quant16.launches``), on a CPU tensor
-    from the plain version. Any other device raises."""
-    if coeffs.device.type == "cpu":
-        return quant16_plain(coeffs, dq_dc, dq_ac, shift, out)
+def _launch_quant(wrapper, entry: str, coeffs: torch.Tensor,
+                  dq_dc: torch.Tensor, dq_ac: torch.Tensor, shift: int,
+                  out) -> tuple:
+    """Check CUDA coefficients, quantizers and outputs, and launch
+    ``entry``. The coefficients and the levels must be 16-byte aligned
+    (the kernel moves them in 16-byte words); nothing falls back."""
+    name = wrapper.__name__
     if coeffs.device.type != "cuda":
-        raise ValueError(f"quant16: unsupported device {coeffs.device}")
+        raise ValueError(f"{name}: unsupported device {coeffs.device}")
     if (coeffs.dtype != torch.float32 or coeffs.dim() != 3
             or tuple(coeffs.shape[1:]) != (16, 16)
             or not coeffs.is_contiguous()):
-        raise ValueError("quant16: coefficients must be a contiguous "
+        raise ValueError(f"{name}: coefficients must be a contiguous "
                          "(n, 16, 16) float32 tensor")
     n, k = coeffs.shape[0], dq_ac.numel()
     dqd = dq_dc.to(device=coeffs.device, dtype=torch.float32).contiguous()
     dqa = dq_ac.to(device=coeffs.device, dtype=torch.float32).contiguous()
     if n <= 0 or k <= 0 or dqd.numel() != k:
-        raise ValueError(f"quant16: {n} blocks, {dqd.numel()} DC and {k} AC "
+        raise ValueError(f"{name}: {n} blocks, {dqd.numel()} DC and {k} AC "
                          "quantizers")
     if out is None:
         _, lv, eob = level_buffers(k, n, coeffs.device)
@@ -226,16 +228,63 @@ def quant16(coeffs: torch.Tensor, dq_dc: torch.Tensor, dq_ac: torch.Tensor,
         if (lv.shape != (k, n, 256) or lv.dtype != torch.int16
                 or eob.shape != (k, n) or eob.dtype != torch.int32
                 or not (lv.is_contiguous() and eob.is_contiguous())):
-            raise ValueError("quant16: out must be contiguous (k, n, 256) "
+            raise ValueError(f"{name}: out must be contiguous (k, n, 256) "
                              "int16 and (k, n) int32 tensors")
+    if coeffs.data_ptr() % 16 or lv.data_ptr() % 16:
+        raise ValueError(f"{name}: coefficients and levels must be 16-byte "
+                         "aligned")
     iscan = _device_consts(coeffs.device)[2]
-    launch(quant16, "dstage_quant16", coeffs, coeffs.data_ptr(), n, k,
-           dqd.data_ptr(), dqa.data_ptr(), float(1 << shift),
-           iscan.data_ptr(), lv.data_ptr(), eob.data_ptr())
+    launch(wrapper, entry, coeffs, coeffs.data_ptr(), n, k, dqd.data_ptr(),
+           dqa.data_ptr(), float(1 << shift), iscan.data_ptr(),
+           lv.data_ptr(), eob.data_ptr())
     return lv, eob
 
 
+def quant16(coeffs: torch.Tensor, dq_dc: torch.Tensor, dq_ac: torch.Tensor,
+            shift: int = 0, out=None) -> tuple:
+    """quant16_plain's result; on a CUDA tensor from kernel K3b
+    (``dstage_quant16``, one warp per block, the coefficients read once for
+    all k quantizers; counted in ``quant16.launches``), on a CPU tensor
+    from the plain version. Any other device, or coefficients or levels
+    off 16-byte alignment, raises ValueError."""
+    if coeffs.device.type == "cpu":
+        return quant16_plain(coeffs, dq_dc, dq_ac, shift, out)
+    return _launch_quant(quant16, "dstage_quant16", coeffs, dq_dc, dq_ac,
+                         shift, out)
+
+
 quant16.launches = 0
+
+
+def quant16_simple(coeffs: torch.Tensor, dq_dc: torch.Tensor,
+                   dq_ac: torch.Tensor, shift: int = 0, out=None) -> tuple:
+    """``quant16`` through the first K3b kernel
+    (``dstage_quant16_simple``, one thread per coefficient and quantizer),
+    which the source keeps as the yardstick: both kernels round every
+    level through the same operations, so they give the same bits. No path
+    calls it; the card tests and ``chip_smoke.py`` hold ``quant16`` to it
+    and time the two in one call. Counted in
+    ``quant16_simple.launches``."""
+    if coeffs.device.type == "cpu":
+        return quant16_plain(coeffs, dq_dc, dq_ac, shift, out)
+    return _launch_quant(quant16_simple, "dstage_quant16_simple", coeffs,
+                         dq_dc, dq_ac, shift, out)
+
+
+quant16_simple.launches = 0
+
+
+def fetch(buf: torch.Tensor) -> np.ndarray:
+    """A 1-D uint8 buffer as a numpy array that owns its memory. From the
+    card it is copied into a page-locked host tensor of PyTorch's caching
+    host allocator (the array keeps that tensor alive, so a later fetch
+    never reuses its block); a CPU buffer is returned as it is (the CPU
+    build of torch cannot pin)."""
+    if buf.device.type == "cpu":
+        return buf.numpy()
+    host = torch.empty(buf.numel(), dtype=torch.uint8, pin_memory=True)
+    host.copy_(buf)
+    return host.numpy()
 
 
 class DeviceLevels:
@@ -273,7 +322,8 @@ class DeviceLevels:
         """modes16: (4*sby, 4*sbx) mode indices 0..6 of the planner's
         16-blocks; qindexes: iterable of qindex ints. Returns (levels
         (k, n, 256) int16 natural order, eob (k, n) int32) as numpy, from
-        one host fetch."""
+        one host fetch into page-locked memory (``fetch``); each result
+        owns its memory, so a later probe leaves it unchanged."""
         self._ensure_coeffs(np.ascontiguousarray(modes16, np.int32))
         qs = list(qindexes)
         dev = self._coeffs.device
@@ -287,7 +337,7 @@ class DeviceLevels:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # time the copy alone
         t0 = time.perf_counter()
-        host = buf.cpu().numpy()
+        host = fetch(buf)
         self.last_fetch_s = time.perf_counter() - t0
         nlv = k * n * 256 * 2
         return (host[:nlv].view(np.int16).reshape(k, n, 256),
@@ -304,10 +354,10 @@ def device_levels_enabled(n_blocks: int = 1024) -> bool:
     reference: the C coder does not consume device levels, and the
     byte-identical C/Python invariant holds only when both coders choose
     the same levels); ``1``: on; anything else (``auto``): once per
-    process, on when one timed fetch of a (n_blocks, 256) int16 tensor
-    from the port's device takes under 15 ms, the reference's threshold
-    (the host transform and quantization it replaces take ~45 ms a
-    frame)."""
+    process, on when one timed ``fetch`` (the levels' own route) of
+    n_blocks' levels from the port's device takes under 15 ms, the
+    reference's threshold (the host transform and quantization it replaces
+    take ~45 ms a frame)."""
     global _CALIB
     env = os.environ.get("OAVIF_DEVICE_LEVELS", "0")
     if env == "1":
@@ -315,11 +365,13 @@ def device_levels_enabled(n_blocks: int = 1024) -> bool:
     if env == "0":
         return False
     if _CALIB is None:
-        x = torch.zeros((n_blocks, 256), dtype=torch.int16,
+        x = torch.zeros(n_blocks * 256 * 2, dtype=torch.uint8,
                         device=resolve_device())
-        (x + 1).cpu()  # warm up the allocator and the copy path
+        fetch(x + 1)  # warm up the allocators and the copy path
         y = x + 1
+        if y.device.type == "cuda":
+            torch.cuda.synchronize(y.device)  # time the copy alone
         t0 = time.perf_counter()
-        y.cpu()
+        fetch(y)
         _CALIB = time.perf_counter() - t0 < 0.015
     return _CALIB

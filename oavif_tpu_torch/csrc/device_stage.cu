@@ -28,24 +28,41 @@
 // yardstick: every output keeps its two FMA chains, k order and operands,
 // so the two give the same bits.
 //
-// K3b, dstage_quant16, replaces device_stage.py _quant_body (vmapped over
-// the quantizers, jit :102): grid (blocks, quantizers), one thread per
-// coefficient. The level is floor(|c| * up / dq + 0.5) with every
-// operation rounded as in the plain version (__fmul_rn, __fdiv_rn,
-// __fadd_rn: no contraction, IEEE division), then the sign and the clip
-// to +-16383. eob is the largest scan position + 1 over the nonzero
-// levels: a warp-shuffle max and one shared-memory step, no atomics. The
-// reference's 256x256 permutation matmul (a TPU workaround for gathers)
-// becomes a read of the inverse scan table.
+// K3b, dstage_quant16, replaces device_stage.py _quant_body (:83,
+// vmapped over the quantizers, jit :102): the level is floor(|c| * up /
+// dq + 0.5) with every operation rounded as in the plain version
+// (__fmul_rn, __fdiv_rn, __fadd_rn: no contraction, IEEE division, no
+// reciprocal), then the sign and the clip to +-16383; eob is the largest
+// scan position + 1 over the nonzero levels. The reference's 256x256
+// permutation matmul (a TPU workaround for gathers) becomes a read of the
+// inverse scan table.
+//
+// quant16_kernel gives each 16-block one warp, four blocks a CTA (four
+// rather than eight so that a 512x512 frame's 1,024 blocks still make 256
+// CTAs for the 132 SMs). Lane l owns natural indices 8l..8l+7: two
+// 16-byte loads of coefficients and two of their scan positions (the
+// table stays in L1; in the constant bank the lanes' different addresses
+// would serialise), issued before any store, so the warp reads its block
+// in one coalesced 1 KB sweep and the coefficients are read ONCE however
+// many quantizers there are. Per quantizer the lane quantizes its 8
+// values in registers, stores them as one 16-byte word, and the block's
+// eob is a 5-step warp-shuffle max of the lanes' maxima: no shared
+// memory, no barrier. The first K3b kernel, quant16_simple_kernel (grid
+// (blocks, quantizers), one thread per coefficient, the coefficients read
+// again for every quantizer, eob through shared memory), is kept as the
+// yardstick; both call quant_level, so they give the same bits.
 //
 // What bounds them on the H100: at 3840x2160 (31,680 blocks) K3a reads
 // 16.2 MB of int16 plane and writes 32.4 MB of float32 coefficients
-// against 0.26 G FMAs, and K3b reads 32.4 MB and writes 16.2 MB of levels
-// per quantizer: both are bound by HBM bytes (~15 us each at 3.35 TB/s).
-// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, kernel alone by
-// torch.profiler): coeffs16_kernel 0.036 ms, coeffs16_simple_kernel 0.089
-// ms; quant16_kernel 0.038 ms at one quantizer, 0.109 at three (it reads
-// the coefficients again for each).
+// against 0.26 G FMAs, and K3b reads the 32.4 MB of coefficients once and
+// writes 16.2 MB of levels per quantizer: both are bound by HBM bytes
+// (K3a 0.0146 ms at 3.35 TB/s; K3b 0.0146 ms at one quantizer, 0.0243 at
+// three). Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, kernel
+// alone by torch.profiler): coeffs16_kernel 0.036 ms,
+// coeffs16_simple_kernel 0.089 ms; quant16_kernel 0.0186 ms at one
+// quantizer, 0.0256 at two, 0.0328 at three (78%, 76% and 74% of the
+// bound; 48 registers, no spills), against quant16_simple_kernel's
+// 0.0377, 0.0733 and 0.1088 ms in the same run.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -Xcompiler -fPIC (oavif_tpu_torch/kernels/build.py).
@@ -251,24 +268,35 @@ coeffs16_kernel(const int16_t* __restrict__ plane, int ld, int nbx,
   }
 }
 
+// One coefficient's level: floor(|c| * up / dq + 0.5) with every operation
+// rounded as in the plain version (no contraction, IEEE division), then the
+// sign and the clip to +-16383.
+__device__ __forceinline__ int quant_level(float c, float up, float dq) {
+  const float mag =
+      floorf(__fadd_rn(__fdiv_rn(__fmul_rn(fabsf(c), up), dq), 0.5f));
+  const float v = fminf(fmaxf(c < 0.0f ? -mag : mag,
+                              static_cast<float>(-kLevelMax)),
+                        static_cast<float>(kLevelMax));
+  return static_cast<int>(v);
+}
+
+// The first K3b kernel, kept as the yardstick that quant16_kernel must
+// equal bit for bit: grid (blocks, quantizers), one thread per coefficient,
+// the coefficients read again for every quantizer, eob through one
+// shared-memory step behind a barrier.
 __global__ void __launch_bounds__(kThreads)
-quant16_kernel(const float* __restrict__ coeffs, int n,
-               const float* __restrict__ dq_dc,
-               const float* __restrict__ dq_ac, float up,
-               const int32_t* __restrict__ iscan,
-               int16_t* __restrict__ levels, int32_t* __restrict__ eob) {
+quant16_simple_kernel(const float* __restrict__ coeffs, int n,
+                      const float* __restrict__ dq_dc,
+                      const float* __restrict__ dq_ac, float up,
+                      const int32_t* __restrict__ iscan,
+                      int16_t* __restrict__ levels,
+                      int32_t* __restrict__ eob) {
   __shared__ int red[kWarps];
   const int blk = blockIdx.x, q = blockIdx.y, tid = threadIdx.x;
   const long long row = static_cast<long long>(q) * n + blk;
 
   const float cf = coeffs[static_cast<long long>(blk) * kThreads + tid];
-  const float dq = tid == 0 ? dq_dc[q] : dq_ac[q];
-  const float mag =
-      floorf(__fadd_rn(__fdiv_rn(__fmul_rn(fabsf(cf), up), dq), 0.5f));
-  const float v = fminf(fmaxf(cf < 0.0f ? -mag : mag,
-                              static_cast<float>(-kLevelMax)),
-                        static_cast<float>(kLevelMax));
-  const int lv = static_cast<int>(v);
+  const int lv = quant_level(cf, up, tid == 0 ? dq_dc[q] : dq_ac[q]);
   levels[row * kThreads + tid] = static_cast<int16_t>(lv);
 
   int e = lv != 0 ? iscan[tid] + 1 : 0;
@@ -282,6 +310,56 @@ quant16_kernel(const float* __restrict__ coeffs, int n,
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) m = max(m, red[w]);
     eob[row] = m;
+  }
+}
+
+constexpr int kQuantWarps = 4;  // 16-blocks (warps) per quant16_kernel CTA
+constexpr int kLanePer = 256 / 32;  // coefficients per lane
+
+// One warp per 16-block, kQuantWarps blocks a CTA. Lane l owns natural
+// indices 8l..8l+7: two 16-byte coefficient loads and two of their scan
+// positions, all issued before the first store. Then for each quantizer
+// its 8 levels go out as one 16-byte store, and eob is a 5-step shuffle
+// max of the lanes' own maxima: no shared memory, no barrier, and the
+// coefficients are read once whatever k is.
+__global__ void __launch_bounds__(kQuantWarps * 32)
+quant16_kernel(const float* __restrict__ coeffs, int n, int k,
+               const float* __restrict__ dq_dc,
+               const float* __restrict__ dq_ac, float up,
+               const int32_t* __restrict__ iscan,
+               int16_t* __restrict__ levels, int32_t* __restrict__ eob) {
+  const int lane = threadIdx.x & 31;
+  const int blk = blockIdx.x * kQuantWarps + (threadIdx.x >> 5);
+  if (blk >= n) return;  // the whole warp: its shuffles stay full
+  const float4* src = reinterpret_cast<const float4*>(
+      coeffs + static_cast<long long>(blk) * 256) + 2 * lane;
+  const int4* pos = reinterpret_cast<const int4*>(iscan) + 2 * lane;
+  const float4 c0 = __ldg(src), c1 = __ldg(src + 1);
+  const int4 p0 = __ldg(pos), p1 = __ldg(pos + 1);
+  const float c[kLanePer] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  const int sp[kLanePer] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+
+  for (int q = 0; q < k; ++q) {
+    const float dqa = __ldg(dq_ac + q);
+    const float dq0 = lane == 0 ? __ldg(dq_dc + q) : dqa;  // index 0: DC
+    int lv[kLanePer];
+    int e = 0;
+#pragma unroll
+    for (int i = 0; i < kLanePer; ++i) {
+      lv[i] = quant_level(c[i], up, i == 0 ? dq0 : dqa);
+      e = lv[i] != 0 ? max(e, sp[i] + 1) : e;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      e = max(e, __shfl_xor_sync(0xffffffffu, e, off));
+    const long long row = static_cast<long long>(q) * n + blk;
+    uint4 packed;
+    packed.x = (lv[0] & 0xffff) | (static_cast<unsigned>(lv[1]) << 16);
+    packed.y = (lv[2] & 0xffff) | (static_cast<unsigned>(lv[3]) << 16);
+    packed.z = (lv[4] & 0xffff) | (static_cast<unsigned>(lv[5]) << 16);
+    packed.w = (lv[6] & 0xffff) | (static_cast<unsigned>(lv[7]) << 16);
+    reinterpret_cast<uint4*>(levels + row * 256)[lane] = packed;
+    if (lane == 0) eob[row] = e;
   }
 }
 
@@ -323,17 +401,33 @@ extern "C" int dstage_coeffs16_simple(const int16_t* plane, int ld, int nby,
   return static_cast<int>(cudaGetLastError());
 }
 
-// coeffs: (n, 16, 16) float32. dq_dc, dq_ac: (k,) float32. up: 2^shift.
-// iscan: (256,) int32 scan position of each natural index. levels:
-// (k, n, 256) int16, natural order. eob: (k, n) int32. Launches on
-// `stream` and returns cudaGetLastError().
+// coeffs: (n, 16, 16) float32, 16-byte aligned. dq_dc, dq_ac: (k,)
+// float32. up: 2^shift. iscan: (256,) int32 scan position of each natural
+// index, 16-byte aligned. levels: (k, n, 256) int16, natural order,
+// 16-byte aligned. eob: (k, n) int32. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int dstage_quant16(const float* coeffs, int n, int k,
                               const float* dq_dc, const float* dq_ac,
                               float up, const int32_t* iscan,
                               int16_t* levels, int32_t* eob,
                               cudaStream_t stream) {
+  if (n <= 0 || k <= 0) return cudaErrorInvalidValue;
+  const unsigned grid = (static_cast<unsigned>(n) + kQuantWarps - 1) /
+                        kQuantWarps;
+  quant16_kernel<<<grid, kQuantWarps * 32, 0, stream>>>(
+      coeffs, n, k, dq_dc, dq_ac, up, iscan, levels, eob);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The yardstick kernel: the arguments of dstage_quant16, without its
+// alignment needs. On no path.
+extern "C" int dstage_quant16_simple(const float* coeffs, int n, int k,
+                                     const float* dq_dc, const float* dq_ac,
+                                     float up, const int32_t* iscan,
+                                     int16_t* levels, int32_t* eob,
+                                     cudaStream_t stream) {
   if (n <= 0 || k <= 0 || k > 65535) return cudaErrorInvalidValue;
-  quant16_kernel<<<dim3(n, k), kThreads, 0, stream>>>(
+  quant16_simple_kernel<<<dim3(n, k), kThreads, 0, stream>>>(
       coeffs, n, dq_dc, dq_ac, up, iscan, levels, eob);
   return static_cast<int>(cudaGetLastError());
 }

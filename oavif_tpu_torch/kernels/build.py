@@ -49,6 +49,7 @@ entries = {
     "dstage_coeffs16": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "dstage_coeffs16_simple": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "dstage_quant16": [_P, _I, _I, _P, _P, _F, _P, _P, _P, _P],
+    "dstage_quant16_simple": [_P, _I, _I, _P, _P, _F, _P, _P, _P, _P],
     "wiener_bands": [_P, _P, _I, _I, _I, _P, _P, _P],
     "wiener_bands_simple": [_P, _P, _I, _I, _I, _P, _P, _P],
 }

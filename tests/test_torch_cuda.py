@@ -1,8 +1,8 @@
 """The planner (the fused plan and the first SSD kernel), metric,
 encode-stage, recursive-blur and Wiener kernels on an NVIDIA GPU: build,
 launch, and equality with their plain PyTorch versions; the blur, the
-encode-stage coefficients and the Wiener filter against the first kernel
-of each (kept as yardsticks), bit for bit; the halo blur against the
+encode-stage coefficients and quantization and the Wiener filter against
+the first kernel of each (kept as yardsticks), bit for bit; the halo blur against the
 single-device blur's columns, and the width-sharded metric on two ranks
 sharing the card. Skipped without CUDA.
 
@@ -22,6 +22,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from chip_smoke import QUANT_WARPS, quant_cases  # noqa: E402
 from oavif_tpu_torch.av1 import device_stage as DS  # noqa: E402
 from oavif_tpu_torch.av1 import encode_tpu as ET  # noqa: E402
 from oavif_tpu_torch.device import resolve_device  # noqa: E402
@@ -389,25 +390,84 @@ def test_coeffs16_kernel_equals_simple_kernel(cuda, bitdepth, nby, nbx):
             assert _coeff_excess(got, plain) <= 0
 
 
+def _quant_all(cf, dqd, dqa, shift=0):
+    """quant16, quant16_simple and quant16_plain, each launch counted."""
+    launches = (DS.quant16.launches, DS.quant16_simple.launches)
+    got = DS.quant16(cf, dqd, dqa, shift)
+    simple = DS.quant16_simple(cf, dqd, dqa, shift)
+    assert (DS.quant16.launches, DS.quant16_simple.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    plain = DS.quant16_plain(cf, dqd, dqa, shift)
+    torch.cuda.synchronize()
+    for a, b in ((got, plain), (got, simple)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    return got
+
+
+def _level_dq(qs, cuda):
+    return (torch.tensor([float(DS.dc_q(q, 10)) for q in qs], device=cuda),
+            torch.tensor([float(DS.ac_q(q, 10)) for q in qs], device=cuda))
+
+
 def test_quant16_kernel_equals_plain(cuda):
     y = _planes(cuda, 10, seed=3)[0]
     modes = torch.from_numpy(np.random.default_rng(3).integers(
         0, 7, (20, 28)).astype(np.int32)).to(cuda)
     cf = DS.coeffs16(y, 20, 28, modes, 10)
-    qs = [30, 60, 90]
-    dqd = torch.tensor([float(DS.dc_q(q, 10)) for q in qs], device=cuda)
-    dqa = torch.tensor([float(DS.ac_q(q, 10)) for q in qs], device=cuda)
-    launches = DS.quant16.launches
-    lv, eob = DS.quant16(cf, dqd, dqa)
-    assert DS.quant16.launches == launches + 1
-    plv, peob = DS.quant16_plain(cf, dqd, dqa)
-    torch.cuda.synchronize()
-    assert torch.equal(lv, plv) and torch.equal(eob, peob)
+    dqd, dqa = _level_dq([30, 60, 90], cuda)
+    lv, eob = _quant_all(cf, dqd, dqa)
     assert int((lv != 0).sum()) > 0
     for k in range(3):
-        one = DS.quant16(cf, dqd[k : k + 1], dqa[k : k + 1])
+        one = _quant_all(cf, dqd[k : k + 1], dqa[k : k + 1])
         assert torch.equal(one[0][0], lv[k]) and torch.equal(one[1][0],
                                                              eob[k])
+
+
+@pytest.mark.parametrize("case", sorted(quant_cases()))
+def test_quant16_kernel_equals_plain_on_edge(cuda, case):
+    """The crafted edges (chip_smoke.quant_cases): exact halves, the clip,
+    negative zeros, eob 0, 256 and 1."""
+    c, dqd, dqa, shift = quant_cases()[case]
+    _quant_all(*(torch.from_numpy(x).to(cuda) for x in (c, dqd, dqa)),
+               shift)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5])
+@pytest.mark.parametrize("n", [1, QUANT_WARPS - 1, QUANT_WARPS + 1])
+def test_quant16_kernel_equals_plain_at_k_and_n(cuda, k, n):
+    """Any count of quantizers; a CTA's last warps masked."""
+    rng = np.random.default_rng(10 * k + n)
+    cf = torch.from_numpy(rng.normal(0, 300, (n, 16, 16)).astype(
+        np.float32)).to(cuda)
+    lv, _ = _quant_all(cf, *_level_dq((30, 60, 90, 120, 200)[:k], cuda))
+    assert lv.shape == (k, n, 256)
+
+
+def test_quant16_kernel_refuses_misaligned_levels(cuda):
+    cf = torch.zeros((5, 16, 16), device=cuda)
+    dqd, dqa = _level_dq([30], cuda)
+    raw = torch.empty(5 * 256 + 1, dtype=torch.int16, device=cuda)
+    eob = torch.empty((1, 5), dtype=torch.int32, device=cuda)
+    launches = DS.quant16.launches
+    with pytest.raises(ValueError, match="aligned"):
+        DS.quant16(cf, dqd, dqa, out=(raw[1:].view(1, 5, 256), eob))
+    flat = torch.empty(5 * 256 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        DS.quant16(flat[1:].view(5, 16, 16), dqd, dqa)
+    assert DS.quant16.launches == launches
+
+
+def test_device_levels_fetch_pinned_and_survive_the_next_probe(cuda):
+    rng = np.random.default_rng(6)
+    planes = [rng.integers(0, 1024, (256, 256)) for _ in range(3)]
+    dl = DS.DeviceLevels(ET.FramePlanner(planes, 10, device=cuda), 10)
+    modes = rng.integers(0, 7, (16, 16)).astype(np.int32)
+    lv, eob = dl.levels(modes, [40])
+    assert torch.from_numpy(lv).is_pinned()
+    kept = lv.copy(), eob.copy()
+    lv2, _ = dl.levels(modes, [200])
+    assert not np.array_equal(lv2, kept[0])
+    assert np.array_equal(lv, kept[0]) and np.array_equal(eob, kept[1])
 
 
 def test_device_levels_launch_the_kernels(cuda):
@@ -446,6 +506,8 @@ def test_encode_stage_kernels_reject_bad_input(cuda):
         DS.quant16(cf, dq[:1], dq)
     with pytest.raises(ValueError):
         DS.quant16(cf.transpose(1, 2), dq, dq)
+    with pytest.raises(ValueError):
+        DS.quant16_simple(cf.transpose(1, 2), dq, dq)
 
 
 # ---------------------------------------------------------------------------
