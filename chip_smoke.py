@@ -97,7 +97,31 @@ Phases, each of which raises on failure (exit code != 0):
    on the 3840x2160 frame as 4 tile columns (one rank each), whose
    seeded-plan encode must give the unsharded bytes with seeded plans
    consumed; and the sharded metric at 1 rank under NCCL;
-13. planner trace: device kernels per plan of the old path and of the
+13. main path, 8-bit PNG input: the six classes and the 3840x2160 frame
+   written as PNG with the package's writer (``scripts/corpus.py``) decode
+   to the source's pixels exactly, and the CLI (``-t 80`` on the classes,
+   ``-q 60`` on the frame) gives the q, passes and bytes of the same image
+   read from PAM in phase 5;
+14. main path, the corpus harness (``scripts/measure.py``) over the six
+   classes as PNG: sequential ``module:oavif_tpu_torch``, ``--window 6``
+   with every score on the device (``OAVIF_PIPELINE_METRIC=jax``), and two
+   ranks sharing the card (``parallel.spawn``, gloo) that take their shards
+   from the process group, then ``--merge``; every CSV's Final Bytes and
+   Passes must be the CLI's of phase 5, and whether they are PERF.md §5's
+   table is printed, with each mode's corpus wall and MP/s;
+15. the stage profile (``scripts/profile_stages.py``) of ``-t 80`` on the
+   six classes and the 3840x2160 frame, its text and JSON lines; q must be
+   the CLI's;
+16. decode: whether ``libavif.so.15`` loads; where it does, each class at
+   its ``-t 80`` q and the frame at q 60 decode through ``decode_to_yuv``
+   to exactly the recon's YUV and through ``CudaBackend.decode_to_rgb8``
+   to the recon within 1;
+17. ``OAVIF_TRACE``: the CLI ``-t 80`` on edges and mixed under it, each
+   run in a process of its own as a user runs it, must exit 0, print the
+   reference's line, write one Chrome trace holding the planner kernel's
+   device records (their count beside its launches) and give the
+   untraced bytes; walls with and without the trace;
+18. planner trace: device kernels per plan of the old path and of the
    fused kernel, and the fused kernel's own device time, from one
    ``torch.profiler`` trace per size (512x512 and 3840x2160), last.
 
@@ -120,8 +144,8 @@ device ms and host µs a call), its bound
 (bytes over the HBM rate or operations over the float32 rate, the larger;
 the planner's integer operations over the rates of the integer pipes) and one PyTorch
 call's time where one computes the same function; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX, nothing of the
-JAX package and no Pillow.
+``{"ok": true, "device": {...}}``. Prints its total time before them.
+Imports nothing of JAX, nothing of the JAX package and no Pillow.
 """
 
 from __future__ import annotations
@@ -157,8 +181,12 @@ from oavif_tpu_torch.av1.restoration import (_band_rows, _coeffs7,
 from oavif_tpu_torch.kernels import build, count_launch, kernel_key, launch
 from oavif_tpu_torch.metric import sharded as MS
 from oavif_tpu_torch.metric import ssimulacra2 as M
+from oavif_tpu_torch.scripts.corpus import (CLASSES, _img_edges,  # noqa: F401
+                                            _img_fractal, _img_mixed,
+                                            _img_oriented, _img_sinusoid,
+                                            _img_text, bench_images,
+                                            write_pam, write_png)
 
-CLASSES = ("sinusoid", "fractal", "edges", "oriented", "text", "mixed")
 # name -> (wrapper, source, the reference function it replaces)
 KERNELS = {
     "planner_plan": (ET.plan_device, "oavif_tpu_torch/csrc/planner.cu",
@@ -282,121 +310,6 @@ def bound(moved: float, ops: float, ops_s: float = F32_OPS_S,
     t_bytes, t_ops = moved / HBM_BYTES_S * 1e3, ops / ops_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else ops_by}
-
-
-def write_pam(path: str, rgb: np.ndarray) -> None:
-    """Write an (h, w, 3) uint8 image as a Netpbm PAM (P7) file."""
-    h, w = rgb.shape[:2]
-    with open(path, "wb") as f:
-        f.write(f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH 3\nMAXVAL 255\n"
-                f"TUPLTYPE RGB\nENDHDR\n".encode())
-        f.write(np.ascontiguousarray(rgb, dtype=np.uint8).tobytes())
-
-
-# The six bench classes: copies of bench.py's generators, with its seeds.
-
-
-def _img_sinusoid(h, w, seed=7):
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
-    img = np.stack(
-        [
-            128 + 100 * np.sin(xx / 17.0) * np.cos(yy / 23.0),
-            120 + 80 * np.cos(xx / 29.0) + 20 * np.sin(yy / 7.0),
-            100 + 90 * np.sin((xx + yy) / 31.0),
-        ],
-        -1,
-    )
-    img += rng.normal(0, 6, img.shape)
-    return np.clip(img, 0, 255).astype(np.uint8)
-
-
-def _img_fractal(h, w, seed=11):
-    """1/f ("pink") random field per channel — the spectral shape of
-    natural photographs."""
-    rng = np.random.default_rng(seed)
-    fy = np.fft.fftfreq(h)[:, None]
-    fx = np.fft.fftfreq(w)[None, :]
-    rad = np.sqrt(fy * fy + fx * fx)
-    rad[0, 0] = 1.0
-    chans = []
-    for c in range(3):
-        spec = (rng.normal(size=(h, w)) + 1j * rng.normal(size=(h, w))) / rad
-        f = np.real(np.fft.ifft2(spec))
-        f = (f - f.min()) / (f.max() - f.min())
-        chans.append(40 + 175 * f)
-    return np.clip(np.stack(chans, -1), 0, 255).astype(np.uint8)
-
-
-def _img_edges(h, w, seed=13):
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w]
-    g = np.where((xx // 37 + yy // 23) % 2 == 0, 205.0, 70.0)
-    g += np.where((xx + 2 * yy) % 97 < 8, 40.0, 0.0)
-    img = np.stack([g, 0.85 * g + 20, 255 - 0.7 * g], -1)
-    img += rng.normal(0, 3, img.shape)
-    return np.clip(img, 0, 255).astype(np.uint8)
-
-
-def _img_oriented(h, w, seed=17):
-    """Angled stripes with a slowly drifting orientation — the content
-    class directional intra and rect partitions exist for."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
-    ang = 0.55 + 0.25 * np.sin(yy / 140.0)
-    phase = xx * np.cos(ang) + yy * np.sin(ang)
-    g = 128 + 62 * np.sin(phase / 4.3) + 18 * np.sin(phase / 23.0)
-    img = np.stack([g, 0.88 * g + 14, 238 - 0.62 * g], -1)
-    img += rng.normal(0, 4, img.shape)
-    return np.clip(img, 0, 255).astype(np.uint8)
-
-
-def _img_text(h, w, seed=19):
-    """Text-like glyph strokes on a smooth gradient — screen content
-    (the palette/IDTX class)."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
-    g = 60 + 140 * (xx + yy) / (h + w)  # diagonal gradient background
-    glyph = np.zeros((h, w))
-    for row in range(8, h - 16, 22):
-        x = 10
-        while x < w - 20:
-            cw = int(rng.integers(4, 14))
-            if rng.random() < 0.75:
-                glyph[row : row + 12, x : x + 2] = 1  # vertical stroke
-                if rng.random() < 0.5:
-                    glyph[row : row + 2, x : x + cw] = 1  # top bar
-                if rng.random() < 0.5:
-                    glyph[row + 10 : row + 12, x : x + cw] = 1
-            x += cw + 4
-    g = np.where(glyph > 0, 16.0, g)
-    img = np.stack([g, g * 0.96 + 4, g * 1.02], -1)
-    return np.clip(img, 0, 255).astype(np.uint8)
-
-
-def _img_mixed(h, w, seed=23):
-    """Mixed-scale structure: large smooth areas with embedded
-    fine-detail patches — exercises partition adaptivity."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
-    g = 110 + 70 * np.sin(xx / 190.0) * np.cos(yy / 160.0)
-    for _ in range(10):
-        py, px = rng.integers(0, h - 72), rng.integers(0, w - 72)
-        ph, pw = rng.integers(28, 72), rng.integers(28, 72)
-        fy, fx = rng.uniform(2.5, 6.0), rng.uniform(2.5, 6.0)
-        sub = np.mgrid[0:ph, 0:pw]
-        g[py : py + ph, px : px + pw] = 128 + 58 * np.sin(
-            sub[1] / fx
-        ) * np.cos(sub[0] / fy)
-    img = np.stack([g, 0.9 * g + 12, 250 - 0.68 * g], -1)
-    img += rng.normal(0, 5, img.shape)
-    return np.clip(img, 0, 255).astype(np.uint8)
-
-
-def bench_images(size: int = 512) -> dict:
-    """The six bench classes at size x size."""
-    gens = globals()
-    return {name: gens[f"_img_{name}"](size, size) for name in CLASSES}
 
 
 def yuv_planes(rgb: np.ndarray, bitdepth: int):
@@ -609,7 +522,8 @@ def trace(fn, reps: int):
     """A ``torch.profiler`` trace of ``reps`` calls of fn(), taken after a
     warm-up step of as many calls that the profiler traces and discards:
     on the card a trace without one has lost the records of its first
-    milliseconds, once all of them."""
+    milliseconds, once all of them (``main`` also keeps CUPTI attached
+    between sessions, which ended such losses in a stress run)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -832,7 +746,7 @@ def run_cli(args, src: str, out: str, acc: dict) -> dict:
         raise AssertionError(f"{out} has no ftyp/avif header")
     found = re.search(r"Found q(\d+) \(score ([-\d.]+), (\d+) passes"
                       r"(?: in (\d+) rounds)?", log)
-    res = {"bytes": data, "wall": wall, "planner": acc["s"],
+    res = {"bytes": data, "wall": wall, "planner": acc["s"], "log": log,
            "planned": list(acc["planned"]),
            "decided": list(acc["decided"]),
            "launches": KERNELS["planner_plan"][0].launches - launches0,
@@ -847,10 +761,11 @@ def run_cli(args, src: str, out: str, acc: dict) -> dict:
 
 
 def phase_main_path(images: dict, acc: dict) -> tuple:
-    """The port's CLI on every image; returns the kernels' launch counts
-    and each image's ``-t 80`` quality."""
+    """The port's CLI on every image; returns the kernels' launch counts,
+    each image's ``-t 80`` quality and each run's result by (image,
+    args)."""
     reset_counts()
-    tq = {}
+    tq, found = {}, {}
     with tempfile.TemporaryDirectory() as td:
         for name, rgb in images.items():
             src = os.path.join(td, f"{name}.pam")
@@ -869,6 +784,7 @@ def phase_main_path(images: dict, acc: dict) -> tuple:
                 if runs[0]["bytes"] != runs[1]["bytes"]:
                     raise AssertionError(f"{name} {args}: repeat differs")
                 r = runs[0]
+                found[name, tuple(args)] = r
                 if args[0] == "-t":
                     tq[name] = r["q"]
                 line = (f"{name} {rgb.shape[1]}x{rgb.shape[0]} "
@@ -889,7 +805,7 @@ def phase_main_path(images: dict, acc: dict) -> tuple:
                             f"{name} {args}: CUDA and CPU paths differ")
                     line += "; == CPU path"
                 print(line, flush=True)
-    return read_counts(), tq
+    return read_counts(), tq, found
 
 
 def frame_4k(h: int = 2160, w: int = 3840) -> np.ndarray:
@@ -1948,10 +1864,306 @@ def phase_multi_device(frame4k: np.ndarray) -> dict:
             "halo_err": halo_err, "times": {"wiener_bands": times}}
 
 
+# The six classes' -t 80 results in PERF.md §5's table: (bytes, passes)
+PERF_TABLE = {"sinusoid": (137287, 2), "fractal": (121990, 2),
+              "edges": (53462, 1), "oriented": (17828, 2),
+              "text": (39333, 2), "mixed": (119424, 2)}
+
+
+def phase_png_input(images: dict, frame4k: np.ndarray, found: dict,
+                    png_dir: str, acc: dict) -> dict:
+    """The CLI on the six classes (``-t 80``) and the 3840x2160 frame
+    (``-q 60``) written as 8-bit PNG with the package's writer (the
+    classes into ``png_dir``, for the harness): the decoded pixels must
+    be the source's exactly, and q, passes and bytes those of the same
+    image read from PAM (``found``, phase 5 of this call). Returns the
+    kernels' launches."""
+    from oavif_tpu_torch.io.image import load_png
+
+    reset_counts()
+    with tempfile.TemporaryDirectory() as td:
+        for name, rgb in [*images.items(), ("photo4k", frame4k)]:
+            args = ("-q", "60") if name == "photo4k" else ("-t", "80")
+            png = os.path.join(png_dir if name in images else td,
+                               f"{name}.png")
+            write_png(png, rgb)
+            t0 = time.perf_counter()
+            img = load_png(png)
+            t_read = time.perf_counter() - t0
+            if img.channels != 3 or img.hbd or not np.array_equal(img.data,
+                                                                  rgb):
+                raise AssertionError(f"{name}.png: decoded pixels differ "
+                                     "from the source")
+            r = run_cli(list(args), png, os.path.join(td, "o.avif"), acc)
+            want = found[name, args]
+            got = (r["q"], r["passes"], r["bytes"])
+            if got != (want["q"], want["passes"], want["bytes"]):
+                raise AssertionError(
+                    f"{name} {' '.join(args)}: PNG gives q{r['q']} "
+                    f"{r['passes']} passes {len(r['bytes'])} bytes, PAM "
+                    f"q{want['q']} {want['passes']} passes "
+                    f"{len(want['bytes'])} bytes")
+            print(f"  {name} {rgb.shape[1]}x{rgb.shape[0]} PNG "
+                  f"({os.path.getsize(png)} bytes, read {t_read:.3f} s) "
+                  f"{' '.join(args)}: q{r['q']} passes {r['passes']} bytes "
+                  f"{len(r['bytes'])} == PAM; wall {r['wall']:.3f} s "
+                  f"(PAM {want['wall']:.3f} s)", flush=True)
+    return read_counts()
+
+
+def cli_process(args, src: str, out: str, trace_dir=None) -> dict:
+    """The port's CLI as a user runs it, in a process of its own (with
+    ``OAVIF_VERBOSE=1``, and ``OAVIF_TRACE=trace_dir`` when given, under
+    torch.profiler's default CUPTI settings): its stderr, the bytes, the
+    process's wall and the search's own ms (the pass timings' sum)."""
+    env = {k: v for k, v in os.environ.items() if k != "TEARDOWN_CUPTI"}
+    env["OAVIF_VERBOSE"] = "1"
+    if trace_dir is not None:
+        env["OAVIF_TRACE"] = trace_dir
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "oavif_tpu_torch.cli", *args, src, out],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {args} on {src} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-2000:]}")
+    timings = re.search(r"Pass timings \(ms\): \[([^\]]*)\]", proc.stderr)
+    with open(out, "rb") as f:
+        data = f.read()
+    return {"log": proc.stderr, "bytes": data, "wall": wall,
+            "search_ms": sum(float(t) for t in timings.group(1).split(","))}
+
+
+def phase_trace(images: dict, acc: dict) -> None:
+    """The CLI ``-t 80`` on edges (1 pass) and mixed (2 passes) under
+    ``OAVIF_TRACE``, each run in a process of its own as a user runs it:
+    exit 0, the reference's line, one Chrome trace in the directory, the
+    bytes of the same search run here, and the fused planner kernel's
+    device records in the trace, counted against that search's launches;
+    the process's wall and the search's ms with and without the trace. A
+    trace without the planner's records is taken again, up to three in
+    all, and each one's count is printed."""
+    for name in ("edges", "mixed"):
+        with tempfile.TemporaryDirectory() as td:
+            src = os.path.join(td, f"{name}.pam")
+            write_pam(src, images[name])
+            out = os.path.join(td, "o.avif")
+            here = run_cli(["-t", "80"], src, out, acc)
+            plain = cli_process(["-t", "80"], src, out)
+            for attempt in range(3):
+                trace_dir = os.path.join(td, f"trace{attempt}")
+                r = cli_process(["-t", "80"], src, out, trace_dir)
+                if f"Profiler trace written to {trace_dir}" not in r["log"]:
+                    raise AssertionError(f"trace {name}: no trace line")
+                if not r["bytes"] == plain["bytes"] == here["bytes"]:
+                    raise AssertionError(f"trace {name}: bytes moved")
+                files = [f for f in os.listdir(trace_dir)
+                         if f.endswith(".json")]
+                if len(files) != 1:
+                    raise AssertionError(f"trace {name}: files {files}")
+                path = os.path.join(trace_dir, files[0])
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+                kernels = [e for e in events if e.get("cat") == "kernel"]
+                plans = sum("plan_kernel" in e["name"] for e in kernels)
+                print(f"  trace {name} -t 80 (trace {attempt + 1}): "
+                      f"{here['passes']} passes, bytes {len(r['bytes'])} == "
+                      f"untraced; {os.path.getsize(path)} bytes of trace, "
+                      f"{len(events)} events, {len(kernels)} device kernel "
+                      f"records, planner_plan {plans} of its "
+                      f"{here['launches']} launches; process wall "
+                      f"{r['wall']:.3f} s traced, {plain['wall']:.3f} s "
+                      f"untraced; search {r['search_ms']:.1f} ms traced, "
+                      f"{plain['search_ms']:.1f} ms untraced", flush=True)
+                if plans:
+                    break
+            else:
+                raise AssertionError(f"trace {name}: no planner kernel "
+                                     "record in three traces")
+
+
+def phase_stages(images: dict, frame4k: np.ndarray, tq: dict) -> dict:
+    """The stage profile (``scripts/profile_stages.py``) of ``-t 80`` on
+    the six classes and the 3840x2160 frame: its text and JSON lines; q
+    must be the CLI's. Returns the kernels' launches."""
+    from oavif_tpu_torch.scripts import profile_stages
+
+    reset_counts()
+    rows = profile_stages.profile({**images, "photo4k": frame4k})
+    counts = read_counts()
+    profile_stages.report(rows)
+    for r in rows:
+        if r["q"] != tq[r["image"]]:
+            raise AssertionError(f"stages {r['image']}: q{r['q']}, the CLI "
+                                 f"q{tq[r['image']]}")
+    return counts
+
+
+def phase_measure(png_dir: str, found: dict, mpix: float) -> dict:
+    """The corpus harness over the six classes as PNG: sequential
+    ``module:oavif_tpu_torch``, ``--window 6`` with every score on the
+    device (``OAVIF_PIPELINE_METRIC=jax``), and two ranks sharing the card
+    through ``parallel.spawn`` with no ``--shard``, then ``--merge``. Each
+    CSV's Final Bytes and Passes must be the CLI's of this call; whether
+    they are PERF.md §5's table is printed; ``mpix`` is the corpus's
+    megapixels. Returns the launches."""
+    import csv
+
+    from oavif_tpu_torch.scripts import measure
+
+    want = {f"{n}.png": (len(found[n, ("-t", "80")]["bytes"]),
+                         found[n, ("-t", "80")]["passes"])
+            for n in PERF_TABLE}
+    total = dict.fromkeys(KERNELS, 0)
+
+    def quiet_main(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = measure.main(argv)
+        if rc != 0:
+            raise AssertionError(f"measure {argv}: exit {rc}")
+        return [ln for ln in buf.getvalue().splitlines()
+                if ln.startswith("Images:")]
+
+    with tempfile.TemporaryDirectory() as td:
+        module = "module:oavif_tpu_torch"
+        for mode in ("sequential", "window", "two ranks"):
+            out = os.path.join(td, f"{mode.replace(' ', '_')}.csv")
+            FR.reset_planners()
+            reset_counts()
+            t0 = time.perf_counter()
+            if mode == "sequential":
+                summary = quiet_main([png_dir, module, out])
+                counts = read_counts()
+            elif mode == "window":
+                os.environ["OAVIF_PIPELINE_METRIC"] = "jax"
+                try:
+                    summary = quiet_main([png_dir, module, out, "--window",
+                                          "6"])
+                finally:
+                    del os.environ["OAVIF_PIPELINE_METRIC"]
+                counts = read_counts()
+            else:
+                shards = [os.path.join(td, f"shard{k}.csv") for k in (0, 1)]
+                rcs, rcounts = parallel.spawn(
+                    measure.shard_rank, 2,
+                    args=([[png_dir, module, c] for c in shards],),
+                    device="cuda", timeout_s=300)
+                if rcs != [0, 0]:
+                    raise AssertionError(f"measure ranks: exit {rcs}")
+                counts = rank_counts(rcounts)
+                summary = quiet_main([".", "x", out, "--merge", *shards])
+            wall = time.perf_counter() - t0
+            with open(out) as f:
+                rows = list(csv.DictReader(f))
+            got = {r["Image"]: (int(r["Final Bytes"]), int(r["Passes"]))
+                   for r in rows if r["Status"] == "ok"}
+            if got != want:
+                raise AssertionError(f"measure {mode}: {got}, the CLI's "
+                                     f"{want}")
+            table = {f"{n}.png": v for n, v in PERF_TABLE.items()}
+            moved = sorted(k for k in got if got[k] != table[k])
+            if counts["planner_plan"] <= 0:
+                raise AssertionError(f"measure {mode}: no planner launch")
+            if mode == "window" and counts["ssim2_norms"] <= 0:
+                raise AssertionError("measure window: no metric launch")
+            total = add(total, counts)
+            extra = ""
+            if mode == "two ranks":
+                ranks_s = []
+                for c in shards:
+                    with open(c) as f:
+                        ranks_s.append(sum(float(r["Encoding Time (ms)"])
+                                           for r in csv.DictReader(f)) / 1e3)
+                extra = (f" (spawn and start-up included; the ranks' "
+                         f"encodes {ranks_s[0]:.3f} and {ranks_s[1]:.3f} s)")
+            print(f"  measure {mode}: corpus wall {wall:.3f} s{extra}, "
+                  f"{mpix / wall:.3f} MP/s; {summary[0] if summary else ''}; "
+                  f"bytes and passes == the CLI's; PERF.md §5's table: "
+                  + ("equal" if not moved else f"moved for {moved} (the "
+                     "CLI's of this call moved with them)")
+                  + f"; launches {counts}", flush=True)
+    return total
+
+
+def _recon_planes():
+    """Wrap the encoder's mux and recon conversion so that each encode's
+    (AVIF bytes, recon YUV planes) lands in the returned dict; returns
+    (dict, restore)."""
+    from oavif_tpu_torch.av1 import encode as EN
+
+    seen = {}
+    mux, to_rgb = EN.mux_avif, EN.yuv444_to_rgb
+
+    def mux_avif(*a, **k):
+        seen["last"] = mux(*a, **k)
+        return seen["last"]
+
+    def yuv444_to_rgb(planes, *a, **k):
+        seen[seen["last"]] = [np.array(p) for p in planes]
+        return to_rgb(planes, *a, **k)
+
+    EN.mux_avif, EN.yuv444_to_rgb = mux_avif, yuv444_to_rgb
+
+    def restore():
+        EN.mux_avif, EN.yuv444_to_rgb = mux, to_rgb
+
+    return seen, restore
+
+
+def phase_decode(images: dict, frame4k: np.ndarray, tq: dict) -> bool:
+    """Where libavif.so.15 loads: each class at its ``-t 80`` q and the
+    3840x2160 frame at q 60, encoded by ``CudaBackend``, decode through
+    ``decode_to_yuv`` to exactly the recon's YUV and through
+    ``CudaBackend.decode_to_rgb8`` to the recon within 1. Where it does
+    not, says so. Returns whether it loaded."""
+    from oavif_tpu_torch.backend.cuda import CudaBackend
+    from oavif_tpu_torch.io import avif_ctypes
+
+    try:
+        lib = avif_ctypes._load()
+    except OSError as e:
+        print(f"  decode: {e}; decode_to_rgb8 and decode_to_yuv cannot run "
+              "here (a host library this machine lacks, not a device path)",
+              flush=True)
+        return False
+    lib.avifVersion.restype = ctypes.c_char_p
+    print(f"  decode: libavif.so.15 loads, version "
+          f"{lib.avifVersion().decode()}", flush=True)
+    backend = CudaBackend()
+    seen, restore = _recon_planes()
+    try:
+        for name, rgb in [*images.items(), ("photo4k", frame4k)]:
+            ctx = make_ctx(rgb)
+            ctx.q = 60 if name == "photo4k" else tq[name]
+            data, recon = backend.encode_with_recon(ctx)
+            yuv, depth, _ = avif_ctypes.decode_to_yuv(data)
+            if not all(np.array_equal(d, p)
+                       for d, p in zip(yuv, seen[data])):
+                raise AssertionError(f"decode {name}: YUV != recon's")
+            dec = backend.decode_to_rgb8(data)
+            diff = np.abs(dec.astype(int) - recon.astype(int))
+            if diff.max() > 1:
+                raise AssertionError(f"decode {name}: RGB off the recon by "
+                                     f"{diff.max()}")
+            print(f"  decode {name} q{ctx.q}: {len(data)} bytes, {depth}-bit "
+                  f"YUV == recon's; RGB within {diff.max()} of the recon "
+                  f"({int((diff > 0).sum())} samples differ)", flush=True)
+    finally:
+        restore()
+    return True
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    # Keep CUPTI attached between torch.profiler sessions: after kineto's
+    # default teardown and re-initialisation, some later sessions of a
+    # process lose every device record on the card.
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     t_start = time.perf_counter()
     # cuDNN's TF32 off for the plain blur, as on the port's own paths
     resolve_device("cuda")
@@ -1986,7 +2198,8 @@ def main() -> int:
 
     acc = _timed_planner()
     t0 = time.perf_counter()
-    launches, tq = phase_main_path({**images, "photo4k": frame4k}, acc)
+    launches, tq, found = phase_main_path({**images, "photo4k": frame4k},
+                                          acc)
     print(f"phase main path (CLI): {time.perf_counter() - t0:.1f} s, "
           f"launches {launches}", flush=True)
     if launches["planner_plan"] <= 0:
@@ -2030,6 +2243,35 @@ def main() -> int:
     launches = add(launches, md["launches"])
     print(f"phase multi-device: {time.perf_counter() - t0:.1f} s, launches "
           f"{md['launches']}", flush=True)
+
+    with tempfile.TemporaryDirectory() as png_dir:
+        t0 = time.perf_counter()
+        counts = phase_png_input(images, frame4k, found, png_dir, acc)
+        launches = add(launches, counts)
+        print(f"phase PNG input: {time.perf_counter() - t0:.1f} s, launches "
+              f"{counts}", flush=True)
+        t0 = time.perf_counter()
+        mpix = sum(rgb.shape[0] * rgb.shape[1]
+                   for rgb in images.values()) / 1e6
+        counts = phase_measure(png_dir, found, mpix)
+        launches = add(launches, counts)
+        print(f"phase measure: {time.perf_counter() - t0:.1f} s, launches "
+              f"{counts}", flush=True)
+
+    t0 = time.perf_counter()
+    counts = phase_stages(images, frame4k, tq)
+    launches = add(launches, counts)
+    print(f"phase stages: {time.perf_counter() - t0:.1f} s, launches "
+          f"{counts}", flush=True)
+
+    t0 = time.perf_counter()
+    decoded = phase_decode(images, frame4k, tq)
+    print(f"phase decode: {time.perf_counter() - t0:.1f} s, libavif "
+          f"{'loads' if decoded else 'absent'}", flush=True)
+
+    t0 = time.perf_counter()
+    phase_trace(images, acc)
+    print(f"phase trace: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     phase_plan_trace(images, frame4k)

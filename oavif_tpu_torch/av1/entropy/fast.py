@@ -24,6 +24,7 @@ import numpy as np
 _SRC = Path(__file__).parent / "oav1ec.c"
 _SRC_TILE = Path(__file__).parent / "oav1tile.c"
 _SRC_SSIMU2 = Path(__file__).parent.parent.parent / "metric" / "ssimu2.c"
+_SRC_PNG = Path(__file__).parent / "png_unfilter.c"
 _BUILD_DIR = (Path(__file__).resolve().parent.parent.parent.parent
               / "build" / "oavif_tpu_torch")
 _SO = _BUILD_DIR / "liboavif_host.so"
@@ -37,7 +38,7 @@ def _build() -> Optional[C.CDLL]:
     if _build_failed:
         return None
     try:
-        srcs = [_SRC, _SRC_TILE, _SRC_SSIMU2]
+        srcs = [_SRC, _SRC_TILE, _SRC_SSIMU2, _SRC_PNG]
         hdrs = [_SRC.parent / "idct_ln_impl.h"]
         newest = max(s.stat().st_mtime for s in srcs + hdrs)
         if not _SO.exists() or _SO.stat().st_mtime < newest:
@@ -141,6 +142,10 @@ def _build() -> Optional[C.CDLL]:
             C.POINTER(C.c_uint16),
             C.POINTER(C.c_uint16), C.c_int, C.c_int,
             C.POINTER(C.c_int32),
+        ]
+        lib.png_unfilter.restype = C.c_int
+        lib.png_unfilter.argtypes = [
+            C.c_void_p, C.c_size_t, C.c_void_p, C.c_int, C.c_int, C.c_int,
         ]
         return lib
     except Exception:

@@ -5,12 +5,16 @@ the device, one planning step per probe over device-resident planes
 (``oavif_tpu_torch.av1.encode_tpu``); the entropy-serial work (exact
 prediction, transform and RDOQ under the plan, symbol coding,
 reconstruction, deblocking, CDEF, muxing) runs in the port's copy of the
-reference's C runtime on the host.
+reference's C runtime on the host. Decoding goes through the system's
+libavif.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from . import EncCtx
+from ..io.image import decode_avif_to_rgb8
 
 
 class CudaBackend:
@@ -28,3 +32,9 @@ class CudaBackend:
         from ..av1.encode import encode_avif_with_recon
 
         return encode_avif_with_recon(ctx)
+
+    def decode_to_rgb8(self, data: bytes) -> np.ndarray:
+        """Decode through libavif (``io.image.decode_avif_to_rgb8``): the
+        conformance decoder; the search scores the recon instead and never
+        round-trips bytes. Raises OSError where libavif is absent."""
+        return decode_avif_to_rgb8(data)

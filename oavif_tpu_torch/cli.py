@@ -36,6 +36,22 @@ def _print_version() -> None:
           f"[{device}]")
 
 
+def _start_trace(device, trace_dir: str):
+    """A started ``torch.profiler`` session of the host, and of the card's
+    kernels on CUDA, that writes a Chrome trace into ``trace_dir`` when
+    stopped."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(trace_dir))
+    prof.start()
+    return prof
+
+
 def run(argv: List[str]) -> int:
     _perr(f"\x1b[31moavif-tpu-torch\x1b[0m | {__version__}")
 
@@ -58,10 +74,7 @@ def run(argv: List[str]) -> int:
     if parsed.input_file is None or parsed.output_file is None:
         _perr("Error: missing input or output path")
         return 1
-    if os.environ.get("OAVIF_TRACE"):
-        _perr("Error: OAVIF_TRACE is not supported by oavif-tpu-torch yet")
-        return 1
-    resolve_device()  # no device, no encode: fail before any work
+    device = resolve_device()  # no device, no encode: fail before any work
 
     try:
         src = load_image(parsed.input_file)
@@ -98,7 +111,16 @@ def run(argv: List[str]) -> int:
         f"Searching [tgt {o.score_tgt:g}±{o.tolerance:.1f}, "
         f"speed {o.speed}, {out_depth}-bit]"
     )
-    result, data = search_encode(ctx, backend)
+    # OAVIF_TRACE=<dir> captures a torch.profiler trace of the search (the
+    # host, and the card's kernels on CUDA) as a Chrome trace in <dir>
+    trace_dir = os.environ.get("OAVIF_TRACE")
+    prof = _start_trace(device, trace_dir) if trace_dir else None
+    try:
+        result, data = search_encode(ctx, backend)
+    finally:
+        if prof is not None:
+            prof.stop()
+            _perr(f"Profiler trace written to {trace_dir}")
     if os.environ.get("OAVIF_VERBOSE") == "1":
         _perr(f"Pass timings (ms): {search_encode.last_timings}")
     rounds = ""

@@ -3,11 +3,13 @@
 Pillow's decoder only exposes RGB; for bit-exact conformance testing the
 encoder's reconstruction must compare against the decoder's YUV planes
 directly (the reference's recon==decode invariant, SURVEY.md §4a). System
-libavif 0.11.1 (dav1d/aom) provides that via avifDecoder.image->yuvPlanes.
+libavif 0.11.1 (dav1d/aom) provides that via avifDecoder.image->yuvPlanes,
+and the RGB that Pillow's decode gives through avifImageYUVToRGB.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes as C
 from typing import List, Tuple
 
@@ -19,7 +21,11 @@ _lib = None
 def _load():
     global _lib
     if _lib is None:
-        _lib = C.CDLL("libavif.so.15")
+        try:
+            _lib = C.CDLL("libavif.so.15")
+        except OSError as e:
+            raise OSError(f"AVIF decode needs libavif.so.15, which this "
+                          f"machine does not have ({e})") from None
     return _lib
 
 
@@ -27,14 +33,11 @@ class _avifROData(C.Structure):
     _fields_ = [("data", C.POINTER(C.c_uint8)), ("size", C.c_size_t)]
 
 
-def decode_to_yuv(avif_bytes: bytes, want_cicp: bool = False):
-    """Decode AVIF → ([y, u, v] int32 planes (444), bit_depth, range_flag)
-    — plus (color_primaries, transfer, matrix_coefficients) when
-    ``want_cicp`` (offsets located empirically against our own muxer's
-    CICP round-trip; guarded by the dimension check below).
-
-    Raises RuntimeError on decode failure (conformance failure signal).
-    """
+@contextlib.contextmanager
+def _decoded(avif_bytes: bytes):
+    """Decode the first image of an AVIF; yields (library, avifImage*),
+    valid until the block ends. Raises RuntimeError on decode failure
+    (conformance failure signal) or an unknown struct layout."""
     lib = _load()
     lib.avifDecoderCreate.restype = C.c_void_p
     dec = lib.avifDecoderCreate()
@@ -64,13 +67,27 @@ def decode_to_yuv(avif_bytes: bytes, want_cicp: bool = False):
             and u_chk[2] in (8, 10, 12)
         ):
             raise RuntimeError("avifImage layout mismatch")
+        yield lib, img_ptr
+    finally:
+        lib.avifDecoderDestroy(C.c_void_p(dec))
+
+
+def decode_to_yuv(avif_bytes: bytes, want_cicp: bool = False):
+    """Decode AVIF → ([y, u, v] int32 planes (444), bit_depth, range_flag)
+    — plus (color_primaries, transfer, matrix_coefficients) when
+    ``want_cicp`` (offsets located empirically against our own muxer's
+    CICP round-trip; guarded by the dimension check in ``_decoded``).
+
+    Raises RuntimeError on decode failure (conformance failure signal).
+    """
+    with _decoded(avif_bytes) as (_, img_ptr):
         # avifImage layout (libavif 0.11): width, height, depth (u32 x3),
         # yuvFormat, yuvRange, yuvChromaSamplePosition (enum=int x3),
         # yuvPlanes[3] (u8*), yuvRowBytes[3] (u32), imageOwnsYUVPlanes,
         # alphaPlane, ...
         u32 = C.cast(img_ptr, C.POINTER(C.c_uint32))
         width, height, depth = u32[0], u32[1], u32[2]
-        yuv_format, yuv_range = u32[3], u32[4]
+        yuv_range = u32[4]
         # offset of yuvPlanes: 6 x u32 = 24 bytes, padded to pointer align 8
         base = img_ptr + 24
         planes_ptr = C.cast(C.c_void_p(base), C.POINTER(C.c_void_p))
@@ -97,5 +114,48 @@ def decode_to_yuv(avif_bytes: bytes, want_cicp: bool = False):
             cicp = (int(u16[52]), int(u16[53]), int(u16[54]))
             return out, int(depth), int(yuv_range), cicp
         return out, int(depth), int(yuv_range)
-    finally:
-        lib.avifDecoderDestroy(C.c_void_p(dec))
+
+
+# avifRGBImage: width, height, depth, format, chromaUpsampling,
+# chromaDownsampling, avoidLibYUV, ignoreAlpha, alphaPremultiplied,
+# isFloat (u32 x10), [maxThreads (int), from libavif 1.0], pixels (u8*),
+# rowBytes (u32): byte offsets of pixels and rowBytes by major version
+_RGB_PIXELS_AT = {0: (40, 48), 1: (48, 56)}
+_AVIF_RGB_FORMAT_RGB = 0
+
+
+def decode_to_rgb8(avif_bytes: bytes) -> np.ndarray:
+    """Decode AVIF → (h, w, 3) uint8 RGB, alpha dropped, through
+    libavif's own ``avifImageYUVToRGB`` with ``avifRGBImage`` set up as
+    Pillow's AVIF plugin sets it (its defaults for the image, then depth
+    8, format RGB).
+
+    Raises RuntimeError on decode or conversion failure, or a libavif
+    whose struct layout is unknown; OSError where libavif is absent."""
+    with _decoded(avif_bytes) as (lib, img_ptr):
+        lib.avifVersion.restype = C.c_char_p
+        major = int(lib.avifVersion().split(b".")[0])
+        if major not in _RGB_PIXELS_AT:
+            raise RuntimeError(f"libavif {lib.avifVersion().decode()}: "
+                               "unknown avifRGBImage layout")
+        at_pixels, at_rowbytes = _RGB_PIXELS_AT[major]
+        lib.avifRGBImageSetDefaults.argtypes = [C.c_void_p, C.c_void_p]
+        lib.avifRGBImageSetDefaults.restype = None
+        lib.avifImageYUVToRGB.argtypes = [C.c_void_p, C.c_void_p]
+        lib.avifImageYUVToRGB.restype = C.c_int
+        rgb = (C.c_uint8 * 128)()  # larger than the struct in either layout
+        lib.avifRGBImageSetDefaults(C.addressof(rgb), img_ptr)
+        fields = np.frombuffer(rgb, dtype=np.uint32)
+        img = C.cast(C.c_void_p(img_ptr), C.POINTER(C.c_uint32))
+        width, height = int(fields[0]), int(fields[1])
+        if (width, height) != (img[0], img[1]):
+            raise RuntimeError("avifRGBImage layout mismatch")
+        out = np.empty((height, width, 3), dtype=np.uint8)
+        fields[2] = 8
+        fields[3] = _AVIF_RGB_FORMAT_RGB
+        C.c_void_p.from_buffer(rgb, at_pixels).value = out.ctypes.data
+        fields[at_rowbytes // 4] = 3 * width
+        res = lib.avifImageYUVToRGB(img_ptr, C.addressof(rgb))
+        if res != 0:
+            raise RuntimeError(f"avifImageYUVToRGB: {res}")
+        return out

@@ -6,15 +6,14 @@ PNG / PAM / JPEG / WebP / AVIF to an interleaved RGB(A)/gray image at 8 or
 16 bits with ICC passthrough, plus the to_rgb8 normalization used as the
 metric reference (io.zig:57-133).
 
-Implementation is NumPy + Pillow for the baseline formats (the reference
-likewise delegates to libspng/libjpeg-turbo/libwebp — format decode is host
-work, not TPU work), with a custom decoder for 16-bit PNG (Pillow has no
-RGB48 mode) and a custom P7 PAM parser (Pillow has none).
+PNG (``png8``, ``png16``) and PAM are decoded here with zlib and NumPy;
+JPEG, WebP and AVIF input go through Pillow (the reference likewise
+delegates to libjpeg-turbo/libwebp/libavif — format decode is host work,
+not device work).
 """
 
 from __future__ import annotations
 
-import io as _stdio
 from dataclasses import dataclass
 from typing import Optional
 
@@ -101,29 +100,23 @@ def load_jpeg(path: str) -> Image:
 def load_png(path: str) -> Image:
     """PNG decode mirroring the reference's format selection
     (io.zig:269-297): 16-bit → RGBA16; truecolor → RGB8; anything else
-    (gray, gray+alpha, palette, truecolor+alpha) → RGBA8."""
+    (gray, gray+alpha, palette, truecolor+alpha) → RGBA8. Decoded by the
+    port's own readers (``png16``, ``png8``), not Pillow."""
     with open(path, "rb") as f:
-        head = f.read(33)
+        data = f.read()
     # IHDR: bit depth at offset 24, color type at 25 (after 8-byte sig +
     # 4-len + 4-type + 13-byte IHDR payload starts at 16).
-    is_16bit = len(head) >= 26 and head[24] == 16
-
-    if is_16bit:
+    if len(data) >= 26 and data[24] == 16:
         from .png16 import decode_png16
 
-        arr, icc = decode_png16(path)  # (h, w, 4) uint16 RGBA
+        arr, icc = decode_png16(data)  # (h, w, 4) uint16 RGBA
         h, w = arr.shape[:2]
         return Image(width=w, height=h, channels=4, hbd=True, data=arr, icc=icc)
 
-    im = _pil_open(path)
-    icc = im.info.get("icc_profile")
-    if im.mode == "RGB":
-        arr = np.asarray(im)
-        ch = 3
-    else:
-        arr = np.asarray(im.convert("RGBA"))
-        ch = 4
-    h, w = arr.shape[:2]
+    from .png8 import decode_png8
+
+    arr, icc = decode_png8(data)
+    h, w, ch = arr.shape
     return Image(width=w, height=h, channels=ch, hbd=False, data=arr, icc=icc)
 
 
@@ -256,9 +249,9 @@ def load_avif(path: str) -> Image:
 
 def decode_avif_to_rgb8(avif_bytes: bytes) -> np.ndarray:
     """Decode an in-memory AVIF to (h, w, 3) uint8, alpha dropped — the
-    metric's decode window (io.zig:638-666, forced 8-bit, 3 channels)."""
-    from PIL import Image as PILImage
+    metric's decode window (io.zig:638-666, forced 8-bit, 3 channels) —
+    through libavif's own YUV to RGB conversion (``avif_ctypes``), as
+    Pillow's AVIF plugin converts. Raises OSError without libavif."""
+    from .avif_ctypes import decode_to_rgb8
 
-    im = PILImage.open(_stdio.BytesIO(avif_bytes))
-    im.load()
-    return np.asarray(im.convert("RGB"))
+    return decode_to_rgb8(avif_bytes)

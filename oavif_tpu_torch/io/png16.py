@@ -9,84 +9,20 @@ iCCP chunk (io.zig:261-267).
 from __future__ import annotations
 
 import struct
-import zlib
 from typing import Optional, Tuple
 
 import numpy as np
 
-_SIG = b"\x89PNG\r\n\x1a\n"
+from .png8 import chunks, icc_of, inflate, unfilter
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    if pb <= pc:
-        return b
-    return c
-
-
-def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo PNG scanline filters. Returns (height, stride) uint8."""
-    out = np.zeros((height, stride), dtype=np.uint8)
-    pos = 0
-    prev = np.zeros(stride, dtype=np.uint8)
-    for y in range(height):
-        ftype = raw[pos]
-        pos += 1
-        row = np.frombuffer(raw, dtype=np.uint8, count=stride, offset=pos).copy()
-        pos += stride
-        if ftype == 0:
-            pass
-        elif ftype == 2:  # up
-            row += prev
-        elif ftype == 1:  # sub
-            r = row.astype(np.int32)
-            for x in range(bpp, stride):
-                r[x] = (r[x] + r[x - bpp]) & 0xFF
-            row = r.astype(np.uint8)
-        elif ftype == 3:  # average
-            r = row.astype(np.int32)
-            p = prev.astype(np.int32)
-            for x in range(stride):
-                left = r[x - bpp] if x >= bpp else 0
-                r[x] = (r[x] + ((left + p[x]) >> 1)) & 0xFF
-            row = r.astype(np.uint8)
-        elif ftype == 4:  # paeth
-            r = row.astype(np.int32)
-            p = prev.astype(np.int32)
-            for x in range(stride):
-                left = r[x - bpp] if x >= bpp else 0
-                ul = p[x - bpp] if x >= bpp else 0
-                r[x] = (r[x] + _paeth(left, int(p[x]), ul)) & 0xFF
-            row = r.astype(np.uint8)
-        else:
-            raise ValueError(f"bad PNG filter type {ftype}")
-        out[y] = row
-        prev = row
-    return out
-
-
-def decode_png16(path: str) -> Tuple[np.ndarray, Optional[bytes]]:
+def decode_png16(data: bytes) -> Tuple[np.ndarray, Optional[bytes]]:
     """Decode a 16-bit PNG to ((h, w, 4) uint16 RGBA, icc_or_None)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if not data.startswith(_SIG):
-        raise ValueError("not a PNG")
-
-    pos = len(_SIG)
     width = height = 0
     color_type = -1
-    interlace = 0
     idat = bytearray()
     icc: Optional[bytes] = None
-
-    while pos + 8 <= len(data):
-        (length,) = struct.unpack(">I", data[pos : pos + 4])
-        ctype = data[pos + 4 : pos + 8]
-        payload = data[pos + 8 : pos + 8 + length]
-        pos += 12 + length
+    for ctype, payload in chunks(data):
         if ctype == b"IHDR":
             width, height = struct.unpack(">II", payload[:8])
             bit_depth = payload[8]
@@ -97,22 +33,18 @@ def decode_png16(path: str) -> Tuple[np.ndarray, Optional[bytes]]:
             if interlace != 0:
                 raise ValueError("interlaced 16-bit PNG not supported")
         elif ctype == b"iCCP":
-            nul = payload.find(b"\x00")
-            if nul >= 0 and len(payload) > nul + 2:
-                icc = zlib.decompress(payload[nul + 2 :])
+            icc = icc_of(payload)
         elif ctype == b"IDAT":
             idat.extend(payload)
-        elif ctype == b"IEND":
-            break
 
     nch = {0: 1, 2: 3, 4: 2, 6: 4}.get(color_type)
     if nch is None:
         raise ValueError(f"unsupported 16-bit PNG color type {color_type}")
 
-    raw = zlib.decompress(bytes(idat))
+    raw = inflate(bytes(idat))
     bpp = nch * 2
     stride = width * bpp
-    rows = _unfilter(raw, height, stride, bpp)
+    rows = unfilter(raw, height, stride, bpp)
     # PNG 16-bit samples are big-endian.
     arr = rows.reshape(height, width, nch, 2)
     vals = (arr[..., 0].astype(np.uint16) << 8) | arr[..., 1].astype(np.uint16)

@@ -30,12 +30,17 @@ from .search import (
 
 def make_probe(ctx: EncCtx, backend, metric):
     """One search pass: encode at q, score the encoder's reconstruction
-    (== the decoder's output), cache the bitstream."""
+    (== the decoder's output) or, for a backend without one, the decoded
+    bytes; cache the bitstream."""
 
     def probe(q: int) -> float:
         t0 = time.time()
         ctx.q = q
-        data, decoded = backend.encode_with_recon(ctx)
+        if hasattr(backend, "encode_with_recon"):
+            data, decoded = backend.encode_with_recon(ctx)
+        else:
+            data = backend.encode(ctx)
+            decoded = backend.decode_to_rgb8(data)
         ctx.num_pass += 1
         ctx.buf = EncBuffer(q=q, data=data, size=len(data))
         probe.cache[q] = data

@@ -663,3 +663,84 @@ def test_sharded_checks_on_the_card(cuda):
         for wrapper in (M.ssim2_pyramid, M.ssim2_blur):
             key = kernel_key(wrapper)
             assert r["launches"][key] < c[key]
+
+
+def _cli(args, src, out):
+    import contextlib
+    import io
+
+    from oavif_tpu_torch import cli
+    from oavif_tpu_torch.av1 import frame
+
+    frame.reset_planners()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.run(args + [str(src), str(out)])
+    assert rc == 0, err.getvalue()
+    return err.getvalue(), out.read_bytes()
+
+
+@pytest.mark.parametrize("name", ["sinusoid", "mixed"])
+def test_png_input_gives_the_pam_bytes_on_the_card(cuda, tmp_path, name):
+    from oavif_tpu_torch.scripts.corpus import (bench_images, write_pam,
+                                                write_png)
+
+    rgb = bench_images(256, (name,))[name]
+    write_pam(str(tmp_path / "a.pam"), rgb)
+    write_png(str(tmp_path / "a.png"), rgb)
+    pam_log, pam = _cli(["-t", "80"], tmp_path / "a.pam", tmp_path / "1.avif")
+    png_log, png = _cli(["-t", "80"], tmp_path / "a.png", tmp_path / "2.avif")
+    assert png == pam
+    assert pam_log.splitlines()[-2:] == png_log.splitlines()[-2:]
+
+
+def test_trace_holds_the_planner_kernel_on_the_card(cuda, tmp_path,
+                                                    monkeypatch):
+    """``OAVIF_TRACE`` on CUDA: the search's Chrome trace holds the fused
+    planner kernel's records on the device, and the bytes do not move."""
+    import json
+
+    from oavif_tpu_torch.scripts.corpus import bench_images, write_pam
+
+    write_pam(str(tmp_path / "a.pam"),
+              bench_images(512, ("mixed",))["mixed"])
+    _, plain = _cli(["-t", "80"], tmp_path / "a.pam", tmp_path / "1.avif")
+    monkeypatch.setenv("OAVIF_TRACE", str(tmp_path / "trace"))
+    log, traced = _cli(["-t", "80"], tmp_path / "a.pam", tmp_path / "2.avif")
+    assert f"Profiler trace written to {tmp_path / 'trace'}" in log
+    assert traced == plain
+    (path,) = (tmp_path / "trace").glob("*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert any("plan_kernel" in e["name"] for e in kernels), (
+        sorted({e["name"] for e in kernels})[:20])
+
+
+def test_harness_two_ranks_on_the_card(cuda, tmp_path):
+    """The corpus harness on two ranks sharing the card (gloo), each
+    taking its shard from the process group; the planner kernel launches
+    in the ranks."""
+    import csv
+
+    from oavif_tpu_torch import parallel
+    from oavif_tpu_torch.kernels import kernel_key
+    from oavif_tpu_torch.scripts import measure
+    from oavif_tpu_torch.scripts.corpus import bench_images, write_png
+
+    corpus = tmp_path / "corpus"
+    corpus.mkdir()
+    for name, rgb in bench_images(256, ("edges", "text", "mixed")).items():
+        write_png(str(corpus / f"{name}.png"), rgb)
+    csvs = [tmp_path / f"shard{k}.csv" for k in (0, 1)]
+    argv = [[str(corpus), "module:oavif_tpu_torch", str(c)] for c in csvs]
+    rcs, counts = parallel.spawn(measure.shard_rank, 2, args=(argv,),
+                                 device="cuda", timeout_s=300)
+    assert rcs == [0, 0]
+    names = []
+    for c in csvs:
+        with open(c) as f:
+            rows = list(csv.DictReader(f))
+        assert all(r["Status"] == "ok" for r in rows), rows
+        names.append([r["Image"] for r in rows])
+    assert names == [["edges.png", "text.png"], ["mixed.png"]]
+    assert all(c[kernel_key(ET.plan_device)] > 0 for c in counts)

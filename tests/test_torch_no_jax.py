@@ -9,8 +9,9 @@ search with the device metric (``OAVIF_METRIC=jax``), the corpus pipeline
 with every score on the device metric (``OAVIF_PIPELINE_METRIC=jax``),
 the device encode stage through the Python tile coder (``-q 89`` with
 ``OAVIF_PY_TILE=1 OAVIF_DEVICE_LEVELS=1``), a score through the recursive
-blur (``OAVIF_METRIC_BLUR=iir``) and a width-sharded score on two spawned
-ranks. The script runs from a file, so the ranks (spawned processes
+blur (``OAVIF_METRIC_BLUR=iir``), a width-sharded score on two spawned
+ranks, the CLI on the same image as an 8-bit PNG, and the corpus harness
+on two PNGs. The script runs from a file, so the ranks (spawned processes
 re-import it) refuse the same modules. Nothing may import a refused
 module. A static check refuses the same imports in the sources.
 """
@@ -44,6 +45,7 @@ sys.meta_path.insert(0, Refuse())
 
 
 def main():
+    import csv
     import os
 
     import chip_smoke  # noqa: F401  (module-level code only)
@@ -90,6 +92,16 @@ def main():
     os.environ["OAVIF_METRIC_BLUR"] = "iir"
     iir = ssimulacra2.compute_ssimulacra2(ref, dist)
     assert iir != fir and abs(iir - fir) < 5.0, (iir, fir)
+    del os.environ["OAVIF_METRIC_BLUR"]
+    png, corpus, csv_path = sys.argv[3], sys.argv[4], sys.argv[5]
+    assert cli.run(["-q", "60", png, out]) == 0
+    from oavif_tpu_torch.scripts import measure
+
+    assert measure.main([corpus, "module:oavif_tpu_torch -q 60",
+                         csv_path]) == 0
+    with open(csv_path) as f:
+        rows = list(csv.DictReader(f))
+    assert [r["Status"] for r in rows] == ["ok", "ok"], rows
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not loaded, loaded
     print("NO_JAX_OK")
@@ -102,7 +114,7 @@ if __name__ == "__main__":
 
 def test_port_cli_runs_without_jax_or_pillow(tmp_path):
     sys.path.insert(0, str(REPO))
-    from chip_smoke import write_pam
+    from chip_smoke import write_pam, write_png
 
     rng = np.random.default_rng(4)
     yy, xx = np.mgrid[0:256, 0:256]
@@ -110,11 +122,19 @@ def test_port_cli_runs_without_jax_or_pillow(tmp_path):
            + rng.normal(0, 4, (256, 256, 3)))
     src = tmp_path / "in.pam"
     write_pam(src, np.clip(img, 0, 255).astype(np.uint8))
+    png = tmp_path / "in.png"
+    write_png(png, np.clip(img, 0, 255).astype(np.uint8))
+    corpus = tmp_path / "corpus"
+    corpus.mkdir()
+    for i in range(2):
+        write_png(corpus / f"img{i}.png",
+                  rng.integers(0, 256, (64, 64, 3), dtype=np.uint8))
     script = tmp_path / "run_without_jax.py"
     script.write_text(_SCRIPT)
     env = dict(os.environ, OAVIF_TORCH_DEVICE="cpu", PYTHONPATH=str(REPO))
     proc = subprocess.run(
-        [sys.executable, str(script), str(src), str(tmp_path / "o.avif")],
+        [sys.executable, str(script), str(src), str(tmp_path / "o.avif"),
+         str(png), str(corpus), str(tmp_path / "corpus.csv")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
