@@ -109,19 +109,27 @@ Phases, each of which raises on failure (exit code != 0):
    from the process group, then ``--merge``; every CSV's Final Bytes and
    Passes must be the CLI's of phase 5, and whether they are PERF.md §5's
    table is printed, with each mode's corpus wall and MP/s;
-15. the stage profile (``scripts/profile_stages.py``) of ``-t 80`` on the
+15. main path, JPEG input: every fixture of ``tests/torch_fixtures/jpeg``
+   (baseline, progressive, restart markers, 4:4:4 to 4:1:1, gray, CMYK,
+   YCCK, multi-chunk ICC) decodes with the port's own C to its manifest's
+   shape and CRC32s (libjpeg-turbo's pixels, through Pillow when the
+   fixtures were made), each read timed (median of 5); the CLI (``-t 80``
+   on the six class JPEGs, ``-q 60`` on the 3840x2160 one) gives the q,
+   passes and bytes of the decoded pixels written as PAM, and the harness,
+   sequential over the six class JPEGs, the CLI's bytes and passes;
+16. the stage profile (``scripts/profile_stages.py``) of ``-t 80`` on the
    six classes and the 3840x2160 frame, its text and JSON lines; q must be
    the CLI's;
-16. decode: whether ``libavif.so.15`` loads; where it does, each class at
+17. decode: whether ``libavif.so.15`` loads; where it does, each class at
    its ``-t 80`` q and the frame at q 60 decode through ``decode_to_yuv``
    to exactly the recon's YUV and through ``CudaBackend.decode_to_rgb8``
    to the recon within 1;
-17. ``OAVIF_TRACE``: the CLI ``-t 80`` on edges and mixed under it, each
+18. ``OAVIF_TRACE``: the CLI ``-t 80`` on edges and mixed under it, each
    run in a process of its own as a user runs it, must exit 0, print the
    reference's line, write one Chrome trace holding the planner kernel's
    device records (their count beside its launches) and give the
    untraced bytes; walls with and without the trace;
-18. planner trace: device kernels per plan of the old path and of the
+19. planner trace: device kernels per plan of the old path and of the
    fused kernel, and the fused kernel's own device time, from one
    ``torch.profiler`` trace per size (512x512 and 3840x2160), last.
 
@@ -1911,6 +1919,103 @@ def phase_png_input(images: dict, frame4k: np.ndarray, found: dict,
     return read_counts()
 
 
+JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "torch_fixtures", "jpeg")
+
+
+def phase_jpeg_input(images: dict, acc: dict) -> dict:
+    """The port's JPEG reader and the CLI on JPEG input. Every fixture of
+    ``tests/torch_fixtures/jpeg`` must decode to its manifest's shape and
+    CRC32s (libjpeg-turbo's pixels, as Pillow returned them when the
+    fixtures were made), each read timed (median of 5). Then the CLI
+    ``-t 80`` on the six class JPEGs and ``-q 60`` on the 3840x2160 one:
+    q, passes and bytes must be those of the CLI on the decoded pixels
+    written as PAM; and the corpus harness, sequential, over the six
+    class JPEGs: bytes and passes must be the CLI's. Returns the kernels'
+    launches."""
+    import csv
+
+    from oavif_tpu_torch.av1.entropy.fast import get_lib
+    from oavif_tpu_torch.io.image import load_jpeg
+    from oavif_tpu_torch.scripts import measure
+
+    with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    if get_lib() is None:  # the host library, built here if no run has
+        raise AssertionError("the host C library did not build")
+    print(f"  host library (JPEG decoder): {time.perf_counter() - t0:.3f} s "
+          "to build or load", flush=True)
+    reset_counts()
+    decoded = {}
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(JPEG_DIR, name)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            img = load_jpeg(path)
+            times.append(time.perf_counter() - t0)
+        icc = None if img.icc is None else zlib.crc32(img.icc)
+        got = (list(img.data.shape), img.channels,
+               zlib.crc32(img.data.tobytes()), icc)
+        want = (entry["shape"], entry["channels"], entry["crc32"],
+                entry["icc_crc32"])
+        if got != want:
+            raise AssertionError(f"{name}: decoded {got}, manifest {want}")
+        decoded[name] = img.data
+        print(f"  {name} {img.width}x{img.height}x{img.channels} "
+              f"({os.path.getsize(path)} bytes): == manifest CRC; read "
+              f"{np.median(times) * 1e3:.3f} ms (median of 5, "
+              f"{min(times) * 1e3:.3f}-{max(times) * 1e3:.3f})", flush=True)
+    found = {}
+    with tempfile.TemporaryDirectory() as td:
+        corpus = os.path.join(td, "corpus")
+        os.mkdir(corpus)
+        for name in [*images, "photo4k"]:
+            args = ["-q", "60"] if name == "photo4k" else ["-t", "80"]
+            src = os.path.join(JPEG_DIR, f"{name}.jpg")
+            if name in images:
+                with open(src, "rb") as f, \
+                        open(os.path.join(corpus, f"{name}.jpg"), "wb") as g:
+                    g.write(f.read())
+            r = run_cli(args, src, os.path.join(td, "o.avif"), acc)
+            pam = os.path.join(td, f"{name}.pam")
+            write_pam(pam, decoded[f"{name}.jpg"])
+            p = run_cli(args, pam, os.path.join(td, "o.avif"), acc)
+            got = (r["q"], r["passes"], r["bytes"])
+            if got != (p["q"], p["passes"], p["bytes"]):
+                raise AssertionError(
+                    f"{name}.jpg {' '.join(args)}: q{r['q']} {r['passes']} "
+                    f"passes {len(r['bytes'])} bytes, its pixels as PAM "
+                    f"q{p['q']} {p['passes']} passes {len(p['bytes'])} "
+                    "bytes")
+            found[f"{name}.jpg"] = (len(r["bytes"]), r["passes"])
+            print(f"  {name}.jpg {' '.join(args)}: q{r['q']} passes "
+                  f"{r['passes']} bytes {len(r['bytes'])} == PAM of its "
+                  f"pixels; wall {r['wall']:.3f} s (PAM {p['wall']:.3f} s)",
+                  flush=True)
+        out = os.path.join(td, "jpeg.csv")
+        FR.reset_planners()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = measure.main([corpus, "module:oavif_tpu_torch", out])
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"measure over the JPEGs: exit {rc}")
+        with open(out) as f:
+            rows = list(csv.DictReader(f))
+        got = {r["Image"]: (int(r["Final Bytes"]), int(r["Passes"]))
+               for r in rows if r["Status"] == "ok"}
+        want = {k: v for k, v in found.items() if k != "photo4k.jpg"}
+        if got != want:
+            raise AssertionError(f"measure over the JPEGs: {got}, the "
+                                 f"CLI's {want}")
+        print(f"  measure sequential over {len(got)} JPEGs: corpus wall "
+              f"{wall:.3f} s; bytes and passes == the CLI's", flush=True)
+    return read_counts()
+
+
 def cli_process(args, src: str, out: str, trace_dir=None) -> dict:
     """The port's CLI as a user runs it, in a process of its own (with
     ``OAVIF_VERBOSE=1``, and ``OAVIF_TRACE=trace_dir`` when given, under
@@ -2257,6 +2362,14 @@ def main() -> int:
         launches = add(launches, counts)
         print(f"phase measure: {time.perf_counter() - t0:.1f} s, launches "
               f"{counts}", flush=True)
+
+    t0 = time.perf_counter()
+    counts = phase_jpeg_input(images, acc)
+    launches = add(launches, counts)
+    print(f"phase JPEG input: {time.perf_counter() - t0:.1f} s, launches "
+          f"{counts}", flush=True)
+    if counts["planner_plan"] <= 0:
+        raise AssertionError("the JPEG path launched no planner kernel")
 
     t0 = time.perf_counter()
     counts = phase_stages(images, frame4k, tq)

@@ -6,10 +6,11 @@ PNG / PAM / JPEG / WebP / AVIF to an interleaved RGB(A)/gray image at 8 or
 16 bits with ICC passthrough, plus the to_rgb8 normalization used as the
 metric reference (io.zig:57-133).
 
-PNG (``png8``, ``png16``) and PAM are decoded here with zlib and NumPy;
-JPEG, WebP and AVIF input go through Pillow (the reference likewise
-delegates to libjpeg-turbo/libwebp/libavif — format decode is host work,
-not device work).
+PNG (``png8``, ``png16``), JPEG (``jpeg``) and PAM are decoded by the
+port's own readers, with zlib, NumPy and the host library's C; WebP and
+AVIF input go through Pillow (the reference likewise delegates to
+libjpeg-turbo/libwebp/libavif — format decode is host work, not device
+work).
 """
 
 from __future__ import annotations
@@ -84,16 +85,13 @@ def _pil_open(path: str):
 
 def load_jpeg(path: str) -> Image:
     """JPEG decode: grayscale stays 1-channel, everything else RGB
-    (io.zig:196-199); ICC passthrough (io.zig:186-194)."""
-    im = _pil_open(path)
-    icc = im.info.get("icc_profile")
-    if im.mode == "L":
-        arr = np.asarray(im)[..., None]
-        ch = 1
-    else:
-        arr = np.asarray(im.convert("RGB"))
-        ch = 3
-    h, w = arr.shape[:2]
+    (io.zig:196-199); ICC passthrough (io.zig:186-194). Decoded by the
+    port's own reader (``jpeg``), not Pillow."""
+    from .jpeg import decode_jpeg
+
+    with open(path, "rb") as f:
+        arr, icc = decode_jpeg(f.read())
+    h, w, ch = arr.shape
     return Image(width=w, height=h, channels=ch, hbd=False, data=arr, icc=icc)
 
 

@@ -10,9 +10,11 @@ with every score on the device metric (``OAVIF_PIPELINE_METRIC=jax``),
 the device encode stage through the Python tile coder (``-q 89`` with
 ``OAVIF_PY_TILE=1 OAVIF_DEVICE_LEVELS=1``), a score through the recursive
 blur (``OAVIF_METRIC_BLUR=iir``), a width-sharded score on two spawned
-ranks, the CLI on the same image as an 8-bit PNG, and the corpus harness
-on two PNGs. The script runs from a file, so the ranks (spawned processes
-re-import it) refuse the same modules. Nothing may import a refused
+ranks, the CLI on the same image as an 8-bit PNG, the corpus harness
+on two PNGs, the CLI on a JPEG fixture (``tests/torch_fixtures/jpeg``)
+and the corpus harness on a directory holding a JPEG. The script runs
+from a file, so the ranks (spawned processes re-import it) refuse the
+same modules. Nothing may import a refused
 module. A static check refuses the same imports in the sources.
 """
 
@@ -102,6 +104,15 @@ def main():
     with open(csv_path) as f:
         rows = list(csv.DictReader(f))
     assert [r["Status"] for r in rows] == ["ok", "ok"], rows
+    jpg, jpg_corpus, jpg_csv = sys.argv[6], sys.argv[7], sys.argv[8]
+    assert load_image(jpg).icc, "the fixture's ICC profile was lost"
+    assert cli.run(["-q", "60", jpg, out]) == 0
+    assert measure.main([jpg_corpus, "module:oavif_tpu_torch -q 60",
+                         jpg_csv]) == 0
+    with open(jpg_csv) as f:
+        rows = list(csv.DictReader(f))
+    assert [(r["Image"], r["Status"]) for r in rows] == [
+        ("photo.jpg", "ok")], rows
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not loaded, loaded
     print("NO_JAX_OK")
@@ -129,12 +140,19 @@ def test_port_cli_runs_without_jax_or_pillow(tmp_path):
     for i in range(2):
         write_png(corpus / f"img{i}.png",
                   rng.integers(0, 256, (64, 64, 3), dtype=np.uint8))
+    fixtures = REPO / "tests" / "torch_fixtures" / "jpeg"
+    jpg_corpus = tmp_path / "jpg_corpus"
+    jpg_corpus.mkdir()
+    (jpg_corpus / "photo.jpg").write_bytes(
+        (fixtures / "text_440.jpg").read_bytes())
     script = tmp_path / "run_without_jax.py"
     script.write_text(_SCRIPT)
     env = dict(os.environ, OAVIF_TORCH_DEVICE="cpu", PYTHONPATH=str(REPO))
     proc = subprocess.run(
         [sys.executable, str(script), str(src), str(tmp_path / "o.avif"),
-         str(png), str(corpus), str(tmp_path / "corpus.csv")],
+         str(png), str(corpus), str(tmp_path / "corpus.csv"),
+         str(fixtures / "text_icc.jpg"), str(jpg_corpus),
+         str(tmp_path / "jpg_corpus.csv")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
