@@ -111,25 +111,40 @@ Phases, each of which raises on failure (exit code != 0):
    table is printed, with each mode's corpus wall and MP/s;
 15. main path, JPEG input: every fixture of ``tests/torch_fixtures/jpeg``
    (baseline, progressive, restart markers, 4:4:4 to 4:1:1, gray, CMYK,
-   YCCK, multi-chunk ICC) decodes with the port's own C to its manifest's
-   shape and CRC32s (libjpeg-turbo's pixels, through Pillow when the
-   fixtures were made), each read timed (median of 5); the CLI (``-t 80``
-   on the six class JPEGs, ``-q 60`` on the 3840x2160 one) gives the q,
-   passes and bytes of the decoded pixels written as PAM, and the harness,
-   sequential over the six class JPEGs, the CLI's bytes and passes;
-16. the stage profile (``scripts/profile_stages.py``) of ``-t 80`` on the
+   YCCK, multi-chunk ICC, arithmetic-coded sequential and progressive
+   with DAC conditioning, block-smoothed progressive) decodes with the
+   port's own C to its manifest's shape and CRC32s (libjpeg-turbo's
+   pixels, through Pillow when the fixtures were made), each read timed
+   (median of 5); the CLI (``-t 80`` on the six class JPEGs, ``-q 60`` on
+   the 3840x2160 one) gives the q, passes and bytes of the decoded pixels
+   written as PAM, and the harness, sequential over the six class JPEGs,
+   the CLI's bytes and passes;
+16. main path, WebP input: every fixture of ``tests/torch_fixtures/webp``
+   (lossy, lossless, alpha planes raw and filtered, token partitions,
+   segments, both loop filters, near-lossless, an animation) decodes with
+   the port's own C to its manifest's shape and CRC32 (libwebp's pixels,
+   through Pillow when the fixtures were made), each read timed (median
+   of 5); the CLI (``-t 80`` on the six class WebPs, ``-q 60`` on the
+   3840x2160 one) gives the q, passes and bytes of the decoded pixels
+   written as PAM;
+17. the stage profile (``scripts/profile_stages.py``) of ``-t 80`` on the
    six classes and the 3840x2160 frame, its text and JSON lines; q must be
    the CLI's;
-17. decode: whether ``libavif.so.15`` loads; where it does, each class at
+18. decode: whether ``libavif.so.15`` loads; where it does, each class at
    its ``-t 80`` q and the frame at q 60 decode through ``decode_to_yuv``
    to exactly the recon's YUV and through ``CudaBackend.decode_to_rgb8``
    to the recon within 1;
-18. ``OAVIF_TRACE``: the CLI ``-t 80`` on edges and mixed under it, each
+19. ``OAVIF_TRACE``: the CLI ``-t 80`` on edges and mixed under it, each
    run in a process of its own as a user runs it, must exit 0, print the
    reference's line, write one Chrome trace holding the planner kernel's
    device records (their count beside its launches) and give the
    untraced bytes; walls with and without the trace;
-19. planner trace: device kernels per plan of the old path and of the
+20. ``OAVIF_TRACE`` over the corpus harness, which runs both searches in
+   one process: first under kineto's default CUPTI teardown
+   (``TEARDOWN_CUPTI=1``), then as users run it; each trace's planner
+   records beside its image's launches, and in the second run every trace
+   must hold some;
+21. planner trace: device kernels per plan of the old path and of the
    fused kernel, and the fused kernel's own device time, from one
    ``torch.profiler`` trace per size (512x512 and 3840x2160), last.
 
@@ -2016,6 +2031,93 @@ def phase_jpeg_input(images: dict, acc: dict) -> dict:
     return read_counts()
 
 
+WEBP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "torch_fixtures", "webp")
+
+
+def webp_split(path: str) -> None:
+    """One lossy WebP read split into its C stages, each the median of 5:
+    the VP8 decode to Y'UV (with the loop filter) and the conversion to
+    RGBA."""
+    from oavif_tpu_torch.av1.entropy.fast import get_lib
+    from oavif_tpu_torch.io import webp
+
+    lib = get_lib()
+    with open(path, "rb") as f:
+        dmx = webp._Demux(f.read())
+    fr = dmx.frames[0]
+    planes, t_vp8, t_rgb = None, [], []
+    rgba = np.empty((fr.height, fr.width, 4), np.uint8)
+    for _ in range(5):
+        t0 = time.perf_counter()
+        planes = webp.decode_vp8(lib, dmx.data, *fr.image, fr.width,
+                                 fr.height)
+        t_vp8.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        lib.webp_yuv_to_rgba(*(p.ctypes.data for p in planes), fr.width,
+                             fr.height, rgba.ctypes.data, fr.width * 4)
+        t_rgb.append(time.perf_counter() - t0)
+    print(f"  {os.path.basename(path)} split: VP8 decode to Y'UV "
+          f"{np.median(t_vp8) * 1e3:.3f} ms, fancy upsampling to RGBA "
+          f"{np.median(t_rgb) * 1e3:.3f} ms (medians of 5)", flush=True)
+
+
+def phase_webp_input(images: dict, acc: dict) -> dict:
+    """The port's WebP reader and the CLI on WebP input. Every fixture of
+    ``tests/torch_fixtures/webp`` (lossy, lossless, alpha planes raw and
+    filtered, partitions, segments, filters, an animation) must decode to
+    its manifest's shape, channels and CRC32 (libwebp's pixels, as Pillow
+    returned them when the fixtures were made), each read timed (median
+    of 5). Then the CLI ``-t 80`` on the six lossy class WebPs and
+    ``-q 60`` on the 3840x2160 one: q, passes and bytes must be those of
+    the CLI on the decoded pixels written as PAM. Returns the kernels'
+    launches."""
+    from oavif_tpu_torch.io.image import load_webp
+
+    with open(os.path.join(WEBP_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    reset_counts()
+    decoded = {}
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(WEBP_DIR, name)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            img = load_webp(path)
+            times.append(time.perf_counter() - t0)
+        got = (list(img.data.shape), img.channels,
+               zlib.crc32(img.data.tobytes()), img.icc)
+        want = (entry["shape"], entry["channels"], entry["crc32"], None)
+        if got != want:
+            raise AssertionError(f"{name}: decoded {got}, manifest {want}")
+        decoded[name] = img.data
+        print(f"  {name} {img.width}x{img.height}x{img.channels} "
+              f"({os.path.getsize(path)} bytes): == manifest CRC; read "
+              f"{np.median(times) * 1e3:.3f} ms (median of 5, "
+              f"{min(times) * 1e3:.3f}-{max(times) * 1e3:.3f})", flush=True)
+    webp_split(os.path.join(WEBP_DIR, "photo4k.webp"))
+    with tempfile.TemporaryDirectory() as td:
+        for name in [*images, "photo4k"]:
+            args = ["-q", "60"] if name == "photo4k" else ["-t", "80"]
+            src = os.path.join(WEBP_DIR, f"{name}.webp")
+            r = run_cli(args, src, os.path.join(td, "o.avif"), acc)
+            pam = os.path.join(td, f"{name}.pam")
+            write_pam(pam, decoded[f"{name}.webp"])
+            p = run_cli(args, pam, os.path.join(td, "o.avif"), acc)
+            got = (r["q"], r["passes"], r["bytes"])
+            if got != (p["q"], p["passes"], p["bytes"]):
+                raise AssertionError(
+                    f"{name}.webp {' '.join(args)}: q{r['q']} {r['passes']} "
+                    f"passes {len(r['bytes'])} bytes, its pixels as PAM "
+                    f"q{p['q']} {p['passes']} passes {len(p['bytes'])} "
+                    "bytes")
+            print(f"  {name}.webp {' '.join(args)}: q{r['q']} passes "
+                  f"{r['passes']} bytes {len(r['bytes'])} == PAM of its "
+                  f"pixels; wall {r['wall']:.3f} s (PAM {p['wall']:.3f} s)",
+                  flush=True)
+    return read_counts()
+
+
 def cli_process(args, src: str, out: str, trace_dir=None) -> dict:
     """The port's CLI as a user runs it, in a process of its own (with
     ``OAVIF_VERBOSE=1``, and ``OAVIF_TRACE=trace_dir`` when given, under
@@ -2087,6 +2189,79 @@ def phase_trace(images: dict, acc: dict) -> None:
             else:
                 raise AssertionError(f"trace {name}: no planner kernel "
                                      "record in three traces")
+
+
+def trace_records(trace_dir: str, match: str) -> list:
+    """Per Chrome trace in the directory, oldest first: (file, device
+    kernel records, those whose name holds ``match``)."""
+    files = sorted((f for f in os.listdir(trace_dir)
+                    if f.endswith(".json")),
+                   key=lambda f: os.path.getmtime(os.path.join(trace_dir,
+                                                               f)))
+    out = []
+    for name in files:
+        with open(os.path.join(trace_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        out.append((name, len(kernels),
+                    sum(match in e["name"] for e in kernels)))
+    return out
+
+
+def phase_trace_harness(images: dict, acc: dict) -> None:
+    """``OAVIF_TRACE`` over the corpus harness, which runs one search per
+    image in one process (the ``module:oavif_tpu_torch`` path): edges and
+    mixed as PNG, ``scripts/measure.py`` in a process of its own with the
+    environment of ``cli_process``. First under kineto's default CUPTI
+    teardown (``TEARDOWN_CUPTI=1``, which the CLI leaves as set: the
+    behaviour before it kept CUPTI attached), then as users run it (the
+    variable unset, so the CLI sets it to 0). Each trace's
+    ``planner_plan`` device records are printed against that image's
+    launches in this process; in the second run every trace must hold
+    some."""
+    want = {}
+    with tempfile.TemporaryDirectory() as td:
+        corpus = os.path.join(td, "corpus")
+        os.mkdir(corpus)
+        for name in ("edges", "mixed"):
+            src = os.path.join(corpus, f"{name}.png")
+            write_png(src, images[name])
+            want[name] = run_cli(["-t", "80"], src,
+                                 os.path.join(td, "o.avif"), acc)["launches"]
+        for label, teardown in (("default CUPTI teardown", "1"),
+                                ("as users run it", None)):
+            trace_dir = os.path.join(td, f"trace_{teardown}")
+            env = {k: v for k, v in os.environ.items()
+                   if k != "TEARDOWN_CUPTI"}
+            env["OAVIF_TRACE"] = trace_dir
+            if teardown is not None:
+                env["TEARDOWN_CUPTI"] = teardown
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "oavif_tpu_torch.scripts.measure",
+                 corpus, "module:oavif_tpu_torch",
+                 os.path.join(td, f"{label[:7]}.csv")],
+                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                capture_output=True, text=True, timeout=300)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"traced harness ({label}) exited "
+                                     f"{proc.returncode}:\n"
+                                     f"{proc.stderr[-2000:]}")
+            traces = trace_records(trace_dir, KERNEL_MATCH["planner_plan"])
+            if len(traces) != len(want):
+                raise AssertionError(f"traced harness ({label}): traces "
+                                     f"{[t[0] for t in traces]}")
+            counts = [f"{n}: planner_plan {plans} of its {want[n]} launches "
+                      f"({kernels} device kernel records)"
+                      for n, (_, kernels, plans) in zip(sorted(want),
+                                                         traces)]
+            print(f"  traced harness over edges and mixed, {label}: "
+                  f"{'; '.join(counts)}; process wall {wall:.3f} s",
+                  flush=True)
+            if teardown is None and not all(t[2] for t in traces):
+                raise AssertionError("traced harness: a trace without the "
+                                     "planner's device records")
 
 
 def phase_stages(images: dict, frame4k: np.ndarray, tq: dict) -> dict:
@@ -2372,6 +2547,14 @@ def main() -> int:
         raise AssertionError("the JPEG path launched no planner kernel")
 
     t0 = time.perf_counter()
+    counts = phase_webp_input(images, acc)
+    launches = add(launches, counts)
+    print(f"phase WebP input: {time.perf_counter() - t0:.1f} s, launches "
+          f"{counts}", flush=True)
+    if counts["planner_plan"] <= 0:
+        raise AssertionError("the WebP path launched no planner kernel")
+
+    t0 = time.perf_counter()
     counts = phase_stages(images, frame4k, tq)
     launches = add(launches, counts)
     print(f"phase stages: {time.perf_counter() - t0:.1f} s, launches "
@@ -2385,6 +2568,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_trace(images, acc)
     print(f"phase trace: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    phase_trace_harness(images, acc)
+    print(f"phase traced harness: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     t0 = time.perf_counter()
     phase_plan_trace(images, frame4k)

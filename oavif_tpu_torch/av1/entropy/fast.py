@@ -26,6 +26,7 @@ _SRC_TILE = Path(__file__).parent / "oav1tile.c"
 _SRC_SSIMU2 = Path(__file__).parent.parent.parent / "metric" / "ssimu2.c"
 _SRC_PNG = Path(__file__).parent / "png_unfilter.c"
 _SRC_JPEG = Path(__file__).parent.parent.parent / "io" / "jpeg_decode.c"
+_SRC_WEBP = Path(__file__).parent.parent.parent / "io" / "webp_decode.c"
 _BUILD_DIR = (Path(__file__).resolve().parent.parent.parent.parent
               / "build" / "oavif_tpu_torch")
 _SO = _BUILD_DIR / "liboavif_host.so"
@@ -39,7 +40,7 @@ def _build() -> Optional[C.CDLL]:
     if _build_failed:
         return None
     try:
-        srcs = [_SRC, _SRC_TILE, _SRC_SSIMU2, _SRC_PNG, _SRC_JPEG]
+        srcs = [_SRC, _SRC_TILE, _SRC_SSIMU2, _SRC_PNG, _SRC_JPEG, _SRC_WEBP]
         hdrs = [_SRC.parent / "idct_ln_impl.h"]
         newest = max(s.stat().st_mtime for s in srcs + hdrs)
         if not _SO.exists() or _SO.stat().st_mtime < newest:
@@ -156,7 +157,25 @@ def _build() -> Optional[C.CDLL]:
         lib.jpeg_pixels.restype = C.c_int
         lib.jpeg_pixels.argtypes = [
             C.c_void_p, C.c_void_p, C.c_int, C.c_void_p, C.c_int, C.c_int,
-            C.c_int, C.c_int, C.c_int, C.c_void_p,
+            C.c_int, C.c_int, C.c_int, C.c_void_p, C.c_void_p,
+        ]
+        lib.webp_vp8l_decode.restype = C.c_int
+        lib.webp_vp8l_decode.argtypes = [
+            C.c_char_p, C.c_size_t, C.c_int, C.c_int, C.c_void_p,
+        ]
+        lib.webp_vp8_decode.restype = C.c_int
+        lib.webp_vp8_decode.argtypes = [
+            C.c_char_p, C.c_size_t, C.c_int, C.c_int, C.c_void_p,
+            C.c_void_p, C.c_void_p,
+        ]
+        lib.webp_yuv_to_rgba.restype = None
+        lib.webp_yuv_to_rgba.argtypes = [
+            C.c_void_p, C.c_void_p, C.c_void_p, C.c_int, C.c_int,
+            C.c_void_p, C.c_size_t,
+        ]
+        lib.webp_alpha_decode.restype = C.c_int
+        lib.webp_alpha_decode.argtypes = [
+            C.c_char_p, C.c_size_t, C.c_int, C.c_int, C.c_void_p,
         ]
         return lib
     except Exception:

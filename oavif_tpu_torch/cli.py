@@ -39,7 +39,11 @@ def _print_version() -> None:
 def _start_trace(device, trace_dir: str):
     """A started ``torch.profiler`` session of the host, and of the card's
     kernels on CUDA, that writes a Chrome trace into ``trace_dir`` when
-    stopped."""
+    stopped. CUPTI stays attached between sessions (``TEARDOWN_CUPTI=0``,
+    unless the caller set it): after kineto's default teardown, a later
+    session of the same process (the harness runs one search per image)
+    can lose every device record."""
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
 

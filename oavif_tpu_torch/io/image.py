@@ -6,11 +6,11 @@ PNG / PAM / JPEG / WebP / AVIF to an interleaved RGB(A)/gray image at 8 or
 16 bits with ICC passthrough, plus the to_rgb8 normalization used as the
 metric reference (io.zig:57-133).
 
-PNG (``png8``, ``png16``), JPEG (``jpeg``) and PAM are decoded by the
-port's own readers, with zlib, NumPy and the host library's C; WebP and
-AVIF input go through Pillow (the reference likewise delegates to
-libjpeg-turbo/libwebp/libavif — format decode is host work, not device
-work).
+PNG (``png8``, ``png16``), JPEG (``jpeg``), WebP (``webp``) and PAM are
+decoded by the port's own readers, with zlib, NumPy and the host
+library's C; AVIF input goes through Pillow (the reference likewise
+delegates to libjpeg-turbo/libwebp/libavif — format decode is host work,
+not device work).
 """
 
 from __future__ import annotations
@@ -181,16 +181,15 @@ def load_pam(path: str) -> Image:
 
 
 def load_webp(path: str) -> Image:
-    """WebP decode with alpha detection (io.zig:408-445)."""
-    im = _pil_open(path)
-    has_alpha = "A" in im.mode or "transparency" in im.info
-    if has_alpha:
-        arr = np.asarray(im.convert("RGBA"))
-        ch = 4
-    else:
-        arr = np.asarray(im.convert("RGB"))
-        ch = 3
-    h, w = arr.shape[:2]
+    """WebP decode with alpha detection (io.zig:408-445): RGBA where the
+    file has alpha, else RGB; the first frame of an animation; the ICC
+    profile dropped, as the reference drops it. Decoded by the port's own
+    reader (``webp``), not Pillow."""
+    from .webp import decode_webp
+
+    with open(path, "rb") as f:
+        arr = decode_webp(f.read())
+    h, w, ch = arr.shape
     return Image(width=w, height=h, channels=ch, hbd=False, data=arr)
 
 

@@ -1,22 +1,23 @@
-"""JPEG decoder for Huffman-coded 8-bit files, without Pillow.
+"""JPEG decoder for 8-bit DCT files, without Pillow.
 
-Baseline, extended-sequential (``SOF1``) and progressive (``SOF2``)
-frames of 1, 3 or 4 components with any sampling factors from 1 to 4,
-restart intervals, 8- and 16-bit quantization tables, and the ICC
-profile of the ``APP2`` chunks. This module walks the markers, picks the
-colour space and builds the Huffman look-up tables; the C side
+Baseline, extended-sequential (``SOF1``, ``SOF9``) and progressive
+(``SOF2``, ``SOF10``) frames, Huffman- or arithmetic-coded (with the
+``DAC`` conditioning), of 1, 3 or 4 components with any sampling factors
+from 1 to 4, restart intervals, 8- and 16-bit quantization tables, and
+the ICC profile of the ``APP2`` chunks. This module walks the markers,
+picks the colour space and builds the Huffman look-up tables; the C side
 (``jpeg_decode.c``, in the host library) decodes the scans and turns the
 coefficients into samples. The samples are libjpeg-turbo's in its default
-decompression (JDCT_ISLOW, fancy upsampling), which is what Pillow, and so
-the reference's loader, returns; a 4-component file goes to RGB as
-Pillow's ``convert("RGB")`` takes it (``tests/test_torch_jpeg.py`` holds
-both equal).
+decompression (JDCT_ISLOW, fancy upsampling, block smoothing of the
+progressive files whose scans leave low coefficients unrefined), which is
+what Pillow, and so the reference's loader, returns; a 4-component file
+goes to RGB as Pillow's ``convert("RGB")`` takes it
+(``tests/test_torch_jpeg.py`` holds both equal).
 
-Arithmetic coding, 12-bit samples, lossless and hierarchical frames, 2 or
-more than 4 components, fractional sampling ratios and progressive files
-whose scans leave low AC coefficients unrefined (which libjpeg smooths)
-raise ``ValueError``; a file that ends before its ``EOI`` marker raises
-``OSError``, as Pillow's ``load`` does.
+12-bit samples, lossless and hierarchical frames, 2 or more than 4
+components and fractional sampling ratios raise ``ValueError``; a file
+that ends before its ``EOI`` marker raises ``OSError``, as Pillow's
+``load`` does.
 """
 
 from __future__ import annotations
@@ -40,13 +41,10 @@ _REFUSED = {
     0xC5: "hierarchical JPEG (SOF5)",
     0xC6: "hierarchical progressive JPEG (SOF6)",
     0xC7: "hierarchical lossless JPEG (SOF7)",
-    0xC9: "arithmetic-coded JPEG (SOF9)",
-    0xCA: "arithmetic-coded progressive JPEG (SOF10)",
     0xCB: "arithmetic-coded lossless JPEG (SOF11)",
     0xCD: "arithmetic-coded hierarchical JPEG (SOF13)",
     0xCE: "arithmetic-coded hierarchical progressive JPEG (SOF14)",
     0xCF: "arithmetic-coded hierarchical lossless JPEG (SOF15)",
-    0xCC: "arithmetic-coded JPEG (DAC marker)",
     0xDE: "hierarchical JPEG (DHP marker)",
     0xDF: "hierarchical JPEG (EXP marker)",
 }
@@ -78,11 +76,15 @@ _STD_TABLES = {
 }
 
 # the C side's layouts (jpeg_decode.c): words of one Huffman table, of one
-# scan descriptor and of one component's geometry
+# scan descriptor (an arithmetic scan's conditioning from word 20) and of
+# one component's geometry
 _LOOK_BITS = 9
 _HT_WORDS = (1 << _LOOK_BITS) + 18 + 17 + 256
 _S_WORDS = 24
+_S_COND = 20
 _C_WORDS = 8
+_SOF = {0xC0: (False, False), 0xC1: (False, False), 0xC2: (True, False),
+        0xC9: (False, True), 0xCA: (True, True)}  # (progressive, arithmetic)
 _CS = {"gray": 0, "ycc": 1, "rgb": 2, "cmyk": 3, "ycck": 4}
 
 # a marker that ends an entropy-coded segment: 0xFF, then neither a
@@ -209,6 +211,9 @@ class _Reader:
     def __init__(self, data: bytes) -> None:
         self.data = data
         self.progressive = False
+        self.arith = False
+        # the arithmetic conditioning per table slot (libjpeg's defaults)
+        self.dc_l, self.dc_u, self.ac_k = [0] * 16, [1] * 16, [5] * 16
         self.width = self.height = 0
         self.comps: List[_Component] = []
         self.jfif = False
@@ -246,7 +251,7 @@ class _Reader:
             start, end = _segment(data, pos)
             seg = data[start:end]
             pos = end
-            if marker in (0xC0, 0xC1, 0xC2):
+            if marker in _SOF:
                 if seen_sof:
                     raise ValueError("JPEG file with two frame headers")
                 seen_sof = True
@@ -255,6 +260,8 @@ class _Reader:
                 _dqt(seg, quant)
             elif marker == 0xC4:
                 _dht(seg, huff)
+            elif marker == 0xCC:
+                self._dac(seg)
             elif marker == 0xDD:
                 if len(seg) < 2:
                     raise ValueError("bad JPEG DRI marker")
@@ -288,6 +295,22 @@ class _Reader:
               and seg.startswith(b"ICC_PROFILE\0")):
             self.icc_chunks.append(bytes(seg))
 
+    def _dac(self, seg: bytes) -> None:
+        """libjpeg's get_dac: (class << 4 | slot, value) pairs; a DC
+        slot's L and U, an AC slot's K."""
+        if len(seg) % 2:
+            raise ValueError("bad JPEG DAC marker")
+        for i in range(0, len(seg), 2):
+            index, val = seg[i], seg[i + 1]
+            if index >= 32:
+                raise ValueError("bad JPEG DAC marker (table index)")
+            if index >= 16:
+                self.ac_k[index - 16] = val
+            else:
+                self.dc_l[index], self.dc_u[index] = val & 15, val >> 4
+                if self.dc_l[index] > self.dc_u[index]:
+                    raise ValueError("bad JPEG DAC marker (L above U)")
+
     def _sof(self, marker: int, seg: bytes) -> None:
         if len(seg) < 6:
             raise ValueError("bad JPEG frame header")
@@ -306,7 +329,7 @@ class _Reader:
             raise ValueError("empty JPEG image")
         if len(seg) < 6 + 3 * n:
             raise ValueError("bad JPEG frame header")
-        self.progressive = marker == 0xC2
+        self.progressive, self.arith = _SOF[marker]
         for c in range(n):
             cid, hv, tq = seg[6 + 3 * c: 9 + 3 * c]
             h, v = hv >> 4, hv & 15
@@ -358,6 +381,12 @@ class _Reader:
                 comp.quant = quant[comp.tq].copy()
             tbl = seg[2 + 2 * k]
             dc_slot, ac_slot = tbl >> 4, tbl & 15
+            if self.arith:  # conditioning slots, read as the scan starts
+                desc[7 + k], desc[11 + k] = dc_slot, ac_slot
+                desc[_S_COND + k] = (self.dc_l[dc_slot]
+                                     | self.dc_u[dc_slot] << 4
+                                     | self.ac_k[ac_slot] << 8)
+                continue
             if dc_slot >= 4 or ac_slot >= 4:
                 raise ValueError("bad JPEG Huffman table selector")
             uses_dc = not self.progressive or (ss == 0 and ah == 0)
@@ -390,9 +419,9 @@ class _Reader:
                 bits[k] = al
 
     def smoothed(self) -> bool:
-        """Whether libjpeg would smooth the blocks of this progressive
-        file (jdcoefct.c, smoothing_ok): its scans leave one of the first
-        nine AC coefficients unrefined."""
+        """Whether libjpeg smooths the blocks of this progressive file
+        (jdcoefct.c, smoothing_ok, on the state the last scan left): its
+        scans leave one of the first nine AC coefficients unrefined."""
         if not self.progressive:
             return False
         useful = False
@@ -443,9 +472,6 @@ def decode_jpeg(data: bytes) -> Tuple[np.ndarray, Optional[bytes]]:
 
     r = _Reader(bytes(data))
     r.read()
-    if r.smoothed():
-        raise ValueError("unsupported progressive JPEG whose scans leave low "
-                         "AC coefficients unrefined (block smoothing)")
     lib = get_lib()
     if lib is None:
         raise RuntimeError("native library unavailable: the C runtime "
@@ -458,16 +484,17 @@ def decode_jpeg(data: bytes) -> Tuple[np.ndarray, Optional[bytes]]:
     coefs = []
     for i, c in enumerate(r.comps):
         bw, bh = mcux * c.h, mcuy * c.v
-        geom[i, :5] = (c.h, c.v, bw,
+        geom[i, :6] = (c.h, c.v, bw,
                        -(-r.width * c.h // (8 * hmax)),
-                       -(-r.height * c.v // (8 * vmax)))
+                       -(-r.height * c.v // (8 * vmax)), bh)
         coefs.append(np.zeros(bw * bh * 64, dtype=np.int16))
     scans = np.ascontiguousarray(r.scans, dtype=np.int32)
-    tables = np.stack(r.tables)
+    tables = (np.stack(r.tables) if r.tables  # none in arithmetic files
+              else np.zeros((1, _HT_WORDS), dtype=np.int32))
     cptrs = _ptrs(coefs)
     rc = lib.jpeg_entropy(r.data, scans.ctypes.data, len(scans),
                           tables.ctypes.data, cptrs, geom.ctypes.data,
-                          mcux, mcuy, int(r.progressive))
+                          mcux, mcuy, int(r.progressive) | 2 * r.arith)
     if rc:
         raise ValueError(f"bad JPEG scan {rc - 1}")
     quant = np.stack([c.quant if c.quant is not None
@@ -475,9 +502,13 @@ def decode_jpeg(data: bytes) -> Tuple[np.ndarray, Optional[bytes]]:
     space = r.colorspace()
     nout = {"gray": 1, "ycc": 3, "rgb": 3}.get(space, 4)
     out = np.empty((r.height, r.width, nout), dtype=np.uint8)
+    bits = (np.array([c.coef_bits[:10] for c in r.comps], dtype=np.int32)
+            if r.smoothed() else None)
     rc = lib.jpeg_pixels(cptrs, geom.ctypes.data, len(r.comps),
                          quant.ctypes.data, r.width,
-                         r.height, hmax, vmax, _CS[space], out.ctypes.data)
+                         r.height, hmax, vmax, _CS[space],
+                         None if bits is None else bits.ctypes.data,
+                         out.ctypes.data)
     if rc:
         raise ValueError("unsupported JPEG with a fractional sampling ratio")
     if nout == 4:

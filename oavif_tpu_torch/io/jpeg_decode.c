@@ -1,13 +1,15 @@
 /* JPEG decoding work for the port's reader (oavif_tpu_torch/io/jpeg.py):
  * the entropy decode of baseline, extended-sequential and progressive
- * Huffman scans into coefficient arrays, then dequantization, the integer
- * inverse DCT, upsampling and colour conversion to interleaved 8-bit
- * samples. Every stage follows libjpeg-turbo's default decompression
- * (JDCT_ISLOW, fancy upsampling, no block smoothing), so the samples are
- * the ones libjpeg-turbo gives: jdhuff.c and jdphuff.c for the scans,
- * jidctint.c for the IDCT, jdsample.c for the upsampling, jdcolor.c for the
- * colour conversion. It is built into the host library beside the tile
- * coder (av1/entropy/fast.py).
+ * scans, Huffman- or arithmetic-coded, into coefficient arrays, then
+ * dequantization, the integer inverse DCT, upsampling and colour
+ * conversion to interleaved 8-bit samples. Every stage follows
+ * libjpeg-turbo's default decompression (JDCT_ISLOW, fancy upsampling,
+ * block smoothing of progressive files), so the samples are the ones
+ * libjpeg-turbo gives: jdhuff.c and jdphuff.c for the Huffman scans,
+ * jdarith.c for the arithmetic ones, jdcoefct.c for the smoothing,
+ * jidctint.c for the IDCT, jdsample.c for the upsampling, jdcolor.c for
+ * the colour conversion. It is built into the host library beside the
+ * tile coder (av1/entropy/fast.py).
  */
 #include <stddef.h>
 #include <stdint.h>
@@ -35,14 +37,16 @@ static const int NATURAL[80] = {
 #define HT_VAL (HT_VALOFF + 17)
 #define HT_WORDS (HT_VAL + 256)
 
-/* One scan's descriptor (int32 words) */
+/* One scan's descriptor (int32 words); S_COND: an arithmetic scan's
+ * conditioning per member, L | U << 4 | K << 8 (the DAC values) */
 enum { S_OFF, S_LEN, S_NCOMP, S_COMP, S_DC = S_COMP + 4, S_AC = S_DC + 4,
-       S_SS = S_AC + 4, S_SE, S_AH, S_AL, S_RI, S_WORDS = 24 };
+       S_SS = S_AC + 4, S_SE, S_AH, S_AL, S_RI, S_COND, S_WORDS = 24 };
 
 /* One component's geometry (int32 words): sampling factors, the
- * allocated width in blocks (the row stride of its coefficient array) and
- * the width and height in blocks that hold image samples */
-enum { C_H, C_V, C_BW, C_WIB, C_HIB, C_WORDS = 8 };
+ * allocated width in blocks (the row stride of its coefficient array),
+ * the width and height in blocks that hold image samples, and the
+ * allocated height in blocks (whole iMCU rows) */
+enum { C_H, C_V, C_BW, C_WIB, C_HIB, C_BH, C_WORDS = 8 };
 
 typedef struct {
     const uint8_t *p, *end;
@@ -370,21 +374,401 @@ static int decode_scan(const Frame *f, const uint8_t *data,
     return 0;
 }
 
+/* ---- arithmetic decoding (ITU T.81 Annex D, F.2.4 and G.1.3; jdarith.c) */
+
+/* Table D.2, packed as libjpeg packs it: Qe << 16 | Next_Index_MPS << 8 |
+ * Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed estimate of
+ * 0.5 that codes the sign of an AC coefficient and each refinement bit */
+#define V(qe, nlps, nmps, sw) \
+    (((int32_t)(qe) << 16) | ((nmps) << 8) | ((sw) << 7) | (nlps))
+static const int32_t ARITAB[114] = {
+    V(0x5a1d, 1, 1, 1), V(0x2586, 14, 2, 0), V(0x1114, 16, 3, 0),
+    V(0x080b, 18, 4, 0), V(0x03d8, 20, 5, 0), V(0x01da, 23, 6, 0),
+    V(0x00e5, 25, 7, 0), V(0x006f, 28, 8, 0), V(0x0036, 30, 9, 0),
+    V(0x001a, 33, 10, 0), V(0x000d, 35, 11, 0), V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0), V(0x0001, 12, 13, 0), V(0x5a7f, 15, 15, 1),
+    V(0x3f25, 36, 16, 0), V(0x2cf2, 38, 17, 0), V(0x207c, 39, 18, 0),
+    V(0x17b9, 40, 19, 0), V(0x1182, 42, 20, 0), V(0x0cef, 43, 21, 0),
+    V(0x09a1, 45, 22, 0), V(0x072f, 46, 23, 0), V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0), V(0x0303, 51, 26, 0), V(0x0240, 52, 27, 0),
+    V(0x01b1, 54, 28, 0), V(0x0144, 56, 29, 0), V(0x00f5, 57, 30, 0),
+    V(0x00b7, 59, 31, 0), V(0x008a, 60, 32, 0), V(0x0068, 62, 33, 0),
+    V(0x004e, 63, 34, 0), V(0x003b, 32, 35, 0), V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1), V(0x484c, 64, 38, 0), V(0x3a0d, 65, 39, 0),
+    V(0x2ef1, 67, 40, 0), V(0x261f, 68, 41, 0), V(0x1f33, 69, 42, 0),
+    V(0x19a8, 70, 43, 0), V(0x1518, 72, 44, 0), V(0x1177, 73, 45, 0),
+    V(0x0e74, 74, 46, 0), V(0x0bfb, 75, 47, 0), V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0), V(0x0706, 79, 50, 0), V(0x05cd, 48, 51, 0),
+    V(0x04de, 50, 52, 0), V(0x040f, 50, 53, 0), V(0x0363, 51, 54, 0),
+    V(0x02d4, 52, 55, 0), V(0x025c, 53, 56, 0), V(0x01f8, 54, 57, 0),
+    V(0x01a4, 55, 58, 0), V(0x0160, 56, 59, 0), V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0), V(0x00cb, 59, 62, 0), V(0x00ab, 61, 63, 0),
+    V(0x008f, 61, 32, 0), V(0x5b12, 65, 65, 1), V(0x4d04, 80, 66, 0),
+    V(0x412c, 81, 67, 0), V(0x37d8, 82, 68, 0), V(0x2fe8, 83, 69, 0),
+    V(0x293c, 84, 70, 0), V(0x2379, 86, 71, 0), V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0), V(0x174e, 72, 74, 0), V(0x1424, 72, 75, 0),
+    V(0x119c, 74, 76, 0), V(0x0f6b, 74, 77, 0), V(0x0d51, 75, 78, 0),
+    V(0x0bb6, 77, 79, 0), V(0x0a40, 77, 48, 0), V(0x5832, 80, 81, 1),
+    V(0x4d1c, 88, 82, 0), V(0x438e, 89, 83, 0), V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0), V(0x2eae, 92, 86, 0), V(0x299a, 93, 87, 0),
+    V(0x2516, 86, 71, 0), V(0x5570, 88, 89, 1), V(0x4ca9, 95, 90, 0),
+    V(0x44d9, 96, 91, 0), V(0x3e22, 97, 92, 0), V(0x3824, 99, 93, 0),
+    V(0x32b4, 99, 94, 0), V(0x2e17, 93, 86, 0), V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0), V(0x47e5, 102, 98, 0), V(0x41cf, 103, 99, 0),
+    V(0x3c3d, 104, 100, 0), V(0x375e, 99, 93, 0), V(0x5231, 105, 102, 0),
+    V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0), V(0x415e, 103, 99, 0),
+    V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1),
+    V(0x5522, 112, 109, 0), V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+#undef V
+
+#define DC_STAT_BINS 64
+#define AC_STAT_BINS 256
+#define FIXED_BIN 113
+
+typedef struct {
+    const uint8_t *p, *end;
+    int64_t c;  /* base of the coding interval, with the input bits */
+    int64_t a;  /* the interval's size, normalised */
+    int ct;     /* bits left in c's buffer; -16 before the first two bytes,
+                   -1 after a coding error (the interval decodes nothing) */
+    int marker; /* a marker stopped the input: zeros follow */
+} Arith;
+
+static int arith_byte(Arith *e)
+{
+    if (e->marker)
+        return 0;
+    if (e->p >= e->end) {
+        e->marker = 1;
+        return 0;
+    }
+    int data = *e->p;
+    if (data != 0xFF) {
+        e->p++;
+        return data;
+    }
+    const uint8_t *q = e->p + 1;
+    while (q < e->end && *q == 0xFF)
+        q++;
+    if (q < e->end && *q == 0x00) {
+        e->p = q + 1;
+        return 0xFF;
+    }
+    e->marker = 1; /* the reader stays at the marker's first 0xFF */
+    return 0;
+}
+
+/* One binary decision in the statistics bin st (D.2.4-D.2.6) */
+static int arith_decode(Arith *e, uint8_t *st)
+{
+    while (e->a < 0x8000) {
+        if (--e->ct < 0) {
+            e->c = (e->c << 8) | arith_byte(e);
+            if ((e->ct += 8) < 0 && ++e->ct == 0)
+                e->a = 0x8000; /* two initial bytes read: 0x10000 below */
+        }
+        e->a <<= 1;
+    }
+    int sv = *st;
+    int32_t qe = ARITAB[sv & 0x7F];
+    int nl = qe & 0xFF;
+    qe >>= 8;
+    int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = e->a - qe;
+    e->a = temp;
+    temp <<= e->ct;
+    if (e->c >= temp) {
+        e->c -= temp;
+        if (e->a < qe) {
+            e->a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        } else {
+            e->a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        }
+    } else if (e->a < 0x8000) {
+        if (e->a < qe) {
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        } else {
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        }
+    }
+    return sv >> 7;
+}
+
+/* libjpeg's next_marker from the reader's position: skip to an 0xFF that
+ * starts a marker; step over it when it is RSTn */
+static void arith_restart(Arith *e)
+{
+    const uint8_t *q = e->p;
+    for (;;) {
+        while (q < e->end && *q != 0xFF)
+            q++;
+        while (q < e->end && *q == 0xFF)
+            q++;
+        if (q >= e->end || *q != 0x00)
+            break;
+        q++;
+    }
+    if (q < e->end && *q >= 0xD0 && *q <= 0xD7) {
+        e->p = q + 1;
+        e->marker = 0;
+    } else {
+        e->p = e->end;
+        e->marker = 1;
+    }
+    e->c = 0;
+    e->a = 0;
+    e->ct = -16;
+}
+
+/* Decode_DC_DIFF (F.19-F.24) in the component's DC bins; updates its
+ * conditioning context; returns the difference */
+static int arith_dc_diff(Arith *e, uint8_t *dc, int *context, int L, int U)
+{
+    uint8_t *st = dc + *context;
+    if (arith_decode(e, st) == 0) {
+        *context = 0;
+        return 0;
+    }
+    int sign = arith_decode(e, st + 1);
+    st += 2 + sign;
+    int m = arith_decode(e, st);
+    if (m) {
+        st = dc + 20;
+        while (arith_decode(e, st)) {
+            if ((m <<= 1) == 0x8000) {
+                e->ct = -1; /* magnitude overflow */
+                return 0;
+            }
+            st++;
+        }
+    }
+    if (m < (int)((1L << L) >> 1))
+        *context = 0;
+    else if (m > (int)((1L << U) >> 1))
+        *context = 12 + sign * 4;
+    else
+        *context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+        if (arith_decode(e, st))
+            v |= m;
+    v += 1;
+    return sign ? -v : v;
+}
+
+/* One nonzero AC value at zigzag index k (F.21-F.24 with F.20's bins
+ * at st); returns 0 with ct = -1 on a magnitude overflow */
+static int arith_ac_value(Arith *e, uint8_t *ac, uint8_t *st, int k, int K,
+                          uint8_t *fixed)
+{
+    int sign = arith_decode(e, fixed);
+    st += 2;
+    int m = arith_decode(e, st);
+    if (m && arith_decode(e, st)) {
+        m <<= 1;
+        st = ac + (k <= K ? 189 : 217);
+        while (arith_decode(e, st)) {
+            if ((m <<= 1) == 0x8000) {
+                e->ct = -1;
+                return 0;
+            }
+            st++;
+        }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+        if (arith_decode(e, st))
+            v |= m;
+    v += 1;
+    return sign ? -v : v;
+}
+
+/* Decode one arithmetic-coded scan: jdarith's sequential MCU, or its four
+ * progressive procedures. The scan's S_DC and S_AC words hold the
+ * conditioning table slots, S_COND each member's L | U << 4 | K << 8. */
+static int decode_scan_arith(const Frame *f, const uint8_t *data,
+                             const int32_t *sc, int progressive)
+{
+    Arith e = {data + sc[S_OFF], data + sc[S_OFF] + sc[S_LEN], 0, 0, -16,
+               0};
+    int ns = sc[S_NCOMP];
+    int ss = sc[S_SS], se = sc[S_SE], ah = sc[S_AH], al = sc[S_AL];
+    int ri = sc[S_RI];
+    int cols, rows;
+    if (ns == 1) {
+        const int32_t *g = f->comp + C_WORDS * sc[S_COMP];
+        cols = g[C_WIB];
+        rows = g[C_HIB];
+    } else {
+        cols = f->mcux;
+        rows = f->mcuy;
+    }
+    uint8_t dc_stats[16][DC_STAT_BINS], ac_stats[16][AC_STAT_BINS];
+    uint8_t fixed = FIXED_BIN;
+    int uses_dc = !progressive || (ss == 0 && ah == 0);
+    int uses_ac = !progressive || ss > 0;
+    int last_dc[4], context[4];
+    int togo = ri;
+    const int p1 = 1 << al, m1 = (int)(~0u << al);
+    Mcu m;
+    for (int my = 0; my < rows; my++)
+        for (int mx = 0; mx < cols; mx++) {
+            /* statistics and predictions start over at the scan's start
+             * and at every restart marker */
+            int fresh = my == 0 && mx == 0;
+            if (ri) {
+                if (togo == 0) {
+                    arith_restart(&e);
+                    fresh = 1;
+                    togo = ri;
+                }
+                togo--;
+            }
+            if (fresh) {
+                for (int s = 0; s < ns; s++) {
+                    if (uses_dc) {
+                        memset(dc_stats[sc[S_DC + s]], 0, DC_STAT_BINS);
+                        last_dc[s] = 0;
+                        context[s] = 0;
+                    }
+                    if (uses_ac)
+                        memset(ac_stats[sc[S_AC + s]], 0, AC_STAT_BINS);
+                }
+            }
+            if (!mcu_blocks(f, sc, mx, my, &m))
+                return -1;
+            if (e.ct == -1)
+                continue; /* after a coding error: nothing until a restart */
+            if (progressive && ss == 0 && ah) { /* DC refinement */
+                for (int k0 = 0; k0 < m.n; k0++)
+                    if (arith_decode(&e, &fixed))
+                        m.blk[k0][0] = (int16_t)(m.blk[k0][0] | p1);
+                continue;
+            }
+            if (!progressive || ss == 0) {
+                for (int k0 = 0; k0 < m.n; k0++) {
+                    int16_t *blk = m.blk[k0];
+                    int c = m.ci[k0];
+                    int cond = sc[S_COND + c];
+                    int v = arith_dc_diff(&e, dc_stats[sc[S_DC + c]],
+                                          &context[c], cond & 15,
+                                          (cond >> 4) & 15);
+                    if (e.ct == -1)
+                        break;
+                    last_dc[c] = (last_dc[c] + v) & 0xFFFF;
+                    blk[0] = (int16_t)((unsigned)last_dc[c] << al);
+                    if (progressive)
+                        continue;
+                    uint8_t *ac = ac_stats[sc[S_AC + c]];
+                    int K = cond >> 8;
+                    for (int k = 1; k <= 63; k++) {
+                        uint8_t *st = ac + 3 * (k - 1);
+                        if (arith_decode(&e, st))
+                            break; /* EOB */
+                        while (arith_decode(&e, st + 1) == 0) {
+                            st += 3;
+                            if (++k >= 64) {
+                                e.ct = -1; /* spectral overflow */
+                                break;
+                            }
+                        }
+                        if (e.ct == -1)
+                            break;
+                        v = arith_ac_value(&e, ac, st, k, K, &fixed);
+                        if (e.ct == -1)
+                            break;
+                        blk[NATURAL[k]] = (int16_t)v;
+                    }
+                    if (e.ct == -1)
+                        break;
+                }
+                continue;
+            }
+            int16_t *blk = m.blk[0];
+            uint8_t *ac = ac_stats[sc[S_AC]];
+            int K = sc[S_COND] >> 8;
+            if (ah == 0) { /* AC first */
+                for (int k = ss; k <= se; k++) {
+                    uint8_t *st = ac + 3 * (k - 1);
+                    if (arith_decode(&e, st))
+                        break;
+                    while (arith_decode(&e, st + 1) == 0) {
+                        st += 3;
+                        if (++k > se) {
+                            e.ct = -1;
+                            break;
+                        }
+                    }
+                    if (e.ct == -1)
+                        break;
+                    int v = arith_ac_value(&e, ac, st, k, K, &fixed);
+                    if (e.ct == -1)
+                        break;
+                    blk[NATURAL[k]] = (int16_t)((unsigned)v << al);
+                }
+                continue;
+            }
+            /* AC refinement: EOBx is the previous stage's end of block */
+            int kex = se;
+            for (; kex > 0; kex--)
+                if (blk[NATURAL[kex]])
+                    break;
+            for (int k = ss; k <= se; k++) {
+                uint8_t *st = ac + 3 * (k - 1);
+                if (k > kex && arith_decode(&e, st))
+                    break;
+                for (;;) {
+                    int16_t *coef = blk + NATURAL[k];
+                    if (*coef) {
+                        if (arith_decode(&e, st + 2))
+                            *coef = (int16_t)(*coef + (*coef < 0 ? m1 : p1));
+                        break;
+                    }
+                    if (arith_decode(&e, st + 1)) {
+                        *coef = (int16_t)(arith_decode(&e, &fixed) ? m1 : p1);
+                        break;
+                    }
+                    st += 3;
+                    if (++k > se) {
+                        e.ct = -1;
+                        break;
+                    }
+                }
+                if (e.ct == -1)
+                    break;
+            }
+        }
+    return 0;
+}
+
 /* data: the file; scans: nscans descriptors of S_WORDS int32 (offset and
  * length of the entropy-coded segment, with its RSTn markers, in data);
  * tables: HT_WORDS int32 per Huffman table; coefs: per component, its
  * int16 blocks of 64 coefficients in natural order, zeroed by the caller;
  * comp: C_WORDS int32 per component; mcux, mcuy: MCUs of an interleaved
- * scan. Returns 0, or 1 + the index of a scan with an MCU of more than 10
+ * scan; mode: 1 for a progressive frame, | 2 for arithmetic coding.
+ * Returns 0, or 1 + the index of a scan with an MCU of more than 10
  * blocks. */
 int jpeg_entropy(const uint8_t *data, const int32_t *scans, int nscans,
                  const int32_t *tables, int16_t *const *coefs,
-                 const int32_t *comp, int mcux, int mcuy, int progressive)
+                 const int32_t *comp, int mcux, int mcuy, int mode)
 {
     Frame f = {coefs, comp, tables, mcux, mcuy};
-    for (int i = 0; i < nscans; i++)
-        if (decode_scan(&f, data, scans + (size_t)S_WORDS * i, progressive))
+    int progressive = mode & 1;
+    for (int i = 0; i < nscans; i++) {
+        const int32_t *sc = scans + (size_t)S_WORDS * i;
+        if ((mode & 2 ? decode_scan_arith(&f, data, sc, progressive)
+                      : decode_scan(&f, data, sc, progressive)))
             return 1 + i;
+    }
     return 0;
 }
 
@@ -539,12 +923,110 @@ static void idct_islow(const int16_t *in, const int16_t *q, uint8_t *out,
     }
 }
 
-/* ---- upsampling (jdsample.c) ------------------------------------------- */
+/* ---- block smoothing (jdcoefct.c, decompress_smooth_data) --------------- */
 
 static inline int clampi(int v, int lo, int hi)
 {
     return v < lo ? lo : (v > hi ? hi : v);
 }
+
+
+/* libjpeg's estimate of one coefficient: num / (Q << 8), rounded, its
+ * magnitude held below 1 << Al where Al > 0 (clamp) */
+static int16_t smooth_pred(int64_t num, int64_t q, int al, int clamp)
+{
+    int64_t a = num >= 0 ? num : -num;
+    int pred = (int)(((q << 7) + a) / (q << 8));
+    if (clamp && al > 0 && pred >= (1 << al))
+        pred = (1 << al) - 1;
+    return (int16_t)(num >= 0 ? pred : -pred);
+}
+
+/* The first nine AC coefficients of a block (and, where no AC data came
+ * at all, its DC) estimated from the DC values d[1..25] of its 5x5
+ * neighbourhood (row by row), for each coefficient still zero and not
+ * known to full precision; bits: the component's coef_bits[0..9] as the
+ * last scan left them; q: its quantization table (natural order). */
+static void smooth_block(int16_t *w, const int *d, const int *bits,
+                         const int16_t *qt)
+{
+    int change_dc = 1;
+    for (int k = 1; k < 10; k++)
+        change_dc &= bits[k] == -1;
+    int64_t q00 = (uint16_t)qt[0];
+#define Q(pos) ((int64_t)(uint16_t)qt[pos])
+#define EST(k, pos, dc_num, ac_num) \
+    if (bits[k] != 0 && w[pos] == 0) \
+        w[pos] = smooth_pred(q00 * (change_dc ? (int64_t)(dc_num) \
+                                              : (int64_t)(ac_num)), \
+                             Q(pos), bits[k], 1);
+    EST(1, 1,
+        -d[1] - d[2] + d[4] + d[5] - 3 * d[6] + 13 * d[7] - 13 * d[9]
+            + 3 * d[10] - 3 * d[11] + 38 * d[12] - 38 * d[14] + 3 * d[15]
+            - 3 * d[16] + 13 * d[17] - 13 * d[19] + 3 * d[20] - d[21]
+            - d[22] + d[24] + d[25],
+        -7 * d[11] + 50 * d[12] - 50 * d[14] + 7 * d[15])
+    EST(2, 8,
+        -d[1] - 3 * d[2] - 3 * d[3] - 3 * d[4] - d[5] - d[6] + 13 * d[7]
+            + 38 * d[8] + 13 * d[9] - d[10] + d[16] - 13 * d[17]
+            - 38 * d[18] - 13 * d[19] + d[20] + d[21] + 3 * d[22]
+            + 3 * d[23] + 3 * d[24] + d[25],
+        -7 * d[3] + 50 * d[8] - 50 * d[18] + 7 * d[23])
+    EST(3, 16,
+        d[3] + 2 * d[7] + 7 * d[8] + 2 * d[9] - 5 * d[12] - 14 * d[13]
+            - 5 * d[14] + 2 * d[17] + 7 * d[18] + 2 * d[19] + d[23],
+        -d[3] + 13 * d[8] - 24 * d[13] + 13 * d[18] - d[23])
+    EST(4, 9,
+        -d[1] + d[5] + 9 * d[7] - 9 * d[9] - 9 * d[17] + 9 * d[19] + d[21]
+            - d[25],
+        d[10] + d[16] - 10 * d[17] + 10 * d[19] - d[2] - d[20] + d[22]
+            - d[24] + d[4] - d[6] + 10 * d[7] - 10 * d[9])
+    EST(5, 2,
+        2 * d[7] - 5 * d[8] + 2 * d[9] + d[11] + 7 * d[12] - 14 * d[13]
+            + 7 * d[14] + d[15] + 2 * d[17] - 5 * d[18] + 2 * d[19],
+        -d[11] + 13 * d[12] - 24 * d[13] + 13 * d[14] - d[15])
+    if (!change_dc)
+        return;
+    EST(6, 3, d[7] - d[9] + 2 * d[12] - 2 * d[14] + d[17] - d[19], 0)
+    EST(7, 10, d[7] - 3 * d[8] + d[9] - d[17] + 3 * d[18] - d[19], 0)
+    EST(8, 17, d[7] - d[9] - 3 * d[12] + 3 * d[14] + d[17] - d[19], 0)
+    EST(9, 24, d[7] + 2 * d[8] + d[9] - d[17] - 2 * d[18] - d[19], 0)
+#undef EST
+#undef Q
+    int64_t num = q00 * (int64_t)(
+        -2 * d[1] - 6 * d[2] - 8 * d[3] - 6 * d[4] - 2 * d[5] - 6 * d[6]
+        + 6 * d[7] + 42 * d[8] + 6 * d[9] - 6 * d[10] - 8 * d[11]
+        + 42 * d[12] + 152 * d[13] + 42 * d[14] - 8 * d[15] - 6 * d[16]
+        + 6 * d[17] + 42 * d[18] + 6 * d[19] - 6 * d[20] - 2 * d[21]
+        - 6 * d[22] - 8 * d[23] - 6 * d[24] - 2 * d[25]);
+    w[0] = smooth_pred(num, q00, 0, 0);
+}
+
+/* The coefficient rows libjpeg's smoothing reads around block row `row`
+ * of a component (its 5 rows, top to bottom): the neighbours' edge tests
+ * use the iMCU row's count of block rows, as decompress_smooth_data does,
+ * so that count's rows beyond the image (in whole iMCU rows) can be
+ * read. */
+static void smooth_rows(const int32_t *g, int row, int *r)
+{
+    int v = g[C_V], total = g[C_BH] / v;
+    int imcu = row / v, br = row % v;
+    int block_rows = v;
+    if (imcu == total - 1) {
+        block_rows = g[C_HIB] % v;
+        if (block_rows == 0)
+            block_rows = v;
+    }
+    int image_rows = block_rows * total;
+    int ibr = imcu * block_rows + br;
+    r[2] = row;
+    r[1] = ibr > 0 ? row - 1 : row;
+    r[0] = ibr > 1 ? row - 2 : r[1];
+    r[3] = ibr < image_rows - 1 ? row + 1 : row;
+    r[4] = ibr < image_rows - 2 ? row + 2 : r[3];
+}
+
+/* ---- upsampling (jdsample.c) ------------------------------------------- */
 
 /* One component's samples (dh x dw, row stride `stride`) to the full
  * image (height x width, dense). The fancy filters read the rows above
@@ -647,12 +1129,14 @@ enum { CS_GRAY, CS_YCC, CS_RGB, CS_CMYK, CS_YCCK };
 /* coefs, comp: as for jpeg_entropy; quant: 64 int16 per component in
  * natural order (the table latched at the component's first scan, as
  * libjpeg casts it); hmax, vmax: the largest sampling factors; color: one
- * of CS_*; out: height x width x (1, 3 or 4) bytes: gray, RGB, or CMYK
+ * of CS_*; coef_bits: NULL, or, where libjpeg smooths the blocks of a
+ * progressive file, 10 int32 per component, its coef_bits[0..9] after the
+ * last scan; out: height x width x (1, 3 or 4) bytes: gray, RGB, or CMYK
  * as libjpeg outputs it. Returns 0, or -1 for a sampling ratio that is
  * not an integer. */
 int jpeg_pixels(int16_t *const *coefs, const int32_t *comp, int ncomp,
                 const int16_t *quant, int width, int height, int hmax,
-                int vmax, int color, uint8_t *out)
+                int vmax, int color, const int32_t *coef_bits, uint8_t *out)
 {
     for (int c = 0; c < ncomp; c++) {
         const int32_t *g = comp + C_WORDS * c;
@@ -666,11 +1150,35 @@ int jpeg_pixels(int16_t *const *coefs, const int32_t *comp, int ncomp,
         int wib = g[C_WIB], hib = g[C_HIB];
         ptrdiff_t stride = (ptrdiff_t)wib * 8;
         uint8_t *plane = (uint8_t *)malloc((size_t)stride * hib * 8);
-        for (int by = 0; by < hib; by++)
-            for (int bx = 0; bx < wib; bx++)
-                idct_islow(coefs[c] + ((size_t)by * g[C_BW] + bx) * 64,
-                           quant + 64 * c, plane + by * 8 * stride + bx * 8,
-                           stride);
+        const int16_t *qt = quant + 64 * c;
+        int bits[10];
+        for (int k = 0; coef_bits && k < 10; k++)
+            bits[k] = coef_bits[10 * c + k];
+        for (int by = 0; by < hib; by++) {
+            const int16_t *row = coefs[c] + (size_t)by * g[C_BW] * 64;
+            int r[5];
+            if (coef_bits)
+                smooth_rows(g, by, r);
+            for (int bx = 0; bx < wib; bx++) {
+                const int16_t *blk = row + (size_t)bx * 64;
+                uint8_t *dst = plane + by * 8 * stride + bx * 8;
+                if (!coef_bits) {
+                    idct_islow(blk, qt, dst, stride);
+                    continue;
+                }
+                int d[26];
+                for (int i = 0; i < 5; i++)
+                    for (int j = 0; j < 5; j++) {
+                        int x = clampi(bx + j - 2, 0, wib - 1);
+                        d[1 + 5 * i + j] =
+                            coefs[c][((size_t)r[i] * g[C_BW] + x) * 64];
+                    }
+                int16_t w[64];
+                memcpy(w, blk, sizeof w);
+                smooth_block(w, d, bits, qt);
+                idct_islow(w, qt, dst, stride);
+            }
+        }
         int dw = (int)(((int64_t)width * g[C_H] + hmax - 1) / hmax);
         int dh = (int)(((int64_t)height * g[C_V] + vmax - 1) / vmax);
         upsample(plane, stride, dw, dh, hmax / g[C_H], vmax / g[C_V],

@@ -4,11 +4,17 @@ libjpeg-turbo's default decompression), on the CPU: equal samples,
 channels and ICC profile, with no tolerance, on a grid of Pillow-written
 files (4:4:4, 4:2:2 and 4:2:0; baseline and progressive; optimized
 tables or not; q30 and q95; sizes from 1x1 to 129x67), on grayscale,
-CMYK, restart markers, multi-chunk ICC and DHT-less files, and on the committed
-fixtures (``tests/torch_fixtures/jpeg``, which add 4:4:0, 4:1:1, one
-component per sequential scan and YCCK from libjpeg-turbo's encoder),
-each also held to its manifest CRC. Truncated files and garbage raise in
-both packages; unsupported variants raise ``ValueError`` naming them.
+CMYK, restart markers, multi-chunk ICC and DHT-less files, on
+arithmetic-coded files (sequential and progressive, 4:2:0, 4:4:4 and
+gray, with and without restart markers, with default and with written
+``DAC`` conditioning) and on progressive files whose scan scripts leave
+low coefficients unrefined, which libjpeg block-smooths (both written by
+``tests/torch_fixtures/jpeg/jpeg_writer.c``, a libjpeg program built here
+with gcc), and on the committed fixtures (``tests/torch_fixtures/jpeg``,
+which add 4:4:0, 4:1:1, one component per sequential scan and YCCK from
+libjpeg-turbo's encoder), each also held to its manifest CRC. Truncated
+files and garbage raise in both packages; unsupported variants raise
+``ValueError`` naming them.
 End to end, the port's CLI on a 256x256 JPEG gives the reference CLI's q
 and passes, and the bytes of the port's CLI on the decoded pixels as PAM.
 """
@@ -18,6 +24,7 @@ from __future__ import annotations
 import io
 import json
 import re
+import subprocess
 import sys
 import zlib
 from pathlib import Path
@@ -186,11 +193,11 @@ def _with_sof(marker: int, precision: int = 8) -> bytes:
 
 @pytest.mark.parametrize("data,variant", [
     (_with_sof(0xC3), "lossless JPEG (SOF3)"),
-    (_with_sof(0xC9), "arithmetic-coded JPEG (SOF9)"),
-    (_with_sof(0xCA), "arithmetic-coded progressive JPEG (SOF10)"),
+    (_with_sof(0xCB), "arithmetic-coded lossless JPEG (SOF11)"),
+    (_with_sof(0xCD), "arithmetic-coded hierarchical JPEG (SOF13)"),
     (_with_sof(0xC5), "hierarchical JPEG (SOF5)"),
     (_with_sof(0xC0, 12), "12-bit JPEG"),
-], ids=("sof3", "sof9", "sof10", "sof5", "12bit"))
+], ids=("sof3", "sof11", "sof13", "sof5", "12bit"))
 def test_unsupported_variant_raises_naming_it(tmp_path, data, variant):
     path = tmp_path / "in.jpg"
     path.write_bytes(data)
@@ -213,21 +220,123 @@ def _scans(data: bytes):
         pos = end
 
 
-def test_unrefined_progression_raises_where_libjpeg_smooths(tmp_path):
+def test_unrefined_progression_is_smoothed_as_libjpeg(tmp_path):
     """A progressive file without its last scan (jpeg_simple_progression's
     final luma AC refinement) leaves the first AC coefficients at Al = 1:
-    libjpeg smooths such blocks, which this reader does not do, so it
-    raises rather than return other samples than Pillow's."""
+    libjpeg smooths such blocks, and so does this reader."""
     data = _jpeg(_image(32, 48, seed=9), progressive=True)
     start, end = _scans(data)[-1]
     cut = data[:start] + data[end:]
     path = tmp_path / "in.jpg"
     path.write_bytes(cut)
-    assert ref_load_jpeg(str(path)).data.shape == (32, 48, 3)
-    with pytest.raises(ValueError, match="block smoothing"):
-        load_jpeg(str(path))
-    # with the last scan the same file decodes
+    r = jpeg._Reader(cut)
+    r.read()
+    assert r.smoothed()
+    _assert_equal(path)
+    # with the last scan the same file is not smoothed
     path.write_bytes(data)
+    r = jpeg._Reader(data)
+    r.read()
+    assert not r.smoothed()
+    _assert_equal(path)
+
+
+@pytest.fixture(scope="module")
+def writer(tmp_path_factory):
+    """``jpeg_writer.c`` built against the system's libjpeg."""
+    exe = tmp_path_factory.mktemp("writer") / "jpeg_writer"
+    subprocess.run(["gcc", "-O2", "-o", str(exe),
+                    str(FIXTURES / "jpeg_writer.c"), "-ljpeg"], check=True)
+    return exe
+
+
+def _written(writer, tmp_path, px: np.ndarray, variant: str) -> Path:
+    raw = tmp_path / "in.raw"
+    raw.write_bytes(np.ascontiguousarray(px).tobytes())
+    path = tmp_path / "in.jpg"
+    h, w, ch = px.shape
+    subprocess.run([str(writer), str(raw), str(w), str(h), str(ch), "85",
+                    variant, str(path)], check=True)
+    return path
+
+
+def _dac(data: bytes) -> list:
+    """The payloads of the file's DAC segments."""
+    out, pos = [], 2
+    while True:
+        marker, pos = jpeg._next_marker(data, pos)
+        if marker == 0xDA:
+            return out
+        start, end = jpeg._segment(data, pos)
+        if marker == 0xCC:
+            out.append(data[start:end])
+        pos = end
+
+
+ARITH = {"seq_420": "arith+baseline", "seq_444": "arith+444",
+         "seq_420_restart": "arith+rst+baseline",
+         "seq_444_restart": "arith+rst+444",
+         "progressive": "arith+progressive",
+         "progressive_restart": "arith+rst+progressive",
+         "gray": "arith+baseline", "gray_progressive": "arith+progressive",
+         "dac": "dac+baseline", "dac_progressive": "dac+progressive"}
+
+
+@pytest.mark.parametrize("size", ((61, 97), (1, 1), (33, 47)),
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("case", sorted(ARITH))
+def test_arithmetic_equals_reference(tmp_path, writer, case, size):
+    """SOF9 and SOF10 files from libjpeg's arithmetic encoder, which
+    writes a DAC marker before every scan: the default conditioning, and
+    in the ``dac`` cases L, U and K other than the defaults."""
+    h, w = size
+    px = _image(h, w, 1 if "gray" in case else 3, seed=h * w + 3)
+    path = _written(writer, tmp_path, px, ARITH[case])
+    data = path.read_bytes()
+    sof = b"\xff\xca" if "progressive" in case else b"\xff\xc9"
+    assert sof in data
+    dac = b"".join(_dac(data))
+    assert dac
+    assert (b"\x00\x62" in dac) == case.startswith("dac")  # L=2, U=6
+    _assert_equal(path)
+
+
+SMOOTHED = {
+    "no_refinement": "progressive_unrefined",
+    "ac_al2": "scans:0,1,2:0-0:0:0;0:1-63:0:2;1:1-63:0:2;2:1-63:0:2",
+    "luma_6_63_al1": "scans:0,1,2:0-0:0:0;0:1-5:0:0;0:6-63:0:1;"
+                     "1:1-63:0:0;2:1-63:0:0",
+    "luma_1_9_missing": "scans:0,1,2:0-0:0:0;0:10-63:0:0;1:1-63:0:1;"
+                        "2:1-63:0:1",
+    "refined_to_al1": "scans:0,1,2:0-0:0:1;0:1-63:0:2;0:1-63:2:1;"
+                      "1:1-63:0:1;2:1-63:0:1;0,1,2:0-0:1:0",
+    "dc_al1_no_chroma_ac": "scans:0,1,2:0-0:0:1;0:1-63:0:0",
+    "dc_only": "scans:0,1,2:0-0:0:0",
+    "dc_al1_444": "444+scans:0,1,2:0-0:0:1;0:1-63:0:0",
+    "arith_ac_al2": "arith+scans:0,1,2:0-0:0:1;0:1-63:0:2;1:1-63:0:2;"
+                    "2:1-63:0:2",
+    "gray_ac_al2": "scans:0:0-0:0:1;0:1-63:0:2",
+}
+
+
+@pytest.mark.parametrize("size", ((61, 97), (1, 1), (33, 47), (100, 130)),
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("case", sorted(SMOOTHED))
+def test_block_smoothing_equals_reference(tmp_path, writer, case, size):
+    """Progressive scan scripts that leave one of the first nine AC
+    coefficients unrefined, so that libjpeg smooths the blocks: at Al = 1
+    or 2, or never sent (with the DC then estimated from a 5x5
+    neighbourhood where a component has no AC data at all, and the DC
+    itself left at Al = 1 in some); heights whose last iMCU row is
+    partial."""
+    h, w = size
+    px = _image(h, w, 1 if "gray" in case else 3, seed=h * w + 4)
+    path = _written(writer, tmp_path, px, SMOOTHED[case])
+    r = jpeg._Reader(path.read_bytes())
+    r.read()
+    assert r.smoothed()
+    no_ac = [all(b == -1 for b in c.coef_bits[1:10]) for c in r.comps]
+    assert any(no_ac) == (case.startswith(("dc_", "luma_1_9")))
     _assert_equal(path)
 
 

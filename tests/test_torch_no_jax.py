@@ -11,8 +11,11 @@ the device encode stage through the Python tile coder (``-q 89`` with
 ``OAVIF_PY_TILE=1 OAVIF_DEVICE_LEVELS=1``), a score through the recursive
 blur (``OAVIF_METRIC_BLUR=iir``), a width-sharded score on two spawned
 ranks, the CLI on the same image as an 8-bit PNG, the corpus harness
-on two PNGs, the CLI on a JPEG fixture (``tests/torch_fixtures/jpeg``)
-and the corpus harness on a directory holding a JPEG. The script runs
+on two PNGs, the CLI on a JPEG fixture (``tests/torch_fixtures/jpeg``),
+the corpus harness on a directory holding a JPEG, ``load_jpeg`` on an
+arithmetic-coded progressive fixture with a DAC marker, and the CLI on a
+lossy WebP fixture with an alpha plane (``tests/torch_fixtures/webp``),
+all decoded by the port's own C. The script runs
 from a file, so the ranks (spawned processes re-import it) refuse the
 same modules. Nothing may import a refused
 module. A static check refuses the same imports in the sources.
@@ -113,6 +116,10 @@ def main():
         rows = list(csv.DictReader(f))
     assert [(r["Image"], r["Status"]) for r in rows] == [
         ("photo.jpg", "ok")], rows
+    arith, webp = sys.argv[9], sys.argv[10]
+    assert load_image(arith).data.shape == (256, 256, 3)
+    assert load_image(webp).channels == 4
+    assert cli.run(["-q", "60", webp, out]) == 0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not loaded, loaded
     print("NO_JAX_OK")
@@ -152,7 +159,10 @@ def test_port_cli_runs_without_jax_or_pillow(tmp_path):
         [sys.executable, str(script), str(src), str(tmp_path / "o.avif"),
          str(png), str(corpus), str(tmp_path / "corpus.csv"),
          str(fixtures / "text_icc.jpg"), str(jpg_corpus),
-         str(tmp_path / "jpg_corpus.csv")],
+         str(tmp_path / "jpg_corpus.csv"),
+         str(fixtures / "text_arith_progressive_dac.jpg"),
+         str(REPO / "tests" / "torch_fixtures" / "webp"
+             / "text_alpha_q80.webp")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout

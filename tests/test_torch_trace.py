@@ -10,6 +10,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 
 import pytest
 
@@ -70,3 +71,20 @@ def test_trace_line_is_the_reference_line():
     line = 'f"Profiler trace written to {trace_dir}"'
     assert line in inspect.getsource(ref_cli.run)
     assert line in inspect.getsource(cli.run)
+
+
+@pytest.mark.parametrize("user", (None, "1"), ids=("unset", "user_set"))
+def test_trace_keeps_cupti_attached_unless_the_user_chose(src, tmp_path,
+                                                          monkeypatch, user):
+    """The traced CLI sets ``TEARDOWN_CUPTI=0`` before its profiler
+    session, so that a process that runs several traced searches (the
+    harness) keeps the card's records in each; a value the user set
+    stays."""
+    if user is None:
+        monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+    else:
+        monkeypatch.setenv("TEARDOWN_CUPTI", user)
+    monkeypatch.setenv("OAVIF_TRACE", str(tmp_path / "trace"))
+    rc, log, _ = _run(["-t", "80"], src, tmp_path / "traced.avif")
+    assert rc == 0 and "Profiler trace written" in log
+    assert os.environ["TEARDOWN_CUPTI"] == ("0" if user is None else user)

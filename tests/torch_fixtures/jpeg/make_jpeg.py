@@ -7,8 +7,11 @@ Pillow writes the six bench classes at 512x512 (q85, 4:2:0, baseline),
 the ``text`` class in the variants below (at 512x512, 256x256 or
 509x383: the directory stays under 2 MB), and ``chip_smoke.frame_4k()`` as
 a 3840x2160 q75 4:2:0 baseline file. The variants Pillow cannot write
-(4:4:0, 4:1:1, one component per sequential scan, YCCK) come from
-``jpeg_writer.c`` beside this script, a libjpeg-turbo program: build it
+(4:4:0, 4:1:1, one component per sequential scan, YCCK, arithmetic coding
+sequential and progressive with DAC conditioning, and progressive scan
+scripts that leave coefficients unrefined, which libjpeg block-smooths)
+come from ``jpeg_writer.c`` beside this script, a libjpeg-turbo program:
+build it
 (``cc -O2 -o jpeg_writer jpeg_writer.c -ljpeg``) and pass it as
 ``--writer`` to write them again; without it the files in the directory
 are kept. The manifest holds, for every file, the shape and channels of
@@ -72,11 +75,21 @@ def pillow_files() -> dict:
     return files
 
 
-# name -> the writer's variant, at 256x256 of the variant class
+# name -> the writer's variant, at 256x256 of the variant class (the
+# last two at 128x128); smoothed: no luma AC refinement; smoothed_dc: the
+# DC left at Al = 1 and no chroma AC at all (libjpeg then estimates the
+# DC from a 5x5 neighbourhood)
 WRITER_FILES = {f"{VARIANT_CLASS}_440.jpg": "440",
                 f"{VARIANT_CLASS}_411.jpg": "411",
                 f"{VARIANT_CLASS}_noninterleaved.jpg": "noninterleaved",
-                f"{VARIANT_CLASS}_ycck.jpg": "ycck"}
+                f"{VARIANT_CLASS}_ycck.jpg": "ycck",
+                f"{VARIANT_CLASS}_arith_restart.jpg": "arith+rst+baseline",
+                f"{VARIANT_CLASS}_arith_progressive_dac.jpg":
+                    "dac+progressive",
+                f"{VARIANT_CLASS}_smoothed.jpg": "progressive_unrefined",
+                f"{VARIANT_CLASS}_smoothed_dc.jpg":
+                    "scans:0,1,2:0-0:0:1;0:1-63:0:0"}
+SMALL = ("_smoothed.jpg", "_smoothed_dc.jpg")
 
 
 def write_with(writer: str) -> None:
@@ -86,12 +99,14 @@ def write_with(writer: str) -> None:
     with tempfile.TemporaryDirectory() as td:
         for name, variant in WRITER_FILES.items():
             px = cmyk if variant == "ycck" else src
+            if name.endswith(SMALL):
+                px = px[:128, :128]
             raw = os.path.join(td, "in.raw")
             with open(raw, "wb") as f:
                 f.write(np.ascontiguousarray(px).tobytes())
-            subprocess.run([writer, raw, "256", "256", str(px.shape[2]),
-                            "85", variant, os.path.join(HERE, name)],
-                           check=True)
+            subprocess.run([writer, raw, str(px.shape[1]), str(px.shape[0]),
+                            str(px.shape[2]), "85", variant,
+                            os.path.join(HERE, name)], check=True)
 
 
 def pillow_decode(path: str):
