@@ -130,21 +130,36 @@ Phases, each of which raises on failure (exit code != 0):
 17. the stage profile (``scripts/profile_stages.py``) of ``-t 80`` on the
    six classes and the 3840x2160 frame, its text and JSON lines; q must be
    the CLI's;
-18. decode: whether ``libavif.so.15`` loads; where it does, each class at
-   its ``-t 80`` q and the frame at q 60 decode through ``decode_to_yuv``
-   to exactly the recon's YUV and through ``CudaBackend.decode_to_rgb8``
-   to the recon within 1;
-19. ``OAVIF_TRACE``: the CLI ``-t 80`` on edges and mixed under it, each
+18. decode, on this machine without libavif or Pillow: each class at its
+   ``-t 80`` q, the 3840x2160 frame at q 60 (in one tile and in four), and
+   one stream per tool (filter intra at speed 8, Wiener and SGR at speed
+   5, IDTX under ``--tune ssim``, palette on ``text``, lossless, 8-bit
+   output, alpha lossless and at ``--quality-alpha 50``, 64-pixel
+   superblocks), encoded by ``CudaBackend``, decode with the port's own
+   AVIF reader (``io/avif.py``, ``io/av1_decode.c``) to exactly the
+   recon's Y'UV, the recon's conversion of those planes to exactly the
+   recon RGB, and a lossless alpha item to the source's alpha;
+   ``decode_to_rgb8``'s distance from the recon RGB is printed;
+19. main path, AVIF input: every fixture of ``tests/torch_fixtures/avif``
+   (the port's toolset, written by the JAX package's CLI) decodes to its
+   manifest's CRC32s (dav1d's Y'UV and the reference's ``load_avif`` and
+   ``decode_avif_to_rgb8`` pixels), each read timed (median of 5, split
+   into parse and tile decode, post-filters and conversion); each refusal
+   fixture (4:2:0, 4:2:2, the intra edge filter) raises ``ValueError``
+   naming its tool; the CLI (``-t 80`` on the six class AVIFs, ``-q 60``
+   on the 3840x2160 one) gives the q, passes and bytes of the same pixels
+   (as PAM where they are 8-bit, in memory where they are 16-bit);
+20. ``OAVIF_TRACE``: the CLI ``-t 80`` on edges and mixed under it, each
    run in a process of its own as a user runs it, must exit 0, print the
    reference's line, write one Chrome trace holding the planner kernel's
    device records (their count beside its launches) and give the
    untraced bytes; walls with and without the trace;
-20. ``OAVIF_TRACE`` over the corpus harness, which runs both searches in
+21. ``OAVIF_TRACE`` over the corpus harness, which runs both searches in
    one process: first under kineto's default CUPTI teardown
    (``TEARDOWN_CUPTI=1``), then as users run it; each trace's planner
    records beside its image's launches, and in the second run every trace
    must hold some;
-21. planner trace: device kernels per plan of the old path and of the
+22. planner trace: device kernels per plan of the old path and of the
    fused kernel, and the fused kernel's own device time, from one
    ``torch.profiler`` trace per size (512x512 and 3840x2160), last.
 
@@ -196,7 +211,7 @@ from oavif_tpu_torch.av1 import restoration_sharded as WS
 from oavif_tpu_torch.av1 import encode_tpu as ET
 from oavif_tpu_torch.av1 import frame as FR
 from oavif_tpu_torch.av1.encode import _depth_convert
-from oavif_tpu_torch.av1.yuv import rgb_to_yuv444
+from oavif_tpu_torch.av1.yuv import rgb_to_yuv444, yuv444_to_rgb
 from oavif_tpu_torch.device import resolve_device
 from oavif_tpu_torch.av1.restoration import (_band_rows, _coeffs7,
                                              apply_wiener, count_units,
@@ -2393,47 +2408,224 @@ def _recon_planes():
     return seen, restore
 
 
-def phase_decode(images: dict, frame4k: np.ndarray, tq: dict) -> bool:
-    """Where libavif.so.15 loads: each class at its ``-t 80`` q and the
-    3840x2160 frame at q 60, encoded by ``CudaBackend``, decode through
-    ``decode_to_yuv`` to exactly the recon's YUV and through
-    ``CudaBackend.decode_to_rgb8`` to the recon within 1. Where it does
-    not, says so. Returns whether it loaded."""
-    from oavif_tpu_torch.backend.cuda import CudaBackend
-    from oavif_tpu_torch.io import avif_ctypes
+def with_alpha(rgb: np.ndarray) -> np.ndarray:
+    """The image with an alpha plane: a diagonal ramp, fully transparent
+    in its top-left quarter (``tests/torch_fixtures/avif/make_avif.py``
+    writes its alpha fixtures with it)."""
+    h, w = rgb.shape[:2]
+    yy, xx = np.mgrid[0:h, 0:w]
+    a = ((xx + yy) * 255 // max(h + w - 2, 1)).astype(np.uint8)
+    a[: h // 4, : w // 4] = 0
+    return np.concatenate([rgb, a[..., None]], -1)
 
-    try:
-        lib = avif_ctypes._load()
-    except OSError as e:
-        print(f"  decode: {e}; decode_to_rgb8 and decode_to_yuv cannot run "
-              "here (a host library this machine lacks, not a device path)",
-              flush=True)
-        return False
-    lib.avifVersion.restype = ctypes.c_char_p
-    print(f"  decode: libavif.so.15 loads, version "
-          f"{lib.avifVersion().decode()}", flush=True)
+
+def decode_streams(images: dict, frame4k: np.ndarray, tq: dict):
+    """(name, ctx, extra environment) of ``phase_decode``'s streams: each
+    class at its ``-t 80`` q, the 3840x2160 frame at q 60, and one stream
+    per tool the encoder switches on."""
+    from oavif_tpu_torch.backend import EncCtx
+    from oavif_tpu_torch.io.image import Image
+    from oavif_tpu_torch.options import EncOptions, TuneMode
+
+    def ctx(rgb, q, **opts):
+        h, w = rgb.shape[:2]
+        ch = rgb.shape[2]
+        c = EncCtx(o=EncOptions(**opts),
+                   src=Image(width=w, height=h, channels=ch, hbd=False,
+                             data=rgb), rgb=rgb[..., :3], w=w, h=h)
+        c.q = q
+        return c
+
+    mixed, text = images["mixed"], images["text"]
+    out = [(name, ctx(rgb, tq[name]), {}) for name, rgb in images.items()]
+    out += [
+        ("photo4k", ctx(frame4k, 60), {}),
+        ("filter intra (speed 8)", ctx(mixed, 60, speed=8), {}),
+        ("Wiener and SGR (speed 5)", ctx(mixed, 60, speed=5), {}),
+        ("IDTX (--tune ssim)", ctx(mixed, 60, tune=TuneMode.SSIM), {}),
+        ("palette (text)", ctx(text, 60), {}),
+        ("lossless (-q 100)", ctx(text, 100), {}),
+        ("8-bit output", ctx(mixed, 60, tenbit=False), {}),
+        ("alpha lossless", ctx(with_alpha(mixed), 60, quality_alpha=100),
+         {}),
+        ("alpha --quality-alpha 50", ctx(with_alpha(mixed), 60,
+                                         quality_alpha=50), {}),
+        ("photo4k in 4 tiles", ctx(frame4k, 60, auto_tiling=False,
+                                   tile_cols_log2=1, tile_rows_log2=1), {}),
+        ("OAVIF_SB128=0", ctx(mixed, 60), {"OAVIF_SB128": "0"}),
+    ]
+    return out
+
+
+def phase_decode(images: dict, frame4k: np.ndarray, tq: dict) -> dict:
+    """The port's AVIF decoder on the port's own streams, on this
+    machine (no libavif, no Pillow): each stream of ``decode_streams``,
+    encoded by ``CudaBackend`` (the planner kernel launches), decodes
+    through ``io.avif.decode_avif`` to exactly the recon's Y'UV; the
+    recon's own conversion of the decoded planes gives the recon RGB
+    exactly (the bar of ``tests/test_torch_decode.py``); an alpha item
+    decodes to the source's alpha where it is lossless; and
+    ``CudaBackend.decode_to_rgb8`` runs, its distance from the recon RGB
+    printed (libavif's conversion, which it reproduces, narrows 10-bit
+    Y'UV to 8 bits first). Returns the kernels' launches."""
+    from oavif_tpu_torch.av1.encode import _depth_convert
+    from oavif_tpu_torch.backend.cuda import CudaBackend
+    from oavif_tpu_torch.io.avif import decode_avif
+
     backend = CudaBackend()
     seen, restore = _recon_planes()
+    reset_counts()
     try:
-        for name, rgb in [*images.items(), ("photo4k", frame4k)]:
-            ctx = make_ctx(rgb)
-            ctx.q = 60 if name == "photo4k" else tq[name]
-            data, recon = backend.encode_with_recon(ctx)
-            yuv, depth, _ = avif_ctypes.decode_to_yuv(data)
-            if not all(np.array_equal(d, p)
-                       for d, p in zip(yuv, seen[data])):
-                raise AssertionError(f"decode {name}: YUV != recon's")
+        for name, ctx, env in decode_streams(images, frame4k, tq):
+            saved = {k: os.environ.get(k) for k in [*env, "OAVIF_IDTX"]}
+            os.environ.update(env)
+            # each stream encodes as a fresh CLI process would: the
+            # cross-probe decision cache is keyed by the plan alone, so a
+            # plan reused under other options replays decisions those
+            # options' headers do not allow (ROADMAP Queue 3)
+            FR.reset_planners()
+            try:
+                data, recon = backend.encode_with_recon(ctx)
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            t0 = time.perf_counter()
+            box, img, alpha = decode_avif(data)
+            t_dec = time.perf_counter() - t0
+            for i, (d, p) in enumerate(zip(img.planes, seen[data])):
+                if not np.array_equal(d, p):
+                    raise AssertionError(f"decode {name}: plane {i} != "
+                                         "recon's")
+            if not np.array_equal(yuv444_to_rgb(img.planes, img.bit_depth),
+                                  recon):
+                raise AssertionError(f"decode {name}: the recon's "
+                                     "conversion of the decoded planes != "
+                                     "the recon RGB")
+            note = ""
+            if alpha is not None:
+                src = _depth_convert(ctx.src.data[..., 3], False,
+                                     alpha.bit_depth)
+                same = np.array_equal(alpha.planes[0], src)
+                if ctx.o.quality_alpha == 100 and not same:
+                    raise AssertionError(f"decode {name}: lossless alpha "
+                                         "!= source")
+                note = (f"; alpha item {alpha.bit_depth}-bit, "
+                        f"{'== source' if same else 'lossy'}")
             dec = backend.decode_to_rgb8(data)
             diff = np.abs(dec.astype(int) - recon.astype(int))
-            if diff.max() > 1:
-                raise AssertionError(f"decode {name}: RGB off the recon by "
-                                     f"{diff.max()}")
-            print(f"  decode {name} q{ctx.q}: {len(data)} bytes, {depth}-bit "
-                  f"YUV == recon's; RGB within {diff.max()} of the recon "
+            print(f"  decode {name} q{ctx.q}: {len(data)} bytes, "
+                  f"{img.bit_depth}-bit Y'UV == recon's (decode "
+                  f"{t_dec * 1e3:.3f} ms){note}; decode_to_rgb8 within "
+                  f"{int(diff.max())} of the recon RGB "
                   f"({int((diff > 0).sum())} samples differ)", flush=True)
     finally:
         restore()
-    return True
+    counts = read_counts()
+    if counts["planner_plan"] <= 0:
+        raise AssertionError("the decode phase's encodes launched no "
+                             "planner kernel")
+    return counts
+
+
+AVIF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "torch_fixtures", "avif")
+
+
+def phase_avif_input(images: dict, acc: dict) -> dict:
+    """The port's AVIF reader and the CLI on AVIF input. Every fixture of
+    ``tests/torch_fixtures/avif`` that holds the port's toolset decodes
+    to its manifest's CRC32s (dav1d's Y'UV, and the reference's
+    ``load_avif`` and ``decode_avif_to_rgb8`` pixels as Pillow gave them
+    when the fixtures were made), each read timed (median of 5), the
+    3840x2160 read split into parse and tile decode, post-filters and
+    conversion; each refusal fixture raises ``ValueError`` naming its
+    tool. Then the CLI ``-t 80`` on the six class AVIFs and ``-q 60`` on
+    the 3840x2160 one: q, passes and bytes must be those of the CLI on the
+    same pixels, written as PAM where they are 8-bit and handed over in
+    memory where they are 16-bit (PAM holds 8 bits). Returns the kernels'
+    launches."""
+    from oavif_tpu_torch.io import avif
+    from oavif_tpu_torch.io.image import Image, load_avif
+
+    with open(os.path.join(AVIF_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    reset_counts()
+    loaded = {}
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(AVIF_DIR, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        if "refuses" in entry:
+            try:
+                load_avif(path)
+            except ValueError as e:
+                if entry["refuses"] not in str(e):
+                    raise AssertionError(f"{name}: refused with {e!r}, not "
+                                         f"naming {entry['refuses']!r}")
+                print(f"  {name}: refused ({e})", flush=True)
+                continue
+            raise AssertionError(f"{name}: decoded, not refused")
+        times, split = [], []
+        for _ in range(5):
+            t, t0 = {}, time.perf_counter()
+            with open(path, "rb") as f:
+                avif.read_avif(f.read(), t)
+            times.append(time.perf_counter() - t0)
+            split.append(t)
+        img = load_avif(path)
+        _, color, _ = avif.decode_avif(data)
+        yuv = np.concatenate([p.astype("<u2").reshape(-1)
+                              for p in color.planes])
+        got = (list(img.data.shape), img.hbd, len(img.icc or b""),
+               zlib.crc32(img.data.tobytes()), zlib.crc32(yuv.tobytes()),
+               zlib.crc32(avif.decode_avif_rgb8(data).tobytes()))
+        want = (entry["load_shape"], entry["load_hbd"], entry["icc"],
+                entry["load_crc"], entry["yuv_crc"], entry["rgb8_crc"])
+        if got != want:
+            raise AssertionError(f"{name}: decoded {got}, manifest {want}")
+        loaded[name] = img
+        parts = ", ".join(f"{k} {np.median([t[k] for t in split]) * 1e3:.3f}"
+                          for k in ("parse", "filters", "convert"))
+        print(f"  {name} {img.width}x{img.height}x{img.channels} "
+              f"{'16' if img.hbd else '8'}-bit ({len(data)} bytes): == "
+              f"manifest CRCs; read {np.median(times) * 1e3:.3f} ms (median "
+              f"of 5, {min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}; "
+              f"{parts} ms)", flush=True)
+    with tempfile.TemporaryDirectory() as td:
+        for name in [*images, "photo4k_q60"]:
+            args = ["-q", "60"] if name == "photo4k_q60" else ["-t", "80"]
+            src = os.path.join(AVIF_DIR, f"{name}.avif")
+            r = run_cli(args, src, os.path.join(td, "o.avif"), acc)
+            img = loaded[f"{name}.avif"]
+            if img.hbd:
+                how = "the same 16-bit pixels in memory"
+                load = cli.load_image
+                cli.load_image = lambda _path, img=img: Image(
+                    width=img.width, height=img.height,
+                    channels=img.channels, hbd=True, data=img.data.copy(),
+                    icc=img.icc)
+                try:
+                    p = run_cli(args, src, os.path.join(td, "o.avif"), acc)
+                finally:
+                    cli.load_image = load
+            else:
+                how = "PAM of its pixels"
+                pam = os.path.join(td, f"{name}.pam")
+                write_pam(pam, img.data)
+                p = run_cli(args, pam, os.path.join(td, "o.avif"), acc)
+            if (r["q"], r["passes"], r["bytes"]) != (p["q"], p["passes"],
+                                                     p["bytes"]):
+                raise AssertionError(
+                    f"{name}.avif {' '.join(args)}: q{r['q']} {r['passes']} "
+                    f"passes {len(r['bytes'])} bytes, {how} q{p['q']} "
+                    f"{p['passes']} passes {len(p['bytes'])} bytes")
+            print(f"  {name}.avif {' '.join(args)}: q{r['q']} passes "
+                  f"{r['passes']} bytes {len(r['bytes'])} == {how}; wall "
+                  f"{r['wall']:.3f} s", flush=True)
+    return read_counts()
 
 
 def main() -> int:
@@ -2561,9 +2753,18 @@ def main() -> int:
           f"{counts}", flush=True)
 
     t0 = time.perf_counter()
-    decoded = phase_decode(images, frame4k, tq)
-    print(f"phase decode: {time.perf_counter() - t0:.1f} s, libavif "
-          f"{'loads' if decoded else 'absent'}", flush=True)
+    counts = phase_decode(images, frame4k, tq)
+    launches = add(launches, counts)
+    print(f"phase decode: {time.perf_counter() - t0:.1f} s, launches "
+          f"{counts}", flush=True)
+
+    t0 = time.perf_counter()
+    counts = phase_avif_input(images, acc)
+    launches = add(launches, counts)
+    print(f"phase AVIF input: {time.perf_counter() - t0:.1f} s, launches "
+          f"{counts}", flush=True)
+    if counts["planner_plan"] <= 0:
+        raise AssertionError("the AVIF path launched no planner kernel")
 
     t0 = time.perf_counter()
     phase_trace(images, acc)

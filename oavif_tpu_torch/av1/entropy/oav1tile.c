@@ -2537,6 +2537,12 @@ static void apply_1d_kind(const int64_t *in, int64_t *out, int n, int kind) {
     else iadst16_c(in, out);
 }
 
+/* the 1D kinds for the AV1 decoder's general 2D inverse
+ * (io/av1_decode.c): 0 DCT (4-64), 1 ADST (4-16), 2 identity (4-32) */
+void inv_1d_kind_pub(const int64_t *in, int64_t *out, int n, int kind) {
+    apply_1d_kind(in, out, n, kind);
+}
+
 void inv_txfm2d_tt(int32_t *cf, int n, int bitdepth, int col_kind,
                    int row_kind) {
     int64_t buf[16 * 16], vec[16], ov[16];

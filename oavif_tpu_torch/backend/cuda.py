@@ -5,8 +5,8 @@ the device, one planning step per probe over device-resident planes
 (``oavif_tpu_torch.av1.encode_tpu``); the entropy-serial work (exact
 prediction, transform and RDOQ under the plan, symbol coding,
 reconstruction, deblocking, CDEF, muxing) runs in the port's copy of the
-reference's C runtime on the host. Decoding goes through the system's
-libavif.
+reference's C runtime on the host. Decoding goes through the port's own
+AVIF reader (``io.avif``), host C as in the reference.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ class CudaBackend:
         return encode_avif_with_recon(ctx)
 
     def decode_to_rgb8(self, data: bytes) -> np.ndarray:
-        """Decode through libavif (``io.image.decode_avif_to_rgb8``): the
-        conformance decoder; the search scores the recon instead and never
-        round-trips bytes. Raises OSError where libavif is absent."""
+        """Decode through the port's own AVIF reader
+        (``io.image.decode_avif_to_rgb8``), to the pixels Pillow's AVIF
+        plugin gives; the search scores the recon instead and never
+        round-trips bytes."""
         return decode_avif_to_rgb8(data)

@@ -1,0 +1,1391 @@
+/* AV1 key-frame tile decoding for the port's AVIF reader
+ * (oavif_tpu_torch/io/avif.py).
+ *
+ * One call decodes every tile of one shown key frame whose headers the
+ * Python side has parsed: the symbol decoder (spec 8.2), the partition
+ * and mode-info syntax of intra frames (spec 5.11), the coefficient
+ * syntax (spec 5.11.39), the loop-restoration unit syntax (spec
+ * 5.11.57-58), and the reconstruction: intra prediction (spec 7.11.2:
+ * every mode, the angle deltas, smooth, Paeth, CFL, palette and the
+ * recursive filter), dequantization and the inverse transforms (spec
+ * 7.12.3, 7.13.3). The post-filters (deblocking, CDEF, loop restoration)
+ * run afterwards on the block records and restoration units this call
+ * returns.
+ *
+ * The default CDFs, the scans, the smooth weights, the directional
+ * derivatives and the filter-intra taps come from the caller
+ * (av1/av1_tables.npz); the CDFs adapt with the host library's
+ * update_cdf_c and are copied afresh for every tile. The 1D inverse
+ * transforms are the host library's (inv_1d_kind_pub).
+ *
+ * Streams outside the toolset below are refused with a message naming
+ * the tool: 4:4:4 or monochrome planes, partitions NONE/HORZ/VERT/SPLIT,
+ * the 2D transform classes (DCT, ADST, identity), luma palette, filter
+ * intra, no intra edge filter.
+ *
+ * Built into the host library beside the tile coder (av1/entropy/fast.py).
+ */
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+
+void update_cdf_c(uint16_t *icdf, int nsym, int val);
+void inv_1d_kind_pub(const int64_t *in, int64_t *out, int n, int kind);
+
+enum { AV1D_OK = 0, AV1D_UNSUPPORTED = 1, AV1D_CORRUPT = 2 };
+
+/* CDF pack order (must match avif.py _CDF_ORDER) */
+enum {
+    D_PART8, D_PART16, D_PART32, D_PART64, D_PART128, D_SKIP, D_KF_Y,
+    D_UV_MODE, D_UV_MODE_CFL, D_ANGLE_DELTA, D_CFL_SIGN, D_CFL_ALPHA,
+    D_TX_SIZE, D_TX1, D_TX2, D_TXB_SKIP, D_EOB16, D_EOB32, D_EOB64,
+    D_EOB128, D_EOB256, D_EOB512, D_EOB1024, D_EOB_EXTRA, D_BASE_EOB,
+    D_BASE, D_BR, D_DC_SIGN, D_PAL_Y_MODE, D_PAL_UV_MODE, D_PAL_Y_SIZE,
+    D_PAL_Y_CI2, D_PAL_Y_CI3, D_PAL_Y_CI4, D_PAL_Y_CI5, D_PAL_Y_CI6,
+    D_PAL_Y_CI7, D_PAL_Y_CI8, D_FI_USE, D_FI_MODE, D_WIENER, D_SGR,
+    D_SWITCHABLE, D_NCDF
+};
+
+/* header pack (must match avif.py _HDR_FIELDS) */
+enum {
+    H_MI_ROWS, H_MI_COLS, H_NPLANES, H_BITDEPTH, H_SB128, H_TILE_COLS,
+    H_TILE_ROWS, H_BASE_Q, H_LOSSLESS, H_TX_MODE, H_REDUCED_TX_SET,
+    H_SCREEN_TOOLS, H_FILTER_INTRA, H_CDEF_ON, H_CDEF_BITS,
+    H_DISABLE_CDF_UPDATE, H_Q_Y_DC, H_Q_Y_AC, H_Q_U_DC, H_Q_U_AC, H_Q_V_DC,
+    H_Q_V_AC, H_LR_TYPE0, H_LR_TYPE1, H_LR_TYPE2, H_LR_UNIT, H_LR_UROWS,
+    H_LR_UCOLS, H_NFIELDS
+};
+
+enum {
+    DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED,
+    D203_PRED, D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED,
+    PAETH_PRED, UV_CFL_PRED
+};
+enum { TX_ONLY_4X4 = 0, TX_MODE_LARGEST = 1, TX_MODE_SELECT = 2 };
+enum {
+    DCT_DCT = 0, ADST_DCT = 1, DCT_ADST = 2, ADST_ADST = 3, IDTX = 9,
+    V_DCT = 10, H_DCT = 11
+};
+enum { SET_DCTONLY = 0, SET_INTRA_1 = 1, SET_INTRA_2 = 2 };
+
+static const int MODE_TO_ANGLE[9] = {0, 90, 180, 45, 135, 113, 157, 203, 67};
+static const int INTRA_MODE_CONTEXT[13] = {0, 1, 2, 3, 4, 4, 4, 4, 3,
+                                           0, 1, 2, 0};
+static const int FILTER_INTRA_TO_DIR[5] = {DC_PRED, V_PRED, H_PRED,
+                                           D157_PRED, DC_PRED};
+static const int MODE_TO_TXFM[14] = {
+    DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST,
+    DCT_ADST, ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST, ADST_ADST, DCT_DCT};
+static const int TX_INTRA_INV_SET1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT,
+                                         ADST_ADST, ADST_DCT, DCT_ADST};
+static const int TX_INTRA_INV_SET2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT,
+                                         DCT_ADST};
+/* BLOCK_SIZES enum by (log2 w4, log2 h4); -1 = not a block size */
+static const int BSIZE_OF[6][6] = {
+    {0, 1, 16, -1, -1, -1}, {2, 3, 4, 18, -1, -1}, {17, 5, 6, 7, 20, -1},
+    {-1, 19, 8, 9, 10, -1}, {-1, -1, 21, 11, 12, 13}, {-1, -1, -1, -1, 14, 15},
+};
+static const int WIENER_MIN[3] = {-5, -23, -17};
+static const int WIENER_MAX[3] = {10, 8, 46};
+static const int WIENER_K[3] = {1, 2, 3};
+static const int WIENER_MID[3] = {3, -7, 15};
+static const int SGRPROJ_XQD_MIN[2] = {-96, -32};
+static const int SGRPROJ_XQD_MAX[2] = {31, 95};
+static const int SGRPROJ_XQD_MID[2] = {-32, 31};
+static const int PALETTE_COLOR_CONTEXT[9] = {-1, -1, 0, -1, -1, 4, 3, 2, 1};
+static const char *const TX_TYPE_NAME[16] = {
+    "DCT_DCT", "ADST_DCT", "DCT_ADST", "ADST_ADST", "FLIPADST_DCT",
+    "DCT_FLIPADST", "FLIPADST_FLIPADST", "ADST_FLIPADST", "FLIPADST_ADST",
+    "IDTX", "V_DCT", "H_DCT", "V_ADST", "H_ADST", "V_FLIPADST",
+    "H_FLIPADST"};
+static const char *const PARTITION_NAME[10] = {
+    "NONE", "HORZ", "VERT", "SPLIT", "HORZ_A", "HORZ_B", "VERT_A", "VERT_B",
+    "HORZ_4", "VERT_4"};
+
+static inline int imin(int a, int b) { return a < b ? a : b; }
+static inline int imax(int a, int b) { return a > b ? a : b; }
+static inline int64_t clip64(int64_t v, int64_t lo, int64_t hi) {
+    return v < lo ? lo : (v > hi ? hi : v);
+}
+static inline int64_t rnd2(int64_t x, int n) {
+    return n ? (x + ((int64_t)1 << (n - 1))) >> n : x;
+}
+static inline int64_t rnd2s(int64_t x, int n) {
+    return x >= 0 ? rnd2(x, n) : -rnd2(-x, n);
+}
+static int floor_log2(uint32_t x) { return 31 - __builtin_clz(x); }
+static int ceil_log2(int x) {
+    if (x < 2) return 0;
+    int i = 1, p = 2;
+    while (p < x) { i++; p <<= 1; }
+    return i;
+}
+
+typedef struct {
+    /* symbol decoder (spec 8.2.2-8.2.6) */
+    const uint8_t *buf;
+    size_t size, bitpos;
+    uint32_t rng, val;
+    int64_t max_bits;
+    int no_adapt;
+    /* frame */
+    int mi_rows, mi_cols, nplanes, bd, sb128, sb4, lossless, tx_mode;
+    int reduced_tx_set, screen_tools, filter_intra, cdef_on, cdef_bits;
+    int base_q, qdc[3], qac[3];
+    int32_t *plane[3];
+    int stride;
+    /* tables */
+    uint16_t *cdf[D_NCDF];
+    const int32_t *scan[10];
+    const int32_t *smw[5];
+    const int32_t *dr;
+    const int32_t *fi_taps;
+    /* per-mi frame state */
+    uint8_t *mi_wl, *mi_hl;   /* log2 of block width/height in 4x4 units */
+    uint8_t *mi_skip, *mi_ymode, *mi_txw, *mi_txh, *mi_paln;
+    uint16_t *mi_pal;         /* 8 colours per mi */
+    /* coefficient contexts (frame-wide, reset per tile / SB row) */
+    uint8_t *above_lvl[3], *above_dc[3], *left_lvl[3], *left_dc[3];
+    /* tile */
+    int r0, r1, c0, c1;
+    uint8_t decoded[3][34][34]; /* BlockDecoded, offset by 1 */
+    int8_t *cdef_idx; int cdef_stride;
+    /* loop restoration */
+    int lr_type[3], lr_unit, lr_urows, lr_ucols;
+    int32_t *lr_out;
+    int lr_ref[3][2][3], lr_sgr_ref[3][2];
+    /* outputs */
+    int32_t *blocks; int n_blocks;
+    /* error */
+    int err;
+    char *msg; int msglen;
+} Dec;
+
+/* current block */
+typedef struct {
+    int r, c, wl, hl; /* mi position, log2 w4/h4 */
+    int bsize;
+    int skip, ymode, uvmode, angle_y, angle_uv, cfl_u, cfl_v;
+    int use_fi, fi_mode, pal_n, has_chroma, avail_u, avail_l;
+    uint16_t pal[8];
+    uint8_t cmap[64 * 64];
+    int txwl, txhl; /* luma tx log2 width/height in px */
+    int max_luma_w, max_luma_h;
+} Blk;
+
+static void fail(Dec *d, int code, const char *fmt, const char *what) {
+    if (d->err) return;
+    d->err = code;
+    snprintf(d->msg, (size_t)d->msglen, fmt, what);
+}
+
+/* ---- symbol decoder ---------------------------------------------------- */
+
+static uint32_t read_bits_raw(Dec *d, int n) {
+    if (n <= 0) return 0;
+    size_t byte = d->bitpos >> 3;
+    int off = (int)(d->bitpos & 7);
+    uint32_t w = 0;
+    for (int k = 0; k < 4; k++) {
+        w <<= 8;
+        if (byte + (size_t)k < d->size) w |= d->buf[byte + k];
+    }
+    d->bitpos += (size_t)n;
+    return (w << off) >> (32 - n);
+}
+
+static void sym_init(Dec *d, const uint8_t *buf, size_t sz) {
+    d->buf = buf;
+    d->size = sz;
+    d->bitpos = 0;
+    int nb = (int)(sz * 8 < 15 ? sz * 8 : 15);
+    uint32_t b = read_bits_raw(d, nb);
+    uint32_t padded = b << (15 - nb);
+    d->val = ((1u << 15) - 1) ^ padded;
+    d->rng = 1u << 15;
+    d->max_bits = (int64_t)sz * 8 - 15;
+}
+
+static int read_symbol_na(Dec *d, const uint16_t *icdf, int n) {
+    uint32_t cur = d->rng, prev;
+    int s = -1;
+    do {
+        s++;
+        prev = cur;
+        cur = ((d->rng >> 8) * (uint32_t)(icdf[s] >> 6) >> 1) +
+              4u * (uint32_t)(n - s - 1);
+    } while (d->val < cur);
+    d->rng = prev - cur;
+    d->val -= cur;
+    int bits = 15 - floor_log2(d->rng);
+    d->rng <<= bits;
+    int64_t avail = d->max_bits > 0 ? d->max_bits : 0;
+    int nb = bits < avail ? bits : (int)avail;
+    uint32_t data = read_bits_raw(d, nb);
+    uint32_t padded = data << (bits - nb);
+    d->val = padded ^ (((d->val + 1) << bits) - 1);
+    d->max_bits -= bits;
+    return s;
+}
+
+static int read_symbol(Dec *d, uint16_t *icdf, int n) {
+    int s = read_symbol_na(d, icdf, n);
+    if (!d->no_adapt) update_cdf_c(icdf, n, s);
+    return s;
+}
+
+static int read_bool(Dec *d) {
+    static const uint16_t half[2] = {16384, 0};
+    return read_symbol_na(d, half, 2);
+}
+
+static int read_literal(Dec *d, int n) {
+    int x = 0;
+    for (int i = 0; i < n; i++) x = 2 * x + read_bool(d);
+    return x;
+}
+
+/* ns(n) coded with bools (spec 4.10.7 over the symbol decoder) */
+static int read_ns(Dec *d, int n) {
+    if (n <= 1) return 0;
+    int w = floor_log2((uint32_t)n) + 1;
+    int m = (1 << w) - n;
+    int v = read_literal(d, w - 1);
+    if (v < m) return v;
+    return (v << 1) - m + read_literal(d, 1);
+}
+
+/* ---- block geometry ------------------------------------------------------ */
+
+static inline int mi_at(const Dec *d, int r, int c) {
+    return r * d->mi_cols + c;
+}
+static inline int32_t *px(Dec *d, int plane, int y, int x) {
+    return d->plane[plane] + (size_t)y * d->stride + x;
+}
+static int is_inside(const Dec *d, int r, int c) {
+    return r >= d->r0 && r < d->r1 && c >= d->c0 && c < d->c1;
+}
+
+/* tx sizes as (log2 w px, log2 h px); split halves the larger side */
+static void split_tx(int *wl, int *hl) {
+    if (*wl == *hl) { (*wl)--; (*hl)--; }
+    else if (*wl > *hl) (*wl)--;
+    else (*hl)--;
+}
+static int tx_depth_to_4x4(int wl, int hl) {
+    int n = 0;
+    while (wl > 2 || hl > 2) { split_tx(&wl, &hl); n++; }
+    return n;
+}
+static int tx_set(const Dec *d, int wl, int hl) {
+    int sqr = imin(wl, hl), up = imax(wl, hl);
+    if (up >= 5) return SET_DCTONLY;
+    if (d->reduced_tx_set) return SET_INTRA_2;
+    if (sqr == 4) return SET_INTRA_2;
+    return SET_INTRA_1;
+}
+static int tx_in_set(int set, int t) {
+    if (set == SET_DCTONLY) return t == DCT_DCT;
+    if (t == DCT_DCT || t == ADST_DCT || t == DCT_ADST || t == ADST_ADST ||
+        t == IDTX)
+        return 1;
+    return set == SET_INTRA_1 && (t == V_DCT || t == H_DCT);
+}
+/* chroma tx size of a 4:4:4 block (spec get_tx_size) */
+static void uv_tx(const Blk *b, int *wl, int *hl) {
+    int w = imin(b->wl + 2, 6), h = imin(b->hl + 2, 6);
+    if (w == 6 || h == 6) {
+        if (w == 4) { *wl = 4; *hl = 5; return; }
+        if (h == 4) { *wl = 5; *hl = 4; return; }
+        *wl = 5; *hl = 5;
+        return;
+    }
+    *wl = w;
+    *hl = h;
+}
+
+static const int32_t *scan_for(const Dec *d, int cwl, int chl) {
+    if (cwl == chl) return d->scan[cwl - 2];
+    static const int RECT[6][2] = {{2, 3}, {3, 2}, {3, 4}, {4, 3}, {4, 5}, {5, 4}};
+    for (int i = 0; i < 6; i++)
+        if (RECT[i][0] == cwl && RECT[i][1] == chl) return d->scan[4 + i];
+    return NULL;
+}
+
+/* ---- intra prediction (spec 7.11.2) -------------------------------------- */
+
+static void predict_intra(Dec *d, const Blk *b, int plane, int x, int y,
+                          int have_left, int have_above, int have_ar,
+                          int have_bl, int mode, int wl, int hl,
+                          int angle_delta) {
+    int w = 1 << wl, h = 1 << hl;
+    int bd = d->bd;
+    int maxx = d->mi_cols * 4 - 1, maxy = d->mi_rows * 4 - 1;
+    int32_t above_buf[129 + 16], left_buf[129 + 16];
+    int32_t *above = above_buf + 16, *left = left_buf + 16;
+    int n = w + h;
+    if (!have_above && have_left) {
+        int32_t v = *px(d, plane, y, x - 1);
+        for (int i = 0; i < n; i++) above[i] = v;
+    } else if (!have_above) {
+        for (int i = 0; i < n; i++) above[i] = (1 << (bd - 1)) - 1;
+    } else {
+        int lim = imin(maxx, x + (have_ar ? 2 * w : w) - 1);
+        const int32_t *row = px(d, plane, y - 1, 0);
+        for (int i = 0; i < n; i++) above[i] = row[imin(lim, x + i)];
+    }
+    if (!have_left && have_above) {
+        int32_t v = *px(d, plane, y - 1, x);
+        for (int i = 0; i < n; i++) left[i] = v;
+    } else if (!have_left) {
+        for (int i = 0; i < n; i++) left[i] = (1 << (bd - 1)) + 1;
+    } else {
+        int lim = imin(maxy, y + (have_bl ? 2 * h : h) - 1);
+        for (int i = 0; i < n; i++) left[i] = *px(d, plane, imin(lim, y + i), x - 1);
+    }
+    if (have_above && have_left) above[-1] = *px(d, plane, y - 1, x - 1);
+    else if (have_above) above[-1] = *px(d, plane, y - 1, x);
+    else if (have_left) above[-1] = *px(d, plane, y, x - 1);
+    else above[-1] = 1 << (bd - 1);
+    left[-1] = above[-1];
+    int maxv = (1 << bd) - 1;
+
+    if (plane == 0 && b->use_fi) {
+        const int32_t *taps = d->fi_taps + (size_t)b->fi_mode * 64;
+        int64_t buf[33 * 33];
+        int W = w + 1;
+        buf[0] = above[-1];
+        for (int c = 0; c < w; c++) buf[1 + c] = above[c];
+        for (int r = 0; r < h; r++) buf[(size_t)(r + 1) * W] = left[r];
+        for (int r = 1; r <= h; r += 2)
+            for (int c = 1; c <= w; c += 4) {
+                const int64_t p[7] = {
+                    buf[(size_t)(r - 1) * W + c - 1], buf[(size_t)(r - 1) * W + c],
+                    buf[(size_t)(r - 1) * W + c + 1], buf[(size_t)(r - 1) * W + c + 2],
+                    buf[(size_t)(r - 1) * W + c + 3], buf[(size_t)r * W + c - 1],
+                    buf[(size_t)(r + 1) * W + c - 1]};
+                for (int k = 0; k < 8; k++) {
+                    int64_t v = 0;
+                    for (int j = 0; j < 7; j++) v += (int64_t)taps[k * 8 + j] * p[j];
+                    buf[(size_t)(r + (k >> 2)) * W + c + (k & 3)] =
+                        clip64(rnd2s(v, 4), 0, maxv);
+                }
+            }
+        for (int r = 0; r < h; r++)
+            for (int c = 0; c < w; c++)
+                *px(d, plane, y + r, x + c) = (int32_t)buf[(size_t)(r + 1) * W + c + 1];
+        return;
+    }
+    if (mode == DC_PRED) {
+        int64_t avg;
+        if (have_above && have_left) {
+            int64_t s = 0;
+            for (int i = 0; i < w; i++) s += above[i];
+            for (int i = 0; i < h; i++) s += left[i];
+            avg = (s + ((w + h) >> 1)) / (w + h);
+        } else if (have_left) {
+            int64_t s = 0;
+            for (int i = 0; i < h; i++) s += left[i];
+            avg = (s + (h >> 1)) >> hl;
+        } else if (have_above) {
+            int64_t s = 0;
+            for (int i = 0; i < w; i++) s += above[i];
+            avg = (s + (w >> 1)) >> wl;
+        } else {
+            avg = 1 << (bd - 1);
+        }
+        for (int r = 0; r < h; r++)
+            for (int c = 0; c < w; c++) *px(d, plane, y + r, x + c) = (int32_t)avg;
+        return;
+    }
+    if (mode == PAETH_PRED) {
+        int32_t tl = above[-1];
+        for (int r = 0; r < h; r++)
+            for (int c = 0; c < w; c++) {
+                int32_t base = above[c] + left[r] - tl;
+                int32_t pl = abs(base - left[r]), pt = abs(base - above[c]);
+                int32_t ptl = abs(base - tl);
+                *px(d, plane, y + r, x + c) =
+                    (pl <= pt && pl <= ptl) ? left[r] : (pt <= ptl ? above[c] : tl);
+            }
+        return;
+    }
+    if (mode == SMOOTH_PRED || mode == SMOOTH_V_PRED || mode == SMOOTH_H_PRED) {
+        const int32_t *wy = d->smw[hl - 2], *wx = d->smw[wl - 2];
+        int64_t below = left[h - 1], right = above[w - 1];
+        for (int r = 0; r < h; r++)
+            for (int c = 0; c < w; c++) {
+                int64_t v;
+                if (mode == SMOOTH_PRED)
+                    v = rnd2(wy[r] * (int64_t)above[c] + (256 - wy[r]) * below +
+                             wx[c] * (int64_t)left[r] + (256 - wx[c]) * right, 9);
+                else if (mode == SMOOTH_V_PRED)
+                    v = rnd2(wy[r] * (int64_t)above[c] + (256 - wy[r]) * below, 8);
+                else
+                    v = rnd2(wx[c] * (int64_t)left[r] + (256 - wx[c]) * right, 8);
+                *px(d, plane, y + r, x + c) = (int32_t)v;
+            }
+        return;
+    }
+    /* directional (spec 7.11.2.4, no edge filter or upsampling) */
+    int p_angle = MODE_TO_ANGLE[mode] + angle_delta * 3;
+    int dx = 0, dy = 0;
+    if (p_angle < 90) dx = d->dr[p_angle];
+    else if (p_angle > 90 && p_angle < 180) { dx = d->dr[180 - p_angle]; dy = d->dr[p_angle - 90]; }
+    else if (p_angle > 180) dy = d->dr[270 - p_angle];
+    for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+            int64_t v;
+            if (p_angle < 90) {
+                int idx = (i + 1) * dx;
+                int base = (idx >> 6) + j;
+                int shift = (idx >> 1) & 0x1F;
+                int max_base = w + h - 1;
+                if (base < max_base)
+                    v = rnd2(above[base] * (int64_t)(32 - shift) + above[base + 1] * (int64_t)shift, 5);
+                else
+                    v = above[max_base];
+            } else if (p_angle > 90 && p_angle < 180) {
+                int idx = (j << 6) - (i + 1) * dx;
+                int base = idx >> 6;
+                if (base >= -1) {
+                    int shift = (idx >> 1) & 0x1F;
+                    v = rnd2(above[base] * (int64_t)(32 - shift) + above[base + 1] * (int64_t)shift, 5);
+                } else {
+                    idx = (i << 6) - (j + 1) * dy;
+                    base = idx >> 6;
+                    int shift = (idx >> 1) & 0x1F;
+                    v = rnd2(left[base] * (int64_t)(32 - shift) + left[base + 1] * (int64_t)shift, 5);
+                }
+            } else if (p_angle > 180) {
+                int idx = (j + 1) * dy;
+                int base = (idx >> 6) + i;
+                int shift = (idx >> 1) & 0x1F;
+                int max_base = w + h - 1;
+                if (base < max_base)
+                    v = rnd2(left[base] * (int64_t)(32 - shift) + left[base + 1] * (int64_t)shift, 5);
+                else
+                    v = left[max_base];
+            } else if (p_angle == 90) {
+                v = above[j];
+            } else {
+                v = left[i];
+            }
+            *px(d, plane, y + i, x + j) = (int32_t)v;
+        }
+}
+
+static void predict_cfl(Dec *d, const Blk *b, int plane, int x, int y,
+                        int wl, int hl) {
+    int w = 1 << wl, h = 1 << hl;
+    int alpha = plane == 1 ? b->cfl_u : b->cfl_v;
+    int32_t L[64 * 64];
+    int64_t avg = 0;
+    for (int i = 0; i < h; i++) {
+        int ly = imin(y + i, b->max_luma_h - 1);
+        for (int j = 0; j < w; j++) {
+            int lx = imin(x + j, b->max_luma_w - 1);
+            int32_t v = *px(d, 0, ly, lx) << 3;
+            L[i * w + j] = v;
+            avg += v;
+        }
+    }
+    avg = rnd2(avg, wl + hl);
+    int maxv = (1 << d->bd) - 1;
+    for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+            int32_t *p = px(d, plane, y + i, x + j);
+            int64_t s = rnd2s((int64_t)alpha * (L[i * w + j] - avg), 6);
+            *p = (int32_t)clip64(*p + s, 0, maxv);
+        }
+}
+
+/* ---- inverse transform and reconstruction (spec 7.12.3, 7.13.3) ---------- */
+
+static void inverse_wht(int64_t *t, int shift) {
+    int64_t a = t[0] >> shift, c = t[1] >> shift, dd = t[2] >> shift,
+            b = t[3] >> shift;
+    a += c;
+    dd -= b;
+    int64_t e = (a - dd) >> 1;
+    b = e - b;
+    c = e - c;
+    a -= b;
+    dd += c;
+    t[0] = a; t[1] = b; t[2] = c; t[3] = dd;
+}
+
+static void reconstruct(Dec *d, int plane, int x, int y, int wl, int hl,
+                        int txtype, const int32_t *quant) {
+    int tw = 1 << wl, th = 1 << hl;
+    int cw = imin(tw, 32), ch = imin(th, 32);
+    int bd = d->bd;
+    int pels = tw * th;
+    int dq_denom = (pels > 256) + (pels > 1024);
+    int64_t dmax = ((int64_t)1 << (7 + bd)) - 1, dmin = -((int64_t)1 << (7 + bd));
+    static _Thread_local int64_t res[64 * 64];
+    memset(res, 0, sizeof(int64_t) * (size_t)pels);
+    for (int i = 0; i < ch; i++)
+        for (int j = 0; j < cw; j++) {
+            int32_t q = quant[i * cw + j];
+            if (!q) continue;
+            int64_t qs = (i == 0 && j == 0) ? d->qdc[plane] : d->qac[plane];
+            int64_t mag = ((int64_t)(q < 0 ? -q : q) * qs) & 0xFFFFFF;
+            mag >>= dq_denom;
+            res[i * tw + j] = clip64(q < 0 ? -mag : mag, dmin, dmax);
+        }
+    int64_t t[64], o[64];
+    if (d->lossless) {
+        for (int i = 0; i < 4; i++) {
+            for (int j = 0; j < 4; j++) t[j] = res[i * 4 + j];
+            inverse_wht(t, 2);
+            for (int j = 0; j < 4; j++) res[i * 4 + j] = t[j];
+        }
+        for (int j = 0; j < 4; j++) {
+            for (int i = 0; i < 4; i++) t[i] = res[i * 4 + j];
+            inverse_wht(t, 0);
+            for (int i = 0; i < 4; i++) res[i * 4 + j] = t[i];
+        }
+    } else {
+        int col_kind, row_kind;
+        switch (txtype) {
+            case ADST_DCT: col_kind = 1; row_kind = 0; break;
+            case DCT_ADST: col_kind = 0; row_kind = 1; break;
+            case ADST_ADST: col_kind = 1; row_kind = 1; break;
+            case IDTX: col_kind = 2; row_kind = 2; break;
+            default: col_kind = 0; row_kind = 0; break;
+        }
+        static const int ROW_SHIFT[5][5] = {
+            /* [log2w-2][log2h-2] (spec Transform_Row_Shift) */
+            {0, 0, 1, -1, -1}, {0, 1, 1, 2, -1}, {1, 1, 2, 1, 2},
+            {-1, 2, 1, 2, 1}, {-1, -1, 2, 1, 2}};
+        int row_shift = ROW_SHIFT[wl - 2][hl - 2];
+        int rect2 = abs(wl - hl) == 1;
+        int64_t rmax = ((int64_t)1 << (bd + 7)) - 1, rmin = -((int64_t)1 << (bd + 7));
+        int ccr = imax(bd + 6, 16);
+        int64_t cmax = ((int64_t)1 << (ccr - 1)) - 1, cmin = -((int64_t)1 << (ccr - 1));
+        for (int i = 0; i < th; i++) {
+            if (i >= 32) {
+                for (int j = 0; j < tw; j++) res[i * tw + j] = 0;
+                continue;
+            }
+            int any = 0;
+            for (int j = 0; j < tw; j++) {
+                int64_t v = res[i * tw + j];
+                if (rect2) v = rnd2(v * 2896, 12);
+                t[j] = clip64(v, rmin, rmax);
+                any |= t[j] != 0;
+            }
+            if (!any) continue;
+            inv_1d_kind_pub(t, o, tw, row_kind);
+            for (int j = 0; j < tw; j++)
+                res[i * tw + j] = clip64(rnd2(o[j], row_shift), cmin, cmax);
+        }
+        for (int j = 0; j < tw; j++) {
+            for (int i = 0; i < th; i++) t[i] = res[i * tw + j];
+            inv_1d_kind_pub(t, o, th, col_kind);
+            for (int i = 0; i < th; i++) res[i * tw + j] = rnd2(o[i], 4);
+        }
+    }
+    int maxv = (1 << bd) - 1;
+    for (int i = 0; i < th; i++)
+        for (int j = 0; j < tw; j++) {
+            int32_t *p = px(d, plane, y + i, x + j);
+            *p = (int32_t)clip64(*p + res[i * tw + j], 0, maxv);
+        }
+}
+
+/* ---- coefficients (spec 5.11.39) ----------------------------------------- */
+
+static int read_coeffs(Dec *d, const Blk *b, int plane, int x, int y,
+                       int wl, int hl, int *txtype_io, int32_t *quant) {
+    int x4 = x >> 2, y4 = y >> 2;
+    int w4 = 1 << (wl - 2), h4 = 1 << (hl - 2);
+    int sqr = imin(wl, hl) - 2, up = imax(wl, hl) - 2;
+    int txs_ctx = (sqr + up + 1) >> 1;
+    int ptype = plane > 0;
+    int cwl = imin(wl, 5), chl = imin(hl, 5);
+    int cw = 1 << cwl, ch = 1 << chl;
+    int n = cw * ch;
+    uint8_t *al = d->above_lvl[plane], *ad = d->above_dc[plane];
+    uint8_t *ll = d->left_lvl[plane], *ld = d->left_dc[plane];
+
+    /* all_zero context */
+    int ctx;
+    int bw = 4 << b->wl, bh = 4 << b->hl;
+    if (plane == 0) {
+        int top = 0, left = 0;
+        for (int k = 0; k < w4; k++)
+            if (x4 + k < d->mi_cols) top = imax(top, al[x4 + k]);
+        for (int k = 0; k < h4; k++)
+            if (y4 + k < d->mi_rows) left = imax(left, ll[y4 + k]);
+        if (bw == (1 << wl) && bh == (1 << hl)) ctx = 0;
+        else if (top == 0 && left == 0) ctx = 1;
+        else if (top == 0 || left == 0) ctx = 2 + (imax(top, left) > 3);
+        else if (imax(top, left) <= 3) ctx = 4;
+        else if (imin(top, left) <= 3) ctx = 5;
+        else ctx = 6;
+    } else {
+        int above = 0, left = 0;
+        for (int k = 0; k < w4; k++)
+            if (x4 + k < d->mi_cols) above |= al[x4 + k] | ad[x4 + k];
+        for (int k = 0; k < h4; k++)
+            if (y4 + k < d->mi_rows) left |= ll[y4 + k] | ld[y4 + k];
+        ctx = (above != 0) + (left != 0) + 7;
+        if (bw * bh > (1 << wl) * (1 << hl)) ctx += 3;
+    }
+    int all_zero = read_symbol(d, d->cdf[D_TXB_SKIP] + ((size_t)txs_ctx * 13 + ctx) * 3, 2);
+    int eob = 0, cul = 0, dc_cat = 0;
+    if (!all_zero) {
+        int txtype;
+        if (plane == 0) {
+            int set = tx_set(d, wl, hl);
+            txtype = DCT_DCT;
+            if (set != SET_DCTONLY && d->base_q > 0) {
+                int dir = b->use_fi ? FILTER_INTRA_TO_DIR[b->fi_mode] : b->ymode;
+                if (set == SET_INTRA_1)
+                    txtype = TX_INTRA_INV_SET1[read_symbol(
+                        d, d->cdf[D_TX1] + ((size_t)sqr * 13 + dir) * 8, 7)];
+                else
+                    txtype = TX_INTRA_INV_SET2[read_symbol(
+                        d, d->cdf[D_TX2] + ((size_t)sqr * 13 + dir) * 6, 5)];
+            }
+            *txtype_io = txtype;
+        } else {
+            txtype = *txtype_io;
+        }
+        if (txtype == V_DCT || txtype == H_DCT) {
+            fail(d, AV1D_UNSUPPORTED,
+                 "AV1: transform type %s (a 1D transform class) is not "
+                 "supported yet", TX_TYPE_NAME[txtype]);
+            return 0;
+        }
+        const int32_t *scan = scan_for(d, cwl, chl);
+        if (!scan) {
+            fail(d, AV1D_UNSUPPORTED, "AV1: %s transform size is not supported yet",
+                 "4:1");
+            return 0;
+        }
+        int m = cwl + chl - 4;
+        static const int EOB_CDF[7] = {D_EOB16, D_EOB32, D_EOB64, D_EOB128,
+                                       D_EOB256, D_EOB512, D_EOB1024};
+        int eob_nsym = 5 + m;
+        int eob_pt = 1 + read_symbol(
+            d, d->cdf[EOB_CDF[m]] + (size_t)ptype * 2 * (eob_nsym + 1), eob_nsym);
+        eob = eob_pt < 2 ? eob_pt : (1 << (eob_pt - 2)) + 1;
+        int eob_shift = eob_pt - 3;
+        if (eob_shift >= 0) {
+            if (read_symbol(d, d->cdf[D_EOB_EXTRA] +
+                                   (((size_t)txs_ctx * 2 + ptype) * 9 + eob_pt - 3) * 3, 2))
+                eob += 1 << eob_shift;
+            for (int i = 1; i < imax(1, eob_pt - 2); i++) {
+                eob_shift = eob_pt - 2 - 1 - i;
+                if (read_literal(d, 1)) eob += 1 << eob_shift;
+            }
+        }
+        int stride = cw + 2;
+        static _Thread_local uint8_t pad[(32 + 4) * (32 + 4)];
+        memset(pad, 0, (size_t)stride * (ch + 3));
+        memset(quant, 0, sizeof(int32_t) * (size_t)n);
+        uint16_t *base_eob = d->cdf[D_BASE_EOB] + ((size_t)txs_ctx * 2 + ptype) * 4 * 4;
+        uint16_t *base = d->cdf[D_BASE] + ((size_t)txs_ctx * 2 + ptype) * 42 * 5;
+        uint16_t *br = d->cdf[D_BR] + ((size_t)imin(txs_ctx, 3) * 2 + ptype) * 21 * 5;
+        int square = cw == ch, wide = cw > ch;
+        for (int si = eob - 1; si >= 0; si--) {
+            int pos = scan[si];
+            int rr = pos >> cwl, cc = pos & (cw - 1);
+            int level;
+            const uint8_t *p = pad + rr * stride + cc;
+            if (si == eob - 1) {
+                int c2 = si == 0 ? 0 : (si <= n / 8 ? 1 : (si <= n / 4 ? 2 : 3));
+                level = 1 + read_symbol(d, base_eob + (size_t)c2 * 4, 3);
+            } else {
+                int mag = imin(p[1], 3) + imin(p[stride], 3) + imin(p[stride + 1], 3) +
+                          imin(p[2], 3) + imin(p[2 * stride], 3);
+                mag = imin((mag + 1) >> 1, 4);
+                int bctx;
+                if (pos == 0) bctx = 0;
+                else if (square) bctx = mag + (rr + cc < 2 ? 1 : (rr + cc < 4 ? 6 : 21));
+                else if (wide && cc < 2) bctx = mag + 16;
+                else if (!wide && rr < 2) bctx = mag + 11;
+                else bctx = mag + (rr + cc < 4 ? 6 : 21);
+                level = read_symbol(d, base + (size_t)bctx * 5, 4);
+            }
+            if (level > 2) {
+                int mag = imin(p[1], 15) + imin(p[stride], 15) + imin(p[stride + 1], 15);
+                mag = imin((mag + 1) >> 1, 6);
+                int brctx = pos == 0 ? mag : ((rr < 2 && cc < 2) ? mag + 7 : mag + 14);
+                for (int k = 0; k < 4; k++) {
+                    int s = read_symbol(d, br + (size_t)brctx * 5, 4);
+                    level += s;
+                    if (s < 3) break;
+                }
+            }
+            pad[rr * stride + cc] = (uint8_t)level;
+            quant[pos] = level;
+        }
+        /* dc sign context */
+        int dcs = 0;
+        for (int k = 0; k < w4; k++)
+            if (x4 + k < d->mi_cols) dcs += (ad[x4 + k] == 2) - (ad[x4 + k] == 1);
+        for (int k = 0; k < h4; k++)
+            if (y4 + k < d->mi_rows) dcs += (ld[y4 + k] == 2) - (ld[y4 + k] == 1);
+        int sctx = dcs < 0 ? 1 : (dcs > 0 ? 2 : 0);
+        for (int si = 0; si < eob; si++) {
+            int pos = scan[si];
+            int32_t lv = quant[pos];
+            if (!lv) continue;
+            int sign = si == 0
+                ? read_symbol(d, d->cdf[D_DC_SIGN] + ((size_t)ptype * 3 + sctx) * 3, 2)
+                : read_literal(d, 1);
+            if (lv > 14) {
+                int length = 0, bit;
+                do {
+                    length++;
+                    bit = read_literal(d, 1);
+                    if (length > 32) {
+                        fail(d, AV1D_CORRUPT, "AV1: %s", "Golomb code too long");
+                        return 0;
+                    }
+                } while (!bit);
+                uint32_t xg = 1;
+                for (int i = length - 2; i >= 0; i--) xg = (xg << 1) | (uint32_t)read_literal(d, 1);
+                lv = (int32_t)(xg + 14);
+            }
+            if (pos == 0) dc_cat = sign ? 1 : 2;
+            lv &= 0xFFFFF;
+            cul += lv;
+            quant[pos] = sign ? -lv : lv;
+        }
+        cul = imin(63, cul);
+    }
+    for (int k = 0; k < w4; k++) { al[x4 + k] = (uint8_t)cul; ad[x4 + k] = (uint8_t)dc_cat; }
+    for (int k = 0; k < h4; k++) { ll[y4 + k] = (uint8_t)cul; ld[y4 + k] = (uint8_t)dc_cat; }
+    return eob;
+}
+
+/* ---- transform blocks and the residual (spec 5.11.34-36) ----------------- */
+
+static void transform_block(Dec *d, Blk *b, int plane, int base_x, int base_y,
+                            int wl, int hl, int x, int y) {
+    int start_x = base_x + 4 * x, start_y = base_y + 4 * y;
+    int row = start_y >> 2, col = start_x >> 2;
+    int sbmask = d->sb4 - 1;
+    int sub_r = row & sbmask, sub_c = col & sbmask;
+    int step_x = 1 << (wl - 2), step_y = 1 << (hl - 2);
+    if (start_x >= d->mi_cols * 4 || start_y >= d->mi_rows * 4) return;
+    uint8_t (*dec)[34] = d->decoded[plane];
+    if (plane == 0 && b->pal_n) {
+        for (int i = 0; i < (1 << hl); i++)
+            for (int j = 0; j < (1 << wl); j++)
+                *px(d, 0, start_y + i, start_x + j) =
+                    b->pal[b->cmap[(y * 4 + i) * 64 + x * 4 + j]];
+    } else {
+        int is_cfl = plane > 0 && b->uvmode == UV_CFL_PRED;
+        int mode = plane == 0 ? b->ymode : (is_cfl ? DC_PRED : b->uvmode);
+        int have_ar = dec[sub_r - 1 + 1][sub_c + step_x + 1];
+        int have_bl = dec[sub_r + step_y + 1][sub_c - 1 + 1];
+        predict_intra(d, b, plane, start_x, start_y, b->avail_l || x > 0,
+                      b->avail_u || y > 0, have_ar, have_bl, mode, wl, hl,
+                      plane == 0 ? b->angle_y : b->angle_uv);
+        if (is_cfl) predict_cfl(d, b, plane, start_x, start_y, wl, hl);
+    }
+    if (plane == 0) {
+        b->max_luma_w = start_x + step_x * 4;
+        b->max_luma_h = start_y + step_y * 4;
+    }
+    if (!b->skip) {
+        static _Thread_local int32_t quant[32 * 32];
+        int txtype;
+        if (plane == 0) {
+            txtype = DCT_DCT;
+        } else {
+            /* spec compute_tx_type for intra chroma */
+            int set = tx_set(d, wl, hl);
+            txtype = MODE_TO_TXFM[b->uvmode];
+            if (d->lossless || imax(wl, hl) > 5 || !tx_in_set(set, txtype))
+                txtype = DCT_DCT;
+        }
+        int eob = read_coeffs(d, b, plane, start_x, start_y, wl, hl, &txtype, quant);
+        if (d->err) return;
+        if (plane == 0 && (d->lossless || imax(wl, hl) > 5)) txtype = DCT_DCT;
+        if (eob > 0) reconstruct(d, plane, start_x, start_y, wl, hl, txtype, quant);
+    }
+    for (int i = 0; i < step_y; i++)
+        for (int j = 0; j < step_x; j++)
+            if (sub_r + i <= 32 && sub_c + j <= 32) dec[sub_r + i + 1][sub_c + j + 1] = 1;
+}
+
+static void residual(Dec *d, Blk *b) {
+    int bw = 4 << b->wl, bh = 4 << b->hl;
+    int wchunks = imax(1, bw >> 6), hchunks = imax(1, bh >> 6);
+    int nplanes = b->has_chroma ? d->nplanes : 1;
+    for (int cy = 0; cy < hchunks; cy++)
+        for (int cx = 0; cx < wchunks; cx++)
+            for (int plane = 0; plane < nplanes; plane++) {
+                int wl, hl;
+                if (d->lossless) { wl = 2; hl = 2; }
+                else if (plane == 0) { wl = b->txwl; hl = b->txhl; }
+                else uv_tx(b, &wl, &hl);
+                int stepx = 1 << (wl - 2), stepy = 1 << (hl - 2);
+                int n4w = 1 << b->wl, n4h = 1 << b->hl;
+                int base_x = b->c * 4, base_y = b->r * 4;
+                for (int y = 0; y < imin(n4h, 16); y += stepy)
+                    for (int x = 0; x < imin(n4w, 16); x += stepx) {
+                        transform_block(d, b, plane, base_x, base_y, wl, hl,
+                                        x + (cx << 4), y + (cy << 4));
+                        if (d->err) return;
+                    }
+            }
+}
+
+/* ---- mode info (spec 5.11.7-5.11.27, 5.11.46-50) ------------------------- */
+
+static int palette_cache(Dec *d, const Blk *b, uint16_t *cache) {
+    int an = 0, ln = 0;
+    const uint16_t *ac = NULL, *lc = NULL;
+    if (((b->r * 4) % 64) && b->avail_u) {
+        int m = mi_at(d, b->r - 1, b->c);
+        an = d->mi_paln[m];
+        ac = d->mi_pal + (size_t)m * 8;
+    }
+    if (b->avail_l) {
+        int m = mi_at(d, b->r, b->c - 1);
+        ln = d->mi_paln[m];
+        lc = d->mi_pal + (size_t)m * 8;
+    }
+    int ai = 0, li = 0, n = 0;
+    while (ai < an && li < ln) {
+        uint16_t a = ac[ai], l = lc[li];
+        if (l < a) {
+            if (n == 0 || l != cache[n - 1]) cache[n++] = l;
+            li++;
+        } else {
+            if (n == 0 || a != cache[n - 1]) cache[n++] = a;
+            ai++;
+            if (l == a) li++;
+        }
+    }
+    for (; ai < an; ai++)
+        if (n == 0 || ac[ai] != cache[n - 1]) cache[n++] = ac[ai];
+    for (; li < ln; li++)
+        if (n == 0 || lc[li] != cache[n - 1]) cache[n++] = lc[li];
+    return n;
+}
+
+static void palette_mode_info(Dec *d, Blk *b) {
+    int bctx = b->wl + b->hl - 2;
+    if (b->ymode == DC_PRED) {
+        int ctx = 0;
+        if (b->avail_u && d->mi_paln[mi_at(d, b->r - 1, b->c)]) ctx++;
+        if (b->avail_l && d->mi_paln[mi_at(d, b->r, b->c - 1)]) ctx++;
+        if (read_symbol(d, d->cdf[D_PAL_Y_MODE] + ((size_t)bctx * 3 + ctx) * 3, 2)) {
+            int n = 2 + read_symbol(d, d->cdf[D_PAL_Y_SIZE] + (size_t)bctx * 8, 7);
+            uint16_t cache[16];
+            int cn = palette_cache(d, b, cache);
+            int idx = 0;
+            for (int i = 0; i < cn && idx < n; i++)
+                if (read_literal(d, 1)) b->pal[idx++] = cache[i];
+            int maxv = (1 << d->bd) - 1;
+            if (idx < n) b->pal[idx++] = (uint16_t)read_literal(d, d->bd);
+            int bits = 0;
+            if (idx < n) bits = d->bd - 3 + read_literal(d, 2);
+            while (idx < n) {
+                int delta = read_literal(d, bits) + 1;
+                b->pal[idx] = (uint16_t)imin(b->pal[idx - 1] + delta, maxv);
+                int range = (1 << d->bd) - b->pal[idx] - 1;
+                bits = imin(bits, ceil_log2(range));
+                idx++;
+            }
+            for (int i = 1; i < n; i++) /* ascending */
+                for (int j = i; j > 0 && b->pal[j - 1] > b->pal[j]; j--) {
+                    uint16_t t = b->pal[j]; b->pal[j] = b->pal[j - 1]; b->pal[j - 1] = t;
+                }
+            b->pal_n = n;
+        }
+    }
+    if (b->has_chroma && b->uvmode == DC_PRED) {
+        if (read_symbol(d, d->cdf[D_PAL_UV_MODE] + (size_t)(b->pal_n > 0) * 3, 2))
+            fail(d, AV1D_UNSUPPORTED, "AV1: %s is not supported yet",
+                 "chroma (UV) palette");
+    }
+}
+
+static void palette_tokens(Dec *d, Blk *b) {
+    if (!b->pal_n) return;
+    int bw = 4 << b->wl, bh = 4 << b->hl;
+    int onh = imin(bh, (d->mi_rows - b->r) * 4);
+    int onw = imin(bw, (d->mi_cols - b->c) * 4);
+    int n = b->pal_n;
+    uint8_t *m = b->cmap;
+    uint16_t *cdf = d->cdf[D_PAL_Y_CI2 + n - 2];
+    m[0] = (uint8_t)read_ns(d, n);
+    for (int i = 1; i < onh + onw - 1; i++)
+        for (int j = imin(i, onw - 1); j >= imax(0, i - onh + 1); j--) {
+            int r = i - j, c = j;
+            int scores[8] = {0}, order[8];
+            for (int k = 0; k < 8; k++) order[k] = k;
+            if (c > 0) scores[m[r * 64 + c - 1]] += 2;
+            if (r > 0 && c > 0) scores[m[(r - 1) * 64 + c - 1]] += 1;
+            if (r > 0) scores[m[(r - 1) * 64 + c]] += 2;
+            for (int k = 0; k < 3; k++) {
+                int ms = scores[k], mi = k;
+                for (int l = k + 1; l < n; l++)
+                    if (scores[l] > ms) { ms = scores[l]; mi = l; }
+                if (mi != k) {
+                    int mo = order[mi];
+                    for (int l = mi; l > k; l--) { scores[l] = scores[l - 1]; order[l] = order[l - 1]; }
+                    scores[k] = ms;
+                    order[k] = mo;
+                }
+            }
+            int hash = scores[0] + 2 * scores[1] + 2 * scores[2];
+            int ctx = hash < 9 ? PALETTE_COLOR_CONTEXT[hash] : -1;
+            if (ctx < 0) { fail(d, AV1D_CORRUPT, "AV1: %s", "bad palette context"); return; }
+            int s = read_symbol(d, cdf + (size_t)ctx * (n + 1), n);
+            m[r * 64 + c] = (uint8_t)order[s];
+        }
+    for (int i = 0; i < onh; i++)
+        for (int j = onw; j < bw; j++) m[i * 64 + j] = m[i * 64 + onw - 1];
+    for (int i = onh; i < bh; i++)
+        for (int j = 0; j < bw; j++) m[i * 64 + j] = m[(onh - 1) * 64 + j];
+}
+
+static void read_cdef(Dec *d, Blk *b) {
+    if (b->skip || d->lossless || !d->cdef_on) return;
+    int r = b->r & ~15, c = b->c & ~15;
+    int8_t *ci = d->cdef_idx + (size_t)(r >> 4) * d->cdef_stride + (c >> 4);
+    if (*ci == -1) {
+        int v = read_literal(d, d->cdef_bits);
+        int w4 = 1 << b->wl, h4 = 1 << b->hl;
+        for (int y = r; y < r + h4; y += 16)
+            for (int x = c; x < c + w4; x += 16)
+                if ((y >> 4) < (d->mi_rows + 15) / 16 && (x >> 4) < d->cdef_stride)
+                    d->cdef_idx[(size_t)(y >> 4) * d->cdef_stride + (x >> 4)] = (int8_t)v;
+    }
+}
+
+static void tx_size(Dec *d, Blk *b) {
+    if (d->lossless) { b->txwl = 2; b->txhl = 2; return; }
+    int wl = imin(b->wl + 2, 6), hl = imin(b->hl + 2, 6);
+    if (b->bsize > 0 && d->tx_mode == TX_MODE_SELECT) {
+        int max_depth = tx_depth_to_4x4(wl, hl);
+        int cat = imin(max_depth, 4) - 1;
+        int nsym = cat ? 3 : 2;
+        int maxw = 1 << wl, maxh = 1 << hl;
+        int aw = 0, lh = 0;
+        if (b->avail_u) aw = 4 << d->mi_txw[mi_at(d, b->r - 1, b->c)];
+        if (b->avail_l) lh = 4 << d->mi_txh[mi_at(d, b->r, b->c - 1)];
+        int ctx = (aw >= maxw) + (lh >= maxh);
+        int depth = read_symbol(d, d->cdf[D_TX_SIZE] + ((size_t)cat * 3 + ctx) * 4, nsym);
+        for (int i = 0; i < depth; i++) split_tx(&wl, &hl);
+    }
+    b->txwl = wl;
+    b->txhl = hl;
+}
+
+static void intra_mode_info(Dec *d, Blk *b) {
+    int skip_ctx = 0;
+    if (b->avail_u) skip_ctx += d->mi_skip[mi_at(d, b->r - 1, b->c)];
+    if (b->avail_l) skip_ctx += d->mi_skip[mi_at(d, b->r, b->c - 1)];
+    b->skip = read_symbol(d, d->cdf[D_SKIP] + (size_t)skip_ctx * 3, 2);
+    read_cdef(d, b);
+    int am = b->avail_u ? d->mi_ymode[mi_at(d, b->r - 1, b->c)] : DC_PRED;
+    int lm = b->avail_l ? d->mi_ymode[mi_at(d, b->r, b->c - 1)] : DC_PRED;
+    b->ymode = read_symbol(d, d->cdf[D_KF_Y] + ((size_t)INTRA_MODE_CONTEXT[am] * 5 +
+                                               INTRA_MODE_CONTEXT[lm]) * 14, 13);
+    b->angle_y = 0;
+    if (b->bsize >= 3 && b->ymode >= V_PRED && b->ymode <= D67_PRED)
+        b->angle_y = read_symbol(d, d->cdf[D_ANGLE_DELTA] + (size_t)(b->ymode - V_PRED) * 8, 7) - 3;
+    b->uvmode = DC_PRED;
+    b->angle_uv = 0;
+    b->cfl_u = b->cfl_v = 0;
+    if (b->has_chroma) {
+        int bw = 4 << b->wl, bh = 4 << b->hl;
+        int cfl_allowed = d->lossless ? (b->bsize == 0) : (imax(bw, bh) <= 32);
+        if (cfl_allowed)
+            b->uvmode = read_symbol(d, d->cdf[D_UV_MODE_CFL] + (size_t)b->ymode * 15, 14);
+        else
+            b->uvmode = read_symbol(d, d->cdf[D_UV_MODE] + (size_t)b->ymode * 14, 13);
+        if (b->uvmode == UV_CFL_PRED) {
+            int signs = read_symbol(d, d->cdf[D_CFL_SIGN], 8);
+            int su = (signs + 1) / 3, sv = (signs + 1) % 3;
+            if (su) {
+                int a = 1 + read_symbol(d, d->cdf[D_CFL_ALPHA] + (size_t)((su - 1) * 3 + sv) * 17, 16);
+                b->cfl_u = su == 1 ? -a : a;
+            }
+            if (sv) {
+                int a = 1 + read_symbol(d, d->cdf[D_CFL_ALPHA] + (size_t)((sv - 1) * 3 + su) * 17, 16);
+                b->cfl_v = sv == 1 ? -a : a;
+            }
+        }
+        if (b->bsize >= 3 && b->uvmode >= V_PRED && b->uvmode <= D67_PRED)
+            b->angle_uv = read_symbol(d, d->cdf[D_ANGLE_DELTA] + (size_t)(b->uvmode - V_PRED) * 8, 7) - 3;
+    }
+    b->pal_n = 0;
+    if (b->bsize >= 3 && b->wl <= 4 && b->hl <= 4 && d->screen_tools) {
+        palette_mode_info(d, b);
+        if (d->err) return;
+    }
+    b->use_fi = 0;
+    if (d->filter_intra && b->ymode == DC_PRED && b->pal_n == 0 &&
+        imax(b->wl, b->hl) <= 3) {
+        b->use_fi = read_symbol(d, d->cdf[D_FI_USE] + (size_t)b->bsize * 3, 2);
+        if (b->use_fi) b->fi_mode = read_symbol(d, d->cdf[D_FI_MODE], 5);
+    }
+}
+
+static void decode_block(Dec *d, int r, int c, int wl, int hl) {
+    Blk blk;
+    Blk *b = &blk;
+    b->r = r; b->c = c; b->wl = wl; b->hl = hl;
+    b->bsize = BSIZE_OF[wl][hl];
+    b->has_chroma = d->nplanes > 1;
+    b->avail_u = is_inside(d, r - 1, c);
+    b->avail_l = is_inside(d, r, c - 1);
+    intra_mode_info(d, b);
+    if (d->err) return;
+    palette_tokens(d, b);
+    if (d->err) return;
+    tx_size(d, b);
+    int w4 = 1 << wl, h4 = 1 << hl;
+    if (b->skip)
+        for (int p = 0; p < d->nplanes; p++) {
+            memset(d->above_lvl[p] + c, 0, (size_t)w4);
+            memset(d->above_dc[p] + c, 0, (size_t)w4);
+            memset(d->left_lvl[p] + r, 0, (size_t)h4);
+            memset(d->left_dc[p] + r, 0, (size_t)h4);
+        }
+    for (int y = 0; y < h4 && r + y < d->mi_rows; y++)
+        for (int x = 0; x < w4 && c + x < d->mi_cols; x++) {
+            int m = mi_at(d, r + y, c + x);
+            d->mi_wl[m] = (uint8_t)wl;
+            d->mi_hl[m] = (uint8_t)hl;
+            d->mi_skip[m] = (uint8_t)b->skip;
+            d->mi_ymode[m] = (uint8_t)b->ymode;
+            d->mi_txw[m] = (uint8_t)(b->txwl - 2);
+            d->mi_txh[m] = (uint8_t)(b->txhl - 2);
+            d->mi_paln[m] = (uint8_t)b->pal_n;
+            if (b->pal_n) memcpy(d->mi_pal + (size_t)m * 8, b->pal, sizeof(b->pal));
+        }
+    b->max_luma_w = b->max_luma_h = 0;
+    residual(d, b);
+    if (d->err) return;
+    /* block record for the post-filters: (r, c, w | h << 16, skip,
+     * txw | txh << 16), the extent cut at the mi grid */
+    int bw = imin(4 << wl, (d->mi_cols - c) * 4), bh = imin(4 << hl, (d->mi_rows - r) * 4);
+    int tw = 1 << b->txwl, th = 1 << b->txhl;
+    int32_t *rec = d->blocks + (size_t)d->n_blocks * 5;
+    rec[0] = r;
+    rec[1] = c;
+    rec[2] = bw == bh ? bw : (bw | (bh << 16));
+    rec[3] = b->skip;
+    rec[4] = tw == th ? tw : (tw | (th << 16));
+    d->n_blocks++;
+}
+
+static void decode_partition(Dec *d, int r, int c, int bl /* log2 w4 */) {
+    if (r >= d->mi_rows || c >= d->mi_cols || d->err) return;
+    int avail_u = is_inside(d, r - 1, c), avail_l = is_inside(d, r, c - 1);
+    int n4 = 1 << bl, half = n4 >> 1;
+    int has_rows = (r + half) < d->mi_rows;
+    int has_cols = (c + half) < d->mi_cols;
+    int part;
+    if (bl == 0) {
+        part = 0;
+    } else {
+        static const int CDF_OF[6] = {-1, D_PART8, D_PART16, D_PART32, D_PART64, D_PART128};
+        static const int NSYM[6] = {0, 4, 10, 10, 10, 8};
+        int nsym = NSYM[bl];
+        int above = avail_u && d->mi_wl[mi_at(d, r - 1, c)] < bl;
+        int left = avail_l && d->mi_hl[mi_at(d, r, c - 1)] < bl;
+        uint16_t *cdf = d->cdf[CDF_OF[bl]] + (size_t)(left * 2 + above) * (nsym + 1);
+        if (has_rows && has_cols) {
+            part = read_symbol(d, cdf, nsym);
+        } else if (has_cols || has_rows) {
+            static const int HORZ_M[6] = {2, 3, 4, 6, 7, 9};
+            static const int VERT_M[6] = {1, 3, 4, 5, 6, 8};
+            const int *mem = has_cols ? HORZ_M : VERT_M;
+            uint32_t psum = 0;
+            for (int i = 0; i < 6; i++) {
+                int s = mem[i];
+                if (s >= nsym) continue;
+                uint32_t prev = s ? cdf[s - 1] : 32768;
+                psum += prev - cdf[s];
+            }
+            uint16_t derived[2] = {(uint16_t)psum, 0};
+            int split = read_symbol_na(d, derived, 2);
+            part = split ? 3 : (has_cols ? 1 : 2);
+        } else {
+            part = 3;
+        }
+    }
+    switch (part) {
+        case 0:
+            decode_block(d, r, c, bl, bl);
+            break;
+        case 1:
+            decode_block(d, r, c, bl, bl - 1);
+            if (has_rows) decode_block(d, r + half, c, bl, bl - 1);
+            break;
+        case 2:
+            decode_block(d, r, c, bl - 1, bl);
+            if (has_cols) decode_block(d, r, c + half, bl - 1, bl);
+            break;
+        case 3:
+            if (bl == 1) {
+                decode_partition(d, r, c, 0);
+                decode_partition(d, r, c + 1, 0);
+                decode_partition(d, r + 1, c, 0);
+                decode_partition(d, r + 1, c + 1, 0);
+            } else {
+                decode_partition(d, r, c, bl - 1);
+                decode_partition(d, r, c + half, bl - 1);
+                decode_partition(d, r + half, c, bl - 1);
+                decode_partition(d, r + half, c + half, bl - 1);
+            }
+            break;
+        default:
+            fail(d, AV1D_UNSUPPORTED, "AV1: partition %s is not supported yet",
+                 PARTITION_NAME[part]);
+    }
+}
+
+/* ---- loop restoration units (spec 5.11.57-58) ----------------------------- */
+
+static int inverse_recenter(int r, int v) {
+    if (v > 2 * r) return v;
+    if (v & 1) return r - ((v + 1) >> 1);
+    return r + (v >> 1);
+}
+
+static int decode_subexp_bool(Dec *d, int num_syms, int k) {
+    int i = 0, mk = 0;
+    for (;;) {
+        int b2 = i ? k + i - 1 : k;
+        int a = 1 << b2;
+        if (num_syms <= mk + 3 * a) return read_ns(d, num_syms - mk) + mk;
+        if (read_literal(d, 1)) { i++; mk += a; }
+        else return read_literal(d, b2) + mk;
+    }
+}
+
+static int decode_signed_subexp_ref(Dec *d, int low, int high, int k, int r) {
+    int mx = high - low;
+    r -= low;
+    int v = decode_subexp_bool(d, mx, k);
+    int x = (r << 1) <= mx ? inverse_recenter(r, v)
+                           : mx - 1 - inverse_recenter(mx - 1 - r, v);
+    return x + low;
+}
+
+static void read_lr_unit(Dec *d, int plane, int ur, int uc) {
+    int ftype = d->lr_type[plane];
+    int kind;
+    if (ftype == 2) kind = read_symbol(d, d->cdf[D_WIENER], 2) ? 1 : 0;
+    else if (ftype == 3) kind = read_symbol(d, d->cdf[D_SGR], 2) ? 2 : 0;
+    else kind = read_symbol(d, d->cdf[D_SWITCHABLE], 3);
+    int32_t *e = d->lr_out +
+                 ((size_t)plane * d->lr_urows * d->lr_ucols + (size_t)ur * d->lr_ucols + uc) * 7;
+    memset(e, 0, 7 * sizeof(int32_t));
+    e[0] = kind;
+    if (kind == 1) {
+        for (int pass = 0; pass < 2; pass++) {
+            int first = plane ? 1 : 0;
+            for (int j = first; j < 3; j++) {
+                int v = decode_signed_subexp_ref(d, WIENER_MIN[j], WIENER_MAX[j] + 1,
+                                                 WIENER_K[j], d->lr_ref[plane][pass][j]);
+                e[1 + pass * 3 + j] = v;
+                d->lr_ref[plane][pass][j] = v;
+            }
+        }
+    } else if (kind == 2) {
+        int set = read_literal(d, 4);
+        e[1] = set;
+        /* Sgr_Params radii: sets 10-13 have r0 = 0, sets 14-15 r1 = 0 */
+        int radius[2] = {!(set >= 10 && set <= 13), set < 14};
+        for (int i = 0; i < 2; i++) {
+            int v;
+            if (radius[i]) {
+                v = decode_signed_subexp_ref(d, SGRPROJ_XQD_MIN[i], SGRPROJ_XQD_MAX[i] + 1,
+                                             4, d->lr_sgr_ref[plane][i]);
+            } else {
+                v = 0;
+                if (i == 1)
+                    v = (int)clip64((1 << 7) - d->lr_sgr_ref[plane][0],
+                                    SGRPROJ_XQD_MIN[1], SGRPROJ_XQD_MAX[1]);
+            }
+            e[2 + i] = v;
+            d->lr_sgr_ref[plane][i] = v;
+        }
+    }
+}
+
+static void read_lr(Dec *d, int r, int c) {
+    int unit = d->lr_unit;
+    for (int plane = 0; plane < d->nplanes; plane++) {
+        if (!d->lr_type[plane]) continue;
+        int ur0 = (r * 4 + unit - 1) / unit;
+        int ur1 = imin(d->lr_urows, ((r + d->sb4) * 4 + unit - 1) / unit);
+        int uc0 = (c * 4 + unit - 1) / unit;
+        int uc1 = imin(d->lr_ucols, ((c + d->sb4) * 4 + unit - 1) / unit);
+        for (int ur = ur0; ur < ur1; ur++)
+            for (int uc = uc0; uc < uc1; uc++) read_lr_unit(d, plane, ur, uc);
+    }
+}
+
+/* ---- tiles and frame ------------------------------------------------------ */
+
+static void decode_tile(Dec *d) {
+    for (int p = 0; p < d->nplanes; p++) {
+        memset(d->above_lvl[p], 0, (size_t)d->mi_cols + 32);
+        memset(d->above_dc[p], 0, (size_t)d->mi_cols + 32);
+        for (int pass = 0; pass < 2; pass++) {
+            d->lr_sgr_ref[p][pass] = SGRPROJ_XQD_MID[pass];
+            for (int i = 0; i < 3; i++) d->lr_ref[p][pass][i] = WIENER_MID[i];
+        }
+    }
+    int sb4 = d->sb4;
+    for (int r = d->r0; r < d->r1 && !d->err; r += sb4) {
+        for (int p = 0; p < d->nplanes; p++) {
+            memset(d->left_lvl[p], 0, (size_t)d->mi_rows + 32);
+            memset(d->left_dc[p], 0, (size_t)d->mi_rows + 32);
+        }
+        for (int c = d->c0; c < d->c1 && !d->err; c += sb4) {
+            /* clear_cdef */
+            for (int y = r; y < r + sb4; y += 16)
+                for (int x = c; x < c + sb4; x += 16)
+                    if ((y >> 4) < (d->mi_rows + 15) / 16 && (x >> 4) < d->cdef_stride)
+                        d->cdef_idx[(size_t)(y >> 4) * d->cdef_stride + (x >> 4)] = -1;
+            /* clear_block_decoded_flags */
+            int sbw4 = d->c1 - c, sbh4 = d->r1 - r;
+            for (int p = 0; p < d->nplanes; p++) {
+                for (int y = -1; y <= sb4; y++)
+                    for (int x = -1; x <= sb4; x++) {
+                        uint8_t v;
+                        if (y < 0 && x < sbw4) v = 1;
+                        else if (x < 0 && y < sbh4) v = 1;
+                        else v = 0;
+                        d->decoded[p][y + 1][x + 1] = v;
+                    }
+                d->decoded[p][sb4 + 1][0] = 0;
+            }
+            read_lr(d, r, c);
+            decode_partition(d, r, c, d->sb128 ? 5 : 4);
+        }
+    }
+}
+
+/* tiles[i] / tile_sizes[i] in tile order (row-major); tile_starts =
+ * mi_col_starts[tile_cols + 1] then mi_row_starts[tile_rows + 1]. Planes
+ * are int32 buffers of (rows >= sb-aligned height) x stride. Outputs: the
+ * block records (5 ints each, at most one per mi), their count, and the
+ * restoration units (per plane, row and column: kind 0 none / 1 Wiener /
+ * 2 SGR, then 6 taps or set, xqd0, xqd1). Returns 0, or 1 (unsupported
+ * tool) / 2 (corrupt stream) with msg set. */
+int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
+                     const int32_t *hdr, const int32_t *tile_starts,
+                     uint16_t *const *cdfs, const int64_t *cdf_lens,
+                     const int32_t *const *scans, const int32_t *const *smw,
+                     const int32_t *dr, const int32_t *fi_taps,
+                     int32_t *const *planes, int stride,
+                     int32_t *blocks_out, int32_t *n_blocks,
+                     int32_t *lr_out, char *msg, int msglen) {
+    Dec *d = (Dec *)calloc(1, sizeof(Dec));
+    if (!d) return AV1D_CORRUPT;
+    int rc = AV1D_OK;
+    d->msg = msg;
+    d->msglen = msglen;
+    d->mi_rows = hdr[H_MI_ROWS];
+    d->mi_cols = hdr[H_MI_COLS];
+    d->nplanes = hdr[H_NPLANES];
+    d->bd = hdr[H_BITDEPTH];
+    d->sb128 = hdr[H_SB128];
+    d->sb4 = d->sb128 ? 32 : 16;
+    d->base_q = hdr[H_BASE_Q];
+    d->lossless = hdr[H_LOSSLESS];
+    d->tx_mode = hdr[H_TX_MODE];
+    d->reduced_tx_set = hdr[H_REDUCED_TX_SET];
+    d->screen_tools = hdr[H_SCREEN_TOOLS];
+    d->filter_intra = hdr[H_FILTER_INTRA];
+    d->cdef_on = hdr[H_CDEF_ON];
+    d->cdef_bits = hdr[H_CDEF_BITS];
+    d->no_adapt = hdr[H_DISABLE_CDF_UPDATE];
+    for (int p = 0; p < 3; p++) {
+        d->qdc[p] = hdr[H_Q_Y_DC + 2 * p];
+        d->qac[p] = hdr[H_Q_Y_AC + 2 * p];
+        d->lr_type[p] = hdr[H_LR_TYPE0 + p];
+        d->plane[p] = p < d->nplanes ? planes[p] : NULL;
+    }
+    d->lr_unit = hdr[H_LR_UNIT];
+    d->lr_urows = hdr[H_LR_UROWS];
+    d->lr_ucols = hdr[H_LR_UCOLS];
+    d->lr_out = lr_out;
+    d->stride = stride;
+    for (int i = 0; i < 10; i++) d->scan[i] = scans[i];
+    for (int i = 0; i < 5; i++) d->smw[i] = smw[i];
+    d->dr = dr;
+    d->fi_taps = fi_taps;
+    d->blocks = blocks_out;
+    d->cdef_stride = (d->mi_cols + 15) / 16;
+    d->cdef_idx = (int8_t *)malloc((size_t)d->cdef_stride * ((d->mi_rows + 15) / 16));
+    size_t nmi = (size_t)d->mi_rows * d->mi_cols;
+    uint8_t *mi8 = (uint8_t *)calloc(nmi * 7, 1);
+    d->mi_pal = (uint16_t *)calloc(nmi * 8, sizeof(uint16_t));
+    uint8_t *ctxmem = (uint8_t *)calloc((size_t)4 * 3 * ((size_t)d->mi_cols + d->mi_rows + 64), 1);
+    size_t cdf_total = 0;
+    for (int k = 0; k < D_NCDF; k++) cdf_total += (size_t)cdf_lens[k];
+    uint16_t *cdfmem = (uint16_t *)malloc(cdf_total * sizeof(uint16_t));
+    if (!mi8 || !d->mi_pal || !ctxmem || !cdfmem || !d->cdef_idx) {
+        rc = AV1D_CORRUPT;
+        snprintf(msg, (size_t)msglen, "AV1: out of memory");
+        goto done;
+    }
+    d->mi_wl = mi8; d->mi_hl = mi8 + nmi; d->mi_skip = mi8 + 2 * nmi;
+    d->mi_ymode = mi8 + 3 * nmi; d->mi_txw = mi8 + 4 * nmi;
+    d->mi_txh = mi8 + 5 * nmi; d->mi_paln = mi8 + 6 * nmi;
+    {
+        size_t ac = (size_t)d->mi_cols + 32, lc = (size_t)d->mi_rows + 32;
+        uint8_t *q = ctxmem;
+        for (int p = 0; p < 3; p++) {
+            d->above_lvl[p] = q; q += ac;
+            d->above_dc[p] = q; q += ac;
+            d->left_lvl[p] = q; q += lc;
+            d->left_dc[p] = q; q += lc;
+        }
+    }
+    {
+        size_t off = 0;
+        for (int k = 0; k < D_NCDF; k++) { d->cdf[k] = cdfmem + off; off += (size_t)cdf_lens[k]; }
+    }
+    int tile_cols = hdr[H_TILE_COLS], tile_rows = hdr[H_TILE_ROWS];
+    const int32_t *col_starts = tile_starts, *row_starts = tile_starts + tile_cols + 1;
+    for (int tr = 0; tr < tile_rows && !d->err; tr++)
+        for (int tc = 0; tc < tile_cols && !d->err; tc++) {
+            int ti = tr * tile_cols + tc;
+            for (int k = 0; k < D_NCDF; k++)
+                memcpy(d->cdf[k], cdfs[k], (size_t)cdf_lens[k] * sizeof(uint16_t));
+            d->r0 = row_starts[tr];
+            d->r1 = row_starts[tr + 1];
+            d->c0 = col_starts[tc];
+            d->c1 = col_starts[tc + 1];
+            if (tile_sizes[ti] <= 0) {
+                fail(d, AV1D_CORRUPT, "AV1: %s", "empty tile");
+                break;
+            }
+            sym_init(d, tiles[ti], (size_t)tile_sizes[ti]);
+            decode_tile(d);
+        }
+    rc = d->err;
+    *n_blocks = d->n_blocks;
+done:
+    free(mi8);
+    free(d->mi_pal);
+    free(ctxmem);
+    free(cdfmem);
+    free(d->cdef_idx);
+    free(d);
+    return rc;
+}

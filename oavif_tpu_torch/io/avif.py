@@ -1,0 +1,1283 @@
+"""AVIF decoder without Pillow or libavif.
+
+Three parts, all on the host:
+
+- the ISOBMFF container (``read_container``): ``ftyp``, ``meta`` with
+  ``hdlr``, ``pitm``, ``iloc`` (versions 0-2, construction methods 0 and
+  1), ``iinf``/``infe`` (versions 2 and 3), ``iref`` (``auxl``,
+  ``prem``), ``idat`` and ``iprp``/``ipco``/``ipma``; the properties
+  ``ispe``, ``av1C``, ``colr`` (``nclx``, ``prof``/``rICC``) and ``auxC``;
+  and the item data in ``mdat`` or ``idat``;
+- the OBU layer (``parse_av1``): the sequence header in its reduced
+  still-picture form and its full form, the uncompressed header of one
+  shown key frame, the tile info and the tile groups (spec sections 5.3-5.9
+  and 5.11.1);
+- the tile decode and reconstruction in C (``av1_decode.c``, in the host
+  library), then the post-filters of the port's own encoder, fed with the
+  decoded block records: deblocking (``loop_filter_native``), CDEF
+  (``cdef_frame_native``, one strength set per frame) and loop restoration
+  (``restoration.apply_restoration``, with the deblocked rows kept before
+  CDEF); and the conversion to 8-bit RGB as libavif 1.3 converts (libyuv's
+  fixed-point matrices where libavif hands the conversion to libyuv, its
+  own float path elsewhere; ``yuv_to_rgb8``).
+
+A file that ends early or holds a broken box or header raises ``OSError``;
+a stream or container feature outside the decoder's toolset raises
+``UnsupportedAvif`` (a ``ValueError``) naming it. Nothing falls back to
+another decoder.
+"""
+
+from __future__ import annotations
+
+import ctypes as C
+import struct
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+              b"urn:mpeg:hevc:2015:auxid:1")
+
+
+class UnsupportedAvif(ValueError):
+    """An AVIF feature or AV1 tool that this decoder does not handle."""
+
+
+def _broken(what: str) -> OSError:
+    return OSError(f"broken AVIF file ({what})")
+
+
+# ---------------------------------------------------------------------------
+# ISOBMFF container
+# ---------------------------------------------------------------------------
+
+
+def _boxes(data: bytes, start: int, end: int):
+    """Yield (type, payload start, payload end) for the boxes in
+    data[start:end]."""
+    pos = start
+    while pos < end:
+        if end - pos < 8:
+            raise _broken("truncated box header")
+        size, typ = struct.unpack_from(">I4s", data, pos)
+        hdr = 8
+        if size == 1:
+            if end - pos < 16:
+                raise _broken("truncated box header")
+            size = struct.unpack_from(">Q", data, pos + 8)[0]
+            hdr = 16
+        elif size == 0:
+            size = end - pos
+        if typ == b"uuid":
+            hdr += 16
+        if size < hdr:
+            raise _broken(f"box {typ!r} size {size}")
+        if pos + size > end:
+            raise _broken(f"truncated box {typ!r}")
+        yield typ, pos + hdr, pos + size
+        pos += size
+
+
+class _Reader:
+    """Big-endian field reader over one box payload."""
+
+    def __init__(self, data: bytes, pos: int, end: int, box: str) -> None:
+        self.data, self.pos, self.end, self.box = data, pos, end, box
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > self.end:
+            raise _broken(f"truncated {self.box}")
+        b = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return b
+
+    def u(self, n: int) -> int:
+        return int.from_bytes(self.take(n), "big") if n else 0
+
+    def fullbox(self) -> Tuple[int, int]:
+        v = self.u(1)
+        return v, self.u(3)
+
+    def cstring(self) -> bytes:
+        i = self.data.find(b"\x00", self.pos, self.end)
+        if i < 0:
+            raise _broken(f"unterminated string in {self.box}")
+        s = self.data[self.pos:i]
+        self.pos = i + 1
+        return s
+
+
+@dataclass
+class Av1Item:
+    """One AV1 image item: its coded payload and its properties."""
+
+    item_id: int
+    payload: bytes
+    width: int = 0
+    height: int = 0
+    av1c: bytes = b""
+    nclx: Optional[Tuple[int, int, int, bool]] = None
+    icc: Optional[bytes] = None
+
+
+@dataclass
+class AvifContainer:
+    color: Av1Item
+    alpha: Optional[Av1Item] = None
+
+
+@dataclass
+class _Meta:
+    primary: Optional[int] = None
+    types: Dict[int, bytes] = field(default_factory=dict)
+    locs: Dict[int, tuple] = field(default_factory=dict)
+    refs: List[Tuple[bytes, int, List[int]]] = field(default_factory=list)
+    props: List[Tuple[bytes, int, int]] = field(default_factory=list)
+    assoc: Dict[int, List[Tuple[int, bool]]] = field(default_factory=dict)
+    idat: Tuple[int, int] = (0, 0)
+
+
+def _parse_iloc(r: _Reader, m: _Meta) -> None:
+    version, _ = r.fullbox()
+    if version > 2:
+        raise UnsupportedAvif(f"AVIF: iloc version {version}")
+    b = r.u(1)
+    off_size, len_size = b >> 4, b & 15
+    b = r.u(1)
+    base_size = b >> 4
+    index_size = b & 15 if version in (1, 2) else 0
+    for s in (off_size, len_size, base_size, index_size):
+        if s not in (0, 4, 8):
+            raise _broken("iloc field size")
+    count = r.u(2) if version < 2 else r.u(4)
+    for _ in range(count):
+        item_id = r.u(2) if version < 2 else r.u(4)
+        method = r.u(2) & 15 if version in (1, 2) else 0
+        dref = r.u(2)
+        base = r.u(base_size)
+        extents = []
+        for _ in range(r.u(2)):
+            if index_size:
+                r.u(index_size)
+            extents.append((r.u(off_size), r.u(len_size)))
+        m.locs[item_id] = (method, dref, base, extents)
+
+
+def _parse_meta(data: bytes, start: int, end: int) -> _Meta:
+    m = _Meta()
+    r = _Reader(data, start, end, "meta")
+    r.fullbox()
+    seen_hdlr = False
+    for typ, ps, pe in _boxes(data, r.pos, end):
+        b = _Reader(data, ps, pe, typ.decode("latin-1"))
+        if typ == b"hdlr":
+            b.fullbox()
+            b.u(4)
+            if b.take(4) != b"pict":
+                raise _broken("meta handler is not 'pict'")
+            seen_hdlr = True
+        elif typ == b"pitm":
+            v, _ = b.fullbox()
+            m.primary = b.u(2) if v == 0 else b.u(4)
+        elif typ == b"iloc":
+            _parse_iloc(b, m)
+        elif typ == b"iinf":
+            v, _ = b.fullbox()
+            n = b.u(2) if v == 0 else b.u(4)
+            for ityp, ips, ipe in _boxes(data, b.pos, pe):
+                if ityp != b"infe":
+                    continue
+                e = _Reader(data, ips, ipe, "infe")
+                iv, flags = e.fullbox()
+                if iv < 2:
+                    raise UnsupportedAvif(f"AVIF: infe version {iv}")
+                item_id = e.u(2) if iv == 2 else e.u(4)
+                e.u(2)
+                m.types[item_id] = e.take(4)
+                n -= 1
+            if n > 0:
+                raise _broken("iinf entry count")
+        elif typ == b"iref":
+            v, _ = b.fullbox()
+            idsz = 2 if v == 0 else 4
+            for rtyp, rps, rpe in _boxes(data, b.pos, pe):
+                e = _Reader(data, rps, rpe, "iref")
+                src = e.u(idsz)
+                m.refs.append((rtyp, src, [e.u(idsz) for _ in range(e.u(2))]))
+        elif typ == b"idat":
+            m.idat = (ps, pe)
+        elif typ == b"iprp":
+            for ptyp, pps, ppe in _boxes(data, ps, pe):
+                if ptyp == b"ipco":
+                    m.props = list(_boxes(data, pps, ppe))
+                elif ptyp == b"ipma":
+                    e = _Reader(data, pps, ppe, "ipma")
+                    v, flags = e.fullbox()
+                    for _ in range(e.u(4)):
+                        item_id = e.u(2) if v < 1 else e.u(4)
+                        lst = m.assoc.setdefault(item_id, [])
+                        for _ in range(e.u(1)):
+                            if flags & 1:
+                                x = e.u(2)
+                                lst.append((x & 0x7FFF, bool(x >> 15)))
+                            else:
+                                x = e.u(1)
+                                lst.append((x & 0x7F, bool(x >> 7)))
+    if not seen_hdlr:
+        raise _broken("no hdlr box")
+    return m
+
+
+def _item_payload(data: bytes, m: _Meta, item_id: int) -> bytes:
+    if item_id not in m.locs:
+        raise _broken(f"item {item_id} has no iloc entry")
+    method, dref, base, extents = m.locs[item_id]
+    if dref:
+        raise UnsupportedAvif("AVIF: item data in an external file")
+    if method == 1:
+        src0, src1 = m.idat
+    elif method == 0:
+        src0, src1 = 0, len(data)
+    else:
+        raise UnsupportedAvif(f"AVIF: iloc construction method {method}")
+    out = bytearray()
+    for off, length in extents:
+        a = src0 + base + off
+        b = src1 if length == 0 else a + length
+        if a > src1 or b > src1:
+            raise _broken("item data past the end of the file")
+        out += data[a:b]
+    return bytes(out)
+
+
+_TRANSFORMS = {b"irot": "rotation (irot)", b"imir": "mirroring (imir)",
+               b"clap": "clean aperture (clap)"}
+_KNOWN = {b"ispe", b"pixi", b"av1C", b"colr", b"auxC", b"pasp", b"a1lx",
+          b"clli", b"mdcv", b"cclv", b"amve"}
+
+
+def _av1_item(data: bytes, m: _Meta, item_id: int, what: str) -> Av1Item:
+    typ = m.types.get(item_id)
+    if typ is None:
+        raise _broken(f"{what} item {item_id} has no infe entry")
+    if typ != b"av01":
+        raise UnsupportedAvif(
+            f"AVIF: {what} item of type {typ.decode('latin-1')!r} "
+            f"(derived or non-AV1 image items are not supported yet)")
+    it = Av1Item(item_id, _item_payload(data, m, item_id))
+    for idx, essential in m.assoc.get(item_id, []):
+        if idx == 0:
+            continue
+        if idx > len(m.props):
+            raise _broken("ipma property index")
+        ptyp, ps, pe = m.props[idx - 1]
+        p = _Reader(data, ps, pe, ptyp.decode("latin-1"))
+        if ptyp in _TRANSFORMS:
+            raise UnsupportedAvif(f"AVIF: {_TRANSFORMS[ptyp]} is not "
+                                  "supported yet")
+        if ptyp == b"ispe":
+            p.fullbox()
+            it.width, it.height = p.u(4), p.u(4)
+        elif ptyp == b"av1C":
+            it.av1c = data[ps:pe]
+            if len(it.av1c) < 4 or it.av1c[0] != 0x81:
+                raise _broken("av1C")
+        elif ptyp == b"colr":
+            kind = p.take(4)
+            if kind == b"nclx":
+                cp, tc, mc, fr = p.u(2), p.u(2), p.u(2), p.u(1)
+                if it.nclx is None:
+                    it.nclx = (cp, tc, mc, bool(fr >> 7))
+            elif kind in (b"prof", b"rICC"):
+                if it.icc is None:
+                    it.icc = data[p.pos:pe]
+        elif essential and ptyp not in _KNOWN:
+            raise UnsupportedAvif(f"AVIF: essential property "
+                                  f"{ptyp.decode('latin-1')!r}")
+    if not it.av1c:
+        raise _broken(f"{what} item without av1C")
+    if not it.width or not it.height:
+        raise _broken(f"{what} item without ispe")
+    return it
+
+
+def read_container(data: bytes) -> AvifContainer:
+    """The primary AV1 item of an AVIF file and its alpha item, if any."""
+    top = list(_boxes(data, 0, len(data)))
+    if not top or top[0][0] != b"ftyp":
+        raise _broken("no ftyp box")
+    _, fs, fe = top[0]
+    if fe - fs < 8 or (fe - fs) % 4:
+        raise _broken("ftyp size")
+    brands = {data[fs:fs + 4]} | {data[i:i + 4] for i in range(fs + 8, fe, 4)}
+    if not brands & {b"avif", b"avis"}:
+        raise _broken("not an AVIF brand")
+    types = [t for t, _, _ in top]
+    if b"moov" in types:
+        raise UnsupportedAvif("AVIF: image sequences (moov) are not "
+                              "supported yet")
+    metas = [(s, e) for t, s, e in top if t == b"meta"]
+    if len(metas) != 1:
+        raise _broken("no meta box" if not metas else "two meta boxes")
+    m = _parse_meta(data, *metas[0])
+    if m.primary is None:
+        raise _broken("no pitm box")
+    color = _av1_item(data, m, m.primary, "primary")
+    alpha_id = None
+    for rtyp, src, dst in m.refs:
+        if rtyp == b"auxl" and m.primary in dst:
+            for idx, _ in m.assoc.get(src, []):
+                if idx and idx <= len(m.props) and m.props[idx - 1][0] == b"auxC":
+                    _, ps, pe = m.props[idx - 1]
+                    urn = _Reader(data, ps + 4, pe, "auxC").cstring()
+                    if urn in ALPHA_URNS and alpha_id is None:
+                        alpha_id = src
+    if alpha_id is not None:
+        for rtyp, src, dst in m.refs:
+            if rtyp == b"prem" and src == m.primary and alpha_id in dst:
+                raise UnsupportedAvif("AVIF: premultiplied alpha (prem) is "
+                                      "not supported yet")
+    alpha = _av1_item(data, m, alpha_id, "alpha") if alpha_id is not None \
+        else None
+    return AvifContainer(color, alpha)
+
+
+# ---------------------------------------------------------------------------
+# OBUs: sequence header, frame header, tile groups
+# ---------------------------------------------------------------------------
+
+
+class _Bits:
+    """MSB-first bit reader (spec 4.10 descriptors)."""
+
+    def __init__(self, data: bytes, start: int = 0, end: Optional[int] = None):
+        self.data = data
+        self.pos = start * 8
+        self.end = (len(data) if end is None else end) * 8
+
+    def f(self, n: int) -> int:
+        if self.pos + n > self.end:
+            raise _broken("truncated AV1 header")
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | ((self.data[self.pos >> 3] >> (7 - (self.pos & 7))) & 1)
+            self.pos += 1
+        return v
+
+    def su(self, n: int) -> int:
+        v = self.f(n)
+        return v - (1 << n) if v >> (n - 1) else v
+
+    def uvlc(self) -> int:
+        lz = 0
+        while not self.f(1):
+            lz += 1
+            if lz >= 32:
+                return (1 << 32) - 1
+        return self.f(lz) + (1 << lz) - 1
+
+    def byte_align(self) -> None:
+        self.pos = (self.pos + 7) & ~7
+
+    def le(self, n: int) -> int:
+        v = 0
+        for i in range(n):
+            v |= self.f(8) << (8 * i)
+        return v
+
+
+def _leb128(data: bytes, pos: int) -> Tuple[int, int]:
+    v = 0
+    for i in range(8):
+        if pos >= len(data):
+            raise _broken("truncated OBU size")
+        b = data[pos]
+        pos += 1
+        v |= (b & 0x7F) << (7 * i)
+        if not b & 0x80:
+            return v, pos
+    raise _broken("OBU size")
+
+
+@dataclass
+class SequenceHeader:
+    profile: int = 0
+    reduced: bool = False
+    width: int = 0
+    height: int = 0
+    width_bits: int = 16
+    height_bits: int = 16
+    op_idc: int = 0
+    decoder_model_info: bool = False
+    equal_picture_interval: bool = False
+    buffer_removal_time_length: int = 0
+    presentation_time_length: int = 0
+    op_decoder_model: Tuple[bool, ...] = ()
+    op_idcs: Tuple[int, ...] = ()
+    frame_ids: bool = False
+    id_len: int = 0
+    sb128: bool = False
+    filter_intra: bool = False
+    intra_edge: bool = False
+    order_hint_bits: int = 0
+    screen_tools: int = 2
+    integer_mv: int = 2
+    superres: bool = False
+    cdef: bool = False
+    restoration: bool = False
+    bit_depth: int = 8
+    mono: bool = False
+    cicp: Tuple[int, int, int] = (2, 2, 2)
+    full_range: bool = False
+    ss: Tuple[int, int] = (1, 1)
+    separate_uv_delta_q: bool = False
+    film_grain: bool = False
+
+
+def _tile_log2(blk: int, target: int) -> int:
+    k = 0
+    while (blk << k) < target:
+        k += 1
+    return k
+
+
+def parse_sequence_header(b: _Bits) -> SequenceHeader:
+    s = SequenceHeader()
+    s.profile = b.f(3)
+    if s.profile > 2:
+        raise _broken(f"seq_profile {s.profile}")
+    b.f(1)  # still_picture
+    s.reduced = bool(b.f(1))
+    if s.reduced:
+        b.f(5)
+        s.op_idcs = (0,)
+        s.op_decoder_model = (False,)
+    else:
+        if b.f(1):  # timing_info_present_flag
+            b.f(32)
+            b.f(32)
+            s.equal_picture_interval = bool(b.f(1))
+            if s.equal_picture_interval:
+                b.uvlc()
+            s.decoder_model_info = bool(b.f(1))
+            if s.decoder_model_info:
+                buffer_delay_len = b.f(5) + 1
+                b.f(32)
+                s.buffer_removal_time_length = b.f(5) + 1
+                s.presentation_time_length = b.f(5) + 1
+        else:
+            buffer_delay_len = 0
+        display_delay = b.f(1)
+        idcs, models = [], []
+        for _ in range(b.f(5) + 1):
+            idcs.append(b.f(12))
+            if b.f(5) > 7:
+                b.f(1)
+            present = False
+            if s.decoder_model_info:
+                present = bool(b.f(1))
+                if present:
+                    b.f(buffer_delay_len)
+                    b.f(buffer_delay_len)
+                    b.f(1)
+            models.append(present)
+            if display_delay and b.f(1):
+                b.f(4)
+        s.op_idcs, s.op_decoder_model = tuple(idcs), tuple(models)
+    s.op_idc = s.op_idcs[0]
+    s.width_bits, s.height_bits = b.f(4) + 1, b.f(4) + 1
+    s.width = b.f(s.width_bits) + 1
+    s.height = b.f(s.height_bits) + 1
+    if not s.reduced:
+        s.frame_ids = bool(b.f(1))
+        if s.frame_ids:
+            delta_len = b.f(4) + 2
+            s.id_len = b.f(3) + 1 + delta_len
+    s.sb128 = bool(b.f(1))
+    s.filter_intra = bool(b.f(1))
+    s.intra_edge = bool(b.f(1))
+    if not s.reduced:
+        b.f(1)  # enable_interintra_compound
+        b.f(1)  # enable_masked_compound
+        b.f(1)  # enable_warped_motion
+        b.f(1)  # enable_dual_filter
+        order_hint = b.f(1)
+        if order_hint:
+            b.f(1)
+            b.f(1)
+        s.screen_tools = 2 if b.f(1) else b.f(1)
+        if s.screen_tools > 0:
+            s.integer_mv = 2 if b.f(1) else b.f(1)
+        else:
+            s.integer_mv = 2
+        if order_hint:
+            s.order_hint_bits = b.f(3) + 1
+    s.superres = bool(b.f(1))
+    s.cdef = bool(b.f(1))
+    s.restoration = bool(b.f(1))
+    # color_config
+    high = b.f(1)
+    if s.profile == 2 and high:
+        s.bit_depth = 12 if b.f(1) else 10
+    else:
+        s.bit_depth = 10 if high else 8
+    s.mono = False if s.profile == 1 else bool(b.f(1))
+    if b.f(1):
+        s.cicp = (b.f(8), b.f(8), b.f(8))
+    if s.mono:
+        s.full_range = bool(b.f(1))
+        s.ss = (1, 1)
+    elif s.cicp == (1, 13, 0):
+        s.full_range = True
+        s.ss = (0, 0)
+    else:
+        s.full_range = bool(b.f(1))
+        if s.profile == 0:
+            s.ss = (1, 1)
+        elif s.profile == 1:
+            s.ss = (0, 0)
+        elif s.bit_depth == 12:
+            sx = b.f(1)
+            s.ss = (sx, b.f(1) if sx else 0)
+        else:
+            s.ss = (1, 0)
+        if s.ss == (1, 1):
+            b.f(2)
+        s.separate_uv_delta_q = bool(b.f(1))
+    s.film_grain = bool(b.f(1))
+    return s
+
+
+@dataclass
+class FrameHeader:
+    width: int = 0
+    height: int = 0
+    disable_cdf_update: bool = False
+    screen_tools: bool = False
+    mi_rows: int = 0
+    mi_cols: int = 0
+    tile_col_starts: List[int] = field(default_factory=list)
+    tile_row_starts: List[int] = field(default_factory=list)
+    tile_cols_log2: int = 0
+    tile_rows_log2: int = 0
+    tile_size_bytes: int = 4
+    base_q: int = 0
+    dq: Tuple[int, int, int, int, int] = (0, 0, 0, 0, 0)  # ydc udc uac vdc vac
+    lossless: bool = False
+    lf_levels: Tuple[int, int, int, int] = (0, 0, 0, 0)
+    lf_sharpness: int = 0
+    lf_delta_enabled: bool = False
+    lf_ref_delta_intra: int = 1
+    cdef_damping: int = 3
+    cdef_bits: int = 0
+    cdef_strengths: List[Tuple[int, int, int, int]] = field(default_factory=list)
+    lr_types: Tuple[int, int, int] = (0, 0, 0)
+    lr_unit_shift: int = 0
+    tx_mode: int = 0
+    reduced_tx_set: bool = False
+
+
+def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
+                       sid: int) -> FrameHeader:
+    fh = FrameHeader()
+    nplanes = 1 if s.mono else 3
+    if not s.reduced:
+        if b.f(1):
+            raise UnsupportedAvif("AV1: show_existing_frame (more than one "
+                                  "frame) is not supported")
+        frame_type = b.f(2)
+        show_frame = b.f(1)
+        if frame_type != 0:
+            raise UnsupportedAvif("AV1: a frame that is not a key frame is "
+                                  "not supported")
+        if not show_frame:
+            raise UnsupportedAvif("AV1: a key frame that is not shown is "
+                                  "not supported")
+        if s.decoder_model_info and not s.equal_picture_interval:
+            b.f(s.presentation_time_length)  # temporal_point_info
+    fh.disable_cdf_update = bool(b.f(1))
+    screen = b.f(1) if s.screen_tools == 2 else s.screen_tools
+    fh.screen_tools = bool(screen)
+    if screen and s.integer_mv == 2:
+        b.f(1)
+    if s.frame_ids:
+        b.f(s.id_len)
+    override = 0 if s.reduced else b.f(1)
+    b.f(s.order_hint_bits)
+    if s.decoder_model_info:
+        if b.f(1):  # buffer_removal_time_present_flag
+            for idc, present in zip(s.op_idcs, s.op_decoder_model):
+                if present:
+                    in_t = (idc >> tid) & 1
+                    in_s = (idc >> (sid + 8)) & 1
+                    if idc == 0 or (in_t and in_s):
+                        b.f(s.buffer_removal_time_length)
+    # frame_size, superres_params, render_size
+    if override:
+        fh.width = b.f(s.width_bits) + 1
+        fh.height = b.f(s.height_bits) + 1
+    else:
+        fh.width, fh.height = s.width, s.height
+    if s.superres and b.f(1):
+        raise UnsupportedAvif("AV1: superres is not supported yet")
+    if b.f(1):
+        b.f(16)
+        b.f(16)
+    if screen and b.f(1):
+        raise UnsupportedAvif("AV1: intrabc is not supported yet")
+    if not (s.reduced or fh.disable_cdf_update):
+        b.f(1)  # disable_frame_end_update_cdf
+    fh.mi_cols = 2 * ((fh.width + 7) >> 3)
+    fh.mi_rows = 2 * ((fh.height + 7) >> 3)
+    _tile_info(b, s, fh)
+    # quantization_params
+    fh.base_q = b.f(8)
+
+    def delta_q():
+        return b.su(7) if b.f(1) else 0
+
+    ydc = delta_q()
+    udc = uac = vdc = vac = 0
+    if nplanes > 1:
+        diff = b.f(1) if s.separate_uv_delta_q else 0
+        udc, uac = delta_q(), delta_q()
+        vdc, vac = (delta_q(), delta_q()) if diff else (udc, uac)
+    fh.dq = (ydc, udc, uac, vdc, vac)
+    if b.f(1):
+        raise UnsupportedAvif("AV1: quantizer matrices (using_qmatrix) are "
+                              "not supported yet")
+    if b.f(1):
+        raise UnsupportedAvif("AV1: segmentation is not supported yet")
+    if fh.base_q > 0 and b.f(1):
+        raise UnsupportedAvif("AV1: delta q (and delta LF) is not supported "
+                              "yet")
+    fh.lossless = fh.base_q == 0 and not any(fh.dq)
+    if not fh.lossless:
+        l0, l1 = b.f(6), b.f(6)
+        l2 = l3 = 0
+        if nplanes > 1 and (l0 or l1):
+            l2, l3 = b.f(6), b.f(6)
+        fh.lf_levels = (l0, l1, l2, l3)
+        fh.lf_sharpness = b.f(3)
+        fh.lf_delta_enabled = bool(b.f(1))
+        if fh.lf_delta_enabled and b.f(1):
+            ref_deltas = [1, 0, 0, 0, -1, 0, -1, -1]
+            for i in range(8):
+                if b.f(1):
+                    ref_deltas[i] = b.su(7)
+            for _ in range(2):
+                if b.f(1):
+                    b.su(7)
+            fh.lf_ref_delta_intra = ref_deltas[0]
+        if s.cdef:
+            fh.cdef_damping = b.f(2) + 3
+            fh.cdef_bits = b.f(2)
+            if fh.cdef_bits:
+                raise UnsupportedAvif("AV1: CDEF strengths per 64x64 "
+                                      "(cdef_bits > 0) are not supported "
+                                      "yet")
+            for _ in range(1 << fh.cdef_bits):
+                yp, ys = b.f(4), b.f(2)
+                up = us = 0
+                if nplanes > 1:
+                    up, us = b.f(4), b.f(2)
+                fh.cdef_strengths.append(
+                    (yp, 4 if ys == 3 else ys, up, 4 if us == 3 else us))
+        if s.restoration:
+            fh.lr_types = tuple(b.f(2) for _ in range(nplanes)) + \
+                (0,) * (3 - nplanes)
+            if any(fh.lr_types):
+                if s.sb128:
+                    fh.lr_unit_shift = b.f(1) + 1
+                else:
+                    fh.lr_unit_shift = b.f(1)
+                    if fh.lr_unit_shift:
+                        fh.lr_unit_shift += b.f(1)
+                if s.ss == (1, 1) and any(fh.lr_types[1:]):
+                    b.f(1)
+        fh.tx_mode = 2 if b.f(1) else 1
+    else:
+        fh.tx_mode = 0
+    fh.reduced_tx_set = bool(b.f(1))
+    if s.film_grain and b.f(1):
+        raise UnsupportedAvif("AV1: film grain is not supported yet")
+    return fh
+
+
+def _tile_info(b: _Bits, s: SequenceHeader, fh: FrameHeader) -> None:
+    sb_shift = 5 if s.sb128 else 4
+    sb_size = sb_shift + 2
+    sb_cols = (fh.mi_cols + (1 << sb_shift) - 1) >> sb_shift
+    sb_rows = (fh.mi_rows + (1 << sb_shift) - 1) >> sb_shift
+    max_w_sb = 4096 >> sb_size
+    max_area_sb = (4096 * 2304) >> (2 * sb_size)
+    min_log2_cols = _tile_log2(max_w_sb, sb_cols)
+    max_log2_cols = _tile_log2(1, min(sb_cols, 64))
+    max_log2_rows = _tile_log2(1, min(sb_rows, 64))
+    min_log2_tiles = max(min_log2_cols, _tile_log2(max_area_sb,
+                                                   sb_rows * sb_cols))
+    if not b.f(1):  # uniform_tile_spacing_flag
+        raise UnsupportedAvif("AV1: non-uniform tile spacing is not "
+                              "supported yet")
+    cl = min_log2_cols
+    while cl < max_log2_cols and b.f(1):
+        cl += 1
+    tw = (sb_cols + (1 << cl) - 1) >> cl
+    fh.tile_col_starts = [i << sb_shift for i in range(0, sb_cols, tw)]
+    rl = max(min_log2_tiles - cl, 0)
+    while rl < max_log2_rows and b.f(1):
+        rl += 1
+    th = (sb_rows + (1 << rl) - 1) >> rl
+    fh.tile_row_starts = [i << sb_shift for i in range(0, sb_rows, th)]
+    fh.tile_cols_log2, fh.tile_rows_log2 = cl, rl
+    fh.tile_col_starts.append(fh.mi_cols)
+    fh.tile_row_starts.append(fh.mi_rows)
+    if cl or rl:
+        b.f(cl + rl)  # context_update_tile_id
+        fh.tile_size_bytes = b.f(2) + 1
+
+
+def _read_tiles(b: _Bits, fh: FrameHeader, end: int,
+                tiles: List[Optional[bytes]]) -> None:
+    """tile_group_obu: fill tiles[] from one tile group ending at byte
+    ``end``."""
+    n = len(tiles)
+    start_end = b.f(1) if n > 1 else 0
+    if start_end:
+        bits = fh.tile_cols_log2 + fh.tile_rows_log2
+        tg_start, tg_end = b.f(bits), b.f(bits)
+    else:
+        tg_start, tg_end = 0, n - 1
+    b.byte_align()
+    pos = b.pos >> 3
+    data = b.data
+    if tg_end >= n or tg_start > tg_end:
+        raise _broken("tile group range")
+    for t in range(tg_start, tg_end + 1):
+        if t == tg_end:
+            size = end - pos
+        else:
+            if pos + fh.tile_size_bytes > end:
+                raise _broken("truncated tile size")
+            size = int.from_bytes(data[pos:pos + fh.tile_size_bytes],
+                                  "little") + 1
+            pos += fh.tile_size_bytes
+        if size <= 0 or pos + size > end:
+            raise _broken("truncated tile")
+        tiles[t] = data[pos:pos + size]
+        pos += size
+
+
+@dataclass
+class Av1Frame:
+    seq: SequenceHeader
+    frame: FrameHeader
+    tiles: List[bytes]
+
+
+def parse_av1(payload: bytes) -> Av1Frame:
+    """The sequence header, frame header and tiles of an AV1 item's
+    single shown key frame (low-overhead OBU format)."""
+    pos = 0
+    seq: Optional[SequenceHeader] = None
+    fh: Optional[FrameHeader] = None
+    tiles: List[Optional[bytes]] = []
+    done = False
+    while pos < len(payload):
+        h = payload[pos]
+        if h & 0x80:
+            raise _broken("OBU forbidden bit")
+        typ, ext, has_size = (h >> 3) & 15, (h >> 2) & 1, (h >> 1) & 1
+        p = pos + 1
+        tid = sid = 0
+        if ext:
+            if p >= len(payload):
+                raise _broken("truncated OBU header")
+            tid, sid = payload[p] >> 5, (payload[p] >> 3) & 3
+            p += 1
+        if has_size:
+            size, p = _leb128(payload, p)
+        else:
+            size = len(payload) - p
+        end = p + size
+        if end > len(payload):
+            raise _broken("truncated OBU")
+        pos = end
+        if (typ not in (1, 2, 8, 15) and ext and seq is not None
+                and seq.op_idc):
+            if not ((seq.op_idc >> tid) & 1
+                    and (seq.op_idc >> (sid + 8)) & 1):
+                continue
+        if typ == 1:
+            seq = parse_sequence_header(_Bits(payload, p, end))
+        elif typ in (3, 6):
+            if seq is None:
+                raise _broken("frame before the sequence header")
+            if done or fh is not None:
+                raise UnsupportedAvif("AV1: more than one frame is not "
+                                      "supported")
+            _check_toolset(seq)
+            b = _Bits(payload, p, end)
+            fh = parse_frame_header(b, seq, tid, sid)
+            tiles = [None] * ((len(fh.tile_col_starts) - 1)
+                              * (len(fh.tile_row_starts) - 1))
+            if typ == 6:
+                b.byte_align()
+                _read_tiles(b, fh, end, tiles)
+        elif typ == 4:
+            if fh is None:
+                raise _broken("tile group before the frame header")
+            _read_tiles(_Bits(payload, p, end), fh, end, tiles)
+        if fh is not None and tiles and all(t is not None for t in tiles):
+            done = True
+    if seq is None:
+        raise _broken("no sequence header")
+    if fh is None:
+        raise _broken("no frame")
+    if not done:
+        raise _broken("missing tiles")
+    return Av1Frame(seq, fh, tiles)
+
+
+def _check_toolset(s: SequenceHeader) -> None:
+    if s.bit_depth == 12:
+        raise UnsupportedAvif("AV1: 12-bit streams are not supported yet")
+    if not s.mono and s.ss != (0, 0):
+        fmt = "4:2:0" if s.ss == (1, 1) else "4:2:2"
+        raise UnsupportedAvif(f"AV1: {fmt} chroma subsampling is not "
+                              "supported yet")
+    if s.intra_edge:
+        raise UnsupportedAvif("AV1: the intra edge filter and upsampling "
+                              "(enable_intra_edge_filter) are not supported "
+                              "yet")
+
+
+# ---------------------------------------------------------------------------
+# Tile decode and post-filters
+# ---------------------------------------------------------------------------
+
+_CDF_ORDER = (
+    "part8", "part16", "part32", "part64", "part128", "skip", "kf_y",
+    "uv_mode", "uv_mode_cfl", "angle_delta", "cfl_sign", "cfl_alpha",
+    "tx_size", "intra_ext_tx1", "intra_ext_tx2", "txb_skip", "eob16",
+    "eob32", "eob64", "eob128", "eob256", "eob512", "eob1024", "eob_extra",
+    "coeff_base_eob", "coeff_base", "coeff_br", "dc_sign", "pal_y_mode",
+    "pal_uv_mode", "pal_y_size", "pal_y_ci2", "pal_y_ci3", "pal_y_ci4",
+    "pal_y_ci5", "pal_y_ci6", "pal_y_ci7", "pal_y_ci8", "fi_use", "fi_mode",
+    "wiener_restore", "sgrproj_restore", "switchable_restore",
+)
+_HDR_FIELDS = 28
+_CDF_CACHE: Dict[int, tuple] = {}
+_CONST_CACHE: list = []
+
+
+def _cdf_pack(qctx: int):
+    """The default CDFs at coefficient context ``qctx`` as contiguous
+    uint16 arrays in ``_CDF_ORDER`` (each row with its counter)."""
+    if qctx not in _CDF_CACHE:
+        from ..av1.frame import CdfBank
+
+        bank = CdfBank(qctx)
+        src = {
+            **{f"part{w}": bank.partition[w] for w in (8, 16, 32, 64, 128)},
+            "skip": bank.skip, "kf_y": bank.kf_y, "uv_mode": bank.uv_mode,
+            "uv_mode_cfl": bank.uv_mode_cfl,
+            "angle_delta": bank.angle_delta, "cfl_sign": bank.cfl_sign,
+            "cfl_alpha": bank.cfl_alpha, "tx_size": bank.tx_size,
+            "intra_ext_tx1": bank.intra_ext_tx1,
+            "intra_ext_tx2": bank.intra_ext_tx2, "txb_skip": bank.txb_skip,
+            **{f"eob{n}": bank.eob_pt[n]
+               for n in (16, 32, 64, 128, 256, 512, 1024)},
+            "eob_extra": bank.eob_extra,
+            "coeff_base_eob": bank.coeff_base_eob,
+            "coeff_base": bank.coeff_base, "coeff_br": bank.coeff_br,
+            "dc_sign": bank.dc_sign, "pal_y_mode": bank.palette_y_mode,
+            "pal_uv_mode": bank.palette_uv_mode,
+            "pal_y_size": bank.palette_y_size,
+            **{f"pal_y_ci{n}": bank.palette_y_ci[n] for n in range(2, 9)},
+            "fi_use": bank.filter_intra_use,
+            "fi_mode": bank.filter_intra_mode,
+            "wiener_restore": bank.wiener_restore,
+            "sgrproj_restore": bank.sgrproj_restore,
+            "switchable_restore": bank.switchable_restore,
+        }
+        arrs = [np.ascontiguousarray(src[k], dtype=np.uint16).reshape(-1)
+                for k in _CDF_ORDER]
+        ptrs = (C.POINTER(C.c_uint16) * len(arrs))(
+            *[a.ctypes.data_as(C.POINTER(C.c_uint16)) for a in arrs])
+        lens = np.array([a.size for a in arrs], dtype=np.int64)
+        _CDF_CACHE[qctx] = (arrs, ptrs, lens)
+    return _CDF_CACHE[qctx]
+
+
+def _constants():
+    """Scans, smooth weights, directional derivatives and filter-intra
+    taps from the AV1 tables, as the C decoder takes them."""
+    if not _CONST_CACHE:
+        from ..av1.tables import TABLES
+
+        p32 = C.POINTER(C.c_int32)
+        names = ["scan_4x4", "scan_8x8", "scan_16x16", "scan_32x32",
+                 "scan_4x8", "scan_8x4", "scan_8x16", "scan_16x8",
+                 "scan_16x32", "scan_32x16"]
+        scans = [np.ascontiguousarray(TABLES[n], dtype=np.int32)
+                 for n in names]
+        smw = [np.ascontiguousarray(TABLES[f"sm_weights_{n}"], dtype=np.int32)
+               for n in (4, 8, 16, 32, 64)]
+        dr = np.ascontiguousarray(TABLES["dr_intra_derivative"], np.int32)
+        taps = np.ascontiguousarray(
+            TABLES["filter_intra_taps"].reshape(-1), dtype=np.int32)
+        _CONST_CACHE.extend([
+            scans, (p32 * 10)(*[a.ctypes.data_as(p32) for a in scans]),
+            smw, (p32 * 5)(*[a.ctypes.data_as(p32) for a in smw]), dr, taps])
+    return _CONST_CACHE
+
+
+def _host_lib():
+    from ..av1.entropy.fast import get_lib
+
+    lib = get_lib()
+    if lib is None:
+        raise OSError("AVIF decode needs the port's host library, which "
+                      "failed to build (oavif_tpu_torch/av1/entropy/fast.py)")
+    return lib
+
+
+@dataclass
+class DecodedImage:
+    """One decoded AV1 image: Y'UV planes (one for monochrome) of the
+    visible size, their bit depth and colour description."""
+
+    planes: List[np.ndarray]
+    bit_depth: int
+    cicp: Tuple[int, int, int]
+    full_range: bool
+    mono: bool
+
+
+def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
+    """Decode one AV1 item payload to its visible Y'UV planes (int32).
+    ``times``, where given, gains the seconds of "parse" (headers and the
+    tile decode), "filters" (deblocking, CDEF, loop restoration)."""
+    from ..av1.consts import coeff_q_ctx
+    from ..av1.tables import ac_q, dc_q
+
+    t0 = time.perf_counter()
+    lib = _host_lib()
+    av1 = parse_av1(payload)
+    s, fh = av1.seq, av1.frame
+    nplanes = 1 if s.mono else 3
+    bd = s.bit_depth
+    sb = 128 if s.sb128 else 64
+    sb4 = sb // 4
+    rows = ((fh.mi_rows + sb4 - 1) // sb4) * sb
+    stride = ((fh.mi_cols + sb4 - 1) // sb4) * sb
+    planes = [np.zeros((rows, stride), dtype=np.int32) for _ in range(nplanes)]
+    ydc, udc, uac, vdc, vac = fh.dq
+
+    def qi(delta):
+        return min(max(fh.base_q + delta, 0), 255)
+
+    q = [dc_q(qi(ydc), bd), ac_q(qi(0), bd), dc_q(qi(udc), bd),
+         ac_q(qi(uac), bd), dc_q(qi(vdc), bd), ac_q(qi(vac), bd)]
+    from ..av1.restoration import count_units, unit_size
+
+    unit = unit_size(fh.lr_unit_shift) if any(fh.lr_types) else 64
+    urows, ucols = count_units(fh.height, unit), count_units(fh.width, unit)
+    hdr = np.array([
+        fh.mi_rows, fh.mi_cols, nplanes, bd, int(s.sb128),
+        len(fh.tile_col_starts) - 1, len(fh.tile_row_starts) - 1, fh.base_q,
+        int(fh.lossless), fh.tx_mode, int(fh.reduced_tx_set),
+        int(fh.screen_tools), int(s.filter_intra),
+        int(s.cdef and not fh.lossless), fh.cdef_bits,
+        int(fh.disable_cdf_update), *q, *fh.lr_types, unit, urows, ucols,
+    ], dtype=np.int32)
+    assert hdr.size == _HDR_FIELDS
+    starts = np.array(fh.tile_col_starts + fh.tile_row_starts, dtype=np.int32)
+    arrs, cdf_ptrs, cdf_lens = _cdf_pack(coeff_q_ctx(fh.base_q))
+    scans, scan_ptrs, smw, smw_ptrs, dr, taps = _constants()
+    ntiles = len(av1.tiles)
+    tile_bufs = [C.create_string_buffer(t, len(t)) for t in av1.tiles]
+    tile_ptrs = (C.POINTER(C.c_uint8) * ntiles)(
+        *[C.cast(t, C.POINTER(C.c_uint8)) for t in tile_bufs])
+    tile_sizes = np.array([len(t) for t in av1.tiles], dtype=np.int64)
+    p32 = C.POINTER(C.c_int32)
+    plane_ptrs = (p32 * 3)(*[p.ctypes.data_as(p32) for p in planes])
+    blocks = np.zeros((fh.mi_rows * fh.mi_cols, 5), dtype=np.int32)
+    n_blocks = np.zeros(1, dtype=np.int32)
+    lr_units = np.zeros((3, urows, ucols, 7), dtype=np.int32)
+    msg = C.create_string_buffer(256)
+    vp = C.c_void_p
+    rc = lib.av1_decode_frame(
+        C.cast(tile_ptrs, vp), tile_sizes.ctypes.data, hdr.ctypes.data,
+        starts.ctypes.data, C.cast(cdf_ptrs, vp), cdf_lens.ctypes.data,
+        C.cast(scan_ptrs, vp), C.cast(smw_ptrs, vp), dr.ctypes.data,
+        taps.ctypes.data, C.cast(plane_ptrs, vp), stride, blocks.ctypes.data,
+        n_blocks.ctypes.data, lr_units.ctypes.data,
+        msg, 256)
+    if rc == 1:
+        raise UnsupportedAvif(msg.value.decode())
+    if rc:
+        raise _broken(msg.value.decode() or "tile data")
+    t1 = time.perf_counter()
+    blocks = blocks[: int(n_blocks[0])]
+    h, w = fh.height, fh.width
+    mi_h, mi_w = fh.mi_rows * 4, fh.mi_cols * 4
+    recon = [np.ascontiguousarray(p[:mi_h, :mi_w]) for p in planes]
+    _post_filters(recon, blocks, lr_units, fh, s, nplanes, bd)
+    out = [np.ascontiguousarray(p[:h, :w]) for p in recon] \
+        if not any(fh.lr_types) else recon
+    if times is not None:
+        times["parse"] = times.get("parse", 0.0) + (t1 - t0)
+        times["filters"] = times.get("filters", 0.0) + (time.perf_counter() - t1)
+    return DecodedImage(out, bd, s.cicp, s.full_range, s.mono)
+
+
+def _post_filters(recon, blocks, lr_units, fh, s, nplanes, bd):
+    """Deblocking, CDEF and loop restoration in place on the mi-grid
+    planes (``recon`` becomes the visible planes when restoration runs)."""
+    from ..av1.entropy.fast import cdef_frame_native, loop_filter_native
+
+    h, w = fh.height, fh.width
+    if fh.lossless:
+        return
+    lv = fh.lf_levels
+    if lv[0] or lv[1]:
+        def eff(base):
+            if not fh.lf_delta_enabled:
+                return base
+            return min(max(base + (fh.lf_ref_delta_intra << (base >> 5)),
+                           0), 63)
+
+        # luma runs when either level is set; a chroma plane whose level
+        # is 0 is not filtered (the intra reference delta then unused)
+        levels = [eff(lv[0]), eff(lv[1]),
+                  eff(lv[2]) if lv[2] else 0, eff(lv[3]) if lv[3] else 0]
+        loop_filter_native(recon, blocks, levels, fh.lf_sharpness, bd,
+                           vis_h=h, vis_w=w)
+    deblk = ([np.array(p[:h, :w]) for p in recon] if any(fh.lr_types)
+             else None)
+    if s.cdef and fh.cdef_strengths and any(fh.cdef_strengths[0]):
+        cdef_frame_native(recon, blocks, fh.cdef_strengths[0],
+                          fh.cdef_damping, bd)
+    if any(fh.lr_types):
+        from ..av1.restoration import apply_restoration
+
+        urows, ucols = lr_units.shape[1:3]
+        wiener, sgr = {}, {}
+        for p in range(nplanes):
+            if not fh.lr_types[p]:
+                continue
+            wiener[p] = [[tuple(int(x) for x in lr_units[p, r, c, 1:7])
+                          if lr_units[p, r, c, 0] == 1 else None
+                          for c in range(ucols)] for r in range(urows)]
+            sgr[p] = [[tuple(int(x) for x in lr_units[p, r, c, 1:4])
+                       if lr_units[p, r, c, 0] == 2 else None
+                       for c in range(ucols)] for r in range(urows)]
+        vis = [p[:h, :w] for p in recon]
+        recon[:] = apply_restoration(vis, deblk, h, w, fh.lr_types,
+                                     fh.lr_unit_shift, wiener, sgr, bd)
+
+
+# ---------------------------------------------------------------------------
+# Y'UV to RGB as libavif 1.3 converts
+# ---------------------------------------------------------------------------
+
+# libyuv's full-range YuvConstants (row_common.cc: kYuvJPEGConstants,
+# kYuvF709Constants, kYuvV2020Constants): (UB, UG, VG, VR), with
+# YG = 16320 and YB = 32 for all three
+_LIBYUV = {601: (113, 22, 46, 90), 709: (119, 12, 30, 101),
+           2020: (120, 11, 37, 94)}
+# (kr, kb) of libavif's matrix table for the matrices it converts itself
+_KRKB = {4: (0.30, 0.11), 7: (0.212, 0.087)}
+# ITU-T H.273 colour primaries (rx, ry, gx, gy, bx, by, wx, wy); libavif
+# takes BT.709's for any other value
+_PRIMARIES = {
+    1: (0.64, 0.33, 0.30, 0.60, 0.15, 0.06, 0.3127, 0.3290),
+    4: (0.67, 0.33, 0.21, 0.71, 0.14, 0.08, 0.310, 0.316),
+    5: (0.64, 0.33, 0.29, 0.60, 0.15, 0.06, 0.3127, 0.3290),
+    6: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.3290),
+    7: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.3290),
+    8: (0.681, 0.319, 0.243, 0.692, 0.145, 0.049, 0.310, 0.316),
+    9: (0.708, 0.292, 0.170, 0.797, 0.131, 0.046, 0.3127, 0.3290),
+    10: (1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.3333, 0.3333),
+    11: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.314, 0.351),
+    12: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.3127, 0.3290),
+    22: (0.630, 0.340, 0.295, 0.605, 0.155, 0.077, 0.3127, 0.3290),
+}
+
+
+def _krkb_from_primaries(cp: int):
+    """libavif's avifColorPrimariesComputeYCoeffs, in float32."""
+    f = np.float32
+    rx, ry, gx, gy, bx, by, wx, wy = (f(v) for v in
+                                      _PRIMARIES.get(cp, _PRIMARIES[1]))
+    one = f(1.0)
+    rz, gz, bz, wz = one - (rx + ry), one - (gx + gy), one - (bx + by), \
+        one - (wx + wy)
+    den = wy * (rx * (gy * bz - by * gz) + gx * (by * rz - ry * bz)
+                + bx * (ry * gz - gy * rz))
+    kr = (ry * (wx * (gy * bz - by * gz) + wy * (bx * gz - gx * bz)
+                + wz * (gx * by - bx * gy))) / den
+    kb = (by * (wx * (ry * gz - gy * rz) + wy * (gx * rz - rx * gz)
+                + wz * (rx * gy - gx * ry))) / den
+    return kr, kb
+
+
+def _conversion(cicp: Tuple[int, int, int]):
+    """("libyuv", constants) | ("float", (kr, kb)) | ("identity", None) |
+    ("ycgco", None) for a CICP, as libavif 1.3 picks; raises for the
+    matrices libavif refuses."""
+    cp, _, mc = cicp
+    if mc in (2, 5, 6):
+        return "libyuv", _LIBYUV[601]
+    if mc == 1:
+        return "libyuv", _LIBYUV[709]
+    if mc == 9:
+        return "libyuv", _LIBYUV[2020]
+    if mc == 0:
+        return "identity", None
+    if mc == 8:
+        return "ycgco", None
+    if mc in _KRKB:
+        return "float", tuple(np.float32(v) for v in _KRKB[mc])
+    if mc == 12:
+        if cp in (1, 2):
+            return "libyuv", _LIBYUV[709]
+        if cp in (5, 6):
+            return "libyuv", _LIBYUV[601]
+        if cp == 9:
+            return "libyuv", _LIBYUV[2020]
+        return "float", _krkb_from_primaries(cp)
+    raise UnsupportedAvif(f"AVIF: matrix coefficients {mc}, which libavif "
+                          "does not convert to RGB")
+
+
+def yuv_to_rgb8(img: DecodedImage, rgba: bool = False) -> np.ndarray:
+    """(h, w, 3) uint8 RGB of a decoded image, as libavif 1.3 (with
+    libyuv) converts it for an 8-bit RGB target, or for an RGBA target
+    where ``rgba`` (as Pillow asks for images with alpha): there libyuv
+    converts 10-bit Y'UV directly (I410ToARGB, luma kept at 16 bits),
+    where for RGB it first narrows every plane to 8 bits."""
+    if not img.full_range:
+        raise UnsupportedAvif("AVIF: limited-range Y'UV is not supported "
+                              "yet")
+    bd = img.bit_depth
+    y = img.planes[0]
+    if img.mono:
+        mid = np.full_like(y, 1 << (bd - 1))
+        u = v = mid
+    else:
+        u, v = img.planes[1], img.planes[2]
+    kind, k = _conversion(img.cicp)
+    if kind == "libyuv":
+        if bd > 8 and rgba:  # libyuv YuvPixel10
+            y32 = (y << 6) | (y >> 4)
+            u, v = u >> (bd - 8), v >> (bd - 8)
+        else:
+            if bd > 8:  # libyuv Convert16To8Plane, then the 8-bit matrix
+                y, u, v = y >> (bd - 8), u >> (bd - 8), v >> (bd - 8)
+            y32 = y * 0x0101
+        ub, ug, vg, vr = k
+        y1 = ((y32.astype(np.int32) * 16320) >> 16) + 32
+        uc = u.astype(np.int32) - 128
+        vc = v.astype(np.int32) - 128
+        out = np.empty(y.shape + (3,), dtype=np.uint8)
+        for i, c in enumerate((y1 + vc * vr, y1 - uc * ug - vc * vg,
+                               y1 + uc * ub)):
+            c >>= 6
+            np.clip(c, 0, 255, out=c)
+            out[..., i] = c
+        return out
+    f = np.float32
+    mx = (1 << bd) - 1
+    ty = np.arange(mx + 1, dtype=f) / f(mx)
+    tuv = (np.arange(mx + 1, dtype=f) - f(1 << (bd - 1))) / f(mx)
+    yf, cb, cr = ty[y], tuv[u], tuv[v]
+    if kind == "identity":
+        r, g, b = ty[v], yf, ty[u]
+    elif kind == "ycgco":
+        t = yf - cb
+        g, b, r = yf + cb, t - cr, t + cr
+    else:
+        kr, kb = k
+        kg = f(1) - kr - kb
+        r = yf + (f(2) * (f(1) - kr)) * cr
+        b = yf + (f(2) * (f(1) - kb)) * cb
+        g = yf - ((f(2) * ((kr * (f(1) - kr) * cr)
+                          + (kb * (f(1) - kb) * cb))) / kg)
+    return np.stack([(f(0.5) + np.clip(c, f(0), f(1)) * f(255)).astype(np.uint8)
+                     for c in (r, g, b)], axis=-1)
+
+
+def alpha_to_8(img: DecodedImage) -> np.ndarray:
+    """The alpha item's plane at 8 bits, as libavif (libyuv) narrows it."""
+    a = img.planes[0]
+    return (a >> (img.bit_depth - 8)).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def decode_avif(data: bytes, times: Optional[dict] = None):
+    """(container, colour image, alpha image or None)."""
+    t0 = time.perf_counter()
+    box = read_container(data)
+    if times is not None:
+        times["parse"] = times.get("parse", 0.0) + time.perf_counter() - t0
+    color = decode_av1(box.color.payload, times)
+    alpha = decode_av1(box.alpha.payload, times) if box.alpha else None
+    for it, img in ((box.color, color), (box.alpha, alpha)):
+        if img is not None and (img.planes[0].shape
+                                != (it.height, it.width)):
+            raise _broken("the decoded size differs from ispe")
+    if alpha is not None and not alpha.mono:
+        raise _broken("the alpha item is not monochrome")
+    if box.color.nclx is not None:
+        cp, tc, mc, full = box.color.nclx
+        color.cicp, color.full_range = (cp, tc, mc), full
+    return box, color, alpha
+
+
+def decode_avif_rgb8(data: bytes, times: Optional[dict] = None) -> np.ndarray:
+    """(h, w, 3) uint8 RGB, alpha dropped."""
+    _, color, alpha = decode_avif(data, times)
+    t0 = time.perf_counter()
+    rgb = yuv_to_rgb8(color, rgba=alpha is not None)
+    if times is not None:
+        times["convert"] = times.get("convert", 0.0) + time.perf_counter() - t0
+    return rgb
+
+
+def read_avif(data: bytes, times: Optional[dict] = None):
+    """(pixels, high bit depth, ICC profile) as the reference's loader
+    reads an AVIF: 10-bit full-range BT.601 (matrix 2, 5 or 6) streams
+    without alpha go to 16-bit RGB through the float matrix; everything
+    else is 8-bit RGB, or RGBA with an alpha item."""
+    box, color, alpha = decode_avif(data, times)
+    t0 = time.perf_counter()
+    bd = color.bit_depth
+    if (bd > 8 and color.full_range and color.cicp[2] in (2, 5, 6)
+            and alpha is None and not color.mono):
+        from ..av1.yuv import _INV
+
+        maxv = (1 << bd) - 1
+        h, w = color.planes[0].shape
+        yuv = np.stack([p.reshape(-1) for p in color.planes],
+                       axis=1).astype(np.float32)
+        yuv[:, 1:] -= np.float32((maxv + 1) / 2)
+        rgb = np.clip(np.floor(yuv @ _INV + 0.5), 0, maxv)
+        out = (rgb.astype(np.uint16) << (16 - bd)).reshape(h, w, 3)
+        hbd = True
+    else:
+        out = yuv_to_rgb8(color, rgba=alpha is not None)
+        if alpha is not None:
+            out = np.concatenate([out, alpha_to_8(alpha)[..., None]], axis=-1)
+        hbd = False
+    if times is not None:
+        times["convert"] = times.get("convert", 0.0) + time.perf_counter() - t0
+    return out, hbd, box.color.icc

@@ -1,10 +1,12 @@
-"""ctypes bindings to the system libavif decoder — YUV-plane access.
+"""ctypes bindings to the system libavif decoder — a yardstick for the
+tests, on no entry point's path.
 
-Pillow's decoder only exposes RGB; for bit-exact conformance testing the
-encoder's reconstruction must compare against the decoder's YUV planes
-directly (the reference's recon==decode invariant, SURVEY.md §4a). System
-libavif 0.11.1 (dav1d/aom) provides that via avifDecoder.image->yuvPlanes,
-and the RGB that Pillow's decode gives through avifImageYUVToRGB.
+The port decodes AVIF with its own reader (``avif``). The tests hold its
+Y'UV planes to the system libavif's (0.11.1 with dav1d, through
+avifDecoder.image->yuvPlanes: the reference's recon==decode invariant,
+SURVEY.md §4a), and can read that libavif's own RGB through
+avifImageYUVToRGB. The card's machine has no libavif; nothing of the
+port calls this module.
 """
 
 from __future__ import annotations

@@ -6,11 +6,11 @@ PNG / PAM / JPEG / WebP / AVIF to an interleaved RGB(A)/gray image at 8 or
 16 bits with ICC passthrough, plus the to_rgb8 normalization used as the
 metric reference (io.zig:57-133).
 
-PNG (``png8``, ``png16``), JPEG (``jpeg``), WebP (``webp``) and PAM are
-decoded by the port's own readers, with zlib, NumPy and the host
-library's C; AVIF input goes through Pillow (the reference likewise
-delegates to libjpeg-turbo/libwebp/libavif — format decode is host work,
-not device work).
+PNG (``png8``, ``png16``), JPEG (``jpeg``), WebP (``webp``), AVIF
+(``avif``) and PAM are decoded by the port's own readers, with zlib,
+NumPy and the host library's C (the reference delegates to
+libjpeg-turbo/libwebp/libavif — format decode is host work, not device
+work).
 """
 
 from __future__ import annotations
@@ -73,14 +73,6 @@ def load_image(path: str) -> Image:
     if _has_ext(path, ".avif"):
         return load_avif(path)
     raise ValueError(f"unsupported image format: {path}")
-
-
-def _pil_open(path: str):
-    from PIL import Image as PILImage
-
-    im = PILImage.open(path)
-    im.load()
-    return im
 
 
 def load_jpeg(path: str) -> Image:
@@ -194,61 +186,29 @@ def load_webp(path: str) -> Image:
 
 
 def load_avif(path: str) -> Image:
-    """AVIF input decode (io.zig:499-542).
+    """AVIF input decode (io.zig:499-542), by the port's own reader
+    (``avif``: the container in Python, the AV1 key frame in the host
+    library's C), neither Pillow nor libavif.
 
-    Depth-preserving path first: libavif (ctypes) yields native-depth
-    YUV444 planes; high-bit-depth converts to RGB at source depth and
-    left-shifts to 16-bit exactly like the reference (io.zig:525-532).
-    The native path runs only for full-range BT.601 streams
-    (matrixCoefficients 5/6 — checked from the decoded image's CICP,
-    which is what the _INV matrix implements) with no alpha; everything
-    else — 8-bit, alpha, other matrices — takes Pillow (8-bit window,
-    keeps alpha + ICC), matching the reference's avifImageYUVToRGB
-    CICP handling through its own converter.
+    As the reference reads: 10-bit full-range streams with matrix
+    coefficients 2, 5 or 6 and no alpha convert to RGB at their depth and
+    shift to 16 bits (io.zig:525-532); everything else is 8-bit RGB, or
+    RGBA with an alpha item, converted as libavif converts; the ICC
+    profile passes through.
     """
-    im = _pil_open(path)  # opened once: alpha probe + ICC + fallback
-    icc = im.info.get("icc_profile")
-    try:
-        from .avif_ctypes import decode_to_yuv
+    from .avif import read_avif
 
-        # alpha images keep the Pillow path (the native path is Y'UV only)
-        has_alpha = "A" in im.mode
-        with open(path, "rb") as f:
-            data = f.read()
-        planes, depth, yuv_range, cicp = decode_to_yuv(data, want_cicp=True)
-        mc = cicp[2]
-        # 5/6 = BT.601 (what _INV implements); 2 = unspecified, which
-        # libavif's own converter also resolves to 601 in practice
-        if depth > 8 and yuv_range == 1 and mc in (2, 5, 6) and not has_alpha:
-            from ..av1.yuv import _INV
-
-            maxv = (1 << depth) - 1
-            h, w = planes[0].shape
-            yuv = np.stack(
-                [p.reshape(-1) for p in planes], axis=1
-            ).astype(np.float32)
-            yuv[:, 1:] -= np.float32((maxv + 1) / 2)
-            rgb = np.clip(np.floor(yuv @ _INV + 0.5), 0, maxv)
-            rgb16 = (rgb.astype(np.uint16) << (16 - depth)).reshape(h, w, 3)
-            return Image(width=w, height=h, channels=3, hbd=True,
-                         data=rgb16, icc=icc)
-    except Exception:
-        pass
-    if "A" in im.mode:
-        arr = np.asarray(im.convert("RGBA"))
-        ch = 4
-    else:
-        arr = np.asarray(im.convert("RGB"))
-        ch = 3
-    h, w = arr.shape[:2]
-    return Image(width=w, height=h, channels=ch, hbd=False, data=arr, icc=icc)
+    with open(path, "rb") as f:
+        arr, hbd, icc = read_avif(f.read())
+    h, w, ch = arr.shape
+    return Image(width=w, height=h, channels=ch, hbd=hbd, data=arr, icc=icc)
 
 
 def decode_avif_to_rgb8(avif_bytes: bytes) -> np.ndarray:
     """Decode an in-memory AVIF to (h, w, 3) uint8, alpha dropped — the
     metric's decode window (io.zig:638-666, forced 8-bit, 3 channels) —
-    through libavif's own YUV to RGB conversion (``avif_ctypes``), as
-    Pillow's AVIF plugin converts. Raises OSError without libavif."""
-    from .avif_ctypes import decode_to_rgb8
+    by the port's own reader, with libavif's conversion to RGB as
+    Pillow's AVIF plugin asks for it (``avif.decode_avif_rgb8``)."""
+    from .avif import decode_avif_rgb8
 
-    return decode_to_rgb8(avif_bytes)
+    return decode_avif_rgb8(avif_bytes)

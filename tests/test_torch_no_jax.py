@@ -15,7 +15,11 @@ on two PNGs, the CLI on a JPEG fixture (``tests/torch_fixtures/jpeg``),
 the corpus harness on a directory holding a JPEG, ``load_jpeg`` on an
 arithmetic-coded progressive fixture with a DAC marker, and the CLI on a
 lossy WebP fixture with an alpha plane (``tests/torch_fixtures/webp``),
-all decoded by the port's own C. The script runs
+and, with ``libavif.so.15`` unloadable too (``ctypes.CDLL`` refuses any
+library named for libavif), ``load_avif``, ``CudaBackend.decode_to_rgb8``
+and the CLI on an AVIF fixture with an alpha item
+(``tests/torch_fixtures/avif``), all decoded by the port's own C. The
+script runs
 from a file, so the ranks (spawned processes re-import it) refuse the
 same modules. Nothing may import a refused
 module. A static check refuses the same imports in the sources.
@@ -34,9 +38,20 @@ import numpy as np
 REPO = Path(__file__).resolve().parent.parent
 
 _SCRIPT = r"""
-import importlib, importlib.abc, pkgutil, sys
+import ctypes, importlib, importlib.abc, pkgutil, sys
 
 REFUSED = ("jax", "jaxlib", "PIL", "oavif_tpu", "bench")
+
+
+class NoLibavif(ctypes.CDLL):
+    def __init__(self, name, *args, **kwargs):
+        if name and "libavif" in str(name):
+            raise OSError(f"refused library {name}")
+        super().__init__(name, *args, **kwargs)
+
+
+ctypes.CDLL = NoLibavif
+ctypes.cdll = ctypes.LibraryLoader(NoLibavif)
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -120,6 +135,21 @@ def main():
     assert load_image(arith).data.shape == (256, 256, 3)
     assert load_image(webp).channels == 4
     assert cli.run(["-q", "60", webp, out]) == 0
+    avif = sys.argv[11]
+    img = load_image(avif)
+    assert img.channels == 4 and not img.hbd
+    with open(avif, "rb") as f:
+        rgb = CudaBackend().decode_to_rgb8(f.read())
+    assert rgb.shape == (img.height, img.width, 3)
+    assert (rgb == img.data[..., :3]).all()
+    assert cli.run(["-q", "60", avif, out]) == 0
+    from oavif_tpu_torch.io import avif_ctypes
+    try:
+        avif_ctypes._load()
+    except OSError:
+        pass
+    else:
+        raise AssertionError("libavif loaded")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not loaded, loaded
     print("NO_JAX_OK")
@@ -162,7 +192,9 @@ def test_port_cli_runs_without_jax_or_pillow(tmp_path):
          str(tmp_path / "jpg_corpus.csv"),
          str(fixtures / "text_arith_progressive_dac.jpg"),
          str(REPO / "tests" / "torch_fixtures" / "webp"
-             / "text_alpha_q80.webp")],
+             / "text_alpha_q80.webp"),
+         str(REPO / "tests" / "torch_fixtures" / "avif"
+             / "tool_alpha_q50.avif")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
