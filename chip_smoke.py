@@ -2479,11 +2479,6 @@ def phase_decode(images: dict, frame4k: np.ndarray, tq: dict) -> dict:
         for name, ctx, env in decode_streams(images, frame4k, tq):
             saved = {k: os.environ.get(k) for k in [*env, "OAVIF_IDTX"]}
             os.environ.update(env)
-            # each stream encodes as a fresh CLI process would: the
-            # cross-probe decision cache is keyed by the plan alone, so a
-            # plan reused under other options replays decisions those
-            # options' headers do not allow (ROADMAP Queue 3)
-            FR.reset_planners()
             try:
                 data, recon = backend.encode_with_recon(ctx)
             finally:
@@ -2532,30 +2527,27 @@ def phase_decode(images: dict, frame4k: np.ndarray, tq: dict) -> dict:
 
 AVIF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "tests", "torch_fixtures", "avif")
+AVIF_AOM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "torch_fixtures", "avif_aom")
 
 
-def phase_avif_input(images: dict, acc: dict) -> dict:
-    """The port's AVIF reader and the CLI on AVIF input. Every fixture of
-    ``tests/torch_fixtures/avif`` that holds the port's toolset decodes
-    to its manifest's CRC32s (dav1d's Y'UV, and the reference's
-    ``load_avif`` and ``decode_avif_to_rgb8`` pixels as Pillow gave them
-    when the fixtures were made), each read timed (median of 5), the
-    3840x2160 read split into parse and tile decode, post-filters and
-    conversion; each refusal fixture raises ``ValueError`` naming its
-    tool. Then the CLI ``-t 80`` on the six class AVIFs and ``-q 60`` on
-    the 3840x2160 one: q, passes and bytes must be those of the CLI on the
-    same pixels, written as PAM where they are 8-bit and handed over in
-    memory where they are 16-bit (PAM holds 8 bits). Returns the kernels'
-    launches."""
+def _read_avif_fixtures(folder: str) -> dict:
+    """Every fixture of ``folder`` decodes to its manifest's CRC32s
+    (dav1d's Y'UV, and the reference's ``load_avif`` and
+    ``decode_avif_to_rgb8`` pixels as Pillow gave them when the fixtures
+    were made) and, where the manifest counts them, meets each tool the
+    decoder counts as often; each read timed (median of 5), split into
+    parse and tile decode, post-filters and conversion; a refusal fixture
+    raises ``ValueError`` naming its tool. Returns the loaded images by
+    file name."""
     from oavif_tpu_torch.io import avif
-    from oavif_tpu_torch.io.image import Image, load_avif
+    from oavif_tpu_torch.io.image import load_avif
 
-    with open(os.path.join(AVIF_DIR, "manifest.json")) as f:
+    with open(os.path.join(folder, "manifest.json")) as f:
         manifest = json.load(f)
-    reset_counts()
     loaded = {}
     for name, entry in sorted(manifest.items()):
-        path = os.path.join(AVIF_DIR, name)
+        path = os.path.join(folder, name)
         with open(path, "rb") as f:
             data = f.read()
         if "refuses" in entry:
@@ -2581,25 +2573,57 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
                               for p in color.planes])
         got = (list(img.data.shape), img.hbd, len(img.icc or b""),
                zlib.crc32(img.data.tobytes()), zlib.crc32(yuv.tobytes()),
-               zlib.crc32(avif.decode_avif_rgb8(data).tobytes()))
+               zlib.crc32(avif.decode_avif_rgb8(data).tobytes()),
+               color.tools if "tools" in entry else None)
         want = (entry["load_shape"], entry["load_hbd"], entry["icc"],
-                entry["load_crc"], entry["yuv_crc"], entry["rgb8_crc"])
+                entry["load_crc"], entry["yuv_crc"], entry["rgb8_crc"],
+                entry.get("tools"))
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         loaded[name] = img
         parts = ", ".join(f"{k} {np.median([t[k] for t in split]) * 1e3:.3f}"
                           for k in ("parse", "filters", "convert"))
+        fmt = ("4:0:0" if color.mono else
+               {(0, 0): "4:4:4", (1, 0): "4:2:2", (1, 1): "4:2:0"}[color.ss])
         print(f"  {name} {img.width}x{img.height}x{img.channels} "
-              f"{'16' if img.hbd else '8'}-bit ({len(data)} bytes): == "
-              f"manifest CRCs; read {np.median(times) * 1e3:.3f} ms (median "
-              f"of 5, {min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}; "
-              f"{parts} ms)", flush=True)
+              f"{'16' if img.hbd else '8'}-bit from {fmt} "
+              f"{color.bit_depth}-bit ({len(data)} bytes): == manifest CRCs; "
+              f"read {np.median(times) * 1e3:.3f} ms (median of 5, "
+              f"{min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}; {parts} ms)",
+              flush=True)
+    return loaded
+
+
+def phase_avif_input(images: dict, acc: dict) -> dict:
+    """The port's AVIF reader and the CLI on AVIF input. Every fixture of
+    ``tests/torch_fixtures/avif`` (the port's own streams and three of
+    libaom's) and of ``tests/torch_fixtures/avif_aom`` (libaom's: 4:2:0,
+    4:2:2 and 4:4:4 at every speed and quality of its grid, CDEF strengths
+    per 64x64, 10-bit, the 3840x2160 frame; the 12-bit file must raise
+    naming 12-bit) decodes to its manifest (``_read_avif_fixtures``), the
+    3840x2160 reads split into parse and tile decode, post-filters and
+    conversion. Then the CLI ``-t 80`` on the six class AVIFs and ``-q
+    60`` on the 3840x2160 one, from each folder: q, passes and bytes must
+    be those of the CLI on the same pixels, written as PAM where they are
+    8-bit and handed over in memory where they are 16-bit (PAM holds 8
+    bits). Returns the kernels' launches."""
+    from oavif_tpu_torch.io.image import Image
+
+    reset_counts()
+    runs = []
+    for folder, classes, frame in (
+            (AVIF_DIR, "{}.avif", "photo4k_q60.avif"),
+            (AVIF_AOM_DIR, "class_{}_420.avif", "photo4k_420_q60.avif")):
+        loaded = _read_avif_fixtures(folder)
+        runs += [(os.path.join(folder, classes.format(name)),
+                  loaded[classes.format(name)], ["-t", "80"])
+                 for name in images]
+        runs.append((os.path.join(folder, frame), loaded[frame],
+                     ["-q", "60"]))
     with tempfile.TemporaryDirectory() as td:
-        for name in [*images, "photo4k_q60"]:
-            args = ["-q", "60"] if name == "photo4k_q60" else ["-t", "80"]
-            src = os.path.join(AVIF_DIR, f"{name}.avif")
+        for src, img, args in runs:
+            name = os.path.relpath(src, os.path.dirname(AVIF_DIR))
             r = run_cli(args, src, os.path.join(td, "o.avif"), acc)
-            img = loaded[f"{name}.avif"]
             if img.hbd:
                 how = "the same 16-bit pixels in memory"
                 load = cli.load_image
@@ -2613,16 +2637,16 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
                     cli.load_image = load
             else:
                 how = "PAM of its pixels"
-                pam = os.path.join(td, f"{name}.pam")
+                pam = os.path.join(td, "in.pam")
                 write_pam(pam, img.data)
                 p = run_cli(args, pam, os.path.join(td, "o.avif"), acc)
             if (r["q"], r["passes"], r["bytes"]) != (p["q"], p["passes"],
                                                      p["bytes"]):
                 raise AssertionError(
-                    f"{name}.avif {' '.join(args)}: q{r['q']} {r['passes']} "
+                    f"{name} {' '.join(args)}: q{r['q']} {r['passes']} "
                     f"passes {len(r['bytes'])} bytes, {how} q{p['q']} "
                     f"{p['passes']} passes {len(p['bytes'])} bytes")
-            print(f"  {name}.avif {' '.join(args)}: q{r['q']} passes "
+            print(f"  {name} {' '.join(args)}: q{r['q']} passes "
                   f"{r['passes']} bytes {len(r['bytes'])} == {how}; wall "
                   f"{r['wall']:.3f} s", flush=True)
     return read_counts()

@@ -28,6 +28,7 @@ _SRC_PNG = Path(__file__).parent / "png_unfilter.c"
 _SRC_JPEG = Path(__file__).parent.parent.parent / "io" / "jpeg_decode.c"
 _SRC_WEBP = Path(__file__).parent.parent.parent / "io" / "webp_decode.c"
 _SRC_AV1 = Path(__file__).parent.parent.parent / "io" / "av1_decode.c"
+_SRC_AV1_POST = Path(__file__).parent.parent.parent / "io" / "av1_postfilter.c"
 _BUILD_DIR = (Path(__file__).resolve().parent.parent.parent.parent
               / "build" / "oavif_tpu_torch")
 _SO = _BUILD_DIR / "liboavif_host.so"
@@ -42,8 +43,9 @@ def _build() -> Optional[C.CDLL]:
         return None
     try:
         srcs = [_SRC, _SRC_TILE, _SRC_SSIMU2, _SRC_PNG, _SRC_JPEG, _SRC_WEBP,
-                _SRC_AV1]
-        hdrs = [_SRC.parent / "idct_ln_impl.h"]
+                _SRC_AV1, _SRC_AV1_POST]
+        hdrs = [_SRC.parent / "idct_ln_impl.h",
+                _SRC_AV1.parent / "av1_header.h"]
         newest = max(s.stat().st_mtime for s in srcs + hdrs)
         if not _SO.exists() or _SO.stat().st_mtime < newest:
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -181,8 +183,10 @@ def _build() -> Optional[C.CDLL]:
         ]
         lib.av1_decode_frame.restype = C.c_int
         lib.av1_decode_frame.argtypes = (
-            [C.c_void_p] * 10 + [C.c_void_p, C.c_int] + [C.c_void_p] * 3
+            [C.c_void_p] * 10 + [C.c_void_p, C.c_int] + [C.c_void_p] * 5
             + [C.c_char_p, C.c_int])
+        lib.av1_postfilter.restype = C.c_int
+        lib.av1_postfilter.argtypes = [C.c_void_p, C.c_int] + [C.c_void_p] * 6
         return lib
     except Exception:
         _build_failed = True
@@ -562,10 +566,7 @@ def tile_encode_native(planes, qindex, bitdepth=8, speed=9, plan=None,
 def _blocks_arr(blocks):
     """Normalize block records to the 5-int (r, c, size, skip, y_tx)
     layout the C post-filters read (legacy 4-tuples get y_tx = tx ==
-    block, i.e. min(size, 64)); an (n, 5) int32 array passes as it is."""
-    if isinstance(blocks, np.ndarray) and blocks.ndim == 2 \
-            and blocks.shape[1] == 5:
-        return np.ascontiguousarray(blocks, dtype=np.int32)
+    block, i.e. min(size, 64))."""
     if not blocks:
         return np.zeros((0, 5), np.int32)
     arr = np.array(blocks, dtype=np.int32).reshape(len(blocks), -1)

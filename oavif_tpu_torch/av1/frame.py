@@ -3616,38 +3616,53 @@ class TileEncoder:
             self.enc.bool_q15((x >> i) & 1, 16384)
 
 
-# Cross-probe decision cache: one entry per live device-plan instance
-# (the TQ loop re-encodes the same tile at nearby quantizers; the plan
-# object identity inherits the plan cache's ±16-qindex / q90-gate reuse
-# window). Entry: id(plan) -> (weakref(plan), buf, length, qindex).
+# Cross-probe decision cache: one entry per live device-plan instance and
+# option set (the TQ loop re-encodes the same tile at nearby quantizers;
+# the plan object identity inherits the plan cache's ±16-qindex / q90-gate
+# reuse window). The options are those that shape the recorded decisions
+# (``_dec_options``): a plan reused in one process under other options
+# (another speed, IDTX or ``--tune ssim``, screen tools) must not replay
+# decisions those options' headers do not allow. Entry: (id(plan),
+# options) -> (weakref(plan), buf, length).
 _DEC_CACHE: dict = {}
 
 
-def _get_dec(plan, tile_planes, qindex, speed=9):
+def _dec_options(speed, screen_tools, filter_intra, sb128):
+    """The options a recorded decision set holds for: the speed's tool
+    set, IDTX (``OAVIF_IDTX``, which ``--tune ssim`` sets), the screen
+    tools, filter intra and the superblock size. Each stays fixed over
+    the probes of one search (the chroma AC delta, which follows the
+    probe's q, is no part of the key: the probes of a search replay
+    across it, as in the reference)."""
+    return (speed, os.environ.get("OAVIF_IDTX", "0") == "1",
+            bool(screen_tools), bool(filter_intra), bool(sb128))
+
+
+def _get_dec(plan, tile_planes, qindex, speed=9, options=()):
     import os
-    import weakref
 
     if plan is None or os.environ.get("OAVIF_DEC_REUSE", "1") == "0":
         return None, False
     if speed <= 4:
         # quality speeds: every probe re-derives exact per-q decisions
         return None, False
-    ent = _DEC_CACHE.get(id(plan))
+    key = (id(plan), options)
+    ent = _DEC_CACHE.get(key)
     if ent is not None and ent[0]() is plan:
         return {"mode": 2, "buf": ent[1], "len": ent[2]}, False
-    _DEC_CACHE.pop(id(plan), None)
+    _DEC_CACHE.pop(key, None)
     h, w = tile_planes[0].shape
     cap = ((h // 8) + 2) * ((w // 8) + 2) * 10
     return {"mode": 1, "buf": np.zeros(cap, dtype=np.int32), "len": cap}, True
 
 
-def _store_dec(plan, dec):
+def _store_dec(plan, dec, options=()):
     import weakref
 
     if len(_DEC_CACHE) > 16:
         _DEC_CACHE.clear()
-    _DEC_CACHE[id(plan)] = (weakref.ref(plan), dec["buf"], dec["len"])
-
+    _DEC_CACHE[(id(plan), options)] = (weakref.ref(plan), dec["buf"],
+                                       dec["len"])
 
 
 # ---------------------------------------------------------------------------
@@ -3793,7 +3808,8 @@ def _encode_one_tile(args):
             if device_levels_enabled():
                 _attach_device_levels(planner, plan, qindex, bitdepth)
 
-    dec, record = _get_dec(plan, tile_planes, qindex, speed)
+    options = _dec_options(speed, screen_tools, filter_intra, sb128)
+    dec, record = _get_dec(plan, tile_planes, qindex, speed, options)
 
     if os.environ.get("OAVIF_PY_TILE") != "1":
         # production path: the whole per-tile serial loop in C
@@ -3809,7 +3825,7 @@ def _encode_one_tile(args):
                 "native tile coder unavailable: the C runtime "
                 "(oavif_tpu_torch/av1/entropy) failed to build")
         if record and dec is not None:
-            _store_dec(plan, dec)
+            _store_dec(plan, dec, options)
         return res
 
     te = TileEncoder(tile_planes, qindex, bitdepth, speed, plan=plan,
@@ -3818,7 +3834,7 @@ def _encode_one_tile(args):
                      lr=lr, sb128=sb128)
     payload = te.encode()
     if record and dec is not None:
-        _store_dec(plan, dec)
+        _store_dec(plan, dec, options)
     with _COUNT_LOCK:
         lv16_consumed += te.lv16_consumed
     return payload, [r.copy() for r in te.recon], te.blocks

@@ -140,8 +140,13 @@ def write_sequence_header(cfg: SequenceConfig) -> bytes:
         # mono: color_range then done (spec color_config early return)
         w.f(cfg.color_range, 1)
     else:
-        # (not the RGB-identity special case as long as mc != 0)
-        w.f(cfg.color_range, 1)
+        # BT.709 primaries, sRGB transfer and the identity matrix imply
+        # full range and 4:4:4: spec color_config reads no color_range
+        # there (unlike the reference's writer, whose stream for this one
+        # triple no decoder reads)
+        if (cfg.color_primaries, cfg.transfer_characteristics,
+                cfg.matrix_coefficients) != (1, 13, 0):
+            w.f(cfg.color_range, 1)
         # profile 1 → subsampling 0,0 implied; no chroma_sample_position
         w.f(0, 1)  # separate_uv_delta_q
     w.f(0, 1)  # film_grain_params_present

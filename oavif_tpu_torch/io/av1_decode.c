@@ -18,10 +18,20 @@
  * update_cdf_c and are copied afresh for every tile. The 1D inverse
  * transforms are the host library's (inv_1d_kind_pub).
  *
- * Streams outside the toolset below are refused with a message naming
- * the tool: 4:4:4 or monochrome planes, partitions NONE/HORZ/VERT/SPLIT,
- * the 2D transform classes (DCT, ADST, identity), luma palette, filter
- * intra, no intra edge filter.
+ * The toolset is that of libaom's intra frames: 4:4:4, 4:2:2, 4:2:0 and
+ * monochrome planes at 8 and 10 bits (the chroma of 4xN and Nx4 blocks
+ * coded on the last block of their 8x8, CFL on subsampled luma), every
+ * partition (the A/B and 4-way ones included), every transform size
+ * (the 4:1 ones and the 64-length zero-out) and the intra transform sets
+ * (V_DCT and H_DCT with their own scans and contexts), TX_MODE_SELECT,
+ * luma palette, filter intra, and the intra edge filter and upsampling.
+ * A chroma palette is refused with a message naming it.
+ *
+ * Besides the planes, one call returns what the post-filters
+ * (av1_postfilter.c) read: the transform size of every 4x4 of every
+ * plane, the skip flag of every 4x4 luma block, the CDEF strength index
+ * of every 64x64 and the restoration units; and a count of each tool a
+ * stream used (the T_* enum).
  *
  * Built into the host library beside the tile coder (av1/entropy/fast.py).
  */
@@ -47,15 +57,7 @@ enum {
     D_SWITCHABLE, D_NCDF
 };
 
-/* header pack (must match avif.py _HDR_FIELDS) */
-enum {
-    H_MI_ROWS, H_MI_COLS, H_NPLANES, H_BITDEPTH, H_SB128, H_TILE_COLS,
-    H_TILE_ROWS, H_BASE_Q, H_LOSSLESS, H_TX_MODE, H_REDUCED_TX_SET,
-    H_SCREEN_TOOLS, H_FILTER_INTRA, H_CDEF_ON, H_CDEF_BITS,
-    H_DISABLE_CDF_UPDATE, H_Q_Y_DC, H_Q_Y_AC, H_Q_U_DC, H_Q_U_AC, H_Q_V_DC,
-    H_Q_V_AC, H_LR_TYPE0, H_LR_TYPE1, H_LR_TYPE2, H_LR_UNIT, H_LR_UROWS,
-    H_LR_UCOLS, H_NFIELDS
-};
+#include "av1_header.h"
 
 enum {
     DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED,
@@ -94,15 +96,6 @@ static const int SGRPROJ_XQD_MIN[2] = {-96, -32};
 static const int SGRPROJ_XQD_MAX[2] = {31, 95};
 static const int SGRPROJ_XQD_MID[2] = {-32, 31};
 static const int PALETTE_COLOR_CONTEXT[9] = {-1, -1, 0, -1, -1, 4, 3, 2, 1};
-static const char *const TX_TYPE_NAME[16] = {
-    "DCT_DCT", "ADST_DCT", "DCT_ADST", "ADST_ADST", "FLIPADST_DCT",
-    "DCT_FLIPADST", "FLIPADST_FLIPADST", "ADST_FLIPADST", "FLIPADST_ADST",
-    "IDTX", "V_DCT", "H_DCT", "V_ADST", "H_ADST", "V_FLIPADST",
-    "H_FLIPADST"};
-static const char *const PARTITION_NAME[10] = {
-    "NONE", "HORZ", "VERT", "SPLIT", "HORZ_A", "HORZ_B", "VERT_A", "VERT_B",
-    "HORZ_4", "VERT_4"};
-
 static inline int imin(int a, int b) { return a < b ? a : b; }
 static inline int imax(int a, int b) { return a > b ? a : b; }
 static inline int64_t clip64(int64_t v, int64_t lo, int64_t hi) {
@@ -132,6 +125,7 @@ typedef struct {
     /* frame */
     int mi_rows, mi_cols, nplanes, bd, sb128, sb4, lossless, tx_mode;
     int reduced_tx_set, screen_tools, filter_intra, cdef_on, cdef_bits;
+    int ssx, ssy, edge_filter;
     int base_q, qdc[3], qac[3];
     int32_t *plane[3];
     int stride;
@@ -143,8 +137,11 @@ typedef struct {
     const int32_t *fi_taps;
     /* per-mi frame state */
     uint8_t *mi_wl, *mi_hl;   /* log2 of block width/height in 4x4 units */
-    uint8_t *mi_skip, *mi_ymode, *mi_txw, *mi_txh, *mi_paln;
+    uint8_t *mi_skip, *mi_ymode, *mi_uvmode, *mi_txw, *mi_txh, *mi_paln;
     uint16_t *mi_pal;         /* 8 colours per mi */
+    /* transform size of each 4x4 of each plane, (log2 w - 2) | (log2 h -
+     * 2) << 4, rows of mi_cols (the post-filters' LoopfilterTxSizes) */
+    uint8_t *txmap[3];
     /* coefficient contexts (frame-wide, reset per tile / SB row) */
     uint8_t *above_lvl[3], *above_dc[3], *left_lvl[3], *left_dc[3];
     /* tile */
@@ -152,11 +149,12 @@ typedef struct {
     uint8_t decoded[3][34][34]; /* BlockDecoded, offset by 1 */
     int8_t *cdef_idx; int cdef_stride;
     /* loop restoration */
-    int lr_type[3], lr_unit, lr_urows, lr_ucols;
+    int lr_type[3], lr_unit[3], lr_urows[3], lr_ucols[3];
+    int lr_rstride, lr_cstride;
     int32_t *lr_out;
     int lr_ref[3][2][3], lr_sgr_ref[3][2];
-    /* outputs */
-    int32_t *blocks; int n_blocks;
+    /* tool counters (T_*) */
+    int32_t *count;
     /* error */
     int err;
     char *msg; int msglen;
@@ -168,6 +166,8 @@ typedef struct {
     int bsize;
     int skip, ymode, uvmode, angle_y, angle_uv, cfl_u, cfl_v;
     int use_fi, fi_mode, pal_n, has_chroma, avail_u, avail_l;
+    int avail_uc, avail_lc; /* AvailUChroma, AvailLChroma */
+    int smooth_y, smooth_uv;  /* get_filter_type for luma and chroma */
     uint16_t pal[8];
     uint8_t cmap[64 * 64];
     int txwl, txhl; /* luma tx log2 width/height in px */
@@ -293,9 +293,20 @@ static int tx_in_set(int set, int t) {
         return 1;
     return set == SET_INTRA_1 && (t == V_DCT || t == H_DCT);
 }
-/* chroma tx size of a 4:4:4 block (spec get_tx_size) */
-static void uv_tx(const Blk *b, int *wl, int *hl) {
-    int w = imin(b->wl + 2, 6), h = imin(b->hl + 2, 6);
+/* the block's size in a plane, in log2 4x4 units (spec
+ * get_plane_residual_size) */
+static void plane_block(const Dec *d, const Blk *b, int plane, int *wl4,
+                        int *hl4) {
+    int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
+    *wl4 = imax(0, b->wl - sx);
+    *hl4 = imax(0, b->hl - sy);
+}
+/* chroma tx size (spec get_tx_size): the largest that fits the plane's
+ * block, 64 capped at 32 */
+static void uv_tx(const Dec *d, const Blk *b, int *wl, int *hl) {
+    int wl4, hl4;
+    plane_block(d, b, 1, &wl4, &hl4);
+    int w = imin(wl4 + 2, 6), h = imin(hl4 + 2, 6);
     if (w == 6 || h == 6) {
         if (w == 4) { *wl = 4; *hl = 5; return; }
         if (h == 4) { *wl = 5; *hl = 4; return; }
@@ -306,15 +317,115 @@ static void uv_tx(const Blk *b, int *wl, int *hl) {
     *hl = h;
 }
 
+/* the default scan of a coded size (log2 px, at most 32): the square and
+ * 2:1 ones from the tables, the 4:1 ones by the diagonal rule those
+ * follow (up-right for wide, down-left for tall) */
+static int32_t SCAN41[4][512];
+static int scan41_ready;
+static void make_diag_scan(int32_t *out, int w, int h) {
+    int n = 0;
+    for (int k = 0; k < w + h - 1; k++) {
+        if (w < h) {
+            for (int r = 0; r < h; r++)
+                if (k - r >= 0 && k - r < w) out[n++] = r * w + (k - r);
+        } else {
+            for (int r = h - 1; r >= 0; r--)
+                if (k - r >= 0 && k - r < w) out[n++] = r * w + (k - r);
+        }
+    }
+}
 static const int32_t *scan_for(const Dec *d, int cwl, int chl) {
     if (cwl == chl) return d->scan[cwl - 2];
     static const int RECT[6][2] = {{2, 3}, {3, 2}, {3, 4}, {4, 3}, {4, 5}, {5, 4}};
     for (int i = 0; i < 6; i++)
         if (RECT[i][0] == cwl && RECT[i][1] == chl) return d->scan[4 + i];
+    static const int R41[4][2] = {{2, 4}, {4, 2}, {3, 5}, {5, 3}};
+    if (!__atomic_load_n(&scan41_ready, __ATOMIC_ACQUIRE)) {
+        static int32_t tmp[4][512];
+        for (int i = 0; i < 4; i++)
+            make_diag_scan(tmp[i], 1 << R41[i][0], 1 << R41[i][1]);
+        /* every thread writes the same values */
+        memcpy(SCAN41, tmp, sizeof(SCAN41));
+        __atomic_store_n(&scan41_ready, 1, __ATOMIC_RELEASE);
+    }
+    for (int i = 0; i < 4; i++)
+        if (R41[i][0] == cwl && R41[i][1] == chl) return SCAN41[i];
     return NULL;
 }
 
 /* ---- intra prediction (spec 7.11.2) -------------------------------------- */
+
+static const int INTRA_EDGE_KERNEL[3][5] = {
+    {0, 4, 8, 4, 0}, {0, 5, 6, 5, 0}, {2, 4, 4, 4, 2}};
+
+static int edge_strength(int w, int h, int smooth, int delta) {
+    int d = abs(delta), wh = w + h, s = 0;
+    if (!smooth) {
+        if (wh <= 8) { if (d >= 56) s = 1; }
+        else if (wh <= 12) { if (d >= 40) s = 1; }
+        else if (wh <= 16) { if (d >= 40) s = 1; }
+        else if (wh <= 24) {
+            if (d >= 8) s = 1;
+            if (d >= 16) s = 2;
+            if (d >= 32) s = 3;
+        } else if (wh <= 32) {
+            if (d >= 1) s = 1;
+            if (d >= 4) s = 2;
+            if (d >= 32) s = 3;
+        } else {
+            if (d >= 1) s = 3;
+        }
+    } else {
+        if (wh <= 8) {
+            if (d >= 40) s = 1;
+            if (d >= 64) s = 2;
+        } else if (wh <= 16) {
+            if (d >= 20) s = 1;
+            if (d >= 48) s = 2;
+        } else if (wh <= 24) {
+            if (d >= 4) s = 3;
+        } else {
+            if (d >= 1) s = 3;
+        }
+    }
+    return s;
+}
+
+static int edge_upsample(int w, int h, int smooth, int delta) {
+    int d = abs(delta), wh = w + h;
+    if (d <= 0 || d >= 40) return 0;
+    return smooth ? wh <= 8 : wh <= 16;
+}
+
+/* filter buf[-1 .. sz-2] in place (spec intra_edge_filter) */
+static void edge_filter(int32_t *buf, int sz, int strength) {
+    if (!strength) return;
+    int32_t edge[129 + 32];
+    for (int i = 0; i < sz; i++) edge[i] = buf[i - 1];
+    for (int i = 1; i < sz; i++) {
+        int s = 0;
+        for (int j = 0; j < 5; j++) {
+            int k = imin(imax(i - 2 + j, 0), sz - 1);
+            s += INTRA_EDGE_KERNEL[strength - 1][j] * edge[k];
+        }
+        buf[i - 1] = (s + 8) >> 4;
+    }
+}
+
+static void edge_upsample_run(int32_t *buf, int n, int bd) {
+    int32_t dup[64 + 3];
+    dup[0] = buf[-1];
+    for (int i = -1; i < n; i++) dup[i + 2] = buf[i];
+    dup[n + 2] = buf[n - 1];
+    buf[-2] = dup[0];
+    int maxv = (1 << bd) - 1;
+    for (int i = 0; i < n; i++) {
+        int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
+        s = (int)clip64(rnd2s(s, 4), 0, maxv);
+        buf[2 * i - 1] = s;
+        buf[2 * i] = dup[i + 2];
+    }
+}
 
 static void predict_intra(Dec *d, const Blk *b, int plane, int x, int y,
                           int have_left, int have_above, int have_ar,
@@ -322,8 +433,9 @@ static void predict_intra(Dec *d, const Blk *b, int plane, int x, int y,
                           int angle_delta) {
     int w = 1 << wl, h = 1 << hl;
     int bd = d->bd;
-    int maxx = d->mi_cols * 4 - 1, maxy = d->mi_rows * 4 - 1;
-    int32_t above_buf[129 + 16], left_buf[129 + 16];
+    int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
+    int maxx = ((d->mi_cols * 4) >> sx) - 1, maxy = ((d->mi_rows * 4) >> sy) - 1;
+    int32_t above_buf[288], left_buf[288];
     int32_t *above = above_buf + 16, *left = left_buf + 16;
     int n = w + h;
     if (!have_above && have_left) {
@@ -429,41 +541,69 @@ static void predict_intra(Dec *d, const Blk *b, int plane, int x, int y,
             }
         return;
     }
-    /* directional (spec 7.11.2.4, no edge filter or upsampling) */
+    /* directional (spec 7.11.2.4), with the edge filter and upsampling */
     int p_angle = MODE_TO_ANGLE[mode] + angle_delta * 3;
+    int up_above = 0, up_left = 0;
+    if (d->edge_filter) {
+        int smooth = plane ? b->smooth_uv : b->smooth_y;
+        if (p_angle != 90 && p_angle != 180) {
+            if (p_angle > 90 && p_angle < 180 && w + h >= 24) {
+                int32_t s = (int32_t)rnd2(left[0] * 5 + above[-1] * 6 + above[0] * 5, 4);
+                left[-1] = above[-1] = s;
+            }
+            if (have_above) {
+                int st = edge_strength(w, h, smooth, p_angle - 90);
+                int np = imin(w, maxx - x + 1) + (p_angle < 90 ? h : 0) + 1;
+                edge_filter(above, np, st);
+                if (st) d->count[T_EDGE_FILTER]++;
+            }
+            if (have_left) {
+                int st = edge_strength(w, h, smooth, p_angle - 180);
+                int np = imin(h, maxy - y + 1) + (p_angle > 180 ? w : 0) + 1;
+                edge_filter(left, np, st);
+                if (st) d->count[T_EDGE_FILTER]++;
+            }
+        }
+        up_above = edge_upsample(w, h, smooth, p_angle - 90);
+        if (up_above) edge_upsample_run(above, w + (p_angle < 90 ? h : 0), bd);
+        up_left = edge_upsample(w, h, smooth, p_angle - 180);
+        if (up_left) edge_upsample_run(left, h + (p_angle > 180 ? w : 0), bd);
+        if (up_above || up_left) d->count[T_EDGE_UPSAMPLE]++;
+    }
     int dx = 0, dy = 0;
     if (p_angle < 90) dx = d->dr[p_angle];
     else if (p_angle > 90 && p_angle < 180) { dx = d->dr[180 - p_angle]; dy = d->dr[p_angle - 90]; }
     else if (p_angle > 180) dy = d->dr[270 - p_angle];
+    int ua = up_above, ul = up_left;
     for (int i = 0; i < h; i++)
         for (int j = 0; j < w; j++) {
             int64_t v;
             if (p_angle < 90) {
                 int idx = (i + 1) * dx;
-                int base = (idx >> 6) + j;
-                int shift = (idx >> 1) & 0x1F;
-                int max_base = w + h - 1;
+                int base = (idx >> (6 - ua)) + (j << ua);
+                int shift = ((idx << ua) >> 1) & 0x1F;
+                int max_base = (w + h - 1) << ua;
                 if (base < max_base)
                     v = rnd2(above[base] * (int64_t)(32 - shift) + above[base + 1] * (int64_t)shift, 5);
                 else
                     v = above[max_base];
             } else if (p_angle > 90 && p_angle < 180) {
                 int idx = (j << 6) - (i + 1) * dx;
-                int base = idx >> 6;
-                if (base >= -1) {
-                    int shift = (idx >> 1) & 0x1F;
+                int base = idx >> (6 - ua);
+                if (base >= -(1 << ua)) {
+                    int shift = ((idx << ua) >> 1) & 0x1F;
                     v = rnd2(above[base] * (int64_t)(32 - shift) + above[base + 1] * (int64_t)shift, 5);
                 } else {
                     idx = (i << 6) - (j + 1) * dy;
-                    base = idx >> 6;
-                    int shift = (idx >> 1) & 0x1F;
+                    base = idx >> (6 - ul);
+                    int shift = ((idx << ul) >> 1) & 0x1F;
                     v = rnd2(left[base] * (int64_t)(32 - shift) + left[base + 1] * (int64_t)shift, 5);
                 }
             } else if (p_angle > 180) {
                 int idx = (j + 1) * dy;
-                int base = (idx >> 6) + i;
-                int shift = (idx >> 1) & 0x1F;
-                int max_base = w + h - 1;
+                int base = (idx >> (6 - ul)) + (i << ul);
+                int shift = ((idx << ul) >> 1) & 0x1F;
+                int max_base = (w + h - 1) << ul;
                 if (base < max_base)
                     v = rnd2(left[base] * (int64_t)(32 - shift) + left[base + 1] * (int64_t)shift, 5);
                 else
@@ -477,17 +617,23 @@ static void predict_intra(Dec *d, const Blk *b, int plane, int x, int y,
         }
 }
 
+/* CFL (spec 7.11.5): the luma average over the subsampled luma, the luma
+ * replicated past MaxLumaW/H */
 static void predict_cfl(Dec *d, const Blk *b, int plane, int x, int y,
                         int wl, int hl) {
     int w = 1 << wl, h = 1 << hl;
+    int sx = d->ssx, sy = d->ssy;
     int alpha = plane == 1 ? b->cfl_u : b->cfl_v;
-    int32_t L[64 * 64];
+    static _Thread_local int32_t L[32 * 32];
     int64_t avg = 0;
     for (int i = 0; i < h; i++) {
-        int ly = imin(y + i, b->max_luma_h - 1);
+        int ly = imin((y + i) << sy, b->max_luma_h - (1 << sy));
         for (int j = 0; j < w; j++) {
-            int lx = imin(x + j, b->max_luma_w - 1);
-            int32_t v = *px(d, 0, ly, lx) << 3;
+            int lx = imin((x + j) << sx, b->max_luma_w - (1 << sx));
+            int32_t t = 0;
+            for (int dy = 0; dy <= sy; dy++)
+                for (int dx = 0; dx <= sx; dx++) t += *px(d, 0, ly + dy, lx + dx);
+            int32_t v = t << (3 - sx - sy);
             L[i * w + j] = v;
             avg += v;
         }
@@ -555,6 +701,8 @@ static void reconstruct(Dec *d, int plane, int x, int y, int wl, int hl,
             case DCT_ADST: col_kind = 0; row_kind = 1; break;
             case ADST_ADST: col_kind = 1; row_kind = 1; break;
             case IDTX: col_kind = 2; row_kind = 2; break;
+            case V_DCT: col_kind = 0; row_kind = 2; break;
+            case H_DCT: col_kind = 2; row_kind = 0; break;
             default: col_kind = 0; row_kind = 0; break;
         }
         static const int ROW_SHIFT[5][5] = {
@@ -599,6 +747,8 @@ static void reconstruct(Dec *d, int plane, int x, int y, int wl, int hl,
 
 /* ---- coefficients (spec 5.11.39) ----------------------------------------- */
 
+enum { TXC_2D = 0, TXC_HORIZ = 1, TXC_VERT = 2 };
+
 static int read_coeffs(Dec *d, const Blk *b, int plane, int x, int y,
                        int wl, int hl, int *txtype_io, int32_t *quant) {
     int x4 = x >> 2, y4 = y >> 2;
@@ -609,18 +759,22 @@ static int read_coeffs(Dec *d, const Blk *b, int plane, int x, int y,
     int cwl = imin(wl, 5), chl = imin(hl, 5);
     int cw = 1 << cwl, ch = 1 << chl;
     int n = cw * ch;
+    int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
+    int max_x4 = d->mi_cols >> sx, max_y4 = d->mi_rows >> sy;
     uint8_t *al = d->above_lvl[plane], *ad = d->above_dc[plane];
     uint8_t *ll = d->left_lvl[plane], *ld = d->left_dc[plane];
 
     /* all_zero context */
     int ctx;
-    int bw = 4 << b->wl, bh = 4 << b->hl;
+    int pwl4, phl4;
+    plane_block(d, b, plane, &pwl4, &phl4);
+    int bw = 4 << pwl4, bh = 4 << phl4;
     if (plane == 0) {
         int top = 0, left = 0;
         for (int k = 0; k < w4; k++)
-            if (x4 + k < d->mi_cols) top = imax(top, al[x4 + k]);
+            if (x4 + k < max_x4) top = imax(top, al[x4 + k]);
         for (int k = 0; k < h4; k++)
-            if (y4 + k < d->mi_rows) left = imax(left, ll[y4 + k]);
+            if (y4 + k < max_y4) left = imax(left, ll[y4 + k]);
         if (bw == (1 << wl) && bh == (1 << hl)) ctx = 0;
         else if (top == 0 && left == 0) ctx = 1;
         else if (top == 0 || left == 0) ctx = 2 + (imax(top, left) > 3);
@@ -630,9 +784,9 @@ static int read_coeffs(Dec *d, const Blk *b, int plane, int x, int y,
     } else {
         int above = 0, left = 0;
         for (int k = 0; k < w4; k++)
-            if (x4 + k < d->mi_cols) above |= al[x4 + k] | ad[x4 + k];
+            if (x4 + k < max_x4) above |= al[x4 + k] | ad[x4 + k];
         for (int k = 0; k < h4; k++)
-            if (y4 + k < d->mi_rows) left |= ll[y4 + k] | ld[y4 + k];
+            if (y4 + k < max_y4) left |= ll[y4 + k] | ld[y4 + k];
         ctx = (above != 0) + (left != 0) + 7;
         if (bw * bh > (1 << wl) * (1 << hl)) ctx += 3;
     }
@@ -656,16 +810,23 @@ static int read_coeffs(Dec *d, const Blk *b, int plane, int x, int y,
         } else {
             txtype = *txtype_io;
         }
-        if (txtype == V_DCT || txtype == H_DCT) {
-            fail(d, AV1D_UNSUPPORTED,
-                 "AV1: transform type %s (a 1D transform class) is not "
-                 "supported yet", TX_TYPE_NAME[txtype]);
-            return 0;
+        int txc = txtype == V_DCT ? TXC_VERT : (txtype == H_DCT ? TXC_HORIZ : TXC_2D);
+        if (txtype == V_DCT) d->count[T_TX_V_DCT]++;
+        if (txtype == H_DCT) d->count[T_TX_H_DCT]++;
+        /* spec get_scan: mrow (raster) for V_*, mcol for H_* */
+        static _Thread_local int32_t scan1d[32 * 32];
+        const int32_t *scan;
+        if (txc == TXC_VERT) {
+            for (int i = 0; i < n; i++) scan1d[i] = i;
+            scan = scan1d;
+        } else if (txc == TXC_HORIZ) {
+            for (int i = 0; i < n; i++) scan1d[i] = (i % ch) * cw + i / ch;
+            scan = scan1d;
+        } else {
+            scan = scan_for(d, cwl, chl);
         }
-        const int32_t *scan = scan_for(d, cwl, chl);
         if (!scan) {
-            fail(d, AV1D_UNSUPPORTED, "AV1: %s transform size is not supported yet",
-                 "4:1");
+            fail(d, AV1D_CORRUPT, "AV1: %s", "bad transform size");
             return 0;
         }
         int m = cwl + chl - 4;
@@ -673,7 +834,8 @@ static int read_coeffs(Dec *d, const Blk *b, int plane, int x, int y,
                                        D_EOB256, D_EOB512, D_EOB1024};
         int eob_nsym = 5 + m;
         int eob_pt = 1 + read_symbol(
-            d, d->cdf[EOB_CDF[m]] + (size_t)ptype * 2 * (eob_nsym + 1), eob_nsym);
+            d, d->cdf[EOB_CDF[m]] + ((size_t)ptype * 2 + (txc != TXC_2D)) * (eob_nsym + 1),
+            eob_nsym);
         eob = eob_pt < 2 ? eob_pt : (1 << (eob_pt - 2)) + 1;
         int eob_shift = eob_pt - 3;
         if (eob_shift >= 0) {
@@ -685,14 +847,16 @@ static int read_coeffs(Dec *d, const Blk *b, int plane, int x, int y,
                 if (read_literal(d, 1)) eob += 1 << eob_shift;
             }
         }
-        int stride = cw + 2;
-        static _Thread_local uint8_t pad[(32 + 4) * (32 + 4)];
-        memset(pad, 0, (size_t)stride * (ch + 3));
+        int stride = cw + 4;
+        static _Thread_local uint8_t pad[(32 + 4) * (32 + 5)];
+        memset(pad, 0, (size_t)stride * (ch + 5));
         memset(quant, 0, sizeof(int32_t) * (size_t)n);
         uint16_t *base_eob = d->cdf[D_BASE_EOB] + ((size_t)txs_ctx * 2 + ptype) * 4 * 4;
         uint16_t *base = d->cdf[D_BASE] + ((size_t)txs_ctx * 2 + ptype) * 42 * 5;
         uint16_t *br = d->cdf[D_BR] + ((size_t)imin(txs_ctx, 3) * 2 + ptype) * 21 * 5;
-        int square = cw == ch, wide = cw > ch;
+        /* the context offsets follow the shape of the transform, not of
+         * its coded 32x32 part (spec Coeff_Base_Ctx_Offset[txSz]) */
+        int square = wl == hl, wide = wl > hl;
         for (int si = eob - 1; si >= 0; si--) {
             int pos = scan[si];
             int rr = pos >> cwl, cc = pos & (cw - 1);
@@ -702,21 +866,36 @@ static int read_coeffs(Dec *d, const Blk *b, int plane, int x, int y,
                 int c2 = si == 0 ? 0 : (si <= n / 8 ? 1 : (si <= n / 4 ? 2 : 3));
                 level = 1 + read_symbol(d, base_eob + (size_t)c2 * 4, 3);
             } else {
-                int mag = imin(p[1], 3) + imin(p[stride], 3) + imin(p[stride + 1], 3) +
+                int mag, bctx;
+                if (txc == TXC_2D) {
+                    mag = imin(p[1], 3) + imin(p[stride], 3) + imin(p[stride + 1], 3) +
                           imin(p[2], 3) + imin(p[2 * stride], 3);
-                mag = imin((mag + 1) >> 1, 4);
-                int bctx;
-                if (pos == 0) bctx = 0;
-                else if (square) bctx = mag + (rr + cc < 2 ? 1 : (rr + cc < 4 ? 6 : 21));
-                else if (wide && cc < 2) bctx = mag + 16;
-                else if (!wide && rr < 2) bctx = mag + 11;
-                else bctx = mag + (rr + cc < 4 ? 6 : 21);
+                    mag = imin((mag + 1) >> 1, 4);
+                    if (pos == 0) bctx = 0;
+                    else if (square) bctx = mag + (rr + cc < 2 ? 1 : (rr + cc < 4 ? 6 : 21));
+                    else if (wide && cc < 2) bctx = mag + 16;
+                    else if (!wide && rr < 2) bctx = mag + 11;
+                    else bctx = mag + (rr + cc < 4 ? 6 : 21);
+                } else {
+                    int s2 = txc == TXC_HORIZ ? 1 : stride;
+                    mag = imin(p[1], 3) + imin(p[stride], 3) + imin(p[2 * s2], 3) +
+                          imin(p[3 * s2], 3) + imin(p[4 * s2], 3);
+                    mag = imin((mag + 1) >> 1, 4);
+                    int idx = txc == TXC_VERT ? rr : cc;
+                    bctx = mag + 26 + 5 * imin(idx, 2);
+                }
                 level = read_symbol(d, base + (size_t)bctx * 5, 4);
             }
             if (level > 2) {
-                int mag = imin(p[1], 15) + imin(p[stride], 15) + imin(p[stride + 1], 15);
+                int third = txc == TXC_2D ? p[stride + 1]
+                          : (txc == TXC_HORIZ ? p[2] : p[2 * stride]);
+                int mag = imin(p[1], 15) + imin(p[stride], 15) + imin(third, 15);
                 mag = imin((mag + 1) >> 1, 6);
-                int brctx = pos == 0 ? mag : ((rr < 2 && cc < 2) ? mag + 7 : mag + 14);
+                int near;
+                if (txc == TXC_2D) near = rr < 2 && cc < 2;
+                else if (txc == TXC_HORIZ) near = cc == 0;
+                else near = rr == 0;
+                int brctx = pos == 0 ? mag : (near ? mag + 7 : mag + 14);
                 for (int k = 0; k < 4; k++) {
                     int s = read_symbol(d, br + (size_t)brctx * 5, 4);
                     level += s;
@@ -729,9 +908,9 @@ static int read_coeffs(Dec *d, const Blk *b, int plane, int x, int y,
         /* dc sign context */
         int dcs = 0;
         for (int k = 0; k < w4; k++)
-            if (x4 + k < d->mi_cols) dcs += (ad[x4 + k] == 2) - (ad[x4 + k] == 1);
+            if (x4 + k < max_x4) dcs += (ad[x4 + k] == 2) - (ad[x4 + k] == 1);
         for (int k = 0; k < h4; k++)
-            if (y4 + k < d->mi_rows) dcs += (ld[y4 + k] == 2) - (ld[y4 + k] == 1);
+            if (y4 + k < max_y4) dcs += (ld[y4 + k] == 2) - (ld[y4 + k] == 1);
         int sctx = dcs < 0 ? 1 : (dcs > 0 ? 2 : 0);
         for (int si = 0; si < eob; si++) {
             int pos = scan[si];
@@ -770,12 +949,13 @@ static int read_coeffs(Dec *d, const Blk *b, int plane, int x, int y,
 
 static void transform_block(Dec *d, Blk *b, int plane, int base_x, int base_y,
                             int wl, int hl, int x, int y) {
+    int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
     int start_x = base_x + 4 * x, start_y = base_y + 4 * y;
-    int row = start_y >> 2, col = start_x >> 2;
+    int row = (start_y << sy) >> 2, col = (start_x << sx) >> 2;
     int sbmask = d->sb4 - 1;
-    int sub_r = row & sbmask, sub_c = col & sbmask;
+    int sub_r = (row & sbmask) >> sy, sub_c = (col & sbmask) >> sx;
     int step_x = 1 << (wl - 2), step_y = 1 << (hl - 2);
-    if (start_x >= d->mi_cols * 4 || start_y >= d->mi_rows * 4) return;
+    if (start_x >= (d->mi_cols * 4) >> sx || start_y >= (d->mi_rows * 4) >> sy) return;
     uint8_t (*dec)[34] = d->decoded[plane];
     if (plane == 0 && b->pal_n) {
         for (int i = 0; i < (1 << hl); i++)
@@ -787,10 +967,15 @@ static void transform_block(Dec *d, Blk *b, int plane, int base_x, int base_y,
         int mode = plane == 0 ? b->ymode : (is_cfl ? DC_PRED : b->uvmode);
         int have_ar = dec[sub_r - 1 + 1][sub_c + step_x + 1];
         int have_bl = dec[sub_r + step_y + 1][sub_c - 1 + 1];
-        predict_intra(d, b, plane, start_x, start_y, b->avail_l || x > 0,
-                      b->avail_u || y > 0, have_ar, have_bl, mode, wl, hl,
+        predict_intra(d, b, plane, start_x, start_y,
+                      (plane == 0 ? b->avail_l : b->avail_lc) || x > 0,
+                      (plane == 0 ? b->avail_u : b->avail_uc) || y > 0,
+                      have_ar, have_bl, mode, wl, hl,
                       plane == 0 ? b->angle_y : b->angle_uv);
-        if (is_cfl) predict_cfl(d, b, plane, start_x, start_y, wl, hl);
+        if (is_cfl) {
+            predict_cfl(d, b, plane, start_x, start_y, wl, hl);
+            if (sx || sy) d->count[T_CFL_SUBSAMPLED]++;
+        }
     }
     if (plane == 0) {
         b->max_luma_w = start_x + step_x * 4;
@@ -813,29 +998,40 @@ static void transform_block(Dec *d, Blk *b, int plane, int base_x, int base_y,
         if (plane == 0 && (d->lossless || imax(wl, hl) > 5)) txtype = DCT_DCT;
         if (eob > 0) reconstruct(d, plane, start_x, start_y, wl, hl, txtype, quant);
     }
+    if (abs(wl - hl) == 2) d->count[T_TX_4TO1]++;
+    if (imax(wl, hl) == 6) d->count[T_TX_64]++;
+    uint8_t packed = (uint8_t)((wl - 2) | ((hl - 2) << 4));
+    int pr = start_y >> 2, pc = start_x >> 2;
+    int prows = d->mi_rows >> sy, pcols = d->mi_cols >> sx;
     for (int i = 0; i < step_y; i++)
-        for (int j = 0; j < step_x; j++)
+        for (int j = 0; j < step_x; j++) {
             if (sub_r + i <= 32 && sub_c + j <= 32) dec[sub_r + i + 1][sub_c + j + 1] = 1;
+            if (pr + i < prows && pc + j < pcols)
+                d->txmap[plane][(size_t)(pr + i) * d->mi_cols + pc + j] = packed;
+        }
 }
 
 static void residual(Dec *d, Blk *b) {
-    int bw = 4 << b->wl, bh = 4 << b->hl;
-    int wchunks = imax(1, bw >> 6), hchunks = imax(1, bh >> 6);
+    int bw4 = 1 << b->wl, bh4 = 1 << b->hl;
+    int wchunks = imax(1, bw4 >> 4), hchunks = imax(1, bh4 >> 4);
     int nplanes = b->has_chroma ? d->nplanes : 1;
     for (int cy = 0; cy < hchunks; cy++)
         for (int cx = 0; cx < wchunks; cx++)
             for (int plane = 0; plane < nplanes; plane++) {
+                int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
                 int wl, hl;
                 if (d->lossless) { wl = 2; hl = 2; }
                 else if (plane == 0) { wl = b->txwl; hl = b->txhl; }
-                else uv_tx(b, &wl, &hl);
+                else uv_tx(d, b, &wl, &hl);
                 int stepx = 1 << (wl - 2), stepy = 1 << (hl - 2);
-                int n4w = 1 << b->wl, n4h = 1 << b->hl;
-                int base_x = b->c * 4, base_y = b->r * 4;
-                for (int y = 0; y < imin(n4h, 16); y += stepy)
-                    for (int x = 0; x < imin(n4w, 16); x += stepx) {
+                int pwl4, phl4;
+                plane_block(d, b, plane, &pwl4, &phl4);
+                int n4w = 1 << pwl4, n4h = 1 << phl4;
+                int base_x = (b->c >> sx) * 4, base_y = (b->r >> sy) * 4;
+                for (int y = 0; y < imin(n4h, 16 >> sy); y += stepy)
+                    for (int x = 0; x < imin(n4w, 16 >> sx); x += stepx) {
                         transform_block(d, b, plane, base_x, base_y, wl, hl,
-                                        x + (cx << 4), y + (cy << 4));
+                                        x + ((cx << 4) >> sx), y + ((cy << 4) >> sy));
                         if (d->err) return;
                     }
             }
@@ -959,6 +1155,7 @@ static void read_cdef(Dec *d, Blk *b) {
     int8_t *ci = d->cdef_idx + (size_t)(r >> 4) * d->cdef_stride + (c >> 4);
     if (*ci == -1) {
         int v = read_literal(d, d->cdef_bits);
+        if (d->cdef_bits) d->count[T_CDEF_IDX_READ]++;
         int w4 = 1 << b->wl, h4 = 1 << b->hl;
         for (int y = r; y < r + h4; y += 16)
             for (int x = c; x < c + w4; x += 16)
@@ -981,9 +1178,36 @@ static void tx_size(Dec *d, Blk *b) {
         int ctx = (aw >= maxw) + (lh >= maxh);
         int depth = read_symbol(d, d->cdf[D_TX_SIZE] + ((size_t)cat * 3 + ctx) * 4, nsym);
         for (int i = 0; i < depth; i++) split_tx(&wl, &hl);
+        if (depth == 1) d->count[T_TX_DEPTH1]++;
+        if (depth == 2) d->count[T_TX_DEPTH2]++;
     }
     b->txwl = wl;
     b->txhl = hl;
+}
+
+static int is_smooth_mode(int m) {
+    return m == SMOOTH_PRED || m == SMOOTH_V_PRED || m == SMOOTH_H_PRED;
+}
+
+/* spec get_filter_type: is an above or left neighbour SMOOTH*? (their UV
+ * modes for chroma, at the block that carries the neighbouring chroma) */
+static void filter_types(Dec *d, Blk *b) {
+    b->smooth_y = (b->avail_u && is_smooth_mode(d->mi_ymode[mi_at(d, b->r - 1, b->c)])) ||
+                  (b->avail_l && is_smooth_mode(d->mi_ymode[mi_at(d, b->r, b->c - 1)]));
+    b->smooth_uv = 0;
+    if (!b->has_chroma) return;
+    if (b->avail_uc) {
+        int r = b->r - 1, c = b->c;
+        if (d->ssx && !(b->c & 1)) c++;
+        if (d->ssy && (b->r & 1)) r--;
+        b->smooth_uv |= is_smooth_mode(d->mi_uvmode[mi_at(d, r, c)]);
+    }
+    if (b->avail_lc) {
+        int r = b->r, c = b->c - 1;
+        if (d->ssx && (b->c & 1)) c--;
+        if (d->ssy && !(b->r & 1)) r++;
+        b->smooth_uv |= is_smooth_mode(d->mi_uvmode[mi_at(d, r, c)]);
+    }
 }
 
 static void intra_mode_info(Dec *d, Blk *b) {
@@ -1004,7 +1228,9 @@ static void intra_mode_info(Dec *d, Blk *b) {
     b->cfl_u = b->cfl_v = 0;
     if (b->has_chroma) {
         int bw = 4 << b->wl, bh = 4 << b->hl;
-        int cfl_allowed = d->lossless ? (b->bsize == 0) : (imax(bw, bh) <= 32);
+        int pwl4, phl4;
+        plane_block(d, b, 1, &pwl4, &phl4);
+        int cfl_allowed = d->lossless ? (pwl4 == 0 && phl4 == 0) : (imax(bw, bh) <= 32);
         if (cfl_allowed)
             b->uvmode = read_symbol(d, d->cdf[D_UV_MODE_CFL] + (size_t)b->ymode * 15, 14);
         else
@@ -1042,22 +1268,41 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
     Blk *b = &blk;
     b->r = r; b->c = c; b->wl = wl; b->hl = hl;
     b->bsize = BSIZE_OF[wl][hl];
-    b->has_chroma = d->nplanes > 1;
+    if (b->bsize < 0) {
+        fail(d, AV1D_CORRUPT, "AV1: %s", "bad block size");
+        return;
+    }
+    int w4 = 1 << wl, h4 = 1 << hl;
+    /* spec decode_block: HasChroma and AvailU/LChroma */
+    if (d->nplanes == 1) b->has_chroma = 0;
+    else if (d->ssy && h4 == 1 && !(r & 1)) b->has_chroma = 0;
+    else if (d->ssx && w4 == 1 && !(c & 1)) b->has_chroma = 0;
+    else b->has_chroma = 1;
+    if (b->has_chroma && ((d->ssx && w4 == 1) || (d->ssy && h4 == 1)))
+        d->count[T_CHROMA_OF_4XN]++;
     b->avail_u = is_inside(d, r - 1, c);
     b->avail_l = is_inside(d, r, c - 1);
+    b->avail_uc = b->avail_lc = 0;
+    if (b->has_chroma) {
+        b->avail_uc = (d->ssy && h4 == 1) ? is_inside(d, r - 2, c) : b->avail_u;
+        b->avail_lc = (d->ssx && w4 == 1) ? is_inside(d, r, c - 2) : b->avail_l;
+    }
     intra_mode_info(d, b);
     if (d->err) return;
     palette_tokens(d, b);
     if (d->err) return;
     tx_size(d, b);
-    int w4 = 1 << wl, h4 = 1 << hl;
+    filter_types(d, b);
     if (b->skip)
-        for (int p = 0; p < d->nplanes; p++) {
-            memset(d->above_lvl[p] + c, 0, (size_t)w4);
-            memset(d->above_dc[p] + c, 0, (size_t)w4);
-            memset(d->left_lvl[p] + r, 0, (size_t)h4);
-            memset(d->left_dc[p] + r, 0, (size_t)h4);
+        for (int p = 0; p < (b->has_chroma ? d->nplanes : 1); p++) {
+            int sx = p ? d->ssx : 0, sy = p ? d->ssy : 0;
+            int a0 = c >> sx, a1 = (c + w4) >> sx, l0 = r >> sy, l1 = (r + h4) >> sy;
+            memset(d->above_lvl[p] + a0, 0, (size_t)(a1 - a0));
+            memset(d->above_dc[p] + a0, 0, (size_t)(a1 - a0));
+            memset(d->left_lvl[p] + l0, 0, (size_t)(l1 - l0));
+            memset(d->left_dc[p] + l0, 0, (size_t)(l1 - l0));
         }
+    int uvm = b->has_chroma ? b->uvmode : DC_PRED;
     for (int y = 0; y < h4 && r + y < d->mi_rows; y++)
         for (int x = 0; x < w4 && c + x < d->mi_cols; x++) {
             int m = mi_at(d, r + y, c + x);
@@ -1065,6 +1310,7 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
             d->mi_hl[m] = (uint8_t)hl;
             d->mi_skip[m] = (uint8_t)b->skip;
             d->mi_ymode[m] = (uint8_t)b->ymode;
+            d->mi_uvmode[m] = (uint8_t)uvm;
             d->mi_txw[m] = (uint8_t)(b->txwl - 2);
             d->mi_txh[m] = (uint8_t)(b->txhl - 2);
             d->mi_paln[m] = (uint8_t)b->pal_n;
@@ -1072,24 +1318,12 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
         }
     b->max_luma_w = b->max_luma_h = 0;
     residual(d, b);
-    if (d->err) return;
-    /* block record for the post-filters: (r, c, w | h << 16, skip,
-     * txw | txh << 16), the extent cut at the mi grid */
-    int bw = imin(4 << wl, (d->mi_cols - c) * 4), bh = imin(4 << hl, (d->mi_rows - r) * 4);
-    int tw = 1 << b->txwl, th = 1 << b->txhl;
-    int32_t *rec = d->blocks + (size_t)d->n_blocks * 5;
-    rec[0] = r;
-    rec[1] = c;
-    rec[2] = bw == bh ? bw : (bw | (bh << 16));
-    rec[3] = b->skip;
-    rec[4] = tw == th ? tw : (tw | (th << 16));
-    d->n_blocks++;
 }
 
 static void decode_partition(Dec *d, int r, int c, int bl /* log2 w4 */) {
     if (r >= d->mi_rows || c >= d->mi_cols || d->err) return;
     int avail_u = is_inside(d, r - 1, c), avail_l = is_inside(d, r, c - 1);
-    int n4 = 1 << bl, half = n4 >> 1;
+    int n4 = 1 << bl, half = n4 >> 1, quarter = half >> 1;
     int has_rows = (r + half) < d->mi_rows;
     int has_cols = (c + half) < d->mi_cols;
     int part;
@@ -1122,19 +1356,20 @@ static void decode_partition(Dec *d, int r, int c, int bl /* log2 w4 */) {
             part = 3;
         }
     }
+    if (part >= 4) d->count[T_PART_HORZ_A + part - 4]++;
     switch (part) {
-        case 0:
+        case 0: /* NONE */
             decode_block(d, r, c, bl, bl);
             break;
-        case 1:
+        case 1: /* HORZ */
             decode_block(d, r, c, bl, bl - 1);
             if (has_rows) decode_block(d, r + half, c, bl, bl - 1);
             break;
-        case 2:
+        case 2: /* VERT */
             decode_block(d, r, c, bl - 1, bl);
             if (has_cols) decode_block(d, r, c + half, bl - 1, bl);
             break;
-        case 3:
+        case 3: /* SPLIT */
             if (bl == 1) {
                 decode_partition(d, r, c, 0);
                 decode_partition(d, r, c + 1, 0);
@@ -1147,9 +1382,36 @@ static void decode_partition(Dec *d, int r, int c, int bl /* log2 w4 */) {
                 decode_partition(d, r + half, c + half, bl - 1);
             }
             break;
-        default:
-            fail(d, AV1D_UNSUPPORTED, "AV1: partition %s is not supported yet",
-                 PARTITION_NAME[part]);
+        case 4: /* HORZ_A */
+            decode_block(d, r, c, bl - 1, bl - 1);
+            decode_block(d, r, c + half, bl - 1, bl - 1);
+            decode_block(d, r + half, c, bl, bl - 1);
+            break;
+        case 5: /* HORZ_B */
+            decode_block(d, r, c, bl, bl - 1);
+            decode_block(d, r + half, c, bl - 1, bl - 1);
+            decode_block(d, r + half, c + half, bl - 1, bl - 1);
+            break;
+        case 6: /* VERT_A */
+            decode_block(d, r, c, bl - 1, bl - 1);
+            decode_block(d, r + half, c, bl - 1, bl - 1);
+            decode_block(d, r, c + half, bl - 1, bl);
+            break;
+        case 7: /* VERT_B */
+            decode_block(d, r, c, bl - 1, bl);
+            decode_block(d, r, c + half, bl - 1, bl - 1);
+            decode_block(d, r + half, c + half, bl - 1, bl - 1);
+            break;
+        case 8: /* HORZ_4 */
+            for (int i = 0; i < 4; i++)
+                if (i < 3 || r + quarter * 3 < d->mi_rows)
+                    decode_block(d, r + quarter * i, c, bl, bl - 2);
+            break;
+        case 9: /* VERT_4 */
+            for (int i = 0; i < 4; i++)
+                if (i < 3 || c + quarter * 3 < d->mi_cols)
+                    decode_block(d, r, c + quarter * i, bl - 2, bl);
+            break;
     }
 }
 
@@ -1188,7 +1450,7 @@ static void read_lr_unit(Dec *d, int plane, int ur, int uc) {
     else if (ftype == 3) kind = read_symbol(d, d->cdf[D_SGR], 2) ? 2 : 0;
     else kind = read_symbol(d, d->cdf[D_SWITCHABLE], 3);
     int32_t *e = d->lr_out +
-                 ((size_t)plane * d->lr_urows * d->lr_ucols + (size_t)ur * d->lr_ucols + uc) * 7;
+                 (((size_t)plane * d->lr_rstride + ur) * d->lr_cstride + uc) * 7;
     memset(e, 0, 7 * sizeof(int32_t));
     e[0] = kind;
     if (kind == 1) {
@@ -1224,13 +1486,14 @@ static void read_lr_unit(Dec *d, int plane, int ur, int uc) {
 }
 
 static void read_lr(Dec *d, int r, int c) {
-    int unit = d->lr_unit;
     for (int plane = 0; plane < d->nplanes; plane++) {
         if (!d->lr_type[plane]) continue;
-        int ur0 = (r * 4 + unit - 1) / unit;
-        int ur1 = imin(d->lr_urows, ((r + d->sb4) * 4 + unit - 1) / unit);
-        int uc0 = (c * 4 + unit - 1) / unit;
-        int uc1 = imin(d->lr_ucols, ((c + d->sb4) * 4 + unit - 1) / unit);
+        int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
+        int unit = d->lr_unit[plane];
+        int ur0 = (r * (4 >> sy) + unit - 1) / unit;
+        int ur1 = imin(d->lr_urows[plane], ((r + d->sb4) * (4 >> sy) + unit - 1) / unit);
+        int uc0 = (c * (4 >> sx) + unit - 1) / unit;
+        int uc1 = imin(d->lr_ucols[plane], ((c + d->sb4) * (4 >> sx) + unit - 1) / unit);
         for (int ur = ur0; ur < ur1; ur++)
             for (int uc = uc0; uc < uc1; uc++) read_lr_unit(d, plane, ur, uc);
     }
@@ -1260,17 +1523,18 @@ static void decode_tile(Dec *d) {
                     if ((y >> 4) < (d->mi_rows + 15) / 16 && (x >> 4) < d->cdef_stride)
                         d->cdef_idx[(size_t)(y >> 4) * d->cdef_stride + (x >> 4)] = -1;
             /* clear_block_decoded_flags */
-            int sbw4 = d->c1 - c, sbh4 = d->r1 - r;
             for (int p = 0; p < d->nplanes; p++) {
-                for (int y = -1; y <= sb4; y++)
-                    for (int x = -1; x <= sb4; x++) {
+                int sx = p ? d->ssx : 0, sy = p ? d->ssy : 0;
+                int sbw4 = (d->c1 - c) >> sx, sbh4 = (d->r1 - r) >> sy;
+                for (int y = -1; y <= (sb4 >> sy); y++)
+                    for (int x = -1; x <= (sb4 >> sx); x++) {
                         uint8_t v;
                         if (y < 0 && x < sbw4) v = 1;
                         else if (x < 0 && y < sbh4) v = 1;
                         else v = 0;
                         d->decoded[p][y + 1][x + 1] = v;
                     }
-                d->decoded[p][sb4 + 1][0] = 0;
+                d->decoded[p][(sb4 >> sy) + 1][0] = 0;
             }
             read_lr(d, r, c);
             decode_partition(d, r, c, d->sb128 ? 5 : 4);
@@ -1280,19 +1544,23 @@ static void decode_tile(Dec *d) {
 
 /* tiles[i] / tile_sizes[i] in tile order (row-major); tile_starts =
  * mi_col_starts[tile_cols + 1] then mi_row_starts[tile_rows + 1]. Planes
- * are int32 buffers of (rows >= sb-aligned height) x stride. Outputs: the
- * block records (5 ints each, at most one per mi), their count, and the
- * restoration units (per plane, row and column: kind 0 none / 1 Wiener /
- * 2 SGR, then 6 taps or set, xqd0, xqd1). Returns 0, or 1 (unsupported
- * tool) / 2 (corrupt stream) with msg set. */
+ * are int32 buffers of (rows >= sb-aligned height) x stride, the chroma
+ * ones used at their subsampled size. Outputs: txmaps (one uint8 map of
+ * mi_rows x mi_cols per plane, the chroma ones filled at their
+ * subsampled size), skips (mi_rows x mi_cols), cdef_idx
+ * (ceil(mi_rows / 16) x ceil(mi_cols / 16), -1 where every block is
+ * skipped), the restoration units (per plane, row and column, strides
+ * H_LR_RSTRIDE x H_LR_CSTRIDE: kind 0 none / 1 Wiener / 2 SGR, then 6
+ * taps or set, xqd0, xqd1) and the tool counters (T_NCOUNTERS). Returns
+ * 0, or 1 (unsupported tool) / 2 (corrupt stream) with msg set. */
 int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
                      const int32_t *hdr, const int32_t *tile_starts,
                      uint16_t *const *cdfs, const int64_t *cdf_lens,
                      const int32_t *const *scans, const int32_t *const *smw,
                      const int32_t *dr, const int32_t *fi_taps,
                      int32_t *const *planes, int stride,
-                     int32_t *blocks_out, int32_t *n_blocks,
-                     int32_t *lr_out, char *msg, int msglen) {
+                     uint8_t *const *txmaps, uint8_t *skips, int8_t *cdef_idx,
+                     int32_t *lr_out, int32_t *counts, char *msg, int msglen) {
     Dec *d = (Dec *)calloc(1, sizeof(Dec));
     if (!d) return AV1D_CORRUPT;
     int rc = AV1D_OK;
@@ -1313,24 +1581,31 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->cdef_on = hdr[H_CDEF_ON];
     d->cdef_bits = hdr[H_CDEF_BITS];
     d->no_adapt = hdr[H_DISABLE_CDF_UPDATE];
+    d->ssx = hdr[H_SS_X];
+    d->ssy = hdr[H_SS_Y];
+    d->edge_filter = hdr[H_EDGE_FILTER];
     for (int p = 0; p < 3; p++) {
         d->qdc[p] = hdr[H_Q_Y_DC + 2 * p];
         d->qac[p] = hdr[H_Q_Y_AC + 2 * p];
         d->lr_type[p] = hdr[H_LR_TYPE0 + p];
+        d->lr_unit[p] = hdr[H_LR_UNIT0 + p];
+        d->lr_urows[p] = hdr[H_LR_UROWS0 + p];
+        d->lr_ucols[p] = hdr[H_LR_UCOLS0 + p];
         d->plane[p] = p < d->nplanes ? planes[p] : NULL;
+        d->txmap[p] = p < d->nplanes ? txmaps[p] : NULL;
     }
-    d->lr_unit = hdr[H_LR_UNIT];
-    d->lr_urows = hdr[H_LR_UROWS];
-    d->lr_ucols = hdr[H_LR_UCOLS];
+    d->lr_rstride = hdr[H_LR_RSTRIDE];
+    d->lr_cstride = hdr[H_LR_CSTRIDE];
     d->lr_out = lr_out;
+    d->count = counts;
     d->stride = stride;
     for (int i = 0; i < 10; i++) d->scan[i] = scans[i];
     for (int i = 0; i < 5; i++) d->smw[i] = smw[i];
     d->dr = dr;
     d->fi_taps = fi_taps;
-    d->blocks = blocks_out;
     d->cdef_stride = (d->mi_cols + 15) / 16;
-    d->cdef_idx = (int8_t *)malloc((size_t)d->cdef_stride * ((d->mi_rows + 15) / 16));
+    d->cdef_idx = cdef_idx;
+    memset(cdef_idx, -1, (size_t)d->cdef_stride * ((d->mi_rows + 15) / 16));
     size_t nmi = (size_t)d->mi_rows * d->mi_cols;
     uint8_t *mi8 = (uint8_t *)calloc(nmi * 7, 1);
     d->mi_pal = (uint16_t *)calloc(nmi * 8, sizeof(uint16_t));
@@ -1338,14 +1613,15 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     size_t cdf_total = 0;
     for (int k = 0; k < D_NCDF; k++) cdf_total += (size_t)cdf_lens[k];
     uint16_t *cdfmem = (uint16_t *)malloc(cdf_total * sizeof(uint16_t));
-    if (!mi8 || !d->mi_pal || !ctxmem || !cdfmem || !d->cdef_idx) {
+    if (!mi8 || !d->mi_pal || !ctxmem || !cdfmem) {
         rc = AV1D_CORRUPT;
         snprintf(msg, (size_t)msglen, "AV1: out of memory");
         goto done;
     }
-    d->mi_wl = mi8; d->mi_hl = mi8 + nmi; d->mi_skip = mi8 + 2 * nmi;
-    d->mi_ymode = mi8 + 3 * nmi; d->mi_txw = mi8 + 4 * nmi;
-    d->mi_txh = mi8 + 5 * nmi; d->mi_paln = mi8 + 6 * nmi;
+    d->mi_wl = mi8; d->mi_hl = mi8 + nmi; d->mi_skip = skips;
+    d->mi_ymode = mi8 + 2 * nmi; d->mi_uvmode = mi8 + 3 * nmi;
+    d->mi_txw = mi8 + 4 * nmi; d->mi_txh = mi8 + 5 * nmi;
+    d->mi_paln = mi8 + 6 * nmi;
     {
         size_t ac = (size_t)d->mi_cols + 32, lc = (size_t)d->mi_rows + 32;
         uint8_t *q = ctxmem;
@@ -1379,13 +1655,11 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
             decode_tile(d);
         }
     rc = d->err;
-    *n_blocks = d->n_blocks;
 done:
     free(mi8);
     free(d->mi_pal);
     free(ctxmem);
     free(cdfmem);
-    free(d->cdef_idx);
     free(d);
     return rc;
 }

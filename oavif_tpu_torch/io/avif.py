@@ -13,13 +13,13 @@ Three parts, all on the host:
   shown key frame, the tile info and the tile groups (spec sections 5.3-5.9
   and 5.11.1);
 - the tile decode and reconstruction in C (``av1_decode.c``, in the host
-  library), then the post-filters of the port's own encoder, fed with the
-  decoded block records: deblocking (``loop_filter_native``), CDEF
-  (``cdef_frame_native``, one strength set per frame) and loop restoration
-  (``restoration.apply_restoration``, with the deblocked rows kept before
-  CDEF); and the conversion to 8-bit RGB as libavif 1.3 converts (libyuv's
-  fixed-point matrices where libavif hands the conversion to libyuv, its
-  own float path elsewhere; ``yuv_to_rgb8``).
+  library), for 4:4:4, 4:2:2, 4:2:0 and monochrome streams with the intra
+  tools libaom writes, then the post-filters in C on each plane's own
+  grid (``av1_postfilter.c``): deblocking, CDEF with the strength set of
+  each 64x64, and loop restoration; and the conversion to 8-bit RGB as
+  libavif 1.3 converts (libyuv's fixed-point matrices and bilinear chroma
+  upsampling where libavif hands the conversion to libyuv, its own float
+  path elsewhere; ``yuv_to_rgb8``).
 
 A file that ends early or holds a broken box or header raises ``OSError``;
 a stream or container feature outside the decoder's toolset raises
@@ -529,22 +529,23 @@ def parse_sequence_header(b: _Bits) -> SequenceHeader:
     if s.mono:
         s.full_range = bool(b.f(1))
         s.ss = (1, 1)
-    elif s.cicp == (1, 13, 0):
-        s.full_range = True
-        s.ss = (0, 0)
     else:
-        s.full_range = bool(b.f(1))
-        if s.profile == 0:
-            s.ss = (1, 1)
-        elif s.profile == 1:
+        if s.cicp == (1, 13, 0):
+            s.full_range = True
             s.ss = (0, 0)
-        elif s.bit_depth == 12:
-            sx = b.f(1)
-            s.ss = (sx, b.f(1) if sx else 0)
         else:
-            s.ss = (1, 0)
-        if s.ss == (1, 1):
-            b.f(2)
+            s.full_range = bool(b.f(1))
+            if s.profile == 0:
+                s.ss = (1, 1)
+            elif s.profile == 1:
+                s.ss = (0, 0)
+            elif s.bit_depth == 12:
+                sx = b.f(1)
+                s.ss = (sx, b.f(1) if sx else 0)
+            else:
+                s.ss = (1, 0)
+            if s.ss == (1, 1):
+                b.f(2)
         s.separate_uv_delta_q = bool(b.f(1))
     s.film_grain = bool(b.f(1))
     return s
@@ -575,6 +576,7 @@ class FrameHeader:
     cdef_strengths: List[Tuple[int, int, int, int]] = field(default_factory=list)
     lr_types: Tuple[int, int, int] = (0, 0, 0)
     lr_unit_shift: int = 0
+    lr_uv_shift: int = 0
     tx_mode: int = 0
     reduced_tx_set: bool = False
 
@@ -674,10 +676,6 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
         if s.cdef:
             fh.cdef_damping = b.f(2) + 3
             fh.cdef_bits = b.f(2)
-            if fh.cdef_bits:
-                raise UnsupportedAvif("AV1: CDEF strengths per 64x64 "
-                                      "(cdef_bits > 0) are not supported "
-                                      "yet")
             for _ in range(1 << fh.cdef_bits):
                 yp, ys = b.f(4), b.f(2)
                 up = us = 0
@@ -696,7 +694,7 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
                     if fh.lr_unit_shift:
                         fh.lr_unit_shift += b.f(1)
                 if s.ss == (1, 1) and any(fh.lr_types[1:]):
-                    b.f(1)
+                    fh.lr_uv_shift = b.f(1)
         fh.tx_mode = 2 if b.f(1) else 1
     else:
         fh.tx_mode = 0
@@ -844,14 +842,6 @@ def parse_av1(payload: bytes) -> Av1Frame:
 def _check_toolset(s: SequenceHeader) -> None:
     if s.bit_depth == 12:
         raise UnsupportedAvif("AV1: 12-bit streams are not supported yet")
-    if not s.mono and s.ss != (0, 0):
-        fmt = "4:2:0" if s.ss == (1, 1) else "4:2:2"
-        raise UnsupportedAvif(f"AV1: {fmt} chroma subsampling is not "
-                              "supported yet")
-    if s.intra_edge:
-        raise UnsupportedAvif("AV1: the intra edge filter and upsampling "
-                              "(enable_intra_edge_filter) are not supported "
-                              "yet")
 
 
 # ---------------------------------------------------------------------------
@@ -868,7 +858,27 @@ _CDF_ORDER = (
     "pal_y_ci5", "pal_y_ci6", "pal_y_ci7", "pal_y_ci8", "fi_use", "fi_mode",
     "wiener_restore", "sgrproj_restore", "switchable_restore",
 )
-_HDR_FIELDS = 28
+# the header pack's fields in the order of av1_header.h's H_* enum
+_HDR_FIELDS = (
+    "mi_rows", "mi_cols", "nplanes", "bitdepth", "sb128", "tile_cols",
+    "tile_rows", "base_q", "lossless", "tx_mode", "reduced_tx_set",
+    "screen_tools", "filter_intra", "cdef_on", "cdef_bits",
+    "disable_cdf_update", "q_y_dc", "q_y_ac", "q_u_dc", "q_u_ac", "q_v_dc",
+    "q_v_ac", "lr_type0", "lr_type1", "lr_type2", "lr_unit0", "lr_unit1",
+    "lr_unit2", "lr_urows0", "lr_urows1", "lr_urows2", "lr_ucols0",
+    "lr_ucols1", "lr_ucols2", "lr_rstride", "lr_cstride", "ss_x", "ss_y",
+    "edge_filter", "width", "height", "lf_y0", "lf_y1", "lf_u", "lf_v",
+    "lf_sharpness", "cdef_damping",
+) + tuple(f"cdef_{k}{i}" for i in range(8)
+          for k in ("y_pri", "y_sec", "uv_pri", "uv_sec"))
+# the decoder's tool counters in the order of av1_header.h's T_* enum
+TOOL_NAMES = (
+    "chroma_of_4xn", "cfl_subsampled", "edge_filter", "edge_upsample",
+    "tx_v_dct", "tx_h_dct", "tx_4to1", "tx_64", "tx_depth1", "tx_depth2",
+    "part_horz_a", "part_horz_b", "part_vert_a", "part_vert_b",
+    "part_horz_4", "part_vert_4", "cdef_idx_read", "cdef_units_varied",
+    "lr_chroma_subsampled",
+)
 _CDF_CACHE: Dict[int, tuple] = {}
 _CONST_CACHE: list = []
 
@@ -948,13 +958,34 @@ def _host_lib():
 @dataclass
 class DecodedImage:
     """One decoded AV1 image: Y'UV planes (one for monochrome) of the
-    visible size, their bit depth and colour description."""
+    visible size (the chroma ones subsampled by ``ss``), their bit depth
+    and colour description, and how often the decoder met each tool
+    (``TOOL_NAMES``)."""
 
     planes: List[np.ndarray]
     bit_depth: int
     cicp: Tuple[int, int, int]
     full_range: bool
     mono: bool
+    ss: Tuple[int, int] = (0, 0)
+    tools: Dict[str, int] = field(default_factory=dict)
+
+
+def _lf_levels(fh: FrameHeader) -> List[int]:
+    """The deblocking levels (y vertical, y horizontal, u, v) after the
+    intra reference delta; a chroma plane whose level is 0 stays off."""
+    lv = fh.lf_levels
+    if fh.lossless or not (lv[0] or lv[1]):
+        return [0, 0, 0, 0]
+
+    def eff(base):
+        if not fh.lf_delta_enabled:
+            return base
+        return min(max(base + (fh.lf_ref_delta_intra << (base >> 5)), 0),
+                   63)
+
+    return [eff(lv[0]), eff(lv[1]), eff(lv[2]) if lv[2] else 0,
+            eff(lv[3]) if lv[3] else 0]
 
 
 def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
@@ -962,6 +993,7 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     ``times``, where given, gains the seconds of "parse" (headers and the
     tile decode), "filters" (deblocking, CDEF, loop restoration)."""
     from ..av1.consts import coeff_q_ctx
+    from ..av1.restoration import count_units, unit_size
     from ..av1.tables import ac_q, dc_q
 
     t0 = time.perf_counter()
@@ -969,6 +1001,7 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     av1 = parse_av1(payload)
     s, fh = av1.seq, av1.frame
     nplanes = 1 if s.mono else 3
+    ssx, ssy = (0, 0) if s.mono else s.ss
     bd = s.bit_depth
     sb = 128 if s.sb128 else 64
     sb4 = sb // 4
@@ -982,19 +1015,39 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
 
     q = [dc_q(qi(ydc), bd), ac_q(qi(0), bd), dc_q(qi(udc), bd),
          ac_q(qi(uac), bd), dc_q(qi(vdc), bd), ac_q(qi(vac), bd)]
-    from ..av1.restoration import count_units, unit_size
-
-    unit = unit_size(fh.lr_unit_shift) if any(fh.lr_types) else 64
-    urows, ucols = count_units(fh.height, unit), count_units(fh.width, unit)
-    hdr = np.array([
-        fh.mi_rows, fh.mi_cols, nplanes, bd, int(s.sb128),
-        len(fh.tile_col_starts) - 1, len(fh.tile_row_starts) - 1, fh.base_q,
-        int(fh.lossless), fh.tx_mode, int(fh.reduced_tx_set),
-        int(fh.screen_tools), int(s.filter_intra),
-        int(s.cdef and not fh.lossless), fh.cdef_bits,
-        int(fh.disable_cdf_update), *q, *fh.lr_types, unit, urows, ucols,
-    ], dtype=np.int32)
-    assert hdr.size == _HDR_FIELDS
+    h, w = fh.height, fh.width
+    luma_unit = unit_size(fh.lr_unit_shift) if any(fh.lr_types) else 64
+    units, urows, ucols = [], [], []
+    for p in range(3):
+        sx, sy = (ssx, ssy) if p else (0, 0)
+        u = luma_unit >> (fh.lr_uv_shift if p else 0)
+        units.append(u)
+        urows.append(count_units((h + sy) >> sy, u))
+        ucols.append(count_units((w + sx) >> sx, u))
+    strengths = [0] * 32
+    for i, st in enumerate(fh.cdef_strengths):
+        strengths[4 * i:4 * i + 4] = st
+    fields = dict(
+        mi_rows=fh.mi_rows, mi_cols=fh.mi_cols, nplanes=nplanes, bitdepth=bd,
+        sb128=int(s.sb128), tile_cols=len(fh.tile_col_starts) - 1,
+        tile_rows=len(fh.tile_row_starts) - 1, base_q=fh.base_q,
+        lossless=int(fh.lossless), tx_mode=fh.tx_mode,
+        reduced_tx_set=int(fh.reduced_tx_set),
+        screen_tools=int(fh.screen_tools), filter_intra=int(s.filter_intra),
+        cdef_on=int(s.cdef and not fh.lossless), cdef_bits=fh.cdef_bits,
+        disable_cdf_update=int(fh.disable_cdf_update),
+        **dict(zip(("q_y_dc", "q_y_ac", "q_u_dc", "q_u_ac", "q_v_dc",
+                    "q_v_ac"), q)),
+        **{f"lr_type{p}": fh.lr_types[p] for p in range(3)},
+        **{f"lr_unit{p}": units[p] for p in range(3)},
+        **{f"lr_urows{p}": urows[p] for p in range(3)},
+        **{f"lr_ucols{p}": ucols[p] for p in range(3)},
+        lr_rstride=max(urows), lr_cstride=max(ucols), ss_x=ssx, ss_y=ssy,
+        edge_filter=int(s.intra_edge), width=w, height=h,
+        **dict(zip(("lf_y0", "lf_y1", "lf_u", "lf_v"), _lf_levels(fh))),
+        lf_sharpness=fh.lf_sharpness, cdef_damping=fh.cdef_damping,
+        **{name: v for name, v in zip(_HDR_FIELDS[-32:], strengths)})
+    hdr = np.array([fields[k] for k in _HDR_FIELDS], dtype=np.int32)
     starts = np.array(fh.tile_col_starts + fh.tile_row_starts, dtype=np.int32)
     arrs, cdf_ptrs, cdf_lens = _cdf_pack(coeff_q_ctx(fh.base_q))
     scans, scan_ptrs, smw, smw_ptrs, dr, taps = _constants()
@@ -1003,82 +1056,42 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     tile_ptrs = (C.POINTER(C.c_uint8) * ntiles)(
         *[C.cast(t, C.POINTER(C.c_uint8)) for t in tile_bufs])
     tile_sizes = np.array([len(t) for t in av1.tiles], dtype=np.int64)
-    p32 = C.POINTER(C.c_int32)
+    p32, p8 = C.POINTER(C.c_int32), C.POINTER(C.c_uint8)
     plane_ptrs = (p32 * 3)(*[p.ctypes.data_as(p32) for p in planes])
-    blocks = np.zeros((fh.mi_rows * fh.mi_cols, 5), dtype=np.int32)
-    n_blocks = np.zeros(1, dtype=np.int32)
-    lr_units = np.zeros((3, urows, ucols, 7), dtype=np.int32)
+    txmaps = [np.zeros((fh.mi_rows, fh.mi_cols), dtype=np.uint8)
+              for _ in range(nplanes)]
+    tx_ptrs = (p8 * 3)(*[t.ctypes.data_as(p8) for t in txmaps])
+    skips = np.zeros((fh.mi_rows, fh.mi_cols), dtype=np.uint8)
+    cdef_idx = np.zeros(((fh.mi_rows + 15) // 16, (fh.mi_cols + 15) // 16),
+                        dtype=np.int8)
+    lr_units = np.zeros((3, max(urows), max(ucols), 7), dtype=np.int32)
+    counts = np.zeros(len(TOOL_NAMES), dtype=np.int32)
     msg = C.create_string_buffer(256)
     vp = C.c_void_p
     rc = lib.av1_decode_frame(
         C.cast(tile_ptrs, vp), tile_sizes.ctypes.data, hdr.ctypes.data,
         starts.ctypes.data, C.cast(cdf_ptrs, vp), cdf_lens.ctypes.data,
         C.cast(scan_ptrs, vp), C.cast(smw_ptrs, vp), dr.ctypes.data,
-        taps.ctypes.data, C.cast(plane_ptrs, vp), stride, blocks.ctypes.data,
-        n_blocks.ctypes.data, lr_units.ctypes.data,
-        msg, 256)
+        taps.ctypes.data, C.cast(plane_ptrs, vp), stride,
+        C.cast(tx_ptrs, vp), skips.ctypes.data, cdef_idx.ctypes.data,
+        lr_units.ctypes.data, counts.ctypes.data, msg, 256)
     if rc == 1:
         raise UnsupportedAvif(msg.value.decode())
     if rc:
         raise _broken(msg.value.decode() or "tile data")
     t1 = time.perf_counter()
-    blocks = blocks[: int(n_blocks[0])]
-    h, w = fh.height, fh.width
-    mi_h, mi_w = fh.mi_rows * 4, fh.mi_cols * 4
-    recon = [np.ascontiguousarray(p[:mi_h, :mi_w]) for p in planes]
-    _post_filters(recon, blocks, lr_units, fh, s, nplanes, bd)
-    out = [np.ascontiguousarray(p[:h, :w]) for p in recon] \
-        if not any(fh.lr_types) else recon
+    if lib.av1_postfilter(C.cast(plane_ptrs, vp), stride, hdr.ctypes.data,
+                          C.cast(tx_ptrs, vp), skips.ctypes.data,
+                          cdef_idx.ctypes.data, lr_units.ctypes.data,
+                          counts.ctypes.data):
+        raise MemoryError("AVIF post-filters: out of memory")
+    out = [np.ascontiguousarray(p[:(h + sy) >> sy, :(w + sx) >> sx])
+           for p, (sy, sx) in zip(planes, [(0, 0)] + [(ssy, ssx)] * 2)]
     if times is not None:
         times["parse"] = times.get("parse", 0.0) + (t1 - t0)
         times["filters"] = times.get("filters", 0.0) + (time.perf_counter() - t1)
-    return DecodedImage(out, bd, s.cicp, s.full_range, s.mono)
-
-
-def _post_filters(recon, blocks, lr_units, fh, s, nplanes, bd):
-    """Deblocking, CDEF and loop restoration in place on the mi-grid
-    planes (``recon`` becomes the visible planes when restoration runs)."""
-    from ..av1.entropy.fast import cdef_frame_native, loop_filter_native
-
-    h, w = fh.height, fh.width
-    if fh.lossless:
-        return
-    lv = fh.lf_levels
-    if lv[0] or lv[1]:
-        def eff(base):
-            if not fh.lf_delta_enabled:
-                return base
-            return min(max(base + (fh.lf_ref_delta_intra << (base >> 5)),
-                           0), 63)
-
-        # luma runs when either level is set; a chroma plane whose level
-        # is 0 is not filtered (the intra reference delta then unused)
-        levels = [eff(lv[0]), eff(lv[1]),
-                  eff(lv[2]) if lv[2] else 0, eff(lv[3]) if lv[3] else 0]
-        loop_filter_native(recon, blocks, levels, fh.lf_sharpness, bd,
-                           vis_h=h, vis_w=w)
-    deblk = ([np.array(p[:h, :w]) for p in recon] if any(fh.lr_types)
-             else None)
-    if s.cdef and fh.cdef_strengths and any(fh.cdef_strengths[0]):
-        cdef_frame_native(recon, blocks, fh.cdef_strengths[0],
-                          fh.cdef_damping, bd)
-    if any(fh.lr_types):
-        from ..av1.restoration import apply_restoration
-
-        urows, ucols = lr_units.shape[1:3]
-        wiener, sgr = {}, {}
-        for p in range(nplanes):
-            if not fh.lr_types[p]:
-                continue
-            wiener[p] = [[tuple(int(x) for x in lr_units[p, r, c, 1:7])
-                          if lr_units[p, r, c, 0] == 1 else None
-                          for c in range(ucols)] for r in range(urows)]
-            sgr[p] = [[tuple(int(x) for x in lr_units[p, r, c, 1:4])
-                       if lr_units[p, r, c, 0] == 2 else None
-                       for c in range(ucols)] for r in range(urows)]
-        vis = [p[:h, :w] for p in recon]
-        recon[:] = apply_restoration(vis, deblk, h, w, fh.lr_types,
-                                     fh.lr_unit_shift, wiener, sgr, bd)
+    return DecodedImage(out, bd, s.cicp, s.full_range, s.mono, (ssx, ssy),
+                        dict(zip(TOOL_NAMES, counts.tolist())))
 
 
 # ---------------------------------------------------------------------------
@@ -1155,17 +1168,100 @@ def _conversion(cicp: Tuple[int, int, int]):
                           "does not convert to RGB")
 
 
+def _up2_linear(c: np.ndarray, w: int) -> np.ndarray:
+    """libyuv's ScaleRowUp2_Linear (its _Any_ wrapper) on each row: the
+    first and last samples copied, the others (3, 1) / 4 rounded."""
+    out = np.empty(c.shape[:-1] + (w,), dtype=np.int32)
+    k = ((w - 1) & ~1) // 2
+    a, b = c[..., :k], c[..., 1:k + 1]
+    out[..., 1:1 + 2 * k:2] = (3 * a + b + 2) >> 2
+    out[..., 2:2 + 2 * k:2] = (a + 3 * b + 2) >> 2
+    out[..., 0] = c[..., 0]
+    out[..., w - 1] = c[..., (w - 1) // 2]
+    return out
+
+
+def _up2_bilinear(sa: np.ndarray, sb: np.ndarray, w: int):
+    """libyuv's ScaleRowUp2_Bilinear (its _Any_ wrapper): two output rows
+    from chroma rows sa and sb below it, (9, 3, 3, 1) / 16 rounded inside,
+    (3, 1) / 4 down the first and last columns."""
+    da = np.empty(sa.shape[:-1] + (w,), dtype=np.int32)
+    db = np.empty_like(da)
+    k = ((w - 1) & ~1) // 2
+    a0, a1, b0, b1 = sa[..., :k], sa[..., 1:k + 1], sb[..., :k], sb[..., 1:k + 1]
+    da[..., 1:1 + 2 * k:2] = (9 * a0 + 3 * a1 + 3 * b0 + b1 + 8) >> 4
+    da[..., 2:2 + 2 * k:2] = (3 * a0 + 9 * a1 + b0 + 3 * b1 + 8) >> 4
+    db[..., 1:1 + 2 * k:2] = (3 * a0 + a1 + 9 * b0 + 3 * b1 + 8) >> 4
+    db[..., 2:2 + 2 * k:2] = (a0 + 3 * a1 + 3 * b0 + 9 * b1 + 8) >> 4
+    for j in (0, w - 1):
+        m = (w - 1) // 2 if j else 0
+        da[..., j] = (3 * sa[..., m] + sb[..., m] + 2) >> 2
+        db[..., j] = (sa[..., m] + 3 * sb[..., m] + 2) >> 2
+    return da, db
+
+
+def _libyuv_upsample(c: np.ndarray, h: int, w: int,
+                     ss: Tuple[int, int]) -> np.ndarray:
+    """A chroma plane at full size as libyuv's I420/I422 ...MatrixFilter
+    (kFilterBilinear) upsamples it: 4:2:2 linear along each row; 4:2:0
+    linear on the first row (and the last of an even height), the rows
+    between bilinear from each pair of chroma rows."""
+    c = c.astype(np.int32)
+    if ss == (1, 0):
+        return _up2_linear(c, w)
+    out = np.empty((h, w), dtype=np.int32)
+    out[0] = _up2_linear(c[0], w)
+    n = (h - 1) // 2  # pairs of chroma rows
+    if n:
+        da, db = _up2_bilinear(c[:n], c[1:n + 1], w)
+        out[1:2 * n + 1:2] = da
+        out[2:2 * n + 2:2] = db
+    if h % 2 == 0 and h > 1:
+        out[h - 1] = _up2_linear(c[h // 2 - 1], w)
+    return out
+
+
+def _float_chroma(t: np.ndarray, c: np.ndarray, h: int, w: int,
+                  ss: Tuple[int, int]) -> np.ndarray:
+    """libavif's own bilinear chroma upsampling (avifImageYUVAnyToRGB
+    AnySlow): the unorm values of the nearest chroma sample and of its
+    neighbours away from the luma sample, weighted (9, 3, 3, 1) / 16 in
+    float32; for 4:2:2 the row neighbour is the sample itself (so the
+    weights add up to (3, 1) / 4, rounded as the four products are)."""
+    f = np.float32
+    i = np.arange(w)
+    adj_c = np.where((i == 0) | ((i == w - 1) & (i % 2 == 1)), 0,
+                     np.where(i % 2 == 1, 1, -1))
+    j = np.arange(h)
+    if ss == (1, 0):
+        cj, adj_r = j, np.zeros_like(j)
+    else:
+        cj = j >> 1
+        adj_r = np.where((j == 0) | ((j == h - 1) & (j % 2 == 1)), 0,
+                         np.where(j % 2 == 1, 1, -1))
+    u = t[c]
+    r0, r1 = cj[:, None], (cj + adj_r)[:, None]
+    c0, c1 = (i >> 1)[None, :], ((i >> 1) + adj_c)[None, :]
+    return ((u[r0, c0] * f(9.0 / 16.0)) + (u[r0, c1] * f(3.0 / 16.0))
+            + (u[r1, c0] * f(3.0 / 16.0)) + (u[r1, c1] * f(1.0 / 16.0)))
+
+
 def yuv_to_rgb8(img: DecodedImage, rgba: bool = False) -> np.ndarray:
     """(h, w, 3) uint8 RGB of a decoded image, as libavif 1.3 (with
     libyuv) converts it for an 8-bit RGB target, or for an RGBA target
     where ``rgba`` (as Pillow asks for images with alpha): there libyuv
     converts 10-bit Y'UV directly (I410ToARGB, luma kept at 16 bits),
-    where for RGB it first narrows every plane to 8 bits."""
+    where for RGB it first narrows every plane to 8 bits. Subsampled
+    chroma is upsampled as libavif's default (automatic) upsampling does:
+    libyuv's bilinear filter where libyuv converts, libavif's own
+    bilinear weights on the float path."""
     if not img.full_range:
         raise UnsupportedAvif("AVIF: limited-range Y'UV is not supported "
                               "yet")
     bd = img.bit_depth
     y = img.planes[0]
+    h, w = y.shape
+    sub = not img.mono and img.ss != (0, 0)
     if img.mono:
         mid = np.full_like(y, 1 << (bd - 1))
         u = v = mid
@@ -1173,12 +1269,16 @@ def yuv_to_rgb8(img: DecodedImage, rgba: bool = False) -> np.ndarray:
         u, v = img.planes[1], img.planes[2]
     kind, k = _conversion(img.cicp)
     if kind == "libyuv":
-        if bd > 8 and rgba:  # libyuv YuvPixel10
+        if bd > 8 and rgba:  # libyuv YuvPixel10 (I010/I210/I410ToARGB)
             y32 = (y << 6) | (y >> 4)
+            if sub:
+                u, v = (_libyuv_upsample(c, h, w, img.ss) for c in (u, v))
             u, v = u >> (bd - 8), v >> (bd - 8)
         else:
             if bd > 8:  # libyuv Convert16To8Plane, then the 8-bit matrix
                 y, u, v = y >> (bd - 8), u >> (bd - 8), v >> (bd - 8)
+            if sub:
+                u, v = (_libyuv_upsample(c, h, w, img.ss) for c in (u, v))
             y32 = y * 0x0101
         ub, ug, vg, vr = k
         y1 = ((y32.astype(np.int32) * 16320) >> 16) + 32
@@ -1195,7 +1295,13 @@ def yuv_to_rgb8(img: DecodedImage, rgba: bool = False) -> np.ndarray:
     mx = (1 << bd) - 1
     ty = np.arange(mx + 1, dtype=f) / f(mx)
     tuv = (np.arange(mx + 1, dtype=f) - f(1 << (bd - 1))) / f(mx)
-    yf, cb, cr = ty[y], tuv[u], tuv[v]
+    yf = ty[y]
+    if sub:
+        if kind == "identity":
+            raise _broken("identity matrix with subsampled chroma")
+        cb, cr = (_float_chroma(tuv, c, h, w, img.ss) for c in (u, v))
+    else:
+        cb, cr = tuv[u], tuv[v]
     if kind == "identity":
         r, g, b = ty[v], yf, ty[u]
     elif kind == "ycgco":
@@ -1255,14 +1361,16 @@ def decode_avif_rgb8(data: bytes, times: Optional[dict] = None) -> np.ndarray:
 
 def read_avif(data: bytes, times: Optional[dict] = None):
     """(pixels, high bit depth, ICC profile) as the reference's loader
-    reads an AVIF: 10-bit full-range BT.601 (matrix 2, 5 or 6) streams
-    without alpha go to 16-bit RGB through the float matrix; everything
-    else is 8-bit RGB, or RGBA with an alpha item."""
+    reads an AVIF: 10-bit full-range BT.601 (matrix 2, 5 or 6) 4:4:4
+    streams without alpha go to 16-bit RGB through the float matrix;
+    everything else is 8-bit RGB, or RGBA with an alpha item. (The
+    reference stacks the Y'UV planes for its 16-bit path; subsampled
+    planes do not stack, and it falls back to the 8-bit conversion.)"""
     box, color, alpha = decode_avif(data, times)
     t0 = time.perf_counter()
     bd = color.bit_depth
     if (bd > 8 and color.full_range and color.cicp[2] in (2, 5, 6)
-            and alpha is None and not color.mono):
+            and alpha is None and not color.mono and color.ss == (0, 0)):
         from ..av1.yuv import _INV
 
         maxv = (1 << bd) - 1

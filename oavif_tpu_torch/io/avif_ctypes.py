@@ -74,11 +74,17 @@ def _decoded(avif_bytes: bytes):
         lib.avifDecoderDestroy(C.c_void_p(dec))
 
 
+# avifPixelFormat -> (chroma shift x, chroma shift y); 400 has no chroma
+_CHROMA_SHIFT = {1: (0, 0), 2: (1, 0), 3: (1, 1), 4: None}
+
+
 def decode_to_yuv(avif_bytes: bytes, want_cicp: bool = False):
-    """Decode AVIF → ([y, u, v] int32 planes (444), bit_depth, range_flag)
-    — plus (color_primaries, transfer, matrix_coefficients) when
-    ``want_cicp`` (offsets located empirically against our own muxer's
-    CICP round-trip; guarded by the dimension check in ``_decoded``).
+    """Decode AVIF → ([y, u, v] int32 planes, each at its own size: the
+    chroma ones subsampled for 4:2:2 and 4:2:0, None for 4:0:0;
+    bit_depth, range_flag) — plus (color_primaries, transfer,
+    matrix_coefficients) when ``want_cicp`` (offsets located empirically
+    against our own muxer's CICP round-trip; guarded by the dimension
+    check in ``_decoded``).
 
     Raises RuntimeError on decode failure (conformance failure signal).
     """
@@ -89,6 +95,9 @@ def decode_to_yuv(avif_bytes: bytes, want_cicp: bool = False):
         # alphaPlane, ...
         u32 = C.cast(img_ptr, C.POINTER(C.c_uint32))
         width, height, depth = u32[0], u32[1], u32[2]
+        if u32[3] not in _CHROMA_SHIFT:
+            raise RuntimeError(f"avifImage yuvFormat {u32[3]}")
+        shift = _CHROMA_SHIFT[u32[3]]
         yuv_range = u32[4]
         # offset of yuvPlanes: 6 x u32 = 24 bytes, padded to pointer align 8
         base = img_ptr + 24
@@ -101,15 +110,17 @@ def decode_to_yuv(avif_bytes: bytes, want_cicp: bool = False):
         for p in range(3):
             ptr = planes_ptr[p]
             rb = rowbytes_ptr[p]
-            if not ptr:
+            if not ptr or (p and shift is None):
                 out.append(None)
                 continue
+            sx, sy = shift if p else (0, 0)
+            pw, ph = (width + sx) >> sx, (height + sy) >> sy
             raw = C.cast(
-                C.c_void_p(ptr), C.POINTER(C.c_uint8 * (rb * height))
+                C.c_void_p(ptr), C.POINTER(C.c_uint8 * (rb * ph))
             )[0]
             arr = np.frombuffer(bytearray(raw), dtype=dt).reshape(
-                height, rb // bytes_pp
-            )[:, :width]
+                ph, rb // bytes_pp
+            )[:, :pw]
             out.append(arr.astype(np.int32))
         if want_cicp:
             u16 = C.cast(img_ptr, C.POINTER(C.c_uint16))

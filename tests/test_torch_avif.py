@@ -4,10 +4,10 @@ decoder in ``io/av1_decode.c``) on the CPU, against the reference's
 1.3 with dav1d and libyuv), with no tolerance:
 
 - the committed fixtures (``tests/torch_fixtures/avif``, written by the
-  JAX package's CLI and, for the refusals, by Pillow's libaom encoder):
-  each decodes to its manifest CRCs (dav1d's Y'UV, the reference's
-  ``load_avif`` and ``decode_avif_to_rgb8`` pixels) and equals the
-  reference live; each refusal file raises ``ValueError`` naming its tool;
+  JAX package's CLI and, three of them, by Pillow's libaom encoder in
+  4:2:0, 4:2:2 and 4:4:4 with the intra edge filter): each decodes to its
+  manifest CRCs (dav1d's Y'UV, the reference's ``load_avif`` and
+  ``decode_avif_to_rgb8`` pixels) and equals the reference live;
 - the conversion to RGB: lossless AVIFs built by the port's writers from
   chosen Y'UV samples, for every matrix the CLI lets a user write (and
   matrix 12 under every primaries value), at 8 and 10 bits, with and
@@ -81,12 +81,6 @@ def test_fixture_decodes_to_its_manifest(name):
     assert [list(ref.data.shape), ref.hbd, _crc(ref.data)] == [
         entry["load_shape"], entry["load_hbd"], entry["load_crc"]]
     assert _crc(ref_rgb8(data)) == entry["rgb8_crc"]
-    if "refuses" in entry:
-        with pytest.raises(ValueError, match=re.escape(entry["refuses"])):
-            load_avif(str(path))
-        with pytest.raises(A.UnsupportedAvif):
-            decode_avif_to_rgb8(data)
-        return
     _, img, _ = A.decode_avif(data)
     yuv = np.concatenate([p.astype("<u2").reshape(-1) for p in img.planes])
     assert _crc(yuv) == entry["yuv_crc"]
@@ -495,8 +489,17 @@ def _refusal_streams():
     }
 
 
+# tools the decoder refused before it learned them: their streams now
+# parse, with the header fields the tool sets
+LEARNED = {"cdef_bits > 0": lambda fh: (fh.cdef_bits, len(fh.cdef_strengths))
+           == (1, 2)}
+
+
 @pytest.mark.parametrize("tool", sorted(_refusal_streams()))
 def test_av1_refusals_name_the_tool(tool):
+    if tool in LEARNED:
+        assert LEARNED[tool](A.parse_av1(_refusal_streams()[tool]).frame)
+        return
     with pytest.raises(ValueError, match=re.escape(tool)):
         A.decode_av1(_refusal_streams()[tool])
 
@@ -569,3 +572,63 @@ def test_cli_on_avif_matches_reference_and_pam(tmp_path, capsys, name, args):
         via_pam, pam_found = _run(port_cli, args, pam, tmp_path / "pam.avif",
                                   capsys)
         assert (got, found) == (via_pam, pam_found)
+
+
+# every CICP the CLI tests of this file and the fixtures write: the port's
+# bytes equal the reference CLI's for each; 1/13/0 alone differs (below)
+CLI_CICPS = sorted({(2, 2, 2), (1, 13, 1), (1, 13, 6), (2, 2, 0)}
+                   | {(cp, 2, mc) for cp, mc in MATRICES if mc != 0})
+
+
+def _cicp_args(cicp):
+    return ["--color-primaries", str(cicp[0]), "--transfer-characteristics",
+            str(cicp[1]), "--matrix-coefficients", str(cicp[2])]
+
+
+@pytest.mark.parametrize("cicp", CLI_CICPS, ids=lambda c: "%d_%d_%d" % c)
+def test_cli_bytes_equal_reference_for_each_cicp(cicp, tmp_path):
+    from chip_smoke import write_pam
+
+    rng = np.random.default_rng(sum(cicp))
+    src = tmp_path / "in.pam"
+    write_pam(src, rng.integers(0, 256, (64, 64, 3), dtype=np.uint8))
+    out = []
+    for cli in (ref_cli, port_cli):
+        dst = tmp_path / f"{cli.__name__}.avif"
+        assert cli.run(["-q", "60", *_cicp_args(cicp), str(src),
+                        str(dst)]) == 0
+        out.append(dst.read_bytes())
+    assert out[0] == out[1]
+
+
+def test_cicp_1_13_0_decodes_to_recon(tmp_path):
+    """BT.709 primaries, sRGB transfer and the identity matrix: the
+    sequence header carries no color_range bit (spec color_config), so
+    dav1d and the port's reader decode the stream, both to the recon's
+    Y'UV. (The reference writes the bit, and no decoder reads its
+    stream.)"""
+    from chip_smoke import _recon_planes
+    from oavif_tpu_torch.av1.encode import encode_avif_with_recon
+    from oavif_tpu_torch.backend import EncCtx
+    from oavif_tpu_torch.io.image import Image
+    from oavif_tpu_torch.options import EncOptions
+
+    rgb = np.random.default_rng(7).integers(0, 256, (72, 88, 3),
+                                            dtype=np.uint8)
+    ctx = EncCtx(o=EncOptions(color_primaries=1, transfer_characteristics=13,
+                              matrix_coefficients=0),
+                 src=Image(width=88, height=72, channels=3, hbd=False,
+                           data=rgb), rgb=rgb, w=88, h=72)
+    ctx.q = 60
+    seen, restore = _recon_planes()
+    try:
+        data, _ = encode_avif_with_recon(ctx)
+    finally:
+        restore()
+    recon = seen[data]
+    theirs, _, _ = decode_to_yuv(data)
+    _, img, _ = A.decode_avif(data)
+    assert img.cicp == (1, 13, 0) and img.full_range
+    for ours, dav1d, want in zip(img.planes, theirs, recon):
+        np.testing.assert_array_equal(dav1d, want)
+        np.testing.assert_array_equal(ours, want)

@@ -106,3 +106,25 @@ def test_photo_search_ends_where_the_reference_does(tmp_path, capsys):
     assert (q, passes) == (rq, rpasses)
     assert abs(float(score) - float(rscore)) <= 0.02
     assert abs(float(rscore) - 80.0) > 2.0
+
+
+def test_decision_cache_keeps_options_apart(tmp_path, capsys):
+    """Three option sets in one process (speed 8, speed 5, ``--tune
+    ssim``) each give the bytes of the same encode in a fresh process, and
+    every stream decodes by dav1d: the cross-probe decision cache never
+    replays decisions recorded under other options."""
+    from oavif_tpu_torch.io.avif_ctypes import decode_to_yuv
+
+    src = tmp_path / "mixed.pam"
+    write_pam(src, bench._img_mixed(256, 256))
+    options = [["-q", "60", "-s", "8"], ["-q", "60", "-s", "5"],
+               ["-q", "60", "--tune", "ssim"]]
+    port_frame.reset_planners()
+    in_turn = [_run(port_cli, o, src, tmp_path / "a.avif", capsys)[0]
+               for o in options]
+    assert port_frame.planners(), "the planner did not arm"
+    for o, data in zip(options, in_turn):
+        port_frame.reset_planners()
+        alone, _ = _run(port_cli, o, src, tmp_path / "b.avif", capsys)
+        assert data == alone, o
+        decode_to_yuv(data)

@@ -17,8 +17,9 @@ arithmetic-coded progressive fixture with a DAC marker, and the CLI on a
 lossy WebP fixture with an alpha plane (``tests/torch_fixtures/webp``),
 and, with ``libavif.so.15`` unloadable too (``ctypes.CDLL`` refuses any
 library named for libavif), ``load_avif``, ``CudaBackend.decode_to_rgb8``
-and the CLI on an AVIF fixture with an alpha item
-(``tests/torch_fixtures/avif``), all decoded by the port's own C. The
+and the CLI on two AVIF fixtures with an alpha item (the port's 4:4:4
+one in ``tests/torch_fixtures/avif`` and libaom's 4:2:0 one in
+``tests/torch_fixtures/avif_aom``), all decoded by the port's own C. The
 script runs
 from a file, so the ranks (spawned processes re-import it) refuse the
 same modules. Nothing may import a refused
@@ -135,14 +136,14 @@ def main():
     assert load_image(arith).data.shape == (256, 256, 3)
     assert load_image(webp).channels == 4
     assert cli.run(["-q", "60", webp, out]) == 0
-    avif = sys.argv[11]
-    img = load_image(avif)
-    assert img.channels == 4 and not img.hbd
-    with open(avif, "rb") as f:
-        rgb = CudaBackend().decode_to_rgb8(f.read())
-    assert rgb.shape == (img.height, img.width, 3)
-    assert (rgb == img.data[..., :3]).all()
-    assert cli.run(["-q", "60", avif, out]) == 0
+    for avif in sys.argv[11:]:
+        img = load_image(avif)
+        assert img.channels == 4 and not img.hbd
+        with open(avif, "rb") as f:
+            rgb = CudaBackend().decode_to_rgb8(f.read())
+        assert rgb.shape == (img.height, img.width, 3)
+        assert (rgb == img.data[..., :3]).all()
+        assert cli.run(["-q", "60", avif, out]) == 0
     from oavif_tpu_torch.io import avif_ctypes
     try:
         avif_ctypes._load()
@@ -194,7 +195,9 @@ def test_port_cli_runs_without_jax_or_pillow(tmp_path):
          str(REPO / "tests" / "torch_fixtures" / "webp"
              / "text_alpha_q80.webp"),
          str(REPO / "tests" / "torch_fixtures" / "avif"
-             / "tool_alpha_q50.avif")],
+             / "tool_alpha_q50.avif"),
+         str(REPO / "tests" / "torch_fixtures" / "avif_aom"
+             / "rgba_420.avif")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout

@@ -12,13 +12,14 @@ palette on ``text``, lossless at ``-q 100``, 8-bit output, alpha lossless
 and at ``--quality-alpha 50``, four tiles, 64-pixel superblocks), a
 509x383 frame, the CICP 1/13/1 and an ICC profile (lcms's sRGB, its
 date zeroed). Pillow's libaom
-encoder writes the refusal files (4:2:0, 4:2:2, and 4:4:4 with libaom's
-intra edge filter). The manifest holds, for every file, the CRC32 of the
-system libavif's (dav1d's) Y'UV planes as little-endian uint16, and the
-shape, depth and CRC32 of the reference's ``load_avif`` pixels and of its
-``decode_avif_to_rgb8`` pixels; a refusal file names the tool the port's
-decoder refuses instead of the Y'UV CRC (the 4:4:4 yardstick cannot read
-its subsampled planes).
+encoder writes three more (4:2:0, 4:2:2, and 4:4:4 with libaom's intra
+edge filter; named ``refuse_*`` because the port's first AV1 decoder
+refused them: it decodes them now, and
+``tests/torch_fixtures/avif_aom`` holds the wider libaom grid). The
+manifest holds, for every file, the CRC32 of the system libavif's
+(dav1d's) Y'UV planes as little-endian uint16 (each plane at its own
+size), and the shape, depth and CRC32 of the reference's ``load_avif``
+pixels and of its ``decode_avif_to_rgb8`` pixels.
 """
 
 from __future__ import annotations
@@ -94,12 +95,11 @@ def cli_files() -> dict:
     return files
 
 
-# name -> (Pillow save keywords, the tool the port's decoder names)
-REFUSALS = {
-    "refuse_420.avif": (dict(subsampling="4:2:0"), "4:2:0"),
-    "refuse_422.avif": (dict(subsampling="4:2:2"), "4:2:2"),
-    "refuse_444_edge_filter.avif": (dict(subsampling="4:4:4"),
-                                    "intra edge filter"),
+# name -> Pillow save keywords of the files libaom writes
+LIBAOM = {
+    "refuse_420.avif": dict(subsampling="4:2:0"),
+    "refuse_422.avif": dict(subsampling="4:2:2"),
+    "refuse_444_edge_filter.avif": dict(subsampling="4:4:4"),
 }
 
 
@@ -119,9 +119,8 @@ def crc(a: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(a).tobytes()) & 0xFFFFFFFF
 
 
-def manifest_entry(name: str, yuv: bool = True) -> dict:
-    """The entry of one file; ``yuv`` False leaves out dav1d's planes
-    (``decode_to_yuv`` reads 4:4:4 and monochrome planes only)."""
+def manifest_entry(name: str) -> dict:
+    """The entry of one file."""
     from oavif_tpu.io.image import decode_avif_to_rgb8, load_avif
     from oavif_tpu_torch.io.avif_ctypes import decode_to_yuv
 
@@ -133,17 +132,15 @@ def manifest_entry(name: str, yuv: bool = True) -> dict:
              "load_hbd": img.hbd, "load_crc": crc(img.data),
              "icc": len(img.icc or b""),
              "rgb8_crc": crc(decode_avif_to_rgb8(data))}
-    if yuv:
-        planes, entry["depth"], _ = decode_to_yuv(data)
-        entry["yuv_crc"] = crc(np.concatenate(
-            [p.astype("<u2").reshape(-1) for p in planes]))
+    planes, entry["depth"], _ = decode_to_yuv(data)
+    entry["yuv_crc"] = crc(np.concatenate(
+        [p.astype("<u2").reshape(-1) for p in planes if p is not None]))
     return entry
 
 
 def write_manifest() -> None:
-    manifest = {name: manifest_entry(name) for name in sorted(cli_files())}
-    for name, (_, tool) in REFUSALS.items():
-        manifest[name] = dict(manifest_entry(name, yuv=False), refuses=tool)
+    names = sorted(cli_files()) + sorted(LIBAOM)
+    manifest = {name: manifest_entry(name) for name in names}
     with open(os.path.join(HERE, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -155,7 +152,7 @@ def main() -> None:
             print(name, flush=True)
             run_cli(name, rgb, args, env, icc, td)
     src = bench_images(CROP, ("mixed",))["mixed"]
-    for name, (kw, _) in REFUSALS.items():
+    for name, kw in LIBAOM.items():
         buf = io.BytesIO()
         Image.fromarray(src).save(buf, "AVIF", quality=60, speed=6,
                                   max_threads=1, **kw)
