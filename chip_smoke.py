@@ -2529,6 +2529,8 @@ AVIF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "tests", "torch_fixtures", "avif")
 AVIF_AOM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "tests", "torch_fixtures", "avif_aom")
+AVIF_TOOLS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "torch_fixtures", "avif_tools")
 
 
 def _read_avif_fixtures(folder: str) -> dict:
@@ -2537,9 +2539,9 @@ def _read_avif_fixtures(folder: str) -> dict:
     ``decode_avif_to_rgb8`` pixels as Pillow gave them when the fixtures
     were made) and, where the manifest counts them, meets each tool the
     decoder counts as often; each read timed (median of 5), split into
-    parse and tile decode, post-filters and conversion; a refusal fixture
-    raises ``ValueError`` naming its tool. Returns the loaded images by
-    file name."""
+    parse and tile decode, post-filters, film grain and conversion; a
+    refusal fixture raises ``ValueError`` naming its tool. Returns the
+    loaded images by file name."""
     from oavif_tpu_torch.io import avif
     from oavif_tpu_torch.io.image import load_avif
 
@@ -2581,8 +2583,9 @@ def _read_avif_fixtures(folder: str) -> dict:
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         loaded[name] = img
-        parts = ", ".join(f"{k} {np.median([t[k] for t in split]) * 1e3:.3f}"
-                          for k in ("parse", "filters", "convert"))
+        parts = ", ".join(
+            f"{k} {np.median([t.get(k, 0.0) for t in split]) * 1e3:.3f}"
+            for k in ("parse", "filters", "grain", "convert"))
         fmt = ("4:0:0" if color.mono else
                {(0, 0): "4:4:4", (1, 0): "4:2:2", (1, 1): "4:2:0"}[color.ss])
         print(f"  {name} {img.width}x{img.height}x{img.channels} "
@@ -2597,29 +2600,38 @@ def _read_avif_fixtures(folder: str) -> dict:
 def phase_avif_input(images: dict, acc: dict) -> dict:
     """The port's AVIF reader and the CLI on AVIF input. Every fixture of
     ``tests/torch_fixtures/avif`` (the port's own streams and three of
-    libaom's) and of ``tests/torch_fixtures/avif_aom`` (libaom's: 4:2:0,
+    libaom's), of ``tests/torch_fixtures/avif_aom`` (libaom's: 4:2:0,
     4:2:2 and 4:4:4 at every speed and quality of its grid, CDEF strengths
-    per 64x64, 10-bit, the 3840x2160 frame; the 12-bit file must raise
-    naming 12-bit) decodes to its manifest (``_read_avif_fixtures``), the
-    3840x2160 reads split into parse and tile decode, post-filters and
-    conversion. Then the CLI ``-t 80`` on the six class AVIFs and ``-q
-    60`` on the 3840x2160 one, from each folder: q, passes and bytes must
-    be those of the CLI on the same pixels, written as PAM where they are
-    8-bit and handed over in memory where they are 16-bit (PAM holds 8
-    bits). Returns the kernels' launches."""
+    per 64x64, 10-bit, 12-bit, the 3840x2160 frame) and of
+    ``tests/torch_fixtures/avif_tools`` (libaom's tools on request:
+    quantizer matrices, delta q and delta LF, film grain, 12-bit, the
+    chroma palette; limited range, ``irot``, ``imir`` and ``clap``; the
+    intrabc file must raise naming intrabc) decodes to its manifest
+    (``_read_avif_fixtures``), the reads split into parse and tile
+    decode, post-filters, film grain and conversion. Then the CLI ``-t
+    80`` on the six class AVIFs and ``-q 60`` on the 3840x2160 one of the
+    first two folders, ``-q 60`` on the 3840x2160 ``tune=iq`` frame with
+    film grain and ``-t 80`` on the 512x512 limited-range file with an
+    ``irot``: q, passes and bytes must be those of the CLI on the same
+    pixels, written as PAM where they are 8-bit and handed over in memory
+    where they are 16-bit (PAM holds 8 bits). Returns the kernels'
+    launches."""
     from oavif_tpu_torch.io.image import Image
 
     reset_counts()
     runs = []
-    for folder, classes, frame in (
-            (AVIF_DIR, "{}.avif", "photo4k_q60.avif"),
-            (AVIF_AOM_DIR, "class_{}_420.avif", "photo4k_420_q60.avif")):
+    for folder, picks in (
+            (AVIF_DIR, [(f"{name}.avif", ["-t", "80"]) for name in images]
+             + [("photo4k_q60.avif", ["-q", "60"])]),
+            (AVIF_AOM_DIR, [(f"class_{name}_420.avif", ["-t", "80"])
+                            for name in images]
+             + [("photo4k_420_q60.avif", ["-q", "60"])]),
+            (AVIF_TOOLS_DIR, [("iq_grain_photo4k_420.avif", ["-q", "60"]),
+                              ("limited_512_orient6_420_mixed.avif",
+                               ["-t", "80"])])):
         loaded = _read_avif_fixtures(folder)
-        runs += [(os.path.join(folder, classes.format(name)),
-                  loaded[classes.format(name)], ["-t", "80"])
-                 for name in images]
-        runs.append((os.path.join(folder, frame), loaded[frame],
-                     ["-q", "60"]))
+        runs += [(os.path.join(folder, name), loaded[name], args)
+                 for name, args in picks]
     with tempfile.TemporaryDirectory() as td:
         for src, img, args in runs:
             name = os.path.relpath(src, os.path.dirname(AVIF_DIR))

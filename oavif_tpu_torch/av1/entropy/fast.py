@@ -29,6 +29,7 @@ _SRC_JPEG = Path(__file__).parent.parent.parent / "io" / "jpeg_decode.c"
 _SRC_WEBP = Path(__file__).parent.parent.parent / "io" / "webp_decode.c"
 _SRC_AV1 = Path(__file__).parent.parent.parent / "io" / "av1_decode.c"
 _SRC_AV1_POST = Path(__file__).parent.parent.parent / "io" / "av1_postfilter.c"
+_SRC_AV1_GRAIN = Path(__file__).parent.parent.parent / "io" / "av1_grain.c"
 _BUILD_DIR = (Path(__file__).resolve().parent.parent.parent.parent
               / "build" / "oavif_tpu_torch")
 _SO = _BUILD_DIR / "liboavif_host.so"
@@ -43,7 +44,7 @@ def _build() -> Optional[C.CDLL]:
         return None
     try:
         srcs = [_SRC, _SRC_TILE, _SRC_SSIMU2, _SRC_PNG, _SRC_JPEG, _SRC_WEBP,
-                _SRC_AV1, _SRC_AV1_POST]
+                _SRC_AV1, _SRC_AV1_POST, _SRC_AV1_GRAIN]
         hdrs = [_SRC.parent / "idct_ln_impl.h",
                 _SRC_AV1.parent / "av1_header.h"]
         newest = max(s.stat().st_mtime for s in srcs + hdrs)
@@ -183,10 +184,12 @@ def _build() -> Optional[C.CDLL]:
         ]
         lib.av1_decode_frame.restype = C.c_int
         lib.av1_decode_frame.argtypes = (
-            [C.c_void_p] * 10 + [C.c_void_p, C.c_int] + [C.c_void_p] * 5
+            [C.c_void_p] * 12 + [C.c_void_p, C.c_int] + [C.c_void_p] * 6
             + [C.c_char_p, C.c_int])
         lib.av1_postfilter.restype = C.c_int
-        lib.av1_postfilter.argtypes = [C.c_void_p, C.c_int] + [C.c_void_p] * 6
+        lib.av1_postfilter.argtypes = [C.c_void_p, C.c_int] + [C.c_void_p] * 7
+        lib.av1_film_grain.restype = C.c_int
+        lib.av1_film_grain.argtypes = [C.c_void_p, C.c_int] + [C.c_void_p] * 4
         return lib
     except Exception:
         _build_failed = True

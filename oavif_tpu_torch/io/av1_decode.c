@@ -7,31 +7,34 @@
  * syntax (spec 5.11.39), the loop-restoration unit syntax (spec
  * 5.11.57-58), and the reconstruction: intra prediction (spec 7.11.2:
  * every mode, the angle deltas, smooth, Paeth, CFL, palette and the
- * recursive filter), dequantization and the inverse transforms (spec
- * 7.12.3, 7.13.3). The post-filters (deblocking, CDEF, loop restoration)
- * run afterwards on the block records and restoration units this call
- * returns.
+ * recursive filter), dequantization (with the quantizer matrices and
+ * each superblock's delta q) and the inverse transforms (spec 7.12.3,
+ * 7.13.3). The post-filters (deblocking, CDEF, loop restoration) and film
+ * grain run afterwards on the block records and restoration units this
+ * call returns.
  *
  * The default CDFs, the scans, the smooth weights, the directional
  * derivatives and the filter-intra taps come from the caller
- * (av1/av1_tables.npz); the CDFs adapt with the host library's
+ * (av1/av1_tables.npz), the quantizer matrices too (io/av1_tool_tables.npz,
+ * scripts/extract_av1_tool_tables.py); the CDFs adapt with the host library's
  * update_cdf_c and are copied afresh for every tile. The 1D inverse
  * transforms are the host library's (inv_1d_kind_pub).
  *
  * The toolset is that of libaom's intra frames: 4:4:4, 4:2:2, 4:2:0 and
- * monochrome planes at 8 and 10 bits (the chroma of 4xN and Nx4 blocks
+ * monochrome planes at 8, 10 and 12 bits (the chroma of 4xN and Nx4 blocks
  * coded on the last block of their 8x8, CFL on subsampled luma), every
  * partition (the A/B and 4-way ones included), every transform size
  * (the 4:1 ones and the 64-length zero-out) and the intra transform sets
  * (V_DCT and H_DCT with their own scans and contexts), TX_MODE_SELECT,
- * luma palette, filter intra, and the intra edge filter and upsampling.
- * A chroma palette is refused with a message naming it.
+ * luma and chroma palettes, filter intra, the intra edge filter and
+ * upsampling, quantizer matrices, and delta q and delta LF (one DeltaLF;
+ * the header refuses delta_lf_multi).
  *
  * Besides the planes, one call returns what the post-filters
  * (av1_postfilter.c) read: the transform size of every 4x4 of every
  * plane, the skip flag of every 4x4 luma block, the CDEF strength index
- * of every 64x64 and the restoration units; and a count of each tool a
- * stream used (the T_* enum).
+ * of every 64x64, the DeltaLF of every 4x4 and the restoration units; and
+ * a count of each tool a stream used (the T_* enum).
  *
  * Built into the host library beside the tile coder (av1/entropy/fast.py).
  */
@@ -54,7 +57,9 @@ enum {
     D_BASE, D_BR, D_DC_SIGN, D_PAL_Y_MODE, D_PAL_UV_MODE, D_PAL_Y_SIZE,
     D_PAL_Y_CI2, D_PAL_Y_CI3, D_PAL_Y_CI4, D_PAL_Y_CI5, D_PAL_Y_CI6,
     D_PAL_Y_CI7, D_PAL_Y_CI8, D_FI_USE, D_FI_MODE, D_WIENER, D_SGR,
-    D_SWITCHABLE, D_NCDF
+    D_SWITCHABLE, D_DELTA_Q, D_DELTA_LF, D_PAL_UV_SIZE,
+    D_PAL_UV_CI2, D_PAL_UV_CI3, D_PAL_UV_CI4, D_PAL_UV_CI5, D_PAL_UV_CI6,
+    D_PAL_UV_CI7, D_PAL_UV_CI8, D_NCDF
 };
 
 #include "av1_header.h"
@@ -96,6 +101,12 @@ static const int SGRPROJ_XQD_MIN[2] = {-96, -32};
 static const int SGRPROJ_XQD_MAX[2] = {31, 95};
 static const int SGRPROJ_XQD_MID[2] = {-32, 31};
 static const int PALETTE_COLOR_CONTEXT[9] = {-1, -1, 0, -1, -1, 4, 3, 2, 1};
+/* where each coded transform size's matrix starts in a level's 3344
+ * weights (spec Qm_Offset), by (log2 w - 2, log2 h - 2); -1 = none */
+static const int QM_OFFSET[4][4] = {
+    {0, 1360, 2704, -1}, {1392, 16, 1424, 2832},
+    {2768, 1552, 80, 1680}, {-1, 3088, 2192, 336}};
+enum { QM_TOTAL = 3344, QM_FLAT = 15 };
 static inline int imin(int a, int b) { return a < b ? a : b; }
 static inline int imax(int a, int b) { return a > b ? a : b; }
 static inline int64_t clip64(int64_t v, int64_t lo, int64_t hi) {
@@ -127,6 +138,15 @@ typedef struct {
     int reduced_tx_set, screen_tools, filter_intra, cdef_on, cdef_bits;
     int ssx, ssy, edge_filter;
     int base_q, qdc[3], qac[3];
+    /* delta q (spec 5.11.11): CurrentQIndex, the frame's DC/AC deltas
+     * (y dc, u dc, u ac, v dc, v ac) and the lookups they index */
+    int qidx, dq[5], delta_q_res, delta_lf_res, read_deltas;
+    const int32_t *dc_lut, *ac_lut;
+    int delta_lf;             /* DeltaLF (one for every plane and direction) */
+    int8_t *mi_dlf;           /* DeltaLF of every mi */
+    /* quantizer matrices: the level of each plane (15 = flat) */
+    int qm_level[3];
+    const uint8_t *qm;
     int32_t *plane[3];
     int stride;
     /* tables */
@@ -139,6 +159,8 @@ typedef struct {
     uint8_t *mi_wl, *mi_hl;   /* log2 of block width/height in 4x4 units */
     uint8_t *mi_skip, *mi_ymode, *mi_uvmode, *mi_txw, *mi_txh, *mi_paln;
     uint16_t *mi_pal;         /* 8 colours per mi */
+    uint8_t *mi_paln_uv;      /* chroma palette size per mi */
+    uint16_t *mi_pal_u;       /* its 8 U colours per mi */
     /* transform size of each 4x4 of each plane, (log2 w - 2) | (log2 h -
      * 2) << 4, rows of mi_cols (the post-filters' LoopfilterTxSizes) */
     uint8_t *txmap[3];
@@ -170,6 +192,9 @@ typedef struct {
     int smooth_y, smooth_uv;  /* get_filter_type for luma and chroma */
     uint16_t pal[8];
     uint8_t cmap[64 * 64];
+    int pal_uv_n;
+    uint16_t pal_u[8], pal_v[8];
+    uint8_t cmap_uv[64 * 64];
     int txwl, txhl; /* luma tx log2 width/height in px */
     int max_luma_w, max_luma_h;
 } Blk;
@@ -673,11 +698,21 @@ static void reconstruct(Dec *d, int plane, int x, int y, int wl, int hl,
     int64_t dmax = ((int64_t)1 << (7 + bd)) - 1, dmin = -((int64_t)1 << (7 + bd));
     static _Thread_local int64_t res[64 * 64];
     memset(res, 0, sizeof(int64_t) * (size_t)pels);
+    /* the quantizer matrix weighs 2-D transforms only; the 1-D and
+     * identity ones take the flat level (spec 7.12.3) */
+    const uint8_t *qm = NULL;
+    int lvl = d->qm_level[plane];
+    if (lvl < QM_FLAT && txtype < IDTX && !d->lossless) {
+        int off = QM_OFFSET[imin(wl, 5) - 2][imin(hl, 5) - 2];
+        qm = d->qm + ((size_t)lvl * 2 + (plane > 0)) * QM_TOTAL + off;
+        d->count[T_QM]++;
+    }
     for (int i = 0; i < ch; i++)
         for (int j = 0; j < cw; j++) {
             int32_t q = quant[i * cw + j];
             if (!q) continue;
             int64_t qs = (i == 0 && j == 0) ? d->qdc[plane] : d->qac[plane];
+            if (qm) qs = (qm[i * cw + j] * qs + 16) >> 5;
             int64_t mag = ((int64_t)(q < 0 ? -q : q) * qs) & 0xFFFFFF;
             mag >>= dq_denom;
             res[i * tw + j] = clip64(q < 0 ? -mag : mag, dmin, dmax);
@@ -962,6 +997,12 @@ static void transform_block(Dec *d, Blk *b, int plane, int base_x, int base_y,
             for (int j = 0; j < (1 << wl); j++)
                 *px(d, 0, start_y + i, start_x + j) =
                     b->pal[b->cmap[(y * 4 + i) * 64 + x * 4 + j]];
+    } else if (plane && b->pal_uv_n) {
+        const uint16_t *pal = plane == 1 ? b->pal_u : b->pal_v;
+        for (int i = 0; i < (1 << hl); i++)
+            for (int j = 0; j < (1 << wl); j++)
+                *px(d, plane, start_y + i, start_x + j) =
+                    pal[b->cmap_uv[(y * 4 + i) * 64 + x * 4 + j]];
     } else {
         int is_cfl = plane > 0 && b->uvmode == UV_CFL_PRED;
         int mode = plane == 0 ? b->ymode : (is_cfl ? DC_PRED : b->uvmode);
@@ -1039,18 +1080,23 @@ static void residual(Dec *d, Blk *b) {
 
 /* ---- mode info (spec 5.11.7-5.11.27, 5.11.46-50) ------------------------- */
 
-static int palette_cache(Dec *d, const Blk *b, uint16_t *cache) {
+/* spec get_palette_cache: the above (within the 64-row band) and left
+ * neighbours' colours of the plane (Y, or U for the chroma palette),
+ * merged ascending without repeats */
+static int palette_cache(Dec *d, const Blk *b, int plane, uint16_t *cache) {
+    const uint8_t *sizes = plane ? d->mi_paln_uv : d->mi_paln;
+    const uint16_t *colours = plane ? d->mi_pal_u : d->mi_pal;
     int an = 0, ln = 0;
     const uint16_t *ac = NULL, *lc = NULL;
     if (((b->r * 4) % 64) && b->avail_u) {
         int m = mi_at(d, b->r - 1, b->c);
-        an = d->mi_paln[m];
-        ac = d->mi_pal + (size_t)m * 8;
+        an = sizes[m];
+        ac = colours + (size_t)m * 8;
     }
     if (b->avail_l) {
         int m = mi_at(d, b->r, b->c - 1);
-        ln = d->mi_paln[m];
-        lc = d->mi_pal + (size_t)m * 8;
+        ln = sizes[m];
+        lc = colours + (size_t)m * 8;
     }
     int ai = 0, li = 0, n = 0;
     while (ai < an && li < ln) {
@@ -1071,6 +1117,13 @@ static int palette_cache(Dec *d, const Blk *b, uint16_t *cache) {
     return n;
 }
 
+static void sort_colours(uint16_t *c, int n) {
+    for (int i = 1; i < n; i++) /* ascending */
+        for (int j = i; j > 0 && c[j - 1] > c[j]; j--) {
+            uint16_t t = c[j]; c[j] = c[j - 1]; c[j - 1] = t;
+        }
+}
+
 static void palette_mode_info(Dec *d, Blk *b) {
     int bctx = b->wl + b->hl - 2;
     if (b->ymode == DC_PRED) {
@@ -1080,7 +1133,7 @@ static void palette_mode_info(Dec *d, Blk *b) {
         if (read_symbol(d, d->cdf[D_PAL_Y_MODE] + ((size_t)bctx * 3 + ctx) * 3, 2)) {
             int n = 2 + read_symbol(d, d->cdf[D_PAL_Y_SIZE] + (size_t)bctx * 8, 7);
             uint16_t cache[16];
-            int cn = palette_cache(d, b, cache);
+            int cn = palette_cache(d, b, 0, cache);
             int idx = 0;
             for (int i = 0; i < cn && idx < n; i++)
                 if (read_literal(d, 1)) b->pal[idx++] = cache[i];
@@ -1095,28 +1148,55 @@ static void palette_mode_info(Dec *d, Blk *b) {
                 bits = imin(bits, ceil_log2(range));
                 idx++;
             }
-            for (int i = 1; i < n; i++) /* ascending */
-                for (int j = i; j > 0 && b->pal[j - 1] > b->pal[j]; j--) {
-                    uint16_t t = b->pal[j]; b->pal[j] = b->pal[j - 1]; b->pal[j - 1] = t;
-                }
+            sort_colours(b->pal, n);
             b->pal_n = n;
         }
     }
-    if (b->has_chroma && b->uvmode == DC_PRED) {
-        if (read_symbol(d, d->cdf[D_PAL_UV_MODE] + (size_t)(b->pal_n > 0) * 3, 2))
-            fail(d, AV1D_UNSUPPORTED, "AV1: %s is not supported yet",
-                 "chroma (UV) palette");
+    if (b->has_chroma && b->uvmode == DC_PRED &&
+        read_symbol(d, d->cdf[D_PAL_UV_MODE] + (size_t)(b->pal_n > 0) * 3, 2)) {
+        /* palette_colors_u: cache, one literal, then deltas whose width
+         * shrinks with the range left (no +1, unlike luma); palette_colors_v
+         * by wrapping signed deltas or literals */
+        int n = 2 + read_symbol(d, d->cdf[D_PAL_UV_SIZE] + (size_t)bctx * 8, 7);
+        int bd = d->bd, maxv = (1 << bd) - 1;
+        uint16_t cache[16];
+        int cn = palette_cache(d, b, 1, cache);
+        int idx = 0;
+        for (int i = 0; i < cn && idx < n; i++)
+            if (read_literal(d, 1)) b->pal_u[idx++] = cache[i];
+        if (idx < n) b->pal_u[idx++] = (uint16_t)read_literal(d, bd);
+        int bits = 0;
+        if (idx < n) bits = bd - 3 + read_literal(d, 2);
+        while (idx < n) {
+            int delta = read_literal(d, bits);
+            b->pal_u[idx] = (uint16_t)imin(b->pal_u[idx - 1] + delta, maxv);
+            bits = imin(bits, ceil_log2((1 << bd) - b->pal_u[idx]));
+            idx++;
+        }
+        sort_colours(b->pal_u, n);
+        if (read_literal(d, 1)) {
+            int vbits = bd - 4 + read_literal(d, 2);
+            b->pal_v[0] = (uint16_t)read_literal(d, bd);
+            for (int i = 1; i < n; i++) {
+                int delta = read_literal(d, vbits);
+                if (delta && read_literal(d, 1)) delta = -delta;
+                int v = b->pal_v[i - 1] + delta;
+                if (v < 0) v += maxv + 1;
+                if (v > maxv) v -= maxv + 1;
+                b->pal_v[i] = (uint16_t)imin(imax(v, 0), maxv);
+            }
+        } else {
+            for (int i = 0; i < n; i++) b->pal_v[i] = (uint16_t)read_literal(d, bd);
+        }
+        b->pal_uv_n = n;
+        d->count[T_UV_PALETTE]++;
     }
 }
 
-static void palette_tokens(Dec *d, Blk *b) {
-    if (!b->pal_n) return;
-    int bw = 4 << b->wl, bh = 4 << b->hl;
-    int onh = imin(bh, (d->mi_rows - b->r) * 4);
-    int onw = imin(bw, (d->mi_cols - b->c) * 4);
-    int n = b->pal_n;
-    uint8_t *m = b->cmap;
-    uint16_t *cdf = d->cdf[D_PAL_Y_CI2 + n - 2];
+/* one colour-index map (spec palette_tokens) of bw x bh, onw x onh of it
+ * on screen, the rest replicated */
+static void colour_map(Dec *d, uint8_t *m, int n, uint16_t *cdf, int bw, int bh,
+                       int onw, int onh) {
     m[0] = (uint8_t)read_ns(d, n);
     for (int i = 1; i < onh + onw - 1; i++)
         for (int j = imin(i, onw - 1); j >= imax(0, i - onh + 1); j--) {
@@ -1147,6 +1227,23 @@ static void palette_tokens(Dec *d, Blk *b) {
         for (int j = onw; j < bw; j++) m[i * 64 + j] = m[i * 64 + onw - 1];
     for (int i = onh; i < bh; i++)
         for (int j = 0; j < bw; j++) m[i * 64 + j] = m[(onh - 1) * 64 + j];
+}
+
+static void palette_tokens(Dec *d, Blk *b) {
+    int bw = 4 << b->wl, bh = 4 << b->hl;
+    int onh = imin(bh, (d->mi_rows - b->r) * 4);
+    int onw = imin(bw, (d->mi_cols - b->c) * 4);
+    if (b->pal_n)
+        colour_map(d, b->cmap, b->pal_n, d->cdf[D_PAL_Y_CI2 + b->pal_n - 2], bw, bh,
+                   onw, onh);
+    if (b->pal_uv_n && !d->err) {
+        int sx = d->ssx, sy = d->ssy;
+        bw >>= sx; bh >>= sy; onw >>= sx; onh >>= sy;
+        if (bw < 4) { bw += 2; onw += 2; }
+        if (bh < 4) { bh += 2; onh += 2; }
+        colour_map(d, b->cmap_uv, b->pal_uv_n,
+                   d->cdf[D_PAL_UV_CI2 + b->pal_uv_n - 2], bw, bh, onw, onh);
+    }
 }
 
 static void read_cdef(Dec *d, Blk *b) {
@@ -1210,12 +1307,53 @@ static void filter_types(Dec *d, Blk *b) {
     }
 }
 
+/* CurrentQIndex and the dequantizers of each plane at it */
+static void set_qidx(Dec *d, int qidx) {
+    d->qidx = qidx;
+    for (int p = 0; p < 3; p++) {
+        int dc = p ? d->dq[2 * p - 1] : d->dq[0], ac = p ? d->dq[2 * p] : 0;
+        d->qdc[p] = d->dc_lut[imin(imax(qidx + dc, 0), 255)];
+        d->qac[p] = d->ac_lut[imin(imax(qidx + ac, 0), 255)];
+    }
+}
+
+/* a delta_q_abs / delta_lf_abs value: the symbol, or past DELTA_*_SMALL
+ * (3) a 3-bit length and that many bits, then a sign (spec 5.11.11-12) */
+static int read_delta(Dec *d, uint16_t *cdf) {
+    int a = read_symbol(d, cdf, 4);
+    if (a == 3) {
+        int n = read_literal(d, 3) + 1;
+        a = read_literal(d, n) + (1 << n) + 1;
+    }
+    return a && read_literal(d, 1) ? -a : a;
+}
+
+/* read_delta_qindex and read_delta_lf, once per superblock: CurrentQIndex
+ * and DeltaLF move by the deltas, and the block's dequantizers follow */
+static void read_deltas(Dec *d, Blk *b) {
+    int sb = d->sb128 ? 5 : 4;
+    if (!d->read_deltas || (b->wl == sb && b->hl == sb && b->skip)) return;
+    int dq = read_delta(d, d->cdf[D_DELTA_Q]);
+    if (dq) {
+        set_qidx(d, imin(imax(d->qidx + dq * (1 << d->delta_q_res), 1), 255));
+        d->count[T_DELTA_Q]++;
+    }
+    if (d->delta_lf_res < 0) return;
+    int dl = read_delta(d, d->cdf[D_DELTA_LF]);
+    if (dl) {
+        d->delta_lf = imin(imax(d->delta_lf + dl * (1 << d->delta_lf_res), -63), 63);
+        d->count[T_DELTA_LF]++;
+    }
+}
+
 static void intra_mode_info(Dec *d, Blk *b) {
     int skip_ctx = 0;
     if (b->avail_u) skip_ctx += d->mi_skip[mi_at(d, b->r - 1, b->c)];
     if (b->avail_l) skip_ctx += d->mi_skip[mi_at(d, b->r, b->c - 1)];
     b->skip = read_symbol(d, d->cdf[D_SKIP] + (size_t)skip_ctx * 3, 2);
     read_cdef(d, b);
+    if (d->delta_q_res >= 0) read_deltas(d, b);
+    d->read_deltas = 0;
     int am = b->avail_u ? d->mi_ymode[mi_at(d, b->r - 1, b->c)] : DC_PRED;
     int lm = b->avail_l ? d->mi_ymode[mi_at(d, b->r, b->c - 1)] : DC_PRED;
     b->ymode = read_symbol(d, d->cdf[D_KF_Y] + ((size_t)INTRA_MODE_CONTEXT[am] * 5 +
@@ -1250,7 +1388,7 @@ static void intra_mode_info(Dec *d, Blk *b) {
         if (b->bsize >= 3 && b->uvmode >= V_PRED && b->uvmode <= D67_PRED)
             b->angle_uv = read_symbol(d, d->cdf[D_ANGLE_DELTA] + (size_t)(b->uvmode - V_PRED) * 8, 7) - 3;
     }
-    b->pal_n = 0;
+    b->pal_n = b->pal_uv_n = 0;
     if (b->bsize >= 3 && b->wl <= 4 && b->hl <= 4 && d->screen_tools) {
         palette_mode_info(d, b);
         if (d->err) return;
@@ -1315,7 +1453,12 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
             d->mi_txh[m] = (uint8_t)(b->txhl - 2);
             d->mi_paln[m] = (uint8_t)b->pal_n;
             if (b->pal_n) memcpy(d->mi_pal + (size_t)m * 8, b->pal, sizeof(b->pal));
+            d->mi_paln_uv[m] = (uint8_t)b->pal_uv_n;
+            if (b->pal_uv_n)
+                memcpy(d->mi_pal_u + (size_t)m * 8, b->pal_u, sizeof(b->pal_u));
+            d->mi_dlf[m] = (int8_t)d->delta_lf;
         }
+    if (d->bd == 12) d->count[T_TWELVE_BIT]++;
     b->max_luma_w = b->max_luma_h = 0;
     residual(d, b);
 }
@@ -1502,6 +1645,7 @@ static void read_lr(Dec *d, int r, int c) {
 /* ---- tiles and frame ------------------------------------------------------ */
 
 static void decode_tile(Dec *d) {
+    d->delta_lf = 0;
     for (int p = 0; p < d->nplanes; p++) {
         memset(d->above_lvl[p], 0, (size_t)d->mi_cols + 32);
         memset(d->above_dc[p], 0, (size_t)d->mi_cols + 32);
@@ -1537,6 +1681,7 @@ static void decode_tile(Dec *d) {
                 d->decoded[p][(sb4 >> sy) + 1][0] = 0;
             }
             read_lr(d, r, c);
+            d->read_deltas = d->delta_q_res >= 0;
             decode_partition(d, r, c, d->sb128 ? 5 : 4);
         }
     }
@@ -1558,9 +1703,11 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
                      uint16_t *const *cdfs, const int64_t *cdf_lens,
                      const int32_t *const *scans, const int32_t *const *smw,
                      const int32_t *dr, const int32_t *fi_taps,
+                     const int32_t *qlut, const uint8_t *qm,
                      int32_t *const *planes, int stride,
                      uint8_t *const *txmaps, uint8_t *skips, int8_t *cdef_idx,
-                     int32_t *lr_out, int32_t *counts, char *msg, int msglen) {
+                     int8_t *delta_lf, int32_t *lr_out, int32_t *counts,
+                     char *msg, int msglen) {
     Dec *d = (Dec *)calloc(1, sizeof(Dec));
     if (!d) return AV1D_CORRUPT;
     int rc = AV1D_OK;
@@ -1584,9 +1731,15 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->ssx = hdr[H_SS_X];
     d->ssy = hdr[H_SS_Y];
     d->edge_filter = hdr[H_EDGE_FILTER];
+    d->dc_lut = qlut;
+    d->ac_lut = qlut + 256;
+    for (int i = 0; i < 5; i++) d->dq[i] = hdr[H_DQ_Y_DC + i];
+    d->delta_q_res = hdr[H_DELTA_Q_RES];
+    d->delta_lf_res = hdr[H_DELTA_LF_RES];
+    d->qm = qm;
+    d->mi_dlf = delta_lf;
     for (int p = 0; p < 3; p++) {
-        d->qdc[p] = hdr[H_Q_Y_DC + 2 * p];
-        d->qac[p] = hdr[H_Q_Y_AC + 2 * p];
+        d->qm_level[p] = qm ? hdr[H_QM_Y + p] : QM_FLAT;
         d->lr_type[p] = hdr[H_LR_TYPE0 + p];
         d->lr_unit[p] = hdr[H_LR_UNIT0 + p];
         d->lr_urows[p] = hdr[H_LR_UROWS0 + p];
@@ -1607,8 +1760,8 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->cdef_idx = cdef_idx;
     memset(cdef_idx, -1, (size_t)d->cdef_stride * ((d->mi_rows + 15) / 16));
     size_t nmi = (size_t)d->mi_rows * d->mi_cols;
-    uint8_t *mi8 = (uint8_t *)calloc(nmi * 7, 1);
-    d->mi_pal = (uint16_t *)calloc(nmi * 8, sizeof(uint16_t));
+    uint8_t *mi8 = (uint8_t *)calloc(nmi * 8, 1);
+    d->mi_pal = (uint16_t *)calloc(nmi * 16, sizeof(uint16_t));
     uint8_t *ctxmem = (uint8_t *)calloc((size_t)4 * 3 * ((size_t)d->mi_cols + d->mi_rows + 64), 1);
     size_t cdf_total = 0;
     for (int k = 0; k < D_NCDF; k++) cdf_total += (size_t)cdf_lens[k];
@@ -1621,7 +1774,8 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->mi_wl = mi8; d->mi_hl = mi8 + nmi; d->mi_skip = skips;
     d->mi_ymode = mi8 + 2 * nmi; d->mi_uvmode = mi8 + 3 * nmi;
     d->mi_txw = mi8 + 4 * nmi; d->mi_txh = mi8 + 5 * nmi;
-    d->mi_paln = mi8 + 6 * nmi;
+    d->mi_paln = mi8 + 6 * nmi; d->mi_paln_uv = mi8 + 7 * nmi;
+    d->mi_pal_u = d->mi_pal + nmi * 8;
     {
         size_t ac = (size_t)d->mi_cols + 32, lc = (size_t)d->mi_rows + 32;
         uint8_t *q = ctxmem;
@@ -1652,6 +1806,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
                 break;
             }
             sym_init(d, tiles[ti], (size_t)tile_sizes[ti]);
+            set_qidx(d, d->base_q);
             decode_tile(d);
         }
     rc = d->err;

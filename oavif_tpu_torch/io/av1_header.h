@@ -1,6 +1,7 @@
 /* The header pack that avif.py hands to av1_decode.c and
  * av1_postfilter.c: one int32 per field, in this order (avif.py
- * _HDR_FIELDS names them and must change with this enum), and the tool
+ * _HDR_FIELDS names them and must change with this enum), the film grain
+ * pack av1_grain.c reads (avif._GRAIN_FIELDS, likewise), and the tool
  * counters the decoder fills (avif.py TOOL_NAMES). */
 #ifndef OAVIF_AV1_HEADER_H
 #define OAVIF_AV1_HEADER_H
@@ -9,22 +10,45 @@ enum {
     H_MI_ROWS, H_MI_COLS, H_NPLANES, H_BITDEPTH, H_SB128, H_TILE_COLS,
     H_TILE_ROWS, H_BASE_Q, H_LOSSLESS, H_TX_MODE, H_REDUCED_TX_SET,
     H_SCREEN_TOOLS, H_FILTER_INTRA, H_CDEF_ON, H_CDEF_BITS,
-    H_DISABLE_CDF_UPDATE, H_Q_Y_DC, H_Q_Y_AC, H_Q_U_DC, H_Q_U_AC, H_Q_V_DC,
-    H_Q_V_AC, H_LR_TYPE0, H_LR_TYPE1, H_LR_TYPE2,
+    H_DISABLE_CDF_UPDATE,
+    /* the frame's quantizer deltas: y dc, u dc, u ac, v dc, v ac */
+    H_DQ_Y_DC, H_DQ_U_DC, H_DQ_U_AC, H_DQ_V_DC, H_DQ_V_AC,
+    H_LR_TYPE0, H_LR_TYPE1, H_LR_TYPE2,
     /* per plane: restoration unit size and the unit grid */
     H_LR_UNIT0, H_LR_UNIT1, H_LR_UNIT2, H_LR_UROWS0, H_LR_UROWS1,
     H_LR_UROWS2, H_LR_UCOLS0, H_LR_UCOLS1, H_LR_UCOLS2,
     /* the unit table's row and column strides (the largest grid) */
     H_LR_RSTRIDE, H_LR_CSTRIDE,
     H_SS_X, H_SS_Y, H_EDGE_FILTER,
-    /* post-filters: visible size, loop filter levels (y vertical, y
-     * horizontal, u, v, after the intra reference delta) and
-     * sharpness, CDEF damping and the 1 << cdef_bits strength sets
-     * (y primary, y secondary, uv primary, uv secondary; secondary 3
-     * already read as 4) */
+    /* post-filters: visible size, the frame's loop filter levels (y
+     * vertical, y horizontal, u, v) and sharpness, CDEF damping */
     H_WIDTH, H_HEIGHT, H_LF_Y0, H_LF_Y1, H_LF_U, H_LF_V, H_LF_SHARPNESS,
-    H_CDEF_DAMPING, H_CDEF_STRENGTHS,
+    H_CDEF_DAMPING,
+    /* quantizer matrix level of y, u and v (15 = flat) */
+    H_QM_Y, H_QM_U, H_QM_V,
+    /* log2 of the delta q and delta LF steps (-1 = not present) */
+    H_DELTA_Q_RES, H_DELTA_LF_RES,
+    /* loop_filter_delta_enabled and the intra frame's reference delta */
+    H_LF_DELTA_ENABLED, H_LF_REF_DELTA_INTRA,
+    /* the 1 << cdef_bits strength sets (y primary, y secondary, uv
+     * primary, uv secondary; secondary 3 already read as 4) */
+    H_CDEF_STRENGTHS,
     H_NFIELDS = H_CDEF_STRENGTHS + 8 * 4
+};
+
+/* film_grain_params (spec 5.9.30): the points as (value, scaling)
+ * arrays, the auto-regressive coefficients less 128, the shifts with
+ * their offsets added (scaling 8-11, ar 6-9), and whether the matrix is
+ * the identity (the chroma clip of clip_to_restricted_range) */
+enum {
+    G_SEED, G_NUM_Y, G_Y_VALUE, G_Y_SCALING = G_Y_VALUE + 14,
+    G_CHROMA_FROM_LUMA = G_Y_SCALING + 14, G_NUM_CB, G_CB_VALUE,
+    G_CB_SCALING = G_CB_VALUE + 10, G_NUM_CR = G_CB_SCALING + 10, G_CR_VALUE,
+    G_CR_SCALING = G_CR_VALUE + 10, G_SCALING_SHIFT = G_CR_SCALING + 10,
+    G_AR_LAG, G_AR_Y, G_AR_CB = G_AR_Y + 24, G_AR_CR = G_AR_CB + 25,
+    G_AR_SHIFT = G_AR_CR + 25, G_SCALE_SHIFT, G_CB_MULT, G_CB_LUMA_MULT,
+    G_CB_OFFSET, G_CR_MULT, G_CR_LUMA_MULT, G_CR_OFFSET, G_OVERLAP,
+    G_CLIP_RESTRICTED, G_MC_IDENTITY, G_NFIELDS
 };
 
 /* tools a stream used, counted while decoding */
@@ -33,7 +57,18 @@ enum {
     T_TX_V_DCT, T_TX_H_DCT, T_TX_4TO1, T_TX_64, T_TX_DEPTH1, T_TX_DEPTH2,
     T_PART_HORZ_A, T_PART_HORZ_B, T_PART_VERT_A, T_PART_VERT_B,
     T_PART_HORZ_4, T_PART_VERT_4, T_CDEF_IDX_READ, T_CDEF_UNITS_VARIED,
-    T_LR_CHROMA_SUBSAMPLED, T_NCOUNTERS
+    T_LR_CHROMA_SUBSAMPLED,
+    /* transform blocks dequantized through a quantizer matrix */
+    T_QM,
+    /* superblocks that moved CurrentQIndex, and DeltaLF changes */
+    T_DELTA_Q, T_DELTA_LF,
+    /* planes that film grain was added to */
+    T_FILM_GRAIN,
+    /* blocks with a chroma palette */
+    T_UV_PALETTE,
+    /* blocks decoded at 12 bits */
+    T_TWELVE_BIT,
+    T_NCOUNTERS
 };
 
 #endif

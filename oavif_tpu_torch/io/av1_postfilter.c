@@ -1,10 +1,10 @@
 /* AV1 post-filters for the port's AVIF reader (oavif_tpu_torch/io/avif.py),
  * on the planes and side information av1_decode.c returns, for 4:4:4,
- * 4:2:2, 4:2:0 and monochrome frames at 8 and 10 bits:
+ * 4:2:2, 4:2:0 and monochrome frames at 8, 10 and 12 bits:
  *
  * - deblocking (spec 7.14) on each plane's own transform grid: luma up to
- *   16 taps, chroma up to 6, with the levels of the frame header (no
- *   delta LF or segmentation reaches here);
+ *   16 taps, chroma up to 6, each block at the frame's level moved by its
+ *   DeltaLF and the intra reference delta (no segmentation reaches here);
  * - CDEF (spec 7.15) per 8x8 luma block with the strength set of its
  *   64x64 (cdef_idx; -1 leaves the 64x64 alone), the chroma blocks
  *   4x4 (4:2:0), 4x8 (4:2:2) or 8x8 filtered in the luma direction
@@ -125,18 +125,36 @@ static void lf_params(Lf *lp, int lvl, int sharpness, int bd) {
     lp->bd = bd;
 }
 
+/* the filter level of each DeltaLF value (-63..63) for one plane and
+ * direction (spec 7.14.4 with no segmentation: the frame level moved by
+ * the block's DeltaLF, then by the intra reference delta) */
+static void level_table(int *out, const int32_t *hdr, int i) {
+    int base = hdr[H_LF_Y0 + i];
+    for (int dl = -63; dl <= 63; dl++) {
+        int lvl = hdr[H_DELTA_LF_RES] >= 0 ? pmin(pmax(base + dl, 0), 63) : base;
+        if (hdr[H_LF_DELTA_ENABLED])
+            lvl = pmin(pmax(lvl + hdr[H_LF_REF_DELTA_INTRA] * (1 << (lvl >> 5)), 0), 63);
+        out[dl + 63] = lvl;
+    }
+}
+
 static void deblock_plane(int32_t *pl, int stride, int plane, int sx, int sy,
-                          const uint8_t *txmap, int mi_rows, int mi_cols,
-                          int frame_w, int frame_h, const int32_t *hdr) {
+                          const uint8_t *txmap, const int8_t *delta_lf,
+                          int mi_rows, int mi_cols, int frame_w, int frame_h,
+                          const int32_t *hdr) {
     int pw4 = mi_cols >> sx, ph4 = mi_rows >> sy;
     int pw = pw4 * 4, ph = ph4 * 4;
     int bd = hdr[H_BITDEPTH];
     int64_t px[14];
+    Lf lps[64];
+    int have_lp[64];
+    memset(have_lp, 0, sizeof(have_lp));
     for (int pass = 0; pass < 2; pass++) {
-        int lvl = plane == 0 ? hdr[H_LF_Y0 + pass] : hdr[H_LF_U + plane - 1];
-        if (lvl <= 0) continue;
-        Lf lp;
-        lf_params(&lp, lvl, hdr[H_LF_SHARPNESS], bd);
+        /* the 4x4's DeltaLF: that of the mi at the bottom right of its
+         * luma area (libaom's odd mi for subsampled chroma) */
+        const int8_t *dlf = delta_lf;
+        int table[127];
+        level_table(table, hdr, plane == 0 ? pass : plane + 1);
         for (int cy = 0; cy < ph4; cy++) {
             if (((cy * 4) << sy) >= frame_h) break;
             for (int cx = 0; cx < pw4; cx++) {
@@ -152,19 +170,33 @@ static void deblock_plane(int32_t *pl, int stride, int plane, int sx, int sy,
                 int size = 4 << pmin(tl, pl2);
                 size = plane == 0 ? pmin(16, size) : pmin(8, size);
                 if (plane && size == 8) size = 6;
-                for (int i = 0; i < 4; i++) {
+                /* the block's level, or where it is 0 the previous one's */
+                int my = (cy << sy) | sy, mx = (cx << sx) | sx;
+                int lvl = table[dlf[(size_t)my * mi_cols + mx] + 63];
+                if (!lvl) {
+                    int py = pass ? ((cy - 1) << sy) | sy : my;
+                    int pxm = pass ? mx : ((cx - 1) << sx) | sx;
+                    lvl = table[dlf[(size_t)py * mi_cols + pxm] + 63];
+                }
+                if (!lvl) continue;
+                if (!have_lp[lvl]) {
+                    lf_params(&lps[lvl], lvl, hdr[H_LF_SHARPNESS], bd);
+                    have_lp[lvl] = 1;
+                }
+                const Lf *lp = &lps[lvl];
+                for (int k = 0; k < 4; k++) {
                     if (pass == 0) {
-                        int y = cy * 4 + i, x = cx * 4;
+                        int y = cy * 4 + k, x = cx * 4;
                         int32_t *row = pl + (size_t)y * stride;
-                        for (int k = 0; k < 14; k++) px[k] = row[pmin(pmax(x - 7 + k, 0), pw - 1)];
-                        lf_taps(px, size, &lp);
+                        for (int t = 0; t < 14; t++) px[t] = row[pmin(pmax(x - 7 + t, 0), pw - 1)];
+                        lf_taps(px, size, lp);
                         for (int xx = pmax(x - 6, 0); xx < pmin(x + 6, pw); xx++)
                             row[xx] = (int32_t)px[xx - x + 7];
                     } else {
-                        int y = cy * 4, x = cx * 4 + i;
-                        for (int k = 0; k < 14; k++)
-                            px[k] = pl[(size_t)pmin(pmax(y - 7 + k, 0), ph - 1) * stride + x];
-                        lf_taps(px, size, &lp);
+                        int y = cy * 4, x = cx * 4 + k;
+                        for (int t = 0; t < 14; t++)
+                            px[t] = pl[(size_t)pmin(pmax(y - 7 + t, 0), ph - 1) * stride + x];
+                        lf_taps(px, size, lp);
                         for (int yy = pmax(y - 6, 0); yy < pmin(y + 6, ph); yy++)
                             pl[(size_t)yy * stride + x] = (int32_t)px[yy - y + 7];
                     }
@@ -578,19 +610,25 @@ static void restore_plane(int32_t *out, const int32_t *cdef, const int32_t *debl
 
 /* In place on the decoder's planes (each (mi_rows * 4 >> ss) x (mi_cols *
  * 4 >> ss) used of an int32 buffer of the given stride and at least as
- * many rows): deblocking, CDEF, then loop restoration. txmaps, skips and
- * cdef_idx are av1_decode_frame's outputs; lr the restoration units.
+ * many rows): deblocking, CDEF, then loop restoration. txmaps, skips,
+ * cdef_idx and delta_lf (the DeltaLF of every mi, mi_rows x mi_cols)
+ * are av1_decode_frame's outputs; lr the restoration units.
  * Returns 0, or 2 when out of memory. */
 int av1_postfilter(int32_t *const *planes, int stride, const int32_t *hdr,
                    const uint8_t *const *txmaps, const uint8_t *skips,
-                   const int8_t *cdef_idx, const int32_t *lr, int32_t *counts) {
+                   const int8_t *cdef_idx, const int8_t *delta_lf, const int32_t *lr,
+                   int32_t *counts) {
     int nplanes = hdr[H_NPLANES], mi_rows = hdr[H_MI_ROWS], mi_cols = hdr[H_MI_COLS];
     int sx = hdr[H_SS_X], sy = hdr[H_SS_Y];
     int fw = hdr[H_WIDTH], fh = hdr[H_HEIGHT];
     if (hdr[H_LOSSLESS]) return 0;
-    for (int p = 0; p < nplanes; p++)
-        deblock_plane(planes[p], stride, p, p ? sx : 0, p ? sy : 0, txmaps[p], mi_rows,
-                      mi_cols, fw, fh, hdr);
+    /* no deblocking where both luma levels are 0; a chroma plane whose
+     * level is 0 stays unfiltered whatever its deltas */
+    if (hdr[H_LF_Y0] || hdr[H_LF_Y1])
+        for (int p = 0; p < nplanes; p++)
+            if (!p || hdr[H_LF_U + p - 1])
+                deblock_plane(planes[p], stride, p, p ? sx : 0, p ? sy : 0, txmaps[p],
+                              delta_lf, mi_rows, mi_cols, fw, fh, hdr);
     int any_lr = hdr[H_LR_TYPE0] || hdr[H_LR_TYPE1] || hdr[H_LR_TYPE2];
     int any_cdef = 0;
     if (hdr[H_CDEF_ON])

@@ -6,20 +6,25 @@ Three parts, all on the host:
   ``hdlr``, ``pitm``, ``iloc`` (versions 0-2, construction methods 0 and
   1), ``iinf``/``infe`` (versions 2 and 3), ``iref`` (``auxl``,
   ``prem``), ``idat`` and ``iprp``/``ipco``/``ipma``; the properties
-  ``ispe``, ``av1C``, ``colr`` (``nclx``, ``prof``/``rICC``) and ``auxC``;
+  ``ispe``, ``av1C``, ``colr`` (``nclx``, ``prof``/``rICC``) and ``auxC``,
+  and the display transforms ``irot``, ``imir`` and ``clap``, which are
+  recorded and not applied (the reference returns the pixels as coded);
   and the item data in ``mdat`` or ``idat``;
 - the OBU layer (``parse_av1``): the sequence header in its reduced
   still-picture form and its full form, the uncompressed header of one
   shown key frame, the tile info and the tile groups (spec sections 5.3-5.9
   and 5.11.1);
 - the tile decode and reconstruction in C (``av1_decode.c``, in the host
-  library), for 4:4:4, 4:2:2, 4:2:0 and monochrome streams with the intra
-  tools libaom writes, then the post-filters in C on each plane's own
-  grid (``av1_postfilter.c``): deblocking, CDEF with the strength set of
-  each 64x64, and loop restoration; and the conversion to 8-bit RGB as
-  libavif 1.3 converts (libyuv's fixed-point matrices and bilinear chroma
-  upsampling where libavif hands the conversion to libyuv, its own float
-  path elsewhere; ``yuv_to_rgb8``).
+  library), for 4:4:4, 4:2:2, 4:2:0 and monochrome streams at 8, 10 and
+  12 bits with the intra tools libaom writes, quantizer matrices, delta q
+  and delta LF and the chroma palette included, then the post-filters in
+  C on each plane's own grid (``av1_postfilter.c``): deblocking at each
+  block's level, CDEF with the strength set of each 64x64, and loop
+  restoration; film grain synthesis (``av1_grain.c``); and the conversion
+  to 8-bit RGB as libavif 1.3 converts (libyuv's fixed-point matrices,
+  full or limited range, and bilinear chroma upsampling where libavif
+  hands the conversion to libyuv, its own float path elsewhere;
+  ``yuv_to_rgb8``).
 
 A file that ends early or holds a broken box or header raises ``OSError``;
 a stream or container feature outside the decoder's toolset raises
@@ -120,6 +125,11 @@ class Av1Item:
     av1c: bytes = b""
     nclx: Optional[Tuple[int, int, int, bool]] = None
     icc: Optional[bytes] = None
+    # the display transforms, recorded and not applied: the reference
+    # (libavif 1.3 through Pillow) returns the pixels as coded
+    irot: int = 0  # anticlockwise quarter turns
+    imir: Optional[int] = None  # mirror axis: 0 vertical, 1 horizontal
+    clap: Optional[Tuple[int, ...]] = None  # the 8 fields of the box
 
 
 @dataclass
@@ -252,10 +262,8 @@ def _item_payload(data: bytes, m: _Meta, item_id: int) -> bytes:
     return bytes(out)
 
 
-_TRANSFORMS = {b"irot": "rotation (irot)", b"imir": "mirroring (imir)",
-               b"clap": "clean aperture (clap)"}
 _KNOWN = {b"ispe", b"pixi", b"av1C", b"colr", b"auxC", b"pasp", b"a1lx",
-          b"clli", b"mdcv", b"cclv", b"amve"}
+          b"clli", b"mdcv", b"cclv", b"amve", b"irot", b"imir", b"clap"}
 
 
 def _av1_item(data: bytes, m: _Meta, item_id: int, what: str) -> Av1Item:
@@ -274,10 +282,13 @@ def _av1_item(data: bytes, m: _Meta, item_id: int, what: str) -> Av1Item:
             raise _broken("ipma property index")
         ptyp, ps, pe = m.props[idx - 1]
         p = _Reader(data, ps, pe, ptyp.decode("latin-1"))
-        if ptyp in _TRANSFORMS:
-            raise UnsupportedAvif(f"AVIF: {_TRANSFORMS[ptyp]} is not "
-                                  "supported yet")
-        if ptyp == b"ispe":
+        if ptyp == b"irot":
+            it.irot = p.u(1) & 3
+        elif ptyp == b"imir":
+            it.imir = p.u(1) & 1
+        elif ptyp == b"clap":
+            it.clap = tuple(p.u(4) for _ in range(8))
+        elif ptyp == b"ispe":
             p.fullbox()
             it.width, it.height = p.u(4), p.u(4)
         elif ptyp == b"av1C":
@@ -579,6 +590,32 @@ class FrameHeader:
     lr_uv_shift: int = 0
     tx_mode: int = 0
     reduced_tx_set: bool = False
+    qm: Tuple[int, int, int] = (15, 15, 15)  # qm_y, qm_u, qm_v; 15 flat
+    delta_q_res: int = -1  # log2 of the delta q step; -1 without delta q
+    delta_lf_res: int = -1  # likewise for delta LF
+    grain: Optional["FilmGrain"] = None
+
+
+@dataclass
+class FilmGrain:
+    """film_grain_params (spec 5.9.30) of a frame that applies grain."""
+
+    seed: int = 0
+    y_points: List[Tuple[int, int]] = field(default_factory=list)
+    chroma_from_luma: bool = False
+    cb_points: List[Tuple[int, int]] = field(default_factory=list)
+    cr_points: List[Tuple[int, int]] = field(default_factory=list)
+    scaling_shift: int = 8
+    ar_lag: int = 0
+    ar_y: List[int] = field(default_factory=list)
+    ar_cb: List[int] = field(default_factory=list)
+    ar_cr: List[int] = field(default_factory=list)
+    ar_shift: int = 6
+    scale_shift: int = 0
+    cb_mult: Tuple[int, int, int] = (0, 0, 0)  # mult, luma mult, offset
+    cr_mult: Tuple[int, int, int] = (0, 0, 0)
+    overlap: bool = False
+    clip_restricted: bool = False
 
 
 def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
@@ -647,15 +684,22 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
         udc, uac = delta_q(), delta_q()
         vdc, vac = (delta_q(), delta_q()) if diff else (udc, uac)
     fh.dq = (ydc, udc, uac, vdc, vac)
-    if b.f(1):
-        raise UnsupportedAvif("AV1: quantizer matrices (using_qmatrix) are "
-                              "not supported yet")
+    fh.lossless = fh.base_q == 0 and not any(fh.dq)
+    if b.f(1):  # using_qmatrix
+        qy, qu = b.f(4), b.f(4)
+        qv = b.f(4) if s.separate_uv_delta_q else qu
+        if not fh.lossless:
+            fh.qm = (qy, qu, qv)
     if b.f(1):
         raise UnsupportedAvif("AV1: segmentation is not supported yet")
-    if fh.base_q > 0 and b.f(1):
-        raise UnsupportedAvif("AV1: delta q (and delta LF) is not supported "
-                              "yet")
-    fh.lossless = fh.base_q == 0 and not any(fh.dq)
+    if fh.base_q > 0 and b.f(1):  # delta_q_present
+        fh.delta_q_res = b.f(2)
+        if b.f(1):  # delta_lf_present
+            fh.delta_lf_res = b.f(2)
+            if b.f(1):
+                raise UnsupportedAvif("AV1: delta LF per plane and "
+                                      "direction (delta_lf_multi) is not "
+                                      "supported yet")
     if not fh.lossless:
         l0, l1 = b.f(6), b.f(6)
         l2 = l3 = 0
@@ -699,9 +743,50 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
     else:
         fh.tx_mode = 0
     fh.reduced_tx_set = bool(b.f(1))
-    if s.film_grain and b.f(1):
-        raise UnsupportedAvif("AV1: film grain is not supported yet")
+    if s.film_grain and b.f(1):  # apply_grain
+        fh.grain = _film_grain_params(b, s)
     return fh
+
+
+def _film_grain_params(b: _Bits, s: SequenceHeader) -> FilmGrain:
+    """film_grain_params after apply_grain (spec 5.9.30) of a key frame,
+    which always updates them."""
+    g = FilmGrain(seed=b.f(16))
+
+    def points(n_max):
+        n = b.f(4)
+        if n > n_max:
+            raise _broken("film grain: too many scaling points")
+        pts = [(b.f(8), b.f(8)) for _ in range(n)]
+        if any(pts[i][0] <= pts[i - 1][0] for i in range(1, n)):
+            raise _broken("film grain: scaling points out of order")
+        return pts
+
+    g.y_points = points(14)
+    g.chroma_from_luma = False if s.mono else bool(b.f(1))
+    if not (s.mono or g.chroma_from_luma
+            or (s.ss == (1, 1) and not g.y_points)):
+        g.cb_points = points(10)
+        g.cr_points = points(10)
+    g.scaling_shift = b.f(2) + 8
+    g.ar_lag = b.f(2)
+    n_luma = 2 * g.ar_lag * (g.ar_lag + 1)
+    n_chroma = n_luma + 1 if g.y_points else n_luma
+    if g.y_points:
+        g.ar_y = [b.f(8) - 128 for _ in range(n_luma)]
+    if g.chroma_from_luma or g.cb_points:
+        g.ar_cb = [b.f(8) - 128 for _ in range(n_chroma)]
+    if g.chroma_from_luma or g.cr_points:
+        g.ar_cr = [b.f(8) - 128 for _ in range(n_chroma)]
+    g.ar_shift = b.f(2) + 6
+    g.scale_shift = b.f(2)
+    if g.cb_points:
+        g.cb_mult = (b.f(8), b.f(8), b.f(9))
+    if g.cr_points:
+        g.cr_mult = (b.f(8), b.f(8), b.f(9))
+    g.overlap = bool(b.f(1))
+    g.clip_restricted = bool(b.f(1))
+    return g
 
 
 def _tile_info(b: _Bits, s: SequenceHeader, fh: FrameHeader) -> None:
@@ -816,7 +901,6 @@ def parse_av1(payload: bytes) -> Av1Frame:
             if done or fh is not None:
                 raise UnsupportedAvif("AV1: more than one frame is not "
                                       "supported")
-            _check_toolset(seq)
             b = _Bits(payload, p, end)
             fh = parse_frame_header(b, seq, tid, sid)
             tiles = [None] * ((len(fh.tile_col_starts) - 1)
@@ -839,11 +923,6 @@ def parse_av1(payload: bytes) -> Av1Frame:
     return Av1Frame(seq, fh, tiles)
 
 
-def _check_toolset(s: SequenceHeader) -> None:
-    if s.bit_depth == 12:
-        raise UnsupportedAvif("AV1: 12-bit streams are not supported yet")
-
-
 # ---------------------------------------------------------------------------
 # Tile decode and post-filters
 # ---------------------------------------------------------------------------
@@ -856,19 +935,22 @@ _CDF_ORDER = (
     "coeff_base_eob", "coeff_base", "coeff_br", "dc_sign", "pal_y_mode",
     "pal_uv_mode", "pal_y_size", "pal_y_ci2", "pal_y_ci3", "pal_y_ci4",
     "pal_y_ci5", "pal_y_ci6", "pal_y_ci7", "pal_y_ci8", "fi_use", "fi_mode",
-    "wiener_restore", "sgrproj_restore", "switchable_restore",
+    "wiener_restore", "sgrproj_restore", "switchable_restore", "delta_q",
+    "delta_lf", "pal_uv_size", "pal_uv_ci2", "pal_uv_ci3", "pal_uv_ci4",
+    "pal_uv_ci5", "pal_uv_ci6", "pal_uv_ci7", "pal_uv_ci8",
 )
 # the header pack's fields in the order of av1_header.h's H_* enum
 _HDR_FIELDS = (
     "mi_rows", "mi_cols", "nplanes", "bitdepth", "sb128", "tile_cols",
     "tile_rows", "base_q", "lossless", "tx_mode", "reduced_tx_set",
     "screen_tools", "filter_intra", "cdef_on", "cdef_bits",
-    "disable_cdf_update", "q_y_dc", "q_y_ac", "q_u_dc", "q_u_ac", "q_v_dc",
-    "q_v_ac", "lr_type0", "lr_type1", "lr_type2", "lr_unit0", "lr_unit1",
+    "disable_cdf_update", "dq_y_dc", "dq_u_dc", "dq_u_ac", "dq_v_dc",
+    "dq_v_ac", "lr_type0", "lr_type1", "lr_type2", "lr_unit0", "lr_unit1",
     "lr_unit2", "lr_urows0", "lr_urows1", "lr_urows2", "lr_ucols0",
     "lr_ucols1", "lr_ucols2", "lr_rstride", "lr_cstride", "ss_x", "ss_y",
     "edge_filter", "width", "height", "lf_y0", "lf_y1", "lf_u", "lf_v",
-    "lf_sharpness", "cdef_damping",
+    "lf_sharpness", "cdef_damping", "qm_y", "qm_u", "qm_v", "delta_q_res",
+    "delta_lf_res", "lf_delta_enabled", "lf_ref_delta_intra",
 ) + tuple(f"cdef_{k}{i}" for i in range(8)
           for k in ("y_pri", "y_sec", "uv_pri", "uv_sec"))
 # the decoder's tool counters in the order of av1_header.h's T_* enum
@@ -877,10 +959,23 @@ TOOL_NAMES = (
     "tx_v_dct", "tx_h_dct", "tx_4to1", "tx_64", "tx_depth1", "tx_depth2",
     "part_horz_a", "part_horz_b", "part_vert_a", "part_vert_b",
     "part_horz_4", "part_vert_4", "cdef_idx_read", "cdef_units_varied",
-    "lr_chroma_subsampled",
+    "lr_chroma_subsampled", "qm", "delta_q", "delta_lf", "film_grain",
+    "uv_palette", "twelve_bit",
+)
+# the film grain pack (av1_header.h's G_* enum): field, length
+_GRAIN_FIELDS = (
+    ("seed", 1), ("num_y", 1), ("y_value", 14), ("y_scaling", 14),
+    ("chroma_from_luma", 1), ("num_cb", 1), ("cb_value", 10),
+    ("cb_scaling", 10), ("num_cr", 1), ("cr_value", 10), ("cr_scaling", 10),
+    ("scaling_shift", 1), ("ar_lag", 1), ("ar_y", 24), ("ar_cb", 25),
+    ("ar_cr", 25), ("ar_shift", 1), ("scale_shift", 1), ("cb_mult", 1),
+    ("cb_luma_mult", 1), ("cb_offset", 1), ("cr_mult", 1),
+    ("cr_luma_mult", 1), ("cr_offset", 1), ("overlap", 1),
+    ("clip_restricted", 1), ("mc_identity", 1),
 )
 _CDF_CACHE: Dict[int, tuple] = {}
 _CONST_CACHE: list = []
+_TOOL_CACHE: dict = {}
 
 
 def _cdf_pack(qctx: int):
@@ -912,6 +1007,7 @@ def _cdf_pack(qctx: int):
             "wiener_restore": bank.wiener_restore,
             "sgrproj_restore": bank.sgrproj_restore,
             "switchable_restore": bank.switchable_restore,
+            **_reader_cdfs(),
         }
         arrs = [np.ascontiguousarray(src[k], dtype=np.uint16).reshape(-1)
                 for k in _CDF_ORDER]
@@ -920,6 +1016,36 @@ def _cdf_pack(qctx: int):
         lens = np.array([a.size for a in arrs], dtype=np.int64)
         _CDF_CACHE[qctx] = (arrs, ptrs, lens)
     return _CDF_CACHE[qctx]
+
+
+def _tool_tables():
+    """The reader's own tables (``av1_tool_tables.npz``, written by
+    ``scripts/extract_av1_tool_tables.py``)."""
+    if not _TOOL_CACHE:
+        import os
+
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "av1_tool_tables.npz")
+        with np.load(path) as t:
+            _TOOL_CACHE.update({k: t[k] for k in t.files})
+        _TOOL_CACHE["qm"] = np.ascontiguousarray(_TOOL_CACHE["qm"])
+        _TOOL_CACHE["gaussian_sequence"] = np.ascontiguousarray(
+            _TOOL_CACHE["gaussian_sequence"], dtype=np.int16)
+    return _TOOL_CACHE
+
+
+def _reader_cdfs() -> dict:
+    """The default CDFs only the reader needs: delta q, delta LF and the
+    chroma palette's."""
+    from ..av1.frame import _adaptive
+    from ..av1.tables import TABLES
+
+    t = _tool_tables()
+    return {"delta_q": _adaptive(t["delta_q"]),
+            "delta_lf": _adaptive(t["delta_lf"]),
+            "pal_uv_size": _adaptive(TABLES["palette_uv_size"]),
+            **{f"pal_uv_ci{n}": _adaptive(TABLES[f"palette_uv_color_index_{n}"])
+               for n in range(2, 9)}}
 
 
 def _constants():
@@ -971,30 +1097,38 @@ class DecodedImage:
     tools: Dict[str, int] = field(default_factory=dict)
 
 
-def _lf_levels(fh: FrameHeader) -> List[int]:
-    """The deblocking levels (y vertical, y horizontal, u, v) after the
-    intra reference delta; a chroma plane whose level is 0 stays off."""
-    lv = fh.lf_levels
-    if fh.lossless or not (lv[0] or lv[1]):
-        return [0, 0, 0, 0]
-
-    def eff(base):
-        if not fh.lf_delta_enabled:
-            return base
-        return min(max(base + (fh.lf_ref_delta_intra << (base >> 5)), 0),
-                   63)
-
-    return [eff(lv[0]), eff(lv[1]), eff(lv[2]) if lv[2] else 0,
-            eff(lv[3]) if lv[3] else 0]
+def _grain_pack(g: FilmGrain, mc_identity: bool) -> np.ndarray:
+    """The film grain parameters as av1_grain.c reads them (G_*)."""
+    vals = dict(
+        seed=[g.seed], num_y=[len(g.y_points)],
+        y_value=[v for v, _ in g.y_points], y_scaling=[c for _, c in g.y_points],
+        chroma_from_luma=[int(g.chroma_from_luma)], num_cb=[len(g.cb_points)],
+        cb_value=[v for v, _ in g.cb_points],
+        cb_scaling=[c for _, c in g.cb_points], num_cr=[len(g.cr_points)],
+        cr_value=[v for v, _ in g.cr_points],
+        cr_scaling=[c for _, c in g.cr_points],
+        scaling_shift=[g.scaling_shift], ar_lag=[g.ar_lag], ar_y=g.ar_y,
+        ar_cb=g.ar_cb, ar_cr=g.ar_cr, ar_shift=[g.ar_shift],
+        scale_shift=[g.scale_shift], cb_mult=[g.cb_mult[0]],
+        cb_luma_mult=[g.cb_mult[1]], cb_offset=[g.cb_mult[2]],
+        cr_mult=[g.cr_mult[0]], cr_luma_mult=[g.cr_mult[1]],
+        cr_offset=[g.cr_mult[2]], overlap=[int(g.overlap)],
+        clip_restricted=[int(g.clip_restricted)],
+        mc_identity=[int(mc_identity)])
+    out = []
+    for name, n in _GRAIN_FIELDS:
+        out += vals[name] + [0] * (n - len(vals[name]))
+    return np.array(out, dtype=np.int32)
 
 
 def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     """Decode one AV1 item payload to its visible Y'UV planes (int32).
     ``times``, where given, gains the seconds of "parse" (headers and the
-    tile decode), "filters" (deblocking, CDEF, loop restoration)."""
+    tile decode), "filters" (deblocking, CDEF, loop restoration) and
+    "grain" (film grain synthesis)."""
     from ..av1.consts import coeff_q_ctx
     from ..av1.restoration import count_units, unit_size
-    from ..av1.tables import ac_q, dc_q
+    from ..av1.tables import TABLES
 
     t0 = time.perf_counter()
     lib = _host_lib()
@@ -1008,13 +1142,9 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     rows = ((fh.mi_rows + sb4 - 1) // sb4) * sb
     stride = ((fh.mi_cols + sb4 - 1) // sb4) * sb
     planes = [np.zeros((rows, stride), dtype=np.int32) for _ in range(nplanes)]
-    ydc, udc, uac, vdc, vac = fh.dq
-
-    def qi(delta):
-        return min(max(fh.base_q + delta, 0), 255)
-
-    q = [dc_q(qi(ydc), bd), ac_q(qi(0), bd), dc_q(qi(udc), bd),
-         ac_q(qi(uac), bd), dc_q(qi(vdc), bd), ac_q(qi(vac), bd)]
+    qlut = np.ascontiguousarray(np.concatenate(
+        [TABLES[f"dc_q{bd}"], TABLES[f"ac_q{bd}"]]), dtype=np.int32)
+    qm = _tool_tables()["qm"] if min(fh.qm) < 15 else None
     h, w = fh.height, fh.width
     luma_unit = unit_size(fh.lr_unit_shift) if any(fh.lr_types) else 64
     units, urows, ucols = [], [], []
@@ -1036,16 +1166,20 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
         screen_tools=int(fh.screen_tools), filter_intra=int(s.filter_intra),
         cdef_on=int(s.cdef and not fh.lossless), cdef_bits=fh.cdef_bits,
         disable_cdf_update=int(fh.disable_cdf_update),
-        **dict(zip(("q_y_dc", "q_y_ac", "q_u_dc", "q_u_ac", "q_v_dc",
-                    "q_v_ac"), q)),
+        **dict(zip(("dq_y_dc", "dq_u_dc", "dq_u_ac", "dq_v_dc", "dq_v_ac"),
+                   fh.dq)),
         **{f"lr_type{p}": fh.lr_types[p] for p in range(3)},
         **{f"lr_unit{p}": units[p] for p in range(3)},
         **{f"lr_urows{p}": urows[p] for p in range(3)},
         **{f"lr_ucols{p}": ucols[p] for p in range(3)},
         lr_rstride=max(urows), lr_cstride=max(ucols), ss_x=ssx, ss_y=ssy,
         edge_filter=int(s.intra_edge), width=w, height=h,
-        **dict(zip(("lf_y0", "lf_y1", "lf_u", "lf_v"), _lf_levels(fh))),
+        **dict(zip(("lf_y0", "lf_y1", "lf_u", "lf_v"), fh.lf_levels)),
         lf_sharpness=fh.lf_sharpness, cdef_damping=fh.cdef_damping,
+        **dict(zip(("qm_y", "qm_u", "qm_v"), fh.qm)),
+        delta_q_res=fh.delta_q_res, delta_lf_res=fh.delta_lf_res,
+        lf_delta_enabled=int(fh.lf_delta_enabled),
+        lf_ref_delta_intra=fh.lf_ref_delta_intra,
         **{name: v for name, v in zip(_HDR_FIELDS[-32:], strengths)})
     hdr = np.array([fields[k] for k in _HDR_FIELDS], dtype=np.int32)
     starts = np.array(fh.tile_col_starts + fh.tile_row_starts, dtype=np.int32)
@@ -1065,6 +1199,7 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     cdef_idx = np.zeros(((fh.mi_rows + 15) // 16, (fh.mi_cols + 15) // 16),
                         dtype=np.int8)
     lr_units = np.zeros((3, max(urows), max(ucols), 7), dtype=np.int32)
+    delta_lf = np.zeros((fh.mi_rows, fh.mi_cols), dtype=np.int8)
     counts = np.zeros(len(TOOL_NAMES), dtype=np.int32)
     msg = C.create_string_buffer(256)
     vp = C.c_void_p
@@ -1072,9 +1207,11 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
         C.cast(tile_ptrs, vp), tile_sizes.ctypes.data, hdr.ctypes.data,
         starts.ctypes.data, C.cast(cdf_ptrs, vp), cdf_lens.ctypes.data,
         C.cast(scan_ptrs, vp), C.cast(smw_ptrs, vp), dr.ctypes.data,
-        taps.ctypes.data, C.cast(plane_ptrs, vp), stride,
-        C.cast(tx_ptrs, vp), skips.ctypes.data, cdef_idx.ctypes.data,
-        lr_units.ctypes.data, counts.ctypes.data, msg, 256)
+        taps.ctypes.data, qlut.ctypes.data,
+        None if qm is None else qm.ctypes.data, C.cast(plane_ptrs, vp),
+        stride, C.cast(tx_ptrs, vp), skips.ctypes.data, cdef_idx.ctypes.data,
+        delta_lf.ctypes.data, lr_units.ctypes.data, counts.ctypes.data, msg,
+        256)
     if rc == 1:
         raise UnsupportedAvif(msg.value.decode())
     if rc:
@@ -1082,14 +1219,25 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     t1 = time.perf_counter()
     if lib.av1_postfilter(C.cast(plane_ptrs, vp), stride, hdr.ctypes.data,
                           C.cast(tx_ptrs, vp), skips.ctypes.data,
-                          cdef_idx.ctypes.data, lr_units.ctypes.data,
-                          counts.ctypes.data):
+                          cdef_idx.ctypes.data, delta_lf.ctypes.data,
+                          lr_units.ctypes.data, counts.ctypes.data):
         raise MemoryError("AVIF post-filters: out of memory")
+    t2 = time.perf_counter()
+    if fh.grain is not None:
+        pack = _grain_pack(fh.grain, s.cicp[2] == 0)
+        if lib.av1_film_grain(C.cast(plane_ptrs, vp), stride, hdr.ctypes.data,
+                              pack.ctypes.data,
+                              _tool_tables()["gaussian_sequence"].ctypes.data,
+                              counts.ctypes.data):
+            raise MemoryError("AVIF film grain: out of memory")
+    t3 = time.perf_counter()
     out = [np.ascontiguousarray(p[:(h + sy) >> sy, :(w + sx) >> sx])
            for p, (sy, sx) in zip(planes, [(0, 0)] + [(ssy, ssx)] * 2)]
     if times is not None:
-        times["parse"] = times.get("parse", 0.0) + (t1 - t0)
-        times["filters"] = times.get("filters", 0.0) + (time.perf_counter() - t1)
+        # the crop to the visible size counts with the filters
+        for k, v in (("parse", t1 - t0), ("grain", t3 - t2),
+                     ("filters", t2 - t1 + time.perf_counter() - t3)):
+            times[k] = times.get(k, 0.0) + v
     return DecodedImage(out, bd, s.cicp, s.full_range, s.mono, (ssx, ssy),
                         dict(zip(TOOL_NAMES, counts.tolist())))
 
@@ -1098,11 +1246,16 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
 # Y'UV to RGB as libavif 1.3 converts
 # ---------------------------------------------------------------------------
 
-# libyuv's full-range YuvConstants (row_common.cc: kYuvJPEGConstants,
-# kYuvF709Constants, kYuvV2020Constants): (UB, UG, VG, VR), with
-# YG = 16320 and YB = 32 for all three
-_LIBYUV = {601: (113, 22, 46, 90), 709: (119, 12, 30, 101),
-           2020: (120, 11, 37, 94)}
+# libyuv's YuvConstants (row_common.cc), (UB, UG, VG, VR, YG, YB): full
+# range kYuvJPEGConstants, kYuvF709Constants, kYuvV2020Constants; limited
+# range kYuvI601Constants, kYuvH709Constants, kYuv2020Constants (UB capped
+# at 128 as libyuv builds it by default)
+_LIBYUV = {(601, True): (113, 22, 46, 90, 16320, 32),
+           (709, True): (119, 12, 30, 101, 16320, 32),
+           (2020, True): (120, 11, 37, 94, 16320, 32),
+           (601, False): (128, 25, 52, 102, 18997, -1160),
+           (709, False): (128, 14, 34, 115, 18997, -1160),
+           (2020, False): (128, 12, 42, 107, 19003, -1160)}
 # (kr, kb) of libavif's matrix table for the matrices it converts itself
 _KRKB = {4: (0.30, 0.11), 7: (0.212, 0.087)}
 # ITU-T H.273 colour primaries (rx, ry, gx, gy, bx, by, wx, wy); libavif
@@ -1139,30 +1292,27 @@ def _krkb_from_primaries(cp: int):
     return kr, kb
 
 
-def _conversion(cicp: Tuple[int, int, int]):
+def _conversion(cicp: Tuple[int, int, int], full: bool = True):
     """("libyuv", constants) | ("float", (kr, kb)) | ("identity", None) |
-    ("ycgco", None) for a CICP, as libavif 1.3 picks; raises for the
-    matrices libavif refuses."""
+    ("ycgco", None) for a CICP and range, as libavif 1.3 picks; raises for
+    the matrices libavif refuses."""
     cp, _, mc = cicp
-    if mc in (2, 5, 6):
-        return "libyuv", _LIBYUV[601]
-    if mc == 1:
-        return "libyuv", _LIBYUV[709]
-    if mc == 9:
-        return "libyuv", _LIBYUV[2020]
+    std = {2: 601, 5: 601, 6: 601, 1: 709, 9: 2020}.get(mc)
+    if mc == 12:
+        std = {1: 709, 2: 709, 5: 601, 6: 601, 9: 2020}.get(cp)
+    if std is not None:
+        return "libyuv", _LIBYUV[std, full]
     if mc == 0:
         return "identity", None
     if mc == 8:
+        if not full:
+            raise UnsupportedAvif("AVIF: matrix coefficients 8 (YCgCo) "
+                                  "with limited range, which libavif does "
+                                  "not convert to RGB")
         return "ycgco", None
     if mc in _KRKB:
         return "float", tuple(np.float32(v) for v in _KRKB[mc])
     if mc == 12:
-        if cp in (1, 2):
-            return "libyuv", _LIBYUV[709]
-        if cp in (5, 6):
-            return "libyuv", _LIBYUV[601]
-        if cp == 9:
-            return "libyuv", _LIBYUV[2020]
         return "float", _krkb_from_primaries(cp)
     raise UnsupportedAvif(f"AVIF: matrix coefficients {mc}, which libavif "
                           "does not convert to RGB")
@@ -1250,14 +1400,14 @@ def yuv_to_rgb8(img: DecodedImage, rgba: bool = False) -> np.ndarray:
     """(h, w, 3) uint8 RGB of a decoded image, as libavif 1.3 (with
     libyuv) converts it for an 8-bit RGB target, or for an RGBA target
     where ``rgba`` (as Pillow asks for images with alpha): there libyuv
-    converts 10-bit Y'UV directly (I410ToARGB, luma kept at 16 bits),
-    where for RGB it first narrows every plane to 8 bits. Subsampled
-    chroma is upsampled as libavif's default (automatic) upsampling does:
-    libyuv's bilinear filter where libyuv converts, libavif's own
-    bilinear weights on the float path."""
-    if not img.full_range:
-        raise UnsupportedAvif("AVIF: limited-range Y'UV is not supported "
-                              "yet")
+    converts 10-bit Y'UV directly (I410ToARGB, luma kept at 16 bits) and
+    12-bit 4:2:0 through I012ToARGB (chroma not filtered), where for RGB
+    (and 12-bit 4:2:2 and 4:4:4) it first narrows every plane to 8 bits.
+    Subsampled chroma is otherwise upsampled as libavif's default
+    (automatic) upsampling does: libyuv's bilinear filter where libyuv
+    converts, libavif's own bilinear weights on the float path. Limited
+    range takes libyuv's limited-range constants, or the float path's
+    range scaling."""
     bd = img.bit_depth
     y = img.planes[0]
     h, w = y.shape
@@ -1267,21 +1417,27 @@ def yuv_to_rgb8(img: DecodedImage, rgba: bool = False) -> np.ndarray:
         u = v = mid
     else:
         u, v = img.planes[1], img.planes[2]
-    kind, k = _conversion(img.cicp)
+    kind, k = _conversion(img.cicp, img.full_range)
     if kind == "libyuv":
-        if bd > 8 and rgba:  # libyuv YuvPixel10 (I010/I210/I410ToARGB)
+        if bd == 10 and rgba:  # libyuv YuvPixel10 (I010/I210/I410ToARGB)
             y32 = (y << 6) | (y >> 4)
             if sub:
                 u, v = (_libyuv_upsample(c, h, w, img.ss) for c in (u, v))
-            u, v = u >> (bd - 8), v >> (bd - 8)
+            u, v = u >> 2, v >> 2
+        elif bd == 12 and rgba and img.ss == (1, 1):
+            # libyuv I012ToARGBMatrix (YuvPixel12), which has no
+            # filtering variant: each chroma sample covers its 2x2
+            y32 = (y << 4) | (y >> 8)
+            u, v = (np.repeat(np.repeat(c >> 4, 2, 0), 2, 1)[:h, :w]
+                    for c in (u, v))
         else:
             if bd > 8:  # libyuv Convert16To8Plane, then the 8-bit matrix
                 y, u, v = y >> (bd - 8), u >> (bd - 8), v >> (bd - 8)
             if sub:
                 u, v = (_libyuv_upsample(c, h, w, img.ss) for c in (u, v))
             y32 = y * 0x0101
-        ub, ug, vg, vr = k
-        y1 = ((y32.astype(np.int32) * 16320) >> 16) + 32
+        ub, ug, vg, vr, yg, yb = k
+        y1 = ((y32.astype(np.int64) * yg) >> 16) + yb
         uc = u.astype(np.int32) - 128
         vc = v.astype(np.int32) - 128
         out = np.empty(y.shape + (3,), dtype=np.uint8)
@@ -1293,8 +1449,14 @@ def yuv_to_rgb8(img: DecodedImage, rgba: bool = False) -> np.ndarray:
         return out
     f = np.float32
     mx = (1 << bd) - 1
-    ty = np.arange(mx + 1, dtype=f) / f(mx)
-    tuv = (np.arange(mx + 1, dtype=f) - f(1 << (bd - 1))) / f(mx)
+    # libavif's unorm tables: (sample - bias) / range, the limited range's
+    # bias 16 and ranges 219 (luma) and 224 (chroma) at 8 bits
+    bias_y, range_y, range_uv = ((0, mx, mx) if img.full_range else
+                                 (16 << (bd - 8), 219 << (bd - 8),
+                                  224 << (bd - 8)))
+    cp = np.arange(mx + 1, dtype=f)
+    ty = (cp - f(bias_y)) / f(range_y)
+    tuv = (cp - f(1 << (bd - 1))) / f(range_uv)
     yf = ty[y]
     if sub:
         if kind == "identity":
@@ -1361,11 +1523,13 @@ def decode_avif_rgb8(data: bytes, times: Optional[dict] = None) -> np.ndarray:
 
 def read_avif(data: bytes, times: Optional[dict] = None):
     """(pixels, high bit depth, ICC profile) as the reference's loader
-    reads an AVIF: 10-bit full-range BT.601 (matrix 2, 5 or 6) 4:4:4
-    streams without alpha go to 16-bit RGB through the float matrix;
-    everything else is 8-bit RGB, or RGBA with an alpha item. (The
-    reference stacks the Y'UV planes for its 16-bit path; subsampled
-    planes do not stack, and it falls back to the 8-bit conversion.)"""
+    reads an AVIF: 10- and 12-bit full-range BT.601 (matrix 2, 5 or 6)
+    4:4:4 streams without alpha go to 16-bit RGB through the float
+    matrix; everything else (limited range too) is 8-bit RGB, or RGBA
+    with an alpha item. (The reference stacks the Y'UV planes for its
+    16-bit path; subsampled planes do not stack, and it falls back to the
+    8-bit conversion, except at 64 columns or fewer, where it stacks rows
+    read past the chroma planes, which this reader does not reproduce.)"""
     box, color, alpha = decode_avif(data, times)
     t0 = time.perf_counter()
     bd = color.bit_depth

@@ -289,7 +289,7 @@ def _full(typ, version, flags, payload):
 
 def _rewrap(item, idat=False, iloc_version=1, infe_version=3,
             large_mdat=False, mdat_first=False, extra_prop=None,
-            item_type=b"av01", moov=False):
+            item_type=b"av01", moov=False, method=None):
     """A single-item AVIF holding ``item`` (an AV1 payload) in other
     container forms than the port's muxer writes."""
     wide = iloc_version == 2  # 32-bit item ids everywhere
@@ -326,7 +326,8 @@ def _rewrap(item, idat=False, iloc_version=1, infe_version=3,
         body += (1).to_bytes(2 if iloc_version < 2 else 4, "big")
         body += (item_id.to_bytes(2 if iloc_version < 2 else 4, "big"))
         if iloc_version:
-            body += struct.pack(">H", 1 if idat else 0)
+            body += struct.pack(">H", (1 if idat else 0) if method is None
+                                else method)
         body += struct.pack(">H", 0)  # data_reference_index
         body += struct.pack(">I", base)  # base_offset (4 bytes)
         body += struct.pack(">H", 2)
@@ -379,17 +380,36 @@ def test_container_forms_decode_like_the_original(item, form):
     np.testing.assert_array_equal(decode_avif_to_rgb8(data), ref_rgb8(data))
 
 
+# properties the reader refused before it learned them: their files now
+# decode to the original's pixels as coded, as the reference's do
+READ_NOW = ("rotation (irot)", "mirroring (imir)", "clean aperture (clap)")
+
+
 @pytest.mark.parametrize("what,kw", (
     ("grid", dict(item_type=b"grid")),
     ("rotation (irot)", dict(extra_prop=_box(b"irot", b"\x01"))),
     ("mirroring (imir)", dict(extra_prop=_box(b"imir", b"\x00"))),
-    ("clean aperture (clap)", dict(extra_prop=_box(b"clap", b"\0" * 32))),
+    ("clean aperture (clap)", dict(clap=True)),
     ("image sequences", dict(moov=True)),
     ("essential property 'zzzz'", dict(extra_prop=_box(b"zzzz", b""))),
-), ids=("grid", "irot", "imir", "clap", "moov", "essential"))
+    ("'iovl'", dict(item_type=b"iovl")),
+    ("iloc construction method 2", dict(method=2)),
+), ids=("grid", "irot", "imir", "clap", "moov", "essential", "iovl",
+        "iloc_method2"))
 def test_container_refusals_name_the_feature(item, what, kw):
+    if kw.pop("clap", False):  # the whole frame, centred
+        kw["extra_prop"] = _box(b"clap", struct.pack(
+            ">8I", item["w"], 1, item["h"], 1, 0, 1, 0, 1))
+    data = _rewrap(item, **kw)
+    if what in READ_NOW:
+        want = A.decode_avif(item["file"])[1].planes
+        for a, b in zip(A.decode_avif(data)[1].planes, want):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(decode_avif_to_rgb8(data),
+                                      ref_rgb8(data))
+        return
     with pytest.raises(ValueError, match=re.escape(what)):
-        A.decode_avif(_rewrap(item, **kw))
+        A.decode_avif(data)
 
 
 def _two_items(color, alpha, refs):
@@ -469,6 +489,10 @@ def _refusal_streams():
     pre = [0, 0, 0, 1] + [0, 0, 1, 1, 1, 1, 0, 0] + [0, 0, 0]
     w = write_frame_header_bits(fr)
     w.f(1, 1)  # apply_grain
+    # film_grain_params of a 4:4:4 frame, all zero: grain_seed, no
+    # scaling points (y, cb, cr), lag 0, shifts, no overlap or clipping
+    for n in (16, 4, 1, 4, 4, 2, 2, 2, 2, 1, 1):
+        w.f(0, n)
     w.byte_align()
     grain = obu(OBU_FRAME, w.data() + payloads[0])
     full = _seq_header(seq, full=True)
@@ -484,6 +508,11 @@ def _refusal_streams():
         + frame(pre + [0, 0, 0] + [0] * 12 + [0, 0, 0, 0] + [0, 0, 0, 1]),
         "film grain": _seq_header(seq, film_grain=True) + grain,
         "more than one frame": _seq_header(seq) + good_frame + good_frame,
+        "non-uniform tile spacing": _seq_header(seq) + frame([0, 0, 0, 0]),
+        # delta_q_present, delta_q_res, delta_lf_present, delta_lf_res,
+        # delta_lf_multi
+        "delta_lf_multi": _seq_header(seq) + frame(
+            pre + [0, 0, 1, 0, 0, 1, 0, 0, 1]),
         "not a key frame": full + frame([0, 0, 1, 1]),
         "show_existing_frame": full + frame([1]),
     }
@@ -491,14 +520,21 @@ def _refusal_streams():
 
 # tools the decoder refused before it learned them: their streams now
 # parse, with the header fields the tool sets
-LEARNED = {"cdef_bits > 0": lambda fh: (fh.cdef_bits, len(fh.cdef_strengths))
-           == (1, 2)}
+LEARNED = {
+    "cdef_bits > 0": lambda av1: (av1.frame.cdef_bits,
+                                  len(av1.frame.cdef_strengths)) == (1, 2),
+    "12-bit": lambda av1: av1.seq.bit_depth == 12,
+    "quantizer matrices": lambda av1: av1.frame.qm == (0, 0, 0),
+    "delta q": lambda av1: (av1.frame.delta_q_res,
+                            av1.frame.delta_lf_res) == (0, -1),
+    "film grain": lambda av1: av1.frame.grain is not None,
+}
 
 
 @pytest.mark.parametrize("tool", sorted(_refusal_streams()))
 def test_av1_refusals_name_the_tool(tool):
     if tool in LEARNED:
-        assert LEARNED[tool](A.parse_av1(_refusal_streams()[tool]).frame)
+        assert LEARNED[tool](A.parse_av1(_refusal_streams()[tool]))
         return
     with pytest.raises(ValueError, match=re.escape(tool)):
         A.decode_av1(_refusal_streams()[tool])

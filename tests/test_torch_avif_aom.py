@@ -11,8 +11,10 @@ tolerance:
   libyuv's bilinear chroma upsampling), both held live to the reference
   and to the manifest;
 - the decoder meets each tool it counts as often as the manifest says,
-  and every tool in at least one fixture;
-- the 12-bit stream raises ``UnsupportedAvif`` naming 12-bit.
+  and every tool in at least one fixture (the tools libaom writes only on
+  request, in ``tests/torch_fixtures/avif_tools``);
+- the 12-bit stream decodes (it was refused, naming 12-bit, before the
+  decoder learned 12-bit).
 """
 
 from __future__ import annotations
@@ -84,10 +86,14 @@ def test_fixture_decodes_to_its_manifest(name):
     assert _crc(decode_avif_to_rgb8(data)) == entry["rgb8_crc"]
 
 
+TOOLS_MADE = json.loads((FIXTURES.parent / "avif_tools"
+                         / "manifest.json").read_text())
+
+
 @pytest.mark.parametrize("tool", A.TOOL_NAMES)
 def test_each_ported_tool_occurs_in_a_fixture(tool):
     assert sum(e.get("tools", {}).get(tool, 0)
-               for e in MANIFEST.values()) > 0
+               for e in [*MANIFEST.values(), *TOOLS_MADE.values()]) > 0
 
 
 def test_grid_covers_every_subsampling_speed_and_quality():
