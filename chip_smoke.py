@@ -2531,6 +2531,8 @@ AVIF_AOM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "tests", "torch_fixtures", "avif_aom")
 AVIF_TOOLS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "tests", "torch_fixtures", "avif_tools")
+AVIF_SCREEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tests", "torch_fixtures", "avif_screen")
 
 
 def _read_avif_fixtures(folder: str) -> dict:
@@ -2605,14 +2607,20 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     per 64x64, 10-bit, 12-bit, the 3840x2160 frame) and of
     ``tests/torch_fixtures/avif_tools`` (libaom's tools on request:
     quantizer matrices, delta q and delta LF, film grain, 12-bit, the
-    chroma palette; limited range, ``irot``, ``imir`` and ``clap``; the
-    intrabc file must raise naming intrabc) decodes to its manifest
+    chroma palette; limited range, ``irot``, ``imir`` and ``clap``;
+    intrabc) and of ``tests/torch_fixtures/avif_screen`` (screen content,
+    which libaom codes with intrabc at its defaults: every subsampling,
+    speeds 2-7, qualities 30-100, alpha, two tiles, 128-pixel
+    superblocks, 10 and 12 bits, 512x512 and 3840x2160; the ``grid`` file
+    must raise naming the derived item) decodes to its manifest
     (``_read_avif_fixtures``), the reads split into parse and tile
-    decode, post-filters, film grain and conversion. Then the CLI ``-t
-    80`` on the six class AVIFs and ``-q 60`` on the 3840x2160 one of the
-    first two folders, ``-q 60`` on the 3840x2160 ``tune=iq`` frame with
-    film grain and ``-t 80`` on the 512x512 limited-range file with an
-    ``irot``: q, passes and bytes must be those of the CLI on the same
+    decode, post-filters, film grain and conversion (the median of 5).
+    Then the CLI ``-t 80`` on the six class AVIFs and ``-q 60`` on the
+    3840x2160 one of the first two folders, ``-q 60`` on the 3840x2160
+    ``tune=iq`` frame with film grain, ``-t 80`` on the 512x512
+    limited-range file with an ``irot``, ``-t 80`` on the 512x512 screen
+    and ``-q 60`` on the 3840x2160 screen: q, passes and bytes must be
+    those of the CLI on the same
     pixels, written as PAM where they are 8-bit and handed over in memory
     where they are 16-bit (PAM holds 8 bits). Returns the kernels'
     launches."""
@@ -2628,7 +2636,9 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
              + [("photo4k_420_q60.avif", ["-q", "60"])]),
             (AVIF_TOOLS_DIR, [("iq_grain_photo4k_420.avif", ["-q", "60"]),
                               ("limited_512_orient6_420_mixed.avif",
-                               ["-t", "80"])])):
+                               ["-t", "80"])]),
+            (AVIF_SCREEN_DIR, [("screen512.avif", ["-t", "80"]),
+                               ("screen4k.avif", ["-q", "60"])])):
         loaded = _read_avif_fixtures(folder)
         runs += [(os.path.join(folder, name), loaded[name], args)
                  for name, args in picks]

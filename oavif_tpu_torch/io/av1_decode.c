@@ -9,7 +9,11 @@
  * every mode, the angle deltas, smooth, Paeth, CFL, palette and the
  * recursive filter), dequantization (with the quantizer matrices and
  * each superblock's delta q) and the inverse transforms (spec 7.12.3,
- * 7.13.3). The post-filters (deblocking, CDEF, loop restoration) and film
+ * 7.13.3); and intra block copy (allow_intrabc): the DV stack of the
+ * spatial neighbours (spec 7.10.2), the DV itself (spec 5.11.26, 5.11.32),
+ * the var-tx tree (spec 5.11.17) and the inter transform sets with their
+ * FLIPADST types, and the bilinear prediction from the frame decoded so far
+ * (spec 7.11.3). The post-filters (deblocking, CDEF, loop restoration) and film
  * grain run afterwards on the block records and restoration units this
  * call returns.
  *
@@ -27,8 +31,8 @@
  * (the 4:1 ones and the 64-length zero-out) and the intra transform sets
  * (V_DCT and H_DCT with their own scans and contexts), TX_MODE_SELECT,
  * luma and chroma palettes, filter intra, the intra edge filter and
- * upsampling, quantizer matrices, and delta q and delta LF (one DeltaLF;
- * the header refuses delta_lf_multi).
+ * upsampling, quantizer matrices, delta q and delta LF (one DeltaLF;
+ * the header refuses delta_lf_multi), and intrabc.
  *
  * Besides the planes, one call returns what the post-filters
  * (av1_postfilter.c) read: the transform size of every 4x4 of every
@@ -59,7 +63,9 @@ enum {
     D_PAL_Y_CI7, D_PAL_Y_CI8, D_FI_USE, D_FI_MODE, D_WIENER, D_SGR,
     D_SWITCHABLE, D_DELTA_Q, D_DELTA_LF, D_PAL_UV_SIZE,
     D_PAL_UV_CI2, D_PAL_UV_CI3, D_PAL_UV_CI4, D_PAL_UV_CI5, D_PAL_UV_CI6,
-    D_PAL_UV_CI7, D_PAL_UV_CI8, D_NCDF
+    D_PAL_UV_CI7, D_PAL_UV_CI8, D_INTRABC, D_MV_JOINTS, D_MV_SIGN,
+    D_MV_CLASSES, D_MV_CLASS0, D_MV_BITS, D_TXFM_SPLIT, D_INTER_TX1,
+    D_INTER_TX2, D_INTER_TX3, D_NCDF
 };
 
 #include "av1_header.h"
@@ -71,10 +77,13 @@ enum {
 };
 enum { TX_ONLY_4X4 = 0, TX_MODE_LARGEST = 1, TX_MODE_SELECT = 2 };
 enum {
-    DCT_DCT = 0, ADST_DCT = 1, DCT_ADST = 2, ADST_ADST = 3, IDTX = 9,
-    V_DCT = 10, H_DCT = 11
+    DCT_DCT = 0, ADST_DCT = 1, DCT_ADST = 2, ADST_ADST = 3, FLIPADST_DCT = 4,
+    DCT_FLIPADST = 5, FLIPADST_FLIPADST = 6, ADST_FLIPADST = 7,
+    FLIPADST_ADST = 8, IDTX = 9, V_DCT = 10, H_DCT = 11, V_ADST = 12,
+    H_ADST = 13, V_FLIPADST = 14, H_FLIPADST = 15
 };
 enum { SET_DCTONLY = 0, SET_INTRA_1 = 1, SET_INTRA_2 = 2 };
+enum { SET_INTER_1 = 1, SET_INTER_2 = 2, SET_INTER_3 = 3 };
 
 static const int MODE_TO_ANGLE[9] = {0, 90, 180, 45, 135, 113, 157, 203, 67};
 static const int INTRA_MODE_CONTEXT[13] = {0, 1, 2, 3, 4, 4, 4, 4, 3,
@@ -88,6 +97,16 @@ static const int TX_INTRA_INV_SET1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT,
                                          ADST_ADST, ADST_DCT, DCT_ADST};
 static const int TX_INTRA_INV_SET2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT,
                                          DCT_ADST};
+/* the inter sets' symbols (libaom's av1_ext_tx_inv of its ALL16,
+ * DTT9_IDTX_1DDCT and DCT_IDTX sets) */
+static const int TX_INTER_INV_SET1[16] = {
+    IDTX, V_DCT, H_DCT, V_ADST, H_ADST, V_FLIPADST, H_FLIPADST, DCT_DCT,
+    ADST_DCT, DCT_ADST, FLIPADST_DCT, DCT_FLIPADST, ADST_ADST,
+    FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
+static const int TX_INTER_INV_SET2[12] = {
+    IDTX, V_DCT, H_DCT, DCT_DCT, ADST_DCT, DCT_ADST, FLIPADST_DCT,
+    DCT_FLIPADST, ADST_ADST, FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
+static const int TX_INTER_INV_SET3[2] = {IDTX, DCT_DCT};
 /* BLOCK_SIZES enum by (log2 w4, log2 h4); -1 = not a block size */
 static const int BSIZE_OF[6][6] = {
     {0, 1, 16, -1, -1, -1}, {2, 3, 4, 18, -1, -1}, {17, 5, 6, 7, 20, -1},
@@ -136,7 +155,7 @@ typedef struct {
     /* frame */
     int mi_rows, mi_cols, nplanes, bd, sb128, sb4, lossless, tx_mode;
     int reduced_tx_set, screen_tools, filter_intra, cdef_on, cdef_bits;
-    int ssx, ssy, edge_filter;
+    int ssx, ssy, edge_filter, width, height, allow_intrabc;
     int base_q, qdc[3], qac[3];
     /* delta q (spec 5.11.11): CurrentQIndex, the frame's DC/AC deltas
      * (y dc, u dc, u ac, v dc, v ac) and the lookups they index */
@@ -161,6 +180,12 @@ typedef struct {
     uint16_t *mi_pal;         /* 8 colours per mi */
     uint8_t *mi_paln_uv;      /* chroma palette size per mi */
     uint16_t *mi_pal_u;       /* its 8 U colours per mi */
+    /* IsInters (an intrabc block; every block's RefFrame[0] is
+     * INTRA_FRAME in a key frame) and the DV (row, col in 1/8 pel) of each
+     * mi, which later blocks' DV stacks read; mi_txw/mi_txh are the
+     * spec's InterTxSizes, per mi, the var-tx leaves included */
+    uint8_t *mi_inter;
+    int16_t *mi_mv;
     /* transform size of each 4x4 of each plane, (log2 w - 2) | (log2 h -
      * 2) << 4, rows of mi_cols (the post-filters' LoopfilterTxSizes) */
     uint8_t *txmap[3];
@@ -197,6 +222,8 @@ typedef struct {
     uint8_t cmap_uv[64 * 64];
     int txwl, txhl; /* luma tx log2 width/height in px */
     int max_luma_w, max_luma_h;
+    int is_inter, mv[2]; /* use_intrabc and its DV (row, col) */
+    uint8_t txtypes[32][32]; /* TxTypes of the block's luma 4x4s */
 } Blk;
 
 static void fail(Dec *d, int code, const char *fmt, const char *what) {
@@ -310,6 +337,18 @@ static int tx_set(const Dec *d, int wl, int hl) {
     if (d->reduced_tx_set) return SET_INTRA_2;
     if (sqr == 4) return SET_INTRA_2;
     return SET_INTRA_1;
+}
+/* spec get_tx_set for an inter (intrabc) block */
+static int inter_tx_set(const Dec *d, int wl, int hl) {
+    int sqr = imin(wl, hl), up = imax(wl, hl);
+    if (up >= 6) return SET_DCTONLY;
+    if (d->reduced_tx_set || up == 5) return SET_INTER_3;
+    return sqr == 4 ? SET_INTER_2 : SET_INTER_1;
+}
+static int tx_in_inter_set(int set, int t) {
+    if (set == SET_DCTONLY) return t == DCT_DCT;
+    if (set == SET_INTER_3) return t == DCT_DCT || t == IDTX;
+    return set == SET_INTER_1 || t < V_ADST;
 }
 static int tx_in_set(int set, int t) {
     if (set == SET_DCTONLY) return t == DCT_DCT;
@@ -730,16 +769,30 @@ static void reconstruct(Dec *d, int plane, int x, int y, int wl, int hl,
             for (int i = 0; i < 4; i++) res[i * 4 + j] = t[i];
         }
     } else {
-        int col_kind, row_kind;
+        /* the 1-D kinds (0 DCT, 1 ADST, 2 identity) of the columns and
+         * rows; a FLIPADST is the ADST with its output reversed, up-down
+         * for the columns, left-right for the rows (libaom's
+         * get_flip_cfg) */
+        int col_kind, row_kind, ud = 0, lr = 0;
         switch (txtype) {
             case ADST_DCT: col_kind = 1; row_kind = 0; break;
             case DCT_ADST: col_kind = 0; row_kind = 1; break;
             case ADST_ADST: col_kind = 1; row_kind = 1; break;
+            case FLIPADST_DCT: col_kind = 1; row_kind = 0; ud = 1; break;
+            case DCT_FLIPADST: col_kind = 0; row_kind = 1; lr = 1; break;
+            case FLIPADST_FLIPADST: col_kind = 1; row_kind = 1; ud = lr = 1; break;
+            case ADST_FLIPADST: col_kind = 1; row_kind = 1; lr = 1; break;
+            case FLIPADST_ADST: col_kind = 1; row_kind = 1; ud = 1; break;
             case IDTX: col_kind = 2; row_kind = 2; break;
             case V_DCT: col_kind = 0; row_kind = 2; break;
             case H_DCT: col_kind = 2; row_kind = 0; break;
+            case V_ADST: col_kind = 1; row_kind = 2; break;
+            case H_ADST: col_kind = 2; row_kind = 1; break;
+            case V_FLIPADST: col_kind = 1; row_kind = 2; ud = 1; break;
+            case H_FLIPADST: col_kind = 2; row_kind = 1; lr = 1; break;
             default: col_kind = 0; row_kind = 0; break;
         }
+        if (ud || lr) d->count[T_TX_FLIP]++;
         static const int ROW_SHIFT[5][5] = {
             /* [log2w-2][log2h-2] (spec Transform_Row_Shift) */
             {0, 0, 1, -1, -1}, {0, 1, 1, 2, -1}, {1, 1, 2, 1, 2},
@@ -764,12 +817,14 @@ static void reconstruct(Dec *d, int plane, int x, int y, int wl, int hl,
             if (!any) continue;
             inv_1d_kind_pub(t, o, tw, row_kind);
             for (int j = 0; j < tw; j++)
-                res[i * tw + j] = clip64(rnd2(o[j], row_shift), cmin, cmax);
+                res[i * tw + (lr ? tw - 1 - j : j)] =
+                    clip64(rnd2(o[j], row_shift), cmin, cmax);
         }
         for (int j = 0; j < tw; j++) {
             for (int i = 0; i < th; i++) t[i] = res[i * tw + j];
             inv_1d_kind_pub(t, o, th, col_kind);
-            for (int i = 0; i < th; i++) res[i * tw + j] = rnd2(o[i], 4);
+            for (int i = 0; i < th; i++)
+                res[(ud ? th - 1 - i : i) * tw + j] = rnd2(o[i], 4);
         }
     }
     int maxv = (1 << bd) - 1;
@@ -829,7 +884,25 @@ static int read_coeffs(Dec *d, const Blk *b, int plane, int x, int y,
     int eob = 0, cul = 0, dc_cat = 0;
     if (!all_zero) {
         int txtype;
-        if (plane == 0) {
+        if (plane == 0 && b->is_inter) {
+            /* spec transform_type with the inter sets, their CDFs by the
+             * square size */
+            int set = inter_tx_set(d, wl, hl);
+            txtype = DCT_DCT;
+            if (set != SET_DCTONLY && d->base_q > 0) {
+                if (set == SET_INTER_1)
+                    txtype = TX_INTER_INV_SET1[read_symbol(
+                        d, d->cdf[D_INTER_TX1] + (size_t)sqr * 17, 16)];
+                else if (set == SET_INTER_2)
+                    txtype = TX_INTER_INV_SET2[read_symbol(
+                        d, d->cdf[D_INTER_TX2] + (size_t)sqr * 13, 12)];
+                else
+                    txtype = TX_INTER_INV_SET3[read_symbol(
+                        d, d->cdf[D_INTER_TX3] + (size_t)sqr * 3, 2)];
+                d->count[T_TX_INTER_SET1 + set - SET_INTER_1]++;
+            }
+            *txtype_io = txtype;
+        } else if (plane == 0) {
             int set = tx_set(d, wl, hl);
             txtype = DCT_DCT;
             if (set != SET_DCTONLY && d->base_q > 0) {
@@ -845,7 +918,10 @@ static int read_coeffs(Dec *d, const Blk *b, int plane, int x, int y,
         } else {
             txtype = *txtype_io;
         }
-        int txc = txtype == V_DCT ? TXC_VERT : (txtype == H_DCT ? TXC_HORIZ : TXC_2D);
+        int txc = (txtype == V_DCT || txtype == V_ADST || txtype == V_FLIPADST)
+                      ? TXC_VERT
+                      : (txtype == H_DCT || txtype == H_ADST || txtype == H_FLIPADST)
+                      ? TXC_HORIZ : TXC_2D;
         if (txtype == V_DCT) d->count[T_TX_V_DCT]++;
         if (txtype == H_DCT) d->count[T_TX_H_DCT]++;
         /* spec get_scan: mrow (raster) for V_*, mcol for H_* */
@@ -992,7 +1068,9 @@ static void transform_block(Dec *d, Blk *b, int plane, int base_x, int base_y,
     int step_x = 1 << (wl - 2), step_y = 1 << (hl - 2);
     if (start_x >= (d->mi_cols * 4) >> sx || start_y >= (d->mi_rows * 4) >> sy) return;
     uint8_t (*dec)[34] = d->decoded[plane];
-    if (plane == 0 && b->pal_n) {
+    if (b->is_inter) {
+        /* predicted with the whole block (predict_intrabc) */
+    } else if (plane == 0 && b->pal_n) {
         for (int i = 0; i < (1 << hl); i++)
             for (int j = 0; j < (1 << wl); j++)
                 *px(d, 0, start_y + i, start_x + j) =
@@ -1027,6 +1105,16 @@ static void transform_block(Dec *d, Blk *b, int plane, int base_x, int base_y,
         int txtype;
         if (plane == 0) {
             txtype = DCT_DCT;
+        } else if (b->is_inter) {
+            /* spec compute_tx_type for inter chroma: the co-located luma
+             * transform's type where the chroma set has it */
+            txtype = DCT_DCT;
+            if (!d->lossless && imax(wl, hl) <= 5) {
+                int lx = imax(b->c, (start_x >> 2) << sx);
+                int ly = imax(b->r, (start_y >> 2) << sy);
+                txtype = b->txtypes[ly - b->r][lx - b->c];
+                if (!tx_in_inter_set(inter_tx_set(d, wl, hl), txtype)) txtype = DCT_DCT;
+            }
         } else {
             /* spec compute_tx_type for intra chroma */
             int set = tx_set(d, wl, hl);
@@ -1037,6 +1125,13 @@ static void transform_block(Dec *d, Blk *b, int plane, int base_x, int base_y,
         int eob = read_coeffs(d, b, plane, start_x, start_y, wl, hl, &txtype, quant);
         if (d->err) return;
         if (plane == 0 && (d->lossless || imax(wl, hl) > 5)) txtype = DCT_DCT;
+        if (plane == 0 && b->is_inter) {
+            /* TxTypes: DCT_DCT where the transform had no coefficients */
+            int t = eob > 0 ? txtype : DCT_DCT;
+            for (int i = 0; i < step_y; i++)
+                memset(&b->txtypes[(start_y >> 2) - b->r + i][(start_x >> 2) - b->c],
+                       t, (size_t)step_x);
+        }
         if (eob > 0) reconstruct(d, plane, start_x, start_y, wl, hl, txtype, quant);
     }
     if (abs(wl - hl) == 2) d->count[T_TX_4TO1]++;
@@ -1052,6 +1147,28 @@ static void transform_block(Dec *d, Blk *b, int plane, int base_x, int base_y,
         }
 }
 
+/* spec transform_tree: the luma of an inter block over its var-tx leaves
+ * (InterTxSizes) */
+static void transform_tree(Dec *d, Blk *b, int x, int y, int wl, int hl) {
+    if (x >= d->mi_cols * 4 || y >= d->mi_rows * 4 || d->err) return;
+    int m = mi_at(d, y >> 2, x >> 2);
+    if (wl <= d->mi_txw[m] + 2 && hl <= d->mi_txh[m] + 2) {
+        transform_block(d, b, 0, x, y, wl, hl, 0, 0);
+        return;
+    }
+    if (wl > hl) {
+        transform_tree(d, b, x, y, wl - 1, hl);
+        transform_tree(d, b, x + (1 << (wl - 1)), y, wl - 1, hl);
+    } else if (wl < hl) {
+        transform_tree(d, b, x, y, wl, hl - 1);
+        transform_tree(d, b, x, y + (1 << (hl - 1)), wl, hl - 1);
+    } else {
+        for (int k = 0; k < 4; k++)
+            transform_tree(d, b, x + ((k & 1) << (wl - 1)),
+                           y + ((k >> 1) << (hl - 1)), wl - 1, hl - 1);
+    }
+}
+
 static void residual(Dec *d, Blk *b) {
     int bw4 = 1 << b->wl, bh4 = 1 << b->hl;
     int wchunks = imax(1, bw4 >> 4), hchunks = imax(1, bh4 >> 4);
@@ -1059,6 +1176,13 @@ static void residual(Dec *d, Blk *b) {
     for (int cy = 0; cy < hchunks; cy++)
         for (int cx = 0; cx < wchunks; cx++)
             for (int plane = 0; plane < nplanes; plane++) {
+                if (plane == 0 && b->is_inter && !d->lossless) {
+                    /* one tree per 64x64 chunk, as libaom walks them */
+                    transform_tree(d, b, b->c * 4 + (cx << 6), b->r * 4 + (cy << 6),
+                                   imin(b->wl + 2, 6), imin(b->hl + 2, 6));
+                    if (d->err) return;
+                    continue;
+                }
                 int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
                 int wl, hl;
                 if (d->lossless) { wl = 2; hl = 2; }
@@ -1261,17 +1385,44 @@ static void read_cdef(Dec *d, Blk *b) {
     }
 }
 
-static void tx_size(Dec *d, Blk *b) {
+/* spec get_above_tx_width / get_left_tx_height at mi (row, col) of the
+ * current block: a skipped inter neighbour gives its block's size */
+static int above_tx_w(Dec *d, const Blk *b, int row, int col) {
+    if (row == b->r) {
+        if (!b->avail_u) return 64;
+        int m = mi_at(d, row - 1, col);
+        if (d->mi_skip[m] && d->mi_inter[m]) return 4 << d->mi_wl[m];
+    }
+    return 4 << d->mi_txw[mi_at(d, row - 1, col)];
+}
+static int left_tx_h(Dec *d, const Blk *b, int row, int col) {
+    if (col == b->c) {
+        if (!b->avail_l) return 64;
+        int m = mi_at(d, row, col - 1);
+        if (d->mi_skip[m] && d->mi_inter[m]) return 4 << d->mi_hl[m];
+    }
+    return 4 << d->mi_txh[mi_at(d, row, col - 1)];
+}
+
+/* spec read_tx_size: the depth's context takes an inter neighbour's block
+ * size, another's transform size at the exact position */
+static void tx_size(Dec *d, Blk *b, int allow_select) {
     if (d->lossless) { b->txwl = 2; b->txhl = 2; return; }
     int wl = imin(b->wl + 2, 6), hl = imin(b->hl + 2, 6);
-    if (b->bsize > 0 && d->tx_mode == TX_MODE_SELECT) {
+    if (b->bsize > 0 && allow_select && d->tx_mode == TX_MODE_SELECT) {
         int max_depth = tx_depth_to_4x4(wl, hl);
         int cat = imin(max_depth, 4) - 1;
         int nsym = cat ? 3 : 2;
         int maxw = 1 << wl, maxh = 1 << hl;
         int aw = 0, lh = 0;
-        if (b->avail_u) aw = 4 << d->mi_txw[mi_at(d, b->r - 1, b->c)];
-        if (b->avail_l) lh = 4 << d->mi_txh[mi_at(d, b->r, b->c - 1)];
+        if (b->avail_u) {
+            int m = mi_at(d, b->r - 1, b->c);
+            aw = d->mi_inter[m] ? 4 << d->mi_wl[m] : above_tx_w(d, b, b->r, b->c);
+        }
+        if (b->avail_l) {
+            int m = mi_at(d, b->r, b->c - 1);
+            lh = d->mi_inter[m] ? 4 << d->mi_hl[m] : left_tx_h(d, b, b->r, b->c);
+        }
         int ctx = (aw >= maxw) + (lh >= maxh);
         int depth = read_symbol(d, d->cdf[D_TX_SIZE] + ((size_t)cat * 3 + ctx) * 4, nsym);
         for (int i = 0; i < depth; i++) split_tx(&wl, &hl);
@@ -1280,6 +1431,56 @@ static void tx_size(Dec *d, Blk *b) {
     }
     b->txwl = wl;
     b->txhl = hl;
+}
+
+static void set_inter_tx(Dec *d, int row, int col, int h4, int w4, int wl, int hl) {
+    for (int i = 0; i < h4 && row + i < d->mi_rows; i++)
+        for (int j = 0; j < w4 && col + j < d->mi_cols; j++) {
+            int m = mi_at(d, row + i, col + j);
+            d->mi_txw[m] = (uint8_t)(wl - 2);
+            d->mi_txh[m] = (uint8_t)(hl - 2);
+        }
+}
+
+/* spec read_var_tx_size: txfm_split down to depth 2 (MAX_VARTX_DEPTH),
+ * its context libaom's txfm_partition_context */
+static void var_tx_size(Dec *d, Blk *b, int row, int col, int wl, int hl, int depth) {
+    if (row >= d->mi_rows || col >= d->mi_cols || d->err) return;
+    int split = 0;
+    if ((wl > 2 || hl > 2) && depth < 2) {
+        int max_sz = imin(6, imax(b->wl, b->hl) + 2) - 2; /* TX_4X4 .. TX_64X64 */
+        int up = imax(wl, hl) - 2;
+        int above = above_tx_w(d, b, row, col) < (1 << wl);
+        int left = left_tx_h(d, b, row, col) < (1 << hl);
+        int cat = (up != max_sz && max_sz > 1) + (4 - max_sz) * 2;
+        split = read_symbol(d, d->cdf[D_TXFM_SPLIT] + ((size_t)cat * 3 + above + left) * 3, 2);
+    }
+    if (!split) {
+        set_inter_tx(d, row, col, 1 << (hl - 2), 1 << (wl - 2), wl, hl);
+        return;
+    }
+    d->count[T_VARTX_SPLIT]++;
+    int swl = wl, shl = hl;
+    split_tx(&swl, &shl);
+    for (int i = 0; i < 1 << (hl - 2); i += 1 << (shl - 2))
+        for (int j = 0; j < 1 << (wl - 2); j += 1 << (swl - 2))
+            var_tx_size(d, b, row + i, col + j, swl, shl, depth + 1);
+}
+
+/* spec read_block_tx_size: the var-tx tree for a coded inter block under
+ * TX_MODE_SELECT, else one size, written to InterTxSizes */
+static void block_tx_size(Dec *d, Blk *b) {
+    int bw4 = 1 << b->wl, bh4 = 1 << b->hl;
+    if (d->tx_mode == TX_MODE_SELECT && b->bsize > 0 && b->is_inter && !b->skip &&
+        !d->lossless) {
+        int wl = imin(b->wl + 2, 6), hl = imin(b->hl + 2, 6);
+        for (int r = b->r; r < b->r + bh4; r += 1 << (hl - 2))
+            for (int c = b->c; c < b->c + bw4; c += 1 << (wl - 2))
+                var_tx_size(d, b, r, c, wl, hl, 0);
+        return;
+    }
+    tx_size(d, b, !b->skip || !b->is_inter);
+    set_inter_tx(d, b->r, b->c, bh4, bw4, b->txwl, b->txhl);
 }
 
 static int is_smooth_mode(int m) {
@@ -1346,6 +1547,210 @@ static void read_deltas(Dec *d, Blk *b) {
     }
 }
 
+/* ---- intra block copy (spec 5.11.26, 5.11.32, 7.10.2, 7.11.3) ----------- */
+
+typedef struct { int mv[2], weight; } MvCand;
+
+/* spec add_ref_mv_candidate and search_stack for an intrabc block: the
+ * neighbour's DV (lowered to whole pixels, force_integer_mv) joins the
+ * stack or adds its weight */
+static void add_dv_cand(Dec *d, MvCand *st, int *n, int r, int c, int weight) {
+    int m = mi_at(d, r, c);
+    if (!d->mi_inter[m]) return;
+    int mv[2];
+    for (int i = 0; i < 2; i++) {
+        int v = d->mi_mv[2 * m + i], a = (abs(v) + 3) >> 3;
+        mv[i] = v > 0 ? a << 3 : -(a << 3);
+    }
+    for (int k = 0; k < *n; k++)
+        if (st[k].mv[0] == mv[0] && st[k].mv[1] == mv[1]) {
+            st[k].weight += weight;
+            return;
+        }
+    if (*n < 8) {
+        st[*n].mv[0] = mv[0];
+        st[*n].mv[1] = mv[1];
+        st[*n].weight = weight;
+        (*n)++;
+    }
+}
+
+/* one row of neighbours from (row, col), bw4 wide, w4 of it scanned: a
+ * neighbour at least as wide as the block counts for the rows it spans (up
+ * to max_rows pairs); returns the pairs of rows covered */
+static int dv_scan_row(Dec *d, MvCand *st, int *n, int row, int col, int bw4, int w4,
+                       int max_rows, int step) {
+    int m = mi_at(d, row, col);
+    int cw = 1 << d->mi_wl[m];
+    int len = imax(step, imin(bw4, cw));
+    if (bw4 <= cw) {
+        int weight = bw4 == 1 ? 2 : imax(2, imin(2 * max_rows, 1 << d->mi_hl[m]));
+        add_dv_cand(d, st, n, row, col, len * weight);
+        return weight >> 1;
+    }
+    for (int x = 0;;) {
+        add_dv_cand(d, st, n, row, col + x, len * 2);
+        x += len;
+        if (x >= w4 || col + x >= d->c1) return 1;
+        len = imax(step, 1 << d->mi_wl[mi_at(d, row, col + x)]);
+    }
+}
+
+static int dv_scan_col(Dec *d, MvCand *st, int *n, int row, int col, int bh4, int h4,
+                       int max_cols, int step) {
+    int m = mi_at(d, row, col);
+    int ch = 1 << d->mi_hl[m];
+    int len = imax(step, imin(bh4, ch));
+    if (bh4 <= ch) {
+        int weight = bh4 == 1 ? 2 : imax(2, imin(2 * max_cols, 1 << d->mi_wl[m]));
+        add_dv_cand(d, st, n, row, col, len * weight);
+        return weight >> 1;
+    }
+    for (int y = 0;;) {
+        add_dv_cand(d, st, n, row + y, col, len * 2);
+        y += len;
+        if (y >= h4 || row + y >= d->r1) return 1;
+        len = imax(step, 1 << d->mi_hl[mi_at(d, row + y, col)]);
+    }
+}
+
+/* spec sorting: a stable bubble sort by weight, descending */
+static void sort_dv_stack(MvCand *st, int start, int end) {
+    while (end > start) {
+        int last = start;
+        for (int k = start + 1; k < end; k++)
+            if (st[k - 1].weight < st[k].weight) {
+                MvCand t = st[k - 1];
+                st[k - 1] = st[k];
+                st[k] = t;
+                last = k;
+            }
+        end = last;
+    }
+}
+
+static int read_mv_component(Dec *d, int comp) {
+    int sign = read_symbol(d, d->cdf[D_MV_SIGN] + (size_t)comp * 3, 2);
+    int cls = read_symbol(d, d->cdf[D_MV_CLASSES] + (size_t)comp * 12, 11);
+    int mag;
+    if (cls == 0) {
+        /* MV_CLASS_0: one integer bit; an integer MV reads no fraction
+         * (mv_fr 3) and no high-precision bit (mv_hp 1) */
+        mag = ((read_symbol(d, d->cdf[D_MV_CLASS0] + (size_t)comp * 3, 2) << 3) | 7) + 1;
+    } else {
+        int bits = 0;
+        for (int i = 0; i < cls; i++)
+            bits |= read_symbol(d, d->cdf[D_MV_BITS] + ((size_t)comp * 10 + i) * 3, 2) << i;
+        mag = (2 << (cls + 2)) + ((bits << 3) | 7) + 1;
+    }
+    return sign ? -mag : mag;
+}
+
+/* find_mv_stack(0) for RefFrame INTRA_FRAME, as libaom and dav1d scan it
+ * (the spec's row, column and point scans with their weights): no
+ * temporal candidates and no extra search (which takes only references
+ * past INTRA_FRAME); then assign_mv: PredMv from the stack or the default
+ * DV, plus read_mv in MV_INTRABC_CONTEXT */
+static void intrabc_dv(Dec *d, Blk *b) {
+    int r = b->r, c = b->c, bw4 = 1 << b->wl, bh4 = 1 << b->hl;
+    int w4 = imin(imin(bw4, 16), d->c1 - c), h4 = imin(imin(bh4, 16), d->r1 - r);
+    enum { NONE = 1 << 20 };
+    MvCand st[8];
+    int n = 0, max_rows = 0, max_cols = 0, n_rows = NONE, n_cols = NONE;
+    if (r > d->r0) {
+        max_rows = imin((r - d->r0 + 1) >> 1, 2 + (bh4 > 1));
+        n_rows = dv_scan_row(d, st, &n, r - 1, c, bw4, w4, max_rows, bw4 >= 16 ? 4 : 1);
+    }
+    if (c > d->c0) {
+        max_cols = imin((c - d->c0 + 1) >> 1, 2 + (bw4 > 1));
+        n_cols = dv_scan_col(d, st, &n, r, c - 1, bh4, h4, max_cols, bh4 >= 16 ? 4 : 1);
+    }
+    /* the top-right neighbour where it is decoded already */
+    int sbmask = d->sb4 - 1;
+    if (n_rows != NONE && imax(bw4, bh4) <= 16 && c + bw4 < d->c1 &&
+        d->decoded[0][(r & sbmask) - 1 + 1][(c & sbmask) + bw4 + 1])
+        add_dv_cand(d, st, &n, r - 1, c + bw4, 4);
+    int nearest = n;
+    for (int k = 0; k < nearest; k++) st[k].weight += 640; /* REF_CAT_LEVEL */
+    if (n_rows != NONE && n_cols != NONE) add_dv_cand(d, st, &n, r - 1, c - 1, 4);
+    for (int k = 2; k <= 3; k++) {
+        if (k > n_rows && k <= max_rows)
+            n_rows += dv_scan_row(d, st, &n, (r - 2 * k + 1) | 1, c | 1, bw4, w4,
+                                  1 + max_rows - k, bw4 >= 16 ? 4 : 2);
+        if (k > n_cols && k <= max_cols)
+            n_cols += dv_scan_col(d, st, &n, r | 1, (c - 2 * k + 1) | 1, bh4, h4,
+                                  1 + max_cols - k, bh4 >= 16 ? 4 : 2);
+    }
+    sort_dv_stack(st, 0, nearest);
+    sort_dv_stack(st, nearest, n);
+    /* context_and_clamping: MV_BORDER (16 px) plus the block's size past
+     * the frame's edges */
+    int top = -(r * 32) - (128 + bh4 * 32), bottom = (d->mi_rows - r) * 32 + 128;
+    int left = -(c * 32) - (128 + bw4 * 32), right = (d->mi_cols - c) * 32 + 128;
+    for (int k = 0; k < n; k++) {
+        st[k].mv[0] = (int)clip64(st[k].mv[0], top, bottom);
+        st[k].mv[1] = (int)clip64(st[k].mv[1], left, right);
+    }
+    int pred[2] = {0, 0};
+    for (int k = 0; k < imin(n, 2); k++)
+        if (st[k].mv[0] || st[k].mv[1]) {
+            pred[0] = st[k].mv[0];
+            pred[1] = st[k].mv[1];
+            break;
+        }
+    if (!pred[0] && !pred[1]) {
+        /* the default DV: a superblock (and the 256-pixel delay) to the
+         * left in the tile's first superblock row, else one up */
+        if (r - d->sb4 < d->r0) pred[1] = -(d->sb4 * 4 + 256) * 8;
+        else pred[0] = -(d->sb4 * 4 * 8);
+        d->count[T_INTRABC_DEFAULT_DV]++;
+    }
+    int joint = read_symbol(d, d->cdf[D_MV_JOINTS], 4);
+    b->mv[0] = pred[0] + ((joint == 2 || joint == 3) ? read_mv_component(d, 0) : 0);
+    b->mv[1] = pred[1] + ((joint == 1 || joint == 3) ? read_mv_component(d, 1) : 0);
+}
+
+/* spec 7.11.3 for an intrabc block: each plane's whole block from the
+ * frame decoded so far at the DV, with the BILINEAR filter (a copy for
+ * luma, a half sample for subsampled chroma at an odd DV); the chroma of a
+ * 4xN or Nx4 block covers its neighbours too and takes this block's DV
+ * (someUseIntra: every block of a key frame has RefFrame INTRA_FRAME) */
+static void predict_intrabc(Dec *d, Blk *b) {
+    static _Thread_local int32_t mid[(128 + 1) * 128], out[128 * 128];
+    int round0 = d->bd == 12 ? 5 : 3, round1 = d->bd == 12 ? 9 : 11;
+    int maxv = (1 << d->bd) - 1;
+    for (int plane = 0; plane < (b->has_chroma ? d->nplanes : 1); plane++) {
+        int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
+        int wl4, hl4;
+        plane_block(d, b, plane, &wl4, &hl4);
+        int w = 4 << wl4, h = 4 << hl4;
+        int bx = (b->c >> sx) * 4, by = (b->r >> sy) * 4;
+        /* the position in 1/16 sample */
+        int px16 = (bx << 4) + ((2 * b->mv[1]) >> sx);
+        int py16 = (by << 4) + ((2 * b->mv[0]) >> sy);
+        int fx = px16 & 15, fy = py16 & 15, ix = px16 >> 4, iy = py16 >> 4;
+        if (fx || fy) d->count[T_INTRABC_CHROMA_SUBPEL]++;
+        if (plane == 1 && ((sx && b->wl == 0) || (sy && b->hl == 0)))
+            d->count[T_INTRABC_SUB8X8_CHROMA]++;
+        int lastx = ((d->width + sx) >> sx) - 1, lasty = ((d->height + sy) >> sy) - 1;
+        for (int i = 0; i <= h; i++) {
+            const int32_t *row = px(d, plane, imin(imax(iy + i, 0), lasty), 0);
+            for (int j = 0; j < w; j++) {
+                int32_t a = row[imin(imax(ix + j, 0), lastx)];
+                int32_t c = row[imin(imax(ix + j + 1, 0), lastx)];
+                mid[i * w + j] = (int32_t)rnd2((int64_t)(128 - 8 * fx) * a + 8 * fx * c, round0);
+            }
+        }
+        for (int i = 0; i < h; i++)
+            for (int j = 0; j < w; j++)
+                out[i * w + j] = (int32_t)clip64(
+                    rnd2((int64_t)(128 - 8 * fy) * mid[i * w + j] + 8 * fy * mid[(i + 1) * w + j],
+                         round1), 0, maxv);
+        for (int i = 0; i < h; i++)
+            memcpy(px(d, plane, by + i, bx), out + (size_t)i * w, sizeof(int32_t) * (size_t)w);
+    }
+}
+
 static void intra_mode_info(Dec *d, Blk *b) {
     int skip_ctx = 0;
     if (b->avail_u) skip_ctx += d->mi_skip[mi_at(d, b->r - 1, b->c)];
@@ -1354,6 +1759,18 @@ static void intra_mode_info(Dec *d, Blk *b) {
     read_cdef(d, b);
     if (d->delta_q_res >= 0) read_deltas(d, b);
     d->read_deltas = 0;
+    b->is_inter = d->allow_intrabc && read_symbol(d, d->cdf[D_INTRABC], 2);
+    if (b->is_inter) {
+        /* as libaom's read_intrabc_info: DC_PRED for the kf_y context,
+         * the palette cache and get_filter_type of later blocks */
+        b->ymode = b->uvmode = DC_PRED;
+        b->angle_y = b->angle_uv = b->cfl_u = b->cfl_v = 0;
+        b->pal_n = b->pal_uv_n = b->use_fi = 0;
+        memset(b->txtypes, DCT_DCT, sizeof(b->txtypes));
+        intrabc_dv(d, b);
+        d->count[T_INTRABC]++;
+        return;
+    }
     int am = b->avail_u ? d->mi_ymode[mi_at(d, b->r - 1, b->c)] : DC_PRED;
     int lm = b->avail_l ? d->mi_ymode[mi_at(d, b->r, b->c - 1)] : DC_PRED;
     b->ymode = read_symbol(d, d->cdf[D_KF_Y] + ((size_t)INTRA_MODE_CONTEXT[am] * 5 +
@@ -1429,7 +1846,8 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
     if (d->err) return;
     palette_tokens(d, b);
     if (d->err) return;
-    tx_size(d, b);
+    block_tx_size(d, b);
+    if (d->err) return;
     filter_types(d, b);
     if (b->skip)
         for (int p = 0; p < (b->has_chroma ? d->nplanes : 1); p++) {
@@ -1449,8 +1867,9 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
             d->mi_skip[m] = (uint8_t)b->skip;
             d->mi_ymode[m] = (uint8_t)b->ymode;
             d->mi_uvmode[m] = (uint8_t)uvm;
-            d->mi_txw[m] = (uint8_t)(b->txwl - 2);
-            d->mi_txh[m] = (uint8_t)(b->txhl - 2);
+            d->mi_inter[m] = (uint8_t)b->is_inter;
+            d->mi_mv[2 * m] = (int16_t)(b->is_inter ? b->mv[0] : 0);
+            d->mi_mv[2 * m + 1] = (int16_t)(b->is_inter ? b->mv[1] : 0);
             d->mi_paln[m] = (uint8_t)b->pal_n;
             if (b->pal_n) memcpy(d->mi_pal + (size_t)m * 8, b->pal, sizeof(b->pal));
             d->mi_paln_uv[m] = (uint8_t)b->pal_uv_n;
@@ -1460,6 +1879,7 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
         }
     if (d->bd == 12) d->count[T_TWELVE_BIT]++;
     b->max_luma_w = b->max_luma_h = 0;
+    if (b->is_inter) predict_intrabc(d, b);
     residual(d, b);
 }
 
@@ -1731,6 +2151,9 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->ssx = hdr[H_SS_X];
     d->ssy = hdr[H_SS_Y];
     d->edge_filter = hdr[H_EDGE_FILTER];
+    d->width = hdr[H_WIDTH];
+    d->height = hdr[H_HEIGHT];
+    d->allow_intrabc = hdr[H_ALLOW_INTRABC];
     d->dc_lut = qlut;
     d->ac_lut = qlut + 256;
     for (int i = 0; i < 5; i++) d->dq[i] = hdr[H_DQ_Y_DC + i];
@@ -1760,13 +2183,14 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->cdef_idx = cdef_idx;
     memset(cdef_idx, -1, (size_t)d->cdef_stride * ((d->mi_rows + 15) / 16));
     size_t nmi = (size_t)d->mi_rows * d->mi_cols;
-    uint8_t *mi8 = (uint8_t *)calloc(nmi * 8, 1);
+    uint8_t *mi8 = (uint8_t *)calloc(nmi * 9, 1);
     d->mi_pal = (uint16_t *)calloc(nmi * 16, sizeof(uint16_t));
+    d->mi_mv = (int16_t *)calloc(nmi * 2, sizeof(int16_t));
     uint8_t *ctxmem = (uint8_t *)calloc((size_t)4 * 3 * ((size_t)d->mi_cols + d->mi_rows + 64), 1);
     size_t cdf_total = 0;
     for (int k = 0; k < D_NCDF; k++) cdf_total += (size_t)cdf_lens[k];
     uint16_t *cdfmem = (uint16_t *)malloc(cdf_total * sizeof(uint16_t));
-    if (!mi8 || !d->mi_pal || !ctxmem || !cdfmem) {
+    if (!mi8 || !d->mi_pal || !d->mi_mv || !ctxmem || !cdfmem) {
         rc = AV1D_CORRUPT;
         snprintf(msg, (size_t)msglen, "AV1: out of memory");
         goto done;
@@ -1775,6 +2199,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->mi_ymode = mi8 + 2 * nmi; d->mi_uvmode = mi8 + 3 * nmi;
     d->mi_txw = mi8 + 4 * nmi; d->mi_txh = mi8 + 5 * nmi;
     d->mi_paln = mi8 + 6 * nmi; d->mi_paln_uv = mi8 + 7 * nmi;
+    d->mi_inter = mi8 + 8 * nmi;
     d->mi_pal_u = d->mi_pal + nmi * 8;
     {
         size_t ac = (size_t)d->mi_cols + 32, lc = (size_t)d->mi_rows + 32;
@@ -1813,6 +2238,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
 done:
     free(mi8);
     free(d->mi_pal);
+    free(d->mi_mv);
     free(ctxmem);
     free(cdfmem);
     free(d);

@@ -30,6 +30,8 @@ enum {
     H_DELTA_Q_RES, H_DELTA_LF_RES,
     /* loop_filter_delta_enabled and the intra frame's reference delta */
     H_LF_DELTA_ENABLED, H_LF_REF_DELTA_INTRA,
+    /* allow_intrabc (the strength sets stay the pack's tail) */
+    H_ALLOW_INTRABC,
     /* the 1 << cdef_bits strength sets (y primary, y secondary, uv
      * primary, uv secondary; secondary 3 already read as 4) */
     H_CDEF_STRENGTHS,
@@ -68,6 +70,14 @@ enum {
     T_UV_PALETTE,
     /* blocks decoded at 12 bits */
     T_TWELVE_BIT,
+    /* intra block copy: intrabc blocks, those whose DV prediction fell
+     * back to the default DV, chroma predicted at a half sample, and
+     * chroma blocks that cover more than their intrabc block (4xN, Nx4) */
+    T_INTRABC, T_INTRABC_DEFAULT_DV, T_INTRABC_CHROMA_SUBPEL,
+    /* var-tx splits read, luma transform types read from each inter set,
+     * and transform blocks reconstructed with a FLIPADST */
+    T_VARTX_SPLIT, T_TX_INTER_SET1, T_TX_INTER_SET2, T_TX_INTER_SET3,
+    T_TX_FLIP, T_INTRABC_SUB8X8_CHROMA,
     T_NCOUNTERS
 };
 

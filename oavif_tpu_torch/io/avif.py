@@ -17,7 +17,8 @@ Three parts, all on the host:
 - the tile decode and reconstruction in C (``av1_decode.c``, in the host
   library), for 4:4:4, 4:2:2, 4:2:0 and monochrome streams at 8, 10 and
   12 bits with the intra tools libaom writes, quantizer matrices, delta q
-  and delta LF and the chroma palette included, then the post-filters in
+  and delta LF, the chroma palette and intra block copy included, then
+  the post-filters in
   C on each plane's own grid (``av1_postfilter.c``): deblocking at each
   block's level, CDEF with the strength set of each 64x64, and loop
   restoration; film grain synthesis (``av1_grain.c``); and the conversion
@@ -593,6 +594,7 @@ class FrameHeader:
     qm: Tuple[int, int, int] = (15, 15, 15)  # qm_y, qm_u, qm_v; 15 flat
     delta_q_res: int = -1  # log2 of the delta q step; -1 without delta q
     delta_lf_res: int = -1  # likewise for delta LF
+    allow_intrabc: bool = False
     grain: Optional["FilmGrain"] = None
 
 
@@ -664,8 +666,10 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
     if b.f(1):
         b.f(16)
         b.f(16)
-    if screen and b.f(1):
-        raise UnsupportedAvif("AV1: intrabc is not supported yet")
+    # allow_intrabc: an intra frame's DVs are whole pixels
+    # (force_integer_mv), and the frame has no deblocking, CDEF, loop
+    # restoration or delta LF
+    fh.allow_intrabc = bool(screen and b.f(1))
     if not (s.reduced or fh.disable_cdf_update):
         b.f(1)  # disable_frame_end_update_cdf
     fh.mi_cols = 2 * ((fh.width + 7) >> 3)
@@ -694,13 +698,16 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
         raise UnsupportedAvif("AV1: segmentation is not supported yet")
     if fh.base_q > 0 and b.f(1):  # delta_q_present
         fh.delta_q_res = b.f(2)
-        if b.f(1):  # delta_lf_present
+        if not fh.allow_intrabc and b.f(1):  # delta_lf_present
             fh.delta_lf_res = b.f(2)
             if b.f(1):
                 raise UnsupportedAvif("AV1: delta LF per plane and "
                                       "direction (delta_lf_multi) is not "
                                       "supported yet")
-    if not fh.lossless:
+    # loop_filter_params, cdef_params and lr_params keep their defaults
+    # (levels 0, CDEF off, no restoration) in a lossless frame and under
+    # intrabc
+    if not (fh.lossless or fh.allow_intrabc):
         l0, l1 = b.f(6), b.f(6)
         l2 = l3 = 0
         if nplanes > 1 and (l0 or l1):
@@ -739,9 +746,7 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
                         fh.lr_unit_shift += b.f(1)
                 if s.ss == (1, 1) and any(fh.lr_types[1:]):
                     fh.lr_uv_shift = b.f(1)
-        fh.tx_mode = 2 if b.f(1) else 1
-    else:
-        fh.tx_mode = 0
+    fh.tx_mode = 0 if fh.lossless else (2 if b.f(1) else 1)
     fh.reduced_tx_set = bool(b.f(1))
     if s.film_grain and b.f(1):  # apply_grain
         fh.grain = _film_grain_params(b, s)
@@ -937,7 +942,9 @@ _CDF_ORDER = (
     "pal_y_ci5", "pal_y_ci6", "pal_y_ci7", "pal_y_ci8", "fi_use", "fi_mode",
     "wiener_restore", "sgrproj_restore", "switchable_restore", "delta_q",
     "delta_lf", "pal_uv_size", "pal_uv_ci2", "pal_uv_ci3", "pal_uv_ci4",
-    "pal_uv_ci5", "pal_uv_ci6", "pal_uv_ci7", "pal_uv_ci8",
+    "pal_uv_ci5", "pal_uv_ci6", "pal_uv_ci7", "pal_uv_ci8", "intrabc",
+    "mv_joints", "mv_sign", "mv_classes", "mv_class0", "mv_bits",
+    "txfm_split", "inter_tx1", "inter_tx2", "inter_tx3",
 )
 # the header pack's fields in the order of av1_header.h's H_* enum
 _HDR_FIELDS = (
@@ -950,7 +957,7 @@ _HDR_FIELDS = (
     "lr_ucols1", "lr_ucols2", "lr_rstride", "lr_cstride", "ss_x", "ss_y",
     "edge_filter", "width", "height", "lf_y0", "lf_y1", "lf_u", "lf_v",
     "lf_sharpness", "cdef_damping", "qm_y", "qm_u", "qm_v", "delta_q_res",
-    "delta_lf_res", "lf_delta_enabled", "lf_ref_delta_intra",
+    "delta_lf_res", "lf_delta_enabled", "lf_ref_delta_intra", "allow_intrabc",
 ) + tuple(f"cdef_{k}{i}" for i in range(8)
           for k in ("y_pri", "y_sec", "uv_pri", "uv_sec"))
 # the decoder's tool counters in the order of av1_header.h's T_* enum
@@ -960,7 +967,9 @@ TOOL_NAMES = (
     "part_horz_a", "part_horz_b", "part_vert_a", "part_vert_b",
     "part_horz_4", "part_vert_4", "cdef_idx_read", "cdef_units_varied",
     "lr_chroma_subsampled", "qm", "delta_q", "delta_lf", "film_grain",
-    "uv_palette", "twelve_bit",
+    "uv_palette", "twelve_bit", "intrabc", "intrabc_default_dv",
+    "intrabc_chroma_subpel", "vartx_split", "tx_inter_set1",
+    "tx_inter_set2", "tx_inter_set3", "tx_flip", "intrabc_sub8x8_chroma",
 )
 # the film grain pack (av1_header.h's G_* enum): field, length
 _GRAIN_FIELDS = (
@@ -1035,8 +1044,9 @@ def _tool_tables():
 
 
 def _reader_cdfs() -> dict:
-    """The default CDFs only the reader needs: delta q, delta LF and the
-    chroma palette's."""
+    """The default CDFs only the reader needs: delta q, delta LF, the
+    chroma palette's and intra block copy's (use_intrabc, the DV's MV
+    CDFs, the var-tx split and the inter transform types)."""
     from ..av1.frame import _adaptive
     from ..av1.tables import TABLES
 
@@ -1045,7 +1055,11 @@ def _reader_cdfs() -> dict:
             "delta_lf": _adaptive(t["delta_lf"]),
             "pal_uv_size": _adaptive(TABLES["palette_uv_size"]),
             **{f"pal_uv_ci{n}": _adaptive(TABLES[f"palette_uv_color_index_{n}"])
-               for n in range(2, 9)}}
+               for n in range(2, 9)},
+            **{k: _adaptive(t[k]) for k in (
+                "intrabc", "mv_joints", "mv_sign", "mv_classes", "mv_class0",
+                "mv_bits", "txfm_split", "inter_tx1", "inter_tx2",
+                "inter_tx3")}}
 
 
 def _constants():
@@ -1164,7 +1178,8 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
         lossless=int(fh.lossless), tx_mode=fh.tx_mode,
         reduced_tx_set=int(fh.reduced_tx_set),
         screen_tools=int(fh.screen_tools), filter_intra=int(s.filter_intra),
-        cdef_on=int(s.cdef and not fh.lossless), cdef_bits=fh.cdef_bits,
+        cdef_on=int(s.cdef and not (fh.lossless or fh.allow_intrabc)),
+        cdef_bits=fh.cdef_bits,
         disable_cdf_update=int(fh.disable_cdf_update),
         **dict(zip(("dq_y_dc", "dq_u_dc", "dq_u_ac", "dq_v_dc", "dq_v_ac"),
                    fh.dq)),
@@ -1180,6 +1195,7 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
         delta_q_res=fh.delta_q_res, delta_lf_res=fh.delta_lf_res,
         lf_delta_enabled=int(fh.lf_delta_enabled),
         lf_ref_delta_intra=fh.lf_ref_delta_intra,
+        allow_intrabc=int(fh.allow_intrabc),
         **{name: v for name, v in zip(_HDR_FIELDS[-32:], strengths)})
     hdr = np.array([fields[k] for k in _HDR_FIELDS], dtype=np.int32)
     starts = np.array(fh.tile_col_starts + fh.tile_row_starts, dtype=np.int32)

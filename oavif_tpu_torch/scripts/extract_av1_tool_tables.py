@@ -10,14 +10,28 @@ and write ``oavif_tpu_torch/io/av1_tool_tables.npz``:
 - ``delta_q`` and ``delta_lf``: the default CDFs of ``delta_q_abs`` and
   ``delta_lf_abs`` (spec Default_Delta_Q_Cdf, Default_Delta_Lf_Cdf; the
   multi-LF CDFs start as four copies of the latter), inverse-CDF uint16
-  with the closing 0, as the other tables store them.
+  with the closing 0, as the other tables store them;
+- the default CDFs of intra block copy: ``intrabc`` (use_intrabc), the
+  motion vector CDFs its DV reads (``mv_joints``, and per component
+  ``mv_sign``, ``mv_classes``, ``mv_class0`` and ``mv_bits``; libaom's
+  ``default_nmv_context``, which the DV context starts from; an integer
+  DV reads no fraction and no high-precision bit), ``txfm_split`` (the
+  21 contexts of the var-tx split) and the inter transform-type CDFs
+  ``inter_tx1`` (16 types), ``inter_tx2`` (12) and ``inter_tx3`` (2), each
+  by the square transform size 4x4 to 32x32.
 
 Each table is found by a structural signature and checked against anchor
 values before anything is written: the matrices by their first 4x4 (the
 spec's first row), the symmetry of every square matrix (and each w x h
 the transpose of h x w), their range and their product with the forward
 matrices that follow them in libaom's ``.rodata``; the Gaussian samples by their first eight values, their range
-and their spacing of 4; the CDFs by the spec's values.
+and their spacing of 4; the CDFs by the spec's values and by their shape
+(each row decreasing to its closing 0). libaom copies its small default
+CDFs into the frame context with immediate stores and 16-byte loads, so
+``intrabc`` is read from the one store of its value in ``.text``, and
+``txfm_split`` from its 16-byte chunks, which the linker keeps in order
+with the last one (the array's final 16 bytes, overlapping the one
+before) after them.
 
     python -m oavif_tpu_torch.scripts.extract_av1_tool_tables [LIBAOM]
 
@@ -50,9 +64,17 @@ GAUSS_FIRST = (56, 568, -180, 172, 124, -84, 172, -64)
 DELTA_CDF = (28160, 32120, 32677)  # AOM_CDF4, both delta-q and delta-LF
 
 
-def rodata(lib: str) -> bytes:
+NMV_JOINTS = (4096, 11264, 19328)  # AOM_CDF4
+INTRABC = 30531  # AOM_CDF2
+TXFM_SPLIT_ENDS = ((28581, 23846, 20847), (22401, 16088))
+INTER_TX1_FIRST = (4458, 5560, 7695)  # the 4x4 row of TX_SET_INTER_1
+# the nsym of each inter transform set (TX_SET_INTER_1, _2, _3)
+INTER_TX_NSYM = (16, 12, 2)
+
+
+def section(lib: str, name: str = ".rodata") -> bytes:
     with tempfile.NamedTemporaryFile(suffix=".bin") as f:
-        subprocess.run(["objcopy", "-O", "binary", "--only-section=.rodata",
+        subprocess.run(["objcopy", "-O", "binary", f"--only-section={name}",
                         lib, f.name], check=True)
         return Path(f.name).read_bytes()
 
@@ -113,13 +135,99 @@ def delta_cdf(data: bytes) -> np.ndarray:
     return unit[:4].astype(np.uint16)
 
 
+def _icdf(*probs) -> list:
+    return [32768 - p for p in probs]
+
+
+def _cdf_row(row, nsym: int, what: str) -> np.ndarray:
+    """One stored CDF row (nsym - 1 decreasing values, the closing 0 and
+    the counter 0) as the tables keep it: without the counter."""
+    row = np.asarray(row, np.int64)
+    vals = row[:nsym - 1]
+    require(np.all((vals > 0) & (vals < 32768)) and np.all(np.diff(vals) < 0)
+            and row[nsym - 1] == 0 and row[nsym] == 0, f"{what}: not a CDF")
+    return row[:nsym].astype(np.uint16)
+
+
+def mv_cdfs(data: bytes) -> dict:
+    """libaom's default_nmv_context: joints, then per component (vertical,
+    horizontal) classes, class0_fp[2], fp, sign, class0_hp, hp, class0 and
+    bits[10], each row with its counter."""
+    head = np.array(_icdf(*NMV_JOINTS) + [0, 0], "<u2").tobytes()
+    at = data.find(head)
+    require(at >= 0, "MV joints CDF not found")
+    comp = 12 + 2 * 5 + 5 + 3 + 3 + 3 + 3 + 10 * 3
+    a = np.frombuffer(data, "<u2", 5 + 2 * comp, at)
+    out = {"mv_joints": _cdf_row(a[:5], 4, "MV joints")}
+    comps = [a[5 + k * comp:5 + (k + 1) * comp] for k in range(2)]
+    require(np.array_equal(comps[0], comps[1]),
+            "the two MV components' defaults differ")
+    rows = {"mv_classes": [], "mv_sign": [], "mv_class0": [], "mv_bits": []}
+    for c in comps:
+        rows["mv_classes"].append(_cdf_row(c[:12], 11, "MV classes"))
+        for off in (12, 17, 22):  # class0_fp, fp: 4 symbols each
+            _cdf_row(c[off:off + 5], 4, "MV fraction")
+        rows["mv_sign"].append(_cdf_row(c[27:30], 2, "MV sign"))
+        for off in (30, 33):  # class0_hp, hp
+            _cdf_row(c[off:off + 3], 2, "MV high precision")
+        rows["mv_class0"].append(_cdf_row(c[36:39], 2, "MV class0"))
+        rows["mv_bits"].append(np.stack([_cdf_row(c[39 + 3 * i:42 + 3 * i], 2,
+                                                  "MV bits")
+                                         for i in range(10)]))
+    require(rows["mv_sign"][0][0] == 16384, "MV sign CDF")
+    out.update({k: np.stack(v) for k, v in rows.items()})
+    return out
+
+
+def intrabc_cdf(text: bytes) -> np.ndarray:
+    """The frame context's intrabc CDF: libaom stores it with one
+    ``mov dword [reg + disp32], imm32`` of its first two entries."""
+    imm = np.array(_icdf(INTRABC) + [0], "<u2").tobytes()
+    hits = [i for i in range(len(text)) if text.startswith(imm, i)
+            and i >= 6 and text[i - 6] == 0xC7 and 0x80 <= text[i - 5] <= 0x87]
+    require(len(hits) == 1, "intrabc CDF store: not exactly one")
+    return np.frombuffer(imm, "<u2").astype(np.uint16)
+
+
+def txfm_split_cdf(data: bytes) -> np.ndarray:
+    """default_txfm_partition_cdf, 21 CDF2 rows of 3 uint16 (126 bytes):
+    its first seven 16-byte chunks in order, then its last 16 bytes."""
+    first, last = TXFM_SPLIT_ENDS
+    at = find_once(data, np.array(sum(([v, 0, 0] for v in _icdf(*first)),
+                                      []), "<u2").tobytes(), "txfm split CDF")
+    body = data[at:at + 112] + data[at + 112 + 2:at + 112 + 16]
+    a = np.frombuffer(body, "<u2").reshape(21, 3)
+    rows = np.stack([_cdf_row(r, 2, "txfm split") for r in a])
+    require(tuple(32768 - rows[-2:, 0].astype(int)) == last,
+            "txfm split CDF: its last rows")
+    return rows
+
+
+def inter_tx_cdfs(data: bytes) -> dict:
+    """default_inter_ext_tx_cdf[4 sets][4 sizes][17]: set 0 (DCT only)
+    zero, then TX_SET_INTER_1, _2 and _3 each padded to 17 entries."""
+    at = find_once(data, np.array(_icdf(*INTER_TX1_FIRST), "<u2").tobytes(),
+                   "inter transform type CDF") - 4 * 17 * 2
+    a = np.frombuffer(data, "<u2", 4 * 4 * 17, at).reshape(4, 4, 17)
+    require(not a[0].any(), "inter transform type CDF: set 0 not empty")
+    out = {}
+    for s, n in enumerate(INTER_TX_NSYM, 1):
+        require(not a[s, :, n + 1:].any(), "inter transform type padding")
+        out[f"inter_tx{s}"] = np.stack([_cdf_row(r, n, f"inter set {s}")
+                                        for r in a[s]])
+    return out
+
+
 def main(argv: list) -> None:
     lib = argv[0] if argv else LIBAOM
-    data = rodata(lib)
+    data = section(lib)
     cdf = delta_cdf(data)
     tables = {"qm": quantizer_matrices(data),
               "gaussian_sequence": gaussian_sequence(data),
-              "delta_q": cdf, "delta_lf": cdf.copy()}
+              "delta_q": cdf, "delta_lf": cdf.copy(),
+              "intrabc": intrabc_cdf(section(lib, ".text")),
+              **mv_cdfs(data), "txfm_split": txfm_split_cdf(data),
+              **inter_tx_cdfs(data)}
     np.savez_compressed(OUT, **tables)
     for k, v in tables.items():
         print(f"{k}: {v.shape} {v.dtype}")

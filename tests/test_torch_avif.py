@@ -499,7 +499,9 @@ def _refusal_streams():
     return {
         "12-bit": _seq_header(seq, profile=2, twelve=True) + good_frame,
         "superres": _seq_header(seq, superres=True) + frame([0, 0, 1]),
-        "intrabc": _seq_header(seq) + frame([0, 1, 1, 0, 1]),
+        # screen tools, force_integer_mv, allow_intrabc, then as pre: the
+        # header reads no loop filter, CDEF or restoration fields
+        "intrabc": _seq_header(seq) + frame([0, 1, 1, 0, 1] + pre[3:]),
         "quantizer matrices": _seq_header(seq) + frame(pre + [1]),
         "segmentation": _seq_header(seq) + frame(pre + [0, 1]),
         "delta q": _seq_header(seq) + frame(pre + [0, 0, 1]),
@@ -528,6 +530,10 @@ LEARNED = {
     "delta q": lambda av1: (av1.frame.delta_q_res,
                             av1.frame.delta_lf_res) == (0, -1),
     "film grain": lambda av1: av1.frame.grain is not None,
+    "intrabc": lambda av1: (av1.frame.allow_intrabc, av1.frame.base_q,
+                            av1.frame.lf_levels, av1.frame.cdef_bits,
+                            av1.frame.lr_types, av1.frame.tx_mode) == (
+        True, 60, (0, 0, 0, 0), 0, (0, 0, 0), 1),
 }
 
 

@@ -12,7 +12,8 @@ tolerance:
   and to the manifest;
 - the decoder meets each tool it counts as often as the manifest says,
   and every tool in at least one fixture (the tools libaom writes only on
-  request, in ``tests/torch_fixtures/avif_tools``);
+  request, in ``tests/torch_fixtures/avif_tools``, and intrabc, in
+  ``tests/torch_fixtures/avif_screen``);
 - the 12-bit stream decodes (it was refused, naming 12-bit, before the
   decoder learned 12-bit).
 """
@@ -86,8 +87,10 @@ def test_fixture_decodes_to_its_manifest(name):
     assert _crc(decode_avif_to_rgb8(data)) == entry["rgb8_crc"]
 
 
-TOOLS_MADE = json.loads((FIXTURES.parent / "avif_tools"
-                         / "manifest.json").read_text())
+TOOLS_MADE = {**json.loads((FIXTURES.parent / "avif_tools"
+                            / "manifest.json").read_text()),
+              **json.loads((FIXTURES.parent / "avif_screen"
+                            / "manifest.json").read_text())}
 
 
 @pytest.mark.parametrize("tool", A.TOOL_NAMES)

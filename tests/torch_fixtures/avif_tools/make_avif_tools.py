@@ -272,24 +272,24 @@ def clap_files() -> dict:
 _FORMATS = {"4:4:4": 1, "4:2:2": 2, "4:2:0": 3}
 
 
-def libavif_encode(px: np.ndarray, depth: int, ss: str, quantizer: int,
-                   speed: int = 6, cicp=(2, 2, 6), full: bool = True,
-                   options: dict = ()) -> bytes:
-    """An AVIF of 8-bit RGB or RGBA at ``depth`` bits in ``ss``, written
-    by libavif 0.11.1 with libaom at one quantizer, with the given CICP,
-    range and libaom options (avifEncoderSetCodecSpecificOption)."""
+def _libavif() -> C.CDLL:
+    """The system libavif 0.11.1 with the signatures both writers use."""
     lib = C.CDLL("libavif.so.15")
     lib.avifImageCreate.restype = C.c_void_p
     lib.avifImageCreate.argtypes = [C.c_int, C.c_int, C.c_int, C.c_int]
     lib.avifRGBImageSetDefaults.argtypes = [C.c_void_p, C.c_void_p]
     lib.avifImageRGBToYUV.argtypes = [C.c_void_p, C.c_void_p]
     lib.avifEncoderCreate.restype = C.c_void_p
-    lib.avifEncoderSetCodecSpecificOption.argtypes = [
-        C.c_void_p, C.c_char_p, C.c_char_p]
-    lib.avifEncoderWrite.argtypes = [C.c_void_p, C.c_void_p, C.c_void_p]
     lib.avifEncoderDestroy.argtypes = [C.c_void_p]
     lib.avifImageDestroy.argtypes = [C.c_void_p]
     lib.avifRWDataFree.argtypes = [C.c_void_p]
+    return lib
+
+
+def avif_image(lib: C.CDLL, px: np.ndarray, depth: int, ss: str,
+               cicp=(2, 2, 6), full: bool = True) -> int:
+    """An avifImage (the caller destroys it) of 8-bit RGB or RGBA at
+    ``depth`` bits in ``ss``, with the given CICP and range."""
     h, w, ch = px.shape
     img = lib.avifImageCreate(w, h, depth, _FORMATS[ss])
     C.cast(C.c_void_p(img), C.POINTER(C.c_uint32))[4] = int(full)
@@ -306,7 +306,22 @@ def libavif_encode(px: np.ndarray, depth: int, ss: str, quantizer: int,
     C.c_void_p.from_buffer(rgbimg, 40).value = px.ctypes.data
     fields[48 // 4] = ch * w
     if lib.avifImageRGBToYUV(img, C.addressof(rgbimg)):
+        lib.avifImageDestroy(img)
         raise RuntimeError("avifImageRGBToYUV")
+    return img
+
+
+def libavif_encode(px: np.ndarray, depth: int, ss: str, quantizer: int,
+                   speed: int = 6, cicp=(2, 2, 6), full: bool = True,
+                   options: dict = ()) -> bytes:
+    """An AVIF of 8-bit RGB or RGBA at ``depth`` bits in ``ss``, written
+    by libavif 0.11.1 with libaom at one quantizer, with the given CICP,
+    range and libaom options (avifEncoderSetCodecSpecificOption)."""
+    lib = _libavif()
+    lib.avifEncoderSetCodecSpecificOption.argtypes = [
+        C.c_void_p, C.c_char_p, C.c_char_p]
+    lib.avifEncoderWrite.argtypes = [C.c_void_p, C.c_void_p, C.c_void_p]
+    img = avif_image(lib, px, depth, ss, cicp, full)
     enc = lib.avifEncoderCreate()
     e32 = C.cast(C.c_void_p(enc), C.POINTER(C.c_int32))
     # avifEncoder (0.11): codecChoice, maxThreads, speed, keyframeInterval,
