@@ -2533,6 +2533,9 @@ AVIF_TOOLS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "tests", "torch_fixtures", "avif_tools")
 AVIF_SCREEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "tests", "torch_fixtures", "avif_screen")
+AVIF_CONTAINER_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+    "avif_container")
 
 
 def _read_avif_fixtures(folder: str) -> dict:
@@ -2540,10 +2543,12 @@ def _read_avif_fixtures(folder: str) -> dict:
     (dav1d's Y'UV, and the reference's ``load_avif`` and
     ``decode_avif_to_rgb8`` pixels as Pillow gave them when the fixtures
     were made) and, where the manifest counts them, meets each tool the
-    decoder counts as often; each read timed (median of 5), split into
-    parse and tile decode, post-filters, film grain and conversion; a
-    refusal fixture raises ``ValueError`` naming its tool. Returns the
-    loaded images by file name."""
+    decoder counts as often, and where the manifest records them, the
+    source libavif 1.3 reads (item or track), the grid's rows and columns,
+    the alpha and its premultiplication; each read timed (median of 5),
+    split into parse and tile decode, post-filters, film grain, a grid's
+    stitch and conversion; a refusal fixture raises ``ValueError`` naming
+    its tool. Returns the loaded images by file name."""
     from oavif_tpu_torch.io import avif
     from oavif_tpu_torch.io.image import load_avif
 
@@ -2572,7 +2577,7 @@ def _read_avif_fixtures(folder: str) -> dict:
             times.append(time.perf_counter() - t0)
             split.append(t)
         img = load_avif(path)
-        _, color, _ = avif.decode_avif(data)
+        box, color, alpha = avif.decode_avif(data)
         yuv = np.concatenate([p.astype("<u2").reshape(-1)
                               for p in color.planes])
         got = (list(img.data.shape), img.hbd, len(img.icc or b""),
@@ -2582,12 +2587,18 @@ def _read_avif_fixtures(folder: str) -> dict:
         want = (entry["load_shape"], entry["load_hbd"], entry["icc"],
                 entry["load_crc"], entry["yuv_crc"], entry["rgb8_crc"],
                 entry.get("tools"))
+        if "source" in entry:
+            got += (box.source, list(box.color.grid[:2]) if box.color.grid
+                    else None, alpha is not None, box.premultiplied,
+                    alpha.tools if alpha else None)
+            want += (entry["source"], entry["grid"], entry["alpha"],
+                     entry["premultiplied"], entry["alpha_tools"])
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         loaded[name] = img
         parts = ", ".join(
             f"{k} {np.median([t.get(k, 0.0) for t in split]) * 1e3:.3f}"
-            for k in ("parse", "filters", "grain", "convert"))
+            for k in ("parse", "filters", "grain", "stitch", "convert"))
         fmt = ("4:0:0" if color.mono else
                {(0, 0): "4:4:4", (1, 0): "4:2:2", (1, 1): "4:2:0"}[color.ss])
         print(f"  {name} {img.width}x{img.height}x{img.channels} "
@@ -2611,15 +2622,21 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     intrabc) and of ``tests/torch_fixtures/avif_screen`` (screen content,
     which libaom codes with intrabc at its defaults: every subsampling,
     speeds 2-7, qualities 30-100, alpha, two tiles, 128-pixel
-    superblocks, 10 and 12 bits, 512x512 and 3840x2160; the ``grid`` file
-    must raise naming the derived item) decodes to its manifest
-    (``_read_avif_fixtures``), the reads split into parse and tile
-    decode, post-filters, film grain and conversion (the median of 5).
+    superblocks, 10 and 12 bits, 512x512 and 3840x2160, and libavif's
+    ``grid`` of two cells) and of ``tests/torch_fixtures/avif_container``
+    (grids, among them a cropped one and 3840x2160 of four 1920x1080
+    cells; premultiplied alpha at 8, 10 and 12 bits; sequences, one
+    without ``meta``; segmentation; an ``iovl`` item and ``iloc``
+    construction method 2, which must raise naming the feature) decodes
+    to its manifest (``_read_avif_fixtures``), the reads split into parse
+    and tile decode, post-filters, film grain, a grid's stitch and
+    conversion (the median of 5).
     Then the CLI ``-t 80`` on the six class AVIFs and ``-q 60`` on the
     3840x2160 one of the first two folders, ``-q 60`` on the 3840x2160
     ``tune=iq`` frame with film grain, ``-t 80`` on the 512x512
-    limited-range file with an ``irot``, ``-t 80`` on the 512x512 screen
-    and ``-q 60`` on the 3840x2160 screen: q, passes and bytes must be
+    limited-range file with an ``irot``, ``-t 80`` on the 512x512 screen,
+    ``-q 60`` on the 3840x2160 screen, ``-q 60`` on the 3840x2160 grid and
+    ``-t 80`` on the 512x512 segmented sequence: q, passes and bytes must be
     those of the CLI on the same
     pixels, written as PAM where they are 8-bit and handed over in memory
     where they are 16-bit (PAM holds 8 bits). Returns the kernels'
@@ -2638,7 +2655,9 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
                               ("limited_512_orient6_420_mixed.avif",
                                ["-t", "80"])]),
             (AVIF_SCREEN_DIR, [("screen512.avif", ["-t", "80"]),
-                               ("screen4k.avif", ["-q", "60"])])):
+                               ("screen4k.avif", ["-q", "60"])]),
+            (AVIF_CONTAINER_DIR, [("grid4k_420.avif", ["-q", "60"]),
+                                  ("seg512_420_q60.avif", ["-t", "80"])])):
         loaded = _read_avif_fixtures(folder)
         runs += [(os.path.join(folder, name), loaded[name], args)
                  for name, args in picks]

@@ -65,7 +65,7 @@ enum {
     D_PAL_UV_CI2, D_PAL_UV_CI3, D_PAL_UV_CI4, D_PAL_UV_CI5, D_PAL_UV_CI6,
     D_PAL_UV_CI7, D_PAL_UV_CI8, D_INTRABC, D_MV_JOINTS, D_MV_SIGN,
     D_MV_CLASSES, D_MV_CLASS0, D_MV_BITS, D_TXFM_SPLIT, D_INTER_TX1,
-    D_INTER_TX2, D_INTER_TX3, D_NCDF
+    D_INTER_TX2, D_INTER_TX3, D_SEGMENT_ID, D_NCDF
 };
 
 #include "av1_header.h"
@@ -163,6 +163,13 @@ typedef struct {
     const int32_t *dc_lut, *ac_lut;
     int delta_lf;             /* DeltaLF (one for every plane and direction) */
     int8_t *mi_dlf;           /* DeltaLF of every mi */
+    /* segmentation (spec 5.9.14): enabled, SegIdPreSkip,
+     * LastActiveSegId, the ALT_Q segments and data, LosslessArray as a
+     * mask; CodedLossless; the current block's segment_id, Lossless and
+     * get_qindex(1, segment_id); SegmentIds of every mi */
+    int seg_enabled, seg_preskip, seg_last, seg_altq_mask, seg_altq[8];
+    int seg_lossless_mask, coded_lossless, seg_id, txq;
+    uint8_t *mi_seg;
     /* quantizer matrices: the level of each plane (15 = flat) */
     int qm_level[3];
     const uint8_t *qm;
@@ -889,7 +896,7 @@ static int read_coeffs(Dec *d, const Blk *b, int plane, int x, int y,
              * square size */
             int set = inter_tx_set(d, wl, hl);
             txtype = DCT_DCT;
-            if (set != SET_DCTONLY && d->base_q > 0) {
+            if (set != SET_DCTONLY && d->txq > 0) {
                 if (set == SET_INTER_1)
                     txtype = TX_INTER_INV_SET1[read_symbol(
                         d, d->cdf[D_INTER_TX1] + (size_t)sqr * 17, 16)];
@@ -905,7 +912,7 @@ static int read_coeffs(Dec *d, const Blk *b, int plane, int x, int y,
         } else if (plane == 0) {
             int set = tx_set(d, wl, hl);
             txtype = DCT_DCT;
-            if (set != SET_DCTONLY && d->base_q > 0) {
+            if (set != SET_DCTONLY && d->txq > 0) {
                 int dir = b->use_fi ? FILTER_INTRA_TO_DIR[b->fi_mode] : b->ymode;
                 if (set == SET_INTRA_1)
                     txtype = TX_INTRA_INV_SET1[read_symbol(
@@ -1371,7 +1378,7 @@ static void palette_tokens(Dec *d, Blk *b) {
 }
 
 static void read_cdef(Dec *d, Blk *b) {
-    if (b->skip || d->lossless || !d->cdef_on) return;
+    if (b->skip || d->coded_lossless || !d->cdef_on) return;
     int r = b->r & ~15, c = b->c & ~15;
     int8_t *ci = d->cdef_idx + (size_t)(r >> 4) * d->cdef_stride + (c >> 4);
     if (*ci == -1) {
@@ -1509,13 +1516,59 @@ static void filter_types(Dec *d, Blk *b) {
 }
 
 /* CurrentQIndex and the dequantizers of each plane at it */
-static void set_qidx(Dec *d, int qidx) {
-    d->qidx = qidx;
+/* the dequantizers of qindex ``qidx`` (spec 7.12.2 dc_q and ac_q) */
+static void set_dequant(Dec *d, int qidx) {
     for (int p = 0; p < 3; p++) {
         int dc = p ? d->dq[2 * p - 1] : d->dq[0], ac = p ? d->dq[2 * p] : 0;
         d->qdc[p] = d->dc_lut[imin(imax(qidx + dc, 0), 255)];
         d->qac[p] = d->ac_lut[imin(imax(qidx + ac, 0), 255)];
     }
+}
+
+/* CurrentQIndex, and the dequantizers that follow it */
+static void set_qidx(Dec *d, int qidx) {
+    d->qidx = qidx;
+    set_dequant(d, qidx);
+}
+
+/* spec get_qindex: a segment's ALT_Q moves base_q_idx, or CurrentQIndex
+ * under delta q where ``ignore_dq`` is 0 */
+static int get_qindex(const Dec *d, int ignore_dq, int seg) {
+    int q = !ignore_dq && d->delta_q_res >= 0 ? d->qidx : d->base_q;
+    if (d->seg_altq_mask >> seg & 1) return imin(imax(q + d->seg_altq[seg], 0), 255);
+    return q;
+}
+
+/* spec neg_deinterleave */
+static int neg_deinterleave(int diff, int ref, int max) {
+    if (!ref) return diff;
+    if (ref >= max - 1) return max - diff - 1;
+    if (2 * ref < max) {
+        if (diff <= 2 * ref) return diff & 1 ? ref + ((diff + 1) >> 1) : ref - (diff >> 1);
+        return diff;
+    }
+    if (diff <= 2 * (max - ref - 1))
+        return diff & 1 ? ref + ((diff + 1) >> 1) : ref - (diff >> 1);
+    return max - (diff + 1);
+}
+
+/* spec intra_segment_id / read_segment_id: the id predicted from the
+ * above-left, above and left ids (a skipped block takes it), else coded
+ * against it in the context of how many of the three agree */
+static int read_segment_id(Dec *d, const Blk *b, int skip) {
+    int ul = -1, u = -1, l = -1;
+    if (b->avail_u && b->avail_l) ul = d->mi_seg[mi_at(d, b->r - 1, b->c - 1)];
+    if (b->avail_u) u = d->mi_seg[mi_at(d, b->r - 1, b->c)];
+    if (b->avail_l) l = d->mi_seg[mi_at(d, b->r, b->c - 1)];
+    int pred = u == -1 ? (l == -1 ? 0 : l) : l == -1 ? u : ul == u ? u : l;
+    if (skip) {
+        d->count[T_SEG_PRED_SKIP]++;
+        return pred;
+    }
+    int ctx = ul < 0 ? 0 : (ul == u && ul == l) ? 2 : (ul == u || ul == l || u == l) ? 1 : 0;
+    int v = read_symbol(d, d->cdf[D_SEGMENT_ID] + (size_t)ctx * 9, 8);
+    d->count[T_SEGMENTATION]++;
+    return imin(imax(neg_deinterleave(v, pred, d->seg_last + 1), 0), d->seg_last);
 }
 
 /* a delta_q_abs / delta_lf_abs value: the symbol, or past DELTA_*_SMALL
@@ -1755,10 +1808,25 @@ static void intra_mode_info(Dec *d, Blk *b) {
     int skip_ctx = 0;
     if (b->avail_u) skip_ctx += d->mi_skip[mi_at(d, b->r - 1, b->c)];
     if (b->avail_l) skip_ctx += d->mi_skip[mi_at(d, b->r, b->c - 1)];
+    int seg = 0;
+    if (d->seg_enabled && d->seg_preskip) {
+        seg = read_segment_id(d, b, 0);
+        d->count[T_SEG_PRESKIP]++;
+    }
     b->skip = read_symbol(d, d->cdf[D_SKIP] + (size_t)skip_ctx * 3, 2);
+    if (d->seg_enabled && !d->seg_preskip) seg = read_segment_id(d, b, b->skip);
+    d->seg_id = seg;
+    d->lossless = d->seg_lossless_mask >> seg & 1;
     read_cdef(d, b);
     if (d->delta_q_res >= 0) read_deltas(d, b);
     d->read_deltas = 0;
+    if (d->seg_enabled) {
+        /* the block's dequantizers at get_qindex(0, segment_id); its
+         * transform types are read where get_qindex(1, segment_id) > 0 */
+        set_dequant(d, get_qindex(d, 0, seg));
+        d->txq = get_qindex(d, 1, seg);
+        if (d->seg_altq_mask >> seg & 1 && d->seg_altq[seg]) d->count[T_SEG_ALT_Q]++;
+    }
     b->is_inter = d->allow_intrabc && read_symbol(d, d->cdf[D_INTRABC], 2);
     if (b->is_inter) {
         /* as libaom's read_intrabc_info: DC_PRED for the kf_y context,
@@ -1876,6 +1944,7 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
             if (b->pal_uv_n)
                 memcpy(d->mi_pal_u + (size_t)m * 8, b->pal_u, sizeof(b->pal_u));
             d->mi_dlf[m] = (int8_t)d->delta_lf;
+            d->mi_seg[m] = (uint8_t)d->seg_id;
         }
     if (d->bd == 12) d->count[T_TWELVE_BIT]++;
     b->max_luma_w = b->max_luma_h = 0;
@@ -2140,7 +2209,14 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->sb128 = hdr[H_SB128];
     d->sb4 = d->sb128 ? 32 : 16;
     d->base_q = hdr[H_BASE_Q];
-    d->lossless = hdr[H_LOSSLESS];
+    d->lossless = d->coded_lossless = hdr[H_LOSSLESS];
+    d->txq = d->base_q;
+    d->seg_enabled = hdr[H_SEG_ENABLED];
+    d->seg_preskip = hdr[H_SEG_PRESKIP];
+    d->seg_last = hdr[H_SEG_LAST_ACTIVE];
+    d->seg_altq_mask = hdr[H_SEG_ALT_Q_MASK];
+    for (int i = 0; i < 8; i++) d->seg_altq[i] = hdr[H_SEG_ALT_Q0 + i];
+    d->seg_lossless_mask = hdr[H_SEG_LOSSLESS_MASK];
     d->tx_mode = hdr[H_TX_MODE];
     d->reduced_tx_set = hdr[H_REDUCED_TX_SET];
     d->screen_tools = hdr[H_SCREEN_TOOLS];
@@ -2183,7 +2259,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->cdef_idx = cdef_idx;
     memset(cdef_idx, -1, (size_t)d->cdef_stride * ((d->mi_rows + 15) / 16));
     size_t nmi = (size_t)d->mi_rows * d->mi_cols;
-    uint8_t *mi8 = (uint8_t *)calloc(nmi * 9, 1);
+    uint8_t *mi8 = (uint8_t *)calloc(nmi * 10, 1);
     d->mi_pal = (uint16_t *)calloc(nmi * 16, sizeof(uint16_t));
     d->mi_mv = (int16_t *)calloc(nmi * 2, sizeof(int16_t));
     uint8_t *ctxmem = (uint8_t *)calloc((size_t)4 * 3 * ((size_t)d->mi_cols + d->mi_rows + 64), 1);
@@ -2199,7 +2275,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->mi_ymode = mi8 + 2 * nmi; d->mi_uvmode = mi8 + 3 * nmi;
     d->mi_txw = mi8 + 4 * nmi; d->mi_txh = mi8 + 5 * nmi;
     d->mi_paln = mi8 + 6 * nmi; d->mi_paln_uv = mi8 + 7 * nmi;
-    d->mi_inter = mi8 + 8 * nmi;
+    d->mi_inter = mi8 + 8 * nmi; d->mi_seg = mi8 + 9 * nmi;
     d->mi_pal_u = d->mi_pal + nmi * 8;
     {
         size_t ac = (size_t)d->mi_cols + 32, lc = (size_t)d->mi_rows + 32;

@@ -32,6 +32,14 @@ enum {
     H_LF_DELTA_ENABLED, H_LF_REF_DELTA_INTRA,
     /* allow_intrabc (the strength sets stay the pack's tail) */
     H_ALLOW_INTRABC,
+    /* segmentation_params of a key frame (update_map 1, temporal_update
+     * 0): segmentation_enabled, SegIdPreSkip, LastActiveSegId, the
+     * segments with SEG_LVL_ALT_Q (bit i for segment i) and their
+     * FeatureData, and LosslessArray as a mask (H_LOSSLESS is then
+     * CodedLossless) */
+    H_SEG_ENABLED, H_SEG_PRESKIP, H_SEG_LAST_ACTIVE, H_SEG_ALT_Q_MASK,
+    H_SEG_ALT_Q0, H_SEG_ALT_Q1, H_SEG_ALT_Q2, H_SEG_ALT_Q3, H_SEG_ALT_Q4,
+    H_SEG_ALT_Q5, H_SEG_ALT_Q6, H_SEG_ALT_Q7, H_SEG_LOSSLESS_MASK,
     /* the 1 << cdef_bits strength sets (y primary, y secondary, uv
      * primary, uv secondary; secondary 3 already read as 4) */
     H_CDEF_STRENGTHS,
@@ -78,6 +86,10 @@ enum {
      * and transform blocks reconstructed with a FLIPADST */
     T_VARTX_SPLIT, T_TX_INTER_SET1, T_TX_INTER_SET2, T_TX_INTER_SET3,
     T_TX_FLIP, T_INTRABC_SUB8X8_CHROMA,
+    /* segmentation: segment ids read, blocks whose segment moved their
+     * qindex (SEG_LVL_ALT_Q), ids read before skip (SegIdPreSkip), and
+     * skipped blocks that took the predicted id */
+    T_SEGMENTATION, T_SEG_ALT_Q, T_SEG_PRESKIP, T_SEG_PRED_SKIP,
     T_NCOUNTERS
 };
 

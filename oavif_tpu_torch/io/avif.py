@@ -117,7 +117,10 @@ class _Reader:
 
 @dataclass
 class Av1Item:
-    """One AV1 image item: its coded payload and its properties."""
+    """One image item (or a sequence's track): its coded payload and its
+    properties. A ``grid`` item keeps its descriptor in ``grid`` and its
+    cells, in raster order, in ``cells``; its ``payload`` and ``av1c``
+    are those of its first cell."""
 
     item_id: int
     payload: bytes
@@ -131,12 +134,21 @@ class Av1Item:
     irot: int = 0  # anticlockwise quarter turns
     imir: Optional[int] = None  # mirror axis: 0 vertical, 1 horizontal
     clap: Optional[Tuple[int, ...]] = None  # the 8 fields of the box
+    grid: Optional[Tuple[int, int, int, int]] = None  # rows, cols, w, h
+    cells: List["Av1Item"] = field(default_factory=list)
 
 
 @dataclass
 class AvifContainer:
+    """The image an AVIF file shows, as libavif 1.3 picks it: the primary
+    item, or sample 0 of the colour track where the major brand is
+    ``avis`` (``source`` says which); its alpha, and whether the colour
+    is premultiplied by it (``prem``)."""
+
     color: Av1Item
     alpha: Optional[Av1Item] = None
+    premultiplied: bool = False
+    source: str = "item"
 
 
 @dataclass
@@ -265,18 +277,15 @@ def _item_payload(data: bytes, m: _Meta, item_id: int) -> bytes:
 
 _KNOWN = {b"ispe", b"pixi", b"av1C", b"colr", b"auxC", b"pasp", b"a1lx",
           b"clli", b"mdcv", b"cclv", b"amve", b"irot", b"imir", b"clap"}
+# libavif 1.3's limits on a grid's output size (imageSizeLimit,
+# imageDimensionLimit)
+_GRID_MAX_PIXELS = 16384 * 16384
+_GRID_MAX_SIDE = 32768
 
 
-def _av1_item(data: bytes, m: _Meta, item_id: int, what: str) -> Av1Item:
-    typ = m.types.get(item_id)
-    if typ is None:
-        raise _broken(f"{what} item {item_id} has no infe entry")
-    if typ != b"av01":
-        raise UnsupportedAvif(
-            f"AVIF: {what} item of type {typ.decode('latin-1')!r} "
-            f"(derived or non-AV1 image items are not supported yet)")
-    it = Av1Item(item_id, _item_payload(data, m, item_id))
-    for idx, essential in m.assoc.get(item_id, []):
+def _properties(data: bytes, m: _Meta, it: Av1Item, what: str) -> None:
+    """Fill ``it`` from the properties ``ipma`` associates with it."""
+    for idx, essential in m.assoc.get(it.item_id, []):
         if idx == 0:
             continue
         if idx > len(m.props):
@@ -297,17 +306,38 @@ def _av1_item(data: bytes, m: _Meta, item_id: int, what: str) -> Av1Item:
             if len(it.av1c) < 4 or it.av1c[0] != 0x81:
                 raise _broken("av1C")
         elif ptyp == b"colr":
-            kind = p.take(4)
-            if kind == b"nclx":
-                cp, tc, mc, fr = p.u(2), p.u(2), p.u(2), p.u(1)
-                if it.nclx is None:
-                    it.nclx = (cp, tc, mc, bool(fr >> 7))
-            elif kind in (b"prof", b"rICC"):
-                if it.icc is None:
-                    it.icc = data[p.pos:pe]
+            _colr(data, p, pe, it)
         elif essential and ptyp not in _KNOWN:
             raise UnsupportedAvif(f"AVIF: essential property "
-                                  f"{ptyp.decode('latin-1')!r}")
+                                  f"{ptyp.decode('latin-1')!r} of the "
+                                  f"{what} item")
+
+
+def _colr(data: bytes, p: _Reader, end: int, it: Av1Item) -> None:
+    """A ``colr`` box: the first ``nclx`` and the first ICC profile."""
+    kind = p.take(4)
+    if kind == b"nclx":
+        cp, tc, mc, fr = p.u(2), p.u(2), p.u(2), p.u(1)
+        if it.nclx is None:
+            it.nclx = (cp, tc, mc, bool(fr >> 7))
+    elif kind in (b"prof", b"rICC"):
+        if it.icc is None:
+            it.icc = data[p.pos:end]
+
+
+def _av1_item(data: bytes, m: _Meta, item_id: int, what: str) -> Av1Item:
+    typ = m.types.get(item_id)
+    if typ is None:
+        raise _broken(f"{what} item {item_id} has no infe entry")
+    if typ == b"grid":
+        return _grid_item(data, m, item_id, what)
+    if typ != b"av01":
+        raise UnsupportedAvif(
+            f"AVIF: {what} item of type {typ.decode('latin-1')!r} "
+            f"(derived items other than 'grid' and non-AV1 image items are "
+            f"not supported, as libavif 1.3 supports none)")
+    it = Av1Item(item_id, _item_payload(data, m, item_id))
+    _properties(data, m, it, what)
     if not it.av1c:
         raise _broken(f"{what} item without av1C")
     if not it.width or not it.height:
@@ -315,21 +345,45 @@ def _av1_item(data: bytes, m: _Meta, item_id: int, what: str) -> Av1Item:
     return it
 
 
-def read_container(data: bytes) -> AvifContainer:
-    """The primary AV1 item of an AVIF file and its alpha item, if any."""
-    top = list(_boxes(data, 0, len(data)))
-    if not top or top[0][0] != b"ftyp":
-        raise _broken("no ftyp box")
-    _, fs, fe = top[0]
-    if fe - fs < 8 or (fe - fs) % 4:
-        raise _broken("ftyp size")
-    brands = {data[fs:fs + 4]} | {data[i:i + 4] for i in range(fs + 8, fe, 4)}
-    if not brands & {b"avif", b"avis"}:
-        raise _broken("not an AVIF brand")
-    types = [t for t, _, _ in top]
-    if b"moov" in types:
-        raise UnsupportedAvif("AVIF: image sequences (moov) are not "
-                              "supported yet")
+def _grid_item(data: bytes, m: _Meta, item_id: int, what: str) -> Av1Item:
+    """A ``grid`` derived item (ISO/IEC 23008-12 6.6.2.3): its descriptor,
+    its own properties and its ``dimg`` cells, each an AV1 item, with
+    libavif 1.3's checks of the descriptor and the cells' types,
+    properties and ``av1C``."""
+    desc = _item_payload(data, m, item_id)
+    r = _Reader(desc, 0, len(desc), "grid")
+    version = r.u(1)
+    if version != 0:
+        raise _broken(f"grid version {version}")
+    flags = r.u(1)
+    rows, cols = r.u(1) + 1, r.u(1) + 1
+    n = 4 if flags & 1 else 2
+    ow, oh = r.u(n), r.u(n)
+    if r.pos != r.end:
+        raise _broken("grid descriptor size")
+    if not ow or not oh:
+        raise _broken(f"grid output size {ow}x{oh}")
+    if ow * oh > _GRID_MAX_PIXELS or max(ow, oh) > _GRID_MAX_SIDE:
+        raise _broken(f"grid output size {ow}x{oh} is too large")
+    ids = [d for rtyp, src, dst in m.refs if rtyp == b"dimg" and src == item_id
+           for d in dst]
+    if len(ids) != rows * cols:
+        raise _broken(f"grid of {rows}x{cols} cells with {len(ids)} dimg "
+                      "references")
+    cells = [_av1_item(data, m, i, f"{what} grid cell") for i in ids]
+    if any(c.av1c[1:3] != cells[0].av1c[1:3] for c in cells):
+        raise _broken("the av1C of the grid cells differ")
+    it = Av1Item(item_id, cells[0].payload, ow, oh,
+                 grid=(rows, cols, ow, oh), cells=cells)
+    _properties(data, m, it, what)
+    if (it.width, it.height) != (ow, oh):
+        raise _broken(f"grid ispe {it.width}x{it.height}, output size "
+                      f"{ow}x{oh}")
+    it.av1c = cells[0].av1c  # libavif adopts the first cell's
+    return it
+
+
+def _read_items(data: bytes, top: list) -> AvifContainer:
     metas = [(s, e) for t, s, e in top if t == b"meta"]
     if len(metas) != 1:
         raise _broken("no meta box" if not metas else "two meta boxes")
@@ -346,14 +400,169 @@ def read_container(data: bytes) -> AvifContainer:
                     urn = _Reader(data, ps + 4, pe, "auxC").cstring()
                     if urn in ALPHA_URNS and alpha_id is None:
                         alpha_id = src
-    if alpha_id is not None:
-        for rtyp, src, dst in m.refs:
-            if rtyp == b"prem" and src == m.primary and alpha_id in dst:
-                raise UnsupportedAvif("AVIF: premultiplied alpha (prem) is "
-                                      "not supported yet")
-    alpha = _av1_item(data, m, alpha_id, "alpha") if alpha_id is not None \
-        else None
-    return AvifContainer(color, alpha)
+    if alpha_id is None:
+        return AvifContainer(color)
+    prem = any(rtyp == b"prem" and src == m.primary and alpha_id in dst
+               for rtyp, src, dst in m.refs)
+    return AvifContainer(color, _av1_item(data, m, alpha_id, "alpha"), prem)
+
+
+# ---------------------------------------------------------------------------
+# Image sequences: sample 0 of the colour track
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _Track:
+    track_id: int = 0
+    width: int = 0
+    height: int = 0
+    refs: Dict[bytes, List[int]] = field(default_factory=dict)
+    entry: Optional[Av1Item] = None  # the av01 sample entry's properties
+    aux_urn: Optional[bytes] = None
+    chunk0: Optional[int] = None  # the first chunk's offset
+    first_run: int = 0  # samples in the first chunk
+    size0: int = 0  # sample 0's size
+
+
+def _child(data: bytes, start: int, end: int, typ: bytes):
+    for t, s, e in _boxes(data, start, end):
+        if t == typ:
+            return s, e
+    return None
+
+
+def _parse_trak(data: bytes, start: int, end: int) -> _Track:
+    """What libavif reads of a ``trak`` to find its sample 0: ``tkhd``,
+    ``tref``, and ``mdia``/``minf``/``stbl`` (``stsd`` with the ``av01``
+    sample entry, ``stsc``, ``stco`` or ``co64``, ``stsz``)."""
+    t = _Track()
+    for typ, s, e in _boxes(data, start, end):
+        if typ == b"tkhd":
+            r = _Reader(data, s, e, "tkhd")
+            v, _ = r.fullbox()
+            r.take(16 if v == 1 else 8)
+            t.track_id = r.u(4)
+            r.take(4 + (8 if v == 1 else 4) + 8 + 8 + 36)
+            t.width, t.height = r.u(4) >> 16, r.u(4) >> 16
+        elif typ == b"tref":
+            for rtyp, rs, re_ in _boxes(data, s, e):
+                r = _Reader(data, rs, re_, "tref")
+                t.refs.setdefault(rtyp, []).extend(
+                    r.u(4) for _ in range((re_ - rs) // 4))
+        elif typ == b"mdia":
+            minf = _child(data, s, e, b"minf")
+            stbl = minf and _child(data, *minf, b"stbl")
+            if stbl:
+                _parse_stbl(data, *stbl, t)
+    return t
+
+
+def _parse_stbl(data: bytes, start: int, end: int, t: _Track) -> None:
+    for typ, s, e in _boxes(data, start, end):
+        r = _Reader(data, s, e, typ.decode("latin-1"))
+        if typ == b"stsd":
+            r.fullbox()
+            r.u(4)
+            for etyp, es, ee in _boxes(data, r.pos, e):
+                if etyp != b"av01" or t.entry is not None:
+                    continue
+                if ee - es < 78:
+                    raise _broken("av01 sample entry size")
+                it = Av1Item(0, b"")
+                for ptyp, ps, pe in _boxes(data, es + 78, ee):
+                    if ptyp == b"av1C":
+                        it.av1c = data[ps:pe]
+                        if len(it.av1c) < 4 or it.av1c[0] != 0x81:
+                            raise _broken("av1C")
+                    elif ptyp == b"colr":
+                        _colr(data, _Reader(data, ps, pe, "colr"), pe, it)
+                    elif ptyp == b"auxi":
+                        t.aux_urn = _Reader(data, ps + 4, pe, "auxi").cstring()
+                t.entry = it
+        elif typ == b"stsc":
+            r.fullbox()
+            n = r.u(4)
+            if n:
+                first, per = r.u(4), r.u(4)
+                if first != 1 or per == 0:
+                    raise _broken("sample table: the first chunk holds no "
+                                  "sample")
+                t.first_run = per
+        elif typ in (b"stco", b"co64"):
+            r.fullbox()
+            if r.u(4):
+                t.chunk0 = r.u(4 if typ == b"stco" else 8)
+        elif typ == b"stsz":
+            r.fullbox()
+            size, count = r.u(4), r.u(4)
+            if count:
+                t.size0 = size or r.u(4)
+
+
+def _track_item(data: bytes, t: _Track, what: str) -> Av1Item:
+    if not t.width or not t.height:
+        raise _broken(f"{what} track {t.track_id} size {t.width}x{t.height}")
+    if not t.entry.av1c:
+        raise _broken(f"{what} track without av1C")
+    if t.chunk0 is None or not t.first_run or not t.size0:
+        raise _broken(f"{what} track without a sample")
+    if t.chunk0 + t.size0 > len(data):
+        raise _broken("sample data past the end of the file")
+    it = t.entry
+    it.item_id, it.width, it.height = t.track_id, t.width, t.height
+    it.payload = data[t.chunk0:t.chunk0 + t.size0]
+    return it
+
+
+def _read_tracks(data: bytes, top: list) -> AvifContainer:
+    """Sample 0 of the colour track (the first AV1 track that is no
+    auxiliary of another) and of its alpha track (an AV1 track whose
+    ``tref`` ``auxl`` names it and whose sample entry's ``auxi`` names
+    alpha), as libavif 1.3 reads an image sequence's first frame."""
+    moov = [(s, e) for t, s, e in top if t == b"moov"]
+    if len(moov) != 1:
+        raise _broken("no moov box" if not moov else "two moov boxes")
+    tracks = [_parse_trak(data, s, e) for t, s, e in _boxes(data, *moov[0])
+              if t == b"trak"]
+    usable = [t for t in tracks if t.track_id and t.entry is not None
+              and t.chunk0 is not None]
+    colors = [t for t in usable if not t.refs.get(b"auxl")]
+    if not colors:
+        raise _broken("no AV1 colour track")
+    color = colors[0]
+    alphas = [t for t in usable if color.track_id in t.refs.get(b"auxl", [])
+              and t.aux_urn in (None,) + ALPHA_URNS]
+    alpha = _track_item(data, alphas[0], "alpha") if alphas else None
+    prem = bool(alphas) and alphas[0].track_id in color.refs.get(b"prem", [])
+    return AvifContainer(_track_item(data, color, "colour"), alpha, prem,
+                         "track")
+
+
+def read_container(data: bytes) -> AvifContainer:
+    """The image an AVIF file shows and its alpha, if any: libavif 1.3's
+    automatic source takes the colour track's sample 0 where the major
+    brand is ``avis`` and the primary item where it is ``avif``; under
+    another major brand, the track where the file has one."""
+    top = list(_boxes(data, 0, len(data)))
+    if not top or top[0][0] != b"ftyp":
+        raise _broken("no ftyp box")
+    _, fs, fe = top[0]
+    if fe - fs < 8 or (fe - fs) % 4:
+        raise _broken("ftyp size")
+    major = data[fs:fs + 4]
+    brands = {major} | {data[i:i + 4] for i in range(fs + 8, fe, 4)}
+    if not brands & {b"avif", b"avis"}:
+        raise _broken("not an AVIF brand")
+    types = {t for t, _, _ in top}
+    # libavif 1.3 wants the box each brand promises
+    for brand, box in ((b"avif", b"meta"), (b"avis", b"moov")):
+        if brand in brands and box not in types:
+            raise _broken(f"the {brand.decode()!r} brand without a "
+                          f"{box.decode()!r} box")
+    if major == b"avis" or (major != b"avif" and b"moov" in types):
+        return _read_tracks(data, top)
+    return _read_items(data, top)
 
 
 # ---------------------------------------------------------------------------
@@ -596,6 +805,13 @@ class FrameHeader:
     delta_lf_res: int = -1  # likewise for delta LF
     allow_intrabc: bool = False
     grain: Optional["FilmGrain"] = None
+    # segmentation_params (spec 5.9.14): the FeatureData of each segment's
+    # enabled features (None where off), SegIdPreSkip, LastActiveSegId
+    # and LosslessArray; ``lossless`` above is CodedLossless
+    segmentation: Optional[List[List[Optional[int]]]] = None
+    seg_preskip: bool = False
+    seg_last_active: int = 0
+    seg_lossless: Tuple[bool, ...] = (False,) * 8
 
 
 @dataclass
@@ -688,14 +904,20 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
         udc, uac = delta_q(), delta_q()
         vdc, vac = (delta_q(), delta_q()) if diff else (udc, uac)
     fh.dq = (ydc, udc, uac, vdc, vac)
-    fh.lossless = fh.base_q == 0 and not any(fh.dq)
+    qm = None
     if b.f(1):  # using_qmatrix
         qy, qu = b.f(4), b.f(4)
-        qv = b.f(4) if s.separate_uv_delta_q else qu
-        if not fh.lossless:
-            fh.qm = (qy, qu, qv)
-    if b.f(1):
-        raise UnsupportedAvif("AV1: segmentation is not supported yet")
+        qm = (qy, qu, b.f(4) if s.separate_uv_delta_q else qu)
+    if b.f(1):  # segmentation_enabled
+        _segmentation_params(b, fh)
+    # LosslessArray and CodedLossless over the segments' get_qindex(1, i)
+    alt_q = [f[0] if fh.segmentation and f[0] is not None else 0
+             for f in (fh.segmentation or [[None]] * 8)]
+    fh.seg_lossless = tuple(min(max(fh.base_q + a, 0), 255) == 0
+                            and not any(fh.dq) for a in alt_q)
+    fh.lossless = all(fh.seg_lossless)
+    if qm is not None and not fh.lossless:
+        fh.qm = qm
     if fh.base_q > 0 and b.f(1):  # delta_q_present
         fh.delta_q_res = b.f(2)
         if not fh.allow_intrabc and b.f(1):  # delta_lf_present
@@ -751,6 +973,40 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
     if s.film_grain and b.f(1):  # apply_grain
         fh.grain = _film_grain_params(b, s)
     return fh
+
+
+# spec Segmentation_Feature_Bits, _Signed and _Max, and the features'
+# names (SEG_LVL_*)
+_SEG_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
+_SEG_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
+_SEG_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
+_SEG_NAMES = ("ALT_Q", "ALT_LF_Y_V", "ALT_LF_Y_H", "ALT_LF_U", "ALT_LF_V",
+              "REF_FRAME", "SKIP", "GLOBALMV")
+
+
+def _segmentation_params(b: _Bits, fh: FrameHeader) -> None:
+    """segmentation_params of a key frame, after segmentation_enabled: a
+    key frame updates the map (not temporally) and the data, so every
+    segment's features follow, each value clipped to its limit. Only
+    SEG_LVL_ALT_Q, the one feature libaom's AQ modes set, is decoded."""
+    feats = [[None] * 8 for _ in range(8)]
+    for i in range(8):
+        for j in range(8):
+            if b.f(1):
+                lim = _SEG_MAX[j]
+                if _SEG_SIGNED[j]:
+                    feats[i][j] = min(max(b.su(1 + _SEG_BITS[j]), -lim), lim)
+                else:
+                    feats[i][j] = min(b.f(_SEG_BITS[j]), lim)
+    on = [(i, j) for i in range(8) for j in range(8)
+          if feats[i][j] is not None]
+    other = sorted({_SEG_NAMES[j] for _, j in on if j})
+    if other:
+        raise UnsupportedAvif(f"AV1: segmentation feature "
+                              f"{', '.join(other)} is not supported yet")
+    fh.segmentation = feats
+    fh.seg_last_active = max((i for i, _ in on), default=0)
+    fh.seg_preskip = any(j >= 5 for _, j in on)
 
 
 def _film_grain_params(b: _Bits, s: SequenceHeader) -> FilmGrain:
@@ -944,7 +1200,7 @@ _CDF_ORDER = (
     "delta_lf", "pal_uv_size", "pal_uv_ci2", "pal_uv_ci3", "pal_uv_ci4",
     "pal_uv_ci5", "pal_uv_ci6", "pal_uv_ci7", "pal_uv_ci8", "intrabc",
     "mv_joints", "mv_sign", "mv_classes", "mv_class0", "mv_bits",
-    "txfm_split", "inter_tx1", "inter_tx2", "inter_tx3",
+    "txfm_split", "inter_tx1", "inter_tx2", "inter_tx3", "segment_id",
 )
 # the header pack's fields in the order of av1_header.h's H_* enum
 _HDR_FIELDS = (
@@ -958,8 +1214,10 @@ _HDR_FIELDS = (
     "edge_filter", "width", "height", "lf_y0", "lf_y1", "lf_u", "lf_v",
     "lf_sharpness", "cdef_damping", "qm_y", "qm_u", "qm_v", "delta_q_res",
     "delta_lf_res", "lf_delta_enabled", "lf_ref_delta_intra", "allow_intrabc",
-) + tuple(f"cdef_{k}{i}" for i in range(8)
-          for k in ("y_pri", "y_sec", "uv_pri", "uv_sec"))
+    "seg_enabled", "seg_preskip", "seg_last_active", "seg_alt_q_mask",
+) + tuple(f"seg_alt_q{i}" for i in range(8)) + ("seg_lossless_mask",) \
+    + tuple(f"cdef_{k}{i}" for i in range(8)
+            for k in ("y_pri", "y_sec", "uv_pri", "uv_sec"))
 # the decoder's tool counters in the order of av1_header.h's T_* enum
 TOOL_NAMES = (
     "chroma_of_4xn", "cfl_subsampled", "edge_filter", "edge_upsample",
@@ -970,6 +1228,7 @@ TOOL_NAMES = (
     "uv_palette", "twelve_bit", "intrabc", "intrabc_default_dv",
     "intrabc_chroma_subpel", "vartx_split", "tx_inter_set1",
     "tx_inter_set2", "tx_inter_set3", "tx_flip", "intrabc_sub8x8_chroma",
+    "segmentation", "seg_alt_q", "seg_preskip", "seg_pred_skip",
 )
 # the film grain pack (av1_header.h's G_* enum): field, length
 _GRAIN_FIELDS = (
@@ -1045,8 +1304,8 @@ def _tool_tables():
 
 def _reader_cdfs() -> dict:
     """The default CDFs only the reader needs: delta q, delta LF, the
-    chroma palette's and intra block copy's (use_intrabc, the DV's MV
-    CDFs, the var-tx split and the inter transform types)."""
+    chroma palette's, intra block copy's (use_intrabc, the DV's MV CDFs,
+    the var-tx split and the inter transform types) and segment_id's."""
     from ..av1.frame import _adaptive
     from ..av1.tables import TABLES
 
@@ -1059,7 +1318,7 @@ def _reader_cdfs() -> dict:
             **{k: _adaptive(t[k]) for k in (
                 "intrabc", "mv_joints", "mv_sign", "mv_classes", "mv_class0",
                 "mv_bits", "txfm_split", "inter_tx1", "inter_tx2",
-                "inter_tx3")}}
+                "inter_tx3", "segment_id")}}
 
 
 def _constants():
@@ -1196,6 +1455,14 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
         lf_delta_enabled=int(fh.lf_delta_enabled),
         lf_ref_delta_intra=fh.lf_ref_delta_intra,
         allow_intrabc=int(fh.allow_intrabc),
+        seg_enabled=int(fh.segmentation is not None),
+        seg_preskip=int(fh.seg_preskip), seg_last_active=fh.seg_last_active,
+        seg_alt_q_mask=sum(1 << i for i, f in enumerate(fh.segmentation or [])
+                           if f[0] is not None),
+        **{f"seg_alt_q{i}": (f[0] or 0)
+           for i, f in enumerate(fh.segmentation or [[None]] * 8)},
+        seg_lossless_mask=sum(int(v) << i
+                              for i, v in enumerate(fh.seg_lossless)),
         **{name: v for name, v in zip(_HDR_FIELDS[-32:], strengths)})
     hdr = np.array([fields[k] for k in _HDR_FIELDS], dtype=np.int32)
     starts = np.array(fh.tile_col_starts + fh.tile_row_starts, dtype=np.int32)
@@ -1412,7 +1679,8 @@ def _float_chroma(t: np.ndarray, c: np.ndarray, h: int, w: int,
             + (u[r1, c0] * f(3.0 / 16.0)) + (u[r1, c1] * f(1.0 / 16.0)))
 
 
-def yuv_to_rgb8(img: DecodedImage, rgba: bool = False) -> np.ndarray:
+def yuv_to_rgb8(img: DecodedImage, rgba: bool = False,
+                prem: Optional[DecodedImage] = None) -> np.ndarray:
     """(h, w, 3) uint8 RGB of a decoded image, as libavif 1.3 (with
     libyuv) converts it for an 8-bit RGB target, or for an RGBA target
     where ``rgba`` (as Pillow asks for images with alpha): there libyuv
@@ -1423,7 +1691,15 @@ def yuv_to_rgb8(img: DecodedImage, rgba: bool = False) -> np.ndarray:
     (automatic) upsampling does: libyuv's bilinear filter where libyuv
     converts, libavif's own bilinear weights on the float path. Limited
     range takes libyuv's limited-range constants, or the float path's
-    range scaling."""
+    range scaling.
+
+    ``prem``, where given, is the alpha image the colour is premultiplied
+    by (``prem``; ``rgba`` is then implied): the colour is un-premultiplied
+    as libavif 1.3 does for an 8-bit RGBA target, by libyuv's
+    ARGBUnattenuate after a libyuv or fast-path conversion
+    (``_unattenuate``), inside the conversion in float32 on libavif's
+    slow path (``_slow_path``)."""
+    rgba = rgba or prem is not None
     bd = img.bit_depth
     y = img.planes[0]
     h, w = y.shape
@@ -1462,7 +1738,7 @@ def yuv_to_rgb8(img: DecodedImage, rgba: bool = False) -> np.ndarray:
             c >>= 6
             np.clip(c, 0, 255, out=c)
             out[..., i] = c
-        return out
+        return out if prem is None else _unattenuate(out, alpha_to_8(prem))
     f = np.float32
     mx = (1 << bd) - 1
     # libavif's unorm tables: (sample - bias) / range, the limited range's
@@ -1492,8 +1768,52 @@ def yuv_to_rgb8(img: DecodedImage, rgba: bool = False) -> np.ndarray:
         b = yf + (f(2) * (f(1) - kb)) * cb
         g = yf - ((f(2) * ((kr * (f(1) - kr) * cr)
                           + (kb * (f(1) - kb) * cb))) / kg)
-    return np.stack([(f(0.5) + np.clip(c, f(0), f(1)) * f(255)).astype(np.uint8)
-                     for c in (r, g, b)], axis=-1)
+    rgb = [np.clip(c, f(0), f(1)) for c in (r, g, b)]
+    slow = _slow_path(img, kind)
+    if prem is not None and slow:
+        # libavif's avifImageYUVAnyToRGBAnySlow: each clamped channel
+        # divided by the unorm alpha below 1, clamped to 1 again, 0 where
+        # the alpha is 0
+        a = np.minimum(prem.planes[0], mx).astype(f) / f(mx)
+        part = a < f(1)
+        safe = np.where(a > f(0), a, f(1))
+        rgb = [np.where(a == f(0), f(0),
+                        np.where(part, np.minimum(c / safe, f(1)), c))
+               for c in rgb]
+    out = np.stack([(f(0.5) + c * f(255)).astype(np.uint8) for c in rgb],
+                   axis=-1)
+    if prem is not None and not slow:
+        out = _unattenuate(out, alpha_to_8(prem))
+    return out
+
+
+def _slow_path(img: DecodedImage, kind: str) -> bool:
+    """Whether libavif 1.3 converts ``img`` on its slow path
+    (avifImageYUVAnyToRGBAnySlow) where libyuv does not: everything but
+    its fast paths, which need unsubsampled chroma (4:4:4 or monochrome)
+    and take the matrix coefficients, or the identity matrix on 8-bit
+    full-range 4:4:4."""
+    if not (img.mono or img.ss == (0, 0)):
+        return True
+    if kind == "identity":
+        return not (img.bit_depth == 8 and img.full_range and not img.mono)
+    return kind == "ycgco"
+
+
+# libyuv's fixed_invtbl8 (row_common.cc), as Pillow's libavif carries it:
+# 1.0 in the upper half, 65536 / a in the lower (0 for a = 0, 0xffff for 1,
+# 256 for 255)
+_INVTBL8 = np.array([0, 0xFFFF] + [0x10000 // a for a in range(2, 255)]
+                    + [0x100], dtype=np.int64)
+
+
+def _unattenuate(rgb: np.ndarray, a: np.ndarray) -> np.ndarray:
+    """libyuv's ARGBUnattenuate on 8-bit RGB under the 8-bit alpha ``a``:
+    each channel widened to 16 bits (c * 257), times the reciprocal's
+    lower half, the high 16 bits kept and clamped to 255."""
+    ia = _INVTBL8[a][..., None]
+    return np.minimum((rgb.astype(np.int64) * 257 * ia) >> 16,
+                      255).astype(np.uint8)
 
 
 def alpha_to_8(img: DecodedImage) -> np.ndarray:
@@ -1507,20 +1827,80 @@ def alpha_to_8(img: DecodedImage) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def _stitch(it: Av1Item, cells: List[DecodedImage]) -> DecodedImage:
+    """A grid's cells placed in raster order on its canvas and cropped to
+    its output size, Y'UV before any conversion, as libavif 1.3 fills its
+    grid image; with libavif's checks of the cells' sizes and of their
+    agreement (size, depth, format, range, CICP)."""
+    rows, cols, ow, oh = it.grid
+    first = cells[0]
+    ch, cw = first.planes[0].shape
+    if cw * cols < ow or ch * rows < oh:
+        raise _broken("the grid's cells do not cover the image")
+    if cw * (cols - 1) >= ow or ch * (rows - 1) >= oh:
+        raise _broken("the grid's right column or bottom row lies past "
+                      "the canvas")
+    if cw < 64 or ch < 64:
+        raise _broken(f"grid cells of {cw}x{ch}, smaller than 64")
+    ssx, ssy = (0, 0) if first.mono else first.ss
+    if (ssx and (ow % 2 or cw % 2)) or (ssy and (oh % 2 or ch % 2)):
+        raise _broken("odd grid or cell size with subsampled chroma")
+    key = (lambda c: (c.planes[0].shape, c.bit_depth, c.mono, c.ss,
+                      c.full_range, c.cicp))
+    if any(key(c) != key(first) for c in cells):
+        raise _broken("the grid's cells differ in size, depth, format, "
+                      "range or CICP")
+    out = [np.empty((oh, ow), np.int32)]
+    if not first.mono:
+        out += [np.empty(((oh + ssy) >> ssy, (ow + ssx) >> ssx), np.int32)
+                for _ in range(2)]
+    tools = dict.fromkeys(first.tools, 0)
+    for i, cell in enumerate(cells):
+        y0, x0 = ch * (i // cols), cw * (i % cols)
+        h, w = min(ch, oh - y0), min(cw, ow - x0)
+        for k, (dst, src) in enumerate(zip(out, cell.planes)):
+            sx, sy = (ssx, ssy) if k else (0, 0)
+            dst[y0 >> sy:(y0 + h + sy) >> sy, x0 >> sx:(x0 + w + sx) >> sx] = \
+                src[:(h + sy) >> sy, :(w + sx) >> sx]
+        for name, v in cell.tools.items():
+            tools[name] += v
+    return DecodedImage(out, first.bit_depth, first.cicp, first.full_range,
+                        first.mono, first.ss, tools)
+
+
+def _decode_item(it: Av1Item, times: Optional[dict]) -> DecodedImage:
+    """An item's (or a track sample's) Y'UV: one AV1 payload, or a grid's
+    cells, each decoded (film grain included) and then stitched."""
+    decoded = []
+    for cell in it.cells or [it]:
+        img = decode_av1(cell.payload, times)
+        if img.planes[0].shape != (cell.height, cell.width):
+            raise _broken("the decoded size differs from ispe")
+        decoded.append(img)
+    if not it.cells:
+        return decoded[0]
+    t0 = time.perf_counter()
+    img = _stitch(it, decoded)
+    if times is not None:
+        times["stitch"] = times.get("stitch", 0.0) + time.perf_counter() - t0
+    return img
+
+
 def decode_avif(data: bytes, times: Optional[dict] = None):
-    """(container, colour image, alpha image or None)."""
+    """(container, colour image, alpha image or None). ``times`` gains
+    "parse" (the container, the headers and the tile decode), "filters",
+    "grain" and, for a grid, "stitch"."""
     t0 = time.perf_counter()
     box = read_container(data)
     if times is not None:
         times["parse"] = times.get("parse", 0.0) + time.perf_counter() - t0
-    color = decode_av1(box.color.payload, times)
-    alpha = decode_av1(box.alpha.payload, times) if box.alpha else None
-    for it, img in ((box.color, color), (box.alpha, alpha)):
-        if img is not None and (img.planes[0].shape
-                                != (it.height, it.width)):
-            raise _broken("the decoded size differs from ispe")
-    if alpha is not None and not alpha.mono:
-        raise _broken("the alpha item is not monochrome")
+    color = _decode_item(box.color, times)
+    alpha = _decode_item(box.alpha, times) if box.alpha else None
+    if alpha is not None:
+        if not alpha.mono:
+            raise _broken("the alpha item is not monochrome")
+        if alpha.planes[0].shape != color.planes[0].shape:
+            raise _broken("alpha and colour sizes differ")
     if box.color.nclx is not None:
         cp, tc, mc, full = box.color.nclx
         color.cicp, color.full_range = (cp, tc, mc), full
@@ -1529,9 +1909,10 @@ def decode_avif(data: bytes, times: Optional[dict] = None):
 
 def decode_avif_rgb8(data: bytes, times: Optional[dict] = None) -> np.ndarray:
     """(h, w, 3) uint8 RGB, alpha dropped."""
-    _, color, alpha = decode_avif(data, times)
+    box, color, alpha = decode_avif(data, times)
     t0 = time.perf_counter()
-    rgb = yuv_to_rgb8(color, rgba=alpha is not None)
+    rgb = yuv_to_rgb8(color, rgba=alpha is not None,
+                      prem=alpha if box.premultiplied else None)
     if times is not None:
         times["convert"] = times.get("convert", 0.0) + time.perf_counter() - t0
     return rgb
@@ -1562,7 +1943,8 @@ def read_avif(data: bytes, times: Optional[dict] = None):
         out = (rgb.astype(np.uint16) << (16 - bd)).reshape(h, w, 3)
         hbd = True
     else:
-        out = yuv_to_rgb8(color, rgba=alpha is not None)
+        out = yuv_to_rgb8(color, rgba=alpha is not None,
+                          prem=alpha if box.premultiplied else None)
         if alpha is not None:
             out = np.concatenate([out, alpha_to_8(alpha)[..., None]], axis=-1)
         hbd = False

@@ -18,7 +18,11 @@ and write ``oavif_tpu_torch/io/av1_tool_tables.npz``:
   DV reads no fraction and no high-precision bit), ``txfm_split`` (the
   21 contexts of the var-tx split) and the inter transform-type CDFs
   ``inter_tx1`` (16 types), ``inter_tx2`` (12) and ``inter_tx3`` (2), each
-  by the square transform size 4x4 to 32x32.
+  by the square transform size 4x4 to 32x32;
+- ``segment_id``: the default CDFs of ``segment_id`` (spec
+  Default_Segment_Id_Cdf, libaom's ``default_spatial_pred_seg_tree_cdf``),
+  one row of 8 symbols for each of the 3 contexts of the spatial
+  prediction.
 
 Each table is found by a structural signature and checked against anchor
 values before anything is written: the matrices by their first 4x4 (the
@@ -70,6 +74,7 @@ TXFM_SPLIT_ENDS = ((28581, 23846, 20847), (22401, 16088))
 INTER_TX1_FIRST = (4458, 5560, 7695)  # the 4x4 row of TX_SET_INTER_1
 # the nsym of each inter transform set (TX_SET_INTER_1, _2, _3)
 INTER_TX_NSYM = (16, 12, 2)
+SEGMENT_ID_FIRST = (5622, 7893, 16093, 18233, 27809, 28373, 32533)  # AOM_CDF8
 
 
 def section(lib: str, name: str = ".rodata") -> bytes:
@@ -218,6 +223,19 @@ def inter_tx_cdfs(data: bytes) -> dict:
     return out
 
 
+def segment_id_cdf(data: bytes) -> np.ndarray:
+    """default_spatial_pred_seg_tree_cdf, 3 rows of 8 symbols, which
+    libaom's ``.rodata`` holds in 16-byte rows (7 values and the closing
+    0; the frame context adds the counter)."""
+    at = find_once(data, np.array(_icdf(*SEGMENT_ID_FIRST) + [0], "<u2")
+                   .tobytes(), "segment id CDF")
+    a = np.frombuffer(data, "<u2", 3 * 8, at).reshape(3, 8)
+    rows = np.stack([_cdf_row(np.append(r, 0), 8, "segment id") for r in a])
+    require(tuple(32768 - rows[2, :3].astype(int)) == (27527, 28487, 28723),
+            "segment id CDF: its last row")
+    return rows
+
+
 def main(argv: list) -> None:
     lib = argv[0] if argv else LIBAOM
     data = section(lib)
@@ -227,7 +245,7 @@ def main(argv: list) -> None:
               "delta_q": cdf, "delta_lf": cdf.copy(),
               "intrabc": intrabc_cdf(section(lib, ".text")),
               **mv_cdfs(data), "txfm_split": txfm_split_cdf(data),
-              **inter_tx_cdfs(data)}
+              **inter_tx_cdfs(data), "segment_id": segment_id_cdf(data)}
     np.savez_compressed(OUT, **tables)
     for k, v in tables.items():
         print(f"{k}: {v.shape} {v.dtype}")

@@ -90,10 +90,19 @@ def test_fixture_decodes_to_its_manifest(name):
 TOOLS_MADE = {**json.loads((FIXTURES.parent / "avif_tools"
                             / "manifest.json").read_text()),
               **json.loads((FIXTURES.parent / "avif_screen"
+                            / "manifest.json").read_text()),
+              **json.loads((FIXTURES.parent / "avif_container"
                             / "manifest.json").read_text())}
+# counters no writer here makes count: a skipped block's predicted
+# segment id (libaom codes no skipped block in a key frame), which
+# tests/test_torch_avif_segmentation.py counts in streams it writes, and
+# ids read before skip, which need a segmentation feature the decoder
+# refuses
+UNWRITTEN = ("seg_preskip", "seg_pred_skip")
 
 
-@pytest.mark.parametrize("tool", A.TOOL_NAMES)
+@pytest.mark.parametrize("tool", [t for t in A.TOOL_NAMES
+                                  if t not in UNWRITTEN])
 def test_each_ported_tool_occurs_in_a_fixture(tool):
     assert sum(e.get("tools", {}).get(tool, 0)
                for e in [*MANIFEST.values(), *TOOLS_MADE.values()]) > 0

@@ -112,12 +112,16 @@ def test_decode_to_rgb8_against_the_reference_backend(name, tenbit):
 
 def test_decode_without_libavif_says_so(monkeypatch):
     """With libavif unloadable the port still decodes (nothing of libavif
-    is on its path), and a file that is no AVIF says so."""
-    def refuse(name):
-        raise OSError(f"{name}: cannot open shared object file")
+    is on its path), and a file that is no AVIF says so. Only
+    ``avif_ctypes`` loses libavif: ``ctypes.CDLL`` itself stays, so the
+    port's host library still loads if this test is the process's first."""
+    def refuse():
+        raise OSError("libavif.so.15: cannot open shared object file")
 
     monkeypatch.setattr(avif_ctypes, "_lib", None)
-    monkeypatch.setattr(avif_ctypes.C, "CDLL", refuse)
+    monkeypatch.setattr(avif_ctypes, "_load", refuse)
+    with pytest.raises(OSError, match="libavif"):
+        decode_to_yuv(b"\x00" * 64)
     rgb = bench_images(64, ("text",))["text"]
     ctx = _ctx(rgb)
     ctx.q = 60

@@ -25,8 +25,7 @@ its defaults but for the setting a file's name gives:
 The system's ``libavif.so.15`` (0.11.1, with libaom) writes, through
 ctypes, 10- and 12-bit files in 4:4:4 and 4:2:0 (``libavif_encode`` of
 ``avif_tools``), and one ``grid`` image of two cells
-(``avifEncoderAddImageGrid``), which the reference reads and the port
-refuses naming the derived item.
+(``avifEncoderAddImageGrid``, ``libavif_grid`` of ``avif_container``).
 
 The manifest holds, per file, ``avif_tools``' fields: how it was written;
 the CRC32 of dav1d's Y'UV planes (the system libavif); the shape, ``hbd``
@@ -40,7 +39,6 @@ blocks.
 
 from __future__ import annotations
 
-import ctypes as C
 import io
 import json
 import os
@@ -53,9 +51,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(HERE)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "avif_tools"))
+sys.path.insert(0, os.path.join(os.path.dirname(HERE), "avif_container"))
 
-from make_avif_tools import (_libavif, avif_image, crc,  # noqa: E402
-                             libavif_encode)
+from make_avif_container import libavif_grid  # noqa: E402
+from make_avif_tools import crc, libavif_encode  # noqa: E402
 
 PILLOW = "Pillow (libavif 1.3, libaom)"
 LIBAVIF = "libavif 0.11.1 (libaom)"
@@ -145,39 +144,11 @@ def libavif_files() -> dict:
                 {"writer": LIBAVIF, "depth": depth, "subsampling": ss,
                  "quantizer": 24, "speed": 6})
     out["grid2x1_420.avif"] = (
-        libavif_grid([screen(128, 128, seed=s) for s in (30, 31)], 24),
+        libavif_grid([screen(128, 128, seed=s) for s in (30, 31)], 2, 8,
+                     "4:2:0", 24),
         {"writer": LIBAVIF, "grid": [2, 1], "subsampling": "4:2:0",
          "quantizer": 24, "speed": 6})
     return out
-
-
-def libavif_grid(cells: list, quantizer: int) -> bytes:
-    """A ``grid`` AVIF of 8-bit 4:2:0 cells side by side, written by
-    libavif 0.11.1 (avifEncoderAddImageGrid) with libaom."""
-    lib = _libavif()
-    lib.avifEncoderAddImageGrid.argtypes = [
-        C.c_void_p, C.c_uint32, C.c_uint32, C.c_void_p, C.c_uint32]
-    lib.avifEncoderFinish.argtypes = [C.c_void_p, C.c_void_p]
-    images = [avif_image(lib, px, 8, "4:2:0") for px in cells]
-    enc = lib.avifEncoderCreate()
-    e32 = C.cast(C.c_void_p(enc), C.POINTER(C.c_int32))
-    e32[0], e32[1], e32[2] = 1, 1, 6  # libaom, one thread, speed 6
-    e32[6] = e32[7] = quantizer
-    out = (C.c_void_p * 2)()
-    ptrs = (C.c_void_p * len(images))(*images)
-    try:
-        # AVIF_ADD_IMAGE_FLAG_SINGLE
-        if lib.avifEncoderAddImageGrid(enc, len(images), 1, ptrs, 2):
-            raise RuntimeError("avifEncoderAddImageGrid")
-        if lib.avifEncoderFinish(enc, out):
-            raise RuntimeError("avifEncoderFinish")
-        data = C.string_at(out[0], out[1])
-    finally:
-        lib.avifRWDataFree(out)
-        lib.avifEncoderDestroy(enc)
-        for img in images:
-            lib.avifImageDestroy(img)
-    return data
 
 
 def manifest_entry(name: str, how: dict):
@@ -207,7 +178,7 @@ def manifest_entry(name: str, how: dict):
     try:
         box, port, alpha = A.decode_avif(data)
     except A.UnsupportedAvif as e:
-        entry["refuses"] = "grid" if "'grid'" in str(e) else str(e)
+        entry["refuses"] = str(e)
         return entry
     fh = A.parse_av1(box.color.payload).frame
     entry.update(tools=port.tools, lossless=fh.lossless,

@@ -287,12 +287,18 @@ def _libavif() -> C.CDLL:
 
 
 def avif_image(lib: C.CDLL, px: np.ndarray, depth: int, ss: str,
-               cicp=(2, 2, 6), full: bool = True) -> int:
+               cicp=(2, 2, 6), full: bool = True,
+               premultiplied: bool = False) -> int:
     """An avifImage (the caller destroys it) of 8-bit RGB or RGBA at
-    ``depth`` bits in ``ss``, with the given CICP and range."""
+    ``depth`` bits in ``ss``, with the given CICP and range; with
+    ``premultiplied`` the colour is premultiplied by the alpha as it is
+    converted (a file written from it carries ``prem``)."""
     h, w, ch = px.shape
     img = lib.avifImageCreate(w, h, depth, _FORMATS[ss])
-    C.cast(C.c_void_p(img), C.POINTER(C.c_uint32))[4] = int(full)
+    # avifImage (0.11): yuvRange at byte 16, alphaPremultiplied at 80
+    u32 = C.cast(C.c_void_p(img), C.POINTER(C.c_uint32))
+    u32[4] = int(full)
+    u32[20] = int(premultiplied)
     # avifImage (0.11): colorPrimaries, transferCharacteristics and
     # matrixCoefficients are the uint16 at byte 104
     u16 = C.cast(C.c_void_p(img), C.POINTER(C.c_uint16))
@@ -313,15 +319,16 @@ def avif_image(lib: C.CDLL, px: np.ndarray, depth: int, ss: str,
 
 def libavif_encode(px: np.ndarray, depth: int, ss: str, quantizer: int,
                    speed: int = 6, cicp=(2, 2, 6), full: bool = True,
-                   options: dict = ()) -> bytes:
+                   options: dict = (), premultiplied: bool = False) -> bytes:
     """An AVIF of 8-bit RGB or RGBA at ``depth`` bits in ``ss``, written
     by libavif 0.11.1 with libaom at one quantizer, with the given CICP,
-    range and libaom options (avifEncoderSetCodecSpecificOption)."""
+    range, libaom options (avifEncoderSetCodecSpecificOption) and alpha
+    premultiplication."""
     lib = _libavif()
     lib.avifEncoderSetCodecSpecificOption.argtypes = [
         C.c_void_p, C.c_char_p, C.c_char_p]
     lib.avifEncoderWrite.argtypes = [C.c_void_p, C.c_void_p, C.c_void_p]
-    img = avif_image(lib, px, depth, ss, cicp, full)
+    img = avif_image(lib, px, depth, ss, cicp, full, premultiplied)
     enc = lib.avifEncoderCreate()
     e32 = C.cast(C.c_void_p(enc), C.POINTER(C.c_int32))
     # avifEncoder (0.11): codecChoice, maxThreads, speed, keyframeInterval,
