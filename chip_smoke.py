@@ -112,10 +112,14 @@ Phases, each of which raises on failure (exit code != 0):
 15. main path, JPEG input: every fixture of ``tests/torch_fixtures/jpeg``
    (baseline, progressive, restart markers, 4:4:4 to 4:1:1, gray, CMYK,
    YCCK, multi-chunk ICC, arithmetic-coded sequential and progressive
-   with DAC conditioning, block-smoothed progressive) decodes with the
-   port's own C to its manifest's shape and CRC32s (libjpeg-turbo's
-   pixels, through Pillow when the fixtures were made), each read timed
-   (median of 5); the CLI (``-t 80`` on the six class JPEGs, ``-q 60`` on
+   with DAC conditioning, block-smoothed progressive) and of
+   ``tests/torch_fixtures/jpeg_lossless`` (lossless, SOF3: predictors,
+   point transforms, restarts, subsampling, CMYK) decodes with the port's
+   own C to its manifest's shape and CRC32s (libjpeg-turbo's pixels,
+   through Pillow when the fixtures were made), each read timed (median
+   of 5); a 3840x2160 lossless RGB file written here by the numpy writer
+   decodes to its source exactly (timed, median of 5); the CLI (``-t 80``
+   on the six class JPEGs and the 512x512 lossless class, ``-q 60`` on
    the 3840x2160 one) gives the q, passes and bytes of the decoded pixels
    written as PAM, and the harness, sequential over the six class JPEGs,
    the CLI's bytes and passes;
@@ -146,9 +150,14 @@ Phases, each of which raises on failure (exit code != 0):
    ``decode_avif_to_rgb8`` pixels), each read timed (median of 5, split
    into parse and tile decode, post-filters and conversion); each refusal
    fixture (4:2:0, 4:2:2, the intra edge filter) raises ``ValueError``
-   naming its tool; the CLI (``-t 80`` on the six class AVIFs, ``-q 60``
-   on the 3840x2160 one) gives the q, passes and bytes of the same pixels
-   (as PAM where they are 8-bit, in memory where they are 16-bit);
+   naming its tool; likewise libaom's streams of ``avif_aom``,
+   ``avif_tools``, ``avif_screen``, ``avif_container`` and
+   ``avif_superres`` (superres and non-uniform tiles), the reads split
+   into parse, post-filters, the superres upscale, grain and conversion;
+   the CLI (``-t 80`` on the six class AVIFs, ``-q 60`` on the 3840x2160
+   one, and on each later folder's picks) gives the q, passes and bytes
+   of the same pixels (as PAM where they are 8-bit, in memory where they
+   are 16-bit);
 20. ``OAVIF_TRACE``: the CLI ``-t 80`` on edges and mixed under it, each
    run in a process of its own as a user runs it, must exit 0, print the
    reference's line, write one Chrome trace holding the planner kernel's
@@ -579,8 +588,12 @@ def device_ms_by_kernel(fn, reps: int, match: str) -> dict:
     """{kernel name: mean device ms per launch} of the kernels whose name
     holds ``match``, over ``reps`` calls of fn(), from a ``torch.profiler``
     trace; a trace that lost every such record, as one on the card
-    sometimes does, is taken again, up to three in all."""
-    for _ in range(3):
+    sometimes does (three in a row once, after the multi-device leg's
+    ranks), is taken again after a second's pause, up to six in all."""
+    for attempt in range(6):
+        if attempt:
+            torch.cuda.synchronize()
+            time.sleep(1.0)
         got = {ev.key: ev.device_time_total / 1e3 / ev.count
                for ev in trace(fn, reps).key_averages()
                if ev.device_time_total > 0 and match in ev.key}
@@ -1951,35 +1964,22 @@ def phase_png_input(images: dict, frame4k: np.ndarray, found: dict,
 
 JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "tests", "torch_fixtures", "jpeg")
+JPEG_LOSSLESS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tests", "torch_fixtures", "jpeg_lossless")
 
 
-def phase_jpeg_input(images: dict, acc: dict) -> dict:
-    """The port's JPEG reader and the CLI on JPEG input. Every fixture of
-    ``tests/torch_fixtures/jpeg`` must decode to its manifest's shape and
-    CRC32s (libjpeg-turbo's pixels, as Pillow returned them when the
-    fixtures were made), each read timed (median of 5). Then the CLI
-    ``-t 80`` on the six class JPEGs and ``-q 60`` on the 3840x2160 one:
-    q, passes and bytes must be those of the CLI on the decoded pixels
-    written as PAM; and the corpus harness, sequential, over the six
-    class JPEGs: bytes and passes must be the CLI's. Returns the kernels'
-    launches."""
-    import csv
-
-    from oavif_tpu_torch.av1.entropy.fast import get_lib
+def _read_jpeg_fixtures(folder: str) -> dict:
+    """Every fixture of ``folder`` decodes to its manifest's shape,
+    channels and CRC32s (and the ICC profile's, where the manifest has
+    it), each read timed (median of 5). Returns the pixels by file
+    name."""
     from oavif_tpu_torch.io.image import load_jpeg
-    from oavif_tpu_torch.scripts import measure
 
-    with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
+    with open(os.path.join(folder, "manifest.json")) as f:
         manifest = json.load(f)
-    t0 = time.perf_counter()
-    if get_lib() is None:  # the host library, built here if no run has
-        raise AssertionError("the host C library did not build")
-    print(f"  host library (JPEG decoder): {time.perf_counter() - t0:.3f} s "
-          "to build or load", flush=True)
-    reset_counts()
     decoded = {}
     for name, entry in sorted(manifest.items()):
-        path = os.path.join(JPEG_DIR, name)
+        path = os.path.join(folder, name)
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -1989,7 +1989,7 @@ def phase_jpeg_input(images: dict, acc: dict) -> dict:
         got = (list(img.data.shape), img.channels,
                zlib.crc32(img.data.tobytes()), icc)
         want = (entry["shape"], entry["channels"], entry["crc32"],
-                entry["icc_crc32"])
+                entry.get("icc_crc32"))
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         decoded[name] = img.data
@@ -1997,19 +1997,83 @@ def phase_jpeg_input(images: dict, acc: dict) -> dict:
               f"({os.path.getsize(path)} bytes): == manifest CRC; read "
               f"{np.median(times) * 1e3:.3f} ms (median of 5, "
               f"{min(times) * 1e3:.3f}-{max(times) * 1e3:.3f})", flush=True)
+    return decoded
+
+
+def lossless_4k(frame: np.ndarray, folder: str) -> dict:
+    """The 3840x2160 frame written as a lossless JPEG (predictor 1, point
+    transform 0) by the numpy writer beside the JPEG fixtures, into
+    ``folder``; its decode must be the frame exactly. Returns the write
+    and the reads' times."""
+    from oavif_tpu_torch.io.image import load_jpeg
+
+    sys.path.insert(0, JPEG_DIR)
+    from lossless_jpeg import encode
+
+    t0 = time.perf_counter()
+    data = encode(frame, predictor=1, pt=0)
+    t_write = time.perf_counter() - t0
+    path = os.path.join(folder, "photo4k_lossless.jpg")
+    with open(path, "wb") as f:
+        f.write(data)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        img = load_jpeg(path)
+        times.append(time.perf_counter() - t0)
+        if not np.array_equal(img.data, frame):
+            raise AssertionError("the 3840x2160 lossless JPEG does not "
+                                 "decode to its source")
+    print(f"  photo4k_lossless.jpg 3840x2160x3 ({len(data)} bytes, written "
+          f"in {t_write:.3f} s): == its source; read "
+          f"{np.median(times) * 1e3:.3f} ms (median of 5, "
+          f"{min(times) * 1e3:.3f}-{max(times) * 1e3:.3f})", flush=True)
+    return {"write_s": t_write, "read_ms": float(np.median(times)) * 1e3}
+
+
+def phase_jpeg_input(images: dict, frame4k: np.ndarray, acc: dict) -> dict:
+    """The port's JPEG reader and the CLI on JPEG input. Every fixture of
+    ``tests/torch_fixtures/jpeg`` and ``tests/torch_fixtures/jpeg_lossless``
+    must decode to its manifest's shape and CRC32s (libjpeg-turbo's
+    pixels, as Pillow returned them when the fixtures were made), each
+    read timed (median of 5); the 3840x2160 frame written here as a
+    lossless JPEG must decode to itself (``lossless_4k``). Then the CLI
+    ``-t 80`` on the six class JPEGs and the 512x512 lossless class and
+    ``-q 60`` on the 3840x2160 one: q, passes and bytes must be those of
+    the CLI on the decoded pixels written as PAM; and the corpus harness,
+    sequential, over the six class JPEGs: bytes and passes must be the
+    CLI's. Returns the kernels' launches."""
+    import csv
+
+    from oavif_tpu_torch.av1.entropy.fast import get_lib
+    from oavif_tpu_torch.scripts import measure
+
+    t0 = time.perf_counter()
+    if get_lib() is None:  # the host library, built here if no run has
+        raise AssertionError("the host C library did not build")
+    print(f"  host library (JPEG decoder): {time.perf_counter() - t0:.3f} s "
+          "to build or load", flush=True)
+    reset_counts()
+    decoded = _read_jpeg_fixtures(JPEG_DIR)
+    decoded.update({f"lossless/{k}": v for k, v in
+                    _read_jpeg_fixtures(JPEG_LOSSLESS_DIR).items()})
     found = {}
     with tempfile.TemporaryDirectory() as td:
+        lossless_4k(frame4k, td)
         corpus = os.path.join(td, "corpus")
         os.mkdir(corpus)
-        for name in [*images, "photo4k"]:
+        for name in [*images, "photo4k", "lossless/text_p1"]:
             args = ["-q", "60"] if name == "photo4k" else ["-t", "80"]
             src = os.path.join(JPEG_DIR, f"{name}.jpg")
+            if name.startswith("lossless/"):
+                src = os.path.join(JPEG_LOSSLESS_DIR,
+                                   f"{name.split('/')[1]}.jpg")
             if name in images:
                 with open(src, "rb") as f, \
                         open(os.path.join(corpus, f"{name}.jpg"), "wb") as g:
                     g.write(f.read())
             r = run_cli(args, src, os.path.join(td, "o.avif"), acc)
-            pam = os.path.join(td, f"{name}.pam")
+            pam = os.path.join(td, f"{name.replace('/', '_')}.pam")
             write_pam(pam, decoded[f"{name}.jpg"])
             p = run_cli(args, pam, os.path.join(td, "o.avif"), acc)
             got = (r["q"], r["passes"], r["bytes"])
@@ -2037,7 +2101,7 @@ def phase_jpeg_input(images: dict, acc: dict) -> dict:
             rows = list(csv.DictReader(f))
         got = {r["Image"]: (int(r["Final Bytes"]), int(r["Passes"]))
                for r in rows if r["Status"] == "ok"}
-        want = {k: v for k, v in found.items() if k != "photo4k.jpg"}
+        want = {k: v for k, v in found.items() if k[:-4] in images}
         if got != want:
             raise AssertionError(f"measure over the JPEGs: {got}, the "
                                  f"CLI's {want}")
@@ -2536,6 +2600,9 @@ AVIF_SCREEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 AVIF_CONTAINER_DIR = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
     "avif_container")
+AVIF_SUPERRES_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+    "avif_superres")
 
 
 def _read_avif_fixtures(folder: str) -> dict:
@@ -2545,10 +2612,13 @@ def _read_avif_fixtures(folder: str) -> dict:
     were made) and, where the manifest counts them, meets each tool the
     decoder counts as often, and where the manifest records them, the
     source libavif 1.3 reads (item or track), the grid's rows and columns,
-    the alpha and its premultiplication; each read timed (median of 5),
-    split into parse and tile decode, post-filters, film grain, a grid's
-    stitch and conversion; a refusal fixture raises ``ValueError`` naming
-    its tool. Returns the loaded images by file name."""
+    the alpha and its premultiplication, and where it records the frame
+    header, the coded width, superres denominator and tile starts the
+    port reads and the alpha's tools; each read timed (median of 5),
+    split into parse and tile decode, post-filters, the superres upscale,
+    film grain, a grid's stitch and conversion; a refusal fixture raises
+    ``ValueError`` naming its tool. Returns the loaded images by file
+    name."""
     from oavif_tpu_torch.io import avif
     from oavif_tpu_torch.io.image import load_avif
 
@@ -2593,12 +2663,21 @@ def _read_avif_fixtures(folder: str) -> dict:
                     alpha.tools if alpha else None)
             want += (entry["source"], entry["grid"], entry["alpha"],
                      entry["premultiplied"], entry["alpha_tools"])
+        if "header" in entry:
+            fh = avif.parse_av1(box.color.payload).frame
+            h = entry["header"]
+            got += (fh.coded_width, fh.superres_denom, fh.tile_col_starts,
+                    fh.tile_row_starts, alpha.tools if alpha else None)
+            want += (h["coded_width"], h["superres_denom"],
+                     h["tile_col_starts"], h["tile_row_starts"],
+                     entry["alpha_tools"])
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         loaded[name] = img
         parts = ", ".join(
             f"{k} {np.median([t.get(k, 0.0) for t in split]) * 1e3:.3f}"
-            for k in ("parse", "filters", "grain", "stitch", "convert"))
+            for k in ("parse", "filters", "upscale", "grain", "stitch",
+                      "convert"))
         fmt = ("4:0:0" if color.mono else
                {(0, 0): "4:4:4", (1, 0): "4:2:2", (1, 1): "4:2:0"}[color.ss])
         print(f"  {name} {img.width}x{img.height}x{img.channels} "
@@ -2627,17 +2706,22 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     (grids, among them a cropped one and 3840x2160 of four 1920x1080
     cells; premultiplied alpha at 8, 10 and 12 bits; sequences, one
     without ``meta``; segmentation; an ``iovl`` item and ``iloc``
-    construction method 2, which must raise naming the feature) decodes
-    to its manifest (``_read_avif_fixtures``), the reads split into parse
-    and tile decode, post-filters, film grain, a grid's stitch and
+    construction method 2, which must raise naming the feature) and of
+    ``tests/torch_fixtures/avif_superres`` (libaom's superres at
+    denominators 9-16 on every subsampling and depth, with loop
+    restoration, CDEF, alpha, grain and non-uniform tiles, and a
+    3840x2160 frame coded 1920 wide) decodes to its manifest
+    (``_read_avif_fixtures``), the reads split into parse and tile decode,
+    post-filters, the superres upscale, film grain, a grid's stitch and
     conversion (the median of 5).
     Then the CLI ``-t 80`` on the six class AVIFs and ``-q 60`` on the
     3840x2160 one of the first two folders, ``-q 60`` on the 3840x2160
     ``tune=iq`` frame with film grain, ``-t 80`` on the 512x512
     limited-range file with an ``irot``, ``-t 80`` on the 512x512 screen,
-    ``-q 60`` on the 3840x2160 screen, ``-q 60`` on the 3840x2160 grid and
-    ``-t 80`` on the 512x512 segmented sequence: q, passes and bytes must be
-    those of the CLI on the same
+    ``-q 60`` on the 3840x2160 screen, ``-q 60`` on the 3840x2160 grid,
+    ``-t 80`` on the 512x512 segmented sequence, ``-t 80`` on the 512x512
+    superres class and ``-q 60`` on the 3840x2160 superres frame: q,
+    passes and bytes must be those of the CLI on the same
     pixels, written as PAM where they are 8-bit and handed over in memory
     where they are 16-bit (PAM holds 8 bits). Returns the kernels'
     launches."""
@@ -2657,7 +2741,9 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
             (AVIF_SCREEN_DIR, [("screen512.avif", ["-t", "80"]),
                                ("screen4k.avif", ["-q", "60"])]),
             (AVIF_CONTAINER_DIR, [("grid4k_420.avif", ["-q", "60"]),
-                                  ("seg512_420_q60.avif", ["-t", "80"])])):
+                                  ("seg512_420_q60.avif", ["-t", "80"])]),
+            (AVIF_SUPERRES_DIR, [("class_mixed_d12_420.avif", ["-t", "80"]),
+                                 ("photo4k_d16_420.avif", ["-q", "60"])])):
         loaded = _read_avif_fixtures(folder)
         runs += [(os.path.join(folder, name), loaded[name], args)
                  for name, args in picks]
@@ -2796,7 +2882,7 @@ def main() -> int:
               f"{counts}", flush=True)
 
     t0 = time.perf_counter()
-    counts = phase_jpeg_input(images, acc)
+    counts = phase_jpeg_input(images, frame4k, acc)
     launches = add(launches, counts)
     print(f"phase JPEG input: {time.perf_counter() - t0:.1f} s, launches "
           f"{counts}", flush=True)

@@ -162,7 +162,7 @@ def _build() -> Optional[C.CDLL]:
         lib.jpeg_pixels.restype = C.c_int
         lib.jpeg_pixels.argtypes = [
             C.c_void_p, C.c_void_p, C.c_int, C.c_void_p, C.c_int, C.c_int,
-            C.c_int, C.c_int, C.c_int, C.c_void_p, C.c_void_p,
+            C.c_int, C.c_int, C.c_int, C.c_int, C.c_void_p, C.c_void_p,
         ]
         lib.webp_vp8l_decode.restype = C.c_int
         lib.webp_vp8l_decode.argtypes = [
@@ -187,7 +187,7 @@ def _build() -> Optional[C.CDLL]:
             [C.c_void_p] * 12 + [C.c_void_p, C.c_int] + [C.c_void_p] * 6
             + [C.c_char_p, C.c_int])
         lib.av1_postfilter.restype = C.c_int
-        lib.av1_postfilter.argtypes = [C.c_void_p, C.c_int] + [C.c_void_p] * 7
+        lib.av1_postfilter.argtypes = [C.c_void_p, C.c_int] + [C.c_void_p] * 9
         lib.av1_film_grain.restype = C.c_int
         lib.av1_film_grain.argtypes = [C.c_void_p, C.c_int] + [C.c_void_p] * 4
         return lib

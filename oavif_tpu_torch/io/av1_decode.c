@@ -204,6 +204,7 @@ typedef struct {
     int8_t *cdef_idx; int cdef_stride;
     /* loop restoration */
     int lr_type[3], lr_unit[3], lr_urows[3], lr_ucols[3];
+    int superres_denom; /* SuperresDenom: 8 without superres */
     int lr_rstride, lr_cstride;
     int32_t *lr_out;
     int lr_ref[3][2][3], lr_sgr_ref[3][2];
@@ -2117,6 +2118,9 @@ static void read_lr_unit(Dec *d, int plane, int ur, int uc) {
     }
 }
 
+/* spec read_lr: the units whose first row and column lie in this
+ * superblock; under superres the unit grid is the upscaled frame's, so a
+ * coded column stands for SuperresDenom / 8 of them */
 static void read_lr(Dec *d, int r, int c) {
     for (int plane = 0; plane < d->nplanes; plane++) {
         if (!d->lr_type[plane]) continue;
@@ -2124,8 +2128,9 @@ static void read_lr(Dec *d, int r, int c) {
         int unit = d->lr_unit[plane];
         int ur0 = (r * (4 >> sy) + unit - 1) / unit;
         int ur1 = imin(d->lr_urows[plane], ((r + d->sb4) * (4 >> sy) + unit - 1) / unit);
-        int uc0 = (c * (4 >> sx) + unit - 1) / unit;
-        int uc1 = imin(d->lr_ucols[plane], ((c + d->sb4) * (4 >> sx) + unit - 1) / unit);
+        int num = (4 >> sx) * d->superres_denom, den = unit * 8;
+        int uc0 = (c * num + den - 1) / den;
+        int uc1 = imin(d->lr_ucols[plane], ((c + d->sb4) * num + den - 1) / den);
         for (int ur = ur0; ur < ur1; ur++)
             for (int uc = uc0; uc < uc1; uc++) read_lr_unit(d, plane, ur, uc);
     }
@@ -2246,6 +2251,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
         d->plane[p] = p < d->nplanes ? planes[p] : NULL;
         d->txmap[p] = p < d->nplanes ? txmaps[p] : NULL;
     }
+    d->superres_denom = hdr[H_SUPERRES_DENOM];
     d->lr_rstride = hdr[H_LR_RSTRIDE];
     d->lr_cstride = hdr[H_LR_CSTRIDE];
     d->lr_out = lr_out;

@@ -132,8 +132,8 @@ static inline int scale_lut(const Grain *s, int p, int index) {
 }
 
 /* Adds the grain of pack g (G_*) to planes (int32, the given stride, the
- * visible H_WIDTH x H_HEIGHT of each at its subsampling). Returns 0, or 2
- * when out of memory. */
+ * visible H_UPSCALED_WIDTH x H_HEIGHT of each at its subsampling).
+ * Returns 0, or 2 when out of memory. */
 int av1_film_grain(int32_t *const *planes, int stride, const int32_t *hdr,
                    const int32_t *g, const int16_t *gauss, int32_t *counts) {
     Grain *s = (Grain *)calloc(1, sizeof(Grain));
@@ -144,7 +144,7 @@ int av1_film_grain(int32_t *const *planes, int stride, const int32_t *hdr,
     s->ssy = hdr[H_SS_Y];
     s->grain_min = -(128 << (s->bd - 8));
     s->grain_max = (256 << (s->bd - 8)) - 1 - (128 << (s->bd - 8));
-    int fw = hdr[H_WIDTH], fh = hdr[H_HEIGHT];
+    int fw = hdr[H_UPSCALED_WIDTH], fh = hdr[H_HEIGHT];
     generate_grain(s, g, gauss);
     scaling_init(s, g);
     int overlap = g[G_OVERLAP];

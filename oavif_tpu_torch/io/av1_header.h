@@ -40,6 +40,11 @@ enum {
     H_SEG_ENABLED, H_SEG_PRESKIP, H_SEG_LAST_ACTIVE, H_SEG_ALT_Q_MASK,
     H_SEG_ALT_Q0, H_SEG_ALT_Q1, H_SEG_ALT_Q2, H_SEG_ALT_Q3, H_SEG_ALT_Q4,
     H_SEG_ALT_Q5, H_SEG_ALT_Q6, H_SEG_ALT_Q7, H_SEG_LOSSLESS_MASK,
+    /* superres: SuperresDenom (8 without it) and UpscaledWidth, the
+     * visible width; H_WIDTH is then the coded FrameWidth, which the
+     * tiles, deblocking and CDEF cover, and the upscaled frame the one
+     * loop restoration and film grain work on */
+    H_SUPERRES_DENOM, H_UPSCALED_WIDTH,
     /* the 1 << cdef_bits strength sets (y primary, y secondary, uv
      * primary, uv secondary; secondary 3 already read as 4) */
     H_CDEF_STRENGTHS,
@@ -90,6 +95,8 @@ enum {
      * qindex (SEG_LVL_ALT_Q), ids read before skip (SegIdPreSkip), and
      * skipped blocks that took the predicted id */
     T_SEGMENTATION, T_SEG_ALT_Q, T_SEG_PRESKIP, T_SEG_PRED_SKIP,
+    /* planes upscaled by superres */
+    T_SUPERRES,
     T_NCOUNTERS
 };
 

@@ -9,10 +9,13 @@
  *   64x64 (cdef_idx; -1 leaves the 64x64 alone), the chroma blocks
  *   4x4 (4:2:0), 4x8 (4:2:2) or 8x8 filtered in the luma direction
  *   (Cdef_Uv_Dir for 4:2:2), with the UV damping;
+ * - superres upscaling (spec 7.16) of a frame coded narrower than it is
+ *   shown: each plane's rows by the 8-tap Upscale_Filter, the CDEF output
+ *   and, for loop restoration, the deblocked frame;
  * - loop restoration (spec 7.17): Wiener and self-guided units on each
- *   plane's own unit grid (the chroma unit lr_uv_shift smaller), in
- *   stripes of 64 luma rows offset by 8, the rows past a stripe read
- *   from the deblocked frame.
+ *   plane's own unit grid (the chroma unit lr_uv_shift smaller) over the
+ *   upscaled width, in stripes of 64 luma rows offset by 8, the rows past
+ *   a stripe read from the deblocked frame.
  *
  * The arithmetic is that of the encoder's post-filters (av1/entropy/
  * oav1tile.c loop_filter_frame_c and cdef_frame_c, av1/restoration.py),
@@ -23,6 +26,7 @@
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
+#include <time.h>
 
 #include "av1_header.h"
 
@@ -582,7 +586,7 @@ static void restore_plane(int32_t *out, const int32_t *cdef, const int32_t *debl
                           int stride, int plane, int sx, int sy,
                           const int32_t *lr, const int32_t *hdr) {
     int bd = hdr[H_BITDEPTH];
-    int fw = hdr[H_WIDTH], fh = hdr[H_HEIGHT];
+    int fw = hdr[H_UPSCALED_WIDTH], fh = hdr[H_HEIGHT];
     int unit = hdr[H_LR_UNIT0 + plane];
     int urows = hdr[H_LR_UROWS0 + plane], ucols = hdr[H_LR_UCOLS0 + plane];
     int rs = hdr[H_LR_RSTRIDE], cstr = hdr[H_LR_CSTRIDE];
@@ -608,20 +612,60 @@ static void restore_plane(int32_t *out, const int32_t *cdef, const int32_t *debl
     }
 }
 
+/* ---- superres upscaling --------------------------------------------------- */
+
+/* One plane's rows (spec 7.16, in place): w coded samples a row (Round2(
+ * FrameWidth, subX)) to up_w (Round2(UpscaledWidth, subX)), each output
+ * sample an 8-tap filter (filter: 64 phases of 8 int16) at a position
+ * that steps by w / up_w in 1/16384 units from initialSubpelX, its taps
+ * clamped to the plane's coded columns [0, src_w) (src_w = MiCols * 4 >>
+ * subX, past w where the frame is not a multiple of 8 wide). */
+static int upscale_plane(int32_t *pl, int stride, int rows, int w, int up_w,
+                         int src_w, int bd, const int16_t *filter) {
+    int32_t *row = (int32_t *)malloc(sizeof(int32_t) * (size_t)src_w);
+    if (!row) return 2;
+    int step = ((w << 14) + up_w / 2) / up_w;
+    int err = up_w * step - (w << 14);
+    int x0 = ((-((up_w - w) << 13) + up_w / 2) / up_w + 128 - err / 2) & 0x3fff;
+    int maxv = (1 << bd) - 1;
+    for (int y = 0; y < rows; y++) {
+        int32_t *p = pl + (size_t)y * stride;
+        memcpy(row, p, sizeof(int32_t) * (size_t)src_w);
+        for (int x = 0; x < up_w; x++) {
+            int64_t pos = x0 + (int64_t)x * step;
+            int base = (int)(pos >> 14) - 4;
+            const int16_t *f = filter + ((pos & 0x3fff) >> 8) * 8;
+            int64_t sum = 0;
+            for (int k = 0; k < 8; k++)
+                sum += (int64_t)row[pmax(0, pmin(src_w - 1, base + k))] * f[k];
+            int v = (int)((sum + 64) >> 7);
+            p[x] = pmin(pmax(v, 0), maxv);
+        }
+    }
+    free(row);
+    return 0;
+}
+
 /* In place on the decoder's planes (each (mi_rows * 4 >> ss) x (mi_cols *
  * 4 >> ss) used of an int32 buffer of the given stride and at least as
- * many rows): deblocking, CDEF, then loop restoration. txmaps, skips,
- * cdef_idx and delta_lf (the DeltaLF of every mi, mi_rows x mi_cols)
- * are av1_decode_frame's outputs; lr the restoration units.
+ * many rows, and under superres as wide as the upscaled frame):
+ * deblocking, CDEF, the superres upscaling, then loop restoration.
+ * txmaps, skips, cdef_idx and delta_lf (the DeltaLF of every mi, mi_rows
+ * x mi_cols) are av1_decode_frame's outputs; lr the restoration units;
+ * upscale_filter the spec's Upscale_Filter (64 x 8 int16); upscale_s,
+ * where not NULL, gains the seconds the upscaling took.
  * Returns 0, or 2 when out of memory. */
 int av1_postfilter(int32_t *const *planes, int stride, const int32_t *hdr,
                    const uint8_t *const *txmaps, const uint8_t *skips,
                    const int8_t *cdef_idx, const int8_t *delta_lf, const int32_t *lr,
-                   int32_t *counts) {
+                   const int16_t *upscale_filter, int32_t *counts,
+                   double *upscale_s) {
     int nplanes = hdr[H_NPLANES], mi_rows = hdr[H_MI_ROWS], mi_cols = hdr[H_MI_COLS];
     int sx = hdr[H_SS_X], sy = hdr[H_SS_Y];
     int fw = hdr[H_WIDTH], fh = hdr[H_HEIGHT];
-    if (hdr[H_LOSSLESS]) return 0;
+    int superres = hdr[H_SUPERRES_DENOM] != 8;
+    /* a lossless frame has its levels 0, CDEF off and, at its full width,
+     * no restoration */
     /* no deblocking where both luma levels are 0; a chroma plane whose
      * level is 0 stays unfiltered whatever its deltas */
     if (hdr[H_LF_Y0] || hdr[H_LF_Y1])
@@ -633,12 +677,12 @@ int av1_postfilter(int32_t *const *planes, int stride, const int32_t *hdr,
     int any_cdef = 0;
     if (hdr[H_CDEF_ON])
         for (int i = 0; i < (1 << hdr[H_CDEF_BITS]) * 4; i++) any_cdef |= hdr[H_CDEF_STRENGTHS + i];
-    if (!any_cdef && !any_lr) return 0;
+    if (!any_cdef && !any_lr && !superres) return 0;
     size_t rows = (size_t)mi_rows * 4;
     size_t n = rows * (size_t)stride;
     int32_t *deblk[3] = {NULL, NULL, NULL}, *cdef[3] = {NULL, NULL, NULL};
     int rc = 0;
-    for (int p = 0; p < nplanes; p++) {
+    for (int p = 0; p < nplanes && (any_cdef || any_lr); p++) {
         deblk[p] = (int32_t *)malloc(n * sizeof(int32_t));
         if (!deblk[p]) { rc = 2; goto done; }
         memcpy(deblk[p], planes[p], n * sizeof(int32_t));
@@ -646,6 +690,28 @@ int av1_postfilter(int32_t *const *planes, int stride, const int32_t *hdr,
     if (any_cdef)
         cdef_frame(planes, deblk, stride, nplanes, sx, sy, skips, cdef_idx, mi_rows,
                    mi_cols, hdr, counts);
+    if (superres) {
+        struct timespec t0, t1;
+        clock_gettime(CLOCK_MONOTONIC, &t0);
+        int up = hdr[H_UPSCALED_WIDTH];
+        for (int p = 0; p < nplanes && !rc; p++) {
+            int px = p ? sx : 0, py = p ? sy : 0;
+            int w = (fw + px) >> px, up_w = (up + px) >> px;
+            int src_w = (mi_cols * 4) >> px, prow = (int)(rows >> py);
+            rc = upscale_plane(planes[p], stride, prow, w, up_w, src_w,
+                               hdr[H_BITDEPTH], upscale_filter);
+            /* the rows loop restoration reads past its stripes */
+            if (!rc && hdr[H_LR_TYPE0 + p])
+                rc = upscale_plane(deblk[p], stride, prow, w, up_w, src_w,
+                                   hdr[H_BITDEPTH], upscale_filter);
+            counts[T_SUPERRES]++;
+        }
+        clock_gettime(CLOCK_MONOTONIC, &t1);
+        if (upscale_s)
+            *upscale_s += (double)(t1.tv_sec - t0.tv_sec)
+                          + 1e-9 * (double)(t1.tv_nsec - t0.tv_nsec);
+        if (rc) goto done;
+    }
     if (any_lr) {
         for (int p = 0; p < nplanes; p++) {
             if (!hdr[H_LR_TYPE0 + p]) continue;

@@ -12,17 +12,19 @@ Three parts, all on the host:
   and the item data in ``mdat`` or ``idat``;
 - the OBU layer (``parse_av1``): the sequence header in its reduced
   still-picture form and its full form, the uncompressed header of one
-  shown key frame, the tile info and the tile groups (spec sections 5.3-5.9
-  and 5.11.1);
+  shown key frame with superres, the tile info with uniform or
+  non-uniform spacing and the tile groups (spec sections 5.3-5.9 and
+  5.11.1);
 - the tile decode and reconstruction in C (``av1_decode.c``, in the host
   library), for 4:4:4, 4:2:2, 4:2:0 and monochrome streams at 8, 10 and
   12 bits with the intra tools libaom writes, quantizer matrices, delta q
   and delta LF, the chroma palette and intra block copy included, then
   the post-filters in
   C on each plane's own grid (``av1_postfilter.c``): deblocking at each
-  block's level, CDEF with the strength set of each 64x64, and loop
-  restoration; film grain synthesis (``av1_grain.c``); and the conversion
-  to 8-bit RGB as libavif 1.3 converts (libyuv's fixed-point matrices,
+  block's level, CDEF with the strength set of each 64x64, superres
+  upscaling and loop restoration over the upscaled width; film grain
+  synthesis (``av1_grain.c``); and the conversion to 8-bit RGB as libavif
+  1.3 converts (libyuv's fixed-point matrices,
   full or limited range, and bilinear chroma upsampling where libavif
   hands the conversion to libyuv, its own float path elsewhere;
   ``yuv_to_rgb8``).
@@ -591,6 +593,13 @@ class _Bits:
         v = self.f(n)
         return v - (1 << n) if v >> (n - 1) else v
 
+    def ns(self, n: int) -> int:
+        """A value below n in a non-symmetric code (spec 4.10.7)."""
+        w = n.bit_length()
+        m = (1 << w) - n
+        v = self.f(w - 1)
+        return v if v < m else (v << 1) - m + self.f(1)
+
     def uvlc(self) -> int:
         lz = 0
         while not self.f(1):
@@ -774,8 +783,13 @@ def parse_sequence_header(b: _Bits) -> SequenceHeader:
 
 @dataclass
 class FrameHeader:
+    # the upscaled (visible) width; under superres the frame is coded
+    # ``coded_width`` wide, ``superres_denom`` / 8 narrower (spec
+    # UpscaledWidth, FrameWidth, SuperresDenom)
     width: int = 0
     height: int = 0
+    coded_width: int = 0
+    superres_denom: int = 8
     disable_cdf_update: bool = False
     screen_tools: bool = False
     mi_rows: int = 0
@@ -877,18 +891,22 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
         fh.height = b.f(s.height_bits) + 1
     else:
         fh.width, fh.height = s.width, s.height
-    if s.superres and b.f(1):
-        raise UnsupportedAvif("AV1: superres is not supported yet")
+    fh.coded_width = fh.width
+    if s.superres and b.f(1):  # superres_params: use_superres
+        fh.superres_denom = b.f(3) + 9
+        fh.coded_width = (fh.width * 8 + fh.superres_denom // 2) \
+            // fh.superres_denom
     if b.f(1):
         b.f(16)
         b.f(16)
-    # allow_intrabc: an intra frame's DVs are whole pixels
-    # (force_integer_mv), and the frame has no deblocking, CDEF, loop
-    # restoration or delta LF
-    fh.allow_intrabc = bool(screen and b.f(1))
+    # allow_intrabc (only on a frame not scaled by superres): an intra
+    # frame's DVs are whole pixels (force_integer_mv), and the frame has
+    # no deblocking, CDEF, loop restoration or delta LF
+    fh.allow_intrabc = bool(screen and fh.coded_width == fh.width
+                            and b.f(1))
     if not (s.reduced or fh.disable_cdf_update):
         b.f(1)  # disable_frame_end_update_cdf
-    fh.mi_cols = 2 * ((fh.width + 7) >> 3)
+    fh.mi_cols = 2 * ((fh.coded_width + 7) >> 3)
     fh.mi_rows = 2 * ((fh.height + 7) >> 3)
     _tile_info(b, s, fh)
     # quantization_params
@@ -926,9 +944,10 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
                 raise UnsupportedAvif("AV1: delta LF per plane and "
                                       "direction (delta_lf_multi) is not "
                                       "supported yet")
-    # loop_filter_params, cdef_params and lr_params keep their defaults
-    # (levels 0, CDEF off, no restoration) in a lossless frame and under
-    # intrabc
+    # loop_filter_params and cdef_params keep their defaults (levels 0,
+    # CDEF off) in a lossless frame and under intrabc, lr_params (no
+    # restoration) in one lossless at its full width (AllLossless) and
+    # under intrabc
     if not (fh.lossless or fh.allow_intrabc):
         l0, l1 = b.f(6), b.f(6)
         l2 = l3 = 0
@@ -956,6 +975,8 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
                     up, us = b.f(4), b.f(2)
                 fh.cdef_strengths.append(
                     (yp, 4 if ys == 3 else ys, up, 4 if us == 3 else us))
+    all_lossless = fh.lossless and fh.coded_width == fh.width
+    if not (all_lossless or fh.allow_intrabc):
         if s.restoration:
             fh.lr_types = tuple(b.f(2) for _ in range(nplanes)) + \
                 (0,) * (3 - nplanes)
@@ -1062,19 +1083,37 @@ def _tile_info(b: _Bits, s: SequenceHeader, fh: FrameHeader) -> None:
     max_log2_rows = _tile_log2(1, min(sb_rows, 64))
     min_log2_tiles = max(min_log2_cols, _tile_log2(max_area_sb,
                                                    sb_rows * sb_cols))
-    if not b.f(1):  # uniform_tile_spacing_flag
-        raise UnsupportedAvif("AV1: non-uniform tile spacing is not "
-                              "supported yet")
-    cl = min_log2_cols
-    while cl < max_log2_cols and b.f(1):
-        cl += 1
-    tw = (sb_cols + (1 << cl) - 1) >> cl
-    fh.tile_col_starts = [i << sb_shift for i in range(0, sb_cols, tw)]
-    rl = max(min_log2_tiles - cl, 0)
-    while rl < max_log2_rows and b.f(1):
-        rl += 1
-    th = (sb_rows + (1 << rl) - 1) >> rl
-    fh.tile_row_starts = [i << sb_shift for i in range(0, sb_rows, th)]
+    if b.f(1):  # uniform_tile_spacing_flag
+        cl = min_log2_cols
+        while cl < max_log2_cols and b.f(1):
+            cl += 1
+        tw = (sb_cols + (1 << cl) - 1) >> cl
+        fh.tile_col_starts = [i << sb_shift for i in range(0, sb_cols, tw)]
+        rl = max(min_log2_tiles - cl, 0)
+        while rl < max_log2_rows and b.f(1):
+            rl += 1
+        th = (sb_rows + (1 << rl) - 1) >> rl
+        fh.tile_row_starts = [i << sb_shift for i in range(0, sb_rows, th)]
+    else:  # each tile's width, then height, in superblocks
+        widest = start = 0
+        fh.tile_col_starts = []
+        while start < sb_cols:
+            fh.tile_col_starts.append(start << sb_shift)
+            size = b.ns(min(sb_cols - start, max_w_sb)) + 1
+            widest = max(widest, size)
+            start += size
+        area = (sb_rows * sb_cols) >> (min_log2_tiles + 1) \
+            if min_log2_tiles else sb_rows * sb_cols
+        max_h_sb = max(area // widest, 1)
+        start = 0
+        fh.tile_row_starts = []
+        while start < sb_rows:
+            fh.tile_row_starts.append(start << sb_shift)
+            start += b.ns(min(sb_rows - start, max_h_sb)) + 1
+        cl = _tile_log2(1, len(fh.tile_col_starts))
+        rl = _tile_log2(1, len(fh.tile_row_starts))
+        if len(fh.tile_col_starts) > 64 or len(fh.tile_row_starts) > 64:
+            raise _broken("more than 64 tile columns or rows")
     fh.tile_cols_log2, fh.tile_rows_log2 = cl, rl
     fh.tile_col_starts.append(fh.mi_cols)
     fh.tile_row_starts.append(fh.mi_rows)
@@ -1215,7 +1254,8 @@ _HDR_FIELDS = (
     "lf_sharpness", "cdef_damping", "qm_y", "qm_u", "qm_v", "delta_q_res",
     "delta_lf_res", "lf_delta_enabled", "lf_ref_delta_intra", "allow_intrabc",
     "seg_enabled", "seg_preskip", "seg_last_active", "seg_alt_q_mask",
-) + tuple(f"seg_alt_q{i}" for i in range(8)) + ("seg_lossless_mask",) \
+) + tuple(f"seg_alt_q{i}" for i in range(8)) + (
+    "seg_lossless_mask", "superres_denom", "upscaled_width") \
     + tuple(f"cdef_{k}{i}" for i in range(8)
             for k in ("y_pri", "y_sec", "uv_pri", "uv_sec"))
 # the decoder's tool counters in the order of av1_header.h's T_* enum
@@ -1228,7 +1268,7 @@ TOOL_NAMES = (
     "uv_palette", "twelve_bit", "intrabc", "intrabc_default_dv",
     "intrabc_chroma_subpel", "vartx_split", "tx_inter_set1",
     "tx_inter_set2", "tx_inter_set3", "tx_flip", "intrabc_sub8x8_chroma",
-    "segmentation", "seg_alt_q", "seg_preskip", "seg_pred_skip",
+    "segmentation", "seg_alt_q", "seg_preskip", "seg_pred_skip", "superres",
 )
 # the film grain pack (av1_header.h's G_* enum): field, length
 _GRAIN_FIELDS = (
@@ -1297,8 +1337,9 @@ def _tool_tables():
         with np.load(path) as t:
             _TOOL_CACHE.update({k: t[k] for k in t.files})
         _TOOL_CACHE["qm"] = np.ascontiguousarray(_TOOL_CACHE["qm"])
-        _TOOL_CACHE["gaussian_sequence"] = np.ascontiguousarray(
-            _TOOL_CACHE["gaussian_sequence"], dtype=np.int16)
+        for k in ("gaussian_sequence", "upscale_filter"):
+            _TOOL_CACHE[k] = np.ascontiguousarray(_TOOL_CACHE[k],
+                                                  dtype=np.int16)
     return _TOOL_CACHE
 
 
@@ -1397,8 +1438,8 @@ def _grain_pack(g: FilmGrain, mc_identity: bool) -> np.ndarray:
 def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     """Decode one AV1 item payload to its visible Y'UV planes (int32).
     ``times``, where given, gains the seconds of "parse" (headers and the
-    tile decode), "filters" (deblocking, CDEF, loop restoration) and
-    "grain" (film grain synthesis)."""
+    tile decode), "filters" (deblocking, CDEF, loop restoration),
+    "upscale" (superres) and "grain" (film grain synthesis)."""
     from ..av1.consts import coeff_q_ctx
     from ..av1.restoration import count_units, unit_size
     from ..av1.tables import TABLES
@@ -1413,7 +1454,8 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     sb = 128 if s.sb128 else 64
     sb4 = sb // 4
     rows = ((fh.mi_rows + sb4 - 1) // sb4) * sb
-    stride = ((fh.mi_cols + sb4 - 1) // sb4) * sb
+    # the coded superblocks, and under superres the upscaled frame
+    stride = -(-max(fh.mi_cols * 4, fh.width) // sb) * sb
     planes = [np.zeros((rows, stride), dtype=np.int32) for _ in range(nplanes)]
     qlut = np.ascontiguousarray(np.concatenate(
         [TABLES[f"dc_q{bd}"], TABLES[f"ac_q{bd}"]]), dtype=np.int32)
@@ -1447,7 +1489,7 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
         **{f"lr_urows{p}": urows[p] for p in range(3)},
         **{f"lr_ucols{p}": ucols[p] for p in range(3)},
         lr_rstride=max(urows), lr_cstride=max(ucols), ss_x=ssx, ss_y=ssy,
-        edge_filter=int(s.intra_edge), width=w, height=h,
+        edge_filter=int(s.intra_edge), width=fh.coded_width, height=h,
         **dict(zip(("lf_y0", "lf_y1", "lf_u", "lf_v"), fh.lf_levels)),
         lf_sharpness=fh.lf_sharpness, cdef_damping=fh.cdef_damping,
         **dict(zip(("qm_y", "qm_u", "qm_v"), fh.qm)),
@@ -1463,6 +1505,7 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
            for i, f in enumerate(fh.segmentation or [[None]] * 8)},
         seg_lossless_mask=sum(int(v) << i
                               for i, v in enumerate(fh.seg_lossless)),
+        superres_denom=fh.superres_denom, upscaled_width=w,
         **{name: v for name, v in zip(_HDR_FIELDS[-32:], strengths)})
     hdr = np.array([fields[k] for k in _HDR_FIELDS], dtype=np.int32)
     starts = np.array(fh.tile_col_starts + fh.tile_row_starts, dtype=np.int32)
@@ -1500,10 +1543,13 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     if rc:
         raise _broken(msg.value.decode() or "tile data")
     t1 = time.perf_counter()
+    upscale = C.c_double(0.0)
     if lib.av1_postfilter(C.cast(plane_ptrs, vp), stride, hdr.ctypes.data,
                           C.cast(tx_ptrs, vp), skips.ctypes.data,
                           cdef_idx.ctypes.data, delta_lf.ctypes.data,
-                          lr_units.ctypes.data, counts.ctypes.data):
+                          lr_units.ctypes.data,
+                          _tool_tables()["upscale_filter"].ctypes.data,
+                          counts.ctypes.data, C.byref(upscale)):
         raise MemoryError("AVIF post-filters: out of memory")
     t2 = time.perf_counter()
     if fh.grain is not None:
@@ -1519,7 +1565,9 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     if times is not None:
         # the crop to the visible size counts with the filters
         for k, v in (("parse", t1 - t0), ("grain", t3 - t2),
-                     ("filters", t2 - t1 + time.perf_counter() - t3)):
+                     ("upscale", upscale.value),
+                     ("filters", t2 - t1 - upscale.value
+                      + time.perf_counter() - t3)):
             times[k] = times.get(k, 0.0) + v
     return DecodedImage(out, bd, s.cicp, s.full_range, s.mono, (ssx, ssy),
                         dict(zip(TOOL_NAMES, counts.tolist())))
@@ -1886,10 +1934,23 @@ def _decode_item(it: Av1Item, times: Optional[dict]) -> DecodedImage:
     return img
 
 
+def _alpha_to_full(a: np.ndarray, depth: int) -> np.ndarray:
+    """An alpha plane its sequence header calls limited range, widened to
+    the full range as libavif 1.3 does when it decodes one
+    (avifLimitedToFullY: 16-235 to 0-255 at 8 bits, 64-940 and 256-3760
+    at 10 and 12, rounded, the division truncated toward zero as in C,
+    then clamped)."""
+    lo, hi = 16 << (depth - 8), 235 << (depth - 8)
+    top = (1 << depth) - 1
+    num = (a.astype(np.int64) - lo) * top + (hi - lo) // 2
+    q = np.where(num >= 0, num // (hi - lo), -(-num // (hi - lo)))
+    return np.clip(q, 0, top).astype(a.dtype)
+
+
 def decode_avif(data: bytes, times: Optional[dict] = None):
     """(container, colour image, alpha image or None). ``times`` gains
     "parse" (the container, the headers and the tile decode), "filters",
-    "grain" and, for a grid, "stitch"."""
+    "upscale" (superres), "grain" and, for a grid, "stitch"."""
     t0 = time.perf_counter()
     box = read_container(data)
     if times is not None:
@@ -1901,6 +1962,10 @@ def decode_avif(data: bytes, times: Optional[dict] = None):
             raise _broken("the alpha item is not monochrome")
         if alpha.planes[0].shape != color.planes[0].shape:
             raise _broken("alpha and colour sizes differ")
+        if not alpha.full_range:
+            alpha.planes[0] = _alpha_to_full(alpha.planes[0],
+                                             alpha.bit_depth)
+            alpha.full_range = True
     if box.color.nclx is not None:
         cp, tc, mc, full = box.color.nclx
         color.cicp, color.full_range = (cp, tc, mc), full

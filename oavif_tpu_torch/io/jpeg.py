@@ -1,23 +1,30 @@
-"""JPEG decoder for 8-bit DCT files, without Pillow.
+"""JPEG decoder for 8-bit DCT and lossless files, without Pillow.
 
 Baseline, extended-sequential (``SOF1``, ``SOF9``) and progressive
 (``SOF2``, ``SOF10``) frames, Huffman- or arithmetic-coded (with the
 ``DAC`` conditioning), of 1, 3 or 4 components with any sampling factors
 from 1 to 4, restart intervals, 8- and 16-bit quantization tables, and
-the ICC profile of the ``APP2`` chunks. This module walks the markers,
-picks the colour space and builds the Huffman look-up tables; the C side
-(``jpeg_decode.c``, in the host library) decodes the scans and turns the
-coefficients into samples. The samples are libjpeg-turbo's in its default
+the ICC profile of the ``APP2`` chunks, and Huffman-coded lossless
+(``SOF3``) frames with any predictor and point transform. This module
+walks the markers, picks the colour space and builds the Huffman look-up
+tables; the C side (``jpeg_decode.c``, in the host library) decodes the
+scans and turns the coefficients into samples. The samples are
+libjpeg-turbo's in its default
 decompression (JDCT_ISLOW, fancy upsampling, block smoothing of the
 progressive files whose scans leave low coefficients unrefined), which is
 what Pillow, and so the reference's loader, returns; a 4-component file
 goes to RGB as Pillow's ``convert("RGB")`` takes it
 (``tests/test_torch_jpeg.py`` holds both equal).
 
-12-bit samples, lossless and hierarchical frames, 2 or more than 4
-components and fractional sampling ratios raise ``ValueError``; a file
-that ends before its ``EOI`` marker raises ``OSError``, as Pillow's
-``load`` does.
+Lossless files are libjpeg-turbo's too: their samples as the scans give
+them, boxes for the upsampling, and, as libjpeg-turbo converts no colours
+of a lossless file, RGB or CMYK only (a ``JFIF`` marker or an Adobe
+transform that names YCbCr raise).
+
+12-bit samples, arithmetic-coded lossless and hierarchical frames, 2 or
+more than 4 components and fractional sampling ratios raise
+``ValueError``; a file that ends before its ``EOI`` marker raises
+``OSError``, as Pillow's ``load`` does.
 """
 
 from __future__ import annotations
@@ -37,7 +44,6 @@ NATURAL = np.array(
 
 # markers this reader refuses, by the variant they start
 _REFUSED = {
-    0xC3: "lossless JPEG (SOF3)",
     0xC5: "hierarchical JPEG (SOF5)",
     0xC6: "hierarchical progressive JPEG (SOF6)",
     0xC7: "hierarchical lossless JPEG (SOF7)",
@@ -83,8 +89,10 @@ _HT_WORDS = (1 << _LOOK_BITS) + 18 + 17 + 256
 _S_WORDS = 24
 _S_COND = 20
 _C_WORDS = 8
-_SOF = {0xC0: (False, False), 0xC1: (False, False), 0xC2: (True, False),
-        0xC9: (False, True), 0xCA: (True, True)}  # (progressive, arithmetic)
+# (progressive, arithmetic, lossless)
+_SOF = {0xC0: (False, False, False), 0xC1: (False, False, False),
+        0xC2: (True, False, False), 0xC3: (False, False, True),
+        0xC9: (False, True, False), 0xCA: (True, True, False)}
 _CS = {"gray": 0, "ycc": 1, "rgb": 2, "cmyk": 3, "ycck": 4}
 
 # a marker that ends an entropy-coded segment: 0xFF, then neither a
@@ -96,19 +104,21 @@ def _truncated() -> OSError:
     return OSError("JPEG file is truncated")
 
 
-def huffman_table(bits, vals: bytes, dc: bool) -> np.ndarray:
+def huffman_table(bits, vals: bytes, dc: bool,
+                  max_dc: int = 15) -> np.ndarray:
     """The C side's look-up table for one DHT table (libjpeg's
     jpeg_make_d_derived_tbl): the 9-bit look-ahead, maxcode, valoffset and
     the symbols. Raises ValueError for a table no prefix code fits, or a
-    DC symbol above 15."""
+    DC symbol above ``max_dc`` (16 in a lossless file)."""
     t = np.zeros(_HT_WORDS, dtype=np.int32)
     look = t[: 1 << _LOOK_BITS]
     maxcode = t[1 << _LOOK_BITS: (1 << _LOOK_BITS) + 18]
     valoff = t[(1 << _LOOK_BITS) + 18: (1 << _LOOK_BITS) + 35]
     t[(1 << _LOOK_BITS) + 35: (1 << _LOOK_BITS) + 35 + len(vals)] = \
         np.frombuffer(vals, np.uint8)
-    if dc and any(v > 15 for v in vals):
-        raise ValueError("bad JPEG Huffman table (DC symbol above 15)")
+    if dc and any(v > max_dc for v in vals):
+        raise ValueError(f"bad JPEG Huffman table (DC symbol above "
+                         f"{max_dc})")
     code = 0
     p = 0
     for length in range(1, 17):
@@ -212,6 +222,7 @@ class _Reader:
         self.data = data
         self.progressive = False
         self.arith = False
+        self.lossless = False
         # the arithmetic conditioning per table slot (libjpeg's defaults)
         self.dc_l, self.dc_u, self.ac_k = [0] * 16, [1] * 16, [5] * 16
         self.width = self.height = 0
@@ -228,7 +239,8 @@ class _Reader:
         """The index of this Huffman table's look-up table, built once."""
         if (key, dc) not in self._table_ids:
             self._table_ids[key, dc] = len(self.tables)
-            self.tables.append(huffman_table(key[0], key[1], dc))
+            self.tables.append(huffman_table(key[0], key[1], dc,
+                                             16 if self.lossless else 15))
         return self._table_ids[key, dc]
 
     def read(self) -> None:
@@ -329,7 +341,7 @@ class _Reader:
             raise ValueError("empty JPEG image")
         if len(seg) < 6 + 3 * n:
             raise ValueError("bad JPEG frame header")
-        self.progressive, self.arith = _SOF[marker]
+        self.progressive, self.arith, self.lossless = _SOF[marker]
         for c in range(n):
             cid, hv, tq = seg[6 + 3 * c: 9 + 3 * c]
             h, v = hv >> 4, hv & 15
@@ -372,9 +384,11 @@ class _Reader:
             raise ValueError("bad JPEG scan (more than 10 blocks in an MCU)")
         if self.progressive:
             self._progression(members, ss, se, ah, al)
+        if self.lossless:
+            self._lossless_scan(members, ss, se, ah, al, restart)
         for k, ci in enumerate(members):
             comp = self.comps[ci]
-            if comp.quant is None:
+            if comp.quant is None and not self.lossless:
                 if comp.tq not in quant:
                     raise ValueError("JPEG component without its "
                                      "quantization table")
@@ -390,13 +404,14 @@ class _Reader:
             if dc_slot >= 4 or ac_slot >= 4:
                 raise ValueError("bad JPEG Huffman table selector")
             uses_dc = not self.progressive or (ss == 0 and ah == 0)
-            uses_ac = not self.progressive or ss > 0
+            uses_ac = not self.lossless and (not self.progressive or ss > 0)
             for cls, slot, used, word in ((0, dc_slot, uses_dc, 7),
                                           (1, ac_slot, uses_ac, 11)):
                 if not used:
                     continue
                 spec = huff.get((cls, slot))
-                if spec is None and not self.progressive:
+                if spec is None and not (self.progressive
+                                         or self.lossless):
                     spec = _STD_TABLES.get((cls, slot))
                 if spec is None:
                     raise ValueError("JPEG scan uses an undefined Huffman "
@@ -417,6 +432,24 @@ class _Reader:
             bits = self.comps[ci].coef_bits
             for k in range(ss, se + 1):
                 bits[k] = al
+
+    def _lossless_scan(self, members, ss: int, se: int, ah: int, al: int,
+                       restart: int) -> None:
+        """libjpeg-turbo's checks of a lossless scan (jdlossls.c): the
+        predictor Ss from 1 to 7, Se and Ah zero, the point transform Al
+        below the precision, and restart intervals of whole MCU rows."""
+        if not 1 <= ss <= 7 or se or ah or al >= 8:
+            raise ValueError(f"bad JPEG lossless scan (Ss={ss} Se={se} "
+                             f"Ah={ah} Al={al})")
+        if len(members) == 1:
+            c = self.comps[members[0]]
+            hmax = max(d.h for d in self.comps)
+            cols = -(-self.width * c.h // hmax)
+        else:
+            cols = -(-self.width // max(d.h for d in self.comps))
+        if restart % cols:
+            raise ValueError(f"bad JPEG lossless restart interval ({restart} "
+                             f"MCUs, rows of {cols})")
 
     def smoothed(self) -> bool:
         """Whether libjpeg smooths the blocks of this progressive file
@@ -446,7 +479,8 @@ class _Reader:
             if self.adobe is not None:
                 return "rgb" if self.adobe == 0 else "ycc"
             ids = tuple(c.cid for c in self.comps)
-            return "rgb" if ids == (82, 71, 66) else "ycc"
+            # a lossless file without either marker is RGB
+            return "rgb" if ids == (82, 71, 66) or self.lossless else "ycc"
         if self.adobe is not None and self.adobe != 0:
             return "ycck"
         return "cmyk"
@@ -476,37 +510,44 @@ def decode_jpeg(data: bytes) -> Tuple[np.ndarray, Optional[bytes]]:
     if lib is None:
         raise RuntimeError("native library unavailable: the C runtime "
                            "(oavif_tpu_torch/av1/entropy) failed to build")
+    space = r.colorspace()
+    if r.lossless and space in ("ycc", "ycck"):
+        raise ValueError(f"unsupported lossless JPEG in "
+                         f"{'YCbCr' if space == 'ycc' else 'YCCK'} "
+                         f"(libjpeg-turbo converts no colours of a lossless "
+                         f"file)")
     hmax = max(c.h for c in r.comps)
     vmax = max(c.v for c in r.comps)
-    mcux = -(-r.width // (8 * hmax))
-    mcuy = -(-r.height // (8 * vmax))
+    unit = 1 if r.lossless else 8  # samples per block side
+    mcux = -(-r.width // (unit * hmax))
+    mcuy = -(-r.height // (unit * vmax))
     geom = np.zeros((len(r.comps), _C_WORDS), dtype=np.int32)
     coefs = []
     for i, c in enumerate(r.comps):
         bw, bh = mcux * c.h, mcuy * c.v
         geom[i, :6] = (c.h, c.v, bw,
-                       -(-r.width * c.h // (8 * hmax)),
-                       -(-r.height * c.v // (8 * vmax)), bh)
-        coefs.append(np.zeros(bw * bh * 64, dtype=np.int16))
+                       -(-r.width * c.h // (unit * hmax)),
+                       -(-r.height * c.v // (unit * vmax)), bh)
+        coefs.append(np.zeros(bw * bh * unit * unit, dtype=np.int16))
     scans = np.ascontiguousarray(r.scans, dtype=np.int32)
     tables = (np.stack(r.tables) if r.tables  # none in arithmetic files
               else np.zeros((1, _HT_WORDS), dtype=np.int32))
     cptrs = _ptrs(coefs)
     rc = lib.jpeg_entropy(r.data, scans.ctypes.data, len(scans),
                           tables.ctypes.data, cptrs, geom.ctypes.data,
-                          mcux, mcuy, int(r.progressive) | 2 * r.arith)
+                          mcux, mcuy, int(r.progressive) | 2 * r.arith
+                          | 4 * r.lossless)
     if rc:
         raise ValueError(f"bad JPEG scan {rc - 1}")
     quant = np.stack([c.quant if c.quant is not None
                       else np.zeros(64, np.int16) for c in r.comps])
-    space = r.colorspace()
     nout = {"gray": 1, "ycc": 3, "rgb": 3}.get(space, 4)
     out = np.empty((r.height, r.width, nout), dtype=np.uint8)
     bits = (np.array([c.coef_bits[:10] for c in r.comps], dtype=np.int32)
             if r.smoothed() else None)
     rc = lib.jpeg_pixels(cptrs, geom.ctypes.data, len(r.comps),
                          quant.ctypes.data, r.width,
-                         r.height, hmax, vmax, _CS[space],
+                         r.height, hmax, vmax, _CS[space], int(r.lossless),
                          None if bits is None else bits.ctypes.data,
                          out.ctypes.data)
     if rc:

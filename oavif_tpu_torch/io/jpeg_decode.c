@@ -749,14 +749,168 @@ static int decode_scan_arith(const Frame *f, const uint8_t *data,
     return 0;
 }
 
+/* ---- lossless scans (ITU T.81 Annex H; jdlhuff.c, jdlossls.c, jddiffct.c) */
+
+/* One row of a component's samples from its differences: the first row
+ * of the scan and of each restart interval from the sample to its left
+ * (its first sample from `init`), the other rows by the scan's predictor
+ * from the row above, their first sample from the sample above. Sums
+ * wrap at 16 bits, as libjpeg-turbo's undifferencer does. */
+static void undifference(const int32_t *diff, const uint16_t *prev,
+                         uint16_t *cur, int width, int psv, int first,
+                         int init)
+{
+    int ra, rb, rc;
+    if (first) {
+        ra = (diff[0] + init) & 0xFFFF;
+        cur[0] = (uint16_t)ra;
+        for (int x = 1; x < width; x++) {
+            ra = (diff[x] + ra) & 0xFFFF;
+            cur[x] = (uint16_t)ra;
+        }
+        return;
+    }
+    rb = prev[0];
+    ra = (diff[0] + rb) & 0xFFFF;
+    cur[0] = (uint16_t)ra;
+    for (int x = 1; x < width; x++) {
+        rc = rb;
+        rb = prev[x];
+        int p;
+        switch (psv) {
+        case 1: p = ra; break;
+        case 2: p = rb; break;
+        case 3: p = rc; break;
+        case 4: p = ra + rb - rc; break;
+        case 5: p = ra + ((rb - rc) >> 1); break;
+        case 6: p = rb + ((ra - rc) >> 1); break;
+        default: p = (ra + rb) >> 1; break;
+        }
+        ra = (diff[x] + p) & 0xFFFF;
+        cur[x] = (uint16_t)ra;
+    }
+}
+
+/* Decode one lossless Huffman scan (predictor S_SS, point transform
+ * S_AL) into its components' sample planes, which hold one int16 sample
+ * per position (row stride C_BW). An MCU holds C_H x C_V samples of each
+ * member of an interleaved scan, one sample of a single component's.
+ * Restart intervals are whole MCU rows (the caller checks it). Where the
+ * data ran out before an MCU row, its differences are zero. Either starts
+ * the first-row prediction again, and, as in libjpeg-turbo, which
+ * undifferences a whole iMCU row once it is decoded, at the first row of
+ * the iMCU row: a single component's scan has C_V MCU rows in one. */
+static int decode_scan_lossless(const Frame *f, const uint8_t *data,
+                                const int32_t *sc)
+{
+    Bits b = {data + sc[S_OFF], data + sc[S_OFF] + sc[S_LEN], 0, 0, 0, 0};
+    int ns = sc[S_NCOMP];
+    int psv = sc[S_SS], pt = sc[S_AL], ri = sc[S_RI];
+    int init = 1 << (8 - pt - 1);
+    int cols, rows, group;
+    const int32_t *g0 = f->comp + C_WORDS * sc[S_COMP];
+    if (ns == 1) {
+        cols = g0[C_WIB];
+        rows = g0[C_HIB];
+        group = g0[C_V];
+    } else {
+        cols = f->mcux;
+        rows = f->mcuy;
+        group = 1;
+    }
+    int rows_per_ri = ri ? ri / cols : 0;
+    int hs[4], vs[4], first[4];
+    int32_t *diff[4];
+    uint16_t *prev[4], *cur[4];
+    const int32_t *tbl[4];
+    for (int s = 0; s < ns; s++) {
+        const int32_t *g = f->comp + C_WORDS * sc[S_COMP + s];
+        hs[s] = ns == 1 ? 1 : g[C_H];
+        vs[s] = ns == 1 ? 1 : g[C_V];
+        size_t w = (size_t)cols * hs[s];
+        diff[s] = (int32_t *)calloc(w * vs[s] * group, sizeof(int32_t));
+        prev[s] = (uint16_t *)calloc(w, sizeof(uint16_t));
+        cur[s] = (uint16_t *)calloc(w, sizeof(uint16_t));
+        tbl[s] = f->tables + (size_t)HT_WORDS * sc[S_DC + s];
+        first[s] = 1;
+    }
+    int togo = rows_per_ri;
+    for (int my0 = 0; my0 < rows; my0 += group) {
+        int nrow = rows - my0 < group ? rows - my0 : group;
+        int reset = 0;
+        for (int k = 0; k < nrow; k++) {
+            if (ri) {
+                if (togo == 0) {
+                    restart(&b);
+                    reset = 1;
+                    togo = rows_per_ri;
+                }
+                togo--;
+            }
+            if (b.insufficient) {
+                for (int s = 0; s < ns; s++) {
+                    size_t w = (size_t)cols * hs[s] * vs[s];
+                    memset(diff[s] + k * w, 0, sizeof(int32_t) * w);
+                }
+                reset = 1;
+                continue;
+            }
+            for (int mx = 0; mx < cols; mx++)
+                for (int s = 0; s < ns; s++) {
+                    size_t w = (size_t)cols * hs[s];
+                    int32_t *d = diff[s] + k * w * vs[s] + (size_t)mx * hs[s];
+                    for (int v = 0; v < vs[s]; v++)
+                        for (int h = 0; h < hs[s]; h++) {
+                            int t = huff_decode(&b, tbl[s]);
+                            int e = 0;
+                            if (t == 16) {
+                                e = 32768;
+                            } else if (t) {
+                                e = extend(get_bits(&b, t), t);
+                            }
+                            d[v * w + h] = e;
+                        }
+                }
+        }
+        for (int s = 0; s < ns; s++) {
+            const int32_t *g = f->comp + C_WORDS * sc[S_COMP + s];
+            int16_t *plane = f->coefs[sc[S_COMP + s]];
+            size_t w = (size_t)cols * hs[s];
+            if (reset)
+                first[s] = 1;
+            for (int r = 0; r < nrow * vs[s]; r++) {
+                int y = my0 * vs[s] + r;
+                if (y >= g[C_HIB])
+                    break;
+                undifference(diff[s] + r * w, prev[s], cur[s], g[C_WIB],
+                             psv, first[s], init);
+                first[s] = 0;
+                int16_t *row = plane + (size_t)y * g[C_BW];
+                for (int x = 0; x < g[C_WIB]; x++)
+                    row[x] = (int16_t)(uint8_t)(cur[s][x] << pt);
+                uint16_t *t = prev[s];
+                prev[s] = cur[s];
+                cur[s] = t;
+            }
+        }
+    }
+    for (int s = 0; s < ns; s++) {
+        free(diff[s]);
+        free(prev[s]);
+        free(cur[s]);
+    }
+    return 0;
+}
+
 /* data: the file; scans: nscans descriptors of S_WORDS int32 (offset and
  * length of the entropy-coded segment, with its RSTn markers, in data);
  * tables: HT_WORDS int32 per Huffman table; coefs: per component, its
  * int16 blocks of 64 coefficients in natural order, zeroed by the caller;
  * comp: C_WORDS int32 per component; mcux, mcuy: MCUs of an interleaved
- * scan; mode: 1 for a progressive frame, | 2 for arithmetic coding.
- * Returns 0, or 1 + the index of a scan with an MCU of more than 10
- * blocks. */
+ * scan; mode: 1 for a progressive frame, | 2 for arithmetic coding, 4
+ * for a lossless frame (coefs then hold one sample per position, C_BW to
+ * a row). Returns 0, or 1 + the index of a scan with an MCU of more than
+ * 10 blocks. */
 int jpeg_entropy(const uint8_t *data, const int32_t *scans, int nscans,
                  const int32_t *tables, int16_t *const *coefs,
                  const int32_t *comp, int mcux, int mcuy, int mode)
@@ -765,8 +919,9 @@ int jpeg_entropy(const uint8_t *data, const int32_t *scans, int nscans,
     int progressive = mode & 1;
     for (int i = 0; i < nscans; i++) {
         const int32_t *sc = scans + (size_t)S_WORDS * i;
-        if ((mode & 2 ? decode_scan_arith(&f, data, sc, progressive)
-                      : decode_scan(&f, data, sc, progressive)))
+        if ((mode & 4 ? decode_scan_lossless(&f, data, sc)
+             : mode & 2 ? decode_scan_arith(&f, data, sc, progressive)
+                        : decode_scan(&f, data, sc, progressive)))
             return 1 + i;
     }
     return 0;
@@ -1033,14 +1188,15 @@ static void smooth_rows(const int32_t *g, int row, int *r)
  * and below across iMCU rows and repeat the edge rows and columns, as
  * libjpeg's context buffers do; their +1/+2 and +8/+7 biases alternate. */
 static void upsample(const uint8_t *in, ptrdiff_t stride, int dw, int dh,
-                     int hx, int vx, uint8_t *out, int width, int height)
+                     int hx, int vx, int fancy, uint8_t *out, int width,
+                     int height)
 {
     if (hx == 1 && vx == 1) {
         for (int y = 0; y < height; y++)
             memcpy(out + (size_t)y * width, in + y * stride, (size_t)width);
         return;
     }
-    if (hx == 2 && vx == 1 && dw > 2) { /* h2v1_fancy_upsample */
+    if (hx == 2 && vx == 1 && dw > 2 && fancy) { /* h2v1_fancy_upsample */
         for (int y = 0; y < height; y++) {
             const uint8_t *r = in + y * stride;
             uint8_t *o = out + (size_t)y * width;
@@ -1052,7 +1208,7 @@ static void upsample(const uint8_t *in, ptrdiff_t stride, int dw, int dh,
         }
         return;
     }
-    if (hx == 1 && vx == 2) { /* h1v2_fancy_upsample */
+    if (hx == 1 && vx == 2 && fancy) { /* h1v2_fancy_upsample */
         for (int y = 0; y < height; y++) {
             int i = y >> 1;
             int n = clampi((y & 1) ? i + 1 : i - 1, 0, dh - 1);
@@ -1064,7 +1220,7 @@ static void upsample(const uint8_t *in, ptrdiff_t stride, int dw, int dh,
         }
         return;
     }
-    if (hx == 2 && vx == 2 && dw > 2) { /* h2v2_fancy_upsample */
+    if (hx == 2 && vx == 2 && dw > 2 && fancy) { /* h2v2_fancy_upsample */
         int *cs = (int *)malloc(sizeof(int) * (size_t)dw);
         for (int y = 0; y < height; y++) {
             int i = y >> 1;
@@ -1086,7 +1242,8 @@ static void upsample(const uint8_t *in, ptrdiff_t stride, int dw, int dh,
         free(cs);
         return;
     }
-    /* int_upsample, and h2v1/h2v2_upsample for rows of 2 samples or fewer */
+    /* int_upsample, and h2v1/h2v2_upsample for rows of 2 samples or fewer
+     * and for lossless frames (libjpeg-turbo upsamples those by boxes) */
     for (int y = 0; y < height; y++) {
         const uint8_t *r = in + (y / vx) * stride;
         uint8_t *o = out + (size_t)y * width;
@@ -1131,12 +1288,15 @@ enum { CS_GRAY, CS_YCC, CS_RGB, CS_CMYK, CS_YCCK };
  * libjpeg casts it); hmax, vmax: the largest sampling factors; color: one
  * of CS_*; coef_bits: NULL, or, where libjpeg smooths the blocks of a
  * progressive file, 10 int32 per component, its coef_bits[0..9] after the
- * last scan; out: height x width x (1, 3 or 4) bytes: gray, RGB, or CMYK
- * as libjpeg outputs it. Returns 0, or -1 for a sampling ratio that is
- * not an integer. */
+ * last scan; lossless: the coefs hold a lossless frame's samples
+ * (jpeg_entropy's mode 4), which skip the IDCT and are upsampled by
+ * boxes; out: height x width x (1, 3 or 4) bytes: gray, RGB, or CMYK as
+ * libjpeg outputs it. Returns 0, or -1 for a sampling ratio that is not
+ * an integer. */
 int jpeg_pixels(int16_t *const *coefs, const int32_t *comp, int ncomp,
                 const int16_t *quant, int width, int height, int hmax,
-                int vmax, int color, const int32_t *coef_bits, uint8_t *out)
+                int vmax, int color, int lossless, const int32_t *coef_bits,
+                uint8_t *out)
 {
     for (int c = 0; c < ncomp; c++) {
         const int32_t *g = comp + C_WORDS * c;
@@ -1148,6 +1308,17 @@ int jpeg_pixels(int16_t *const *coefs, const int32_t *comp, int ncomp,
     for (int c = 0; c < ncomp; c++) {
         const int32_t *g = comp + C_WORDS * c;
         int wib = g[C_WIB], hib = g[C_HIB];
+        int dw = (int)(((int64_t)width * g[C_H] + hmax - 1) / hmax);
+        int dh = (int)(((int64_t)height * g[C_V] + vmax - 1) / vmax);
+        if (lossless) {
+            uint8_t *plane = (uint8_t *)malloc((size_t)wib * hib);
+            for (size_t i = 0; i < (size_t)wib * hib; i++)
+                plane[i] = (uint8_t)coefs[c][(i / wib) * g[C_BW] + i % wib];
+            upsample(plane, wib, dw, dh, hmax / g[C_H], vmax / g[C_V], 0,
+                     full + npix * c, width, height);
+            free(plane);
+            continue;
+        }
         ptrdiff_t stride = (ptrdiff_t)wib * 8;
         uint8_t *plane = (uint8_t *)malloc((size_t)stride * hib * 8);
         const int16_t *qt = quant + 64 * c;
@@ -1179,9 +1350,7 @@ int jpeg_pixels(int16_t *const *coefs, const int32_t *comp, int ncomp,
                 idct_islow(w, qt, dst, stride);
             }
         }
-        int dw = (int)(((int64_t)width * g[C_H] + hmax - 1) / hmax);
-        int dh = (int)(((int64_t)height * g[C_V] + vmax - 1) / vmax);
-        upsample(plane, stride, dw, dh, hmax / g[C_H], vmax / g[C_V],
+        upsample(plane, stride, dw, dh, hmax / g[C_H], vmax / g[C_V], 1,
                  full + npix * c, width, height);
         free(plane);
     }

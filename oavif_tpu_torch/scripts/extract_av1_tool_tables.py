@@ -22,7 +22,9 @@ and write ``oavif_tpu_torch/io/av1_tool_tables.npz``:
 - ``segment_id``: the default CDFs of ``segment_id`` (spec
   Default_Segment_Id_Cdf, libaom's ``default_spatial_pred_seg_tree_cdf``),
   one row of 8 symbols for each of the 3 contexts of the spatial
-  prediction.
+  prediction;
+- ``upscale_filter``: superres's 8-tap filters at the 64 phases (spec
+  Upscale_Filter, libaom's ``av1_resize_filter_normative``), int16.
 
 Each table is found by a structural signature and checked against anchor
 values before anything is written: the matrices by their first 4x4 (the
@@ -30,7 +32,8 @@ spec's first row), the symmetry of every square matrix (and each w x h
 the transpose of h x w), their range and their product with the forward
 matrices that follow them in libaom's ``.rodata``; the Gaussian samples by their first eight values, their range
 and their spacing of 4; the CDFs by the spec's values and by their shape
-(each row decreasing to its closing 0). libaom copies its small default
+(each row decreasing to its closing 0); the upscale filter by its first
+three phases, its sums of 128 and its mirror symmetry. libaom copies its small default
 CDFs into the frame context with immediate stores and 16-byte loads, so
 ``intrabc`` is read from the one store of its value in ``.text``, and
 ``txfm_split`` from its 16-byte chunks, which the linker keeps in order
@@ -75,6 +78,8 @@ INTER_TX1_FIRST = (4458, 5560, 7695)  # the 4x4 row of TX_SET_INTER_1
 # the nsym of each inter transform set (TX_SET_INTER_1, _2, _3)
 INTER_TX_NSYM = (16, 12, 2)
 SEGMENT_ID_FIRST = (5622, 7893, 16093, 18233, 27809, 28373, 32533)  # AOM_CDF8
+UPSCALE_FIRST = ((0, 0, 0, 128, 0, 0, 0, 0), (0, 0, -1, 128, 2, -1, 0, 0),
+                 (0, 1, -3, 127, 4, -2, 1, 0))
 
 
 def section(lib: str, name: str = ".rodata") -> bytes:
@@ -236,6 +241,19 @@ def segment_id_cdf(data: bytes) -> np.ndarray:
     return rows
 
 
+def upscale_filter(data: bytes) -> np.ndarray:
+    """av1_resize_filter_normative: 64 phases of 8 int16 taps."""
+    at = find_once(data, np.array(UPSCALE_FIRST, "<i2").tobytes(),
+                   "upscale filter")
+    f = np.frombuffer(data, "<i2", 64 * 8, at).reshape(64, 8)
+    require(np.all(f.sum(1) == 128), "upscale filter: a phase's taps do not "
+            "sum to 128")
+    # phase 64 - i is phase i mirrored
+    require(np.array_equal(f[1:][::-1], f[1:, ::-1]),
+            "upscale filter: phases not mirrored")
+    return f.astype(np.int16)
+
+
 def main(argv: list) -> None:
     lib = argv[0] if argv else LIBAOM
     data = section(lib)
@@ -245,7 +263,8 @@ def main(argv: list) -> None:
               "delta_q": cdf, "delta_lf": cdf.copy(),
               "intrabc": intrabc_cdf(section(lib, ".text")),
               **mv_cdfs(data), "txfm_split": txfm_split_cdf(data),
-              **inter_tx_cdfs(data), "segment_id": segment_id_cdf(data)}
+              **inter_tx_cdfs(data), "segment_id": segment_id_cdf(data),
+              "upscale_filter": upscale_filter(data)}
     np.savez_compressed(OUT, **tables)
     for k, v in tables.items():
         print(f"{k}: {v.shape} {v.dtype}")

@@ -555,6 +555,18 @@ LEARNED = {
                             av1.frame.lf_levels, av1.frame.cdef_bits,
                             av1.frame.lr_types, av1.frame.tx_mode) == (
         True, 60, (0, 0, 0, 0), 0, (0, 0, 0), 1),
+    # use_superres, coded_denom 0: SuperresDenom 9, the 64-wide frame
+    # coded (64 * 8 + 4) // 9 = 57 wide; its one tile is read non-uniform
+    "superres": lambda av1: (av1.frame.superres_denom, av1.frame.coded_width,
+                             av1.frame.width, av1.frame.mi_cols,
+                             av1.frame.tile_col_starts) == (
+        9, 57, 64, 16, [0, 16]),
+    # uniform_tile_spacing_flag 0: one superblock column and row, each
+    # width_in_sbs_minus_1 an ns(1) of no bits
+    "non-uniform tile spacing": lambda av1: (
+        av1.frame.tile_col_starts, av1.frame.tile_row_starts,
+        av1.frame.tile_cols_log2, av1.frame.tile_rows_log2,
+        av1.frame.superres_denom) == ([0, 16], [0, 16], 0, 0, 8),
 }
 
 

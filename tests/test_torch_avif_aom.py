@@ -92,6 +92,8 @@ TOOLS_MADE = {**json.loads((FIXTURES.parent / "avif_tools"
               **json.loads((FIXTURES.parent / "avif_screen"
                             / "manifest.json").read_text()),
               **json.loads((FIXTURES.parent / "avif_container"
+                            / "manifest.json").read_text()),
+              **json.loads((FIXTURES.parent / "avif_superres"
                             / "manifest.json").read_text())}
 # counters no writer here makes count: a skipped block's predicted
 # segment id (libaom codes no skipped block in a key frame), which

@@ -14,7 +14,7 @@ with gcc), and on the committed fixtures (``tests/torch_fixtures/jpeg``,
 which add 4:4:0, 4:1:1, one component per sequential scan and YCCK from
 libjpeg-turbo's encoder), each also held to its manifest CRC. Truncated
 files and garbage raise in both packages; unsupported variants raise
-``ValueError`` naming them.
+``ValueError`` naming them, and the reference raises too.
 End to end, the port's CLI on a 256x256 JPEG gives the reference CLI's q
 and passes, and the bytes of the port's CLI on the decoded pixels as PAM.
 """
@@ -192,15 +192,21 @@ def _with_sof(marker: int, precision: int = 8) -> bytes:
 
 
 @pytest.mark.parametrize("data,variant", [
-    (_with_sof(0xC3), "lossless JPEG (SOF3)"),
+    (_with_sof(0xC3), "bad JPEG lossless scan (Ss=0 Se=63 Ah=0 Al=0)"),
     (_with_sof(0xCB), "arithmetic-coded lossless JPEG (SOF11)"),
     (_with_sof(0xCD), "arithmetic-coded hierarchical JPEG (SOF13)"),
     (_with_sof(0xC5), "hierarchical JPEG (SOF5)"),
     (_with_sof(0xC0, 12), "12-bit JPEG"),
 ], ids=("sof3", "sof11", "sof13", "sof5", "12bit"))
 def test_unsupported_variant_raises_naming_it(tmp_path, data, variant):
+    """Variants the reference refuses too. A DCT file relabelled as
+    lossless (SOF3) is read as one, and its scan (Ss=0, Se=63) is no
+    lossless scan: libjpeg-turbo refuses it as well
+    (``tests/test_torch_jpeg_lossless.py`` holds real lossless files)."""
     path = tmp_path / "in.jpg"
     path.write_bytes(data)
+    with pytest.raises((OSError, ValueError, SyntaxError)):
+        ref_load_jpeg(str(path))
     with pytest.raises(ValueError, match=re.escape(variant)):
         load_jpeg(str(path))
 
