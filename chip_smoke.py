@@ -1966,13 +1966,17 @@ JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "tests", "torch_fixtures", "jpeg")
 JPEG_LOSSLESS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                  "tests", "torch_fixtures", "jpeg_lossless")
+JPEG_CUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "torch_fixtures", "jpeg_cut")
 
 
 def _read_jpeg_fixtures(folder: str) -> dict:
     """Every fixture of ``folder`` decodes to its manifest's shape,
     channels and CRC32s (and the ICC profile's, where the manifest has
-    it), each read timed (median of 5). Returns the pixels by file
-    name."""
+    it), each read timed (median of 5); a fixture whose manifest says the
+    reference raises must raise ``OSError``, unless the manifest also
+    holds libjpeg's pixels of the whole file (``libjpeg``), which it must
+    give. Returns the pixels by file name."""
     from oavif_tpu_torch.io.image import load_jpeg
 
     with open(os.path.join(folder, "manifest.json")) as f:
@@ -1980,6 +1984,15 @@ def _read_jpeg_fixtures(folder: str) -> dict:
     decoded = {}
     for name, entry in sorted(manifest.items()):
         path = os.path.join(folder, name)
+        if "raises" in entry and "libjpeg" not in entry:
+            try:
+                load_jpeg(path)
+            except OSError as e:
+                print(f"  {name}: raises OSError ({e}) as the reference "
+                      f"({entry['raises']})", flush=True)
+                continue
+            raise AssertionError(f"{name}: decoded, the reference raises "
+                                 f"{entry['raises']}")
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -1988,8 +2001,9 @@ def _read_jpeg_fixtures(folder: str) -> dict:
         icc = None if img.icc is None else zlib.crc32(img.icc)
         got = (list(img.data.shape), img.channels,
                zlib.crc32(img.data.tobytes()), icc)
-        want = (entry["shape"], entry["channels"], entry["crc32"],
-                entry.get("icc_crc32"))
+        want = entry.get("libjpeg", entry)
+        want = (want["shape"], want["channels"], want["crc32"],
+                want.get("icc_crc32"))
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         decoded[name] = img.data
@@ -2033,16 +2047,18 @@ def lossless_4k(frame: np.ndarray, folder: str) -> dict:
 
 def phase_jpeg_input(images: dict, frame4k: np.ndarray, acc: dict) -> dict:
     """The port's JPEG reader and the CLI on JPEG input. Every fixture of
-    ``tests/torch_fixtures/jpeg`` and ``tests/torch_fixtures/jpeg_lossless``
+    ``tests/torch_fixtures/jpeg``, ``tests/torch_fixtures/jpeg_lossless``
+    and ``tests/torch_fixtures/jpeg_cut`` (files cut before their EOI)
     must decode to its manifest's shape and CRC32s (libjpeg-turbo's
-    pixels, as Pillow returned them when the fixtures were made), each
-    read timed (median of 5); the 3840x2160 frame written here as a
-    lossless JPEG must decode to itself (``lossless_4k``). Then the CLI
-    ``-t 80`` on the six class JPEGs and the 512x512 lossless class and
-    ``-q 60`` on the 3840x2160 one: q, passes and bytes must be those of
-    the CLI on the decoded pixels written as PAM; and the corpus harness,
-    sequential, over the six class JPEGs: bytes and passes must be the
-    CLI's. Returns the kernels' launches."""
+    pixels, as Pillow returned them when the fixtures were made), or raise
+    ``OSError`` where Pillow raised, each read timed (median of 5); the
+    3840x2160 frame written here as a lossless JPEG must decode to itself
+    (``lossless_4k``). Then the CLI ``-t 80`` on the six class JPEGs, the
+    512x512 lossless class and the 256x256 file cut before its EOI that
+    Pillow decodes, and ``-q 60`` on the 3840x2160 one: q, passes and
+    bytes must be those of the CLI on the decoded pixels written as PAM;
+    and the corpus harness, sequential, over the six class JPEGs: bytes
+    and passes must be the CLI's. Returns the kernels' launches."""
     import csv
 
     from oavif_tpu_torch.av1.entropy.fast import get_lib
@@ -2055,19 +2071,22 @@ def phase_jpeg_input(images: dict, frame4k: np.ndarray, acc: dict) -> dict:
           "to build or load", flush=True)
     reset_counts()
     decoded = _read_jpeg_fixtures(JPEG_DIR)
-    decoded.update({f"lossless/{k}": v for k, v in
-                    _read_jpeg_fixtures(JPEG_LOSSLESS_DIR).items()})
+    folders = {"lossless": JPEG_LOSSLESS_DIR, "cut": JPEG_CUT_DIR}
+    for key, folder in folders.items():
+        decoded.update({f"{key}/{k}": v for k, v in
+                        _read_jpeg_fixtures(folder).items()})
     found = {}
     with tempfile.TemporaryDirectory() as td:
         lossless_4k(frame4k, td)
         corpus = os.path.join(td, "corpus")
         os.mkdir(corpus)
-        for name in [*images, "photo4k", "lossless/text_p1"]:
+        for name in [*images, "photo4k", "lossless/text_p1",
+                     "cut/text256_noeoi"]:
             args = ["-q", "60"] if name == "photo4k" else ["-t", "80"]
             src = os.path.join(JPEG_DIR, f"{name}.jpg")
-            if name.startswith("lossless/"):
-                src = os.path.join(JPEG_LOSSLESS_DIR,
-                                   f"{name.split('/')[1]}.jpg")
+            if "/" in name:
+                key, base = name.split("/")
+                src = os.path.join(folders[key], f"{base}.jpg")
             if name in images:
                 with open(src, "rb") as f, \
                         open(os.path.join(corpus, f"{name}.jpg"), "wb") as g:
@@ -2603,6 +2622,12 @@ AVIF_CONTAINER_DIR = os.path.join(
 AVIF_SUPERRES_DIR = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
     "avif_superres")
+AVIF_LF_SEG_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+    "avif_lf_seg")
+AVIF_GAINMAP_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+    "avif_gainmap")
 
 
 def _read_avif_fixtures(folder: str) -> dict:
@@ -2617,8 +2642,9 @@ def _read_avif_fixtures(folder: str) -> dict:
     port reads and the alpha's tools; each read timed (median of 5),
     split into parse and tile decode, post-filters, the superres upscale,
     film grain, a grid's stitch and conversion; a refusal fixture raises
-    ``ValueError`` naming its tool. Returns the loaded images by file
-    name."""
+    ``ValueError`` naming its tool, and one the reference could not read
+    (``raises``) the exception the manifest records, with its message.
+    Returns the loaded images by file name."""
     from oavif_tpu_torch.io import avif
     from oavif_tpu_torch.io.image import load_avif
 
@@ -2639,6 +2665,18 @@ def _read_avif_fixtures(folder: str) -> dict:
                 print(f"  {name}: refused ({e})", flush=True)
                 continue
             raise AssertionError(f"{name}: decoded, not refused")
+        if "raises" in entry:
+            try:
+                load_avif(path)
+            except (ValueError, OSError) as e:
+                if (type(e).__name__, str(e)) != (entry["port"],
+                                                  entry["port_says"]):
+                    raise AssertionError(f"{name}: raised {e!r}, not "
+                                         f"{entry['port_says']!r}")
+                print(f"  {name}: raises as the reference ({e})",
+                      flush=True)
+                continue
+            raise AssertionError(f"{name}: decoded, the reference raises")
         times, split = [], []
         for _ in range(5):
             t, t0 = {}, time.perf_counter()
@@ -2710,7 +2748,13 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     ``tests/torch_fixtures/avif_superres`` (libaom's superres at
     denominators 9-16 on every subsampling and depth, with loop
     restoration, CDEF, alpha, grain and non-uniform tiles, and a
-    3840x2160 frame coded 1920 wide) decodes to its manifest
+    3840x2160 frame coded 1920 wide) and of
+    ``tests/torch_fixtures/avif_lf_seg`` (key frames written symbol by
+    symbol with the segmentation features other than ALT_Q and
+    ``delta_lf_multi``, 512x512 and 3840x2160 among them) and of
+    ``tests/torch_fixtures/avif_gainmap`` (gain-map files, read as
+    libavif 1.3 reads the colour image only; the ones it refuses must
+    raise as the manifest says) decodes to its manifest
     (``_read_avif_fixtures``), the reads split into parse and tile decode,
     post-filters, the superres upscale, film grain, a grid's stitch and
     conversion (the median of 5).
@@ -2720,7 +2764,8 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     limited-range file with an ``irot``, ``-t 80`` on the 512x512 screen,
     ``-q 60`` on the 3840x2160 screen, ``-q 60`` on the 3840x2160 grid,
     ``-t 80`` on the 512x512 segmented sequence, ``-t 80`` on the 512x512
-    superres class and ``-q 60`` on the 3840x2160 superres frame: q,
+    superres class, ``-q 60`` on the 3840x2160 superres frame and ``-t
+    80`` on the 512x512 ALT_LF, SKIP and ``delta_lf_multi`` frame: q,
     passes and bytes must be those of the CLI on the same
     pixels, written as PAM where they are 8-bit and handed over in memory
     where they are 16-bit (PAM holds 8 bits). Returns the kernels'
@@ -2743,7 +2788,9 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
             (AVIF_CONTAINER_DIR, [("grid4k_420.avif", ["-q", "60"]),
                                   ("seg512_420_q60.avif", ["-t", "80"])]),
             (AVIF_SUPERRES_DIR, [("class_mixed_d12_420.avif", ["-t", "80"]),
-                                 ("photo4k_d16_420.avif", ["-q", "60"])])):
+                                 ("photo4k_d16_420.avif", ["-q", "60"])]),
+            (AVIF_LF_SEG_DIR, [("lf_seg512_420.avif", ["-t", "80"])]),
+            (AVIF_GAINMAP_DIR, [])):
         loaded = _read_avif_fixtures(folder)
         runs += [(os.path.join(folder, name), loaded[name], args)
                  for name, args in picks]

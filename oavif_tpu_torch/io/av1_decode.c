@@ -31,13 +31,16 @@
  * (the 4:1 ones and the 64-length zero-out) and the intra transform sets
  * (V_DCT and H_DCT with their own scans and contexts), TX_MODE_SELECT,
  * luma and chroma palettes, filter intra, the intra edge filter and
- * upsampling, quantizer matrices, delta q and delta LF (one DeltaLF;
- * the header refuses delta_lf_multi), and intrabc.
+ * upsampling, quantizer matrices, delta q and delta LF (one DeltaLF, or
+ * under delta_lf_multi one per plane and direction), segmentation (the
+ * ids, before or after skip, and a segment's SEG_LVL_SKIP; its ALT_Q
+ * here, its ALT_LF in av1_postfilter.c), and intrabc.
  *
  * Besides the planes, one call returns what the post-filters
  * (av1_postfilter.c) read: the transform size of every 4x4 of every
  * plane, the skip flag of every 4x4 luma block, the CDEF strength index
- * of every 64x64, the DeltaLF of every 4x4 and the restoration units; and
+ * of every 64x64, the four DeltaLF and the segment of every 4x4 and the
+ * restoration units; and
  * a count of each tool a stream used (the T_* enum).
  *
  * Built into the host library beside the tile coder (av1/entropy/fast.py).
@@ -65,7 +68,7 @@ enum {
     D_PAL_UV_CI2, D_PAL_UV_CI3, D_PAL_UV_CI4, D_PAL_UV_CI5, D_PAL_UV_CI6,
     D_PAL_UV_CI7, D_PAL_UV_CI8, D_INTRABC, D_MV_JOINTS, D_MV_SIGN,
     D_MV_CLASSES, D_MV_CLASS0, D_MV_BITS, D_TXFM_SPLIT, D_INTER_TX1,
-    D_INTER_TX2, D_INTER_TX3, D_SEGMENT_ID, D_NCDF
+    D_INTER_TX2, D_INTER_TX3, D_SEGMENT_ID, D_DELTA_LF_MULTI, D_NCDF
 };
 
 #include "av1_header.h"
@@ -161,14 +164,19 @@ typedef struct {
      * (y dc, u dc, u ac, v dc, v ac) and the lookups they index */
     int qidx, dq[5], delta_q_res, delta_lf_res, read_deltas;
     const int32_t *dc_lut, *ac_lut;
-    int delta_lf;             /* DeltaLF (one for every plane and direction) */
-    int8_t *mi_dlf;           /* DeltaLF of every mi */
+    /* DeltaLF[FRAME_LF_COUNT]: under delta_lf_multi one for each of y
+     * vertical, y horizontal, u and v, else the first for all four */
+    int delta_lf[4], delta_lf_multi;
+    int8_t *mi_dlf;           /* the four DeltaLF of every mi */
     /* segmentation (spec 5.9.14): enabled, SegIdPreSkip,
      * LastActiveSegId, the ALT_Q segments and data, LosslessArray as a
-     * mask; CodedLossless; the current block's segment_id, Lossless and
-     * get_qindex(1, segment_id); SegmentIds of every mi */
+     * mask, the SKIP and ALT_LF segments (the counters' only use of
+     * ALT_LF here); CodedLossless; the current block's segment_id,
+     * Lossless and get_qindex(1, segment_id); SegmentIds of every mi */
     int seg_enabled, seg_preskip, seg_last, seg_altq_mask, seg_altq[8];
-    int seg_lossless_mask, coded_lossless, seg_id, txq;
+    int seg_lossless_mask, seg_skip_mask;
+    uint32_t seg_altlf_mask;
+    int coded_lossless, seg_id, txq;
     uint8_t *mi_seg;
     /* quantizer matrices: the level of each plane (15 = flat) */
     int qm_level[3];
@@ -1584,7 +1592,9 @@ static int read_delta(Dec *d, uint16_t *cdf) {
 }
 
 /* read_delta_qindex and read_delta_lf, once per superblock: CurrentQIndex
- * and DeltaLF move by the deltas, and the block's dequantizers follow */
+ * and DeltaLF move by the deltas, and the block's dequantizers follow.
+ * Under delta_lf_multi FRAME_LF_COUNT values follow (2 in a monochrome
+ * frame), each with its own CDF (DeltaLFMulti[i], adapting apart). */
 static void read_deltas(Dec *d, Blk *b) {
     int sb = d->sb128 ? 5 : 4;
     if (!d->read_deltas || (b->wl == sb && b->hl == sb && b->skip)) return;
@@ -1594,10 +1604,15 @@ static void read_deltas(Dec *d, Blk *b) {
         d->count[T_DELTA_Q]++;
     }
     if (d->delta_lf_res < 0) return;
-    int dl = read_delta(d, d->cdf[D_DELTA_LF]);
-    if (dl) {
-        d->delta_lf = imin(imax(d->delta_lf + dl * (1 << d->delta_lf_res), -63), 63);
-        d->count[T_DELTA_LF]++;
+    int n = d->delta_lf_multi ? (d->nplanes > 1 ? 4 : 2) : 1;
+    for (int i = 0; i < n; i++) {
+        int dl = read_delta(d, d->delta_lf_multi ? d->cdf[D_DELTA_LF_MULTI] + 5 * i
+                                                 : d->cdf[D_DELTA_LF]);
+        if (dl) {
+            d->delta_lf[i] = imin(imax(d->delta_lf[i] + dl * (1 << d->delta_lf_res), -63), 63);
+            d->count[T_DELTA_LF]++;
+            if (d->delta_lf_multi) d->count[T_DELTA_LF_MULTI]++;
+        }
     }
 }
 
@@ -1814,9 +1829,17 @@ static void intra_mode_info(Dec *d, Blk *b) {
         seg = read_segment_id(d, b, 0);
         d->count[T_SEG_PRESKIP]++;
     }
-    b->skip = read_symbol(d, d->cdf[D_SKIP] + (size_t)skip_ctx * 3, 2);
+    /* read_skip: a segment with SEG_LVL_SKIP (which sets SegIdPreSkip)
+     * skips its blocks without a symbol */
+    if (d->seg_enabled && d->seg_preskip && (d->seg_skip_mask >> seg & 1)) {
+        b->skip = 1;
+        d->count[T_SEG_SKIP]++;
+    } else {
+        b->skip = read_symbol(d, d->cdf[D_SKIP] + (size_t)skip_ctx * 3, 2);
+    }
     if (d->seg_enabled && !d->seg_preskip) seg = read_segment_id(d, b, b->skip);
     d->seg_id = seg;
+    if (d->seg_enabled && (d->seg_altlf_mask >> (4 * seg) & 15)) d->count[T_SEG_ALT_LF]++;
     d->lossless = d->seg_lossless_mask >> seg & 1;
     read_cdef(d, b);
     if (d->delta_q_res >= 0) read_deltas(d, b);
@@ -1944,7 +1967,7 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
             d->mi_paln_uv[m] = (uint8_t)b->pal_uv_n;
             if (b->pal_uv_n)
                 memcpy(d->mi_pal_u + (size_t)m * 8, b->pal_u, sizeof(b->pal_u));
-            d->mi_dlf[m] = (int8_t)d->delta_lf;
+            for (int i = 0; i < 4; i++) d->mi_dlf[4 * (size_t)m + i] = (int8_t)d->delta_lf[i];
             d->mi_seg[m] = (uint8_t)d->seg_id;
         }
     if (d->bd == 12) d->count[T_TWELVE_BIT]++;
@@ -2139,7 +2162,7 @@ static void read_lr(Dec *d, int r, int c) {
 /* ---- tiles and frame ------------------------------------------------------ */
 
 static void decode_tile(Dec *d) {
-    d->delta_lf = 0;
+    memset(d->delta_lf, 0, sizeof(d->delta_lf));
     for (int p = 0; p < d->nplanes; p++) {
         memset(d->above_lvl[p], 0, (size_t)d->mi_cols + 32);
         memset(d->above_dc[p], 0, (size_t)d->mi_cols + 32);
@@ -2188,7 +2211,9 @@ static void decode_tile(Dec *d) {
  * mi_rows x mi_cols per plane, the chroma ones filled at their
  * subsampled size), skips (mi_rows x mi_cols), cdef_idx
  * (ceil(mi_rows / 16) x ceil(mi_cols / 16), -1 where every block is
- * skipped), the restoration units (per plane, row and column, strides
+ * skipped), delta_lf (mi_rows x mi_cols x 4: the DeltaLF of y vertical,
+ * y horizontal, u and v), segs (mi_rows x mi_cols: the segment_id),
+ * the restoration units (per plane, row and column, strides
  * H_LR_RSTRIDE x H_LR_CSTRIDE: kind 0 none / 1 Wiener / 2 SGR, then 6
  * taps or set, xqd0, xqd1) and the tool counters (T_NCOUNTERS). Returns
  * 0, or 1 (unsupported tool) / 2 (corrupt stream) with msg set. */
@@ -2200,7 +2225,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
                      const int32_t *qlut, const uint8_t *qm,
                      int32_t *const *planes, int stride,
                      uint8_t *const *txmaps, uint8_t *skips, int8_t *cdef_idx,
-                     int8_t *delta_lf, int32_t *lr_out, int32_t *counts,
+                     int8_t *delta_lf, uint8_t *segs, int32_t *lr_out, int32_t *counts,
                      char *msg, int msglen) {
     Dec *d = (Dec *)calloc(1, sizeof(Dec));
     if (!d) return AV1D_CORRUPT;
@@ -2222,6 +2247,8 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->seg_altq_mask = hdr[H_SEG_ALT_Q_MASK];
     for (int i = 0; i < 8; i++) d->seg_altq[i] = hdr[H_SEG_ALT_Q0 + i];
     d->seg_lossless_mask = hdr[H_SEG_LOSSLESS_MASK];
+    d->seg_skip_mask = hdr[H_SEG_SKIP_MASK];
+    d->seg_altlf_mask = (uint32_t)hdr[H_SEG_ALT_LF_MASK];
     d->tx_mode = hdr[H_TX_MODE];
     d->reduced_tx_set = hdr[H_REDUCED_TX_SET];
     d->screen_tools = hdr[H_SCREEN_TOOLS];
@@ -2240,6 +2267,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     for (int i = 0; i < 5; i++) d->dq[i] = hdr[H_DQ_Y_DC + i];
     d->delta_q_res = hdr[H_DELTA_Q_RES];
     d->delta_lf_res = hdr[H_DELTA_LF_RES];
+    d->delta_lf_multi = hdr[H_DELTA_LF_MULTI];
     d->qm = qm;
     d->mi_dlf = delta_lf;
     for (int p = 0; p < 3; p++) {
@@ -2265,7 +2293,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->cdef_idx = cdef_idx;
     memset(cdef_idx, -1, (size_t)d->cdef_stride * ((d->mi_rows + 15) / 16));
     size_t nmi = (size_t)d->mi_rows * d->mi_cols;
-    uint8_t *mi8 = (uint8_t *)calloc(nmi * 10, 1);
+    uint8_t *mi8 = (uint8_t *)calloc(nmi * 9, 1);
     d->mi_pal = (uint16_t *)calloc(nmi * 16, sizeof(uint16_t));
     d->mi_mv = (int16_t *)calloc(nmi * 2, sizeof(int16_t));
     uint8_t *ctxmem = (uint8_t *)calloc((size_t)4 * 3 * ((size_t)d->mi_cols + d->mi_rows + 64), 1);
@@ -2281,7 +2309,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->mi_ymode = mi8 + 2 * nmi; d->mi_uvmode = mi8 + 3 * nmi;
     d->mi_txw = mi8 + 4 * nmi; d->mi_txh = mi8 + 5 * nmi;
     d->mi_paln = mi8 + 6 * nmi; d->mi_paln_uv = mi8 + 7 * nmi;
-    d->mi_inter = mi8 + 8 * nmi; d->mi_seg = mi8 + 9 * nmi;
+    d->mi_inter = mi8 + 8 * nmi; d->mi_seg = segs;
     d->mi_pal_u = d->mi_pal + nmi * 8;
     {
         size_t ac = (size_t)d->mi_cols + 32, lc = (size_t)d->mi_rows + 32;

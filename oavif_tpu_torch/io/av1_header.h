@@ -26,8 +26,9 @@ enum {
     H_CDEF_DAMPING,
     /* quantizer matrix level of y, u and v (15 = flat) */
     H_QM_Y, H_QM_U, H_QM_V,
-    /* log2 of the delta q and delta LF steps (-1 = not present) */
-    H_DELTA_Q_RES, H_DELTA_LF_RES,
+    /* log2 of the delta q and delta LF steps (-1 = not present), and
+     * delta_lf_multi (a DeltaLF per plane and direction) */
+    H_DELTA_Q_RES, H_DELTA_LF_RES, H_DELTA_LF_MULTI,
     /* loop_filter_delta_enabled and the intra frame's reference delta */
     H_LF_DELTA_ENABLED, H_LF_REF_DELTA_INTRA,
     /* allow_intrabc (the strength sets stay the pack's tail) */
@@ -36,10 +37,18 @@ enum {
      * 0): segmentation_enabled, SegIdPreSkip, LastActiveSegId, the
      * segments with SEG_LVL_ALT_Q (bit i for segment i) and their
      * FeatureData, and LosslessArray as a mask (H_LOSSLESS is then
-     * CodedLossless) */
+     * CodedLossless); the segments' SEG_LVL_ALT_LF_Y_V.._V (bit 4 * i + k
+     * for feature k of segment i, read as uint32: segment 7's ALT_LF_V is
+     * the sign bit) and their FeatureData (feature k in byte k of
+     * segment i's word, as int8), and the segments with
+     * SEG_LVL_SKIP. REF_FRAME and GLOBALMV only set SegIdPreSkip and
+     * LastActiveSegId in a key frame. */
     H_SEG_ENABLED, H_SEG_PRESKIP, H_SEG_LAST_ACTIVE, H_SEG_ALT_Q_MASK,
     H_SEG_ALT_Q0, H_SEG_ALT_Q1, H_SEG_ALT_Q2, H_SEG_ALT_Q3, H_SEG_ALT_Q4,
     H_SEG_ALT_Q5, H_SEG_ALT_Q6, H_SEG_ALT_Q7, H_SEG_LOSSLESS_MASK,
+    H_SEG_ALT_LF_MASK, H_SEG_ALT_LF0, H_SEG_ALT_LF1, H_SEG_ALT_LF2,
+    H_SEG_ALT_LF3, H_SEG_ALT_LF4, H_SEG_ALT_LF5, H_SEG_ALT_LF6,
+    H_SEG_ALT_LF7, H_SEG_SKIP_MASK,
     /* superres: SuperresDenom (8 without it) and UpscaledWidth, the
      * visible width; H_WIDTH is then the coded FrameWidth, which the
      * tiles, deblocking and CDEF cover, and the upscaled frame the one
@@ -97,6 +106,10 @@ enum {
     T_SEGMENTATION, T_SEG_ALT_Q, T_SEG_PRESKIP, T_SEG_PRED_SKIP,
     /* planes upscaled by superres */
     T_SUPERRES,
+    /* blocks whose segment moves a loop filter level (SEG_LVL_ALT_LF_*),
+     * blocks skipped by their segment (SEG_LVL_SKIP: no skip read), and
+     * DeltaLF changes read under delta_lf_multi */
+    T_SEG_ALT_LF, T_SEG_SKIP, T_DELTA_LF_MULTI,
     T_NCOUNTERS
 };
 

@@ -4,7 +4,8 @@
  *
  * - deblocking (spec 7.14) on each plane's own transform grid: luma up to
  *   16 taps, chroma up to 6, each block at the frame's level moved by its
- *   DeltaLF and the intra reference delta (no segmentation reaches here);
+ *   DeltaLF (its own per plane and direction under delta_lf_multi), its
+ *   segment's ALT_LF and the intra reference delta;
  * - CDEF (spec 7.15) per 8x8 luma block with the strength set of its
  *   64x64 (cdef_idx; -1 leaves the 64x64 alone), the chroma blocks
  *   4x4 (4:2:0), 4x8 (4:2:2) or 8x8 filtered in the luma direction
@@ -129,22 +130,28 @@ static void lf_params(Lf *lp, int lvl, int sharpness, int bd) {
     lp->bd = bd;
 }
 
-/* the filter level of each DeltaLF value (-63..63) for one plane and
- * direction (spec 7.14.4 with no segmentation: the frame level moved by
- * the block's DeltaLF, then by the intra reference delta) */
-static void level_table(int *out, const int32_t *hdr, int i) {
+/* the filter level of each segment and DeltaLF value (-63..63) for one
+ * plane and direction i (y vertical, y horizontal, u, v; spec 7.14.4):
+ * the frame level moved by the block's DeltaLF, then by its segment's
+ * SEG_LVL_ALT_LF_Y_V + i, then by the intra reference delta, each step
+ * clamped to 0..63 */
+static void level_table(int out[8][127], const int32_t *hdr, int i) {
     int base = hdr[H_LF_Y0 + i];
-    for (int dl = -63; dl <= 63; dl++) {
-        int lvl = hdr[H_DELTA_LF_RES] >= 0 ? pmin(pmax(base + dl, 0), 63) : base;
-        if (hdr[H_LF_DELTA_ENABLED])
-            lvl = pmin(pmax(lvl + hdr[H_LF_REF_DELTA_INTRA] * (1 << (lvl >> 5)), 0), 63);
-        out[dl + 63] = lvl;
-    }
+    for (int seg = 0; seg < 8; seg++)
+        for (int dl = -63; dl <= 63; dl++) {
+            int lvl = hdr[H_DELTA_LF_RES] >= 0 ? pmin(pmax(base + dl, 0), 63) : base;
+            if (hdr[H_SEG_ENABLED] && ((uint32_t)hdr[H_SEG_ALT_LF_MASK] >> (4 * seg + i) & 1))
+                lvl = pmin(pmax(lvl + (int8_t)((uint32_t)hdr[H_SEG_ALT_LF0 + seg] >> (8 * i)),
+                                0), 63);
+            if (hdr[H_LF_DELTA_ENABLED])
+                lvl = pmin(pmax(lvl + hdr[H_LF_REF_DELTA_INTRA] * (1 << (lvl >> 5)), 0), 63);
+            out[seg][dl + 63] = lvl;
+        }
 }
 
 static void deblock_plane(int32_t *pl, int stride, int plane, int sx, int sy,
                           const uint8_t *txmap, const int8_t *delta_lf,
-                          int mi_rows, int mi_cols, int frame_w, int frame_h,
+                          const uint8_t *segs, int mi_rows, int mi_cols, int frame_w, int frame_h,
                           const int32_t *hdr) {
     int pw4 = mi_cols >> sx, ph4 = mi_rows >> sy;
     int pw = pw4 * 4, ph = ph4 * 4;
@@ -154,11 +161,12 @@ static void deblock_plane(int32_t *pl, int stride, int plane, int sx, int sy,
     int have_lp[64];
     memset(have_lp, 0, sizeof(have_lp));
     for (int pass = 0; pass < 2; pass++) {
-        /* the 4x4's DeltaLF: that of the mi at the bottom right of its
-         * luma area (libaom's odd mi for subsampled chroma) */
-        const int8_t *dlf = delta_lf;
-        int table[127];
-        level_table(table, hdr, plane == 0 ? pass : plane + 1);
+        /* the 4x4's segment and DeltaLF: those of the mi at the bottom
+         * right of its luma area (libaom's odd mi for subsampled chroma) */
+        int i = plane == 0 ? pass : plane + 1;
+        const int8_t *dlf = delta_lf + (hdr[H_DELTA_LF_MULTI] ? i : 0);
+        int table[8][127];
+        level_table(table, hdr, i);
         for (int cy = 0; cy < ph4; cy++) {
             if (((cy * 4) << sy) >= frame_h) break;
             for (int cx = 0; cx < pw4; cx++) {
@@ -176,11 +184,13 @@ static void deblock_plane(int32_t *pl, int stride, int plane, int sx, int sy,
                 if (plane && size == 8) size = 6;
                 /* the block's level, or where it is 0 the previous one's */
                 int my = (cy << sy) | sy, mx = (cx << sx) | sx;
-                int lvl = table[dlf[(size_t)my * mi_cols + mx] + 63];
+                size_t m = (size_t)my * mi_cols + mx;
+                int lvl = table[segs[m]][dlf[4 * m] + 63];
                 if (!lvl) {
                     int py = pass ? ((cy - 1) << sy) | sy : my;
                     int pxm = pass ? mx : ((cx - 1) << sx) | sx;
-                    lvl = table[dlf[(size_t)py * mi_cols + pxm] + 63];
+                    size_t q = (size_t)py * mi_cols + pxm;
+                    lvl = table[segs[q]][dlf[4 * q] + 63];
                 }
                 if (!lvl) continue;
                 if (!have_lp[lvl]) {
@@ -650,14 +660,16 @@ static int upscale_plane(int32_t *pl, int stride, int rows, int w, int up_w,
  * 4 >> ss) used of an int32 buffer of the given stride and at least as
  * many rows, and under superres as wide as the upscaled frame):
  * deblocking, CDEF, the superres upscaling, then loop restoration.
- * txmaps, skips, cdef_idx and delta_lf (the DeltaLF of every mi, mi_rows
+ * txmaps, skips, cdef_idx, delta_lf (the four DeltaLF of every mi,
+ * mi_rows x mi_cols x 4) and segs (the segment of every mi, mi_rows
  * x mi_cols) are av1_decode_frame's outputs; lr the restoration units;
  * upscale_filter the spec's Upscale_Filter (64 x 8 int16); upscale_s,
  * where not NULL, gains the seconds the upscaling took.
  * Returns 0, or 2 when out of memory. */
 int av1_postfilter(int32_t *const *planes, int stride, const int32_t *hdr,
                    const uint8_t *const *txmaps, const uint8_t *skips,
-                   const int8_t *cdef_idx, const int8_t *delta_lf, const int32_t *lr,
+                   const int8_t *cdef_idx, const int8_t *delta_lf, const uint8_t *segs,
+                   const int32_t *lr,
                    const int16_t *upscale_filter, int32_t *counts,
                    double *upscale_s) {
     int nplanes = hdr[H_NPLANES], mi_rows = hdr[H_MI_ROWS], mi_cols = hdr[H_MI_COLS];
@@ -667,12 +679,13 @@ int av1_postfilter(int32_t *const *planes, int stride, const int32_t *hdr,
     /* a lossless frame has its levels 0, CDEF off and, at its full width,
      * no restoration */
     /* no deblocking where both luma levels are 0; a chroma plane whose
-     * level is 0 stays unfiltered whatever its deltas */
+     * level is 0 stays unfiltered whatever its deltas and its segments'
+     * ALT_LF (spec 7.14.1, as dav1d) */
     if (hdr[H_LF_Y0] || hdr[H_LF_Y1])
         for (int p = 0; p < nplanes; p++)
             if (!p || hdr[H_LF_U + p - 1])
                 deblock_plane(planes[p], stride, p, p ? sx : 0, p ? sy : 0, txmaps[p],
-                              delta_lf, mi_rows, mi_cols, fw, fh, hdr);
+                              delta_lf, segs, mi_rows, mi_cols, fw, fh, hdr);
     int any_lr = hdr[H_LR_TYPE0] || hdr[H_LR_TYPE1] || hdr[H_LR_TYPE2];
     int any_cdef = 0;
     if (hdr[H_CDEF_ON])

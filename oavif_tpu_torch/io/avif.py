@@ -5,11 +5,21 @@ Three parts, all on the host:
 - the ISOBMFF container (``read_container``): ``ftyp``, ``meta`` with
   ``hdlr``, ``pitm``, ``iloc`` (versions 0-2, construction methods 0 and
   1), ``iinf``/``infe`` (versions 2 and 3), ``iref`` (``auxl``,
-  ``prem``), ``idat`` and ``iprp``/``ipco``/``ipma``; the properties
+  ``prem``, ``dimg``), ``grpl`` (entity groups such as ``altr``), ``idat``
+  and ``iprp``/``ipco``/``ipma``; the properties
   ``ispe``, ``av1C``, ``colr`` (``nclx``, ``prof``/``rICC``) and ``auxC``,
   and the display transforms ``irot``, ``imir`` and ``clap``, which are
   recorded and not applied (the reference returns the pixels as coded);
-  and the item data in ``mdat`` or ``idat``;
+  and the item data in ``mdat`` or ``idat``. A gain map (a ``tmap``
+  derived item over the colour item and the gain map image, in an
+  ``altr`` group with the colour item) is read as libavif 1.3 reads it
+  when it decodes the colour image only, which is what Pillow asks for:
+  the colour item is the image, and neither the ``tmap`` item, its
+  properties and metadata, nor the gain map image is read or checked;
+  only the ``grpl`` boxes and the ``dimg`` references must be well formed
+  (each entity group exactly its entities; one ``dimg`` box per derived
+  item, and an item in one derived item's list once), and a primary
+  ``tmap`` item raises, as libavif finds no colour item then;
 - the OBU layer (``parse_av1``): the sequence header in its reduced
   still-picture form and its full form, the uncompressed header of one
   shown key frame with superres, the tile info with uniform or
@@ -18,10 +28,12 @@ Three parts, all on the host:
 - the tile decode and reconstruction in C (``av1_decode.c``, in the host
   library), for 4:4:4, 4:2:2, 4:2:0 and monochrome streams at 8, 10 and
   12 bits with the intra tools libaom writes, quantizer matrices, delta q
-  and delta LF, the chroma palette and intra block copy included, then
-  the post-filters in
+  and delta LF (``delta_lf_multi`` too), segmentation with every feature
+  (ALT_Q, the four ALT_LF, SKIP, and REF_FRAME and GLOBALMV, which in a
+  key frame only move the segment id before ``skip``), the chroma
+  palette and intra block copy included, then the post-filters in
   C on each plane's own grid (``av1_postfilter.c``): deblocking at each
-  block's level, CDEF with the strength set of each 64x64, superres
+  block's level (its DeltaLF and segment), CDEF with the strength set of each 64x64, superres
   upscaling and loop restoration over the upscaled width; film grain
   synthesis (``av1_grain.c``); and the conversion to 8-bit RGB as libavif
   1.3 converts (libyuv's fixed-point matrices,
@@ -162,6 +174,7 @@ class _Meta:
     props: List[Tuple[bytes, int, int]] = field(default_factory=list)
     assoc: Dict[int, List[Tuple[int, bool]]] = field(default_factory=dict)
     idat: Tuple[int, int] = (0, 0)
+    groups: Optional[List[Tuple[bytes, int, List[int]]]] = None  # grpl
 
 
 def _parse_iloc(r: _Reader, m: _Meta) -> None:
@@ -231,6 +244,18 @@ def _parse_meta(data: bytes, start: int, end: int) -> _Meta:
                 e = _Reader(data, rps, rpe, "iref")
                 src = e.u(idsz)
                 m.refs.append((rtyp, src, [e.u(idsz) for _ in range(e.u(2))]))
+        elif typ == b"grpl":
+            if m.groups is not None:
+                raise _broken("two grpl boxes")
+            m.groups = []
+            for gtyp, gps, gpe in _boxes(data, ps, pe):
+                g = _Reader(data, gps, gpe, gtyp.decode("latin-1"))
+                g.fullbox()
+                gid = g.u(4)
+                ids = [g.u(4) for _ in range(g.u(4))]
+                if g.pos != gpe:
+                    raise _broken(f"{g.box} entity group size")
+                m.groups.append((gtyp, gid, ids))
         elif typ == b"idat":
             m.idat = (ps, pe)
         elif typ == b"iprp":
@@ -240,8 +265,13 @@ def _parse_meta(data: bytes, start: int, end: int) -> _Meta:
                 elif ptyp == b"ipma":
                     e = _Reader(data, pps, ppe, "ipma")
                     v, flags = e.fullbox()
+                    last = -1
                     for _ in range(e.u(4)):
                         item_id = e.u(2) if v < 1 else e.u(4)
+                        if item_id <= last:  # libavif 1.3 refuses it
+                            raise _broken("ipma item IDs are not in "
+                                          "increasing order")
+                        last = item_id
                         lst = m.assoc.setdefault(item_id, [])
                         for _ in range(e.u(1)):
                             if flags & 1:
@@ -252,7 +282,39 @@ def _parse_meta(data: bytes, start: int, end: int) -> _Meta:
                                 lst.append((x & 0x7F, bool(x >> 7)))
     if not seen_hdlr:
         raise _broken("no hdlr box")
+    for item_id, lst in m.assoc.items():
+        for idx, essential in lst:
+            ptyp = m.props[idx - 1][0] if 0 < idx <= len(m.props) else b""
+            if ptyp in (b"irot", b"imir", b"clap") and not essential:
+                # libavif 1.3 wants transformative properties essential,
+                # on any item, the tmap and the gain map included
+                raise _broken(f"item {item_id}'s {ptyp.decode()} property "
+                              f"is not marked essential")
+    _check_dimg(m)
     return m
+
+
+def _check_dimg(m: _Meta) -> None:
+    """libavif 1.3 records one derived item per ``dimg`` target: one
+    ``dimg`` box per derived item, and an item in one derived item's list
+    once (it refuses a repeat as an invalid grid, and an item of two
+    derived items as not implemented), whatever the derived items are."""
+    owner: Dict[int, int] = {}
+    sources = set()
+    for rtyp, src, dst in m.refs:
+        if rtyp != b"dimg":
+            continue
+        if src in sources:
+            raise _broken(f"two dimg boxes from item {src}")
+        sources.add(src)
+        for d in dst:
+            if owner.get(d) == src:
+                raise _broken(f"item {d} twice in the dimg of item {src}")
+            if d in owner:
+                raise UnsupportedAvif(
+                    f"AVIF: item {d} in the dimg of items {owner[d]} and "
+                    f"{src} (libavif 1.3 does not implement it)")
+            owner[d] = src
 
 
 def _item_payload(data: bytes, m: _Meta, item_id: int) -> bytes:
@@ -333,11 +395,16 @@ def _av1_item(data: bytes, m: _Meta, item_id: int, what: str) -> Av1Item:
         raise _broken(f"{what} item {item_id} has no infe entry")
     if typ == b"grid":
         return _grid_item(data, m, item_id, what)
+    if typ == b"tmap":
+        raise UnsupportedAvif(
+            f"AVIF: {what} item of type 'tmap' (libavif 1.3 decodes a gain "
+            f"map's colour item only where that item is the primary one, "
+            f"and finds no image item here)")
     if typ != b"av01":
         raise UnsupportedAvif(
-            f"AVIF: {what} item of type {typ.decode('latin-1')!r} "
-            f"(derived items other than 'grid' and non-AV1 image items are "
-            f"not supported, as libavif 1.3 supports none)")
+            f"AVIF: {what} item of type {typ.decode('latin-1')!r} (libavif "
+            f"1.3 decodes no derived item but 'grid' and no image item but "
+            f"AV1)")
     it = Av1Item(item_id, _item_payload(data, m, item_id))
     _properties(data, m, it, what)
     if not it.av1c:
@@ -817,6 +884,7 @@ class FrameHeader:
     qm: Tuple[int, int, int] = (15, 15, 15)  # qm_y, qm_u, qm_v; 15 flat
     delta_q_res: int = -1  # log2 of the delta q step; -1 without delta q
     delta_lf_res: int = -1  # likewise for delta LF
+    delta_lf_multi: bool = False  # a DeltaLF per plane and direction
     allow_intrabc: bool = False
     grain: Optional["FilmGrain"] = None
     # segmentation_params (spec 5.9.14): the FeatureData of each segment's
@@ -940,10 +1008,7 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
         fh.delta_q_res = b.f(2)
         if not fh.allow_intrabc and b.f(1):  # delta_lf_present
             fh.delta_lf_res = b.f(2)
-            if b.f(1):
-                raise UnsupportedAvif("AV1: delta LF per plane and "
-                                      "direction (delta_lf_multi) is not "
-                                      "supported yet")
+            fh.delta_lf_multi = bool(b.f(1))
     # loop_filter_params and cdef_params keep their defaults (levels 0,
     # CDEF off) in a lossless frame and under intrabc, lr_params (no
     # restoration) in one lossless at its full width (AllLossless) and
@@ -996,20 +1061,21 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
     return fh
 
 
-# spec Segmentation_Feature_Bits, _Signed and _Max, and the features'
-# names (SEG_LVL_*)
+# spec Segmentation_Feature_Bits, _Signed and _Max of the SEG_LVL_*
+# features: ALT_Q, ALT_LF_Y_V, ALT_LF_Y_H, ALT_LF_U, ALT_LF_V, REF_FRAME,
+# SKIP, GLOBALMV
 _SEG_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
 _SEG_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
 _SEG_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
-_SEG_NAMES = ("ALT_Q", "ALT_LF_Y_V", "ALT_LF_Y_H", "ALT_LF_U", "ALT_LF_V",
-              "REF_FRAME", "SKIP", "GLOBALMV")
 
 
 def _segmentation_params(b: _Bits, fh: FrameHeader) -> None:
     """segmentation_params of a key frame, after segmentation_enabled: a
     key frame updates the map (not temporally) and the data, so every
-    segment's features follow, each value clipped to its limit. Only
-    SEG_LVL_ALT_Q, the one feature libaom's AQ modes set, is decoded."""
+    segment's features follow, each value clipped to its limit. ALT_Q
+    moves the segment's qindex, the four ALT_LF its deblocking levels,
+    SKIP skips its blocks; REF_FRAME, SKIP and GLOBALMV put the segment id
+    before ``skip`` (SegIdPreSkip)."""
     feats = [[None] * 8 for _ in range(8)]
     for i in range(8):
         for j in range(8):
@@ -1021,10 +1087,6 @@ def _segmentation_params(b: _Bits, fh: FrameHeader) -> None:
                     feats[i][j] = min(b.f(_SEG_BITS[j]), lim)
     on = [(i, j) for i in range(8) for j in range(8)
           if feats[i][j] is not None]
-    other = sorted({_SEG_NAMES[j] for _, j in on if j})
-    if other:
-        raise UnsupportedAvif(f"AV1: segmentation feature "
-                              f"{', '.join(other)} is not supported yet")
     fh.segmentation = feats
     fh.seg_last_active = max((i for i, _ in on), default=0)
     fh.seg_preskip = any(j >= 5 for _, j in on)
@@ -1240,6 +1302,7 @@ _CDF_ORDER = (
     "pal_uv_ci5", "pal_uv_ci6", "pal_uv_ci7", "pal_uv_ci8", "intrabc",
     "mv_joints", "mv_sign", "mv_classes", "mv_class0", "mv_bits",
     "txfm_split", "inter_tx1", "inter_tx2", "inter_tx3", "segment_id",
+    "delta_lf_multi",
 )
 # the header pack's fields in the order of av1_header.h's H_* enum
 _HDR_FIELDS = (
@@ -1252,10 +1315,13 @@ _HDR_FIELDS = (
     "lr_ucols1", "lr_ucols2", "lr_rstride", "lr_cstride", "ss_x", "ss_y",
     "edge_filter", "width", "height", "lf_y0", "lf_y1", "lf_u", "lf_v",
     "lf_sharpness", "cdef_damping", "qm_y", "qm_u", "qm_v", "delta_q_res",
-    "delta_lf_res", "lf_delta_enabled", "lf_ref_delta_intra", "allow_intrabc",
+    "delta_lf_res", "delta_lf_multi", "lf_delta_enabled",
+    "lf_ref_delta_intra", "allow_intrabc",
     "seg_enabled", "seg_preskip", "seg_last_active", "seg_alt_q_mask",
 ) + tuple(f"seg_alt_q{i}" for i in range(8)) + (
-    "seg_lossless_mask", "superres_denom", "upscaled_width") \
+    "seg_lossless_mask", "seg_alt_lf_mask") \
+    + tuple(f"seg_alt_lf{i}" for i in range(8)) + (
+    "seg_skip_mask", "superres_denom", "upscaled_width") \
     + tuple(f"cdef_{k}{i}" for i in range(8)
             for k in ("y_pri", "y_sec", "uv_pri", "uv_sec"))
 # the decoder's tool counters in the order of av1_header.h's T_* enum
@@ -1269,6 +1335,7 @@ TOOL_NAMES = (
     "intrabc_chroma_subpel", "vartx_split", "tx_inter_set1",
     "tx_inter_set2", "tx_inter_set3", "tx_flip", "intrabc_sub8x8_chroma",
     "segmentation", "seg_alt_q", "seg_preskip", "seg_pred_skip", "superres",
+    "seg_alt_lf", "seg_skip", "delta_lf_multi",
 )
 # the film grain pack (av1_header.h's G_* enum): field, length
 _GRAIN_FIELDS = (
@@ -1344,15 +1411,17 @@ def _tool_tables():
 
 
 def _reader_cdfs() -> dict:
-    """The default CDFs only the reader needs: delta q, delta LF, the
-    chroma palette's, intra block copy's (use_intrabc, the DV's MV CDFs,
-    the var-tx split and the inter transform types) and segment_id's."""
+    """The default CDFs only the reader needs: delta q, delta LF (and the
+    four of delta_lf_multi, which start from it), the chroma palette's,
+    intra block copy's (use_intrabc, the DV's MV CDFs, the var-tx split
+    and the inter transform types) and segment_id's."""
     from ..av1.frame import _adaptive
     from ..av1.tables import TABLES
 
     t = _tool_tables()
     return {"delta_q": _adaptive(t["delta_q"]),
             "delta_lf": _adaptive(t["delta_lf"]),
+            "delta_lf_multi": _adaptive(np.tile(t["delta_lf"], (4, 1))),
             "pal_uv_size": _adaptive(TABLES["palette_uv_size"]),
             **{f"pal_uv_ci{n}": _adaptive(TABLES[f"palette_uv_color_index_{n}"])
                for n in range(2, 9)},
@@ -1494,6 +1563,7 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
         lf_sharpness=fh.lf_sharpness, cdef_damping=fh.cdef_damping,
         **dict(zip(("qm_y", "qm_u", "qm_v"), fh.qm)),
         delta_q_res=fh.delta_q_res, delta_lf_res=fh.delta_lf_res,
+        delta_lf_multi=int(fh.delta_lf_multi),
         lf_delta_enabled=int(fh.lf_delta_enabled),
         lf_ref_delta_intra=fh.lf_ref_delta_intra,
         allow_intrabc=int(fh.allow_intrabc),
@@ -1505,6 +1575,15 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
            for i, f in enumerate(fh.segmentation or [[None]] * 8)},
         seg_lossless_mask=sum(int(v) << i
                               for i, v in enumerate(fh.seg_lossless)),
+        # 32 bits: segment 7's ALT_LF_V is the sign bit of the int32 word
+        seg_alt_lf_mask=int(np.uint32(sum(
+            1 << (4 * i + k) for i, f in enumerate(fh.segmentation or [])
+            for k in range(4) if f[1 + k] is not None)).view(np.int32)),
+        **{f"seg_alt_lf{i}": int.from_bytes(
+            bytes((v or 0) & 0xFF for v in f[1:5]), "little", signed=True)
+           for i, f in enumerate(fh.segmentation or [[None] * 8] * 8)},
+        seg_skip_mask=sum(1 << i for i, f in enumerate(fh.segmentation or [])
+                          if f[6] is not None),
         superres_denom=fh.superres_denom, upscaled_width=w,
         **{name: v for name, v in zip(_HDR_FIELDS[-32:], strengths)})
     hdr = np.array([fields[k] for k in _HDR_FIELDS], dtype=np.int32)
@@ -1525,7 +1604,8 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     cdef_idx = np.zeros(((fh.mi_rows + 15) // 16, (fh.mi_cols + 15) // 16),
                         dtype=np.int8)
     lr_units = np.zeros((3, max(urows), max(ucols), 7), dtype=np.int32)
-    delta_lf = np.zeros((fh.mi_rows, fh.mi_cols), dtype=np.int8)
+    delta_lf = np.zeros((fh.mi_rows, fh.mi_cols, 4), dtype=np.int8)
+    segs = np.zeros((fh.mi_rows, fh.mi_cols), dtype=np.uint8)
     counts = np.zeros(len(TOOL_NAMES), dtype=np.int32)
     msg = C.create_string_buffer(256)
     vp = C.c_void_p
@@ -1536,8 +1616,8 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
         taps.ctypes.data, qlut.ctypes.data,
         None if qm is None else qm.ctypes.data, C.cast(plane_ptrs, vp),
         stride, C.cast(tx_ptrs, vp), skips.ctypes.data, cdef_idx.ctypes.data,
-        delta_lf.ctypes.data, lr_units.ctypes.data, counts.ctypes.data, msg,
-        256)
+        delta_lf.ctypes.data, segs.ctypes.data, lr_units.ctypes.data,
+        counts.ctypes.data, msg, 256)
     if rc == 1:
         raise UnsupportedAvif(msg.value.decode())
     if rc:
@@ -1547,7 +1627,7 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     if lib.av1_postfilter(C.cast(plane_ptrs, vp), stride, hdr.ctypes.data,
                           C.cast(tx_ptrs, vp), skips.ctypes.data,
                           cdef_idx.ctypes.data, delta_lf.ctypes.data,
-                          lr_units.ctypes.data,
+                          segs.ctypes.data, lr_units.ctypes.data,
                           _tool_tables()["upscale_filter"].ctypes.data,
                           counts.ctypes.data, C.byref(upscale)):
         raise MemoryError("AVIF post-filters: out of memory")

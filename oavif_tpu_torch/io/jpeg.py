@@ -23,8 +23,33 @@ transform that names YCbCr raise).
 
 12-bit samples, arithmetic-coded lossless and hierarchical frames, 2 or
 more than 4 components and fractional sampling ratios raise
-``ValueError``; a file that ends before its ``EOI`` marker raises
-``OSError``, as Pillow's ``load`` does.
+``ValueError``.
+
+A file that ends before its ``EOI`` marker decodes where Pillow decodes
+it and raises ``OSError`` where Pillow's ``load`` raises. Pillow feeds
+libjpeg-turbo from a suspending source, so the rule is where libjpeg
+would have to wait for bytes that never come:
+
+- a file of several scans (progressive, or a first scan without every
+  component: libjpeg's ``has_multiple_scans``) is read whole, up to its
+  ``EOI``, before a row is given out, so it raises if the ``EOI`` is
+  missing;
+- a file of one scan decodes if its scan does: the Huffman bit reader
+  refills below 8 bits for a code (below 9 for a longer one) and below n
+  for n extra bits, loading up to 57 bits, and a refill, or a search for
+  a restart marker, that meets the end of the data before a marker
+  suspends, and so raises. What follows the scan is read as libjpeg's
+  ``jpeg_finish_decompress`` reads it: its errors raise ``OSError``, as
+  libjpeg's error exit does in Pillow's ``load``; its end of data does
+  not raise (Pillow has all the rows by then);
+- an arithmetic-coded scan reads ahead whole bytes and cannot suspend
+  (``jdarith.c``, ``get_byte``): a byte wanted past the end raises.
+
+One difference is kept on purpose: Pillow hands libjpeg a file 64 KiB at
+a time, so a whole arithmetic file whose scan crosses the edge of the
+block Pillow has handed over raises there (``get_byte`` cannot wait for
+the next block). This reader has the whole file and decodes it, with
+the pixels libjpeg gives when it has all the data at once.
 """
 
 from __future__ import annotations
@@ -232,6 +257,10 @@ class _Reader:
         self.icc_chunks: List[bytes] = []
         self.icc: Optional[bytes] = None
         self.scans: List[List[int]] = []
+        # libjpeg's has_multiple_scans, set by the first scan
+        self.multi_scan = False
+        # the last scan's data runs to the end of the file, no marker after
+        self.open_end = False
         self.tables: List[np.ndarray] = []
         self._table_ids: Dict[tuple, int] = {}
 
@@ -244,6 +273,17 @@ class _Reader:
         return self._table_ids[key, dc]
 
     def read(self) -> None:
+        try:
+            self._read()
+        except ValueError as e:
+            if self.scans and not self.multi_scan:
+                # met by jpeg_finish_decompress, after the rows are out:
+                # libjpeg's error exit, which Pillow's load raises
+                raise OSError(f"broken data stream when reading image "
+                              f"file ({e})") from e
+            raise
+
+    def _read(self) -> None:
         data = self.data
         if data[:2] != b"\xff\xd8":
             raise ValueError("not a JPEG file (no SOI marker)")
@@ -253,14 +293,19 @@ class _Reader:
         restart = 0
         seen_sof = False
         while True:
-            marker, pos = _next_marker(data, pos)
-            if marker == 0xD9:  # EOI
-                break
-            if 0xD0 <= marker <= 0xD7 or marker == 0x01:
-                continue  # RSTn and TEM carry no length
-            if marker in _REFUSED:
-                raise ValueError(f"unsupported {_REFUSED[marker]}")
-            start, end = _segment(data, pos)
+            try:
+                marker, pos = _next_marker(data, pos)
+                if marker == 0xD9:  # EOI
+                    break
+                if 0xD0 <= marker <= 0xD7 or marker == 0x01:
+                    continue  # RSTn and TEM carry no length
+                if marker in _REFUSED:
+                    raise ValueError(f"unsupported {_REFUSED[marker]}")
+                start, end = _segment(data, pos)
+            except OSError:
+                if self.scans and not self.multi_scan:
+                    break  # jpeg_finish_decompress suspends: rows are out
+                raise
             seg = data[start:end]
             pos = end
             if marker in _SOF:
@@ -281,9 +326,16 @@ class _Reader:
             elif marker == 0xDA:
                 if not seen_sof:
                     raise ValueError("JPEG scan before its frame header")
+                if self.scans and not self.multi_scan:
+                    raise ValueError("JPEG scan after the only scan of a "
+                                     "sequential frame (EOI expected)")
                 self._sos(seg, quant, huff, restart, pos)
+                if len(self.scans) == 1:
+                    self.multi_scan = (self.progressive
+                                       or seg[0] < len(self.comps))
                 m = _SEGMENT_END.search(data, pos)
                 stop = m.start() if m else len(data)
+                self.open_end = m is None
                 self.scans[-1][1] = stop - pos
                 pos = stop
             elif 0xE0 <= marker <= 0xEF:
@@ -536,7 +588,11 @@ def decode_jpeg(data: bytes) -> Tuple[np.ndarray, Optional[bytes]]:
     rc = lib.jpeg_entropy(r.data, scans.ctypes.data, len(scans),
                           tables.ctypes.data, cptrs, geom.ctypes.data,
                           mcux, mcuy, int(r.progressive) | 2 * r.arith
-                          | 4 * r.lossless)
+                          | 4 * r.lossless | 8 * r.open_end)
+    if rc == -1:
+        raise OSError("image file is truncated")
+    if rc == -2:
+        raise OSError("broken data stream when reading image file")
     if rc:
         raise ValueError(f"bad JPEG scan {rc - 1}")
     quant = np.stack([c.quant if c.quant is not None

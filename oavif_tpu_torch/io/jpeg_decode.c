@@ -54,15 +54,30 @@ typedef struct {
     int bits;
     int marker;       /* a marker (or the segment's end) stopped the input */
     int insufficient; /* the data ran out inside this restart interval */
+    int open;         /* the data ends here with no marker after it */
+    int suspended;    /* libjpeg would have had to wait for more data */
 } Bits;
+
+/* The reader ran into the end of data that no marker ends: libjpeg's
+ * suspending source returns, and Pillow, which has no more bytes to
+ * give, raises. Zeros follow so the scan runs out quickly. */
+static void suspend(Bits *b)
+{
+    b->suspended = 1;
+    b->marker = 1;
+}
 
 /* Load bytes until 57 bits are held or a marker is reached: 0xFF 0x00 is
  * a 0xFF byte, 0xFF fill bytes before a marker are skipped, and the
- * reader then stays at the marker's first 0xFF. */
+ * reader then stays at the marker's first 0xFF. As in libjpeg's
+ * jpeg_fill_bit_buffer, a fill that meets the end of open data suspends
+ * even when the bits asked for are already held. */
 static void fill(Bits *b)
 {
     while (b->bits <= 56 && !b->marker) {
         if (b->p >= b->end) {
+            if (b->open)
+                suspend(b);
             b->marker = 1;
             break;
         }
@@ -74,6 +89,8 @@ static void fill(Bits *b)
             if (q < b->end && *q == 0x00) {
                 b->p = q + 1;
             } else {
+                if (q >= b->end && b->open)
+                    suspend(b);
                 b->marker = 1;
                 break;
             }
@@ -113,17 +130,31 @@ static inline int extend(int r, int s)
     return r < (1 << (s - 1)) ? r + (int)((~0u << s) + 1) : r;
 }
 
-static int huff_decode(Bits *b, const int32_t *t)
+static inline int peek_code(const Bits *b, const int32_t *t)
 {
-    if (b->bits < LOOK_BITS)
-        fill(b);
     int have = b->bits;
     int peek;
     if (have >= LOOK_BITS)
         peek = (int)((b->buf >> (have - LOOK_BITS)) & ((1 << LOOK_BITS) - 1));
     else
         peek = (int)((b->buf << (LOOK_BITS - have)) & ((1 << LOOK_BITS) - 1));
-    int e = t[HT_LOOK + peek];
+    return t[HT_LOOK + peek];
+}
+
+/* libjpeg-turbo looks 8 bits ahead (HUFF_DECODE): it refills below 8
+ * bits, and below 9 for a longer code (jpeg_huff_decode's first
+ * CHECK_BIT_BUFFER); the 9-bit table here decodes the same symbols, and
+ * the refills are libjpeg's, so the data runs out where it does. */
+static int huff_decode(Bits *b, const int32_t *t)
+{
+    if (b->bits < 8)
+        fill(b);
+    int e = peek_code(b, t);
+    if ((!e || (e >> 8) > 8) && b->bits < 9) {
+        fill(b);
+        e = peek_code(b, t);
+    }
+    int have = b->bits;
     if (e) {
         int len = e >> 8;
         if (len > have) { /* the code's last bits lie past the data */
@@ -162,6 +193,8 @@ static void restart(Bits *b)
         b->marker = 0;
         b->insufficient = 0;
     } else {
+        if (q >= b->end && b->open)
+            suspend(b); /* next_marker met the end of the data */
         b->p = b->end; /* no marker: the rest of the scan is out of data */
         b->marker = 1;
     }
@@ -220,9 +253,10 @@ static inline int16_t refine(int16_t coef, int p1, int m1)
 /* Decode one scan; progressive selects jdphuff's four procedures, else
  * jdhuff's sequential one. Returns 0, or -1 for a malformed MCU. */
 static int decode_scan(const Frame *f, const uint8_t *data,
-                       const int32_t *sc, int progressive)
+                       const int32_t *sc, int progressive, int open)
 {
-    Bits b = {data + sc[S_OFF], data + sc[S_OFF] + sc[S_LEN], 0, 0, 0, 0};
+    Bits b = {data + sc[S_OFF], data + sc[S_OFF] + sc[S_LEN], 0, 0, 0, 0,
+              open, 0};
     int ns = sc[S_NCOMP];
     int ss = sc[S_SS], se = sc[S_SE], ah = sc[S_AH], al = sc[S_AL];
     int ri = sc[S_RI];
@@ -371,7 +405,7 @@ static int decode_scan(const Frame *f, const uint8_t *data,
                 }
             }
         }
-    return 0;
+    return b.suspended ? -2 : 0;
 }
 
 /* ---- arithmetic decoding (ITU T.81 Annex D, F.2.4 and G.1.3; jdarith.c) */
@@ -433,14 +467,26 @@ typedef struct {
     int ct;     /* bits left in c's buffer; -16 before the first two bytes,
                    -1 after a coding error (the interval decodes nothing) */
     int marker; /* a marker stopped the input: zeros follow */
+    int open;   /* the data ends here with no marker after it */
+    int broken; /* a byte was read past the end of open data */
 } Arith;
 
+/* The reader met the segment's end: zeros follow, and where no marker
+ * ends the data, libjpeg would have wanted a byte that is not there */
+static void arith_end_marker(Arith *e)
+{
+    e->broken |= e->open;
+    e->marker = 1;
+}
+
+/* jdarith's get_byte cannot suspend: a byte wanted past the end of open
+ * data is an error (JERR_CANT_SUSPEND), which Pillow raises */
 static int arith_byte(Arith *e)
 {
     if (e->marker)
         return 0;
     if (e->p >= e->end) {
-        e->marker = 1;
+        arith_end_marker(e);
         return 0;
     }
     int data = *e->p;
@@ -454,6 +500,10 @@ static int arith_byte(Arith *e)
     if (q < e->end && *q == 0x00) {
         e->p = q + 1;
         return 0xFF;
+    }
+    if (q >= e->end) {
+        arith_end_marker(e);
+        return 0;
     }
     e->marker = 1; /* the reader stays at the marker's first 0xFF */
     return 0;
@@ -518,6 +568,8 @@ static void arith_restart(Arith *e)
         e->p = q + 1;
         e->marker = 0;
     } else {
+        if (q >= e->end)
+            arith_end_marker(e);
         e->p = e->end;
         e->marker = 1;
     }
@@ -595,10 +647,10 @@ static int arith_ac_value(Arith *e, uint8_t *ac, uint8_t *st, int k, int K,
  * progressive procedures. The scan's S_DC and S_AC words hold the
  * conditioning table slots, S_COND each member's L | U << 4 | K << 8. */
 static int decode_scan_arith(const Frame *f, const uint8_t *data,
-                             const int32_t *sc, int progressive)
+                             const int32_t *sc, int progressive, int open)
 {
     Arith e = {data + sc[S_OFF], data + sc[S_OFF] + sc[S_LEN], 0, 0, -16,
-               0};
+               0, open, 0};
     int ns = sc[S_NCOMP];
     int ss = sc[S_SS], se = sc[S_SE], ah = sc[S_AH], al = sc[S_AL];
     int ri = sc[S_RI];
@@ -746,7 +798,7 @@ static int decode_scan_arith(const Frame *f, const uint8_t *data,
                     break;
             }
         }
-    return 0;
+    return e.broken ? -3 : 0;
 }
 
 /* ---- lossless scans (ITU T.81 Annex H; jdlhuff.c, jdlossls.c, jddiffct.c) */
@@ -801,9 +853,10 @@ static void undifference(const int32_t *diff, const uint16_t *prev,
  * undifferences a whole iMCU row once it is decoded, at the first row of
  * the iMCU row: a single component's scan has C_V MCU rows in one. */
 static int decode_scan_lossless(const Frame *f, const uint8_t *data,
-                                const int32_t *sc)
+                                const int32_t *sc, int open)
 {
-    Bits b = {data + sc[S_OFF], data + sc[S_OFF] + sc[S_LEN], 0, 0, 0, 0};
+    Bits b = {data + sc[S_OFF], data + sc[S_OFF] + sc[S_LEN], 0, 0, 0, 0,
+              open, 0};
     int ns = sc[S_NCOMP];
     int psv = sc[S_SS], pt = sc[S_AL], ri = sc[S_RI];
     int init = 1 << (8 - pt - 1);
@@ -899,7 +952,7 @@ static int decode_scan_lossless(const Frame *f, const uint8_t *data,
         free(prev[s]);
         free(cur[s]);
     }
-    return 0;
+    return b.suspended ? -2 : 0;
 }
 
 /* data: the file; scans: nscans descriptors of S_WORDS int32 (offset and
@@ -909,8 +962,11 @@ static int decode_scan_lossless(const Frame *f, const uint8_t *data,
  * comp: C_WORDS int32 per component; mcux, mcuy: MCUs of an interleaved
  * scan; mode: 1 for a progressive frame, | 2 for arithmetic coding, 4
  * for a lossless frame (coefs then hold one sample per position, C_BW to
- * a row). Returns 0, or 1 + the index of a scan with an MCU of more than
- * 10 blocks. */
+ * a row), | 8 when the last scan's data is the end of the file, with no
+ * marker after it. Returns 0; 1 + the index of a scan with an MCU of
+ * more than 10 blocks; -1 where a Huffman scan ran into the end of that
+ * data (libjpeg suspends), -2 where an arithmetic one did (libjpeg
+ * cannot suspend there and fails). */
 int jpeg_entropy(const uint8_t *data, const int32_t *scans, int nscans,
                  const int32_t *tables, int16_t *const *coefs,
                  const int32_t *comp, int mcux, int mcuy, int mode)
@@ -919,10 +975,15 @@ int jpeg_entropy(const uint8_t *data, const int32_t *scans, int nscans,
     int progressive = mode & 1;
     for (int i = 0; i < nscans; i++) {
         const int32_t *sc = scans + (size_t)S_WORDS * i;
-        if ((mode & 4 ? decode_scan_lossless(&f, data, sc)
-             : mode & 2 ? decode_scan_arith(&f, data, sc, progressive)
-                        : decode_scan(&f, data, sc, progressive)))
+        int open = (mode & 8) && i == nscans - 1;
+        int rc = mode & 4 ? decode_scan_lossless(&f, data, sc, open)
+                 : mode & 2 ? decode_scan_arith(&f, data, sc, progressive,
+                                                open)
+                            : decode_scan(&f, data, sc, progressive, open);
+        if (rc == -1)
             return 1 + i;
+        if (rc)
+            return rc + 1;
     }
     return 0;
 }

@@ -548,6 +548,10 @@ LEARNED = {
     "quantizer matrices": lambda av1: av1.frame.qm == (0, 0, 0),
     "delta q": lambda av1: (av1.frame.delta_q_res,
                             av1.frame.delta_lf_res) == (0, -1),
+    # delta_q_res 0, delta_lf_res 0, delta_lf_multi 1
+    "delta_lf_multi": lambda av1: (av1.frame.delta_q_res,
+                                   av1.frame.delta_lf_res,
+                                   av1.frame.delta_lf_multi) == (0, 0, True),
     "film grain": lambda av1: av1.frame.grain is not None,
     "segmentation": lambda av1: (av1.frame.segmentation == [[None] * 8] * 8
                                  and av1.frame.seg_last_active == 0),

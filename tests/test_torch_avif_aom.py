@@ -94,17 +94,15 @@ TOOLS_MADE = {**json.loads((FIXTURES.parent / "avif_tools"
               **json.loads((FIXTURES.parent / "avif_container"
                             / "manifest.json").read_text()),
               **json.loads((FIXTURES.parent / "avif_superres"
+                            / "manifest.json").read_text()),
+              # written symbol by symbol: what libaom never puts into a
+              # key frame (a skipped block's predicted segment id, ids
+              # read before skip, ALT_LF, SKIP, delta_lf_multi)
+              **json.loads((FIXTURES.parent / "avif_lf_seg"
                             / "manifest.json").read_text())}
-# counters no writer here makes count: a skipped block's predicted
-# segment id (libaom codes no skipped block in a key frame), which
-# tests/test_torch_avif_segmentation.py counts in streams it writes, and
-# ids read before skip, which need a segmentation feature the decoder
-# refuses
-UNWRITTEN = ("seg_preskip", "seg_pred_skip")
 
 
-@pytest.mark.parametrize("tool", [t for t in A.TOOL_NAMES
-                                  if t not in UNWRITTEN])
+@pytest.mark.parametrize("tool", A.TOOL_NAMES)
 def test_each_ported_tool_occurs_in_a_fixture(tool):
     assert sum(e.get("tools", {}).get(tool, 0)
                for e in [*MANIFEST.values(), *TOOLS_MADE.values()]) > 0

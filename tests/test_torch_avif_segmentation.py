@@ -8,30 +8,32 @@ CPU and with no tolerance:
   and a segmented key frame muxed beside an alpha item) and in libavif
   0.11.1's 10- and 12-bit sequences: each decodes to dav1d's Y'UV and
   equals the reference live and its manifest;
-- streams written here bit by bit, for what libaom never writes into a
-  key frame: a skipped block, which takes the predicted segment id
+- streams written symbol by symbol (``keyframe_writer.py`` of
+  ``tests/torch_fixtures/avif_lf_seg``), for what libaom never writes into
+  a key frame: a skipped block, which takes the predicted segment id
   (``seg_pred_skip``), against dav1d; and the segmentation features
-  other than ALT_Q, which the decoder refuses by name;
+  other than ALT_Q, each in a stream of its own that equals dav1d and the
+  reference (``test_torch_avif_lf_seg.py`` holds the rest of them);
 - each segmentation counter in ``tools`` occurs in some file.
 """
 
 from __future__ import annotations
 
+import json
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+ROOT = Path(__file__).resolve().parent.parent
+LF_SEG = ROOT / "tests" / "torch_fixtures" / "avif_lf_seg"
+sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+sys.path.insert(0, str(LF_SEG))
 
-from oavif_tpu_torch.av1.consts import coeff_q_ctx  # noqa: E402
-from oavif_tpu_torch.av1.entropy.rangecoder import (RangeEncoder,  # noqa: E402
-                                                    update_cdf)
-from oavif_tpu_torch.av1.frame import CdfBank, _adaptive  # noqa: E402
-from oavif_tpu_torch.av1.mux import mux_avif  # noqa: E402
-from oavif_tpu_torch.av1.obu import BitWriter, obu  # noqa: E402
+from keyframe_writer import (SEG_NAMES, Block, Frame,  # noqa: E402
+                             avif_still, frame_obus)
 from oavif_tpu_torch.io import avif as A  # noqa: E402
 from oavif_tpu_torch.io.avif_ctypes import decode_to_yuv  # noqa: E402
 from test_torch_avif_container import FIXTURES, MANIFEST  # noqa: E402
@@ -76,9 +78,9 @@ def test_fixtures_cover_the_writers_settings():
 def test_each_segmentation_counter_occurs(counter):
     """``segmentation`` and ``seg_alt_q`` in the fixtures; a skipped
     block's predicted id only in the stream written here (libaom codes no
-    skipped block in a key frame); ``seg_preskip`` in no stream, since
-    SegIdPreSkip needs a feature the decoder refuses (REF_FRAME, SKIP or
-    GLOBALMV) and it stays 0 everywhere."""
+    skipped block in a key frame); ``seg_preskip`` in none of these, since
+    libaom never sets REF_FRAME, SKIP or GLOBALMV, which SegIdPreSkip
+    needs (``tests/torch_fixtures/avif_lf_seg`` has it)."""
     total = sum(e["tools"][counter] for e in MANIFEST.values()
                 if "tools" in e)
     written = A.decode_av1(_stream([(0, 1, 0), (1, None, 1),
@@ -92,104 +94,28 @@ def test_each_segmentation_counter_occurs(counter):
 
 
 # ---------------------------------------------------------------------------
-# streams written bit by bit: a monochrome frame of 64x64 blocks in a row
+# streams written symbol by symbol: a monochrome frame of 64x64 blocks in a
+# row, no coefficient coded
 # ---------------------------------------------------------------------------
 
 
-def _neg_deinterleave(diff: int, ref: int, mx: int) -> int:
-    if not ref:
-        return diff
-    if ref >= mx - 1:
-        return mx - diff - 1
-    if 2 * ref < mx:
-        if diff <= 2 * ref:
-            return ref + ((diff + 1) >> 1) if diff & 1 else ref - (diff >> 1)
-        return diff
-    if diff <= 2 * (mx - ref - 1):
-        return ref + ((diff + 1) >> 1) if diff & 1 else ref - (diff >> 1)
-    return mx - (diff + 1)
-
-
-def _stream(blocks, alt_q=(0, -40, 30), base_q=100, features=None) -> bytes:
-    """A reduced-header AV1 key frame, 8-bit monochrome, 64 pixels high
-    and one 64x64 block (PARTITION_NONE) per entry of ``blocks``: (skip,
-    segment_id or None where skipped, luma mode), DC, V or H. Segment i
-    has ALT_Q ``alt_q[i]`` (LastActiveSegId is the last); ``features``
-    replaces the feature table (8 lists of 8 values or None). No
-    coefficient is coded: an unskipped block reads all_zero."""
-    n = len(blocks)
-    seq = BitWriter()
-    for v, bits in ((0, 3), (1, 1), (1, 1), (0, 5), (15, 4), (15, 4),
-                    (64 * n - 1, 16), (63, 16), (0, 3), (0, 3), (0, 1),
-                    (1, 1), (0, 1), (1, 1), (0, 1)):
-        # profile 0, still, reduced, level 0, 16-bit sizes, no 128 SB,
-        # filter intra or edge filter, no superres, CDEF or restoration,
-        # 8-bit, monochrome, no colour description, full range, no grain
-        seq.f(v, bits)
-    seq.trailing_bits()
+def _frame(blocks, alt_q=(0, -40, 30), base_q=100, features=None) -> Frame:
+    """A monochrome frame 64 pixels high and one 64x64 block per entry of
+    ``blocks``: (skip, segment_id or None where skipped, luma mode), DC,
+    V or H. Segment i has ALT_Q ``alt_q[i]`` (LastActiveSegId is the
+    last); ``features`` replaces the feature table (8 lists of 8 values
+    or None). Loop filter levels 0; an unskipped block reads all_zero."""
     if features is None:
         features = [[alt_q[i] if i < len(alt_q) else None] + [None] * 7
                     for i in range(8)]
-    fh = BitWriter()
-    # disable_cdf_update, screen tools, render_size, uniform tiles (and one
-    # increment bit where the row has two SBs or more), base_q_idx, no
-    # DeltaQYDc, no qmatrix, segmentation on
-    for v, bits in ((0, 1), (0, 1), (0, 1), (1, 1)):
-        fh.f(v, bits)
-    if n > 1:
-        fh.f(0, 1)
-    fh.f(base_q, 8)
-    fh.f(0, 1)
-    fh.f(0, 1)
-    fh.f(1, 1)
-    for row in features:
-        for j, v in enumerate(row):
-            fh.f(v is not None, 1)
-            if v is not None:
-                nb = A._SEG_BITS[j]
-                if A._SEG_SIGNED[j]:
-                    fh.f(v & ((1 << (nb + 1)) - 1), nb + 1)
-                else:
-                    fh.f(v, nb)
-    # no delta q; unless every segment is lossless (CodedLossless), loop
-    # filter levels 0 0, sharpness 0, no deltas and no tx_mode_select
-    # (TX_MODE_LARGEST); no reduced tx set
-    fh.f(0, 1)
-    if not all(base_q + (row[0] or 0) <= 0 for row in features):
-        for v, bits in ((0, 6), (0, 6), (0, 3), (0, 1), (0, 1)):
-            fh.f(v, bits)
-    fh.f(0, 1)
-    fh.byte_align()
-    last = max([i for i, row in enumerate(features)
-                if any(v is not None for v in row)] or [0])
-    bank = CdfBank(coeff_q_ctx(base_q))
-    seg_cdf = _adaptive(A._tool_tables()["segment_id"])
-    enc = RangeEncoder()
+    return Frame(64 * len(blocks), 64, mono=True, base_q=base_q,
+                 features=features,
+                 blocks=[[Block(skip=skip, seg=seg or 0, mode=mode)
+                          for skip, seg, mode in blocks]])
 
-    def put(cdf, s, nsym):
-        enc.encode_symbol(s, cdf, nsym)
-        update_cdf(cdf, s, nsym)
 
-    left_seg, left_mode, left_skip = -1, 0, 0
-    ctx_of = (0, 1, 2)  # INTRA_MODE_CONTEXT of DC, V and H
-    for skip, seg, mode in blocks:
-        put(bank.partition[64][0], 0, 10)  # PARTITION_NONE, context 0
-        put(bank.skip[left_skip], skip, 2)
-        if not skip:
-            pred = max(left_seg, 0)
-            coded = next(v for v in range(8)
-                         if _neg_deinterleave(v, pred, last + 1) == seg)
-            put(seg_cdf[0], coded, 8)  # no above row: context 0
-        else:
-            seg = max(left_seg, 0)
-        put(bank.kf_y[0][ctx_of[left_mode]], mode, 13)
-        if mode:  # V_PRED, H_PRED: angle delta 0
-            put(bank.angle_delta[mode - 1], 3, 7)
-        if not skip:
-            put(bank.txb_skip[4][0], 1, 2)  # TX_64X64, all zero
-        left_seg, left_mode, left_skip = seg, mode, skip
-    tile = enc.done()
-    return obu(1, seq.data()) + obu(6, fh.data() + tile)
+def _stream(blocks, **kw) -> bytes:
+    return frame_obus(_frame(blocks, **kw))
 
 
 @pytest.mark.parametrize("blocks", [
@@ -201,11 +127,11 @@ def test_written_stream_equals_dav1d(blocks):
     """Segment ids coded against the left block's, and skipped blocks
     that take it, decode as dav1d decodes them (through the system
     libavif); the ids land where the stream puts them."""
-    av1 = _stream(blocks)
+    fr = _frame(blocks)
+    av1 = frame_obus(fr)
     n = len(blocks)
     img = A.decode_av1(av1)
-    data = mux_avif(av1, 64 * n, 64, seq_profile=0, monochrome=True)
-    planes, depth, _ = decode_to_yuv(data)
+    planes, depth, _ = decode_to_yuv(avif_still(av1, fr))
     np.testing.assert_array_equal(img.planes[0], planes[0])
     skips = sum(s for s, _, _ in blocks)
     assert (img.tools["segmentation"], img.tools["seg_pred_skip"],
@@ -238,11 +164,23 @@ def test_lossless_segment_array():
     assert all(fh.seg_lossless) and fh.lossless
 
 
+LF_SEG_MANIFEST = json.loads((LF_SEG / "manifest.json").read_text())
+ALONE = {1: "alt_lf_y_v_420.avif", 2: "alt_lf_y_h_444_10b.avif",
+         3: "alt_lf_u_420_sb128.avif", 4: "alt_lf_v_444.avif",
+         5: "ref_frame_mono.avif", 6: "skip_444.avif",
+         7: "globalmv_420_10b.avif"}
+
+
 @pytest.mark.parametrize("feature", [1, 2, 3, 4, 5, 6, 7])
 def test_other_segmentation_features_are_refused(feature):
-    """ALT_LF (four of them), REF_FRAME, SKIP and GLOBALMV: no writer here
-    sets them, and the refusal names the feature."""
-    feats = [[None] * 8 for _ in range(8)]
-    feats[3][feature] = 1 if A._SEG_BITS[feature] else 0
-    with pytest.raises(A.UnsupportedAvif, match=A._SEG_NAMES[feature]):
-        A.parse_av1(_stream([(0, 1, 0)], features=feats))
+    """ALT_LF (four of them), REF_FRAME, SKIP and GLOBALMV, which the
+    decoder refused by name until it learned them: each feature's written
+    stream (``tests/torch_fixtures/avif_lf_seg``) now decodes to dav1d's
+    Y'UV and the reference's pixels, and its header holds the feature."""
+    name = ALONE[feature]
+    fh = A.parse_av1(A.read_container(
+        (LF_SEG / name).read_bytes()).color.payload).frame
+    assert any(seg[feature] is not None for seg in fh.segmentation), \
+        SEG_NAMES[feature]
+    assert fh.seg_preskip == (feature >= 5)
+    check_fixture(LF_SEG, name, LF_SEG_MANIFEST[name])

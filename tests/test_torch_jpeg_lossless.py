@@ -222,9 +222,12 @@ def test_broken_lossless_raises_in_both_packages(tmp_path, case):
     assert data != encode(_image(20, 10, 3, seed=11), predictor=1,
                           restart_rows=1)
     path = _write(tmp_path, data)
-    with pytest.raises(REFUSED):
+    with pytest.raises(REFUSED) as raised:
         ref_load_jpeg(str(path))
-    want = OSError if case == "cut" else ValueError
+    want = ValueError
+    if case == "cut":  # Pillow's suspending source runs dry in the scan
+        assert isinstance(raised.value, OSError)
+        want = OSError  # test_torch_jpeg_cut.py: cut files Pillow decodes
     with pytest.raises(want):
         load_jpeg(str(path))
 
