@@ -2628,9 +2628,15 @@ AVIF_LF_SEG_DIR = os.path.join(
 AVIF_GAINMAP_DIR = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
     "avif_gainmap")
+AVIF_LAYERS_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+    "avif_layers")
+AVIF_ISPE_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+    "avif_ispe")
 
 
-def _read_avif_fixtures(folder: str) -> dict:
+def _read_avif_fixtures(folder: str, reps_4k: int = 3) -> dict:
     """Every fixture of ``folder`` decodes to its manifest's CRC32s
     (dav1d's Y'UV, and the reference's ``load_avif`` and
     ``decode_avif_to_rgb8`` pixels as Pillow gave them when the fixtures
@@ -2639,9 +2645,12 @@ def _read_avif_fixtures(folder: str) -> dict:
     source libavif 1.3 reads (item or track), the grid's rows and columns,
     the alpha and its premultiplication, and where it records the frame
     header, the coded width, superres denominator and tile starts the
-    port reads and the alpha's tools; each read timed (median of 5),
+    port reads and the alpha's tools; each read timed (median of 5, of
+    ``reps_4k`` for a 3840x2160 file),
     split into parse and tile decode, post-filters, the superres upscale,
-    film grain, a grid's stitch and conversion; a refusal fixture raises
+    film grain, a grid's stitch, the scaling to ``ispe`` and conversion,
+    and for a layered item each frame's tile decode and post-filters
+    (``tiles_f0``, ``filters_f0``, ...); a refusal fixture raises
     ``ValueError`` naming its tool, and one the reference could not read
     (``raises``) the exception the manifest records, with its message.
     Returns the loaded images by file name."""
@@ -2678,7 +2687,8 @@ def _read_avif_fixtures(folder: str) -> dict:
                 continue
             raise AssertionError(f"{name}: decoded, the reference raises")
         times, split = [], []
-        for _ in range(5):
+        reps = reps_4k if entry["load_shape"][1] >= 3840 else 5
+        for _ in range(reps):
             t, t0 = {}, time.perf_counter()
             with open(path, "rb") as f:
                 avif.read_avif(f.read(), t)
@@ -2690,7 +2700,10 @@ def _read_avif_fixtures(folder: str) -> dict:
                               for p in color.planes])
         got = (list(img.data.shape), img.hbd, len(img.icc or b""),
                zlib.crc32(img.data.tobytes()), zlib.crc32(yuv.tobytes()),
-               zlib.crc32(avif.decode_avif_rgb8(data).tobytes()),
+               # decode_avif_rgb8's pixels, from the decode just made
+               zlib.crc32(avif.yuv_to_rgb8(
+                   color, rgba=alpha is not None,
+                   prem=alpha if box.premultiplied else None).tobytes()),
                color.tools if "tools" in entry else None)
         want = (entry["load_shape"], entry["load_hbd"], entry["icc"],
                 entry["load_crc"], entry["yuv_crc"], entry["rgb8_crc"],
@@ -2709,19 +2722,27 @@ def _read_avif_fixtures(folder: str) -> dict:
             want += (h["coded_width"], h["superres_denom"],
                      h["tile_col_starts"], h["tile_row_starts"],
                      entry["alpha_tools"])
+        if "frames" in entry:
+            av1 = avif.parse_av1(box.color.payload)
+            got += ([[f.spatial_id, f.frame.frame_type] for f in av1.frames],
+                    av1.spatial_id, alpha.tools if alpha else None)
+            want += (entry["frames"], entry["shows_layer"],
+                     entry["alpha_tools"])
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         loaded[name] = img
+        per_frame = sorted(k for k in split[0]
+                           if k.startswith(("tiles_f", "filters_f")))
         parts = ", ".join(
             f"{k} {np.median([t.get(k, 0.0) for t in split]) * 1e3:.3f}"
-            for k in ("parse", "filters", "upscale", "grain", "stitch",
-                      "convert"))
+            for k in ("parse", "filters", "upscale", "grain", "refs",
+                      "stitch", "scale", "convert", *per_frame))
         fmt = ("4:0:0" if color.mono else
                {(0, 0): "4:4:4", (1, 0): "4:2:2", (1, 1): "4:2:0"}[color.ss])
         print(f"  {name} {img.width}x{img.height}x{img.channels} "
               f"{'16' if img.hbd else '8'}-bit from {fmt} "
               f"{color.bit_depth}-bit ({len(data)} bytes): == manifest CRCs; "
-              f"read {np.median(times) * 1e3:.3f} ms (median of 5, "
+              f"read {np.median(times) * 1e3:.3f} ms (median of {reps}, "
               f"{min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}; {parts} ms)",
               flush=True)
     return loaded
@@ -2754,18 +2775,30 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     ``delta_lf_multi``, 512x512 and 3840x2160 among them) and of
     ``tests/torch_fixtures/avif_gainmap`` (gain-map files, read as
     libavif 1.3 reads the colour image only; the ones it refuses must
-    raise as the manifest says) decodes to its manifest
-    (``_read_avif_fixtures``), the reads split into parse and tile decode,
-    post-filters, the superres upscale, film grain, a grid's stitch and
-    conversion (the median of 5).
+    raise as the manifest says) and of ``tests/torch_fixtures/avif_layers``
+    (items in two or three spatial layers: libaom's realtime inter frames
+    at every subsampling, 8 and 10 bits, ``cpu-used`` 5-10, two tiles,
+    alpha, the six classes and a 3840x2160 frame, layer 1 written symbol
+    by symbol for the filters and 4x4 blocks libaom does not write, and
+    OBMC, a local warp and reference MVs on an inter frame, which must
+    raise naming them) and of ``tests/torch_fixtures/avif_ispe`` (frames
+    scaled to an ``ispe`` of another size, one refused and one past
+    libavif's limits) decodes to its manifest (``_read_avif_fixtures``),
+    the reads split into parse and tile decode (each frame's apart),
+    post-filters, the superres upscale, film grain, a grid's stitch, the
+    scaling and conversion (the median of 5; of 3 for the 3840x2160
+    files of the folders before ``avif_layers``, to keep the phase's
+    time).
     Then the CLI ``-t 80`` on the six class AVIFs and ``-q 60`` on the
     3840x2160 one of the first two folders, ``-q 60`` on the 3840x2160
     ``tune=iq`` frame with film grain, ``-t 80`` on the 512x512
     limited-range file with an ``irot``, ``-t 80`` on the 512x512 screen,
     ``-q 60`` on the 3840x2160 screen, ``-q 60`` on the 3840x2160 grid,
     ``-t 80`` on the 512x512 segmented sequence, ``-t 80`` on the 512x512
-    superres class, ``-q 60`` on the 3840x2160 superres frame and ``-t
-    80`` on the 512x512 ALT_LF, SKIP and ``delta_lf_multi`` frame: q,
+    superres class, ``-q 60`` on the 3840x2160 superres frame, ``-t
+    80`` on the 512x512 ALT_LF, SKIP and ``delta_lf_multi`` frame, ``-t
+    80`` on the 512x512 two-layer class and ``-q 60`` on the 3840x2160
+    two-layer frame: q,
     passes and bytes must be those of the CLI on the same
     pixels, written as PAM where they are 8-bit and handed over in memory
     where they are 16-bit (PAM holds 8 bits). Returns the kernels'
@@ -2790,8 +2823,12 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
             (AVIF_SUPERRES_DIR, [("class_mixed_d12_420.avif", ["-t", "80"]),
                                  ("photo4k_d16_420.avif", ["-q", "60"])]),
             (AVIF_LF_SEG_DIR, [("lf_seg512_420.avif", ["-t", "80"])]),
-            (AVIF_GAINMAP_DIR, [])):
-        loaded = _read_avif_fixtures(folder)
+            (AVIF_GAINMAP_DIR, []),
+            (AVIF_LAYERS_DIR, [("class_mixed_512.avif", ["-t", "80"]),
+                               ("photo4k_420.avif", ["-q", "60"])]),
+            (AVIF_ISPE_DIR, [])):
+        loaded = _read_avif_fixtures(
+            folder, 5 if folder == AVIF_LAYERS_DIR else 3)
         runs += [(os.path.join(folder, name), loaded[name], args)
                  for name, args in picks]
     with tempfile.TemporaryDirectory() as td:

@@ -184,10 +184,10 @@ def _build() -> Optional[C.CDLL]:
         ]
         lib.av1_decode_frame.restype = C.c_int
         lib.av1_decode_frame.argtypes = (
-            [C.c_void_p] * 12 + [C.c_void_p, C.c_int] + [C.c_void_p] * 7
+            [C.c_void_p] * 12 + [C.c_void_p, C.c_int] + [C.c_void_p] * 13
             + [C.c_char_p, C.c_int])
         lib.av1_postfilter.restype = C.c_int
-        lib.av1_postfilter.argtypes = [C.c_void_p, C.c_int] + [C.c_void_p] * 10
+        lib.av1_postfilter.argtypes = [C.c_void_p, C.c_int] + [C.c_void_p] * 12
         lib.av1_film_grain.restype = C.c_int
         lib.av1_film_grain.argtypes = [C.c_void_p, C.c_int] + [C.c_void_p] * 4
         return lib

@@ -1,8 +1,11 @@
-/* AV1 key-frame tile decoding for the port's AVIF reader
+/* AV1 tile decoding for the port's AVIF reader
  * (oavif_tpu_torch/io/avif.py).
  *
- * One call decodes every tile of one shown key frame whose headers the
- * Python side has parsed: the symbol decoder (spec 8.2), the partition
+ * One call decodes every tile of one frame whose headers the Python side
+ * has parsed, a shown key frame or an inter frame on reference frames of
+ * its size (their planes and sizes from io/av1_refs.py; the CDFs it
+ * starts from are the defaults or a reference's, and the call returns the
+ * context_update_tile_id tile's at its end): the symbol decoder (spec 8.2), the partition
  * and mode-info syntax of intra frames (spec 5.11), the coefficient
  * syntax (spec 5.11.39), the loop-restoration unit syntax (spec
  * 5.11.57-58), and the reconstruction: intra prediction (spec 7.11.2:
@@ -13,7 +16,15 @@
  * spatial neighbours (spec 7.10.2), the DV itself (spec 5.11.26, 5.11.32),
  * the var-tx tree (spec 5.11.17) and the inter transform sets with their
  * FLIPADST types, and the bilinear prediction from the frame decoded so far
- * (spec 7.11.3). The post-filters (deblocking, CDEF, loop restoration) and film
+ * (spec 7.11.3); and an inter frame's blocks (spec 5.11.18-5.11.33, 7.10.2,
+ * 7.11.3): intra blocks with y_mode by size group, single-reference inter
+ * blocks (read_ref_frames, the MV stack as dav1d scans it, NEWMV,
+ * NEARESTMV, NEARMV and GLOBALMV with their contexts and drl, read_mv in
+ * MV context 0 with the fraction and high-precision bits, the motion mode
+ * and inter-intra symbols, switchable and dual interpolation filters) and
+ * their prediction by the Subpel_Filters, sub-8x8 chroma from several
+ * blocks' MVs (compound blocks, OBMC, local warps, inter-intra and scaled
+ * references are refused by name). The post-filters (deblocking, CDEF, loop restoration) and film
  * grain run afterwards on the block records and restoration units this
  * call returns.
  *
@@ -68,7 +79,14 @@ enum {
     D_PAL_UV_CI2, D_PAL_UV_CI3, D_PAL_UV_CI4, D_PAL_UV_CI5, D_PAL_UV_CI6,
     D_PAL_UV_CI7, D_PAL_UV_CI8, D_INTRABC, D_MV_JOINTS, D_MV_SIGN,
     D_MV_CLASSES, D_MV_CLASS0, D_MV_BITS, D_TXFM_SPLIT, D_INTER_TX1,
-    D_INTER_TX2, D_INTER_TX3, D_SEGMENT_ID, D_DELTA_LF_MULTI, D_NCDF
+    D_INTER_TX2, D_INTER_TX3, D_SEGMENT_ID, D_DELTA_LF_MULTI,
+    /* inter frames: y_mode by size group, is_inter, comp_mode,
+     * single_ref_p1..p6, new_mv, zero_mv, ref_mv, drl_mode, interp_filter,
+     * motion_mode, use_obmc, interintra, and the MV CDFs of MvCtx 0 */
+    D_Y_MODE, D_IS_INTER, D_COMP_MODE, D_SINGLE_REF, D_NEW_MV, D_ZERO_MV,
+    D_REF_MV, D_DRL, D_INTERP, D_MOTION_MODE, D_OBMC, D_INTERINTRA,
+    D_MV0_JOINTS, D_MV0_SIGN, D_MV0_CLASSES, D_MV0_CLASS0, D_MV0_BITS,
+    D_MV0_CLASS0_FR, D_MV0_FR, D_MV0_CLASS0_HP, D_MV0_HP, D_NCDF
 };
 
 #include "av1_header.h"
@@ -78,6 +96,10 @@ enum {
     D203_PRED, D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED,
     PAETH_PRED, UV_CFL_PRED
 };
+enum { NEARESTMV = 13, NEARMV = 14, GLOBALMV = 15, NEWMV = 16 };
+enum { INTRA_FRAME = 0, LAST_FRAME = 1, GOLDEN_FRAME = 4, BWDREF_FRAME = 5,
+       ALTREF_FRAME = 7 };
+enum { REF_CAT_LEVEL = 640 };
 enum { TX_ONLY_4X4 = 0, TX_MODE_LARGEST = 1, TX_MODE_SELECT = 2 };
 enum {
     DCT_DCT = 0, ADST_DCT = 1, DCT_ADST = 2, ADST_ADST = 3, FLIPADST_DCT = 4,
@@ -88,6 +110,9 @@ enum {
 enum { SET_DCTONLY = 0, SET_INTRA_1 = 1, SET_INTRA_2 = 2 };
 enum { SET_INTER_1 = 1, SET_INTER_2 = 2, SET_INTER_3 = 3 };
 
+/* Size_Group of each block size */
+static const int SIZE_GROUP[22] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3,
+                                   3, 3, 3, 3, 3, 0, 0, 1, 1, 2, 2};
 static const int MODE_TO_ANGLE[9] = {0, 90, 180, 45, 135, 113, 157, 203, 67};
 static const int INTRA_MODE_CONTEXT[13] = {0, 1, 2, 3, 4, 4, 4, 4, 3,
                                            0, 1, 2, 0};
@@ -216,8 +241,25 @@ typedef struct {
     int lr_rstride, lr_cstride;
     int32_t *lr_out;
     int lr_ref[3][2][3], lr_sgr_ref[3][2];
+    /* an inter frame: its header fields (H_FRAME_TYPE..), the reference
+     * frames' planes (after the post-filters), strides and sizes by
+     * reference frame 1..7, the Subpel_Filters [6][16][8], and per mi
+     * RefFrames[0] (0 intra), whether the block's mode was NEWMV, its
+     * filters (y | x << 2) and what deblocking reads (mi_lf: RefFrame * 2
+     * + the mode delta's index, | 16 for a skipped inter block) */
+    int frame_type, allow_hp, force_int_mv, interp_filter, motion_switchable;
+    int use_ref_mvs, reference_select, allow_warped, dual_filter, interintra_on;
+    int sign_bias, lf_delta_enabled, lf_ref_deltas[8], lf_mode_deltas[2];
+    int seg_ref_mask, seg_ref_frames, seg_gmv_mask;
+    const int32_t *ref_plane[8][3];
+    int ref_stride[8], ref_w[8], ref_h[8];
+    const int16_t *subpel;
+    int8_t *mi_ref;
+    uint8_t *mi_newmv, *mi_filt, *mi_lf;
     /* tool counters (T_*) */
     int32_t *count;
+    int lf_on;         /* a luma loop filter level is not 0 */
+    uint8_t *mi_bsz;   /* log2 w4 | log2 h4 << 4 of each mi's block */
     /* error */
     int err;
     char *msg; int msglen;
@@ -238,7 +280,8 @@ typedef struct {
     uint8_t cmap_uv[64 * 64];
     int txwl, txhl; /* luma tx log2 width/height in px */
     int max_luma_w, max_luma_h;
-    int is_inter, mv[2]; /* use_intrabc and its DV (row, col) */
+    int is_inter, mv[2]; /* use_intrabc (or an inter block) and its MV */
+    int ref, mode, filt[2]; /* RefFrame[0], YMode, interp_filter (y, x) */
     uint8_t txtypes[32][32]; /* TxTypes of the block's luma 4x4s */
 } Blk;
 
@@ -1616,75 +1659,12 @@ static void read_deltas(Dec *d, Blk *b) {
     }
 }
 
-/* ---- intra block copy (spec 5.11.26, 5.11.32, 7.10.2, 7.11.3) ----------- */
+/* ---- MV stacks and intra block copy (spec 5.11.26, 5.11.32, 7.10.2) ---- */
 
 typedef struct { int mv[2], weight; } MvCand;
 
-/* spec add_ref_mv_candidate and search_stack for an intrabc block: the
- * neighbour's DV (lowered to whole pixels, force_integer_mv) joins the
- * stack or adds its weight */
-static void add_dv_cand(Dec *d, MvCand *st, int *n, int r, int c, int weight) {
-    int m = mi_at(d, r, c);
-    if (!d->mi_inter[m]) return;
-    int mv[2];
-    for (int i = 0; i < 2; i++) {
-        int v = d->mi_mv[2 * m + i], a = (abs(v) + 3) >> 3;
-        mv[i] = v > 0 ? a << 3 : -(a << 3);
-    }
-    for (int k = 0; k < *n; k++)
-        if (st[k].mv[0] == mv[0] && st[k].mv[1] == mv[1]) {
-            st[k].weight += weight;
-            return;
-        }
-    if (*n < 8) {
-        st[*n].mv[0] = mv[0];
-        st[*n].mv[1] = mv[1];
-        st[*n].weight = weight;
-        (*n)++;
-    }
-}
-
-/* one row of neighbours from (row, col), bw4 wide, w4 of it scanned: a
- * neighbour at least as wide as the block counts for the rows it spans (up
- * to max_rows pairs); returns the pairs of rows covered */
-static int dv_scan_row(Dec *d, MvCand *st, int *n, int row, int col, int bw4, int w4,
-                       int max_rows, int step) {
-    int m = mi_at(d, row, col);
-    int cw = 1 << d->mi_wl[m];
-    int len = imax(step, imin(bw4, cw));
-    if (bw4 <= cw) {
-        int weight = bw4 == 1 ? 2 : imax(2, imin(2 * max_rows, 1 << d->mi_hl[m]));
-        add_dv_cand(d, st, n, row, col, len * weight);
-        return weight >> 1;
-    }
-    for (int x = 0;;) {
-        add_dv_cand(d, st, n, row, col + x, len * 2);
-        x += len;
-        if (x >= w4 || col + x >= d->c1) return 1;
-        len = imax(step, 1 << d->mi_wl[mi_at(d, row, col + x)]);
-    }
-}
-
-static int dv_scan_col(Dec *d, MvCand *st, int *n, int row, int col, int bh4, int h4,
-                       int max_cols, int step) {
-    int m = mi_at(d, row, col);
-    int ch = 1 << d->mi_hl[m];
-    int len = imax(step, imin(bh4, ch));
-    if (bh4 <= ch) {
-        int weight = bh4 == 1 ? 2 : imax(2, imin(2 * max_cols, 1 << d->mi_wl[m]));
-        add_dv_cand(d, st, n, row, col, len * weight);
-        return weight >> 1;
-    }
-    for (int y = 0;;) {
-        add_dv_cand(d, st, n, row + y, col, len * 2);
-        y += len;
-        if (y >= h4 || row + y >= d->r1) return 1;
-        len = imax(step, 1 << d->mi_hl[mi_at(d, row + y, col)]);
-    }
-}
-
 /* spec sorting: a stable bubble sort by weight, descending */
-static void sort_dv_stack(MvCand *st, int start, int end) {
+static void sort_mv_stack(MvCand *st, int start, int end) {
     while (end > start) {
         int last = start;
         for (int k = start + 1; k < end; k++)
@@ -1698,68 +1678,216 @@ static void sort_dv_stack(MvCand *st, int start, int end) {
     }
 }
 
-static int read_mv_component(Dec *d, int comp) {
-    int sign = read_symbol(d, d->cdf[D_MV_SIGN] + (size_t)comp * 3, 2);
-    int cls = read_symbol(d, d->cdf[D_MV_CLASSES] + (size_t)comp * 12, 11);
-    int mag;
-    if (cls == 0) {
-        /* MV_CLASS_0: one integer bit; an integer MV reads no fraction
-         * (mv_fr 3) and no high-precision bit (mv_hp 1) */
-        mag = ((read_symbol(d, d->cdf[D_MV_CLASS0] + (size_t)comp * 3, 2) << 3) | 7) + 1;
-    } else {
-        int bits = 0;
-        for (int i = 0; i < cls; i++)
-            bits |= read_symbol(d, d->cdf[D_MV_BITS] + ((size_t)comp * 10 + i) * 3, 2) << i;
-        mag = (2 << (cls + 2)) + ((bits << 3) | 7) + 1;
+/* spec lower_mv_precision */
+static void lower_mv(const Dec *d, int *mv) {
+    if (d->allow_hp) return;
+    for (int i = 0; i < 2; i++) {
+        if (d->force_int_mv) {
+            int a = (abs(mv[i]) + 3) >> 3;
+            mv[i] = mv[i] > 0 ? a << 3 : -(a << 3);
+        } else if (mv[i] & 1) {
+            mv[i] += mv[i] > 0 ? -1 : 1;
+        }
     }
-    return sign ? -mag : mag;
 }
 
-/* find_mv_stack(0) for RefFrame INTRA_FRAME, as libaom and dav1d scan it
- * (the spec's row, column and point scans with their weights): no
- * temporal candidates and no extra search (which takes only references
- * past INTRA_FRAME); then assign_mv: PredMv from the stack or the default
- * DV, plus read_mv in MV_INTRABC_CONTEXT */
-static void intrabc_dv(Dec *d, Blk *b) {
+/* add_spatial_candidate (dav1d's refmvs.c, spec add_ref_mv_candidate): a
+ * neighbour of the same single reference joins the stack or adds its
+ * weight; it counts as a match, and as a NEWMV match where its mode was */
+static void add_spatial(Dec *d, MvCand *st, int *n, int r, int c, int ref, int weight,
+                        int *newmv_match, int *ref_match) {
+    int m = mi_at(d, r, c);
+    if (!d->mi_inter[m] || d->mi_ref[m] != ref) return;
+    *ref_match = 1;
+    *newmv_match |= d->mi_newmv[m];
+    int mv[2] = {d->mi_mv[2 * m], d->mi_mv[2 * m + 1]};
+    lower_mv(d, mv);
+    for (int k = 0; k < *n; k++)
+        if (st[k].mv[0] == mv[0] && st[k].mv[1] == mv[1]) {
+            st[k].weight += weight;
+            return;
+        }
+    if (*n < 8) {
+        st[*n].mv[0] = mv[0];
+        st[*n].mv[1] = mv[1];
+        st[*n].weight = weight;
+        (*n)++;
+    }
+}
+
+/* one row of neighbours from (row, col), bw4 wide, w4 of it scanned, as
+ * dav1d's scan_row: a neighbour at least as wide as the block counts for
+ * the rows it spans (up to max_rows pairs); returns the pairs of rows
+ * covered (mv_scan_col likewise down a column) */
+static int mv_scan_row(Dec *d, MvCand *st, int *n, int ref, int row, int col, int bw4,
+                       int w4, int max_rows, int step, int *nm, int *rm) {
+    int m = mi_at(d, row, col);
+    int cw = 1 << d->mi_wl[m];
+    int len = imax(step, imin(bw4, cw));
+    if (bw4 <= cw) {
+        int weight = bw4 == 1 ? 2 : imax(2, imin(2 * max_rows, 1 << d->mi_hl[m]));
+        add_spatial(d, st, n, row, col, ref, len * weight, nm, rm);
+        return weight >> 1;
+    }
+    for (int x = 0;;) {
+        add_spatial(d, st, n, row, col + x, ref, len * 2, nm, rm);
+        x += len;
+        if (x >= w4 || col + x >= d->c1) return 1;
+        len = imax(step, 1 << d->mi_wl[mi_at(d, row, col + x)]);
+    }
+}
+
+static int mv_scan_col(Dec *d, MvCand *st, int *n, int ref, int row, int col, int bh4,
+                       int h4, int max_cols, int step, int *nm, int *cm) {
+    int m = mi_at(d, row, col);
+    int ch = 1 << d->mi_hl[m];
+    int len = imax(step, imin(bh4, ch));
+    if (bh4 <= ch) {
+        int weight = bh4 == 1 ? 2 : imax(2, imin(2 * max_cols, 1 << d->mi_wl[m]));
+        add_spatial(d, st, n, row, col, ref, len * weight, nm, cm);
+        return weight >> 1;
+    }
+    for (int y = 0;;) {
+        add_spatial(d, st, n, row + y, col, ref, len * 2, nm, cm);
+        y += len;
+        if (y >= h4 || row + y >= d->r1) return 1;
+        len = imax(step, 1 << d->mi_hl[mi_at(d, row + y, col)]);
+    }
+}
+
+/* spec add_extra_mv_candidate for a single reference: a neighbour's MV of
+ * any reference, negated where its sign bias differs */
+static void add_extended(Dec *d, MvCand *st, int *n, int m, int ref) {
+    int cref = d->mi_ref[m];
+    if (!d->mi_inter[m] || cref <= INTRA_FRAME) return;
+    int mv[2] = {d->mi_mv[2 * m], d->mi_mv[2 * m + 1]};
+    if ((d->sign_bias >> cref & 1) != (d->sign_bias >> ref & 1)) {
+        mv[0] = -mv[0];
+        mv[1] = -mv[1];
+    }
+    for (int k = 0; k < *n; k++)
+        if (st[k].mv[0] == mv[0] && st[k].mv[1] == mv[1]) return;
+    st[*n].mv[0] = mv[0];
+    st[*n].mv[1] = mv[1];
+    st[*n].weight = 2;
+    (*n)++;
+}
+
+/* find_mv_stack(0) for a single reference, as dav1d scans it: the
+ * spatial rows, columns and points with their weights, no temporal
+ * candidates (a key frame reference projects none: ZeroMvContext is then
+ * use_ref_frame_mvs), the extra search, the sorting and the clamping;
+ * RefStackMv past NumMvFound takes the identity global MV (0). Returns
+ * NumMvFound; ctx gets NewMvContext | ZeroMvContext << 3 | RefMvContext << 4 */
+static int inter_mv_stack(Dec *d, Blk *b, int ref, MvCand *st, int *ctx) {
     int r = b->r, c = b->c, bw4 = 1 << b->wl, bh4 = 1 << b->hl;
     int w4 = imin(imin(bw4, 16), d->c1 - c), h4 = imin(imin(bh4, 16), d->r1 - r);
     enum { NONE = 1 << 20 };
-    MvCand st[8];
     int n = 0, max_rows = 0, max_cols = 0, n_rows = NONE, n_cols = NONE;
+    int newmv = 0, row_m = 0, col_m = 0, dummy = 0;
     if (r > d->r0) {
         max_rows = imin((r - d->r0 + 1) >> 1, 2 + (bh4 > 1));
-        n_rows = dv_scan_row(d, st, &n, r - 1, c, bw4, w4, max_rows, bw4 >= 16 ? 4 : 1);
+        n_rows = mv_scan_row(d, st, &n, ref, r - 1, c, bw4, w4, max_rows, bw4 >= 16 ? 4 : 1,
+                             &newmv, &row_m);
     }
     if (c > d->c0) {
         max_cols = imin((c - d->c0 + 1) >> 1, 2 + (bw4 > 1));
-        n_cols = dv_scan_col(d, st, &n, r, c - 1, bh4, h4, max_cols, bh4 >= 16 ? 4 : 1);
+        n_cols = mv_scan_col(d, st, &n, ref, r, c - 1, bh4, h4, max_cols, bh4 >= 16 ? 4 : 1,
+                             &newmv, &col_m);
     }
-    /* the top-right neighbour where it is decoded already */
     int sbmask = d->sb4 - 1;
     if (n_rows != NONE && imax(bw4, bh4) <= 16 && c + bw4 < d->c1 &&
         d->decoded[0][(r & sbmask) - 1 + 1][(c & sbmask) + bw4 + 1])
-        add_dv_cand(d, st, &n, r - 1, c + bw4, 4);
-    int nearest = n;
-    for (int k = 0; k < nearest; k++) st[k].weight += 640; /* REF_CAT_LEVEL */
-    if (n_rows != NONE && n_cols != NONE) add_dv_cand(d, st, &n, r - 1, c - 1, 4);
+        add_spatial(d, st, &n, r - 1, c + bw4, ref, 4, &newmv, &row_m);
+    int nearest_match = row_m + col_m, nearest = n;
+    for (int k = 0; k < nearest; k++) st[k].weight += REF_CAT_LEVEL;
+    int zero_ctx = d->use_ref_mvs;
+    if (n_rows != NONE && n_cols != NONE) add_spatial(d, st, &n, r - 1, c - 1, ref, 4, &dummy, &row_m);
     for (int k = 2; k <= 3; k++) {
         if (k > n_rows && k <= max_rows)
-            n_rows += dv_scan_row(d, st, &n, (r - 2 * k + 1) | 1, c | 1, bw4, w4,
-                                  1 + max_rows - k, bw4 >= 16 ? 4 : 2);
+            n_rows += mv_scan_row(d, st, &n, ref, (r - 2 * k + 1) | 1, c | 1, bw4, w4,
+                                  1 + max_rows - k, bw4 >= 16 ? 4 : 2, &dummy, &row_m);
         if (k > n_cols && k <= max_cols)
-            n_cols += dv_scan_col(d, st, &n, r | 1, (c - 2 * k + 1) | 1, bh4, h4,
-                                  1 + max_cols - k, bh4 >= 16 ? 4 : 2);
+            n_cols += mv_scan_col(d, st, &n, ref, r | 1, (c - 2 * k + 1) | 1, bh4, h4,
+                                  1 + max_cols - k, bh4 >= 16 ? 4 : 2, &dummy, &col_m);
     }
-    sort_dv_stack(st, 0, nearest);
-    sort_dv_stack(st, nearest, n);
-    /* context_and_clamping: MV_BORDER (16 px) plus the block's size past
-     * the frame's edges */
+    int ref_match = row_m + col_m, refmv_ctx, newmv_ctx;
+    if (nearest_match == 0) {
+        refmv_ctx = imin(2, ref_match);
+        newmv_ctx = ref_match > 0;
+    } else if (nearest_match == 1) {
+        refmv_ctx = imin(ref_match * 3, 4);
+        newmv_ctx = 3 - newmv;
+    } else {
+        refmv_ctx = 5;
+        newmv_ctx = 5 - newmv;
+    }
+    sort_mv_stack(st, 0, nearest);
+    sort_mv_stack(st, nearest, n);
+    if (n < 2) {
+        int sz4 = imin(w4, h4);
+        if (n_rows != NONE)
+            for (int x = 0; x < sz4 && n < 2;) {
+                int m = mi_at(d, r - 1, c + x);
+                add_extended(d, st, &n, m, ref);
+                x += 1 << d->mi_wl[m];
+            }
+        if (n_cols != NONE)
+            for (int y = 0; y < sz4 && n < 2;) {
+                int m = mi_at(d, r + y, c - 1);
+                add_extended(d, st, &n, m, ref);
+                y += 1 << d->mi_hl[m];
+            }
+    }
     int top = -(r * 32) - (128 + bh4 * 32), bottom = (d->mi_rows - r) * 32 + 128;
     int left = -(c * 32) - (128 + bw4 * 32), right = (d->mi_cols - c) * 32 + 128;
     for (int k = 0; k < n; k++) {
         st[k].mv[0] = (int)clip64(st[k].mv[0], top, bottom);
         st[k].mv[1] = (int)clip64(st[k].mv[1], left, right);
     }
+    for (int k = n; k < 2; k++) st[k].mv[0] = st[k].mv[1] = 0;
+    *ctx = newmv_ctx | zero_ctx << 3 | refmv_ctx << 4;
+    return n;
+}
+
+static int drl_ctx(const MvCand *st, int idx) {
+    if (st[idx].weight >= REF_CAT_LEVEL) return st[idx + 1].weight < REF_CAT_LEVEL;
+    return st[idx + 1].weight < REF_CAT_LEVEL ? 2 : 0;
+}
+
+/* read_mv_component in MvCtx 0 (``inter``) or intrabc's
+ * MV_INTRABC_CONTEXT (the D_MV_* CDFs, whose DV is an integer): an
+ * integer MV reads no fraction (mv_fr 3), one without high precision no
+ * hp bit (mv_hp 1) */
+static int read_mv_comp(Dec *d, int comp, int inter) {
+    int sign = read_symbol(d, d->cdf[inter ? D_MV0_SIGN : D_MV_SIGN] + (size_t)comp * 3, 2);
+    int cls = read_symbol(d, d->cdf[inter ? D_MV0_CLASSES : D_MV_CLASSES] + (size_t)comp * 12, 11);
+    int integer = !inter || d->force_int_mv, hp = inter && d->allow_hp;
+    int mag, fr, hpb;
+    if (cls == 0) {
+        int bit = read_symbol(d, d->cdf[inter ? D_MV0_CLASS0 : D_MV_CLASS0] + (size_t)comp * 3, 2);
+        fr = integer ? 3 : read_symbol(d, d->cdf[D_MV0_CLASS0_FR] + ((size_t)comp * 2 + bit) * 5, 4);
+        hpb = hp ? read_symbol(d, d->cdf[D_MV0_CLASS0_HP] + (size_t)comp * 3, 2) : 1;
+        mag = ((bit << 3) | (fr << 1) | hpb) + 1;
+    } else {
+        int bits = 0;
+        for (int i = 0; i < cls; i++)
+            bits |= read_symbol(d, d->cdf[inter ? D_MV0_BITS : D_MV_BITS] + ((size_t)comp * 10 + i) * 3,
+                                2) << i;
+        fr = integer ? 3 : read_symbol(d, d->cdf[D_MV0_FR] + (size_t)comp * 5, 4);
+        hpb = hp ? read_symbol(d, d->cdf[D_MV0_HP] + (size_t)comp * 3, 2) : 1;
+        mag = (2 << (cls + 2)) + ((bits << 3) | (fr << 1) | hpb) + 1;
+    }
+    return sign ? -mag : mag;
+}
+
+/* find_mv_stack(0) for RefFrame INTRA_FRAME (inter_mv_stack, whose extra
+ * search adds nothing for it: only references past INTRA_FRAME), then
+ * assign_mv: PredMv from the stack or the default DV, plus read_mv in
+ * MV_INTRABC_CONTEXT */
+static void intrabc_dv(Dec *d, Blk *b) {
+    MvCand st[8];
+    int ctx, n = inter_mv_stack(d, b, INTRA_FRAME, st, &ctx);
     int pred[2] = {0, 0};
     for (int k = 0; k < imin(n, 2); k++)
         if (st[k].mv[0] || st[k].mv[1]) {
@@ -1770,13 +1898,13 @@ static void intrabc_dv(Dec *d, Blk *b) {
     if (!pred[0] && !pred[1]) {
         /* the default DV: a superblock (and the 256-pixel delay) to the
          * left in the tile's first superblock row, else one up */
-        if (r - d->sb4 < d->r0) pred[1] = -(d->sb4 * 4 + 256) * 8;
+        if (b->r - d->sb4 < d->r0) pred[1] = -(d->sb4 * 4 + 256) * 8;
         else pred[0] = -(d->sb4 * 4 * 8);
         d->count[T_INTRABC_DEFAULT_DV]++;
     }
     int joint = read_symbol(d, d->cdf[D_MV_JOINTS], 4);
-    b->mv[0] = pred[0] + ((joint == 2 || joint == 3) ? read_mv_component(d, 0) : 0);
-    b->mv[1] = pred[1] + ((joint == 1 || joint == 3) ? read_mv_component(d, 1) : 0);
+    b->mv[0] = pred[0] + ((joint == 2 || joint == 3) ? read_mv_comp(d, 0, 0) : 0);
+    b->mv[1] = pred[1] + ((joint == 1 || joint == 3) ? read_mv_comp(d, 1, 0) : 0);
 }
 
 /* spec 7.11.3 for an intrabc block: each plane's whole block from the
@@ -1820,7 +1948,10 @@ static void predict_intrabc(Dec *d, Blk *b) {
     }
 }
 
-static void intra_mode_info(Dec *d, Blk *b) {
+/* the start of intra_frame_mode_info and inter_frame_mode_info: the
+ * segment id (before or after skip), skip, the CDEF index, the deltas
+ * and the block's dequantizers */
+static void block_preamble(Dec *d, Blk *b) {
     int skip_ctx = 0;
     if (b->avail_u) skip_ctx += d->mi_skip[mi_at(d, b->r - 1, b->c)];
     if (b->avail_l) skip_ctx += d->mi_skip[mi_at(d, b->r, b->c - 1)];
@@ -1851,22 +1982,20 @@ static void intra_mode_info(Dec *d, Blk *b) {
         d->txq = get_qindex(d, 1, seg);
         if (d->seg_altq_mask >> seg & 1 && d->seg_altq[seg]) d->count[T_SEG_ALT_Q]++;
     }
-    b->is_inter = d->allow_intrabc && read_symbol(d, d->cdf[D_INTRABC], 2);
-    if (b->is_inter) {
-        /* as libaom's read_intrabc_info: DC_PRED for the kf_y context,
-         * the palette cache and get_filter_type of later blocks */
-        b->ymode = b->uvmode = DC_PRED;
-        b->angle_y = b->angle_uv = b->cfl_u = b->cfl_v = 0;
-        b->pal_n = b->pal_uv_n = b->use_fi = 0;
-        memset(b->txtypes, DCT_DCT, sizeof(b->txtypes));
-        intrabc_dv(d, b);
-        d->count[T_INTRABC]++;
-        return;
+}
+
+/* intra_frame_y_mode (the above and left modes' contexts, ``kf``) or
+ * y_mode (the block's size group), then the angles, the uv mode and
+ * CFL, the palettes and filter intra */
+static void intra_modes(Dec *d, Blk *b, int kf) {
+    if (kf) {
+        int am = b->avail_u ? d->mi_ymode[mi_at(d, b->r - 1, b->c)] : DC_PRED;
+        int lm = b->avail_l ? d->mi_ymode[mi_at(d, b->r, b->c - 1)] : DC_PRED;
+        b->ymode = read_symbol(d, d->cdf[D_KF_Y] + ((size_t)INTRA_MODE_CONTEXT[am] * 5 +
+                                                   INTRA_MODE_CONTEXT[lm]) * 14, 13);
+    } else {
+        b->ymode = read_symbol(d, d->cdf[D_Y_MODE] + (size_t)SIZE_GROUP[b->bsize] * 14, 13);
     }
-    int am = b->avail_u ? d->mi_ymode[mi_at(d, b->r - 1, b->c)] : DC_PRED;
-    int lm = b->avail_l ? d->mi_ymode[mi_at(d, b->r, b->c - 1)] : DC_PRED;
-    b->ymode = read_symbol(d, d->cdf[D_KF_Y] + ((size_t)INTRA_MODE_CONTEXT[am] * 5 +
-                                               INTRA_MODE_CONTEXT[lm]) * 14, 13);
     b->angle_y = 0;
     if (b->bsize >= 3 && b->ymode >= V_PRED && b->ymode <= D67_PRED)
         b->angle_y = read_symbol(d, d->cdf[D_ANGLE_DELTA] + (size_t)(b->ymode - V_PRED) * 8, 7) - 3;
@@ -1910,6 +2039,336 @@ static void intra_mode_info(Dec *d, Blk *b) {
     }
 }
 
+static void intra_mode_info(Dec *d, Blk *b) {
+    block_preamble(d, b);
+    b->ref = INTRA_FRAME;
+    b->mode = 0;
+    b->is_inter = d->allow_intrabc && read_symbol(d, d->cdf[D_INTRABC], 2);
+    if (b->is_inter) {
+        /* as libaom's read_intrabc_info: DC_PRED for the kf_y context,
+         * the palette cache and get_filter_type of later blocks */
+        b->ymode = b->uvmode = DC_PRED;
+        b->angle_y = b->angle_uv = b->cfl_u = b->cfl_v = 0;
+        b->pal_n = b->pal_uv_n = b->use_fi = 0;
+        memset(b->txtypes, DCT_DCT, sizeof(b->txtypes));
+        intrabc_dv(d, b);
+        d->count[T_INTRABC]++;
+        return;
+    }
+    intra_modes(d, b, 1);
+}
+
+/* ---- inter blocks (spec 5.11.18-5.11.33, 7.10.2, 7.11.3) ------------------ */
+
+static int seg_active(const Dec *d, int mask) {
+    return d->seg_enabled && (mask >> d->seg_id & 1);
+}
+
+/* how often the above and left blocks use reference frame rf */
+static int count_ref(const Dec *d, const Blk *b, int rf) {
+    int n = 0;
+    if (b->avail_u && d->mi_ref[mi_at(d, b->r - 1, b->c)] == rf) n++;
+    if (b->avail_l && d->mi_ref[mi_at(d, b->r, b->c - 1)] == rf) n++;
+    return n;
+}
+static int ref_count_ctx(int a, int b) { return a < b ? 0 : (a == b ? 1 : 2); }
+static int is_backward(int rf) { return rf >= BWDREF_FRAME && rf <= ALTREF_FRAME; }
+
+/* spec read_ref_frames for a single reference: the segment's, or
+ * comp_mode (a compound block is refused) and the single_ref tree */
+static int read_ref_frame(Dec *d, Blk *b) {
+    if (seg_active(d, d->seg_ref_mask)) return (d->seg_ref_frames >> (3 * d->seg_id)) & 7;
+    if (seg_active(d, d->seg_skip_mask) || seg_active(d, d->seg_gmv_mask)) return LAST_FRAME;
+    if (d->reference_select && imin(b->wl, b->hl) >= 1) {
+        int ar = b->avail_u ? d->mi_ref[mi_at(d, b->r - 1, b->c)] : INTRA_FRAME;
+        int lr = b->avail_l ? d->mi_ref[mi_at(d, b->r, b->c - 1)] : INTRA_FRAME;
+        int ctx;
+        if (b->avail_u && b->avail_l) ctx = is_backward(ar) ^ is_backward(lr);
+        else if (b->avail_u) ctx = is_backward(ar);
+        else if (b->avail_l) ctx = is_backward(lr);
+        else ctx = 1;
+        if (read_symbol(d, d->cdf[D_COMP_MODE] + (size_t)ctx * 3, 2)) {
+            fail(d, AV1D_UNSUPPORTED, "AV1: %s is not supported", "a compound block");
+            return LAST_FRAME;
+        }
+    }
+    int c[8];
+    for (int rf = 1; rf < 8; rf++) c[rf] = count_ref(d, b, rf);
+#define SREF(p, ctx) read_symbol(d, d->cdf[D_SINGLE_REF] + ((size_t)(ctx) * 6 + (p) - 1) * 3, 2)
+    if (SREF(1, ref_count_ctx(c[1] + c[2] + c[3] + c[4], c[5] + c[6] + c[7]))) {
+        if (SREF(2, ref_count_ctx(c[5] + c[6], c[7]))) return ALTREF_FRAME;
+        return SREF(6, ref_count_ctx(c[5], c[6])) ? 6 : BWDREF_FRAME;
+    }
+    if (SREF(3, ref_count_ctx(c[1] + c[2], c[3] + c[4])))
+        return SREF(5, ref_count_ctx(c[3], c[4])) ? GOLDEN_FRAME : 3;
+    return SREF(4, ref_count_ctx(c[1], c[2])) ? 2 : LAST_FRAME;
+#undef SREF
+}
+
+/* spec has_overlappable_candidates */
+static int overlappable(const Dec *d, const Blk *b) {
+    if (b->avail_u)
+        for (int x = b->c; x < imin(d->mi_cols, b->c + (1 << b->wl)); x += 2)
+            if (d->mi_ref[mi_at(d, b->r - 1, imin(x | 1, d->mi_cols - 1))] > INTRA_FRAME) return 1;
+    if (b->avail_l)
+        for (int y = b->r; y < imin(d->mi_rows, b->r + (1 << b->hl)); y += 2)
+            if (d->mi_ref[mi_at(d, imin(y | 1, d->mi_rows - 1), b->c - 1)] > INTRA_FRAME) return 1;
+    return 0;
+}
+
+/* spec find_warp_samples as far as read_motion_mode needs it: whether
+ * NumSamples is non-zero, i.e. whether any position it scans holds a
+ * decoded block of the same single reference (an invalid first sample
+ * still counts) */
+static int warp_samples(Dec *d, const Blk *b) {
+    int w4 = 1 << b->wl, h4 = 1 << b->hl, r = b->r, c = b->c;
+    int top_left = 1, top_right = 1, any = 0;
+#define SAMPLE(rr, cc) do { \
+        int r_ = (rr), c_ = (cc); \
+        if (is_inside(d, r_, c_) && d->mi_ref[mi_at(d, r_, c_)] == b->ref) any = 1; \
+    } while (0)
+    if (b->avail_u) {
+        int sw = 1 << d->mi_wl[mi_at(d, r - 1, c)];
+        if (w4 <= sw) {
+            int off = -(c & (sw - 1));
+            if (off < 0) top_left = 0;
+            if (off + sw > w4) top_right = 0;
+            SAMPLE(r - 1, c);
+        } else {
+            for (int i = 0, step; i < imin(w4, d->mi_cols - c); i += step) {
+                step = imax(1 << d->mi_wl[mi_at(d, r - 1, c + i)], 2);
+                SAMPLE(r - 1, c + i);
+            }
+        }
+    }
+    if (b->avail_l) {
+        int sh = 1 << d->mi_hl[mi_at(d, r, c - 1)];
+        if (h4 <= sh) {
+            if (-(r & (sh - 1)) < 0) top_left = 0;
+            SAMPLE(r, c - 1);
+        } else {
+            for (int i = 0, step; i < imin(h4, d->mi_rows - r); i += step) {
+                step = imax(1 << d->mi_hl[mi_at(d, r + i, c - 1)], 2);
+                SAMPLE(r + i, c - 1);
+            }
+        }
+    }
+    if (top_left) SAMPLE(r - 1, c - 1);
+    int sbmask = d->sb4 - 1;
+    if (top_right && imax(w4, h4) <= 16 && is_inside(d, r - 1, c + w4) &&
+        d->decoded[0][(r & sbmask) - 1 + 1][(c & sbmask) + w4 + 1])
+        SAMPLE(r - 1, c + w4);
+#undef SAMPLE
+    return any;
+}
+
+static int interp_ctx(const Dec *d, const Blk *b, int dir) {
+    int ctx = (dir & 1) * 2 * 4, left = 3, above = 3;
+    if (b->avail_l) {
+        int m = mi_at(d, b->r, b->c - 1);
+        if (d->mi_ref[m] == b->ref) left = (d->mi_filt[m] >> (2 * dir)) & 3;
+    }
+    if (b->avail_u) {
+        int m = mi_at(d, b->r - 1, b->c);
+        if (d->mi_ref[m] == b->ref) above = (d->mi_filt[m] >> (2 * dir)) & 3;
+    }
+    if (left == above) return ctx + left;
+    if (left == 3) return ctx + above;
+    if (above == 3) return ctx + left;
+    return ctx + 3;
+}
+
+/* inter_block_mode_info for a single reference */
+static void inter_block_mode_info(Dec *d, Blk *b) {
+    b->ref = read_ref_frame(d, b);
+    if (d->err) return;
+    MvCand st[8];
+    int ctx, n = inter_mv_stack(d, b, b->ref, st, &ctx);
+    if (seg_active(d, d->seg_skip_mask) || seg_active(d, d->seg_gmv_mask)) b->mode = GLOBALMV;
+    else if (!read_symbol(d, d->cdf[D_NEW_MV] + (size_t)(ctx & 7) * 3, 2)) b->mode = NEWMV;
+    else if (!read_symbol(d, d->cdf[D_ZERO_MV] + (size_t)((ctx >> 3) & 1) * 3, 2)) b->mode = GLOBALMV;
+    else b->mode = read_symbol(d, d->cdf[D_REF_MV] + (size_t)(ctx >> 4) * 3, 2) ? NEARMV : NEARESTMV;
+    int idx = 0;
+    if (b->mode == NEWMV || b->mode == NEARMV) {
+        int first = b->mode == NEARMV;
+        idx = first;
+        for (int i = first; i < first + 2; i++) {
+            if (n <= i + 1) break;
+            if (!read_symbol(d, d->cdf[D_DRL] + (size_t)drl_ctx(st, i) * 3, 2)) {
+                idx = i;
+                break;
+            }
+            idx = i + 1;
+        }
+        if (idx > first) d->count[T_DRL]++;
+    }
+    d->count[b->mode == NEWMV ? T_NEWMV : T_NEARESTMV + b->mode - NEARESTMV]++;
+    int pred[2] = {0, 0};
+    if (b->mode != GLOBALMV) {
+        int pos = b->mode == NEARESTMV ? 0 : idx;
+        pred[0] = st[pos].mv[0];
+        pred[1] = st[pos].mv[1];
+    }
+    b->mv[0] = pred[0];
+    b->mv[1] = pred[1];
+    if (b->mode == NEWMV) {
+        int joint = read_symbol(d, d->cdf[D_MV0_JOINTS], 4);
+        if (joint == 2 || joint == 3) b->mv[0] += read_mv_comp(d, 0, 1);
+        if (joint == 1 || joint == 3) b->mv[1] += read_mv_comp(d, 1, 1);
+    }
+    if ((b->mv[0] | b->mv[1]) & 7) d->count[T_SUBPEL_MV]++;
+    if (d->interintra_on && b->bsize >= 3 && b->bsize <= 9 &&
+        read_symbol(d, d->cdf[D_INTERINTRA] + (size_t)(SIZE_GROUP[b->bsize] - 1) * 3, 2)) {
+        fail(d, AV1D_UNSUPPORTED, "AV1: %s is not supported", "inter-intra prediction");
+        return;
+    }
+    if (d->motion_switchable && imin(b->wl, b->hl) >= 1 && overlappable(d, b)) {
+        int mm;
+        if (d->force_int_mv || !d->allow_warped || !warp_samples(d, b))
+            mm = read_symbol(d, d->cdf[D_OBMC] + (size_t)b->bsize * 3, 2);
+        else
+            mm = read_symbol(d, d->cdf[D_MOTION_MODE] + (size_t)b->bsize * 4, 3);
+        if (mm) {
+            fail(d, AV1D_UNSUPPORTED, "AV1: %s is not supported",
+                 mm == 1 ? "OBMC (overlapped block motion compensation)"
+                         : "LOCALWARP (local warped motion)");
+            return;
+        }
+    }
+    if (d->interp_filter == 4) {
+        int need = !(imin(b->wl, b->hl) >= 1 && b->mode == GLOBALMV);
+        for (int dir = 0; dir < (d->dual_filter ? 2 : 1); dir++)
+            b->filt[dir] = need ? read_symbol(d, d->cdf[D_INTERP] + (size_t)interp_ctx(d, b, dir) * 4, 3)
+                                : 0;
+        if (!d->dual_filter) b->filt[1] = b->filt[0];
+    } else {
+        b->filt[0] = b->filt[1] = d->interp_filter;
+    }
+    d->count[T_FILTER_REGULAR + b->filt[0]]++;
+    if (b->filt[1] != b->filt[0]) {
+        d->count[T_FILTER_REGULAR + b->filt[1]]++;
+        d->count[T_DUAL_FILTER]++;
+    }
+}
+
+/* inter_frame_mode_info: intra blocks read their y mode by size group */
+static void inter_frame_mode_info(Dec *d, Blk *b) {
+    block_preamble(d, b);
+    if (d->err) return;
+    int is_inter;
+    if (seg_active(d, d->seg_ref_mask)) {
+        is_inter = ((d->seg_ref_frames >> (3 * d->seg_id)) & 7) != INTRA_FRAME;
+    } else if (seg_active(d, d->seg_gmv_mask)) {
+        is_inter = 1;
+    } else {
+        int ai = !b->avail_u || d->mi_ref[mi_at(d, b->r - 1, b->c)] <= INTRA_FRAME;
+        int li = !b->avail_l || d->mi_ref[mi_at(d, b->r, b->c - 1)] <= INTRA_FRAME;
+        int ctx;
+        if (b->avail_u && b->avail_l) ctx = (li && ai) ? 3 : (li || ai);
+        else if (b->avail_u || b->avail_l) ctx = 2 * (b->avail_u ? ai : li);
+        else ctx = 0;
+        is_inter = read_symbol(d, d->cdf[D_IS_INTER] + (size_t)ctx * 3, 2);
+    }
+    b->is_inter = is_inter;
+    if (!is_inter) {
+        b->ref = INTRA_FRAME;
+        b->mode = 0;
+        intra_modes(d, b, 0);
+        d->count[T_INTRA_IN_INTER]++;
+        return;
+    }
+    b->ymode = b->uvmode = DC_PRED;
+    b->angle_y = b->angle_uv = b->cfl_u = b->cfl_v = 0;
+    b->pal_n = b->pal_uv_n = b->use_fi = 0;
+    memset(b->txtypes, DCT_DCT, sizeof(b->txtypes));
+    inter_block_mode_info(d, b);
+}
+
+/* block inter prediction (spec 7.11.3.3-4) of one w x h part of a plane
+ * at (x, y) with the MV, reference and filters of the block at mi (cr,
+ * cc): a reference of the frame's size, Subpel_Filters in 1/16 sample
+ * (the 4-tap rows for a side of 4 or less), InterRound0 then InterRound1,
+ * the reference's samples clamped at its edges */
+static void predict_part(Dec *d, int plane, int x, int y, int w, int h, int cr, int cc) {
+    int m = mi_at(d, cr, cc);
+    int ref = d->mi_ref[m];
+    if (ref <= INTRA_FRAME || !d->ref_plane[ref][0]) {
+        fail(d, AV1D_CORRUPT, "AV1: %s", "an inter block without its reference frame");
+        return;
+    }
+    if (d->ref_w[ref] != d->width || d->ref_h[ref] != d->height) {
+        fail(d, AV1D_UNSUPPORTED, "AV1: %s is not supported",
+             "a reference frame of another size (scaled prediction)");
+        return;
+    }
+    int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
+    const int32_t *src = d->ref_plane[ref][plane];
+    int rs = d->ref_stride[ref];
+    int fy = d->mi_filt[m] & 3, fx = (d->mi_filt[m] >> 2) & 3;
+    if (w <= 4) fx = fx == 1 ? 5 : (fx == 3 ? 3 : 4);
+    if (h <= 4) fy = fy == 1 ? 5 : (fy == 3 ? 3 : 4);
+    int x16 = (x << 4) + ((2 * d->mi_mv[2 * m + 1]) >> sx);
+    int y16 = (y << 4) + ((2 * d->mi_mv[2 * m]) >> sy);
+    const int16_t *FX = d->subpel + ((size_t)fx * 16 + (x16 & 15)) * 8;
+    const int16_t *FY = d->subpel + ((size_t)fy * 16 + (y16 & 15)) * 8;
+    int x0 = (x16 >> 4) - 3, y0 = (y16 >> 4) - 3;
+    int lastx = ((d->ref_w[ref] + sx) >> sx) - 1, lasty = ((d->ref_h[ref] + sy) >> sy) - 1;
+    int round0 = d->bd == 12 ? 5 : 3, round1 = d->bd == 12 ? 9 : 11;
+    int maxv = (1 << d->bd) - 1;
+    static _Thread_local int32_t mid[(128 + 7) * 128];
+    int cols[128 + 7];
+    for (int j = 0; j < w + 7; j++) cols[j] = imin(imax(x0 + j, 0), lastx);
+    for (int i = 0; i < h + 7; i++) {
+        const int32_t *row = src + (size_t)imin(imax(y0 + i, 0), lasty) * rs;
+        for (int j = 0; j < w; j++) {
+            int64_t s = 0;
+            for (int t = 0; t < 8; t++) s += (int64_t)FX[t] * row[cols[j + t]];
+            mid[i * w + j] = (int32_t)rnd2(s, round0);
+        }
+    }
+    for (int i = 0; i < h; i++) {
+        int32_t *out = px(d, plane, y + i, x);
+        for (int j = 0; j < w; j++) {
+            int64_t s = 0;
+            for (int t = 0; t < 8; t++) s += (int64_t)FY[t] * mid[(i + t) * w + j];
+            out[j] = (int32_t)clip64(rnd2(s, round1), 0, maxv);
+        }
+    }
+}
+
+/* spec 7.11.3.1 for an inter block: each plane's block at the block's MV;
+ * the chroma of a block narrower or shorter than 8 in a subsampled
+ * direction covers the blocks before it, each part predicted with its own
+ * block's MV, reference and filters, unless one of them is intra
+ * (someUseIntra) */
+static void predict_inter(Dec *d, Blk *b) {
+    for (int plane = 0; plane < (b->has_chroma ? d->nplanes : 1) && !d->err; plane++) {
+        int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
+        int wl4, hl4;
+        plane_block(d, b, plane, &wl4, &hl4);
+        int pw = 4 << wl4, ph = 4 << hl4;
+        int bx = (b->c >> sx) * 4, by = (b->r >> sy) * 4;
+        int cr = (b->r >> sy) << sy, cc = (b->c >> sx) << sx;
+        int predw = (4 << b->wl) >> sx, predh = (4 << b->hl) >> sy;
+        int intra = 0;
+        for (int i = 0; i < ((ph >> 2) << sy); i++)
+            for (int j = 0; j < ((pw >> 2) << sx); j++)
+                if (d->mi_ref[mi_at(d, imin(cr + i, d->mi_rows - 1), imin(cc + j, d->mi_cols - 1))] ==
+                    INTRA_FRAME)
+                    intra = 1;
+        if (intra) {
+            predw = pw;
+            predh = ph;
+            cr = b->r;
+            cc = b->c;
+        }
+        if (plane == 1 && (predw < pw || predh < ph)) d->count[T_SUB8X8_CHROMA_MVS]++;
+        for (int y = 0, i = 0; y < ph; y += predh, i++)
+            for (int x = 0, j = 0; x < pw; x += predw, j++)
+                predict_part(d, plane, bx + x, by + y, predw, predh, cr + i, cc + j);
+    }
+}
+
 static void decode_block(Dec *d, int r, int c, int wl, int hl) {
     Blk blk;
     Blk *b = &blk;
@@ -1934,7 +2393,8 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
         b->avail_uc = (d->ssy && h4 == 1) ? is_inside(d, r - 2, c) : b->avail_u;
         b->avail_lc = (d->ssx && w4 == 1) ? is_inside(d, r, c - 2) : b->avail_l;
     }
-    intra_mode_info(d, b);
+    if (d->frame_type) inter_frame_mode_info(d, b);
+    else intra_mode_info(d, b);
     if (d->err) return;
     palette_tokens(d, b);
     if (d->err) return;
@@ -1951,6 +2411,15 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
             memset(d->left_dc[p] + l0, 0, (size_t)(l1 - l0));
         }
     int uvm = b->has_chroma ? b->uvmode : DC_PRED;
+    int ref = b->is_inter ? b->ref : INTRA_FRAME;
+    /* deblocking's RefFrame and mode delta (spec 7.14.4), and whether
+     * transform edges inside the block are left alone (skip && is_inter) */
+    int mode_type = ref > INTRA_FRAME && b->mode != GLOBALMV;
+    uint8_t lf = (uint8_t)(ref * 2 + mode_type + ((b->skip && b->is_inter) << 4));
+    if (ref > INTRA_FRAME && d->lf_delta_enabled && d->lf_on) {
+        if (d->lf_ref_deltas[ref]) d->count[T_LF_REF_DELTA]++;
+        if (d->lf_mode_deltas[mode_type]) d->count[T_LF_MODE_DELTA]++;
+    }
     for (int y = 0; y < h4 && r + y < d->mi_rows; y++)
         for (int x = 0; x < w4 && c + x < d->mi_cols; x++) {
             int m = mi_at(d, r + y, c + x);
@@ -1969,10 +2438,17 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
                 memcpy(d->mi_pal_u + (size_t)m * 8, b->pal_u, sizeof(b->pal_u));
             for (int i = 0; i < 4; i++) d->mi_dlf[4 * (size_t)m + i] = (int8_t)d->delta_lf[i];
             d->mi_seg[m] = (uint8_t)d->seg_id;
+            d->mi_ref[m] = (int8_t)ref;
+            d->mi_newmv[m] = (uint8_t)(ref > INTRA_FRAME && b->mode == NEWMV);
+            d->mi_filt[m] = (uint8_t)(ref > INTRA_FRAME ? b->filt[0] | b->filt[1] << 2 : 0);
+            d->mi_lf[m] = lf;
+            d->mi_bsz[m] = (uint8_t)(wl | hl << 4);
         }
     if (d->bd == 12) d->count[T_TWELVE_BIT]++;
     b->max_luma_w = b->max_luma_h = 0;
-    if (b->is_inter) predict_intrabc(d, b);
+    if (b->is_inter && d->frame_type) predict_inter(d, b);
+    else if (b->is_inter) predict_intrabc(d, b);
+    if (d->err) return;
     residual(d, b);
 }
 
@@ -2226,7 +2702,9 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
                      int32_t *const *planes, int stride,
                      uint8_t *const *txmaps, uint8_t *skips, int8_t *cdef_idx,
                      int8_t *delta_lf, uint8_t *segs, int32_t *lr_out, int32_t *counts,
-                     char *msg, int msglen) {
+                     const int32_t *const *refs, const int32_t *ref_info,
+                     const int16_t *subpel, uint16_t *cdf_out, uint8_t *mi_lf,
+                     uint8_t *mi_bsz, char *msg, int msglen) {
     Dec *d = (Dec *)calloc(1, sizeof(Dec));
     if (!d) return AV1D_CORRUPT;
     int rc = AV1D_OK;
@@ -2262,6 +2740,34 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->width = hdr[H_WIDTH];
     d->height = hdr[H_HEIGHT];
     d->allow_intrabc = hdr[H_ALLOW_INTRABC];
+    d->frame_type = hdr[H_FRAME_TYPE];
+    d->allow_hp = hdr[H_ALLOW_HP];
+    d->force_int_mv = hdr[H_FORCE_INTEGER_MV];
+    d->interp_filter = hdr[H_INTERP_FILTER];
+    d->motion_switchable = hdr[H_MOTION_SWITCHABLE];
+    d->use_ref_mvs = hdr[H_USE_REF_FRAME_MVS];
+    d->reference_select = hdr[H_REFERENCE_SELECT];
+    d->allow_warped = hdr[H_ALLOW_WARPED];
+    d->dual_filter = hdr[H_DUAL_FILTER];
+    d->interintra_on = hdr[H_INTERINTRA];
+    d->sign_bias = hdr[H_SIGN_BIAS];
+    d->lf_delta_enabled = hdr[H_LF_DELTA_ENABLED];
+    d->lf_on = hdr[H_LF_Y0] || hdr[H_LF_Y1];
+    d->lf_ref_deltas[0] = hdr[H_LF_REF_DELTA_INTRA];
+    for (int i = 1; i < 8; i++) d->lf_ref_deltas[i] = hdr[H_LF_REF_DELTA1 + i - 1];
+    d->lf_mode_deltas[0] = hdr[H_LF_MODE_DELTA0];
+    d->lf_mode_deltas[1] = hdr[H_LF_MODE_DELTA1];
+    d->seg_ref_mask = hdr[H_SEG_REF_MASK];
+    d->seg_ref_frames = hdr[H_SEG_REF_FRAMES];
+    d->seg_gmv_mask = hdr[H_SEG_GLOBALMV_MASK];
+    d->subpel = subpel;
+    for (int rf = 1; rf < 8 && refs; rf++) {
+        for (int p = 0; p < 3; p++) d->ref_plane[rf][p] = refs[(rf - 1) * 3 + p];
+        d->ref_stride[rf] = ref_info[(rf - 1) * 3];
+        d->ref_w[rf] = ref_info[(rf - 1) * 3 + 1];
+        d->ref_h[rf] = ref_info[(rf - 1) * 3 + 2];
+    }
+    if (d->frame_type) counts[T_INTER_FRAME]++;
     d->dc_lut = qlut;
     d->ac_lut = qlut + 256;
     for (int i = 0; i < 5; i++) d->dq[i] = hdr[H_DQ_Y_DC + i];
@@ -2293,7 +2799,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->cdef_idx = cdef_idx;
     memset(cdef_idx, -1, (size_t)d->cdef_stride * ((d->mi_rows + 15) / 16));
     size_t nmi = (size_t)d->mi_rows * d->mi_cols;
-    uint8_t *mi8 = (uint8_t *)calloc(nmi * 9, 1);
+    uint8_t *mi8 = (uint8_t *)calloc(nmi * 12, 1);
     d->mi_pal = (uint16_t *)calloc(nmi * 16, sizeof(uint16_t));
     d->mi_mv = (int16_t *)calloc(nmi * 2, sizeof(int16_t));
     uint8_t *ctxmem = (uint8_t *)calloc((size_t)4 * 3 * ((size_t)d->mi_cols + d->mi_rows + 64), 1);
@@ -2310,6 +2816,8 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->mi_txw = mi8 + 4 * nmi; d->mi_txh = mi8 + 5 * nmi;
     d->mi_paln = mi8 + 6 * nmi; d->mi_paln_uv = mi8 + 7 * nmi;
     d->mi_inter = mi8 + 8 * nmi; d->mi_seg = segs;
+    d->mi_ref = (int8_t *)(mi8 + 9 * nmi); d->mi_newmv = mi8 + 10 * nmi;
+    d->mi_filt = mi8 + 11 * nmi; d->mi_lf = mi_lf; d->mi_bsz = mi_bsz;
     d->mi_pal_u = d->mi_pal + nmi * 8;
     {
         size_t ac = (size_t)d->mi_cols + 32, lc = (size_t)d->mi_rows + 32;
@@ -2343,6 +2851,9 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
             sym_init(d, tiles[ti], (size_t)tile_sizes[ti]);
             set_qidx(d, d->base_q);
             decode_tile(d);
+            /* the CDFs the frame saves: this tile's at its end */
+            if (ti == hdr[H_CONTEXT_TILE] && cdf_out && !d->err)
+                memcpy(cdf_out, cdfmem, cdf_total * sizeof(uint16_t));
         }
     rc = d->err;
 done:

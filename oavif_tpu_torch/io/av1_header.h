@@ -54,6 +54,23 @@ enum {
      * tiles, deblocking and CDEF cover, and the upscaled frame the one
      * loop restoration and film grain work on */
     H_SUPERRES_DENOM, H_UPSCALED_WIDTH,
+    /* an inter frame (spec 5.9.2): its frame type (0 key, 1 inter),
+     * allow_high_precision_mv, force_integer_mv, interpolation_filter (4
+     * SWITCHABLE), is_motion_mode_switchable, use_ref_frame_mvs,
+     * reference_select, allow_warped_motion, the sequence's
+     * enable_dual_filter and enable_interintra_compound, the sign bias
+     * of LAST..ALTREF (bit r for reference frame r), the tile whose CDFs
+     * the frame saves (context_update_tile_id), loop_filter_ref_deltas
+     * of LAST..ALTREF (H_LF_REF_DELTA_INTRA is INTRA_FRAME's) and the two
+     * loop_filter_mode_deltas; the segments with SEG_LVL_REF_FRAME (bit
+     * i), their reference frames (3 bits at 3 * i) and the segments with
+     * SEG_LVL_GLOBALMV */
+    H_FRAME_TYPE, H_ALLOW_HP, H_FORCE_INTEGER_MV, H_INTERP_FILTER,
+    H_MOTION_SWITCHABLE, H_USE_REF_FRAME_MVS, H_REFERENCE_SELECT,
+    H_ALLOW_WARPED, H_DUAL_FILTER, H_INTERINTRA, H_SIGN_BIAS,
+    H_CONTEXT_TILE, H_LF_REF_DELTA1, H_LF_REF_DELTA2, H_LF_REF_DELTA3,
+    H_LF_REF_DELTA4, H_LF_REF_DELTA5, H_LF_REF_DELTA6, H_LF_REF_DELTA7,
+    H_LF_MODE_DELTA0, H_LF_MODE_DELTA1, H_SEG_REF_MASK, H_SEG_REF_FRAMES, H_SEG_GLOBALMV_MASK,
     /* the 1 << cdef_bits strength sets (y primary, y secondary, uv
      * primary, uv secondary; secondary 3 already read as 4) */
     H_CDEF_STRENGTHS,
@@ -110,6 +127,18 @@ enum {
      * blocks skipped by their segment (SEG_LVL_SKIP: no skip read), and
      * DeltaLF changes read under delta_lf_multi */
     T_SEG_ALT_LF, T_SEG_SKIP, T_DELTA_LF_MULTI,
+    /* inter frames: frames decoded, blocks of each inter mode, NEWMV and
+     * NEARMV blocks with a drl index past their first candidate, blocks
+     * whose MV has a fractional luma part, predictions through each
+     * interpolation filter (regular, smooth, sharp, bilinear; the 4-tap
+     * ones count with their 8-tap ones), blocks with two filters, intra
+     * blocks, chroma predicted from several blocks' MVs (sub-8x8), and
+     * inter blocks whose deblocking level a reference delta and a mode
+     * delta move */
+    T_INTER_FRAME, T_NEWMV, T_NEARESTMV, T_NEARMV, T_GLOBALMV, T_DRL,
+    T_SUBPEL_MV, T_FILTER_REGULAR, T_FILTER_SMOOTH, T_FILTER_SHARP,
+    T_FILTER_BILINEAR, T_DUAL_FILTER, T_INTRA_IN_INTER, T_SUB8X8_CHROMA_MVS,
+    T_LF_REF_DELTA, T_LF_MODE_DELTA,
     T_NCOUNTERS
 };
 

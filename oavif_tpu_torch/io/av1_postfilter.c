@@ -5,7 +5,9 @@
  * - deblocking (spec 7.14) on each plane's own transform grid: luma up to
  *   16 taps, chroma up to 6, each block at the frame's level moved by its
  *   DeltaLF (its own per plane and direction under delta_lf_multi), its
- *   segment's ALT_LF and the intra reference delta;
+ *   segment's ALT_LF and its reference frame's delta (and an inter
+ *   block's mode delta); the transform edges inside a skipped inter block
+ *   are left alone;
  * - CDEF (spec 7.15) per 8x8 luma block with the strength set of its
  *   64x64 (cdef_idx; -1 leaves the 64x64 alone), the chroma blocks
  *   4x4 (4:2:0), 4x8 (4:2:2) or 8x8 filtered in the luma direction
@@ -130,28 +132,30 @@ static void lf_params(Lf *lp, int lvl, int sharpness, int bd) {
     lp->bd = bd;
 }
 
-/* the filter level of each segment and DeltaLF value (-63..63) for one
- * plane and direction i (y vertical, y horizontal, u, v; spec 7.14.4):
- * the frame level moved by the block's DeltaLF, then by its segment's
- * SEG_LVL_ALT_LF_Y_V + i, then by the intra reference delta, each step
- * clamped to 0..63 */
-static void level_table(int out[8][127], const int32_t *hdr, int i) {
+/* the filter level of a block for plane and direction i (y vertical, y
+ * horizontal, u, v; spec 7.14.4): the frame level moved by the block's
+ * DeltaLF, then by its segment's SEG_LVL_ALT_LF_Y_V + i, then by the
+ * delta of its reference frame and, for an inter block, of its mode
+ * (``lf``: RefFrame * 2 + the mode delta's index), each step clamped to
+ * 0..63 */
+static int block_level(const int32_t *hdr, int i, int seg, int dl, int lf) {
     int base = hdr[H_LF_Y0 + i];
-    for (int seg = 0; seg < 8; seg++)
-        for (int dl = -63; dl <= 63; dl++) {
-            int lvl = hdr[H_DELTA_LF_RES] >= 0 ? pmin(pmax(base + dl, 0), 63) : base;
-            if (hdr[H_SEG_ENABLED] && ((uint32_t)hdr[H_SEG_ALT_LF_MASK] >> (4 * seg + i) & 1))
-                lvl = pmin(pmax(lvl + (int8_t)((uint32_t)hdr[H_SEG_ALT_LF0 + seg] >> (8 * i)),
-                                0), 63);
-            if (hdr[H_LF_DELTA_ENABLED])
-                lvl = pmin(pmax(lvl + hdr[H_LF_REF_DELTA_INTRA] * (1 << (lvl >> 5)), 0), 63);
-            out[seg][dl + 63] = lvl;
-        }
+    int lvl = hdr[H_DELTA_LF_RES] >= 0 ? pmin(pmax(base + dl, 0), 63) : base;
+    if (hdr[H_SEG_ENABLED] && ((uint32_t)hdr[H_SEG_ALT_LF_MASK] >> (4 * seg + i) & 1))
+        lvl = pmin(pmax(lvl + (int8_t)((uint32_t)hdr[H_SEG_ALT_LF0 + seg] >> (8 * i)), 0), 63);
+    if (hdr[H_LF_DELTA_ENABLED]) {
+        int ref = (lf & 15) >> 1, sh = lvl >> 5;
+        lvl += (ref ? hdr[H_LF_REF_DELTA1 + ref - 1] : hdr[H_LF_REF_DELTA_INTRA]) * (1 << sh);
+        if (ref) lvl += hdr[H_LF_MODE_DELTA0 + (lf & 1)] * (1 << sh);
+        lvl = pmin(pmax(lvl, 0), 63);
+    }
+    return lvl;
 }
 
 static void deblock_plane(int32_t *pl, int stride, int plane, int sx, int sy,
                           const uint8_t *txmap, const int8_t *delta_lf,
-                          const uint8_t *segs, int mi_rows, int mi_cols, int frame_w, int frame_h,
+                          const uint8_t *segs, const uint8_t *mi_lf, const uint8_t *mi_bsz,
+                          int mi_rows, int mi_cols, int frame_w, int frame_h,
                           const int32_t *hdr) {
     int pw4 = mi_cols >> sx, ph4 = mi_rows >> sy;
     int pw = pw4 * 4, ph = ph4 * 4;
@@ -165,8 +169,6 @@ static void deblock_plane(int32_t *pl, int stride, int plane, int sx, int sy,
          * right of its luma area (libaom's odd mi for subsampled chroma) */
         int i = plane == 0 ? pass : plane + 1;
         const int8_t *dlf = delta_lf + (hdr[H_DELTA_LF_MULTI] ? i : 0);
-        int table[8][127];
-        level_table(table, hdr, i);
         for (int cy = 0; cy < ph4; cy++) {
             if (((cy * 4) << sy) >= frame_h) break;
             for (int cx = 0; cx < pw4; cx++) {
@@ -179,18 +181,23 @@ static void deblock_plane(int32_t *pl, int stride, int plane, int sx, int sy,
                 int pl2 = pass == 0 ? (prev & 15) : (prev >> 4);
                 int pos = pass == 0 ? cx : cy;
                 if (pos % (1 << tl)) continue; /* not a transform edge */
+                int my = (cy << sy) | sy, mx = (cx << sx) | sx;
+                size_t m = (size_t)my * mi_cols + mx;
+                if (mi_lf[m] & 16) {
+                    /* inside a skipped inter block only its own edges */
+                    int bl = pass == 0 ? (mi_bsz[m] & 15) - sx : (mi_bsz[m] >> 4) - sy;
+                    if (pos % (1 << pmax(bl, 0))) continue;
+                }
                 int size = 4 << pmin(tl, pl2);
                 size = plane == 0 ? pmin(16, size) : pmin(8, size);
                 if (plane && size == 8) size = 6;
                 /* the block's level, or where it is 0 the previous one's */
-                int my = (cy << sy) | sy, mx = (cx << sx) | sx;
-                size_t m = (size_t)my * mi_cols + mx;
-                int lvl = table[segs[m]][dlf[4 * m] + 63];
+                int lvl = block_level(hdr, i, segs[m], dlf[4 * m], mi_lf[m]);
                 if (!lvl) {
                     int py = pass ? ((cy - 1) << sy) | sy : my;
                     int pxm = pass ? mx : ((cx - 1) << sx) | sx;
                     size_t q = (size_t)py * mi_cols + pxm;
-                    lvl = table[segs[q]][dlf[4 * q] + 63];
+                    lvl = block_level(hdr, i, segs[q], dlf[4 * q], mi_lf[q]);
                 }
                 if (!lvl) continue;
                 if (!have_lp[lvl]) {
@@ -669,7 +676,7 @@ static int upscale_plane(int32_t *pl, int stride, int rows, int w, int up_w,
 int av1_postfilter(int32_t *const *planes, int stride, const int32_t *hdr,
                    const uint8_t *const *txmaps, const uint8_t *skips,
                    const int8_t *cdef_idx, const int8_t *delta_lf, const uint8_t *segs,
-                   const int32_t *lr,
+                   const uint8_t *mi_lf, const uint8_t *mi_bsz, const int32_t *lr,
                    const int16_t *upscale_filter, int32_t *counts,
                    double *upscale_s) {
     int nplanes = hdr[H_NPLANES], mi_rows = hdr[H_MI_ROWS], mi_cols = hdr[H_MI_COLS];
@@ -685,7 +692,7 @@ int av1_postfilter(int32_t *const *planes, int stride, const int32_t *hdr,
         for (int p = 0; p < nplanes; p++)
             if (!p || hdr[H_LF_U + p - 1])
                 deblock_plane(planes[p], stride, p, p ? sx : 0, p ? sy : 0, txmaps[p],
-                              delta_lf, segs, mi_rows, mi_cols, fw, fh, hdr);
+                              delta_lf, segs, mi_lf, mi_bsz, mi_rows, mi_cols, fw, fh, hdr);
     int any_lr = hdr[H_LR_TYPE0] || hdr[H_LR_TYPE1] || hdr[H_LR_TYPE2];
     int any_cdef = 0;
     if (hdr[H_CDEF_ON])

@@ -20,14 +20,22 @@ Three parts, all on the host:
   (each entity group exactly its entities; one ``dimg`` box per derived
   item, and an item in one derived item's list once), and a primary
   ``tmap`` item raises, as libavif finds no colour item then;
+- the layer properties ``a1op``, ``lsel`` and ``a1lx``, which pick and
+  check an item's operating point and spatial layer as libavif 1.3 does;
 - the OBU layer (``parse_av1``): the sequence header in its reduced
-  still-picture form and its full form, the uncompressed header of one
-  shown key frame with superres, the tile info with uniform or
-  non-uniform spacing and the tile groups (spec sections 5.3-5.9 and
-  5.11.1);
+  still-picture form and its full form, the operating point's frames
+  (shown key frames and inter frames: the uncompressed header with
+  superres, the reference frames, the inter fields, global motion and
+  film grain loaded from a reference, kept across frames in
+  ``av1_refs.RefHeaders``), the tile info with uniform or non-uniform
+  spacing and the tile groups (spec sections 5.3-5.9 and 5.11.1);
 - the tile decode and reconstruction in C (``av1_decode.c``, in the host
-  library), for 4:4:4, 4:2:2, 4:2:0 and monochrome streams at 8, 10 and
-  12 bits with the intra tools libaom writes, quantizer matrices, delta q
+  library), frame by frame into the eight reference slots
+  (``av1_refs.RefFrames``), for 4:4:4, 4:2:2, 4:2:0 and monochrome
+  streams at 8, 10 and 12 bits with the intra tools libaom writes, inter
+  blocks of a single reference of the frame's size (the MV stack, every
+  single-reference mode, the subpel filters, sub-8x8 chroma), quantizer
+  matrices, delta q
   and delta LF (``delta_lf_multi`` too), segmentation with every feature
   (ALT_Q, the four ALT_LF, SKIP, and REF_FRAME and GLOBALMV, which in a
   key frame only move the segment id before ``skip``), the chroma
@@ -35,8 +43,9 @@ Three parts, all on the host:
   C on each plane's own grid (``av1_postfilter.c``): deblocking at each
   block's level (its DeltaLF and segment), CDEF with the strength set of each 64x64, superres
   upscaling and loop restoration over the upscaled width; film grain
-  synthesis (``av1_grain.c``); and the conversion to 8-bit RGB as libavif
-  1.3 converts (libyuv's fixed-point matrices,
+  synthesis (``av1_grain.c``); the scaling of a frame to its ``ispe``
+  (``yuv_scale.py``, libyuv's ScalePlane); and the conversion to 8-bit
+  RGB as libavif 1.3 converts (libyuv's fixed-point matrices,
   full or limited range, and bilinear chroma upsampling where libavif
   hands the conversion to libyuv, its own float path elsewhere;
   ``yuv_to_rgb8``).
@@ -52,7 +61,7 @@ from __future__ import annotations
 import ctypes as C
 import struct
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -150,6 +159,12 @@ class Av1Item:
     clap: Optional[Tuple[int, ...]] = None  # the 8 fields of the box
     grid: Optional[Tuple[int, int, int, int]] = None  # rows, cols, w, h
     cells: List["Av1Item"] = field(default_factory=list)
+    # a layered item: the operating point ``a1op`` names, the spatial
+    # layer ``lsel`` names (None: the highest, as 0xFFFF), and the layer
+    # sizes of ``a1lx``
+    op: int = 0
+    layer: Optional[int] = None
+    layer_sizes: Tuple[int, ...] = ()
 
 
 @dataclass
@@ -340,8 +355,10 @@ def _item_payload(data: bytes, m: _Meta, item_id: int) -> bytes:
 
 
 _KNOWN = {b"ispe", b"pixi", b"av1C", b"colr", b"auxC", b"pasp", b"a1lx",
-          b"clli", b"mdcv", b"cclv", b"amve", b"irot", b"imir", b"clap"}
-# libavif 1.3's limits on a grid's output size (imageSizeLimit,
+          b"clli", b"mdcv", b"cclv", b"amve", b"irot", b"imir", b"clap",
+          b"a1op", b"lsel"}
+# libavif 1.3's limits on an image's size (a grid's output, a frame scaled
+# to its ispe: imageSizeLimit,
 # imageDimensionLimit)
 _GRID_MAX_PIXELS = 16384 * 16384
 _GRID_MAX_SIDE = 32768
@@ -371,10 +388,46 @@ def _properties(data: bytes, m: _Meta, it: Av1Item, what: str) -> None:
                 raise _broken("av1C")
         elif ptyp == b"colr":
             _colr(data, p, pe, it)
+        elif ptyp in (b"a1op", b"lsel", b"a1lx"):
+            _layer_property(p, ptyp, essential, it)
         elif essential and ptyp not in _KNOWN:
             raise UnsupportedAvif(f"AVIF: essential property "
                                   f"{ptyp.decode('latin-1')!r} of the "
                                   f"{what} item")
+
+
+def _layer_property(p: _Reader, ptyp: bytes, essential: bool,
+                    it: Av1Item) -> None:
+    """``a1op``, ``lsel`` and ``a1lx`` as libavif 1.3 reads them: the
+    first two must be essential, the third must not; ``lsel`` names a
+    layer below 4 or 0xFFFF (every layer: the highest shown)."""
+    name = ptyp.decode()
+    if (ptyp == b"a1lx") == essential:
+        raise _broken(f"the {name} property is "
+                      f"{'' if essential else 'not '}marked essential")
+    if ptyp == b"a1op":
+        it.op = p.u(1)
+    elif ptyp == b"lsel":
+        layer = p.u(2)
+        if layer != 0xFFFF and layer >= 4:
+            raise _broken(f"lsel layer {layer}")
+        it.layer = None if layer == 0xFFFF else layer
+    else:
+        n = 4 if p.u(1) & 1 else 2
+        it.layer_sizes = tuple(p.u(n) for _ in range(3))
+
+
+def _check_layer_sizes(it: Av1Item) -> None:
+    """libavif 1.3's check of ``a1lx``: the sizes before the first 0 leave
+    the last layer some of the item's data."""
+    total = 0
+    for size in it.layer_sizes:
+        if not size:
+            break
+        total += size
+    if it.layer_sizes and total >= len(it.payload):
+        raise _broken(f"a1lx layer sizes of {total} bytes in an item of "
+                      f"{len(it.payload)}")
 
 
 def _colr(data: bytes, p: _Reader, end: int, it: Av1Item) -> None:
@@ -407,6 +460,7 @@ def _av1_item(data: bytes, m: _Meta, item_id: int, what: str) -> Av1Item:
             f"AV1)")
     it = Av1Item(item_id, _item_payload(data, m, item_id))
     _properties(data, m, it, what)
+    _check_layer_sizes(it)
     if not it.av1c:
         raise _broken(f"{what} item without av1C")
     if not it.width or not it.height:
@@ -731,6 +785,13 @@ class SequenceHeader:
     ss: Tuple[int, int] = (1, 1)
     separate_uv_delta_q: bool = False
     film_grain: bool = False
+    # the inter tools a frame may switch on
+    interintra: bool = False
+    masked_compound: bool = False
+    warped_motion: bool = False
+    dual_filter: bool = False
+    jnt_comp: bool = False
+    ref_frame_mvs: bool = False
 
 
 def _tile_log2(blk: int, target: int) -> int:
@@ -796,14 +857,14 @@ def parse_sequence_header(b: _Bits) -> SequenceHeader:
     s.filter_intra = bool(b.f(1))
     s.intra_edge = bool(b.f(1))
     if not s.reduced:
-        b.f(1)  # enable_interintra_compound
-        b.f(1)  # enable_masked_compound
-        b.f(1)  # enable_warped_motion
-        b.f(1)  # enable_dual_filter
+        s.interintra = bool(b.f(1))
+        s.masked_compound = bool(b.f(1))
+        s.warped_motion = bool(b.f(1))
+        s.dual_filter = bool(b.f(1))
         order_hint = b.f(1)
         if order_hint:
-            b.f(1)
-            b.f(1)
+            s.jnt_comp = bool(b.f(1))
+            s.ref_frame_mvs = bool(b.f(1))
         s.screen_tools = 2 if b.f(1) else b.f(1)
         if s.screen_tools > 0:
             s.integer_mv = 2 if b.f(1) else b.f(1)
@@ -872,7 +933,6 @@ class FrameHeader:
     lf_levels: Tuple[int, int, int, int] = (0, 0, 0, 0)
     lf_sharpness: int = 0
     lf_delta_enabled: bool = False
-    lf_ref_delta_intra: int = 1
     cdef_damping: int = 3
     cdef_bits: int = 0
     cdef_strengths: List[Tuple[int, int, int, int]] = field(default_factory=list)
@@ -894,6 +954,43 @@ class FrameHeader:
     seg_preskip: bool = False
     seg_last_active: int = 0
     seg_lossless: Tuple[bool, ...] = (False,) * 8
+    # the frame and its references (spec 5.9.2): KEY_FRAME 0, INTER_FRAME
+    # 1; the slots it refreshes and, for an inter frame, the slot of each
+    # of LAST..ALTREF, their order hints and sign biases (by reference
+    # frame, 0 for INTRA_FRAME)
+    frame_type: int = 0
+    show_frame: bool = True
+    showable_frame: bool = False
+    error_resilient: bool = True
+    primary_ref_frame: int = 7  # PRIMARY_REF_NONE
+    refresh_frame_flags: int = 0xFF
+    order_hint: int = 0
+    ref_frame_idx: Tuple[int, ...] = ()
+    ref_order_hints: Tuple[int, ...] = ()
+    sign_bias: Tuple[int, ...] = (0,) * 8
+    render_size: Tuple[int, int] = (0, 0)
+    force_integer_mv: bool = True
+    allow_hp: bool = False
+    interp_filter: int = 0  # 0-3 one filter for the frame, 4 SWITCHABLE
+    motion_switchable: bool = False
+    use_ref_frame_mvs: bool = False
+    disable_frame_end_update_cdf: bool = True
+    context_update_tile_id: int = 0
+    # loop_filter_ref_deltas[8] and loop_filter_mode_deltas[2], loaded
+    # from the primary reference frame, then updated
+    lf_ref_deltas: Tuple[int, ...] = (1, 0, 0, 0, -1, 0, -1, -1)
+    lf_mode_deltas: Tuple[int, int] = (0, 0)
+    reference_select: bool = False
+    skip_mode_present: bool = False
+    allow_warped_motion: bool = False
+    # GmType and gm_params of LAST..ALTREF (0 IDENTITY, 1 TRANSLATION,
+    # 2 ROTZOOM, 3 AFFINE)
+    gm_type: Tuple[int, ...] = (0,) * 7
+    gm_params: Tuple[Tuple[int, ...], ...] = (
+        (0, 0, 1 << 16, 0, 0, 1 << 16),) * 7
+    # the frame's film_grain_params where it applies grain (what
+    # load_grain_params reads back from a reference slot)
+    grain_params: Optional["FilmGrain"] = None
 
 
 @dataclass
@@ -918,33 +1015,76 @@ class FilmGrain:
     clip_restricted: bool = False
 
 
-def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
-                       sid: int) -> FrameHeader:
+KEY_FRAME, INTER_FRAME, INTRA_ONLY_FRAME, SWITCH_FRAME = 0, 1, 2, 3
+PRIMARY_REF_NONE = 7
+# loop_filter_ref_deltas after setup_past_independence
+_LF_REF_DELTAS = (1, 0, 0, 0, -1, 0, -1, -1)
+_GM_IDENTITY = (0, 0, 1 << 16, 0, 0, 1 << 16)
+
+
+def _relative_dist(s: SequenceHeader, a: int, b: int) -> int:
+    """get_relative_dist of two order hints."""
+    if not s.order_hint_bits:
+        return 0
+    diff = a - b
+    m = 1 << (s.order_hint_bits - 1)
+    return (diff & (m - 1)) - (diff & m)
+
+
+def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int, sid: int,
+                       refs: Optional["RefHeaders"] = None) -> FrameHeader:
+    """uncompressed_header (spec 5.9.2) of a shown key frame or an inter
+    frame; ``refs`` holds what the eight reference slots keep of the
+    frames before (sizes, order hints, loop filter deltas, segmentation
+    and film grain parameters, global motion), which an inter frame reads
+    and whose update the caller applies (``RefHeaders.update``)."""
+    from .av1_refs import RefHeaders
+
+    refs = refs if refs is not None else RefHeaders()
     fh = FrameHeader()
     nplanes = 1 if s.mono else 3
     if not s.reduced:
         if b.f(1):
-            raise UnsupportedAvif("AV1: show_existing_frame (more than one "
-                                  "frame) is not supported")
-        frame_type = b.f(2)
-        show_frame = b.f(1)
-        if frame_type != 0:
-            raise UnsupportedAvif("AV1: a frame that is not a key frame is "
-                                  "not supported")
-        if not show_frame:
+            raise UnsupportedAvif("AV1: show_existing_frame is not "
+                                  "supported")
+        fh.frame_type = b.f(2)
+        fh.show_frame = bool(b.f(1))
+        if fh.show_frame and s.decoder_model_info \
+                and not s.equal_picture_interval:
+            b.f(s.presentation_time_length)  # temporal_point_info
+        fh.showable_frame = fh.frame_type != KEY_FRAME if fh.show_frame \
+            else bool(b.f(1))
+        if fh.frame_type == KEY_FRAME and not fh.show_frame:
             raise UnsupportedAvif("AV1: a key frame that is not shown is "
                                   "not supported")
-        if s.decoder_model_info and not s.equal_picture_interval:
-            b.f(s.presentation_time_length)  # temporal_point_info
+        if fh.frame_type in (INTRA_ONLY_FRAME, SWITCH_FRAME):
+            raise UnsupportedAvif(
+                f"AV1: a frame of type "
+                f"{('INTRA_ONLY', 'SWITCH')[fh.frame_type - 2]} is not "
+                f"supported")
+        if fh.frame_type == INTER_FRAME and not refs.valid:
+            raise UnsupportedAvif("AV1: a first frame that is not a key "
+                                  "frame is not supported")
+        fh.error_resilient = True if fh.frame_type == KEY_FRAME \
+            else bool(b.f(1))
+    intra = fh.frame_type == KEY_FRAME
+    if intra:
+        refs.reset()
     fh.disable_cdf_update = bool(b.f(1))
     screen = b.f(1) if s.screen_tools == 2 else s.screen_tools
     fh.screen_tools = bool(screen)
-    if screen and s.integer_mv == 2:
-        b.f(1)
+    fh.force_integer_mv = True
+    if screen:
+        force = b.f(1) if s.integer_mv == 2 else s.integer_mv
+        fh.force_integer_mv = bool(force) or intra
+    elif not intra:
+        fh.force_integer_mv = False
     if s.frame_ids:
         b.f(s.id_len)
     override = 0 if s.reduced else b.f(1)
-    b.f(s.order_hint_bits)
+    fh.order_hint = b.f(s.order_hint_bits)
+    if not (intra or fh.error_resilient):
+        fh.primary_ref_frame = b.f(3)
     if s.decoder_model_info:
         if b.f(1):  # buffer_removal_time_present_flag
             for idc, present in zip(s.op_idcs, s.op_decoder_model):
@@ -953,27 +1093,60 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
                     in_s = (idc >> (sid + 8)) & 1
                     if idc == 0 or (in_t and in_s):
                         b.f(s.buffer_removal_time_length)
-    # frame_size, superres_params, render_size
-    if override:
-        fh.width = b.f(s.width_bits) + 1
-        fh.height = b.f(s.height_bits) + 1
+    fh.refresh_frame_flags = 0xFF if intra else b.f(8)
+    if not intra and fh.error_resilient and s.order_hint_bits:
+        for i in range(8):  # ref_order_hint[i]: a slot that differs is lost
+            hint = b.f(s.order_hint_bits)
+            if hint != refs.order_hint[i]:
+                refs.order_hint[i] = hint
+                refs.valid &= ~(1 << i)
+    if intra:
+        _frame_size(b, s, fh, override)
+        fh.allow_intrabc = bool(screen and fh.coded_width == fh.width
+                                and b.f(1))
     else:
-        fh.width, fh.height = s.width, s.height
-    fh.coded_width = fh.width
-    if s.superres and b.f(1):  # superres_params: use_superres
-        fh.superres_denom = b.f(3) + 9
-        fh.coded_width = (fh.width * 8 + fh.superres_denom // 2) \
-            // fh.superres_denom
-    if b.f(1):
-        b.f(16)
-        b.f(16)
-    # allow_intrabc (only on a frame not scaled by superres): an intra
-    # frame's DVs are whole pixels (force_integer_mv), and the frame has
-    # no deblocking, CDEF, loop restoration or delta LF
-    fh.allow_intrabc = bool(screen and fh.coded_width == fh.width
-                            and b.f(1))
-    if not (s.reduced or fh.disable_cdf_update):
-        b.f(1)  # disable_frame_end_update_cdf
+        if s.order_hint_bits and b.f(1):  # frame_refs_short_signaling
+            raise UnsupportedAvif("AV1: frame_refs_short_signaling is not "
+                                  "supported")
+        idx = []
+        for _ in range(7):
+            idx.append(b.f(3))
+            if s.frame_ids:
+                raise UnsupportedAvif("AV1: frame ids in an inter frame "
+                                      "are not supported")
+        fh.ref_frame_idx = tuple(idx)
+        if any(not refs.valid >> i & 1 for i in idx):
+            raise _broken("an inter frame names an empty reference slot")
+        found = False
+        if override and not fh.error_resilient:
+            for i in idx:  # frame_size_with_refs
+                if b.f(1):
+                    fh.width, fh.height = refs.size[i]
+                    fh.render_size = refs.render[i]
+                    found = True
+                    break
+        if found:
+            _superres_params(b, s, fh)
+        else:
+            _frame_size(b, s, fh, override)
+        fh.allow_hp = False if fh.force_integer_mv else bool(b.f(1))
+        fh.interp_filter = 4 if b.f(1) else b.f(2)
+        fh.motion_switchable = bool(b.f(1))
+        fh.use_ref_frame_mvs = bool(not fh.error_resilient
+                                    and s.ref_frame_mvs and b.f(1))
+        fh.ref_order_hints = tuple(refs.order_hint[i] for i in idx)
+        fh.sign_bias = (0,) + tuple(
+            int(_relative_dist(s, h, fh.order_hint) > 0)
+            for h in fh.ref_order_hints)
+    if s.reduced or fh.disable_cdf_update:
+        fh.disable_frame_end_update_cdf = True
+    else:
+        fh.disable_frame_end_update_cdf = bool(b.f(1))
+    # load_previous: the primary reference's loop filter deltas,
+    # segmentation FeatureData and global motion (PrevGmParams)
+    prev = None
+    if fh.primary_ref_frame != PRIMARY_REF_NONE:
+        prev = fh.ref_frame_idx[fh.primary_ref_frame]
     fh.mi_cols = 2 * ((fh.coded_width + 7) >> 3)
     fh.mi_rows = 2 * ((fh.height + 7) >> 3)
     _tile_info(b, s, fh)
@@ -995,7 +1168,8 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
         qy, qu = b.f(4), b.f(4)
         qm = (qy, qu, b.f(4) if s.separate_uv_delta_q else qu)
     if b.f(1):  # segmentation_enabled
-        _segmentation_params(b, fh)
+        _segmentation_params(b, fh, prev is not None,
+                             None if prev is None else refs.segmentation[prev])
     # LosslessArray and CodedLossless over the segments' get_qindex(1, i)
     alt_q = [f[0] if fh.segmentation and f[0] is not None else 0
              for f in (fh.segmentation or [[None]] * 8)]
@@ -1013,6 +1187,9 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
     # CDEF off) in a lossless frame and under intrabc, lr_params (no
     # restoration) in one lossless at its full width (AllLossless) and
     # under intrabc
+    ref_deltas = list(_LF_REF_DELTAS if prev is None
+                      else refs.lf_ref_deltas[prev])
+    mode_deltas = list((0, 0) if prev is None else refs.lf_mode_deltas[prev])
     if not (fh.lossless or fh.allow_intrabc):
         l0, l1 = b.f(6), b.f(6)
         l2 = l3 = 0
@@ -1022,24 +1199,26 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
         fh.lf_sharpness = b.f(3)
         fh.lf_delta_enabled = bool(b.f(1))
         if fh.lf_delta_enabled and b.f(1):
-            ref_deltas = [1, 0, 0, 0, -1, 0, -1, -1]
             for i in range(8):
                 if b.f(1):
                     ref_deltas[i] = b.su(7)
-            for _ in range(2):
+            for i in range(2):
                 if b.f(1):
-                    b.su(7)
-            fh.lf_ref_delta_intra = ref_deltas[0]
-        if s.cdef:
-            fh.cdef_damping = b.f(2) + 3
-            fh.cdef_bits = b.f(2)
-            for _ in range(1 << fh.cdef_bits):
-                yp, ys = b.f(4), b.f(2)
-                up = us = 0
-                if nplanes > 1:
-                    up, us = b.f(4), b.f(2)
-                fh.cdef_strengths.append(
-                    (yp, 4 if ys == 3 else ys, up, 4 if us == 3 else us))
+                    mode_deltas[i] = b.su(7)
+    else:
+        ref_deltas, mode_deltas = list(_LF_REF_DELTAS), [0, 0]
+    fh.lf_ref_deltas, fh.lf_mode_deltas = tuple(ref_deltas), \
+        tuple(mode_deltas)
+    if not (fh.lossless or fh.allow_intrabc) and s.cdef:
+        fh.cdef_damping = b.f(2) + 3
+        fh.cdef_bits = b.f(2)
+        for _ in range(1 << fh.cdef_bits):
+            yp, ys = b.f(4), b.f(2)
+            up = us = 0
+            if nplanes > 1:
+                up, us = b.f(4), b.f(2)
+            fh.cdef_strengths.append(
+                (yp, 4 if ys == 3 else ys, up, 4 if us == 3 else us))
     all_lossless = fh.lossless and fh.coded_width == fh.width
     if not (all_lossless or fh.allow_intrabc):
         if s.restoration:
@@ -1055,10 +1234,130 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int,
                 if s.ss == (1, 1) and any(fh.lr_types[1:]):
                     fh.lr_uv_shift = b.f(1)
     fh.tx_mode = 0 if fh.lossless else (2 if b.f(1) else 1)
+    if not intra:
+        fh.reference_select = bool(b.f(1))
+        fh.skip_mode_present = bool(_skip_mode_allowed(s, fh) and b.f(1))
+        fh.allow_warped_motion = bool(not fh.error_resilient
+                                      and s.warped_motion and b.f(1))
     fh.reduced_tx_set = bool(b.f(1))
-    if s.film_grain and b.f(1):  # apply_grain
-        fh.grain = _film_grain_params(b, s)
+    if not intra:
+        _global_motion_params(b, fh, None if prev is None
+                              else refs.gm_params[prev])
+    if s.film_grain and (fh.show_frame or fh.showable_frame) and b.f(1):
+        fh.grain = fh.grain_params = _film_grain_params(b, s, fh, refs)
     return fh
+
+
+def _frame_size(b: _Bits, s: SequenceHeader, fh: FrameHeader,
+                override: int) -> None:
+    """frame_size, superres_params and render_size."""
+    if override:
+        fh.width = b.f(s.width_bits) + 1
+        fh.height = b.f(s.height_bits) + 1
+    else:
+        fh.width, fh.height = s.width, s.height
+    _superres_params(b, s, fh)
+    fh.render_size = (fh.width, fh.height)
+    if b.f(1):
+        fh.render_size = (b.f(16) + 1, b.f(16) + 1)
+
+
+def _superres_params(b: _Bits, s: SequenceHeader, fh: FrameHeader) -> None:
+    fh.coded_width = fh.width
+    if s.superres and b.f(1):  # use_superres
+        fh.superres_denom = b.f(3) + 9
+        fh.coded_width = (fh.width * 8 + fh.superres_denom // 2) \
+            // fh.superres_denom
+
+
+def _skip_mode_allowed(s: SequenceHeader, fh: FrameHeader) -> bool:
+    """skip_mode_params' skipModeAllowed: a forward and a backward (or a
+    second forward) reference among the frame's seven."""
+    if not (fh.reference_select and s.order_hint_bits):
+        return False
+    rel = lambda a, b: _relative_dist(s, a, b)  # noqa: E731
+    fwd = bwd = None
+    for h in fh.ref_order_hints:
+        if rel(h, fh.order_hint) < 0:
+            if fwd is None or rel(h, fwd) > 0:
+                fwd = h
+        elif rel(h, fh.order_hint) > 0:
+            if bwd is None or rel(h, bwd) < 0:
+                bwd = h
+    if fwd is None:
+        return False
+    if bwd is not None:
+        return True
+    return any(rel(h, fwd) < 0 for h in fh.ref_order_hints)
+
+
+def _decode_subexp(b: _Bits, num_syms: int) -> int:
+    i = mk = 0
+    k = 3
+    while True:
+        b2 = k + i - 1 if i else k
+        a = 1 << b2
+        if num_syms <= mk + 3 * a:
+            return b.ns(num_syms - mk) + mk
+        if not b.f(1):
+            return b.f(b2) + mk
+        i += 1
+        mk += a
+
+
+def _inverse_recenter(r: int, v: int) -> int:
+    if v > 2 * r:
+        return v
+    return r - ((v + 1) >> 1) if v & 1 else r + (v >> 1)
+
+
+def _global_motion_params(b: _Bits, fh: FrameHeader,
+                          prev: Optional[Tuple]) -> None:
+    """global_motion_params (spec 5.9.24) of LAST..ALTREF, each parameter
+    coded against the primary reference's (PrevGmParams)."""
+    prev = prev or (_GM_IDENTITY,) * 7
+    types, params = [], []
+    for ref in range(7):
+        typ = 0
+        if b.f(1):  # is_global
+            typ = 2 if b.f(1) else (1 if b.f(1) else 3)
+        p = list(_GM_IDENTITY)
+
+        def read(idx):
+            abs_bits, prec_bits = 12, 15  # GM_ABS_ALPHA_BITS, _PREC_BITS
+            if idx < 2:
+                if typ == 1:
+                    abs_bits = 9 - (not fh.allow_hp)
+                    prec_bits = 3 - (not fh.allow_hp)
+                else:
+                    abs_bits, prec_bits = 12, 6
+            prec_diff = 16 - prec_bits
+            rnd = (1 << 16) if idx % 3 == 2 else 0
+            sub = (1 << prec_bits) if idx % 3 == 2 else 0
+            mx = 1 << abs_bits
+            r = (prev[ref][idx] >> prec_diff) - sub
+            # decode_signed_subexp_with_ref(-mx, mx + 1, r)
+            low, high = -mx, mx + 1
+            n, rr = high - low, r - low
+            v = _decode_subexp(b, n)
+            x = _inverse_recenter(rr, v) if (rr << 1) <= n \
+                else n - 1 - _inverse_recenter(n - 1 - rr, v)
+            p[idx] = ((x + low) << prec_diff) + rnd
+
+        if typ >= 2:
+            read(2)
+            read(3)
+            if typ == 3:
+                read(4)
+                read(5)
+            else:
+                p[4], p[5] = -p[3], p[2]
+        if typ >= 1:
+            read(0)
+            read(1)
+        types.append(typ)
+        params.append(tuple(p))
+    fh.gm_type, fh.gm_params = tuple(types), tuple(params)
 
 
 # spec Segmentation_Feature_Bits, _Signed and _Max of the SEG_LVL_*
@@ -1069,22 +1368,41 @@ _SEG_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
 _SEG_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
 
 
-def _segmentation_params(b: _Bits, fh: FrameHeader) -> None:
-    """segmentation_params of a key frame, after segmentation_enabled: a
-    key frame updates the map (not temporally) and the data, so every
-    segment's features follow, each value clipped to its limit. ALT_Q
-    moves the segment's qindex, the four ALT_LF its deblocking levels,
-    SKIP skips its blocks; REF_FRAME, SKIP and GLOBALMV put the segment id
-    before ``skip`` (SegIdPreSkip)."""
+def _segmentation_params(b: _Bits, fh: FrameHeader, primary: bool,
+                         prev: Optional[List[List[Optional[int]]]]) -> None:
+    """segmentation_params after segmentation_enabled. Without a primary
+    reference frame the map and the data are updated; with one
+    (``primary``) the flags say which, and a frame that keeps the data
+    takes its reference's (``prev``, None where it had no segmentation).
+    Each value read is clipped to its limit. ALT_Q moves the segment's
+    qindex, the four ALT_LF its deblocking levels, SKIP skips its blocks;
+    REF_FRAME, SKIP and GLOBALMV put the segment id before ``skip``
+    (SegIdPreSkip)."""
+    update = (True, False, True)
+    if primary:
+        umap = bool(b.f(1))
+        update = (umap, bool(umap and b.f(1)), bool(b.f(1)))
+    if not update[0]:
+        raise UnsupportedAvif("AV1: segmentation map prediction (a "
+                              "segmentation_update_map of 0) is not "
+                              "supported")
+    if update[1]:
+        raise UnsupportedAvif("AV1: segmentation map prediction (a "
+                              "segmentation_temporal_update of 1) is not "
+                              "supported")
     feats = [[None] * 8 for _ in range(8)]
-    for i in range(8):
-        for j in range(8):
-            if b.f(1):
-                lim = _SEG_MAX[j]
-                if _SEG_SIGNED[j]:
-                    feats[i][j] = min(max(b.su(1 + _SEG_BITS[j]), -lim), lim)
-                else:
-                    feats[i][j] = min(b.f(_SEG_BITS[j]), lim)
+    if update[2]:
+        for i in range(8):
+            for j in range(8):
+                if b.f(1):
+                    lim = _SEG_MAX[j]
+                    if _SEG_SIGNED[j]:
+                        feats[i][j] = min(max(b.su(1 + _SEG_BITS[j]), -lim),
+                                          lim)
+                    else:
+                        feats[i][j] = min(b.f(_SEG_BITS[j]), lim)
+    else:
+        feats = [list(f) for f in (prev or feats)]
     on = [(i, j) for i in range(8) for j in range(8)
           if feats[i][j] is not None]
     fh.segmentation = feats
@@ -1092,10 +1410,22 @@ def _segmentation_params(b: _Bits, fh: FrameHeader) -> None:
     fh.seg_preskip = any(j >= 5 for _, j in on)
 
 
-def _film_grain_params(b: _Bits, s: SequenceHeader) -> FilmGrain:
-    """film_grain_params after apply_grain (spec 5.9.30) of a key frame,
-    which always updates them."""
-    g = FilmGrain(seed=b.f(16))
+def _film_grain_params(b: _Bits, s: SequenceHeader, fh: FrameHeader,
+                       refs: "RefHeaders") -> Optional[FilmGrain]:
+    """film_grain_params after apply_grain (spec 5.9.30): a key frame
+    always updates them, an inter frame may load a reference's
+    (``update_grain`` 0) with its own seed."""
+    seed = b.f(16)
+    if fh.frame_type == INTER_FRAME and not b.f(1):  # update_grain
+        idx = b.f(3)
+        if idx not in fh.ref_frame_idx:
+            raise _broken("film grain loaded from a slot that is no "
+                          "reference")
+        loaded = refs.grain[idx]
+        if loaded is None:
+            return None
+        return replace(loaded, seed=seed)
+    g = FilmGrain(seed=seed)
 
     def points(n_max):
         n = b.f(4)
@@ -1180,7 +1510,7 @@ def _tile_info(b: _Bits, s: SequenceHeader, fh: FrameHeader) -> None:
     fh.tile_col_starts.append(fh.mi_cols)
     fh.tile_row_starts.append(fh.mi_rows)
     if cl or rl:
-        b.f(cl + rl)  # context_update_tile_id
+        fh.context_update_tile_id = b.f(cl + rl)
         fh.tile_size_bytes = b.f(2) + 1
 
 
@@ -1217,19 +1547,38 @@ def _read_tiles(b: _Bits, fh: FrameHeader, end: int,
 
 @dataclass
 class Av1Frame:
+    """One frame of an AV1 item: its sequence header, frame header, tiles
+    and layer ids. The frame ``parse_av1`` returns, the one shown, also
+    lists in ``frames`` every frame to decode for it, in order, itself
+    last."""
+
     seq: SequenceHeader
     frame: FrameHeader
     tiles: List[bytes]
+    spatial_id: int = 0
+    temporal_id: int = 0
+    frames: List["Av1Frame"] = field(default_factory=list)
 
 
-def parse_av1(payload: bytes) -> Av1Frame:
-    """The sequence header, frame header and tiles of an AV1 item's
-    single shown key frame (low-overhead OBU format)."""
+def parse_av1(payload: bytes, operating_point: int = 0,
+              layer: Optional[int] = None) -> Av1Frame:
+    """The frames of an AV1 item (low-overhead OBU format) and the one it
+    shows, as dav1d picks it for libavif: the OBUs of ``operating_point``
+    (the first where the sequence header has fewer), every frame a shown
+    key frame or an inter frame; the frame shown is, where the operating
+    point spans several spatial layers, the first of the highest spatial
+    layer present, else the first shown frame; with ``layer`` (an
+    ``lsel`` property) the first shown frame of that spatial layer."""
+    from .av1_refs import RefHeaders
+
     pos = 0
     seq: Optional[SequenceHeader] = None
-    fh: Optional[FrameHeader] = None
+    seq_bytes = b""
+    op_idc = 0
+    refs = RefHeaders()
+    frames: List[Av1Frame] = []
+    cur: Optional[Av1Frame] = None
     tiles: List[Optional[bytes]] = []
-    done = False
     while pos < len(payload):
         h = payload[pos]
         if h & 0x80:
@@ -1250,39 +1599,64 @@ def parse_av1(payload: bytes) -> Av1Frame:
         if end > len(payload):
             raise _broken("truncated OBU")
         pos = end
-        if (typ not in (1, 2, 8, 15) and ext and seq is not None
-                and seq.op_idc):
-            if not ((seq.op_idc >> tid) & 1
-                    and (seq.op_idc >> (sid + 8)) & 1):
+        if typ not in (1, 2, 8, 15) and ext and op_idc:
+            if not ((op_idc >> tid) & 1 and (op_idc >> (sid + 8)) & 1):
                 continue
         if typ == 1:
-            seq = parse_sequence_header(_Bits(payload, p, end))
+            if seq is None:
+                seq = parse_sequence_header(_Bits(payload, p, end))
+                seq_bytes = payload[p:end]
+                op = operating_point if operating_point < len(seq.op_idcs) \
+                    else 0
+                op_idc = seq.op_idcs[op]
+            elif payload[p:end] != seq_bytes:
+                raise UnsupportedAvif("AV1: a second sequence header that "
+                                      "differs from the first is not "
+                                      "supported")
         elif typ in (3, 6):
             if seq is None:
                 raise _broken("frame before the sequence header")
-            if done or fh is not None:
-                raise UnsupportedAvif("AV1: more than one frame is not "
-                                      "supported")
+            if cur is not None:
+                raise _broken("a frame header before the previous frame's "
+                              "tiles")
             b = _Bits(payload, p, end)
-            fh = parse_frame_header(b, seq, tid, sid)
+            fh = parse_frame_header(b, seq, tid, sid, refs)
+            refs.update(fh)
             tiles = [None] * ((len(fh.tile_col_starts) - 1)
                               * (len(fh.tile_row_starts) - 1))
+            cur = Av1Frame(seq, fh, [], sid, tid)
             if typ == 6:
                 b.byte_align()
                 _read_tiles(b, fh, end, tiles)
         elif typ == 4:
-            if fh is None:
+            if cur is None:
                 raise _broken("tile group before the frame header")
-            _read_tiles(_Bits(payload, p, end), fh, end, tiles)
-        if fh is not None and tiles and all(t is not None for t in tiles):
-            done = True
+            _read_tiles(_Bits(payload, p, end), cur.frame, end, tiles)
+        if cur is not None and tiles and all(t is not None for t in tiles):
+            cur.tiles = list(tiles)
+            frames.append(cur)
+            cur = None
     if seq is None:
         raise _broken("no sequence header")
-    if fh is None:
-        raise _broken("no frame")
-    if not done:
+    if cur is not None:
         raise _broken("missing tiles")
-    return Av1Frame(seq, fh, tiles)
+    if not frames:
+        raise _broken("no frame")
+    shown = [i for i, f in enumerate(frames) if f.frame.show_frame]
+    if layer is not None:
+        pick = [i for i in shown if frames[i].spatial_id == layer]
+        if not pick:
+            raise _broken(f"no frame of spatial layer {layer}")
+    else:
+        top = max((frames[i].spatial_id for i in shown), default=0) \
+            if op_idc >> 8 > 1 else None
+        pick = [i for i in shown if top is None
+                or frames[i].spatial_id == top]
+    if not pick:
+        raise _broken("no shown frame")
+    out = frames[pick[0]]
+    out.frames = frames[:pick[0] + 1]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1302,7 +1676,11 @@ _CDF_ORDER = (
     "pal_uv_ci5", "pal_uv_ci6", "pal_uv_ci7", "pal_uv_ci8", "intrabc",
     "mv_joints", "mv_sign", "mv_classes", "mv_class0", "mv_bits",
     "txfm_split", "inter_tx1", "inter_tx2", "inter_tx3", "segment_id",
-    "delta_lf_multi",
+    "delta_lf_multi", "y_mode", "is_inter", "comp_mode", "single_ref",
+    "new_mv", "zero_mv", "ref_mv", "drl", "interp_filter", "motion_mode",
+    "obmc", "interintra", "mv0_joints", "mv0_sign", "mv0_classes",
+    "mv0_class0", "mv0_bits", "mv0_class0_fr", "mv0_fr", "mv0_class0_hp",
+    "mv0_hp",
 )
 # the header pack's fields in the order of av1_header.h's H_* enum
 _HDR_FIELDS = (
@@ -1321,7 +1699,13 @@ _HDR_FIELDS = (
 ) + tuple(f"seg_alt_q{i}" for i in range(8)) + (
     "seg_lossless_mask", "seg_alt_lf_mask") \
     + tuple(f"seg_alt_lf{i}" for i in range(8)) + (
-    "seg_skip_mask", "superres_denom", "upscaled_width") \
+    "seg_skip_mask", "superres_denom", "upscaled_width",
+    "frame_type", "allow_hp", "force_integer_mv", "interp_filter",
+    "motion_switchable", "use_ref_frame_mvs", "reference_select",
+    "allow_warped", "dual_filter", "interintra", "sign_bias",
+    "context_tile") + tuple(f"lf_ref_delta{i}" for i in range(1, 8)) + (
+    "lf_mode_delta0", "lf_mode_delta1", "seg_ref_mask", "seg_ref_frames",
+    "seg_globalmv_mask") \
     + tuple(f"cdef_{k}{i}" for i in range(8)
             for k in ("y_pri", "y_sec", "uv_pri", "uv_sec"))
 # the decoder's tool counters in the order of av1_header.h's T_* enum
@@ -1335,7 +1719,10 @@ TOOL_NAMES = (
     "intrabc_chroma_subpel", "vartx_split", "tx_inter_set1",
     "tx_inter_set2", "tx_inter_set3", "tx_flip", "intrabc_sub8x8_chroma",
     "segmentation", "seg_alt_q", "seg_preskip", "seg_pred_skip", "superres",
-    "seg_alt_lf", "seg_skip", "delta_lf_multi",
+    "seg_alt_lf", "seg_skip", "delta_lf_multi", "inter_frame", "newmv",
+    "nearestmv", "nearmv", "globalmv", "drl", "subpel_mv", "filter_regular",
+    "filter_smooth", "filter_sharp", "filter_bilinear", "dual_filter",
+    "intra_in_inter", "sub8x8_chroma_mvs", "lf_ref_delta", "lf_mode_delta",
 )
 # the film grain pack (av1_header.h's G_* enum): field, length
 _GRAIN_FIELDS = (
@@ -1389,7 +1776,8 @@ def _cdf_pack(qctx: int):
         ptrs = (C.POINTER(C.c_uint16) * len(arrs))(
             *[a.ctypes.data_as(C.POINTER(C.c_uint16)) for a in arrs])
         lens = np.array([a.size for a in arrs], dtype=np.int64)
-        _CDF_CACHE[qctx] = (arrs, ptrs, lens)
+        rows = [np.shape(src[k])[-1] for k in _CDF_ORDER]
+        _CDF_CACHE[qctx] = (arrs, ptrs, lens, rows)
     return _CDF_CACHE[qctx]
 
 
@@ -1404,7 +1792,7 @@ def _tool_tables():
         with np.load(path) as t:
             _TOOL_CACHE.update({k: t[k] for k in t.files})
         _TOOL_CACHE["qm"] = np.ascontiguousarray(_TOOL_CACHE["qm"])
-        for k in ("gaussian_sequence", "upscale_filter"):
+        for k in ("gaussian_sequence", "upscale_filter", "subpel_filters"):
             _TOOL_CACHE[k] = np.ascontiguousarray(_TOOL_CACHE[k],
                                                   dtype=np.int16)
     return _TOOL_CACHE
@@ -1414,7 +1802,9 @@ def _reader_cdfs() -> dict:
     """The default CDFs only the reader needs: delta q, delta LF (and the
     four of delta_lf_multi, which start from it), the chroma palette's,
     intra block copy's (use_intrabc, the DV's MV CDFs, the var-tx split
-    and the inter transform types) and segment_id's."""
+    and the inter transform types), segment_id's and the inter frames'
+    (mode info, reference frames, filters, motion modes and the MV CDFs
+    of MvCtx 0)."""
     from ..av1.frame import _adaptive
     from ..av1.tables import TABLES
 
@@ -1428,7 +1818,14 @@ def _reader_cdfs() -> dict:
             **{k: _adaptive(t[k]) for k in (
                 "intrabc", "mv_joints", "mv_sign", "mv_classes", "mv_class0",
                 "mv_bits", "txfm_split", "inter_tx1", "inter_tx2",
-                "inter_tx3", "segment_id")}}
+                "inter_tx3", "segment_id", "y_mode", "is_inter",
+                "comp_mode", "single_ref", "new_mv", "zero_mv", "ref_mv",
+                "drl", "interp_filter", "motion_mode", "obmc",
+                "interintra")},
+            # MvCtx 0 starts from the same defaults as intrabc's context
+            **{f"mv0_{k[3:]}": _adaptive(t[k]) for k in (
+                "mv_joints", "mv_sign", "mv_classes", "mv_class0", "mv_bits",
+                "mv_class0_fr", "mv_fr", "mv_class0_hp", "mv_hp")}}
 
 
 def _constants():
@@ -1504,19 +1901,70 @@ def _grain_pack(g: FilmGrain, mc_identity: bool) -> np.ndarray:
     return np.array(out, dtype=np.int32)
 
 
-def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
-    """Decode one AV1 item payload to its visible Y'UV planes (int32).
-    ``times``, where given, gains the seconds of "parse" (headers and the
-    tile decode), "filters" (deblocking, CDEF, loop restoration),
-    "upscale" (superres) and "grain" (film grain synthesis)."""
-    from ..av1.consts import coeff_q_ctx
-    from ..av1.restoration import count_units, unit_size
-    from ..av1.tables import TABLES
+def decode_av1(payload: bytes, times: Optional[dict] = None,
+               operating_point: int = 0,
+               layer: Optional[int] = None) -> DecodedImage:
+    """Decode one AV1 item payload to the visible Y'UV planes (int32) of
+    the frame it shows (``parse_av1``), decoding in order every frame
+    before it, each into the reference slots it refreshes. ``times``,
+    where given, gains the seconds of "parse" (headers and the tile
+    decode), "filters" (deblocking, CDEF, loop restoration), "upscale"
+    (superres), "grain" (film grain synthesis) and "refs" (keeping a
+    frame in its reference slots), summed over the frames,
+    and each frame's tile decode and post-filters apart ("tiles_f0",
+    "filters_f0", ...). The tool counts are those of every frame."""
+    from .av1_refs import RefFrames
 
     t0 = time.perf_counter()
     lib = _host_lib()
-    av1 = parse_av1(payload)
-    s, fh = av1.seq, av1.frame
+    out = parse_av1(payload, operating_point, layer)
+    refs = RefFrames()
+    counts = np.zeros(len(TOOL_NAMES), dtype=np.int32)
+    if times is not None:
+        times["parse"] = times.get("parse", 0.0) + time.perf_counter() - t0
+    img = None
+    for i, f in enumerate(out.frames):
+        img = _decode_frame(lib, f, refs, counts, times, i,
+                            f is out.frames[-1])
+    img.tools = dict(zip(TOOL_NAMES, counts.tolist()))
+    return img
+
+
+def _check_inter(f: "Av1Frame", refs) -> None:
+    """The inter tools this decoder refuses at the frame level."""
+    fh = f.frame
+    if any(fh.gm_type):
+        raise UnsupportedAvif("AV1: global motion other than IDENTITY is "
+                              "not supported")
+    if fh.skip_mode_present:
+        raise UnsupportedAvif("AV1: skip_mode is not supported")
+    for i in fh.ref_frame_idx:
+        ref = refs.slots[i]
+        if ref is None:
+            raise _broken("an inter frame names an empty reference slot")
+        if fh.use_ref_frame_mvs and ref.frame_type != 0:
+            raise UnsupportedAvif("AV1: use_ref_frame_mvs with an inter "
+                                  "reference frame (motion field "
+                                  "estimation) is not supported")
+        ss = (0, 0) if f.seq.mono else f.seq.ss
+        if (ref.bit_depth, ref.ss) != (f.seq.bit_depth, ss):
+            raise _broken("a reference frame of another depth or format")
+
+
+def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
+                  times: Optional[dict], index: int,
+                  last: bool) -> DecodedImage:
+    """One frame of ``decode_av1``: tiles, post-filters, the reference
+    slots it refreshes, and (for the frame shown) film grain."""
+    from ..av1.consts import coeff_q_ctx
+    from ..av1.restoration import count_units, unit_size
+    from ..av1.tables import TABLES
+    from .av1_refs import RefFrame, clear_counters
+
+    t0 = time.perf_counter()
+    s, fh = f.seq, f.frame
+    if fh.frame_type:
+        _check_inter(f, refs)
     nplanes = 1 if s.mono else 3
     ssx, ssy = (0, 0) if s.mono else s.ss
     bd = s.bit_depth
@@ -1541,6 +1989,7 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     strengths = [0] * 32
     for i, st in enumerate(fh.cdef_strengths):
         strengths[4 * i:4 * i + 4] = st
+    seg = fh.segmentation or [[None] * 8] * 8
     fields = dict(
         mi_rows=fh.mi_rows, mi_cols=fh.mi_cols, nplanes=nplanes, bitdepth=bd,
         sb128=int(s.sb128), tile_cols=len(fh.tile_col_starts) - 1,
@@ -1565,36 +2014,62 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
         delta_q_res=fh.delta_q_res, delta_lf_res=fh.delta_lf_res,
         delta_lf_multi=int(fh.delta_lf_multi),
         lf_delta_enabled=int(fh.lf_delta_enabled),
-        lf_ref_delta_intra=fh.lf_ref_delta_intra,
+        lf_ref_delta_intra=fh.lf_ref_deltas[0],
         allow_intrabc=int(fh.allow_intrabc),
         seg_enabled=int(fh.segmentation is not None),
         seg_preskip=int(fh.seg_preskip), seg_last_active=fh.seg_last_active,
-        seg_alt_q_mask=sum(1 << i for i, f in enumerate(fh.segmentation or [])
-                           if f[0] is not None),
-        **{f"seg_alt_q{i}": (f[0] or 0)
-           for i, f in enumerate(fh.segmentation or [[None]] * 8)},
+        seg_alt_q_mask=sum(1 << i for i, f_ in enumerate(seg)
+                           if f_[0] is not None),
+        **{f"seg_alt_q{i}": (f_[0] or 0) for i, f_ in enumerate(seg)},
         seg_lossless_mask=sum(int(v) << i
                               for i, v in enumerate(fh.seg_lossless)),
         # 32 bits: segment 7's ALT_LF_V is the sign bit of the int32 word
         seg_alt_lf_mask=int(np.uint32(sum(
-            1 << (4 * i + k) for i, f in enumerate(fh.segmentation or [])
-            for k in range(4) if f[1 + k] is not None)).view(np.int32)),
+            1 << (4 * i + k) for i, f_ in enumerate(seg)
+            for k in range(4) if f_[1 + k] is not None)).view(np.int32)),
         **{f"seg_alt_lf{i}": int.from_bytes(
-            bytes((v or 0) & 0xFF for v in f[1:5]), "little", signed=True)
-           for i, f in enumerate(fh.segmentation or [[None] * 8] * 8)},
-        seg_skip_mask=sum(1 << i for i, f in enumerate(fh.segmentation or [])
-                          if f[6] is not None),
+            bytes((v or 0) & 0xFF for v in f_[1:5]), "little", signed=True)
+           for i, f_ in enumerate(seg)},
+        seg_skip_mask=sum(1 << i for i, f_ in enumerate(seg)
+                          if f_[6] is not None),
         superres_denom=fh.superres_denom, upscaled_width=w,
+        frame_type=fh.frame_type, allow_hp=int(fh.allow_hp),
+        force_integer_mv=int(fh.force_integer_mv),
+        interp_filter=fh.interp_filter,
+        motion_switchable=int(fh.motion_switchable),
+        use_ref_frame_mvs=int(fh.use_ref_frame_mvs),
+        reference_select=int(fh.reference_select),
+        allow_warped=int(fh.allow_warped_motion),
+        dual_filter=int(s.dual_filter), interintra=int(s.interintra),
+        sign_bias=sum(b << r for r, b in enumerate(fh.sign_bias)),
+        context_tile=fh.context_update_tile_id,
+        **{f"lf_ref_delta{i}": fh.lf_ref_deltas[i] for i in range(1, 8)},
+        lf_mode_delta0=fh.lf_mode_deltas[0],
+        lf_mode_delta1=fh.lf_mode_deltas[1],
+        seg_ref_mask=sum(1 << i for i, f_ in enumerate(seg)
+                         if f_[5] is not None),
+        seg_ref_frames=sum((f_[5] or 0) << (3 * i)
+                           for i, f_ in enumerate(seg)),
+        seg_globalmv_mask=sum(1 << i for i, f_ in enumerate(seg)
+                              if f_[7] is not None),
         **{name: v for name, v in zip(_HDR_FIELDS[-32:], strengths)})
     hdr = np.array([fields[k] for k in _HDR_FIELDS], dtype=np.int32)
     starts = np.array(fh.tile_col_starts + fh.tile_row_starts, dtype=np.int32)
-    arrs, cdf_ptrs, cdf_lens = _cdf_pack(coeff_q_ctx(fh.base_q))
+    defaults, _, cdf_lens, cdf_rows = _cdf_pack(coeff_q_ctx(fh.base_q))
+    if fh.primary_ref_frame == 7:
+        start_cdfs = defaults
+    else:  # load_cdfs of the primary reference frame
+        start_cdfs = refs.slots[fh.ref_frame_idx[fh.primary_ref_frame]].cdfs
+    pu16 = C.POINTER(C.c_uint16)
+    cdf_ptrs = (pu16 * len(start_cdfs))(
+        *[a.ctypes.data_as(pu16) for a in start_cdfs])
+    cdf_out = np.zeros(int(cdf_lens.sum()), dtype=np.uint16)
     scans, scan_ptrs, smw, smw_ptrs, dr, taps = _constants()
-    ntiles = len(av1.tiles)
-    tile_bufs = [C.create_string_buffer(t, len(t)) for t in av1.tiles]
+    ntiles = len(f.tiles)
+    tile_bufs = [C.create_string_buffer(t, len(t)) for t in f.tiles]
     tile_ptrs = (C.POINTER(C.c_uint8) * ntiles)(
         *[C.cast(t, C.POINTER(C.c_uint8)) for t in tile_bufs])
-    tile_sizes = np.array([len(t) for t in av1.tiles], dtype=np.int64)
+    tile_sizes = np.array([len(t) for t in f.tiles], dtype=np.int64)
     p32, p8 = C.POINTER(C.c_int32), C.POINTER(C.c_uint8)
     plane_ptrs = (p32 * 3)(*[p.ctypes.data_as(p32) for p in planes])
     txmaps = [np.zeros((fh.mi_rows, fh.mi_cols), dtype=np.uint8)
@@ -1606,7 +2081,17 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     lr_units = np.zeros((3, max(urows), max(ucols), 7), dtype=np.int32)
     delta_lf = np.zeros((fh.mi_rows, fh.mi_cols, 4), dtype=np.int8)
     segs = np.zeros((fh.mi_rows, fh.mi_cols), dtype=np.uint8)
-    counts = np.zeros(len(TOOL_NAMES), dtype=np.int32)
+    mi_lf = np.zeros((fh.mi_rows, fh.mi_cols), dtype=np.uint8)
+    mi_bsz = np.zeros((fh.mi_rows, fh.mi_cols), dtype=np.uint8)
+    # the planes of LAST..ALTREF and their stride, width and height
+    ref_ptrs = (p32 * 21)()
+    ref_info = np.zeros(21, dtype=np.int32)
+    for r, i in enumerate(fh.ref_frame_idx):
+        ref = refs.slots[i]
+        for p in range(nplanes):
+            ref_ptrs[3 * r + p] = ref.planes[p].ctypes.data_as(p32)
+        ref_info[3 * r:3 * r + 3] = (ref.planes[0].shape[1], ref.width,
+                                     ref.height)
     msg = C.create_string_buffer(256)
     vp = C.c_void_p
     rc = lib.av1_decode_frame(
@@ -1617,7 +2102,9 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
         None if qm is None else qm.ctypes.data, C.cast(plane_ptrs, vp),
         stride, C.cast(tx_ptrs, vp), skips.ctypes.data, cdef_idx.ctypes.data,
         delta_lf.ctypes.data, segs.ctypes.data, lr_units.ctypes.data,
-        counts.ctypes.data, msg, 256)
+        counts.ctypes.data, C.cast(ref_ptrs, vp), ref_info.ctypes.data,
+        _tool_tables()["subpel_filters"].ctypes.data, cdf_out.ctypes.data,
+        mi_lf.ctypes.data, mi_bsz.ctypes.data, msg, 256)
     if rc == 1:
         raise UnsupportedAvif(msg.value.decode())
     if rc:
@@ -1627,12 +2114,28 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
     if lib.av1_postfilter(C.cast(plane_ptrs, vp), stride, hdr.ctypes.data,
                           C.cast(tx_ptrs, vp), skips.ctypes.data,
                           cdef_idx.ctypes.data, delta_lf.ctypes.data,
-                          segs.ctypes.data, lr_units.ctypes.data,
+                          segs.ctypes.data, mi_lf.ctypes.data,
+                          mi_bsz.ctypes.data, lr_units.ctypes.data,
                           _tool_tables()["upscale_filter"].ctypes.data,
                           counts.ctypes.data, C.byref(upscale)):
         raise MemoryError("AVIF post-filters: out of memory")
     t2 = time.perf_counter()
-    if fh.grain is not None:
+    if fh.refresh_frame_flags:
+        # the frame as later frames read it: before film grain, with the
+        # CDFs of its context tile (or those it started from), their
+        # counters cleared
+        if fh.disable_frame_end_update_cdf:
+            saved = [a.copy() for a in start_cdfs]
+        else:
+            saved = np.split(cdf_out, np.cumsum(cdf_lens)[:-1])
+            clear_counters(saved, cdf_rows)
+        kept = [p.copy() for p in planes] if fh.grain is not None and last \
+            else planes
+        refs.update(fh.refresh_frame_flags,
+                    RefFrame(kept, bd, (ssx, ssy), w, h, saved,
+                             fh.frame_type))
+    ts = time.perf_counter()
+    if fh.grain is not None and last:
         pack = _grain_pack(fh.grain, s.cicp[2] == 0)
         if lib.av1_film_grain(C.cast(plane_ptrs, vp), stride, hdr.ctypes.data,
                               pack.ctypes.data,
@@ -1644,13 +2147,13 @@ def decode_av1(payload: bytes, times: Optional[dict] = None) -> DecodedImage:
            for p, (sy, sx) in zip(planes, [(0, 0)] + [(ssy, ssx)] * 2)]
     if times is not None:
         # the crop to the visible size counts with the filters
-        for k, v in (("parse", t1 - t0), ("grain", t3 - t2),
-                     ("upscale", upscale.value),
-                     ("filters", t2 - t1 - upscale.value
-                      + time.perf_counter() - t3)):
+        filt = t2 - t1 - upscale.value + time.perf_counter() - t3
+        for k, v in (("parse", t1 - t0), ("grain", t3 - ts), ("refs", ts - t2),
+                     ("upscale", upscale.value), ("filters", filt),
+                     (f"tiles_f{index}", t1 - t0),
+                     (f"filters_f{index}", t2 - t1)):
             times[k] = times.get(k, 0.0) + v
-    return DecodedImage(out, bd, s.cicp, s.full_range, s.mono, (ssx, ssy),
-                        dict(zip(TOOL_NAMES, counts.tolist())))
+    return DecodedImage(out, bd, s.cicp, s.full_range, s.mono, (ssx, ssy))
 
 
 # ---------------------------------------------------------------------------
@@ -1838,13 +2341,19 @@ def yuv_to_rgb8(img: DecodedImage, rgba: bool = False,
     else:
         u, v = img.planes[1], img.planes[2]
     kind, k = _conversion(img.cicp, img.full_range)
+    if kind == "libyuv" and img.mono and bd > 8 and not rgba:
+        # deep monochrome to RGB: libavif converts in float32, its chroma
+        # 0 leaving R = G = B = Y (the matrix unused); to RGBA it narrows
+        # the planes to 8 bits for libyuv, as below
+        kind, k = "float", (np.float32(0.299), np.float32(0.114))
     if kind == "libyuv":
-        if bd == 10 and rgba:  # libyuv YuvPixel10 (I010/I210/I410ToARGB)
+        if bd == 10 and rgba and not img.mono:
+            # libyuv YuvPixel10 (I010/I210/I410ToARGB)
             y32 = (y << 6) | (y >> 4)
             if sub:
                 u, v = (_libyuv_upsample(c, h, w, img.ss) for c in (u, v))
             u, v = u >> 2, v >> 2
-        elif bd == 12 and rgba and img.ss == (1, 1):
+        elif bd == 12 and rgba and img.ss == (1, 1) and not img.mono:
             # libyuv I012ToARGBMatrix (YuvPixel12), which has no
             # filtering variant: each chroma sample covers its 2x2
             y32 = (y << 4) | (y >> 8)
@@ -1996,14 +2505,42 @@ def _stitch(it: Av1Item, cells: List[DecodedImage]) -> DecodedImage:
                         first.mono, first.ss, tools)
 
 
+def _scale_to_ispe(img: DecodedImage, w: int, h: int) -> DecodedImage:
+    """A frame whose size differs from its ``ispe``, scaled to it as
+    libavif 1.3 does (avifImageScale: libyuv's ScalePlane with its box
+    filter mode on each plane, the chroma to the subsampled size), within
+    libavif's image size limits."""
+    from .yuv_scale import scale_plane
+
+    if w * h > _GRID_MAX_PIXELS or max(w, h) > _GRID_MAX_SIDE:
+        raise _broken(f"ispe {w}x{h} is too large")
+    ssx, ssy = (0, 0) if img.mono else img.ss
+    out = []
+    for k, p in enumerate(img.planes):
+        sx, sy = (ssx, ssy) if k else (0, 0)
+        try:
+            out.append(scale_plane(p, (w + sx) >> sx, (h + sy) >> sy,
+                                   img.bit_depth > 8))
+        except NotImplementedError as e:
+            raise UnsupportedAvif(f"AVIF: a {p.shape[1]}x{p.shape[0]} "
+                                  f"plane scaled to its ispe {w}x{h} by "
+                                  f"{e}") from None
+    return DecodedImage(out, img.bit_depth, img.cicp, img.full_range,
+                        img.mono, img.ss, img.tools)
+
+
 def _decode_item(it: Av1Item, times: Optional[dict]) -> DecodedImage:
     """An item's (or a track sample's) Y'UV: one AV1 payload, or a grid's
     cells, each decoded (film grain included) and then stitched."""
     decoded = []
     for cell in it.cells or [it]:
-        img = decode_av1(cell.payload, times)
+        img = decode_av1(cell.payload, times, cell.op, cell.layer)
         if img.planes[0].shape != (cell.height, cell.width):
-            raise _broken("the decoded size differs from ispe")
+            t0 = time.perf_counter()
+            img = _scale_to_ispe(img, cell.width, cell.height)
+            if times is not None:
+                times["scale"] = times.get("scale", 0.0) \
+                    + time.perf_counter() - t0
         decoded.append(img)
     if not it.cells:
         return decoded[0]

@@ -24,7 +24,19 @@ and write ``oavif_tpu_torch/io/av1_tool_tables.npz``:
   one row of 8 symbols for each of the 3 contexts of the spatial
   prediction;
 - ``upscale_filter``: superres's 8-tap filters at the 64 phases (spec
-  Upscale_Filter, libaom's ``av1_resize_filter_normative``), int16.
+  Upscale_Filter, libaom's ``av1_resize_filter_normative``), int16;
+- the default CDFs of inter frames: ``y_mode`` (by size group),
+  ``is_inter``, ``comp_mode``, ``single_ref`` (3 contexts x p1..p6),
+  ``new_mv``, ``zero_mv``, ``ref_mv``, ``drl``, ``interp_filter`` (16
+  contexts of 3 filters), ``motion_mode`` and ``obmc`` (by block size),
+  ``interintra`` (by size group), and the MV CDFs of MvCtx 0, whose
+  defaults are those of ``default_nmv_context`` (the intrabc ones above)
+  with the fractions ``mv_class0_fr`` and ``mv_fr`` and the
+  high-precision bits ``mv_class0_hp`` and ``mv_hp``;
+- ``subpel_filters``: inter prediction's Subpel_Filters[6][16][8]
+  (regular, smooth, sharp, bilinear, and the 4-tap regular and smooth
+  rows of blocks 4 wide or tall; libaom's ``av1_sub_pel_filters_*``),
+  int16.
 
 Each table is found by a structural signature and checked against anchor
 values before anything is written: the matrices by their first 4x4 (the
@@ -33,7 +45,9 @@ the transpose of h x w), their range and their product with the forward
 matrices that follow them in libaom's ``.rodata``; the Gaussian samples by their first eight values, their range
 and their spacing of 4; the CDFs by the spec's values and by their shape
 (each row decreasing to its closing 0); the upscale filter by its first
-three phases, its sums of 128 and its mirror symmetry. libaom copies its small default
+three phases, its sums of 128 and its mirror symmetry; the subpel filters
+by their first two phases, their sums of 128 and the mirror symmetry of
+every phase with its complement. libaom copies its small default
 CDFs into the frame context with immediate stores and 16-byte loads, so
 ``intrabc`` is read from the one store of its value in ``.text``, and
 ``txfm_split`` from its 16-byte chunks, which the linker keeps in order
@@ -80,6 +94,32 @@ INTER_TX_NSYM = (16, 12, 2)
 SEGMENT_ID_FIRST = (5622, 7893, 16093, 18233, 27809, 28373, 32533)  # AOM_CDF8
 UPSCALE_FIRST = ((0, 0, 0, 128, 0, 0, 0, 0), (0, 0, -1, 128, 2, -1, 0, 0),
                  (0, 1, -3, 127, 4, -2, 1, 0))
+# each Subpel_Filters table's phase 1 (phase 0 is the identity)
+SUBPEL_PHASE1 = ((0, 2, -6, 126, 8, -2, 0, 0), (0, 2, 28, 62, 34, 2, 0, 0),
+                 (-2, 2, -6, 126, 8, -2, 2, 0), (0, 0, 0, 120, 8, 0, 0, 0),
+                 (0, 0, -4, 126, 8, -2, 0, 0), (0, 0, 30, 62, 34, 2, 0, 0))
+# the inter default CDFs: name -> (the first rows' probabilities, or the
+# start of the first row, rows, symbols); each table is found by them and
+# read whole
+INTER_CDFS = {
+    "y_mode": ((22801, 23489, 24293), 4, 13),
+    "new_mv": ((24035, 16630, 15339), 6, 2),
+    "ref_mv": ((23974, 24188, 17848), 6, 2),
+    "comp_mode": ((26828, 24035, 12031), 5, 2),
+    "single_ref": ((4897, 1555, 4236), 18, 2),
+    "interp_filter": ((31935, 32720), 16, 3),
+    "motion_mode": ((10923, 21845) * 3 + (7651, 24760), 20, 3),
+    "obmc": ((16384, 16384, 16384, 10437), 22, 2),
+    "interintra": ((16384, 26887, 27597), 3, 2),
+}
+# CDFs found by their first two rows only
+CHUNKED_CDFS = {"drl": ((13104, 24560, 18945), 3)}
+# zero_mv's two rows live in one ``movabs`` immediate in ``.text``;
+# is_inter's first three rows in ``.rodata`` (its fourth, 26538, is the
+# spec's Default_Is_Inter_Cdf, which libaom stores by immediate)
+ZERO_MV = (2175, 1054)
+INTERINTRA_LAST = 30237
+IS_INTER = (806, 16662, 20186, 26538)
 
 
 def section(lib: str, name: str = ".rodata") -> bytes:
@@ -254,6 +294,115 @@ def upscale_filter(data: bytes) -> np.ndarray:
     return f.astype(np.int16)
 
 
+def _rows(probs, nsym: int) -> list:
+    """Stored rows of CDF``nsym`` tables: each the inverse CDF, its
+    closing 0 and the counter; ``probs`` flat, nsym - 1 per row."""
+    out = []
+    for i in range(0, len(probs), nsym - 1):
+        out += _icdf(*probs[i:i + nsym - 1]) + [0, 0]
+    return out
+
+
+def _table(data: bytes, at: int, rows: int, nsym: int, what: str):
+    """A CDF table of ``rows`` rows at ``at``: stored whole; or without
+    its last row's closing 0 and counter (the compiler leaves the zero
+    tail of an array to the zeroed frame context); or, as txfm_split is,
+    as its whole 16-byte chunks in order, then the array's last 16 bytes,
+    overlapping the chunk before."""
+    n = rows * (nsym + 1) * 2
+    k = n // 16
+    whole = data[at:at + n]
+    trimmed = data[at:at + n - 4] + bytes(4)
+    split = data[at:at + 16 * k] + data[at + 16 * k + 16 * (k + 1) - n:
+                                        at + 16 * (k + 1)]
+    for body in (whole, trimmed, split):
+        a = np.frombuffer(body, "<u2").reshape(rows, nsym + 1)
+        try:
+            return np.stack([_cdf_row(r, nsym, what) for r in a])
+        except ValueError:
+            continue
+    require(False, f"{what}: not a CDF table")
+
+
+def inter_cdfs(data: bytes, text: bytes) -> dict:
+    """The inter frames' default CDFs (INTER_CDFS, CHUNKED_CDFS, ZERO_MV,
+    IS_INTER), each row checked to be a CDF."""
+    out = {}
+    for name, (first, rows, nsym) in INTER_CDFS.items():
+        # whole rows, or the start of the first one
+        sig = _rows(first, nsym) if len(first) % (nsym - 1) == 0 \
+            else _icdf(*first)
+        at = find_once(data, np.array(sig, "<u2").tobytes(), f"{name} CDF")
+        out[name] = _table(data, at, rows, nsym, name)
+    for name, (first, rows) in CHUNKED_CDFS.items():
+        at = find_once(data, np.array(_rows(first[:2], 2), "<u2").tobytes(),
+                       f"{name} CDF")
+        out[name] = _table(data, at, rows, 2, name)
+        require(tuple(32768 - out[name][:, 0].astype(int)) == first,
+                f"{name} CDF: its rows")
+    imm = np.array(_icdf(ZERO_MV[0]) + [0, 0] + _icdf(ZERO_MV[1]),
+                   "<u2").tobytes()
+    hits = [i for i in range(2, len(text) - 8) if text.startswith(imm, i)
+            and text[i - 2] in (0x48, 0x49) and 0xB8 <= text[i - 1] <= 0xBF]
+    require(len(hits) == 1, "zero_mv CDF store: not exactly one")
+    out["zero_mv"] = np.array([_icdf(p) + [0] for p in ZERO_MV], np.uint16)
+    head = np.array(_rows(IS_INTER[:3], 2)[:8], "<u2").tobytes()
+    find_once(data, head, "is_inter CDF")
+    out["is_inter"] = np.array([_icdf(p) + [0] for p in IS_INTER], np.uint16)
+    out["single_ref"] = out["single_ref"].reshape(3, 6, 2)
+    # libaom's .rodata holds 20 rows of motion_mode: the 4x16 and 16x4
+    # rows, which no block reads (OBMC and warped motion need both sides
+    # at least 8), are the equiprobable ones of 4x4-8x4
+    # interintra's fourth row is not beside its first three (the spec's
+    # Default_Inter_Intra_Cdf gives 30237)
+    out["interintra"] = np.concatenate(
+        [out["interintra"], np.array([_icdf(INTERINTRA_LAST) + [0]],
+                                     np.uint16)])
+    mm = out["motion_mode"]
+    out["motion_mode"] = np.concatenate([mm[:16], mm[:2], mm[16:]])
+    return out
+
+
+def mv_fraction_cdfs(data: bytes) -> dict:
+    """The MV fraction and high-precision CDFs of default_nmv_context
+    (class0_fp[2], fp, class0_hp, hp per component), as ``mv_cdfs`` reads
+    the others."""
+    at = data.find(np.array(_icdf(*NMV_JOINTS) + [0, 0], "<u2").tobytes())
+    comp = 12 + 2 * 5 + 5 + 3 + 3 + 3 + 3 + 10 * 3
+    a = np.frombuffer(data, "<u2", 5 + 2 * comp, at)
+    cs = [a[5 + k * comp:5 + (k + 1) * comp] for k in range(2)]
+    return {"mv_class0_fr": np.stack([np.stack(
+                [_cdf_row(c[o:o + 5], 4, "MV class0 fraction")
+                 for o in (12, 17)]) for c in cs]),
+            "mv_fr": np.stack([_cdf_row(c[22:27], 4, "MV fraction")
+                               for c in cs]),
+            "mv_class0_hp": np.stack([_cdf_row(c[30:33], 2, "MV class0 hp")
+                                      for c in cs]),
+            "mv_hp": np.stack([_cdf_row(c[33:36], 2, "MV hp") for c in cs])}
+
+
+def subpel_filters(data: bytes) -> np.ndarray:
+    """Subpel_Filters: six tables of 16 phases of 8 int16 taps, each found
+    by its first two phases (libaom keeps identical copies)."""
+    out = []
+    for first in SUBPEL_PHASE1:
+        sig = np.array(((0, 0, 0, 128, 0, 0, 0, 0), first), "<i2").tobytes()
+        at = data.find(sig)
+        require(at >= 0, "subpel filter not found")
+        f = np.frombuffer(data, "<i2", 16 * 8, at).reshape(16, 8)
+        i = at
+        while (i := data.find(sig, i + 1)) >= 0:
+            require(np.array_equal(np.frombuffer(data, "<i2", 128, i)
+                                   .reshape(16, 8), f),
+                    "subpel filter copies differ")
+        require(np.all(f.sum(1) == 128), "subpel filter: taps do not sum "
+                "to 128")
+        require(np.array_equal(f[1:][::-1], f[1:, ::-1]),
+                "subpel filter: phases not mirrored")
+        out.append(f)
+    return np.stack(out).astype(np.int16)
+
+
 def main(argv: list) -> None:
     lib = argv[0] if argv else LIBAOM
     data = section(lib)
@@ -264,7 +413,9 @@ def main(argv: list) -> None:
               "intrabc": intrabc_cdf(section(lib, ".text")),
               **mv_cdfs(data), "txfm_split": txfm_split_cdf(data),
               **inter_tx_cdfs(data), "segment_id": segment_id_cdf(data),
-              "upscale_filter": upscale_filter(data)}
+              "upscale_filter": upscale_filter(data),
+              **inter_cdfs(data, section(lib, ".text")),
+              **mv_fraction_cdfs(data), "subpel_filters": subpel_filters(data)}
     np.savez_compressed(OUT, **tables)
     for k, v in tables.items():
         print(f"{k}: {v.shape} {v.dtype}")

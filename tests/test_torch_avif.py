@@ -553,6 +553,11 @@ LEARNED = {
                                    av1.frame.delta_lf_res,
                                    av1.frame.delta_lf_multi) == (0, 0, True),
     "film grain": lambda av1: av1.frame.grain is not None,
+    # two shown key frames and no spatial layers: dav1d, as libavif
+    # drives it, shows the first, which is all the reader decodes
+    "more than one frame": lambda av1: (len(av1.frames), av1.frame.show_frame,
+                                        av1.frames[0] is av1) == (1, True,
+                                                                  True),
     "segmentation": lambda av1: (av1.frame.segmentation == [[None] * 8] * 8
                                  and av1.frame.seg_last_active == 0),
     "intrabc": lambda av1: (av1.frame.allow_intrabc, av1.frame.base_q,

@@ -99,6 +99,11 @@ TOOLS_MADE = {**json.loads((FIXTURES.parent / "avif_tools"
               # key frame (a skipped block's predicted segment id, ids
               # read before skip, ALT_LF, SKIP, delta_lf_multi)
               **json.loads((FIXTURES.parent / "avif_lf_seg"
+                            / "manifest.json").read_text()),
+              # inter frames: libaom's realtime layers, and layer 1 written
+              # symbol by symbol for the filters, dual filters, 4x4 inter
+              # blocks and mode deltas libaom does not write
+              **json.loads((FIXTURES.parent / "avif_layers"
                             / "manifest.json").read_text())}
 
 

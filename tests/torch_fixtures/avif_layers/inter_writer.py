@@ -1,0 +1,545 @@
+"""An AV1 inter-frame writer, symbol by symbol, for the inter tools libaom
+3.6's realtime usage never writes into a layered image: the sharp and
+bilinear filters, two filters per block (``enable_dual_filter``), chroma
+predicted from several 4x4 blocks' MVs, and loop filter mode deltas.
+
+    from inter_writer import InterBlock, write_layered
+    data = write_layered(key_obus, blocks, filter=4, dual=True)
+
+The stream is libaom's key frame (layer 0, from ``make_avif_layers``)
+under a sequence header written again with the inter tools this frame
+needs (``enable_dual_filter``; no warped motion, no reference MVs), then
+one inter frame of spatial layer 1 with every block inter, skipped (no
+residual) and predicted from LAST at its own MV (NEWMV, the difference
+from its MV stack's prediction coded in MV context 0) and filters. The
+frame is cut into 64x64 superblocks, each one block (PARTITION_NONE) or
+split down to 4x4 blocks. Its header takes the default CDFs
+(``primary_ref_frame`` none), a fixed interpolation filter or
+SWITCHABLE, and loop filter levels with reference and mode deltas.
+
+The MV stack, its contexts and the symbols' contexts follow the spec
+(7.10.2, 8.3.2) as dav1d computes them, here in Python; dav1d, which
+decodes the result, is the judge of whether they are right. The entropy
+coder is the port's ``RangeEncoder`` over the decoder's default CDFs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from oavif_tpu_torch.av1.consts import coeff_q_ctx
+from oavif_tpu_torch.av1.entropy.rangecoder import RangeEncoder, update_cdf
+from oavif_tpu_torch.av1.obu import BitWriter
+from oavif_tpu_torch.io import avif as A
+
+REF_CAT = 640
+
+
+@dataclass
+class InterBlock:
+    """One inter block: its MV (row, col in 1/8 sample) and its filters
+    (y, x: 0 regular, 1 smooth, 2 sharp) where they are switchable."""
+
+    mv: Tuple[int, int] = (0, 0)
+    filt: Tuple[int, int] = (0, 0)
+
+
+def _obus(data: bytes):
+    pos = 0
+    while pos < len(data):
+        head = data[pos]
+        p = pos + 1 + ((head >> 2) & 1)
+        size = shift = 0
+        while True:
+            b = data[p]
+            p += 1
+            size |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                break
+        yield (head >> 3) & 15, data[pos:p + size], p, p + size
+        pos = p + size
+
+
+def _leb128(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _obu_ext(typ: int, payload: bytes, sid: int) -> bytes:
+    """An OBU with its extension header (temporal id 0, spatial ``sid``)."""
+    return bytes([(typ << 3) | 0x04 | 0x02, sid << 3]) + _leb128(
+        len(payload)) + payload
+
+
+def sequence_header(s: A.SequenceHeader, dual: bool) -> bytes:
+    """A full sequence header of ``s``'s operating points, size, tools and
+    colour, with ``enable_dual_filter`` set as asked and warped motion and
+    reference MVs off."""
+    w = BitWriter()
+    w.f(s.profile, 3)
+    w.f(0, 1)  # still_picture
+    w.f(0, 1)  # reduced_still_picture_header
+    w.f(0, 1)  # timing_info_present_flag
+    w.f(0, 1)  # initial_display_delay_present_flag
+    w.f(len(s.op_idcs) - 1, 5)
+    for idc in s.op_idcs:
+        w.f(idc, 12)
+        w.f(31, 5)  # seq_level_idx: no level's limits
+        w.f(0, 1)  # seq_tier
+    w.f(s.width_bits - 1, 4)
+    w.f(s.height_bits - 1, 4)
+    w.f(s.width - 1, s.width_bits)
+    w.f(s.height - 1, s.height_bits)
+    w.f(0, 1)  # frame_id_numbers_present_flag
+    w.f(int(s.sb128), 1)
+    w.f(int(s.filter_intra), 1)
+    w.f(int(s.intra_edge), 1)
+    w.f(0, 1)  # enable_interintra_compound
+    w.f(0, 1)  # enable_masked_compound
+    w.f(0, 1)  # enable_warped_motion
+    w.f(int(dual), 1)
+    w.f(1, 1)  # enable_order_hint
+    w.f(0, 1)  # enable_jnt_comp
+    w.f(0, 1)  # enable_ref_frame_mvs
+    if s.screen_tools == 2:
+        w.f(1, 1)  # seq_choose_screen_content_tools
+    else:
+        w.f(0, 1)
+        w.f(s.screen_tools, 1)
+    if s.screen_tools:
+        w.f(int(s.integer_mv == 2), 1)  # seq_choose_integer_mv
+        if s.integer_mv != 2:
+            w.f(s.integer_mv, 1)
+    w.f(s.order_hint_bits - 1, 3)
+    w.f(int(s.superres), 1)
+    w.f(int(s.cdef), 1)
+    w.f(int(s.restoration), 1)
+    # color_config
+    w.f(int(s.bit_depth > 8), 1)
+    if s.profile == 2 and s.bit_depth > 8:
+        w.f(int(s.bit_depth == 12), 1)
+    if s.profile != 1:
+        w.f(int(s.mono), 1)
+    w.f(1, 1)  # color_description_present_flag
+    for v in s.cicp:
+        w.f(v, 8)
+    w.f(int(s.full_range), 1)
+    if not s.mono:
+        if s.profile == 2 and s.bit_depth == 12:
+            w.f(s.ss[0], 1)
+            if s.ss[0]:
+                w.f(s.ss[1], 1)
+        if s.ss == (1, 1):
+            w.f(0, 2)  # chroma_sample_position
+        w.f(int(s.separate_uv_delta_q), 1)
+    w.f(0, 1)  # film_grain_params_present
+    w.trailing_bits()
+    return w.data()
+
+
+def _su(w: BitWriter, v: int, n: int) -> None:
+    w.f(v & ((1 << n) - 1), n)
+
+
+def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
+                 lf: Tuple[int, int, int, int], ref_deltas, mode_deltas,
+                 size: Optional[Tuple[int, int]] = None, primary: int = 7,
+                 compound: bool = False,
+                 seg_update: Optional[Tuple[int, int]] = None) -> BitWriter:
+    """uncompressed_header of a shown inter frame on slot 0 for every
+    reference, refreshing no slot, with the default CDFs; for the
+    refusals' streams, of another ``size`` than the sequence's, with a
+    primary reference frame, ``reference_select`` or segmentation's map
+    and temporal update flags (``seg_update``, past which it writes
+    nothing of the header right)."""
+    w = BitWriter()
+    w.f(0, 1)  # show_existing_frame
+    w.f(1, 2)  # INTER_FRAME
+    w.f(1, 1)  # show_frame
+    w.f(0, 1)  # error_resilient_mode
+    w.f(0, 1)  # disable_cdf_update
+    if s.screen_tools == 2:
+        w.f(0, 1)  # allow_screen_content_tools
+    w.f(int(size is not None), 1)  # frame_size_override_flag
+    w.f(1, s.order_hint_bits)  # order_hint
+    w.f(primary, 3)  # primary_ref_frame
+    w.f(0, 8)  # refresh_frame_flags
+    w.f(0, 1)  # frame_refs_short_signaling
+    for _ in range(7):
+        w.f(0, 3)  # ref_frame_idx
+    width, height = size or (s.width, s.height)
+    if size is not None:
+        for _ in range(7):
+            w.f(0, 1)  # found_ref
+        w.f(width - 1, s.width_bits)
+        w.f(height - 1, s.height_bits)
+    if s.superres:
+        w.f(0, 1)  # use_superres
+    w.f(0, 1)  # render_and_frame_size_different
+    w.f(int(hp), 1)  # allow_high_precision_mv
+    w.f(int(filt == 4), 1)  # is_filter_switchable
+    if filt != 4:
+        w.f(filt, 2)
+    w.f(0, 1)  # is_motion_mode_switchable
+    w.f(1, 1)  # disable_frame_end_update_cdf
+    sb = 128 if s.sb128 else 64
+    sb_cols, sb_rows = -(-width // sb), -(-height // sb)
+    w.f(1, 1)  # uniform_tile_spacing_flag
+    k = 0
+    while (1 << k) < min(sb_cols, 64):
+        k += 1
+    if k:
+        w.f(0, 1)
+    k = 0
+    while (1 << k) < min(sb_rows, 64):
+        k += 1
+    if k:
+        w.f(0, 1)
+    w.f(base_q, 8)
+    w.f(0, 1)  # DeltaQYDc
+    if not s.mono:
+        if s.separate_uv_delta_q:
+            w.f(0, 1)
+        w.f(0, 1)
+        w.f(0, 1)
+    w.f(0, 1)  # using_qmatrix
+    w.f(int(seg_update is not None), 1)  # segmentation_enabled
+    if seg_update is not None:
+        w.f(seg_update[0], 1)  # segmentation_update_map
+        if seg_update[0]:
+            w.f(seg_update[1], 1)  # segmentation_temporal_update
+        return w
+    w.f(0, 1)  # delta_q_present
+    l0, l1, l2, l3 = lf
+    w.f(l0, 6)
+    w.f(l1, 6)
+    if not s.mono and (l0 or l1):
+        w.f(l2, 6)
+        w.f(l3, 6)
+    w.f(0, 3)  # sharpness
+    w.f(1, 1)  # loop_filter_delta_enabled
+    w.f(1, 1)  # loop_filter_delta_update
+    for v in ref_deltas:
+        w.f(1, 1)
+        _su(w, v, 7)
+    for v in mode_deltas:
+        w.f(1, 1)
+        _su(w, v, 7)
+    if s.cdef:
+        w.f(0, 2)  # cdef_damping_minus_3
+        w.f(0, 2)  # cdef_bits
+        w.f(0, 4)
+        w.f(0, 2)
+        if not s.mono:
+            w.f(0, 4)
+            w.f(0, 2)
+    if s.restoration:
+        for _ in range(1 if s.mono else 3):
+            w.f(0, 2)
+    w.f(0, 1)  # tx_mode_select: TX_MODE_LARGEST
+    w.f(int(compound), 1)  # reference_select
+    w.f(0, 1)  # reduced_tx_set
+    for _ in range(7):
+        w.f(0, 1)  # is_global
+    w.byte_align()
+    return w
+
+
+class _Tile:
+    """The inter frame's one tile and the state its contexts read."""
+
+    def __init__(self, s: A.SequenceHeader, base_q: int, filt: int,
+                 dual: bool, hp: bool, size: Tuple[int, int]) -> None:
+        self.s, self.filt, self.dual, self.hp = s, filt, dual, hp
+        arrs = A._cdf_pack(coeff_q_ctx(base_q))[0]
+        self.cdf = {k: a.copy() for k, a in zip(A._CDF_ORDER, arrs)}
+        self.enc = RangeEncoder()
+        self.mi_rows = 2 * ((size[1] + 7) >> 3)
+        self.mi_cols = 2 * ((size[0] + 7) >> 3)
+        self.size: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        self.mv: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        self.newmv: Dict[Tuple[int, int], int] = {}
+        self.fil: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        self.written = set()
+
+    def put(self, name: str, row: int, s: int, nsym: int, width: int
+            ) -> None:
+        cdf = self.cdf[name][row * width:(row + 1) * width]
+        self.enc.encode_symbol(s, cdf, nsym)
+        update_cdf(cdf, s, nsym)
+
+    def literal(self, v: int, n: int) -> None:
+        for i in range(n - 1, -1, -1):
+            self.enc.encode_bool_q15((v >> i) & 1, 16384)
+
+    # -- the MV stack (spec 7.10.2 as dav1d scans it) --------------------
+
+    def _add(self, st, r, c, weight, flags, row):
+        if (r, c) not in self.mv:
+            return
+        flags[row] = 1
+        flags[2] |= self.newmv[r, c]
+        mv = self.mv[r, c]
+        for e in st:
+            if e[0] == mv:
+                e[1] += weight
+                return
+        if len(st) < 8:
+            st.append([mv, weight])
+
+    def _scan(self, st, row, col, b4, n4, mx, step, flags, horiz):
+        """dav1d's scan_row (horiz) or scan_col from the mi (row, col)."""
+        idx = 0 if horiz else 1
+        cw = 1 << self.size[row, col][idx]
+        length = max(step, min(b4, cw))
+        if b4 <= cw:
+            other = 1 << self.size[row, col][1 - idx]
+            weight = 2 if b4 == 1 else max(2, min(2 * mx, other))
+            self._add(st, row, col, length * weight, flags, idx)
+            return weight >> 1
+        x = 0
+        while True:
+            r, c = (row, col + x) if horiz else (row + x, col)
+            self._add(st, r, c, length * 2, flags, idx)
+            x += length
+            end = self.mi_cols if horiz else self.mi_rows
+            if x >= n4 or (col if horiz else row) + x >= end:
+                return 1
+            r, c = (row, col + x) if horiz else (row + x, col)
+            length = max(step, 1 << self.size[r, c][idx])
+
+    def stack(self, r: int, c: int, wl: int, hl: int):
+        bw4, bh4 = 1 << wl, 1 << hl
+        w4, h4 = min(bw4, 16, self.mi_cols - c), min(bh4, 16, self.mi_rows - r)
+        st: List[list] = []
+        flags = [0, 0, 0]  # row match, column match, NEWMV match
+        none = 1 << 20
+        max_rows = max_cols = 0
+        n_rows = n_cols = none
+        if r > 0:
+            max_rows = min((r + 1) >> 1, 2 + (bh4 > 1))
+            n_rows = self._scan(st, r - 1, c, bw4, w4, max_rows,
+                                4 if bw4 >= 16 else 1, flags, True)
+        if c > 0:
+            max_cols = min((c + 1) >> 1, 2 + (bw4 > 1))
+            n_cols = self._scan(st, r, c - 1, bh4, h4, max_cols,
+                                4 if bh4 >= 16 else 1, flags, False)
+        if n_rows != none and max(bw4, bh4) <= 16 and \
+                (r - 1, c + bw4) in self.written:
+            self._add(st, r - 1, c + bw4, 4, flags, 0)
+        nearest_match = flags[0] + flags[1]
+        nearest = len(st)
+        for e in st:
+            e[1] += REF_CAT
+        dummy = [0, 0, 0]
+        if n_rows != none and n_cols != none:
+            self._add(st, r - 1, c - 1, 4, dummy, 0)
+            flags[0] |= dummy[0]
+        for k in (2, 3):
+            if n_rows < k <= max_rows:
+                d = [0, 0, 0]
+                n_rows += self._scan(st, (r - 2 * k + 1) | 1, c | 1, bw4, w4,
+                                     1 + max_rows - k,
+                                     4 if bw4 >= 16 else 2, d, True)
+                flags[0] |= d[0]
+            if n_cols < k <= max_cols:
+                d = [0, 0, 0]
+                n_cols += self._scan(st, r | 1, (c - 2 * k + 1) | 1, bh4, h4,
+                                     1 + max_cols - k,
+                                     4 if bh4 >= 16 else 2, d, False)
+                flags[1] |= d[1]
+        ref_match = flags[0] + flags[1]
+        if nearest_match == 0:
+            refmv_ctx, newmv_ctx = min(2, ref_match), int(ref_match > 0)
+        elif nearest_match == 1:
+            refmv_ctx, newmv_ctx = min(ref_match * 3, 4), 3 - flags[2]
+        else:
+            refmv_ctx, newmv_ctx = 5, 5 - flags[2]
+        st[:nearest] = sorted(st[:nearest], key=lambda e: -e[1])
+        st[nearest:] = sorted(st[nearest:], key=lambda e: -e[1])
+        # every block is inter on LAST: the extra search adds nothing new
+        top = -(r * 32) - (128 + bh4 * 32)
+        bottom = (self.mi_rows - r) * 32 + 128
+        left = -(c * 32) - (128 + bw4 * 32)
+        right = (self.mi_cols - c) * 32 + 128
+        for e in st:
+            e[0] = (min(max(e[0][0], top), bottom),
+                    min(max(e[0][1], left), right))
+        return st, newmv_ctx, refmv_ctx
+
+    # -- symbols ------------------------------------------------------------
+
+    def _mv_comp(self, comp: int, v: int) -> None:
+        mag = abs(v) - 1
+        self.put("mv0_sign", comp, int(v < 0), 2, 3)
+        if mag < 16:
+            self.put("mv0_classes", comp, 0, 11, 12)
+            self.put("mv0_class0", comp, mag >> 3, 2, 3)
+            self.put("mv0_class0_fr", comp * 2 + (mag >> 3), (mag >> 1) & 3,
+                     4, 5)
+            if self.hp:
+                self.put("mv0_class0_hp", comp, mag & 1, 2, 3)
+            return
+        cls = (mag >> 3).bit_length() - 1
+        self.put("mv0_classes", comp, cls, 11, 12)
+        d = (mag - (2 << (cls + 2))) >> 3
+        for i in range(cls):
+            self.put("mv0_bits", comp * 10 + i, (d >> i) & 1, 2, 3)
+        self.put("mv0_fr", comp, (mag >> 1) & 3, 4, 5)
+        if self.hp:
+            self.put("mv0_hp", comp, mag & 1, 2, 3)
+
+    def block(self, r: int, c: int, wl: int, hl: int, blk: InterBlock
+              ) -> None:
+        above, left = (r - 1, c) if r else None, (r, c - 1) if c else None
+        skip_ctx = (1 if above else 0) + (1 if left else 0)  # all skipped
+        self.put("skip", skip_ctx, 1, 2, 3)
+        # is_inter: every neighbour is inter
+        ctx = 0 if not (above or left) else (0 if above and left else 0)
+        self.put("is_inter", ctx, 1, 2, 3)
+        # single_ref_p1, p3, p4 for LAST: the neighbours are all LAST
+        n_last = (1 if above else 0) + (1 if left else 0)
+        ctx1 = 0 if n_last < 0 else (1 if n_last == 0 else 2)
+        self.put("single_ref", ctx1 * 6 + 0, 0, 2, 3)
+        self.put("single_ref", ctx1 * 6 + 2, 0, 2, 3)
+        self.put("single_ref", ctx1 * 6 + 3, 0, 2, 3)
+        st, newmv_ctx, refmv_ctx = self.stack(r, c, wl, hl)
+        self.put("new_mv", newmv_ctx, 0, 2, 3)  # NEWMV
+        for i in range(2):  # drl: the first candidate
+            if len(st) > i + 1:
+                w0, w1 = st[i][1], st[i + 1][1]
+                dctx = (1 if w1 < REF_CAT else 0) if w0 >= REF_CAT else \
+                    (2 if w1 < REF_CAT else 0)
+                self.put("drl", dctx, 0, 2, 3)
+                break
+        pred = st[0][0] if st else (0, 0)
+        diff = (blk.mv[0] - pred[0], blk.mv[1] - pred[1])
+        joint = (2 if diff[0] else 0) | (1 if diff[1] else 0)
+        self.put("mv0_joints", 0, joint, 4, 5)
+        if diff[0]:
+            self._mv_comp(0, diff[0])
+        if diff[1]:
+            self._mv_comp(1, diff[1])
+        filt = blk.filt if self.filt == 4 else (self.filt, self.filt)
+        if self.filt == 4:
+            for d in range(2 if self.dual else 1):
+                ictx = d * 2 * 4
+                lt = self.fil[left][d] if left else 3
+                at = self.fil[above][d] if above else 3
+                ictx += lt if lt == at else (at if lt == 3 else
+                                             (lt if at == 3 else 3))
+                self.put("interp_filter", ictx, filt[d], 3, 4)
+            if not self.dual:
+                filt = (filt[0], filt[0])
+        for y in range(r, min(r + (1 << hl), self.mi_rows)):
+            for x in range(c, min(c + (1 << wl), self.mi_cols)):
+                self.size[y, x] = (wl, hl)
+                self.mv[y, x] = blk.mv
+                self.newmv[y, x] = 1
+                self.fil[y, x] = filt
+                self.written.add((y, x))
+
+    def partition(self, r: int, c: int, bl: int, split: bool,
+                  blocks) -> None:
+        if r >= self.mi_rows or c >= self.mi_cols:
+            return
+        names = {1: "part8", 2: "part16", 3: "part32", 4: "part64"}
+        nsym = 4 if bl == 1 else 10
+        a = r > 0 and self.size[r - 1, c][0] < bl
+        lft = c > 0 and self.size[r, c - 1][1] < bl
+        ctx = 2 * int(lft) + int(a)
+        self.put(names[bl], ctx, 3 if split else 0, nsym, nsym + 1)
+        if not split:
+            self.block(r, c, bl, bl, next(blocks))
+            return
+        half = 1 << (bl - 1)
+        for dr, dc in ((0, 0), (0, half), (half, 0), (half, half)):
+            if bl == 1:
+                self.block(r + dr, c + dc, 0, 0, next(blocks))
+            else:
+                self.partition(r + dr, c + dc, bl - 1, True, blocks)
+
+    def encode(self, sbs: List[Tuple[bool, list]]) -> bytes:
+        it = iter(sbs)
+        for r in range(0, self.mi_rows, 16):
+            for c in range(0, self.mi_cols, 16):
+                split, blks = next(it)
+                self.partition(r, c, 4, split, iter(blks))
+        return self.enc.done()
+
+
+def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
+                  filt: int = 4, dual: bool = False, hp: bool = True,
+                  base_q: int = 80, lf=(20, 20, 12, 12),
+                  ref_deltas=(1, 0, 0, 0, -1, 0, -1, -1),
+                  mode_deltas=(0, 0), size=None, refuse: str = "") -> bytes:
+    """libaom's key frame (the sequence header and frame OBUs of layer 0
+    of a layered stream) and an inter frame of layer 1 whose superblocks
+    ``sbs`` are, in raster order, (False, [one block]) or (True, [the
+    4x4 blocks in coding order]), of ``size`` (the sequence's where None).
+    ``refuse`` writes instead a frame that stops at a tool the port
+    refuses: "compound" (a first block that reads comp_mode 1),
+    "seg_map" and "seg_temporal" (segmentation's map predicted from a
+    primary reference frame)."""
+    obus = list(_obus(key_obus))
+    seq_payload = next(key_obus[p:e] for t, _, p, e in obus if t == 1)
+    s = A.parse_sequence_header(A._Bits(seq_payload))
+    assert s.op_idcs[0] >> 8 == 3 and not s.sb128, "two layers, 64 SBs"
+    assert s.screen_tools in (0, 2) and not (s.frame_ids
+                                             or s.decoder_model_info)
+    key = [raw for t, raw, p, e in obus if t in (3, 4, 6)
+           and not ((raw[0] >> 2) & 1 and (raw[1] >> 3) & 3)]
+    size = size or (s.width, s.height)
+    tile = _Tile(s, base_q, filt, dual, hp, size)
+    if refuse == "compound":
+        tile.put("part64", 0, 0, 10, 11)  # PARTITION_NONE
+        tile.put("skip", 0, 1, 2, 3)
+        tile.put("is_inter", 0, 1, 2, 3)
+        tile.put("comp_mode", 1, 1, 2, 3)  # no neighbours: context 1
+        data = tile.enc.done()
+    else:
+        data = tile.encode(sbs) if not refuse else b"\0" * 8
+    head = frame_header(
+        s, base_q, filt, hp, lf, ref_deltas, mode_deltas,
+        size=None if size == (s.width, s.height) else size,
+        primary=0 if refuse.startswith("seg") else 7,
+        compound=refuse == "compound",
+        seg_update={"seg_map": (0, 0), "seg_temporal": (1, 1)}.get(refuse))
+    tile = data
+    seq = sequence_header(s, dual)
+    return (bytes([(1 << 3) | 2]) + _leb128(len(seq)) + seq
+            + b"".join(key) + _obu_ext(6, head.data() + tile, 1))
+
+
+def random_sbs(rng: np.random.Generator, n_sb: int, split_every: int,
+               max_mv: int, filters: int, hp: bool) -> list:
+    """Superblocks of random MVs and filters: every ``split_every``-th
+    one split into 256 4x4 blocks (near one MV, so their chroma mixes
+    nearby samples), the others one 64x64 block."""
+    out = []
+    for i in range(n_sb):
+        step = 1 if hp else 2
+
+        def mv(base=(0, 0), spread=max_mv):
+            return tuple(int(b + step * rng.integers(-spread, spread + 1))
+                         for b in base)
+
+        def filt():
+            return (int(rng.integers(filters)), int(rng.integers(filters)))
+
+        if split_every and i % split_every == split_every - 1:
+            base = mv()
+            out.append((True, [InterBlock(mv(base, 6), filt())
+                               for _ in range(256)]))
+        else:
+            out.append((False, [InterBlock(mv(), filt())]))
+    return out
