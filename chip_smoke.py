@@ -151,9 +151,14 @@ Phases, each of which raises on failure (exit code != 0):
    into parse and tile decode, post-filters and conversion); each refusal
    fixture (4:2:0, 4:2:2, the intra edge filter) raises ``ValueError``
    naming its tool; likewise libaom's streams of ``avif_aom``,
-   ``avif_tools``, ``avif_screen``, ``avif_container`` and
-   ``avif_superres`` (superres and non-uniform tiles), the reads split
-   into parse, post-filters, the superres upscale, grain and conversion;
+   ``avif_tools``, ``avif_screen``, ``avif_container``,
+   ``avif_superres`` (superres and non-uniform tiles), ``avif_lf_seg``,
+   ``avif_gainmap``, ``avif_layers``, ``avif_ispe`` and
+   ``avif_progressive`` (later layers predicted from a layer of another
+   size, superres inter frames; a reference past the scaling limits must
+   raise ``OSError`` with the manifest's message), the reads split into
+   parse, post-filters, the superres upscale, grain and conversion (and
+   per frame, tile decode and post-filters);
    the CLI (``-t 80`` on the six class AVIFs, ``-q 60`` on the 3840x2160
    one, and on each later folder's picks) gives the q, passes and bytes
    of the same pixels (as PAM where they are 8-bit, in memory where they
@@ -2634,9 +2639,13 @@ AVIF_LAYERS_DIR = os.path.join(
 AVIF_ISPE_DIR = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
     "avif_ispe")
+AVIF_PROGRESSIVE_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+    "avif_progressive")
 
 
-def _read_avif_fixtures(folder: str, reps_4k: int = 3) -> dict:
+def _read_avif_fixtures(folder: str, reps_4k: int = 3,
+                        reps_small: int = 5) -> dict:
     """Every fixture of ``folder`` decodes to its manifest's CRC32s
     (dav1d's Y'UV, and the reference's ``load_avif`` and
     ``decode_avif_to_rgb8`` pixels as Pillow gave them when the fixtures
@@ -2645,15 +2654,18 @@ def _read_avif_fixtures(folder: str, reps_4k: int = 3) -> dict:
     source libavif 1.3 reads (item or track), the grid's rows and columns,
     the alpha and its premultiplication, and where it records the frame
     header, the coded width, superres denominator and tile starts the
-    port reads and the alpha's tools; each read timed (median of 5, of
-    ``reps_4k`` for a 3840x2160 file),
-    split into parse and tile decode, post-filters, the superres upscale,
-    film grain, a grid's stitch, the scaling to ``ispe`` and conversion,
-    and for a layered item each frame's tile decode and post-filters
+    port reads and the alpha's tools; each read timed (median of
+    ``reps_small``, of ``reps_4k`` for a 3840x2160 file), split into
+    parse and tile decode, post-filters, the superres upscale, film grain,
+    a grid's stitch, the scaling to ``ispe`` and conversion, and for a
+    layered item each frame's tile decode and post-filters
     (``tiles_f0``, ``filters_f0``, ...); a refusal fixture raises
-    ``ValueError`` naming its tool, and one the reference could not read
-    (``raises``) the exception the manifest records, with its message.
-    Returns the loaded images by file name."""
+    ``ValueError`` naming its tool, one the reference could not read
+    (``raises``) the exception the manifest records, with its message,
+    and one past the spec's limits (``broken``) ``OSError`` with the
+    message the manifest records; where the manifest records each frame's
+    coded width, upscaled width and height (``sizes``), the port reads
+    them. Returns the loaded images by file name."""
     from oavif_tpu_torch.io import avif
     from oavif_tpu_torch.io.image import load_avif
 
@@ -2686,8 +2698,18 @@ def _read_avif_fixtures(folder: str, reps_4k: int = 3) -> dict:
                       flush=True)
                 continue
             raise AssertionError(f"{name}: decoded, the reference raises")
+        if "broken" in entry:
+            try:
+                load_avif(path)
+            except OSError as e:
+                if str(e) != entry["broken"]:
+                    raise AssertionError(f"{name}: raised {e!r}, not "
+                                         f"{entry['broken']!r}")
+                print(f"  {name}: raises ({e})", flush=True)
+                continue
+            raise AssertionError(f"{name}: decoded, past the limits")
         times, split = [], []
-        reps = reps_4k if entry["load_shape"][1] >= 3840 else 5
+        reps = reps_4k if entry["load_shape"][1] >= 3840 else reps_small
         for _ in range(reps):
             t, t0 = {}, time.perf_counter()
             with open(path, "rb") as f:
@@ -2728,6 +2750,10 @@ def _read_avif_fixtures(folder: str, reps_4k: int = 3) -> dict:
                     av1.spatial_id, alpha.tools if alpha else None)
             want += (entry["frames"], entry["shows_layer"],
                      entry["alpha_tools"])
+            if "sizes" in entry:
+                got += ([[f.frame.coded_width, f.frame.width, f.frame.height]
+                         for f in av1.frames],)
+                want += (entry["sizes"],)
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         loaded[name] = img
@@ -2783,12 +2809,19 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     OBMC, a local warp and reference MVs on an inter frame, which must
     raise naming them) and of ``tests/torch_fixtures/avif_ispe`` (frames
     scaled to an ``ispe`` of another size, one refused and one past
-    libavif's limits) decodes to its manifest (``_read_avif_fixtures``),
+    libavif's limits) and of ``tests/torch_fixtures/avif_progressive``
+    (progressive items: layer 0 at each of libaom's scaling modes, 4:2:2,
+    4:4:4, monochrome, 10 and 12 bits, three layers, alpha, two tiles,
+    the six classes and a 3840x2160 frame on a 1920x1080 layer 0, a
+    reference larger than its frame, superres inter frames; OBMC, which
+    must raise naming it, and references past the 2x and 1/16 limits,
+    which must raise ``OSError``) decodes to its manifest
+    (``_read_avif_fixtures``),
     the reads split into parse and tile decode (each frame's apart),
     post-filters, the superres upscale, film grain, a grid's stitch, the
     scaling and conversion (the median of 5; of 3 for the 3840x2160
-    files of the folders before ``avif_layers``, to keep the phase's
-    time).
+    files of the folders before ``avif_layers``, and of ``avif_progressive``
+    whose smaller files are read once, to keep the phase's time).
     Then the CLI ``-t 80`` on the six class AVIFs and ``-q 60`` on the
     3840x2160 one of the first two folders, ``-q 60`` on the 3840x2160
     ``tune=iq`` frame with film grain, ``-t 80`` on the 512x512
@@ -2797,8 +2830,9 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     ``-t 80`` on the 512x512 segmented sequence, ``-t 80`` on the 512x512
     superres class, ``-q 60`` on the 3840x2160 superres frame, ``-t
     80`` on the 512x512 ALT_LF, SKIP and ``delta_lf_multi`` frame, ``-t
-    80`` on the 512x512 two-layer class and ``-q 60`` on the 3840x2160
-    two-layer frame: q,
+    80`` on the 512x512 two-layer class, ``-q 60`` on the 3840x2160
+    two-layer frame, ``-t 80`` on the 512x512 progressive class and ``-q
+    60`` on the 3840x2160 progressive frame: q,
     passes and bytes must be those of the CLI on the same
     pixels, written as PAM where they are 8-bit and handed over in memory
     where they are 16-bit (PAM holds 8 bits). Returns the kernels'
@@ -2826,9 +2860,12 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
             (AVIF_GAINMAP_DIR, []),
             (AVIF_LAYERS_DIR, [("class_mixed_512.avif", ["-t", "80"]),
                                ("photo4k_420.avif", ["-q", "60"])]),
-            (AVIF_ISPE_DIR, [])):
+            (AVIF_ISPE_DIR, []),
+            (AVIF_PROGRESSIVE_DIR, [("class_mixed_512.avif", ["-t", "80"]),
+                                    ("photo4k_420.avif", ["-q", "60"])])):
         loaded = _read_avif_fixtures(
-            folder, 5 if folder == AVIF_LAYERS_DIR else 3)
+            folder, 5 if folder == AVIF_LAYERS_DIR else 3,
+            1 if folder == AVIF_PROGRESSIVE_DIR else 5)
         runs += [(os.path.join(folder, name), loaded[name], args)
                  for name, args in picks]
     with tempfile.TemporaryDirectory() as td:

@@ -186,6 +186,8 @@ def _build() -> Optional[C.CDLL]:
         lib.av1_decode_frame.argtypes = (
             [C.c_void_p] * 12 + [C.c_void_p, C.c_int] + [C.c_void_p] * 13
             + [C.c_char_p, C.c_int])
+        lib.av1_scaled_parity.restype = None
+        lib.av1_scaled_parity.argtypes = [C.c_void_p]
         lib.av1_postfilter.restype = C.c_int
         lib.av1_postfilter.argtypes = [C.c_void_p, C.c_int] + [C.c_void_p] * 12
         lib.av1_film_grain.restype = C.c_int

@@ -3,7 +3,8 @@
  *
  * One call decodes every tile of one frame whose headers the Python side
  * has parsed, a shown key frame or an inter frame on reference frames of
- * its size (their planes and sizes from io/av1_refs.py; the CDFs it
+ * any size within the spec's limits (their planes and sizes from
+ * io/av1_refs.py; the CDFs it
  * starts from are the defaults or a reference's, and the call returns the
  * context_update_tile_id tile's at its end): the symbol decoder (spec 8.2), the partition
  * and mode-info syntax of intra frames (spec 5.11), the coefficient
@@ -23,8 +24,10 @@
  * MV context 0 with the fraction and high-precision bits, the motion mode
  * and inter-intra symbols, switchable and dual interpolation filters) and
  * their prediction by the Subpel_Filters, sub-8x8 chroma from several
- * blocks' MVs (compound blocks, OBMC, local warps, inter-intra and scaled
- * references are refused by name). The post-filters (deblocking, CDEF, loop restoration) and film
+ * blocks' MVs, and through a reference of another size (or the coded width
+ * under superres) by the scaled position and step of spec 7.11.3.3
+ * (compound blocks, OBMC, local warps and inter-intra are refused by
+ * name). The post-filters (deblocking, CDEF, loop restoration) and film
  * grain run afterwards on the block records and restoration units this
  * call returns.
  *
@@ -242,8 +245,8 @@ typedef struct {
     int32_t *lr_out;
     int lr_ref[3][2][3], lr_sgr_ref[3][2];
     /* an inter frame: its header fields (H_FRAME_TYPE..), the reference
-     * frames' planes (after the post-filters), strides and sizes by
-     * reference frame 1..7, the Subpel_Filters [6][16][8], and per mi
+     * frames' planes (after the post-filters), strides, sizes and scales
+     * by reference frame 1..7, the Subpel_Filters [6][16][8], and per mi
      * RefFrames[0] (0 intra), whether the block's mode was NEWMV, its
      * filters (y | x << 2) and what deblocking reads (mi_lf: RefFrame * 2
      * + the mode delta's index, | 16 for a skipped inter block) */
@@ -253,6 +256,7 @@ typedef struct {
     int seg_ref_mask, seg_ref_frames, seg_gmv_mask;
     const int32_t *ref_plane[8][3];
     int ref_stride[8], ref_w[8], ref_h[8];
+    int xscale[8], yscale[8]; /* spec xScale, yScale of each reference */
     const int16_t *subpel;
     int8_t *mi_ref;
     uint8_t *mi_newmv, *mi_filt, *mi_lf;
@@ -2105,6 +2109,18 @@ static int read_ref_frame(Dec *d, Blk *b) {
 #undef SREF
 }
 
+/* spec 7.11.3.3 xScale/yScale of a reference RefUpscaledWidth x
+ * RefFrameHeight for a frame FrameWidth x FrameHeight, in 1/2^14 */
+enum { NO_SCALE = 1 << 14 };
+static int ref_scale(int ref_size, int size) {
+    return (int)((((int64_t)ref_size << 14) + size / 2) / size);
+}
+
+/* spec is_scaled */
+static int ref_is_scaled(const Dec *d, int ref) {
+    return d->xscale[ref] != NO_SCALE || d->yscale[ref] != NO_SCALE;
+}
+
 /* spec has_overlappable_candidates */
 static int overlappable(const Dec *d, const Blk *b) {
     if (b->avail_u)
@@ -2224,7 +2240,7 @@ static void inter_block_mode_info(Dec *d, Blk *b) {
     }
     if (d->motion_switchable && imin(b->wl, b->hl) >= 1 && overlappable(d, b)) {
         int mm;
-        if (d->force_int_mv || !d->allow_warped || !warp_samples(d, b))
+        if (d->force_int_mv || !d->allow_warped || ref_is_scaled(d, b->ref) || !warp_samples(d, b))
             mm = read_symbol(d, d->cdf[D_OBMC] + (size_t)b->bsize * 3, 2);
         else
             mm = read_symbol(d, d->cdf[D_MOTION_MODE] + (size_t)b->bsize * 4, 3);
@@ -2284,11 +2300,69 @@ static void inter_frame_mode_info(Dec *d, Blk *b) {
     inter_block_mode_info(d, b);
 }
 
+/* the counts of the test hook av1_scaled_parity, or NULL */
+static int64_t *scaled_parity;
+
+/* block inter prediction through a scaled reference (spec 7.11.3.3 motion
+ * vector scaling, 7.11.3.4 at startX + xStep * c): the position in 1/1024
+ * sample, each row's and column's filter at (p >> 6) & 15 and its samples
+ * at p >> 10, clamped at the reference's edges, InterRound0 then
+ * InterRound1 as in the unscaled loop; into dst of stride dstride */
+static void predict_scaled(const Dec *d, int plane, int x, int y, int w, int h, int m,
+                           int xscale, int yscale, int32_t *dst, int dstride) {
+    int ref = d->mi_ref[m];
+    int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
+    int64_t origx = ((int64_t)x << 4) + ((2 * d->mi_mv[2 * m + 1]) >> sx) + 8;
+    int64_t origy = ((int64_t)y << 4) + ((2 * d->mi_mv[2 * m]) >> sy) + 8;
+    int startx = (int)rnd2s(origx * xscale - ((int64_t)8 << 14), 8) + 32;
+    int starty = (int)rnd2s(origy * yscale - ((int64_t)8 << 14), 8) + 32;
+    int xstep = (int)rnd2s(xscale, 4), ystep = (int)rnd2s(yscale, 4);
+    int fy = d->mi_filt[m] & 3, fx = (d->mi_filt[m] >> 2) & 3;
+    if (w <= 4) fx = fx == 1 ? 5 : (fx == 3 ? 3 : 4);
+    if (h <= 4) fy = fy == 1 ? 5 : (fy == 3 ? 3 : 4);
+    const int32_t *src = d->ref_plane[ref][plane];
+    int rs = d->ref_stride[ref];
+    int lastx = ((d->ref_w[ref] + sx) >> sx) - 1, lasty = ((d->ref_h[ref] + sy) >> sy) - 1;
+    int round0 = d->bd == 12 ? 5 : 3, round1 = d->bd == 12 ? 9 : 11;
+    int maxv = (1 << d->bd) - 1;
+    /* intermediateHeight: up to 263 rows for 128 at the 2x limit */
+    static _Thread_local int32_t mid[(2 * 128 + 8) * 128];
+    int ih = (((h - 1) * ystep + (1 << 10) - 1) >> 10) + 8;
+    /* each column's filter and clamped taps, the same on every row */
+    int cols[128 * 8];
+    const int16_t *FX[128];
+    for (int c = 0; c < w; c++) {
+        int p = startx + xstep * c;
+        FX[c] = d->subpel + ((size_t)fx * 16 + ((p >> 6) & 15)) * 8;
+        for (int t = 0; t < 8; t++) cols[c * 8 + t] = imin(imax((p >> 10) + t - 3, 0), lastx);
+    }
+    for (int r = 0; r < ih; r++) {
+        const int32_t *row = src + (size_t)imin(imax((starty >> 10) + r - 3, 0), lasty) * rs;
+        for (int c = 0; c < w; c++) {
+            const int *at = cols + c * 8;
+            int64_t s = 0;
+            for (int t = 0; t < 8; t++) s += (int64_t)FX[c][t] * row[at[t]];
+            mid[r * w + c] = (int32_t)rnd2(s, round0);
+        }
+    }
+    for (int r = 0; r < h; r++) {
+        int p = (starty & 1023) + ystep * r;
+        const int16_t *F = d->subpel + ((size_t)fy * 16 + ((p >> 6) & 15)) * 8;
+        const int32_t *col = mid + (size_t)(p >> 10) * w;
+        int32_t *out = dst + (size_t)r * dstride;
+        for (int c = 0; c < w; c++) {
+            int64_t s = 0;
+            for (int t = 0; t < 8; t++) s += (int64_t)F[t] * col[t * w + c];
+            out[c] = (int32_t)clip64(rnd2(s, round1), 0, maxv);
+        }
+    }
+}
+
 /* block inter prediction (spec 7.11.3.3-4) of one w x h part of a plane
  * at (x, y) with the MV, reference and filters of the block at mi (cr,
- * cc): a reference of the frame's size, Subpel_Filters in 1/16 sample
- * (the 4-tap rows for a side of 4 or less), InterRound0 then InterRound1,
- * the reference's samples clamped at its edges */
+ * cc): at scale 1 here, Subpel_Filters in 1/16 sample (the 4-tap rows
+ * for a side of 4 or less), InterRound0 then InterRound1, the reference's
+ * samples clamped at its edges; through predict_scaled otherwise */
 static void predict_part(Dec *d, int plane, int x, int y, int w, int h, int cr, int cc) {
     int m = mi_at(d, cr, cc);
     int ref = d->mi_ref[m];
@@ -2296,9 +2370,9 @@ static void predict_part(Dec *d, int plane, int x, int y, int w, int h, int cr, 
         fail(d, AV1D_CORRUPT, "AV1: %s", "an inter block without its reference frame");
         return;
     }
-    if (d->ref_w[ref] != d->width || d->ref_h[ref] != d->height) {
-        fail(d, AV1D_UNSUPPORTED, "AV1: %s is not supported",
-             "a reference frame of another size (scaled prediction)");
+    if (ref_is_scaled(d, ref)) {
+        predict_scaled(d, plane, x, y, w, h, m, d->xscale[ref], d->yscale[ref],
+                       px(d, plane, y, x), d->stride);
         return;
     }
     int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
@@ -2334,6 +2408,15 @@ static void predict_part(Dec *d, int plane, int x, int y, int w, int h, int cr, 
             out[j] = (int32_t)clip64(rnd2(s, round1), 0, maxv);
         }
     }
+    if (scaled_parity) {
+        static _Thread_local int32_t alt[128 * 128];
+        predict_scaled(d, plane, x, y, w, h, m, NO_SCALE, NO_SCALE, alt, w);
+        int same = 1;
+        for (int i = 0; i < h && same; i++)
+            same = !memcmp(alt + i * w, px(d, plane, y + i, x), (size_t)w * sizeof(int32_t));
+        scaled_parity[0]++;
+        scaled_parity[1] += !same;
+    }
 }
 
 /* spec 7.11.3.1 for an inter block: each plane's block at the block's MV;
@@ -2342,6 +2425,7 @@ static void predict_part(Dec *d, int plane, int x, int y, int w, int h, int cr, 
  * block's MV, reference and filters, unless one of them is intra
  * (someUseIntra) */
 static void predict_inter(Dec *d, Blk *b) {
+    if (ref_is_scaled(d, b->ref)) d->count[T_SCALED_PRED]++;
     for (int plane = 0; plane < (b->has_chroma ? d->nplanes : 1) && !d->err; plane++) {
         int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
         int wl4, hl4;
@@ -2766,6 +2850,22 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
         d->ref_stride[rf] = ref_info[(rf - 1) * 3];
         d->ref_w[rf] = ref_info[(rf - 1) * 3 + 1];
         d->ref_h[rf] = ref_info[(rf - 1) * 3 + 2];
+        d->xscale[rf] = d->yscale[rf] = NO_SCALE;
+        if (!d->ref_plane[rf][0]) continue;
+        /* spec 7.11.3.3's limits on a reference's size (RefUpscaledWidth
+         * against FrameWidth, the coded width), which also bound
+         * predict_scaled's intermediate rows */
+        if (2 * d->width < d->ref_w[rf] || 2 * d->height < d->ref_h[rf] ||
+            d->width > 16 * d->ref_w[rf] || d->height > 16 * d->ref_h[rf]) {
+            snprintf(msg, (size_t)msglen,
+                     "AV1: a reference frame of %dx%d for a frame of %dx%d, "
+                     "beyond the 2x and 16x scaling limits",
+                     d->ref_w[rf], d->ref_h[rf], d->width, d->height);
+            free(d);
+            return AV1D_CORRUPT;
+        }
+        d->xscale[rf] = ref_scale(d->ref_w[rf], d->width);
+        d->yscale[rf] = ref_scale(d->ref_h[rf], d->height);
     }
     if (d->frame_type) counts[T_INTER_FRAME]++;
     d->dc_lut = qlut;
@@ -2865,3 +2965,9 @@ done:
     free(d);
     return rc;
 }
+
+/* A test hook: with counts (two int64), every later inter part at scale 1
+ * is also predicted by predict_scaled, and counts[0] gains the parts and
+ * counts[1] those where the two differ; NULL turns it off. The decode
+ * itself is unchanged. */
+void av1_scaled_parity(int64_t *counts) { scaled_parity = counts; }

@@ -139,6 +139,9 @@ enum {
     T_SUBPEL_MV, T_FILTER_REGULAR, T_FILTER_SMOOTH, T_FILTER_SHARP,
     T_FILTER_BILINEAR, T_DUAL_FILTER, T_INTRA_IN_INTER, T_SUB8X8_CHROMA_MVS,
     T_LF_REF_DELTA, T_LF_MODE_DELTA,
+    /* inter blocks predicted from a reference of another scale (spec
+     * is_scaled: another size, or the coded width under superres) */
+    T_SCALED_PRED,
     T_NCOUNTERS
 };
 

@@ -33,8 +33,10 @@ Three parts, all on the host:
   library), frame by frame into the eight reference slots
   (``av1_refs.RefFrames``), for 4:4:4, 4:2:2, 4:2:0 and monochrome
   streams at 8, 10 and 12 bits with the intra tools libaom writes, inter
-  blocks of a single reference of the frame's size (the MV stack, every
-  single-reference mode, the subpel filters, sub-8x8 chroma), quantizer
+  blocks of a single reference (the MV stack, every single-reference
+  mode, the subpel filters, sub-8x8 chroma) of the frame's size or, as a
+  progressive image's later layers and a superres inter frame read
+  theirs, of another scale within the spec's 2x and 1/16 limits, quantizer
   matrices, delta q
   and delta LF (``delta_lf_multi`` too), segmentation with every feature
   (ALT_Q, the four ALT_LF, SKIP, and REF_FRAME and GLOBALMV, which in a
@@ -1723,6 +1725,7 @@ TOOL_NAMES = (
     "nearestmv", "nearmv", "globalmv", "drl", "subpel_mv", "filter_regular",
     "filter_smooth", "filter_sharp", "filter_bilinear", "dual_filter",
     "intra_in_inter", "sub8x8_chroma_mvs", "lf_ref_delta", "lf_mode_delta",
+    "scaled_pred",
 )
 # the film grain pack (av1_header.h's G_* enum): field, length
 _GRAIN_FIELDS = (

@@ -11,6 +11,7 @@ either side shrinks by at most half, and then picks:
 - ``ScalePlaneVertical`` where only the height changes (8-bit row
   fractions, ``InterpolateRow``);
 - ``ScalePlaneDown2``'s 2x2 box where both sides halve exactly;
+- ``ScalePlaneUp2_Linear`` (3, 1) / 4 where only the width doubles;
 - ``ScalePlaneUp2_Bilinear`` (9, 3, 3, 1) / 16 where both sides double;
 - ``ScalePlaneBilinearUp`` / ``ScalePlaneBilinearDown`` otherwise: 16.16
   fixed-point steps, rows blended with 8-bit fractions and columns with
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .avif import _libyuv_upsample
+from .avif import _libyuv_upsample, _up2_linear
 
 
 def _fixed_div(num: int, div: int) -> int:
@@ -120,7 +121,12 @@ def scale_plane(src: np.ndarray, dw: int, dh: int, deep: bool) -> np.ndarray:
         raise NotImplementedError("libyuv's box downscale (a frame more "
                                   "than twice as tall as its ispe)")
     if (dw + 1) // 2 == sw and f == "linear":
-        raise NotImplementedError("libyuv's linear 2x upscale")
+        # ScalePlaneUp2_Linear: each row ScaleRowUp2_Linear's (3, 1) / 4
+        rows = [(sh - 1) // 2]
+        if dh > 1:
+            dy = _fixed_div(sh - 1, dh - 1)
+            rows = [((1 << 15) - 1 + j * dy) >> 16 for j in range(dh)]
+        return _up2_linear(s[rows], dw)
     if (dh + 1) // 2 == sh and (dw + 1) // 2 == sw and f in ("bilinear",
                                                               "box"):
         # ScalePlaneUp2_Bilinear: libavif's 4:2:0 chroma upsampling

@@ -104,6 +104,10 @@ TOOLS_MADE = {**json.loads((FIXTURES.parent / "avif_tools"
               # symbol by symbol for the filters, dual filters, 4x4 inter
               # blocks and mode deltas libaom does not write
               **json.loads((FIXTURES.parent / "avif_layers"
+                            / "manifest.json").read_text()),
+              # progressive: a later layer predicted from a smaller one,
+              # and superres inter frames
+              **json.loads((FIXTURES.parent / "avif_progressive"
                             / "manifest.json").read_text())}
 
 

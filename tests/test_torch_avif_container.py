@@ -244,6 +244,45 @@ def test_grid_faults_raise_in_both(fault, tmp_path):
         load_avif(str(path))
 
 
+# grid2x2_420.avif's 64x64 cells under another shared ``ispe`` (the box
+# whose type is at byte 435), in two cases with the grid's own ``ispe``
+# (at byte 380) moved too: libavif 1.3 scales each cell to its ispe before
+# the grid's checks, and then refuses ("Invalid image grid") or reads
+CELL_ISPE = {
+    "cells_128x128": ((128, 128), None),
+    "cells_32x32": ((32, 32), None),
+    "cells_64x63": ((64, 63), None),
+    "cells_128x128_grid_256x256": ((128, 128), (256, 256)),
+    "cells_32x32_grid_64x64": ((32, 32), (64, 64)),
+    "cells_96x64": ((96, 64), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CELL_ISPE))
+def test_grid_cells_of_another_ispe_as_pillow(case, tmp_path):
+    data = bytearray((FIXTURES / "grid2x2_420.avif").read_bytes())
+    for at, size in zip((435, 380), CELL_ISPE[case]):
+        assert data[at:at + 4] == b"ispe"
+        if size is not None:
+            data[at + 8:at + 16] = struct.pack(">II", *size)
+    data = bytes(data)
+    path = tmp_path / "x.avif"
+    path.write_bytes(data)
+    if case == "cells_96x64":
+        ref = ref_load_avif(str(path))
+        assert ref.data.shape == (128, 128, 3)
+        np.testing.assert_array_equal(load_avif(str(path)).data, ref.data)
+        np.testing.assert_array_equal(decode_avif_to_rgb8(data),
+                                      ref_rgb8(data))
+        return
+    with pytest.raises(Exception, match="Invalid image grid"):
+        ref_load_avif(str(path))
+    with pytest.raises(Exception, match="Invalid image grid"):
+        ref_rgb8(data)
+    with pytest.raises(OSError, match="broken AVIF"):
+        load_avif(str(path))
+
+
 @pytest.mark.parametrize("colr", ["grid_nclx", "none"])
 def test_grid_colour_description_equals_pillow(colr, tmp_path):
     """The grid's own ``nclx`` sets the matrix (here BT.709, against the

@@ -51,7 +51,10 @@ sys.path.insert(0, str(FIXTURES))
 sys.path.insert(0, str(FIXTURES.parent / "avif_tools"))
 import make_avif_layers as MK  # noqa: E402
 
-INTER_TOOLS = A.TOOL_NAMES[A.TOOL_NAMES.index("inter_frame"):]
+# the inter counters of same-size layers (a scaled reference's is held by
+# tests/test_torch_avif_progressive.py)
+INTER_TOOLS = A.TOOL_NAMES[A.TOOL_NAMES.index("inter_frame"):
+                           A.TOOL_NAMES.index("scaled_pred")]
 
 
 def _crc(a) -> int:
@@ -264,7 +267,8 @@ def test_frame_level_refusals_name_the_tool(monkeypatch):
 def test_written_refusals_name_the_tool(refuse, tool):
     """Inter frames ``inter_writer`` writes up to a tool the decoder
     refuses: a compound block, segmentation's map predicted from the
-    reference, a frame of 128x128 on a reference of 256x256."""
+    reference; and a frame of 128x128 on a reference of 256x256, once
+    refused as scaled prediction, which now decodes to dav1d's planes."""
     from inter_writer import random_sbs, write_layered
 
     key = MK.aom_encode_layers(MK.to_yuv(
@@ -275,8 +279,17 @@ def test_written_refusals_name_the_tool(refuse, tool):
     stream = write_layered(key, sbs[:4] if scaled else sbs,
                            size=(128, 128) if scaled else None,
                            refuse="" if scaled else refuse)
+    data = MK.container(stream, *((128, 128) if scaled else (256, 256)), 8)
+    if scaled:
+        planes, _, _ = decode_to_yuv(data)
+        img = A.decode_avif(data)[1]
+        assert img.tools["scaled_pred"] > 0
+        assert len(img.planes) == 3
+        for got, want in zip(img.planes, planes):
+            np.testing.assert_array_equal(got, want)
+        return
     with pytest.raises(A.UnsupportedAvif, match=re.escape(tool)):
-        A.decode_avif(MK.container(stream, 256, 256, 8))
+        A.decode_avif(data)
 
 
 def test_refusal_files_name_their_tools():

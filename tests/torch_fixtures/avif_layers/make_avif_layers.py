@@ -76,11 +76,15 @@ _FORCE_KF = 1  # AOM_EFLAG_FORCE_KF
 
 def aom_encode_layers(planes: list, depth: int, ss: str, quantizers,
                       usage: int = 1, options: dict = (),
-                      full_range: bool = True) -> bytes:
+                      full_range: bool = True, before_layer=None,
+                      cfg_words: dict = ()) -> bytes:
     """One picture of Y'UV ``planes`` (one plane for monochrome) coded by
     libaom in ``len(quantizers)`` spatial layers of its size, layer i at
-    quantizer ``quantizers[i]`` (end usage AOM_Q). Returns the OBUs, the
-    temporal delimiters left out."""
+    quantizer ``quantizers[i]`` (end usage AOM_Q). ``before_layer(lib,
+    ctx, layer)``, where given, sends more controls before each layer's
+    encode; ``cfg_words`` sets more words of the configuration by name
+    (``make_avif_superres._CFG``). Returns the OBUs, the temporal
+    delimiters left out."""
     lib = _libaom()
     lib.aom_codec_enc_config_set.argtypes = [C.c_void_p, C.c_void_p]
     mono = len(planes) == 1
@@ -95,6 +99,8 @@ def aom_encode_layers(planes: list, depth: int, ss: str, quantizers,
         int(ss == "4:4:4" and not mono)
     cfg[k["w"]], cfg[k["h"]] = w, h
     cfg[k["limit"]], cfg[k["lag"]] = len(quantizers), 0
+    for name, v in dict(cfg_words).items():
+        cfg[k[name]] = v
     cfg[k["bit_depth"]] = cfg[k["input_bit_depth"]] = depth
     cfg[k["end_usage"]] = _AOM_Q
     cfg[k["monochrome"]] = int(mono)
@@ -123,6 +129,8 @@ def aom_encode_layers(planes: list, depth: int, ss: str, quantizers,
             cfg[k["min_q"]] = cfg[k["max_q"]] = q
             if lib.aom_codec_enc_config_set(ctx, cfg):
                 raise RuntimeError("aom_codec_enc_config_set")
+            if before_layer is not None:
+                before_layer(lib, ctx, layer)
             img = lib.aom_img_alloc(None, fmt, w, h, 16)
             try:
                 # aom_image_t: monochrome at word 4, bit_depth at word 9;

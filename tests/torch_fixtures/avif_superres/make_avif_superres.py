@@ -63,7 +63,8 @@ _FMT = {"4:2:0": 0x102, "4:2:2": 0x105, "4:4:4": 0x106}
 _SHIFT = {"4:2:0": (1, 1), "4:2:2": (1, 0), "4:4:4": (0, 0)}
 CICP = (1, 13, 6)  # BT.709 primaries, sRGB transfer, BT.601 matrix
 # aom_codec_enc_cfg_t words (uint32)
-_CFG = dict(threads=1, profile=2, w=3, h=4, limit=5, bit_depth=8,
+_CFG = dict(threads=1, profile=2, w=3, h=4, limit=5,
+            forced_max_frame_width=6, forced_max_frame_height=7, bit_depth=8,
             input_bit_depth=9, lag=14, superres_mode=19,
             superres_denominator=20, superres_kf_denominator=21,
             end_usage=24, min_q=35, max_q=36, monochrome=52,
