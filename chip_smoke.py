@@ -2642,6 +2642,9 @@ AVIF_ISPE_DIR = os.path.join(
 AVIF_PROGRESSIVE_DIR = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
     "avif_progressive")
+AVIF_WARP_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+    "avif_warp")
 
 
 def _read_avif_fixtures(folder: str, reps_4k: int = 3,
@@ -2659,13 +2662,16 @@ def _read_avif_fixtures(folder: str, reps_4k: int = 3,
     parse and tile decode, post-filters, the superres upscale, film grain,
     a grid's stitch, the scaling to ``ispe`` and conversion, and for a
     layered item each frame's tile decode and post-filters
-    (``tiles_f0``, ``filters_f0``, ...); a refusal fixture raises
-    ``ValueError`` naming its tool, one the reference could not read
-    (``raises``) the exception the manifest records, with its message,
-    and one past the spec's limits (``broken``) ``OSError`` with the
-    message the manifest records; where the manifest records each frame's
-    coded width, upscaled width and height (``sizes``), the port reads
-    them. Returns the loaded images by file name."""
+    (``tiles_f0``, ``filters_f0``, ...) and, where a frame used them, the
+    time of OBMC and of the local warp in its tile decode (``obmc_f1``,
+    ``warp_f1``, ...) with their shares of that frame's tile decode; a
+    refusal fixture raises ``ValueError`` naming its tool, one the
+    reference could not read (``raises``) the exception the manifest
+    records, with its message, and one past the spec's limits
+    (``broken``) ``OSError`` with the message the manifest records; where
+    the manifest records each frame's coded width, upscaled width and
+    height (``sizes``), the port reads them. Returns the loaded images by
+    file name."""
     from oavif_tpu_torch.io import avif
     from oavif_tpu_torch.io.image import load_avif
 
@@ -2757,19 +2763,30 @@ def _read_avif_fixtures(folder: str, reps_4k: int = 3,
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         loaded[name] = img
-        per_frame = sorted(k for k in split[0]
-                           if k.startswith(("tiles_f", "filters_f")))
+        per_frame = sorted(k for k in split[0] if k.startswith(
+            ("tiles_f", "filters_f", "obmc_f", "warp_f")))
         parts = ", ".join(
             f"{k} {np.median([t.get(k, 0.0) for t in split]) * 1e3:.3f}"
             for k in ("parse", "filters", "upscale", "grain", "refs",
                       "stitch", "scale", "convert", *per_frame))
+        # OBMC's and the warp's shares of their own frame's tile decode
+        shares = ""
+        for k in per_frame:
+            used = [m + k[5:] for m in ("obmc", "warp")
+                    if k.startswith("tiles_f") and m + k[5:] in split[0]]
+            if used:
+                shares += f"; of {k}: " + ", ".join(
+                    "{} {:.1%}".format(u, np.median(
+                        [t.get(u, 0.0) / t[k] for t in split]))
+                    for u in used)
         fmt = ("4:0:0" if color.mono else
                {(0, 0): "4:4:4", (1, 0): "4:2:2", (1, 1): "4:2:0"}[color.ss])
         print(f"  {name} {img.width}x{img.height}x{img.channels} "
               f"{'16' if img.hbd else '8'}-bit from {fmt} "
               f"{color.bit_depth}-bit ({len(data)} bytes): == manifest CRCs; "
               f"read {np.median(times) * 1e3:.3f} ms (median of {reps}, "
-              f"{min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}; {parts} ms)",
+              f"{min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}; {parts} ms"
+              f"{shares})",
               flush=True)
     return loaded
 
@@ -2805,23 +2822,29 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     (items in two or three spatial layers: libaom's realtime inter frames
     at every subsampling, 8 and 10 bits, ``cpu-used`` 5-10, two tiles,
     alpha, the six classes and a 3840x2160 frame, layer 1 written symbol
-    by symbol for the filters and 4x4 blocks libaom does not write, and
-    OBMC, a local warp and reference MVs on an inter frame, which must
+    by symbol for the filters and 4x4 blocks libaom does not write, OBMC
+    and a local warp, and reference MVs on an inter frame, which must
     raise naming them) and of ``tests/torch_fixtures/avif_ispe`` (frames
     scaled to an ``ispe`` of another size, one refused and one past
     libavif's limits) and of ``tests/torch_fixtures/avif_progressive``
     (progressive items: layer 0 at each of libaom's scaling modes, 4:2:2,
     4:4:4, monochrome, 10 and 12 bits, three layers, alpha, two tiles,
     the six classes and a 3840x2160 frame on a 1920x1080 layer 0, a
-    reference larger than its frame, superres inter frames; OBMC, which
-    must raise naming it, and references past the 2x and 1/16 limits,
-    which must raise ``OSError``) decodes to its manifest
-    (``_read_avif_fixtures``),
+    reference larger than its frame, superres inter frames, OBMC; and
+    references past the 2x and 1/16 limits, which must raise ``OSError``)
+    and of ``tests/torch_fixtures/avif_warp`` (OBMC and local warps:
+    libaom's at ``cpu-used`` 5 and 6 on every subsampling at 8, 10 and 12
+    bits, three layers, alpha, two tiles, the six classes and two
+    progressive items; written ones that fall back to translation, OBMC
+    beside two filters and on 4:2:2, and a 3840x2160 frame) decodes to
+    its manifest (``_read_avif_fixtures``),
     the reads split into parse and tile decode (each frame's apart),
     post-filters, the superres upscale, film grain, a grid's stitch, the
     scaling and conversion (the median of 5; of 3 for the 3840x2160
     files of the folders before ``avif_layers``, and of ``avif_progressive``
-    whose smaller files are read once, to keep the phase's time).
+    and ``avif_warp`` whose smaller files are read once, to keep the
+    phase's time; ``avif_warp``'s reads also time OBMC and the local warp
+    in the tile decode).
     Then the CLI ``-t 80`` on the six class AVIFs and ``-q 60`` on the
     3840x2160 one of the first two folders, ``-q 60`` on the 3840x2160
     ``tune=iq`` frame with film grain, ``-t 80`` on the 512x512
@@ -2831,8 +2854,10 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     superres class, ``-q 60`` on the 3840x2160 superres frame, ``-t
     80`` on the 512x512 ALT_LF, SKIP and ``delta_lf_multi`` frame, ``-t
     80`` on the 512x512 two-layer class, ``-q 60`` on the 3840x2160
-    two-layer frame, ``-t 80`` on the 512x512 progressive class and ``-q
-    60`` on the 3840x2160 progressive frame: q,
+    two-layer frame, ``-t 80`` on the 512x512 progressive class, ``-q
+    60`` on the 3840x2160 progressive frame, ``-t 80`` on the 512x512
+    class of OBMC and local warps and ``-q 60`` on the 3840x2160 frame of
+    both: q,
     passes and bytes must be those of the CLI on the same
     pixels, written as PAM where they are 8-bit and handed over in memory
     where they are 16-bit (PAM holds 8 bits). Returns the kernels'
@@ -2862,10 +2887,12 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
                                ("photo4k_420.avif", ["-q", "60"])]),
             (AVIF_ISPE_DIR, []),
             (AVIF_PROGRESSIVE_DIR, [("class_mixed_512.avif", ["-t", "80"]),
-                                    ("photo4k_420.avif", ["-q", "60"])])):
+                                    ("photo4k_420.avif", ["-q", "60"])]),
+            (AVIF_WARP_DIR, [("class_mixed_512.avif", ["-t", "80"]),
+                             ("photo4k_420.avif", ["-q", "60"])])):
         loaded = _read_avif_fixtures(
             folder, 5 if folder == AVIF_LAYERS_DIR else 3,
-            1 if folder == AVIF_PROGRESSIVE_DIR else 5)
+            1 if folder in (AVIF_PROGRESSIVE_DIR, AVIF_WARP_DIR) else 5)
         runs += [(os.path.join(folder, name), loaded[name], args)
                  for name, args in picks]
     with tempfile.TemporaryDirectory() as td:

@@ -25,11 +25,14 @@
  * and inter-intra symbols, switchable and dual interpolation filters) and
  * their prediction by the Subpel_Filters, sub-8x8 chroma from several
  * blocks' MVs, and through a reference of another size (or the coded width
- * under superres) by the scaled position and step of spec 7.11.3.3
- * (compound blocks, OBMC, local warps and inter-intra are refused by
- * name). The post-filters (deblocking, CDEF, loop restoration) and film
- * grain run afterwards on the block records and restoration units this
- * call returns.
+ * under superres) by the scaled position and step of spec 7.11.3.3; the
+ * motion modes OBMC (spec 7.11.3.10-11: the above and left neighbours'
+ * predictions blended in) and LOCALWARP (spec 7.10.4 find_warp_samples,
+ * 7.11.3.5-8: the least-squares warp of the neighbours' MVs, its shear,
+ * and the block warp per 8x8 by the Warped_Filters) (compound blocks and
+ * inter-intra are refused by name). The post-filters (deblocking, CDEF,
+ * loop restoration) and film grain run afterwards on the block records
+ * and restoration units this call returns.
  *
  * The default CDFs, the scans, the smooth weights, the directional
  * derivatives and the filter-intra taps come from the caller
@@ -63,6 +66,7 @@
 #include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
+#include <time.h>
 
 void update_cdf_c(uint16_t *icdf, int nsym, int val);
 void inv_1d_kind_pub(const int64_t *in, int64_t *out, int n, int kind);
@@ -103,6 +107,19 @@ enum { NEARESTMV = 13, NEARMV = 14, GLOBALMV = 15, NEWMV = 16 };
 enum { INTRA_FRAME = 0, LAST_FRAME = 1, GOLDEN_FRAME = 4, BWDREF_FRAME = 5,
        ALTREF_FRAME = 7 };
 enum { REF_CAT_LEVEL = 640 };
+enum { SIMPLE = 0, OBMC = 1, LOCALWARP = 2 };
+/* the inter prediction tables, one int16 pack (avif._tool_tables()'s
+ * "inter_tables"):
+ * Subpel_Filters [6][16][8], Warped_Filters [193][8], Div_Lut [257] and
+ * Obmc_Mask_1..32 (the mask of length n at n - 1) */
+enum { TAB_SUBPEL = 0, TAB_WARP = TAB_SUBPEL + 6 * 16 * 8,
+       TAB_DIV_LUT = TAB_WARP + 193 * 8, TAB_OBMC = TAB_DIV_LUT + 257 };
+/* spec constants of the local warp (7.11.3.5-8) */
+enum { LS_MV_MAX = 256, WARPEDMODEL_PREC_BITS = 16, WARP_PARAM_REDUCE_BITS = 6,
+       WARPEDMODEL_NONDIAGAFFINE_CLAMP = 1 << 13,
+       WARPEDMODEL_TRANS_CLAMP = 1 << 23, DIV_LUT_BITS = 8,
+       DIV_LUT_PREC_BITS = 14, WARPEDDIFF_PREC_BITS = 10,
+       WARPEDPIXEL_PREC_SHIFTS = 1 << 6 };
 enum { TX_ONLY_4X4 = 0, TX_MODE_LARGEST = 1, TX_MODE_SELECT = 2 };
 enum {
     DCT_DCT = 0, ADST_DCT = 1, DCT_ADST = 2, ADST_ADST = 3, FLIPADST_DCT = 4,
@@ -257,11 +274,13 @@ typedef struct {
     const int32_t *ref_plane[8][3];
     int ref_stride[8], ref_w[8], ref_h[8];
     int xscale[8], yscale[8]; /* spec xScale, yScale of each reference */
-    const int16_t *subpel;
+    const int16_t *subpel, *warp_filter, *div_lut, *obmc_mask;
     int8_t *mi_ref;
     uint8_t *mi_newmv, *mi_filt, *mi_lf;
     /* tool counters (T_*) */
     int32_t *count;
+    /* where not NULL, the ns of OBMC ([0]) and of the local warp ([1]) */
+    int64_t *motion_ns;
     int lf_on;         /* a luma loop filter level is not 0 */
     uint8_t *mi_bsz;   /* log2 w4 | log2 h4 << 4 of each mi's block */
     /* error */
@@ -286,6 +305,10 @@ typedef struct {
     int max_luma_w, max_luma_h;
     int is_inter, mv[2]; /* use_intrabc (or an inter block) and its MV */
     int ref, mode, filt[2]; /* RefFrame[0], YMode, interp_filter (y, x) */
+    /* motion_mode, and find_warp_samples' NumSamples and CandList (each
+     * sample's position and its position plus the neighbour's MV, row
+     * then column, in 1/8 sample) */
+    int motion_mode, nsamples, cand[8][4];
     uint8_t txtypes[32][32]; /* TxTypes of the block's luma 4x4s */
 } Blk;
 
@@ -2132,28 +2155,52 @@ static int overlappable(const Dec *d, const Blk *b) {
     return 0;
 }
 
-/* spec find_warp_samples as far as read_motion_mode needs it: whether
- * NumSamples is non-zero, i.e. whether any position it scans holds a
- * decoded block of the same single reference (an invalid first sample
- * still counts) */
-static int warp_samples(Dec *d, const Blk *b) {
+/* spec 7.10.4.2 add_sample: the neighbour at (r + dr, c + dc), where it
+ * is inside the tile and of the block's single reference, joins CandList
+ * at its block's centre less one sample; one whose MV differs from the
+ * block's by more than the size's threshold is dropped unless it is the
+ * first scanned, which stays at CandList[0] uncounted */
+static void add_sample(const Dec *d, Blk *b, int dr, int dc, int *scanned) {
+    if (*scanned >= 8) return;
+    int r = b->r + dr, c = b->c + dc;
+    if (!is_inside(d, r, c)) return;
+    int m = mi_at(d, r, c);
+    if (d->mi_ref[m] != b->ref) return;
+    int cw4 = 1 << d->mi_wl[m], ch4 = 1 << d->mi_hl[m];
+    int midy = (r & ~(ch4 - 1)) * 4 + ch4 * 2 - 1;
+    int midx = (c & ~(cw4 - 1)) * 4 + cw4 * 2 - 1;
+    int thresh = imin(imax(4 << imax(b->wl, b->hl), 16), 112);
+    int mvr = d->mi_mv[2 * m], mvc = d->mi_mv[2 * m + 1];
+    int valid = abs(mvr - b->mv[0]) + abs(mvc - b->mv[1]) <= thresh;
+    (*scanned)++;
+    if (!valid && *scanned > 1) return;
+    int *cand = b->cand[b->nsamples];
+    cand[0] = midy * 8;
+    cand[1] = midx * 8;
+    cand[2] = midy * 8 + mvr;
+    cand[3] = midx * 8 + mvc;
+    if (valid) b->nsamples++;
+}
+
+/* spec 7.10.4.1 find_warp_samples: the above row and left column of
+ * neighbours (each neighbour once), the top-left, and the top-right where
+ * it is decoded; NumSamples 1 where every sample scanned was dropped */
+static void find_warp_samples(const Dec *d, Blk *b) {
     int w4 = 1 << b->wl, h4 = 1 << b->hl, r = b->r, c = b->c;
-    int top_left = 1, top_right = 1, any = 0;
-#define SAMPLE(rr, cc) do { \
-        int r_ = (rr), c_ = (cc); \
-        if (is_inside(d, r_, c_) && d->mi_ref[mi_at(d, r_, c_)] == b->ref) any = 1; \
-    } while (0)
+    int top_left = 1, top_right = 1, scanned = 0;
+    b->nsamples = 0;
     if (b->avail_u) {
         int sw = 1 << d->mi_wl[mi_at(d, r - 1, c)];
         if (w4 <= sw) {
             int off = -(c & (sw - 1));
             if (off < 0) top_left = 0;
             if (off + sw > w4) top_right = 0;
-            SAMPLE(r - 1, c);
+            add_sample(d, b, -1, 0, &scanned);
         } else {
-            for (int i = 0, step; i < imin(w4, d->mi_cols - c); i += step) {
-                step = imax(1 << d->mi_wl[mi_at(d, r - 1, c + i)], 2);
-                SAMPLE(r - 1, c + i);
+            for (int i = 0; i < imin(w4, d->mi_cols - c);) {
+                int step = 1 << d->mi_wl[mi_at(d, r - 1, c + i)];
+                add_sample(d, b, -1, i, &scanned);
+                i += step;
             }
         }
     }
@@ -2161,21 +2208,21 @@ static int warp_samples(Dec *d, const Blk *b) {
         int sh = 1 << d->mi_hl[mi_at(d, r, c - 1)];
         if (h4 <= sh) {
             if (-(r & (sh - 1)) < 0) top_left = 0;
-            SAMPLE(r, c - 1);
+            add_sample(d, b, 0, -1, &scanned);
         } else {
-            for (int i = 0, step; i < imin(h4, d->mi_rows - r); i += step) {
-                step = imax(1 << d->mi_hl[mi_at(d, r + i, c - 1)], 2);
-                SAMPLE(r + i, c - 1);
+            for (int i = 0; i < imin(h4, d->mi_rows - r);) {
+                int step = 1 << d->mi_hl[mi_at(d, r + i, c - 1)];
+                add_sample(d, b, i, -1, &scanned);
+                i += step;
             }
         }
     }
-    if (top_left) SAMPLE(r - 1, c - 1);
+    if (top_left) add_sample(d, b, -1, -1, &scanned);
     int sbmask = d->sb4 - 1;
     if (top_right && imax(w4, h4) <= 16 && is_inside(d, r - 1, c + w4) &&
         d->decoded[0][(r & sbmask) - 1 + 1][(c & sbmask) + w4 + 1])
-        SAMPLE(r - 1, c + w4);
-#undef SAMPLE
-    return any;
+        add_sample(d, b, -1, w4, &scanned);
+    if (!b->nsamples && scanned) b->nsamples = 1;
 }
 
 static int interp_ctx(const Dec *d, const Blk *b, int dir) {
@@ -2238,21 +2285,18 @@ static void inter_block_mode_info(Dec *d, Blk *b) {
         fail(d, AV1D_UNSUPPORTED, "AV1: %s is not supported", "inter-intra prediction");
         return;
     }
+    b->motion_mode = SIMPLE;
     if (d->motion_switchable && imin(b->wl, b->hl) >= 1 && overlappable(d, b)) {
-        int mm;
-        if (d->force_int_mv || !d->allow_warped || ref_is_scaled(d, b->ref) || !warp_samples(d, b))
-            mm = read_symbol(d, d->cdf[D_OBMC] + (size_t)b->bsize * 3, 2);
+        find_warp_samples(d, b);
+        if (d->force_int_mv || !b->nsamples || !d->allow_warped || ref_is_scaled(d, b->ref))
+            b->motion_mode = read_symbol(d, d->cdf[D_OBMC] + (size_t)b->bsize * 3, 2);
         else
-            mm = read_symbol(d, d->cdf[D_MOTION_MODE] + (size_t)b->bsize * 4, 3);
-        if (mm) {
-            fail(d, AV1D_UNSUPPORTED, "AV1: %s is not supported",
-                 mm == 1 ? "OBMC (overlapped block motion compensation)"
-                         : "LOCALWARP (local warped motion)");
-            return;
-        }
+            b->motion_mode = read_symbol(d, d->cdf[D_MOTION_MODE] + (size_t)b->bsize * 4, 3);
     }
+    /* spec needs_interp_filter: none for a local warp, nor for GLOBALMV
+     * on an identity global motion */
     if (d->interp_filter == 4) {
-        int need = !(imin(b->wl, b->hl) >= 1 && b->mode == GLOBALMV);
+        int need = b->motion_mode != LOCALWARP && !(imin(b->wl, b->hl) >= 1 && b->mode == GLOBALMV);
         for (int dir = 0; dir < (d->dual_filter ? 2 : 1); dir++)
             b->filt[dir] = need ? read_symbol(d, d->cdf[D_INTERP] + (size_t)interp_ctx(d, b, dir) * 4, 3)
                                 : 0;
@@ -2302,6 +2346,23 @@ static void inter_frame_mode_info(Dec *d, Blk *b) {
 
 /* the counts of the test hook av1_scaled_parity, or NULL */
 static int64_t *scaled_parity;
+
+static int64_t now_ns(void) {
+    struct timespec t;
+    clock_gettime(CLOCK_MONOTONIC, &t);
+    return (int64_t)t.tv_sec * 1000000000 + t.tv_nsec;
+}
+
+/* stmt, its time added to d->motion_ns[slot] where that is given */
+#define MOTION_TIMED(slot, stmt) do { \
+        if (d->motion_ns) { \
+            int64_t t_ = now_ns(); \
+            stmt; \
+            d->motion_ns[slot] += now_ns() - t_; \
+        } else { \
+            stmt; \
+        } \
+    } while (0)
 
 /* block inter prediction through a scaled reference (spec 7.11.3.3 motion
  * vector scaling, 7.11.3.4 at startX + xStep * c): the position in 1/1024
@@ -2360,10 +2421,12 @@ static void predict_scaled(const Dec *d, int plane, int x, int y, int w, int h, 
 
 /* block inter prediction (spec 7.11.3.3-4) of one w x h part of a plane
  * at (x, y) with the MV, reference and filters of the block at mi (cr,
- * cc): at scale 1 here, Subpel_Filters in 1/16 sample (the 4-tap rows
- * for a side of 4 or less), InterRound0 then InterRound1, the reference's
- * samples clamped at its edges; through predict_scaled otherwise */
-static void predict_part(Dec *d, int plane, int x, int y, int w, int h, int cr, int cc) {
+ * cc), into dst of stride dstride: at scale 1 here, Subpel_Filters in
+ * 1/16 sample (the 4-tap rows for a side of 4 or less), InterRound0 then
+ * InterRound1, the reference's samples clamped at its edges; through
+ * predict_scaled otherwise */
+static void predict_part_to(Dec *d, int plane, int x, int y, int w, int h, int cr, int cc,
+                            int32_t *dst, int dstride) {
     int m = mi_at(d, cr, cc);
     int ref = d->mi_ref[m];
     if (ref <= INTRA_FRAME || !d->ref_plane[ref][0]) {
@@ -2371,8 +2434,7 @@ static void predict_part(Dec *d, int plane, int x, int y, int w, int h, int cr, 
         return;
     }
     if (ref_is_scaled(d, ref)) {
-        predict_scaled(d, plane, x, y, w, h, m, d->xscale[ref], d->yscale[ref],
-                       px(d, plane, y, x), d->stride);
+        predict_scaled(d, plane, x, y, w, h, m, d->xscale[ref], d->yscale[ref], dst, dstride);
         return;
     }
     int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
@@ -2401,7 +2463,7 @@ static void predict_part(Dec *d, int plane, int x, int y, int w, int h, int cr, 
         }
     }
     for (int i = 0; i < h; i++) {
-        int32_t *out = px(d, plane, y + i, x);
+        int32_t *out = dst + (size_t)i * dstride;
         for (int j = 0; j < w; j++) {
             int64_t s = 0;
             for (int t = 0; t < 8; t++) s += (int64_t)FY[t] * mid[(i + t) * w + j];
@@ -2413,9 +2475,197 @@ static void predict_part(Dec *d, int plane, int x, int y, int w, int h, int cr, 
         predict_scaled(d, plane, x, y, w, h, m, NO_SCALE, NO_SCALE, alt, w);
         int same = 1;
         for (int i = 0; i < h && same; i++)
-            same = !memcmp(alt + i * w, px(d, plane, y + i, x), (size_t)w * sizeof(int32_t));
+            same = !memcmp(alt + i * w, dst + (size_t)i * dstride, (size_t)w * sizeof(int32_t));
         scaled_parity[0]++;
         scaled_parity[1] += !same;
+    }
+}
+
+static void predict_part(Dec *d, int plane, int x, int y, int w, int h, int cr, int cc) {
+    predict_part_to(d, plane, x, y, w, h, cr, cc, px(d, plane, y, x), d->stride);
+}
+
+/* spec 7.11.3.7 resolve_divisor: Div_Lut's multiplier for |v| and its
+ * shift, signed as v */
+static int64_t resolve_divisor(const Dec *d, int64_t v, int *shift) {
+    uint64_t a = (uint64_t)(v < 0 ? -v : v);
+    int n = 63 - __builtin_clzll(a);
+    int64_t e = (int64_t)(a - ((uint64_t)1 << n));
+    int64_t f = n > DIV_LUT_BITS ? rnd2(e, n - DIV_LUT_BITS) : e << (DIV_LUT_BITS - n);
+    *shift = n + DIV_LUT_PREC_BITS;
+    return v < 0 ? -(int64_t)d->div_lut[f] : d->div_lut[f];
+}
+
+static int64_t ls_product(int64_t a, int64_t b) { return ((a * b) >> 2) + (a + b); }
+
+/* spec 7.11.3.8 warpEstimation: the affine LocalWarpParams that fit the
+ * block's samples by least squares, each product's rounding as libaom's
+ * and dav1d's 64-bit forms; 0 where the system is singular (LocalValid 0) */
+static int warp_estimation(const Dec *d, const Blk *b, int32_t *wp) {
+    int64_t a00 = 0, a01 = 0, a11 = 0, bx0 = 0, bx1 = 0, by0 = 0, by1 = 0;
+    int midy = b->r * 4 + (2 << b->hl) - 1, midx = b->c * 4 + (2 << b->wl) - 1;
+    int suy = midy * 8, sux = midx * 8, duy = suy + b->mv[0], dux = sux + b->mv[1];
+    for (int i = 0; i < b->nsamples; i++) {
+        int sy = b->cand[i][0] - suy, sx = b->cand[i][1] - sux;
+        int dy = b->cand[i][2] - duy, dx = b->cand[i][3] - dux;
+        if (abs(sx - dx) < LS_MV_MAX && abs(sy - dy) < LS_MV_MAX) {
+            a00 += ls_product(sx, sx) + 8;
+            a01 += ls_product(sx, sy) + 4;
+            a11 += ls_product(sy, sy) + 8;
+            bx0 += ls_product(sx, dx) + 8;
+            bx1 += ls_product(sy, dx) + 4;
+            by0 += ls_product(sx, dy) + 4;
+            by1 += ls_product(sy, dy) + 8;
+        }
+    }
+    int64_t det = a00 * a11 - a01 * a01;
+    if (!det) return 0;
+    int shift;
+    int64_t div = resolve_divisor(d, det, &shift);
+    shift -= WARPEDMODEL_PREC_BITS;
+    if (shift < 0) {
+        div *= (int64_t)1 << -shift;
+        shift = 0;
+    }
+    const int64_t one = 1 << WARPEDMODEL_PREC_BITS, nd = WARPEDMODEL_NONDIAGAFFINE_CLAMP - 1;
+    wp[2] = (int32_t)clip64(rnd2s((a11 * bx0 - a01 * bx1) * div, shift), one - nd, one + nd);
+    wp[3] = (int32_t)clip64(rnd2s((a00 * bx1 - a01 * bx0) * div, shift), -nd, nd);
+    wp[4] = (int32_t)clip64(rnd2s((a11 * by0 - a01 * by1) * div, shift), -nd, nd);
+    wp[5] = (int32_t)clip64(rnd2s((a00 * by1 - a01 * by0) * div, shift), one - nd, one + nd);
+    int64_t vx = (int64_t)b->mv[1] * (1 << (WARPEDMODEL_PREC_BITS - 3)) -
+                 ((int64_t)midx * (wp[2] - one) + (int64_t)midy * wp[3]);
+    int64_t vy = (int64_t)b->mv[0] * (1 << (WARPEDMODEL_PREC_BITS - 3)) -
+                 ((int64_t)midx * wp[4] + (int64_t)midy * (wp[5] - one));
+    wp[0] = (int32_t)clip64(vx, -WARPEDMODEL_TRANS_CLAMP, WARPEDMODEL_TRANS_CLAMP - 1);
+    wp[1] = (int32_t)clip64(vy, -WARPEDMODEL_TRANS_CLAMP, WARPEDMODEL_TRANS_CLAMP - 1);
+    return 1;
+}
+
+/* spec 7.11.3.6 setupShear: alpha, beta, gamma, delta of wp, each reduced
+ * to WARP_PARAM_REDUCE_BITS; 0 where the warp filter cannot follow them
+ * (wp[2], the divisor, is positive: warp_estimation clamps it to within
+ * 8191 of 1 << 16) */
+static int setup_shear(const Dec *d, const int32_t *wp, int *abgd) {
+    const int64_t one = 1 << WARPEDMODEL_PREC_BITS;
+    int64_t alpha = clip64(wp[2] - one, INT16_MIN, INT16_MAX);
+    int64_t beta = clip64(wp[3], INT16_MIN, INT16_MAX);
+    int shift;
+    int64_t div = resolve_divisor(d, wp[2], &shift);
+    int64_t gamma = clip64(rnd2s(((int64_t)wp[4] << WARPEDMODEL_PREC_BITS) * div, shift),
+                           INT16_MIN, INT16_MAX);
+    int64_t delta = clip64(wp[5] - rnd2s((int64_t)wp[3] * wp[4] * div, shift) - one,
+                           INT16_MIN, INT16_MAX);
+    int64_t v[4] = {alpha, beta, gamma, delta};
+    for (int i = 0; i < 4; i++)
+        abgd[i] = (int)(rnd2s(v[i], WARP_PARAM_REDUCE_BITS) * (1 << WARP_PARAM_REDUCE_BITS));
+    return 4 * abs(abgd[0]) + 7 * abs(abgd[1]) < one && 4 * abs(abgd[2]) + 4 * abs(abgd[3]) < one;
+}
+
+/* spec 7.11.3.5 block warp of a w x h plane block at (x, y) with the
+ * warp wp and its shear abgd, one 8x8 at a time: each output sample's
+ * horizontal then vertical Warped_Filters phase from the 8x8 centre's
+ * warped position, its fraction's low WARP_PARAM_REDUCE_BITS dropped as
+ * libaom and dav1d drop them, InterRound0 and InterRound1 as in the
+ * translation loop; the reference clamped at its edges */
+static void warp_block(Dec *d, const Blk *b, int plane, int x, int y, int w, int h,
+                       const int32_t *wp, const int *abgd) {
+    int ref = b->ref;
+    int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
+    const int32_t *src = d->ref_plane[ref][plane];
+    int rs = d->ref_stride[ref];
+    int lastx = ((d->ref_w[ref] + sx) >> sx) - 1, lasty = ((d->ref_h[ref] + sy) >> sy) - 1;
+    int round0 = d->bd == 12 ? 5 : 3, round1 = d->bd == 12 ? 9 : 11;
+    int maxv = (1 << d->bd) - 1;
+    const int alpha = abgd[0], beta = abgd[1], gamma = abgd[2], delta = abgd[3];
+    int32_t mid[15 * 8];
+    for (int i8 = 0; i8 < h; i8 += 8)
+        for (int j8 = 0; j8 < w; j8 += 8) {
+            int64_t srcx = (int64_t)(x + j8 + 4) << sx, srcy = (int64_t)(y + i8 + 4) << sy;
+            int64_t dstx = wp[2] * srcx + wp[3] * srcy + wp[0];
+            int64_t dsty = wp[4] * srcx + wp[5] * srcy + wp[1];
+            int64_t x4 = dstx >> sx, y4 = dsty >> sy;
+            int ix4 = (int)(x4 >> WARPEDMODEL_PREC_BITS), iy4 = (int)(y4 >> WARPEDMODEL_PREC_BITS);
+            int sx4 = (int)(x4 & ((1 << WARPEDMODEL_PREC_BITS) - 1));
+            int sy4 = (int)(y4 & ((1 << WARPEDMODEL_PREC_BITS) - 1));
+            sx4 = (sx4 - 4 * alpha - 4 * beta) & ~((1 << WARP_PARAM_REDUCE_BITS) - 1);
+            sy4 = (sy4 - 4 * gamma - 4 * delta) & ~((1 << WARP_PARAM_REDUCE_BITS) - 1);
+            int cols[15];
+            for (int t = 0; t < 15; t++) cols[t] = imin(imax(ix4 - 7 + t, 0), lastx);
+            for (int k = -7; k < 8; k++) {
+                const int32_t *row = src + (size_t)imin(imax(iy4 + k, 0), lasty) * rs;
+                int p = sx4 + beta * (k + 4);
+                for (int l = -4; l < 4; l++, p += alpha) {
+                    const int16_t *F = d->warp_filter + 8 * (WARPEDPIXEL_PREC_SHIFTS +
+                        ((p + (1 << (WARPEDDIFF_PREC_BITS - 1))) >> WARPEDDIFF_PREC_BITS));
+                    int64_t s = 0;
+                    for (int t = 0; t < 8; t++) s += (int64_t)F[t] * row[cols[l + 4 + t]];
+                    mid[(k + 7) * 8 + l + 4] = (int32_t)rnd2(s, round0);
+                }
+            }
+            for (int k = -4; k < imin(4, h - i8 - 4); k++) {
+                int p = sy4 + delta * (k + 4);
+                int32_t *out = px(d, plane, y + i8 + k + 4, x + j8);
+                for (int l = -4; l < imin(4, w - j8 - 4); l++, p += gamma) {
+                    const int16_t *F = d->warp_filter + 8 * (WARPEDPIXEL_PREC_SHIFTS +
+                        ((p + (1 << (WARPEDDIFF_PREC_BITS - 1))) >> WARPEDDIFF_PREC_BITS));
+                    int64_t s = 0;
+                    for (int t = 0; t < 8; t++) s += (int64_t)F[t] * mid[(k + t + 4) * 8 + l + 4];
+                    out[l + 4] = (int32_t)clip64(rnd2(s, round1), 0, maxv);
+                }
+            }
+        }
+}
+
+/* spec 7.11.3.10-11 overlapped motion compensation of the block's w x h
+ * plane block at (x0, y0): up to four above neighbours (unless the
+ * plane's block is smaller than 8x8), then up to four left ones, each
+ * inter neighbour predicted over the overlap with its own MV, reference
+ * and filters, then blended in by Obmc_Mask rows (above) or columns
+ * (left) with Round2(.., 6) */
+static void predict_obmc(Dec *d, const Blk *b, int plane, int x0, int y0, int w, int h) {
+    int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
+    static _Thread_local int32_t lap[64 * 64];
+    if (b->avail_u && w + h >= 16) {
+        int end = imin(d->mi_cols, b->c + (1 << b->wl));
+        for (int x4 = b->c, n = 0; n < imin(4, b->wl) && x4 < end && !d->err;) {
+            int cr = b->r - 1, cc = imin(x4 | 1, d->mi_cols - 1);
+            int m = mi_at(d, cr, cc);
+            int step = imin(imax(1 << d->mi_wl[m], 2), 16);
+            if (d->mi_ref[m] > INTRA_FRAME) {
+                n++;
+                int pw = imin(w, (step * 4) >> sx), ph = imin(h >> 1, 32 >> sy);
+                int px0 = (x4 * 4) >> sx;
+                const int16_t *mask = d->obmc_mask + ph - 1;
+                predict_part_to(d, plane, px0, y0, pw, ph, cr, cc, lap, pw);
+                for (int i = 0; i < ph; i++) {
+                    int32_t *cur = px(d, plane, y0 + i, px0);
+                    for (int j = 0; j < pw; j++)
+                        cur[j] = (int32_t)rnd2((int64_t)mask[i] * cur[j] + (64 - mask[i]) * lap[i * pw + j], 6);
+                }
+            }
+            x4 += step;
+        }
+    }
+    if (b->avail_l) {
+        int end = imin(d->mi_rows, b->r + (1 << b->hl));
+        for (int y4 = b->r, n = 0; n < imin(4, b->hl) && y4 < end && !d->err;) {
+            int cr = imin(y4 | 1, d->mi_rows - 1), cc = b->c - 1;
+            int m = mi_at(d, cr, cc);
+            int step = imin(imax(1 << d->mi_hl[m], 2), 16);
+            if (d->mi_ref[m] > INTRA_FRAME) {
+                n++;
+                int pw = imin(w >> 1, 32 >> sx), ph = imin(h, (step * 4) >> sy);
+                int py0 = (y4 * 4) >> sy;
+                const int16_t *mask = d->obmc_mask + pw - 1;
+                predict_part_to(d, plane, x0, py0, pw, ph, cr, cc, lap, pw);
+                for (int i = 0; i < ph; i++) {
+                    int32_t *cur = px(d, plane, py0 + i, x0);
+                    for (int j = 0; j < pw; j++)
+                        cur[j] = (int32_t)rnd2((int64_t)mask[j] * cur[j] + (64 - mask[j]) * lap[i * pw + j], 6);
+                }
+            }
+            y4 += step;
+        }
     }
 }
 
@@ -2426,6 +2676,16 @@ static void predict_part(Dec *d, int plane, int x, int y, int w, int h, int cr, 
  * (someUseIntra) */
 static void predict_inter(Dec *d, Blk *b) {
     if (ref_is_scaled(d, b->ref)) d->count[T_SCALED_PRED]++;
+    /* spec 7.11.3.1: LocalValid and the shear once, at plane 0 */
+    int32_t wp[6];
+    int abgd[4], warp = 0;
+    if (b->motion_mode == LOCALWARP) {
+        d->count[T_LOCAL_WARP]++;
+        MOTION_TIMED(1, warp = warp_estimation(d, b, wp) && setup_shear(d, wp, abgd));
+        if (!warp) d->count[T_LOCAL_WARP_INVALID]++;
+    } else if (b->motion_mode == OBMC) {
+        d->count[T_OBMC]++;
+    }
     for (int plane = 0; plane < (b->has_chroma ? d->nplanes : 1) && !d->err; plane++) {
         int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
         int wl4, hl4;
@@ -2447,9 +2707,15 @@ static void predict_inter(Dec *d, Blk *b) {
             cc = b->c;
         }
         if (plane == 1 && (predw < pw || predh < ph)) d->count[T_SUB8X8_CHROMA_MVS]++;
+        /* a warp needs a plane block of 8x8 at least (useWarp) */
+        if (warp && pw >= 8 && ph >= 8) {
+            MOTION_TIMED(1, warp_block(d, b, plane, bx, by, pw, ph, wp, abgd));
+            continue;
+        }
         for (int y = 0, i = 0; y < ph; y += predh, i++)
             for (int x = 0, j = 0; x < pw; x += predw, j++)
                 predict_part(d, plane, bx + x, by + y, predw, predh, cr + i, cc + j);
+        if (b->motion_mode == OBMC) MOTION_TIMED(0, predict_obmc(d, b, plane, bx, by, pw, ph));
     }
 }
 
@@ -2775,8 +3041,11 @@ static void decode_tile(Dec *d) {
  * y horizontal, u and v), segs (mi_rows x mi_cols: the segment_id),
  * the restoration units (per plane, row and column, strides
  * H_LR_RSTRIDE x H_LR_CSTRIDE: kind 0 none / 1 Wiener / 2 SGR, then 6
- * taps or set, xqd0, xqd1) and the tool counters (T_NCOUNTERS). Returns
- * 0, or 1 (unsupported tool) / 2 (corrupt stream) with msg set. */
+ * taps or set, xqd0, xqd1) and the tool counters (T_NCOUNTERS). Where
+ * motion_ns (two int64) is not NULL, it gains the nanoseconds spent in
+ * OBMC's neighbour predictions and blends ([0]) and in the local warp,
+ * its estimation, shear and block warps ([1]). Returns 0, or 1
+ * (unsupported tool) / 2 (corrupt stream) with msg set. */
 int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
                      const int32_t *hdr, const int32_t *tile_starts,
                      uint16_t *const *cdfs, const int64_t *cdf_lens,
@@ -2787,13 +3056,14 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
                      uint8_t *const *txmaps, uint8_t *skips, int8_t *cdef_idx,
                      int8_t *delta_lf, uint8_t *segs, int32_t *lr_out, int32_t *counts,
                      const int32_t *const *refs, const int32_t *ref_info,
-                     const int16_t *subpel, uint16_t *cdf_out, uint8_t *mi_lf,
-                     uint8_t *mi_bsz, char *msg, int msglen) {
+                     const int16_t *inter_tables, uint16_t *cdf_out, uint8_t *mi_lf,
+                     uint8_t *mi_bsz, int64_t *motion_ns, char *msg, int msglen) {
     Dec *d = (Dec *)calloc(1, sizeof(Dec));
     if (!d) return AV1D_CORRUPT;
     int rc = AV1D_OK;
     d->msg = msg;
     d->msglen = msglen;
+    d->motion_ns = motion_ns;
     d->mi_rows = hdr[H_MI_ROWS];
     d->mi_cols = hdr[H_MI_COLS];
     d->nplanes = hdr[H_NPLANES];
@@ -2844,7 +3114,10 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->seg_ref_mask = hdr[H_SEG_REF_MASK];
     d->seg_ref_frames = hdr[H_SEG_REF_FRAMES];
     d->seg_gmv_mask = hdr[H_SEG_GLOBALMV_MASK];
-    d->subpel = subpel;
+    d->subpel = inter_tables + TAB_SUBPEL;
+    d->warp_filter = inter_tables + TAB_WARP;
+    d->div_lut = inter_tables + TAB_DIV_LUT;
+    d->obmc_mask = inter_tables + TAB_OBMC;
     for (int rf = 1; rf < 8 && refs; rf++) {
         for (int p = 0; p < 3; p++) d->ref_plane[rf][p] = refs[(rf - 1) * 3 + p];
         d->ref_stride[rf] = ref_info[(rf - 1) * 3];

@@ -142,6 +142,10 @@ enum {
     /* inter blocks predicted from a reference of another scale (spec
      * is_scaled: another size, or the coded width under superres) */
     T_SCALED_PRED,
+    /* inter blocks of each motion mode past SIMPLE (OBMC, LOCALWARP), and
+     * LOCALWARP blocks predicted by translation instead (LocalValid 0, or
+     * a shear setupShear refuses) */
+    T_OBMC, T_LOCAL_WARP, T_LOCAL_WARP_INVALID,
     T_NCOUNTERS
 };
 

@@ -34,7 +34,8 @@ Three parts, all on the host:
   (``av1_refs.RefFrames``), for 4:4:4, 4:2:2, 4:2:0 and monochrome
   streams at 8, 10 and 12 bits with the intra tools libaom writes, inter
   blocks of a single reference (the MV stack, every single-reference
-  mode, the subpel filters, sub-8x8 chroma) of the frame's size or, as a
+  mode, the subpel filters, sub-8x8 chroma, the motion modes OBMC and
+  LOCALWARP) of the frame's size or, as a
   progressive image's later layers and a superres inter frame read
   theirs, of another scale within the spec's 2x and 1/16 limits, quantizer
   matrices, delta q
@@ -1725,7 +1726,7 @@ TOOL_NAMES = (
     "nearestmv", "nearmv", "globalmv", "drl", "subpel_mv", "filter_regular",
     "filter_smooth", "filter_sharp", "filter_bilinear", "dual_filter",
     "intra_in_inter", "sub8x8_chroma_mvs", "lf_ref_delta", "lf_mode_delta",
-    "scaled_pred",
+    "scaled_pred", "obmc", "local_warp", "local_warp_invalid",
 )
 # the film grain pack (av1_header.h's G_* enum): field, length
 _GRAIN_FIELDS = (
@@ -1798,6 +1799,10 @@ def _tool_tables():
         for k in ("gaussian_sequence", "upscale_filter", "subpel_filters"):
             _TOOL_CACHE[k] = np.ascontiguousarray(_TOOL_CACHE[k],
                                                   dtype=np.int16)
+        # av1_decode.c's TAB_* pack of the inter prediction tables
+        _TOOL_CACHE["inter_tables"] = np.concatenate(
+            [_TOOL_CACHE[k].reshape(-1).astype(np.int16) for k in (
+                "subpel_filters", "warped_filter", "div_lut", "obmc_mask")])
     return _TOOL_CACHE
 
 
@@ -1915,7 +1920,9 @@ def decode_av1(payload: bytes, times: Optional[dict] = None,
     (superres), "grain" (film grain synthesis) and "refs" (keeping a
     frame in its reference slots), summed over the frames,
     and each frame's tile decode and post-filters apart ("tiles_f0",
-    "filters_f0", ...). The tool counts are those of every frame."""
+    "filters_f0", ...), and of that tile decode, where a frame used them,
+    OBMC's ("obmc_f1", ...) and the local warp's ("warp_f1", ...). The
+    tool counts are those of every frame."""
     from .av1_refs import RefFrames
 
     t0 = time.perf_counter()
@@ -2097,6 +2104,8 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
                                      ref.height)
     msg = C.create_string_buffer(256)
     vp = C.c_void_p
+    # the ns of OBMC and of the local warp, taken where times are
+    motion = np.zeros(2, dtype=np.int64) if times is not None else None
     rc = lib.av1_decode_frame(
         C.cast(tile_ptrs, vp), tile_sizes.ctypes.data, hdr.ctypes.data,
         starts.ctypes.data, C.cast(cdf_ptrs, vp), cdf_lens.ctypes.data,
@@ -2106,8 +2115,9 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
         stride, C.cast(tx_ptrs, vp), skips.ctypes.data, cdef_idx.ctypes.data,
         delta_lf.ctypes.data, segs.ctypes.data, lr_units.ctypes.data,
         counts.ctypes.data, C.cast(ref_ptrs, vp), ref_info.ctypes.data,
-        _tool_tables()["subpel_filters"].ctypes.data, cdf_out.ctypes.data,
-        mi_lf.ctypes.data, mi_bsz.ctypes.data, msg, 256)
+        _tool_tables()["inter_tables"].ctypes.data, cdf_out.ctypes.data,
+        mi_lf.ctypes.data, mi_bsz.ctypes.data,
+        None if motion is None else motion.ctypes.data, msg, 256)
     if rc == 1:
         raise UnsupportedAvif(msg.value.decode())
     if rc:
@@ -2154,7 +2164,9 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
         for k, v in (("parse", t1 - t0), ("grain", t3 - ts), ("refs", ts - t2),
                      ("upscale", upscale.value), ("filters", filt),
                      (f"tiles_f{index}", t1 - t0),
-                     (f"filters_f{index}", t2 - t1)):
+                     (f"filters_f{index}", t2 - t1),
+                     *((f"{tool}_f{index}", ns * 1e-9)
+                       for tool, ns in zip(("obmc", "warp"), motion) if ns)):
             times[k] = times.get(k, 0.0) + v
     return DecodedImage(out, bd, s.cicp, s.full_range, s.mono, (ssx, ssy))
 

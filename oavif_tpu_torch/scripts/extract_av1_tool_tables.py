@@ -36,7 +36,14 @@ and write ``oavif_tpu_torch/io/av1_tool_tables.npz``:
 - ``subpel_filters``: inter prediction's Subpel_Filters[6][16][8]
   (regular, smooth, sharp, bilinear, and the 4-tap regular and smooth
   rows of blocks 4 wide or tall; libaom's ``av1_sub_pel_filters_*``),
-  int16.
+  int16;
+- ``warped_filter``: the warp's 8-tap filters at 193 phases (spec
+  Warped_Filters, libaom's ``av1_warped_filter``: three ranges of 64
+  phases and a last row that repeats the one before), int16;
+- ``div_lut``: the divisor table of the local warp's least squares (spec
+  Div_Lut, libaom's ``div_lut``), 257 uint16 from 16384 down to 8192;
+- ``obmc_mask``: OBMC's blending weights (spec Obmc_Mask_1 .. _32, libaom's
+  ``obmc_mask_*``), uint8, the mask of length n at ``n - 1`` (63 in all).
 
 Each table is found by a structural signature and checked against anchor
 values before anything is written: the matrices by their first 4x4 (the
@@ -47,7 +54,11 @@ and their spacing of 4; the CDFs by the spec's values and by their shape
 (each row decreasing to its closing 0); the upscale filter by its first
 three phases, its sums of 128 and its mirror symmetry; the subpel filters
 by their first two phases, their sums of 128 and the mirror symmetry of
-every phase with its complement. libaom copies its small default
+every phase with its complement; the warped filter by its first two
+phases, its sums of 128 and its repeated last row; the divisor table by
+its first four values, its end at 8192 and its descent; the OBMC masks by
+the spec's 32-entry mask, which libaom keeps followed by the 16, 8, 4, 2
+and 1 entry ones, each rising to 64. libaom copies its small default
 CDFs into the frame context with immediate stores and 16-byte loads, so
 ``intrabc`` is read from the one store of its value in ``.text``, and
 ``txfm_split`` from its 16-byte chunks, which the linker keeps in order
@@ -98,6 +109,11 @@ UPSCALE_FIRST = ((0, 0, 0, 128, 0, 0, 0, 0), (0, 0, -1, 128, 2, -1, 0, 0),
 SUBPEL_PHASE1 = ((0, 2, -6, 126, 8, -2, 0, 0), (0, 2, 28, 62, 34, 2, 0, 0),
                  (-2, 2, -6, 126, 8, -2, 2, 0), (0, 0, 0, 120, 8, 0, 0, 0),
                  (0, 0, -4, 126, 8, -2, 0, 0), (0, 0, 30, 62, 34, 2, 0, 0))
+WARPED_FIRST = ((0, 0, 127, 1, 0, 0, 0, 0), (0, -1, 127, 2, 0, 0, 0, 0))
+DIV_LUT_FIRST = (16384, 16320, 16257, 16194)
+OBMC_MASK_32 = (33, 35, 36, 38, 40, 41, 43, 44, 45, 47, 48, 50, 51, 52, 53,
+                55, 56, 57, 58, 59, 60, 60, 61, 62, 64, 64, 64, 64, 64, 64,
+                64, 64)
 # the inter default CDFs: name -> (the first rows' probabilities, or the
 # start of the first row, rows, symbols); each table is found by them and
 # read whole
@@ -403,6 +419,55 @@ def subpel_filters(data: bytes) -> np.ndarray:
     return np.stack(out).astype(np.int16)
 
 
+def warped_filter(data: bytes) -> np.ndarray:
+    """av1_warped_filter: 193 phases of 8 int16 taps, found by its first
+    two phases (a shorter table elsewhere shares them; it fails the sums)."""
+    sig = np.array(WARPED_FIRST, "<i2").tobytes()
+    found = []
+    at = -1
+    while (at := data.find(sig, at + 1)) >= 0:
+        if at + 193 * 16 > len(data):
+            continue
+        f = np.frombuffer(data, "<i2", 193 * 8, at).reshape(193, 8)
+        if np.all(f.sum(1) == 128):
+            found.append(f)
+    require(len(found) == 1, "warped filter: not exactly one table whose "
+            "taps sum to 128")
+    f = found[0]
+    require(np.array_equal(f[192], f[191]), "warped filter: the last row "
+            "does not repeat the one before")
+    require(np.array_equal(f[64], (0, 0, 0, 127, 1, 0, 0, 0)),
+            "warped filter: phase 64")
+    return f.astype(np.int16)
+
+
+def div_lut(data: bytes) -> np.ndarray:
+    """div_lut: 257 uint16 multipliers, 2^14 / (1 + i / 256) rounded."""
+    at = find_once(data, np.array(DIV_LUT_FIRST, "<u2").tobytes(),
+                   "divisor table")
+    t = np.frombuffer(data, "<u2", 257, at)
+    require(t[-1] == 8192 and np.all(np.diff(t.astype(int)) < 0),
+            "divisor table: not falling to 8192")
+    want = np.floor((1 << 22) / (256 + np.arange(257)) + 0.5)
+    require(np.array_equal(t, want), "divisor table: not 2^22 / (256 + i)")
+    return t.astype(np.uint16)
+
+
+def obmc_masks(data: bytes) -> np.ndarray:
+    """obmc_mask_1 .. _32 as one array, the mask of length n at n - 1:
+    libaom keeps the 32-entry one followed by the 16, 8, 4, 2 and 1 entry
+    ones."""
+    at = find_once(data, bytes(OBMC_MASK_32), "OBMC mask")
+    masks = {}
+    for n in (32, 16, 8, 4, 2, 1):
+        m = np.frombuffer(data, np.uint8, n, at)
+        require(m[-1] == 64 and np.all(np.diff(m.astype(int)) >= 0),
+                f"OBMC mask of {n}: not rising to 64")
+        masks[n] = m
+        at += n
+    return np.concatenate([masks[n] for n in (1, 2, 4, 8, 16, 32)])
+
+
 def main(argv: list) -> None:
     lib = argv[0] if argv else LIBAOM
     data = section(lib)
@@ -415,7 +480,9 @@ def main(argv: list) -> None:
               **inter_tx_cdfs(data), "segment_id": segment_id_cdf(data),
               "upscale_filter": upscale_filter(data),
               **inter_cdfs(data, section(lib, ".text")),
-              **mv_fraction_cdfs(data), "subpel_filters": subpel_filters(data)}
+              **mv_fraction_cdfs(data), "subpel_filters": subpel_filters(data),
+              "warped_filter": warped_filter(data), "div_lut": div_lut(data),
+              "obmc_mask": obmc_masks(data)}
     np.savez_compressed(OUT, **tables)
     for k, v in tables.items():
         print(f"{k}: {v.shape} {v.dtype}")

@@ -108,7 +108,12 @@ TOOLS_MADE = {**json.loads((FIXTURES.parent / "avif_tools"
               # progressive: a later layer predicted from a smaller one,
               # and superres inter frames
               **json.loads((FIXTURES.parent / "avif_progressive"
-                            / "manifest.json").read_text())}
+                            / "manifest.json").read_text()),
+              # OBMC and local warps, libaom's and written ones that fall
+              # back to translation
+              **{f"avif_warp/{n}": e for n, e in json.loads(
+                  (FIXTURES.parent / "avif_warp" / "manifest.json")
+                  .read_text()).items()}}
 
 
 @pytest.mark.parametrize("tool", A.TOOL_NAMES)

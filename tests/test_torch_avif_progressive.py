@@ -185,8 +185,9 @@ def test_fixtures_cover_the_set():
     assert {w.get("ss") for w in written} >= {"4:2:0", "4:2:2", "4:4:4"}
     assert any(w.get("mono") for w in written)
     assert {w.get("depth") for w in written} == {8, 10, 12}
+    # cpu-used 5 is the OBMC file, which decodes since OBMC does
     assert {int(w["cpu-used"]) for w in written if "cpu-used" in w} == \
-        set(range(6, 11))
+        set(range(5, 11))
     assert any(x["alpha_tools"] and x["alpha_tools"]["scaled_pred"]
                for x in e.values())
     assert any(len(x["frames"]) == 3 and x["shows_layer"] == 2
@@ -196,8 +197,10 @@ def test_fixtures_cover_the_set():
     assert any(x["sizes"][-1][0] < x["sizes"][-1][1] for x in e.values())
     assert MANIFEST["photo4k_420.avif"]["sizes"] == [[1920, 1920, 1080],
                                                      [3840, 3840, 2160]]
-    assert MANIFEST["obmc_s5_420.avif"]["refuses"] == \
-        "OBMC (overlapped block motion compensation)"
+    # a scaled reference reads use_obmc only: OBMC, never a local warp
+    tools = MANIFEST["obmc_s5_420.avif"]["tools"]
+    assert tools["obmc"] > 0 and tools["scaled_pred"] > 0
+    assert tools["local_warp"] == 0
     assert sorted(n for n, x in MANIFEST.items() if "broken" in x) == \
         sorted(MK.BROKEN)
     total = sum(p.stat().st_size for p in FIXTURES.iterdir())

@@ -1,25 +1,33 @@
 """An AV1 inter-frame writer, symbol by symbol, for the inter tools libaom
 3.6's realtime usage never writes into a layered image: the sharp and
 bilinear filters, two filters per block (``enable_dual_filter``), chroma
-predicted from several 4x4 blocks' MVs, and loop filter mode deltas.
+predicted from several 4x4 blocks' MVs, loop filter mode deltas, and the
+motion modes OBMC and LOCALWARP where libaom would not pick them: local
+warps that fall back to translation, OBMC beside two filters, both at
+3840x2160 (``motion=True``).
 
     from inter_writer import InterBlock, write_layered
     data = write_layered(key_obus, blocks, filter=4, dual=True)
 
 The stream is libaom's key frame (layer 0, from ``make_avif_layers``)
 under a sequence header written again with the inter tools this frame
-needs (``enable_dual_filter``; no warped motion, no reference MVs), then
-one inter frame of spatial layer 1 with every block inter, skipped (no
-residual) and predicted from LAST at its own MV (NEWMV, the difference
-from its MV stack's prediction coded in MV context 0) and filters. The
-frame is cut into 64x64 superblocks, each one block (PARTITION_NONE) or
-split down to 4x4 blocks. Its header takes the default CDFs
-(``primary_ref_frame`` none), a fixed interpolation filter or
-SWITCHABLE, and loop filter levels with reference and mode deltas.
+needs (``enable_dual_filter``, ``enable_warped_motion`` under ``motion``;
+no reference MVs), then one inter frame of spatial layer 1 with every
+block inter, skipped (no residual) and predicted from LAST at its own MV
+(NEWMV, the difference from its MV stack's prediction coded in MV context
+0), filters and motion mode. The frame is cut into 64x64 superblocks,
+each one block (PARTITION_NONE) or split into square blocks of one size
+down to 4x4. Its header takes the default CDFs (``primary_ref_frame``
+none), a fixed interpolation filter or SWITCHABLE, loop filter levels
+with reference and mode deltas and, under ``motion``,
+``is_motion_mode_switchable`` and ``allow_warped_motion``.
 
 The MV stack, its contexts and the symbols' contexts follow the spec
-(7.10.2, 8.3.2) as dav1d computes them, here in Python; dav1d, which
-decodes the result, is the judge of whether they are right. The entropy
+(7.10.2, 8.3.2) as dav1d computes them, here in Python, and so do the
+local warp's samples, least squares and shear (spec 7.10.4, 7.11.3.6-8),
+with which a block asks for a warp of a kind (``InterBlock.warp``) gets
+an MV that makes it; dav1d, which decodes the result, is the judge of
+whether they are right. The entropy
 coder is the port's ``RangeEncoder`` over the decoder's default CDFs.
 """
 
@@ -38,13 +46,23 @@ from oavif_tpu_torch.io import avif as A
 REF_CAT = 640
 
 
+SIMPLE, OBMC, LOCALWARP = 0, 1, 2
+
+
 @dataclass
 class InterBlock:
-    """One inter block: its MV (row, col in 1/8 sample) and its filters
-    (y, x: 0 regular, 1 smooth, 2 sharp) where they are switchable."""
+    """One inter block: its MV (row, col in 1/8 sample), its filters (y,
+    x: 0 regular, 1 smooth, 2 sharp) where they are switchable, and its
+    motion mode where the frame lets the block choose one. ``warp`` asks a
+    LOCALWARP block for a kind of warp: "valid", "singular" (LocalValid
+    0: no sample within LS_MV_MAX) or "shear" (a shear the warp filter
+    cannot follow); the writer then moves ``mv`` until the warp is of
+    that kind, where it finds such an MV."""
 
     mv: Tuple[int, int] = (0, 0)
     filt: Tuple[int, int] = (0, 0)
+    motion: int = SIMPLE
+    warp: Optional[str] = None
 
 
 def _obus(data: bytes):
@@ -80,10 +98,11 @@ def _obu_ext(typ: int, payload: bytes, sid: int) -> bytes:
         len(payload)) + payload
 
 
-def sequence_header(s: A.SequenceHeader, dual: bool) -> bytes:
+def sequence_header(s: A.SequenceHeader, dual: bool,
+                    warped: bool = False) -> bytes:
     """A full sequence header of ``s``'s operating points, size, tools and
-    colour, with ``enable_dual_filter`` set as asked and warped motion and
-    reference MVs off."""
+    colour, with ``enable_dual_filter`` and ``enable_warped_motion`` set
+    as asked and reference MVs off."""
     w = BitWriter()
     w.f(s.profile, 3)
     w.f(0, 1)  # still_picture
@@ -105,7 +124,7 @@ def sequence_header(s: A.SequenceHeader, dual: bool) -> bytes:
     w.f(int(s.intra_edge), 1)
     w.f(0, 1)  # enable_interintra_compound
     w.f(0, 1)  # enable_masked_compound
-    w.f(0, 1)  # enable_warped_motion
+    w.f(int(warped), 1)  # enable_warped_motion
     w.f(int(dual), 1)
     w.f(1, 1)  # enable_order_hint
     w.f(0, 1)  # enable_jnt_comp
@@ -154,13 +173,15 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
                  lf: Tuple[int, int, int, int], ref_deltas, mode_deltas,
                  size: Optional[Tuple[int, int]] = None, primary: int = 7,
                  compound: bool = False,
-                 seg_update: Optional[Tuple[int, int]] = None) -> BitWriter:
+                 seg_update: Optional[Tuple[int, int]] = None,
+                 motion: bool = False) -> BitWriter:
     """uncompressed_header of a shown inter frame on slot 0 for every
     reference, refreshing no slot, with the default CDFs; for the
     refusals' streams, of another ``size`` than the sequence's, with a
     primary reference frame, ``reference_select`` or segmentation's map
     and temporal update flags (``seg_update``, past which it writes
-    nothing of the header right)."""
+    nothing of the header right); ``motion`` sets
+    ``is_motion_mode_switchable`` and ``allow_warped_motion``."""
     w = BitWriter()
     w.f(0, 1)  # show_existing_frame
     w.f(1, 2)  # INTER_FRAME
@@ -189,7 +210,7 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
     w.f(int(filt == 4), 1)  # is_filter_switchable
     if filt != 4:
         w.f(filt, 2)
-    w.f(0, 1)  # is_motion_mode_switchable
+    w.f(int(motion), 1)  # is_motion_mode_switchable
     w.f(1, 1)  # disable_frame_end_update_cdf
     sb = 128 if s.sb128 else 64
     sb_cols, sb_rows = -(-width // sb), -(-height // sb)
@@ -247,6 +268,8 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
             w.f(0, 2)
     w.f(0, 1)  # tx_mode_select: TX_MODE_LARGEST
     w.f(int(compound), 1)  # reference_select
+    if motion:
+        w.f(1, 1)  # allow_warped_motion
     w.f(0, 1)  # reduced_tx_set
     for _ in range(7):
         w.f(0, 1)  # is_global
@@ -258,8 +281,12 @@ class _Tile:
     """The inter frame's one tile and the state its contexts read."""
 
     def __init__(self, s: A.SequenceHeader, base_q: int, filt: int,
-                 dual: bool, hp: bool, size: Tuple[int, int]) -> None:
+                 dual: bool, hp: bool, size: Tuple[int, int],
+                 motion: bool = False) -> None:
         self.s, self.filt, self.dual, self.hp = s, filt, dual, hp
+        self.motion = motion
+        # LOCALWARP blocks by kind of warp ("valid", "singular", "shear")
+        self.warps: Dict[str, int] = {}
         arrs = A._cdf_pack(coeff_q_ctx(base_q))[0]
         self.cdf = {k: a.copy() for k, a in zip(A._CDF_ORDER, arrs)}
         self.enc = RangeEncoder()
@@ -376,6 +403,142 @@ class _Tile:
                     min(max(e[0][1], left), right))
         return st, newmv_ctx, refmv_ctx
 
+    # -- the local warp (spec 7.10.4, 7.11.3.6-8) ---------------------------
+
+    def warp_samples(self, r, c, wl, hl, mv):
+        """find_warp_samples: CandList[:NumSamples] of the block at (r, c)
+        with ``mv``, every neighbour being an inter block on LAST."""
+        w4, h4 = 1 << wl, 1 << hl
+        thresh = min(max(4 << max(wl, hl), 16), 112)
+        out, scanned = [], [0]
+        first = []
+
+        def add(dr, dc):
+            rr, cc = r + dr, c + dc
+            if scanned[0] >= 8 or (rr, cc) not in self.written:
+                return
+            cwl, chl = self.size[rr, cc]
+            cw4, ch4 = 1 << cwl, 1 << chl
+            midy = (rr & ~(ch4 - 1)) * 4 + ch4 * 2 - 1
+            midx = (cc & ~(cw4 - 1)) * 4 + cw4 * 2 - 1
+            nmv = self.mv[rr, cc]
+            valid = abs(nmv[0] - mv[0]) + abs(nmv[1] - mv[1]) <= thresh
+            scanned[0] += 1
+            cand = (midy * 8, midx * 8, midy * 8 + nmv[0], midx * 8 + nmv[1])
+            if scanned[0] == 1:
+                first.append(cand)
+            if valid:
+                out.append(cand)
+
+        top_left = top_right = True
+        if r > 0:
+            sw = 1 << self.size[r - 1, c][0]
+            if w4 <= sw:
+                off = -(c & (sw - 1))
+                top_left &= off == 0
+                top_right &= off + sw <= w4
+                add(-1, 0)
+            else:
+                i = 0
+                while i < min(w4, self.mi_cols - c):
+                    step = 1 << self.size[r - 1, c + i][0]
+                    add(-1, i)
+                    i += step
+        if c > 0:
+            sh = 1 << self.size[r, c - 1][1]
+            if h4 <= sh:
+                top_left &= (r & (sh - 1)) == 0
+                add(0, -1)
+            else:
+                i = 0
+                while i < min(h4, self.mi_rows - r):
+                    step = 1 << self.size[r + i, c - 1][1]
+                    add(i, -1)
+                    i += step
+        if top_left:
+            add(-1, -1)
+        if top_right and max(w4, h4) <= 16:
+            add(-1, w4)
+        return out or first
+
+    @staticmethod
+    def _divisor(v: int):
+        """resolve_divisor: (Div_Lut's multiplier signed as v, shift)."""
+        a = abs(v)
+        n = a.bit_length() - 1
+        e = a - (1 << n)
+        f = (e + (1 << (n - 9)) >> (n - 8)) if n > 8 else e << (8 - n)
+        m = int(A._tool_tables()["div_lut"][f])
+        return (-m if v < 0 else m), n + 14
+
+    @staticmethod
+    def _round2s(v: int, n: int) -> int:
+        r = (abs(v) + (1 << n >> 1)) >> n
+        return -r if v < 0 else r
+
+    def warp_kind(self, r, c, wl, hl, mv) -> str:
+        """"valid", "singular" or "shear": warpEstimation and setupShear
+        of the block at (r, c) with ``mv``."""
+        r2 = self._round2s
+        a00 = a01 = a11 = bx0 = bx1 = by0 = by1 = 0
+        midy, midx = r * 4 + (2 << hl) - 1, c * 4 + (2 << wl) - 1
+        suy, sux = midy * 8, midx * 8
+        duy, dux = suy + mv[0], sux + mv[1]
+
+        def ls(a, b):
+            return ((a * b) >> 2) + a + b
+
+        for cy, cx, ey, ex in self.warp_samples(r, c, wl, hl, mv):
+            sy, sx, dy, dx = cy - suy, cx - sux, ey - duy, ex - dux
+            if abs(sx - dx) < 256 and abs(sy - dy) < 256:
+                a00 += ls(sx, sx) + 8
+                a01 += ls(sx, sy) + 4
+                a11 += ls(sy, sy) + 8
+                bx0 += ls(sx, dx) + 8
+                bx1 += ls(sy, dx) + 4
+                by0 += ls(sx, dy) + 4
+                by1 += ls(sy, dy) + 8
+        det = a00 * a11 - a01 * a01
+        if det == 0:
+            return "singular"
+        div, shift = self._divisor(det)
+        shift -= 16
+        if shift < 0:
+            div, shift = div << -shift, 0
+        one, nd = 1 << 16, (1 << 13) - 1
+        p2 = min(max(r2((a11 * bx0 - a01 * bx1) * div, shift), one - nd),
+                 one + nd)
+        p3 = min(max(r2((a00 * bx1 - a01 * bx0) * div, shift), -nd), nd)
+        p4 = min(max(r2((a11 * by0 - a01 * by1) * div, shift), -nd), nd)
+        p5 = min(max(r2((a00 * by1 - a01 * by0) * div, shift), one - nd),
+                 one + nd)
+        div, shift = self._divisor(p2)
+
+        def clip16(v):
+            return min(max(v, -32768), 32767)
+
+        alpha, beta = clip16(p2 - one), clip16(p3)
+        gamma = clip16(r2((p4 << 16) * div, shift))
+        delta = clip16(p5 - r2(p3 * p4 * div, shift) - one)
+        alpha, beta, gamma, delta = (r2(v, 6) * 64 for v in (alpha, beta,
+                                                              gamma, delta))
+        ok = 4 * abs(alpha) + 7 * abs(beta) < one and \
+            4 * abs(gamma) + 4 * abs(delta) < one
+        return "valid" if ok else "shear"
+
+    def _warp_mv(self, r, c, wl, hl, blk: InterBlock):
+        """blk.mv, or the first MV near it (a seeded walk) whose warp is
+        of the kind blk.warp asks for; blk.mv where the walk finds none."""
+        rng = np.random.default_rng(r * 4096 + c)
+        mv = blk.mv
+        for _ in range(4000):
+            if self.warp_kind(r, c, wl, hl, mv) == blk.warp:
+                return mv
+            spread = {"valid": 16, "shear": 160}.get(blk.warp, 400)
+            mv = tuple(int(v + rng.integers(-spread, spread + 1))
+                       for v in blk.mv)
+        return blk.mv
+
     # -- symbols ------------------------------------------------------------
 
     def _mv_comp(self, comp: int, v: int) -> None:
@@ -401,6 +564,13 @@ class _Tile:
     def block(self, r: int, c: int, wl: int, hl: int, blk: InterBlock
               ) -> None:
         above, left = (r - 1, c) if r else None, (r, c - 1) if c else None
+        # read_motion_mode: a block of 8x8 at least with a neighbour (every
+        # neighbour is inter on LAST, so NumSamples > 0 too)
+        switchable = self.motion and min(wl, hl) >= 1 and bool(above or left)
+        motion = blk.motion if switchable else SIMPLE
+        if motion == LOCALWARP and blk.warp:
+            blk = InterBlock(self._warp_mv(r, c, wl, hl, blk), blk.filt,
+                             motion, blk.warp)
         skip_ctx = (1 if above else 0) + (1 if left else 0)  # all skipped
         self.put("skip", skip_ctx, 1, 2, 3)
         # is_inter: every neighbour is inter
@@ -429,8 +599,16 @@ class _Tile:
             self._mv_comp(0, diff[0])
         if diff[1]:
             self._mv_comp(1, diff[1])
+        if switchable:
+            bsize = {(1, 1): 3, (2, 2): 6, (3, 3): 9, (4, 4): 12}[wl, hl]
+            self.put("motion_mode", bsize, motion, 3, 4)
+            if motion == LOCALWARP:
+                kind = self.warp_kind(r, c, wl, hl, blk.mv)
+                self.warps[kind] = self.warps.get(kind, 0) + 1
         filt = blk.filt if self.filt == 4 else (self.filt, self.filt)
-        if self.filt == 4:
+        if motion == LOCALWARP:  # needs_interp_filter: none, EIGHTTAP
+            filt = (0, 0)
+        elif self.filt == 4:
             for d in range(2 if self.dual else 1):
                 ictx = d * 2 * 4
                 lt = self.fil[left][d] if left else 3
@@ -448,8 +626,10 @@ class _Tile:
                 self.fil[y, x] = filt
                 self.written.add((y, x))
 
-    def partition(self, r: int, c: int, bl: int, split: bool,
+    def partition(self, r: int, c: int, bl: int, leaf: int,
                   blocks) -> None:
+        """The partition of the bl (log2 w4) block at (r, c) into square
+        blocks of log2 w4 ``leaf``, in coding order from ``blocks``."""
         if r >= self.mi_rows or c >= self.mi_cols:
             return
         names = {1: "part8", 2: "part16", 3: "part32", 4: "part64"}
@@ -457,8 +637,8 @@ class _Tile:
         a = r > 0 and self.size[r - 1, c][0] < bl
         lft = c > 0 and self.size[r, c - 1][1] < bl
         ctx = 2 * int(lft) + int(a)
-        self.put(names[bl], ctx, 3 if split else 0, nsym, nsym + 1)
-        if not split:
+        self.put(names[bl], ctx, 3 if leaf < bl else 0, nsym, nsym + 1)
+        if leaf == bl:
             self.block(r, c, bl, bl, next(blocks))
             return
         half = 1 << (bl - 1)
@@ -466,30 +646,44 @@ class _Tile:
             if bl == 1:
                 self.block(r + dr, c + dc, 0, 0, next(blocks))
             else:
-                self.partition(r + dr, c + dc, bl - 1, True, blocks)
+                self.partition(r + dr, c + dc, bl - 1, leaf, blocks)
 
     def encode(self, sbs: List[Tuple[bool, list]]) -> bytes:
         it = iter(sbs)
         for r in range(0, self.mi_rows, 16):
             for c in range(0, self.mi_cols, 16):
                 split, blks = next(it)
-                self.partition(r, c, 4, split, iter(blks))
+                self.partition(r, c, 4, _leaf(split), iter(blks))
         return self.enc.done()
+
+
+def _leaf(split) -> int:
+    """A superblock's block size (log2 w4): True splits it into 4x4
+    blocks and False keeps it whole; an int names the size."""
+    if split is True or split is False:
+        return 0 if split else 4
+    return int(split)
 
 
 def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
                   filt: int = 4, dual: bool = False, hp: bool = True,
                   base_q: int = 80, lf=(20, 20, 12, 12),
                   ref_deltas=(1, 0, 0, 0, -1, 0, -1, -1),
-                  mode_deltas=(0, 0), size=None, refuse: str = "") -> bytes:
+                  mode_deltas=(0, 0), size=None, refuse: str = "",
+                  motion: bool = False, warps: Optional[dict] = None) -> bytes:
     """libaom's key frame (the sequence header and frame OBUs of layer 0
     of a layered stream) and an inter frame of layer 1 whose superblocks
     ``sbs`` are, in raster order, (False, [one block]) or (True, [the
-    4x4 blocks in coding order]), of ``size`` (the sequence's where None).
+    4x4 blocks in coding order]) or (n, [the square blocks of log2 width
+    n in 4x4 units, in coding order]), of ``size`` (the sequence's where
+    None).
     ``refuse`` writes instead a frame that stops at a tool the port
     refuses: "compound" (a first block that reads comp_mode 1),
     "seg_map" and "seg_temporal" (segmentation's map predicted from a
-    primary reference frame)."""
+    primary reference frame). ``motion`` lets each block of 8x8 or more
+    with a neighbour take its ``InterBlock.motion`` (a frame of the
+    sequence's size only); ``warps``, where given, gets the count of its
+    LOCALWARP blocks of each kind."""
     obus = list(_obus(key_obus))
     seq_payload = next(key_obus[p:e] for t, _, p, e in obus if t == 1)
     s = A.parse_sequence_header(A._Bits(seq_payload))
@@ -499,7 +693,8 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
     key = [raw for t, raw, p, e in obus if t in (3, 4, 6)
            and not ((raw[0] >> 2) & 1 and (raw[1] >> 3) & 3)]
     size = size or (s.width, s.height)
-    tile = _Tile(s, base_q, filt, dual, hp, size)
+    assert not motion or size == (s.width, s.height), "an unscaled frame"
+    tile = _Tile(s, base_q, filt, dual, hp, size, motion)
     if refuse == "compound":
         tile.put("part64", 0, 0, 10, 11)  # PARTITION_NONE
         tile.put("skip", 0, 1, 2, 3)
@@ -513,9 +708,12 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
         size=None if size == (s.width, s.height) else size,
         primary=0 if refuse.startswith("seg") else 7,
         compound=refuse == "compound",
-        seg_update={"seg_map": (0, 0), "seg_temporal": (1, 1)}.get(refuse))
+        seg_update={"seg_map": (0, 0), "seg_temporal": (1, 1)}.get(refuse),
+        motion=motion)
+    if warps is not None:
+        warps.update(tile.warps)
     tile = data
-    seq = sequence_header(s, dual)
+    seq = sequence_header(s, dual, motion)
     return (bytes([(1 << 3) | 2]) + _leb128(len(seq)) + seq
             + b"".join(key) + _obu_ext(6, head.data() + tile, 1))
 

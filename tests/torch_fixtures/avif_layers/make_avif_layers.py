@@ -24,10 +24,12 @@ and 10 bits (and 4:2:0 at 12), base and refinement quantizers spread
 over the range, two tile columns, the six 512x512 bench classes, an alpha item in two
 layers, three layers (the third an inter frame on the second), and a
 3840x2160 4:2:0 frame for the card; below ``cpu-used`` 7 with OBMC and
-warped motion off, which libaom's realtime usage writes there. Files
-whose streams use a tool the port refuses prove its refusal (``refuses``
-in the manifest): OBMC and a local warp at ``cpu-used`` 5, and three
-layers with ``use_ref_frame_mvs`` on an inter frame (libaom's default
+warped motion off, which libaom's realtime usage writes there, except in
+two files of its defaults at ``cpu-used`` 5 (OBMC and a local warp; with
+OBMC off, local warps alone; ``avif_warp/make_avif_warp.py`` writes the
+set of both tools). A file whose stream uses a tool the port refuses
+proves its refusal (``refuses`` in the manifest): three layers with
+``use_ref_frame_mvs`` on an inter frame (libaom's default
 ``enable-ref-frame-mvs``).
 
 libaom's realtime usage writes neither the sharp nor the bilinear filter,
@@ -252,7 +254,7 @@ def files() -> dict:
     for i, (ss, depth, speed, qs) in enumerate(grid):
         mono = ss == "mono"
         opts = {"cpu-used": speed}
-        if speed < 7:  # past OBMC and warped motion, which the port refuses
+        if speed < 7:  # OBMC and warped motion off (avif_warp has them)
             opts.update({"enable-obmc": 0, "enable-warped-motion": 0})
         if speed == 5:  # screen tuning picks later candidates (drl)
             opts["tune-content"] = "screen"

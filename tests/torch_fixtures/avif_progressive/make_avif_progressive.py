@@ -29,8 +29,9 @@ width only, 4:2:2, 4:4:4 and monochrome, ``cpu-used`` 6 to 10 (below 7
 with OBMC and warped motion off), three layers at 1/4, 1/2 and 1, an
 alpha item in scaled layers, two tile columns, the six 512x512 bench
 classes at 1/2, a 3840x2160 4:2:0 frame on a 1920x1080 layer 0 for the
-card, superres inter frames, the written files, and the refusals:
-``cpu-used`` 5 (OBMC) and the references past the limits (``broken``).
+card, superres inter frames, the written files, ``cpu-used`` 5 (OBMC,
+the one motion mode a scaled reference reads) and the references past
+the limits (``broken``).
 
 The manifest holds what ``make_avif_layers.manifest_entry`` holds (dav1d's
 Y'UV CRC through the system libavif 0.11.1, the reference's ``load_avif``
@@ -97,7 +98,7 @@ def files() -> dict:
             ("half_444", "fractal", "4:4:4", "1/2", 7),
             ("half_mono", "oriented", "mono", "1/2", 6)):
         opts = {"cpu-used": speed}
-        if speed < 7:  # past OBMC and warped motion, which the port refuses
+        if speed < 7:  # OBMC and warped motion off (avif_warp has them)
             opts.update({"enable-obmc": 0, "enable-warped-motion": 0})
         out[f"{name}.avif"] = (im[cls], [(mode, mode), full], dict(
             depth=8, ss="4:2:0" if ss == "mono" else ss, mono=ss == "mono",
