@@ -147,18 +147,20 @@ Phases, each of which raises on failure (exit code != 0):
 19. main path, AVIF input: every fixture of ``tests/torch_fixtures/avif``
    (the port's toolset, written by the JAX package's CLI) decodes to its
    manifest's CRC32s (dav1d's Y'UV and the reference's ``load_avif`` and
-   ``decode_avif_to_rgb8`` pixels), each read timed (median of 5, split
+   ``decode_avif_to_rgb8`` pixels), each read timed (median of 3, split
    into parse and tile decode, post-filters and conversion); each refusal
    fixture (4:2:0, 4:2:2, the intra edge filter) raises ``ValueError``
    naming its tool; likewise libaom's streams of ``avif_aom``,
    ``avif_tools``, ``avif_screen``, ``avif_container``,
    ``avif_superres`` (superres and non-uniform tiles), ``avif_lf_seg``,
-   ``avif_gainmap``, ``avif_layers``, ``avif_ispe`` and
+   ``avif_gainmap``, ``avif_layers``, ``avif_ispe``,
    ``avif_progressive`` (later layers predicted from a layer of another
    size, superres inter frames; a reference past the scaling limits must
-   raise ``OSError`` with the manifest's message), the reads split into
+   raise ``OSError`` with the manifest's message), ``avif_warp`` and
+   ``avif_refmvs`` (motion field estimation and temporal MV candidates in
+   four layers; a compound block raises naming it), the reads split into
    parse, post-filters, the superres upscale, grain and conversion (and
-   per frame, tile decode and post-filters);
+   per frame, tile decode, post-filters and the projection);
    the CLI (``-t 80`` on the six class AVIFs, ``-q 60`` on the 3840x2160
    one, and on each later folder's picks) gives the q, passes and bytes
    of the same pixels (as PAM where they are 8-bit, in memory where they
@@ -2645,10 +2647,12 @@ AVIF_PROGRESSIVE_DIR = os.path.join(
 AVIF_WARP_DIR = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
     "avif_warp")
+AVIF_REFMVS_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+    "avif_refmvs")
 
 
-def _read_avif_fixtures(folder: str, reps_4k: int = 3,
-                        reps_small: int = 5) -> dict:
+def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
     """Every fixture of ``folder`` decodes to its manifest's CRC32s
     (dav1d's Y'UV, and the reference's ``load_avif`` and
     ``decode_avif_to_rgb8`` pixels as Pillow gave them when the fixtures
@@ -2664,7 +2668,10 @@ def _read_avif_fixtures(folder: str, reps_4k: int = 3,
     layered item each frame's tile decode and post-filters
     (``tiles_f0``, ``filters_f0``, ...) and, where a frame used them, the
     time of OBMC and of the local warp in its tile decode (``obmc_f1``,
-    ``warp_f1``, ...) with their shares of that frame's tile decode; a
+    ``warp_f1``, ...) and of motion field estimation in the frame that
+    projects (``project_f3``, ...) with their shares of that frame's tile
+    decode, and on a line before, for a frame that projected, the 8x8s its
+    projection filled and the temporal candidates of each frame; a
     refusal fixture raises ``ValueError`` naming its tool, one the
     reference could not read (``raises``) the exception the manifest
     records, with its message, and one past the spec's limits
@@ -2673,7 +2680,7 @@ def _read_avif_fixtures(folder: str, reps_4k: int = 3,
     height (``sizes``), the port reads them. Returns the loaded images by
     file name."""
     from oavif_tpu_torch.io import avif
-    from oavif_tpu_torch.io.image import load_avif
+    from oavif_tpu_torch.io.image import Image, load_avif
 
     with open(os.path.join(folder, "manifest.json")) as f:
         manifest = json.load(f)
@@ -2719,10 +2726,14 @@ def _read_avif_fixtures(folder: str, reps_4k: int = 3,
         for _ in range(reps):
             t, t0 = {}, time.perf_counter()
             with open(path, "rb") as f:
-                avif.read_avif(f.read(), t)
+                read = avif.read_avif(f.read(), t)
             times.append(time.perf_counter() - t0)
             split.append(t)
-        img = load_avif(path)
+        # load_avif's image, from its own read_avif of the file's bytes
+        # just timed (one decode less per file)
+        arr, hbd, icc = read
+        img = Image(width=arr.shape[1], height=arr.shape[0],
+                    channels=arr.shape[2], hbd=hbd, data=arr, icc=icc)
         box, color, alpha = avif.decode_avif(data)
         yuv = np.concatenate([p.astype("<u2").reshape(-1)
                               for p in color.planes])
@@ -2760,19 +2771,29 @@ def _read_avif_fixtures(folder: str, reps_4k: int = 3,
                 got += ([[f.frame.coded_width, f.frame.width, f.frame.height]
                          for f in av1.frames],)
                 want += (entry["sizes"],)
+            if "refmvs" in entry:
+                got += ([f.frame.use_ref_frame_mvs for f in av1.frames],)
+                want += (entry["refmvs"],)
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         loaded[name] = img
         per_frame = sorted(k for k in split[0] if k.startswith(
-            ("tiles_f", "filters_f", "obmc_f", "warp_f")))
+            ("tiles_f", "filters_f", "obmc_f", "warp_f", "project_f")))
         parts = ", ".join(
             f"{k} {np.median([t.get(k, 0.0) for t in split]) * 1e3:.3f}"
             for k in ("parse", "filters", "upscale", "grain", "refs",
                       "stitch", "scale", "convert", *per_frame))
-        # OBMC's and the warp's shares of their own frame's tile decode
+        if color.tools["mf_projected"] or color.tools["temporal_mv"]:
+            print(f"  {name}: per frame, 8x8s projected "
+                  f"{[t['mf_projected'] for t in color.frame_tools]}, "
+                  f"temporal candidates "
+                  f"{[t['temporal_mv'] for t in color.frame_tools]}",
+                  flush=True)
+        # OBMC's, the warp's and the projection's shares of their own
+        # frame's tile decode
         shares = ""
         for k in per_frame:
-            used = [m + k[5:] for m in ("obmc", "warp")
+            used = [m + k[5:] for m in ("obmc", "warp", "project")
                     if k.startswith("tiles_f") and m + k[5:] in split[0]]
             if used:
                 shares += f"; of {k}: " + ", ".join(
@@ -2823,8 +2844,8 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     at every subsampling, 8 and 10 bits, ``cpu-used`` 5-10, two tiles,
     alpha, the six classes and a 3840x2160 frame, layer 1 written symbol
     by symbol for the filters and 4x4 blocks libaom does not write, OBMC
-    and a local warp, and reference MVs on an inter frame, which must
-    raise naming them) and of ``tests/torch_fixtures/avif_ispe`` (frames
+    and a local warp, and three layers with reference MVs on an inter
+    frame) and of ``tests/torch_fixtures/avif_ispe`` (frames
     scaled to an ``ispe`` of another size, one refused and one past
     libavif's limits) and of ``tests/torch_fixtures/avif_progressive``
     (progressive items: layer 0 at each of libaom's scaling modes, 4:2:2,
@@ -2836,15 +2857,23 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     libaom's at ``cpu-used`` 5 and 6 on every subsampling at 8, 10 and 12
     bits, three layers, alpha, two tiles, the six classes and two
     progressive items; written ones that fall back to translation, OBMC
-    beside two filters and on 4:2:2, and a 3840x2160 frame) decodes to
-    its manifest (``_read_avif_fixtures``),
+    beside two filters and on 4:2:2, and a 3840x2160 frame) and of
+    ``tests/torch_fixtures/avif_refmvs`` (three and four layers with
+    ``use_ref_frame_mvs``, whose fourth layer projects the second's MVs
+    and reads temporal candidates: every subsampling at 8, 10 and 12 bits,
+    ``cpu-used`` 5-10, two tiles, 128-pixel superblocks, alpha, the six
+    classes, two progressive items and a 3840x2160 frame; a compound
+    block libaom writes at 1280x720, which must raise naming it) decodes
+    to its manifest (``_read_avif_fixtures``),
     the reads split into parse and tile decode (each frame's apart),
     post-filters, the superres upscale, film grain, a grid's stitch, the
-    scaling and conversion (the median of 5; of 3 for the 3840x2160
-    files of the folders before ``avif_layers``, and of ``avif_progressive``
-    and ``avif_warp`` whose smaller files are read once, to keep the
-    phase's time; ``avif_warp``'s reads also time OBMC and the local warp
-    in the tile decode).
+    scaling and conversion (the median of 3 for the smaller files of the
+    folders before ``avif_layers``, which ``avif_layers``,
+    ``avif_progressive``, ``avif_warp`` and ``avif_refmvs`` read once, to
+    keep the phase's time; of 3 for every 3840x2160 file; ``avif_warp``'s
+    reads also time OBMC and the local warp in the tile decode, and
+    ``avif_refmvs``'s motion field estimation, with the per-frame counts
+    of its projected 8x8s and temporal candidates).
     Then the CLI ``-t 80`` on the six class AVIFs and ``-q 60`` on the
     3840x2160 one of the first two folders, ``-q 60`` on the 3840x2160
     ``tune=iq`` frame with film grain, ``-t 80`` on the 512x512
@@ -2857,7 +2886,8 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     two-layer frame, ``-t 80`` on the 512x512 progressive class, ``-q
     60`` on the 3840x2160 progressive frame, ``-t 80`` on the 512x512
     class of OBMC and local warps and ``-q 60`` on the 3840x2160 frame of
-    both: q,
+    both, ``-t 80`` on the 512x512 four-layer class and ``-q 60`` on the
+    3840x2160 four-layer frame: q,
     passes and bytes must be those of the CLI on the same
     pixels, written as PAM where they are 8-bit and handed over in memory
     where they are 16-bit (PAM holds 8 bits). Returns the kernels'
@@ -2889,10 +2919,12 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
             (AVIF_PROGRESSIVE_DIR, [("class_mixed_512.avif", ["-t", "80"]),
                                     ("photo4k_420.avif", ["-q", "60"])]),
             (AVIF_WARP_DIR, [("class_mixed_512.avif", ["-t", "80"]),
-                             ("photo4k_420.avif", ["-q", "60"])])):
+                             ("photo4k_420.avif", ["-q", "60"])]),
+            (AVIF_REFMVS_DIR, [("class_mixed_512.avif", ["-t", "80"]),
+                               ("photo4k_420.avif", ["-q", "60"])])):
         loaded = _read_avif_fixtures(
-            folder, 5 if folder == AVIF_LAYERS_DIR else 3,
-            1 if folder in (AVIF_PROGRESSIVE_DIR, AVIF_WARP_DIR) else 5)
+            folder, 3, 1 if folder in (AVIF_LAYERS_DIR, AVIF_PROGRESSIVE_DIR,
+                                       AVIF_WARP_DIR, AVIF_REFMVS_DIR) else 3)
         runs += [(os.path.join(folder, name), loaded[name], args)
                  for name, args in picks]
     with tempfile.TemporaryDirectory() as td:

@@ -30,7 +30,11 @@
  * predictions blended in) and LOCALWARP (spec 7.10.4 find_warp_samples,
  * 7.11.3.5-8: the least-squares warp of the neighbours' MVs, its shear,
  * and the block warp per 8x8 by the Warped_Filters) (compound blocks and
- * inter-intra are refused by name). The post-filters (deblocking, CDEF,
+ * inter-intra are refused by name); under use_ref_frame_mvs, motion field
+ * estimation (spec 7.9: the MVs that earlier frames stored, projected onto
+ * this one before its tiles) and the MV stack's temporal candidates (spec
+ * 7.10.2.5-6), and for every frame the storage of its own MVs that later
+ * frames project (spec 7.19). The post-filters (deblocking, CDEF,
  * loop restoration) and film grain run afterwards on the block records
  * and restoration units this call returns.
  *
@@ -110,10 +114,17 @@ enum { REF_CAT_LEVEL = 640 };
 enum { SIMPLE = 0, OBMC = 1, LOCALWARP = 2 };
 /* the inter prediction tables, one int16 pack (avif._tool_tables()'s
  * "inter_tables"):
- * Subpel_Filters [6][16][8], Warped_Filters [193][8], Div_Lut [257] and
- * Obmc_Mask_1..32 (the mask of length n at n - 1) */
+ * Subpel_Filters [6][16][8], Warped_Filters [193][8], Div_Lut [257],
+ * Obmc_Mask_1..32 (the mask of length n at n - 1) and the MV projection's
+ * Div_Mult [32] */
 enum { TAB_SUBPEL = 0, TAB_WARP = TAB_SUBPEL + 6 * 16 * 8,
-       TAB_DIV_LUT = TAB_WARP + 193 * 8, TAB_OBMC = TAB_DIV_LUT + 257 };
+       TAB_DIV_LUT = TAB_WARP + 193 * 8, TAB_OBMC = TAB_DIV_LUT + 257,
+       TAB_DIV_MULT = TAB_OBMC + 63 };
+/* spec constants of motion field estimation (7.9) and the MV stack's
+ * temporal candidates (7.10.2.5-6) */
+enum { MAX_FRAME_DISTANCE = 31, REFMVS_LIMIT = (1 << 12) - 1,
+       PROJ_MV_MAX = (1 << 14) - 1, MAX_OFFSET_WIDTH = 8,
+       MAX_OFFSET_HEIGHT = 0, MFMV_STACK_SIZE = 3 };
 /* spec constants of the local warp (7.11.3.5-8) */
 enum { LS_MV_MAX = 256, WARPEDMODEL_PREC_BITS = 16, WARP_PARAM_REDUCE_BITS = 6,
        WARPEDMODEL_NONDIAGAFFINE_CLAMP = 1 << 13,
@@ -274,12 +285,22 @@ typedef struct {
     const int32_t *ref_plane[8][3];
     int ref_stride[8], ref_w[8], ref_h[8];
     int xscale[8], yscale[8]; /* spec xScale, yScale of each reference */
-    const int16_t *subpel, *warp_filter, *div_lut, *obmc_mask;
+    const int16_t *subpel, *warp_filter, *div_lut, *obmc_mask, *div_mult;
     int8_t *mi_ref;
+    /* motion field estimation (spec 7.9), per 8x8 of the frame: the MV a
+     * projection left there (row, column in 1/8 sample, as its source
+     * saved it) and its source's distance to that MV's reference
+     * (tpl_off, 0 where no projection landed); and the distance from the
+     * frame to each of its references (get_relative_dist(OrderHint,
+     * OrderHints[ref]), by reference frame) */
+    int16_t *tpl_mv;
+    int8_t *tpl_off;
+    int cur_off[8];
     uint8_t *mi_newmv, *mi_filt, *mi_lf;
     /* tool counters (T_*) */
     int32_t *count;
-    /* where not NULL, the ns of OBMC ([0]) and of the local warp ([1]) */
+    /* where not NULL, the ns of OBMC ([0]), of the local warp ([1]) and of
+     * motion field estimation ([2]) */
     int64_t *motion_ns;
     int lf_on;         /* a luma loop filter level is not 0 */
     uint8_t *mi_bsz;   /* log2 w4 | log2 h4 << 4 of each mi's block */
@@ -1800,12 +1821,74 @@ static void add_extended(Dec *d, MvCand *st, int *n, int m, int ref) {
     (*n)++;
 }
 
+/* spec get_mv_projection (7.9.3): mv scaled by num / den through
+ * Div_Mult, both distances clamped to MAX_FRAME_DISTANCE, rounded half
+ * away from zero and clamped to PROJ_MV_MAX */
+static void mv_projection(const Dec *d, const int16_t *mv, int num, int den, int *out) {
+    den = imin(den, MAX_FRAME_DISTANCE);
+    num = num > 0 ? imin(num, MAX_FRAME_DISTANCE) : imax(num, -MAX_FRAME_DISTANCE);
+    for (int i = 0; i < 2; i++)
+        out[i] = (int)clip64(rnd2s((int64_t)mv[i] * num * d->div_mult[den], 14), -PROJ_MV_MAX,
+                             PROJ_MV_MAX);
+}
+
+/* spec add_tpl_ref_mv for a single reference (libaom add_tpl_ref_mv, dav1d
+ * add_temporal_candidate): the projected MV of the 8x8 at (r | 1, c | 1),
+ * where that lies in the tile and a projection landed there, scaled to the
+ * block's reference, at its precision, joins the stack with weight 2 or
+ * adds 2 to an equal entry's; at the block's own position it sets
+ * ZeroMvContext (zero_ctx, where given) by its distance from the identity
+ * global MV */
+static void add_temporal(Dec *d, MvCand *st, int *n, int r, int c, int ref, int *zero_ctx) {
+    r |= 1;
+    c |= 1;
+    if (!is_inside(d, r, c)) return;
+    size_t i = (size_t)(r >> 1) * (size_t)(d->mi_cols >> 1) + (size_t)(c >> 1);
+    if (!d->tpl_off[i]) return;
+    int mv[2];
+    mv_projection(d, d->tpl_mv + 2 * i, d->cur_off[ref], d->tpl_off[i], mv);
+    lower_mv(d, mv);
+    if (zero_ctx) *zero_ctx = abs(mv[0]) >= 16 || abs(mv[1]) >= 16;
+    d->count[T_TEMPORAL_MV]++;
+    for (int k = 0; k < *n; k++)
+        if (st[k].mv[0] == mv[0] && st[k].mv[1] == mv[1]) {
+            st[k].weight += 2;
+            return;
+        }
+    if (*n < 8) {
+        st[*n].mv[0] = mv[0];
+        st[*n].mv[1] = mv[1];
+        st[*n].weight = 2;
+        (*n)++;
+    }
+}
+
+/* spec temporal scan (7.10.2.5): the block's 8x8s up to 64x64, every
+ * second one (every fourth on a side of 64 or more), then, for a block
+ * 8 to 32 on both sides, three positions past its bottom-left, bottom-right
+ * and right where they lie in its 64x64 (check_sb_border) */
+static void temporal_scan(Dec *d, const Blk *b, int ref, MvCand *st, int *n, int *zero_ctx) {
+    int r = b->r, c = b->c, bw4 = 1 << b->wl, bh4 = 1 << b->hl;
+    int step_r = bh4 >= 16 ? 4 : 2, step_c = bw4 >= 16 ? 4 : 2;
+    for (int dr = 0; dr < imin(bh4, 16); dr += step_r)
+        for (int dc = 0; dc < imin(bw4, 16); dc += step_c)
+            add_temporal(d, st, n, r + dr, c + dc, ref, dr || dc ? NULL : zero_ctx);
+    if (bh4 < 2 || bh4 >= 16 || bw4 < 2 || bw4 >= 16) return;
+    const int pos[3][2] = {{bh4, -2}, {bh4, bw4}, {bh4 - 2, bw4}};
+    for (int k = 0; k < 3; k++) {
+        int rr = (r & 15) + pos[k][0], cc = (c & 15) + pos[k][1];
+        if (rr >= 0 && rr < 16 && cc >= 0 && cc < 16)
+            add_temporal(d, st, n, r + pos[k][0], c + pos[k][1], ref, NULL);
+    }
+}
+
 /* find_mv_stack(0) for a single reference, as dav1d scans it: the
- * spatial rows, columns and points with their weights, no temporal
- * candidates (a key frame reference projects none: ZeroMvContext is then
- * use_ref_frame_mvs), the extra search, the sorting and the clamping;
- * RefStackMv past NumMvFound takes the identity global MV (0). Returns
- * NumMvFound; ctx gets NewMvContext | ZeroMvContext << 3 | RefMvContext << 4 */
+ * spatial rows, columns and points with their weights, the temporal
+ * candidates under use_ref_frame_mvs (ZeroMvContext is use_ref_frame_mvs
+ * where the block's own 8x8 holds no projection), the extra search, the
+ * sorting and the clamping; RefStackMv past NumMvFound takes the identity
+ * global MV (0). Returns NumMvFound; ctx gets NewMvContext |
+ * ZeroMvContext << 3 | RefMvContext << 4 */
 static int inter_mv_stack(Dec *d, Blk *b, int ref, MvCand *st, int *ctx) {
     int r = b->r, c = b->c, bw4 = 1 << b->wl, bh4 = 1 << b->hl;
     int w4 = imin(imin(bw4, 16), d->c1 - c), h4 = imin(imin(bh4, 16), d->r1 - r);
@@ -1829,6 +1912,7 @@ static int inter_mv_stack(Dec *d, Blk *b, int ref, MvCand *st, int *ctx) {
     int nearest_match = row_m + col_m, nearest = n;
     for (int k = 0; k < nearest; k++) st[k].weight += REF_CAT_LEVEL;
     int zero_ctx = d->use_ref_mvs;
+    if (d->use_ref_mvs) temporal_scan(d, b, ref, st, &n, &zero_ctx);
     if (n_rows != NONE && n_cols != NONE) add_spatial(d, st, &n, r - 1, c - 1, ref, 4, &dummy, &row_m);
     for (int k = 2; k <= 3; k++) {
         if (k > n_rows && k <= max_rows)
@@ -3030,6 +3114,66 @@ static void decode_tile(Dec *d) {
     }
 }
 
+/* ---- motion field estimation and motion vector storage (spec 7.9, 7.19) -- */
+
+/* spec project (7.9.2's get_block_position): v8 moved by delta (1/8
+ * sample) in 8x8 units, rounded toward zero, the way sign says; -1 where
+ * that leaves the frame (max8) or the 64 pixels of v8's own 64x64 plus
+ * max_off 8x8s either side */
+static int mf_position(int v8, int delta, int sign, int max8, int max_off) {
+    int base = (v8 >> 3) << 3;
+    int off = delta >= 0 ? delta >> 6 : -((-delta) >> 6);
+    v8 += sign * off;
+    if (v8 < 0 || v8 >= max8 || v8 < base - max_off || v8 >= base + 8 + max_off) return -1;
+    return v8;
+}
+
+/* spec 7.9.2 (libaom motion_field_projection, dav1d load_tmvs) for one
+ * source frame of the frame's size: each 8x8 whose saved MV points to a
+ * reference before the source (off[ref], that distance, not 0) moves by
+ * that MV scaled to the distance from the source to this frame (num, the
+ * sign of LAST and LAST2 folded in, sign -1 for them) and, where it lands
+ * inside the limits, leaves there the MV and the distance; the later of
+ * two landings on one 8x8 wins */
+static void mf_project(Dec *d, const int8_t *src_ref, const int16_t *src_mv, int sign, int num,
+                       const int32_t *off) {
+    int h8 = d->mi_rows >> 1, w8 = d->mi_cols >> 1;
+    for (int y = 0; y < h8; y++)
+        for (int x = 0; x < w8; x++) {
+            size_t i = (size_t)y * w8 + x;
+            int rf = src_ref[i];
+            if (rf <= INTRA_FRAME || !off[rf]) continue;
+            int mv[2];
+            mv_projection(d, src_mv + 2 * i, num, off[rf], mv);
+            int row = mf_position(y, mv[0], sign, h8, MAX_OFFSET_HEIGHT);
+            int col = mf_position(x, mv[1], sign, w8, MAX_OFFSET_WIDTH);
+            if (row < 0 || col < 0) continue;
+            size_t j = (size_t)row * w8 + col;
+            d->tpl_mv[2 * j] = src_mv[2 * i];
+            d->tpl_mv[2 * j + 1] = src_mv[2 * i + 1];
+            d->tpl_off[j] = (int8_t)off[rf];
+        }
+}
+
+/* spec 7.19 (libaom av1_copy_frame_mvs, dav1d save_tmvs): for each 8x8,
+ * the reference and MV of the block at its odd 4x4 (its last), where that
+ * reference is one of the store mask's (before the frame in order) and
+ * the MV within REFMVS_LIMIT; else reference 0 (none) */
+static void mf_store(const Dec *d, int mask, int8_t *refs, int16_t *mvs) {
+    int h8 = d->mi_rows >> 1, w8 = d->mi_cols >> 1;
+    for (int y = 0; y < h8; y++)
+        for (int x = 0; x < w8; x++) {
+            size_t i = (size_t)y * w8 + x;
+            int m = mi_at(d, 2 * y + 1, 2 * x + 1);
+            int rf = d->mi_ref[m], mr = d->mi_mv[2 * m], mc = d->mi_mv[2 * m + 1];
+            int keep = rf > INTRA_FRAME && (mask >> rf & 1) && abs(mr) <= REFMVS_LIMIT &&
+                       abs(mc) <= REFMVS_LIMIT;
+            refs[i] = (int8_t)(keep ? rf : 0);
+            mvs[2 * i] = (int16_t)(keep ? mr : 0);
+            mvs[2 * i + 1] = (int16_t)(keep ? mc : 0);
+        }
+}
+
 /* tiles[i] / tile_sizes[i] in tile order (row-major); tile_starts =
  * mi_col_starts[tile_cols + 1] then mi_row_starts[tile_rows + 1]. Planes
  * are int32 buffers of (rows >= sb-aligned height) x stride, the chroma
@@ -3042,10 +3186,25 @@ static void decode_tile(Dec *d) {
  * the restoration units (per plane, row and column, strides
  * H_LR_RSTRIDE x H_LR_CSTRIDE: kind 0 none / 1 Wiener / 2 SGR, then 6
  * taps or set, xqd0, xqd1) and the tool counters (T_NCOUNTERS). Where
- * motion_ns (two int64) is not NULL, it gains the nanoseconds spent in
- * OBMC's neighbour predictions and blends ([0]) and in the local warp,
- * its estimation, shear and block warps ([1]). Returns 0, or 1
- * (unsupported tool) / 2 (corrupt stream) with msg set. */
+ * motion_ns (three int64) is not NULL, it gains the nanoseconds spent in
+ * OBMC's neighbour predictions and blends ([0]), in the local warp, its
+ * estimation, shear and block warps ([1]) and in motion field estimation
+ * ([2]). Returns 0, or 1
+ * (unsupported tool) / 2 (corrupt stream) with msg set.
+ *
+ * Motion field estimation (spec 7.9): mf = [the store mask (bit ref for
+ * each reference before the frame in order), the projections n (at most
+ * MFMV_STACK_SIZE), then for each reference frame 0..7 the distance from
+ * the frame to it, then per projection k at 10 + 10 * k: its sign (-1 for
+ * LAST and LAST2, else 1), the distance from its source to the frame (of
+ * that sign), and for each reference frame 0..7 of the source the
+ * distance from the source to it (0 where it is not before the source
+ * within MAX_FRAME_DISTANCE)]; mf_src_refs[k] and mf_src_mvs[k] are the
+ * source's saved references and MVs (an int8 and two int16 per 8x8,
+ * mi_rows / 2 x mi_cols / 2, the frame's size). Where use_ref_frame_mvs
+ * is set the projections run before the tiles, their ns into
+ * motion_ns[2]. At the end mf_refs and mf_mvs get the frame's own
+ * (mf_store). */
 int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
                      const int32_t *hdr, const int32_t *tile_starts,
                      uint16_t *const *cdfs, const int64_t *cdf_lens,
@@ -3057,7 +3216,9 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
                      int8_t *delta_lf, uint8_t *segs, int32_t *lr_out, int32_t *counts,
                      const int32_t *const *refs, const int32_t *ref_info,
                      const int16_t *inter_tables, uint16_t *cdf_out, uint8_t *mi_lf,
-                     uint8_t *mi_bsz, int64_t *motion_ns, char *msg, int msglen) {
+                     uint8_t *mi_bsz, int64_t *motion_ns, const int32_t *mf,
+                     const int8_t *const *mf_src_refs, const int16_t *const *mf_src_mvs,
+                     int8_t *mf_refs, int16_t *mf_mvs, char *msg, int msglen) {
     Dec *d = (Dec *)calloc(1, sizeof(Dec));
     if (!d) return AV1D_CORRUPT;
     int rc = AV1D_OK;
@@ -3118,6 +3279,8 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->warp_filter = inter_tables + TAB_WARP;
     d->div_lut = inter_tables + TAB_DIV_LUT;
     d->obmc_mask = inter_tables + TAB_OBMC;
+    d->div_mult = inter_tables + TAB_DIV_MULT;
+    for (int rf = 0; rf < 8; rf++) d->cur_off[rf] = mf[2 + rf];
     for (int rf = 1; rf < 8 && refs; rf++) {
         for (int p = 0; p < 3; p++) d->ref_plane[rf][p] = refs[(rf - 1) * 3 + p];
         d->ref_stride[rf] = ref_info[(rf - 1) * 3];
@@ -3175,11 +3338,14 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     uint8_t *mi8 = (uint8_t *)calloc(nmi * 12, 1);
     d->mi_pal = (uint16_t *)calloc(nmi * 16, sizeof(uint16_t));
     d->mi_mv = (int16_t *)calloc(nmi * 2, sizeof(int16_t));
+    size_t n8 = (size_t)(d->mi_rows >> 1) * (size_t)(d->mi_cols >> 1);
+    d->tpl_mv = (int16_t *)calloc(n8 * 2 + 1, sizeof(int16_t));
+    d->tpl_off = (int8_t *)calloc(n8 + 1, 1);
     uint8_t *ctxmem = (uint8_t *)calloc((size_t)4 * 3 * ((size_t)d->mi_cols + d->mi_rows + 64), 1);
     size_t cdf_total = 0;
     for (int k = 0; k < D_NCDF; k++) cdf_total += (size_t)cdf_lens[k];
     uint16_t *cdfmem = (uint16_t *)malloc(cdf_total * sizeof(uint16_t));
-    if (!mi8 || !d->mi_pal || !d->mi_mv || !ctxmem || !cdfmem) {
+    if (!mi8 || !d->mi_pal || !d->mi_mv || !ctxmem || !cdfmem || !d->tpl_mv || !d->tpl_off) {
         rc = AV1D_CORRUPT;
         snprintf(msg, (size_t)msglen, "AV1: out of memory");
         goto done;
@@ -3206,6 +3372,15 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
         size_t off = 0;
         for (int k = 0; k < D_NCDF; k++) { d->cdf[k] = cdfmem + off; off += (size_t)cdf_lens[k]; }
     }
+    if (d->use_ref_mvs) {
+        int64_t t0 = now_ns();
+        for (int k = 0; k < imin(mf[1], MFMV_STACK_SIZE); k++) {
+            const int32_t *p = mf + 10 + 10 * k;
+            mf_project(d, mf_src_refs[k], mf_src_mvs[k], p[0], p[1], p + 2);
+        }
+        for (size_t i = 0; i < n8; i++) counts[T_MF_PROJECTED] += d->tpl_off[i] != 0;
+        if (motion_ns) motion_ns[2] += now_ns() - t0;
+    }
     int tile_cols = hdr[H_TILE_COLS], tile_rows = hdr[H_TILE_ROWS];
     const int32_t *col_starts = tile_starts, *row_starts = tile_starts + tile_cols + 1;
     for (int tr = 0; tr < tile_rows && !d->err; tr++)
@@ -3229,7 +3404,10 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
                 memcpy(cdf_out, cdfmem, cdf_total * sizeof(uint16_t));
         }
     rc = d->err;
+    if (!rc) mf_store(d, mf[0], mf_refs, mf_mvs);
 done:
+    free(d->tpl_mv);
+    free(d->tpl_off);
     free(mi8);
     free(d->mi_pal);
     free(d->mi_mv);

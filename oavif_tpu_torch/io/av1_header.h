@@ -146,6 +146,11 @@ enum {
      * LOCALWARP blocks predicted by translation instead (LocalValid 0, or
      * a shear setupShear refuses) */
     T_OBMC, T_LOCAL_WARP, T_LOCAL_WARP_INVALID,
+    /* motion field estimation (spec 7.9): 8x8 positions that hold a
+     * projected MV when the projections end, and temporal candidates of
+     * MV stacks (the projected MVs that joined a stack or added to the
+     * weight of one there) */
+    T_MF_PROJECTED, T_TEMPORAL_MV,
     T_NCOUNTERS
 };
 

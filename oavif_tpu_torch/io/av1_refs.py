@@ -13,7 +13,13 @@ Two views of one state, filled at two times:
   subsampling and size, and the CDFs it saved at its end (those of its
   ``context_update_tile_id`` tile, or its starting ones under
   ``disable_frame_end_update_cdf``), their adaptation counters cleared,
-  and its frame type.
+  its frame type, and what motion field estimation reads of it (spec
+  7.19-7.21: its order hint, the order hints of its references
+  ``SavedOrderHints``, its size in 4x4 units and its saved MVs and their
+  references per 8x8).
+
+``motion_field`` picks the frames a frame projects (spec 7.9.1) and packs
+what ``av1_decode_frame`` needs to project them.
 """
 
 from __future__ import annotations
@@ -79,6 +85,17 @@ class RefFrame:
     height: int
     cdfs: List[np.ndarray]
     frame_type: int = 0
+    # motion field estimation's view (spec 7.20 SavedOrderHints,
+    # RefMiRows/RefMiCols, SavedRefFrames/SavedMvs): the frame's order
+    # hint and its references' (LAST..ALTREF; zeros for a key frame), its
+    # MiRows and MiCols, and per 8x8 the reference (int8, 0 for none) and
+    # MV (int16 row, column) that ``av1_decode_frame`` stored
+    order_hint: int = 0
+    saved_order_hints: Tuple[int, ...] = (0,) * 7
+    mi_rows: int = 0
+    mi_cols: int = 0
+    mf_refs: Optional[np.ndarray] = None
+    mf_mvs: Optional[np.ndarray] = None
 
 
 class RefFrames:
@@ -89,6 +106,72 @@ class RefFrames:
         for i in range(8):
             if refresh >> i & 1:
                 self.slots[i] = frame
+
+
+MAX_FRAME_DISTANCE = 31
+MFMV_STACK_SIZE = 3
+LAST, LAST2, GOLDEN, BWDREF, ALTREF2, ALTREF = 0, 1, 3, 4, 5, 6
+
+
+def motion_field(fh, seq, slots: List[Optional[RefFrame]]
+                 ) -> Tuple[np.ndarray, List[RefFrame]]:
+    """``av1_decode_frame``'s int32 ``mf`` pack for the frame of header
+    ``fh`` in sequence ``seq`` (see av1_decode.c) and the frames it
+    projects, in order.
+
+    The store mask holds each reference before the frame in order (spec
+    7.19 keeps only MVs toward those, libaom's ``ref_frame_side`` 0). Under
+    use_ref_frame_mvs the projections follow spec 7.9.1 as libaom's
+    ``av1_setup_motion_field`` and dav1d's ``dav1d_refmvs_init_frame`` run
+    them: LAST unless its saved ALTREF hint is the current GOLDEN's (an
+    overlay), BWDREF and ALTREF2 where they come after the frame, ALTREF
+    likewise and LAST2 while fewer than ``MFMV_STACK_SIZE`` have run (LAST
+    counts whether it ran or not). A source projects only where it is an
+    inter frame (a key frame stores no MV; INTRA_ONLY) of the frame's
+    MiRows and MiCols, else it is passed over and not counted."""
+    from .avif import _relative_dist
+
+    def rel(a: int, b: int) -> int:
+        return _relative_dist(seq, a, b)
+
+    pack = np.zeros(10 + 10 * MFMV_STACK_SIZE, dtype=np.int32)
+    if not fh.frame_type:
+        return pack, []
+    cur, hints = fh.order_hint, fh.ref_order_hints
+    pack[0] = sum(1 << (r + 1) for r, h in enumerate(hints)
+                  if rel(h, cur) < 0)
+    pack[3:10] = [rel(cur, h) for h in hints]
+    sources: List[RefFrame] = []
+
+    def project(r: int, sign: int) -> bool:
+        src = slots[fh.ref_frame_idx[r]]
+        if not src.frame_type & 1 or (src.mi_rows, src.mi_cols) != (
+                fh.mi_rows, fh.mi_cols):
+            return False
+        num = rel(src.order_hint, cur) * sign
+        p = pack[10 + 10 * len(sources):20 + 10 * len(sources)]
+        p[0], p[1] = sign, num
+        if abs(num) <= MAX_FRAME_DISTANCE:
+            for rf, h in enumerate(src.saved_order_hints, 1):
+                d = rel(src.order_hint, h)
+                p[2 + rf] = d if 0 < d <= MAX_FRAME_DISTANCE else 0
+        sources.append(src)
+        return True
+
+    if fh.use_ref_frame_mvs:
+        stamp = MFMV_STACK_SIZE - 1
+        if slots[fh.ref_frame_idx[LAST]].saved_order_hints[ALTREF] \
+                != hints[GOLDEN]:
+            project(LAST, -1)
+        stamp -= 1
+        for r in (BWDREF, ALTREF2, ALTREF):
+            if rel(hints[r], cur) > 0 and (r != ALTREF or stamp >= 0) \
+                    and project(r, 1):
+                stamp -= 1
+        if stamp >= 0:
+            project(LAST2, -1)
+    pack[1] = len(sources)
+    return pack, sources
 
 
 def clear_counters(cdfs: List[np.ndarray], rows: List[int]) -> None:

@@ -1727,6 +1727,7 @@ TOOL_NAMES = (
     "filter_smooth", "filter_sharp", "filter_bilinear", "dual_filter",
     "intra_in_inter", "sub8x8_chroma_mvs", "lf_ref_delta", "lf_mode_delta",
     "scaled_pred", "obmc", "local_warp", "local_warp_invalid",
+    "mf_projected", "temporal_mv",
 )
 # the film grain pack (av1_header.h's G_* enum): field, length
 _GRAIN_FIELDS = (
@@ -1802,7 +1803,8 @@ def _tool_tables():
         # av1_decode.c's TAB_* pack of the inter prediction tables
         _TOOL_CACHE["inter_tables"] = np.concatenate(
             [_TOOL_CACHE[k].reshape(-1).astype(np.int16) for k in (
-                "subpel_filters", "warped_filter", "div_lut", "obmc_mask")])
+                "subpel_filters", "warped_filter", "div_lut", "obmc_mask",
+                "div_mult")])
     return _TOOL_CACHE
 
 
@@ -1874,7 +1876,8 @@ class DecodedImage:
     """One decoded AV1 image: Y'UV planes (one for monochrome) of the
     visible size (the chroma ones subsampled by ``ss``), their bit depth
     and colour description, and how often the decoder met each tool
-    (``TOOL_NAMES``)."""
+    (``TOOL_NAMES``), over the frames it decoded and, for one AV1 item
+    (not a grid's stitch), frame by frame (``frame_tools``)."""
 
     planes: List[np.ndarray]
     bit_depth: int
@@ -1883,6 +1886,7 @@ class DecodedImage:
     mono: bool
     ss: Tuple[int, int] = (0, 0)
     tools: Dict[str, int] = field(default_factory=dict)
+    frame_tools: List[Dict[str, int]] = field(default_factory=list)
 
 
 def _grain_pack(g: FilmGrain, mc_identity: bool) -> np.ndarray:
@@ -1921,8 +1925,10 @@ def decode_av1(payload: bytes, times: Optional[dict] = None,
     frame in its reference slots), summed over the frames,
     and each frame's tile decode and post-filters apart ("tiles_f0",
     "filters_f0", ...), and of that tile decode, where a frame used them,
-    OBMC's ("obmc_f1", ...) and the local warp's ("warp_f1", ...). The
-    tool counts are those of every frame."""
+    OBMC's ("obmc_f1", ...), the local warp's ("warp_f1", ...) and motion
+    field estimation's ("project_f3", ...: a frame that projected the MVs
+    of another). The tool counts are those of every frame, and each
+    frame's apart (``frame_tools``)."""
     from .av1_refs import RefFrames
 
     t0 = time.perf_counter()
@@ -1932,11 +1938,14 @@ def decode_av1(payload: bytes, times: Optional[dict] = None,
     counts = np.zeros(len(TOOL_NAMES), dtype=np.int32)
     if times is not None:
         times["parse"] = times.get("parse", 0.0) + time.perf_counter() - t0
-    img = None
+    img, frame_tools = None, []
     for i, f in enumerate(out.frames):
+        before = counts.copy()
         img = _decode_frame(lib, f, refs, counts, times, i,
                             f is out.frames[-1])
+        frame_tools.append(dict(zip(TOOL_NAMES, (counts - before).tolist())))
     img.tools = dict(zip(TOOL_NAMES, counts.tolist()))
+    img.frame_tools = frame_tools
     return img
 
 
@@ -1952,10 +1961,6 @@ def _check_inter(f: "Av1Frame", refs) -> None:
         ref = refs.slots[i]
         if ref is None:
             raise _broken("an inter frame names an empty reference slot")
-        if fh.use_ref_frame_mvs and ref.frame_type != 0:
-            raise UnsupportedAvif("AV1: use_ref_frame_mvs with an inter "
-                                  "reference frame (motion field "
-                                  "estimation) is not supported")
         ss = (0, 0) if f.seq.mono else f.seq.ss
         if (ref.bit_depth, ref.ss) != (f.seq.bit_depth, ss):
             raise _broken("a reference frame of another depth or format")
@@ -1969,7 +1974,7 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
     from ..av1.consts import coeff_q_ctx
     from ..av1.restoration import count_units, unit_size
     from ..av1.tables import TABLES
-    from .av1_refs import RefFrame, clear_counters
+    from .av1_refs import RefFrame, clear_counters, motion_field
 
     t0 = time.perf_counter()
     s, fh = f.seq, f.frame
@@ -2102,10 +2107,19 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
             ref_ptrs[3 * r + p] = ref.planes[p].ctypes.data_as(p32)
         ref_info[3 * r:3 * r + 3] = (ref.planes[0].shape[1], ref.width,
                                      ref.height)
+    # motion field estimation: what the frame projects, and the MVs it
+    # stores for later frames
+    mf, sources = motion_field(fh, s, refs.slots)
+    mf_src_refs = (C.c_void_p * 3)(*[f_.mf_refs.ctypes.data
+                                     for f_ in sources])
+    mf_src_mvs = (C.c_void_p * 3)(*[f_.mf_mvs.ctypes.data for f_ in sources])
+    mf_refs = np.zeros((fh.mi_rows // 2, fh.mi_cols // 2), dtype=np.int8)
+    mf_mvs = np.zeros((fh.mi_rows // 2, fh.mi_cols // 2, 2), dtype=np.int16)
     msg = C.create_string_buffer(256)
     vp = C.c_void_p
-    # the ns of OBMC and of the local warp, taken where times are
-    motion = np.zeros(2, dtype=np.int64) if times is not None else None
+    # the ns of OBMC, of the local warp and of motion field estimation,
+    # taken where times are
+    motion = np.zeros(3, dtype=np.int64) if times is not None else None
     rc = lib.av1_decode_frame(
         C.cast(tile_ptrs, vp), tile_sizes.ctypes.data, hdr.ctypes.data,
         starts.ctypes.data, C.cast(cdf_ptrs, vp), cdf_lens.ctypes.data,
@@ -2117,7 +2131,9 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
         counts.ctypes.data, C.cast(ref_ptrs, vp), ref_info.ctypes.data,
         _tool_tables()["inter_tables"].ctypes.data, cdf_out.ctypes.data,
         mi_lf.ctypes.data, mi_bsz.ctypes.data,
-        None if motion is None else motion.ctypes.data, msg, 256)
+        None if motion is None else motion.ctypes.data, mf.ctypes.data,
+        C.cast(mf_src_refs, vp), C.cast(mf_src_mvs, vp), mf_refs.ctypes.data,
+        mf_mvs.ctypes.data, msg, 256)
     if rc == 1:
         raise UnsupportedAvif(msg.value.decode())
     if rc:
@@ -2146,7 +2162,9 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
             else planes
         refs.update(fh.refresh_frame_flags,
                     RefFrame(kept, bd, (ssx, ssy), w, h, saved,
-                             fh.frame_type))
+                             fh.frame_type, fh.order_hint,
+                             fh.ref_order_hints or (0,) * 7, fh.mi_rows,
+                             fh.mi_cols, mf_refs, mf_mvs))
     ts = time.perf_counter()
     if fh.grain is not None and last:
         pack = _grain_pack(fh.grain, s.cicp[2] == 0)
@@ -2166,7 +2184,9 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
                      (f"tiles_f{index}", t1 - t0),
                      (f"filters_f{index}", t2 - t1),
                      *((f"{tool}_f{index}", ns * 1e-9)
-                       for tool, ns in zip(("obmc", "warp"), motion) if ns)):
+                       for tool, ns in zip(("obmc", "warp"), motion) if ns),
+                     *(((f"project_f{index}", motion[2] * 1e-9),)
+                       if sources else ())):
             times[k] = times.get(k, 0.0) + v
     return DecodedImage(out, bd, s.cicp, s.full_range, s.mono, (ssx, ssy))
 
@@ -2541,7 +2561,7 @@ def _scale_to_ispe(img: DecodedImage, w: int, h: int) -> DecodedImage:
                                   f"plane scaled to its ispe {w}x{h} by "
                                   f"{e}") from None
     return DecodedImage(out, img.bit_depth, img.cicp, img.full_range,
-                        img.mono, img.ss, img.tools)
+                        img.mono, img.ss, img.tools, img.frame_tools)
 
 
 def _decode_item(it: Av1Item, times: Optional[dict]) -> DecodedImage:

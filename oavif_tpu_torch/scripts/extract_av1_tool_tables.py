@@ -43,7 +43,10 @@ and write ``oavif_tpu_torch/io/av1_tool_tables.npz``:
 - ``div_lut``: the divisor table of the local warp's least squares (spec
   Div_Lut, libaom's ``div_lut``), 257 uint16 from 16384 down to 8192;
 - ``obmc_mask``: OBMC's blending weights (spec Obmc_Mask_1 .. _32, libaom's
-  ``obmc_mask_*``), uint8, the mask of length n at ``n - 1`` (63 in all).
+  ``obmc_mask_*``), uint8, the mask of length n at ``n - 1`` (63 in all);
+- ``div_mult``: the MV projection's multipliers of motion field
+  estimation (spec Div_Mult, libaom's ``div_mult``), 32 int32 stored as
+  int16, 2^14 // i after a leading 0.
 
 Each table is found by a structural signature and checked against anchor
 values before anything is written: the matrices by their first 4x4 (the
@@ -58,7 +61,8 @@ every phase with its complement; the warped filter by its first two
 phases, its sums of 128 and its repeated last row; the divisor table by
 its first four values, its end at 8192 and its descent; the OBMC masks by
 the spec's 32-entry mask, which libaom keeps followed by the 16, 8, 4, 2
-and 1 entry ones, each rising to 64. libaom copies its small default
+and 1 entry ones, each rising to 64; the projection's multipliers by
+their first four values and each the floor of 2^14 / i. libaom copies its small default
 CDFs into the frame context with immediate stores and 16-byte loads, so
 ``intrabc`` is read from the one store of its value in ``.text``, and
 ``txfm_split`` from its 16-byte chunks, which the linker keeps in order
@@ -111,6 +115,7 @@ SUBPEL_PHASE1 = ((0, 2, -6, 126, 8, -2, 0, 0), (0, 2, 28, 62, 34, 2, 0, 0),
                  (0, 0, -4, 126, 8, -2, 0, 0), (0, 0, 30, 62, 34, 2, 0, 0))
 WARPED_FIRST = ((0, 0, 127, 1, 0, 0, 0, 0), (0, -1, 127, 2, 0, 0, 0, 0))
 DIV_LUT_FIRST = (16384, 16320, 16257, 16194)
+DIV_MULT_FIRST = (0, 16384, 8192, 5461)
 OBMC_MASK_32 = (33, 35, 36, 38, 40, 41, 43, 44, 45, 47, 48, 50, 51, 52, 53,
                 55, 56, 57, 58, 59, 60, 60, 61, 62, 64, 64, 64, 64, 64, 64,
                 64, 64)
@@ -468,6 +473,16 @@ def obmc_masks(data: bytes) -> np.ndarray:
     return np.concatenate([masks[n] for n in (1, 2, 4, 8, 16, 32)])
 
 
+def div_mult(data: bytes) -> np.ndarray:
+    """div_mult: 32 int32 multipliers, 0 then 2^14 // i."""
+    at = find_once(data, np.array(DIV_MULT_FIRST, "<i4").tobytes(),
+                   "projection multipliers")
+    t = np.frombuffer(data, "<i4", 32, at)
+    want = [0] + [(1 << 14) // i for i in range(1, 32)]
+    require(t.tolist() == want, "projection multipliers: not 2^14 // i")
+    return t.astype(np.int16)
+
+
 def main(argv: list) -> None:
     lib = argv[0] if argv else LIBAOM
     data = section(lib)
@@ -482,7 +497,7 @@ def main(argv: list) -> None:
               **inter_cdfs(data, section(lib, ".text")),
               **mv_fraction_cdfs(data), "subpel_filters": subpel_filters(data),
               "warped_filter": warped_filter(data), "div_lut": div_lut(data),
-              "obmc_mask": obmc_masks(data)}
+              "obmc_mask": obmc_masks(data), "div_mult": div_mult(data)}
     np.savez_compressed(OUT, **tables)
     for k, v in tables.items():
         print(f"{k}: {v.shape} {v.dtype}")

@@ -113,6 +113,11 @@ TOOLS_MADE = {**json.loads((FIXTURES.parent / "avif_tools"
               # back to translation
               **{f"avif_warp/{n}": e for n, e in json.loads(
                   (FIXTURES.parent / "avif_warp" / "manifest.json")
+                  .read_text()).items()},
+              # motion field estimation and temporal MV candidates: four
+              # layers with use_ref_frame_mvs
+              **{f"avif_refmvs/{n}": e for n, e in json.loads(
+                  (FIXTURES.parent / "avif_refmvs" / "manifest.json")
                   .read_text()).items()}}
 
 

@@ -28,9 +28,11 @@ warped motion off, which libaom's realtime usage writes there, except in
 two files of its defaults at ``cpu-used`` 5 (OBMC and a local warp; with
 OBMC off, local warps alone; ``avif_warp/make_avif_warp.py`` writes the
 set of both tools). A file whose stream uses a tool the port refuses
-proves its refusal (``refuses`` in the manifest): three layers with
-``use_ref_frame_mvs`` on an inter frame (libaom's default
-``enable-ref-frame-mvs``).
+held a refusal (``refuses`` in the manifest) until the decoder learned
+its tool: three layers with ``use_ref_frame_mvs`` on an inter frame
+(libaom's default ``enable-ref-frame-mvs``), which now decodes
+(``avif_refmvs/make_avif_refmvs.py`` writes the set of three and four
+layers).
 
 libaom's realtime usage writes neither the sharp nor the bilinear filter,
 two filters in a block, 4x4 inter blocks (whose chroma mixes several
@@ -79,14 +81,15 @@ _FORCE_KF = 1  # AOM_EFLAG_FORCE_KF
 def aom_encode_layers(planes: list, depth: int, ss: str, quantizers,
                       usage: int = 1, options: dict = (),
                       full_range: bool = True, before_layer=None,
-                      cfg_words: dict = ()) -> bytes:
+                      cfg_words: dict = (), layer_flags: dict = ()) -> bytes:
     """One picture of Y'UV ``planes`` (one plane for monochrome) coded by
     libaom in ``len(quantizers)`` spatial layers of its size, layer i at
     quantizer ``quantizers[i]`` (end usage AOM_Q). ``before_layer(lib,
     ctx, layer)``, where given, sends more controls before each layer's
     encode; ``cfg_words`` sets more words of the configuration by name
-    (``make_avif_superres._CFG``). Returns the OBUs, the temporal
-    delimiters left out."""
+    (``make_avif_superres._CFG``); ``layer_flags`` maps a layer to more
+    ``aom_codec_encode`` flags (``AOM_EFLAG_*``) for it. Returns the OBUs,
+    the temporal delimiters left out."""
     lib = _libaom()
     lib.aom_codec_enc_config_set.argtypes = [C.c_void_p, C.c_void_p]
     mono = len(planes) == 1
@@ -148,8 +151,9 @@ def aom_encode_layers(planes: list, depth: int, ss: str, quantizers,
                         np.full((ph, pw), 1 << (depth - 1))
                     buf = (C.c_uint8 * (strides[p] * ph)).from_address(ptrs[p])
                     np.frombuffer(buf, dt).reshape(ph, -1)[:, :pw] = src
-                if lib.aom_codec_encode(ctx, img, layer, 1,
-                                        _FORCE_KF if layer == 0 else 0):
+                flags = (_FORCE_KF if layer == 0 else 0) \
+                    | dict(layer_flags).get(layer, 0)
+                if lib.aom_codec_encode(ctx, img, layer, 1, flags):
                     raise RuntimeError(f"aom_codec_encode: "
                                        f"{lib.aom_codec_error_detail(ctx)}")
             finally:
