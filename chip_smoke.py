@@ -2650,6 +2650,13 @@ AVIF_WARP_DIR = os.path.join(
 AVIF_REFMVS_DIR = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
     "avif_refmvs")
+AVIF_COMPOUND_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+    "avif_compound")
+# the compound modes' counters, NEAREST_NEARESTMV .. NEW_NEWMV
+COMPOUND_MODES = ("nearest_nearestmv", "near_nearmv", "nearest_newmv",
+                  "new_nearestmv", "near_newmv", "new_nearmv",
+                  "global_globalmv", "new_newmv")
 
 
 def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
@@ -2668,10 +2675,14 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
     layered item each frame's tile decode and post-filters
     (``tiles_f0``, ``filters_f0``, ...) and, where a frame used them, the
     time of OBMC and of the local warp in its tile decode (``obmc_f1``,
-    ``warp_f1``, ...) and of motion field estimation in the frame that
-    projects (``project_f3``, ...) with their shares of that frame's tile
+    ``warp_f1``, ...), of motion field estimation in the frame that
+    projects (``project_f3``, ...) and of the compound blocks' blends
+    (``compound_f3``, ...) with their shares of that frame's tile
     decode, and on a line before, for a frame that projected, the 8x8s its
-    projection filled and the temporal candidates of each frame; a
+    projection filled and the temporal candidates of each frame, and for
+    an item with compound blocks each frame's compound blocks (where the
+    manifest counts them per frame, as many) and the item's count of each
+    compound mode, type and kind of reference pair; a
     refusal fixture raises ``ValueError`` naming its tool, one the
     reference could not read (``raises``) the exception the manifest
     records, with its message, and one past the spec's limits
@@ -2774,11 +2785,16 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
             if "refmvs" in entry:
                 got += ([f.frame.use_ref_frame_mvs for f in av1.frames],)
                 want += (entry["refmvs"],)
+            if "compound" in entry:
+                got += ([sum(t[m] for m in COMPOUND_MODES)
+                         for t in color.frame_tools],)
+                want += (entry["compound"],)
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         loaded[name] = img
         per_frame = sorted(k for k in split[0] if k.startswith(
-            ("tiles_f", "filters_f", "obmc_f", "warp_f", "project_f")))
+            ("tiles_f", "filters_f", "obmc_f", "warp_f", "project_f",
+             "compound_f")))
         parts = ", ".join(
             f"{k} {np.median([t.get(k, 0.0) for t in split]) * 1e3:.3f}"
             for k in ("parse", "filters", "upscale", "grain", "refs",
@@ -2789,11 +2805,23 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
                   f"temporal candidates "
                   f"{[t['temporal_mv'] for t in color.frame_tools]}",
                   flush=True)
-        # OBMC's, the warp's and the projection's shares of their own
-        # frame's tile decode
+        if color.tools["comp_ref_unidir"] or color.tools["comp_ref_bidir"]:
+            kinds = ("average", "distance", "wedge", "diffwtd")
+            blocks = [sum(t[m] for m in COMPOUND_MODES)
+                      for t in color.frame_tools]
+            print(f"  {name}: per frame, compound blocks {blocks}; modes "
+                  f"{[color.tools[m] for m in COMPOUND_MODES]}, "
+                  f"types " + ", ".join(
+                      f"{k} {color.tools['compound_' + k]}" for k in kinds)
+                  + f", pairs unidirectional {color.tools['comp_ref_unidir']}"
+                  f" bidirectional {color.tools['comp_ref_bidir']}, with a "
+                  f"scaled side {color.tools['compound_scaled']}", flush=True)
+        # OBMC's, the warp's, the projection's and the compound blends'
+        # shares of their own frame's tile decode
         shares = ""
         for k in per_frame:
-            used = [m + k[5:] for m in ("obmc", "warp", "project")
+            used = [m + k[5:] for m in ("obmc", "warp", "project",
+                                        "compound")
                     if k.startswith("tiles_f") and m + k[5:] in split[0]]
             if used:
                 shares += f"; of {k}: " + ", ".join(
@@ -2863,17 +2891,27 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     and reads temporal candidates: every subsampling at 8, 10 and 12 bits,
     ``cpu-used`` 5-10, two tiles, 128-pixel superblocks, alpha, the six
     classes, two progressive items and a 3840x2160 frame; a compound
-    block libaom writes at 1280x720, which must raise naming it) decodes
+    block libaom writes at 1280x720, once refused) and of
+    ``tests/torch_fixtures/avif_compound`` (compound blocks: libaom's
+    four layers on every subsampling at 8, 10 and 12 bits, 1280x720 at
+    ``cpu-used`` 7-10 and 1920x1080 at 5-6, two tiles, 128-pixel
+    superblocks, alpha, a progressive item, the six classes and a
+    3840x2160 frame; frames written in every compound mode and type on
+    unidirectional and bidirectional pairs, at different distances, on
+    both sides of the frame, through a scaled reference and beside
+    single-reference blocks) decodes
     to its manifest (``_read_avif_fixtures``),
     the reads split into parse and tile decode (each frame's apart),
     post-filters, the superres upscale, film grain, a grid's stitch, the
     scaling and conversion (the median of 3 for the smaller files of the
     folders before ``avif_layers``, which ``avif_layers``,
-    ``avif_progressive``, ``avif_warp`` and ``avif_refmvs`` read once, to
-    keep the phase's time; of 3 for every 3840x2160 file; ``avif_warp``'s
-    reads also time OBMC and the local warp in the tile decode, and
-    ``avif_refmvs``'s motion field estimation, with the per-frame counts
-    of its projected 8x8s and temporal candidates).
+    ``avif_progressive``, ``avif_warp``, ``avif_refmvs`` and
+    ``avif_compound`` read once, to keep the phase's time; of 3 for every
+    3840x2160 file; ``avif_warp``'s reads also time OBMC and the local
+    warp in the tile decode, ``avif_refmvs``'s motion field estimation,
+    with the per-frame counts of its projected 8x8s and temporal
+    candidates, and ``avif_compound``'s the compound blends, with each
+    frame's compound blocks and the counts of their modes and types).
     Then the CLI ``-t 80`` on the six class AVIFs and ``-q 60`` on the
     3840x2160 one of the first two folders, ``-q 60`` on the 3840x2160
     ``tune=iq`` frame with film grain, ``-t 80`` on the 512x512
@@ -2887,7 +2925,7 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     60`` on the 3840x2160 progressive frame, ``-t 80`` on the 512x512
     class of OBMC and local warps and ``-q 60`` on the 3840x2160 frame of
     both, ``-t 80`` on the 512x512 four-layer class and ``-q 60`` on the
-    3840x2160 four-layer frame: q,
+    3840x2160 four-layer frame of each of the last two folders: q,
     passes and bytes must be those of the CLI on the same
     pixels, written as PAM where they are 8-bit and handed over in memory
     where they are 16-bit (PAM holds 8 bits). Returns the kernels'
@@ -2921,10 +2959,13 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
             (AVIF_WARP_DIR, [("class_mixed_512.avif", ["-t", "80"]),
                              ("photo4k_420.avif", ["-q", "60"])]),
             (AVIF_REFMVS_DIR, [("class_mixed_512.avif", ["-t", "80"]),
-                               ("photo4k_420.avif", ["-q", "60"])])):
+                               ("photo4k_420.avif", ["-q", "60"])]),
+            (AVIF_COMPOUND_DIR, [("class_mixed_512.avif", ["-t", "80"]),
+                                 ("photo4k_420.avif", ["-q", "60"])])):
         loaded = _read_avif_fixtures(
             folder, 3, 1 if folder in (AVIF_LAYERS_DIR, AVIF_PROGRESSIVE_DIR,
-                                       AVIF_WARP_DIR, AVIF_REFMVS_DIR) else 3)
+                                       AVIF_WARP_DIR, AVIF_REFMVS_DIR,
+                                       AVIF_COMPOUND_DIR) else 3)
         runs += [(os.path.join(folder, name), loaded[name], args)
                  for name, args in picks]
     with tempfile.TemporaryDirectory() as td:

@@ -29,8 +29,13 @@
  * motion modes OBMC (spec 7.11.3.10-11: the above and left neighbours'
  * predictions blended in) and LOCALWARP (spec 7.10.4 find_warp_samples,
  * 7.11.3.5-8: the least-squares warp of the neighbours' MVs, its shear,
- * and the block warp per 8x8 by the Warped_Filters) (compound blocks and
- * inter-intra are refused by name); under use_ref_frame_mvs, motion field
+ * and the block warp per 8x8 by the Warped_Filters); compound blocks
+ * (spec 5.11.25-5.11.27, 7.10.2, 7.11.3.1, 7.11.3.11-15: comp_mode, the
+ * unidirectional and bidirectional reference pairs, the pair's MV stack
+ * with its compound extra search, the eight compound modes, and the
+ * average, distance-weighted, wedge and difference-weighted blends of the
+ * two unclipped predictions) (inter-intra is refused by name); under
+ * use_ref_frame_mvs, motion field
  * estimation (spec 7.9: the MVs that earlier frames stored, projected onto
  * this one before its tiles) and the MV stack's temporal candidates (spec
  * 7.10.2.5-6), and for every frame the storage of its own MVs that later
@@ -97,7 +102,13 @@ enum {
     D_Y_MODE, D_IS_INTER, D_COMP_MODE, D_SINGLE_REF, D_NEW_MV, D_ZERO_MV,
     D_REF_MV, D_DRL, D_INTERP, D_MOTION_MODE, D_OBMC, D_INTERINTRA,
     D_MV0_JOINTS, D_MV0_SIGN, D_MV0_CLASSES, D_MV0_CLASS0, D_MV0_BITS,
-    D_MV0_CLASS0_FR, D_MV0_FR, D_MV0_CLASS0_HP, D_MV0_HP, D_NCDF
+    D_MV0_CLASS0_FR, D_MV0_FR, D_MV0_CLASS0_HP, D_MV0_HP,
+    /* compound blocks: comp_ref_type, uni_comp_ref p..p2, comp_ref
+     * p..p2, comp_bwdref p..p1, compound_mode, compound_type and
+     * wedge_index by block size, comp_group_idx, compound_idx */
+    D_COMP_REF_TYPE, D_UNI_COMP_REF, D_COMP_REF, D_COMP_BWDREF,
+    D_COMPOUND_MODE, D_COMPOUND_TYPE, D_WEDGE_INDEX, D_COMP_GROUP_IDX,
+    D_COMPOUND_IDX, D_NCDF
 };
 
 #include "av1_header.h"
@@ -107,19 +118,35 @@ enum {
     D203_PRED, D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED,
     PAETH_PRED, UV_CFL_PRED
 };
-enum { NEARESTMV = 13, NEARMV = 14, GLOBALMV = 15, NEWMV = 16 };
-enum { INTRA_FRAME = 0, LAST_FRAME = 1, GOLDEN_FRAME = 4, BWDREF_FRAME = 5,
-       ALTREF_FRAME = 7 };
+enum { NEARESTMV = 13, NEARMV = 14, GLOBALMV = 15, NEWMV = 16,
+       NEAREST_NEARESTMV = 17, NEAR_NEARMV = 18, NEAREST_NEWMV = 19,
+       NEW_NEARESTMV = 20, NEAR_NEWMV = 21, NEW_NEARMV = 22,
+       GLOBAL_GLOBALMV = 23, NEW_NEWMV = 24 };
+enum { NONE_FRAME = -1, INTRA_FRAME = 0, LAST_FRAME = 1, LAST2_FRAME = 2,
+       LAST3_FRAME = 3, GOLDEN_FRAME = 4, BWDREF_FRAME = 5,
+       ALTREF2_FRAME = 6, ALTREF_FRAME = 7 };
+/* compound_type (spec 5.11.25) */
+enum { COMPOUND_WEDGE = 0, COMPOUND_DIFFWTD = 1, COMPOUND_AVERAGE = 2,
+       COMPOUND_DISTANCE = 4 };
 enum { REF_CAT_LEVEL = 640 };
 enum { SIMPLE = 0, OBMC = 1, LOCALWARP = 2 };
 /* the inter prediction tables, one int16 pack (avif._tool_tables()'s
  * "inter_tables"):
  * Subpel_Filters [6][16][8], Warped_Filters [193][8], Div_Lut [257],
- * Obmc_Mask_1..32 (the mask of length n at n - 1) and the MV projection's
- * Div_Mult [32] */
+ * Obmc_Mask_1..32 (the mask of length n at n - 1), the MV projection's
+ * Div_Mult [32], Quant_Dist_Weight [4][2], Quant_Dist_Lookup [4][2] and
+ * the WedgeMasks (spec 7.11.3.11) of each block size with wedges in
+ * BLOCK_SIZES order, each [wedge_sign][wedge_index][h][w] */
 enum { TAB_SUBPEL = 0, TAB_WARP = TAB_SUBPEL + 6 * 16 * 8,
        TAB_DIV_LUT = TAB_WARP + 193 * 8, TAB_OBMC = TAB_DIV_LUT + 257,
-       TAB_DIV_MULT = TAB_OBMC + 63 };
+       TAB_DIV_MULT = TAB_OBMC + 63, TAB_QDIST_WEIGHT = TAB_DIV_MULT + 32,
+       TAB_QDIST_LOOKUP = TAB_QDIST_WEIGHT + 8,
+       TAB_WEDGE = TAB_QDIST_LOOKUP + 8 };
+/* Wedge_Bits > 0: 8x8 to 32x32 and 8x32, 32x8 */
+static int has_wedge(int bsize) { return (bsize >= 3 && bsize <= 9) || bsize == 18 || bsize == 19; }
+/* spec Compound_Mode_Ctx_Map */
+static const int COMPOUND_MODE_CTX[3][5] = {{0, 1, 1, 1, 1}, {1, 2, 3, 4, 4},
+                                            {4, 4, 5, 6, 7}};
 /* spec constants of motion field estimation (7.9) and the MV stack's
  * temporal candidates (7.10.2.5-6) */
 enum { MAX_FRAME_DISTANCE = 31, REFMVS_LIMIT = (1 << 12) - 1,
@@ -281,12 +308,20 @@ typedef struct {
     int frame_type, allow_hp, force_int_mv, interp_filter, motion_switchable;
     int use_ref_mvs, reference_select, allow_warped, dual_filter, interintra_on;
     int sign_bias, lf_delta_enabled, lf_ref_deltas[8], lf_mode_deltas[2];
+    int masked_compound, jnt_comp; /* enable_masked_compound, enable_jnt_comp */
     int seg_ref_mask, seg_ref_frames, seg_gmv_mask;
     const int32_t *ref_plane[8][3];
     int ref_stride[8], ref_w[8], ref_h[8];
     int xscale[8], yscale[8]; /* spec xScale, yScale of each reference */
     const int16_t *subpel, *warp_filter, *div_lut, *obmc_mask, *div_mult;
-    int8_t *mi_ref;
+    const int16_t *qdist_weight, *qdist_lookup;
+    const int16_t *wedge_mask[22]; /* each size's WedgeMasks, or NULL */
+    /* RefFrames[0] and [1] of each mi (-1 NONE: a single reference), the
+     * second MV, and comp_group_idx and compound_idx (spec
+     * CompGroupIdxs, CompoundIdxs) */
+    int8_t *mi_ref, *mi_ref2;
+    int16_t *mi_mv2;
+    uint8_t *mi_cgi, *mi_cidx;
     /* motion field estimation (spec 7.9), per 8x8 of the frame: the MV a
      * projection left there (row, column in 1/8 sample, as its source
      * saved it) and its source's distance to that MV's reference
@@ -299,8 +334,8 @@ typedef struct {
     uint8_t *mi_newmv, *mi_filt, *mi_lf;
     /* tool counters (T_*) */
     int32_t *count;
-    /* where not NULL, the ns of OBMC ([0]), of the local warp ([1]) and of
-     * motion field estimation ([2]) */
+    /* where not NULL, the ns of OBMC ([0]), of the local warp ([1]), of
+     * motion field estimation ([2]) and of compound blends and masks ([3]) */
     int64_t *motion_ns;
     int lf_on;         /* a luma loop filter level is not 0 */
     uint8_t *mi_bsz;   /* log2 w4 | log2 h4 << 4 of each mi's block */
@@ -326,6 +361,10 @@ typedef struct {
     int max_luma_w, max_luma_h;
     int is_inter, mv[2]; /* use_intrabc (or an inter block) and its MV */
     int ref, mode, filt[2]; /* RefFrame[0], YMode, interp_filter (y, x) */
+    /* a compound block's RefFrame[1] (NONE_FRAME otherwise) and Mv[1],
+     * its compound_type, wedge_index, wedge_sign, mask_type,
+     * comp_group_idx and compound_idx */
+    int ref2, mv2[2], ctype, wedge_idx, wedge_sign, mask_type, cgi, cidx;
     /* motion_mode, and find_warp_samples' NumSamples and CandList (each
      * sample's position and its position plus the neighbour's MV, row
      * then column, in 1/8 sample) */
@@ -1709,7 +1748,9 @@ static void read_deltas(Dec *d, Blk *b) {
 
 /* ---- MV stacks and intra block copy (spec 5.11.26, 5.11.32, 7.10.2) ---- */
 
-typedef struct { int mv[2], weight; } MvCand;
+/* a stack entry: the MV of RefFrame[0] and, for a compound block, of
+ * RefFrame[1] (row, column in 1/8 sample), and its weight */
+typedef struct { int mv[2], mv2[2], weight; } MvCand;
 
 /* spec sorting: a stable bubble sort by weight, descending */
 static void sort_mv_stack(MvCand *st, int start, int end) {
@@ -1739,86 +1780,156 @@ static void lower_mv(const Dec *d, int *mv) {
     }
 }
 
+/* the MV of list 0 or 1 of mi m */
+static void mi_mv_of(const Dec *d, int m, int list, int *mv) {
+    const int16_t *p = list ? d->mi_mv2 : d->mi_mv;
+    mv[0] = p[2 * m];
+    mv[1] = p[2 * m + 1];
+}
+
+/* the stack's entry equal to mv (and mv2 for a pair), or -1 */
+static int stack_find(const MvCand *st, int n, const int *mv, const int *mv2) {
+    for (int k = 0; k < n; k++)
+        if (st[k].mv[0] == mv[0] && st[k].mv[1] == mv[1] &&
+            (!mv2 || (st[k].mv2[0] == mv2[0] && st[k].mv2[1] == mv2[1])))
+            return k;
+    return -1;
+}
+
+/* mv (and mv2) joins the stack with weight, or adds weight to its equal */
+static void stack_add(MvCand *st, int *n, const int *mv, const int *mv2, int weight) {
+    int k = stack_find(st, *n, mv, mv2);
+    if (k >= 0) {
+        st[k].weight += weight;
+        return;
+    }
+    if (*n < 8) {
+        MvCand *e = st + (*n)++;
+        e->mv[0] = mv[0];
+        e->mv[1] = mv[1];
+        e->mv2[0] = mv2 ? mv2[0] : 0;
+        e->mv2[1] = mv2 ? mv2[1] : 0;
+        e->weight = weight;
+    }
+}
+
 /* add_spatial_candidate (dav1d's refmvs.c, spec add_ref_mv_candidate): a
- * neighbour of the same single reference joins the stack or adds its
- * weight; it counts as a match, and as a NEWMV match where its mode was */
-static void add_spatial(Dec *d, MvCand *st, int *n, int r, int c, int ref, int weight,
-                        int *newmv_match, int *ref_match) {
+ * neighbour joins the stack or adds its weight where, for a single
+ * reference ref (ref2 NONE_FRAME), either of its references is ref (with
+ * that list's MV), or for a pair both of its references are the pair; it
+ * counts as a match, and as a NEWMV match where its mode had a NEWMV side */
+static void add_spatial(Dec *d, MvCand *st, int *n, int r, int c, int ref, int ref2,
+                        int weight, int *newmv_match, int *ref_match) {
     int m = mi_at(d, r, c);
-    if (!d->mi_inter[m] || d->mi_ref[m] != ref) return;
+    if (!d->mi_inter[m]) return;
+    int mv[2], mv2[2];
+    if (ref2 <= INTRA_FRAME) {
+        int list;
+        if (d->mi_ref[m] == ref) list = 0;
+        else if (d->mi_ref2[m] == ref) list = 1;
+        else return;
+        mi_mv_of(d, m, list, mv);
+    } else {
+        if (d->mi_ref[m] != ref || d->mi_ref2[m] != ref2) return;
+        mi_mv_of(d, m, 0, mv);
+        mi_mv_of(d, m, 1, mv2);
+        lower_mv(d, mv2);
+    }
     *ref_match = 1;
     *newmv_match |= d->mi_newmv[m];
-    int mv[2] = {d->mi_mv[2 * m], d->mi_mv[2 * m + 1]};
     lower_mv(d, mv);
-    for (int k = 0; k < *n; k++)
-        if (st[k].mv[0] == mv[0] && st[k].mv[1] == mv[1]) {
-            st[k].weight += weight;
-            return;
-        }
-    if (*n < 8) {
-        st[*n].mv[0] = mv[0];
-        st[*n].mv[1] = mv[1];
-        st[*n].weight = weight;
-        (*n)++;
-    }
+    stack_add(st, n, mv, ref2 > INTRA_FRAME ? mv2 : NULL, weight);
 }
 
 /* one row of neighbours from (row, col), bw4 wide, w4 of it scanned, as
  * dav1d's scan_row: a neighbour at least as wide as the block counts for
  * the rows it spans (up to max_rows pairs); returns the pairs of rows
  * covered (mv_scan_col likewise down a column) */
-static int mv_scan_row(Dec *d, MvCand *st, int *n, int ref, int row, int col, int bw4,
-                       int w4, int max_rows, int step, int *nm, int *rm) {
+static int mv_scan_row(Dec *d, MvCand *st, int *n, int ref, int ref2, int row, int col,
+                       int bw4, int w4, int max_rows, int step, int *nm, int *rm) {
     int m = mi_at(d, row, col);
     int cw = 1 << d->mi_wl[m];
     int len = imax(step, imin(bw4, cw));
     if (bw4 <= cw) {
         int weight = bw4 == 1 ? 2 : imax(2, imin(2 * max_rows, 1 << d->mi_hl[m]));
-        add_spatial(d, st, n, row, col, ref, len * weight, nm, rm);
+        add_spatial(d, st, n, row, col, ref, ref2, len * weight, nm, rm);
         return weight >> 1;
     }
     for (int x = 0;;) {
-        add_spatial(d, st, n, row, col + x, ref, len * 2, nm, rm);
+        add_spatial(d, st, n, row, col + x, ref, ref2, len * 2, nm, rm);
         x += len;
         if (x >= w4 || col + x >= d->c1) return 1;
         len = imax(step, 1 << d->mi_wl[mi_at(d, row, col + x)]);
     }
 }
 
-static int mv_scan_col(Dec *d, MvCand *st, int *n, int ref, int row, int col, int bh4,
-                       int h4, int max_cols, int step, int *nm, int *cm) {
+static int mv_scan_col(Dec *d, MvCand *st, int *n, int ref, int ref2, int row, int col,
+                       int bh4, int h4, int max_cols, int step, int *nm, int *cm) {
     int m = mi_at(d, row, col);
     int ch = 1 << d->mi_hl[m];
     int len = imax(step, imin(bh4, ch));
     if (bh4 <= ch) {
         int weight = bh4 == 1 ? 2 : imax(2, imin(2 * max_cols, 1 << d->mi_wl[m]));
-        add_spatial(d, st, n, row, col, ref, len * weight, nm, cm);
+        add_spatial(d, st, n, row, col, ref, ref2, len * weight, nm, cm);
         return weight >> 1;
     }
     for (int y = 0;;) {
-        add_spatial(d, st, n, row + y, col, ref, len * 2, nm, cm);
+        add_spatial(d, st, n, row + y, col, ref, ref2, len * 2, nm, cm);
         y += len;
         if (y >= h4 || row + y >= d->r1) return 1;
         len = imax(step, 1 << d->mi_hl[mi_at(d, row + y, col)]);
     }
 }
 
-/* spec add_extra_mv_candidate for a single reference: a neighbour's MV of
- * any reference, negated where its sign bias differs */
+static int sign_differs(const Dec *d, int a, int b) {
+    return (d->sign_bias >> a & 1) != (d->sign_bias >> b & 1);
+}
+
+/* spec add_extra_mv_candidate for a single reference: each reference's MV
+ * of a neighbour, negated where its sign bias differs, joins the stack
+ * unless it is there */
 static void add_extended(Dec *d, MvCand *st, int *n, int m, int ref) {
-    int cref = d->mi_ref[m];
-    if (!d->mi_inter[m] || cref <= INTRA_FRAME) return;
-    int mv[2] = {d->mi_mv[2 * m], d->mi_mv[2 * m + 1]};
-    if ((d->sign_bias >> cref & 1) != (d->sign_bias >> ref & 1)) {
-        mv[0] = -mv[0];
-        mv[1] = -mv[1];
+    if (!d->mi_inter[m]) return;
+    for (int list = 0; list < 2; list++) {
+        int cref = list ? d->mi_ref2[m] : d->mi_ref[m];
+        if (cref <= INTRA_FRAME) return;
+        int mv[2];
+        mi_mv_of(d, m, list, mv);
+        if (sign_differs(d, cref, ref)) {
+            mv[0] = -mv[0];
+            mv[1] = -mv[1];
+        }
+        if (stack_find(st, *n, mv, NULL) < 0) stack_add(st, n, mv, NULL, 2);
     }
-    for (int k = 0; k < *n; k++)
-        if (st[k].mv[0] == mv[0] && st[k].mv[1] == mv[1]) return;
-    st[*n].mv[0] = mv[0];
-    st[*n].mv[1] = mv[1];
-    st[*n].weight = 2;
-    (*n)++;
+}
+
+/* spec add_extra_mv_candidate for a pair (dav1d's
+ * add_compound_extended_candidate): each reference's MV of a neighbour
+ * goes to RefIdMvs of the list whose reference it is, and to RefDiffMvs
+ * of the other list (of both, where it is neither), negated where the
+ * sign biases differ; two of each at most */
+static void add_extended_pair(const Dec *d, int m, const int *refs, int id[2][2][2],
+                              int *nid, int diff[2][2][2], int *ndiff) {
+    for (int list = 0; list < 2; list++) {
+        int cref = list ? d->mi_ref2[m] : d->mi_ref[m];
+        if (cref <= INTRA_FRAME) return;
+        int mv[2];
+        mi_mv_of(d, m, list, mv);
+        for (int l = 0; l < 2; l++) {
+            if (cref == refs[l]) {
+                if (nid[l] < 2) {
+                    id[l][nid[l]][0] = mv[0];
+                    id[l][nid[l]][1] = mv[1];
+                    nid[l]++;
+                }
+            } else if (ndiff[l] < 2) {
+                int s = sign_differs(d, cref, refs[l]) ? -1 : 1;
+                diff[l][ndiff[l]][0] = s * mv[0];
+                diff[l][ndiff[l]][1] = s * mv[1];
+                ndiff[l]++;
+            }
+        }
+    }
 }
 
 /* spec get_mv_projection (7.9.3): mv scaled by num / den through
@@ -1832,64 +1943,62 @@ static void mv_projection(const Dec *d, const int16_t *mv, int num, int den, int
                              PROJ_MV_MAX);
 }
 
-/* spec add_tpl_ref_mv for a single reference (libaom add_tpl_ref_mv, dav1d
+/* spec add_tpl_ref_mv (libaom add_tpl_ref_mv, dav1d
  * add_temporal_candidate): the projected MV of the 8x8 at (r | 1, c | 1),
  * where that lies in the tile and a projection landed there, scaled to the
- * block's reference, at its precision, joins the stack with weight 2 or
- * adds 2 to an equal entry's; at the block's own position it sets
- * ZeroMvContext (zero_ctx, where given) by its distance from the identity
- * global MV */
-static void add_temporal(Dec *d, MvCand *st, int *n, int r, int c, int ref, int *zero_ctx) {
+ * block's reference (to both, for a pair), at its precision, joins the
+ * stack with weight 2 or adds 2 to an equal entry's; at the block's own
+ * position it sets ZeroMvContext (zero_ctx, where given; a pair reads
+ * none) by its distance from the identity global MV */
+static void add_temporal(Dec *d, MvCand *st, int *n, int r, int c, int ref, int ref2,
+                         int *zero_ctx) {
     r |= 1;
     c |= 1;
     if (!is_inside(d, r, c)) return;
     size_t i = (size_t)(r >> 1) * (size_t)(d->mi_cols >> 1) + (size_t)(c >> 1);
     if (!d->tpl_off[i]) return;
-    int mv[2];
+    int mv[2], mv2[2];
     mv_projection(d, d->tpl_mv + 2 * i, d->cur_off[ref], d->tpl_off[i], mv);
     lower_mv(d, mv);
+    if (ref2 > INTRA_FRAME) {
+        mv_projection(d, d->tpl_mv + 2 * i, d->cur_off[ref2], d->tpl_off[i], mv2);
+        lower_mv(d, mv2);
+    }
     if (zero_ctx) *zero_ctx = abs(mv[0]) >= 16 || abs(mv[1]) >= 16;
     d->count[T_TEMPORAL_MV]++;
-    for (int k = 0; k < *n; k++)
-        if (st[k].mv[0] == mv[0] && st[k].mv[1] == mv[1]) {
-            st[k].weight += 2;
-            return;
-        }
-    if (*n < 8) {
-        st[*n].mv[0] = mv[0];
-        st[*n].mv[1] = mv[1];
-        st[*n].weight = 2;
-        (*n)++;
-    }
+    stack_add(st, n, mv, ref2 > INTRA_FRAME ? mv2 : NULL, 2);
 }
 
 /* spec temporal scan (7.10.2.5): the block's 8x8s up to 64x64, every
  * second one (every fourth on a side of 64 or more), then, for a block
  * 8 to 32 on both sides, three positions past its bottom-left, bottom-right
  * and right where they lie in its 64x64 (check_sb_border) */
-static void temporal_scan(Dec *d, const Blk *b, int ref, MvCand *st, int *n, int *zero_ctx) {
+static void temporal_scan(Dec *d, const Blk *b, int ref, int ref2, MvCand *st, int *n,
+                          int *zero_ctx) {
     int r = b->r, c = b->c, bw4 = 1 << b->wl, bh4 = 1 << b->hl;
     int step_r = bh4 >= 16 ? 4 : 2, step_c = bw4 >= 16 ? 4 : 2;
     for (int dr = 0; dr < imin(bh4, 16); dr += step_r)
         for (int dc = 0; dc < imin(bw4, 16); dc += step_c)
-            add_temporal(d, st, n, r + dr, c + dc, ref, dr || dc ? NULL : zero_ctx);
+            add_temporal(d, st, n, r + dr, c + dc, ref, ref2, dr || dc ? NULL : zero_ctx);
     if (bh4 < 2 || bh4 >= 16 || bw4 < 2 || bw4 >= 16) return;
     const int pos[3][2] = {{bh4, -2}, {bh4, bw4}, {bh4 - 2, bw4}};
     for (int k = 0; k < 3; k++) {
         int rr = (r & 15) + pos[k][0], cc = (c & 15) + pos[k][1];
         if (rr >= 0 && rr < 16 && cc >= 0 && cc < 16)
-            add_temporal(d, st, n, r + pos[k][0], c + pos[k][1], ref, NULL);
+            add_temporal(d, st, n, r + pos[k][0], c + pos[k][1], ref, ref2, NULL);
     }
 }
 
-/* find_mv_stack(0) for a single reference, as dav1d scans it: the
- * spatial rows, columns and points with their weights, the temporal
- * candidates under use_ref_frame_mvs (ZeroMvContext is use_ref_frame_mvs
- * where the block's own 8x8 holds no projection), the extra search, the
- * sorting and the clamping; RefStackMv past NumMvFound takes the identity
- * global MV (0). Returns NumMvFound; ctx gets NewMvContext |
- * ZeroMvContext << 3 | RefMvContext << 4 */
-static int inter_mv_stack(Dec *d, Blk *b, int ref, MvCand *st, int *ctx) {
+/* find_mv_stack for a single reference (ref2 NONE_FRAME) or the pair (ref,
+ * ref2), as dav1d scans it: the spatial rows, columns and points with
+ * their weights, the temporal candidates under use_ref_frame_mvs
+ * (ZeroMvContext is use_ref_frame_mvs where the block's own 8x8 holds no
+ * projection), the sorting, the extra search (spec 7.10.2.12: for a pair
+ * the RefIdMvs and RefDiffMvs of the neighbours combined, filling the
+ * stack to two) and the clamping; for a single reference RefStackMv past
+ * NumMvFound takes the identity global MV (0). Returns NumMvFound; ctx
+ * gets NewMvContext | ZeroMvContext << 3 | RefMvContext << 4 */
+static int inter_mv_stack(Dec *d, Blk *b, int ref, int ref2, MvCand *st, int *ctx) {
     int r = b->r, c = b->c, bw4 = 1 << b->wl, bh4 = 1 << b->hl;
     int w4 = imin(imin(bw4, 16), d->c1 - c), h4 = imin(imin(bh4, 16), d->r1 - r);
     enum { NONE = 1 << 20 };
@@ -1897,29 +2006,30 @@ static int inter_mv_stack(Dec *d, Blk *b, int ref, MvCand *st, int *ctx) {
     int newmv = 0, row_m = 0, col_m = 0, dummy = 0;
     if (r > d->r0) {
         max_rows = imin((r - d->r0 + 1) >> 1, 2 + (bh4 > 1));
-        n_rows = mv_scan_row(d, st, &n, ref, r - 1, c, bw4, w4, max_rows, bw4 >= 16 ? 4 : 1,
-                             &newmv, &row_m);
+        n_rows = mv_scan_row(d, st, &n, ref, ref2, r - 1, c, bw4, w4, max_rows,
+                             bw4 >= 16 ? 4 : 1, &newmv, &row_m);
     }
     if (c > d->c0) {
         max_cols = imin((c - d->c0 + 1) >> 1, 2 + (bw4 > 1));
-        n_cols = mv_scan_col(d, st, &n, ref, r, c - 1, bh4, h4, max_cols, bh4 >= 16 ? 4 : 1,
-                             &newmv, &col_m);
+        n_cols = mv_scan_col(d, st, &n, ref, ref2, r, c - 1, bh4, h4, max_cols,
+                             bh4 >= 16 ? 4 : 1, &newmv, &col_m);
     }
     int sbmask = d->sb4 - 1;
     if (n_rows != NONE && imax(bw4, bh4) <= 16 && c + bw4 < d->c1 &&
         d->decoded[0][(r & sbmask) - 1 + 1][(c & sbmask) + bw4 + 1])
-        add_spatial(d, st, &n, r - 1, c + bw4, ref, 4, &newmv, &row_m);
+        add_spatial(d, st, &n, r - 1, c + bw4, ref, ref2, 4, &newmv, &row_m);
     int nearest_match = row_m + col_m, nearest = n;
     for (int k = 0; k < nearest; k++) st[k].weight += REF_CAT_LEVEL;
     int zero_ctx = d->use_ref_mvs;
-    if (d->use_ref_mvs) temporal_scan(d, b, ref, st, &n, &zero_ctx);
-    if (n_rows != NONE && n_cols != NONE) add_spatial(d, st, &n, r - 1, c - 1, ref, 4, &dummy, &row_m);
+    if (d->use_ref_mvs) temporal_scan(d, b, ref, ref2, st, &n, &zero_ctx);
+    if (n_rows != NONE && n_cols != NONE)
+        add_spatial(d, st, &n, r - 1, c - 1, ref, ref2, 4, &dummy, &row_m);
     for (int k = 2; k <= 3; k++) {
         if (k > n_rows && k <= max_rows)
-            n_rows += mv_scan_row(d, st, &n, ref, (r - 2 * k + 1) | 1, c | 1, bw4, w4,
+            n_rows += mv_scan_row(d, st, &n, ref, ref2, (r - 2 * k + 1) | 1, c | 1, bw4, w4,
                                   1 + max_rows - k, bw4 >= 16 ? 4 : 2, &dummy, &row_m);
         if (k > n_cols && k <= max_cols)
-            n_cols += mv_scan_col(d, st, &n, ref, r | 1, (c - 2 * k + 1) | 1, bh4, h4,
+            n_cols += mv_scan_col(d, st, &n, ref, ref2, r | 1, (c - 2 * k + 1) | 1, bh4, h4,
                                   1 + max_cols - k, bh4 >= 16 ? 4 : 2, &dummy, &col_m);
     }
     int ref_match = row_m + col_m, refmv_ctx, newmv_ctx;
@@ -1935,8 +2045,50 @@ static int inter_mv_stack(Dec *d, Blk *b, int ref, MvCand *st, int *ctx) {
     }
     sort_mv_stack(st, 0, nearest);
     sort_mv_stack(st, nearest, n);
-    if (n < 2) {
-        int sz4 = imin(w4, h4);
+    int sz4 = imin(w4, h4);
+    if (n < 2 && ref2 > INTRA_FRAME) {
+        /* the pair's RefIdMvs and RefDiffMvs, then the global MVs (0) */
+        int refs[2] = {ref, ref2}, id[2][2][2], diff[2][2][2], nid[2] = {0, 0},
+            ndiff[2] = {0, 0}, comb[2][2][2];
+        if (n_rows != NONE)
+            for (int x = 0; x < sz4;) {
+                int m = mi_at(d, r - 1, c + x);
+                if (d->mi_inter[m]) add_extended_pair(d, m, refs, id, nid, diff, ndiff);
+                x += 1 << d->mi_wl[m];
+            }
+        if (n_cols != NONE)
+            for (int y = 0; y < sz4;) {
+                int m = mi_at(d, r + y, c - 1);
+                if (d->mi_inter[m]) add_extended_pair(d, m, refs, id, nid, diff, ndiff);
+                y += 1 << d->mi_hl[m];
+            }
+        for (int l = 0; l < 2; l++) {
+            int k = 0;
+            for (int i = 0; i < nid[l]; i++, k++) memcpy(comb[k][l], id[l][i], sizeof(comb[k][l]));
+            for (int i = 0; i < ndiff[l] && k < 2; i++, k++)
+                memcpy(comb[k][l], diff[l][i], sizeof(comb[k][l]));
+            for (; k < 2; k++) comb[k][l][0] = comb[k][l][1] = 0;
+        }
+        if (n == 1) {
+            int same = comb[0][0][0] == st[0].mv[0] && comb[0][0][1] == st[0].mv[1] &&
+                       comb[0][1][0] == st[0].mv2[0] && comb[0][1][1] == st[0].mv2[1];
+            const int (*e)[2] = comb[same];
+            st[1].mv[0] = e[0][0];
+            st[1].mv[1] = e[0][1];
+            st[1].mv2[0] = e[1][0];
+            st[1].mv2[1] = e[1][1];
+            st[1].weight = 2;
+        } else {
+            for (int k = 0; k < 2; k++) {
+                st[k].mv[0] = comb[k][0][0];
+                st[k].mv[1] = comb[k][0][1];
+                st[k].mv2[0] = comb[k][1][0];
+                st[k].mv2[1] = comb[k][1][1];
+                st[k].weight = 2;
+            }
+        }
+        n = 2;
+    } else if (n < 2) {
         if (n_rows != NONE)
             for (int x = 0; x < sz4 && n < 2;) {
                 int m = mi_at(d, r - 1, c + x);
@@ -1955,8 +2107,10 @@ static int inter_mv_stack(Dec *d, Blk *b, int ref, MvCand *st, int *ctx) {
     for (int k = 0; k < n; k++) {
         st[k].mv[0] = (int)clip64(st[k].mv[0], top, bottom);
         st[k].mv[1] = (int)clip64(st[k].mv[1], left, right);
+        st[k].mv2[0] = (int)clip64(st[k].mv2[0], top, bottom);
+        st[k].mv2[1] = (int)clip64(st[k].mv2[1], left, right);
     }
-    for (int k = n; k < 2; k++) st[k].mv[0] = st[k].mv[1] = 0;
+    for (int k = n; k < 2; k++) st[k].mv[0] = st[k].mv[1] = st[k].mv2[0] = st[k].mv2[1] = 0;
     *ctx = newmv_ctx | zero_ctx << 3 | refmv_ctx << 4;
     return n;
 }
@@ -1998,7 +2152,7 @@ static int read_mv_comp(Dec *d, int comp, int inter) {
  * MV_INTRABC_CONTEXT */
 static void intrabc_dv(Dec *d, Blk *b) {
     MvCand st[8];
-    int ctx, n = inter_mv_stack(d, b, INTRA_FRAME, st, &ctx);
+    int ctx, n = inter_mv_stack(d, b, INTRA_FRAME, NONE_FRAME, st, &ctx);
     int pred[2] = {0, 0};
     for (int k = 0; k < imin(n, 2); k++)
         if (st[k].mv[0] || st[k].mv[1]) {
@@ -2175,44 +2329,150 @@ static int seg_active(const Dec *d, int mask) {
     return d->seg_enabled && (mask >> d->seg_id & 1);
 }
 
-/* how often the above and left blocks use reference frame rf */
+/* how often the above and left blocks use reference frame rf, both
+ * references of a compound neighbour counted (libaom's
+ * neighbors_ref_counts) */
 static int count_ref(const Dec *d, const Blk *b, int rf) {
     int n = 0;
-    if (b->avail_u && d->mi_ref[mi_at(d, b->r - 1, b->c)] == rf) n++;
-    if (b->avail_l && d->mi_ref[mi_at(d, b->r, b->c - 1)] == rf) n++;
+    if (b->avail_u) {
+        int m = mi_at(d, b->r - 1, b->c);
+        n += (d->mi_ref[m] == rf) + (d->mi_ref2[m] == rf);
+    }
+    if (b->avail_l) {
+        int m = mi_at(d, b->r, b->c - 1);
+        n += (d->mi_ref[m] == rf) + (d->mi_ref2[m] == rf);
+    }
     return n;
 }
 static int ref_count_ctx(int a, int b) { return a < b ? 0 : (a == b ? 1 : 2); }
 static int is_backward(int rf) { return rf >= BWDREF_FRAME && rf <= ALTREF_FRAME; }
 
-/* spec read_ref_frames for a single reference: the segment's, or
- * comp_mode (a compound block is refused) and the single_ref tree */
-static int read_ref_frame(Dec *d, Blk *b) {
-    if (seg_active(d, d->seg_ref_mask)) return (d->seg_ref_frames >> (3 * d->seg_id)) & 7;
-    if (seg_active(d, d->seg_skip_mask) || seg_active(d, d->seg_gmv_mask)) return LAST_FRAME;
-    if (d->reference_select && imin(b->wl, b->hl) >= 1) {
-        int ar = b->avail_u ? d->mi_ref[mi_at(d, b->r - 1, b->c)] : INTRA_FRAME;
-        int lr = b->avail_l ? d->mi_ref[mi_at(d, b->r, b->c - 1)] : INTRA_FRAME;
-        int ctx;
-        if (b->avail_u && b->avail_l) ctx = is_backward(ar) ^ is_backward(lr);
-        else if (b->avail_u) ctx = is_backward(ar);
-        else if (b->avail_l) ctx = is_backward(lr);
-        else ctx = 1;
-        if (read_symbol(d, d->cdf[D_COMP_MODE] + (size_t)ctx * 3, 2)) {
-            fail(d, AV1D_UNSUPPORTED, "AV1: %s is not supported", "a compound block");
-            return LAST_FRAME;
+/* the above and left neighbours' RefFrame[0] and [1] (INTRA_FRAME and
+ * NONE_FRAME where one is outside the tile) */
+static void neighbour_refs(const Dec *d, const Blk *b, int *a, int *l) {
+    a[0] = l[0] = INTRA_FRAME;
+    a[1] = l[1] = NONE_FRAME;
+    if (b->avail_u) {
+        int m = mi_at(d, b->r - 1, b->c);
+        a[0] = d->mi_ref[m];
+        a[1] = d->mi_ref2[m];
+    }
+    if (b->avail_l) {
+        int m = mi_at(d, b->r, b->c - 1);
+        l[0] = d->mi_ref[m];
+        l[1] = d->mi_ref2[m];
+    }
+}
+
+/* spec comp_mode's context (libaom av1_get_reference_mode_context) */
+static int comp_mode_ctx(const Dec *d, const Blk *b) {
+    int a[2], l[2];
+    neighbour_refs(d, b, a, l);
+    int as = a[1] <= INTRA_FRAME, ls = l[1] <= INTRA_FRAME;
+    if (b->avail_u && b->avail_l) {
+        if (as && ls) return is_backward(a[0]) ^ is_backward(l[0]);
+        if (as) return 2 + (is_backward(a[0]) || a[0] <= INTRA_FRAME);
+        if (ls) return 2 + (is_backward(l[0]) || l[0] <= INTRA_FRAME);
+        return 4;
+    }
+    if (b->avail_u) return as ? is_backward(a[0]) : 3;
+    if (b->avail_l) return ls ? is_backward(l[0]) : 3;
+    return 1;
+}
+
+/* has_uni_comp_refs: a pair on one side of the frame */
+static int uni_pair(const int *rf) {
+    return rf[1] > INTRA_FRAME && (rf[0] >= BWDREF_FRAME) == (rf[1] >= BWDREF_FRAME);
+}
+
+/* spec comp_ref_type's context (libaom
+ * av1_get_comp_reference_type_context) */
+static int comp_ref_type_ctx(const Dec *d, const Blk *b) {
+    int a[2], l[2];
+    neighbour_refs(d, b, a, l);
+    if (b->avail_u && b->avail_l) {
+        int ai = a[0] <= INTRA_FRAME, li = l[0] <= INTRA_FRAME;
+        if (ai && li) return 2;
+        if (ai || li) {
+            const int *e = ai ? l : a;
+            return e[1] <= INTRA_FRAME ? 2 : 1 + 2 * uni_pair(e);
         }
+        int asg = a[1] <= INTRA_FRAME, lsg = l[1] <= INTRA_FRAME;
+        int samedir = (a[0] >= BWDREF_FRAME) == (l[0] >= BWDREF_FRAME);
+        if (asg && lsg) return 1 + 2 * samedir;
+        if (asg || lsg) return uni_pair(asg ? l : a) ? 3 + samedir : 1;
+        int au = uni_pair(a), lu = uni_pair(l);
+        if (!au && !lu) return 0;
+        if (!au || !lu) return 2;
+        return 3 + ((a[0] == BWDREF_FRAME) == (l[0] == BWDREF_FRAME));
+    }
+    if (b->avail_u || b->avail_l) {
+        const int *e = b->avail_u ? a : l;
+        if (e[0] <= INTRA_FRAME || e[1] <= INTRA_FRAME) return 2;
+        return 4 * uni_pair(e);
+    }
+    return 2;
+}
+
+/* spec read_ref_frames: the segment's reference, or comp_mode, then the
+ * single_ref tree or a compound pair: unidirectional through uni_comp_ref
+ * (LAST with LAST2, LAST3 or GOLDEN; BWDREF with ALTREF) or bidirectional
+ * through comp_ref and comp_bwdref, each with its spec 8.3.2 context */
+static void read_ref_frames(Dec *d, Blk *b) {
+    b->ref2 = NONE_FRAME;
+    if (seg_active(d, d->seg_ref_mask)) {
+        b->ref = (d->seg_ref_frames >> (3 * d->seg_id)) & 7;
+        return;
+    }
+    if (seg_active(d, d->seg_skip_mask) || seg_active(d, d->seg_gmv_mask)) {
+        b->ref = LAST_FRAME;
+        return;
     }
     int c[8];
     for (int rf = 1; rf < 8; rf++) c[rf] = count_ref(d, b, rf);
+#define REF2(which, stride, p, ctx) \
+    read_symbol(d, d->cdf[which] + ((size_t)(ctx) * (stride) + (p)) * 3, 2)
+    if (d->reference_select && imin(b->wl, b->hl) >= 1 &&
+        read_symbol(d, d->cdf[D_COMP_MODE] + (size_t)comp_mode_ctx(d, b) * 3, 2)) {
+        if (!read_symbol(d, d->cdf[D_COMP_REF_TYPE] + (size_t)comp_ref_type_ctx(d, b) * 3, 2)) {
+            d->count[T_COMP_REF_UNIDIR]++;
+            if (REF2(D_UNI_COMP_REF, 3, 0, ref_count_ctx(c[1] + c[2] + c[3] + c[4],
+                                                         c[5] + c[6] + c[7]))) {
+                b->ref = BWDREF_FRAME;
+                b->ref2 = ALTREF_FRAME;
+            } else {
+                b->ref = LAST_FRAME;
+                if (REF2(D_UNI_COMP_REF, 3, 1, ref_count_ctx(c[2], c[3] + c[4])))
+                    b->ref2 = REF2(D_UNI_COMP_REF, 3, 2, ref_count_ctx(c[3], c[4]))
+                                  ? GOLDEN_FRAME : LAST3_FRAME;
+                else
+                    b->ref2 = LAST2_FRAME;
+            }
+            return;
+        }
+        d->count[T_COMP_REF_BIDIR]++;
+        if (!REF2(D_COMP_REF, 3, 0, ref_count_ctx(c[1] + c[2], c[3] + c[4])))
+            b->ref = REF2(D_COMP_REF, 3, 1, ref_count_ctx(c[1], c[2])) ? LAST2_FRAME : LAST_FRAME;
+        else
+            b->ref = REF2(D_COMP_REF, 3, 2, ref_count_ctx(c[3], c[4])) ? GOLDEN_FRAME : LAST3_FRAME;
+        if (!REF2(D_COMP_BWDREF, 2, 0, ref_count_ctx(c[5] + c[6], c[7])))
+            b->ref2 = REF2(D_COMP_BWDREF, 2, 1, ref_count_ctx(c[5], c[6])) ? ALTREF2_FRAME
+                                                                         : BWDREF_FRAME;
+        else
+            b->ref2 = ALTREF_FRAME;
+        return;
+    }
+#undef REF2
 #define SREF(p, ctx) read_symbol(d, d->cdf[D_SINGLE_REF] + ((size_t)(ctx) * 6 + (p) - 1) * 3, 2)
     if (SREF(1, ref_count_ctx(c[1] + c[2] + c[3] + c[4], c[5] + c[6] + c[7]))) {
-        if (SREF(2, ref_count_ctx(c[5] + c[6], c[7]))) return ALTREF_FRAME;
-        return SREF(6, ref_count_ctx(c[5], c[6])) ? 6 : BWDREF_FRAME;
+        if (SREF(2, ref_count_ctx(c[5] + c[6], c[7]))) b->ref = ALTREF_FRAME;
+        else b->ref = SREF(6, ref_count_ctx(c[5], c[6])) ? ALTREF2_FRAME : BWDREF_FRAME;
+        return;
     }
     if (SREF(3, ref_count_ctx(c[1] + c[2], c[3] + c[4])))
-        return SREF(5, ref_count_ctx(c[3], c[4])) ? GOLDEN_FRAME : 3;
-    return SREF(4, ref_count_ctx(c[1], c[2])) ? 2 : LAST_FRAME;
+        b->ref = SREF(5, ref_count_ctx(c[3], c[4])) ? GOLDEN_FRAME : LAST3_FRAME;
+    else
+        b->ref = SREF(4, ref_count_ctx(c[1], c[2])) ? LAST2_FRAME : LAST_FRAME;
 #undef SREF
 }
 
@@ -2240,7 +2500,8 @@ static int overlappable(const Dec *d, const Blk *b) {
 }
 
 /* spec 7.10.4.2 add_sample: the neighbour at (r + dr, c + dc), where it
- * is inside the tile and of the block's single reference, joins CandList
+ * is inside the tile and of the block's single reference (a compound
+ * neighbour is no sample, nor scanned), joins CandList
  * at its block's centre less one sample; one whose MV differs from the
  * block's by more than the size's threshold is dropped unless it is the
  * first scanned, which stays at CandList[0] uncounted */
@@ -2249,7 +2510,7 @@ static void add_sample(const Dec *d, Blk *b, int dr, int dc, int *scanned) {
     int r = b->r + dr, c = b->c + dc;
     if (!is_inside(d, r, c)) return;
     int m = mi_at(d, r, c);
-    if (d->mi_ref[m] != b->ref) return;
+    if (d->mi_ref[m] != b->ref || d->mi_ref2[m] > INTRA_FRAME) return;
     int cw4 = 1 << d->mi_wl[m], ch4 = 1 << d->mi_hl[m];
     int midy = (r & ~(ch4 - 1)) * 4 + ch4 * 2 - 1;
     int midx = (c & ~(cw4 - 1)) * 4 + cw4 * 2 - 1;
@@ -2309,15 +2570,19 @@ static void find_warp_samples(const Dec *d, Blk *b) {
     if (!b->nsamples && scanned) b->nsamples = 1;
 }
 
+/* spec interp_filter's context: a neighbour's filter counts where either
+ * of its references is the block's RefFrame[0] */
 static int interp_ctx(const Dec *d, const Blk *b, int dir) {
-    int ctx = (dir & 1) * 2 * 4, left = 3, above = 3;
+    int ctx = ((dir & 1) * 2 + (b->ref2 > INTRA_FRAME)) * 4, left = 3, above = 3;
     if (b->avail_l) {
         int m = mi_at(d, b->r, b->c - 1);
-        if (d->mi_ref[m] == b->ref) left = (d->mi_filt[m] >> (2 * dir)) & 3;
+        if (d->mi_ref[m] == b->ref || d->mi_ref2[m] == b->ref)
+            left = (d->mi_filt[m] >> (2 * dir)) & 3;
     }
     if (b->avail_u) {
         int m = mi_at(d, b->r - 1, b->c);
-        if (d->mi_ref[m] == b->ref) above = (d->mi_filt[m] >> (2 * dir)) & 3;
+        if (d->mi_ref[m] == b->ref || d->mi_ref2[m] == b->ref)
+            above = (d->mi_filt[m] >> (2 * dir)) & 3;
     }
     if (left == above) return ctx + left;
     if (left == 3) return ctx + above;
@@ -2325,19 +2590,84 @@ static int interp_ctx(const Dec *d, const Blk *b, int dir) {
     return ctx + 3;
 }
 
-/* inter_block_mode_info for a single reference */
+/* spec get_mode: the single mode of side i of a mode (the mode itself
+ * for a single reference) */
+static int side_mode(int mode, int i) {
+    static const int SIDES[8][2] = {
+        {NEARESTMV, NEARESTMV}, {NEARMV, NEARMV}, {NEARESTMV, NEWMV}, {NEWMV, NEARESTMV},
+        {NEARMV, NEWMV}, {NEWMV, NEARMV}, {GLOBALMV, GLOBALMV}, {NEWMV, NEWMV}};
+    return mode < NEAREST_NEARESTMV ? mode : SIDES[mode - NEAREST_NEARESTMV][i];
+}
+
+/* comp_group_idx's (cidx 0) or compound_idx's (cidx 1) context: the
+ * neighbours' own, or for a single neighbour on ALTREF 3 (1) */
+static int comp_idx_ctx(const Dec *d, const Blk *b, int cidx) {
+    int ctx = 0;
+    for (int k = 0; k < 2; k++) {
+        if (!(k ? b->avail_l : b->avail_u)) continue;
+        int m = k ? mi_at(d, b->r, b->c - 1) : mi_at(d, b->r - 1, b->c);
+        if (d->mi_ref2[m] > INTRA_FRAME) ctx += cidx ? d->mi_cidx[m] : d->mi_cgi[m];
+        else if (d->mi_ref[m] == ALTREF_FRAME) ctx += cidx ? 1 : 3;
+    }
+    if (cidx) return ctx + 3 * (abs(d->cur_off[b->ref]) == abs(d->cur_off[b->ref2]));
+    return imin(ctx, 5);
+}
+
+/* spec read_compound_type: comp_group_idx under enable_masked_compound;
+ * in group 0 compound_idx under enable_jnt_comp (AVERAGE or DISTANCE),
+ * else AVERAGE; in group 1 compound_type where the size has wedges (WEDGE
+ * or DIFFWTD), else DIFFWTD; then wedge_index and wedge_sign, or
+ * mask_type */
+static void read_compound_type(Dec *d, Blk *b) {
+    b->cgi = 0;
+    b->cidx = 1;
+    b->ctype = COMPOUND_AVERAGE;
+    if (d->masked_compound)
+        b->cgi = read_symbol(d, d->cdf[D_COMP_GROUP_IDX] + (size_t)comp_idx_ctx(d, b, 0) * 3, 2);
+    if (!b->cgi) {
+        if (d->jnt_comp) {
+            b->cidx = read_symbol(d, d->cdf[D_COMPOUND_IDX] + (size_t)comp_idx_ctx(d, b, 1) * 3, 2);
+            b->ctype = b->cidx ? COMPOUND_AVERAGE : COMPOUND_DISTANCE;
+        }
+    } else {
+        b->ctype = has_wedge(b->bsize)
+                       ? read_symbol(d, d->cdf[D_COMPOUND_TYPE] + (size_t)b->bsize * 3, 2)
+                       : COMPOUND_DIFFWTD;
+    }
+    if (b->ctype == COMPOUND_WEDGE) {
+        b->wedge_idx = read_symbol(d, d->cdf[D_WEDGE_INDEX] + (size_t)b->bsize * 17, 16);
+        b->wedge_sign = read_literal(d, 1);
+    } else if (b->ctype == COMPOUND_DIFFWTD) {
+        b->mask_type = read_literal(d, 1);
+    }
+    static const int COUNTER[5] = {T_COMPOUND_WEDGE, T_COMPOUND_DIFFWTD, T_COMPOUND_AVERAGE, 0,
+                                   T_COMPOUND_DISTANCE};
+    d->count[COUNTER[b->ctype]]++;
+}
+
+/* inter_block_mode_info: the references, the MV stack, the mode (a
+ * compound one through compound_mode and Compound_Mode_Ctx_Map), drl,
+ * assign_mv for each side, inter-intra (refused) and the motion mode of a
+ * single reference, a compound block's type, and the filters */
 static void inter_block_mode_info(Dec *d, Blk *b) {
-    b->ref = read_ref_frame(d, b);
+    read_ref_frames(d, b);
     if (d->err) return;
+    int comp = b->ref2 > INTRA_FRAME;
     MvCand st[8];
-    int ctx, n = inter_mv_stack(d, b, b->ref, st, &ctx);
+    int ctx, n = inter_mv_stack(d, b, b->ref, b->ref2, st, &ctx);
     if (seg_active(d, d->seg_skip_mask) || seg_active(d, d->seg_gmv_mask)) b->mode = GLOBALMV;
+    else if (comp)
+        b->mode = NEAREST_NEARESTMV +
+                  read_symbol(d, d->cdf[D_COMPOUND_MODE] +
+                                     (size_t)COMPOUND_MODE_CTX[ctx >> 5][imin(ctx & 7, 4)] * 9, 8);
     else if (!read_symbol(d, d->cdf[D_NEW_MV] + (size_t)(ctx & 7) * 3, 2)) b->mode = NEWMV;
     else if (!read_symbol(d, d->cdf[D_ZERO_MV] + (size_t)((ctx >> 3) & 1) * 3, 2)) b->mode = GLOBALMV;
     else b->mode = read_symbol(d, d->cdf[D_REF_MV] + (size_t)(ctx >> 4) * 3, 2) ? NEARMV : NEARESTMV;
     int idx = 0;
-    if (b->mode == NEWMV || b->mode == NEARMV) {
-        int first = b->mode == NEARMV;
+    int near = b->mode == NEARMV || b->mode == NEAR_NEARMV || b->mode == NEAR_NEWMV ||
+               b->mode == NEW_NEARMV;
+    if (b->mode == NEWMV || b->mode == NEW_NEWMV || near) {
+        int first = near;
         idx = first;
         for (int i = first; i < first + 2; i++) {
             if (n <= i + 1) break;
@@ -2349,38 +2679,47 @@ static void inter_block_mode_info(Dec *d, Blk *b) {
         }
         if (idx > first) d->count[T_DRL]++;
     }
-    d->count[b->mode == NEWMV ? T_NEWMV : T_NEARESTMV + b->mode - NEARESTMV]++;
-    int pred[2] = {0, 0};
-    if (b->mode != GLOBALMV) {
-        int pos = b->mode == NEARESTMV ? 0 : idx;
-        pred[0] = st[pos].mv[0];
-        pred[1] = st[pos].mv[1];
+    if (comp) d->count[T_NEAREST_NEARESTMV + b->mode - NEAREST_NEARESTMV]++;
+    else d->count[b->mode == NEWMV ? T_NEWMV : T_NEARESTMV + b->mode - NEARESTMV]++;
+    /* assign_mv: PredMv from the stack (GLOBALMV: the identity's 0), plus
+     * read_mv on a NEWMV side */
+    b->mv2[0] = b->mv2[1] = 0;
+    for (int i = 0; i < 1 + comp; i++) {
+        int sm = side_mode(b->mode, i), *mv = i ? b->mv2 : b->mv;
+        mv[0] = mv[1] = 0;
+        if (sm != GLOBALMV) {
+            const MvCand *e = st + (sm == NEARESTMV ? 0 : idx);
+            mv[0] = i ? e->mv2[0] : e->mv[0];
+            mv[1] = i ? e->mv2[1] : e->mv[1];
+        }
+        if (sm == NEWMV) {
+            int joint = read_symbol(d, d->cdf[D_MV0_JOINTS], 4);
+            if (joint == 2 || joint == 3) mv[0] += read_mv_comp(d, 0, 1);
+            if (joint == 1 || joint == 3) mv[1] += read_mv_comp(d, 1, 1);
+        }
     }
-    b->mv[0] = pred[0];
-    b->mv[1] = pred[1];
-    if (b->mode == NEWMV) {
-        int joint = read_symbol(d, d->cdf[D_MV0_JOINTS], 4);
-        if (joint == 2 || joint == 3) b->mv[0] += read_mv_comp(d, 0, 1);
-        if (joint == 1 || joint == 3) b->mv[1] += read_mv_comp(d, 1, 1);
-    }
-    if ((b->mv[0] | b->mv[1]) & 7) d->count[T_SUBPEL_MV]++;
-    if (d->interintra_on && b->bsize >= 3 && b->bsize <= 9 &&
+    if ((b->mv[0] | b->mv[1] | b->mv2[0] | b->mv2[1]) & 7) d->count[T_SUBPEL_MV]++;
+    if (!comp && d->interintra_on && b->bsize >= 3 && b->bsize <= 9 &&
         read_symbol(d, d->cdf[D_INTERINTRA] + (size_t)(SIZE_GROUP[b->bsize] - 1) * 3, 2)) {
         fail(d, AV1D_UNSUPPORTED, "AV1: %s is not supported", "inter-intra prediction");
         return;
     }
     b->motion_mode = SIMPLE;
-    if (d->motion_switchable && imin(b->wl, b->hl) >= 1 && overlappable(d, b)) {
+    if (!comp && d->motion_switchable && imin(b->wl, b->hl) >= 1 && overlappable(d, b)) {
         find_warp_samples(d, b);
         if (d->force_int_mv || !b->nsamples || !d->allow_warped || ref_is_scaled(d, b->ref))
             b->motion_mode = read_symbol(d, d->cdf[D_OBMC] + (size_t)b->bsize * 3, 2);
         else
             b->motion_mode = read_symbol(d, d->cdf[D_MOTION_MODE] + (size_t)b->bsize * 4, 3);
     }
+    b->cgi = 0;
+    b->cidx = 1;
+    if (comp) read_compound_type(d, b);
     /* spec needs_interp_filter: none for a local warp, nor for GLOBALMV
-     * on an identity global motion */
+     * or GLOBAL_GLOBALMV on identity global motion */
     if (d->interp_filter == 4) {
-        int need = b->motion_mode != LOCALWARP && !(imin(b->wl, b->hl) >= 1 && b->mode == GLOBALMV);
+        int global = b->mode == GLOBALMV || b->mode == GLOBAL_GLOBALMV;
+        int need = b->motion_mode != LOCALWARP && !(imin(b->wl, b->hl) >= 1 && global);
         for (int dir = 0; dir < (d->dual_filter ? 2 : 1); dir++)
             b->filt[dir] = need ? read_symbol(d, d->cdf[D_INTERP] + (size_t)interp_ctx(d, b, dir) * 4, 3)
                                 : 0;
@@ -2448,27 +2787,40 @@ static int64_t now_ns(void) {
         } \
     } while (0)
 
+/* spec 7.11.3.2 InterRound1: 7 for a side of a compound block (whose
+ * prediction stays unclipped at that precision), else 11 (9 at 12 bits) */
+static int inter_round1(const Dec *d, int compound) {
+    return compound ? 7 : (d->bd == 12 ? 9 : 11);
+}
+
+/* the last stage of both prediction loops: the sum rounded by
+ * InterRound1, clipped to the bit depth unless it is a compound side */
+static inline int32_t pred_out(int64_t s, int round1, int compound, int maxv) {
+    return compound ? (int32_t)rnd2(s, round1) : (int32_t)clip64(rnd2(s, round1), 0, maxv);
+}
+
 /* block inter prediction through a scaled reference (spec 7.11.3.3 motion
  * vector scaling, 7.11.3.4 at startX + xStep * c): the position in 1/1024
  * sample, each row's and column's filter at (p >> 6) & 15 and its samples
  * at p >> 10, clamped at the reference's edges, InterRound0 then
- * InterRound1 as in the unscaled loop; into dst of stride dstride */
-static void predict_scaled(const Dec *d, int plane, int x, int y, int w, int h, int m,
-                           int xscale, int yscale, int32_t *dst, int dstride) {
-    int ref = d->mi_ref[m];
+ * InterRound1 as in the unscaled loop; from reference ref at mv with the
+ * filters filt (y | x << 2), into dst of stride dstride */
+static void predict_scaled(const Dec *d, int plane, int x, int y, int w, int h, int ref,
+                           const int *mv, int filt, int compound, int xscale, int yscale,
+                           int32_t *dst, int dstride) {
     int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
-    int64_t origx = ((int64_t)x << 4) + ((2 * d->mi_mv[2 * m + 1]) >> sx) + 8;
-    int64_t origy = ((int64_t)y << 4) + ((2 * d->mi_mv[2 * m]) >> sy) + 8;
+    int64_t origx = ((int64_t)x << 4) + ((2 * mv[1]) >> sx) + 8;
+    int64_t origy = ((int64_t)y << 4) + ((2 * mv[0]) >> sy) + 8;
     int startx = (int)rnd2s(origx * xscale - ((int64_t)8 << 14), 8) + 32;
     int starty = (int)rnd2s(origy * yscale - ((int64_t)8 << 14), 8) + 32;
     int xstep = (int)rnd2s(xscale, 4), ystep = (int)rnd2s(yscale, 4);
-    int fy = d->mi_filt[m] & 3, fx = (d->mi_filt[m] >> 2) & 3;
+    int fy = filt & 3, fx = (filt >> 2) & 3;
     if (w <= 4) fx = fx == 1 ? 5 : (fx == 3 ? 3 : 4);
     if (h <= 4) fy = fy == 1 ? 5 : (fy == 3 ? 3 : 4);
     const int32_t *src = d->ref_plane[ref][plane];
     int rs = d->ref_stride[ref];
     int lastx = ((d->ref_w[ref] + sx) >> sx) - 1, lasty = ((d->ref_h[ref] + sy) >> sy) - 1;
-    int round0 = d->bd == 12 ? 5 : 3, round1 = d->bd == 12 ? 9 : 11;
+    int round0 = d->bd == 12 ? 5 : 3, round1 = inter_round1(d, compound);
     int maxv = (1 << d->bd) - 1;
     /* intermediateHeight: up to 263 rows for 128 at the 2x limit */
     static _Thread_local int32_t mid[(2 * 128 + 8) * 128];
@@ -2498,42 +2850,42 @@ static void predict_scaled(const Dec *d, int plane, int x, int y, int w, int h, 
         for (int c = 0; c < w; c++) {
             int64_t s = 0;
             for (int t = 0; t < 8; t++) s += (int64_t)F[t] * col[t * w + c];
-            out[c] = (int32_t)clip64(rnd2(s, round1), 0, maxv);
+            out[c] = pred_out(s, round1, compound, maxv);
         }
     }
 }
 
 /* block inter prediction (spec 7.11.3.3-4) of one w x h part of a plane
- * at (x, y) with the MV, reference and filters of the block at mi (cr,
- * cc), into dst of stride dstride: at scale 1 here, Subpel_Filters in
- * 1/16 sample (the 4-tap rows for a side of 4 or less), InterRound0 then
- * InterRound1, the reference's samples clamped at its edges; through
+ * at (x, y) from reference ref at mv with the filters filt (y | x << 2),
+ * into dst of stride dstride: at scale 1 here, Subpel_Filters in 1/16
+ * sample (the 4-tap rows for a side of 4 or less), InterRound0 then
+ * InterRound1 (clipped pixels, or a compound side's unclipped
+ * intermediate), the reference's samples clamped at its edges; through
  * predict_scaled otherwise */
-static void predict_part_to(Dec *d, int plane, int x, int y, int w, int h, int cr, int cc,
-                            int32_t *dst, int dstride) {
-    int m = mi_at(d, cr, cc);
-    int ref = d->mi_ref[m];
+static void predict_side(Dec *d, int plane, int x, int y, int w, int h, int ref,
+                         const int *mv, int filt, int compound, int32_t *dst, int dstride) {
     if (ref <= INTRA_FRAME || !d->ref_plane[ref][0]) {
         fail(d, AV1D_CORRUPT, "AV1: %s", "an inter block without its reference frame");
         return;
     }
     if (ref_is_scaled(d, ref)) {
-        predict_scaled(d, plane, x, y, w, h, m, d->xscale[ref], d->yscale[ref], dst, dstride);
+        predict_scaled(d, plane, x, y, w, h, ref, mv, filt, compound, d->xscale[ref],
+                       d->yscale[ref], dst, dstride);
         return;
     }
     int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
     const int32_t *src = d->ref_plane[ref][plane];
     int rs = d->ref_stride[ref];
-    int fy = d->mi_filt[m] & 3, fx = (d->mi_filt[m] >> 2) & 3;
+    int fy = filt & 3, fx = (filt >> 2) & 3;
     if (w <= 4) fx = fx == 1 ? 5 : (fx == 3 ? 3 : 4);
     if (h <= 4) fy = fy == 1 ? 5 : (fy == 3 ? 3 : 4);
-    int x16 = (x << 4) + ((2 * d->mi_mv[2 * m + 1]) >> sx);
-    int y16 = (y << 4) + ((2 * d->mi_mv[2 * m]) >> sy);
+    int x16 = (x << 4) + ((2 * mv[1]) >> sx);
+    int y16 = (y << 4) + ((2 * mv[0]) >> sy);
     const int16_t *FX = d->subpel + ((size_t)fx * 16 + (x16 & 15)) * 8;
     const int16_t *FY = d->subpel + ((size_t)fy * 16 + (y16 & 15)) * 8;
     int x0 = (x16 >> 4) - 3, y0 = (y16 >> 4) - 3;
     int lastx = ((d->ref_w[ref] + sx) >> sx) - 1, lasty = ((d->ref_h[ref] + sy) >> sy) - 1;
-    int round0 = d->bd == 12 ? 5 : 3, round1 = d->bd == 12 ? 9 : 11;
+    int round0 = d->bd == 12 ? 5 : 3, round1 = inter_round1(d, compound);
     int maxv = (1 << d->bd) - 1;
     static _Thread_local int32_t mid[(128 + 7) * 128];
     int cols[128 + 7];
@@ -2551,12 +2903,12 @@ static void predict_part_to(Dec *d, int plane, int x, int y, int w, int h, int c
         for (int j = 0; j < w; j++) {
             int64_t s = 0;
             for (int t = 0; t < 8; t++) s += (int64_t)FY[t] * mid[(i + t) * w + j];
-            out[j] = (int32_t)clip64(rnd2(s, round1), 0, maxv);
+            out[j] = pred_out(s, round1, compound, maxv);
         }
     }
     if (scaled_parity) {
         static _Thread_local int32_t alt[128 * 128];
-        predict_scaled(d, plane, x, y, w, h, m, NO_SCALE, NO_SCALE, alt, w);
+        predict_scaled(d, plane, x, y, w, h, ref, mv, filt, compound, NO_SCALE, NO_SCALE, alt, w);
         int same = 1;
         for (int i = 0; i < h && same; i++)
             same = !memcmp(alt + i * w, dst + (size_t)i * dstride, (size_t)w * sizeof(int32_t));
@@ -2565,8 +2917,102 @@ static void predict_part_to(Dec *d, int plane, int x, int y, int w, int h, int c
     }
 }
 
+/* predict_side with the RefFrame[0], MV and filters of the block at mi
+ * (cr, cc): a single-reference part, or OBMC's prediction of a neighbour
+ * (from its first reference, compound or not) */
+static void predict_part_to(Dec *d, int plane, int x, int y, int w, int h, int cr, int cc,
+                            int32_t *dst, int dstride) {
+    int m = mi_at(d, cr, cc);
+    int mv[2];
+    mi_mv_of(d, m, 0, mv);
+    predict_side(d, plane, x, y, w, h, d->mi_ref[m], mv, d->mi_filt[m], 0, dst, dstride);
+}
+
 static void predict_part(Dec *d, int plane, int x, int y, int w, int h, int cr, int cc) {
     predict_part_to(d, plane, x, y, w, h, cr, cc, px(d, plane, y, x), d->stride);
+}
+
+/* spec 7.11.3.15 distance weights (as dav1d's jnt_weights): FwdWeight of
+ * RefFrame[0]'s prediction from the two references' distances to the
+ * frame, each clamped to MAX_FRAME_DISTANCE; BckWeight is 16 less it */
+static int fwd_weight(const Dec *d, const Blk *b) {
+    int d1 = imin(abs(d->cur_off[b->ref]), MAX_FRAME_DISTANCE);
+    int d0 = imin(abs(d->cur_off[b->ref2]), MAX_FRAME_DISTANCE);
+    int order = d0 <= d1, k;
+    for (k = 0; k < 3; k++) {
+        int c0 = d->qdist_weight[2 * k + order], c1 = d->qdist_weight[2 * k + !order];
+        if ((d0 > d1 && d0 * c0 < d1 * c1) || (d0 <= d1 && d0 * c0 > d1 * c1)) break;
+    }
+    return d->qdist_lookup[2 * k + order];
+}
+
+/* the blend of a compound block's two predictions p0, p1 of its pw x ph
+ * block of a plane at (bx, by), with InterPostRound: the average, the
+ * distance weights (FwdWeight fwd), or the mask (luma's, which plane 0
+ * makes first: the wedge's, or the difference-weighted one of the two
+ * predictions inverted by mask_type; spec 7.11.3.11-14), chroma taking it
+ * subsampled */
+static void compound_blend(Dec *d, const Blk *b, int plane, int bx, int by, int pw, int ph,
+                           const int32_t *p0, const int32_t *p1, uint8_t *mask, int fwd) {
+    int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
+    int post = d->bd == 12 ? 2 : 4; /* InterPostRound */
+    int maxv = (1 << d->bd) - 1, bw = 4 << b->wl;
+    if (plane == 0 && b->ctype == COMPOUND_WEDGE) {
+        const int16_t *w =
+            d->wedge_mask[b->bsize] + ((size_t)b->wedge_sign * 16 + b->wedge_idx) * pw * ph;
+        for (int i = 0; i < pw * ph; i++) mask[i] = (uint8_t)w[i];
+    } else if (plane == 0 && b->ctype == COMPOUND_DIFFWTD) {
+        for (int i = 0; i < pw * ph; i++) {
+            int m = imin(38 + (int)(rnd2(abs(p0[i] - p1[i]), d->bd - 8 + post) / 16), 64);
+            mask[i] = (uint8_t)(b->mask_type ? 64 - m : m);
+        }
+    }
+    for (int i = 0; i < ph; i++) {
+        int32_t *out = px(d, plane, by + i, bx);
+        const int32_t *a = p0 + (size_t)i * pw, *c = p1 + (size_t)i * pw;
+        for (int j = 0; j < pw; j++) {
+            int64_t v;
+            if (b->ctype == COMPOUND_AVERAGE) {
+                v = rnd2((int64_t)a[j] + c[j], 1 + post);
+            } else if (b->ctype == COMPOUND_DISTANCE) {
+                v = rnd2((int64_t)fwd * a[j] + (int64_t)(16 - fwd) * c[j], 4 + post);
+            } else {
+                const uint8_t *mr = mask + (size_t)(i << sy) * bw + (j << sx);
+                int m = mr[0];
+                if (sx && sy) m = (int)rnd2(m + mr[1] + mr[bw] + mr[bw + 1], 2);
+                else if (sx) m = (int)rnd2(m + mr[1], 1);
+                else if (sy) m = (int)rnd2(m + mr[bw], 1);
+                v = rnd2((int64_t)m * a[j] + (int64_t)(64 - m) * c[j], 6 + post);
+            }
+            out[j] = (int32_t)clip64(v, 0, maxv);
+        }
+    }
+}
+
+/* spec 7.11.3.1 for a compound block (at least 8x8, SIMPLE motion): each
+ * plane's two sides predicted unclipped (either through a reference of
+ * another scale), then blended (compound_blend, its time in
+ * motion_ns[3]) */
+static void predict_compound(Dec *d, Blk *b) {
+    static _Thread_local int32_t p0[128 * 128], p1[128 * 128];
+    static _Thread_local uint8_t mask[128 * 128];
+    int fwd = b->ctype == COMPOUND_DISTANCE ? fwd_weight(d, b) : 0;
+    if (ref_is_scaled(d, b->ref) || ref_is_scaled(d, b->ref2)) {
+        d->count[T_SCALED_PRED]++;
+        d->count[T_COMPOUND_SCALED]++;
+    }
+    int filt = b->filt[0] | b->filt[1] << 2;
+    for (int plane = 0; plane < (b->has_chroma ? d->nplanes : 1) && !d->err; plane++) {
+        int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
+        int wl4, hl4;
+        plane_block(d, b, plane, &wl4, &hl4);
+        int pw = 4 << wl4, ph = 4 << hl4;
+        int bx = (b->c >> sx) * 4, by = (b->r >> sy) * 4;
+        predict_side(d, plane, bx, by, pw, ph, b->ref, b->mv, filt, 1, p0, pw);
+        predict_side(d, plane, bx, by, pw, ph, b->ref2, b->mv2, filt, 1, p1, pw);
+        if (d->err) return;
+        MOTION_TIMED(3, compound_blend(d, b, plane, bx, by, pw, ph, p0, p1, mask, fwd));
+    }
 }
 
 /* spec 7.11.3.7 resolve_divisor: Div_Lut's multiplier for |v| and its
@@ -2759,6 +3205,10 @@ static void predict_obmc(Dec *d, const Blk *b, int plane, int x0, int y0, int w,
  * block's MV, reference and filters, unless one of them is intra
  * (someUseIntra) */
 static void predict_inter(Dec *d, Blk *b) {
+    if (b->ref2 > INTRA_FRAME) {
+        predict_compound(d, b);
+        return;
+    }
     if (ref_is_scaled(d, b->ref)) d->count[T_SCALED_PRED]++;
     /* spec 7.11.3.1: LocalValid and the shear once, at plane 0 */
     int32_t wp[6];
@@ -2823,6 +3273,10 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
     b->avail_u = is_inside(d, r - 1, c);
     b->avail_l = is_inside(d, r, c - 1);
     b->avail_uc = b->avail_lc = 0;
+    b->ref2 = NONE_FRAME;
+    b->mv2[0] = b->mv2[1] = 0;
+    b->cgi = 0;
+    b->cidx = 1;
     if (b->has_chroma) {
         b->avail_uc = (d->ssy && h4 == 1) ? is_inside(d, r - 2, c) : b->avail_u;
         b->avail_lc = (d->ssx && w4 == 1) ? is_inside(d, r, c - 2) : b->avail_l;
@@ -2848,7 +3302,10 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
     int ref = b->is_inter ? b->ref : INTRA_FRAME;
     /* deblocking's RefFrame and mode delta (spec 7.14.4), and whether
      * transform edges inside the block are left alone (skip && is_inter) */
-    int mode_type = ref > INTRA_FRAME && b->mode != GLOBALMV;
+    int mode_type = ref > INTRA_FRAME && b->mode != GLOBALMV && b->mode != GLOBAL_GLOBALMV;
+    int ref2 = b->is_inter ? b->ref2 : NONE_FRAME;
+    int newmv = ref > INTRA_FRAME && (side_mode(b->mode, 0) == NEWMV ||
+                                      (ref2 > INTRA_FRAME && side_mode(b->mode, 1) == NEWMV));
     uint8_t lf = (uint8_t)(ref * 2 + mode_type + ((b->skip && b->is_inter) << 4));
     if (ref > INTRA_FRAME && d->lf_delta_enabled && d->lf_on) {
         if (d->lf_ref_deltas[ref]) d->count[T_LF_REF_DELTA]++;
@@ -2865,6 +3322,11 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
             d->mi_inter[m] = (uint8_t)b->is_inter;
             d->mi_mv[2 * m] = (int16_t)(b->is_inter ? b->mv[0] : 0);
             d->mi_mv[2 * m + 1] = (int16_t)(b->is_inter ? b->mv[1] : 0);
+            d->mi_ref2[m] = (int8_t)ref2;
+            d->mi_mv2[2 * m] = (int16_t)(ref2 > INTRA_FRAME ? b->mv2[0] : 0);
+            d->mi_mv2[2 * m + 1] = (int16_t)(ref2 > INTRA_FRAME ? b->mv2[1] : 0);
+            d->mi_cgi[m] = (uint8_t)b->cgi;
+            d->mi_cidx[m] = (uint8_t)b->cidx;
             d->mi_paln[m] = (uint8_t)b->pal_n;
             if (b->pal_n) memcpy(d->mi_pal + (size_t)m * 8, b->pal, sizeof(b->pal));
             d->mi_paln_uv[m] = (uint8_t)b->pal_uv_n;
@@ -2873,7 +3335,7 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
             for (int i = 0; i < 4; i++) d->mi_dlf[4 * (size_t)m + i] = (int8_t)d->delta_lf[i];
             d->mi_seg[m] = (uint8_t)d->seg_id;
             d->mi_ref[m] = (int8_t)ref;
-            d->mi_newmv[m] = (uint8_t)(ref > INTRA_FRAME && b->mode == NEWMV);
+            d->mi_newmv[m] = (uint8_t)newmv;
             d->mi_filt[m] = (uint8_t)(ref > INTRA_FRAME ? b->filt[0] | b->filt[1] << 2 : 0);
             d->mi_lf[m] = lf;
             d->mi_bsz[m] = (uint8_t)(wl | hl << 4);
@@ -3156,21 +3618,28 @@ static void mf_project(Dec *d, const int8_t *src_ref, const int16_t *src_mv, int
 }
 
 /* spec 7.19 (libaom av1_copy_frame_mvs, dav1d save_tmvs): for each 8x8,
- * the reference and MV of the block at its odd 4x4 (its last), where that
- * reference is one of the store mask's (before the frame in order) and
- * the MV within REFMVS_LIMIT; else reference 0 (none) */
+ * the reference and MV of the block at its odd 4x4 (its last) of the
+ * later of its two lists whose reference is one of the store mask's
+ * (before the frame in order) and whose MV is within REFMVS_LIMIT; else
+ * reference 0 (none) */
 static void mf_store(const Dec *d, int mask, int8_t *refs, int16_t *mvs) {
     int h8 = d->mi_rows >> 1, w8 = d->mi_cols >> 1;
     for (int y = 0; y < h8; y++)
         for (int x = 0; x < w8; x++) {
             size_t i = (size_t)y * w8 + x;
             int m = mi_at(d, 2 * y + 1, 2 * x + 1);
-            int rf = d->mi_ref[m], mr = d->mi_mv[2 * m], mc = d->mi_mv[2 * m + 1];
-            int keep = rf > INTRA_FRAME && (mask >> rf & 1) && abs(mr) <= REFMVS_LIMIT &&
-                       abs(mc) <= REFMVS_LIMIT;
-            refs[i] = (int8_t)(keep ? rf : 0);
-            mvs[2 * i] = (int16_t)(keep ? mr : 0);
-            mvs[2 * i + 1] = (int16_t)(keep ? mc : 0);
+            refs[i] = 0;
+            mvs[2 * i] = mvs[2 * i + 1] = 0;
+            for (int list = 0; list < 2; list++) {
+                int rf = list ? d->mi_ref2[m] : d->mi_ref[m], mv[2];
+                mi_mv_of(d, m, list, mv);
+                if (rf > INTRA_FRAME && (mask >> rf & 1) && abs(mv[0]) <= REFMVS_LIMIT &&
+                    abs(mv[1]) <= REFMVS_LIMIT) {
+                    refs[i] = (int8_t)rf;
+                    mvs[2 * i] = (int16_t)mv[0];
+                    mvs[2 * i + 1] = (int16_t)mv[1];
+                }
+            }
         }
 }
 
@@ -3186,10 +3655,11 @@ static void mf_store(const Dec *d, int mask, int8_t *refs, int16_t *mvs) {
  * the restoration units (per plane, row and column, strides
  * H_LR_RSTRIDE x H_LR_CSTRIDE: kind 0 none / 1 Wiener / 2 SGR, then 6
  * taps or set, xqd0, xqd1) and the tool counters (T_NCOUNTERS). Where
- * motion_ns (three int64) is not NULL, it gains the nanoseconds spent in
+ * motion_ns (four int64) is not NULL, it gains the nanoseconds spent in
  * OBMC's neighbour predictions and blends ([0]), in the local warp, its
- * estimation, shear and block warps ([1]) and in motion field estimation
- * ([2]). Returns 0, or 1
+ * estimation, shear and block warps ([1]), in motion field estimation
+ * ([2]) and in compound blocks' masks and blends ([3]).
+ * Returns 0, or 1
  * (unsupported tool) / 2 (corrupt stream) with msg set.
  *
  * Motion field estimation (spec 7.9): mf = [the store mask (bit ref for
@@ -3275,6 +3745,20 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->seg_ref_mask = hdr[H_SEG_REF_MASK];
     d->seg_ref_frames = hdr[H_SEG_REF_FRAMES];
     d->seg_gmv_mask = hdr[H_SEG_GLOBALMV_MASK];
+    d->masked_compound = hdr[H_MASKED_COMPOUND];
+    d->jnt_comp = hdr[H_JNT_COMP];
+    d->qdist_weight = inter_tables + TAB_QDIST_WEIGHT;
+    d->qdist_lookup = inter_tables + TAB_QDIST_LOOKUP;
+    {
+        const int16_t *w = inter_tables + TAB_WEDGE;
+        for (int bs = 0; bs < 22; bs++) {
+            if (!has_wedge(bs)) continue;
+            d->wedge_mask[bs] = w;
+            for (int wl = 0; wl < 6; wl++)
+                for (int hl = 0; hl < 6; hl++)
+                    if (BSIZE_OF[wl][hl] == bs) w += (size_t)2 * 16 * (4 << wl) * (4 << hl);
+        }
+    }
     d->subpel = inter_tables + TAB_SUBPEL;
     d->warp_filter = inter_tables + TAB_WARP;
     d->div_lut = inter_tables + TAB_DIV_LUT;
@@ -3335,9 +3819,9 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->cdef_idx = cdef_idx;
     memset(cdef_idx, -1, (size_t)d->cdef_stride * ((d->mi_rows + 15) / 16));
     size_t nmi = (size_t)d->mi_rows * d->mi_cols;
-    uint8_t *mi8 = (uint8_t *)calloc(nmi * 12, 1);
+    uint8_t *mi8 = (uint8_t *)calloc(nmi * 15, 1);
     d->mi_pal = (uint16_t *)calloc(nmi * 16, sizeof(uint16_t));
-    d->mi_mv = (int16_t *)calloc(nmi * 2, sizeof(int16_t));
+    d->mi_mv = (int16_t *)calloc(nmi * 4, sizeof(int16_t));
     size_t n8 = (size_t)(d->mi_rows >> 1) * (size_t)(d->mi_cols >> 1);
     d->tpl_mv = (int16_t *)calloc(n8 * 2 + 1, sizeof(int16_t));
     d->tpl_off = (int8_t *)calloc(n8 + 1, 1);
@@ -3357,6 +3841,8 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->mi_inter = mi8 + 8 * nmi; d->mi_seg = segs;
     d->mi_ref = (int8_t *)(mi8 + 9 * nmi); d->mi_newmv = mi8 + 10 * nmi;
     d->mi_filt = mi8 + 11 * nmi; d->mi_lf = mi_lf; d->mi_bsz = mi_bsz;
+    d->mi_ref2 = (int8_t *)(mi8 + 12 * nmi); d->mi_cgi = mi8 + 13 * nmi;
+    d->mi_cidx = mi8 + 14 * nmi; d->mi_mv2 = d->mi_mv + 2 * nmi;
     d->mi_pal_u = d->mi_pal + nmi * 8;
     {
         size_t ac = (size_t)d->mi_cols + 32, lc = (size_t)d->mi_rows + 32;

@@ -71,6 +71,8 @@ enum {
     H_CONTEXT_TILE, H_LF_REF_DELTA1, H_LF_REF_DELTA2, H_LF_REF_DELTA3,
     H_LF_REF_DELTA4, H_LF_REF_DELTA5, H_LF_REF_DELTA6, H_LF_REF_DELTA7,
     H_LF_MODE_DELTA0, H_LF_MODE_DELTA1, H_SEG_REF_MASK, H_SEG_REF_FRAMES, H_SEG_GLOBALMV_MASK,
+    /* the sequence's enable_masked_compound and enable_jnt_comp */
+    H_MASKED_COMPOUND, H_JNT_COMP,
     /* the 1 << cdef_bits strength sets (y primary, y secondary, uv
      * primary, uv secondary; secondary 3 already read as 4) */
     H_CDEF_STRENGTHS,
@@ -151,6 +153,16 @@ enum {
      * MV stacks (the projected MVs that joined a stack or added to the
      * weight of one there) */
     T_MF_PROJECTED, T_TEMPORAL_MV,
+    /* compound blocks (two references): blocks of each compound mode
+     * (NEAREST_NEARESTMV .. NEW_NEWMV), of each compound type (average,
+     * distance-weighted, wedge, difference-weighted), of each reference
+     * type (unidirectional, bidirectional), and those with a side through
+     * a reference of another scale (which the scaled_pred counter also
+     * counts) */
+    T_NEAREST_NEARESTMV, T_NEAR_NEARMV, T_NEAREST_NEWMV, T_NEW_NEARESTMV,
+    T_NEAR_NEWMV, T_NEW_NEARMV, T_GLOBAL_GLOBALMV, T_NEW_NEWMV,
+    T_COMPOUND_AVERAGE, T_COMPOUND_DISTANCE, T_COMPOUND_WEDGE,
+    T_COMPOUND_DIFFWTD, T_COMP_REF_UNIDIR, T_COMP_REF_BIDIR, T_COMPOUND_SCALED,
     T_NCOUNTERS
 };
 

@@ -1683,7 +1683,9 @@ _CDF_ORDER = (
     "new_mv", "zero_mv", "ref_mv", "drl", "interp_filter", "motion_mode",
     "obmc", "interintra", "mv0_joints", "mv0_sign", "mv0_classes",
     "mv0_class0", "mv0_bits", "mv0_class0_fr", "mv0_fr", "mv0_class0_hp",
-    "mv0_hp",
+    "mv0_hp", "comp_ref_type", "uni_comp_ref", "comp_ref", "comp_bwdref",
+    "compound_mode", "compound_type", "wedge_index", "comp_group_idx",
+    "compound_idx",
 )
 # the header pack's fields in the order of av1_header.h's H_* enum
 _HDR_FIELDS = (
@@ -1708,7 +1710,7 @@ _HDR_FIELDS = (
     "allow_warped", "dual_filter", "interintra", "sign_bias",
     "context_tile") + tuple(f"lf_ref_delta{i}" for i in range(1, 8)) + (
     "lf_mode_delta0", "lf_mode_delta1", "seg_ref_mask", "seg_ref_frames",
-    "seg_globalmv_mask") \
+    "seg_globalmv_mask", "masked_compound", "jnt_comp") \
     + tuple(f"cdef_{k}{i}" for i in range(8)
             for k in ("y_pri", "y_sec", "uv_pri", "uv_sec"))
 # the decoder's tool counters in the order of av1_header.h's T_* enum
@@ -1727,7 +1729,11 @@ TOOL_NAMES = (
     "filter_smooth", "filter_sharp", "filter_bilinear", "dual_filter",
     "intra_in_inter", "sub8x8_chroma_mvs", "lf_ref_delta", "lf_mode_delta",
     "scaled_pred", "obmc", "local_warp", "local_warp_invalid",
-    "mf_projected", "temporal_mv",
+    "mf_projected", "temporal_mv", "nearest_nearestmv", "near_nearmv",
+    "nearest_newmv", "new_nearestmv", "near_newmv", "new_nearmv",
+    "global_globalmv", "new_newmv", "compound_average", "compound_distance",
+    "compound_wedge", "compound_diffwtd", "comp_ref_unidir",
+    "comp_ref_bidir", "compound_scaled",
 )
 # the film grain pack (av1_header.h's G_* enum): field, length
 _GRAIN_FIELDS = (
@@ -1804,8 +1810,49 @@ def _tool_tables():
         _TOOL_CACHE["inter_tables"] = np.concatenate(
             [_TOOL_CACHE[k].reshape(-1).astype(np.int16) for k in (
                 "subpel_filters", "warped_filter", "div_lut", "obmc_mask",
-                "div_mult")])
+                "div_mult", "quant_dist_weight", "quant_dist_lookup")]
+            + [_wedge_masks(_TOOL_CACHE["wedge_codebook"],
+                            _TOOL_CACHE["wedge_master"]).astype(np.int16)])
     return _TOOL_CACHE
+
+
+# the block sizes with wedges (spec Wedge_Bits 4) in BLOCK_SIZES order, as
+# (width, height)
+_WEDGE_SIZES = ((8, 8), (8, 16), (16, 8), (16, 16), (16, 32), (32, 16),
+                (32, 32), (8, 32), (32, 8))
+
+
+def _wedge_masks(codebook: np.ndarray, master: np.ndarray) -> np.ndarray:
+    """Spec 7.11.3.11's WedgeMasks of each block size with wedges
+    (``_WEDGE_SIZES``), each [wedge_sign][wedge_index][h][w], flattened:
+    the MasterMask of each direction (HORIZONTAL, VERTICAL, OBLIQUE27, 63,
+    117, 153) from the master rows (``wedge_master``: oblique even, odd,
+    vertical), each wedge's window of it at the codebook's offsets, and
+    its sign flipped where the window's first row and column average below
+    32."""
+    even, odd, vert = (m.astype(np.int64) for m in master)
+    j = np.arange(64)
+    m63 = np.empty((64, 64), np.int64)
+    for i in range(0, 64, 2):
+        shift = 16 - i // 2
+        m63[i] = even[np.clip(j - shift, 0, 63)]
+        m63[i + 1] = odd[np.clip(j - shift + 1, 0, 63)]
+    mv = np.tile(vert, (64, 1))
+    masters = [mv.T, mv, m63.T, m63, 64 - m63[:, ::-1], (64 - m63).T[::-1]]
+    out = []
+    for w, h in _WEDGE_SIZES:
+        book = codebook[0 if h > w else (1 if h < w else 2)]
+        masks = np.empty((2, 16, h, w), np.int64)
+        for k, (dirn, xo, yo) in enumerate(book.astype(int)):
+            x0, y0 = 32 - ((xo * w) >> 3), 32 - ((yo * h) >> 3)
+            win = masters[dirn][y0:y0 + h, x0:x0 + w]
+            avg = (int(win[0].sum() + win[1:, 0].sum()) + (w + h - 1) // 2) \
+                // (w + h - 1)
+            flip = int(avg < 32)
+            masks[flip, k] = win
+            masks[1 - flip, k] = 64 - win
+        out.append(masks.reshape(-1))
+    return np.concatenate(out)
 
 
 def _reader_cdfs() -> dict:
@@ -1813,8 +1860,8 @@ def _reader_cdfs() -> dict:
     four of delta_lf_multi, which start from it), the chroma palette's,
     intra block copy's (use_intrabc, the DV's MV CDFs, the var-tx split
     and the inter transform types), segment_id's and the inter frames'
-    (mode info, reference frames, filters, motion modes and the MV CDFs
-    of MvCtx 0)."""
+    (mode info, reference frames, filters, motion modes, the MV CDFs of
+    MvCtx 0 and the compound blocks' references, modes and types)."""
     from ..av1.frame import _adaptive
     from ..av1.tables import TABLES
 
@@ -1831,7 +1878,9 @@ def _reader_cdfs() -> dict:
                 "inter_tx3", "segment_id", "y_mode", "is_inter",
                 "comp_mode", "single_ref", "new_mv", "zero_mv", "ref_mv",
                 "drl", "interp_filter", "motion_mode", "obmc",
-                "interintra")},
+                "interintra", "comp_ref_type", "uni_comp_ref", "comp_ref",
+                "comp_bwdref", "compound_mode", "compound_type",
+                "wedge_index", "comp_group_idx", "compound_idx")},
             # MvCtx 0 starts from the same defaults as intrabc's context
             **{f"mv0_{k[3:]}": _adaptive(t[k]) for k in (
                 "mv_joints", "mv_sign", "mv_classes", "mv_class0", "mv_bits",
@@ -1925,9 +1974,10 @@ def decode_av1(payload: bytes, times: Optional[dict] = None,
     frame in its reference slots), summed over the frames,
     and each frame's tile decode and post-filters apart ("tiles_f0",
     "filters_f0", ...), and of that tile decode, where a frame used them,
-    OBMC's ("obmc_f1", ...), the local warp's ("warp_f1", ...) and motion
+    OBMC's ("obmc_f1", ...), the local warp's ("warp_f1", ...), motion
     field estimation's ("project_f3", ...: a frame that projected the MVs
-    of another). The tool counts are those of every frame, and each
+    of another) and the compound blocks' blends and masks ("compound_f3",
+    ...). The tool counts are those of every frame, and each
     frame's apart (``frame_tools``)."""
     from .av1_refs import RefFrames
 
@@ -2067,6 +2117,7 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
                            for i, f_ in enumerate(seg)),
         seg_globalmv_mask=sum(1 << i for i, f_ in enumerate(seg)
                               if f_[7] is not None),
+        masked_compound=int(s.masked_compound), jnt_comp=int(s.jnt_comp),
         **{name: v for name, v in zip(_HDR_FIELDS[-32:], strengths)})
     hdr = np.array([fields[k] for k in _HDR_FIELDS], dtype=np.int32)
     starts = np.array(fh.tile_col_starts + fh.tile_row_starts, dtype=np.int32)
@@ -2117,9 +2168,9 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
     mf_mvs = np.zeros((fh.mi_rows // 2, fh.mi_cols // 2, 2), dtype=np.int16)
     msg = C.create_string_buffer(256)
     vp = C.c_void_p
-    # the ns of OBMC, of the local warp and of motion field estimation,
-    # taken where times are
-    motion = np.zeros(3, dtype=np.int64) if times is not None else None
+    # the ns of OBMC, of the local warp, of motion field estimation and of
+    # compound blends and masks, taken where times are
+    motion = np.zeros(4, dtype=np.int64) if times is not None else None
     rc = lib.av1_decode_frame(
         C.cast(tile_ptrs, vp), tile_sizes.ctypes.data, hdr.ctypes.data,
         starts.ctypes.data, C.cast(cdf_ptrs, vp), cdf_lens.ctypes.data,
@@ -2183,8 +2234,9 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
                      ("upscale", upscale.value), ("filters", filt),
                      (f"tiles_f{index}", t1 - t0),
                      (f"filters_f{index}", t2 - t1),
-                     *((f"{tool}_f{index}", ns * 1e-9)
-                       for tool, ns in zip(("obmc", "warp"), motion) if ns),
+                     *((f"{tool}_f{index}", motion[k] * 1e-9)
+                       for k, tool in ((0, "obmc"), (1, "warp"),
+                                       (3, "compound")) if motion[k]),
                      *(((f"project_f{index}", motion[2] * 1e-9),)
                        if sources else ())):
             times[k] = times.get(k, 0.0) + v

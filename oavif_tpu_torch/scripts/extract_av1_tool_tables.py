@@ -46,7 +46,24 @@ and write ``oavif_tpu_torch/io/av1_tool_tables.npz``:
   ``obmc_mask_*``), uint8, the mask of length n at ``n - 1`` (63 in all);
 - ``div_mult``: the MV projection's multipliers of motion field
   estimation (spec Div_Mult, libaom's ``div_mult``), 32 int32 stored as
-  int16, 2^14 // i after a leading 0.
+  int16, 2^14 // i after a leading 0;
+- the default CDFs of compound blocks: ``comp_ref_type``, ``uni_comp_ref``
+  (3 contexts x p, p1, p2), ``comp_ref`` (3 x p, p1, p2), ``comp_bwdref``
+  (3 x p, p1), ``compound_mode`` (8 contexts of the 8 compound modes),
+  ``compound_type`` and ``wedge_index`` (by block size), ``comp_group_idx``
+  and ``compound_idx`` (6 contexts each);
+- ``wedge_codebook``: the spec's Wedge_Codebook[3][16][3] (direction, x
+  and y offset of each wedge, for blocks taller than wide, wider than
+  tall, and square; libaom's ``wedge_codebook_16_hgtw``, ``_hltw`` and
+  ``_heqw``), uint8;
+- ``wedge_master``: the wedge masks' master rows (spec
+  Wedge_Master_Oblique_Even, _Odd and Wedge_Master_Vertical, libaom's
+  ``wedge_master_*``), 3 x 64 uint8, from which spec 7.11.3.11 generates
+  every wedge mask;
+- ``quant_dist_weight`` and ``quant_dist_lookup``: the distance weights
+  of distance-weighted compound prediction (spec Quant_Dist_Weight and
+  Quant_Dist_Lookup, libaom's ``quant_dist_weight`` and
+  ``quant_dist_lookup_table``), 4 x 2 int32 stored as int16.
 
 Each table is found by a structural signature and checked against anchor
 values before anything is written: the matrices by their first 4x4 (the
@@ -62,12 +79,20 @@ phases, its sums of 128 and its repeated last row; the divisor table by
 its first four values, its end at 8192 and its descent; the OBMC masks by
 the spec's 32-entry mask, which libaom keeps followed by the 16, 8, 4, 2
 and 1 entry ones, each rising to 64; the projection's multipliers by
-their first four values and each the floor of 2^14 / i. libaom copies its small default
-CDFs into the frame context with immediate stores and 16-byte loads, so
+their first four values and each the floor of 2^14 / i; the compound
+CDFs by their first rows and the spec's values of their last; the wedge
+codebooks by their horizontal and vertical entries (which tell the three
+apart) and the spec's tables; the wedge master rows and the distance
+weights by the spec's values. libaom copies its small default CDFs into
+the frame context with immediate stores and 16-byte loads, so
 ``intrabc`` is read from the one store of its value in ``.text``, and
 ``txfm_split`` from its 16-byte chunks, which the linker keeps in order
 with the last one (the array's final 16 bytes, overlapping the one
-before) after them.
+before) after them; likewise ``uni_comp_ref`` and ``comp_ref`` end in a
+row stored by a ``mov qword`` immediate, and a chunk that equals one
+already in the pool (the equiprobable head of ``compound_type``, the
+constant 16 bytes of ``wedge_master``'s vertical row) is kept only once,
+elsewhere.
 
     python -m oavif_tpu_torch.scripts.extract_av1_tool_tables [LIBAOM]
 
@@ -141,6 +166,42 @@ CHUNKED_CDFS = {"drl": ((13104, 24560, 18945), 3)}
 ZERO_MV = (2175, 1054)
 INTERINTRA_LAST = 30237
 IS_INTER = (806, 16662, 20186, 26538)
+# the compound blocks' default CDFs: name -> (the first rows'
+# probabilities, rows, symbols, the spec's value of the last row's first
+# symbol); uni_comp_ref's and comp_ref's last rows are stored by immediate
+COMPOUND_CDFS = {
+    "comp_ref_type": ((1198, 2070, 9166), 5, 2, 22475),
+    "uni_comp_ref": ((5284, 3865, 3128), 9, 2, 26710),
+    "comp_ref": ((4946, 9468, 1503), 9, 2, 27544),
+    "comp_bwdref": ((2235, 1423, 17182), 6, 2, 30489),
+    "compound_mode": ((7760, 13823, 15808, 17641, 19156, 20666, 26891), 8,
+                      8, 13046),
+    "comp_group_idx": ((26607, 22891, 18840), 6, 2, 22674),
+    "compound_idx": ((18244, 12865, 7053), 6, 2, 4644),
+}
+IMMEDIATE_LAST_ROW = ("uni_comp_ref", "comp_ref")
+# compound_type by block size: the rows past its equiprobable head, and
+# wedge_index's first row past its three equiprobable ones (8x8)
+COMPOUND_TYPE = (23431, 13171, 11470, 9770, 9100, 8233, 6172)
+WEDGE_8X8 = (2438, 4440, 6599, 8663)
+# the block sizes (BLOCK_SIZES order) that have wedges
+WEDGE_SIZES = (3, 4, 5, 6, 7, 8, 9, 18, 19)
+# Wedge_Codebook: WEDGE_HORIZONTAL 0, VERTICAL 1, OBLIQUE27 2, OBLIQUE63
+# 3, OBLIQUE117 4, OBLIQUE153 5; for blocks taller than wide, wider than
+# tall, square (the spec's order)
+_WEDGE_COMMON = ((2, 4, 4), (3, 4, 4), (4, 4, 4), (5, 4, 4))
+_WEDGE_TAIL = ((2, 4, 2), (2, 4, 6), (5, 4, 2), (5, 4, 6), (3, 2, 4),
+               (3, 6, 4), (4, 2, 4), (4, 6, 4))
+WEDGE_CODEBOOK = tuple(_WEDGE_COMMON + mid + _WEDGE_TAIL for mid in (
+    ((0, 4, 2), (0, 4, 4), (0, 4, 6), (1, 4, 4)),
+    ((1, 2, 4), (1, 4, 4), (1, 6, 4), (0, 4, 4)),
+    ((0, 4, 2), (0, 4, 6), (1, 2, 4), (1, 6, 4))))
+# the master rows: (zeros, the rising samples); 64s fill the rest
+WEDGE_MASTER = ((28, (1, 4, 11, 27, 46, 58, 62, 63)),
+                (28, (1, 2, 6, 18, 37, 53, 60, 63)),
+                (29, (2, 7, 21, 43, 57, 62)))
+QUANT_DIST_WEIGHT = ((2, 3), (2, 5), (2, 7), (1, 31))
+QUANT_DIST_LOOKUP = ((9, 7), (11, 5), (12, 4), (13, 3))
 
 
 def section(lib: str, name: str = ".rodata") -> bytes:
@@ -483,6 +544,117 @@ def div_mult(data: bytes) -> np.ndarray:
     return t.astype(np.int16)
 
 
+def _last_row_store(text: bytes, prob: int, what: str) -> np.ndarray:
+    """The last row of a CDF2 table that libaom stores with one ``mov
+    qword [reg + disp32], imm32``: the table's final 8 bytes, the row
+    before's counter then the row (its value, the closing 0, the counter
+    0)."""
+    imm = np.array([0] + _icdf(prob), "<u2").tobytes()
+    hits = [i for i in range(7, len(text) - 4) if text.startswith(imm, i)
+            and text[i - 7] == 0x48 and text[i - 6] == 0xC7
+            and 0x80 <= text[i - 5] <= 0x87]
+    require(len(hits) == 1, f"{what}: its last row's store, not exactly one")
+    return np.array(_icdf(prob) + [0], np.uint16)
+
+
+def _pooled(data: bytes, chunk: bytes, what: str) -> None:
+    """Require a 16-byte chunk the linker may have merged with an equal
+    one: somewhere in ``.rodata`` at a 16-byte boundary."""
+    at = -1
+    while (at := data.find(chunk, at + 1)) >= 0:
+        if at % 16 == 0:
+            return
+    require(False, f"{what}: a 16-byte chunk not in the pool")
+
+
+def compound_cdfs(data: bytes, text: bytes) -> dict:
+    """The compound blocks' default CDFs (COMPOUND_CDFS, COMPOUND_TYPE,
+    WEDGE_8X8), each row checked to be a CDF and the last against the
+    spec."""
+    out = {}
+    for name, (first, rows, nsym, last) in COMPOUND_CDFS.items():
+        sig = _rows(first, nsym) if len(first) % (nsym - 1) == 0 \
+            else _icdf(*first)
+        at = find_once(data, np.array(sig, "<u2").tobytes(), f"{name} CDF")
+        if name in IMMEDIATE_LAST_ROW:
+            head = np.frombuffer(data, "<u2", (rows - 1) * (nsym + 1), at)
+            t = np.stack([_cdf_row(r, nsym, name)
+                          for r in head.reshape(rows - 1, nsym + 1)]
+                         + [_last_row_store(text, last, name)])
+        else:
+            t = _table(data, at, rows, nsym, name)
+        require(32768 - int(t[-1, 0]) == last, f"{name} CDF: its last row")
+        out[name] = t
+    out["uni_comp_ref"] = out["uni_comp_ref"].reshape(3, 3, 2)
+    out["comp_ref"] = out["comp_ref"].reshape(3, 3, 2)
+    out["comp_bwdref"] = out["comp_bwdref"].reshape(3, 2, 2)
+    # compound_type: its first 16 bytes (two and a half equiprobable rows)
+    # merged into the pool; the rest, up to its zero tail, in order
+    eq = np.array([16384, 0, 0] * 2 + [16384, 0], "<u2").tobytes()
+    _pooled(data, eq, "compound_type CDF")
+    sig = np.array([0] + sum((_icdf(p) + [0, 0] for p in COMPOUND_TYPE), []),
+                   "<u2").tobytes()
+    at = find_once(data, sig, "compound_type CDF")
+    body = eq + data[at:at + 22 * 3 * 2 - 16 - 4] + bytes(4)
+    a = np.frombuffer(body, "<u2").reshape(22, 3)
+    ct = np.stack([_cdf_row(r, 2, "compound_type") for r in a])
+    want = [16384] * 22
+    for i, p in zip((3, 4, 5, 6, 7, 8, 9, 18, 19),
+                    COMPOUND_TYPE + (11820, 7701)):
+        want[i] = p
+    require((32768 - ct[:, 0].astype(int)).tolist() == want,
+            "compound_type CDF: its rows")
+    out["compound_type"] = ct
+    # wedge_index: 22 rows of 16 symbols, whole, the 8x8 row the fourth
+    at = find_once(data, np.array(_icdf(*WEDGE_8X8), "<u2").tobytes(),
+                   "wedge_index CDF") - 3 * 17 * 2
+    wi = _table(data, at, 22, 16, "wedge_index")
+    flat = np.array(_icdf(*range(2048, 32768, 2048)) + [0], np.uint16)
+    for i in range(22):
+        require((i in WEDGE_SIZES) != np.array_equal(wi[i], flat),
+                "wedge_index CDF: equiprobable rows where no wedge is")
+    out["wedge_index"] = wi
+    return out
+
+
+def wedge_tables(data: bytes) -> dict:
+    """Wedge_Codebook, each table found by its middle entries (the
+    horizontal and vertical wedges, which differ by shape), and the master
+    rows: the oblique ones whole, the vertical one by its two rising
+    chunks (its constant chunks merged into the pool)."""
+    book = []
+    for shape in WEDGE_CODEBOOK:
+        mid = np.array(shape[4:8], "<i4").tobytes()
+        at = find_once(data, mid, "wedge codebook") - 4 * 12
+        t = np.frombuffer(data, "<i4", 48, at).reshape(16, 3)
+        require(t.tolist() == [list(e) for e in shape],
+                "wedge codebook: not the spec's")
+        book.append(t)
+    master = []
+    for zeros, ramp in WEDGE_MASTER:
+        row = bytes([0] * zeros + list(ramp) + [64] * (64 - zeros - len(ramp)))
+        if data.find(row) < 0:
+            find_once(data, row[16:48], "wedge master")
+            _pooled(data, row[:16], "wedge master")
+            _pooled(data, row[48:], "wedge master")
+        else:
+            find_once(data, row, "wedge master")
+        master.append(np.frombuffer(row, np.uint8))
+    return {"wedge_codebook": np.stack(book).astype(np.uint8),
+            "wedge_master": np.stack(master)}
+
+
+def quant_dist(data: bytes) -> dict:
+    """Quant_Dist_Weight and Quant_Dist_Lookup, int32 in libaom."""
+    out = {}
+    for name, want in (("quant_dist_weight", QUANT_DIST_WEIGHT),
+                       ("quant_dist_lookup", QUANT_DIST_LOOKUP)):
+        at = find_once(data, np.array(want, "<i4").tobytes(), name)
+        out[name] = np.frombuffer(data, "<i4", 8, at).reshape(4, 2) \
+            .astype(np.int16)
+    return out
+
+
 def main(argv: list) -> None:
     lib = argv[0] if argv else LIBAOM
     data = section(lib)
@@ -497,7 +669,9 @@ def main(argv: list) -> None:
               **inter_cdfs(data, section(lib, ".text")),
               **mv_fraction_cdfs(data), "subpel_filters": subpel_filters(data),
               "warped_filter": warped_filter(data), "div_lut": div_lut(data),
-              "obmc_mask": obmc_masks(data), "div_mult": div_mult(data)}
+              "obmc_mask": obmc_masks(data), "div_mult": div_mult(data),
+              **compound_cdfs(data, section(lib, ".text")),
+              **wedge_tables(data), **quant_dist(data)}
     np.savez_compressed(OUT, **tables)
     for k, v in tables.items():
         print(f"{k}: {v.shape} {v.dtype}")

@@ -118,6 +118,11 @@ TOOLS_MADE = {**json.loads((FIXTURES.parent / "avif_tools"
               # layers with use_ref_frame_mvs
               **{f"avif_refmvs/{n}": e for n, e in json.loads(
                   (FIXTURES.parent / "avif_refmvs" / "manifest.json")
+                  .read_text()).items()},
+              # compound blocks: libaom's four layers from 1280x720 and
+              # written frames in every compound mode and type
+              **{f"avif_compound/{n}": e for n, e in json.loads(
+                  (FIXTURES.parent / "avif_compound" / "manifest.json")
                   .read_text()).items()}}
 
 

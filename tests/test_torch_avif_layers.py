@@ -269,24 +269,30 @@ def test_frame_level_refusals_name_the_tool(monkeypatch):
     ("scaled", "a reference frame of another size (scaled prediction)")])
 def test_written_refusals_name_the_tool(refuse, tool):
     """Inter frames ``inter_writer`` writes up to a tool the decoder
-    refuses: a compound block, segmentation's map predicted from the
-    reference; and a frame of 128x128 on a reference of 256x256, once
-    refused as scaled prediction, which now decodes to dav1d's planes."""
-    from inter_writer import random_sbs, write_layered
+    refuses: segmentation's map predicted from the reference; a frame of
+    128x128 on a reference of 256x256, once refused as scaled prediction,
+    and a frame of compound blocks, once refused, which both now decode to
+    dav1d's planes."""
+    from inter_writer import random_compound_sbs, random_sbs, write_layered
 
     key = MK.aom_encode_layers(MK.to_yuv(
         MK.bench_images(256)["fractal"], 8, "4:2:0"), 8, "4:2:0", (40, 20),
         options={"cpu-used": 8})
-    sbs = random_sbs(np.random.default_rng(5), 16, 0, 20, 3, True)
-    scaled = refuse == "scaled"
-    stream = write_layered(key, sbs[:4] if scaled else sbs,
-                           size=(128, 128) if scaled else None,
-                           refuse="" if scaled else refuse)
+    rng = np.random.default_rng(5)
+    scaled, compound = refuse == "scaled", refuse == "compound"
+    if compound:
+        stream = write_layered(key, random_compound_sbs(
+            rng, 16, (1, 2, 3, 4), 20, True), pair=(1, 7), masked=True)
+    else:
+        sbs = random_sbs(rng, 16, 0, 20, 3, True)
+        stream = write_layered(key, sbs[:4] if scaled else sbs,
+                               size=(128, 128) if scaled else None,
+                               refuse="" if scaled else refuse)
     data = MK.container(stream, *((128, 128) if scaled else (256, 256)), 8)
-    if scaled:
+    if scaled or compound:
         planes, _, _ = decode_to_yuv(data)
         img = A.decode_avif(data)[1]
-        assert img.tools["scaled_pred"] > 0
+        assert img.tools["scaled_pred" if scaled else "comp_ref_bidir"] > 0
         assert len(img.planes) == 3
         for got, want in zip(img.planes, planes):
             np.testing.assert_array_equal(got, want)

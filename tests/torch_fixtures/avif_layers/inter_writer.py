@@ -1,21 +1,32 @@
 """An AV1 inter-frame writer, symbol by symbol, for the inter tools libaom
 3.6's realtime usage never writes into a layered image: the sharp and
 bilinear filters, two filters per block (``enable_dual_filter``), chroma
-predicted from several 4x4 blocks' MVs, loop filter mode deltas, and the
+predicted from several 4x4 blocks' MVs, loop filter mode deltas, the
 motion modes OBMC and LOCALWARP where libaom would not pick them: local
 warps that fall back to translation, OBMC beside two filters, both at
-3840x2160 (``motion=True``).
+3840x2160 (``motion=True``); and compound blocks (``pair``) in every
+compound mode and type, on any reference pair, distance-weighted under
+``enable_jnt_comp`` (which libaom's realtime usage turns off), over one
+layer of libaom or two (``base_layers``, so that the two references lie
+at different distances).
 
     from inter_writer import InterBlock, write_layered
     data = write_layered(key_obus, blocks, filter=4, dual=True)
 
 The stream is libaom's key frame (layer 0, from ``make_avif_layers``)
 under a sequence header written again with the inter tools this frame
-needs (``enable_dual_filter``, ``enable_warped_motion`` under ``motion``;
-no reference MVs), then one inter frame of spatial layer 1 with every
+needs (``enable_dual_filter``, ``enable_warped_motion`` under ``motion``,
+``enable_masked_compound`` and ``enable_jnt_comp`` as asked; no
+reference MVs), then one inter frame of spatial layer 1 with every
 block inter, skipped (no residual) and predicted from LAST at its own MV
 (NEWMV, the difference from its MV stack's prediction coded in MV context
-0), filters and motion mode. The frame is cut into 64x64 superblocks,
+0), filters and motion mode; or, with ``pair``, every block a compound
+block of 8x8 or more on that pair of references (``CompoundBlock``: its
+mode, type and the MVs of its NEWMV sides). With ``base_layers`` 2 the
+stream keeps libaom's first two layers (their sequence header's inter
+tools kept as libaom wrote them) and the frame is layer 2, its
+references the key frame (slot 0, order hint 0) or layer 1 (slot 1,
+order hint 1) as ``ref_slots`` says. The frame is cut into 64x64 superblocks,
 each one block (PARTITION_NONE) or split into square blocks of one size
 down to 4x4. Its header takes the default CDFs (``primary_ref_frame``
 none), a fixed interpolation filter or SWITCHABLE, loop filter levels
@@ -33,7 +44,7 @@ coder is the port's ``RangeEncoder`` over the decoder's default CDFs.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -47,13 +58,26 @@ REF_CAT = 640
 
 
 SIMPLE, OBMC, LOCALWARP = 0, 1, 2
+LAST, LAST2, LAST3, GOLDEN, BWDREF, ALTREF2, ALTREF = range(1, 8)
+# compound modes (NEAREST_NEARESTMV + n) and each side's single mode
+NEAREST, NEAR, GLOBAL, NEW = "nearest", "near", "global", "new"
+COMPOUND_SIDES = ((NEAREST, NEAREST), (NEAR, NEAR), (NEAREST, NEW),
+                  (NEW, NEAREST), (NEAR, NEW), (NEW, NEAR), (GLOBAL, GLOBAL),
+                  (NEW, NEW))
+COMPOUND_TYPES = ("average", "distance", "wedge", "diffwtd")
+# spec Compound_Mode_Ctx_Map
+COMPOUND_MODE_CTX = ((0, 1, 1, 1, 1), (1, 2, 3, 4, 4), (4, 4, 5, 6, 7))
+# the block sizes (log2 w4 of a square) with wedges: 8x8 to 32x32
+WEDGE_SQUARES = {1: 3, 2: 6, 3: 9}
 
 
 @dataclass
 class InterBlock:
     """One inter block: its MV (row, col in 1/8 sample), its filters (y,
-    x: 0 regular, 1 smooth, 2 sharp) where they are switchable, and its
-    motion mode where the frame lets the block choose one. ``warp`` asks a
+    x: 0 regular, 1 smooth, 2 sharp) where they are switchable, its
+    motion mode where the frame lets the block choose one, and its
+    reference frame (LAST, or in a frame of compound blocks either of the
+    pair). ``warp`` asks a
     LOCALWARP block for a kind of warp: "valid", "singular" (LocalValid
     0: no sample within LS_MV_MAX) or "shear" (a shear the warp filter
     cannot follow); the writer then moves ``mv`` until the warp is of
@@ -63,6 +87,29 @@ class InterBlock:
     filt: Tuple[int, int] = (0, 0)
     motion: int = SIMPLE
     warp: Optional[str] = None
+    ref: int = 1  # LAST; another in a frame of compound blocks (``pair``)
+
+
+@dataclass
+class CompoundBlock:
+    """One compound block: its compound mode (0 NEAREST_NEARESTMV .. 7
+    NEW_NEWMV), its compound type (``COMPOUND_TYPES``; where the frame or
+    the block's size does not allow it, the writer takes the nearest one
+    it allows), the MVs of its NEWMV sides (row, col in 1/8 sample), its
+    filters (y, x) where they are switchable, and its wedge index and
+    sign or mask type."""
+
+    mode: int = 0
+    ctype: str = "average"
+    mv: Tuple[int, int] = (0, 0)
+    mv2: Tuple[int, int] = (0, 0)
+    filt: Tuple[int, int] = (0, 0)
+    wedge: int = 0
+    sign: int = 0
+
+
+def _ref_count_ctx(a: int, b: int) -> int:
+    return 0 if a < b else (1 if a == b else 2)
 
 
 def _obus(data: bytes):
@@ -98,11 +145,10 @@ def _obu_ext(typ: int, payload: bytes, sid: int) -> bytes:
         len(payload)) + payload
 
 
-def sequence_header(s: A.SequenceHeader, dual: bool,
-                    warped: bool = False) -> bytes:
-    """A full sequence header of ``s``'s operating points, size, tools and
-    colour, with ``enable_dual_filter`` and ``enable_warped_motion`` set
-    as asked and reference MVs off."""
+def sequence_header(s: A.SequenceHeader) -> bytes:
+    """A full sequence header of ``s``'s operating points, size, tools
+    (inter-intra, masked compound, warped motion, dual filter, distance
+    weights, reference MVs) and colour."""
     w = BitWriter()
     w.f(s.profile, 3)
     w.f(0, 1)  # still_picture
@@ -122,13 +168,13 @@ def sequence_header(s: A.SequenceHeader, dual: bool,
     w.f(int(s.sb128), 1)
     w.f(int(s.filter_intra), 1)
     w.f(int(s.intra_edge), 1)
-    w.f(0, 1)  # enable_interintra_compound
-    w.f(0, 1)  # enable_masked_compound
-    w.f(int(warped), 1)  # enable_warped_motion
-    w.f(int(dual), 1)
+    w.f(int(s.interintra), 1)  # enable_interintra_compound
+    w.f(int(s.masked_compound), 1)
+    w.f(int(s.warped_motion), 1)
+    w.f(int(s.dual_filter), 1)
     w.f(1, 1)  # enable_order_hint
-    w.f(0, 1)  # enable_jnt_comp
-    w.f(0, 1)  # enable_ref_frame_mvs
+    w.f(int(s.jnt_comp), 1)
+    w.f(int(s.ref_frame_mvs), 1)
     if s.screen_tools == 2:
         w.f(1, 1)  # seq_choose_screen_content_tools
     else:
@@ -174,14 +220,19 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
                  size: Optional[Tuple[int, int]] = None, primary: int = 7,
                  compound: bool = False,
                  seg_update: Optional[Tuple[int, int]] = None,
-                 motion: bool = False) -> BitWriter:
-    """uncompressed_header of a shown inter frame on slot 0 for every
-    reference, refreshing no slot, with the default CDFs; for the
-    refusals' streams, of another ``size`` than the sequence's, with a
-    primary reference frame, ``reference_select`` or segmentation's map
-    and temporal update flags (``seg_update``, past which it writes
-    nothing of the header right); ``motion`` sets
-    ``is_motion_mode_switchable`` and ``allow_warped_motion``."""
+                 motion: bool = False, order_hint: int = 1,
+                 ref_slots: Tuple[int, ...] = (0,) * 7,
+                 slot_hints: Tuple[int, ...] = (0,) * 8) -> BitWriter:
+    """uncompressed_header of a shown inter frame of ``order_hint`` on
+    the slots ``ref_slots`` (of order hints ``slot_hints``) for LAST ..
+    ALTREF, refreshing no slot, with the default CDFs, of another ``size``
+    than the sequence's where given, ``reference_select`` for
+    ``compound`` (and skip_mode_present 0 where skip mode is allowed);
+    for the refusals' streams, with a primary reference frame or
+    segmentation's map and temporal update flags (``seg_update``, past
+    which it writes nothing of the header right); ``motion`` sets
+    ``is_motion_mode_switchable`` and ``allow_warped_motion``, which is
+    written where the sequence enables warped motion."""
     w = BitWriter()
     w.f(0, 1)  # show_existing_frame
     w.f(1, 2)  # INTER_FRAME
@@ -191,12 +242,12 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
     if s.screen_tools == 2:
         w.f(0, 1)  # allow_screen_content_tools
     w.f(int(size is not None), 1)  # frame_size_override_flag
-    w.f(1, s.order_hint_bits)  # order_hint
+    w.f(order_hint, s.order_hint_bits)
     w.f(primary, 3)  # primary_ref_frame
     w.f(0, 8)  # refresh_frame_flags
     w.f(0, 1)  # frame_refs_short_signaling
-    for _ in range(7):
-        w.f(0, 3)  # ref_frame_idx
+    for slot in ref_slots:
+        w.f(slot, 3)  # ref_frame_idx
     width, height = size or (s.width, s.height)
     if size is not None:
         for _ in range(7):
@@ -211,6 +262,8 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
     if filt != 4:
         w.f(filt, 2)
     w.f(int(motion), 1)  # is_motion_mode_switchable
+    if s.ref_frame_mvs:
+        w.f(0, 1)  # use_ref_frame_mvs
     w.f(1, 1)  # disable_frame_end_update_cdf
     sb = 128 if s.sb128 else 64
     sb_cols, sb_rows = -(-width // sb), -(-height // sb)
@@ -268,8 +321,14 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
             w.f(0, 2)
     w.f(0, 1)  # tx_mode_select: TX_MODE_LARGEST
     w.f(int(compound), 1)  # reference_select
-    if motion:
-        w.f(1, 1)  # allow_warped_motion
+    hints = [slot_hints[i] for i in ref_slots]
+    rel = [A._relative_dist(s, h, order_hint) for h in hints]
+    fwd = [h for h, d in zip(hints, rel) if d < 0]
+    if compound and fwd and (any(d > 0 for d in rel) or any(
+            A._relative_dist(s, h, max(fwd)) < 0 for h in fwd)):
+        w.f(0, 1)  # skip_mode_present
+    if s.warped_motion:
+        w.f(int(motion), 1)  # allow_warped_motion
     w.f(0, 1)  # reduced_tx_set
     for _ in range(7):
         w.f(0, 1)  # is_global
@@ -282,9 +341,23 @@ class _Tile:
 
     def __init__(self, s: A.SequenceHeader, base_q: int, filt: int,
                  dual: bool, hp: bool, size: Tuple[int, int],
-                 motion: bool = False) -> None:
+                 motion: bool = False, pair: Optional[Tuple[int, int]] = None,
+                 bias: Tuple[int, ...] = (0,) * 8,
+                 same_dist: bool = True) -> None:
         self.s, self.filt, self.dual, self.hp = s, filt, dual, hp
         self.motion = motion
+        # compound frames: the pair, the sign bias of each reference frame
+        # and whether the pair lies at one distance (compound_idx's
+        # context); each block's comp_group_idx, compound_idx and compound
+        # mode, and the count of each mode, type and kind of side
+        self.pair, self.bias, self.same_dist = pair, bias, same_dist
+        # each block's RefFrame[0] and [1] (-1: a single reference; LAST
+        # where not set), and the block whose stack is being built's
+        self.refs: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        self.target = (LAST, -1)
+        self.cgi: Dict[Tuple[int, int], int] = {}
+        self.cidx: Dict[Tuple[int, int], int] = {}
+        self.counts: Dict[str, int] = {}
         # LOCALWARP blocks by kind of warp ("valid", "singular", "shear")
         self.warps: Dict[str, int] = {}
         arrs = A._cdf_pack(coeff_q_ctx(base_q))[0]
@@ -310,12 +383,29 @@ class _Tile:
 
     # -- the MV stack (spec 7.10.2 as dav1d scans it) --------------------
 
+    def _refs_of(self, p) -> Tuple[int, int]:
+        return self.refs.get(p, (LAST, -1))
+
+    def _cand(self, r, c):
+        """The MV (a pair's MVs) the block at (r, c) offers the target's
+        stack: a single reference matches either of its references, a
+        pair both; None where it matches not."""
+        (ra, rb), mv = self._refs_of((r, c)), self.mv[r, c]
+        t0, t1 = self.target
+        if t1 >= 0:
+            return mv if (ra, rb) == (t0, t1) else None
+        if ra == t0:
+            return mv if rb < 0 else mv[0]
+        return mv[1] if rb == t0 else None
+
     def _add(self, st, r, c, weight, flags, row):
         if (r, c) not in self.mv:
             return
+        mv = self._cand(r, c)
+        if mv is None:
+            return
         flags[row] = 1
         flags[2] |= self.newmv[r, c]
-        mv = self.mv[r, c]
         for e in st:
             if e[0] == mv:
                 e[1] += weight
@@ -393,15 +483,83 @@ class _Tile:
             refmv_ctx, newmv_ctx = 5, 5 - flags[2]
         st[:nearest] = sorted(st[:nearest], key=lambda e: -e[1])
         st[nearest:] = sorted(st[nearest:], key=lambda e: -e[1])
-        # every block is inter on LAST: the extra search adds nothing new
+        # the extra search: the pair's fills the stack to two
+        if len(st) < 2:
+            extra = self._extra_pair if self.target[1] >= 0 else \
+                self._extra_single
+            st = extra(st, r, c, min(w4, h4), n_rows != none,
+                       n_cols != none)
         top = -(r * 32) - (128 + bh4 * 32)
         bottom = (self.mi_rows - r) * 32 + 128
         left = -(c * 32) - (128 + bw4 * 32)
         right = (self.mi_cols - c) * 32 + 128
+
+        def clamp(mv):
+            return (min(max(mv[0], top), bottom),
+                    min(max(mv[1], left), right))
+
         for e in st:
-            e[0] = (min(max(e[0][0], top), bottom),
-                    min(max(e[0][1], left), right))
+            e[0] = tuple(clamp(m) for m in e[0]) if self.target[1] >= 0 \
+                else clamp(e[0])
         return st, newmv_ctx, refmv_ctx
+
+    def _lists(self, p):
+        """The (reference, MV) of each list of the block at mi p."""
+        ra, rb = self._refs_of(p)
+        mv = self.mv[p]
+        return [(ra, mv)] if rb < 0 else [(ra, mv[0]), (rb, mv[1])]
+
+    def _neighbours(self, r, c, sz4, top, left):
+        """The extra search's neighbours: the row above, then the column
+        to the left, sz4 4x4s of each, a block at a time."""
+        for along, ok in ((0, top), (1, left)):
+            i = 0
+            while ok and i < sz4:
+                p = (r - 1, c + i) if along == 0 else (r + i, c - 1)
+                yield p
+                i += 1 << self.size[p][along]
+
+    def _extra_single(self, st, r, c, sz4, top, left):
+        """Spec 7.10.2.12 for a single reference (dav1d's
+        add_single_extended_candidate): each list's MV of a neighbour,
+        negated across sign biases, joins the stack unless there, while
+        it holds fewer than two."""
+        t0 = self.target[0]
+        for p in self._neighbours(r, c, sz4, top, left):
+            if len(st) >= 2:
+                break
+            for cref, mv in self._lists(p):
+                k = -1 if self.bias[cref] != self.bias[t0] else 1
+                mv = (k * mv[0], k * mv[1])
+                if all(e[0] != mv for e in st):
+                    st.append([mv, 2])
+        return st
+
+    def _extra_pair(self, st, r, c, sz4, top, left):
+        """Spec 7.10.2.12 for the pair (dav1d's compound extended search):
+        the neighbours' MVs as RefIdMvs of their own list and RefDiffMvs of
+        the other (negated across sign biases), two of each, then the
+        global MVs (0); the stack filled to two."""
+        ids, diffs = [[], []], [[], []]
+        for p in self._neighbours(r, c, sz4, top, left):
+            for cref, mv in self._lists(p):
+                for lst in range(2):
+                    if cref == self.pair[lst]:
+                        if len(ids[lst]) < 2:
+                            ids[lst].append(mv)
+                    elif len(diffs[lst]) < 2:
+                        k = -1 if self.bias[cref] != self.bias[
+                            self.pair[lst]] else 1
+                        diffs[lst].append((k * mv[0], k * mv[1]))
+        comb = [[None, None], [None, None]]
+        for lst in range(2):
+            vals = (ids[lst] + diffs[lst])[:2]
+            vals += [(0, 0)] * (2 - len(vals))
+            comb[0][lst], comb[1][lst] = vals
+        comb = [tuple(x) for x in comb]
+        if len(st) == 1:
+            return st + [[comb[1] if comb[0] == st[0][0] else comb[0], 2]]
+        return [[comb[0], 2], [comb[1], 2]]
 
     # -- the local warp (spec 7.10.4, 7.11.3.6-8) ---------------------------
 
@@ -571,17 +729,15 @@ class _Tile:
         if motion == LOCALWARP and blk.warp:
             blk = InterBlock(self._warp_mv(r, c, wl, hl, blk), blk.filt,
                              motion, blk.warp)
-        skip_ctx = (1 if above else 0) + (1 if left else 0)  # all skipped
-        self.put("skip", skip_ctx, 1, 2, 3)
-        # is_inter: every neighbour is inter
-        ctx = 0 if not (above or left) else (0 if above and left else 0)
-        self.put("is_inter", ctx, 1, 2, 3)
-        # single_ref_p1, p3, p4 for LAST: the neighbours are all LAST
-        n_last = (1 if above else 0) + (1 if left else 0)
-        ctx1 = 0 if n_last < 0 else (1 if n_last == 0 else 2)
-        self.put("single_ref", ctx1 * 6 + 0, 0, 2, 3)
-        self.put("single_ref", ctx1 * 6 + 2, 0, 2, 3)
-        self.put("single_ref", ctx1 * 6 + 3, 0, 2, 3)
+        nbrs = [p for p in (above, left) if p]
+        self.put("skip", len(nbrs), 1, 2, 3)  # every neighbour skipped
+        self.put("is_inter", 0, 1, 2, 3)  # every neighbour inter
+        if self.pair and min(wl, hl) >= 1:
+            self.put("comp_mode", self._comp_mode_ctx(above, left), 0, 2, 3)
+        self._single_ref(nbrs, blk.ref)
+        if self.pair:
+            self.counts["single"] = self.counts.get("single", 0) + 1
+        self.target = (blk.ref, -1)
         st, newmv_ctx, refmv_ctx = self.stack(r, c, wl, hl)
         self.put("new_mv", newmv_ctx, 0, 2, 3)  # NEWMV
         for i in range(2):  # drl: the first candidate
@@ -610,20 +766,243 @@ class _Tile:
             filt = (0, 0)
         elif self.filt == 4:
             for d in range(2 if self.dual else 1):
-                ictx = d * 2 * 4
-                lt = self.fil[left][d] if left else 3
-                at = self.fil[above][d] if above else 3
-                ictx += lt if lt == at else (at if lt == 3 else
-                                             (lt if at == 3 else 3))
-                self.put("interp_filter", ictx, filt[d], 3, 4)
+                self.put("interp_filter", self._interp_ctx(
+                    d, above, left, blk.ref, 0), filt[d], 3, 4)
             if not self.dual:
                 filt = (filt[0], filt[0])
         for y in range(r, min(r + (1 << hl), self.mi_rows)):
             for x in range(c, min(c + (1 << wl), self.mi_cols)):
                 self.size[y, x] = (wl, hl)
                 self.mv[y, x] = blk.mv
+                self.refs[y, x] = (blk.ref, -1)
                 self.newmv[y, x] = 1
                 self.fil[y, x] = filt
+                self.written.add((y, x))
+
+    # -- the contexts of spec 8.3.2 (libaom's forms), every block inter ----
+
+    def _count(self, nbrs) -> List[int]:
+        """How often the neighbours use each reference frame, both of a
+        compound neighbour's counted."""
+        cnt = [0] * 8
+        for p in nbrs:
+            for rf in self._refs_of(p):
+                if rf > 0:
+                    cnt[rf] += 1
+        return cnt
+
+    def _single_ref(self, nbrs, ref: int) -> None:
+        """single_ref_p1 .. p6 for ``ref``."""
+        cnt, ctx = self._count(nbrs), _ref_count_ctx
+
+        def put(p, c, bit):
+            self.put("single_ref", c * 6 + p - 1, int(bit), 2, 3)
+
+        back = ref >= BWDREF
+        put(1, ctx(sum(cnt[1:5]), sum(cnt[5:])), back)
+        if back:
+            put(2, ctx(cnt[5] + cnt[6], cnt[7]), ref == ALTREF)
+            if ref != ALTREF:
+                put(6, ctx(cnt[5], cnt[6]), ref == ALTREF2)
+        else:
+            far = ref in (LAST3, GOLDEN)
+            put(3, ctx(cnt[1] + cnt[2], cnt[3] + cnt[4]), far)
+            if far:
+                put(5, ctx(cnt[3], cnt[4]), ref == GOLDEN)
+            else:
+                put(4, ctx(cnt[1], cnt[2]), ref == LAST2)
+
+    def _comp_mode_ctx(self, above, left) -> int:
+        a = self._refs_of(above) if above else None
+        lf = self._refs_of(left) if left else None
+
+        def back(e):
+            return int(e[0] >= BWDREF)
+
+        if a and lf:
+            if a[1] < 0 and lf[1] < 0:
+                return back(a) ^ back(lf)
+            if a[1] < 0 or lf[1] < 0:
+                return 2 + back(a if a[1] < 0 else lf)
+            return 4
+        if a or lf:
+            e = a or lf
+            return back(e) if e[1] < 0 else 3
+        return 1
+
+    def _comp_ref_type_ctx(self, above, left) -> int:
+        a = self._refs_of(above) if above else None
+        lf = self._refs_of(left) if left else None
+
+        def uni(e):
+            return e[1] > 0 and (e[0] >= BWDREF) == (e[1] >= BWDREF)
+
+        if a and lf:
+            same = (a[0] >= BWDREF) == (lf[0] >= BWDREF)
+            if a[1] < 0 and lf[1] < 0:
+                return 1 + 2 * same
+            if a[1] < 0 or lf[1] < 0:
+                return 3 + same if uni(lf if a[1] < 0 else a) else 1
+            if not uni(a) and not uni(lf):
+                return 0
+            if not uni(a) or not uni(lf):
+                return 2
+            return 3 + ((a[0] == BWDREF) == (lf[0] == BWDREF))
+        if a or lf:
+            e = a or lf
+            return 2 if e[1] < 0 else 4 * uni(e)
+        return 2
+
+    def _idx_ctx(self, nbrs, table, altref: int) -> int:
+        """comp_group_idx's or compound_idx's neighbour part: a compound
+        neighbour's own index, a single one on ALTREF ``altref``."""
+        out = 0
+        for p in nbrs:
+            ra, rb = self._refs_of(p)
+            out += table[p] if rb > 0 else (altref if ra == ALTREF else 0)
+        return out
+
+    def _interp_ctx(self, d, above, left, ref: int, comp: int) -> int:
+        """interp_filter's context: a neighbour's filter where either of
+        its references is the block's RefFrame[0]."""
+        def kind(p):
+            return self.fil[p][d] if p and ref in self._refs_of(p) else 3
+
+        lt, at = kind(left), kind(above)
+        return (d * 2 + comp) * 4 + (lt if lt == at else (
+            at if lt == 3 else (lt if at == 3 else 3)))
+
+    def _drl(self, st, first: int) -> None:
+        """drl_mode 0 at the first index the stack offers one."""
+        for i in range(first, first + 2):
+            if len(st) > i + 1:
+                w0, w1 = st[i][1], st[i + 1][1]
+                dctx = (1 if w1 < REF_CAT else 0) if w0 >= REF_CAT else \
+                    (2 if w1 < REF_CAT else 0)
+                self.put("drl", dctx, 0, 2, 3)
+                return
+
+    def _mv(self, diff) -> None:
+        joint = (2 if diff[0] else 0) | (1 if diff[1] else 0)
+        self.put("mv0_joints", 0, joint, 4, 5)
+        if diff[0]:
+            self._mv_comp(0, diff[0])
+        if diff[1]:
+            self._mv_comp(1, diff[1])
+
+    def _refs(self, above, left) -> None:
+        """comp_mode 1, comp_ref_type and the pair's reference symbols."""
+        r0, r1 = self.pair
+        self.put("comp_mode", self._comp_mode_ctx(above, left), 1, 2, 3)
+        uni = (r0 >= BWDREF) == (r1 >= BWDREF)
+        self.put("comp_ref_type", self._comp_ref_type_ctx(above, left),
+                 0 if uni else 1, 2, 3)
+        cnt = self._count([p for p in (above, left) if p])
+        ctx = _ref_count_ctx
+        if uni:
+            self.put("uni_comp_ref", ctx(sum(cnt[1:5]), sum(cnt[5:])) * 3,
+                     int(r0 == BWDREF), 2, 3)
+            if r0 == LAST:
+                self.put("uni_comp_ref", ctx(cnt[2], cnt[3] + cnt[4]) * 3 + 1,
+                         int(r1 != LAST2), 2, 3)
+                if r1 != LAST2:
+                    self.put("uni_comp_ref", ctx(cnt[3], cnt[4]) * 3 + 2,
+                             int(r1 == GOLDEN), 2, 3)
+            self.counts["unidir"] = self.counts.get("unidir", 0) + 1
+            return
+        far = r0 in (LAST3, GOLDEN)
+        self.put("comp_ref", ctx(cnt[1] + cnt[2], cnt[3] + cnt[4]) * 3,
+                 int(far), 2, 3)
+        if far:
+            self.put("comp_ref", ctx(cnt[3], cnt[4]) * 3 + 2,
+                     int(r0 == GOLDEN), 2, 3)
+        else:
+            self.put("comp_ref", ctx(cnt[1], cnt[2]) * 3 + 1,
+                     int(r0 == LAST2), 2, 3)
+        self.put("comp_bwdref", ctx(cnt[5] + cnt[6], cnt[7]) * 2,
+                 int(r1 == ALTREF), 2, 3)
+        if r1 != ALTREF:
+            self.put("comp_bwdref", ctx(cnt[5], cnt[6]) * 2 + 1,
+                     int(r1 == ALTREF2), 2, 3)
+        self.counts["bidir"] = self.counts.get("bidir", 0) + 1
+
+    def block_pair(self, r: int, c: int, wl: int, hl: int,
+                   blk: CompoundBlock) -> None:
+        """A skipped compound block on the pair (8x8 or more): its
+        references, mode, drl, the MVs of its NEWMV sides, compound type
+        and filters, with the contexts of spec 8.3.2 (every neighbour
+        inter: a compound block on the pair or a single one on either of
+        its references)."""
+        above, left = (r - 1, c) if r else None, (r, c - 1) if c else None
+        nbrs = [p for p in (above, left) if p]
+        self.put("skip", len(nbrs), 1, 2, 3)
+        self.put("is_inter", 0, 1, 2, 3)
+        self._refs(above, left)
+        self.target = self.pair
+        st, newmv_ctx, refmv_ctx = self.stack(r, c, wl, hl)
+        mctx = COMPOUND_MODE_CTX[refmv_ctx >> 1][min(newmv_ctx, 4)]
+        self.put("compound_mode", mctx, blk.mode, 8, 9)
+        sides = COMPOUND_SIDES[blk.mode]
+        idx = 0
+        if sides == (NEW, NEW):
+            self._drl(st, 0)
+        elif NEAR in sides:
+            idx = 1
+            self._drl(st, 1)
+        mvs = []
+        for i, (side, want) in enumerate(zip(sides, (blk.mv, blk.mv2))):
+            pred = (0, 0) if side == GLOBAL else \
+                st[0 if side == NEAREST else idx][0][i]
+            if side == NEW:
+                self._mv((want[0] - pred[0], want[1] - pred[1]))
+                pred = want
+            mvs.append(tuple(pred))
+        # read_compound_type
+        masked, jnt = self.s.masked_compound, self.s.jnt_comp
+        wedge = WEDGE_SQUARES.get(wl) if wl == hl else None
+        ctype = blk.ctype
+        if ctype in ("wedge", "diffwtd") and not masked:
+            ctype = "average"
+        if ctype == "distance" and not jnt:
+            ctype = "average"
+        if ctype == "wedge" and wedge is None:
+            ctype = "diffwtd"
+        cgi = int(ctype in ("wedge", "diffwtd"))
+        cidx = int(ctype != "distance")
+        if masked:
+            self.put("comp_group_idx",
+                     min(5, self._idx_ctx(nbrs, self.cgi, 3)), cgi, 2, 3)
+        if not cgi and jnt:
+            self.put("compound_idx", 3 * self.same_dist
+                     + self._idx_ctx(nbrs, self.cidx, 1), cidx, 2, 3)
+        if cgi and wedge is not None:
+            self.put("compound_type", wedge, int(ctype == "diffwtd"), 2, 3)
+        if ctype == "wedge":
+            self.put("wedge_index", wedge, blk.wedge, 16, 17)
+            self.literal(blk.sign, 1)
+        elif ctype == "diffwtd":
+            self.literal(blk.sign, 1)  # mask_type
+        # filters: none for GLOBAL_GLOBALMV (an identity global motion)
+        filt = (0, 0)
+        if self.filt != 4:
+            filt = (self.filt, self.filt)
+        elif sides != (GLOBAL, GLOBAL):
+            filt = blk.filt
+            for d in range(2 if self.dual else 1):
+                self.put("interp_filter", self._interp_ctx(
+                    d, above, left, self.pair[0], 1), filt[d], 3, 4)
+            if not self.dual:
+                filt = (filt[0], filt[0])
+        for key in (f"mode{blk.mode}", ctype):
+            self.counts[key] = self.counts.get(key, 0) + 1
+        for y in range(r, min(r + (1 << hl), self.mi_rows)):
+            for x in range(c, min(c + (1 << wl), self.mi_cols)):
+                self.size[y, x] = (wl, hl)
+                self.mv[y, x] = tuple(mvs)
+                self.refs[y, x] = self.pair
+                self.newmv[y, x] = int(NEW in sides)
+                self.fil[y, x] = filt
+                self.cgi[y, x], self.cidx[y, x] = cgi, cidx
                 self.written.add((y, x))
 
     def partition(self, r: int, c: int, bl: int, leaf: int,
@@ -639,7 +1018,9 @@ class _Tile:
         ctx = 2 * int(lft) + int(a)
         self.put(names[bl], ctx, 3 if leaf < bl else 0, nsym, nsym + 1)
         if leaf == bl:
-            self.block(r, c, bl, bl, next(blocks))
+            blk = next(blocks)
+            (self.block_pair if isinstance(blk, CompoundBlock)
+             else self.block)(r, c, bl, bl, blk)
             return
         half = 1 << (bl - 1)
         for dr, dc in ((0, 0), (0, half), (half, 0), (half, half)):
@@ -670,52 +1051,77 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
                   base_q: int = 80, lf=(20, 20, 12, 12),
                   ref_deltas=(1, 0, 0, 0, -1, 0, -1, -1),
                   mode_deltas=(0, 0), size=None, refuse: str = "",
-                  motion: bool = False, warps: Optional[dict] = None) -> bytes:
-    """libaom's key frame (the sequence header and frame OBUs of layer 0
-    of a layered stream) and an inter frame of layer 1 whose superblocks
-    ``sbs`` are, in raster order, (False, [one block]) or (True, [the
-    4x4 blocks in coding order]) or (n, [the square blocks of log2 width
-    n in 4x4 units, in coding order]), of ``size`` (the sequence's where
-    None).
+                  motion: bool = False, warps: Optional[dict] = None,
+                  pair: Optional[Tuple[int, int]] = None,
+                  masked: bool = False, jnt: bool = False,
+                  base_layers: int = 1,
+                  ref_slots: Tuple[int, ...] = (0,) * 7,
+                  order_hint: Optional[int] = None,
+                  counts: Optional[dict] = None) -> bytes:
+    """libaom's first ``base_layers`` layers (the sequence header and
+    frame OBUs of layers 0 .. base_layers - 1 of a layered stream of
+    base_layers + 1 layers) and an inter frame of the next layer, of
+    ``order_hint`` (``base_layers`` where None), whose superblocks
+    ``sbs`` are, in raster order, (False, [one block]) or (True, [the 4x4
+    blocks in coding order]) or (n, [the square blocks of log2 width n in
+    4x4 units, in coding order]), of ``size`` (the sequence's where
+    None), on the slots ``ref_slots`` for LAST .. ALTREF (slot i holds
+    layer i, of order hint i). With ``pair`` (two reference frames, LAST
+    .. ALTREF) a ``CompoundBlock`` is a compound block on them (8x8 or
+    more), under ``enable_masked_compound`` ``masked`` and
+    ``enable_jnt_comp`` ``jnt``;
+    ``counts``, where given, gets the count of each compound mode
+    ("mode0" ..), type and reference kind ("unidir", "bidir") written,
+    and of the single-reference blocks among them ("single": an
+    ``InterBlock`` there takes its ``ref``, either of the pair).
     ``refuse`` writes instead a frame that stops at a tool the port
-    refuses: "compound" (a first block that reads comp_mode 1),
-    "seg_map" and "seg_temporal" (segmentation's map predicted from a
-    primary reference frame). ``motion`` lets each block of 8x8 or more
-    with a neighbour take its ``InterBlock.motion`` (a frame of the
+    refuses: "seg_map" and "seg_temporal" (segmentation's map predicted
+    from a primary reference frame). ``motion`` lets each block of 8x8 or
+    more with a neighbour take its ``InterBlock.motion`` (a frame of the
     sequence's size only); ``warps``, where given, gets the count of its
     LOCALWARP blocks of each kind."""
     obus = list(_obus(key_obus))
     seq_payload = next(key_obus[p:e] for t, _, p, e in obus if t == 1)
     s = A.parse_sequence_header(A._Bits(seq_payload))
-    assert s.op_idcs[0] >> 8 == 3 and not s.sb128, "two layers, 64 SBs"
+    assert s.op_idcs[0] >> 8 == (2 << base_layers) - 1 and not s.sb128, \
+        "base_layers + 1 layers, 64 SBs"
     assert s.screen_tools in (0, 2) and not (s.frame_ids
                                              or s.decoder_model_info)
     key = [raw for t, raw, p, e in obus if t in (3, 4, 6)
-           and not ((raw[0] >> 2) & 1 and (raw[1] >> 3) & 3)]
+           and not ((raw[0] >> 2) & 1 and (raw[1] >> 3) & 3 >= base_layers)]
     size = size or (s.width, s.height)
     assert not motion or size == (s.width, s.height), "an unscaled frame"
-    tile = _Tile(s, base_q, filt, dual, hp, size, motion)
-    if refuse == "compound":
-        tile.put("part64", 0, 0, 10, 11)  # PARTITION_NONE
-        tile.put("skip", 0, 1, 2, 3)
-        tile.put("is_inter", 0, 1, 2, 3)
-        tile.put("comp_mode", 1, 1, 2, 3)  # no neighbours: context 1
-        data = tile.enc.done()
-    else:
-        data = tile.encode(sbs) if not refuse else b"\0" * 8
+    # the sequence header written again: libaom's inter tools where its
+    # layer 1 was coded under them, else the frame's
+    keep = base_layers > 1
+    ws = replace(s, interintra=s.interintra and keep,
+                 masked_compound=masked, jnt_comp=jnt,
+                 warped_motion=s.warped_motion if keep else motion,
+                 dual_filter=s.dual_filter if keep else dual,
+                 ref_frame_mvs=s.ref_frame_mvs and keep)
+    order_hint = base_layers if order_hint is None else order_hint
+    slot_hints = tuple(range(8))
+    rel = [0] + [A._relative_dist(s, slot_hints[i], order_hint)
+                 for i in ref_slots]
+    same_dist = pair is None or abs(rel[pair[0]]) == abs(rel[pair[1]])
+    tile = _Tile(ws, base_q, filt, ws.dual_filter, hp, size, motion, pair,
+                 tuple(int(d > 0) for d in rel), same_dist)
+    data = tile.encode(sbs) if not refuse else b"\0" * 8
     head = frame_header(
-        s, base_q, filt, hp, lf, ref_deltas, mode_deltas,
+        ws, base_q, filt, hp, lf, ref_deltas, mode_deltas,
         size=None if size == (s.width, s.height) else size,
         primary=0 if refuse.startswith("seg") else 7,
-        compound=refuse == "compound",
+        compound=pair is not None,
         seg_update={"seg_map": (0, 0), "seg_temporal": (1, 1)}.get(refuse),
-        motion=motion)
+        motion=motion, order_hint=order_hint, ref_slots=ref_slots,
+        slot_hints=slot_hints)
     if warps is not None:
         warps.update(tile.warps)
-    tile = data
-    seq = sequence_header(s, dual, motion)
+    if counts is not None:
+        counts.update(tile.counts)
+    seq = sequence_header(ws)
     return (bytes([(1 << 3) | 2]) + _leb128(len(seq)) + seq
-            + b"".join(key) + _obu_ext(6, head.data() + tile, 1))
+            + b"".join(key) + _obu_ext(6, head.data() + data, base_layers))
 
 
 def random_sbs(rng: np.random.Generator, n_sb: int, split_every: int,
@@ -740,4 +1146,38 @@ def random_sbs(rng: np.random.Generator, n_sb: int, split_every: int,
                                for _ in range(256)]))
         else:
             out.append((False, [InterBlock(mv(), filt())]))
+    return out
+
+
+def random_compound_sbs(rng: np.random.Generator, n_sb: int, leaves,
+                        max_mv: int, hp: bool, types=COMPOUND_TYPES,
+                        mode_weights=None, single: float = 0.0,
+                        pair: Tuple[int, int] = (1, 7)) -> list:
+    """Superblocks of compound blocks: each cut into square blocks of a
+    size drawn from ``leaves`` (log2 w4, 1 .. 4), each block of a random
+    compound mode (drawn by ``mode_weights``, uniform where None) and type
+    (from ``types``), NEWMV sides within ``max_mv`` of zero, filters,
+    wedge and sign; or, with probability ``single``, a single-reference
+    NEWMV block on either reference of ``pair``."""
+    step = 1 if hp else 2
+    out = []
+    for _ in range(n_sb):
+        leaf = int(rng.choice(leaves))
+
+        def mv():
+            return tuple(int(step * rng.integers(-max_mv, max_mv + 1))
+                         for _ in range(2))
+
+        def block():
+            if single and rng.random() < single:
+                return InterBlock(mv(), (int(rng.integers(3)),
+                                         int(rng.integers(3))),
+                                  ref=int(rng.choice(pair)))
+            return CompoundBlock(
+                int(rng.choice(8, p=mode_weights) if mode_weights else
+                    rng.integers(8)), str(rng.choice(types)), mv(), mv(),
+                (int(rng.integers(3)), int(rng.integers(3))),
+                int(rng.integers(16)), int(rng.integers(2)))
+
+        out.append((leaf, [block() for _ in range(1 << 2 * (4 - leaf))]))
     return out

@@ -29,18 +29,20 @@ projects layer 1's MVs, which point into the scaled key frame, and one at
 At 1280x720 from ``cpu-used`` 7, at every speed above that size, and on
 the 512x512 mixed class at ``cpu-used`` 10, libaom's defaults turn
 ``reference_select`` on in layer 3 of four and write compound blocks
-there, which the port refuses by name (``compound_720p_420.avif`` holds
-that refusal). The 3840x2160 frame for the card and the mixed class
-therefore code layer 3 with LAST alone: the encode flags
-``AOM_EFLAG_NO_REF_LAST2`` .. ``_NO_REF_ARF2`` (``LAST_ONLY``), which
-leave the frame header's references, and so the projection, as they are.
+there, which the port once refused by name (``compound_720p_420.avif``
+held that refusal; it now decodes, and ``avif_compound/
+make_avif_compound.py`` writes the set of compound blocks). The 3840x2160
+frame for the card and the mixed class code layer 3 with LAST alone: the
+encode flags ``AOM_EFLAG_NO_REF_LAST2`` .. ``_NO_REF_ARF2``
+(``LAST_ONLY``), which leave the frame header's references, and so the
+projection, as they are.
 
 The set: three and four layers of the same size on 4:2:0, 4:2:2, 4:4:4
 and monochrome at 8, 10 and 12 bits over ``cpu-used`` 5 to 10 (OBMC and
 local warps on below 7, as libaom's defaults have them), two tile
 columns, 128-pixel superblocks, an alpha item in four layers, the six
 512x512 bench classes in four layers, the two progressive items, the
-3840x2160 four-layer frame and the compound refusal.
+3840x2160 four-layer frame and the 1280x720 one with a compound block.
 
 The manifest holds what ``make_avif_progressive.entry`` holds (dav1d's
 Y'UV CRC through the system libavif 0.11.1, the reference's ``load_avif``
