@@ -147,8 +147,9 @@ Phases, each of which raises on failure (exit code != 0):
 19. main path, AVIF input: every fixture of ``tests/torch_fixtures/avif``
    (the port's toolset, written by the JAX package's CLI) decodes to its
    manifest's CRC32s (dav1d's Y'UV and the reference's ``load_avif`` and
-   ``decode_avif_to_rgb8`` pixels), each read timed (median of 3, split
-   into parse and tile decode, post-filters and conversion); each refusal
+   ``decode_avif_to_rgb8`` pixels), each file decoded as often as its
+   read is timed (once; split into parse and tile decode, post-filters
+   and conversion), each folder's reads in all on a line; each refusal
    fixture (4:2:0, 4:2:2, the intra edge filter) raises ``ValueError``
    naming its tool; likewise libaom's streams of ``avif_aom``,
    ``avif_tools``, ``avif_screen``, ``avif_container``,
@@ -158,9 +159,12 @@ Phases, each of which raises on failure (exit code != 0):
    size, superres inter frames; a reference past the scaling limits must
    raise ``OSError`` with the manifest's message), ``avif_warp`` and
    ``avif_refmvs`` (motion field estimation and temporal MV candidates in
-   four layers; a compound block raises naming it), the reads split into
-   parse, post-filters, the superres upscale, grain and conversion (and
-   per frame, tile decode, post-filters and the projection);
+   four layers), ``avif_compound`` (compound blocks) and
+   ``avif_globalmv`` (global motion of every type and skip_mode blocks;
+   its 3840x2160 frame read three times), the reads split into parse,
+   post-filters, the superres upscale, grain and conversion (and per
+   frame, tile decode, post-filters, the projection, the compound blends
+   and the global warp);
    the CLI (``-t 80`` on the six class AVIFs, ``-q 60`` on the 3840x2160
    one, and on each later folder's picks) gives the q, passes and bytes
    of the same pixels (as PAM where they are 8-bit, in memory where they
@@ -180,7 +184,9 @@ Phases, each of which raises on failure (exit code != 0):
    ``torch.profiler`` trace per size (512x512 and 3840x2160), last.
 
 Every kernel row's time is split into its device ms (the kernel alone,
-from a ``torch.profiler`` trace) and its host µs a call (the median of 200
+from a ``torch.profiler`` trace, or from CUDA events around each C entry
+call where six traces in a row lost the kernel's records, in which case
+each pass of K2e goes unsplit) and its host µs a call (the median of 200
 calls, each timed alone after a synchronise), the latter through
 ``kernels.launch``, through ``launch_before`` (a copy of the launch path
 as it was before it kept its resolved entries) and with nothing launched
@@ -591,12 +597,19 @@ def trace(fn, reps: int):
     return prof
 
 
-def device_ms_by_kernel(fn, reps: int, match: str) -> dict:
+# the suffix of a key of ``device_ms_by_kernel`` timed by CUDA events
+BY_EVENTS = " (CUDA events)"
+
+
+def device_ms_by_kernel(fn, reps: int, match: str, names: int = 1) -> dict:
     """{kernel name: mean device ms per launch} of the kernels whose name
     holds ``match``, over ``reps`` calls of fn(), from a ``torch.profiler``
-    trace; a trace that lost every such record, as one on the card
-    sometimes does (three in a row once, after the multi-device leg's
-    ranks), is taken again after a second's pause, up to six in all."""
+    trace; a trace that holds fewer than ``names`` such kernels, as one on
+    the card sometimes does (none three times in a row once, after the
+    multi-device leg's ranks; one of K2e's two passes once), is taken
+    again after a second's pause, up to six in all. If all six lost them
+    (none, once, in ``phase_iir``), the device time comes from CUDA events
+    instead (``device_ms_by_entry``), keyed by C entry."""
     for attempt in range(6):
         if attempt:
             torch.cuda.synchronize()
@@ -604,9 +617,42 @@ def device_ms_by_kernel(fn, reps: int, match: str) -> dict:
         got = {ev.key: ev.device_time_total / 1e3 / ev.count
                for ev in trace(fn, reps).key_averages()
                if ev.device_time_total > 0 and match in ev.key}
-        if got:
+        if len(got) >= names:
             return got
+    got = device_ms_by_entry(fn, reps)
+    print(f"  six torch.profiler traces held fewer than {names} kernels "
+          f"holding {match!r}: device time from CUDA events, {got}",
+          flush=True)
     return got
+
+
+def device_ms_by_entry(fn, reps: int) -> dict:
+    """{C entry + BY_EVENTS: mean device ms per launch} over ``reps`` calls
+    of fn() after one call of warm-up, from a CUDA event pair recorded on
+    the launch's stream around each call of ``kernels.launch``: the device
+    time of the entry's kernels, whatever fn() runs between them, plus the
+    host's time to launch them where the device waits for it (a 0.012 ms
+    plan read 0.030 ms so on an H100; the 0.32 ms ``ssim2_blur_iir`` at
+    512x512x4 within 0.01 ms of its trace)."""
+    pairs: dict = {}
+
+    def timed(wrapper, entry, tensor, *args):
+        stream = torch.cuda.current_stream(tensor.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        launch(wrapper, entry, tensor, *args)
+        end.record(stream)
+        pairs.setdefault(entry, []).append((start, end))
+
+    fn()
+    torch.cuda.synchronize()
+    with launched_by(timed):
+        for _ in range(reps):
+            fn()
+    torch.cuda.synchronize()
+    return {entry + BY_EVENTS: sum(s.elapsed_time(e) for s, e in got)
+            / len(got) for entry, got in pairs.items()}
 
 
 def launch_before(wrapper, entry: str, tensor, *args) -> None:
@@ -659,11 +705,11 @@ def host_us(fn, calls: int = 200) -> float:
     return float(np.median(ts)) * 1e6
 
 
-def split_times(fn, match: str, reps: int = 20) -> dict:
+def split_times(fn, match: str, reps: int = 20, names: int = 1) -> dict:
     """One wrapper call fn() split into device and host: ``device_ms``, the
     device time of its kernels (those whose names hold ``match``, each
-    kernel's mean per launch, added up) from a ``torch.profiler`` trace of
-    ``reps`` calls; ``host_us``, the median host µs of a call through
+    kernel's mean per launch, added up; ``names`` kernels at least) from a
+    ``torch.profiler`` trace of ``reps`` calls; ``host_us``, the median host µs of a call through
     ``kernels.launch``; ``host_us_before``, the same through
     ``launch_before``; ``checks_us``, the same with nothing launched (the
     wrapper's checks and allocations). The three host paths run in turns,
@@ -676,7 +722,7 @@ def split_times(fn, match: str, reps: int = 20) -> dict:
         with launched_by(paths[key]):
             got[key] += host_us(fn) / 2
     # the trace last, so that no profiler state is left over the host times
-    per = device_ms_by_kernel(fn, reps, match)
+    per = device_ms_by_kernel(fn, reps, match, names)
     if not per:
         raise AssertionError(f"no kernel holding {match!r} in the trace")
     return {"device_ms": sum(per.values()), **got}
@@ -1609,7 +1655,7 @@ def phase_iir(images: dict, frame4k: np.ndarray) -> dict:
                  **bound(nbytes(img1, img2, *outs),
                          29 * sum(t.numel() for t in outs)),
                  **split_times(lambda: M.ssim2_blur_iir(img1, img2),
-                               KERNEL_MATCH["ssim2_blur_iir"], reps)}
+                               KERNEL_MATCH["ssim2_blur_iir"], reps, 2)}
         # a reckoning, not a bound: the backward pass of an axis starts
         # where the forward pass ends, so this kernel's design reads and
         # writes every element once per direction and axis, eight accesses
@@ -1621,8 +1667,12 @@ def phase_iir(images: dict, frame4k: np.ndarray) -> dict:
               f"accesses per element at the memory rate {eight_ms:.4f} ms; "
               f"{split_line(times)}", flush=True)
         passes = device_ms_by_kernel(lambda: M.ssim2_blur_iir(img1, img2),
-                                     reps, "iir")
-        if len(passes) != 2:
+                                     reps, "iir", 2)
+        if any(key.endswith(BY_EVENTS) for key in passes):
+            # one C entry launches both passes: events cannot split them
+            print(f"  {label}x4 ssim2_blur_iir: each pass's time not "
+                  "measured (the traces lost their records)", flush=True)
+        elif len(passes) != 2:
             raise AssertionError(f"ssim2_blur_iir is two launches, the "
                                  f"trace holds {sorted(passes)}")
         for key, ms in passes.items():
@@ -2653,6 +2703,11 @@ AVIF_REFMVS_DIR = os.path.join(
 AVIF_COMPOUND_DIR = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
     "avif_compound")
+AVIF_GLOBALMV_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+    "avif_globalmv")
+# the global motion counters: the global sides on each GmType past IDENTITY
+GLOBAL_SIDES = ("global_translation", "global_rotzoom", "global_affine")
 # the compound modes' counters, NEAREST_NEARESTMV .. NEW_NEWMV
 COMPOUND_MODES = ("nearest_nearestmv", "near_nearmv", "nearest_newmv",
                   "new_nearestmv", "near_newmv", "new_nearmv",
@@ -2677,25 +2732,35 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
     time of OBMC and of the local warp in its tile decode (``obmc_f1``,
     ``warp_f1``, ...), of motion field estimation in the frame that
     projects (``project_f3``, ...) and of the compound blocks' blends
-    (``compound_f3``, ...) with their shares of that frame's tile
-    decode, and on a line before, for a frame that projected, the 8x8s its
-    projection filled and the temporal candidates of each frame, and for
-    an item with compound blocks each frame's compound blocks (where the
-    manifest counts them per frame, as many) and the item's count of each
-    compound mode, type and kind of reference pair; a
+    (``compound_f3``, ...) and of the global warp (``gwarp_f2``, ...) with
+    their shares of that frame's tile decode, and on a line before, for a
+    frame that projected, the 8x8s its projection filled and the temporal
+    candidates of each frame, for an item with compound blocks each
+    frame's compound blocks (where the manifest counts them per frame, as
+    many) and the item's count of each compound mode, type and kind of
+    reference pair, and for an item with global motion or skip_mode blocks
+    each frame's global sides and skip_mode blocks (where the manifest
+    counts them, as many), its global warps and the blocks whose shear
+    refused the warp; a
     refusal fixture raises ``ValueError`` naming its tool, one the
     reference could not read (``raises``) the exception the manifest
     records, with its message, and one past the spec's limits
     (``broken``) ``OSError`` with the message the manifest records; where
     the manifest records each frame's coded width, upscaled width and
-    height (``sizes``), the port reads them. Returns the loaded images by
-    file name."""
+    height (``sizes``), the port reads them. Each file is decoded ``reps``
+    times, and the CRCs, the counts and the loaded image are those of the
+    last timed read (``decode_avif`` and the conversion ``read_avif``
+    makes, ``avif_pixels``). A last line gives the folder's reads in all
+    (the sum of every timed read) and its wall time. Returns the loaded
+    images by file name."""
     from oavif_tpu_torch.io import avif
     from oavif_tpu_torch.io.image import Image, load_avif
 
+    t_folder = time.perf_counter()
     with open(os.path.join(folder, "manifest.json")) as f:
         manifest = json.load(f)
     loaded = {}
+    read_total, n_reads = 0.0, 0
     for name, entry in sorted(manifest.items()):
         path = os.path.join(folder, name)
         with open(path, "rb") as f:
@@ -2735,22 +2800,23 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
         times, split = [], []
         reps = reps_4k if entry["load_shape"][1] >= 3840 else reps_small
         for _ in range(reps):
+            # read_avif's work, its decode kept for the checks below
             t, t0 = {}, time.perf_counter()
             with open(path, "rb") as f:
-                read = avif.read_avif(f.read(), t)
+                box, color, alpha = avif.decode_avif(f.read(), t)
+            arr, hbd, icc = avif.avif_pixels(box, color, alpha, t)
             times.append(time.perf_counter() - t0)
             split.append(t)
-        # load_avif's image, from its own read_avif of the file's bytes
-        # just timed (one decode less per file)
-        arr, hbd, icc = read
+        read_total += sum(times)
+        n_reads += reps
+        # load_avif's image and the Y'UV, from the last read just timed
         img = Image(width=arr.shape[1], height=arr.shape[0],
                     channels=arr.shape[2], hbd=hbd, data=arr, icc=icc)
-        box, color, alpha = avif.decode_avif(data)
         yuv = np.concatenate([p.astype("<u2").reshape(-1)
                               for p in color.planes])
         got = (list(img.data.shape), img.hbd, len(img.icc or b""),
                zlib.crc32(img.data.tobytes()), zlib.crc32(yuv.tobytes()),
-               # decode_avif_rgb8's pixels, from the decode just made
+               # decode_avif_rgb8's pixels, from the same decode
                zlib.crc32(avif.yuv_to_rgb8(
                    color, rgba=alpha is not None,
                    prem=alpha if box.premultiplied else None).tobytes()),
@@ -2789,12 +2855,17 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
                 got += ([sum(t[m] for m in COMPOUND_MODES)
                          for t in color.frame_tools],)
                 want += (entry["compound"],)
+            if "global" in entry:
+                got += ([sum(t[k] for k in GLOBAL_SIDES)
+                         for t in color.frame_tools],
+                        [t["skip_mode"] for t in color.frame_tools])
+                want += (entry["global"], entry["skip_mode"])
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         loaded[name] = img
         per_frame = sorted(k for k in split[0] if k.startswith(
             ("tiles_f", "filters_f", "obmc_f", "warp_f", "project_f",
-             "compound_f")))
+             "compound_f", "gwarp_f")))
         parts = ", ".join(
             f"{k} {np.median([t.get(k, 0.0) for t in split]) * 1e3:.3f}"
             for k in ("parse", "filters", "upscale", "grain", "refs",
@@ -2816,12 +2887,21 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
                   + f", pairs unidirectional {color.tools['comp_ref_unidir']}"
                   f" bidirectional {color.tools['comp_ref_bidir']}, with a "
                   f"scaled side {color.tools['compound_scaled']}", flush=True)
-        # OBMC's, the warp's, the projection's and the compound blends'
-        # shares of their own frame's tile decode
+        if any(color.tools[k] for k in GLOBAL_SIDES + ("skip_mode",)):
+            print(f"  {name}: per frame, global sides "
+                  f"{[sum(t[k] for k in GLOBAL_SIDES) for t in color.frame_tools]}"
+                  f", skip_mode blocks "
+                  f"{[t['skip_mode'] for t in color.frame_tools]}; sides by "
+                  f"type " + ", ".join(
+                      f"{k[7:]} {color.tools[k]}" for k in GLOBAL_SIDES)
+                  + f", blocks warped {color.tools['global_warp']}, shear "
+                  f"refused {color.tools['global_warp_invalid']}", flush=True)
+        # OBMC's, the warp's, the projection's, the compound blends' and
+        # the global warp's shares of their own frame's tile decode
         shares = ""
         for k in per_frame:
             used = [m + k[5:] for m in ("obmc", "warp", "project",
-                                        "compound")
+                                        "compound", "gwarp")
                     if k.startswith("tiles_f") and m + k[5:] in split[0]]
             if used:
                 shares += f"; of {k}: " + ", ".join(
@@ -2837,6 +2917,9 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
               f"{min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}; {parts} ms"
               f"{shares})",
               flush=True)
+    print(f"  {os.path.basename(folder)}: {n_reads} timed reads in all "
+          f"{read_total:.3f} s; folder wall {time.perf_counter() - t_folder:.3f}"
+          f" s", flush=True)
     return loaded
 
 
@@ -2899,19 +2982,28 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     3840x2160 frame; frames written in every compound mode and type on
     unidirectional and bidirectional pairs, at different distances, on
     both sides of the frame, through a scaled reference and beside
-    single-reference blocks) decodes
-    to its manifest (``_read_avif_fixtures``),
+    single-reference blocks) and of ``tests/torch_fixtures/avif_globalmv``
+    (global motion of every type and skip_mode blocks, written over
+    libaom's layers: TRANSLATION, ROTZOOM and AFFINE beside the other
+    modes, a shear the warp refuses, OBMC and local warps beside global
+    blocks, GLOBAL_GLOBALMV with warped, translated and scaled sides,
+    gm_params coded against a primary reference's, skip_mode on
+    bidirectional and forward pairs, with delta q and 128-pixel
+    superblocks, every subsampling at 8, 10 and 12 bits, the mixed class
+    and a 3840x2160 frame with both tools) decodes
+    to its manifest (``_read_avif_fixtures``, each file decoded as often
+    as it is timed, and each folder's reads in all on a line),
     the reads split into parse and tile decode (each frame's apart),
     post-filters, the superres upscale, film grain, a grid's stitch, the
-    scaling and conversion (the median of 3 for the smaller files of the
-    folders before ``avif_layers``, which ``avif_layers``,
-    ``avif_progressive``, ``avif_warp``, ``avif_refmvs`` and
-    ``avif_compound`` read once, to keep the phase's time; of 3 for every
-    3840x2160 file; ``avif_warp``'s reads also time OBMC and the local
-    warp in the tile decode, ``avif_refmvs``'s motion field estimation,
-    with the per-frame counts of its projected 8x8s and temporal
-    candidates, and ``avif_compound``'s the compound blends, with each
-    frame's compound blocks and the counts of their modes and types).
+    scaling and conversion (every file read once, to keep the phase's
+    time, but ``avif_globalmv``'s 3840x2160 frame, the median of 3;
+    ``avif_warp``'s reads also time
+    OBMC and the local warp in the tile decode, ``avif_refmvs``'s motion
+    field estimation, with the per-frame counts of its projected 8x8s and
+    temporal candidates, ``avif_compound``'s the compound blends, with
+    each frame's compound blocks and the counts of their modes and types,
+    and ``avif_globalmv``'s the global warp, with each frame's global
+    sides and skip_mode blocks).
     Then the CLI ``-t 80`` on the six class AVIFs and ``-q 60`` on the
     3840x2160 one of the first two folders, ``-q 60`` on the 3840x2160
     ``tune=iq`` frame with film grain, ``-t 80`` on the 512x512
@@ -2925,7 +3017,9 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     60`` on the 3840x2160 progressive frame, ``-t 80`` on the 512x512
     class of OBMC and local warps and ``-q 60`` on the 3840x2160 frame of
     both, ``-t 80`` on the 512x512 four-layer class and ``-q 60`` on the
-    3840x2160 four-layer frame of each of the last two folders: q,
+    3840x2160 four-layer frame of each of ``avif_refmvs`` and
+    ``avif_compound``, ``-t 80`` on the 512x512 class and ``-q 60`` on the
+    3840x2160 frame with global motion and skip_mode blocks: q,
     passes and bytes must be those of the CLI on the same
     pixels, written as PAM where they are 8-bit and handed over in memory
     where they are 16-bit (PAM holds 8 bits). Returns the kernels'
@@ -2961,11 +3055,13 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
             (AVIF_REFMVS_DIR, [("class_mixed_512.avif", ["-t", "80"]),
                                ("photo4k_420.avif", ["-q", "60"])]),
             (AVIF_COMPOUND_DIR, [("class_mixed_512.avif", ["-t", "80"]),
+                                 ("photo4k_420.avif", ["-q", "60"])]),
+            (AVIF_GLOBALMV_DIR, [("class_mixed_512.avif", ["-t", "80"]),
                                  ("photo4k_420.avif", ["-q", "60"])])):
+        # every file read once (the newest folder's 3840x2160 frame three
+        # times), to keep the phase's time
         loaded = _read_avif_fixtures(
-            folder, 3, 1 if folder in (AVIF_LAYERS_DIR, AVIF_PROGRESSIVE_DIR,
-                                       AVIF_WARP_DIR, AVIF_REFMVS_DIR,
-                                       AVIF_COMPOUND_DIR) else 3)
+            folder, 3 if folder == AVIF_GLOBALMV_DIR else 1, 1)
         runs += [(os.path.join(folder, name), loaded[name], args)
                  for name, args in picks]
     with tempfile.TemporaryDirectory() as td:

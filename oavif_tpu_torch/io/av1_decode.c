@@ -34,8 +34,12 @@
  * unidirectional and bidirectional reference pairs, the pair's MV stack
  * with its compound extra search, the eight compound modes, and the
  * average, distance-weighted, wedge and difference-weighted blends of the
- * two unclipped predictions) (inter-intra is refused by name); under
- * use_ref_frame_mvs, motion field
+ * two unclipped predictions) (inter-intra is refused by name); global
+ * motion of every type (spec 7.10.2.1, 7.11.3.1: each block's GlobalMvs in
+ * its MV stack and its GLOBAL sides, and the block warp by a reference's
+ * gm_params where its shear is valid); skip_mode blocks (spec 5.11.10,
+ * 5.11.18-25: a compound NEAREST_NEARESTMV average on SkipModeFrame,
+ * read with one symbol); under use_ref_frame_mvs, motion field
  * estimation (spec 7.9: the MVs that earlier frames stored, projected onto
  * this one before its tiles) and the MV stack's temporal candidates (spec
  * 7.10.2.5-6), and for every frame the storage of its own MVs that later
@@ -108,7 +112,9 @@ enum {
      * wedge_index by block size, comp_group_idx, compound_idx */
     D_COMP_REF_TYPE, D_UNI_COMP_REF, D_COMP_REF, D_COMP_BWDREF,
     D_COMPOUND_MODE, D_COMPOUND_TYPE, D_WEDGE_INDEX, D_COMP_GROUP_IDX,
-    D_COMPOUND_IDX, D_NCDF
+    D_COMPOUND_IDX,
+    /* skip_mode by the above and left blocks' skip_mode */
+    D_SKIP_MODE, D_NCDF
 };
 
 #include "av1_header.h"
@@ -130,6 +136,8 @@ enum { COMPOUND_WEDGE = 0, COMPOUND_DIFFWTD = 1, COMPOUND_AVERAGE = 2,
        COMPOUND_DISTANCE = 4 };
 enum { REF_CAT_LEVEL = 640 };
 enum { SIMPLE = 0, OBMC = 1, LOCALWARP = 2 };
+/* GmType (spec 5.9.24) */
+enum { IDENTITY = 0, TRANSLATION = 1, ROTZOOM = 2, AFFINE = 3 };
 /* the inter prediction tables, one int16 pack (avif._tool_tables()'s
  * "inter_tables"):
  * Subpel_Filters [6][16][8], Warped_Filters [193][8], Div_Lut [257],
@@ -310,6 +318,14 @@ typedef struct {
     int sign_bias, lf_delta_enabled, lf_ref_deltas[8], lf_mode_deltas[2];
     int masked_compound, jnt_comp; /* enable_masked_compound, enable_jnt_comp */
     int seg_ref_mask, seg_ref_frames, seg_gmv_mask;
+    /* skip_mode_present and SkipModeFrame; each reference frame's GmType,
+     * gm_params, whether the global warp may follow it (GmType past
+     * TRANSLATION, globalValid, not scaled, no force_integer_mv) and its
+     * shear; the current block's GlobalMvs (spec setup_global_mv, set by
+     * inter_mv_stack) */
+    int skip_mode_present, skip_mode_frame[2];
+    int gm_type[8], gm_warp[8], gm_abgd[8][4], gmv[2][2];
+    int32_t gm_params[8][6];
     const int32_t *ref_plane[8][3];
     int ref_stride[8], ref_w[8], ref_h[8];
     int xscale[8], yscale[8]; /* spec xScale, yScale of each reference */
@@ -332,10 +348,15 @@ typedef struct {
     int8_t *tpl_off;
     int cur_off[8];
     uint8_t *mi_newmv, *mi_filt, *mi_lf;
+    /* per mi: a GLOBALMV or GLOBAL_GLOBALMV block of 8x8 or more (whose
+     * MV stack candidate is the current block's GlobalMvs where the
+     * reference's GmType is past TRANSLATION), and skip_mode */
+    uint8_t *mi_gmv, *mi_skip_mode;
     /* tool counters (T_*) */
     int32_t *count;
     /* where not NULL, the ns of OBMC ([0]), of the local warp ([1]), of
-     * motion field estimation ([2]) and of compound blends and masks ([3]) */
+     * motion field estimation ([2]), of compound blends and masks ([3]) and
+     * of the global warp ([4]) */
     int64_t *motion_ns;
     int lf_on;         /* a luma loop filter level is not 0 */
     uint8_t *mi_bsz;   /* log2 w4 | log2 h4 << 4 of each mi's block */
@@ -365,6 +386,7 @@ typedef struct {
      * its compound_type, wedge_index, wedge_sign, mask_type,
      * comp_group_idx and compound_idx */
     int ref2, mv2[2], ctype, wedge_idx, wedge_sign, mask_type, cgi, cidx;
+    int skip_mode;
     /* motion_mode, and find_warp_samples' NumSamples and CandList (each
      * sample's position and its position plus the neighbour's MV, row
      * then column, in 1/8 sample) */
@@ -1780,6 +1802,30 @@ static void lower_mv(const Dec *d, int *mv) {
     }
 }
 
+/* spec setup_global_mv: the GlobalMv of reference frame ref for the
+ * block b (0 for INTRA_FRAME and IDENTITY); TRANSLATION's row from
+ * gm_params[0] and column from gm_params[1], as the spec (and libaom and
+ * dav1d with it) reads them; ROTZOOM and AFFINE the model at the block's
+ * centre, rounded to the frame's precision; then lower_mv_precision */
+static void global_mv(const Dec *d, const Blk *b, int ref, int *mv) {
+    mv[0] = mv[1] = 0;
+    int typ = ref > INTRA_FRAME ? d->gm_type[ref] : IDENTITY;
+    const int32_t *p = d->gm_params[imax(ref, 0)];
+    if (typ == TRANSLATION) {
+        mv[0] = p[0] >> (WARPEDMODEL_PREC_BITS - 3);
+        mv[1] = p[1] >> (WARPEDMODEL_PREC_BITS - 3);
+    } else if (typ > TRANSLATION) {
+        int x = b->c * 4 + (2 << b->wl) - 1, y = b->r * 4 + (2 << b->hl) - 1;
+        const int64_t one = 1 << WARPEDMODEL_PREC_BITS;
+        int64_t xc = (p[2] - one) * x + (int64_t)p[3] * y + p[0];
+        int64_t yc = (int64_t)p[4] * x + (p[5] - one) * y + p[1];
+        int n = WARPEDMODEL_PREC_BITS - 3 + !d->allow_hp;
+        mv[0] = (int)rnd2s(yc, n) * (1 + !d->allow_hp);
+        mv[1] = (int)rnd2s(xc, n) * (1 + !d->allow_hp);
+    }
+    lower_mv(d, mv);
+}
+
 /* the MV of list 0 or 1 of mi m */
 static void mi_mv_of(const Dec *d, int m, int list, int *mv) {
     const int16_t *p = list ? d->mi_mv2 : d->mi_mv;
@@ -1817,7 +1863,10 @@ static void stack_add(MvCand *st, int *n, const int *mv, const int *mv2, int wei
  * neighbour joins the stack or adds its weight where, for a single
  * reference ref (ref2 NONE_FRAME), either of its references is ref (with
  * that list's MV), or for a pair both of its references are the pair; it
- * counts as a match, and as a NEWMV match where its mode had a NEWMV side */
+ * counts as a match, and as a NEWMV match where its mode had a NEWMV side.
+ * A GLOBALMV or GLOBAL_GLOBALMV neighbour of 8x8 or more offers, for a
+ * reference whose GmType is past TRANSLATION, the block's own GlobalMv
+ * instead of its MV (spec 7.10.2.7, 7.10.2.9) */
 static void add_spatial(Dec *d, MvCand *st, int *n, int r, int c, int ref, int ref2,
                         int weight, int *newmv_match, int *ref_match) {
     int m = mi_at(d, r, c);
@@ -1829,10 +1878,13 @@ static void add_spatial(Dec *d, MvCand *st, int *n, int r, int c, int ref, int r
         else if (d->mi_ref2[m] == ref) list = 1;
         else return;
         mi_mv_of(d, m, list, mv);
+        if (d->mi_gmv[m] && d->gm_type[ref] > TRANSLATION) memcpy(mv, d->gmv[0], sizeof(mv));
     } else {
         if (d->mi_ref[m] != ref || d->mi_ref2[m] != ref2) return;
         mi_mv_of(d, m, 0, mv);
         mi_mv_of(d, m, 1, mv2);
+        if (d->mi_gmv[m] && d->gm_type[ref] > TRANSLATION) memcpy(mv, d->gmv[0], sizeof(mv));
+        if (d->mi_gmv[m] && d->gm_type[ref2] > TRANSLATION) memcpy(mv2, d->gmv[1], sizeof(mv2));
         lower_mv(d, mv2);
     }
     *ref_match = 1;
@@ -1949,7 +2001,7 @@ static void mv_projection(const Dec *d, const int16_t *mv, int num, int den, int
  * block's reference (to both, for a pair), at its precision, joins the
  * stack with weight 2 or adds 2 to an equal entry's; at the block's own
  * position it sets ZeroMvContext (zero_ctx, where given; a pair reads
- * none) by its distance from the identity global MV */
+ * none) by its distance from the block's GlobalMv */
 static void add_temporal(Dec *d, MvCand *st, int *n, int r, int c, int ref, int ref2,
                          int *zero_ctx) {
     r |= 1;
@@ -1964,7 +2016,7 @@ static void add_temporal(Dec *d, MvCand *st, int *n, int r, int c, int ref, int 
         mv_projection(d, d->tpl_mv + 2 * i, d->cur_off[ref2], d->tpl_off[i], mv2);
         lower_mv(d, mv2);
     }
-    if (zero_ctx) *zero_ctx = abs(mv[0]) >= 16 || abs(mv[1]) >= 16;
+    if (zero_ctx) *zero_ctx = abs(mv[0] - d->gmv[0][0]) >= 16 || abs(mv[1] - d->gmv[0][1]) >= 16;
     d->count[T_TEMPORAL_MV]++;
     stack_add(st, n, mv, ref2 > INTRA_FRAME ? mv2 : NULL, 2);
 }
@@ -1995,11 +2047,14 @@ static void temporal_scan(Dec *d, const Blk *b, int ref, int ref2, MvCand *st, i
  * (ZeroMvContext is use_ref_frame_mvs where the block's own 8x8 holds no
  * projection), the sorting, the extra search (spec 7.10.2.12: for a pair
  * the RefIdMvs and RefDiffMvs of the neighbours combined, filling the
- * stack to two) and the clamping; for a single reference RefStackMv past
- * NumMvFound takes the identity global MV (0). Returns NumMvFound; ctx
- * gets NewMvContext | ZeroMvContext << 3 | RefMvContext << 4 */
+ * stack to two with the GlobalMvs) and the clamping; for a single
+ * reference RefStackMv past NumMvFound takes the GlobalMv. The block's
+ * GlobalMvs are left in d->gmv. Returns NumMvFound; ctx gets
+ * NewMvContext | ZeroMvContext << 3 | RefMvContext << 4 */
 static int inter_mv_stack(Dec *d, Blk *b, int ref, int ref2, MvCand *st, int *ctx) {
     int r = b->r, c = b->c, bw4 = 1 << b->wl, bh4 = 1 << b->hl;
+    global_mv(d, b, ref, d->gmv[0]);
+    global_mv(d, b, ref2, d->gmv[1]);
     int w4 = imin(imin(bw4, 16), d->c1 - c), h4 = imin(imin(bh4, 16), d->r1 - r);
     enum { NONE = 1 << 20 };
     int n = 0, max_rows = 0, max_cols = 0, n_rows = NONE, n_cols = NONE;
@@ -2047,7 +2102,7 @@ static int inter_mv_stack(Dec *d, Blk *b, int ref, int ref2, MvCand *st, int *ct
     sort_mv_stack(st, nearest, n);
     int sz4 = imin(w4, h4);
     if (n < 2 && ref2 > INTRA_FRAME) {
-        /* the pair's RefIdMvs and RefDiffMvs, then the global MVs (0) */
+        /* the pair's RefIdMvs and RefDiffMvs, then the GlobalMvs */
         int refs[2] = {ref, ref2}, id[2][2][2], diff[2][2][2], nid[2] = {0, 0},
             ndiff[2] = {0, 0}, comb[2][2][2];
         if (n_rows != NONE)
@@ -2067,7 +2122,7 @@ static int inter_mv_stack(Dec *d, Blk *b, int ref, int ref2, MvCand *st, int *ct
             for (int i = 0; i < nid[l]; i++, k++) memcpy(comb[k][l], id[l][i], sizeof(comb[k][l]));
             for (int i = 0; i < ndiff[l] && k < 2; i++, k++)
                 memcpy(comb[k][l], diff[l][i], sizeof(comb[k][l]));
-            for (; k < 2; k++) comb[k][l][0] = comb[k][l][1] = 0;
+            for (; k < 2; k++) memcpy(comb[k][l], d->gmv[l], sizeof(comb[k][l]));
         }
         if (n == 1) {
             int same = comb[0][0][0] == st[0].mv[0] && comb[0][0][1] == st[0].mv[1] &&
@@ -2110,7 +2165,11 @@ static int inter_mv_stack(Dec *d, Blk *b, int ref, int ref2, MvCand *st, int *ct
         st[k].mv2[0] = (int)clip64(st[k].mv2[0], top, bottom);
         st[k].mv2[1] = (int)clip64(st[k].mv2[1], left, right);
     }
-    for (int k = n; k < 2; k++) st[k].mv[0] = st[k].mv[1] = st[k].mv2[0] = st[k].mv2[1] = 0;
+    for (int k = n; k < 2; k++) {
+        st[k].mv[0] = d->gmv[0][0];
+        st[k].mv[1] = d->gmv[0][1];
+        st[k].mv2[0] = st[k].mv2[1] = 0;
+    }
     *ctx = newmv_ctx | zero_ctx << 3 | refmv_ctx << 4;
     return n;
 }
@@ -2214,20 +2273,37 @@ static void predict_intrabc(Dec *d, Blk *b) {
 }
 
 /* the start of intra_frame_mode_info and inter_frame_mode_info: the
- * segment id (before or after skip), skip, the CDEF index, the deltas
- * and the block's dequantizers */
+ * segment id (before or after skip), skip_mode, skip, the CDEF index, the
+ * deltas and the block's dequantizers */
 static void block_preamble(Dec *d, Blk *b) {
-    int skip_ctx = 0;
-    if (b->avail_u) skip_ctx += d->mi_skip[mi_at(d, b->r - 1, b->c)];
-    if (b->avail_l) skip_ctx += d->mi_skip[mi_at(d, b->r, b->c - 1)];
+    int skip_ctx = 0, skip_mode_ctx = 0;
+    if (b->avail_u) {
+        int m = mi_at(d, b->r - 1, b->c);
+        skip_ctx += d->mi_skip[m];
+        skip_mode_ctx += d->mi_skip_mode[m];
+    }
+    if (b->avail_l) {
+        int m = mi_at(d, b->r, b->c - 1);
+        skip_ctx += d->mi_skip[m];
+        skip_mode_ctx += d->mi_skip_mode[m];
+    }
     int seg = 0;
     if (d->seg_enabled && d->seg_preskip) {
         seg = read_segment_id(d, b, 0);
         d->count[T_SEG_PRESKIP]++;
     }
-    /* read_skip: a segment with SEG_LVL_SKIP (which sets SegIdPreSkip)
-     * skips its blocks without a symbol */
-    if (d->seg_enabled && d->seg_preskip && (d->seg_skip_mask >> seg & 1)) {
+    /* read_skip_mode: a block of 8x8 or more whose segment has no SKIP,
+     * REF_FRAME or GLOBALMV feature (each of which sets SegIdPreSkip) */
+    b->skip_mode = 0;
+    if (d->skip_mode_present && imin(b->wl, b->hl) >= 1 &&
+        !(d->seg_enabled && ((d->seg_skip_mask | d->seg_ref_mask | d->seg_gmv_mask) >> seg & 1)))
+        b->skip_mode = read_symbol(d, d->cdf[D_SKIP_MODE] + (size_t)skip_mode_ctx * 3, 2);
+    /* read_skip: a skip_mode block skips, and a segment with
+     * SEG_LVL_SKIP (which sets SegIdPreSkip) skips its blocks, without a
+     * symbol */
+    if (b->skip_mode) {
+        b->skip = 1;
+    } else if (d->seg_enabled && d->seg_preskip && (d->seg_skip_mask >> seg & 1)) {
         b->skip = 1;
         d->count[T_SEG_SKIP]++;
     } else {
@@ -2647,15 +2723,24 @@ static void read_compound_type(Dec *d, Blk *b) {
 
 /* inter_block_mode_info: the references, the MV stack, the mode (a
  * compound one through compound_mode and Compound_Mode_Ctx_Map), drl,
- * assign_mv for each side, inter-intra (refused) and the motion mode of a
- * single reference, a compound block's type, and the filters */
+ * assign_mv for each side (a GLOBAL side takes its GlobalMv), inter-intra
+ * (refused) and the motion mode of a single reference, a compound block's
+ * type, and the filters; a skip_mode block reads none of these and takes
+ * SkipModeFrame, NEAREST_NEARESTMV averaged, SIMPLE and EIGHTTAP (or the
+ * frame's filter) */
 static void inter_block_mode_info(Dec *d, Blk *b) {
-    read_ref_frames(d, b);
+    if (b->skip_mode) {
+        b->ref = d->skip_mode_frame[0];
+        b->ref2 = d->skip_mode_frame[1];
+    } else {
+        read_ref_frames(d, b);
+    }
     if (d->err) return;
     int comp = b->ref2 > INTRA_FRAME;
     MvCand st[8];
     int ctx, n = inter_mv_stack(d, b, b->ref, b->ref2, st, &ctx);
-    if (seg_active(d, d->seg_skip_mask) || seg_active(d, d->seg_gmv_mask)) b->mode = GLOBALMV;
+    if (b->skip_mode) b->mode = NEAREST_NEARESTMV;
+    else if (seg_active(d, d->seg_skip_mask) || seg_active(d, d->seg_gmv_mask)) b->mode = GLOBALMV;
     else if (comp)
         b->mode = NEAREST_NEARESTMV +
                   read_symbol(d, d->cdf[D_COMPOUND_MODE] +
@@ -2679,15 +2764,21 @@ static void inter_block_mode_info(Dec *d, Blk *b) {
         }
         if (idx > first) d->count[T_DRL]++;
     }
-    if (comp) d->count[T_NEAREST_NEARESTMV + b->mode - NEAREST_NEARESTMV]++;
+    if (b->skip_mode) d->count[T_SKIP_MODE]++;
+    else if (comp) d->count[T_NEAREST_NEARESTMV + b->mode - NEAREST_NEARESTMV]++;
     else d->count[b->mode == NEWMV ? T_NEWMV : T_NEARESTMV + b->mode - NEARESTMV]++;
-    /* assign_mv: PredMv from the stack (GLOBALMV: the identity's 0), plus
-     * read_mv on a NEWMV side */
+    /* assign_mv: PredMv from the stack (a GLOBAL side: its GlobalMv),
+     * plus read_mv on a NEWMV side */
     b->mv2[0] = b->mv2[1] = 0;
     for (int i = 0; i < 1 + comp; i++) {
         int sm = side_mode(b->mode, i), *mv = i ? b->mv2 : b->mv;
-        mv[0] = mv[1] = 0;
-        if (sm != GLOBALMV) {
+        if (sm == GLOBALMV) {
+            static const int COUNTER[4] = {0, T_GLOBAL_TRANSLATION, T_GLOBAL_ROTZOOM,
+                                           T_GLOBAL_AFFINE};
+            int typ = d->gm_type[i ? b->ref2 : b->ref];
+            memcpy(mv, d->gmv[i], 2 * sizeof(int));
+            if (typ) d->count[COUNTER[typ]]++;
+        } else {
             const MvCand *e = st + (sm == NEARESTMV ? 0 : idx);
             mv[0] = i ? e->mv2[0] : e->mv[0];
             mv[1] = i ? e->mv2[1] : e->mv[1];
@@ -2699,13 +2790,17 @@ static void inter_block_mode_info(Dec *d, Blk *b) {
         }
     }
     if ((b->mv[0] | b->mv[1] | b->mv2[0] | b->mv2[1]) & 7) d->count[T_SUBPEL_MV]++;
-    if (!comp && d->interintra_on && b->bsize >= 3 && b->bsize <= 9 &&
+    if (!b->skip_mode && !comp && d->interintra_on && b->bsize >= 3 && b->bsize <= 9 &&
         read_symbol(d, d->cdf[D_INTERINTRA] + (size_t)(SIZE_GROUP[b->bsize] - 1) * 3, 2)) {
         fail(d, AV1D_UNSUPPORTED, "AV1: %s is not supported", "inter-intra prediction");
         return;
     }
+    /* read_motion_mode: none for a GLOBALMV block on a reference whose
+     * GmType is past TRANSLATION (unless force_integer_mv) */
+    int global = b->mode == GLOBALMV || b->mode == GLOBAL_GLOBALMV;
     b->motion_mode = SIMPLE;
-    if (!comp && d->motion_switchable && imin(b->wl, b->hl) >= 1 && overlappable(d, b)) {
+    if (!comp && d->motion_switchable && imin(b->wl, b->hl) >= 1 &&
+        !(global && !d->force_int_mv && d->gm_type[b->ref] > TRANSLATION) && overlappable(d, b)) {
         find_warp_samples(d, b);
         if (d->force_int_mv || !b->nsamples || !d->allow_warped || ref_is_scaled(d, b->ref))
             b->motion_mode = read_symbol(d, d->cdf[D_OBMC] + (size_t)b->bsize * 3, 2);
@@ -2714,12 +2809,16 @@ static void inter_block_mode_info(Dec *d, Blk *b) {
     }
     b->cgi = 0;
     b->cidx = 1;
-    if (comp) read_compound_type(d, b);
-    /* spec needs_interp_filter: none for a local warp, nor for GLOBALMV
-     * or GLOBAL_GLOBALMV on identity global motion */
+    if (b->skip_mode) b->ctype = COMPOUND_AVERAGE;
+    else if (comp) read_compound_type(d, b);
+    /* spec needs_interp_filter: none for skip_mode, a local warp, nor for
+     * GLOBALMV or GLOBAL_GLOBALMV of 8x8 or more unless a side's GmType
+     * is TRANSLATION */
     if (d->interp_filter == 4) {
-        int global = b->mode == GLOBALMV || b->mode == GLOBAL_GLOBALMV;
-        int need = b->motion_mode != LOCALWARP && !(imin(b->wl, b->hl) >= 1 && global);
+        int trans = d->gm_type[b->ref] == TRANSLATION ||
+                    (comp && d->gm_type[b->ref2] == TRANSLATION);
+        int need = !b->skip_mode && b->motion_mode != LOCALWARP &&
+                   !(imin(b->wl, b->hl) >= 1 && global && !trans);
         for (int dir = 0; dir < (d->dual_filter ? 2 : 1); dir++)
             b->filt[dir] = need ? read_symbol(d, d->cdf[D_INTERP] + (size_t)interp_ctx(d, b, dir) * 4, 3)
                                 : 0;
@@ -2739,7 +2838,9 @@ static void inter_frame_mode_info(Dec *d, Blk *b) {
     block_preamble(d, b);
     if (d->err) return;
     int is_inter;
-    if (seg_active(d, d->seg_ref_mask)) {
+    if (b->skip_mode) {
+        is_inter = 1;
+    } else if (seg_active(d, d->seg_ref_mask)) {
         is_inter = ((d->seg_ref_frames >> (3 * d->seg_id)) & 7) != INTRA_FRAME;
     } else if (seg_active(d, d->seg_gmv_mask)) {
         is_inter = 1;
@@ -2989,32 +3090,6 @@ static void compound_blend(Dec *d, const Blk *b, int plane, int bx, int by, int 
     }
 }
 
-/* spec 7.11.3.1 for a compound block (at least 8x8, SIMPLE motion): each
- * plane's two sides predicted unclipped (either through a reference of
- * another scale), then blended (compound_blend, its time in
- * motion_ns[3]) */
-static void predict_compound(Dec *d, Blk *b) {
-    static _Thread_local int32_t p0[128 * 128], p1[128 * 128];
-    static _Thread_local uint8_t mask[128 * 128];
-    int fwd = b->ctype == COMPOUND_DISTANCE ? fwd_weight(d, b) : 0;
-    if (ref_is_scaled(d, b->ref) || ref_is_scaled(d, b->ref2)) {
-        d->count[T_SCALED_PRED]++;
-        d->count[T_COMPOUND_SCALED]++;
-    }
-    int filt = b->filt[0] | b->filt[1] << 2;
-    for (int plane = 0; plane < (b->has_chroma ? d->nplanes : 1) && !d->err; plane++) {
-        int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
-        int wl4, hl4;
-        plane_block(d, b, plane, &wl4, &hl4);
-        int pw = 4 << wl4, ph = 4 << hl4;
-        int bx = (b->c >> sx) * 4, by = (b->r >> sy) * 4;
-        predict_side(d, plane, bx, by, pw, ph, b->ref, b->mv, filt, 1, p0, pw);
-        predict_side(d, plane, bx, by, pw, ph, b->ref2, b->mv2, filt, 1, p1, pw);
-        if (d->err) return;
-        MOTION_TIMED(3, compound_blend(d, b, plane, bx, by, pw, ph, p0, p1, mask, fwd));
-    }
-}
-
 /* spec 7.11.3.7 resolve_divisor: Div_Lut's multiplier for |v| and its
  * shift, signed as v */
 static int64_t resolve_divisor(const Dec *d, int64_t v, int *shift) {
@@ -3091,20 +3166,22 @@ static int setup_shear(const Dec *d, const int32_t *wp, int *abgd) {
     return 4 * abs(abgd[0]) + 7 * abs(abgd[1]) < one && 4 * abs(abgd[2]) + 4 * abs(abgd[3]) < one;
 }
 
-/* spec 7.11.3.5 block warp of a w x h plane block at (x, y) with the
- * warp wp and its shear abgd, one 8x8 at a time: each output sample's
- * horizontal then vertical Warped_Filters phase from the 8x8 centre's
- * warped position, its fraction's low WARP_PARAM_REDUCE_BITS dropped as
- * libaom and dav1d drop them, InterRound0 and InterRound1 as in the
- * translation loop; the reference clamped at its edges */
-static void warp_block(Dec *d, const Blk *b, int plane, int x, int y, int w, int h,
-                       const int32_t *wp, const int *abgd) {
-    int ref = b->ref;
+/* spec 7.11.3.5 block warp of a w x h plane block at (x, y) from
+ * reference ref with the warp wp and its shear abgd, one 8x8 at a time:
+ * each output sample's horizontal then vertical Warped_Filters phase from
+ * the 8x8 centre's warped position, its fraction's low
+ * WARP_PARAM_REDUCE_BITS dropped as libaom and dav1d drop them,
+ * InterRound0 and InterRound1 as in the translation loop (clipped pixels,
+ * or a compound side's unclipped intermediate), into dst of stride
+ * dstride; the reference clamped at its edges */
+static void warp_block(Dec *d, int ref, int plane, int x, int y, int w, int h,
+                       const int32_t *wp, const int *abgd, int compound, int32_t *dst,
+                       int dstride) {
     int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
     const int32_t *src = d->ref_plane[ref][plane];
     int rs = d->ref_stride[ref];
     int lastx = ((d->ref_w[ref] + sx) >> sx) - 1, lasty = ((d->ref_h[ref] + sy) >> sy) - 1;
-    int round0 = d->bd == 12 ? 5 : 3, round1 = d->bd == 12 ? 9 : 11;
+    int round0 = d->bd == 12 ? 5 : 3, round1 = inter_round1(d, compound);
     int maxv = (1 << d->bd) - 1;
     const int alpha = abgd[0], beta = abgd[1], gamma = abgd[2], delta = abgd[3];
     int32_t mid[15 * 8];
@@ -3134,16 +3211,75 @@ static void warp_block(Dec *d, const Blk *b, int plane, int x, int y, int w, int
             }
             for (int k = -4; k < imin(4, h - i8 - 4); k++) {
                 int p = sy4 + delta * (k + 4);
-                int32_t *out = px(d, plane, y + i8 + k + 4, x + j8);
+                int32_t *out = dst + (size_t)(i8 + k + 4) * dstride + j8;
                 for (int l = -4; l < imin(4, w - j8 - 4); l++, p += gamma) {
                     const int16_t *F = d->warp_filter + 8 * (WARPEDPIXEL_PREC_SHIFTS +
                         ((p + (1 << (WARPEDDIFF_PREC_BITS - 1))) >> WARPEDDIFF_PREC_BITS));
                     int64_t s = 0;
                     for (int t = 0; t < 8; t++) s += (int64_t)F[t] * mid[(k + t + 4) * 8 + l + 4];
-                    out[l + 4] = (int32_t)clip64(rnd2(s, round1), 0, maxv);
+                    out[l + 4] = pred_out(s, round1, compound, maxv);
                 }
             }
         }
+}
+
+/* spec 7.11.3.1 useWarp 2: a side of a GLOBALMV or GLOBAL_GLOBALMV
+ * block's plane block of 8x8 or more on a reference the global warp may
+ * follow (gm_warp) */
+static int global_warp(const Dec *d, const Blk *b, int ref, int pw, int ph) {
+    return (b->mode == GLOBALMV || b->mode == GLOBAL_GLOBALMV) && d->gm_warp[ref] && pw >= 8 &&
+           ph >= 8;
+}
+
+/* the block counters of the global warp: a block warped, or one of 8x8 or
+ * more whose global side's reference has a GmType past TRANSLATION and a
+ * shear setupShear refuses (globalValid 0) */
+static void count_global_warp(Dec *d, const Blk *b, int warped) {
+    int invalid = 0;
+    if ((b->mode == GLOBALMV || b->mode == GLOBAL_GLOBALMV) && imin(b->wl, b->hl) >= 1 &&
+        !d->force_int_mv)
+        for (int i = 0; i < 1 + (b->ref2 > INTRA_FRAME); i++) {
+            int ref = i ? b->ref2 : b->ref;
+            invalid |= d->gm_type[ref] > TRANSLATION && !ref_is_scaled(d, ref) && !d->gm_warp[ref];
+        }
+    if (warped) d->count[T_GLOBAL_WARP]++;
+    else if (invalid) d->count[T_GLOBAL_WARP_INVALID]++;
+}
+
+/* spec 7.11.3.1 for a compound block (at least 8x8, SIMPLE motion): each
+ * plane's two sides predicted unclipped (either through a reference of
+ * another scale, or by the global warp, its time in motion_ns[4]), then
+ * blended (compound_blend, its time in motion_ns[3]) */
+static void predict_compound(Dec *d, Blk *b) {
+    static _Thread_local int32_t p0[128 * 128], p1[128 * 128];
+    static _Thread_local uint8_t mask[128 * 128];
+    int fwd = b->ctype == COMPOUND_DISTANCE ? fwd_weight(d, b) : 0;
+    if (ref_is_scaled(d, b->ref) || ref_is_scaled(d, b->ref2)) {
+        d->count[T_SCALED_PRED]++;
+        d->count[T_COMPOUND_SCALED]++;
+    }
+    int filt = b->filt[0] | b->filt[1] << 2, warped = 0;
+    for (int plane = 0; plane < (b->has_chroma ? d->nplanes : 1) && !d->err; plane++) {
+        int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
+        int wl4, hl4;
+        plane_block(d, b, plane, &wl4, &hl4);
+        int pw = 4 << wl4, ph = 4 << hl4;
+        int bx = (b->c >> sx) * 4, by = (b->r >> sy) * 4;
+        for (int i = 0; i < 2; i++) {
+            int ref = i ? b->ref2 : b->ref;
+            int32_t *p = i ? p1 : p0;
+            if (global_warp(d, b, ref, pw, ph)) {
+                warped = 1;
+                MOTION_TIMED(4, warp_block(d, ref, plane, bx, by, pw, ph, d->gm_params[ref],
+                                           d->gm_abgd[ref], 1, p, pw));
+            } else {
+                predict_side(d, plane, bx, by, pw, ph, ref, i ? b->mv2 : b->mv, filt, 1, p, pw);
+            }
+        }
+        if (d->err) return;
+        MOTION_TIMED(3, compound_blend(d, b, plane, bx, by, pw, ph, p0, p1, mask, fwd));
+    }
+    count_global_warp(d, b, warped);
 }
 
 /* spec 7.11.3.10-11 overlapped motion compensation of the block's w x h
@@ -3199,11 +3335,12 @@ static void predict_obmc(Dec *d, const Blk *b, int plane, int x0, int y0, int w,
     }
 }
 
-/* spec 7.11.3.1 for an inter block: each plane's block at the block's MV;
- * the chroma of a block narrower or shorter than 8 in a subsampled
- * direction covers the blocks before it, each part predicted with its own
- * block's MV, reference and filters, unless one of them is intra
- * (someUseIntra) */
+/* spec 7.11.3.1 for an inter block: each plane's block at the block's MV
+ * (or warped: by its local warp, or by the global motion of a GLOBALMV
+ * block's reference, its time in motion_ns[4]); the chroma of a block
+ * narrower or shorter than 8 in a subsampled direction covers the blocks
+ * before it, each part predicted with its own block's MV, reference and
+ * filters, unless one of them is intra (someUseIntra) */
 static void predict_inter(Dec *d, Blk *b) {
     if (b->ref2 > INTRA_FRAME) {
         predict_compound(d, b);
@@ -3212,7 +3349,7 @@ static void predict_inter(Dec *d, Blk *b) {
     if (ref_is_scaled(d, b->ref)) d->count[T_SCALED_PRED]++;
     /* spec 7.11.3.1: LocalValid and the shear once, at plane 0 */
     int32_t wp[6];
-    int abgd[4], warp = 0;
+    int abgd[4], warp = 0, warped = 0;
     if (b->motion_mode == LOCALWARP) {
         d->count[T_LOCAL_WARP]++;
         MOTION_TIMED(1, warp = warp_estimation(d, b, wp) && setup_shear(d, wp, abgd));
@@ -3243,14 +3380,22 @@ static void predict_inter(Dec *d, Blk *b) {
         if (plane == 1 && (predw < pw || predh < ph)) d->count[T_SUB8X8_CHROMA_MVS]++;
         /* a warp needs a plane block of 8x8 at least (useWarp) */
         if (warp && pw >= 8 && ph >= 8) {
-            MOTION_TIMED(1, warp_block(d, b, plane, bx, by, pw, ph, wp, abgd));
+            MOTION_TIMED(1, warp_block(d, b->ref, plane, bx, by, pw, ph, wp, abgd, 0,
+                                       px(d, plane, by, bx), d->stride));
             continue;
         }
-        for (int y = 0, i = 0; y < ph; y += predh, i++)
-            for (int x = 0, j = 0; x < pw; x += predw, j++)
-                predict_part(d, plane, bx + x, by + y, predw, predh, cr + i, cc + j);
+        if (global_warp(d, b, b->ref, pw, ph)) {
+            warped = 1;
+            MOTION_TIMED(4, warp_block(d, b->ref, plane, bx, by, pw, ph, d->gm_params[b->ref],
+                                       d->gm_abgd[b->ref], 0, px(d, plane, by, bx), d->stride));
+        } else {
+            for (int y = 0, i = 0; y < ph; y += predh, i++)
+                for (int x = 0, j = 0; x < pw; x += predw, j++)
+                    predict_part(d, plane, bx + x, by + y, predw, predh, cr + i, cc + j);
+        }
         if (b->motion_mode == OBMC) MOTION_TIMED(0, predict_obmc(d, b, plane, bx, by, pw, ph));
     }
+    count_global_warp(d, b, warped);
 }
 
 static void decode_block(Dec *d, int r, int c, int wl, int hl) {
@@ -3277,6 +3422,7 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
     b->mv2[0] = b->mv2[1] = 0;
     b->cgi = 0;
     b->cidx = 1;
+    b->skip_mode = 0;
     if (b->has_chroma) {
         b->avail_uc = (d->ssy && h4 == 1) ? is_inside(d, r - 2, c) : b->avail_u;
         b->avail_lc = (d->ssx && w4 == 1) ? is_inside(d, r, c - 2) : b->avail_l;
@@ -3307,6 +3453,7 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
     int newmv = ref > INTRA_FRAME && (side_mode(b->mode, 0) == NEWMV ||
                                       (ref2 > INTRA_FRAME && side_mode(b->mode, 1) == NEWMV));
     uint8_t lf = (uint8_t)(ref * 2 + mode_type + ((b->skip && b->is_inter) << 4));
+    int gmv = ref > INTRA_FRAME && !mode_type && imin(wl, hl) >= 1;
     if (ref > INTRA_FRAME && d->lf_delta_enabled && d->lf_on) {
         if (d->lf_ref_deltas[ref]) d->count[T_LF_REF_DELTA]++;
         if (d->lf_mode_deltas[mode_type]) d->count[T_LF_MODE_DELTA]++;
@@ -3327,6 +3474,8 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
             d->mi_mv2[2 * m + 1] = (int16_t)(ref2 > INTRA_FRAME ? b->mv2[1] : 0);
             d->mi_cgi[m] = (uint8_t)b->cgi;
             d->mi_cidx[m] = (uint8_t)b->cidx;
+            d->mi_gmv[m] = (uint8_t)gmv;
+            d->mi_skip_mode[m] = (uint8_t)b->skip_mode;
             d->mi_paln[m] = (uint8_t)b->pal_n;
             if (b->pal_n) memcpy(d->mi_pal + (size_t)m * 8, b->pal, sizeof(b->pal));
             d->mi_paln_uv[m] = (uint8_t)b->pal_uv_n;
@@ -3655,10 +3804,11 @@ static void mf_store(const Dec *d, int mask, int8_t *refs, int16_t *mvs) {
  * the restoration units (per plane, row and column, strides
  * H_LR_RSTRIDE x H_LR_CSTRIDE: kind 0 none / 1 Wiener / 2 SGR, then 6
  * taps or set, xqd0, xqd1) and the tool counters (T_NCOUNTERS). Where
- * motion_ns (four int64) is not NULL, it gains the nanoseconds spent in
+ * motion_ns (five int64) is not NULL, it gains the nanoseconds spent in
  * OBMC's neighbour predictions and blends ([0]), in the local warp, its
  * estimation, shear and block warps ([1]), in motion field estimation
- * ([2]) and in compound blocks' masks and blends ([3]).
+ * ([2]), in compound blocks' masks and blends ([3]) and in the block
+ * warps of global motion ([4]).
  * Returns 0, or 1
  * (unsupported tool) / 2 (corrupt stream) with msg set.
  *
@@ -3764,6 +3914,9 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->div_lut = inter_tables + TAB_DIV_LUT;
     d->obmc_mask = inter_tables + TAB_OBMC;
     d->div_mult = inter_tables + TAB_DIV_MULT;
+    d->skip_mode_present = hdr[H_SKIP_MODE_PRESENT];
+    d->skip_mode_frame[0] = hdr[H_SKIP_MODE_FRAME0];
+    d->skip_mode_frame[1] = hdr[H_SKIP_MODE_FRAME1];
     for (int rf = 0; rf < 8; rf++) d->cur_off[rf] = mf[2 + rf];
     for (int rf = 1; rf < 8 && refs; rf++) {
         for (int p = 0; p < 3; p++) d->ref_plane[rf][p] = refs[(rf - 1) * 3 + p];
@@ -3786,6 +3939,16 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
         }
         d->xscale[rf] = ref_scale(d->ref_w[rf], d->width);
         d->yscale[rf] = ref_scale(d->ref_h[rf], d->height);
+    }
+    /* global motion: each reference's parameters, and whether its warp is
+     * allowed (spec 7.11.3.1's globalValid from setupShear, and useWarp's
+     * other conditions that hold for the whole frame) */
+    for (int rf = 1; rf < 8; rf++) {
+        d->gm_type[rf] = hdr[H_GM_TYPE1 + rf - 1];
+        for (int i = 0; i < 6; i++) d->gm_params[rf][i] = hdr[H_GM1_0 + 6 * (rf - 1) + i];
+        d->gm_warp[rf] = d->gm_type[rf] > TRANSLATION && !d->force_int_mv &&
+                         setup_shear(d, d->gm_params[rf], d->gm_abgd[rf]) &&
+                         refs && d->ref_plane[rf][0] && !ref_is_scaled(d, rf);
     }
     if (d->frame_type) counts[T_INTER_FRAME]++;
     d->dc_lut = qlut;
@@ -3819,7 +3982,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->cdef_idx = cdef_idx;
     memset(cdef_idx, -1, (size_t)d->cdef_stride * ((d->mi_rows + 15) / 16));
     size_t nmi = (size_t)d->mi_rows * d->mi_cols;
-    uint8_t *mi8 = (uint8_t *)calloc(nmi * 15, 1);
+    uint8_t *mi8 = (uint8_t *)calloc(nmi * 17, 1);
     d->mi_pal = (uint16_t *)calloc(nmi * 16, sizeof(uint16_t));
     d->mi_mv = (int16_t *)calloc(nmi * 4, sizeof(int16_t));
     size_t n8 = (size_t)(d->mi_rows >> 1) * (size_t)(d->mi_cols >> 1);
@@ -3843,6 +4006,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->mi_filt = mi8 + 11 * nmi; d->mi_lf = mi_lf; d->mi_bsz = mi_bsz;
     d->mi_ref2 = (int8_t *)(mi8 + 12 * nmi); d->mi_cgi = mi8 + 13 * nmi;
     d->mi_cidx = mi8 + 14 * nmi; d->mi_mv2 = d->mi_mv + 2 * nmi;
+    d->mi_gmv = mi8 + 15 * nmi; d->mi_skip_mode = mi8 + 16 * nmi;
     d->mi_pal_u = d->mi_pal + nmi * 8;
     {
         size_t ac = (size_t)d->mi_cols + 32, lc = (size_t)d->mi_rows + 32;

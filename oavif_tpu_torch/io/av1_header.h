@@ -73,6 +73,18 @@ enum {
     H_LF_MODE_DELTA0, H_LF_MODE_DELTA1, H_SEG_REF_MASK, H_SEG_REF_FRAMES, H_SEG_GLOBALMV_MASK,
     /* the sequence's enable_masked_compound and enable_jnt_comp */
     H_MASKED_COMPOUND, H_JNT_COMP,
+    /* skip_mode_present and SkipModeFrame[0..1] (spec 5.9.22) */
+    H_SKIP_MODE_PRESENT, H_SKIP_MODE_FRAME0, H_SKIP_MODE_FRAME1,
+    /* GmType of LAST..ALTREF (0 IDENTITY, 1 TRANSLATION, 2 ROTZOOM, 3
+     * AFFINE) and their gm_params[0..5] (spec 5.9.24) */
+    H_GM_TYPE1, H_GM_TYPE2, H_GM_TYPE3, H_GM_TYPE4, H_GM_TYPE5, H_GM_TYPE6, H_GM_TYPE7,
+    H_GM1_0, H_GM1_1, H_GM1_2, H_GM1_3, H_GM1_4, H_GM1_5,
+    H_GM2_0, H_GM2_1, H_GM2_2, H_GM2_3, H_GM2_4, H_GM2_5,
+    H_GM3_0, H_GM3_1, H_GM3_2, H_GM3_3, H_GM3_4, H_GM3_5,
+    H_GM4_0, H_GM4_1, H_GM4_2, H_GM4_3, H_GM4_4, H_GM4_5,
+    H_GM5_0, H_GM5_1, H_GM5_2, H_GM5_3, H_GM5_4, H_GM5_5,
+    H_GM6_0, H_GM6_1, H_GM6_2, H_GM6_3, H_GM6_4, H_GM6_5,
+    H_GM7_0, H_GM7_1, H_GM7_2, H_GM7_3, H_GM7_4, H_GM7_5,
     /* the 1 << cdef_bits strength sets (y primary, y secondary, uv
      * primary, uv secondary; secondary 3 already read as 4) */
     H_CDEF_STRENGTHS,
@@ -163,6 +175,12 @@ enum {
     T_NEAR_NEWMV, T_NEW_NEARMV, T_GLOBAL_GLOBALMV, T_NEW_NEWMV,
     T_COMPOUND_AVERAGE, T_COMPOUND_DISTANCE, T_COMPOUND_WEDGE,
     T_COMPOUND_DIFFWTD, T_COMP_REF_UNIDIR, T_COMP_REF_BIDIR, T_COMPOUND_SCALED,
+    /* global motion (spec 7.10.2.1, 7.11.3.1): the sides of GLOBALMV and
+     * GLOBAL_GLOBALMV blocks on a reference of each GmType past IDENTITY,
+     * blocks warped by global motion, and blocks that would have been but
+     * for a shear setupShear refuses (globalValid 0); skip_mode blocks */
+    T_GLOBAL_TRANSLATION, T_GLOBAL_ROTZOOM, T_GLOBAL_AFFINE, T_GLOBAL_WARP,
+    T_GLOBAL_WARP_INVALID, T_SKIP_MODE,
     T_NCOUNTERS
 };
 

@@ -985,6 +985,8 @@ class FrameHeader:
     lf_mode_deltas: Tuple[int, int] = (0, 0)
     reference_select: bool = False
     skip_mode_present: bool = False
+    # SkipModeFrame[0..1] where skip mode is allowed (spec 5.9.22)
+    skip_mode_frames: Optional[Tuple[int, int]] = None
     allow_warped_motion: bool = False
     # GmType and gm_params of LAST..ALTREF (0 IDENTITY, 1 TRANSLATION,
     # 2 ROTZOOM, 3 AFFINE)
@@ -1239,7 +1241,8 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int, sid: int,
     fh.tx_mode = 0 if fh.lossless else (2 if b.f(1) else 1)
     if not intra:
         fh.reference_select = bool(b.f(1))
-        fh.skip_mode_present = bool(_skip_mode_allowed(s, fh) and b.f(1))
+        fh.skip_mode_frames = _skip_mode_frames(s, fh)
+        fh.skip_mode_present = bool(fh.skip_mode_frames and b.f(1))
         fh.allow_warped_motion = bool(not fh.error_resilient
                                       and s.warped_motion and b.f(1))
     fh.reduced_tx_set = bool(b.f(1))
@@ -1273,25 +1276,34 @@ def _superres_params(b: _Bits, s: SequenceHeader, fh: FrameHeader) -> None:
             // fh.superres_denom
 
 
-def _skip_mode_allowed(s: SequenceHeader, fh: FrameHeader) -> bool:
-    """skip_mode_params' skipModeAllowed: a forward and a backward (or a
-    second forward) reference among the frame's seven."""
+def _skip_mode_frames(s: SequenceHeader,
+                      fh: FrameHeader) -> Optional[Tuple[int, int]]:
+    """skip_mode_params: SkipModeFrame[0..1], the reference frames (LAST
+    + index) of the nearest forward reference and the nearest backward
+    one, or without a backward one the second nearest forward one, the
+    smaller index first; None where skip mode is not allowed."""
     if not (fh.reference_select and s.order_hint_bits):
-        return False
+        return None
     rel = lambda a, b: _relative_dist(s, a, b)  # noqa: E731
+    hints = fh.ref_order_hints
     fwd = bwd = None
-    for h in fh.ref_order_hints:
+    for i, h in enumerate(hints):
         if rel(h, fh.order_hint) < 0:
-            if fwd is None or rel(h, fwd) > 0:
-                fwd = h
+            if fwd is None or rel(h, hints[fwd]) > 0:
+                fwd = i
         elif rel(h, fh.order_hint) > 0:
-            if bwd is None or rel(h, bwd) < 0:
-                bwd = h
+            if bwd is None or rel(h, hints[bwd]) < 0:
+                bwd = i
     if fwd is None:
-        return False
-    if bwd is not None:
-        return True
-    return any(rel(h, fwd) < 0 for h in fh.ref_order_hints)
+        return None
+    if bwd is None:
+        for i, h in enumerate(hints):
+            if rel(h, hints[fwd]) < 0 and (
+                    bwd is None or rel(h, hints[bwd]) > 0):
+                bwd = i
+        if bwd is None:
+            return None
+    return 1 + min(fwd, bwd), 1 + max(fwd, bwd)
 
 
 def _decode_subexp(b: _Bits, num_syms: int) -> int:
@@ -1685,7 +1697,7 @@ _CDF_ORDER = (
     "mv0_class0", "mv0_bits", "mv0_class0_fr", "mv0_fr", "mv0_class0_hp",
     "mv0_hp", "comp_ref_type", "uni_comp_ref", "comp_ref", "comp_bwdref",
     "compound_mode", "compound_type", "wedge_index", "comp_group_idx",
-    "compound_idx",
+    "compound_idx", "skip_mode",
 )
 # the header pack's fields in the order of av1_header.h's H_* enum
 _HDR_FIELDS = (
@@ -1710,7 +1722,10 @@ _HDR_FIELDS = (
     "allow_warped", "dual_filter", "interintra", "sign_bias",
     "context_tile") + tuple(f"lf_ref_delta{i}" for i in range(1, 8)) + (
     "lf_mode_delta0", "lf_mode_delta1", "seg_ref_mask", "seg_ref_frames",
-    "seg_globalmv_mask", "masked_compound", "jnt_comp") \
+    "seg_globalmv_mask", "masked_compound", "jnt_comp",
+    "skip_mode_present", "skip_mode_frame0", "skip_mode_frame1") \
+    + tuple(f"gm_type{r}" for r in range(1, 8)) \
+    + tuple(f"gm{r}_{i}" for r in range(1, 8) for i in range(6)) \
     + tuple(f"cdef_{k}{i}" for i in range(8)
             for k in ("y_pri", "y_sec", "uv_pri", "uv_sec"))
 # the decoder's tool counters in the order of av1_header.h's T_* enum
@@ -1733,7 +1748,9 @@ TOOL_NAMES = (
     "nearest_newmv", "new_nearestmv", "near_newmv", "new_nearmv",
     "global_globalmv", "new_newmv", "compound_average", "compound_distance",
     "compound_wedge", "compound_diffwtd", "comp_ref_unidir",
-    "comp_ref_bidir", "compound_scaled",
+    "comp_ref_bidir", "compound_scaled", "global_translation",
+    "global_rotzoom", "global_affine", "global_warp", "global_warp_invalid",
+    "skip_mode",
 )
 # the film grain pack (av1_header.h's G_* enum): field, length
 _GRAIN_FIELDS = (
@@ -1861,7 +1878,8 @@ def _reader_cdfs() -> dict:
     intra block copy's (use_intrabc, the DV's MV CDFs, the var-tx split
     and the inter transform types), segment_id's and the inter frames'
     (mode info, reference frames, filters, motion modes, the MV CDFs of
-    MvCtx 0 and the compound blocks' references, modes and types)."""
+    MvCtx 0, the compound blocks' references, modes and types, and
+    skip_mode)."""
     from ..av1.frame import _adaptive
     from ..av1.tables import TABLES
 
@@ -1880,7 +1898,8 @@ def _reader_cdfs() -> dict:
                 "drl", "interp_filter", "motion_mode", "obmc",
                 "interintra", "comp_ref_type", "uni_comp_ref", "comp_ref",
                 "comp_bwdref", "compound_mode", "compound_type",
-                "wedge_index", "comp_group_idx", "compound_idx")},
+                "wedge_index", "comp_group_idx", "compound_idx",
+                "skip_mode")},
             # MvCtx 0 starts from the same defaults as intrabc's context
             **{f"mv0_{k[3:]}": _adaptive(t[k]) for k in (
                 "mv_joints", "mv_sign", "mv_classes", "mv_class0", "mv_bits",
@@ -1976,8 +1995,9 @@ def decode_av1(payload: bytes, times: Optional[dict] = None,
     "filters_f0", ...), and of that tile decode, where a frame used them,
     OBMC's ("obmc_f1", ...), the local warp's ("warp_f1", ...), motion
     field estimation's ("project_f3", ...: a frame that projected the MVs
-    of another) and the compound blocks' blends and masks ("compound_f3",
-    ...). The tool counts are those of every frame, and each
+    of another), the compound blocks' blends and masks ("compound_f3",
+    ...) and the global warp's ("gwarp_f1", ...: blocks warped by global
+    motion). The tool counts are those of every frame, and each
     frame's apart (``frame_tools``)."""
     from .av1_refs import RefFrames
 
@@ -2000,13 +2020,9 @@ def decode_av1(payload: bytes, times: Optional[dict] = None,
 
 
 def _check_inter(f: "Av1Frame", refs) -> None:
-    """The inter tools this decoder refuses at the frame level."""
+    """The reference slots of an inter frame: filled, and of the frame's
+    depth and format."""
     fh = f.frame
-    if any(fh.gm_type):
-        raise UnsupportedAvif("AV1: global motion other than IDENTITY is "
-                              "not supported")
-    if fh.skip_mode_present:
-        raise UnsupportedAvif("AV1: skip_mode is not supported")
     for i in fh.ref_frame_idx:
         ref = refs.slots[i]
         if ref is None:
@@ -2118,6 +2134,12 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
         seg_globalmv_mask=sum(1 << i for i, f_ in enumerate(seg)
                               if f_[7] is not None),
         masked_compound=int(s.masked_compound), jnt_comp=int(s.jnt_comp),
+        skip_mode_present=int(fh.skip_mode_present),
+        **dict(zip(("skip_mode_frame0", "skip_mode_frame1"),
+                   fh.skip_mode_frames or (0, 0))),
+        **{f"gm_type{r}": t for r, t in enumerate(fh.gm_type, 1)},
+        **{f"gm{r}_{i}": v for r, p in enumerate(fh.gm_params, 1)
+           for i, v in enumerate(p)},
         **{name: v for name, v in zip(_HDR_FIELDS[-32:], strengths)})
     hdr = np.array([fields[k] for k in _HDR_FIELDS], dtype=np.int32)
     starts = np.array(fh.tile_col_starts + fh.tile_row_starts, dtype=np.int32)
@@ -2168,9 +2190,10 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
     mf_mvs = np.zeros((fh.mi_rows // 2, fh.mi_cols // 2, 2), dtype=np.int16)
     msg = C.create_string_buffer(256)
     vp = C.c_void_p
-    # the ns of OBMC, of the local warp, of motion field estimation and of
-    # compound blends and masks, taken where times are
-    motion = np.zeros(4, dtype=np.int64) if times is not None else None
+    # the ns of OBMC, of the local warp, of motion field estimation, of
+    # compound blends and masks and of the global warp, taken where times
+    # are
+    motion = np.zeros(5, dtype=np.int64) if times is not None else None
     rc = lib.av1_decode_frame(
         C.cast(tile_ptrs, vp), tile_sizes.ctypes.data, hdr.ctypes.data,
         starts.ctypes.data, C.cast(cdf_ptrs, vp), cdf_lens.ctypes.data,
@@ -2236,7 +2259,8 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
                      (f"filters_f{index}", t2 - t1),
                      *((f"{tool}_f{index}", motion[k] * 1e-9)
                        for k, tool in ((0, "obmc"), (1, "warp"),
-                                       (3, "compound")) if motion[k]),
+                                       (3, "compound"), (4, "gwarp"))
+                       if motion[k]),
                      *(((f"project_f{index}", motion[2] * 1e-9),)
                        if sources else ())):
             times[k] = times.get(k, 0.0) + v
@@ -2696,7 +2720,13 @@ def read_avif(data: bytes, times: Optional[dict] = None):
     16-bit path; subsampled planes do not stack, and it falls back to the
     8-bit conversion, except at 64 columns or fewer, where it stacks rows
     read past the chroma planes, which this reader does not reproduce.)"""
-    box, color, alpha = decode_avif(data, times)
+    return avif_pixels(*decode_avif(data, times), times)
+
+
+def avif_pixels(box: AvifContainer, color: DecodedImage,
+                alpha: Optional[DecodedImage], times: Optional[dict] = None):
+    """``read_avif``'s (pixels, high bit depth, ICC profile) of what
+    ``decode_avif`` returned; ``times`` gains "convert"."""
     t0 = time.perf_counter()
     bd = color.bit_depth
     if (bd > 8 and color.full_range and color.cicp[2] in (2, 5, 6)

@@ -63,7 +63,10 @@ and write ``oavif_tpu_torch/io/av1_tool_tables.npz``:
 - ``quant_dist_weight`` and ``quant_dist_lookup``: the distance weights
   of distance-weighted compound prediction (spec Quant_Dist_Weight and
   Quant_Dist_Lookup, libaom's ``quant_dist_weight`` and
-  ``quant_dist_lookup_table``), 4 x 2 int32 stored as int16.
+  ``quant_dist_lookup_table``), 4 x 2 int32 stored as int16;
+- ``skip_mode``: the default CDFs of ``skip_mode`` (spec
+  Default_Skip_Mode_Cdf, libaom's ``default_skip_mode_cdfs``), one CDF2 row
+  for each of its 3 contexts.
 
 Each table is found by a structural signature and checked against anchor
 values before anything is written: the matrices by their first 4x4 (the
@@ -83,7 +86,9 @@ their first four values and each the floor of 2^14 / i; the compound
 CDFs by their first rows and the spec's values of their last; the wedge
 codebooks by their horizontal and vertical entries (which tell the three
 apart) and the spec's tables; the wedge master rows and the distance
-weights by the spec's values. libaom copies its small default CDFs into
+weights by the spec's values; skip_mode by the spec's three rows, which
+libaom keeps as one 16-byte chunk (its zero tail left to the zeroed frame
+context). libaom copies its small default CDFs into
 the frame context with immediate stores and 16-byte loads, so
 ``intrabc`` is read from the one store of its value in ``.text``, and
 ``txfm_split`` from its 16-byte chunks, which the linker keeps in order
@@ -202,6 +207,8 @@ WEDGE_MASTER = ((28, (1, 4, 11, 27, 46, 58, 62, 63)),
                 (29, (2, 7, 21, 43, 57, 62)))
 QUANT_DIST_WEIGHT = ((2, 3), (2, 5), (2, 7), (1, 31))
 QUANT_DIST_LOOKUP = ((9, 7), (11, 5), (12, 4), (13, 3))
+# Default_Skip_Mode_Cdf
+SKIP_MODE = (32621, 20708, 8127)
 
 
 def section(lib: str, name: str = ".rodata") -> bytes:
@@ -655,6 +662,18 @@ def quant_dist(data: bytes) -> dict:
     return out
 
 
+def skip_mode_cdf(data: bytes) -> np.ndarray:
+    """default_skip_mode_cdfs: three CDF2 rows, found by all of them but
+    the last row's counter and checked to be a CDF."""
+    sig = np.array(_rows(SKIP_MODE[:2], 2) + _icdf(SKIP_MODE[2]) + [0],
+                   "<u2").tobytes()
+    t = _table(data, find_once(data, sig, "skip_mode CDF"), 3, 2,
+               "skip_mode")
+    require(tuple(32768 - t[:, 0].astype(int)) == SKIP_MODE,
+            "skip_mode CDF: its rows")
+    return t
+
+
 def main(argv: list) -> None:
     lib = argv[0] if argv else LIBAOM
     data = section(lib)
@@ -671,7 +690,8 @@ def main(argv: list) -> None:
               "warped_filter": warped_filter(data), "div_lut": div_lut(data),
               "obmc_mask": obmc_masks(data), "div_mult": div_mult(data),
               **compound_cdfs(data, section(lib, ".text")),
-              **wedge_tables(data), **quant_dist(data)}
+              **wedge_tables(data), **quant_dist(data),
+              "skip_mode": skip_mode_cdf(data)}
     np.savez_compressed(OUT, **tables)
     for k, v in tables.items():
         print(f"{k}: {v.shape} {v.dtype}")

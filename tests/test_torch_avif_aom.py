@@ -123,6 +123,11 @@ TOOLS_MADE = {**json.loads((FIXTURES.parent / "avif_tools"
               # written frames in every compound mode and type
               **{f"avif_compound/{n}": e for n, e in json.loads(
                   (FIXTURES.parent / "avif_compound" / "manifest.json")
+                  .read_text()).items()},
+              # global motion of every type and skip_mode: written frames
+              # over libaom's layers
+              **{f"avif_globalmv/{n}": e for n, e in json.loads(
+                  (FIXTURES.parent / "avif_globalmv" / "manifest.json")
                   .read_text()).items()}}
 
 

@@ -54,7 +54,10 @@ MANIFEST = json.loads((FIXTURES / "manifest.json").read_text())
 sys.path.insert(0, str(FIXTURES))
 import make_avif_compound as MK  # noqa: E402
 
-COUNTERS = A.TOOL_NAMES[A.TOOL_NAMES.index("nearest_nearestmv"):]
+# the compound counters (the global motion and skip_mode ones that follow
+# are tests/test_torch_avif_globalmv.py's)
+COUNTERS = A.TOOL_NAMES[A.TOOL_NAMES.index("nearest_nearestmv"):
+                        A.TOOL_NAMES.index("global_translation")]
 
 
 def _crc(a) -> int:

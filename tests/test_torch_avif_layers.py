@@ -241,24 +241,45 @@ def test_layer_properties_pick_each_layer():
 # ---------------------------------------------------------------------------
 
 
-def test_frame_level_refusals_name_the_tool(monkeypatch):
-    """Global motion other than IDENTITY and skip_mode, set in the probe's
-    inter frame header: the decode refuses the frame naming the tool."""
-    data = (FIXTURES / "probe_256_420.avif").read_bytes()
-    real = A.parse_frame_header
-    for tool, changes in {"global motion other than IDENTITY": dict(
-            gm_type=(1,) + (0,) * 6), "skip_mode": dict(
-            skip_mode_present=True)}.items():
-        def parse(*a, **k):
-            fh = real(*a, **k)
-            if fh.frame_type:
-                for name, v in changes.items():
-                    setattr(fh, name, v)
-            return fh
+def test_frame_level_refusals_name_the_tool():
+    """Global motion other than IDENTITY and skip_mode, once refused at the
+    frame level by name: a frame ``inter_writer`` writes with each (a
+    ROTZOOM LAST under GLOBALMV, NEARESTMV and NEWMV blocks; skip_mode
+    blocks beside compound ones on a forward and a backward reference)
+    now decodes to dav1d's planes."""
+    from inter_writer import (CompoundBlock, InterBlock, SkipModeBlock,
+                              write_layered)
 
-        monkeypatch.setattr(A, "parse_frame_header", parse)
-        with pytest.raises(A.UnsupportedAvif, match=re.escape(tool)):
-            A.decode_avif(data)
+    yuv = MK.to_yuv(MK.bench_images(256)["fractal"], 8, "4:2:0")
+    one = 1 << 16
+    rotzoom = (2, (300 << 10, -500 << 10, one + 300, -460, 460, one + 300))
+    rng = np.random.default_rng(6)
+    for tool in ("global motion", "skip_mode"):
+        base = 1 if tool == "global motion" else 2
+        key = MK.aom_encode_layers(yuv, 8, "4:2:0", (40, 30, 20)[:base + 1],
+                                   options={"cpu-used": 8})
+        if tool == "global motion":
+            sbs = [(2, [InterBlock(tuple(int(v) for v in rng.integers(
+                -20, 21, 2)), mode=("global", "nearest", "new")[i % 3])
+                for i in range(16)]) for _ in range(16)]
+            stream = write_layered(key, sbs, gm=(rotzoom,) + (
+                (0, (0, 0, one, 0, 0, one)),) * 6)
+            counter = "global_warp"
+        else:
+            sbs = [(2, [(SkipModeBlock(), CompoundBlock(6), InterBlock(
+                (4 * (i % 5), -6))) [i % 3] for i in range(16)])
+                for _ in range(16)]
+            stream = write_layered(key, sbs, pair=(1, 7), base_layers=2,
+                                   ref_slots=(1, 0, 1, 0, 1, 0, 0),
+                                   order_hint=65, skip_mode=True)
+            counter = "skip_mode"
+        data = MK.container(stream, 256, 256, 8)
+        planes, _, _ = decode_to_yuv(data)
+        img = A.decode_avif(data)[1]
+        assert img.tools[counter] > 0, tool
+        assert len(img.planes) == 3
+        for got, want in zip(img.planes, planes):
+            np.testing.assert_array_equal(got, want, err_msg=tool)
 
 
 @pytest.mark.parametrize("refuse,tool", [

@@ -8,7 +8,12 @@ warps that fall back to translation, OBMC beside two filters, both at
 compound mode and type, on any reference pair, distance-weighted under
 ``enable_jnt_comp`` (which libaom's realtime usage turns off), over one
 layer of libaom or two (``base_layers``, so that the two references lie
-at different distances).
+at different distances); global motion of every type (``gm``: each
+reference frame's GmType and gm_params, coded against the primary
+reference's, with GLOBALMV and GLOBAL_GLOBALMV blocks beside NEARESTMV,
+NEARMV and NEWMV ones, and a second written frame on the first, ``chain``)
+and skip_mode blocks (``skip_mode``, ``SkipModeBlock``), with delta q
+(``delta_q``) and 128-pixel superblocks where libaom's sequence has them.
 
     from inter_writer import InterBlock, write_layered
     data = write_layered(key_obus, blocks, filter=4, dual=True)
@@ -20,9 +25,11 @@ needs (``enable_dual_filter``, ``enable_warped_motion`` under ``motion``,
 reference MVs), then one inter frame of spatial layer 1 with every
 block inter, skipped (no residual) and predicted from LAST at its own MV
 (NEWMV, the difference from its MV stack's prediction coded in MV context
-0), filters and motion mode; or, with ``pair``, every block a compound
+0; or NEARESTMV, NEARMV or GLOBALMV as ``InterBlock.mode`` asks),
+filters and motion mode; or, with ``pair``, every block a compound
 block of 8x8 or more on that pair of references (``CompoundBlock``: its
-mode, type and the MVs of its NEWMV sides). With ``base_layers`` 2 the
+mode, type and the MVs of its NEWMV sides); under ``skip_mode`` a
+``SkipModeBlock`` is a skip_mode block (8x8 or more) on SkipModeFrame. With ``base_layers`` 2 the
 stream keeps libaom's first two layers (their sequence header's inter
 tools kept as libaom wrote them) and the frame is layer 2, its
 references the key frame (slot 0, order hint 0) or layer 1 (slot 1,
@@ -58,6 +65,8 @@ REF_CAT = 640
 
 
 SIMPLE, OBMC, LOCALWARP = 0, 1, 2
+IDENTITY, TRANSLATION, ROTZOOM, AFFINE = 0, 1, 2, 3
+GM_IDENTITY = (0, 0, 1 << 16, 0, 0, 1 << 16)
 LAST, LAST2, LAST3, GOLDEN, BWDREF, ALTREF2, ALTREF = range(1, 8)
 # compound modes (NEAREST_NEARESTMV + n) and each side's single mode
 NEAREST, NEAR, GLOBAL, NEW = "nearest", "near", "global", "new"
@@ -88,6 +97,9 @@ class InterBlock:
     motion: int = SIMPLE
     warp: Optional[str] = None
     ref: int = 1  # LAST; another in a frame of compound blocks (``pair``)
+    # NEW, or NEAREST, NEAR or GLOBAL (the MV then the stack's or the
+    # block's GlobalMv, ``mv`` unused; LOCALWARP only with NEW)
+    mode: str = NEW
 
 
 @dataclass
@@ -106,6 +118,12 @@ class CompoundBlock:
     filt: Tuple[int, int] = (0, 0)
     wedge: int = 0
     sign: int = 0
+
+
+@dataclass
+class SkipModeBlock:
+    """A skip_mode block (8x8 or more, in a frame with ``skip_mode``): one
+    symbol, the rest implied."""
 
 
 def _ref_count_ctx(a: int, b: int) -> int:
@@ -215,6 +233,81 @@ def _su(w: BitWriter, v: int, n: int) -> None:
     w.f(v & ((1 << n) - 1), n)
 
 
+def _ns(w: BitWriter, n: int, v: int) -> None:
+    """ns(n) of v (spec 4.10.7)."""
+    if n <= 1:
+        return
+    bits = n.bit_length()
+    m = (1 << bits) - n
+    if v < m:
+        w.f(v, bits - 1)
+    else:
+        w.f((v + m) >> 1, bits - 1)
+        w.f((v + m) & 1, 1)
+
+
+def _subexp(w: BitWriter, n: int, v: int, k: int = 3) -> None:
+    """decode_subexp's code of v < n (libaom's
+    wb_write_primitive_subexpfin)."""
+    i = mk = 0
+    while True:
+        b2 = k + i - 1 if i else k
+        a = 1 << b2
+        if n <= mk + 3 * a:
+            _ns(w, n - mk, v - mk)
+            return
+        more = v >= mk + a
+        w.f(int(more), 1)
+        if not more:
+            w.f(v - mk, b2)
+            return
+        i += 1
+        mk += a
+
+
+def _recenter(r: int, v: int) -> int:
+    if v > 2 * r:
+        return v
+    return (v - r) << 1 if v >= r else ((r - v) << 1) - 1
+
+
+def global_param(w: BitWriter, typ: int, idx: int, value: int, prev: int,
+                 hp: bool) -> None:
+    """read_global_param's code of gm_params[idx] ``value`` against
+    PrevGmParams' ``prev`` (decode_signed_subexp_with_ref)."""
+    abs_bits, prec_bits = 12, 15
+    if idx < 2:
+        abs_bits, prec_bits = (9 - (not hp), 3 - (not hp)) \
+            if typ == TRANSLATION else (12, 6)
+    diff = 16 - prec_bits
+    rnd = (1 << 16) if idx % 3 == 2 else 0
+    sub = (1 << prec_bits) if idx % 3 == 2 else 0
+    mx = 1 << abs_bits
+    v = (value - rnd) >> diff
+    assert (v << diff) + rnd == value and -mx <= v <= mx, (idx, value)
+    n = 2 * mx + 1
+    r, v = (prev >> diff) - sub + mx, v + mx
+    _subexp(w, n, _recenter(r, v) if 2 * r <= n
+            else _recenter(n - 1 - r, n - 1 - v))
+
+
+def global_motion(w: BitWriter, gm, prev, hp: bool) -> None:
+    """global_motion_params of LAST..ALTREF: (GmType, gm_params) each,
+    coded against PrevGmParams ``prev``."""
+    for (typ, p), q in zip(gm, prev):
+        w.f(int(typ != IDENTITY), 1)  # is_global
+        if typ != IDENTITY:
+            w.f(int(typ == ROTZOOM), 1)
+            if typ != ROTZOOM:
+                w.f(int(typ == TRANSLATION), 1)
+        if typ == ROTZOOM:
+            assert p[4] == -p[3] and p[5] == p[2]
+        idxs = ((2, 3, 4, 5) if typ == AFFINE else (2, 3)) \
+            if typ >= ROTZOOM else ()
+        for i in idxs + ((0, 1) if typ >= TRANSLATION else ()):
+            global_param(w, typ, i, p[i], q[i], hp)
+
+
 def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
                  lf: Tuple[int, int, int, int], ref_deltas, mode_deltas,
                  size: Optional[Tuple[int, int]] = None, primary: int = 7,
@@ -222,7 +315,9 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
                  seg_update: Optional[Tuple[int, int]] = None,
                  motion: bool = False, order_hint: int = 1,
                  ref_slots: Tuple[int, ...] = (0,) * 7,
-                 slot_hints: Tuple[int, ...] = (0,) * 8) -> BitWriter:
+                 slot_hints: Tuple[int, ...] = (0,) * 8, gm=None,
+                 prev_gm=None, skip_mode: bool = False, refresh: int = 0,
+                 delta_q: bool = False) -> BitWriter:
     """uncompressed_header of a shown inter frame of ``order_hint`` on
     the slots ``ref_slots`` (of order hints ``slot_hints``) for LAST ..
     ALTREF, refreshing no slot, with the default CDFs, of another ``size``
@@ -232,7 +327,12 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
     segmentation's map and temporal update flags (``seg_update``, past
     which it writes nothing of the header right); ``motion`` sets
     ``is_motion_mode_switchable`` and ``allow_warped_motion``, which is
-    written where the sequence enables warped motion."""
+    written where the sequence enables warped motion. ``gm`` gives each
+    reference's global motion (GmType, gm_params; identity where None),
+    coded against ``prev_gm`` (PrevGmParams, identity where None);
+    ``skip_mode`` writes skip_mode_present 1 where it is allowed,
+    ``refresh`` is refresh_frame_flags and ``delta_q`` sets
+    delta_q_present (delta_q_res 0, no delta LF)."""
     w = BitWriter()
     w.f(0, 1)  # show_existing_frame
     w.f(1, 2)  # INTER_FRAME
@@ -244,7 +344,7 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
     w.f(int(size is not None), 1)  # frame_size_override_flag
     w.f(order_hint, s.order_hint_bits)
     w.f(primary, 3)  # primary_ref_frame
-    w.f(0, 8)  # refresh_frame_flags
+    w.f(refresh, 8)  # refresh_frame_flags
     w.f(0, 1)  # frame_refs_short_signaling
     for slot in ref_slots:
         w.f(slot, 3)  # ref_frame_idx
@@ -292,7 +392,10 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
         if seg_update[0]:
             w.f(seg_update[1], 1)  # segmentation_temporal_update
         return w
-    w.f(0, 1)  # delta_q_present
+    w.f(int(delta_q), 1)  # delta_q_present
+    if delta_q:
+        w.f(0, 2)  # delta_q_res
+        w.f(0, 1)  # delta_lf_present
     l0, l1, l2, l3 = lf
     w.f(l0, 6)
     w.f(l1, 6)
@@ -326,12 +429,14 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
     fwd = [h for h, d in zip(hints, rel) if d < 0]
     if compound and fwd and (any(d > 0 for d in rel) or any(
             A._relative_dist(s, h, max(fwd)) < 0 for h in fwd)):
-        w.f(0, 1)  # skip_mode_present
+        w.f(int(skip_mode), 1)  # skip_mode_present
+    else:
+        assert not skip_mode, "skip mode is not allowed"
     if s.warped_motion:
         w.f(int(motion), 1)  # allow_warped_motion
     w.f(0, 1)  # reduced_tx_set
-    for _ in range(7):
-        w.f(0, 1)  # is_global
+    global_motion(w, gm or ((IDENTITY, GM_IDENTITY),) * 7,
+                  prev_gm or (GM_IDENTITY,) * 7, hp)
     w.byte_align()
     return w
 
@@ -343,9 +448,23 @@ class _Tile:
                  dual: bool, hp: bool, size: Tuple[int, int],
                  motion: bool = False, pair: Optional[Tuple[int, int]] = None,
                  bias: Tuple[int, ...] = (0,) * 8,
-                 same_dist: bool = True) -> None:
+                 same_dist: bool = True, gm=None,
+                 skip_frames: Optional[Tuple[int, int]] = None,
+                 delta_q: bool = False) -> None:
         self.s, self.filt, self.dual, self.hp = s, filt, dual, hp
         self.motion = motion
+        # global motion of LAST..ALTREF, the block whose stack is being
+        # built's GlobalMvs, and per mi whether its block is a GLOBALMV or
+        # GLOBAL_GLOBALMV block of 8x8 or more; SkipModeFrame (None where
+        # the frame has no skip_mode) and each mi's skip_mode; delta q
+        # (one delta_q_abs at the first block of a superblock, unless it
+        # is the whole superblock)
+        self.gm = gm or ((IDENTITY, GM_IDENTITY),) * 7
+        self.cur_gmv = ((0, 0), (0, 0))
+        self.gmv_blk: Dict[Tuple[int, int], bool] = {}
+        self.skip_frames = skip_frames
+        self.skipm: Dict[Tuple[int, int], int] = {}
+        self.delta_q, self.read_deltas, self.n_deltas = delta_q, False, 0
         # compound frames: the pair, the sign bias of each reference frame
         # and whether the pair lies at one distance (compound_idx's
         # context); each block's comp_group_idx, compound_idx and compound
@@ -386,17 +505,52 @@ class _Tile:
     def _refs_of(self, p) -> Tuple[int, int]:
         return self.refs.get(p, (LAST, -1))
 
+    def gm_type(self, ref: int) -> int:
+        return self.gm[ref - 1][0] if ref > 0 else IDENTITY
+
+    def _lower(self, mv):
+        """lower_mv_precision (no force_integer_mv here)."""
+        if self.hp:
+            return tuple(mv)
+        return tuple(v - (1 if v > 0 else -1) if v & 1 else v for v in mv)
+
+    def global_mv(self, ref: int, r: int, c: int, wl: int, hl: int):
+        """setup_global_mv: the GlobalMv of ``ref`` for the block at (r,
+        c); TRANSLATION's row from gm_params[0], as the spec reads it."""
+        typ, p = self.gm[ref - 1] if ref > 0 else (IDENTITY, GM_IDENTITY)
+        if typ == IDENTITY:
+            return (0, 0)
+        if typ == TRANSLATION:
+            return self._lower((p[0] >> 13, p[1] >> 13))
+        x, y = c * 4 + (2 << wl) - 1, r * 4 + (2 << hl) - 1
+        xc = (p[2] - (1 << 16)) * x + p[3] * y + p[0]
+        yc = p[4] * x + (p[5] - (1 << 16)) * y + p[1]
+        n = 13 + (not self.hp)
+        return self._lower(tuple(self._round2s(v, n) * (1 + (not self.hp))
+                                 for v in (yc, xc)))
+
     def _cand(self, r, c):
         """The MV (a pair's MVs) the block at (r, c) offers the target's
         stack: a single reference matches either of its references, a
-        pair both; None where it matches not."""
+        pair both; None where it matches not. A GLOBALMV or
+        GLOBAL_GLOBALMV block of 8x8 or more offers, for a reference whose
+        GmType is past TRANSLATION, the target's GlobalMv."""
         (ra, rb), mv = self._refs_of((r, c)), self.mv[r, c]
         t0, t1 = self.target
+        glob = self.gmv_blk.get((r, c), False)
+
+        def sub(ref, m, lst):
+            if glob and self.gm_type(ref) > TRANSLATION:
+                return self.cur_gmv[lst]
+            return m
+
         if t1 >= 0:
-            return mv if (ra, rb) == (t0, t1) else None
+            if (ra, rb) != (t0, t1):
+                return None
+            return (sub(t0, mv[0], 0), sub(t1, mv[1], 1))
         if ra == t0:
-            return mv if rb < 0 else mv[0]
-        return mv[1] if rb == t0 else None
+            return sub(t0, mv if rb < 0 else mv[0], 0)
+        return sub(t0, mv[1], 0) if rb == t0 else None
 
     def _add(self, st, r, c, weight, flags, row):
         if (r, c) not in self.mv:
@@ -436,6 +590,8 @@ class _Tile:
 
     def stack(self, r: int, c: int, wl: int, hl: int):
         bw4, bh4 = 1 << wl, 1 << hl
+        self.cur_gmv = tuple(self.global_mv(t, r, c, wl, hl)
+                             for t in self.target)
         w4, h4 = min(bw4, 16, self.mi_cols - c), min(bh4, 16, self.mi_rows - r)
         st: List[list] = []
         flags = [0, 0, 0]  # row match, column match, NEWMV match
@@ -539,22 +695,23 @@ class _Tile:
         """Spec 7.10.2.12 for the pair (dav1d's compound extended search):
         the neighbours' MVs as RefIdMvs of their own list and RefDiffMvs of
         the other (negated across sign biases), two of each, then the
-        global MVs (0); the stack filled to two."""
+        GlobalMvs; the stack filled to two."""
         ids, diffs = [[], []], [[], []]
+        pair = self.target
         for p in self._neighbours(r, c, sz4, top, left):
             for cref, mv in self._lists(p):
                 for lst in range(2):
-                    if cref == self.pair[lst]:
+                    if cref == pair[lst]:
                         if len(ids[lst]) < 2:
                             ids[lst].append(mv)
                     elif len(diffs[lst]) < 2:
                         k = -1 if self.bias[cref] != self.bias[
-                            self.pair[lst]] else 1
+                            pair[lst]] else 1
                         diffs[lst].append((k * mv[0], k * mv[1]))
         comb = [[None, None], [None, None]]
         for lst in range(2):
             vals = (ids[lst] + diffs[lst])[:2]
-            vals += [(0, 0)] * (2 - len(vals))
+            vals += [self.cur_gmv[lst]] * (2 - len(vals))
             comb[0][lst], comb[1][lst] = vals
         comb = [tuple(x) for x in comb]
         if len(st) == 1:
@@ -719,18 +876,62 @@ class _Tile:
         if self.hp:
             self.put("mv0_hp", comp, mag & 1, 2, 3)
 
+    def _pred(self, st, k: int):
+        """RefStackMv[k][0] of a single reference: the stack's, or past
+        NumMvFound the GlobalMv."""
+        return tuple(st[k][0]) if k < len(st) else self.cur_gmv[0]
+
+    def _preamble(self, r: int, c: int, wl: int, hl: int, nbrs,
+                  skip_mode: int) -> None:
+        """skip_mode where the frame has it (8x8 or more), skip (1) unless
+        skip_mode, and delta q at a superblock's first block."""
+        if self.skip_frames and min(wl, hl) >= 1:
+            self.put("skip_mode", sum(self.skipm.get(p, 0) for p in nbrs),
+                     skip_mode, 2, 3)
+        if not skip_mode:
+            self.put("skip", len(nbrs), 1, 2, 3)  # every neighbour skipped
+        sb = 5 if self.s.sb128 else 4
+        if self.delta_q and self.read_deltas and not wl == hl == sb:
+            # delta_q_abs 0, 1 or 2 in turn, the sign alternating
+            k = self.n_deltas % 3
+            self.put("delta_q", 0, k, 4, 5)
+            if k:
+                self.literal((self.n_deltas // 3) & 1, 1)
+            self.n_deltas += 1
+        self.read_deltas = False
+
+    def _store(self, r: int, c: int, wl: int, hl: int, mv, refs, newmv,
+               filt, glob: bool = False, skip_mode: int = 0,
+               cgi: int = 0, cidx: int = 1) -> None:
+        for y in range(r, min(r + (1 << hl), self.mi_rows)):
+            for x in range(c, min(c + (1 << wl), self.mi_cols)):
+                self.size[y, x] = (wl, hl)
+                self.mv[y, x] = mv
+                self.refs[y, x] = refs
+                self.newmv[y, x] = newmv
+                self.fil[y, x] = filt
+                self.gmv_blk[y, x] = glob
+                self.skipm[y, x] = skip_mode
+                self.cgi[y, x], self.cidx[y, x] = cgi, cidx
+                self.written.add((y, x))
+
     def block(self, r: int, c: int, wl: int, hl: int, blk: InterBlock
               ) -> None:
         above, left = (r - 1, c) if r else None, (r, c - 1) if c else None
+        glob = blk.mode == GLOBAL
         # read_motion_mode: a block of 8x8 at least with a neighbour (every
-        # neighbour is inter on LAST, so NumSamples > 0 too)
-        switchable = self.motion and min(wl, hl) >= 1 and bool(above or left)
+        # neighbour is inter on LAST, so NumSamples > 0 too), unless it is
+        # a GLOBALMV block on a GmType past TRANSLATION
+        switchable = self.motion and min(wl, hl) >= 1 and bool(
+            above or left) and not (glob and self.gm_type(blk.ref)
+                                    > TRANSLATION)
         motion = blk.motion if switchable else SIMPLE
+        assert motion != LOCALWARP or blk.mode == NEW
         if motion == LOCALWARP and blk.warp:
             blk = InterBlock(self._warp_mv(r, c, wl, hl, blk), blk.filt,
                              motion, blk.warp)
         nbrs = [p for p in (above, left) if p]
-        self.put("skip", len(nbrs), 1, 2, 3)  # every neighbour skipped
+        self._preamble(r, c, wl, hl, nbrs, 0)
         self.put("is_inter", 0, 1, 2, 3)  # every neighbour inter
         if self.pair and min(wl, hl) >= 1:
             self.put("comp_mode", self._comp_mode_ctx(above, left), 0, 2, 3)
@@ -739,22 +940,24 @@ class _Tile:
             self.counts["single"] = self.counts.get("single", 0) + 1
         self.target = (blk.ref, -1)
         st, newmv_ctx, refmv_ctx = self.stack(r, c, wl, hl)
-        self.put("new_mv", newmv_ctx, 0, 2, 3)  # NEWMV
-        for i in range(2):  # drl: the first candidate
-            if len(st) > i + 1:
-                w0, w1 = st[i][1], st[i + 1][1]
-                dctx = (1 if w1 < REF_CAT else 0) if w0 >= REF_CAT else \
-                    (2 if w1 < REF_CAT else 0)
-                self.put("drl", dctx, 0, 2, 3)
-                break
-        pred = st[0][0] if st else (0, 0)
-        diff = (blk.mv[0] - pred[0], blk.mv[1] - pred[1])
-        joint = (2 if diff[0] else 0) | (1 if diff[1] else 0)
-        self.put("mv0_joints", 0, joint, 4, 5)
-        if diff[0]:
-            self._mv_comp(0, diff[0])
-        if diff[1]:
-            self._mv_comp(1, diff[1])
+        self.put("new_mv", newmv_ctx, int(blk.mode != NEW), 2, 3)
+        if blk.mode != NEW:
+            # zero_mv in ZeroMvContext 0 (no reference MVs), then ref_mv
+            self.put("zero_mv", 0, int(not glob), 2, 3)
+            if not glob:
+                self.put("ref_mv", refmv_ctx, int(blk.mode == NEAR), 2, 3)
+        if blk.mode == NEW:
+            self._drl(st, 0)
+            pred = self._pred(st, 0)
+            self._mv((blk.mv[0] - pred[0], blk.mv[1] - pred[1]))
+            mv = blk.mv
+        elif blk.mode == NEAR:
+            self._drl(st, 1)
+            mv = self._pred(st, 1)
+        else:
+            mv = self.cur_gmv[0] if glob else self._pred(st, 0)
+        if blk.mode != NEW:
+            self.counts[blk.mode] = self.counts.get(blk.mode, 0) + 1
         if switchable:
             bsize = {(1, 1): 3, (2, 2): 6, (3, 3): 9, (4, 4): 12}[wl, hl]
             self.put("motion_mode", bsize, motion, 3, 4)
@@ -762,22 +965,19 @@ class _Tile:
                 kind = self.warp_kind(r, c, wl, hl, blk.mv)
                 self.warps[kind] = self.warps.get(kind, 0) + 1
         filt = blk.filt if self.filt == 4 else (self.filt, self.filt)
-        if motion == LOCALWARP:  # needs_interp_filter: none, EIGHTTAP
-            filt = (0, 0)
+        # needs_interp_filter: none for a local warp, nor for a GLOBALMV
+        # block of 8x8 or more unless its GmType is TRANSLATION (EIGHTTAP)
+        if motion == LOCALWARP or (glob and min(wl, hl) >= 1 and self.gm_type(
+                blk.ref) != TRANSLATION):
+            filt = (0, 0) if self.filt == 4 else filt
         elif self.filt == 4:
             for d in range(2 if self.dual else 1):
                 self.put("interp_filter", self._interp_ctx(
                     d, above, left, blk.ref, 0), filt[d], 3, 4)
             if not self.dual:
                 filt = (filt[0], filt[0])
-        for y in range(r, min(r + (1 << hl), self.mi_rows)):
-            for x in range(c, min(c + (1 << wl), self.mi_cols)):
-                self.size[y, x] = (wl, hl)
-                self.mv[y, x] = blk.mv
-                self.refs[y, x] = (blk.ref, -1)
-                self.newmv[y, x] = 1
-                self.fil[y, x] = filt
-                self.written.add((y, x))
+        self._store(r, c, wl, hl, tuple(mv), (blk.ref, -1),
+                    int(blk.mode == NEW), filt, glob and min(wl, hl) >= 1)
 
     # -- the contexts of spec 8.3.2 (libaom's forms), every block inter ----
 
@@ -935,7 +1135,7 @@ class _Tile:
         its references)."""
         above, left = (r - 1, c) if r else None, (r, c - 1) if c else None
         nbrs = [p for p in (above, left) if p]
-        self.put("skip", len(nbrs), 1, 2, 3)
+        self._preamble(r, c, wl, hl, nbrs, 0)
         self.put("is_inter", 0, 1, 2, 3)
         self._refs(above, left)
         self.target = self.pair
@@ -951,7 +1151,7 @@ class _Tile:
             self._drl(st, 1)
         mvs = []
         for i, (side, want) in enumerate(zip(sides, (blk.mv, blk.mv2))):
-            pred = (0, 0) if side == GLOBAL else \
+            pred = self.cur_gmv[i] if side == GLOBAL else \
                 st[0 if side == NEAREST else idx][0][i]
             if side == NEW:
                 self._mv((want[0] - pred[0], want[1] - pred[1]))
@@ -982,11 +1182,13 @@ class _Tile:
             self.literal(blk.sign, 1)
         elif ctype == "diffwtd":
             self.literal(blk.sign, 1)  # mask_type
-        # filters: none for GLOBAL_GLOBALMV (an identity global motion)
+        # filters: none for GLOBAL_GLOBALMV unless a side's GmType is
+        # TRANSLATION
         filt = (0, 0)
+        glob = sides == (GLOBAL, GLOBAL)
         if self.filt != 4:
             filt = (self.filt, self.filt)
-        elif sides != (GLOBAL, GLOBAL):
+        elif not glob or TRANSLATION in map(self.gm_type, self.pair):
             filt = blk.filt
             for d in range(2 if self.dual else 1):
                 self.put("interp_filter", self._interp_ctx(
@@ -995,15 +1197,23 @@ class _Tile:
                 filt = (filt[0], filt[0])
         for key in (f"mode{blk.mode}", ctype):
             self.counts[key] = self.counts.get(key, 0) + 1
-        for y in range(r, min(r + (1 << hl), self.mi_rows)):
-            for x in range(c, min(c + (1 << wl), self.mi_cols)):
-                self.size[y, x] = (wl, hl)
-                self.mv[y, x] = tuple(mvs)
-                self.refs[y, x] = self.pair
-                self.newmv[y, x] = int(NEW in sides)
-                self.fil[y, x] = filt
-                self.cgi[y, x], self.cidx[y, x] = cgi, cidx
-                self.written.add((y, x))
+        self._store(r, c, wl, hl, tuple(mvs), self.pair, int(NEW in sides),
+                    filt, glob, 0, cgi, cidx)
+
+    def block_skip(self, r: int, c: int, wl: int, hl: int) -> None:
+        """A skip_mode block: skip_mode 1 (and delta q), its MVs the
+        NEAREST_NEARESTMV of SkipModeFrame's stack, its filters EIGHTTAP
+        (or the frame's), averaged."""
+        above, left = (r - 1, c) if r else None, (r, c - 1) if c else None
+        nbrs = [p for p in (above, left) if p]
+        assert self.skip_frames and min(wl, hl) >= 1
+        self._preamble(r, c, wl, hl, nbrs, 1)
+        self.target = self.skip_frames
+        st = self.stack(r, c, wl, hl)[0]
+        filt = (0, 0) if self.filt == 4 else (self.filt, self.filt)
+        self.counts["skip_mode"] = self.counts.get("skip_mode", 0) + 1
+        self._store(r, c, wl, hl, tuple(st[0][0]), self.skip_frames, 0, filt,
+                    skip_mode=1)
 
     def partition(self, r: int, c: int, bl: int, leaf: int,
                   blocks) -> None:
@@ -1019,8 +1229,11 @@ class _Tile:
         self.put(names[bl], ctx, 3 if leaf < bl else 0, nsym, nsym + 1)
         if leaf == bl:
             blk = next(blocks)
-            (self.block_pair if isinstance(blk, CompoundBlock)
-             else self.block)(r, c, bl, bl, blk)
+            if isinstance(blk, SkipModeBlock):
+                self.block_skip(r, c, bl, bl)
+            else:
+                (self.block_pair if isinstance(blk, CompoundBlock)
+                 else self.block)(r, c, bl, bl, blk)
             return
         half = 1 << (bl - 1)
         for dr, dc in ((0, 0), (0, half), (half, 0), (half, half)):
@@ -1030,11 +1243,25 @@ class _Tile:
                 self.partition(r + dr, c + dc, bl - 1, leaf, blocks)
 
     def encode(self, sbs: List[Tuple[bool, list]]) -> bytes:
+        """The tile of the superblocks ``sbs``; 128x128 ones are split
+        into four 64x64 quadrants, each an entry of ``sbs``."""
         it = iter(sbs)
-        for r in range(0, self.mi_rows, 16):
-            for c in range(0, self.mi_cols, 16):
-                split, blks = next(it)
-                self.partition(r, c, 4, _leaf(split), iter(blks))
+        sb = 32 if self.s.sb128 else 16
+        for r in range(0, self.mi_rows, sb):
+            for c in range(0, self.mi_cols, sb):
+                self.read_deltas = True
+                if sb == 16:
+                    split, blks = next(it)
+                    self.partition(r, c, 4, _leaf(split), iter(blks))
+                    continue
+                assert r + 16 < self.mi_rows and c + 16 < self.mi_cols
+                a = r > 0 and self.size[r - 1, c][0] < 5
+                lft = c > 0 and self.size[r, c - 1][1] < 5
+                self.put("part128", 2 * int(lft) + int(a), 3, 8, 9)
+                for dr, dc in ((0, 0), (0, 16), (16, 0), (16, 16)):
+                    split, blks = next(it)
+                    self.partition(r + dr, c + dc, 4, _leaf(split),
+                                   iter(blks))
         return self.enc.done()
 
 
@@ -1057,7 +1284,9 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
                   base_layers: int = 1,
                   ref_slots: Tuple[int, ...] = (0,) * 7,
                   order_hint: Optional[int] = None,
-                  counts: Optional[dict] = None) -> bytes:
+                  counts: Optional[dict] = None, gm=None,
+                  skip_mode: bool = False, delta_q: bool = False,
+                  chain: Optional[dict] = None) -> bytes:
     """libaom's first ``base_layers`` layers (the sequence header and
     frame OBUs of layers 0 .. base_layers - 1 of a layered stream of
     base_layers + 1 layers) and an inter frame of the next layer, of
@@ -1079,12 +1308,28 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
     from a primary reference frame). ``motion`` lets each block of 8x8 or
     more with a neighbour take its ``InterBlock.motion`` (a frame of the
     sequence's size only); ``warps``, where given, gets the count of its
-    LOCALWARP blocks of each kind."""
+    LOCALWARP blocks of each kind. ``gm`` is the frame's global motion
+    (``frame_header``), ``skip_mode`` writes skip_mode_present (a
+    ``SkipModeBlock`` is then a skip_mode block), ``delta_q`` delta q;
+    ``chain``, where given, writes a second frame after this one (which
+    then refreshes slot ``base_layers``), of the next layer and order
+    hint, whose arguments are this one's but for those ``chain`` names
+    (``sbs``, ``gm``, ``ref_slots``, ``pair``, ``skip_mode``, ``delta_q``
+    and ``primary``, its primary_ref_frame, whose slot's global motion
+    its own is coded against). A 128x128 superblock of libaom's sequence
+    is four entries of ``sbs``, its 64x64 quadrants."""
     obus = list(_obus(key_obus))
     seq_payload = next(key_obus[p:e] for t, _, p, e in obus if t == 1)
     s = A.parse_sequence_header(A._Bits(seq_payload))
-    assert s.op_idcs[0] >> 8 == (2 << base_layers) - 1 and not s.sb128, \
-        "base_layers + 1 layers, 64 SBs"
+    frames = [dict(sbs=sbs, gm=gm, ref_slots=ref_slots, pair=pair,
+                   skip_mode=skip_mode, delta_q=delta_q, primary=7,
+                   order_hint=base_layers if order_hint is None
+                   else order_hint)]
+    if chain:
+        frames.append({**frames[0], "order_hint": frames[0]["order_hint"]
+                       + 1, **chain})
+    assert s.op_idcs[0] >> 8 == (1 << (base_layers + len(frames))) - 1, \
+        "base_layers + the written frames' layers"
     assert s.screen_tools in (0, 2) and not (s.frame_ids
                                              or s.decoder_model_info)
     key = [raw for t, raw, p, e in obus if t in (3, 4, 6)
@@ -1099,29 +1344,47 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
                  warped_motion=s.warped_motion if keep else motion,
                  dual_filter=s.dual_filter if keep else dual,
                  ref_frame_mvs=s.ref_frame_mvs and keep)
-    order_hint = base_layers if order_hint is None else order_hint
-    slot_hints = tuple(range(8))
-    rel = [0] + [A._relative_dist(s, slot_hints[i], order_hint)
-                 for i in ref_slots]
-    same_dist = pair is None or abs(rel[pair[0]]) == abs(rel[pair[1]])
-    tile = _Tile(ws, base_q, filt, ws.dual_filter, hp, size, motion, pair,
-                 tuple(int(d > 0) for d in rel), same_dist)
-    data = tile.encode(sbs) if not refuse else b"\0" * 8
-    head = frame_header(
-        ws, base_q, filt, hp, lf, ref_deltas, mode_deltas,
-        size=None if size == (s.width, s.height) else size,
-        primary=0 if refuse.startswith("seg") else 7,
-        compound=pair is not None,
-        seg_update={"seg_map": (0, 0), "seg_temporal": (1, 1)}.get(refuse),
-        motion=motion, order_hint=order_hint, ref_slots=ref_slots,
-        slot_hints=slot_hints)
-    if warps is not None:
-        warps.update(tile.warps)
-    if counts is not None:
-        counts.update(tile.counts)
+    # each slot's order hint and global motion (libaom's layers: identity)
+    slot_hints = list(range(8))
+    saved_gm = [None] * 8
     seq = sequence_header(ws)
-    return (bytes([(1 << 3) | 2]) + _leb128(len(seq)) + seq
-            + b"".join(key) + _obu_ext(6, head.data() + data, base_layers))
+    out = bytes([(1 << 3) | 2]) + _leb128(len(seq)) + seq + b"".join(key)
+    for i, f in enumerate(frames):
+        hint, slots, fpair = f["order_hint"], f["ref_slots"], f["pair"]
+        hints = tuple(slot_hints[j] for j in slots)
+        rel = [0] + [A._relative_dist(s, h, hint) for h in hints]
+        same_dist = fpair is None or abs(rel[fpair[0]]) == abs(rel[fpair[1]])
+        skip_frames = A._skip_mode_frames(s, A.FrameHeader(
+            reference_select=True, order_hint=hint,
+            ref_order_hints=hints)) if f["skip_mode"] else None
+        tile = _Tile(ws, base_q, filt, ws.dual_filter, hp, size, motion,
+                     fpair, tuple(int(d > 0) for d in rel), same_dist,
+                     f["gm"], skip_frames, f["delta_q"])
+        data = tile.encode(f["sbs"]) if not refuse else b"\0" * 8
+        primary = 0 if refuse.startswith("seg") else f["primary"]
+        refresh = 1 << base_layers if chain and i == 0 else 0
+        head = frame_header(
+            ws, base_q, filt, hp, lf, ref_deltas, mode_deltas,
+            size=None if size == (s.width, s.height) else size,
+            primary=primary, compound=fpair is not None,
+            seg_update={"seg_map": (0, 0),
+                        "seg_temporal": (1, 1)}.get(refuse),
+            motion=motion, order_hint=hint, ref_slots=slots,
+            slot_hints=tuple(slot_hints), gm=f["gm"],
+            prev_gm=saved_gm[slots[primary]] if primary != 7 else None,
+            skip_mode=f["skip_mode"], refresh=refresh, delta_q=f["delta_q"])
+        if refresh:
+            slot_hints[base_layers] = hint
+            saved_gm[base_layers] = tuple(
+                p for _, p in f["gm"] or ((IDENTITY, GM_IDENTITY),) * 7)
+        if warps is not None:
+            for k, v in tile.warps.items():
+                warps[k] = warps.get(k, 0) + v
+        if counts is not None:
+            for k, v in tile.counts.items():
+                counts[k] = counts.get(k, 0) + v
+        out += _obu_ext(6, head.data() + data, base_layers + i)
+    return out
 
 
 def random_sbs(rng: np.random.Generator, n_sb: int, split_every: int,
