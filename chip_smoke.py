@@ -1563,10 +1563,16 @@ def _checked_levels(stats: dict):
     return lambda: setattr(DS.DeviceLevels, "levels", orig)
 
 
+# the classes the device-levels CLI encodes at -q 89 (each encode is the
+# Python tile coder's, 11-19 s at 512x512 on the card's host)
+LEVELS_PATH_CLASSES = ("fractal", "edges", "mixed")
+
+
 def phase_levels_path(images: dict, acc: dict) -> dict:
     """The main path of the encode stage: the port's CLI with
-    OAVIF_PY_TILE=1 OAVIF_DEVICE_LEVELS=1, -q 89 on the six classes and
-    -t 80 on fractal; returns the kernels' launches over these runs."""
+    OAVIF_PY_TILE=1 OAVIF_DEVICE_LEVELS=1, -q 89 on three classes
+    (``LEVELS_PATH_CLASSES``) and -t 80 on fractal; returns the kernels'
+    launches over these runs."""
     stats = dict.fromkeys(("probes", "positions", "max_diff",
                            "max_per_block"), 0)
     os.environ.update(OAVIF_PY_TILE="1", OAVIF_DEVICE_LEVELS="1")
@@ -1574,7 +1580,7 @@ def phase_levels_path(images: dict, acc: dict) -> dict:
     consumed0 = FR.lv16_consumed
     try:
         with tempfile.TemporaryDirectory() as td:
-            runs = [(name, ["-q", "89"]) for name in images]
+            runs = [(name, ["-q", "89"]) for name in LEVELS_PATH_CLASSES]
             runs.append(("fractal", ["-t", "80"]))
             reset_counts()
             for name, args in runs:
@@ -2706,6 +2712,12 @@ AVIF_COMPOUND_DIR = os.path.join(
 AVIF_GLOBALMV_DIR = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
     "avif_globalmv")
+AVIF_INTERINTRA_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+    "avif_interintra")
+# the per-frame counts of inter-intra and segmentation map prediction
+INTERINTRA_PER_FRAME = ("interintra", "interintra_wedge", "seg_id_predicted",
+                        "seg_map_kept", "seg_temporal")
 # the global motion counters: the global sides on each GmType past IDENTITY
 GLOBAL_SIDES = ("global_translation", "global_rotzoom", "global_affine")
 # the compound modes' counters, NEAREST_NEARESTMV .. NEW_NEWMV
@@ -2731,8 +2743,9 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
     (``tiles_f0``, ``filters_f0``, ...) and, where a frame used them, the
     time of OBMC and of the local warp in its tile decode (``obmc_f1``,
     ``warp_f1``, ...), of motion field estimation in the frame that
-    projects (``project_f3``, ...) and of the compound blocks' blends
-    (``compound_f3``, ...) and of the global warp (``gwarp_f2``, ...) with
+    projects (``project_f3``, ...), of the compound blocks' blends
+    (``compound_f3``, ...), of the global warp (``gwarp_f2``, ...) and of
+    inter-intra's intra predictions and blends (``ii_f1``, ...) with
     their shares of that frame's tile decode, and on a line before, for a
     frame that projected, the 8x8s its projection filled and the temporal
     candidates of each frame, for an item with compound blocks each
@@ -2741,7 +2754,11 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
     reference pair, and for an item with global motion or skip_mode blocks
     each frame's global sides and skip_mode blocks (where the manifest
     counts them, as many), its global warps and the blocks whose shear
-    refused the warp; a
+    refused the warp, and for an item with inter-intra blocks or a
+    segment map predicted from the previous one each frame's inter-intra
+    blocks, wedge ones and blocks that took the predicted segment id and
+    whether it kept or coded the map (where the manifest counts them, as
+    many); a
     refusal fixture raises ``ValueError`` naming its tool, one the
     reference could not read (``raises``) the exception the manifest
     records, with its message, and one past the spec's limits
@@ -2860,12 +2877,16 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
                          for t in color.frame_tools],
                         [t["skip_mode"] for t in color.frame_tools])
                 want += (entry["global"], entry["skip_mode"])
+            if "seg_temporal" in entry:
+                got += tuple([t[k] for t in color.frame_tools]
+                             for k in INTERINTRA_PER_FRAME)
+                want += tuple(entry[k] for k in INTERINTRA_PER_FRAME)
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         loaded[name] = img
         per_frame = sorted(k for k in split[0] if k.startswith(
             ("tiles_f", "filters_f", "obmc_f", "warp_f", "project_f",
-             "compound_f", "gwarp_f")))
+             "compound_f", "gwarp_f", "ii_f")))
         parts = ", ".join(
             f"{k} {np.median([t.get(k, 0.0) for t in split]) * 1e3:.3f}"
             for k in ("parse", "filters", "upscale", "grain", "refs",
@@ -2896,12 +2917,19 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
                       f"{k[7:]} {color.tools[k]}" for k in GLOBAL_SIDES)
                   + f", blocks warped {color.tools['global_warp']}, shear "
                   f"refused {color.tools['global_warp_invalid']}", flush=True)
-        # OBMC's, the warp's, the projection's, the compound blends' and
-        # the global warp's shares of their own frame's tile decode
+        if any(color.tools[k] for k in INTERINTRA_PER_FRAME):
+            print(f"  {name}: per frame, " + ", ".join(
+                f"{k} {[t[k] for t in color.frame_tools]}"
+                for k in INTERINTRA_PER_FRAME) + "; smooth by mode "
+                + ", ".join(f"{k[3:]} {color.tools[k]}" for k in (
+                    "ii_dc", "ii_v", "ii_h", "ii_smooth")), flush=True)
+        # OBMC's, the warp's, the projection's, the compound blends', the
+        # global warp's and inter-intra's shares of their own frame's tile
+        # decode
         shares = ""
         for k in per_frame:
             used = [m + k[5:] for m in ("obmc", "warp", "project",
-                                        "compound", "gwarp")
+                                        "compound", "gwarp", "ii")
                     if k.startswith("tiles_f") and m + k[5:] in split[0]]
             if used:
                 shares += f"; of {k}: " + ", ".join(
@@ -2990,20 +3018,31 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     gm_params coded against a primary reference's, skip_mode on
     bidirectional and forward pairs, with delta q and 128-pixel
     superblocks, every subsampling at 8, 10 and 12 bits, the mixed class
-    and a 3840x2160 frame with both tools) decodes
+    and a 3840x2160 frame with both tools) and of
+    ``tests/torch_fixtures/avif_interintra`` (inter-intra blocks of every
+    interintra_mode, smooth and by wedge, and segment ids predicted from
+    the previous map: written over libaom's layers, GLOBALMV inter-intra
+    blocks warped, OBMC and local warps beside them, a scaled reference,
+    128-pixel superblocks, inherited adapted CDFs, a kept map, a map
+    coded against the previous one in four tile rows, one of another
+    size, libaom's own cyclic-refresh temporal update, every subsampling
+    at 8, 10 and 12 bits, the mixed class and a 3840x2160 frame pair with
+    both tools) decodes
     to its manifest (``_read_avif_fixtures``, each file decoded as often
     as it is timed, and each folder's reads in all on a line),
     the reads split into parse and tile decode (each frame's apart),
     post-filters, the superres upscale, film grain, a grid's stitch, the
     scaling and conversion (every file read once, to keep the phase's
-    time, but ``avif_globalmv``'s 3840x2160 frame, the median of 3;
+    time, but ``avif_interintra``'s 3840x2160 frame, the median of 3;
     ``avif_warp``'s reads also time
     OBMC and the local warp in the tile decode, ``avif_refmvs``'s motion
     field estimation, with the per-frame counts of its projected 8x8s and
     temporal candidates, ``avif_compound``'s the compound blends, with
     each frame's compound blocks and the counts of their modes and types,
-    and ``avif_globalmv``'s the global warp, with each frame's global
-    sides and skip_mode blocks).
+    ``avif_globalmv``'s the global warp, with each frame's global
+    sides and skip_mode blocks, and ``avif_interintra``'s inter-intra's
+    intra predictions and blends, with each frame's inter-intra blocks,
+    wedge ones and predicted segment ids).
     Then the CLI ``-t 80`` on the six class AVIFs and ``-q 60`` on the
     3840x2160 one of the first two folders, ``-q 60`` on the 3840x2160
     ``tune=iq`` frame with film grain, ``-t 80`` on the 512x512
@@ -3019,7 +3058,8 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     both, ``-t 80`` on the 512x512 four-layer class and ``-q 60`` on the
     3840x2160 four-layer frame of each of ``avif_refmvs`` and
     ``avif_compound``, ``-t 80`` on the 512x512 class and ``-q 60`` on the
-    3840x2160 frame with global motion and skip_mode blocks: q,
+    3840x2160 frame with global motion and skip_mode blocks, and with
+    inter-intra blocks and a predicted segment map: q,
     passes and bytes must be those of the CLI on the same
     pixels, written as PAM where they are 8-bit and handed over in memory
     where they are 16-bit (PAM holds 8 bits). Returns the kernels'
@@ -3057,11 +3097,13 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
             (AVIF_COMPOUND_DIR, [("class_mixed_512.avif", ["-t", "80"]),
                                  ("photo4k_420.avif", ["-q", "60"])]),
             (AVIF_GLOBALMV_DIR, [("class_mixed_512.avif", ["-t", "80"]),
-                                 ("photo4k_420.avif", ["-q", "60"])])):
+                                 ("photo4k_420.avif", ["-q", "60"])]),
+            (AVIF_INTERINTRA_DIR, [("class_mixed_512.avif", ["-t", "80"]),
+                                   ("photo4k_420.avif", ["-q", "60"])])):
         # every file read once (the newest folder's 3840x2160 frame three
         # times), to keep the phase's time
         loaded = _read_avif_fixtures(
-            folder, 3 if folder == AVIF_GLOBALMV_DIR else 1, 1)
+            folder, 3 if folder == AVIF_INTERINTRA_DIR else 1, 1)
         runs += [(os.path.join(folder, name), loaded[name], args)
                  for name, args in picks]
     with tempfile.TemporaryDirectory() as td:

@@ -184,7 +184,7 @@ def _build() -> Optional[C.CDLL]:
         ]
         lib.av1_decode_frame.restype = C.c_int
         lib.av1_decode_frame.argtypes = (
-            [C.c_void_p] * 12 + [C.c_void_p, C.c_int] + [C.c_void_p] * 19
+            [C.c_void_p] * 12 + [C.c_void_p, C.c_int] + [C.c_void_p] * 20
             + [C.c_char_p, C.c_int])
         lib.av1_scaled_parity.restype = None
         lib.av1_scaled_parity.argtypes = [C.c_void_p]

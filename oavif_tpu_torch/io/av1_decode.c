@@ -34,7 +34,10 @@
  * unidirectional and bidirectional reference pairs, the pair's MV stack
  * with its compound extra search, the eight compound modes, and the
  * average, distance-weighted, wedge and difference-weighted blends of the
- * two unclipped predictions) (inter-intra is refused by name); global
+ * two unclipped predictions); inter-intra (spec 5.11.24, 7.11.3.13-14: a
+ * single-reference block of 8x8 to 32x32 whose prediction, by its MV or
+ * the global warp, is blended with the DC, V, H or SMOOTH intra prediction
+ * of its plane block by a smooth or wedge mask); global
  * motion of every type (spec 7.10.2.1, 7.11.3.1: each block's GlobalMvs in
  * its MV stack and its GLOBAL sides, and the block warp by a reference's
  * gm_params where its shear is valid); skip_mode blocks (spec 5.11.10,
@@ -43,7 +46,12 @@
  * estimation (spec 7.9: the MVs that earlier frames stored, projected onto
  * this one before its tiles) and the MV stack's temporal candidates (spec
  * 7.10.2.5-6), and for every frame the storage of its own MVs that later
- * frames project (spec 7.19). The post-filters (deblocking, CDEF,
+ * frames project (spec 7.19); and segment ids that an inter frame predicts
+ * from its primary reference frame's map (spec 5.11.9, 7.20-21: kept
+ * whole under segmentation_update_map 0, or per block by seg_id_predicted
+ * under segmentation_temporal_update). The tile decode refuses no tool; the
+ * frame types and header forms it does not read are refused before it,
+ * by avif.py. The post-filters (deblocking, CDEF,
  * loop restoration) and film grain run afterwards on the block records
  * and restoration units this call returns.
  *
@@ -64,7 +72,8 @@
  * upsampling, quantizer matrices, delta q and delta LF (one DeltaLF, or
  * under delta_lf_multi one per plane and direction), segmentation (the
  * ids, before or after skip, and a segment's SEG_LVL_SKIP; its ALT_Q
- * here, its ALT_LF in av1_postfilter.c), and intrabc.
+ * here, its ALT_LF in av1_postfilter.c; in an inter frame also predicted
+ * from the previous map), and intrabc.
  *
  * Besides the planes, one call returns what the post-filters
  * (av1_postfilter.c) read: the transform size of every 4x4 of every
@@ -84,7 +93,7 @@
 void update_cdf_c(uint16_t *icdf, int nsym, int val);
 void inv_1d_kind_pub(const int64_t *in, int64_t *out, int n, int kind);
 
-enum { AV1D_OK = 0, AV1D_UNSUPPORTED = 1, AV1D_CORRUPT = 2 };
+enum { AV1D_OK = 0, AV1D_CORRUPT = 1 };
 
 /* CDF pack order (must match avif.py _CDF_ORDER) */
 enum {
@@ -114,7 +123,10 @@ enum {
     D_COMPOUND_MODE, D_COMPOUND_TYPE, D_WEDGE_INDEX, D_COMP_GROUP_IDX,
     D_COMPOUND_IDX,
     /* skip_mode by the above and left blocks' skip_mode */
-    D_SKIP_MODE, D_NCDF
+    D_SKIP_MODE,
+    /* interintra_mode by size group, wedge_interintra by block size, and
+     * seg_id_predicted by the above and left blocks' */
+    D_INTERINTRA_MODE, D_WEDGE_INTERINTRA, D_SEG_ID_PREDICTED, D_NCDF
 };
 
 #include "av1_header.h"
@@ -142,14 +154,18 @@ enum { IDENTITY = 0, TRANSLATION = 1, ROTZOOM = 2, AFFINE = 3 };
  * "inter_tables"):
  * Subpel_Filters [6][16][8], Warped_Filters [193][8], Div_Lut [257],
  * Obmc_Mask_1..32 (the mask of length n at n - 1), the MV projection's
- * Div_Mult [32], Quant_Dist_Weight [4][2], Quant_Dist_Lookup [4][2] and
- * the WedgeMasks (spec 7.11.3.11) of each block size with wedges in
- * BLOCK_SIZES order, each [wedge_sign][wedge_index][h][w] */
+ * Div_Mult [32], Quant_Dist_Weight [4][2], Quant_Dist_Lookup [4][2],
+ * inter-intra's Ii_Weights_1d [128] and the WedgeMasks (spec 7.11.3.11)
+ * of each block size with wedges in BLOCK_SIZES order, each
+ * [wedge_sign][wedge_index][h][w] */
 enum { TAB_SUBPEL = 0, TAB_WARP = TAB_SUBPEL + 6 * 16 * 8,
        TAB_DIV_LUT = TAB_WARP + 193 * 8, TAB_OBMC = TAB_DIV_LUT + 257,
        TAB_DIV_MULT = TAB_OBMC + 63, TAB_QDIST_WEIGHT = TAB_DIV_MULT + 32,
        TAB_QDIST_LOOKUP = TAB_QDIST_WEIGHT + 8,
-       TAB_WEDGE = TAB_QDIST_LOOKUP + 8 };
+       TAB_II_WEIGHTS = TAB_QDIST_LOOKUP + 8,
+       TAB_WEDGE = TAB_II_WEIGHTS + 128 };
+/* interintra_mode (spec 5.11.24) */
+enum { II_DC_PRED = 0, II_V_PRED = 1, II_H_PRED = 2, II_SMOOTH_PRED = 3 };
 /* Wedge_Bits > 0: 8x8 to 32x32 and 8x32, 32x8 */
 static int has_wedge(int bsize) { return (bsize >= 3 && bsize <= 9) || bsize == 18 || bsize == 19; }
 /* spec Compound_Mode_Ctx_Map */
@@ -269,6 +285,14 @@ typedef struct {
     uint32_t seg_altlf_mask;
     int coded_lossless, seg_id, txq;
     uint8_t *mi_seg;
+    /* an inter frame's segmentation_update_map and
+     * segmentation_temporal_update, PrevSegmentIds (spec 7.21: the primary
+     * reference frame's map, NULL for zeros) and the seg_id_predicted
+     * contexts AboveSegPredContext and LeftSegPredContext (by mi column
+     * and row, cleared per tile) */
+    int seg_update_map, seg_temporal;
+    const uint8_t *prev_seg;
+    uint8_t *above_segpred, *left_segpred;
     /* quantizer matrices: the level of each plane (15 = flat) */
     int qm_level[3];
     const uint8_t *qm;
@@ -330,7 +354,7 @@ typedef struct {
     int ref_stride[8], ref_w[8], ref_h[8];
     int xscale[8], yscale[8]; /* spec xScale, yScale of each reference */
     const int16_t *subpel, *warp_filter, *div_lut, *obmc_mask, *div_mult;
-    const int16_t *qdist_weight, *qdist_lookup;
+    const int16_t *qdist_weight, *qdist_lookup, *ii_weights;
     const int16_t *wedge_mask[22]; /* each size's WedgeMasks, or NULL */
     /* RefFrames[0] and [1] of each mi (-1 NONE: a single reference), the
      * second MV, and comp_group_idx and compound_idx (spec
@@ -355,8 +379,9 @@ typedef struct {
     /* tool counters (T_*) */
     int32_t *count;
     /* where not NULL, the ns of OBMC ([0]), of the local warp ([1]), of
-     * motion field estimation ([2]), of compound blends and masks ([3]) and
-     * of the global warp ([4]) */
+     * motion field estimation ([2]), of compound blends and masks ([3]), of
+     * the global warp ([4]) and of inter-intra's intra predictions and
+     * blends ([5]) */
     int64_t *motion_ns;
     int lf_on;         /* a luma loop filter level is not 0 */
     uint8_t *mi_bsz;   /* log2 w4 | log2 h4 << 4 of each mi's block */
@@ -387,6 +412,9 @@ typedef struct {
      * comp_group_idx and compound_idx */
     int ref2, mv2[2], ctype, wedge_idx, wedge_sign, mask_type, cgi, cidx;
     int skip_mode;
+    /* interintra, interintra_mode and wedge_interintra (the wedge in
+     * wedge_idx, its sign 0) */
+    int ii, ii_mode, ii_wedge;
     /* motion_mode, and find_warp_samples' NumSamples and CandList (each
      * sample's position and its position plus the neighbour's MV, row
      * then column, in 1/8 sample) */
@@ -2272,8 +2300,44 @@ static void predict_intrabc(Dec *d, Blk *b) {
     }
 }
 
+/* spec get_segment_id: the least PrevSegmentIds over the block's 4x4s
+ * inside the frame */
+static int predicted_segment_id(const Dec *d, const Blk *b) {
+    if (!d->prev_seg) return 0;
+    int seg = 7;
+    for (int y = b->r; y < imin(d->mi_rows, b->r + (1 << b->hl)); y++)
+        for (int x = b->c; x < imin(d->mi_cols, b->c + (1 << b->wl)); x++)
+            seg = imin(seg, d->prev_seg[(size_t)y * d->mi_cols + x]);
+    return seg;
+}
+
+/* AboveSegPredContext and LeftSegPredContext over the block */
+static void set_segpred(Dec *d, const Blk *b, int v) {
+    memset(d->above_segpred + b->c, v, (size_t)1 << b->wl);
+    memset(d->left_segpred + b->r, v, (size_t)1 << b->hl);
+}
+
+/* inter_segment_id under segmentation_temporal_update: seg_id_predicted
+ * in the context of the above and left blocks' (a skipped block after
+ * skip takes the spatial prediction and sets them to 0), then the
+ * predicted id or read_segment_id */
+static int temporal_segment_id(Dec *d, const Blk *b) {
+    if (!d->seg_preskip && b->skip) {
+        set_segpred(d, b, 0);
+        return read_segment_id(d, b, 1);
+    }
+    int ctx = d->left_segpred[b->r] + d->above_segpred[b->c];
+    int pred = read_symbol(d, d->cdf[D_SEG_ID_PREDICTED] + (size_t)ctx * 3, 2);
+    set_segpred(d, b, pred);
+    if (!pred) return read_segment_id(d, b, 0);
+    d->count[T_SEG_ID_PREDICTED]++;
+    return predicted_segment_id(d, b);
+}
+
 /* the start of intra_frame_mode_info and inter_frame_mode_info: the
- * segment id (before or after skip), skip_mode, skip, the CDEF index, the
+ * segment id (before or after skip; in an inter frame the predicted one
+ * under segmentation_update_map 0, or coded against it under
+ * segmentation_temporal_update), skip_mode, skip, the CDEF index, the
  * deltas and the block's dequantizers */
 static void block_preamble(Dec *d, Blk *b) {
     int skip_ctx = 0, skip_mode_ctx = 0;
@@ -2288,8 +2352,12 @@ static void block_preamble(Dec *d, Blk *b) {
         skip_mode_ctx += d->mi_skip_mode[m];
     }
     int seg = 0;
-    if (d->seg_enabled && d->seg_preskip) {
-        seg = read_segment_id(d, b, 0);
+    int kept = d->seg_enabled && !d->seg_update_map;
+    int temporal = d->seg_enabled && d->seg_update_map && d->seg_temporal;
+    if (kept) {
+        seg = predicted_segment_id(d, b);
+    } else if (d->seg_enabled && d->seg_preskip) {
+        seg = temporal ? temporal_segment_id(d, b) : read_segment_id(d, b, 0);
         d->count[T_SEG_PRESKIP]++;
     }
     /* read_skip_mode: a block of 8x8 or more whose segment has no SKIP,
@@ -2309,7 +2377,8 @@ static void block_preamble(Dec *d, Blk *b) {
     } else {
         b->skip = read_symbol(d, d->cdf[D_SKIP] + (size_t)skip_ctx * 3, 2);
     }
-    if (d->seg_enabled && !d->seg_preskip) seg = read_segment_id(d, b, b->skip);
+    if (d->seg_enabled && !d->seg_preskip && !kept)
+        seg = temporal ? temporal_segment_id(d, b) : read_segment_id(d, b, b->skip);
     d->seg_id = seg;
     if (d->seg_enabled && (d->seg_altlf_mask >> (4 * seg) & 15)) d->count[T_SEG_ALT_LF]++;
     d->lossless = d->seg_lossless_mask >> seg & 1;
@@ -2576,8 +2645,9 @@ static int overlappable(const Dec *d, const Blk *b) {
 }
 
 /* spec 7.10.4.2 add_sample: the neighbour at (r + dr, c + dc), where it
- * is inside the tile and of the block's single reference (a compound
- * neighbour is no sample, nor scanned), joins CandList
+ * is inside the tile and of the block's single reference (a compound or
+ * inter-intra neighbour, RefFrame[1] not NONE_FRAME, is no sample, nor
+ * scanned), joins CandList
  * at its block's centre less one sample; one whose MV differs from the
  * block's by more than the size's threshold is dropped unless it is the
  * first scanned, which stays at CandList[0] uncounted */
@@ -2586,7 +2656,7 @@ static void add_sample(const Dec *d, Blk *b, int dr, int dc, int *scanned) {
     int r = b->r + dr, c = b->c + dc;
     if (!is_inside(d, r, c)) return;
     int m = mi_at(d, r, c);
-    if (d->mi_ref[m] != b->ref || d->mi_ref2[m] > INTRA_FRAME) return;
+    if (d->mi_ref[m] != b->ref || d->mi_ref2[m] != NONE_FRAME) return;
     int cw4 = 1 << d->mi_wl[m], ch4 = 1 << d->mi_hl[m];
     int midy = (r & ~(ch4 - 1)) * 4 + ch4 * 2 - 1;
     int midx = (c & ~(cw4 - 1)) * 4 + cw4 * 2 - 1;
@@ -2724,7 +2794,7 @@ static void read_compound_type(Dec *d, Blk *b) {
 /* inter_block_mode_info: the references, the MV stack, the mode (a
  * compound one through compound_mode and Compound_Mode_Ctx_Map), drl,
  * assign_mv for each side (a GLOBAL side takes its GlobalMv), inter-intra
- * (refused) and the motion mode of a single reference, a compound block's
+ * and the motion mode of a single reference, a compound block's
  * type, and the filters; a skip_mode block reads none of these and takes
  * SkipModeFrame, NEAREST_NEARESTMV averaged, SIMPLE and EIGHTTAP (or the
  * frame's filter) */
@@ -2790,16 +2860,31 @@ static void inter_block_mode_info(Dec *d, Blk *b) {
         }
     }
     if ((b->mv[0] | b->mv[1] | b->mv2[0] | b->mv2[1]) & 7) d->count[T_SUBPEL_MV]++;
+    /* read_interintra_mode: 8x8 to 32x32, the CDFs by size group (their
+     * first row, size group 0's, unused) and by block size; the intra
+     * part takes no angle delta and no filter intra, its wedge sign 0 */
+    b->ii = 0;
     if (!b->skip_mode && !comp && d->interintra_on && b->bsize >= 3 && b->bsize <= 9 &&
-        read_symbol(d, d->cdf[D_INTERINTRA] + (size_t)(SIZE_GROUP[b->bsize] - 1) * 3, 2)) {
-        fail(d, AV1D_UNSUPPORTED, "AV1: %s is not supported", "inter-intra prediction");
-        return;
+        read_symbol(d, d->cdf[D_INTERINTRA] + (size_t)SIZE_GROUP[b->bsize] * 3, 2)) {
+        b->ii = 1;
+        b->ref2 = INTRA_FRAME;
+        b->ii_mode = read_symbol(d, d->cdf[D_INTERINTRA_MODE] + (size_t)SIZE_GROUP[b->bsize] * 5, 4);
+        b->ii_wedge = read_symbol(d, d->cdf[D_WEDGE_INTERINTRA] + (size_t)b->bsize * 3, 2);
+        if (b->ii_wedge) {
+            b->wedge_idx = read_symbol(d, d->cdf[D_WEDGE_INDEX] + (size_t)b->bsize * 17, 16);
+            b->wedge_sign = 0;
+            d->count[T_INTERINTRA_WEDGE]++;
+        } else {
+            d->count[T_II_DC + b->ii_mode]++;
+        }
+        d->count[T_INTERINTRA]++;
     }
     /* read_motion_mode: none for a GLOBALMV block on a reference whose
-     * GmType is past TRANSLATION (unless force_integer_mv) */
+     * GmType is past TRANSLATION (unless force_integer_mv), nor for an
+     * inter-intra block (RefFrame[1] INTRA_FRAME) */
     int global = b->mode == GLOBALMV || b->mode == GLOBAL_GLOBALMV;
     b->motion_mode = SIMPLE;
-    if (!comp && d->motion_switchable && imin(b->wl, b->hl) >= 1 &&
+    if (!comp && !b->ii && d->motion_switchable && imin(b->wl, b->hl) >= 1 &&
         !(global && !d->force_int_mv && d->gm_type[b->ref] > TRANSLATION) && overlappable(d, b)) {
         find_warp_samples(d, b);
         if (d->force_int_mv || !b->nsamples || !d->allow_warped || ref_is_scaled(d, b->ref))
@@ -3335,13 +3420,68 @@ static void predict_obmc(Dec *d, const Blk *b, int plane, int x0, int y0, int w,
     }
 }
 
+/* compute_prediction's intra part of an inter-intra block (spec 5.11.33):
+ * the plane block (pw x ph at (bx, by)) predicted in the frame by the
+ * intra mode of its interintra_mode, with the block's AvailL/AvailU (the
+ * chroma ones on chroma) and no angle delta, and kept in ``intra`` */
+static void interintra_intra(Dec *d, const Blk *b, int plane, int bx, int by, int pw, int ph,
+                             int32_t *intra) {
+    static const int MODE[4] = {DC_PRED, V_PRED, H_PRED, SMOOTH_PRED};
+    predict_intra(d, b, plane, bx, by, plane ? b->avail_lc : b->avail_l,
+                  plane ? b->avail_uc : b->avail_u, 0, 0, MODE[b->ii_mode],
+                  floor_log2((uint32_t)pw), floor_log2((uint32_t)ph), 0);
+    for (int i = 0; i < ph; i++)
+        memcpy(intra + (size_t)i * pw, px(d, plane, by + i, bx), sizeof(int32_t) * (size_t)pw);
+}
+
+/* spec 7.11.3.14's inter-intra blend of the plane block's inter prediction
+ * (in the frame, at pixel precision) with its intra prediction: Round2(m *
+ * intra + (64 - m) * inter, 6), the mask m the luma block's wedge
+ * (WedgeMasks[MiSize][0][wedge_index], subsampled on chroma) or the smooth
+ * mask of the plane block's own size (spec 7.11.3.13: 32 for II_DC, else
+ * Ii_Weights_1d at the row, the column or the nearer of the two, scaled by
+ * 128 / Max(pw, ph)) */
+static void interintra_blend(Dec *d, const Blk *b, int plane, int bx, int by, int pw, int ph,
+                             const int32_t *intra) {
+    int sx = plane ? d->ssx : 0, sy = plane ? d->ssy : 0;
+    int bw = 4 << b->wl, bh = 4 << b->hl;
+    int scale = 128 / imax(pw, ph);
+    const int16_t *wedge =
+        b->ii_wedge ? d->wedge_mask[b->bsize] + (size_t)b->wedge_idx * bw * bh : NULL;
+    for (int i = 0; i < ph; i++) {
+        int32_t *out = px(d, plane, by + i, bx);
+        for (int j = 0; j < pw; j++) {
+            int m;
+            if (wedge) {
+                const int16_t *mr = wedge + (size_t)(i << sy) * bw + (j << sx);
+                m = mr[0];
+                if (sx && sy) m = (int)rnd2(m + mr[1] + mr[bw] + mr[bw + 1], 2);
+                else if (sx) m = (int)rnd2(m + mr[1], 1);
+                else if (sy) m = (int)rnd2(m + mr[bw], 1);
+            } else if (b->ii_mode == II_V_PRED) {
+                m = d->ii_weights[i * scale];
+            } else if (b->ii_mode == II_H_PRED) {
+                m = d->ii_weights[j * scale];
+            } else if (b->ii_mode == II_SMOOTH_PRED) {
+                m = d->ii_weights[imin(i, j) * scale];
+            } else {
+                m = 32;
+            }
+            out[j] = (int32_t)rnd2((int64_t)m * intra[(size_t)i * pw + j] + (int64_t)(64 - m) * out[j], 6);
+        }
+    }
+}
+
 /* spec 7.11.3.1 for an inter block: each plane's block at the block's MV
  * (or warped: by its local warp, or by the global motion of a GLOBALMV
  * block's reference, its time in motion_ns[4]); the chroma of a block
  * narrower or shorter than 8 in a subsampled direction covers the blocks
  * before it, each part predicted with its own block's MV, reference and
- * filters, unless one of them is intra (someUseIntra) */
+ * filters, unless one of them is intra (someUseIntra); an inter-intra
+ * block's plane block blended with its intra prediction (its time in
+ * motion_ns[5]) */
 static void predict_inter(Dec *d, Blk *b) {
+    static _Thread_local int32_t intra_part[32 * 32];
     if (b->ref2 > INTRA_FRAME) {
         predict_compound(d, b);
         return;
@@ -3378,6 +3518,7 @@ static void predict_inter(Dec *d, Blk *b) {
             cc = b->c;
         }
         if (plane == 1 && (predw < pw || predh < ph)) d->count[T_SUB8X8_CHROMA_MVS]++;
+        if (b->ii) MOTION_TIMED(5, interintra_intra(d, b, plane, bx, by, pw, ph, intra_part));
         /* a warp needs a plane block of 8x8 at least (useWarp) */
         if (warp && pw >= 8 && ph >= 8) {
             MOTION_TIMED(1, warp_block(d, b->ref, plane, bx, by, pw, ph, wp, abgd, 0,
@@ -3394,6 +3535,7 @@ static void predict_inter(Dec *d, Blk *b) {
                     predict_part(d, plane, bx + x, by + y, predw, predh, cr + i, cc + j);
         }
         if (b->motion_mode == OBMC) MOTION_TIMED(0, predict_obmc(d, b, plane, bx, by, pw, ph));
+        if (b->ii) MOTION_TIMED(5, interintra_blend(d, b, plane, bx, by, pw, ph, intra_part));
     }
     count_global_warp(d, b, warped);
 }
@@ -3423,6 +3565,7 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
     b->cgi = 0;
     b->cidx = 1;
     b->skip_mode = 0;
+    b->ii = 0;
     if (b->has_chroma) {
         b->avail_uc = (d->ssy && h4 == 1) ? is_inside(d, r - 2, c) : b->avail_u;
         b->avail_lc = (d->ssx && w4 == 1) ? is_inside(d, r, c - 2) : b->avail_l;
@@ -3684,6 +3827,8 @@ static void read_lr(Dec *d, int r, int c) {
 
 static void decode_tile(Dec *d) {
     memset(d->delta_lf, 0, sizeof(d->delta_lf));
+    memset(d->above_segpred, 0, (size_t)d->mi_cols + 32);
+    memset(d->left_segpred, 0, (size_t)d->mi_rows + 32);
     for (int p = 0; p < d->nplanes; p++) {
         memset(d->above_lvl[p], 0, (size_t)d->mi_cols + 32);
         memset(d->above_dc[p], 0, (size_t)d->mi_cols + 32);
@@ -3800,17 +3945,20 @@ static void mf_store(const Dec *d, int mask, int8_t *refs, int16_t *mvs) {
  * subsampled size), skips (mi_rows x mi_cols), cdef_idx
  * (ceil(mi_rows / 16) x ceil(mi_cols / 16), -1 where every block is
  * skipped), delta_lf (mi_rows x mi_cols x 4: the DeltaLF of y vertical,
- * y horizontal, u and v), segs (mi_rows x mi_cols: the segment_id),
- * the restoration units (per plane, row and column, strides
+ * y horizontal, u and v), segs (mi_rows x mi_cols: each block's
+ * segment_id), the restoration units (per plane, row and column, strides
  * H_LR_RSTRIDE x H_LR_CSTRIDE: kind 0 none / 1 Wiener / 2 SGR, then 6
- * taps or set, xqd0, xqd1) and the tool counters (T_NCOUNTERS). Where
- * motion_ns (five int64) is not NULL, it gains the nanoseconds spent in
+ * taps or set, xqd0, xqd1) and the tool counters (T_NCOUNTERS). prev_segs
+ * is PrevSegmentIds (mi_rows x mi_cols, the primary reference frame's
+ * SegmentIds where it is of the frame's MiRows and MiCols), or NULL for
+ * zeros. Where
+ * motion_ns (six int64) is not NULL, it gains the nanoseconds spent in
  * OBMC's neighbour predictions and blends ([0]), in the local warp, its
  * estimation, shear and block warps ([1]), in motion field estimation
- * ([2]), in compound blocks' masks and blends ([3]) and in the block
- * warps of global motion ([4]).
- * Returns 0, or 1
- * (unsupported tool) / 2 (corrupt stream) with msg set.
+ * ([2]), in compound blocks' masks and blends ([3]), in the block
+ * warps of global motion ([4]) and in inter-intra's intra predictions and
+ * blends ([5]).
+ * Returns 0, or 1 (corrupt stream) with msg set.
  *
  * Motion field estimation (spec 7.9): mf = [the store mask (bit ref for
  * each reference before the frame in order), the projections n (at most
@@ -3833,7 +3981,8 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
                      const int32_t *qlut, const uint8_t *qm,
                      int32_t *const *planes, int stride,
                      uint8_t *const *txmaps, uint8_t *skips, int8_t *cdef_idx,
-                     int8_t *delta_lf, uint8_t *segs, int32_t *lr_out, int32_t *counts,
+                     int8_t *delta_lf, uint8_t *segs, const uint8_t *prev_segs,
+                     int32_t *lr_out, int32_t *counts,
                      const int32_t *const *refs, const int32_t *ref_info,
                      const int16_t *inter_tables, uint16_t *cdf_out, uint8_t *mi_lf,
                      uint8_t *mi_bsz, int64_t *motion_ns, const int32_t *mf,
@@ -3862,6 +4011,11 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->seg_lossless_mask = hdr[H_SEG_LOSSLESS_MASK];
     d->seg_skip_mask = hdr[H_SEG_SKIP_MASK];
     d->seg_altlf_mask = (uint32_t)hdr[H_SEG_ALT_LF_MASK];
+    d->seg_update_map = hdr[H_SEG_UPDATE_MAP];
+    d->seg_temporal = hdr[H_SEG_TEMPORAL];
+    d->prev_seg = prev_segs;
+    if (d->seg_enabled && !d->seg_update_map) counts[T_SEG_MAP_KEPT]++;
+    if (d->seg_enabled && d->seg_update_map && d->seg_temporal) counts[T_SEG_TEMPORAL]++;
     d->tx_mode = hdr[H_TX_MODE];
     d->reduced_tx_set = hdr[H_REDUCED_TX_SET];
     d->screen_tools = hdr[H_SCREEN_TOOLS];
@@ -3899,6 +4053,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->jnt_comp = hdr[H_JNT_COMP];
     d->qdist_weight = inter_tables + TAB_QDIST_WEIGHT;
     d->qdist_lookup = inter_tables + TAB_QDIST_LOOKUP;
+    d->ii_weights = inter_tables + TAB_II_WEIGHTS;
     {
         const int16_t *w = inter_tables + TAB_WEDGE;
         for (int bs = 0; bs < 22; bs++) {
@@ -3988,7 +4143,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     size_t n8 = (size_t)(d->mi_rows >> 1) * (size_t)(d->mi_cols >> 1);
     d->tpl_mv = (int16_t *)calloc(n8 * 2 + 1, sizeof(int16_t));
     d->tpl_off = (int8_t *)calloc(n8 + 1, 1);
-    uint8_t *ctxmem = (uint8_t *)calloc((size_t)4 * 3 * ((size_t)d->mi_cols + d->mi_rows + 64), 1);
+    uint8_t *ctxmem = (uint8_t *)calloc((size_t)(4 * 3 + 1) * ((size_t)d->mi_cols + d->mi_rows + 64), 1);
     size_t cdf_total = 0;
     for (int k = 0; k < D_NCDF; k++) cdf_total += (size_t)cdf_lens[k];
     uint16_t *cdfmem = (uint16_t *)malloc(cdf_total * sizeof(uint16_t));
@@ -4017,6 +4172,8 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
             d->left_lvl[p] = q; q += lc;
             d->left_dc[p] = q; q += lc;
         }
+        d->above_segpred = q; q += ac;
+        d->left_segpred = q;
     }
     {
         size_t off = 0;

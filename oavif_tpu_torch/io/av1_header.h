@@ -33,8 +33,9 @@ enum {
     H_LF_DELTA_ENABLED, H_LF_REF_DELTA_INTRA,
     /* allow_intrabc (the strength sets stay the pack's tail) */
     H_ALLOW_INTRABC,
-    /* segmentation_params of a key frame (update_map 1, temporal_update
-     * 0): segmentation_enabled, SegIdPreSkip, LastActiveSegId, the
+    /* segmentation_params (a key frame's: update_map 1, temporal_update
+     * 0; an inter frame's map flags are the two words before the CDEF
+     * tail): segmentation_enabled, SegIdPreSkip, LastActiveSegId, the
      * segments with SEG_LVL_ALT_Q (bit i for segment i) and their
      * FeatureData, and LosslessArray as a mask (H_LOSSLESS is then
      * CodedLossless); the segments' SEG_LVL_ALT_LF_Y_V.._V (bit 4 * i + k
@@ -85,6 +86,9 @@ enum {
     H_GM5_0, H_GM5_1, H_GM5_2, H_GM5_3, H_GM5_4, H_GM5_5,
     H_GM6_0, H_GM6_1, H_GM6_2, H_GM6_3, H_GM6_4, H_GM6_5,
     H_GM7_0, H_GM7_1, H_GM7_2, H_GM7_3, H_GM7_4, H_GM7_5,
+    /* segmentation_update_map and segmentation_temporal_update (spec
+     * 5.9.14; 1 and 0 where the frame has no primary reference frame) */
+    H_SEG_UPDATE_MAP, H_SEG_TEMPORAL,
     /* the 1 << cdef_bits strength sets (y primary, y secondary, uv
      * primary, uv secondary; secondary 3 already read as 4) */
     H_CDEF_STRENGTHS,
@@ -181,6 +185,15 @@ enum {
      * for a shear setupShear refuses (globalValid 0); skip_mode blocks */
     T_GLOBAL_TRANSLATION, T_GLOBAL_ROTZOOM, T_GLOBAL_AFFINE, T_GLOBAL_WARP,
     T_GLOBAL_WARP_INVALID, T_SKIP_MODE,
+    /* inter-intra (spec 5.11.24, 7.11.3.13-14): blocks blended with an
+     * intra prediction, those of them by a wedge, and the smooth ones of
+     * each interintra_mode (II_DC, II_V, II_H, II_SMOOTH) */
+    T_INTERINTRA, T_INTERINTRA_WEDGE, T_II_DC, T_II_V, T_II_H, T_II_SMOOTH,
+    /* segmentation map prediction (spec 5.11.9, 7.20-21): frames that keep
+     * the previous map (segmentation_update_map 0), frames that code the
+     * map against it (segmentation_temporal_update 1), and blocks whose
+     * seg_id_predicted took the predicted id */
+    T_SEG_MAP_KEPT, T_SEG_TEMPORAL, T_SEG_ID_PREDICTED,
     T_NCOUNTERS
 };
 

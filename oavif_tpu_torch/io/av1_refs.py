@@ -16,7 +16,8 @@ Two views of one state, filled at two times:
   its frame type, and what motion field estimation reads of it (spec
   7.19-7.21: its order hint, the order hints of its references
   ``SavedOrderHints``, its size in 4x4 units and its saved MVs and their
-  references per 8x8).
+  references per 8x8), and its segment ids per 4x4 (``SavedSegmentIds``,
+  which a later frame of that size may keep or predict its own from).
 
 ``motion_field`` picks the frames a frame projects (spec 7.9.1) and packs
 what ``av1_decode_frame`` needs to project them.
@@ -96,6 +97,10 @@ class RefFrame:
     mi_cols: int = 0
     mf_refs: Optional[np.ndarray] = None
     mf_mvs: Optional[np.ndarray] = None
+    # SavedSegmentIds (spec 7.20): the frame's segment id per 4x4 (uint8,
+    # MiRows x MiCols; None for zeros), which a later frame of that size
+    # predicts its own from
+    seg_ids: Optional[np.ndarray] = None
 
 
 class RefFrames:

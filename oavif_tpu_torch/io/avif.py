@@ -957,6 +957,11 @@ class FrameHeader:
     seg_preskip: bool = False
     seg_last_active: int = 0
     seg_lossless: Tuple[bool, ...] = (False,) * 8
+    # segmentation_update_map and segmentation_temporal_update (an inter
+    # frame with a primary reference frame may keep its reference's map,
+    # or code its own against it)
+    seg_update_map: bool = True
+    seg_temporal: bool = False
     # the frame and its references (spec 5.9.2): KEY_FRAME 0, INTER_FRAME
     # 1; the slots it refreshes and, for an inter frame, the slot of each
     # of LAST..ALTREF, their order hints and sign biases (by reference
@@ -1392,19 +1397,15 @@ def _segmentation_params(b: _Bits, fh: FrameHeader, primary: bool,
     Each value read is clipped to its limit. ALT_Q moves the segment's
     qindex, the four ALT_LF its deblocking levels, SKIP skips its blocks;
     REF_FRAME, SKIP and GLOBALMV put the segment id before ``skip``
-    (SegIdPreSkip)."""
+    (SegIdPreSkip). The map flags are the frame's
+    (``seg_update_map``, ``seg_temporal``): the map kept from the primary
+    reference frame, or coded against it, where the sizes agree
+    (``av1_decode.c``)."""
     update = (True, False, True)
     if primary:
         umap = bool(b.f(1))
         update = (umap, bool(umap and b.f(1)), bool(b.f(1)))
-    if not update[0]:
-        raise UnsupportedAvif("AV1: segmentation map prediction (a "
-                              "segmentation_update_map of 0) is not "
-                              "supported")
-    if update[1]:
-        raise UnsupportedAvif("AV1: segmentation map prediction (a "
-                              "segmentation_temporal_update of 1) is not "
-                              "supported")
+    fh.seg_update_map, fh.seg_temporal = update[:2]
     feats = [[None] * 8 for _ in range(8)]
     if update[2]:
         for i in range(8):
@@ -1697,7 +1698,8 @@ _CDF_ORDER = (
     "mv0_class0", "mv0_bits", "mv0_class0_fr", "mv0_fr", "mv0_class0_hp",
     "mv0_hp", "comp_ref_type", "uni_comp_ref", "comp_ref", "comp_bwdref",
     "compound_mode", "compound_type", "wedge_index", "comp_group_idx",
-    "compound_idx", "skip_mode",
+    "compound_idx", "skip_mode", "interintra_mode", "wedge_interintra",
+    "segment_id_predicted",
 )
 # the header pack's fields in the order of av1_header.h's H_* enum
 _HDR_FIELDS = (
@@ -1726,6 +1728,7 @@ _HDR_FIELDS = (
     "skip_mode_present", "skip_mode_frame0", "skip_mode_frame1") \
     + tuple(f"gm_type{r}" for r in range(1, 8)) \
     + tuple(f"gm{r}_{i}" for r in range(1, 8) for i in range(6)) \
+    + ("seg_update_map", "seg_temporal") \
     + tuple(f"cdef_{k}{i}" for i in range(8)
             for k in ("y_pri", "y_sec", "uv_pri", "uv_sec"))
 # the decoder's tool counters in the order of av1_header.h's T_* enum
@@ -1750,7 +1753,8 @@ TOOL_NAMES = (
     "compound_wedge", "compound_diffwtd", "comp_ref_unidir",
     "comp_ref_bidir", "compound_scaled", "global_translation",
     "global_rotzoom", "global_affine", "global_warp", "global_warp_invalid",
-    "skip_mode",
+    "skip_mode", "interintra", "interintra_wedge", "ii_dc", "ii_v", "ii_h",
+    "ii_smooth", "seg_map_kept", "seg_temporal", "seg_id_predicted",
 )
 # the film grain pack (av1_header.h's G_* enum): field, length
 _GRAIN_FIELDS = (
@@ -1827,7 +1831,8 @@ def _tool_tables():
         _TOOL_CACHE["inter_tables"] = np.concatenate(
             [_TOOL_CACHE[k].reshape(-1).astype(np.int16) for k in (
                 "subpel_filters", "warped_filter", "div_lut", "obmc_mask",
-                "div_mult", "quant_dist_weight", "quant_dist_lookup")]
+                "div_mult", "quant_dist_weight", "quant_dist_lookup",
+                "ii_weights")]
             + [_wedge_masks(_TOOL_CACHE["wedge_codebook"],
                             _TOOL_CACHE["wedge_master"]).astype(np.int16)])
     return _TOOL_CACHE
@@ -1878,8 +1883,8 @@ def _reader_cdfs() -> dict:
     intra block copy's (use_intrabc, the DV's MV CDFs, the var-tx split
     and the inter transform types), segment_id's and the inter frames'
     (mode info, reference frames, filters, motion modes, the MV CDFs of
-    MvCtx 0, the compound blocks' references, modes and types, and
-    skip_mode)."""
+    MvCtx 0, the compound blocks' references, modes and types, skip_mode,
+    inter-intra's and seg_id_predicted's)."""
     from ..av1.frame import _adaptive
     from ..av1.tables import TABLES
 
@@ -1899,7 +1904,8 @@ def _reader_cdfs() -> dict:
                 "interintra", "comp_ref_type", "uni_comp_ref", "comp_ref",
                 "comp_bwdref", "compound_mode", "compound_type",
                 "wedge_index", "comp_group_idx", "compound_idx",
-                "skip_mode")},
+                "skip_mode", "interintra_mode", "wedge_interintra",
+                "segment_id_predicted")},
             # MvCtx 0 starts from the same defaults as intrabc's context
             **{f"mv0_{k[3:]}": _adaptive(t[k]) for k in (
                 "mv_joints", "mv_sign", "mv_classes", "mv_class0", "mv_bits",
@@ -1996,8 +2002,9 @@ def decode_av1(payload: bytes, times: Optional[dict] = None,
     OBMC's ("obmc_f1", ...), the local warp's ("warp_f1", ...), motion
     field estimation's ("project_f3", ...: a frame that projected the MVs
     of another), the compound blocks' blends and masks ("compound_f3",
-    ...) and the global warp's ("gwarp_f1", ...: blocks warped by global
-    motion). The tool counts are those of every frame, and each
+    ...), the global warp's ("gwarp_f1", ...: blocks warped by global
+    motion) and inter-intra's intra predictions and blends ("ii_f1",
+    ...). The tool counts are those of every frame, and each
     frame's apart (``frame_tools``)."""
     from .av1_refs import RefFrames
 
@@ -2017,6 +2024,16 @@ def decode_av1(payload: bytes, times: Optional[dict] = None,
     img.tools = dict(zip(TOOL_NAMES, counts.tolist()))
     img.frame_tools = frame_tools
     return img
+
+
+def _saved_segment_ids(fh: FrameHeader, segs: np.ndarray,
+                       prev: Optional[np.ndarray]) -> Optional[np.ndarray]:
+    """The SegmentIds a reference slot keeps of a frame (spec 7.4, 7.20):
+    its blocks' ids; PrevSegmentIds where it kept the map
+    (segmentation_update_map 0); None (zeros) without segmentation."""
+    if fh.segmentation is None:
+        return None
+    return segs if fh.seg_update_map else prev
 
 
 def _check_inter(f: "Av1Frame", refs) -> None:
@@ -2140,6 +2157,8 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
         **{f"gm_type{r}": t for r, t in enumerate(fh.gm_type, 1)},
         **{f"gm{r}_{i}": v for r, p in enumerate(fh.gm_params, 1)
            for i, v in enumerate(p)},
+        seg_update_map=int(fh.seg_update_map),
+        seg_temporal=int(fh.seg_temporal),
         **{name: v for name, v in zip(_HDR_FIELDS[-32:], strengths)})
     hdr = np.array([fields[k] for k in _HDR_FIELDS], dtype=np.int32)
     starts = np.array(fh.tile_col_starts + fh.tile_row_starts, dtype=np.int32)
@@ -2169,6 +2188,13 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
     lr_units = np.zeros((3, max(urows), max(ucols), 7), dtype=np.int32)
     delta_lf = np.zeros((fh.mi_rows, fh.mi_cols, 4), dtype=np.int8)
     segs = np.zeros((fh.mi_rows, fh.mi_cols), dtype=np.uint8)
+    # PrevSegmentIds (spec 7.21): the primary reference frame's map where
+    # it is of the frame's MiRows and MiCols, else zeros (None)
+    prev_segs = None
+    if fh.segmentation is not None and fh.primary_ref_frame != 7:
+        p_ = refs.slots[fh.ref_frame_idx[fh.primary_ref_frame]]
+        if (p_.mi_rows, p_.mi_cols) == (fh.mi_rows, fh.mi_cols):
+            prev_segs = p_.seg_ids
     mi_lf = np.zeros((fh.mi_rows, fh.mi_cols), dtype=np.uint8)
     mi_bsz = np.zeros((fh.mi_rows, fh.mi_cols), dtype=np.uint8)
     # the planes of LAST..ALTREF and their stride, width and height
@@ -2191,9 +2217,9 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
     msg = C.create_string_buffer(256)
     vp = C.c_void_p
     # the ns of OBMC, of the local warp, of motion field estimation, of
-    # compound blends and masks and of the global warp, taken where times
-    # are
-    motion = np.zeros(5, dtype=np.int64) if times is not None else None
+    # compound blends and masks, of the global warp and of inter-intra's
+    # intra predictions and blends, taken where times are
+    motion = np.zeros(6, dtype=np.int64) if times is not None else None
     rc = lib.av1_decode_frame(
         C.cast(tile_ptrs, vp), tile_sizes.ctypes.data, hdr.ctypes.data,
         starts.ctypes.data, C.cast(cdf_ptrs, vp), cdf_lens.ctypes.data,
@@ -2201,15 +2227,15 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
         taps.ctypes.data, qlut.ctypes.data,
         None if qm is None else qm.ctypes.data, C.cast(plane_ptrs, vp),
         stride, C.cast(tx_ptrs, vp), skips.ctypes.data, cdef_idx.ctypes.data,
-        delta_lf.ctypes.data, segs.ctypes.data, lr_units.ctypes.data,
+        delta_lf.ctypes.data, segs.ctypes.data,
+        None if prev_segs is None else prev_segs.ctypes.data,
+        lr_units.ctypes.data,
         counts.ctypes.data, C.cast(ref_ptrs, vp), ref_info.ctypes.data,
         _tool_tables()["inter_tables"].ctypes.data, cdf_out.ctypes.data,
         mi_lf.ctypes.data, mi_bsz.ctypes.data,
         None if motion is None else motion.ctypes.data, mf.ctypes.data,
         C.cast(mf_src_refs, vp), C.cast(mf_src_mvs, vp), mf_refs.ctypes.data,
         mf_mvs.ctypes.data, msg, 256)
-    if rc == 1:
-        raise UnsupportedAvif(msg.value.decode())
     if rc:
         raise _broken(msg.value.decode() or "tile data")
     t1 = time.perf_counter()
@@ -2238,7 +2264,8 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
                     RefFrame(kept, bd, (ssx, ssy), w, h, saved,
                              fh.frame_type, fh.order_hint,
                              fh.ref_order_hints or (0,) * 7, fh.mi_rows,
-                             fh.mi_cols, mf_refs, mf_mvs))
+                             fh.mi_cols, mf_refs, mf_mvs,
+                             _saved_segment_ids(fh, segs, prev_segs)))
     ts = time.perf_counter()
     if fh.grain is not None and last:
         pack = _grain_pack(fh.grain, s.cicp[2] == 0)
@@ -2259,7 +2286,8 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
                      (f"filters_f{index}", t2 - t1),
                      *((f"{tool}_f{index}", motion[k] * 1e-9)
                        for k, tool in ((0, "obmc"), (1, "warp"),
-                                       (3, "compound"), (4, "gwarp"))
+                                       (3, "compound"), (4, "gwarp"),
+                                       (5, "ii"))
                        if motion[k]),
                      *(((f"project_f{index}", motion[2] * 1e-9),)
                        if sources else ())):

@@ -66,7 +66,17 @@ and write ``oavif_tpu_torch/io/av1_tool_tables.npz``:
   ``quant_dist_lookup_table``), 4 x 2 int32 stored as int16;
 - ``skip_mode``: the default CDFs of ``skip_mode`` (spec
   Default_Skip_Mode_Cdf, libaom's ``default_skip_mode_cdfs``), one CDF2 row
-  for each of its 3 contexts.
+  for each of its 3 contexts;
+- the default CDFs of inter-intra: ``interintra_mode`` (spec
+  Default_Inter_Intra_Mode_Cdf, libaom's ``default_interintra_mode_cdf``),
+  4 rows of 4 symbols by size group (row 0, size group 0's, no block
+  reads), and ``wedge_interintra`` (spec Default_Wedge_Inter_Intra_Cdf,
+  libaom's ``default_wedge_interintra_cdf``), one CDF2 row per block size;
+- ``segment_id_predicted``: the default CDFs of ``seg_id_predicted``
+  (spec Default_Segment_Id_Predicted_Cdf, libaom's
+  ``default_segment_pred_cdf``), three equiprobable CDF2 rows;
+- ``ii_weights``: inter-intra's smooth mask weights (spec Ii_Weights_1d,
+  libaom's ``ii_weights1d``), 128 uint8.
 
 Each table is found by a structural signature and checked against anchor
 values before anything is written: the matrices by their first 4x4 (the
@@ -88,9 +98,15 @@ codebooks by their horizontal and vertical entries (which tell the three
 apart) and the spec's tables; the wedge master rows and the distance
 weights by the spec's values; skip_mode by the spec's three rows, which
 libaom keeps as one 16-byte chunk (its zero tail left to the zeroed frame
-context). libaom copies its small default CDFs into
-the frame context with immediate stores and 16-byte loads, so
-``intrabc`` is read from the one store of its value in ``.text``, and
+context); interintra_mode by the spec's rows, its first 32 bytes in
+``.rodata`` and its last 8 stored by a ``mov qword`` immediate;
+wedge_interintra by the spec's rows, its three chunks that hold the
+wedge sizes' rows in ``.rodata`` and its equiprobable ones in the pool;
+segment_id_predicted by the spec's rows, the two chunks its copy reads
+in the pool (every one of its rows is equiprobable, so no chunk of it is
+its own); Ii_Weights_1d by the spec's 128 values. libaom copies its
+small default CDFs into the frame context with immediate stores and
+16-byte loads, so ``intrabc`` is read from the one store of its value in ``.text``, and
 ``txfm_split`` from its 16-byte chunks, which the linker keeps in order
 with the last one (the array's final 16 bytes, overlapping the one
 before) after them; likewise ``uni_comp_ref`` and ``comp_ref`` end in a
@@ -209,6 +225,22 @@ QUANT_DIST_WEIGHT = ((2, 3), (2, 5), (2, 7), (1, 31))
 QUANT_DIST_LOOKUP = ((9, 7), (11, 5), (12, 4), (13, 3))
 # Default_Skip_Mode_Cdf
 SKIP_MODE = (32621, 20708, 8127)
+# Default_Inter_Intra_Mode_Cdf by size group (libaom's first row, size
+# group 0's, included), Default_Wedge_Inter_Intra_Cdf's rows of the sizes
+# 8x8 .. 32x32 (the others 16384), Default_Segment_Id_Predicted_Cdf
+INTERINTRA_MODE = ((8192, 16384, 24576), (1875, 11082, 27332),
+                   (2473, 9996, 26388), (4238, 11537, 25926))
+WEDGE_INTERINTRA = (20036, 24957, 26704, 27530, 29564, 29444, 26872)
+SEGMENT_ID_PREDICTED = (16384, 16384, 16384)
+# Ii_Weights_1d as (value, count) runs
+II_WEIGHTS = ((60, 1), (58, 1), (56, 1), (54, 1), (52, 1), (50, 1), (48, 1),
+              (47, 1), (45, 1), (44, 1), (42, 1), (41, 1), (39, 1), (38, 1),
+              (37, 1), (35, 1), (34, 1), (33, 1), (32, 1), (31, 1), (30, 1),
+              (29, 1), (28, 1), (27, 1), (26, 1), (25, 1), (24, 1), (23, 1),
+              (22, 2), (21, 1), (20, 1), (19, 2), (18, 2), (17, 1), (16, 2),
+              (15, 2), (14, 2), (13, 2), (12, 3), (11, 2), (10, 3), (9, 3),
+              (8, 4), (7, 4), (6, 5), (5, 5), (4, 8), (3, 9), (2, 15),
+              (1, 22))
 
 
 def section(lib: str, name: str = ".rodata") -> bytes:
@@ -674,6 +706,64 @@ def skip_mode_cdf(data: bytes) -> np.ndarray:
     return t
 
 
+def interintra_cdfs(data: bytes, text: bytes) -> dict:
+    """default_interintra_mode_cdf: its first two 16-byte chunks in
+    ``.rodata``, its last 8 bytes (the fourth row's last two values, the
+    closing 0 and the counter) stored by one ``mov qword [reg + disp32],
+    imm32``; default_wedge_interintra_cdf: the chunks of its wedge sizes'
+    rows (16-bit words 8 .. 31) in ``.rodata``, the equiprobable others
+    merged into the pool. Each row is checked against the spec's."""
+    flat = sum((_icdf(*r) + [0, 0] for r in INTERINTRA_MODE), [])
+    at = find_once(data, np.array(flat[:16], "<u2").tobytes(),
+                   "interintra_mode CDF")
+    imm = np.array(flat[16:18], "<u2").tobytes()
+    hits = [i for i in range(7, len(text) - 4) if text.startswith(imm, i)
+            and text[i - 7] == 0x48 and text[i - 6] == 0xC7
+            and 0x80 <= text[i - 5] <= 0x87]
+    require(len(hits) == 1, "interintra_mode CDF: its last row's store, "
+            "not exactly one")
+    body = data[at:at + 32] + imm + bytes(4)
+    mode = np.stack([_cdf_row(r, 4, "interintra_mode") for r in
+                     np.frombuffer(body, "<u2").reshape(4, 5)])
+    require([tuple(32768 - r[:3].astype(int)) for r in mode]
+            == list(INTERINTRA_MODE), "interintra_mode CDF: its rows")
+    probs = [16384] * 22
+    probs[3:10] = WEDGE_INTERINTRA
+    wflat = np.array(sum((_icdf(p) + [0, 0] for p in probs), []), "<u2")
+    at = find_once(data, wflat[8:32].tobytes(), "wedge_interintra CDF")
+    for k in (0, 32, 40, 48, 56, 58):
+        _pooled(data, wflat[k:k + 8].tobytes(), "wedge_interintra CDF")
+    body = wflat[:8].tobytes() + data[at:at + 48] + wflat[32:].tobytes()
+    wedge = np.stack([_cdf_row(r, 2, "wedge_interintra") for r in
+                      np.frombuffer(body, "<u2").reshape(22, 3)])
+    require((32768 - wedge[:, 0].astype(int)).tolist() == probs,
+            "wedge_interintra CDF: its rows")
+    return {"interintra_mode": mode, "wedge_interintra": wedge}
+
+
+def segment_id_predicted_cdf(data: bytes) -> np.ndarray:
+    """default_segment_pred_cdf: three equiprobable CDF2 rows, which
+    libaom copies by two 16-byte loads (words 0 .. 7 and 1 .. 8) from the
+    pool its equal chunks share."""
+    flat = np.array(sum((_icdf(p) + [0, 0] for p in SEGMENT_ID_PREDICTED),
+                        []), "<u2")
+    for k in (0, 1):
+        _pooled(data, flat[k:k + 8].tobytes(), "segment_id_predicted CDF")
+    return np.stack([_cdf_row(r, 2, "segment_id_predicted")
+                     for r in flat.reshape(3, 3)])
+
+
+def ii_weights(data: bytes) -> np.ndarray:
+    """ii_weights1d: 128 uint8 falling from 60 to 1, found by its first
+    16 and checked whole against the spec's Ii_Weights_1d."""
+    want = [v for v, n in II_WEIGHTS for _ in range(n)]
+    at = find_once(data, bytes(want[:16]), "inter-intra weights")
+    t = np.frombuffer(data, np.uint8, 128, at)
+    require(len(want) == 128 and t.tolist() == want,
+            "inter-intra weights: not the spec's Ii_Weights_1d")
+    return t.copy()
+
+
 def main(argv: list) -> None:
     lib = argv[0] if argv else LIBAOM
     data = section(lib)
@@ -691,7 +781,10 @@ def main(argv: list) -> None:
               "obmc_mask": obmc_masks(data), "div_mult": div_mult(data),
               **compound_cdfs(data, section(lib, ".text")),
               **wedge_tables(data), **quant_dist(data),
-              "skip_mode": skip_mode_cdf(data)}
+              "skip_mode": skip_mode_cdf(data),
+              **interintra_cdfs(data, section(lib, ".text")),
+              "segment_id_predicted": segment_id_predicted_cdf(data),
+              "ii_weights": ii_weights(data)}
     np.savez_compressed(OUT, **tables)
     for k, v in tables.items():
         print(f"{k}: {v.shape} {v.dtype}")

@@ -128,6 +128,11 @@ TOOLS_MADE = {**json.loads((FIXTURES.parent / "avif_tools"
               # over libaom's layers
               **{f"avif_globalmv/{n}": e for n, e in json.loads(
                   (FIXTURES.parent / "avif_globalmv" / "manifest.json")
+                  .read_text()).items()},
+              # inter-intra and segmentation map prediction: libaom's
+              # cyclic refresh layers and written frames over libaom's
+              **{f"avif_interintra/{n}": e for n, e in json.loads(
+                  (FIXTURES.parent / "avif_interintra" / "manifest.json")
                   .read_text()).items()}}
 
 

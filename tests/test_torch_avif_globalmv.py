@@ -57,7 +57,8 @@ sys.path.insert(0, str(FIXTURES))
 import make_avif_globalmv as MK  # noqa: E402
 import inter_writer as W  # noqa: E402
 
-COUNTERS = A.TOOL_NAMES[A.TOOL_NAMES.index("global_translation"):]
+COUNTERS = A.TOOL_NAMES[A.TOOL_NAMES.index("global_translation"):
+                        A.TOOL_NAMES.index("interintra")]
 
 
 def _crc(a) -> int:

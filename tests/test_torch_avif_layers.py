@@ -289,37 +289,54 @@ def test_frame_level_refusals_name_the_tool():
                      "segmentation_temporal_update"),
     ("scaled", "a reference frame of another size (scaled prediction)")])
 def test_written_refusals_name_the_tool(refuse, tool):
-    """Inter frames ``inter_writer`` writes up to a tool the decoder
-    refuses: segmentation's map predicted from the reference; a frame of
-    128x128 on a reference of 256x256, once refused as scaled prediction,
-    and a frame of compound blocks, once refused, which both now decode to
-    dav1d's planes."""
+    """Inter frames ``inter_writer`` writes with a tool the decoder once
+    refused (``tool`` names it as the refusal did): a chained frame whose
+    segment ids are kept from the frame before it (update_map 0) or coded
+    against them (temporal update, some predicted), over a frame whose ids
+    come before skip; a frame of 128x128 on a reference of 256x256
+    (scaled prediction) and a frame of compound blocks; each now decodes
+    to dav1d's planes."""
+    from dataclasses import replace
+
     from inter_writer import random_compound_sbs, random_sbs, write_layered
 
+    seg = refuse.startswith("seg")
     key = MK.aom_encode_layers(MK.to_yuv(
-        MK.bench_images(256)["fractal"], 8, "4:2:0"), 8, "4:2:0", (40, 20),
-        options={"cpu-used": 8})
+        MK.bench_images(256)["fractal"], 8, "4:2:0"), 8, "4:2:0",
+        (40, 20, 10) if seg else (40, 20), options={"cpu-used": 8})
     rng = np.random.default_rng(5)
     scaled, compound = refuse == "scaled", refuse == "compound"
     if compound:
         stream = write_layered(key, random_compound_sbs(
             rng, 16, (1, 2, 3, 4), 20, True), pair=(1, 7), masked=True)
+        counter = "comp_ref_bidir"
+    elif seg:
+        # ids 0 .. 3 in turn, every other one predicted; segment 3 skips
+        feats = {1: {1: -20, 2: -20}, 2: {1: 20}, 3: {6: 0}}
+        sbs = [(split, [replace(b, seg=(i + k) % 4, seg_pred=bool(i & 1))
+                        for k, b in enumerate(blks)])
+               for i, (split, blks) in enumerate(random_sbs(
+                   rng, 16, 4, 20, 3, True))]
+        stream = write_layered(key, sbs, seg=dict(features=feats),
+                               chain=dict(sbs=sbs, primary=0,
+                                          ref_slots=(1,) + (0,) * 6,
+                                          seg=dict(map={
+                                              "seg_map": "keep",
+                                              "seg_temporal": "temporal"}[
+                                                  refuse], features=feats)))
+        counter = {"seg_map": "seg_map_kept",
+                   "seg_temporal": "seg_id_predicted"}[refuse]
     else:
         sbs = random_sbs(rng, 16, 0, 20, 3, True)
-        stream = write_layered(key, sbs[:4] if scaled else sbs,
-                               size=(128, 128) if scaled else None,
-                               refuse="" if scaled else refuse)
+        stream = write_layered(key, sbs[:4], size=(128, 128))
+        counter = "scaled_pred"
     data = MK.container(stream, *((128, 128) if scaled else (256, 256)), 8)
-    if scaled or compound:
-        planes, _, _ = decode_to_yuv(data)
-        img = A.decode_avif(data)[1]
-        assert img.tools["scaled_pred" if scaled else "comp_ref_bidir"] > 0
-        assert len(img.planes) == 3
-        for got, want in zip(img.planes, planes):
-            np.testing.assert_array_equal(got, want)
-        return
-    with pytest.raises(A.UnsupportedAvif, match=re.escape(tool)):
-        A.decode_avif(data)
+    planes, _, _ = decode_to_yuv(data)
+    img = A.decode_avif(data)[1]
+    assert img.tools[counter] > 0, tool
+    assert len(img.planes) == 3
+    for got, want in zip(img.planes, planes):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_refusal_files_name_their_tools():

@@ -13,7 +13,13 @@ reference frame's GmType and gm_params, coded against the primary
 reference's, with GLOBALMV and GLOBAL_GLOBALMV blocks beside NEARESTMV,
 NEARMV and NEWMV ones, and a second written frame on the first, ``chain``)
 and skip_mode blocks (``skip_mode``, ``SkipModeBlock``), with delta q
-(``delta_q``) and 128-pixel superblocks where libaom's sequence has them.
+(``delta_q``) and 128-pixel superblocks where libaom's sequence has them;
+inter-intra blocks (``interintra``, ``InterBlock.ii``: every
+interintra_mode, smooth or by a wedge); segmentation with its ids before
+or after skip, kept from the primary reference frame's map or coded
+against it (``seg``, ``InterBlock.seg`` and ``seg_pred``); the adapted
+CDFs a chained frame inherits (``end_cdf``) and rows of tiles
+(``tile_rows``).
 
     from inter_writer import InterBlock, write_layered
     data = write_layered(key_obus, blocks, filter=4, dual=True)
@@ -78,6 +84,8 @@ COMPOUND_TYPES = ("average", "distance", "wedge", "diffwtd")
 COMPOUND_MODE_CTX = ((0, 1, 1, 1, 1), (1, 2, 3, 4, 4), (4, 4, 5, 6, 7))
 # the block sizes (log2 w4 of a square) with wedges: 8x8 to 32x32
 WEDGE_SQUARES = {1: 3, 2: 6, 3: 9}
+# the segmentation features (spec SEG_LVL_*) the writer acts on
+SEG_REF_FRAME, SEG_SKIP, SEG_GLOBALMV = 5, 6, 7
 
 
 @dataclass
@@ -100,6 +108,15 @@ class InterBlock:
     # NEW, or NEAREST, NEAR or GLOBAL (the MV then the stack's or the
     # block's GlobalMv, ``mv`` unused; LOCALWARP only with NEW)
     mode: str = NEW
+    # inter-intra (a frame with ``interintra``, 8x8 to 32x32): its
+    # interintra_mode (0 II_DC .. 3 II_SMOOTH) and its wedge_index, or None
+    # for the smooth mask; the block's motion mode is then SIMPLE
+    ii: Optional[Tuple[int, Optional[int]]] = None
+    # in a frame with segmentation (``seg``): the block's segment id where
+    # it is coded, and under temporal update whether it takes the predicted
+    # one instead (seg_id_predicted 1)
+    seg: int = 0
+    seg_pred: bool = False
 
 
 @dataclass
@@ -128,6 +145,57 @@ class SkipModeBlock:
 
 def _ref_count_ctx(a: int, b: int) -> int:
     return 0 if a < b else (1 if a == b else 2)
+
+
+def neg_interleave(x: int, ref: int, n: int) -> int:
+    """The segment_id symbol that codes id ``x`` against the predicted
+    id ``ref`` among ``n`` (libaom's av1_neg_interleave, the inverse of
+    the spec's neg_deinterleave)."""
+    if not ref:
+        return x
+    if ref >= n - 1:
+        return n - 1 - x
+    diff = x - ref
+    if 2 * ref < n:
+        if abs(diff) <= ref:
+            return 2 * diff - 1 if diff > 0 else -2 * diff
+        return x
+    if abs(diff) < n - ref:
+        return 2 * diff - 1 if diff > 0 else -2 * diff
+    return n - 1 - x
+
+
+def segmentation_params(w: BitWriter, seg: Optional[dict],
+                        primary: int) -> None:
+    """segmentation_params: ``seg`` None (off) or a dict of ``map``
+    ("update", "keep": segmentation_update_map 0, or "temporal":
+    segmentation_temporal_update 1; only "update" without a primary
+    reference frame), ``data`` (segmentation_update_data, True where
+    absent) and ``features`` ({segment: {SEG_LVL_*: value}})."""
+    w.f(int(seg is not None), 1)  # segmentation_enabled
+    if seg is None:
+        return
+    mode, data = seg.get("map", "update"), seg.get("data", True)
+    if primary == 7:
+        assert mode == "update" and data
+    else:
+        w.f(int(mode != "keep"), 1)  # segmentation_update_map
+        if mode != "keep":
+            w.f(int(mode == "temporal"), 1)  # segmentation_temporal_update
+        w.f(int(data), 1)  # segmentation_update_data
+    if not data:
+        return
+    feats = seg["features"]
+    for i in range(8):
+        for j in range(8):
+            v = feats.get(i, {}).get(j)
+            w.f(int(v is not None), 1)
+            if v is None:
+                continue
+            if A._SEG_SIGNED[j]:
+                _su(w, v, 1 + A._SEG_BITS[j])
+            elif A._SEG_BITS[j]:
+                w.f(v, A._SEG_BITS[j])
 
 
 def _obus(data: bytes):
@@ -311,28 +379,30 @@ def global_motion(w: BitWriter, gm, prev, hp: bool) -> None:
 def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
                  lf: Tuple[int, int, int, int], ref_deltas, mode_deltas,
                  size: Optional[Tuple[int, int]] = None, primary: int = 7,
-                 compound: bool = False,
-                 seg_update: Optional[Tuple[int, int]] = None,
+                 compound: bool = False, seg: Optional[dict] = None,
                  motion: bool = False, order_hint: int = 1,
                  ref_slots: Tuple[int, ...] = (0,) * 7,
                  slot_hints: Tuple[int, ...] = (0,) * 8, gm=None,
                  prev_gm=None, skip_mode: bool = False, refresh: int = 0,
-                 delta_q: bool = False) -> BitWriter:
+                 delta_q: bool = False, end_cdf: bool = False,
+                 tile_rows_log2: int = 0) -> BitWriter:
     """uncompressed_header of a shown inter frame of ``order_hint`` on
     the slots ``ref_slots`` (of order hints ``slot_hints``) for LAST ..
-    ALTREF, refreshing no slot, with the default CDFs, of another ``size``
+    ALTREF, refreshing no slot, with the CDFs of ``primary`` (the
+    defaults where it is 7), of another ``size``
     than the sequence's where given, ``reference_select`` for
-    ``compound`` (and skip_mode_present 0 where skip mode is allowed);
-    for the refusals' streams, with a primary reference frame or
-    segmentation's map and temporal update flags (``seg_update``, past
-    which it writes nothing of the header right); ``motion`` sets
+    ``compound`` (and skip_mode_present 0 where skip mode is allowed),
+    segmentation ``seg`` (``segmentation_params``); ``motion`` sets
     ``is_motion_mode_switchable`` and ``allow_warped_motion``, which is
     written where the sequence enables warped motion. ``gm`` gives each
     reference's global motion (GmType, gm_params; identity where None),
     coded against ``prev_gm`` (PrevGmParams, identity where None);
     ``skip_mode`` writes skip_mode_present 1 where it is allowed,
-    ``refresh`` is refresh_frame_flags and ``delta_q`` sets
-    delta_q_present (delta_q_res 0, no delta LF)."""
+    ``refresh`` is refresh_frame_flags, ``delta_q`` sets
+    delta_q_present (delta_q_res 0, no delta LF), ``end_cdf`` saves the
+    first tile's CDFs at the frame's end (disable_frame_end_update_cdf 0)
+    and ``tile_rows_log2`` cuts the frame into that many (log2) uniform
+    rows of tiles."""
     w = BitWriter()
     w.f(0, 1)  # show_existing_frame
     w.f(1, 2)  # INTER_FRAME
@@ -364,7 +434,7 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
     w.f(int(motion), 1)  # is_motion_mode_switchable
     if s.ref_frame_mvs:
         w.f(0, 1)  # use_ref_frame_mvs
-    w.f(1, 1)  # disable_frame_end_update_cdf
+    w.f(int(not end_cdf), 1)  # disable_frame_end_update_cdf
     sb = 128 if s.sb128 else 64
     sb_cols, sb_rows = -(-width // sb), -(-height // sb)
     w.f(1, 1)  # uniform_tile_spacing_flag
@@ -376,8 +446,14 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
     k = 0
     while (1 << k) < min(sb_rows, 64):
         k += 1
-    if k:
+    assert tile_rows_log2 <= k
+    for _ in range(tile_rows_log2):
+        w.f(1, 1)  # increment_tile_rows_log2
+    if tile_rows_log2 < k:
         w.f(0, 1)
+    if tile_rows_log2:
+        w.f(0, tile_rows_log2)  # context_update_tile_id
+        w.f(3, 2)  # tile_size_bytes_minus_1
     w.f(base_q, 8)
     w.f(0, 1)  # DeltaQYDc
     if not s.mono:
@@ -386,12 +462,7 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
         w.f(0, 1)
         w.f(0, 1)
     w.f(0, 1)  # using_qmatrix
-    w.f(int(seg_update is not None), 1)  # segmentation_enabled
-    if seg_update is not None:
-        w.f(seg_update[0], 1)  # segmentation_update_map
-        if seg_update[0]:
-            w.f(seg_update[1], 1)  # segmentation_temporal_update
-        return w
+    segmentation_params(w, seg, primary)
     w.f(int(delta_q), 1)  # delta_q_present
     if delta_q:
         w.f(0, 2)  # delta_q_res
@@ -450,9 +521,20 @@ class _Tile:
                  bias: Tuple[int, ...] = (0,) * 8,
                  same_dist: bool = True, gm=None,
                  skip_frames: Optional[Tuple[int, int]] = None,
-                 delta_q: bool = False) -> None:
+                 delta_q: bool = False, interintra: bool = False,
+                 seg: Optional[dict] = None,
+                 cdfs: Optional[dict] = None) -> None:
         self.s, self.filt, self.dual, self.hp = s, filt, dual, hp
         self.motion = motion
+        # inter-intra (enable_interintra_compound) and each mi's block's;
+        # segmentation (``seg``: the frame's ``map`` mode, each segment's
+        # ``features``, ``prev`` the PrevSegmentIds it predicts from, None
+        # for zeros), each mi's segment id and the seg_id_predicted
+        # contexts by row and column
+        self.interintra = interintra
+        self.ii: Dict[Tuple[int, int], bool] = {}
+        self.seg = seg
+        self.segids: Dict[Tuple[int, int], int] = {}
         # global motion of LAST..ALTREF, the block whose stack is being
         # built's GlobalMvs, and per mi whether its block is a GLOBALMV or
         # GLOBAL_GLOBALMV block of 8x8 or more; SkipModeFrame (None where
@@ -480,10 +562,19 @@ class _Tile:
         # LOCALWARP blocks by kind of warp ("valid", "singular", "shear")
         self.warps: Dict[str, int] = {}
         arrs = A._cdf_pack(coeff_q_ctx(base_q))[0]
-        self.cdf = {k: a.copy() for k, a in zip(A._CDF_ORDER, arrs)}
+        self.cdf = {k: a.copy() for k, a in zip(A._CDF_ORDER, arrs)} \
+            if cdfs is None else {k: a.copy() for k, a in cdfs.items()}
+        self.start_cdf = {k: a.copy() for k, a in self.cdf.items()}
+        self.first_cdf: Optional[dict] = None  # the first tile's, at its end
+        self.base_q = base_q
         self.enc = RangeEncoder()
         self.mi_rows = 2 * ((size[1] + 7) >> 3)
         self.mi_cols = 2 * ((size[0] + 7) >> 3)
+        self.above_sp = [0] * (self.mi_cols + 32)
+        self.left_sp = [0] * (self.mi_rows + 32)
+        # the current tile's first and end mi rows (tiles are rows of
+        # superblocks across the frame)
+        self.r0, self.r1 = 0, self.mi_rows
         self.size: Dict[Tuple[int, int], Tuple[int, int]] = {}
         self.mv: Dict[Tuple[int, int], Tuple[int, int]] = {}
         self.newmv: Dict[Tuple[int, int], int] = {}
@@ -582,7 +673,7 @@ class _Tile:
             r, c = (row, col + x) if horiz else (row + x, col)
             self._add(st, r, c, length * 2, flags, idx)
             x += length
-            end = self.mi_cols if horiz else self.mi_rows
+            end = self.mi_cols if horiz else self.r1
             if x >= n4 or (col if horiz else row) + x >= end:
                 return 1
             r, c = (row, col + x) if horiz else (row + x, col)
@@ -592,14 +683,14 @@ class _Tile:
         bw4, bh4 = 1 << wl, 1 << hl
         self.cur_gmv = tuple(self.global_mv(t, r, c, wl, hl)
                              for t in self.target)
-        w4, h4 = min(bw4, 16, self.mi_cols - c), min(bh4, 16, self.mi_rows - r)
+        w4, h4 = min(bw4, 16, self.mi_cols - c), min(bh4, 16, self.r1 - r)
         st: List[list] = []
         flags = [0, 0, 0]  # row match, column match, NEWMV match
         none = 1 << 20
         max_rows = max_cols = 0
         n_rows = n_cols = none
-        if r > 0:
-            max_rows = min((r + 1) >> 1, 2 + (bh4 > 1))
+        if r > self.r0:
+            max_rows = min((r - self.r0 + 1) >> 1, 2 + (bh4 > 1))
             n_rows = self._scan(st, r - 1, c, bw4, w4, max_rows,
                                 4 if bw4 >= 16 else 1, flags, True)
         if c > 0:
@@ -720,9 +811,11 @@ class _Tile:
 
     # -- the local warp (spec 7.10.4, 7.11.3.6-8) ---------------------------
 
-    def warp_samples(self, r, c, wl, hl, mv):
+    def warp_samples(self, r, c, wl, hl, mv, ref: int = LAST):
         """find_warp_samples: CandList[:NumSamples] of the block at (r, c)
-        with ``mv``, every neighbour being an inter block on LAST."""
+        with ``mv`` on ``ref``, every neighbour being an inter block; one
+        on another reference, a compound or an inter-intra one
+        (RefFrame[1] not NONE) is no sample, nor scanned."""
         w4, h4 = 1 << wl, 1 << hl
         thresh = min(max(4 << max(wl, hl), 16), 112)
         out, scanned = [], [0]
@@ -730,7 +823,10 @@ class _Tile:
 
         def add(dr, dc):
             rr, cc = r + dr, c + dc
-            if scanned[0] >= 8 or (rr, cc) not in self.written:
+            if scanned[0] >= 8 or (rr, cc) not in self.written or \
+                    rr < self.r0 or \
+                    self._refs_of((rr, cc)) != (ref, -1) or \
+                    self.ii.get((rr, cc)):
                 return
             cwl, chl = self.size[rr, cc]
             cw4, ch4 = 1 << cwl, 1 << chl
@@ -746,7 +842,7 @@ class _Tile:
                 out.append(cand)
 
         top_left = top_right = True
-        if r > 0:
+        if r > self.r0:
             sw = 1 << self.size[r - 1, c][0]
             if w4 <= sw:
                 off = -(c & (sw - 1))
@@ -766,7 +862,7 @@ class _Tile:
                 add(0, -1)
             else:
                 i = 0
-                while i < min(h4, self.mi_rows - r):
+                while i < min(h4, self.r1 - r):
                     step = 1 << self.size[r + i, c - 1][1]
                     add(i, -1)
                     i += step
@@ -791,9 +887,9 @@ class _Tile:
         r = (abs(v) + (1 << n >> 1)) >> n
         return -r if v < 0 else r
 
-    def warp_kind(self, r, c, wl, hl, mv) -> str:
+    def warp_kind(self, r, c, wl, hl, mv, ref: int = LAST) -> str:
         """"valid", "singular" or "shear": warpEstimation and setupShear
-        of the block at (r, c) with ``mv``."""
+        of the block at (r, c) with ``mv`` on ``ref``."""
         r2 = self._round2s
         a00 = a01 = a11 = bx0 = bx1 = by0 = by1 = 0
         midy, midx = r * 4 + (2 << hl) - 1, c * 4 + (2 << wl) - 1
@@ -803,7 +899,7 @@ class _Tile:
         def ls(a, b):
             return ((a * b) >> 2) + a + b
 
-        for cy, cx, ey, ex in self.warp_samples(r, c, wl, hl, mv):
+        for cy, cx, ey, ex in self.warp_samples(r, c, wl, hl, mv, ref):
             sy, sx, dy, dx = cy - suy, cx - sux, ey - duy, ex - dux
             if abs(sx - dx) < 256 and abs(sy - dy) < 256:
                 a00 += ls(sx, sx) + 8
@@ -847,7 +943,7 @@ class _Tile:
         rng = np.random.default_rng(r * 4096 + c)
         mv = blk.mv
         for _ in range(4000):
-            if self.warp_kind(r, c, wl, hl, mv) == blk.warp:
+            if self.warp_kind(r, c, wl, hl, mv, blk.ref) == blk.warp:
                 return mv
             spread = {"valid": 16, "shear": 160}.get(blk.warp, 400)
             mv = tuple(int(v + rng.integers(-spread, spread + 1))
@@ -882,14 +978,33 @@ class _Tile:
         return tuple(st[k][0]) if k < len(st) else self.cur_gmv[0]
 
     def _preamble(self, r: int, c: int, wl: int, hl: int, nbrs,
-                  skip_mode: int) -> None:
-        """skip_mode where the frame has it (8x8 or more), skip (1) unless
-        skip_mode, and delta q at a superblock's first block."""
-        if self.skip_frames and min(wl, hl) >= 1:
+                  skip_mode: int, blk: Optional[InterBlock] = None) -> dict:
+        """The segment id where it comes before skip, skip_mode where the
+        frame has it (8x8 or more, in a segment without REF_FRAME, SKIP or
+        GLOBALMV), skip (1) unless skip_mode or the segment's SKIP, the
+        segment id where it comes after, and delta q at a superblock's
+        first block; returns the block's segment's features."""
+        sg = self.seg
+        sid = 0
+        if sg is not None:
+            if sg["map"] == "keep":
+                sid = self._predicted(r, c, wl, hl)
+            elif sg["preskip"]:
+                sid = self._code_segment(r, c, wl, hl, blk, 0)
+        feats = sg["features"][sid] if sg else {}
+        if self.skip_frames and min(wl, hl) >= 1 and not feats.keys() & {
+                SEG_REF_FRAME, SEG_SKIP, SEG_GLOBALMV}:
             self.put("skip_mode", sum(self.skipm.get(p, 0) for p in nbrs),
                      skip_mode, 2, 3)
-        if not skip_mode:
+        if not skip_mode and SEG_SKIP not in feats:
             self.put("skip", len(nbrs), 1, 2, 3)  # every neighbour skipped
+        if sg is not None and sg["map"] != "keep" and not sg["preskip"]:
+            sid = self._code_segment(r, c, wl, hl, blk, 1)
+            feats = sg["features"][sid]
+        if sg is not None:
+            for y in range(r, min(r + (1 << hl), self.mi_rows)):
+                for x in range(c, min(c + (1 << wl), self.mi_cols)):
+                    self.segids[y, x] = sid
         sb = 5 if self.s.sb128 else 4
         if self.delta_q and self.read_deltas and not wl == hl == sb:
             # delta_q_abs 0, 1 or 2 in turn, the sign alternating
@@ -899,10 +1014,67 @@ class _Tile:
                 self.literal((self.n_deltas // 3) & 1, 1)
             self.n_deltas += 1
         self.read_deltas = False
+        return feats
+
+    # -- segment ids (spec 5.11.9 inter_segment_id, read_segment_id) -------
+
+    def _predicted(self, r: int, c: int, wl: int, hl: int) -> int:
+        """get_segment_id: the least PrevSegmentIds over the block."""
+        prev = self.seg["prev"]
+        if prev is None:
+            return 0
+        return int(prev[r:r + (1 << hl), c:c + (1 << wl)].min())
+
+    def _spatial(self, r: int, c: int) -> Tuple[int, int]:
+        """read_segment_id's prediction from the above-left, above and
+        left ids, and its context."""
+        top = r > self.r0
+        u = self.segids[r - 1, c] if top else None
+        lf = self.segids[r, c - 1] if c else None
+        ul = self.segids[r - 1, c - 1] if top and c else None
+        pred = (0 if lf is None else lf) if u is None else \
+            (u if lf is None else (u if ul == u else lf))
+        if ul is None:
+            ctx = 0
+        elif ul == u == lf:
+            ctx = 2
+        else:
+            ctx = int(ul == u or ul == lf or u == lf)
+        return pred, ctx
+
+    def _code_segment(self, r: int, c: int, wl: int, hl: int,
+                      blk: InterBlock, skip: int) -> int:
+        """The segment id of ``blk`` where the map is coded: under
+        temporal update seg_id_predicted (a skipped block after skip takes
+        the spatial prediction and 0 for the contexts), then where it is 0
+        segment_id against the spatial prediction (none for a skipped
+        block after skip)."""
+        sg = self.seg
+        post = not sg["preskip"]
+        if sg["map"] == "temporal" and not (post and skip):
+            ctx = self.left_sp[r] + self.above_sp[c]
+            pred = int(blk.seg_pred)
+            self.put("segment_id_predicted", ctx, pred, 2, 3)
+            self.above_sp[c:c + (1 << wl)] = [pred] * (1 << wl)
+            self.left_sp[r:r + (1 << hl)] = [pred] * (1 << hl)
+            if pred:
+                self.counts["seg_id_predicted"] = \
+                    self.counts.get("seg_id_predicted", 0) + 1
+                return self._predicted(r, c, wl, hl)
+        elif sg["map"] == "temporal":
+            self.above_sp[c:c + (1 << wl)] = [0] * (1 << wl)
+            self.left_sp[r:r + (1 << hl)] = [0] * (1 << hl)
+        pred, ctx = self._spatial(r, c)
+        if post and skip:
+            return pred
+        assert 0 <= blk.seg <= sg["last"]
+        self.put("segment_id", ctx, neg_interleave(blk.seg, pred,
+                                                  sg["last"] + 1), 8, 9)
+        return blk.seg
 
     def _store(self, r: int, c: int, wl: int, hl: int, mv, refs, newmv,
                filt, glob: bool = False, skip_mode: int = 0,
-               cgi: int = 0, cidx: int = 1) -> None:
+               cgi: int = 0, cidx: int = 1, ii: bool = False) -> None:
         for y in range(r, min(r + (1 << hl), self.mi_rows)):
             for x in range(c, min(c + (1 << wl), self.mi_cols)):
                 self.size[y, x] = (wl, hl)
@@ -913,35 +1085,48 @@ class _Tile:
                 self.gmv_blk[y, x] = glob
                 self.skipm[y, x] = skip_mode
                 self.cgi[y, x], self.cidx[y, x] = cgi, cidx
+                self.ii[y, x] = ii
                 self.written.add((y, x))
 
     def block(self, r: int, c: int, wl: int, hl: int, blk: InterBlock
               ) -> None:
-        above, left = (r - 1, c) if r else None, (r, c - 1) if c else None
+        above = (r - 1, c) if r > self.r0 else None
+        left = (r, c - 1) if c else None
+        nbrs = [p for p in (above, left) if p]
+        feats = self._preamble(r, c, wl, hl, nbrs, 0, blk)
+        # a segment's REF_FRAME sets the reference, its SKIP or GLOBALMV
+        # LAST and GLOBALMV, none of them with a symbol
+        seg_ref = feats.get(SEG_REF_FRAME)
+        forced = SEG_SKIP in feats or SEG_GLOBALMV in feats
+        if seg_ref is not None or forced:
+            blk = replace(blk, ref=LAST if seg_ref is None else seg_ref,
+                          mode=GLOBAL if forced else blk.mode)
         glob = blk.mode == GLOBAL
         # read_motion_mode: a block of 8x8 at least with a neighbour (every
-        # neighbour is inter on LAST, so NumSamples > 0 too), unless it is
-        # a GLOBALMV block on a GmType past TRANSLATION
+        # neighbour is inter), unless it is a GLOBALMV block on a GmType
+        # past TRANSLATION or an inter-intra block
         switchable = self.motion and min(wl, hl) >= 1 and bool(
             above or left) and not (glob and self.gm_type(blk.ref)
-                                    > TRANSLATION)
+                                    > TRANSLATION) and blk.ii is None
         motion = blk.motion if switchable else SIMPLE
         assert motion != LOCALWARP or blk.mode == NEW
         if motion == LOCALWARP and blk.warp:
-            blk = InterBlock(self._warp_mv(r, c, wl, hl, blk), blk.filt,
-                             motion, blk.warp)
-        nbrs = [p for p in (above, left) if p]
-        self._preamble(r, c, wl, hl, nbrs, 0)
-        self.put("is_inter", 0, 1, 2, 3)  # every neighbour inter
-        if self.pair and min(wl, hl) >= 1:
+            blk = replace(blk, mv=self._warp_mv(r, c, wl, hl, blk),
+                          motion=motion)
+        if seg_ref is None and SEG_GLOBALMV not in feats:
+            self.put("is_inter", 0, 1, 2, 3)  # every neighbour inter
+        if self.pair and min(wl, hl) >= 1 and seg_ref is None \
+                and not forced:
             self.put("comp_mode", self._comp_mode_ctx(above, left), 0, 2, 3)
-        self._single_ref(nbrs, blk.ref)
+        if seg_ref is None and not forced:
+            self._single_ref(nbrs, blk.ref)
         if self.pair:
             self.counts["single"] = self.counts.get("single", 0) + 1
         self.target = (blk.ref, -1)
         st, newmv_ctx, refmv_ctx = self.stack(r, c, wl, hl)
-        self.put("new_mv", newmv_ctx, int(blk.mode != NEW), 2, 3)
-        if blk.mode != NEW:
+        if not forced:
+            self.put("new_mv", newmv_ctx, int(blk.mode != NEW), 2, 3)
+        if blk.mode != NEW and not forced:
             # zero_mv in ZeroMvContext 0 (no reference MVs), then ref_mv
             self.put("zero_mv", 0, int(not glob), 2, 3)
             if not glob:
@@ -958,11 +1143,33 @@ class _Tile:
             mv = self.cur_gmv[0] if glob else self._pred(st, 0)
         if blk.mode != NEW:
             self.counts[blk.mode] = self.counts.get(blk.mode, 0) + 1
+        bsize = WEDGE_SQUARES.get(wl) if wl == hl else None
+        if self.interintra and bsize is not None:
+            # interintra by size group (wl of a square 8x8 .. 32x32),
+            # interintra_mode, wedge_interintra and wedge_index
+            self.put("interintra", wl, int(blk.ii is not None), 2, 3)
+            if blk.ii is not None:
+                mode, wedge = blk.ii
+                self.put("interintra_mode", wl, mode, 4, 5)
+                self.put("wedge_interintra", bsize, int(wedge is not None),
+                         2, 3)
+                if wedge is not None:
+                    self.put("wedge_index", bsize, wedge, 16, 17)
+                key = "ii_wedge" if wedge is not None else f"ii{mode}"
+                self.counts[key] = self.counts.get(key, 0) + 1
+        else:
+            assert blk.ii is None, "inter-intra outside 8x8 .. 32x32"
         if switchable:
-            bsize = {(1, 1): 3, (2, 2): 6, (3, 3): 9, (4, 4): 12}[wl, hl]
-            self.put("motion_mode", bsize, motion, 3, 4)
+            msize = {(1, 1): 3, (2, 2): 6, (3, 3): 9, (4, 4): 12}[wl, hl]
+            # NumSamples 0 (every neighbour compound, inter-intra or on
+            # another reference): use_obmc in place of motion_mode
+            if self.warp_samples(r, c, wl, hl, mv, blk.ref):
+                self.put("motion_mode", msize, motion, 3, 4)
+            else:
+                assert motion != LOCALWARP
+                self.put("obmc", msize, motion, 2, 3)
             if motion == LOCALWARP:
-                kind = self.warp_kind(r, c, wl, hl, blk.mv)
+                kind = self.warp_kind(r, c, wl, hl, blk.mv, blk.ref)
                 self.warps[kind] = self.warps.get(kind, 0) + 1
         filt = blk.filt if self.filt == 4 else (self.filt, self.filt)
         # needs_interp_filter: none for a local warp, nor for a GLOBALMV
@@ -977,7 +1184,8 @@ class _Tile:
             if not self.dual:
                 filt = (filt[0], filt[0])
         self._store(r, c, wl, hl, tuple(mv), (blk.ref, -1),
-                    int(blk.mode == NEW), filt, glob and min(wl, hl) >= 1)
+                    int(blk.mode == NEW), filt, glob and min(wl, hl) >= 1,
+                    ii=blk.ii is not None)
 
     # -- the contexts of spec 8.3.2 (libaom's forms), every block inter ----
 
@@ -1133,7 +1341,8 @@ class _Tile:
         and filters, with the contexts of spec 8.3.2 (every neighbour
         inter: a compound block on the pair or a single one on either of
         its references)."""
-        above, left = (r - 1, c) if r else None, (r, c - 1) if c else None
+        above = (r - 1, c) if r > self.r0 else None
+        left = (r, c - 1) if c else None
         nbrs = [p for p in (above, left) if p]
         self._preamble(r, c, wl, hl, nbrs, 0)
         self.put("is_inter", 0, 1, 2, 3)
@@ -1204,7 +1413,8 @@ class _Tile:
         """A skip_mode block: skip_mode 1 (and delta q), its MVs the
         NEAREST_NEARESTMV of SkipModeFrame's stack, its filters EIGHTTAP
         (or the frame's), averaged."""
-        above, left = (r - 1, c) if r else None, (r, c - 1) if c else None
+        above = (r - 1, c) if r > self.r0 else None
+        left = (r, c - 1) if c else None
         nbrs = [p for p in (above, left) if p]
         assert self.skip_frames and min(wl, hl) >= 1
         self._preamble(r, c, wl, hl, nbrs, 1)
@@ -1223,7 +1433,7 @@ class _Tile:
             return
         names = {1: "part8", 2: "part16", 3: "part32", 4: "part64"}
         nsym = 4 if bl == 1 else 10
-        a = r > 0 and self.size[r - 1, c][0] < bl
+        a = r > self.r0 and self.size[r - 1, c][0] < bl
         lft = c > 0 and self.size[r, c - 1][1] < bl
         ctx = 2 * int(lft) + int(a)
         self.put(names[bl], ctx, 3 if leaf < bl else 0, nsym, nsym + 1)
@@ -1242,12 +1452,55 @@ class _Tile:
             else:
                 self.partition(r + dr, c + dc, bl - 1, leaf, blocks)
 
-    def encode(self, sbs: List[Tuple[bool, list]]) -> bytes:
-        """The tile of the superblocks ``sbs``; 128x128 ones are split
-        into four 64x64 quadrants, each an entry of ``sbs``."""
+    def saved_cdfs(self, end: bool) -> dict:
+        """The CDFs a later frame loads of this one: its starting ones,
+        or under ``end`` (disable_frame_end_update_cdf 0) those the tile
+        ended with, their adaptation counters cleared."""
+        from oavif_tpu_torch.io.av1_refs import clear_counters
+
+        if not end:
+            return self.start_cdf
+        out = {k: a.copy() for k, a in (self.first_cdf or self.cdf).items()}
+        rows = A._cdf_pack(coeff_q_ctx(self.base_q))[3]
+        clear_counters([out[k] for k in A._CDF_ORDER], rows)
+        return out
+
+    def saved_ids(self):
+        """The segment ids a later frame of this size predicts from:
+        ((MiRows, MiCols), the map), or None for zeros (spec 7.4, 7.20)."""
+        if self.seg is None:
+            return None
+        if self.seg["map"] == "keep":
+            return None if self.seg["prev"] is None else (
+                (self.mi_rows, self.mi_cols), self.seg["prev"])
+        ids = np.zeros((self.mi_rows, self.mi_cols), np.uint8)
+        for (y, x), v in self.segids.items():
+            ids[y, x] = v
+        return (self.mi_rows, self.mi_cols), ids
+
+    def encode(self, sbs: List[Tuple[bool, list]],
+               rows_log2: int = 0) -> bytes:
+        """The tile group of the superblocks ``sbs`` (128x128 ones split
+        into four 64x64 quadrants, each an entry of ``sbs``), in 1 <<
+        ``rows_log2`` uniform rows of tiles: each tile from the frame's
+        starting CDFs and contexts, each but the last after its size in 4
+        bytes, the first's CDFs kept (``context_update_tile_id`` 0)."""
         it = iter(sbs)
         sb = 32 if self.s.sb128 else 16
+        sb_rows = -(-self.mi_rows // sb)
+        per = -(-sb_rows // (1 << rows_log2)) * sb
+        tiles = []
         for r in range(0, self.mi_rows, sb):
+            if r and r % per == 0:
+                tiles.append(self.enc.done())
+                if len(tiles) == 1:
+                    self.first_cdf = {k: a.copy() for k, a in self.cdf.items()}
+                self.enc = RangeEncoder()
+                self.cdf = {k: a.copy() for k, a in self.start_cdf.items()}
+                self.above_sp = [0] * len(self.above_sp)
+                self.left_sp = [0] * len(self.left_sp)
+            self.r0 = r - r % per
+            self.r1 = min(self.r0 + per, self.mi_rows)
             for c in range(0, self.mi_cols, sb):
                 self.read_deltas = True
                 if sb == 16:
@@ -1255,14 +1508,19 @@ class _Tile:
                     self.partition(r, c, 4, _leaf(split), iter(blks))
                     continue
                 assert r + 16 < self.mi_rows and c + 16 < self.mi_cols
-                a = r > 0 and self.size[r - 1, c][0] < 5
+                a = r > self.r0 and self.size[r - 1, c][0] < 5
                 lft = c > 0 and self.size[r, c - 1][1] < 5
                 self.put("part128", 2 * int(lft) + int(a), 3, 8, 9)
                 for dr, dc in ((0, 0), (0, 16), (16, 0), (16, 16)):
                     split, blks = next(it)
                     self.partition(r + dr, c + dc, 4, _leaf(split),
                                    iter(blks))
-        return self.enc.done()
+        tiles.append(self.enc.done())
+        if len(tiles) == 1:
+            return tiles[0]
+        # tile_start_and_end_present_flag 0, then each tile's size
+        return b"\0" + b"".join((len(t) - 1).to_bytes(4, "little") + t
+                                for t in tiles[:-1]) + tiles[-1]
 
 
 def _leaf(split) -> int:
@@ -1277,7 +1535,7 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
                   filt: int = 4, dual: bool = False, hp: bool = True,
                   base_q: int = 80, lf=(20, 20, 12, 12),
                   ref_deltas=(1, 0, 0, 0, -1, 0, -1, -1),
-                  mode_deltas=(0, 0), size=None, refuse: str = "",
+                  mode_deltas=(0, 0), size=None,
                   motion: bool = False, warps: Optional[dict] = None,
                   pair: Optional[Tuple[int, int]] = None,
                   masked: bool = False, jnt: bool = False,
@@ -1286,7 +1544,9 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
                   order_hint: Optional[int] = None,
                   counts: Optional[dict] = None, gm=None,
                   skip_mode: bool = False, delta_q: bool = False,
-                  chain: Optional[dict] = None) -> bytes:
+                  chain: Optional[dict] = None, interintra: bool = False,
+                  seg: Optional[dict] = None, end_cdf: bool = False,
+                  tile_rows: int = 0) -> bytes:
     """libaom's first ``base_layers`` layers (the sequence header and
     frame OBUs of layers 0 .. base_layers - 1 of a layered stream of
     base_layers + 1 layers) and an inter frame of the next layer, of
@@ -1302,29 +1562,39 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
     ``counts``, where given, gets the count of each compound mode
     ("mode0" ..), type and reference kind ("unidir", "bidir") written,
     and of the single-reference blocks among them ("single": an
-    ``InterBlock`` there takes its ``ref``, either of the pair).
-    ``refuse`` writes instead a frame that stops at a tool the port
-    refuses: "seg_map" and "seg_temporal" (segmentation's map predicted
-    from a primary reference frame). ``motion`` lets each block of 8x8 or
+    ``InterBlock`` there takes its ``ref``, either of the pair), of the
+    inter-intra blocks ("ii0" .. "ii3" smooth by interintra_mode,
+    "ii_wedge") and of the blocks that took the predicted segment id
+    ("seg_id_predicted"). ``motion`` lets each block of 8x8 or
     more with a neighbour take its ``InterBlock.motion`` (a frame of the
     sequence's size only); ``warps``, where given, gets the count of its
     LOCALWARP blocks of each kind. ``gm`` is the frame's global motion
     (``frame_header``), ``skip_mode`` writes skip_mode_present (a
     ``SkipModeBlock`` is then a skip_mode block), ``delta_q`` delta q;
+    ``interintra`` sets enable_interintra_compound (an ``InterBlock``'s
+    ``ii`` is then written), ``seg`` the frame's segmentation
+    (``segmentation_params``; each ``InterBlock``'s ``seg`` and
+    ``seg_pred`` where its id is coded; a segment's REF_FRAME, SKIP and
+    GLOBALMV features decide its blocks' reference and mode) and
+    ``end_cdf`` saves the frame's CDFs for a frame that names it primary
+    and ``tile_rows`` cuts it into 1 << tile_rows rows of tiles;
     ``chain``, where given, writes a second frame after this one (which
     then refreshes slot ``base_layers``), of the next layer and order
     hint, whose arguments are this one's but for those ``chain`` names
-    (``sbs``, ``gm``, ``ref_slots``, ``pair``, ``skip_mode``, ``delta_q``
-    and ``primary``, its primary_ref_frame, whose slot's global motion
-    its own is coded against). A 128x128 superblock of libaom's sequence
-    is four entries of ``sbs``, its 64x64 quadrants."""
+    (``sbs``, ``gm``, ``ref_slots``, ``pair``, ``skip_mode``, ``delta_q``,
+    ``seg``, ``size``, ``end_cdf``, ``tile_rows`` and ``primary``, its
+    primary_ref_frame,
+    whose slot's global motion, CDFs, segmentation features and segment
+    ids (where of its size) it starts from). A 128x128 superblock of
+    libaom's sequence is four entries of ``sbs``, its 64x64 quadrants."""
     obus = list(_obus(key_obus))
     seq_payload = next(key_obus[p:e] for t, _, p, e in obus if t == 1)
     s = A.parse_sequence_header(A._Bits(seq_payload))
     frames = [dict(sbs=sbs, gm=gm, ref_slots=ref_slots, pair=pair,
                    skip_mode=skip_mode, delta_q=delta_q, primary=7,
                    order_hint=base_layers if order_hint is None
-                   else order_hint)]
+                   else order_hint, seg=seg, size=size, end_cdf=end_cdf,
+                   tile_rows=tile_rows)]
     if chain:
         frames.append({**frames[0], "order_hint": frames[0]["order_hint"]
                        + 1, **chain})
@@ -1334,12 +1604,10 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
                                              or s.decoder_model_info)
     key = [raw for t, raw, p, e in obus if t in (3, 4, 6)
            and not ((raw[0] >> 2) & 1 and (raw[1] >> 3) & 3 >= base_layers)]
-    size = size or (s.width, s.height)
-    assert not motion or size == (s.width, s.height), "an unscaled frame"
     # the sequence header written again: libaom's inter tools where its
     # layer 1 was coded under them, else the frame's
     keep = base_layers > 1
-    ws = replace(s, interintra=s.interintra and keep,
+    ws = replace(s, interintra=(s.interintra and keep) or interintra,
                  masked_compound=masked, jnt_comp=jnt,
                  warped_motion=s.warped_motion if keep else motion,
                  dual_filter=s.dual_filter if keep else dual,
@@ -1347,6 +1615,12 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
     # each slot's order hint and global motion (libaom's layers: identity)
     slot_hints = list(range(8))
     saved_gm = [None] * 8
+    # each slot's saved CDFs (None: libaom's, which no written frame
+    # loads), segmentation features and segment ids with their frame size
+    # (None: zeros)
+    saved_cdfs: List[Optional[dict]] = [None] * 8
+    saved_feats: List[Optional[list]] = [None] * 8
+    saved_ids: List[Optional[tuple]] = [None] * 8
     seq = sequence_header(ws)
     out = bytes([(1 << 3) | 2]) + _leb128(len(seq)) + seq + b"".join(key)
     for i, f in enumerate(frames):
@@ -1357,26 +1631,47 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
         skip_frames = A._skip_mode_frames(s, A.FrameHeader(
             reference_select=True, order_hint=hint,
             ref_order_hints=hints)) if f["skip_mode"] else None
-        tile = _Tile(ws, base_q, filt, ws.dual_filter, hp, size, motion,
+        primary = f["primary"]
+        psl = slots[primary] if primary != 7 else None
+        fsize = f["size"] or (s.width, s.height)
+        assert not motion or fsize == (s.width, s.height), "an unscaled frame"
+        fseg = f["seg"]
+        tseg, feats = None, None
+        if fseg is not None:
+            feats = [dict(fseg["features"].get(k, {})) for k in range(8)] \
+                if fseg.get("data", True) else saved_feats[psl]
+            on = [(k, j) for k in range(8) for j in feats[k]]
+            ids = saved_ids[psl] if psl is not None else None
+            mi = (2 * ((fsize[1] + 7) >> 3), 2 * ((fsize[0] + 7) >> 3))
+            prev = ids[1] if ids is not None and ids[0] == mi else None
+            tseg = dict(map=fseg.get("map", "update"), features=feats,
+                        last=max((k for k, _ in on), default=0),
+                        preskip=any(j >= SEG_REF_FRAME for _, j in on),
+                        prev=prev)
+        assert psl is None or saved_cdfs[psl] is not None, \
+            "a primary reference frame whose CDFs the writer has"
+        tile = _Tile(ws, base_q, filt, ws.dual_filter, hp, fsize, motion,
                      fpair, tuple(int(d > 0) for d in rel), same_dist,
-                     f["gm"], skip_frames, f["delta_q"])
-        data = tile.encode(f["sbs"]) if not refuse else b"\0" * 8
-        primary = 0 if refuse.startswith("seg") else f["primary"]
+                     f["gm"], skip_frames, f["delta_q"], ws.interintra,
+                     tseg, saved_cdfs[psl] if psl is not None else None)
+        data = tile.encode(f["sbs"], f["tile_rows"])
         refresh = 1 << base_layers if chain and i == 0 else 0
         head = frame_header(
             ws, base_q, filt, hp, lf, ref_deltas, mode_deltas,
-            size=None if size == (s.width, s.height) else size,
-            primary=primary, compound=fpair is not None,
-            seg_update={"seg_map": (0, 0),
-                        "seg_temporal": (1, 1)}.get(refuse),
+            size=None if fsize == (s.width, s.height) else fsize,
+            primary=primary, compound=fpair is not None, seg=fseg,
             motion=motion, order_hint=hint, ref_slots=slots,
             slot_hints=tuple(slot_hints), gm=f["gm"],
-            prev_gm=saved_gm[slots[primary]] if primary != 7 else None,
-            skip_mode=f["skip_mode"], refresh=refresh, delta_q=f["delta_q"])
+            prev_gm=saved_gm[psl] if psl is not None else None,
+            skip_mode=f["skip_mode"], refresh=refresh, delta_q=f["delta_q"],
+            end_cdf=f["end_cdf"], tile_rows_log2=f["tile_rows"])
         if refresh:
             slot_hints[base_layers] = hint
             saved_gm[base_layers] = tuple(
                 p for _, p in f["gm"] or ((IDENTITY, GM_IDENTITY),) * 7)
+            saved_cdfs[base_layers] = tile.saved_cdfs(f["end_cdf"])
+            saved_feats[base_layers] = feats
+            saved_ids[base_layers] = tile.saved_ids()
         if warps is not None:
             for k, v in tile.warps.items():
                 warps[k] = warps.get(k, 0) + v
