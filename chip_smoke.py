@@ -2715,6 +2715,9 @@ AVIF_GLOBALMV_DIR = os.path.join(
 AVIF_INTERINTRA_DIR = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
     "avif_interintra")
+AVIF_FRAMETYPES_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+    "avif_frametypes")
 # the per-frame counts of inter-intra and segmentation map prediction
 INTERINTRA_PER_FRAME = ("interintra", "interintra_wedge", "seg_id_predicted",
                         "seg_map_kept", "seg_temporal")
@@ -2764,7 +2767,10 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
     records, with its message, and one past the spec's limits
     (``broken``) ``OSError`` with the message the manifest records; where
     the manifest records each frame's coded width, upscaled width and
-    height (``sizes``), the port reads them. Each file is decoded ``reps``
+    height (``sizes``), the port reads them, and where it records each
+    frame's header (``headers``: frame type, show_frame, the slot a
+    show_existing_frame shows, refresh_frame_flags and the reference
+    slots), the port reads it. Each file is decoded ``reps``
     times, and the CRCs, the counts and the loaded image are those of the
     last timed read (``decode_avif`` and the conversion ``read_avif``
     makes, ``avif_pixels``). A last line gives the folder's reads in all
@@ -2881,6 +2887,11 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
                 got += tuple([t[k] for t in color.frame_tools]
                              for k in INTERINTRA_PER_FRAME)
                 want += tuple(entry[k] for k in INTERINTRA_PER_FRAME)
+            if "headers" in entry:
+                got += ([[f.frame.frame_type, int(f.frame.show_frame),
+                          f.frame.show_existing, f.frame.refresh_frame_flags,
+                          list(f.frame.ref_frame_idx)] for f in av1.frames],)
+                want += (entry["headers"],)
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         loaded[name] = img
@@ -3027,13 +3038,22 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     coded against the previous one in four tile rows, one of another
     size, libaom's own cyclic-refresh temporal update, every subsampling
     at 8, 10 and 12 bits, the mixed class and a 3840x2160 frame pair with
-    both tools) decodes
+    both tools) and of ``tests/torch_fixtures/avif_frametypes`` (every
+    frame type and header form: libaom's error-resilient layers with
+    frame ids and its S-frames on top and in the middle, at every
+    subsampling and depth in two to four layers; INTRA_ONLY frames shown,
+    first, with intrabc and as a GOLDEN reference; a hidden key frame and
+    a hidden inter frame with film grain, each shown by
+    show_existing_frame; frame_refs_short_signaling, once with frame ids;
+    three refusals that must raise ``OSError``; the mixed class and a
+    3840x2160 frame in error-resilient layers with an S-frame on top)
+    decodes
     to its manifest (``_read_avif_fixtures``, each file decoded as often
     as it is timed, and each folder's reads in all on a line),
     the reads split into parse and tile decode (each frame's apart),
     post-filters, the superres upscale, film grain, a grid's stitch, the
     scaling and conversion (every file read once, to keep the phase's
-    time, but ``avif_interintra``'s 3840x2160 frame, the median of 3;
+    time, but ``avif_frametypes``' 3840x2160 frame, the median of 3;
     ``avif_warp``'s reads also time
     OBMC and the local warp in the tile decode, ``avif_refmvs``'s motion
     field estimation, with the per-frame counts of its projected 8x8s and
@@ -3043,24 +3063,19 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     sides and skip_mode blocks, and ``avif_interintra``'s inter-intra's
     intra predictions and blends, with each frame's inter-intra blocks,
     wedge ones and predicted segment ids).
-    Then the CLI ``-t 80`` on the six class AVIFs and ``-q 60`` on the
-    3840x2160 one of the first two folders, ``-q 60`` on the 3840x2160
-    ``tune=iq`` frame with film grain, ``-t 80`` on the 512x512
-    limited-range file with an ``irot``, ``-t 80`` on the 512x512 screen,
-    ``-q 60`` on the 3840x2160 screen, ``-q 60`` on the 3840x2160 grid,
-    ``-t 80`` on the 512x512 segmented sequence, ``-t 80`` on the 512x512
-    superres class, ``-q 60`` on the 3840x2160 superres frame, ``-t
-    80`` on the 512x512 ALT_LF, SKIP and ``delta_lf_multi`` frame, ``-t
-    80`` on the 512x512 two-layer class, ``-q 60`` on the 3840x2160
-    two-layer frame, ``-t 80`` on the 512x512 progressive class, ``-q
-    60`` on the 3840x2160 progressive frame, ``-t 80`` on the 512x512
-    class of OBMC and local warps and ``-q 60`` on the 3840x2160 frame of
-    both, ``-t 80`` on the 512x512 four-layer class and ``-q 60`` on the
-    3840x2160 four-layer frame of each of ``avif_refmvs`` and
-    ``avif_compound``, ``-t 80`` on the 512x512 class and ``-q 60`` on the
-    3840x2160 frame with global motion and skip_mode blocks, and with
-    inter-intra blocks and a predicted segment map: q,
-    passes and bytes must be those of the CLI on the same
+    Then the CLI ``-t 80`` on the six class AVIFs of the first two
+    folders and ``-q 60`` on the first's 3840x2160 one, ``-t 80`` on the
+    512x512 limited-range file with an ``irot``, ``-t 80`` on the 512x512
+    screen, ``-t 80`` on the 512x512 segmented sequence, ``-t 80`` on the
+    512x512 superres class, ``-t 80`` on the 512x512 ALT_LF, SKIP and
+    ``delta_lf_multi`` frame, and ``-t 80`` on the 512x512 class of each
+    inter folder (two layers, progressive, OBMC and local warps, four
+    layers with reference MVs, compound blocks, global motion and
+    skip_mode, inter-intra and a predicted segment map, error-resilient
+    layers with frame ids and an S-frame on top), with ``-q 60`` on the
+    3840x2160 frame of the last two (the other folders' 3840x2160 picks
+    are read and held to their manifests, not encoded):
+    q, passes and bytes must be those of the CLI on the same
     pixels, written as PAM where they are 8-bit and handed over in memory
     where they are 16-bit (PAM holds 8 bits). Returns the kernels'
     launches."""
@@ -3072,38 +3087,31 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
             (AVIF_DIR, [(f"{name}.avif", ["-t", "80"]) for name in images]
              + [("photo4k_q60.avif", ["-q", "60"])]),
             (AVIF_AOM_DIR, [(f"class_{name}_420.avif", ["-t", "80"])
-                            for name in images]
-             + [("photo4k_420_q60.avif", ["-q", "60"])]),
-            (AVIF_TOOLS_DIR, [("iq_grain_photo4k_420.avif", ["-q", "60"]),
-                              ("limited_512_orient6_420_mixed.avif",
+                            for name in images]),
+            (AVIF_TOOLS_DIR, [("limited_512_orient6_420_mixed.avif",
                                ["-t", "80"])]),
-            (AVIF_SCREEN_DIR, [("screen512.avif", ["-t", "80"]),
-                               ("screen4k.avif", ["-q", "60"])]),
-            (AVIF_CONTAINER_DIR, [("grid4k_420.avif", ["-q", "60"]),
-                                  ("seg512_420_q60.avif", ["-t", "80"])]),
-            (AVIF_SUPERRES_DIR, [("class_mixed_d12_420.avif", ["-t", "80"]),
-                                 ("photo4k_d16_420.avif", ["-q", "60"])]),
+            (AVIF_SCREEN_DIR, [("screen512.avif", ["-t", "80"])]),
+            (AVIF_CONTAINER_DIR, [("seg512_420_q60.avif", ["-t", "80"])]),
+            (AVIF_SUPERRES_DIR, [("class_mixed_d12_420.avif", ["-t", "80"])]),
             (AVIF_LF_SEG_DIR, [("lf_seg512_420.avif", ["-t", "80"])]),
             (AVIF_GAINMAP_DIR, []),
-            (AVIF_LAYERS_DIR, [("class_mixed_512.avif", ["-t", "80"]),
-                               ("photo4k_420.avif", ["-q", "60"])]),
+            (AVIF_LAYERS_DIR, [("class_mixed_512.avif", ["-t", "80"])]),
             (AVIF_ISPE_DIR, []),
-            (AVIF_PROGRESSIVE_DIR, [("class_mixed_512.avif", ["-t", "80"]),
-                                    ("photo4k_420.avif", ["-q", "60"])]),
-            (AVIF_WARP_DIR, [("class_mixed_512.avif", ["-t", "80"]),
-                             ("photo4k_420.avif", ["-q", "60"])]),
-            (AVIF_REFMVS_DIR, [("class_mixed_512.avif", ["-t", "80"]),
-                               ("photo4k_420.avif", ["-q", "60"])]),
-            (AVIF_COMPOUND_DIR, [("class_mixed_512.avif", ["-t", "80"]),
-                                 ("photo4k_420.avif", ["-q", "60"])]),
-            (AVIF_GLOBALMV_DIR, [("class_mixed_512.avif", ["-t", "80"]),
-                                 ("photo4k_420.avif", ["-q", "60"])]),
+            (AVIF_PROGRESSIVE_DIR, [("class_mixed_512.avif", ["-t", "80"])]),
+            (AVIF_WARP_DIR, [("class_mixed_512.avif", ["-t", "80"])]),
+            (AVIF_REFMVS_DIR, [("class_mixed_512.avif", ["-t", "80"])]),
+            (AVIF_COMPOUND_DIR, [("class_mixed_512.avif", ["-t", "80"])]),
+            (AVIF_GLOBALMV_DIR, [("class_mixed_512.avif", ["-t", "80"])]),
             (AVIF_INTERINTRA_DIR, [("class_mixed_512.avif", ["-t", "80"]),
+                                   ("photo4k_420.avif", ["-q", "60"])]),
+            (AVIF_FRAMETYPES_DIR, [("class_mixed_512.avif", ["-t", "80"]),
                                    ("photo4k_420.avif", ["-q", "60"])])):
         # every file read once (the newest folder's 3840x2160 frame three
-        # times), to keep the phase's time
+        # times), to keep the phase's time; the 3840x2160 CLI pair only in
+        # the first folder and the two newest (the others' 512x512 pairs
+        # drive the same CLI path on the same kind of input)
         loaded = _read_avif_fixtures(
-            folder, 3 if folder == AVIF_INTERINTRA_DIR else 1, 1)
+            folder, 3 if folder == AVIF_FRAMETYPES_DIR else 1, 1)
         runs += [(os.path.join(folder, name), loaded[name], args)
                  for name, args in picks]
     with tempfile.TemporaryDirectory() as td:

@@ -336,8 +336,11 @@ typedef struct {
      * by reference frame 1..7, the Subpel_Filters [6][16][8], and per mi
      * RefFrames[0] (0 intra), whether the block's mode was NEWMV, its
      * filters (y | x << 2) and what deblocking reads (mi_lf: RefFrame * 2
-     * + the mode delta's index, | 16 for a skipped inter block) */
-    int frame_type, allow_hp, force_int_mv, interp_filter, motion_switchable;
+     * + the mode delta's index, | 16 for a skipped inter block);
+     * inter_frame is !FrameIsIntra (frame_type INTER_FRAME 1 or
+     * SWITCH_FRAME 3: a KEY_FRAME 0 or INTRA_ONLY_FRAME 2 takes the intra
+     * path) */
+    int inter_frame, allow_hp, force_int_mv, interp_filter, motion_switchable;
     int use_ref_mvs, reference_select, allow_warped, dual_filter, interintra_on;
     int sign_bias, lf_delta_enabled, lf_ref_deltas[8], lf_mode_deltas[2];
     int masked_compound, jnt_comp; /* enable_masked_compound, enable_jnt_comp */
@@ -3570,7 +3573,7 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
         b->avail_uc = (d->ssy && h4 == 1) ? is_inside(d, r - 2, c) : b->avail_u;
         b->avail_lc = (d->ssx && w4 == 1) ? is_inside(d, r, c - 2) : b->avail_l;
     }
-    if (d->frame_type) inter_frame_mode_info(d, b);
+    if (d->inter_frame) inter_frame_mode_info(d, b);
     else intra_mode_info(d, b);
     if (d->err) return;
     palette_tokens(d, b);
@@ -3634,7 +3637,7 @@ static void decode_block(Dec *d, int r, int c, int wl, int hl) {
         }
     if (d->bd == 12) d->count[T_TWELVE_BIT]++;
     b->max_luma_w = b->max_luma_h = 0;
-    if (b->is_inter && d->frame_type) predict_inter(d, b);
+    if (b->is_inter && d->inter_frame) predict_inter(d, b);
     else if (b->is_inter) predict_intrabc(d, b);
     if (d->err) return;
     residual(d, b);
@@ -4029,7 +4032,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
     d->width = hdr[H_WIDTH];
     d->height = hdr[H_HEIGHT];
     d->allow_intrabc = hdr[H_ALLOW_INTRABC];
-    d->frame_type = hdr[H_FRAME_TYPE];
+    d->inter_frame = hdr[H_FRAME_TYPE] & 1;
     d->allow_hp = hdr[H_ALLOW_HP];
     d->force_int_mv = hdr[H_FORCE_INTEGER_MV];
     d->interp_filter = hdr[H_INTERP_FILTER];
@@ -4105,7 +4108,7 @@ int av1_decode_frame(const uint8_t *const *tiles, const int64_t *tile_sizes,
                          setup_shear(d, d->gm_params[rf], d->gm_abgd[rf]) &&
                          refs && d->ref_plane[rf][0] && !ref_is_scaled(d, rf);
     }
-    if (d->frame_type) counts[T_INTER_FRAME]++;
+    if (d->inter_frame) counts[T_INTER_FRAME]++;
     d->dc_lut = qlut;
     d->ac_lut = qlut + 256;
     for (int i = 0; i < 5; i++) d->dq[i] = hdr[H_DQ_Y_DC + i];

@@ -55,7 +55,8 @@ enum {
      * tiles, deblocking and CDEF cover, and the upscaled frame the one
      * loop restoration and film grain work on */
     H_SUPERRES_DENOM, H_UPSCALED_WIDTH,
-    /* an inter frame (spec 5.9.2): its frame type (0 key, 1 inter),
+    /* an inter frame (spec 5.9.2): its frame type (0 key, 1 inter, 2
+     * intra-only, 3 switch; the decoder reads bit 0, !FrameIsIntra),
      * allow_high_precision_mv, force_integer_mv, interpolation_filter (4
      * SWITCHABLE), is_motion_mode_switchable, use_ref_frame_mvs,
      * reference_select, allow_warped_motion, the sequence's

@@ -771,7 +771,8 @@ class SequenceHeader:
     op_decoder_model: Tuple[bool, ...] = ()
     op_idcs: Tuple[int, ...] = ()
     frame_ids: bool = False
-    id_len: int = 0
+    id_len: int = 0  # idLen
+    delta_id_len: int = 0  # delta_frame_id_length_minus_2 + 2
     sb128: bool = False
     filter_intra: bool = False
     intra_edge: bool = False
@@ -854,8 +855,8 @@ def parse_sequence_header(b: _Bits) -> SequenceHeader:
     if not s.reduced:
         s.frame_ids = bool(b.f(1))
         if s.frame_ids:
-            delta_len = b.f(4) + 2
-            s.id_len = b.f(3) + 1 + delta_len
+            s.delta_id_len = b.f(4) + 2
+            s.id_len = b.f(3) + 1 + s.delta_id_len
     s.sb128 = bool(b.f(1))
     s.filter_intra = bool(b.f(1))
     s.intra_edge = bool(b.f(1))
@@ -963,10 +964,16 @@ class FrameHeader:
     seg_update_map: bool = True
     seg_temporal: bool = False
     # the frame and its references (spec 5.9.2): KEY_FRAME 0, INTER_FRAME
-    # 1; the slots it refreshes and, for an inter frame, the slot of each
-    # of LAST..ALTREF, their order hints and sign biases (by reference
-    # frame, 0 for INTRA_FRAME)
+    # 1, INTRA_ONLY_FRAME 2, SWITCH_FRAME 3; the slots it refreshes and,
+    # for an inter or switch frame, the slot of each of LAST..ALTREF,
+    # their order hints and sign biases (by reference frame, 0 for
+    # INTRA_FRAME); its current_frame_id under frame ids. A
+    # show_existing_frame header names the slot it shows
+    # (``show_existing``) and takes that slot's frame type, sizes, order
+    # hint and film grain (spec 7.21)
     frame_type: int = 0
+    frame_id: int = 0
+    show_existing: Optional[int] = None
     show_frame: bool = True
     showable_frame: bool = False
     error_resilient: bool = True
@@ -1043,20 +1050,20 @@ def _relative_dist(s: SequenceHeader, a: int, b: int) -> int:
 
 def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int, sid: int,
                        refs: Optional["RefHeaders"] = None) -> FrameHeader:
-    """uncompressed_header (spec 5.9.2) of a shown key frame or an inter
-    frame; ``refs`` holds what the eight reference slots keep of the
-    frames before (sizes, order hints, loop filter deltas, segmentation
-    and film grain parameters, global motion), which an inter frame reads
-    and whose update the caller applies (``RefHeaders.update``)."""
-    from .av1_refs import RefHeaders
+    """uncompressed_header (spec 5.9.2) of a frame of any type, shown or
+    not, or of a show_existing_frame (which ends after the slot it shows);
+    ``refs`` holds what the eight reference slots keep of the frames
+    before (frame types and ids, sizes, order hints, loop filter deltas,
+    segmentation and film grain parameters, global motion), which a frame
+    reads and whose update the caller applies (``RefHeaders.update``)."""
+    from .av1_refs import RefHeaders, set_frame_refs
 
     refs = refs if refs is not None else RefHeaders()
     fh = FrameHeader()
     nplanes = 1 if s.mono else 3
     if not s.reduced:
-        if b.f(1):
-            raise UnsupportedAvif("AV1: show_existing_frame is not "
-                                  "supported")
+        if b.f(1):  # show_existing_frame
+            return _show_existing_frame(b, s, fh, refs)
         fh.frame_type = b.f(2)
         fh.show_frame = bool(b.f(1))
         if fh.show_frame and s.decoder_model_info \
@@ -1064,21 +1071,10 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int, sid: int,
             b.f(s.presentation_time_length)  # temporal_point_info
         fh.showable_frame = fh.frame_type != KEY_FRAME if fh.show_frame \
             else bool(b.f(1))
-        if fh.frame_type == KEY_FRAME and not fh.show_frame:
-            raise UnsupportedAvif("AV1: a key frame that is not shown is "
-                                  "not supported")
-        if fh.frame_type in (INTRA_ONLY_FRAME, SWITCH_FRAME):
-            raise UnsupportedAvif(
-                f"AV1: a frame of type "
-                f"{('INTRA_ONLY', 'SWITCH')[fh.frame_type - 2]} is not "
-                f"supported")
-        if fh.frame_type == INTER_FRAME and not refs.valid:
-            raise UnsupportedAvif("AV1: a first frame that is not a key "
-                                  "frame is not supported")
-        fh.error_resilient = True if fh.frame_type == KEY_FRAME \
-            else bool(b.f(1))
-    intra = fh.frame_type == KEY_FRAME
-    if intra:
+        fh.error_resilient = True if fh.frame_type == SWITCH_FRAME or (
+            fh.frame_type == KEY_FRAME and fh.show_frame) else bool(b.f(1))
+    intra = fh.frame_type in (KEY_FRAME, INTRA_ONLY_FRAME)  # FrameIsIntra
+    if fh.frame_type == KEY_FRAME and fh.show_frame:
         refs.reset()
     fh.disable_cdf_update = bool(b.f(1))
     screen = b.f(1) if s.screen_tools == 2 else s.screen_tools
@@ -1090,8 +1086,10 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int, sid: int,
     elif not intra:
         fh.force_integer_mv = False
     if s.frame_ids:
-        b.f(s.id_len)
-    override = 0 if s.reduced else b.f(1)
+        fh.frame_id = b.f(s.id_len)  # current_frame_id
+        refs.mark(fh.frame_id, s.id_len, s.delta_id_len)
+    override = 1 if fh.frame_type == SWITCH_FRAME else \
+        0 if s.reduced else b.f(1)
     fh.order_hint = b.f(s.order_hint_bits)
     if not (intra or fh.error_resilient):
         fh.primary_ref_frame = b.f(3)
@@ -1103,8 +1101,13 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int, sid: int,
                     in_s = (idc >> (sid + 8)) & 1
                     if idc == 0 or (in_t and in_s):
                         b.f(s.buffer_removal_time_length)
-    fh.refresh_frame_flags = 0xFF if intra else b.f(8)
-    if not intra and fh.error_resilient and s.order_hint_bits:
+    if fh.frame_type == SWITCH_FRAME or (fh.frame_type == KEY_FRAME
+                                         and fh.show_frame):
+        fh.refresh_frame_flags = 0xFF
+    else:
+        fh.refresh_frame_flags = b.f(8)
+    if (not intra or fh.refresh_frame_flags != 0xFF) \
+            and fh.error_resilient and s.order_hint_bits:
         for i in range(8):  # ref_order_hint[i]: a slot that differs is lost
             hint = b.f(s.order_hint_bits)
             if hint != refs.order_hint[i]:
@@ -1115,15 +1118,25 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int, sid: int,
         fh.allow_intrabc = bool(screen and fh.coded_width == fh.width
                                 and b.f(1))
     else:
-        if s.order_hint_bits and b.f(1):  # frame_refs_short_signaling
-            raise UnsupportedAvif("AV1: frame_refs_short_signaling is not "
-                                  "supported")
-        idx = []
-        for _ in range(7):
-            idx.append(b.f(3))
-            if s.frame_ids:
-                raise UnsupportedAvif("AV1: frame ids in an inter frame "
-                                      "are not supported")
+        short = bool(s.order_hint_bits and b.f(1))
+        if short:  # frame_refs_short_signaling: LAST and GOLDEN coded
+            last, gold = b.f(3), b.f(3)
+            if refs.filled != 0xFF:
+                raise _broken("frame_refs_short_signaling with an empty "
+                              "reference slot")
+            idx = set_frame_refs(last, gold, refs.order_hint,
+                                 fh.order_hint, s.order_hint_bits)
+        else:
+            idx = [0] * 7
+        for i in range(7):
+            if not short:
+                idx[i] = b.f(3)
+            if s.frame_ids:  # delta_frame_id_minus_1: the slot's frame id
+                delta = b.f(s.delta_id_len) + 1
+                want = (fh.frame_id - delta) % (1 << s.id_len)
+                if refs.valid >> idx[i] & 1 and refs.frame_id[idx[i]] != want:
+                    raise _broken("a reference frame id that is not its "
+                                  "slot's")
         fh.ref_frame_idx = tuple(idx)
         if any(not refs.valid >> i & 1 for i in idx):
             raise _broken("an inter frame names an empty reference slot")
@@ -1256,6 +1269,32 @@ def parse_frame_header(b: _Bits, s: SequenceHeader, tid: int, sid: int,
                               else refs.gm_params[prev])
     if s.film_grain and (fh.show_frame or fh.showable_frame) and b.f(1):
         fh.grain = fh.grain_params = _film_grain_params(b, s, fh, refs)
+    return fh
+
+
+def _show_existing_frame(b: _Bits, s: SequenceHeader, fh: FrameHeader,
+                         refs: "RefHeaders") -> FrameHeader:
+    """The rest of a show_existing_frame header: frame_to_show_map_idx,
+    temporal_point_info and display_frame_id; the header then takes the
+    slot's frame type, sizes, order hint and film grain (load_grain_params,
+    its seed included), and refreshes every slot where the slot holds a
+    key frame (spec 7.21, then 7.20)."""
+    idx = b.f(3)
+    if s.decoder_model_info and not s.equal_picture_interval:
+        b.f(s.presentation_time_length)  # temporal_point_info
+    if not refs.valid >> idx & 1:
+        raise _broken("show_existing_frame of an empty slot")
+    if s.frame_ids and b.f(s.id_len) != refs.frame_id[idx]:
+        raise _broken("a display_frame_id that is not its slot's")
+    fh.show_existing = idx
+    fh.frame_type = refs.frame_type[idx]
+    fh.frame_id = refs.frame_id[idx]
+    fh.refresh_frame_flags = 0xFF if fh.frame_type == KEY_FRAME else 0
+    fh.order_hint = refs.order_hint[idx]
+    fh.width, fh.height = refs.size[idx]
+    fh.render_size = refs.render[idx]
+    if s.film_grain:
+        fh.grain = fh.grain_params = refs.grain[idx]
     return fh
 
 
@@ -1580,8 +1619,10 @@ def parse_av1(payload: bytes, operating_point: int = 0,
               layer: Optional[int] = None) -> Av1Frame:
     """The frames of an AV1 item (low-overhead OBU format) and the one it
     shows, as dav1d picks it for libavif: the OBUs of ``operating_point``
-    (the first where the sequence header has fewer), every frame a shown
-    key frame or an inter frame; the frame shown is, where the operating
+    (the first where the sequence header has fewer), frames of every type,
+    shown or hidden, and show_existing_frame headers (frames with no
+    tiles, which show a slot, of the spatial layer of the frame in that
+    slot); the frame shown is, where the operating
     point spans several spatial layers, the first of the highest spatial
     layer present, else the first shown frame; with ``layer`` (an
     ``lsel`` property) the first shown frame of that spatial layer."""
@@ -1592,6 +1633,10 @@ def parse_av1(payload: bytes, operating_point: int = 0,
     seq_bytes = b""
     op_idc = 0
     refs = RefHeaders()
+    # the spatial layer of each slot's frame: a show_existing_frame shows
+    # its slot's frame as of that layer (dav1d's picture keeps the header
+    # it was decoded with), whichever layer its own OBU is of
+    slot_layer = [0] * 8
     frames: List[Av1Frame] = []
     cur: Optional[Av1Frame] = None
     tiles: List[Optional[bytes]] = []
@@ -1638,6 +1683,16 @@ def parse_av1(payload: bytes, operating_point: int = 0,
             b = _Bits(payload, p, end)
             fh = parse_frame_header(b, seq, tid, sid, refs)
             refs.update(fh)
+            if fh.show_existing is not None:  # a frame with no tiles
+                if typ == 6:
+                    raise _broken("show_existing_frame in a frame OBU")
+                shown = slot_layer[fh.show_existing]
+                slot_layer = [shown if fh.refresh_frame_flags >> i & 1
+                              else v for i, v in enumerate(slot_layer)]
+                frames.append(Av1Frame(seq, fh, [], shown, tid))
+                continue
+            slot_layer = [sid if fh.refresh_frame_flags >> i & 1 else v
+                          for i, v in enumerate(slot_layer)]
             tiles = [None] * ((len(fh.tile_col_starts) - 1)
                               * (len(fh.tile_row_starts) - 1))
             cur = Av1Frame(seq, fh, [], sid, tid)
@@ -1992,7 +2047,8 @@ def decode_av1(payload: bytes, times: Optional[dict] = None,
                layer: Optional[int] = None) -> DecodedImage:
     """Decode one AV1 item payload to the visible Y'UV planes (int32) of
     the frame it shows (``parse_av1``), decoding in order every frame
-    before it, each into the reference slots it refreshes. ``times``,
+    before it, each into the reference slots it refreshes (a
+    show_existing_frame shows its slot's frame). ``times``,
     where given, gains the seconds of "parse" (headers and the tile
     decode), "filters" (deblocking, CDEF, loop restoration), "upscale"
     (superres), "grain" (film grain synthesis) and "refs" (keeping a
@@ -2037,8 +2093,8 @@ def _saved_segment_ids(fh: FrameHeader, segs: np.ndarray,
 
 
 def _check_inter(f: "Av1Frame", refs) -> None:
-    """The reference slots of an inter frame: filled, and of the frame's
-    depth and format."""
+    """The reference slots of an inter or switch frame: filled, and of the
+    frame's depth and format."""
     fh = f.frame
     for i in fh.ref_frame_idx:
         ref = refs.slots[i]
@@ -2061,7 +2117,9 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
 
     t0 = time.perf_counter()
     s, fh = f.seq, f.frame
-    if fh.frame_type:
+    if fh.show_existing is not None:
+        return _show_existing(lib, f, refs, counts, times, last)
+    if fh.frame_type & 1:  # not FrameIsIntra
         _check_inter(f, refs)
     nplanes = 1 if s.mono else 3
     ssx, ssy = (0, 0) if s.mono else s.ss
@@ -2265,18 +2323,12 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
                              fh.frame_type, fh.order_hint,
                              fh.ref_order_hints or (0,) * 7, fh.mi_rows,
                              fh.mi_cols, mf_refs, mf_mvs,
-                             _saved_segment_ids(fh, segs, prev_segs)))
+                             _saved_segment_ids(fh, segs, prev_segs), hdr))
     ts = time.perf_counter()
     if fh.grain is not None and last:
-        pack = _grain_pack(fh.grain, s.cicp[2] == 0)
-        if lib.av1_film_grain(C.cast(plane_ptrs, vp), stride, hdr.ctypes.data,
-                              pack.ctypes.data,
-                              _tool_tables()["gaussian_sequence"].ctypes.data,
-                              counts.ctypes.data):
-            raise MemoryError("AVIF film grain: out of memory")
+        _film_grain(lib, planes, hdr, fh.grain, s, counts)
     t3 = time.perf_counter()
-    out = [np.ascontiguousarray(p[:(h + sy) >> sy, :(w + sx) >> sx])
-           for p, (sy, sx) in zip(planes, [(0, 0)] + [(ssy, ssx)] * 2)]
+    out = _visible(planes, h, w, (ssx, ssy))
     if times is not None:
         # the crop to the visible size counts with the filters
         filt = t2 - t1 - upscale.value + time.perf_counter() - t3
@@ -2293,6 +2345,51 @@ def _decode_frame(lib, f: "Av1Frame", refs, counts: np.ndarray,
                        if sources else ())):
             times[k] = times.get(k, 0.0) + v
     return DecodedImage(out, bd, s.cicp, s.full_range, s.mono, (ssx, ssy))
+
+
+def _show_existing(lib, f: "Av1Frame", refs, counts: np.ndarray,
+                   times: Optional[dict], last: bool) -> DecodedImage:
+    """A show_existing_frame of ``decode_av1``: a key frame's slot first
+    fills every slot (spec 7.21, 7.20); the frame shown is the slot's,
+    copied where it takes the film grain its header loaded."""
+    t0 = time.perf_counter()
+    s, fh = f.seq, f.frame
+    ref = refs.slots[fh.show_existing]
+    if ref is None:
+        raise _broken("show_existing_frame of an empty slot")
+    refs.update(fh.refresh_frame_flags, ref)
+    planes = ref.planes
+    if fh.grain is not None and last:
+        planes = [p.copy() for p in planes]
+        _film_grain(lib, planes, ref.hdr, fh.grain, s, counts)
+        if times is not None:
+            times["grain"] = times.get("grain", 0.0) \
+                + time.perf_counter() - t0
+    return DecodedImage(_visible(planes, ref.height, ref.width, ref.ss),
+                        ref.bit_depth, s.cicp, s.full_range, s.mono, ref.ss)
+
+
+def _film_grain(lib, planes: List[np.ndarray], hdr: np.ndarray,
+                grain: FilmGrain, s: SequenceHeader,
+                counts: np.ndarray) -> None:
+    """Film grain synthesis in place on a frame's planes (``av1_grain.c``;
+    ``hdr`` the frame's header pack)."""
+    pack = _grain_pack(grain, s.cicp[2] == 0)
+    p32 = C.POINTER(C.c_int32)
+    ptrs = (p32 * 3)(*[p.ctypes.data_as(p32) for p in planes])
+    if lib.av1_film_grain(C.cast(ptrs, C.c_void_p), planes[0].shape[1],
+                          hdr.ctypes.data, pack.ctypes.data,
+                          _tool_tables()["gaussian_sequence"].ctypes.data,
+                          counts.ctypes.data):
+        raise MemoryError("AVIF film grain: out of memory")
+
+
+def _visible(planes: List[np.ndarray], h: int, w: int,
+             ss: Tuple[int, int]) -> List[np.ndarray]:
+    """The planes cropped to the visible ``h`` x ``w`` frame."""
+    ssx, ssy = ss
+    return [np.ascontiguousarray(p[:(h + sy) >> sy, :(w + sx) >> sx])
+            for p, (sy, sx) in zip(planes, [(0, 0)] + [(ssy, ssx)] * 2)]
 
 
 # ---------------------------------------------------------------------------

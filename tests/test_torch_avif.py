@@ -579,10 +579,22 @@ LEARNED = {
 }
 
 
+# forms the reader once refused by name that it now reads, whose streams
+# here are broken: a first frame that is an inter frame names empty
+# slots, and a show_existing_frame shows one (dav1d refuses both,
+# tests/test_torch_avif_frametypes.py holds it to them)
+BROKEN = {"not a key frame": "an inter frame names an empty reference slot",
+          "show_existing_frame": "show_existing_frame of an empty slot"}
+
+
 @pytest.mark.parametrize("tool", sorted(_refusal_streams()))
 def test_av1_refusals_name_the_tool(tool):
     if tool in LEARNED:
         assert LEARNED[tool](A.parse_av1(_refusal_streams()[tool]))
+        return
+    if tool in BROKEN:
+        with pytest.raises(OSError, match=re.escape(BROKEN[tool])):
+            A.decode_av1(_refusal_streams()[tool])
         return
     with pytest.raises(ValueError, match=re.escape(tool)):
         A.decode_av1(_refusal_streams()[tool])

@@ -232,9 +232,9 @@ def _obu_ext(typ: int, payload: bytes, sid: int) -> bytes:
 
 
 def sequence_header(s: A.SequenceHeader) -> bytes:
-    """A full sequence header of ``s``'s operating points, size, tools
-    (inter-intra, masked compound, warped motion, dual filter, distance
-    weights, reference MVs) and colour."""
+    """A full sequence header of ``s``'s operating points, size, frame id
+    lengths, tools (inter-intra, masked compound, warped motion, dual
+    filter, distance weights, reference MVs) and colour."""
     w = BitWriter()
     w.f(s.profile, 3)
     w.f(0, 1)  # still_picture
@@ -250,7 +250,10 @@ def sequence_header(s: A.SequenceHeader) -> bytes:
     w.f(s.height_bits - 1, 4)
     w.f(s.width - 1, s.width_bits)
     w.f(s.height - 1, s.height_bits)
-    w.f(0, 1)  # frame_id_numbers_present_flag
+    w.f(int(s.frame_ids), 1)  # frame_id_numbers_present_flag
+    if s.frame_ids:
+        w.f(s.delta_id_len - 2, 4)
+        w.f(s.id_len - s.delta_id_len - 1, 3)
     w.f(int(s.sb128), 1)
     w.f(int(s.filter_intra), 1)
     w.f(int(s.intra_edge), 1)
@@ -385,7 +388,10 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
                  slot_hints: Tuple[int, ...] = (0,) * 8, gm=None,
                  prev_gm=None, skip_mode: bool = False, refresh: int = 0,
                  delta_q: bool = False, end_cdf: bool = False,
-                 tile_rows_log2: int = 0) -> BitWriter:
+                 tile_rows_log2: int = 0,
+                 short: Optional[Tuple[int, int]] = None,
+                 frame_ids: Optional[Tuple[int, Tuple[int, ...]]] = None
+                 ) -> BitWriter:
     """uncompressed_header of a shown inter frame of ``order_hint`` on
     the slots ``ref_slots`` (of order hints ``slot_hints``) for LAST ..
     ALTREF, refreshing no slot, with the CDFs of ``primary`` (the
@@ -402,7 +408,11 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
     delta_q_present (delta_q_res 0, no delta LF), ``end_cdf`` saves the
     first tile's CDFs at the frame's end (disable_frame_end_update_cdf 0)
     and ``tile_rows_log2`` cuts the frame into that many (log2) uniform
-    rows of tiles."""
+    rows of tiles. ``short`` codes the slots of LAST and GOLDEN alone
+    (frame_refs_short_signaling; ``ref_slots`` must then be what
+    set_frame_refs makes of them), and ``frame_ids``, under a sequence
+    with frame ids, is (current_frame_id, each reference's
+    delta_frame_id_minus_1)."""
     w = BitWriter()
     w.f(0, 1)  # show_existing_frame
     w.f(1, 2)  # INTER_FRAME
@@ -411,13 +421,22 @@ def frame_header(s: A.SequenceHeader, base_q: int, filt: int, hp: bool,
     w.f(0, 1)  # disable_cdf_update
     if s.screen_tools == 2:
         w.f(0, 1)  # allow_screen_content_tools
+    assert s.frame_ids == (frame_ids is not None)
+    if frame_ids is not None:
+        w.f(frame_ids[0], s.id_len)  # current_frame_id
     w.f(int(size is not None), 1)  # frame_size_override_flag
     w.f(order_hint, s.order_hint_bits)
     w.f(primary, 3)  # primary_ref_frame
     w.f(refresh, 8)  # refresh_frame_flags
-    w.f(0, 1)  # frame_refs_short_signaling
-    for slot in ref_slots:
-        w.f(slot, 3)  # ref_frame_idx
+    w.f(int(short is not None), 1)  # frame_refs_short_signaling
+    if short is not None:
+        w.f(short[0], 3)  # last_frame_idx
+        w.f(short[1], 3)  # gold_frame_idx
+    for i, slot in enumerate(ref_slots):
+        if short is None:
+            w.f(slot, 3)  # ref_frame_idx
+        if frame_ids is not None:
+            w.f(frame_ids[1][i], s.delta_id_len)  # delta_frame_id_minus_1
     width, height = size or (s.width, s.height)
     if size is not None:
         for _ in range(7):
@@ -1546,7 +1565,8 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
                   skip_mode: bool = False, delta_q: bool = False,
                   chain: Optional[dict] = None, interintra: bool = False,
                   seg: Optional[dict] = None, end_cdf: bool = False,
-                  tile_rows: int = 0) -> bytes:
+                  tile_rows: int = 0,
+                  short: Optional[Tuple[int, int]] = None) -> bytes:
     """libaom's first ``base_layers`` layers (the sequence header and
     frame OBUs of layers 0 .. base_layers - 1 of a layered stream of
     base_layers + 1 layers) and an inter frame of the next layer, of
@@ -1586,7 +1606,13 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
     primary_ref_frame,
     whose slot's global motion, CDFs, segmentation features and segment
     ids (where of its size) it starts from). A 128x128 superblock of
-    libaom's sequence is four entries of ``sbs``, its 64x64 quadrants."""
+    libaom's sequence is four entries of ``sbs``, its 64x64 quadrants.
+    ``short`` (the slots of LAST and GOLDEN; ``chain`` may name its own)
+    writes frame_refs_short_signaling, the other references then those
+    set_frame_refs picks from the slots' order hints as libaom's layers
+    left them; under a sequence with frame ids (libaom's error-resilient
+    layers) each written frame takes the id after the last and codes
+    its references' ids."""
     obus = list(_obus(key_obus))
     seq_payload = next(key_obus[p:e] for t, _, p, e in obus if t == 1)
     s = A.parse_sequence_header(A._Bits(seq_payload))
@@ -1594,16 +1620,27 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
                    skip_mode=skip_mode, delta_q=delta_q, primary=7,
                    order_hint=base_layers if order_hint is None
                    else order_hint, seg=seg, size=size, end_cdf=end_cdf,
-                   tile_rows=tile_rows)]
+                   tile_rows=tile_rows, short=short)]
     if chain:
         frames.append({**frames[0], "order_hint": frames[0]["order_hint"]
                        + 1, **chain})
     assert s.op_idcs[0] >> 8 == (1 << (base_layers + len(frames))) - 1, \
         "base_layers + the written frames' layers"
-    assert s.screen_tools in (0, 2) and not (s.frame_ids
-                                             or s.decoder_model_info)
+    assert s.screen_tools in (0, 2) and not s.decoder_model_info
     key = [raw for t, raw, p, e in obus if t in (3, 4, 6)
            and not ((raw[0] >> 2) & 1 and (raw[1] >> 3) & 3 >= base_layers)]
+    # each slot's order hint and frame id after libaom's layers, where a
+    # written frame's references follow from them or code them
+    real_hints, slot_ids, frame_id = [0] * 8, [0] * 8, 0
+    if s.frame_ids or any(f["short"] is not None for f in frames):
+        seq_obu = bytes([(1 << 3) | 2]) + _leb128(len(seq_payload)) \
+            + seq_payload
+        for f_ in A.parse_av1(seq_obu + b"".join(key)).frames:
+            frame_id = f_.frame.frame_id
+            for j in range(8):
+                if f_.frame.refresh_frame_flags >> j & 1:
+                    real_hints[j] = f_.frame.order_hint
+                    slot_ids[j] = f_.frame.frame_id
     # the sequence header written again: libaom's inter tools where its
     # layer 1 was coded under them, else the frame's
     keep = base_layers > 1
@@ -1623,8 +1660,21 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
     saved_ids: List[Optional[tuple]] = [None] * 8
     seq = sequence_header(ws)
     out = bytes([(1 << 3) | 2]) + _leb128(len(seq)) + seq + b"".join(key)
+    if s.frame_ids or frames[0]["short"] is not None:
+        slot_hints = real_hints
     for i, f in enumerate(frames):
         hint, slots, fpair = f["order_hint"], f["ref_slots"], f["pair"]
+        if f["short"] is not None:
+            from oavif_tpu_torch.io.av1_refs import set_frame_refs
+
+            slots = tuple(set_frame_refs(*f["short"], slot_hints, hint,
+                                         s.order_hint_bits))
+        fids = None
+        if s.frame_ids:
+            frame_id = (frame_id + 1) % (1 << s.id_len)
+            fids = (frame_id, tuple((frame_id - slot_ids[j])
+                                    % (1 << s.id_len) - 1 for j in slots))
+            assert all(0 <= d < 1 << s.delta_id_len for d in fids[1])
         hints = tuple(slot_hints[j] for j in slots)
         rel = [0] + [A._relative_dist(s, h, hint) for h in hints]
         same_dist = fpair is None or abs(rel[fpair[0]]) == abs(rel[fpair[1]])
@@ -1664,9 +1714,11 @@ def write_layered(key_obus: bytes, sbs: List[Tuple[bool, list]],
             slot_hints=tuple(slot_hints), gm=f["gm"],
             prev_gm=saved_gm[psl] if psl is not None else None,
             skip_mode=f["skip_mode"], refresh=refresh, delta_q=f["delta_q"],
-            end_cdf=f["end_cdf"], tile_rows_log2=f["tile_rows"])
+            end_cdf=f["end_cdf"], tile_rows_log2=f["tile_rows"],
+            short=f["short"], frame_ids=fids)
         if refresh:
             slot_hints[base_layers] = hint
+            slot_ids[base_layers] = frame_id
             saved_gm[base_layers] = tuple(
                 p for _, p in f["gm"] or ((IDENTITY, GM_IDENTITY),) * 7)
             saved_cdfs[base_layers] = tile.saved_cdfs(f["end_cdf"])

@@ -65,7 +65,7 @@ CICP = (1, 13, 6)  # BT.709 primaries, sRGB transfer, BT.601 matrix
 # aom_codec_enc_cfg_t words (uint32)
 _CFG = dict(threads=1, profile=2, w=3, h=4, limit=5,
             forced_max_frame_width=6, forced_max_frame_height=7, bit_depth=8,
-            input_bit_depth=9, lag=14, superres_mode=19,
+            input_bit_depth=9, error_resilient=12, lag=14, superres_mode=19,
             superres_denominator=20, superres_kf_denominator=21,
             end_usage=24, min_q=35, max_q=36, monochrome=52,
             tile_width_count=55, tile_height_count=56, tile_widths=57,
