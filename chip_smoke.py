@@ -218,6 +218,7 @@ import io
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2718,6 +2719,9 @@ AVIF_INTERINTRA_DIR = os.path.join(
 AVIF_FRAMETYPES_DIR = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
     "avif_frametypes")
+AVIF_SEQHDR_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+    "avif_seqhdr")
 # the per-frame counts of inter-intra and segmentation map prediction
 INTERINTRA_PER_FRAME = ("interintra", "interintra_wedge", "seg_id_predicted",
                         "seg_map_kept", "seg_temporal")
@@ -2727,6 +2731,29 @@ GLOBAL_SIDES = ("global_translation", "global_rotzoom", "global_affine")
 COMPOUND_MODES = ("nearest_nearestmv", "near_nearmv", "nearest_newmv",
                   "new_nearestmv", "near_newmv", "new_nearmv",
                   "global_globalmv", "new_newmv")
+
+
+def with_ispe(data: bytes, width: int, height: int) -> bytes:
+    """``data`` with every ``ispe`` property saying width x height."""
+    out = bytearray(data)
+    at = 0
+    while (at := out.find(b"ispe", at)) >= 0:
+        out[at + 8:at + 16] = struct.pack(">II", width, height)
+        at += 4
+    return bytes(out)
+
+
+def fixture_bytes(folder: str, name: str, entry: dict) -> bytes:
+    """A fixture's bytes: its file, or for an entry that names a
+    ``source`` file of another folder (``avif_ispe``'s 3840x2160
+    rewrites), that file with its ``ispe`` rewritten in memory."""
+    how = entry.get("written", {})
+    if "source" in how:
+        with open(os.path.join(os.path.dirname(folder), how["source"]),
+                  "rb") as f:
+            return with_ispe(f.read(), *how["ispe"])
+    with open(os.path.join(folder, name), "rb") as f:
+        return f.read()
 
 
 def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
@@ -2770,7 +2797,12 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
     height (``sizes``), the port reads them, and where it records each
     frame's header (``headers``: frame type, show_frame, the slot a
     show_existing_frame shows, refresh_frame_flags and the reference
-    slots), the port reads it. Each file is decoded ``reps``
+    slots), the port reads it, and where it records each frame's coded
+    video sequence (``sequences``), the port reads them. A file scaled to
+    its ``ispe`` names its libyuv route (``route``) on its line, beside
+    the scaling's time; an entry with a ``source`` is that file of another
+    folder with its ``ispe`` rewritten in memory (``fixture_bytes``).
+    Each file is decoded ``reps``
     times, and the CRCs, the counts and the loaded image are those of the
     last timed read (``decode_avif`` and the conversion ``read_avif``
     makes, ``avif_pixels``). A last line gives the folder's reads in all
@@ -2786,8 +2818,7 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
     read_total, n_reads = 0.0, 0
     for name, entry in sorted(manifest.items()):
         path = os.path.join(folder, name)
-        with open(path, "rb") as f:
-            data = f.read()
+        data = fixture_bytes(folder, name, entry)
         if "refuses" in entry:
             try:
                 load_avif(path)
@@ -2825,8 +2856,8 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
         for _ in range(reps):
             # read_avif's work, its decode kept for the checks below
             t, t0 = {}, time.perf_counter()
-            with open(path, "rb") as f:
-                box, color, alpha = avif.decode_avif(f.read(), t)
+            box, color, alpha = avif.decode_avif(
+                fixture_bytes(folder, name, entry), t)
             arr, hbd, icc = avif.avif_pixels(box, color, alpha, t)
             times.append(time.perf_counter() - t0)
             split.append(t)
@@ -2892,6 +2923,9 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
                           f.frame.show_existing, f.frame.refresh_frame_flags,
                           list(f.frame.ref_frame_idx)] for f in av1.frames],)
                 want += (entry["headers"],)
+            if "sequences" in entry:
+                got += ([f.sequence for f in av1.frames],)
+                want += (entry["sequences"],)
         if got != want:
             raise AssertionError(f"{name}: decoded {got}, manifest {want}")
         loaded[name] = img
@@ -2949,9 +2983,12 @@ def _read_avif_fixtures(folder: str, reps_4k: int, reps_small: int) -> dict:
                     for u in used)
         fmt = ("4:0:0" if color.mono else
                {(0, 0): "4:4:4", (1, 0): "4:2:2", (1, 1): "4:2:0"}[color.ss])
+        route = f", libyuv route {entry['route']}" if "route" in entry \
+            else ""
         print(f"  {name} {img.width}x{img.height}x{img.channels} "
               f"{'16' if img.hbd else '8'}-bit from {fmt} "
-              f"{color.bit_depth}-bit ({len(data)} bytes): == manifest CRCs; "
+              f"{color.bit_depth}-bit ({len(data)} bytes{route}): == "
+              f"manifest CRCs; "
               f"read {np.median(times) * 1e3:.3f} ms (median of {reps}, "
               f"{min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}; {parts} ms"
               f"{shares})",
@@ -2996,8 +3033,11 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     by symbol for the filters and 4x4 blocks libaom does not write, OBMC
     and a local warp, and three layers with reference MVs on an inter
     frame) and of ``tests/torch_fixtures/avif_ispe`` (frames
-    scaled to an ``ispe`` of another size, one refused and one past
-    libavif's limits) and of ``tests/torch_fixtures/avif_progressive``
+    scaled to an ``ispe`` of another size by each of libyuv's routes, the
+    box filter, 3/4, 3/8, 1/4 and point sampling among them, at 8, 10
+    and 12 bits, one past libavif's limits, and two 3840x2160 files of
+    other folders with their ``ispe`` rewritten in memory to the box, 3/4,
+    3/8 and 1/4 routes, each read once) and of ``tests/torch_fixtures/avif_progressive``
     (progressive items: layer 0 at each of libaom's scaling modes, 4:2:2,
     4:4:4, monochrome, 10 and 12 bits, three layers, alpha, two tiles,
     the six classes and a 3840x2160 frame on a 1920x1080 layer 0, a
@@ -3046,7 +3086,11 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     a hidden inter frame with film grain, each shown by
     show_existing_frame; frame_refs_short_signaling, once with frame ids;
     three refusals that must raise ``OSError``; the mixed class and a
-    3840x2160 frame in error-resilient layers with an S-frame on top)
+    3840x2160 frame in error-resilient layers with an S-frame on top) and
+    of ``tests/torch_fixtures/avif_seqhdr`` (a second sequence header:
+    repeated with other operating parameters, or differing and so starting
+    a new coded video sequence before the frame it governs; two refusals
+    that must raise ``OSError``)
     decodes
     to its manifest (``_read_avif_fixtures``, each file decoded as often
     as it is timed, and each folder's reads in all on a line),
@@ -3074,7 +3118,9 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
     skip_mode, inter-intra and a predicted segment map, error-resilient
     layers with frame ids and an S-frame on top), with ``-q 60`` on the
     3840x2160 frame of the last two (the other folders' 3840x2160 picks
-    are read and held to their manifests, not encoded):
+    are read and held to their manifests, not encoded), ``-t 80`` on the
+    512x512 frame scaled from 1040x1040 by libyuv's box filter and ``-q
+    60`` on the 8-bit 3840x2160 frame rewritten to 1280x720:
     q, passes and bytes must be those of the CLI on the same
     pixels, written as PAM where they are 8-bit and handed over in memory
     where they are 16-bit (PAM holds 8 bits). Returns the kernels'
@@ -3096,7 +3142,8 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
             (AVIF_LF_SEG_DIR, [("lf_seg512_420.avif", ["-t", "80"])]),
             (AVIF_GAINMAP_DIR, []),
             (AVIF_LAYERS_DIR, [("class_mixed_512.avif", ["-t", "80"])]),
-            (AVIF_ISPE_DIR, []),
+            (AVIF_ISPE_DIR, [("class_mixed_512_box.avif", ["-t", "80"]),
+                             ("photo4k_420_q60@1280x720", ["-q", "60"])]),
             (AVIF_PROGRESSIVE_DIR, [("class_mixed_512.avif", ["-t", "80"])]),
             (AVIF_WARP_DIR, [("class_mixed_512.avif", ["-t", "80"])]),
             (AVIF_REFMVS_DIR, [("class_mixed_512.avif", ["-t", "80"])]),
@@ -3105,18 +3152,25 @@ def phase_avif_input(images: dict, acc: dict) -> dict:
             (AVIF_INTERINTRA_DIR, [("class_mixed_512.avif", ["-t", "80"]),
                                    ("photo4k_420.avif", ["-q", "60"])]),
             (AVIF_FRAMETYPES_DIR, [("class_mixed_512.avif", ["-t", "80"]),
-                                   ("photo4k_420.avif", ["-q", "60"])])):
+                                   ("photo4k_420.avif", ["-q", "60"])]),
+            (AVIF_SEQHDR_DIR, [])):
         # every file read once (the newest folder's 3840x2160 frame three
         # times), to keep the phase's time; the 3840x2160 CLI pair only in
         # the first folder and the two newest (the others' 512x512 pairs
         # drive the same CLI path on the same kind of input)
         loaded = _read_avif_fixtures(
             folder, 3 if folder == AVIF_FRAMETYPES_DIR else 1, 1)
-        runs += [(os.path.join(folder, name), loaded[name], args)
-                 for name, args in picks]
+        runs += [(folder, name, loaded[name], args) for name, args in picks]
     with tempfile.TemporaryDirectory() as td:
-        for src, img, args in runs:
+        for folder, pick, img, args in runs:
+            src = os.path.join(folder, pick)
             name = os.path.relpath(src, os.path.dirname(AVIF_DIR))
+            if not os.path.exists(src):  # an ispe rewritten in memory
+                with open(os.path.join(folder, "manifest.json")) as f:
+                    entry = json.load(f)[pick]
+                src = os.path.join(td, "rewritten.avif")
+                with open(src, "wb") as f:
+                    f.write(fixture_bytes(folder, pick, entry))
             r = run_cli(args, src, os.path.join(td, "o.avif"), acc)
             if img.hbd:
                 how = "the same 16-bit pixels in memory"

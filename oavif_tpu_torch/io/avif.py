@@ -23,7 +23,8 @@ Three parts, all on the host:
 - the layer properties ``a1op``, ``lsel`` and ``a1lx``, which pick and
   check an item's operating point and spatial layer as libavif 1.3 does;
 - the OBU layer (``parse_av1``): the sequence header in its reduced
-  still-picture form and its full form, the operating point's frames
+  still-picture form and its full form, repeated, or differing and so
+  starting a new coded video sequence, the operating point's frames
   (shown key frames and inter frames: the uncompressed header with
   superres, the reference frames, the inter fields, global motion and
   film grain loaded from a reference, kept across frames in
@@ -796,6 +797,10 @@ class SequenceHeader:
     dual_filter: bool = False
     jnt_comp: bool = False
     ref_frame_mvs: bool = False
+    # the header's bits up to film_grain_params_present less its
+    # operating_parameters_info: two headers of one coded video sequence
+    # have the same (spec 7.5; dav1d compares its parsed fields so)
+    key: bytes = field(default=b"", repr=False)
 
 
 def _tile_log2(blk: int, target: int) -> int:
@@ -807,6 +812,8 @@ def _tile_log2(blk: int, target: int) -> int:
 
 def parse_sequence_header(b: _Bits) -> SequenceHeader:
     s = SequenceHeader()
+    start = b.pos
+    skipped = []  # the bit ranges of operating_parameters_info
     s.profile = b.f(3)
     if s.profile > 2:
         raise _broken(f"seq_profile {s.profile}")
@@ -841,9 +848,11 @@ def parse_sequence_header(b: _Bits) -> SequenceHeader:
             if s.decoder_model_info:
                 present = bool(b.f(1))
                 if present:
+                    at = b.pos
                     b.f(buffer_delay_len)
                     b.f(buffer_delay_len)
                     b.f(1)
+                    skipped.append((at, b.pos))
             models.append(present)
             if display_delay and b.f(1):
                 b.f(4)
@@ -910,6 +919,11 @@ def parse_sequence_header(b: _Bits) -> SequenceHeader:
                 b.f(2)
         s.separate_uv_delta_q = bool(b.f(1))
     s.film_grain = bool(b.f(1))
+    keep = [(start, b.pos)]
+    for lo, hi in skipped:
+        keep[-1:] = [(keep[-1][0], lo), (hi, keep[-1][1])]
+    s.key = bytes(b.data[i >> 3] >> (7 - (i & 7)) & 1
+                  for lo, hi in keep for i in range(lo, hi))
     return s
 
 
@@ -1613,6 +1627,9 @@ class Av1Frame:
     spatial_id: int = 0
     temporal_id: int = 0
     frames: List["Av1Frame"] = field(default_factory=list)
+    # the coded video sequence the frame belongs to: 0, and one more at
+    # each sequence header that differs from the one before it
+    sequence: int = 0
 
 
 def parse_av1(payload: bytes, operating_point: int = 0,
@@ -1622,15 +1639,27 @@ def parse_av1(payload: bytes, operating_point: int = 0,
     (the first where the sequence header has fewer), frames of every type,
     shown or hidden, and show_existing_frame headers (frames with no
     tiles, which show a slot, of the spatial layer of the frame in that
-    slot); the frame shown is, where the operating
-    point spans several spatial layers, the first of the highest spatial
-    layer present, else the first shown frame; with ``layer`` (an
-    ``lsel`` property) the first shown frame of that spatial layer."""
+    slot). The frame shown is the first picture dav1d puts out as libavif
+    runs it (one frame thread; all layers only under ``lsel``, ``layer``,
+    where it is the first shown frame of that spatial layer): a shown
+    frame goes out at once where the operating point in force spans one
+    spatial layer, else it waits in dav1d's cache until a frame of that
+    point's highest layer follows it or the data ends (so, with one
+    sequence header, the first shown frame of the highest layer present);
+    the OBUs after it are not read.
+
+    Each sequence header chooses the operating point again. One that
+    repeats the header in force, apart from its operating parameter info,
+    changes nothing else. One that differs starts a new coded video
+    sequence, as dav1d reads it: every reference slot is emptied and a
+    frame whose tiles are still to come is dropped; every later frame is
+    parsed under (and carries as ``seq``) the header in force, and its
+    ``sequence`` counts the headers that differed before it."""
     from .av1_refs import RefHeaders
 
     pos = 0
     seq: Optional[SequenceHeader] = None
-    seq_bytes = b""
+    sequence = 0
     op_idc = 0
     refs = RefHeaders()
     # the spatial layer of each slot's frame: a show_existing_frame shows
@@ -1640,7 +1669,42 @@ def parse_av1(payload: bytes, operating_point: int = 0,
     frames: List[Av1Frame] = []
     cur: Optional[Av1Frame] = None
     tiles: List[Optional[bytes]] = []
-    while pos < len(payload):
+    # dav1d's output (dav1d_lib.c output_picture_ready, output_image):
+    # the frames in its c->out and c->cache, and the highest spatial layer
+    # of the operating point in force
+    out: Optional[int] = None
+    cache: Optional[int] = None
+    top = 0
+
+    def ready(drain: bool) -> bool:
+        nonlocal out, cache
+        if layer is None and top:
+            if out is not None and cache is not None:
+                if frames[cache].spatial_id == top:
+                    return True
+                cache, out = out, None
+                return False
+            if cache is not None and drain:
+                return True
+            if out is not None:
+                cache, out = out, None
+                return False
+        return out is not None
+
+    def shown(drain: bool) -> Optional[int]:
+        """The frame libavif takes, once dav1d puts it out."""
+        nonlocal out, cache
+        while ready(drain):
+            if layer is not None or not top:
+                pic, out = out, None
+            else:
+                pic, cache, out = cache, out, None
+            if layer is None or frames[pic].spatial_id == layer:
+                return pic
+        return None
+
+    pick = None
+    while pos < len(payload) and pick is None:
         h = payload[pos]
         if h & 0x80:
             raise _broken("OBU forbidden bit")
@@ -1664,16 +1728,16 @@ def parse_av1(payload: bytes, operating_point: int = 0,
             if not ((op_idc >> tid) & 1 and (op_idc >> (sid + 8)) & 1):
                 continue
         if typ == 1:
-            if seq is None:
-                seq = parse_sequence_header(_Bits(payload, p, end))
-                seq_bytes = payload[p:end]
-                op = operating_point if operating_point < len(seq.op_idcs) \
-                    else 0
-                op_idc = seq.op_idcs[op]
-            elif payload[p:end] != seq_bytes:
-                raise UnsupportedAvif("AV1: a second sequence header that "
-                                      "differs from the first is not "
-                                      "supported")
+            new = parse_sequence_header(_Bits(payload, p, end))
+            if seq is not None and new.key != seq.key:
+                sequence += 1
+                refs = RefHeaders()
+                slot_layer = [0] * 8
+                cur, tiles = None, []
+            seq = new
+            op = operating_point if operating_point < len(seq.op_idcs) else 0
+            op_idc = seq.op_idcs[op]
+            top = max((op_idc >> 8).bit_length() - 1, 0)
         elif typ in (3, 6):
             if seq is None:
                 raise _broken("frame before the sequence header")
@@ -1686,16 +1750,19 @@ def parse_av1(payload: bytes, operating_point: int = 0,
             if fh.show_existing is not None:  # a frame with no tiles
                 if typ == 6:
                     raise _broken("show_existing_frame in a frame OBU")
-                shown = slot_layer[fh.show_existing]
-                slot_layer = [shown if fh.refresh_frame_flags >> i & 1
+                sid = slot_layer[fh.show_existing]
+                slot_layer = [sid if fh.refresh_frame_flags >> i & 1
                               else v for i, v in enumerate(slot_layer)]
-                frames.append(Av1Frame(seq, fh, [], shown, tid))
+                frames.append(Av1Frame(seq, fh, [], sid, tid,
+                                       sequence=sequence))
+                out = len(frames) - 1
+                pick = shown(False)
                 continue
             slot_layer = [sid if fh.refresh_frame_flags >> i & 1 else v
                           for i, v in enumerate(slot_layer)]
             tiles = [None] * ((len(fh.tile_col_starts) - 1)
                               * (len(fh.tile_row_starts) - 1))
-            cur = Av1Frame(seq, fh, [], sid, tid)
+            cur = Av1Frame(seq, fh, [], sid, tid, sequence=sequence)
             if typ == 6:
                 b.byte_align()
                 _read_tiles(b, fh, end, tiles)
@@ -1706,28 +1773,23 @@ def parse_av1(payload: bytes, operating_point: int = 0,
         if cur is not None and tiles and all(t is not None for t in tiles):
             cur.tiles = list(tiles)
             frames.append(cur)
+            if cur.frame.show_frame:
+                out = len(frames) - 1
             cur = None
-    if seq is None:
-        raise _broken("no sequence header")
-    if cur is not None:
-        raise _broken("missing tiles")
-    if not frames:
-        raise _broken("no frame")
-    shown = [i for i, f in enumerate(frames) if f.frame.show_frame]
-    if layer is not None:
-        pick = [i for i in shown if frames[i].spatial_id == layer]
-        if not pick:
-            raise _broken(f"no frame of spatial layer {layer}")
-    else:
-        top = max((frames[i].spatial_id for i in shown), default=0) \
-            if op_idc >> 8 > 1 else None
-        pick = [i for i in shown if top is None
-                or frames[i].spatial_id == top]
-    if not pick:
-        raise _broken("no shown frame")
-    out = frames[pick[0]]
-    out.frames = frames[:pick[0] + 1]
-    return out
+        pick = shown(False)
+    if pick is None:
+        if seq is None:
+            raise _broken("no sequence header")
+        if cur is not None:
+            raise _broken("missing tiles")
+        if not frames:
+            raise _broken("no frame")
+        pick = shown(True)
+    if pick is None:
+        raise _broken("no shown frame" if layer is None
+                      else f"no frame of spatial layer {layer}")
+    frames[pick].frames = frames[:pick + 1]
+    return frames[pick]
 
 
 # ---------------------------------------------------------------------------
@@ -2073,6 +2135,8 @@ def decode_av1(payload: bytes, times: Optional[dict] = None,
         times["parse"] = times.get("parse", 0.0) + time.perf_counter() - t0
     img, frame_tools = None, []
     for i, f in enumerate(out.frames):
+        if i and f.sequence != out.frames[i - 1].sequence:
+            refs = RefFrames()  # a new coded video sequence
         before = counts.copy()
         img = _decode_frame(lib, f, refs, counts, times, i,
                             f is out.frames[-1])
@@ -2611,7 +2675,8 @@ def yuv_to_rgb8(img: DecodedImage, rgba: bool = False,
             c >>= 6
             np.clip(c, 0, 255, out=c)
             out[..., i] = c
-        return out if prem is None else _unattenuate(out, alpha_to_8(prem))
+        return out if prem is None else \
+            _unattenuate(out, alpha_to_8(prem, _alpha_shifted(img)))
     f = np.float32
     mx = (1 << bd) - 1
     # libavif's unorm tables: (sample - bias) / range, the limited range's
@@ -2656,7 +2721,7 @@ def yuv_to_rgb8(img: DecodedImage, rgba: bool = False,
     out = np.stack([(f(0.5) + c * f(255)).astype(np.uint8) for c in rgb],
                    axis=-1)
     if prem is not None and not slow:
-        out = _unattenuate(out, alpha_to_8(prem))
+        out = _unattenuate(out, alpha_to_8(prem, False))
     return out
 
 
@@ -2689,10 +2754,28 @@ def _unattenuate(rgb: np.ndarray, a: np.ndarray) -> np.ndarray:
                       255).astype(np.uint8)
 
 
-def alpha_to_8(img: DecodedImage) -> np.ndarray:
-    """The alpha item's plane at 8 bits, as libavif (libyuv) narrows it."""
+def alpha_to_8(img: DecodedImage, shift: bool = True) -> np.ndarray:
+    """The alpha item's plane at 8 bits, as libavif 1.3 narrows it: by a
+    shift where libyuv converts the colour with its alpha (I010/I210/
+    I410AlphaToARGB, or every plane narrowed to 8 bits first: ``shift``);
+    else (libavif's float conversion, and libyuv's I012ToARGB, which
+    takes no alpha) by avifReformatAlpha's float32 ``0.5 + a / max *
+    255``."""
     a = img.planes[0]
-    return (a >> (img.bit_depth - 8)).astype(np.uint8)
+    if shift or img.bit_depth == 8:
+        return (a >> (img.bit_depth - 8)).astype(np.uint8)
+    f = np.float32
+    a = a.astype(f) / f((1 << img.bit_depth) - 1)
+    return np.clip((f(0.5) + a * f(255)).astype(np.int32), 0,
+                   255).astype(np.uint8)
+
+
+def _alpha_shifted(color: DecodedImage) -> bool:
+    """Whether libavif 1.3 narrows a deep alpha plane by libyuv's shift
+    when it converts ``color`` to 8-bit RGBA (``alpha_to_8``)."""
+    kind, _ = _conversion(color.cicp, color.full_range)
+    return kind == "libyuv" and not (color.bit_depth == 12 and not color.mono
+                                     and color.ss == (1, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -2754,13 +2837,8 @@ def _scale_to_ispe(img: DecodedImage, w: int, h: int) -> DecodedImage:
     out = []
     for k, p in enumerate(img.planes):
         sx, sy = (ssx, ssy) if k else (0, 0)
-        try:
-            out.append(scale_plane(p, (w + sx) >> sx, (h + sy) >> sy,
-                                   img.bit_depth > 8))
-        except NotImplementedError as e:
-            raise UnsupportedAvif(f"AVIF: a {p.shape[1]}x{p.shape[0]} "
-                                  f"plane scaled to its ispe {w}x{h} by "
-                                  f"{e}") from None
+        out.append(scale_plane(p, (w + sx) >> sx, (h + sy) >> sy,
+                               img.bit_depth > 8))
     return DecodedImage(out, img.bit_depth, img.cicp, img.full_range,
                         img.mono, img.ss, img.tools, img.frame_tools)
 
@@ -2870,7 +2948,9 @@ def avif_pixels(box: AvifContainer, color: DecodedImage,
         out = yuv_to_rgb8(color, rgba=alpha is not None,
                           prem=alpha if box.premultiplied else None)
         if alpha is not None:
-            out = np.concatenate([out, alpha_to_8(alpha)[..., None]], axis=-1)
+            out = np.concatenate(
+                [out, alpha_to_8(alpha, _alpha_shifted(color))[..., None]],
+                axis=-1)
         hbd = False
     if times is not None:
         times["convert"] = times.get("convert", 0.0) + time.perf_counter() - t0
