@@ -21,15 +21,20 @@ Phases, each of which raises on failure (exit code != 0):
    must equal the plain SSD; CUDA-event times of one plan, fused, old path
    and plain in turns, at 512x512 and at 3840x2160;
 4. metric kernels against plain versions: ``ssim2_pyramid``,
-   ``ssim2_blur`` and ``ssim2_norms`` scale by scale, and the whole score,
-   on the six classes, a random image, 37x53, 8x8 and 3840x2160, at N=1 and
-   N=4 candidates; ``ssim2_blur`` must also equal ``ssim2_blur_simple``
-   (the first blur kernel, kept as the exact yardstick) bit for bit;
+   ``ssim2_blur``, ``ssim2_norms`` and ``ssim2_blur_norms`` (the
+   distorted side's blur and norms fused, K2d's redesign) scale by scale,
+   and the whole score, on the six classes, a random image, 37x53, 8x8 and
+   3840x2160, at N=1 and N=4 candidates; ``ssim2_blur`` must also equal
+   ``ssim2_blur_simple`` (the first blur kernel, kept as the exact
+   yardstick) bit for bit, and ``ssim2_blur_norms`` the pair it replaces,
+   ``ssim2_norms`` over ``ssim2_blur``'s maps, within rtol 1e-10, and
+   repeat bit for bit; ptxas must report no spill for it;
    identity must score exactly 100.0 through the kernels and a second run
    must repeat bit for bit; times of one candidate batch's score and of
    each kernel alone at 512x512x4 and 3840x2160x4, the blur beside the
-   simple kernel in the same call, and both at radius 0, 5 and 8; the
-   score's bound, the sum of its launches' bounds (``score_bound``);
+   simple kernel in the same call, and both at radius 0, 5 and 8, the
+   fused kernel beside the pair in turns; the score's bound, the sum of
+   its launches' bounds (``score_bound``), and the same before the fusion;
 5. main path, the CLI: ``oavif_tpu_torch.cli.run`` with ``-t 80`` and
    ``-q 60`` on the six 512x512 bench classes and one 3840x2160 frame
    written as PAM; each run must exit 0, write an AVIF, launch the planner
@@ -42,7 +47,8 @@ Phases, each of which raises on failure (exit code != 0):
 7. main path, the corpus pipeline: ``search_encode_corpus`` over the six
    classes with every score on the device (``OAVIF_PIPELINE_METRIC=jax``)
    and at the default (``hybrid`` on CUDA), each run twice: the metric
-   kernels must cover every probe in ``jax`` mode and launch in both, the
+   kernels must cover every probe in ``jax`` mode and launch in both (the
+   candidates through ``ssim2_blur_norms``, never ``ssim2_norms``), the
    planner kernel must launch, the bytes must repeat, every score must lie
    in (0, 100];
 8. main path, the batched CLI search: ``-t 80`` with ``OAVIF_METRIC=jax``
@@ -258,6 +264,9 @@ KERNELS = {
                    "oavif_tpu/metric/ssimulacra2.py:332"),
     "ssim2_norms": (M.ssim2_norms, "oavif_tpu_torch/csrc/ssimulacra2.cu",
                     "oavif_tpu/metric/ssimulacra2.py:373"),
+    "ssim2_blur_norms": (M.ssim2_blur_norms,
+                         "oavif_tpu_torch/csrc/ssimulacra2.cu",
+                         "oavif_tpu/metric/ssimulacra2.py:464"),
     "dstage_coeffs16": (DS.coeffs16, "oavif_tpu_torch/csrc/device_stage.cu",
                         "oavif_tpu/av1/device_stage.py:68"),
     "dstage_quant16": (DS.quant16, "oavif_tpu_torch/csrc/device_stage.cu",
@@ -271,10 +280,13 @@ KERNELS = {
 # what the names of each kernel's CUDA functions hold, and no other's
 KERNEL_MATCH = {"planner_plan": "plan_kernel", "ssim2_pyramid": "pyramid_",
                 "ssim2_blur": "blur_kernel", "ssim2_norms": "norms_",
+                "ssim2_blur_norms": "blur_sums_",
                 "dstage_coeffs16": "coeffs16_kernel",
                 "dstage_quant16": "quant16_kernel",
                 "ssim2_blur_iir": "iir_", "wiener_bands": "wiener_kernel"}
-METRIC_KERNELS = ("ssim2_pyramid", "ssim2_blur", "ssim2_norms")
+# the metric kernels of the paths that score on the device under the
+# Gaussian: the reference side's blur, the candidates' fused blur and norms
+METRIC_KERNELS = ("ssim2_pyramid", "ssim2_blur", "ssim2_blur_norms")
 # the kernels of the CLI, pipeline and batched-search paths
 SEARCH_KERNELS = ("planner_plan", *METRIC_KERNELS)
 # the wrappers of the yardstick kernels, which no path may launch
@@ -324,6 +336,14 @@ PLAN_SMOOTH_ALONE = (2, 3)
 # kernel against plain version, with the reasons in tests/test_torch_cuda.py
 TOL = {"ssim2_pyramid": 2e-6, "ssim2_blur": 1e-5, "ssim2_norms": 1e-9,
        "score": 0.01}
+# ssim2_blur_norms against the pair it replaces (the same float32 maps, the
+# float64 sums in another order): rtol, atol 0; and its features against
+# its plain version's, whose blur sums the taps in cuDNN's order: the
+# tolerance of tests/test_torch_metric.py's features, atol per feature
+# [d, artifact, detail, d^4, artifact^4, detail^4] plus rtol
+PAIR_RTOL = 1e-10
+FUSED_ATOL = (1e-5, 1e-6, 1e-6, 1e-5, 1e-6, 1e-6)
+FUSED_RTOL = 1e-3
 
 
 def reset_counts() -> None:
@@ -356,6 +376,14 @@ def rank_counts(counts) -> dict:
 
 def add(a: dict, b: dict) -> dict:
     return {k: a[k] + b[k] for k in a}
+
+
+def scored_fused(counts: dict, path: str) -> None:
+    """A path that scores on the device under the Gaussian must score its
+    candidates through ssim2_blur_norms and launch no ssim2_norms."""
+    if counts["ssim2_blur_norms"] <= 0 or counts["ssim2_norms"] != 0:
+        raise AssertionError(f"{path}: candidates not scored by the fused "
+                             f"kernel alone: launches {counts}")
 
 
 def nbytes(*tensors) -> int:
@@ -936,15 +964,45 @@ def noisy_batch(ref: torch.Tensor, sigmas, seed: int) -> torch.Tensor:
         .round().clamp(0, 255).to(torch.uint8) for s in sigmas])
 
 
+def fused_check(where: str, img1, mu1, s11, img2, pair: torch.Tensor
+                ) -> float:
+    """ssim2_blur_norms on the scale's planes against ``pair`` (ssim2_norms
+    over ssim2_blur's maps, PAIR_RTOL), against a second run of itself (bit
+    for bit) and against its plain version (FUSED_ATOL and FUSED_RTOL on
+    the features); returns the largest feature difference from the plain
+    version."""
+    got = M.ssim2_blur_norms(img1, mu1, s11, img2, 8)
+    again = M.ssim2_blur_norms(img1, mu1, s11, img2, 8)
+    plain = M.ssim2_blur_norms_plain(img1, mu1, s11, img2, 8)
+    torch.cuda.synchronize()
+    off = float(((got - pair).abs() - PAIR_RTOL * pair.abs()).max())
+    if off > 0:
+        raise AssertionError(f"{where}: ssim2_blur_norms - pair exceeds "
+                             f"rtol {PAIR_RTOL} by {off}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{where}: ssim2_blur_norms repeat differs")
+    npix = img2.shape[2] * img2.shape[3]
+    fk = M.features_from_sums(got, npix).double()
+    fp = M.features_from_sums(plain, npix).double()
+    tol = (torch.tensor(FUSED_ATOL, dtype=torch.float64, device=fp.device)
+           + FUSED_RTOL * fp.abs())
+    if bool(((fk - fp).abs() > tol).any()):
+        raise AssertionError(f"{where}: ssim2_blur_norms features - plain "
+                             f"{max_abs(fk, fp)} beyond atol {FUSED_ATOL} "
+                             f"+ rtol {FUSED_RTOL}")
+    return max_abs(fk, fp)
+
+
 def metric_case(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
     """Each metric kernel against its plain version on the same inputs,
-    scale by scale, and the blur against the simple blur kernel bit for
-    bit, then the whole score; identity through the kernels must give
-    exactly 100.0 and a second run the same bits. Returns the largest
+    scale by scale, the blur against the simple blur kernel bit for bit and
+    the fused blur and norms against the pair it replaces (``fused_check``),
+    then the whole score; identity through the kernels must give exactly
+    100.0 and a second run the same bits. Returns the largest
     differences."""
     h, w = ref.shape[:2]
     n = dist.shape[0]
-    worst = dict.fromkeys(TOL, 0.0)
+    worst = dict.fromkeys((*TOL, "ssim2_blur_norms"), 0.0)
     src1, src2 = ref[None], dist
     for s in range(M._num_scales(h, w)):
         k1, p1 = M.ssim2_pyramid(src1), M.ssim2_pyramid_plain(src1)
@@ -976,6 +1034,9 @@ def metric_case(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
         worst["ssim2_norms"] = max(worst["ssim2_norms"], max_abs(
             M.features_from_sums(sums, npix),
             M.features_from_sums(M.ssim2_norms_plain(*planes), npix)))
+        worst["ssim2_blur_norms"] = max(
+            worst["ssim2_blur_norms"],
+            fused_check(f"{label} N={n} scale {s}", *planes[:4], sums))
         src1, src2 = k1[0], k2[0]
     pyr = M.ssimulacra2_precompute_ref(ref, ref.device)
     got = M.ssimulacra2_from_precomputed(pyr, dist)
@@ -996,8 +1057,9 @@ def metric_case(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
     print(f"  {label} N={n}: scores {[round(x, 4) for x in got.tolist()]}; "
           f"max |kernel - plain| pyramid {worst['ssim2_pyramid']:.3g}, "
           f"blur {worst['ssim2_blur']:.3g}, norms {worst['ssim2_norms']:.3g},"
-          f" score {worst['score']:.3g}; blur == simple kernel bit for bit; "
-          "identity 100.0, repeat identical",
+          f" blur and norms fused {worst['ssim2_blur_norms']:.3g} (== the "
+          f"pair within rtol {PAIR_RTOL}), score {worst['score']:.3g}; blur "
+          "== simple kernel bit for bit; identity 100.0, repeat identical",
           flush=True)
     for key, tol in TOL.items():
         if worst[key] > tol:
@@ -1007,13 +1069,16 @@ def metric_case(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
 
 
 def score_bound(ref: torch.Tensor, dist: torch.Tensor,
-                with_ref: bool = False) -> float:
+                with_ref: bool = False, fused: bool = True) -> float:
     """The bound (ms) of one candidate batch's score: the sum over its
-    K2a-c launches, every scale, of each launch's bound, counted as in
+    launches, every scale, of each launch's bound, counted as in
     ``metric_times`` (pyramid: 27 operations per output element; blur: 68
     per map (2 passes x 17 taps x 2) and one per product, per element;
-    norms: 40). ``with_ref`` adds the reference side's pyramid and blurs,
-    which the width-sharded score computes on every call."""
+    norms: 40; the fused blur and norms: 206 + 40, its bytes the four
+    planes it reads and the sums). ``with_ref`` adds the reference side's
+    pyramid and blurs, which the width-sharded score computes on every
+    call; ``fused`` False counts the candidates' side as the blur and norms
+    launches that ssim2_blur_norms replaced."""
     total = []
 
     def pyramid(src):
@@ -1035,7 +1100,15 @@ def score_bound(ref: torch.Tensor, dist: torch.Tensor,
         total.append(bound(nbytes(*planes, out), 40 * planes[3].numel()))
         return out
 
-    ops = M.MetricOps(pyramid, blur, norms, M.ssim2_blur_iir)
+    def blur_norms(img1, mu1, s11, img2, radius):
+        if not fused:
+            return norms(img1, mu1, s11, img2, *blur(img1, img2, radius))
+        out = M.ssim2_blur_norms(img1, mu1, s11, img2, radius)
+        total.append(bound(nbytes(img1, mu1, s11, img2, out),
+                           246 * img2.numel()))
+        return out
+
+    ops = M.MetricOps(pyramid, blur, norms, M.ssim2_blur_iir, blur_norms)
     pyr = M.ssimulacra2_precompute_ref(ref, ref.device,
                                        ops if with_ref else M.KERNELS)
     M.ssimulacra2_from_precomputed(pyr, dist, ops)
@@ -1048,7 +1121,9 @@ def metric_times(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
     kernel against plain version, with each kernel's bound and, for the
     blur, the simple blur kernel's time in the same call and one cuDNN
     convolution's (``F.conv2d`` with the 17x17 Gaussian over the three
-    distorted-side maps, their products made beforehand)."""
+    distorted-side maps, their products made beforehand); for the fused
+    blur and norms, the pair it replaced (``ssim2_blur`` then
+    ``ssim2_norms``) between its two runs."""
     pyr_k = M.ssimulacra2_precompute_ref(ref, ref.device)
     pyr_p = M.ssimulacra2_precompute_ref(ref, ref.device, M.PLAIN)
     img1, mu1, s11 = (t[None] for t in pyr_k[0])
@@ -1066,10 +1141,14 @@ def metric_times(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
                        lambda: M.ssim2_blur_plain(img1, img2, 8)),
         "ssim2_norms": (lambda: M.ssim2_norms(*planes),
                         lambda: M.ssim2_norms_plain(*planes)),
+        "ssim2_blur_norms": (
+            lambda: M.ssim2_blur_norms(*planes[:4], 8),
+            lambda: M.ssim2_blur_norms_plain(*planes[:4], 8)),
     }
     # operations per pixel and channel: the opsin mix, cube roots and XYB
     # combination (27); 3 maps x 2 passes x 17 taps x 2 plus 2 products
-    # (206); the SSIM, artifact and detail maps and their norms (40)
+    # (206); the SSIM, artifact and detail maps and their norms (40); the
+    # two fused (246)
     npx = dist.shape[0] * 3 * dist.shape[1] * dist.shape[2]
     pyr_out = M.ssim2_pyramid(dist)
     bounds = {
@@ -1077,8 +1156,12 @@ def metric_times(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
         "ssim2_blur": bound(nbytes(img1, img2, *dist_stats), 206 * npx),
         "ssim2_norms": bound(nbytes(*planes, M.ssim2_norms(*planes)),
                              40 * npx),
+        "ssim2_blur_norms": bound(
+            nbytes(*planes[:4], M.ssim2_blur_norms(*planes[:4], 8)),
+            246 * npx),
         "score": {"bound_ms": score_bound(ref, dist),
-                  "bound_by": "its K2a-c launches' bounds",
+                  "bound_by": "its launches' bounds",
+                  "unfused_bound_ms": score_bound(ref, dist, fused=False),
                   "one_with_ref_bound_ms": score_bound(ref, dist[:1], True)},
     }
     h, w = img2.shape[-2:]
@@ -1094,16 +1177,26 @@ def metric_times(label: str, ref: torch.Tensor, dist: torch.Tensor) -> dict:
         if key == "ssim2_blur":  # the simple kernel between the two
             simple = [cuda_ms(lambda: M.ssim2_blur_simple(img1, img2, 8),
                               reps) for _ in range(2)]
+        if key == "ssim2_blur_norms":  # the pair it replaced between them
+            pair = [cuda_ms(lambda: M.ssim2_norms(
+                *planes[:4], *M.ssim2_blur(img1, img2, 8)), reps)
+                for _ in range(2)]
         k1, p1 = cuda_ms(kernel, reps), cuda_ms(plain, reps)
         times[key] = {"ms": (k0 + k1) / 2, "plain_ms": (p0 + p1) / 2,
                       "library_ms": conv if key == "ssim2_blur" else None,
                       **bounds.get(key, {})}
         if key in KERNEL_MATCH:
-            times[key].update(split_times(kernel, KERNEL_MATCH[key], reps))
+            # the fused kernel's two launches: its march and its fold
+            times[key].update(split_times(
+                kernel, KERNEL_MATCH[key], reps,
+                2 if key == "ssim2_blur_norms" else 1))
         if key == "ssim2_blur":
             times[key]["simple_ms"] = sum(simple) / 2
+        if key == "ssim2_blur_norms":
+            times[key]["pair_ms"] = sum(pair) / 2
         extra = "".join(f", {k} {times[key][k]}" for k in
-                        ("simple_ms", "library_ms", "bound_ms", "bound_by",
+                        ("simple_ms", "pair_ms", "library_ms", "bound_ms",
+                         "bound_by", "unfused_bound_ms",
                          "one_with_ref_bound_ms")
                         if times[key].get(k) is not None)
         if key in KERNEL_MATCH:
@@ -1130,7 +1223,7 @@ def phase_metric(images: dict, frame4k: np.ndarray) -> dict:
     cases["random 37x53"] = rng.integers(0, 256, (37, 53, 3), dtype=np.uint8)
     cases["random 8x8"] = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
     cases["photo 3840x2160"] = frame4k
-    worst = dict.fromkeys(TOL, 0.0)
+    worst = dict.fromkeys((*TOL, "ssim2_blur_norms"), 0.0)
     dists = {}
     for i, (label, rgb) in enumerate(cases.items()):
         ref = torch.from_numpy(rgb).cuda()
@@ -1139,6 +1232,7 @@ def phase_metric(images: dict, frame4k: np.ndarray) -> dict:
         for n in (1, 4):
             case = metric_case(label, ref, dist[:n])
             worst = {k: max(worst[k], case[k]) for k in worst}
+    no_spills("blur_sums_kernel")
     times = {}
     for label in ("sinusoid 512x512", "photo 3840x2160"):
         times[label] = metric_times(label, *dists[label])
@@ -1229,10 +1323,11 @@ def phase_corpus(images: dict) -> dict:
             if min(c[k] for k in SEARCH_KERNELS) <= 0:
                 raise AssertionError(f"pipeline {got_mode}: a kernel did not "
                                      f"launch: {c}")
+            scored_fused(c, f"pipeline {got_mode}")
             # jax mode: every probe's 6 scales, and each image's reference
             if got_mode == "jax" and (
-                    c["ssim2_norms"] != 6 * passes
-                    or c["ssim2_blur"] != 6 * (passes + len(images))):
+                    c["ssim2_blur_norms"] != 6 * passes
+                    or c["ssim2_blur"] != 6 * len(images)):
                 raise AssertionError(f"pipeline jax: launches {c} do not "
                                      f"cover {passes} probes")
         for c in (counts, counts2):
@@ -1264,6 +1359,7 @@ def phase_batched_cli(frame4k: np.ndarray, acc: dict) -> dict:
           flush=True)
     if min(counts[k] for k in SEARCH_KERNELS) <= 0:
         raise AssertionError(f"batched CLI: a kernel did not launch: {counts}")
+    scored_fused(counts, "batched CLI")
     return counts
 
 
@@ -1377,18 +1473,18 @@ def quant_edges() -> None:
         raise AssertionError("K3b took levels off 16-byte alignment")
 
 
-def quant_spills() -> list:
-    """quant16_kernel's ptxas lines from this process's build; raises if
-    ptxas spilled."""
-    lines = ptxas_of("quant16_kernel")
+def no_spills(kernel: str) -> list:
+    """``kernel``'s ptxas lines from this process's build; raises if
+    ptxas spilled in any of its instantiations."""
+    lines = ptxas_of(kernel)
     for ln in lines:
         found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", ln)
         if found and (int(found.group(1)) or int(found.group(2))):
-            raise AssertionError(f"quant16_kernel spills: {ln}")
-    print("  quant16_kernel ptxas: " + ("; ".join(lines) if lines else
-                                        "not in this process's build (the "
-                                        "library was up to date)"),
+            raise AssertionError(f"{kernel} spills: {ln}")
+    print(f"  {kernel} ptxas: " + ("; ".join(lines) if lines else
+                                   "not in this process's build (the "
+                                   "library was up to date)"),
           flush=True)
     return lines
 
@@ -1456,7 +1552,7 @@ def phase_levels_kernels(images: dict, frame4k: np.ndarray) -> dict:
                   f"yardstick == plain at qindex {LEVEL_QS} and singly, "
                   f"nonzero levels {int((lv != 0).sum())}", flush=True)
     quant_edges()
-    quant_spills()
+    no_spills("quant16_kernel")
     # times at 3840x2160 (fp, y and plan_modes are the frame's last case)
     modes = torch.from_numpy(plan_modes).to(DEVICE)
     cf = DS.coeffs16(y, nby, nbx, modes, 10)
@@ -1777,7 +1873,9 @@ def phase_iir_path(images: dict, acc: dict) -> dict:
         for var in ("OAVIF_METRIC", "OAVIF_METRIC_BLUR",
                     "OAVIF_TQ_BATCH_WIDTH"):
             os.environ.pop(var, None)
-    if counts["ssim2_blur_iir"] <= 0 or counts["ssim2_blur"] != 0:
+    # the recursive blur keeps blur_iir then norms; nothing of the Gaussian
+    if (counts["ssim2_blur_iir"] <= 0 or counts["ssim2_norms"] <= 0
+            or counts["ssim2_blur"] != 0 or counts["ssim2_blur_norms"] != 0):
         raise AssertionError(f"iir CLI path: launches {counts}")
     return counts
 
@@ -2509,8 +2607,8 @@ def phase_measure(png_dir: str, found: dict, mpix: float) -> dict:
             moved = sorted(k for k in got if got[k] != table[k])
             if counts["planner_plan"] <= 0:
                 raise AssertionError(f"measure {mode}: no planner launch")
-            if mode == "window" and counts["ssim2_norms"] <= 0:
-                raise AssertionError("measure window: no metric launch")
+            if mode == "window":
+                scored_fused(counts, "measure window")
             total = add(total, counts)
             extra = ""
             if mode == "two ranks":
@@ -3370,7 +3468,8 @@ def main() -> int:
                      "library_ms": t["library_ms"],
                      "device_ms": t["device_ms"], "host_us": t["host_us"],
                      **{k: t[k] for k in ("simple_ms", "simple_device_ms",
-                                          "host_us_before", "checks_us")
+                                          "pair_ms", "host_us_before",
+                                          "checks_us")
                         if k in t}})
         if name in YARDSTICK_OF:
             rows[-1]["yardstick"] = YARDSTICK_OF[name]

@@ -12,7 +12,13 @@
 //                  exact yardstick that no path launches;
 //   ssim2_blur_iir blur_iir (:309, _iir_pass_1d :287), the recursive
 //                  Gaussian under OAVIF_METRIC_BLUR=iir;
-//   ssim2_norms    _ssim_map_norms (:373) and _edge_diff_norms (:390).
+//   ssim2_norms    _ssim_map_norms (:373) and _edge_diff_norms (:390);
+//   ssim2_blur_norms  the candidates' side of one scale of _score_pair
+//                  (:464, vmapped in _score_batch :502): the three blurs of
+//                  ssim2_blur and the two norms of ssim2_norms in one pass,
+//                  the score's launch per scale under the Gaussian (the
+//                  pair stays for the reference side, the recursive blur
+//                  and the width shards of metric/sharded.py).
 // The feature assembly and the final nonlinearity stay in torch
 // (oavif_tpu_torch/metric/ssimulacra2.py), as does every plain version.
 //
@@ -88,8 +94,25 @@
 //     intermediates the W pass fell from 3.37 to 2.67 ms and the H pass
 //     from 2.23 to 1.97 ms). The H pass was coalesced from the start; it
 //     issues the loads of 8 rows ahead of their steps. 4.5-4.7 ms in all.
-// Fusing blur and norms so that mu2, s22 and s12 never reach memory is
-// left for later.
+//   - The score of a candidate batch (K2d) ran the distorted side of each
+//     scale as the blur, which wrote mu2, s22 and s12 (12 bytes per
+//     candidate pixel), then the norms, which read them back with img1,
+//     mu1, s11 and img2: 3.58 GB at 3840x2160x4, scale 0, 1.905 ms of the
+//     two kernels' device time. blur_sums_kernel is the blur's march with
+//     another vertical pass: each thread keeps its outputs of the three
+//     maps in registers and forms the norms there (add_norms, the same
+//     float32 expressions), so the maps never reach memory. It reads img2
+//     once, img1 and b's centre values from its own staging (b through a
+//     fourth ring map, since a row's staging buffer is refilled before its
+//     outputs are filtered down), and mu1, s11 and img1 at the outputs
+//     from device memory. The bound reads img1, mu1, s11 and img2 once
+//     (0.70 GB, 0.21 ms) against 246 float32 operations per element (0.37
+//     ms): operations bound it. What the design does about it: one pass
+//     over the maps' registers with every thread in the vertical pass (4
+//     rows a thread, 64 registers, four blocks to an SM), and the
+//     candidates of one strip and segment next to each other in the grid,
+//     so that a shared reference's three planes come from L2 for all but
+//     the first candidate.
 //
 // Rounding: every float32 expression that the identical-image score of
 // exactly 100 or the equality with the plain version depends on is written
@@ -110,6 +133,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        (oavif_tpu_torch/kernels/build.py).
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -286,13 +310,13 @@ struct BlurStrip {
   }
 };
 
-// One (strip of kStripW columns, segment of kSegRows rows, candidate,
-// channel) per block. Reference side (kDist false): a = img1 -> out0 =
-// blur(a), out1 = blur(a*a). Distorted side: a = img1 (batch stride
-// ref_stride, 0 for a shared reference), b = img2 -> out0 = blur(b),
-// out1 = blur(b*b), out2 = blur(a*b). Pixels outside the plane are zero
+// The march of one (strip of kStripW columns, segment of kSegRows rows,
+// candidate, channel) block, shared by blur_kernel and blur_sums_kernel.
+// Reference side (kDist false): a = the reference plane -> map 0 = a, map
+// 1 = a*a. Distorted side: a = the reference plane, b = the candidate's ->
+// map 0 = b, map 1 = b*b, map 2 = a*b. Pixels outside the plane are zero
 // (the reference's zero-padded convolutions). With halo > 0 the inputs are
-// w + 2*halo wide (a width shard and its neighbours' columns,
+// win = w + 2*halo wide (a width shard and its neighbours' columns,
 // oavif_tpu/metric/sharded.py:67 _blur_sharded) and output column x is
 // input column x + halo: for halo >= radius the horizontal pass reads no
 // padding.
@@ -301,7 +325,7 @@ struct BlurStrip {
 // operation for operation: acc = 0, then acc = fma(k[t], v[x + t], acc)
 // for t = -R..R along the row, then the same chain down the column over
 // the filtered rows; the products are __fmul_rn(b, b) and __fmul_rn(a, b).
-// So the two kernels give the same bits, and a shard's planes are the
+// So the kernels give the same bits, and a shard's planes are the
 // single-device blur's columns bit for bit.
 //
 // The block filters rows ys-R .. ye+R-1 across, kStepRows at a step, into
@@ -318,45 +342,34 @@ struct BlurStrip {
 //           row once, as float4s (a quarter-warp reads 128 contiguous
 //           bytes: no bank conflict), forms the products once per window
 //           value, slides the unrolled taps over it in registers and
-//           writes kRun values of each map into the ring; the block meets;
-//   down    each thread streams kDownRows + 2R ring values of one column
-//           through kDownRows accumulators, each value read once, and
-//           stores its outputs (a warp writes 128 contiguous bytes per
-//           row).
-// The taps are read once into registers; R is a template argument, so
-// both tap loops unroll.
-template <bool kDist, int R>
-__global__ void __launch_bounds__(kBlurThreads, kBlurBlocks)
-blur_kernel(const float* __restrict__ img1, long long ref_stride,
-            const float* __restrict__ img2, int h, int w, int halo,
-            const float* __restrict__ taps, int vec,
-            float* __restrict__ out0, float* __restrict__ out1,
-            float* __restrict__ out2) {
+//           writes kRun values of each map into the ring (with kRaw, also
+//           b itself at those columns, into ring map 3: the down pass
+//           reads a candidate pixel R rows after its row was staged, when
+//           its staging buffer has been refilled); the block meets;
+//   down    down(hor, base, ob): the caller's vertical pass over the ring
+//           hor ([maps][kRing][kStripW]; the step's first filtered row in
+//           slot base) for the kStepRows output rows from ob, whose
+//           windows end in this step's rows. Output row o's window starts
+//           at ring row o - ys, counted from the segment's first filtered
+//           row, which is slot base + kStepRows for row ob.
+// The taps k are in registers; R is a template argument, so the tap loops
+// unroll.
+template <bool kDist, bool kRaw, int R, class Down>
+__device__ __forceinline__ void blur_march(
+    const float* __restrict__ a, const float* __restrict__ b, int h, int win,
+    int halo, int x0, int ys, int ye, int tw, int vec,
+    const float (&k)[2 * R + 1], Down down) {
   using T = BlurStrip<R>;
-  constexpr int TW = kStripW, RB = kStepRows, kRows = kDownRows;
+  constexpr int TW = kStripW, RB = kStepRows;
   constexpr int kIn = kDist ? 2 : 1;
   constexpr int kOut = kDist ? 3 : 2;
   constexpr int kTaps = 2 * R + 1;
   constexpr int SW = T::kSpanW, kRing = T::kRing;
   constexpr int kStage = kIn * RB * SW;  // floats of one staging buffer
+  static_assert(kDist || !kRaw, "the raw copy is of the candidate plane");
   extern __shared__ float4 blur_smem[];
   float* stage = reinterpret_cast<float*>(blur_smem);  // [2][kIn][RB][SW]
-  float* hor = stage + 2 * kStage;                     // [kOut][kRing][TW]
-
-  float k[kTaps];
-#pragma unroll
-  for (int i = 0; i < kTaps; ++i) k[i] = __ldg(taps + i);
-
-  const int plane = blockIdx.z;  // n * 3 + channel
-  const int n = plane / 3, c = plane - 3 * (plane / 3);
-  const int win = w + 2 * halo;  // input columns
-  const long long hw = static_cast<long long>(h) * w;
-  const long long hw_in = static_cast<long long>(h) * win;
-  const float* a = img1 + n * ref_stride + c * hw_in;
-  const float* b = kDist ? img2 + plane * hw_in : nullptr;
-  const int x0 = blockIdx.x * TW;
-  const int ys = blockIdx.y * kSegRows, ye = min(h, ys + kSegRows);
-  const int tw = min(TW, w - x0);  // columns inside the plane
+  float* hor = stage + 2 * kStage;  // [kOut + kRaw][kRing][TW]
   const int steps = (ye - ys + 2 * R + RB - 1) / RB;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
@@ -397,7 +410,6 @@ blur_kernel(const float* __restrict__ img1, long long ref_stride,
   constexpr int kSegs = TW / kRun;
   constexpr int kWin = 4 * T::kWin4;
   const int segs = (tw + kRun - 1) / kRun;
-  float* outs[3] = {out0, out1, out2};
   int base = 0;  // ring slot of the step's first filtered row
   stage_rows(0);
   for (int step = 0; step < steps; ++step) {
@@ -462,50 +474,94 @@ blur_kernel(const float* __restrict__ img1, long long ref_stride,
       for (int o = 0; o < kOut; ++o)
         reinterpret_cast<float4*>(hor + (o * kRing + slot) * TW)[s] =
             make_float4(acc[o][0], acc[o][1], acc[o][2], acc[o][3]);
+      if constexpr (kRaw) {
+        // b at the thread's output columns: window values kLead + R + j
+        constexpr int c0 = T::kLead + R;
+        reinterpret_cast<float4*>(hor + (kOut * kRing + slot) * TW)[s] =
+            make_float4(v0[c0], v0[c0 + 1], v0[c0 + 2], v0[c0 + 3]);
+      }
     }
     __syncthreads();
 
-    // down: the RB output rows from ob, whose windows end in this step's
-    // rows; kRows of one column per thread, written where the pixel lies
-    // inside the segment. Ring row i of a thread's window feeds output j
-    // with tap i - j, so each output still sums its taps from -R to R in
-    // order. Output row o's window starts at ring row o - ys (counted
-    // from the segment's first filtered row).
-    const int ob = ys - 2 * R + step * RB;
-    if (ob + RB > ys) {
-      for (int task = tid; task < (RB / kRows) * TW; task += kBlurThreads) {
-        const int g = task / TW, col = task - g * TW;
-        const int oy = ob + g * kRows;
-        if (col >= tw || oy + kRows <= ys || oy >= ye) continue;
-        const int slot0 = (base + RB + g * kRows) % kRing;
-        const long long off = plane * hw + static_cast<long long>(oy) * w +
-                              x0 + col;
-#pragma unroll
-        for (int o = 0; o < kOut; ++o) {
-          const float* hp = hor + o * kRing * TW + col;
-          float acc[kRows];
-#pragma unroll
-          for (int j = 0; j < kRows; ++j) acc[j] = 0.0f;
-          int slot = slot0;
-#pragma unroll
-          for (int i = 0; i < kRows + 2 * R; ++i) {
-            const float v = hp[slot * TW];
-            if (++slot == kRing) slot = 0;
-#pragma unroll
-            for (int j = 0; j < kRows; ++j)
-              if (i - j >= 0 && i - j < kTaps)
-                acc[j] = __fmaf_rn(k[i - j], v, acc[j]);
-          }
-#pragma unroll
-          for (int j = 0; j < kRows; ++j)
-            if (oy + j >= ys && oy + j < ye)
-              outs[o][off + static_cast<long long>(j) * w] = acc[j];
-        }
-      }
-    }
+    down(static_cast<const float*>(hor), base, ys - 2 * R + step * RB);
     base += RB;
     if (base >= kRing) base -= kRing;
   }
+}
+
+// blur_march with the blur's own vertical pass: the maps' values at each
+// output pixel go to out0, out1 (and out2) (n, 3, h, w). Each thread
+// streams kDownRows + 2R ring values of one column through kDownRows
+// accumulators, each value read once, and stores its outputs (a warp
+// writes 128 contiguous bytes per row) where the pixel lies inside the
+// segment. Ring row i of a thread's window feeds output j with tap i - j,
+// so each output still sums its taps from -R to R in order. img1 has batch
+// stride ref_stride (0 for a shared reference).
+template <bool kDist, int R>
+__global__ void __launch_bounds__(kBlurThreads, kBlurBlocks)
+blur_kernel(const float* __restrict__ img1, long long ref_stride,
+            const float* __restrict__ img2, int h, int w, int halo,
+            const float* __restrict__ taps, int vec,
+            float* __restrict__ out0, float* __restrict__ out1,
+            float* __restrict__ out2) {
+  using T = BlurStrip<R>;
+  constexpr int TW = kStripW, RB = kStepRows, kRows = kDownRows;
+  constexpr int kOut = kDist ? 3 : 2;
+  constexpr int kTaps = 2 * R + 1;
+  constexpr int kRing = T::kRing;
+
+  float k[kTaps];
+#pragma unroll
+  for (int i = 0; i < kTaps; ++i) k[i] = __ldg(taps + i);
+
+  const int plane = blockIdx.z;  // n * 3 + channel
+  const int n = plane / 3, c = plane - 3 * (plane / 3);
+  const int win = w + 2 * halo;  // input columns
+  const long long hw = static_cast<long long>(h) * w;
+  const long long hw_in = static_cast<long long>(h) * win;
+  const float* a = img1 + n * ref_stride + c * hw_in;
+  const float* b = kDist ? img2 + plane * hw_in : nullptr;
+  const int x0 = blockIdx.x * TW;
+  const int ys = blockIdx.y * kSegRows, ye = min(h, ys + kSegRows);
+  const int tw = min(TW, w - x0);  // columns inside the plane
+  const int tid = threadIdx.x;
+  float* outs[3] = {out0, out1, out2};
+
+  blur_march<kDist, false, R>(
+      a, b, h, win, halo, x0, ys, ye, tw, vec, k,
+      [&](const float* hor, int base, int ob) {
+        if (ob + RB <= ys) return;
+        for (int task = tid; task < (RB / kRows) * TW;
+             task += kBlurThreads) {
+          const int g = task / TW, col = task - g * TW;
+          const int oy = ob + g * kRows;
+          if (col >= tw || oy + kRows <= ys || oy >= ye) continue;
+          const int slot0 = (base + RB + g * kRows) % kRing;
+          const long long off = plane * hw + static_cast<long long>(oy) * w +
+                                x0 + col;
+#pragma unroll
+          for (int o = 0; o < kOut; ++o) {
+            const float* hp = hor + o * kRing * TW + col;
+            float acc[kRows];
+#pragma unroll
+            for (int j = 0; j < kRows; ++j) acc[j] = 0.0f;
+            int slot = slot0;
+#pragma unroll
+            for (int i = 0; i < kRows + 2 * R; ++i) {
+              const float v = hp[slot * TW];
+              if (++slot == kRing) slot = 0;
+#pragma unroll
+              for (int j = 0; j < kRows; ++j)
+                if (i - j >= 0 && i - j < kTaps)
+                  acc[j] = __fmaf_rn(k[i - j], v, acc[j]);
+            }
+#pragma unroll
+            for (int j = 0; j < kRows; ++j)
+              if (oy + j >= ys && oy + j < ye)
+                outs[o][off + static_cast<long long>(j) * w] = acc[j];
+          }
+        }
+      });
 }
 
 template <bool kDist, int R>
@@ -635,9 +691,10 @@ constexpr int kNormWarps = kNormThreads / 32;
 constexpr int kSums = 6;
 
 // Sums v[0..5] over the block in a fixed order; thread j < 6 returns the
-// block's sum j in v[j] (other entries undefined).
-__device__ __forceinline__ void block_sums(double v[kSums],
-                                           double (*red)[kSums]) {
+// block's sum j (the others 0). No array is indexed by the thread, so v
+// stays in registers.
+__device__ __forceinline__ double block_sums(const double v[kSums],
+                                             double (*red)[kSums]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int j = 0; j < kSums; ++j) {
@@ -648,10 +705,40 @@ __device__ __forceinline__ void block_sums(double v[kSums],
     if (lane == 0) red[warp][j] = s;
   }
   __syncthreads();
-  if (threadIdx.x < kSums) {
-    double s = 0.0;
+  double s = 0.0;
+  if (threadIdx.x < kSums)
     for (int i = 0; i < kNormWarps; ++i) s = __dadd_rn(s, red[i][threadIdx.x]);
-    v[threadIdx.x] = s;
+  return s;
+}
+
+// One pixel of the SSIM error map d, the artifact map and the detail-lost
+// map (the plain version's float32 roundings), added with their 4th powers
+// to v in float64. i1, m1, q11: img1, mu1, s11; i2, m2, q22, q12: img2,
+// mu2, s22, s12.
+__device__ __forceinline__ void add_norms(float i1, float m1, float q11,
+                                          float i2, float m2, float q22,
+                                          float q12, float c2,
+                                          double v[kSums]) {
+  const float mu11 = __fmul_rn(m1, m1), mu22 = __fmul_rn(m2, m2);
+  const float mu12 = __fmul_rn(m1, m2);
+  const float md = __fsub_rn(m1, m2);
+  const float num_m = __fsub_rn(1.0f, __fmul_rn(md, md));
+  const float num_s = __fadd_rn(__fmul_rn(2.0f, __fsub_rn(q12, mu12)), c2);
+  const float den_s =
+      __fadd_rn(__fadd_rn(__fsub_rn(q11, mu11), __fsub_rn(q22, mu22)), c2);
+  float d = __fsub_rn(1.0f, __fdiv_rn(__fmul_rn(num_m, num_s), den_s));
+  d = d < 0.0f ? 0.0f : d;
+  const float e1 = __fadd_rn(1.0f, fabsf(__fsub_rn(i1, m1)));
+  const float e2 = __fadd_rn(1.0f, fabsf(__fsub_rn(i2, m2)));
+  const float d1 = __fsub_rn(__fdiv_rn(e2, e1), 1.0f);
+  const float art = d1 < 0.0f ? 0.0f : d1;
+  const float det = -d1 < 0.0f ? 0.0f : -d1;
+  const double x[3] = {d, art, det};
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const double sq = __dmul_rn(x[j], x[j]);
+    v[j] = __dadd_rn(v[j], x[j]);
+    v[3 + j] = __dadd_rn(v[3 + j], __dmul_rn(sq, sq));
   }
 }
 
@@ -673,42 +760,19 @@ norms_partial_kernel(const float* __restrict__ img1,
   const long long start = blockIdx.x * chunk;
   const long long end = start + chunk < hw ? start + chunk : hw;
   double v[kSums] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  for (long long p = start + threadIdx.x; p < end; p += kNormThreads) {
-    const float m1 = mu1[roff + p], m2 = mu2[doff + p];
-    const float mu11 = __fmul_rn(m1, m1), mu22 = __fmul_rn(m2, m2);
-    const float mu12 = __fmul_rn(m1, m2);
-    const float md = __fsub_rn(m1, m2);
-    const float num_m = __fsub_rn(1.0f, __fmul_rn(md, md));
-    const float num_s =
-        __fadd_rn(__fmul_rn(2.0f, __fsub_rn(s12[doff + p], mu12)), c2);
-    const float den_s = __fadd_rn(
-        __fadd_rn(__fsub_rn(s11[roff + p], mu11), __fsub_rn(s22[doff + p], mu22)),
-        c2);
-    float d = __fsub_rn(1.0f, __fdiv_rn(__fmul_rn(num_m, num_s), den_s));
-    d = d < 0.0f ? 0.0f : d;
-    const float e1 = __fadd_rn(1.0f, fabsf(__fsub_rn(img1[roff + p], m1)));
-    const float e2 = __fadd_rn(1.0f, fabsf(__fsub_rn(img2[doff + p], m2)));
-    const float d1 = __fsub_rn(__fdiv_rn(e2, e1), 1.0f);
-    const float art = d1 < 0.0f ? 0.0f : d1;
-    const float det = -d1 < 0.0f ? 0.0f : -d1;
-    const double x[3] = {d, art, det};
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const double sq = __dmul_rn(x[j], x[j]);
-      v[j] = __dadd_rn(v[j], x[j]);
-      v[3 + j] = __dadd_rn(v[3 + j], __dmul_rn(sq, sq));
-    }
-  }
-  block_sums(v, red);
+  for (long long p = start + threadIdx.x; p < end; p += kNormThreads)
+    add_norms(img1[roff + p], mu1[roff + p], s11[roff + p], img2[doff + p],
+              mu2[doff + p], s22[doff + p], s12[doff + p], c2, v);
+  const double sum = block_sums(v, red);
   if (threadIdx.x < kSums)
     partial[(static_cast<long long>(plane) * gridDim.x + blockIdx.x) * kSums +
-            threadIdx.x] = v[threadIdx.x];
+            threadIdx.x] = sum;
 }
 
 // Second pass: one block per plane folds its nblk partials, in order.
-__global__ void __launch_bounds__(kNormThreads)
-norms_fold_kernel(const double* __restrict__ partial, int nblk,
-                  double* __restrict__ out) {
+__device__ __forceinline__ void fold_partials(const double* __restrict__ partial,
+                                              int nblk,
+                                              double* __restrict__ out) {
   __shared__ double red[kNormWarps][kSums];
   const long long base = static_cast<long long>(blockIdx.x) * nblk;
   double v[kSums] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
@@ -716,8 +780,189 @@ norms_fold_kernel(const double* __restrict__ partial, int nblk,
 #pragma unroll
     for (int j = 0; j < kSums; ++j)
       v[j] = __dadd_rn(v[j], partial[(base + b) * kSums + j]);
-  block_sums(v, red);
-  if (threadIdx.x < kSums) out[blockIdx.x * kSums + threadIdx.x] = v[threadIdx.x];
+  const double sum = block_sums(v, red);
+  if (threadIdx.x < kSums) out[blockIdx.x * kSums + threadIdx.x] = sum;
+}
+
+__global__ void __launch_bounds__(kNormThreads)
+norms_fold_kernel(const double* __restrict__ partial, int nblk,
+                  double* __restrict__ out) {
+  fold_partials(partial, nblk, out);
+}
+
+// The distorted side's blur and the norms in one pass (K2d's per-scale
+// work without its three intermediate maps; see the note at the top):
+// blur_march on the candidates with the raw copy of b, whose vertical
+// pass keeps each thread's kSumRows outputs of the three maps in
+// registers, reads img1, mu1 and s11 at those pixels from device memory
+// and b from ring map 3, and adds each pixel to the thread's six float64
+// sums (add_norms). The block then reduces them (block_sums) into one
+// partial per (plane, strip, segment): partial[(plane * nblk + by * gx +
+// bx) * 6 + j], nblk = gx * gy, which blur_sums_fold_kernel folds in
+// order.
+// kSumRows = 4 gives each of the 256 threads one column of 4 rows a step;
+// with four blocks to an SM that fits 64 registers without a spill. Of the
+// shapes timed at 3840x2160x4 (NVIDIA H100 80GB HBM3, 700 W), it was the
+// fastest at 1.11 ms; 4 rows and three blocks (72 registers) took 1.15
+// ms, 2 rows 1.25 ms, 8 rows (the blur's; half the threads idle in the
+// vertical pass) 1.15-1.19 ms at three blocks, with a spill at radius 0,
+// and 1.52 ms at two. A grid ordered candidate-fastest, so that a shared
+// reference's planes come from L2 for all but the first candidate, gained
+// nothing (1.111-1.113 ms against 1.110-1.114 in one call).
+constexpr int kSumRows = 4, kSumBlocks = 4;
+static_assert(kStepRows % kSumRows == 0, "whole tasks");
+
+template <int R>
+__global__ void __launch_bounds__(kBlurThreads, kSumBlocks)
+blur_sums_kernel(const float* __restrict__ img1,
+                 const float* __restrict__ mu1,
+                 const float* __restrict__ s11, long long ref_stride,
+                 const float* __restrict__ img2, int h, int w,
+                 const float* __restrict__ taps, int vec, float c2,
+                 double* __restrict__ partial) {
+  using T = BlurStrip<R>;
+  constexpr int TW = kStripW, RB = kStepRows, kRows = kSumRows;
+  constexpr int kTaps = 2 * R + 1;
+  constexpr int kRing = T::kRing;
+  __shared__ double red[kNormWarps][kSums];
+
+  float k[kTaps];
+#pragma unroll
+  for (int i = 0; i < kTaps; ++i) k[i] = __ldg(taps + i);
+
+  const int plane = blockIdx.z;  // n * 3 + channel
+  const int n = plane / 3, c = plane - 3 * (plane / 3);
+  const long long hw = static_cast<long long>(h) * w;
+  const long long roff = n * ref_stride + c * hw;
+  const float* a = img1 + roff;
+  const float* b = img2 + plane * hw;
+  const int x0 = blockIdx.x * TW;
+  const int ys = blockIdx.y * kSegRows, ye = min(h, ys + kSegRows);
+  const int tw = min(TW, w - x0);  // columns inside the plane
+  const int tid = threadIdx.x;
+  double v[kSums] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+
+  blur_march<true, true, R>(
+      a, b, h, w, 0, x0, ys, ye, tw, vec, k,
+      [&](const float* hor, int base, int ob) {
+        if (ob + RB <= ys) return;
+        for (int task = tid; task < (RB / kRows) * TW;
+             task += kBlurThreads) {
+          const int g = task / TW, col = task - g * TW;
+          const int oy = ob + g * kRows;
+          if (col >= tw || oy + kRows <= ys || oy >= ye) continue;
+          // the reference's planes at the outputs, loaded ahead of the
+          // vertical pass
+          float r1[kRows], rm[kRows], rs[kRows];
+#pragma unroll
+          for (int j = 0; j < kRows; ++j) {
+            const long long p =
+                static_cast<long long>(oy + j) * w + x0 + col;
+            const bool in = oy + j >= ys && oy + j < ye;
+            r1[j] = in ? a[p] : 0.0f;
+            rm[j] = in ? mu1[roff + p] : 0.0f;
+            rs[j] = in ? s11[roff + p] : 0.0f;
+          }
+          const int slot0 = (base + RB + g * kRows) % kRing;
+          float m[3][kRows];  // mu2, s22, s12 at the thread's outputs
+#pragma unroll
+          for (int o = 0; o < 3; ++o) {
+            const float* hp = hor + o * kRing * TW + col;
+#pragma unroll
+            for (int j = 0; j < kRows; ++j) m[o][j] = 0.0f;
+            int slot = slot0;
+#pragma unroll
+            for (int i = 0; i < kRows + 2 * R; ++i) {
+              const float val = hp[slot * TW];
+              if (++slot == kRing) slot = 0;
+#pragma unroll
+              for (int j = 0; j < kRows; ++j)
+                if (i - j >= 0 && i - j < kTaps)
+                  m[o][j] = __fmaf_rn(k[i - j], val, m[o][j]);
+            }
+          }
+          const float* raw = hor + 3 * kRing * TW + col;
+#pragma unroll
+          for (int j = 0; j < kRows; ++j) {
+            if (oy + j < ys || oy + j >= ye) continue;
+            int slot = slot0 + j + R;  // the centre row of output j
+            if (slot >= kRing) slot -= kRing;
+            add_norms(r1[j], rm[j], rs[j], raw[slot * TW], m[0][j], m[1][j],
+                      m[2][j], c2, v);
+          }
+        }
+      });
+  const double sum = block_sums(v, red);
+  if (tid < kSums)
+    partial[(static_cast<long long>(plane) * gridDim.x * gridDim.y +
+             static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) *
+                kSums +
+            tid] = sum;
+}
+
+// blur_sums_kernel's second pass: norms_fold_kernel under a name of its
+// own, so that a trace tells the two paths apart.
+__global__ void __launch_bounds__(kNormThreads)
+blur_sums_fold_kernel(const double* __restrict__ partial, int nblk,
+                      double* __restrict__ out) {
+  fold_partials(partial, nblk, out);
+}
+
+template <int R>
+cudaError_t launch_blur_sums(const float* img1, const float* mu1,
+                             const float* s11, long long ref_stride,
+                             const float* img2, int n, int h, int w,
+                             const float* taps, int vec, float c2,
+                             double* partial, int nblk, double* out,
+                             cudaStream_t stream) {
+  auto kernel = blur_sums_kernel<R>;
+  // the blur's strip and a fourth ring map: 52 KB at radius 8
+  constexpr size_t smem = BlurStrip<R>::bytes(2, 4);
+  static_assert(smem * kSumBlocks <= 220 * 1024, "kSumBlocks to an SM");
+  if constexpr (smem > 48 * 1024) {
+    // once per device, not at every launch: set at every launch, calls
+    // at 512x512x4 took 0.109 ms back to back on an H100 against 0.042
+    // on the card, as if the host waited for the launches before
+    static std::atomic<unsigned long long> raised{0};  // bit d: device d
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
+    if (!bit || !(raised.load(std::memory_order_relaxed) & bit)) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      raised.fetch_or(bit, std::memory_order_relaxed);
+    }
+  }
+  const dim3 grid((w + kStripW - 1) / kStripW, (h + kSegRows - 1) / kSegRows,
+                  3 * n);
+  kernel<<<grid, kBlurThreads, smem, stream>>>(img1, mu1, s11, ref_stride,
+                                               img2, h, w, taps, vec, c2,
+                                               partial);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  blur_sums_fold_kernel<<<3 * n, kNormThreads, 0, stream>>>(partial, nblk,
+                                                            out);
+  return cudaGetLastError();
+}
+
+template <int R = kMaxRadius>
+cudaError_t dispatch_blur_sums(int radius, const float* img1,
+                               const float* mu1, const float* s11,
+                               long long ref_stride, const float* img2,
+                               int n, int h, int w, const float* taps,
+                               int vec, float c2, double* partial, int nblk,
+                               double* out, cudaStream_t stream) {
+  if (radius == R)
+    return launch_blur_sums<R>(img1, mu1, s11, ref_stride, img2, n, h, w,
+                               taps, vec, c2, partial, nblk, out, stream);
+  if constexpr (R > 0)
+    return dispatch_blur_sums<R - 1>(radius, img1, mu1, s11, ref_stride,
+                                     img2, n, h, w, taps, vec, c2, partial,
+                                     nblk, out, stream);
+  return cudaErrorInvalidValue;
 }
 
 constexpr int kIirThreads = 128;
@@ -1087,4 +1332,31 @@ extern "C" int ssim2_norms(const float* img1, const float* mu1,
   if (err != cudaSuccess) return static_cast<int>(err);
   norms_fold_kernel<<<3 * n, kNormThreads, 0, stream>>>(partial, nblk, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ssim2_norms of the distorted side's blur, in one pass that keeps mu2,
+// s22 and s12 out of device memory: the (n, 3, 6) float64 sums that
+// ssim2_norms(img1, mu1, s11, img2, ssim2_blur(img1, img2)) gives, from
+// the same float32 maps (the blur's bits), summed in another order.
+// img1, mu1, s11 (n or 1, 3, h, w; ref_batched says which); img2 (n, 3, h,
+// w); taps: 2*radius+1 floats, radius 0..8; partial: scratch of n * 3 *
+// nblk * 6 doubles, nblk = ceil(w/64) * ceil(h/128) (the blur's strips
+// and segments).
+extern "C" int ssim2_blur_norms(const float* img1, const float* mu1,
+                                const float* s11, int ref_batched,
+                                const float* img2, int n, int h, int w,
+                                const float* taps, int radius, float c2,
+                                double* partial, int nblk, double* out,
+                                cudaStream_t stream) {
+  if (!blur_args_ok(n, h, w, 0, radius) ||
+      static_cast<long long>(nblk) !=
+          static_cast<long long>((w + kStripW - 1) / kStripW) *
+              ((h + kSegRows - 1) / kSegRows))
+    return cudaErrorInvalidValue;
+  const long long hw = static_cast<long long>(h) * w;
+  // 16-byte staging loads: every row and the staged span start on 16 bytes
+  const int vec = w % 4 == 0 && aligned16(img1) && aligned16(img2);
+  return static_cast<int>(dispatch_blur_sums(
+      radius, img1, mu1, s11, ref_batched ? 3 * hw : 0, img2, n, h, w, taps,
+      vec, c2, partial, nblk, out, stream));
 }

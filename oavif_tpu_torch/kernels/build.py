@@ -46,6 +46,8 @@ entries = {
     "ssim2_blur_iir": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "ssim2_norms": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I,
                     _P, _P],
+    "ssim2_blur_norms": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _F, _P, _I,
+                         _P, _P],
     "dstage_coeffs16": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "dstage_coeffs16_simple": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "dstage_quant16": [_P, _I, _I, _P, _P, _F, _P, _P, _P, _P],

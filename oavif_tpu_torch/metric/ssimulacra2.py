@@ -6,7 +6,7 @@ reference's layouts at the public functions: uint8 ``(H, W, 3)`` images
 in, planar ``(3, H, W)`` float32 inside, a candidate batch as a leading
 ``N``.
 
-Four hand-written CUDA kernels (``csrc/ssimulacra2.cu``) do the device
+Five hand-written CUDA kernels (``csrc/ssimulacra2.cu``) do the device
 work, each with its candidate batch ``N`` as a grid dimension (the
 reference's vmapped ``_score_batch``):
 
@@ -33,7 +33,14 @@ reference's vmapped ``_score_batch``):
   its intermediates are stored as 32x32 tiles);
 - ``ssim2_norms``: the SSIM error, artifact and detail-lost maps reduced
   to their sums and sums of 4th powers per channel, in float64, in a fixed
-  order (no atomics), so a repeated score is bit-identical.
+  order (no atomics), so a repeated score is bit-identical;
+- ``ssim2_blur_norms``: the candidates' side of a scale in one pass, the
+  blur's march whose vertical pass hands the three maps to the norms in
+  registers, so that mu2, s22 and s12 never reach device memory. Its maps
+  are ``ssim2_blur``'s bits and its sums ``ssim2_norms``'s in another
+  order. The score takes it under the Gaussian; ``blur_iir`` and
+  ``ssim2_norms`` stay for the recursive blur, and the pair for the
+  width-sharded metric (``metric/sharded.py``).
 
 Each sits beside its plain PyTorch version (``*_plain``), which a CPU
 tensor takes; a CUDA tensor takes the kernel or raises. The feature
@@ -62,6 +69,10 @@ _SIGMA = 1.5
 _KERNEL_RADIUS = 8  # exp(-r²/2σ²) < 3e-7 beyond r=8 at σ=1.5
 _MAX_KERNEL_RADIUS = 8  # the largest radius the blur kernels are built for
 _NORM_CHUNK = 4096  # pixels per block of the norms kernel's first pass
+# a blur block's columns and rows (kStripW, kSegRows in csrc/ssimulacra2.cu):
+# the fused kernel writes one partial sum per block
+_STRIP_W = 64
+_SEG_ROWS = 128
 
 # SSIMULACRA 2.1 fitted weights, channel-major (X, Y, B), then scale 0..5,
 # then [ssim_1, artifact_1, detail_1, ssim_4, artifact_4, detail_4]
@@ -583,28 +594,76 @@ def ssim2_norms(img1, mu1, s11, img2, mu2, s22, s12) -> torch.Tensor:
 ssim2_norms.launches = 0
 
 
+def ssim2_blur_norms_plain(img1, mu1, s11, img2,
+                           radius: int = _KERNEL_RADIUS) -> torch.Tensor:
+    """ssim2_norms_plain over ssim2_blur_plain's distorted-side maps: the
+    (N, 3, 6) float64 sums of one scale's candidates against the reference
+    planes img1, mu1, s11 (1 or N, 3, h, w)."""
+    return ssim2_norms_plain(img1, mu1, s11, img2,
+                             *ssim2_blur_plain(img1, img2, radius))
+
+
+def ssim2_blur_norms(img1, mu1, s11, img2,
+                     radius: int = _KERNEL_RADIUS) -> torch.Tensor:
+    """ssim2_blur_norms_plain's result; on CUDA tensors from the fused
+    kernel (two launches: the blur's march with the norms in its vertical
+    pass, one partial per block, then a fold in a fixed order; counted once
+    in ``ssim2_blur_norms.launches``), on CPU tensors from the plain
+    version. Tensors on both raise."""
+    planes = (img1, mu1, s11, img2)
+    if all(t.device.type == "cpu" for t in planes):
+        return ssim2_blur_norms_plain(img1, mu1, s11, img2, radius)
+    name = "ssim2_blur_norms"
+    _check_cuda(name, *planes)
+    _check_planes(name, *planes)
+    if not img1.shape == mu1.shape == s11.shape:
+        raise ValueError(f"{name}: reference plane shapes differ")
+    if not 0 <= radius <= _MAX_KERNEL_RADIUS:
+        raise ValueError(f"{name}: radius {radius} outside "
+                         f"0..{_MAX_KERNEL_RADIUS}")
+    batched = _ref_batched(name, img1, img2)
+    n, _, h, w = img2.shape
+    nblk = -(-w // _STRIP_W) * -(-h // _SEG_ROWS)
+    partial = torch.empty((n * 3, nblk, 6), dtype=torch.float64,
+                          device=img2.device)
+    out = torch.empty((n, 3, 6), dtype=torch.float64, device=img2.device)
+    taps = _taps(radius, img2.device)
+    launch(ssim2_blur_norms, name, img2, img1.data_ptr(), mu1.data_ptr(),
+           s11.data_ptr(), batched, img2.data_ptr(), n, h, w,
+           taps.data_ptr(), radius, _C2, partial.data_ptr(), nblk,
+           out.data_ptr())
+    return out
+
+
+ssim2_blur_norms.launches = 0
+
+
 class MetricOps(NamedTuple):
     """The device steps the metric runs: the kernels, or their plain
     versions (to hold one against the other on the card). ``blur_iir``
-    takes the place of ``blur`` under OAVIF_METRIC_BLUR=iir."""
+    takes the place of ``blur`` under OAVIF_METRIC_BLUR=iir. The
+    candidates' side of a scale is ``blur_norms`` under the Gaussian, and
+    ``blur_iir`` then ``norms`` under the recursive blur."""
 
     pyramid: Callable
     blur: Callable
     norms: Callable
     blur_iir: Callable
+    blur_norms: Callable
 
-    def blurs(self, img1, img2=None):
-        """The scale's blurs under OAVIF_METRIC_BLUR: (mu1, s11), or
-        (mu2, s22, s12) against the candidates img2."""
+    def blurs(self, img1):
+        """The reference side's blurs of a scale under OAVIF_METRIC_BLUR:
+        (mu1, s11)."""
         radius = blur_radius()
         if radius is None:
-            return self.blur_iir(img1, img2)
-        return self.blur(img1, img2, radius)
+            return self.blur_iir(img1)
+        return self.blur(img1, None, radius)
 
 
-KERNELS = MetricOps(ssim2_pyramid, ssim2_blur, ssim2_norms, ssim2_blur_iir)
+KERNELS = MetricOps(ssim2_pyramid, ssim2_blur, ssim2_norms, ssim2_blur_iir,
+                    ssim2_blur_norms)
 PLAIN = MetricOps(ssim2_pyramid_plain, ssim2_blur_plain, ssim2_norms_plain,
-                  ssim2_blur_iir_plain)
+                  ssim2_blur_iir_plain, ssim2_blur_norms_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -670,11 +729,14 @@ def scale_features(ref_pyr: Pyramid, dist: torch.Tensor,
     against a reference pyramid."""
     feats = []
     src = dist
+    radius = blur_radius()
     for img1, mu1, s11 in ref_pyr:
         src, img2 = ops.pyramid(src)
-        mu2, s22, s12 = ops.blurs(img1[None], img2)
-        sums = ops.norms(img1[None], mu1[None], s11[None], img2, mu2, s22,
-                         s12)
+        ref = (img1[None], mu1[None], s11[None])
+        if radius is None:
+            sums = ops.norms(*ref, img2, *ops.blur_iir(img1[None], img2))
+        else:
+            sums = ops.blur_norms(*ref, img2, radius)
         feats.append(features_from_sums(sums, img2.shape[2] * img2.shape[3]))
     return torch.stack(feats, 1)
 

@@ -2,7 +2,8 @@
 encode-stage, recursive-blur and Wiener kernels on an NVIDIA GPU: build,
 launch, and equality with their plain PyTorch versions; the blur, the
 encode-stage coefficients and quantization and the Wiener filter against
-the first kernel of each (kept as yardsticks), bit for bit; the halo blur against the
+the first kernel of each (kept as yardsticks), bit for bit; the fused blur
+and norms against the pair it replaces; the halo blur against the
 single-device blur's columns, and the width-sharded metric on two ranks
 sharing the card. Skipped without CUDA.
 
@@ -309,6 +310,88 @@ def test_score_kernels_equal_plain_identity_and_repeat(cuda, h, w):
     assert float(got[0]) == 100.0
     assert torch.equal(got, again)
     assert float((got - plain).abs().max()) <= 0.01
+
+
+# ssim2_blur_norms against the pair it replaces, ssim2_norms over
+# ssim2_blur's maps: the same float32 maps, the float64 sums in another
+# order, so rtol 1e-10 and atol 0. 1030x3840 has 60 strips and 9 segments,
+# the last one ragged; 37x53 and 8x8 a width that is no multiple of 4
+# (4-byte staging loads).
+@pytest.mark.parametrize("ref_batched", [False, True])
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("radius", [0, 5, 8])
+@pytest.mark.parametrize("h,w", [(8, 8), (37, 53), (256, 320), (1030, 3840)])
+def test_blur_norms_kernel_equals_pair(cuda, h, w, radius, n, ref_batched):
+    ref, dist = _batch(cuda, n, h, w)
+    img2 = M.ssim2_pyramid(dist)[1]
+    img1 = (img2.flip(0).contiguous() if ref_batched
+            else M.ssim2_pyramid(ref[None])[1])
+    mu1, s11 = M.ssim2_blur(img1, None, radius)
+    launches = M.ssim2_blur_norms.launches
+    got = M.ssim2_blur_norms(img1, mu1, s11, img2, radius)
+    assert M.ssim2_blur_norms.launches == launches + 1
+    pair = M.ssim2_norms(img1, mu1, s11, img2,
+                         *M.ssim2_blur(img1, img2, radius))
+    again = M.ssim2_blur_norms(img1, mu1, s11, img2, radius)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 3, 6) and got.dtype == torch.float64
+    torch.testing.assert_close(got, pair, rtol=1e-10, atol=0)
+    assert torch.equal(got, again)
+    if not ref_batched or n == 1:
+        # candidate 0 (noise 0) is the reference: every map is exactly 0
+        assert torch.count_nonzero(got[0]) == 0
+    if n > 1 and radius:  # at radius 0 the blur is the plane itself
+        assert torch.all(got[1:, :, 1] > 0)
+
+
+def test_blur_norms_kernel_takes_planes_off_16_byte_alignment(cuda):
+    """Contiguous views that start 4 bytes into their storage take the
+    4-byte staging loads and give the same sums."""
+    ref, dist = _batch(cuda, 2, 40, 72)
+    img1 = M.ssim2_pyramid(ref[None])[1]
+    img2 = M.ssim2_pyramid(dist)[1]
+    mu1, s11 = M.ssim2_blur(img1, None, 8)
+    want = M.ssim2_blur_norms(img1, mu1, s11, img2, 8)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+        return view
+
+    got = M.ssim2_blur_norms(*map(shifted, (img1, mu1, s11, img2)), 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_blur_norms_kernel_rejects_bad_input(cuda):
+    ref, dist = _batch(cuda, 2, 37, 53)
+    img1 = M.ssim2_pyramid(ref[None])[1]
+    img2 = M.ssim2_pyramid(dist)[1]
+    mu1, s11 = M.ssim2_blur(img1, None, 8)
+    launches = M.ssim2_blur_norms.launches
+    bad = {
+        "radius 9": (img1, mu1, s11, img2, 9),
+        "radius -1": (img1, mu1, s11, img2, -1),
+        "narrower candidates": (img1, mu1, s11,
+                                img2[..., :-1].contiguous(), 8),
+        "reference planes differ": (img1, mu1[..., :-1].contiguous(),
+                                    s11, img2, 8),
+        "three references for two": tuple(
+            t.expand(3, -1, -1, -1).contiguous() for t in (img1, mu1, s11))
+        + (img2, 8),
+        "float64": (img1, mu1, s11, img2.double(), 8),
+        "not contiguous": (img1, mu1, s11, img2.transpose(2, 3), 8),
+        "three dimensions": (img1[0], mu1[0], s11[0], img2[0], 8),
+        "candidates on the CPU": (img1, mu1, s11, img2.cpu(), 8),
+        "reference on the CPU": (img1.cpu(), mu1, s11, img2, 8),
+    }
+    for what, args in bad.items():
+        with pytest.raises(ValueError):
+            M.ssim2_blur_norms(*args)
+            pytest.fail(what)
+    assert M.ssim2_blur_norms.launches == launches
 
 
 def test_metric_kernels_reject_bad_input(cuda):
